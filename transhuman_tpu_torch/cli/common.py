@@ -1,0 +1,52 @@
+"""Shared entry-point plumbing: body model, cluster table, model + pipeline
+(counterpart of transhuman_tpu/cli/common.py)."""
+
+from __future__ import annotations
+
+import os
+import sys
+from typing import Optional
+
+from ..config import Config
+from ..geometry.clusters import ClusterSpec
+from ..geometry.smpl import SMPLModel
+from ..models.network import TransHumanNet
+from ..render.pipeline import RenderPipeline
+
+
+def load_smpl(cfg: Config) -> SMPLModel:
+    """The licensed SMPL model from cfg.smpl_dir, or the seeded stand-in."""
+    try:
+        return SMPLModel.load(cfg.smpl_dir)
+    except (FileNotFoundError, OSError):
+        print(f"WARNING: SMPL pickle not found under {cfg.smpl_dir!r}; using "
+              "the synthetic stand-in body (tests/benchmarks only).",
+              file=sys.stderr)
+        return SMPLModel.synthetic()
+
+
+def load_cluster_spec(cfg: Config, smpl: SMPLModel) -> ClusterSpec:
+    """The reference kmeans table for cfg.num_class, or k-means over the
+    template when the table is absent."""
+    path = os.path.join(cfg.kmeans_dir, f"kmeans_dict_{cfg.num_class}.npy")
+    if os.path.exists(path):
+        return ClusterSpec.load_reference_dict(path)
+    print(f"WARNING: {path} not found; running k-means over the template.",
+          file=sys.stderr)
+    return ClusterSpec.from_kmeans(smpl.v_template, cfg.num_class)
+
+
+def build_runtime(cfg: Config, device, smpl: Optional[SMPLModel] = None):
+    """(model, pipe, smpl, cluster) with the model's weights on ``device``
+    (freshly initialised: load a checkpoint into ``model`` afterwards)."""
+    if smpl is None:
+        smpl = load_smpl(cfg)
+    cluster = load_cluster_spec(cfg, smpl)
+    model = TransHumanNet.from_config(cfg).to(device).eval()
+    pipe = RenderPipeline(
+        model, cluster, smpl.v_template, n_samples=cfg.N_samples,
+        chunk_rays=max(cfg.chunk_size // cfg.N_samples, 1),
+        cull_distance=cfg.cull_distance, white_bkgd=cfg.white_bkgd,
+        device=device,
+    )
+    return model, pipe, smpl, cluster

@@ -1,0 +1,100 @@
+"""The serving configuration of the port.
+
+The keys that the render path reads, with the names and defaults of
+transhuman_tpu/config.py::Config (which mirror the reference's
+``configs/train_or_eval.yaml``); tests hold the defaults equal.  ``merge_opts``
+takes the reference's ``key value key value ...`` override list.  Keys that
+only steer the JAX package's TPU execution are ignored with a warning; any
+other unknown key is an error.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import sys
+from dataclasses import dataclass, field
+from typing import List
+
+# TPU/static-shape execution knobs of the JAX package with no job here
+TPU_ONLY_KEYS = frozenset({
+    "pad_bucket", "compact_ratio", "use_pallas_knn", "mesh_axis_data",
+    "mesh_axis_rays", "mesh_axis_model", "remat", "profile_dir",
+})
+
+
+@dataclass
+class TestConfig:
+    input_view: List[int] = field(default_factory=lambda: [0, 7, 15])
+
+
+@dataclass
+class Config:
+    # dataset / request defaults
+    ratio: float = 0.5
+    H: int = 1024
+    W: int = 1024
+    white_bkgd: bool = False
+    mask_bkgd: bool = True
+    big_box: bool = False
+    smpl_dir: str = "data/smplx/smpl"
+    kmeans_dir: str = "data/kmeans_dict"
+    # architecture
+    N_samples: int = 64
+    view_res: int = 4
+    vit_depth: int = 12
+    vit_variant: str = "tiny"
+    num_class: int = 300
+    KNN: int = 7
+    KNN_FREQ: int = 10
+    KNN_DIST_ALPHA: float = 0.5
+    KNN_SIGMA: float = 0.25
+    use_truncation: bool = False
+    # execution
+    compute_dtype: str = "float32"
+    chunk_size: int = 32768  # points per decode chunk
+    cull_distance: float = 0.1
+    test: TestConfig = field(default_factory=TestConfig)
+
+    @property
+    def H_render(self) -> int:
+        return int(self.H * self.ratio)
+
+    @property
+    def W_render(self) -> int:
+        return int(self.W * self.ratio)
+
+    def merge_opts(self, opts: List[str]) -> "Config":
+        """A copy with ``key value`` overrides applied (dotted keys reach
+        nested sections, e.g. ``test.input_view 0,7,15``)."""
+        if len(opts) % 2:
+            raise ValueError(f"overrides must be key value pairs: {opts}")
+        out = dataclasses.replace(self, test=dataclasses.replace(self.test))
+        for key, raw in zip(opts[0::2], opts[1::2]):
+            if key in TPU_ONLY_KEYS:
+                print(f"WARNING: config key {key!r} steers the TPU package "
+                      "only; ignored", file=sys.stderr)
+                continue
+            *path, name = key.split(".")
+            node = out
+            for p in path:
+                node = getattr(node, p, None)
+            if node is None or name not in {
+                    f.name for f in dataclasses.fields(node)}:
+                raise ValueError(f"unknown or unsupported config key {key!r}")
+            setattr(node, name, _coerce(getattr(node, name), raw, key))
+        return out
+
+
+def _coerce(cur, raw, key):
+    if not isinstance(raw, str):
+        return raw
+    try:
+        if isinstance(cur, bool):
+            if raw.lower() not in ("true", "false"):
+                raise ValueError(raw)
+            return raw.lower() == "true"
+        if isinstance(cur, list):
+            return [int(x) for x in raw.strip("[]() ").split(",") if x.strip()]
+        return type(cur)(raw)
+    except ValueError as e:
+        raise ValueError(f"bad value {raw!r} for config key {key!r}") from e

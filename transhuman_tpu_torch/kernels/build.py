@@ -1,0 +1,155 @@
+"""Build and load the hand-written CUDA kernels (nvcc -> .so, ctypes ABI).
+
+Every ``csrc/*.cu`` file is compiled by one nvcc call into
+``transhuman_tpu_torch/_build/libkernels.so`` for Hopper (``sm_90a``), with a
+plain C interface and no PyTorch headers, so the build takes seconds.  The
+library is built on first use, never at import, and rebuilt whenever the
+sources or flags change (a sha256 stamp sits beside it).  Each C entry takes
+raw device pointers and the CUDA stream as ``void*`` and returns an error
+code, which :func:`check` turns into an exception.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import glob
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+from dataclasses import dataclass
+
+_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CSRC_DIR = os.path.join(_PKG, "csrc")
+BUILD_DIR = os.path.join(_PKG, "_build")
+LIB_PATH = os.path.join(BUILD_DIR, "libkernels.so")
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_SIGNATURES = {
+    # pts, refs, bias2, out, n, m, stream
+    "thp_min_excess2": ((_P, _P, _P, _P, _I, _I, _P), _I),
+    # pts, centers, rot, tokens, tok, pe, dist, n, c, v, d, k, n_freqs,
+    # alpha, stream
+    "thp_dparf": ((_P,) * 7 + (_I,) * 6 + (_F, _P), _I),
+    "thp_error_string": ((_I,), ctypes.c_char_p),
+}
+
+_lock = threading.Lock()
+_lib = None  # the loaded CDLL; dlopen is process-wide, so is this
+
+
+@dataclass
+class BuildResult:
+    path: str
+    seconds: float
+    log: str  # nvcc's output, including ptxas' register and spill report
+
+
+def sources():
+    return sorted(glob.glob(os.path.join(CSRC_DIR, "*.cu")))
+
+
+def _fingerprint() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in sorted(glob.glob(os.path.join(CSRC_DIR, "*.cu*"))):
+        with open(path, "rb") as f:
+            h.update(os.path.basename(path).encode() + f.read())
+    return h.hexdigest()
+
+
+def find_nvcc() -> str:
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
+    for cand in (
+        shutil.which("nvcc"),
+        os.path.join(home, "bin", "nvcc") if home else None,
+        "/usr/local/cuda/bin/nvcc",
+    ):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError(
+        "nvcc not found (PATH, $CUDA_HOME/bin, /usr/local/cuda/bin): the "
+        "CUDA kernels of transhuman_tpu_torch cannot be built"
+    )
+
+
+def build() -> BuildResult:
+    """Compile every csrc/*.cu into LIB_PATH (atomic replace)."""
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    tmp = f"{LIB_PATH}.{os.getpid()}.tmp"
+    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", tmp, *sources()]
+    t0 = time.perf_counter()
+    try:
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
+                f"{proc.stdout}{proc.stderr}"
+            )
+        os.replace(tmp, LIB_PATH)
+    finally:
+        if os.path.exists(tmp):
+            os.remove(tmp)
+    with open(LIB_PATH + ".sha256", "w") as f:
+        f.write(_fingerprint())
+    return BuildResult(LIB_PATH, time.perf_counter() - t0,
+                       proc.stdout + proc.stderr)
+
+
+def _stale() -> bool:
+    try:
+        with open(LIB_PATH + ".sha256") as f:
+            return f.read().strip() != _fingerprint()
+    except OSError:
+        return True
+
+
+def library() -> ctypes.CDLL:
+    """The kernel library, built first if missing or stale."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            if _stale() or not os.path.exists(LIB_PATH):
+                build()
+            lib = ctypes.CDLL(LIB_PATH)
+            for name, (argtypes, restype) in _SIGNATURES.items():
+                fn = getattr(lib, name)
+                fn.argtypes = argtypes
+                fn.restype = restype
+            _lib = lib
+        return _lib
+
+
+def loaded() -> bool:
+    return _lib is not None
+
+
+def check_tensors(name: str, **tensors):
+    """Raise unless every tensor is float32, contiguous and on one CUDA
+    device: the C entries take raw pointers and trust them."""
+    import torch
+
+    dev = None
+    for arg, t in tensors.items():
+        if not isinstance(t, torch.Tensor) or not t.is_cuda:
+            raise ValueError(f"{name}: {arg} must be a CUDA tensor")
+        if t.dtype != torch.float32:
+            raise TypeError(f"{name}: {arg} must be float32, got {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: {arg} must be contiguous")
+        if dev is not None and t.device != dev:
+            raise ValueError(f"{name}: all tensors must share one device")
+        dev = t.device
+
+
+def check(code: int, what: str):
+    """Raise if a C entry returned an error code."""
+    if code != 0:
+        msg = library().thp_error_string(code).decode()
+        raise RuntimeError(f"{what}: CUDA kernel failed ({code}): {msg}")
+

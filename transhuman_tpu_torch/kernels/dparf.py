@@ -1,0 +1,94 @@
+"""K2 wrapper: DPaRF binding (kNN softmax, local sin/cos code, token sum).
+
+``dparf_cuda`` launches ``csrc/dparf.cu``, which replaces both
+``transhuman_tpu/experiments/dparf.py::dparf_fused`` and
+``transhuman_tpu/experiments/dparf2.py::dparf_fused2``.  ``dparf_plain`` is
+its plain PyTorch twin: the composition of
+``transhuman_tpu/models/heads.py::dparf_representation``.  ``dparf`` routes a
+CUDA tensor to the kernel and a CPU tensor to the plain version.
+
+All three return (tok (V, N, D), pe (N, 3 + 6 n_freqs), dist (N, k)).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..models.embedder import embed_dparf
+from ..ops import knn
+from . import build
+
+KERNEL_N_FREQS = 10  # csrc/dparf.cu is compiled for this band count
+KERNEL_MAX_K = 8
+
+
+def dparf_plain(pts, centers, rot, tokens, k: int = 7, alpha: float = 0.5,
+                n_freqs: int = 10):
+    """pts (N,3), centers (C,3), rot (C,3,3) or (C,9), tokens (V,C,D)."""
+    n, c = pts.shape[0], centers.shape[0]
+    aux = torch.cat([centers, rot.reshape(c, 9)], dim=1)  # (C, 12)
+    d2 = knn.pairwise_dist2(pts, centers)
+    w_dense, dist, aux_k, w = knn.dparf_dense_weights(d2, k, alpha, aux=aux)
+    centers_k = aux_k[..., :3]
+    rot_k = aux_k[..., 3:].reshape(n, k, 3, 3)
+    local = torch.einsum("nki,nkij->nkj", pts[:, None, :] - centers_k, rot_k)
+    pe = torch.einsum("nk,nkd->nd", w, embed_dparf(local, n_freqs))
+    tok = torch.einsum("nc,vcd->vnd", w_dense, tokens)
+    return tok, pe, dist
+
+
+def dparf_cuda(pts, centers, rot, tokens, k: int = 7, alpha: float = 0.5,
+               n_freqs: int = 10):
+    """K2 on float32 CUDA tensors; same contract as dparf_plain."""
+    c = centers.shape[0]
+    rot9 = rot.reshape(c, 9)
+    build.check_tensors("dparf_cuda", pts=pts, centers=centers, rot=rot9,
+                        tokens=tokens)
+    n = pts.shape[0]
+    if tokens.dim() != 3 or tokens.shape[1] != c:
+        raise ValueError(
+            f"dparf_cuda: tokens {tuple(tokens.shape)} must be (V, {c}, D)")
+    v, _, d = tokens.shape
+    if pts.shape != (n, 3) or centers.shape != (c, 3):
+        raise ValueError(
+            f"dparf_cuda: pts {tuple(pts.shape)}, centers "
+            f"{tuple(centers.shape)}; want (N,3), (C,3)")
+    if n_freqs != KERNEL_N_FREQS:
+        raise ValueError(
+            f"dparf_cuda: the kernel is built for n_freqs={KERNEL_N_FREQS}, "
+            f"got {n_freqs}")
+    if not 1 <= k <= min(KERNEL_MAX_K, c):
+        raise ValueError(
+            f"dparf_cuda: k={k} outside 1..min({KERNEL_MAX_K}, C={c})")
+    if n >= 2**31 // 64 or c >= 2**31 // 12:
+        raise ValueError("dparf_cuda: extent too large for int32")
+    pe_dim = 3 + 6 * n_freqs
+    tok = torch.empty((v, n, d), dtype=torch.float32, device=pts.device)
+    pe = torch.empty((n, pe_dim), dtype=torch.float32, device=pts.device)
+    dist = torch.empty((n, k), dtype=torch.float32, device=pts.device)
+    if n == 0:
+        return tok, pe, dist
+    lib = build.library()
+    with torch.cuda.device(pts.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        code = lib.thp_dparf(
+            pts.data_ptr(), centers.data_ptr(), rot9.data_ptr(),
+            tokens.data_ptr(), tok.data_ptr(), pe.data_ptr(), dist.data_ptr(),
+            n, c, v, d, k, n_freqs, float(alpha), stream,
+        )
+    build.check(code, "dparf_cuda")
+    dparf_cuda.launches += 1
+    return tok, pe, dist
+
+
+dparf_cuda.launches = 0
+
+
+def dparf(pts, centers, rot, tokens, k: int = 7, alpha: float = 0.5,
+          n_freqs: int = 10):
+    """K2 for a CUDA tensor, the plain composition for a CPU tensor."""
+    if pts.is_cuda:
+        return dparf_cuda(pts, centers, rot, tokens, k, alpha, n_freqs)
+    if pts.device.type != "cpu":
+        raise ValueError(f"dparf: no kernel for device {pts.device}")
+    return dparf_plain(pts, centers, rot, tokens, k, alpha, n_freqs)

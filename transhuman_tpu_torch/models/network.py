@@ -1,0 +1,75 @@
+"""Top-level TransHuman network (counterpart of transhuman_tpu/models/network.py).
+
+    encode_views(images)                     -> (holder_map, pixel_map)
+    refine_tokens(tokens, pe)                -> tokens'
+    query(pts, centers, rot, tokens, pixel_feat, viewdir, mask) -> raw (N, 4)
+    decode(human_rep, pixel_feat, viewdir, mask)                -> raw (N, 4)
+
+Its state dict is the reference layout (``encoder.model.*``, ``ViT.*``,
+``fc_0`` ...) without the reference's dead weights (its unused SparseConvNet,
+ResNet stages 3-4, ``cls_token``, BatchNorm running statistics and PE
+buffers); ``weights.load_reference_state_dict`` drops those and loads the
+rest strictly.
+"""
+
+from __future__ import annotations
+
+from .encoder import SpatialEncoder
+from .heads import NeRFHeads, dparf_representation
+from .vit import VARIANTS, TransHE
+
+
+class TransHumanNet(NeRFHeads):
+    def __init__(self, embed_dim: int = 192, vit_depth: int = 12,
+                 vit_heads: int = 3, knn_k: int = 7,
+                 knn_dist_alpha: float = 0.5, knn_freqs: int = 10,
+                 view_freqs: int = 4, use_truncation: bool = False,
+                 knn_sigma: float = 0.25):
+        super().__init__(rep_dim=embed_dim + 3 + 6 * knn_freqs,
+                         view_dim=3 + 6 * view_freqs)
+        self.embed_dim = embed_dim
+        self.vit_depth = vit_depth
+        self.knn_k = knn_k
+        self.knn_dist_alpha = knn_dist_alpha
+        self.knn_freqs = knn_freqs
+        self.view_freqs = view_freqs
+        self.use_truncation = use_truncation
+        self.knn_sigma = knn_sigma
+        self.encoder = SpatialEncoder(embed_dim)
+        self.ViT = TransHE(embed_dim, vit_depth, vit_heads)
+
+    @classmethod
+    def from_config(cls, cfg):
+        if cfg.compute_dtype != "float32":
+            raise ValueError(
+                f"compute_dtype={cfg.compute_dtype!r}: the PyTorch port runs "
+                "float32 only so far"
+            )
+        embed_dim, heads = VARIANTS[cfg.vit_variant]
+        return cls(embed_dim=embed_dim, vit_depth=cfg.vit_depth,
+                   vit_heads=heads, knn_k=cfg.KNN,
+                   knn_dist_alpha=cfg.KNN_DIST_ALPHA, knn_freqs=cfg.KNN_FREQ,
+                   view_freqs=cfg.view_res, use_truncation=cfg.use_truncation,
+                   knn_sigma=cfg.KNN_SIGMA)
+
+    def encode_views(self, images):
+        """images (V,H,W,3) -> holder_map (V,H,W,D), pixel_map (V,H,W,384)."""
+        return self.encoder(images)
+
+    def refine_tokens(self, tokens, pe):
+        """tokens (V,C,D); pe the stored (C,D) or (V,C,D) PE table."""
+        if pe.dim() == 2:
+            pe = pe[None].expand(tokens.shape[0], *pe.shape)
+        return self.ViT(tokens, pe)
+
+    def query(self, pts_smpl, cluster_centers, cluster_rot, tokens,
+              pixel_feat, viewdir_embed):
+        """raw (N, 4) for points in SMPL coordinates (see heads.py); with
+        use_truncation, points whose nearest cluster is knn_sigma or farther
+        decode to 0."""
+        rep, keep = dparf_representation(
+            pts_smpl, cluster_centers, cluster_rot, tokens, k=self.knn_k,
+            dist_alpha=self.knn_dist_alpha, n_freqs=self.knn_freqs,
+            knn_sigma=self.knn_sigma if self.use_truncation else None,
+        )
+        return self.decode(rep, pixel_feat, viewdir_embed, keep)

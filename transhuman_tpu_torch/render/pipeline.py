@@ -1,0 +1,164 @@
+"""The frame render: painting -> TransHE -> cull -> DPaRF/NeRF decode ->
+compositing (counterpart of transhuman_tpu/render/pipeline.py).
+
+* ``prologue``, once per frame: encode the V input views, project the SMPL
+  vertices into each, sample the holder map there, mask by visibility,
+  mean-pool into cluster tokens and refine them with TransHE.
+* ``render_frame``: sample every ray, then per chunk of ``chunk_rays`` rays
+  cull the points farther than ``cull_distance`` from the target-pose body
+  (kernel K1 on the card), decode only the survivors (pixel-feature fetch,
+  DPaRF binding in kernel K2, the heads), scatter their raw outputs back into
+  zeros, and composite.  The compaction is dynamic (boolean indexing), as in
+  the reference; a culled point contributes raw = 0 exactly as in the JAX
+  package's dense render (``render_frame_dense`` with ``compact_ratio=None``),
+  which is the parity target.  The JAX package's static-shape machinery
+  (compaction capacity, ray padding) has no job here.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, fields
+
+import numpy as np
+import torch
+
+from ..geometry.clusters import ClusterSpec, normalize_positions
+from ..kernels.cull import shell_cull
+from ..models.embedder import embed_viewdir
+from ..ops.sampling import project_points, sample_feature_map
+from ..weights import reference_pe_table
+from .volume import composite, sample_along_rays
+
+
+class _TensorFields:
+    def to(self, device):
+        """A copy with every tensor field moved to ``device``."""
+        return type(self)(**{f.name: getattr(self, f.name).to(device)
+                             for f in fields(self)})
+
+
+@dataclass
+class FrameInputs(_TensorFields):
+    """One frame's inputs; V reference views, Nv SMPL vertices."""
+
+    images: torch.Tensor  # (V, H, W, 3) float, background masked out
+    vizmaps: torch.Tensor  # (V, Nv) float {0,1} vertex visibility per view
+    K: torch.Tensor  # (V, 3, 3) intrinsics at render resolution
+    R: torch.Tensor  # (V, 3, 3) world -> camera rotations
+    T: torch.Tensor  # (V, 3) translations
+    verts_world: torch.Tensor  # (Nv, 3) painting-frame vertices, world
+    tar_verts_smpl: torch.Tensor  # (Nv, 3) target-pose vertices, SMPL coords
+    blend_rot: torch.Tensor  # (Nv, 3, 3) rotation blocks of blend matrices
+    Rh: torch.Tensor  # (3, 3) target world -> SMPL rotation
+    Th: torch.Tensor  # (3,) target world -> SMPL translation
+
+
+def to_smpl(frame: FrameInputs, pts_world):
+    """World -> SMPL coordinates of the target pose."""
+    return (pts_world - frame.Th) @ frame.Rh
+
+
+@dataclass
+class RayBundle(_TensorFields):
+    ray_o: torch.Tensor  # (R, 3)
+    ray_d: torch.Tensor  # (R, 3)
+    near: torch.Tensor  # (R,)
+    far: torch.Tensor  # (R,)
+    mask: torch.Tensor  # (R,) bool, False for rays that render nothing
+
+
+@dataclass
+class Prologue:
+    """Per-frame quantities shared by every chunk of rays."""
+
+    tokens: torch.Tensor  # (V, C, D) TransHE-refined cluster tokens
+    pixel_map: torch.Tensor  # (V, H, W, 384)
+    centers: torch.Tensor  # (C, 3) cluster centres, SMPL coords
+    rot: torch.Tensor  # (C, 3, 3) pooled blend rotations
+
+
+class RenderPipeline:
+    """The render of one frame, closing over the model and the static
+    cluster/PE tables, which live on ``device``."""
+
+    def __init__(self, model, cluster: ClusterSpec, canonical_verts,
+                 n_samples: int = 64, chunk_rays: int = 512,
+                 cull_distance: float = 0.1, white_bkgd: bool = False,
+                 device="cpu"):
+        self.model = model
+        self.device = torch.device(device)
+        self.n_samples = n_samples
+        self.chunk_rays = chunk_rays
+        self.cull_distance = cull_distance
+        self.white_bkgd = white_bkgd
+        self.pool = torch.as_tensor(cluster.pool_matrix, dtype=torch.float32,
+                                    device=self.device)  # (C, Nv)
+        # TransHE's positional code: the canonical cluster centroids in the
+        # reference's fixed [-1.5, 1.5]^3 box, through the stored table
+        canon = cluster.pool_matrix @ np.asarray(canonical_verts, np.float32)
+        self.pe_can = torch.as_tensor(
+            reference_pe_table(normalize_positions(canon, 1.5),
+                               model.embed_dim), device=self.device)  # (C, D)
+        self.last_frame_stats = {"points": 0, "survivors": 0}
+
+    @torch.no_grad()
+    def prologue(self, frame: FrameInputs) -> Prologue:
+        holder_map, pixel_map = self.model.encode_views(frame.images)
+        uv, _ = project_points(frame.verts_world, frame.K, frame.R, frame.T)
+        latent = sample_feature_map(holder_map, uv, frame.images.shape[1:3])
+        holder = latent * frame.vizmaps[..., None]
+        tokens = self.model.refine_tokens(self.pool @ holder, self.pe_can)
+        centers = self.pool @ frame.tar_verts_smpl
+        rot = torch.einsum("cv,vij->cij", self.pool, frame.blend_rot)
+        return Prologue(tokens=tokens.contiguous(), pixel_map=pixel_map,
+                        centers=centers.contiguous(), rot=rot.contiguous())
+
+    def _cull(self, pts_smpl, verts_smpl):
+        """(N,) bool: closer than cull_distance to the body (K1 on the card)."""
+        return shell_cull(pts_smpl.contiguous(), verts_smpl.contiguous(),
+                          self.cull_distance)
+
+    @torch.no_grad()
+    def query_points(self, frame: FrameInputs, pro: Prologue, pts_world,
+                     viewdir_embed):
+        """pts_world (N,3), viewdir_embed (N,27) -> raw (N,4)."""
+        pts_smpl = to_smpl(frame, pts_world)
+        uv, _ = project_points(pts_world, frame.K, frame.R, frame.T)
+        pixel_feat = sample_feature_map(pro.pixel_map, uv,
+                                        frame.images.shape[1:3])
+        return self.model.query(pts_smpl.contiguous(), pro.centers, pro.rot,
+                                pro.tokens, pixel_feat, viewdir_embed)
+
+    @torch.no_grad()
+    def render_frame(self, frame: FrameInputs, rays: RayBundle):
+        """rgb_map (R,3), acc_map (R,), depth_map (R,) for R rays of any
+        count; rays with mask False render zeros."""
+        r, s, cr = rays.ray_o.shape[0], self.n_samples, self.chunk_rays
+        pro = self.prologue(frame)
+        viewdir = rays.ray_d / torch.linalg.norm(rays.ray_d, dim=-1,
+                                                 keepdim=True)
+        vde = embed_viewdir(viewdir, self.model.view_freqs)  # (R, 27)
+        pts, z_vals = sample_along_rays(rays.ray_o, rays.ray_d, rays.near,
+                                        rays.far, s)
+        raw = torch.zeros((r * s, 4), dtype=pts.dtype, device=pts.device)
+        n_survivors = 0
+        for a in range(0, r, cr):
+            b = min(a + cr, r)
+            flat = pts[a:b].reshape(-1, 3)
+            keep = self._cull(to_smpl(frame, flat), frame.tar_verts_smpl)
+            keep &= rays.mask[a:b].repeat_interleave(s)
+            idx = torch.nonzero(keep)[:, 0]
+            if idx.numel() == 0:
+                continue
+            n_survivors += idx.numel()
+            raw[a * s + idx] = self.query_points(frame, pro, flat[idx],
+                                                 vde[a + idx // s])
+        self.last_frame_stats = {"points": r * s, "survivors": n_survivors}
+        out = composite(raw.reshape(r, s, 4), z_vals, rays.ray_d,
+                        self.white_bkgd)
+        m = rays.mask.to(out["acc_map"].dtype)
+        return {
+            "rgb_map": out["rgb_map"] * m[:, None],
+            "acc_map": out["acc_map"] * m,
+            "depth_map": out["depth_map"] * m,
+        }
