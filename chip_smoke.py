@@ -1,18 +1,29 @@
 #!/usr/bin/env python3
-"""On-card smoke run of the PyTorch port's serving path (one NVIDIA GPU).
+"""On-card smoke run of the PyTorch port's serving and training paths (one
+NVIDIA GPU).
 
 Run from the repository root: ``python3 chip_smoke.py``.  Phases, in order;
 any failure ends the run with a non-zero exit:
 
 1. device: a CUDA card, its name and power limit (nvidia-smi), TF32 off;
-2. build: the CUDA kernels from transhuman_tpu_torch/csrc with nvcc;
+2. build: the CUDA kernels from transhuman_tpu_torch/csrc with nvcc, one
+   process per source, all started together;
 3. kernels: K1 (cull) and K2 (DPaRF) against their plain PyTorch versions
-   on the card at the render path's shapes, with both timed;
+   on the card at the render path's shapes, K2's token gradient against
+   autograd through the plain version, and K3 (the feature-fetch backward)
+   against its plain version at both train shapes with the ids of a real
+   train batch; all timed;
 4. slice parity: one 64x64 request through RenderService on the card and on
    the CPU (plain versions) with the same full-width weights;
 5. serve: the full-width RenderService behind RenderServer on loopback,
    three 512x512 POST /render requests, with the kernels' launch counters
-   reset just before and read just after.
+   reset just before and read just after;
+6. train parity: one full-width train step at 64x64 on the card and on the
+   CPU from the same weights, jitter off: loss, gradients, updated weights;
+7. train: the train entry point at full width (3 views at 512x512, 2,400
+   rays x 64 samples) for 5 steps, with the launch counters reset just
+   before and read just after; every parameter the forward reads gets a
+   finite gradient and moves, and the checkpoint serves.
 
 The second-to-last line is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}.  Imports only torch, numpy and the port.
@@ -22,8 +33,11 @@ from __future__ import annotations
 
 import io
 import json
+import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 import urllib.request
 
@@ -32,6 +46,10 @@ import torch
 
 CULL_DISTANCE = 0.1
 N_CHUNK = 32768  # points per decode chunk (Config.chunk_size)
+TRAIN_STEPS = 5
+# the train forward never reads TransHE's token-masking weight (nor does the
+# JAX package's): it gets no gradient and does not move
+UNREAD_PARAMS = {"ViT.mask_token"}
 
 
 class SmokeFailure(RuntimeError):
@@ -114,7 +132,6 @@ def phase_kernels(card: str):
     from transhuman_tpu_torch.geometry.clusters import ClusterSpec
     from transhuman_tpu_torch.geometry.smpl import SMPLModel
     from transhuman_tpu_torch.kernels import cull, dparf
-    from transhuman_tpu_torch.ops.knn import topk_min, pairwise_dist2
 
     dev = torch.device("cuda")
     rng = np.random.default_rng(0)
@@ -165,20 +182,25 @@ def phase_kernels(card: str):
     tokens = torch.from_numpy(
         rng.standard_normal((3, 300, 192)).astype(np.float32)).to(dev)
     k = 7
-    tok_k, pe_k, dist_k = dparf.dparf_cuda(pts, centers, rot, tokens, k)
-    tok_p, pe_p, dist_p = dparf.dparf_plain(pts, centers, rot, tokens, k)
+    tok_k, pe_k, dist_k, idx_k, w_k = dparf.dparf_cuda(pts, centers, rot,
+                                                       tokens, k)
+    tok_p, pe_p, dist_p, idx_p, w_p = dparf.dparf_plain(pts, centers, rot,
+                                                       tokens, k)
     torch.cuda.synchronize()
     ties = knn_near_ties(pts, centers, k)
     ok = ~ties
     tok_err = float((tok_k - tok_p)[:, ok].abs().max())
     pe_err = float((pe_k - pe_p)[ok].abs().max())
     dist_err = float((dist_k - dist_p).abs().max())
-    _, idx_p = topk_min(pairwise_dist2(pts, centers), k)
     d_sel = torch.cdist(pts.double(), centers.double()).gather(1, idx_p)
     check(dist_err <= 1e-5, f"K2: max |dist kernel - plain| = {dist_err}")
     check(bool(((dist_k.double() - d_sel).abs() <= 1e-5)[ok].all()),
           "K2: kernel distances are not those of the plain neighbours")
     check(tok_err <= 1e-4, f"K2: tok max err {tok_err} > 1e-4 off ties")
+    check(bool((idx_k.long() == idx_p)[ok].all()),
+          "K2: the neighbour indices differ off ties")
+    w_err = float((w_k - w_p)[ok].abs().max())
+    check(w_err <= 1e-5, f"K2: weight max err {w_err} > 1e-5 off ties")
     check(pe_err <= 5e-4, f"K2: pe max err {pe_err} > 5e-4 off ties")
     check(float(ties.float().mean()) < 0.05,
           f"K2: {int(ties.sum())} near-tie points, more than 5%")
@@ -194,7 +216,113 @@ def phase_kernels(card: str):
         "replaces": "transhuman_tpu/experiments/dparf.py:115",
         "max_abs_err": max(tok_err, pe_err), "ms": ms, "plain_ms": plain_ms,
     })
+
+    # K2's token gradient and K3, on one full-width train batch -----------
+    uv_pix, uv_verts, image, binding = train_batch_projections(dev)
+    check_dparf_grad(card, *binding, k)
+    results.append(check_dfeat_scatter(card, uv_pix, uv_verts, image))
     return results
+
+
+def train_batch_projections(dev):
+    """What the train step's two feature fetches project, for sample 0 of
+    the full-width synthetic train data at step 0's seed, asked of the
+    pipeline the train entry point builds (render_train's own helpers):
+    (uv (3, 153600, 2) of the ray samples, masked rays collapsed onto one
+    texel; uv (3, 6890, 2) of the painted vertices; the image size; the
+    samples' SMPL coordinates (N, 3) with the cluster centres and
+    rotations)."""
+    from transhuman_tpu_torch.cli.train import build_trainer
+    from transhuman_tpu_torch.config import Config
+    from transhuman_tpu_torch.render.pipeline import fold_in, to_smpl
+
+    cfg = Config()
+    _, _, data, pipe = build_trainer(cfg, dev)
+    smp = data.get_train_sample(0).to(dev)
+    f = smp.frame
+    pts, _, pts_mask, _ = pipe.train_points(smp.rays, fold_in(cfg.seed, 0),
+                                            cfg.perturb > 0)
+    pro = pipe.prologue(f)
+    return (pipe.fetch_uv(f, pts, pts_mask), pipe.fetch_uv(f, f.verts_world),
+            tuple(f.images.shape[1:3]),
+            (to_smpl(f, pts).contiguous(), pro.centers, pro.rot))
+
+
+def check_dparf_grad(card: str, pts, centers, rot, k: int):
+    """K2's autograd Function: its token gradient against autograd through
+    the plain version, near-tie points given a zero cotangent."""
+    from transhuman_tpu_torch.kernels import dparf
+
+    g = torch.randn((3, pts.shape[0], 192), device=pts.device,
+                    generator=torch.Generator(pts.device).manual_seed(4))
+    ties = knn_near_ties(pts, centers, k)
+    g[:, ties] = 0.0
+    tokens = torch.randn((3, 300, 192), device=pts.device,
+                         generator=torch.Generator(pts.device).manual_seed(5))
+    tk = tokens.clone().requires_grad_(True)
+    (dparf.dparf(pts, centers, rot, tk, k)[0] * g).sum().backward()
+    tp = tokens.clone().requires_grad_(True)
+    (dparf.dparf_plain(pts, centers, rot, tp, k)[0] * g).sum().backward()
+    torch.cuda.synchronize()
+    err = float((tk.grad - tp.grad).abs().max())
+    scale = float(tp.grad.abs().max())
+    # ~3,600 weighted cotangent rows per centre, summed in two orders with
+    # weights from distances formed two ways
+    check(err <= 1e-3 + 1e-5 * scale,
+          f"K2 backward: max |d tokens| err {err} (max {scale})")
+    log(f"[3 kernels] K2 token gradient, {pts.shape[0]} train-batch points: "
+        f"max err {err:.3g} of max |d tokens| {scale:.3g}, "
+        f"{int(ties.sum())} near-tie points zeroed  [{card}]")
+
+
+def check_dfeat_scatter(card: str, uv_pix, uv_verts, image):
+    """K3 against its plain twin at both train shapes: the pixel fetch
+    (3, 512, 512, 384) at 153,600 points and the painting fetch
+    (3, 512, 512, 192) at 6,890 vertices; the wrapper (sort + zero-fill +
+    kernel) and its parts timed."""
+    from transhuman_tpu_torch.kernels import scatter
+    from transhuman_tpu_torch.ops.sampling import _sample_taps
+
+    entry = {"name": "dfeat_scatter", "route": "cuda",
+             "source": "transhuman_tpu_torch/csrc/scatter.cu",
+             "replaces": "transhuman_tpu/experiments/streamscatter.py:172"}
+    for tag, uv, c in (("pixel", uv_pix, 384), ("paint", uv_verts, 192)):
+        dev = uv.device
+        meta = torch.empty((3, image[0], image[1], c), device="meta")
+        _, _, base, wx, wy, dx, dy = _sample_taps(meta, uv, image)
+        ids = base.to(torch.int32).contiguous()
+        w4 = torch.stack([(1 - wx) * (1 - wy), wx * (1 - wy), (1 - wx) * wy,
+                          wx * wy], dim=-1).contiguous()
+        g = torch.randn((3, ids.shape[1], c), device=dev,
+                        generator=torch.Generator(dev).manual_seed(6))
+        hw = image[0] * image[1]
+        got = scatter.dfeat_scatter_cuda(ids, g, w4, hw, dx, dy)
+        want = scatter.dfeat_scatter_plain(ids, g, w4, hw, dx, dy)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        scale = float(want.abs().max())
+        # float32 sums in another order (atomics: run to run)
+        check(err <= 1e-4 + 1e-5 * scale,
+              f"K3 {tag}: max err {err} (max |d_feat| {scale})")
+        per_texel = ids.numel() / sum(int(torch.unique(i).numel())
+                                      for i in ids)
+        ms = time_ms(lambda: scatter.dfeat_scatter_cuda(ids, g, w4, hw, dx,
+                                                        dy))
+        plain_ms = time_ms(lambda: scatter.dfeat_scatter_plain(ids, g, w4, hw,
+                                                               dx, dy))
+        sort_ms = time_ms(lambda: torch.sort(ids, dim=1, stable=True))
+        zero_ms = time_ms(lambda: torch.zeros((3, hw, c), device=dev))
+        log(f"[3 kernels] K3 dfeat_scatter {tag}: V=3, N={ids.shape[1]}, "
+            f"C={c}, {hw} texels, {per_texel:.2f} rows per touched texel: "
+            f"max err {err:.3g} of max {scale:.3g}; wrapper {ms:.4f} ms "
+            f"(sort {sort_ms:.4f}, zero-fill {zero_ms:.4f}), plain "
+            f"{plain_ms:.4f} ms  [{card}]")
+        if tag == "pixel":
+            entry.update(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+        else:
+            entry.update(paint_ms=ms, paint_plain_ms=plain_ms,
+                         max_abs_err=max(entry["max_abs_err"], err))
+    return entry
 
 
 def _request(frame, target: int, hw: int, verts=None, blend_rot=None):
@@ -337,8 +465,141 @@ def phase_serve(card: str):
         log(line)
     log(f"[5 serve] launches {counts}; peak device memory {peak:.3f} GiB  "
         f"[{card}]")
-    for name, n in counts.items():
-        check(n > 0, f"serve: kernel {name} was not launched")
+    for name in ("min_excess2", "dparf"):
+        check(counts[name] > 0, f"serve: kernel {name} was not launched")
+    check(counts["dfeat_scatter"] == 0, "serve: a backward kernel ran")
+    return counts
+
+
+def _grads_and_update(state, p0):
+    return ({n: p.grad.detach().cpu() for n, p in
+             state.model.named_parameters() if p.grad is not None},
+            {n: p.detach().cpu() - p0[n] for n, p in
+             state.model.named_parameters()})
+
+
+def phase_train_parity(card: str):
+    """One train step at 64x64 (full-width model, 2 patches of 10x10 rays x
+    64 samples, jitter off) on the card and on the CPU from the same
+    seeded weights and sample."""
+    from transhuman_tpu_torch.cli.train import build_trainer
+    from transhuman_tpu_torch.config import Config
+
+    cfg = Config().merge_opts(["H", "128", "W", "128", "perturb", "0",
+                               "patch.N_patches", "2", "patch.size", "10"])
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        state, step_fn, data, _ = build_trainer(cfg, torch.device(dev))
+        p0 = {n: p.detach().cpu().clone()
+              for n, p in state.model.named_parameters()}
+        stats = step_fn(state, data.get_train_sample(0).to(dev), 0)
+        runs[dev] = (stats, p0, *_grads_and_update(state, p0))
+    (sg, p0g, gg, dg), (sc, p0c, gc, dc) = runs["cuda"], runs["cpu"]
+    check(all(torch.equal(p0g[n], p0c[n]) for n in p0c),
+          "train parity: the two runs start from different weights")
+    lerr = abs(sg["loss"] - sc["loss"]) / sc["loss"]
+    # float32 on both; sums in other orders, K2/K3 vs the plain versions
+    check(lerr <= 1e-4, f"train parity: loss {sg['loss']} vs {sc['loss']}")
+    check(set(gg) == set(gc) == set(p0c) - UNREAD_PARAMS,
+          "train parity: the parameters with a gradient differ")
+    # per leaf, relative to its norm, with a floor of 1e-5 of the largest
+    # leaf's norm: some leaves' gradients vanish in exact arithmetic (the
+    # pixel keys' bias: a constant shift of every key under the softmax over
+    # the keys) and hold float32 noise that differs between the two devices
+    gmax = max(float(gc[n].norm()) for n in gc)
+    rel = sorted(((float((gg[n] - gc[n]).norm())
+                   / (1e-3 * float(gc[n].norm()) + 1e-5 * gmax), n)
+                  for n in gc), reverse=True)
+    gerr = max(float((gg[n] - gc[n]).norm() / gc[n].norm()) for n in gc
+               if float(gc[n].norm()) > 1e-5 * gmax)
+    check(rel[0][0] <= 1.0, f"train parity: gradients differ beyond "
+          f"tolerance: {rel[:3]} (error / tolerance, leaf)")
+    lr = sc["lr"]
+    worst_tight = worst = 0.0
+    for n in gc:
+        d = (dg[n] - dc[n]).abs()
+        slack = 2 * lr * 1e-3 + 2 * torch.finfo(torch.float32).eps * (
+            p0c[n].abs() + 1)
+        # Adam's first update is -lr g / (|g| + 1e-8): +-lr wherever the
+        # sign of g is sure; elsewhere anywhere in [-lr, lr]
+        sure = (gc[n].abs() > 1e-6) & ((gg[n] - gc[n]).abs()
+                                       < 0.5 * gc[n].abs())
+        worst_tight = max(worst_tight, float((d - slack)[sure].max()
+                                             if sure.any() else 0.0))
+        worst = max(worst, float((d - slack).max()))
+    check(worst_tight <= 0.01 * lr and worst <= 2 * lr,
+          f"train parity: updates differ by {worst_tight} (sure sign) / "
+          f"{worst} (all) at lr {lr}")
+    log(f"[6 train parity] 64x64 full-width step, CUDA vs CPU: loss "
+        f"{sg['loss']:.7g} vs {sc['loss']:.7g} (rel {lerr:.3g}); max "
+        f"gradient err {gerr:.3g} of its leaf's norm (leaves above the "
+        f"floor); worst error/tolerance {rel[0][0]:.3g} ({rel[0][1]}); "
+        f"update err beyond rounding "
+        f"{worst_tight:.3g} where the sign is sure, {worst:.3g} anywhere, "
+        f"lr {lr:.4g}  [{card}]")
+
+
+def phase_train(card: str):
+    """The train entry point at full width for TRAIN_STEPS steps, counters
+    reset just before; then its checkpoint served at 64x64."""
+    from transhuman_tpu_torch import kernels
+    from transhuman_tpu_torch.cli import train as train_cli
+    from transhuman_tpu_torch.cli.common import build_runtime
+    from transhuman_tpu_torch.config import Config
+    from transhuman_tpu_torch.models.network import TransHumanNet
+    from transhuman_tpu_torch.serve import RenderService
+    from transhuman_tpu_torch.testing import init_weights
+    from transhuman_tpu_torch.weights import load_checkpoint_file
+
+    tmp = tempfile.mkdtemp(prefix="thp_smoke_")
+    try:
+        path = os.path.join(tmp, "latest.pth")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launch_counts()
+        state, records = train_cli.main(["--device", "cuda", "--steps",
+                                         str(TRAIN_STEPS), "--out", path])
+        torch.cuda.synchronize()
+        counts = kernels.launch_counts()
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        check(all(np.isfinite(r["loss"]) for r in records),
+              "train: a loss is not finite")
+        cfg = Config()
+        init = init_weights(TransHumanNet.from_config(cfg),
+                            torch.Generator().manual_seed(cfg.seed))
+        init = dict(init.named_parameters())
+        for n, p in state.model.named_parameters():
+            if n in UNREAD_PARAMS:
+                continue
+            check(p.grad is not None, f"train: {n} got no gradient")
+            check(bool(torch.isfinite(p.grad).all()),
+                  f"train: {n} has a non-finite gradient")
+            check(not torch.equal(p.detach().cpu(), init[n].detach()),
+                  f"train: {n} did not move")
+        check(counts["dparf"] >= TRAIN_STEPS and
+              counts["dfeat_scatter"] >= 2 * TRAIN_STEPS,
+              f"train: K2 / K3 not launched on every step: {counts}")
+        # the checkpoint serves
+        scfg = Config().merge_opts(["H", "128", "W", "128"])
+        model, pipe, smpl, _ = build_runtime(scfg, "cuda")
+        load_checkpoint_file(model, path)
+        from transhuman_tpu_torch.testing import synthetic_scene
+
+        frame, _, _ = synthetic_scene(image_hw=(64, 64))
+        out = RenderService(scfg, pipe, smpl).render(_request(frame, 1, 64))
+        check(all(np.isfinite(v).all() for v in out.values()),
+              "train: the trained checkpoint renders non-finite values")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    times = [r["step_s"] * 1e3 for r in records]
+    for r in records:
+        log(f"[7 train] step {r['step']}: loss {r['loss']:.6f}, lr "
+            f"{r['lr']:.4g}, {r['step_s'] * 1e3:.1f} ms (data "
+            f"{r['data_s'] * 1e3:.1f} ms)  [{card}]")
+    log(f"[7 train] full width, 3 views 512x512, 2400 rays x 64 samples: "
+        f"median step {float(np.median(times[1:])):.1f} ms over steps "
+        f"1-{len(times) - 1}; launches {counts}; peak device memory "
+        f"{peak:.3f} GiB; checkpoint served at 64x64  [{card}]")
     return counts
 
 
@@ -353,9 +614,17 @@ def main() -> int:
     phase_build()
     kernels = phase_kernels(card)
     phase_parity(card)
-    counts = phase_serve(card)
+    serve_counts = phase_serve(card)
+    phase_train_parity(card)
+    train_counts = phase_train(card)
     for k in kernels:
-        k["launches"] = counts[k["name"]]
+        # each kernel's count from the path it serves: K1 and K2 render,
+        # K3 trains (K2 runs on both; its train count rides along)
+        name = k["name"]
+        k["launches"] = (train_counts if name == "dfeat_scatter"
+                         else serve_counts)[name]
+        k["launches_by_path"] = {"serve": serve_counts[name],
+                                 "train": train_counts[name]}
     log(f"chip_smoke: all phases passed in {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -39,7 +39,7 @@ def plain(data):
 def test_plain_matches_jax_composition(data, plain):
     """Tolerances of tests/test_dparf_kernel.py: tok 2e-5, pe 2e-4 (the
     pi*2^9 band amplifies f32 rounding of the local coordinates)."""
-    tok, pe, dist = plain
+    tok, pe, dist, _, _ = plain
     rep, keep = jax_rep(*map(jnp.asarray, data))
     assert keep is None
     np.testing.assert_allclose(tok.numpy(), np.asarray(rep[..., :D]),
@@ -51,7 +51,7 @@ def test_plain_matches_jax_composition(data, plain):
 
 
 def test_plain_matches_pallas_kernel(data, plain):
-    tok, pe, dist = plain
+    tok, pe, dist, _, _ = plain
     jt, jp, jd = dparf_fused(*map(jnp.asarray, data), interpret=True)
     np.testing.assert_allclose(tok.numpy(), np.asarray(jt), atol=2e-5)
     np.testing.assert_allclose(pe.numpy(), np.asarray(jp), atol=2e-4)
@@ -80,7 +80,8 @@ def test_ties_order_by_lowest_index():
     rot = np.stack([np.eye(3, dtype=np.float32) * (i + 1) for i in range(8)])
     tokens = np.arange(2 * 8 * 4, dtype=np.float32).reshape(2, 8, 4)
     pts = np.zeros((1, 3), np.float32)
-    tok, pe, dist = kdparf.dparf_plain(*_t(pts, centers, rot, tokens), k=5)
+    tok, pe, dist, _, _ = kdparf.dparf_plain(*_t(pts, centers, rot, tokens),
+                                             k=5)
     rep, _ = jax_rep(*map(jnp.asarray, (pts, centers, rot, tokens)), k=5)
     np.testing.assert_allclose(tok.numpy(), np.asarray(rep[..., :4]),
                                atol=1e-6)

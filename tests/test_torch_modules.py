@@ -277,11 +277,20 @@ def test_pe_table_equals_the_converter_tool(rng):
                                       tool_pe_table(x, d))
 
 
+def _assert_fields_equal(t, j, path=""):
+    """Every field of the port's config section t equals the JAX package's
+    field of the same name, nested sections field by field."""
+    for f in tcfg.dataclasses.fields(t):
+        tv, jv = getattr(t, f.name), getattr(j, f.name)
+        if tcfg.dataclasses.is_dataclass(tv):
+            _assert_fields_equal(tv, jv, f"{path}{f.name}.")
+        else:
+            assert tv == jv, path + f.name
+
+
 def test_config_defaults_equal_the_jax_package():
     j, t = jcfg.Config(), tcfg.Config()
-    for f in tcfg.dataclasses.fields(t):
-        if f.name != "test":
-            assert getattr(t, f.name) == getattr(j, f.name), f.name
+    _assert_fields_equal(t, j)
     assert t.test.input_view == j.test.input_view
     assert (t.H_render, t.W_render) == (j.H_render, j.W_render)
     o = t.merge_opts(["H", "64", "ratio", "0.25", "white_bkgd", "True",
@@ -290,3 +299,8 @@ def test_config_defaults_equal_the_jax_package():
     assert t.H == 1024 and t.test.input_view == [0, 7, 15]  # t unchanged
     with pytest.raises(ValueError, match="unknown"):
         t.merge_opts(["no_such_key", "1"])
+    o = t.merge_opts(["train.scheduler.warmup_epochs", "2", "patch.size",
+                      "8", "perturb", "0", "train.optim", "sgd"])
+    assert (o.train.scheduler.warmup_epochs, o.patch.size, o.perturb,
+            o.train.optim) == (2, 8, 0.0, "sgd")
+    assert t.train.scheduler.warmup_epochs == 300 and t.patch.size == 20

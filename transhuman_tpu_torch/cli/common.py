@@ -47,6 +47,6 @@ def build_runtime(cfg: Config, device, smpl: Optional[SMPLModel] = None):
         model, cluster, smpl.v_template, n_samples=cfg.N_samples,
         chunk_rays=max(cfg.chunk_size // cfg.N_samples, 1),
         cull_distance=cfg.cull_distance, white_bkgd=cfg.white_bkgd,
-        device=device,
+        raw_noise_std=cfg.raw_noise_std, device=device,
     )
     return model, pipe, smpl, cluster

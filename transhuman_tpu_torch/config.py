@@ -1,6 +1,6 @@
-"""The serving configuration of the port.
+"""The serving and training configuration of the port.
 
-The keys that the render path reads, with the names and defaults of
+The keys that the render and train paths read, with the names and defaults of
 transhuman_tpu/config.py::Config (which mirror the reference's
 ``configs/train_or_eval.yaml``); tests hold the defaults equal.  ``merge_opts``
 takes the reference's ``key value key value ...`` override list.  Keys that
@@ -18,13 +18,46 @@ from typing import List
 # TPU/static-shape execution knobs of the JAX package with no job here
 TPU_ONLY_KEYS = frozenset({
     "pad_bucket", "compact_ratio", "use_pallas_knn", "mesh_axis_data",
-    "mesh_axis_rays", "mesh_axis_model", "remat", "profile_dir",
+    "mesh_axis_rays", "mesh_axis_model", "remat",
 })
 
 
 @dataclass
 class TestConfig:
     input_view: List[int] = field(default_factory=lambda: [0, 7, 15])
+
+
+@dataclass
+class PatchConfig:
+    """Patch-based ray sampling (reference configs/train_or_eval.yaml)."""
+
+    use_patch_sampling: bool = True
+    sample_subject_ratio: float = 0.8
+    N_patches: int = 6
+    size: int = 20
+
+
+@dataclass
+class SchedulerConfig:
+    """Warmup + cosine learning rate, stepped per epoch."""
+
+    type: str = "cosine"
+    warmup_epochs: int = 300
+    decay_epochs: int = 3000
+    end_lr: float = 1e-6
+
+
+@dataclass
+class TrainConfig:
+    batch_size: int = 1  # the port trains 1 sample per step (train/step.py)
+    lr: float = 7e-4
+    epoch: int = 3000
+    optim: str = "adam"  # adam | adamw | radam | sgd
+    weight_decay: float = 0.0
+    accum_steps: int = 1  # the port takes 1 only
+    cull: bool = False  # the SMPL cull on the train decode: not ported yet
+    cull_ratio: float = 0.35
+    scheduler: SchedulerConfig = field(default_factory=SchedulerConfig)
 
 
 @dataclass
@@ -36,6 +69,9 @@ class Config:
     white_bkgd: bool = False
     mask_bkgd: bool = True
     big_box: bool = False
+    N_rand: int = 1024
+    perturb: float = 1.0
+    train_num_views: int = 3
     smpl_dir: str = "data/smplx/smpl"
     kmeans_dir: str = "data/kmeans_dict"
     # architecture
@@ -49,10 +85,25 @@ class Config:
     KNN_DIST_ALPHA: float = 0.5
     KNN_SIGMA: float = 0.25
     use_truncation: bool = False
+    raw_noise_std: float = 0.0
+    # training
+    seed: int = 123
+    ep_iter: int = 500
+    exp_name: str = "transhuman_tpu"
+    task: str = "transhuman"
+    trained_model_dir: str = "data/trained_model"
+    l2rec_weight: float = 1.0
+    lpips_weight: float = 0.1
+    lpips_weights: str = ""  # '' disables LPIPS (not ported yet)
+    train: TrainConfig = field(default_factory=TrainConfig)
+    patch: PatchConfig = field(default_factory=PatchConfig)
     # execution
     compute_dtype: str = "float32"
     chunk_size: int = 32768  # points per decode chunk
     cull_distance: float = 0.1
+    # non-empty: the train entry point traces steps 5-8 (fewer in a short
+    # run) with torch.profiler and writes the trace and its summary here
+    profile_dir: str = ""
     test: TestConfig = field(default_factory=TestConfig)
 
     @property
@@ -68,7 +119,12 @@ class Config:
         nested sections, e.g. ``test.input_view 0,7,15``)."""
         if len(opts) % 2:
             raise ValueError(f"overrides must be key value pairs: {opts}")
-        out = dataclasses.replace(self, test=dataclasses.replace(self.test))
+        out = dataclasses.replace(
+            self, test=dataclasses.replace(self.test),
+            patch=dataclasses.replace(self.patch),
+            train=dataclasses.replace(
+                self.train,
+                scheduler=dataclasses.replace(self.train.scheduler)))
         for key, raw in zip(opts[0::2], opts[1::2]):
             if key in TPU_ONLY_KEYS:
                 print(f"WARNING: config key {key!r} steers the TPU package "

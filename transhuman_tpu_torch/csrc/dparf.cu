@@ -10,7 +10,9 @@
 //      PE_i = [local, sin(pi 2^f local), cos(pi 2^f local)] for f < NF,
 //      pe = sum_i w_i PE_i  (63 values at NF = 10);
 //   5. tok[v] = sum_i w_i tokens[v, idx_i, :]  for every view v.
-// Outputs: tok (V, N, D), pe (N, 63), dist (N, K) (euclidean, ascending).
+// Outputs: tok (V, N, D), pe (N, 63), dist (N, K) (euclidean, ascending),
+// and for the backward of step 5 the neighbour indices idx (N, K) int32 and
+// their normalised weights w (N, K).
 //
 // What bounds it: the bytes written.  At V = 3, D = 192 a point writes
 // 3 * 192 * 4 + 63 * 4 + K * 4 = 2.6 KB and reads 12 B; the arithmetic is
@@ -39,7 +41,8 @@ __global__ void __launch_bounds__(TILE)
 dparf_kernel(const float* __restrict__ pts, const float* __restrict__ centers,
              const float* __restrict__ rot, const float* __restrict__ tokens,
              float* __restrict__ tok, float* __restrict__ pe,
-             float* __restrict__ dist, int n, int c, int v, int d,
+             float* __restrict__ dist, int* __restrict__ idx,
+             float* __restrict__ wk, int n, int c, int v, int d,
              float alpha) {
   extern __shared__ float smem[];
   float* s_cr = smem;                    // (c, 12): centre xyz, rot row-major
@@ -154,8 +157,12 @@ dparf_kernel(const float* __restrict__ pts, const float* __restrict__ centers,
   // the block's rows of pe and dist are contiguous: plain coalesced copies
   for (int j = t; j < rows * PE_DIM; j += TILE)
     pe[static_cast<size_t>(n0) * PE_DIM + j] = s_pe[j];
-  for (int j = t; j < rows * K; j += TILE)
-    dist[static_cast<size_t>(n0) * K + j] = s_dist[j];
+  for (int j = t; j < rows * K; j += TILE) {
+    const size_t o = static_cast<size_t>(n0) * K + j;
+    dist[o] = s_dist[j];
+    idx[o] = s_idx[j];
+    wk[o] = s_w[j];
+  }
 
   // 5: one output float per thread and step; a warp covers 32 neighbouring
   // floats of one (view, point) row, so token reads and tok writes coalesce
@@ -177,8 +184,9 @@ dparf_kernel(const float* __restrict__ pts, const float* __restrict__ centers,
 
 template <int K>
 int launch(const float* pts, const float* centers, const float* rot,
-           const float* tokens, float* tok, float* pe, float* dist, int n,
-           int c, int v, int d, float alpha, cudaStream_t stream) {
+           const float* tokens, float* tok, float* pe, float* dist, int* idx,
+           float* wk, int n, int c, int v, int d, float alpha,
+           cudaStream_t stream) {
   const size_t smem = (12 * static_cast<size_t>(c) + TILE * (PE_DIM + 3 * K)) *
                       sizeof(float);
   if (smem > MAX_SMEM) return THP_ERR_SMEM;
@@ -190,18 +198,20 @@ int launch(const float* pts, const float* centers, const float* rot,
   }
   const int blocks = (n + TILE - 1) / TILE;
   dparf_kernel<K><<<blocks, TILE, smem, stream>>>(
-      pts, centers, rot, tokens, tok, pe, dist, n, c, v, d, alpha);
+      pts, centers, rot, tokens, tok, pe, dist, idx, wk, n, c, v, d, alpha);
   return thp_launch_status();
 }
 
 }  // namespace
 
 // pts (n, 3), centers (c, 3), rot (c, 9) row-major 3x3, tokens (v, c, d);
-// outputs tok (v, n, d), pe (n, 63), dist (n, k).  float32, contiguous.
+// outputs tok (v, n, d), pe (n, 63), dist (n, k), idx (n, k) int32,
+// w (n, k).  float32 unless stated, contiguous.
 THP_EXPORT int thp_dparf(const float* pts, const float* centers,
                          const float* rot, const float* tokens, float* tok,
-                         float* pe, float* dist, int n, int c, int v, int d,
-                         int k, int n_freqs, float alpha, void* stream) {
+                         float* pe, float* dist, int* idx, float* w, int n,
+                         int c, int v, int d, int k, int n_freqs, float alpha,
+                         void* stream) {
   if (n_freqs != NF) return THP_ERR_BAD_FREQS;
   if (n < 0 || v < 1 || d < 1 || c < k || TILE * d > (1 << 30) / v)
     return THP_ERR_BAD_SIZE;
@@ -209,8 +219,8 @@ THP_EXPORT int thp_dparf(const float* pts, const float* centers,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define THP_DPARF_CASE(KK)                                                    \
   case KK:                                                                    \
-    return launch<KK>(pts, centers, rot, tokens, tok, pe, dist, n, c, v, d,   \
-                      alpha, s);
+    return launch<KK>(pts, centers, rot, tokens, tok, pe, dist, idx, w, n, c, \
+                      v, d, alpha, s);
   switch (k) {
     THP_DPARF_CASE(1)
     THP_DPARF_CASE(2)

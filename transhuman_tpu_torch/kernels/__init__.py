@@ -1,4 +1,5 @@
-"""Hand-written CUDA kernels of the render path and their launch counters.
+"""Hand-written CUDA kernels of the render and train paths and their launch
+counters.
 
 Importing this package builds nothing: ``build.library()`` compiles
 ``csrc/*.cu`` with nvcc at the first launch.
@@ -8,8 +9,10 @@ from __future__ import annotations
 
 from .cull import min_excess2_cuda
 from .dparf import dparf_cuda
+from .scatter import dfeat_scatter_cuda
 
-_WRAPPERS = {"min_excess2": min_excess2_cuda, "dparf": dparf_cuda}
+_WRAPPERS = {"min_excess2": min_excess2_cuda, "dparf": dparf_cuda,
+             "dfeat_scatter": dfeat_scatter_cuda}
 
 
 def launch_counts() -> dict:

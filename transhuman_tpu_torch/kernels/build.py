@@ -1,8 +1,9 @@
 """Build and load the hand-written CUDA kernels (nvcc -> .so, ctypes ABI).
 
-Every ``csrc/*.cu`` file is compiled by one nvcc call into
-``transhuman_tpu_torch/_build/libkernels.so`` for Hopper (``sm_90a``), with a
-plain C interface and no PyTorch headers, so the build takes seconds.  The
+Every ``csrc/*.cu`` file is compiled for Hopper (``sm_90a``) by its own nvcc
+process, all started together, and the objects are linked into
+``transhuman_tpu_torch/_build/libkernels.so``; the sources have a plain C
+interface and no PyTorch headers, so the build takes seconds.  The
 library is built on first use, never at import, and rebuilt whenever the
 sources or flags change (a sha256 stamp sits beside it).  Each C entry takes
 raw device pointers and the CUDA stream as ``void*`` and returns an error
@@ -25,18 +26,20 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
 LIB_PATH = os.path.join(BUILD_DIR, "libkernels.so")
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = ARCH_FLAGS + (
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     # pts, refs, bias2, out, n, m, stream
     "thp_min_excess2": ((_P, _P, _P, _P, _I, _I, _P), _I),
-    # pts, centers, rot, tokens, tok, pe, dist, n, c, v, d, k, n_freqs,
-    # alpha, stream
-    "thp_dparf": ((_P,) * 7 + (_I,) * 6 + (_F, _P), _I),
+    # pts, centers, rot, tokens, tok, pe, dist, idx, w, n, c, v, d, k,
+    # n_freqs, alpha, stream
+    "thp_dparf": ((_P,) * 9 + (_I,) * 6 + (_F, _P), _I),
+    # ids_sorted, order, g, w4, out, v, n, c, hw, dx, dy, stream
+    "thp_dfeat_scatter": ((_P,) * 5 + (_I,) * 6 + (_P,), _I),
     "thp_error_string": ((_I,), ctypes.c_char_p),
 }
 
@@ -78,27 +81,41 @@ def find_nvcc() -> str:
     )
 
 
+def _run(cmds):
+    """Run the commands in parallel; raise with the output of any failure.
+    Returns their combined output."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    outs = [p.communicate()[0] for p in procs]  # waits for every process
+    for cmd, p, out in zip(cmds, procs, outs):
+        if p.returncode != 0:
+            raise RuntimeError(
+                f"nvcc failed ({p.returncode}):\n{' '.join(cmd)}\n{out}")
+    return "".join(outs)
+
+
 def build() -> BuildResult:
-    """Compile every csrc/*.cu into LIB_PATH (atomic replace)."""
+    """Compile every csrc/*.cu (one nvcc each, in parallel) and link them
+    into LIB_PATH (atomic replace)."""
     os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{LIB_PATH}.{os.getpid()}.tmp"
-    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", tmp, *sources()]
+    nvcc, tag = find_nvcc(), f"{os.getpid()}.tmp"
+    objs = [os.path.join(BUILD_DIR, os.path.basename(src) + f".{tag}.o")
+            for src in sources()]
+    tmp = f"{LIB_PATH}.{tag}"
     t0 = time.perf_counter()
     try:
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
-                f"{proc.stdout}{proc.stderr}"
-            )
+        log = _run([[nvcc, *NVCC_FLAGS, "-c", "-o", obj, src]
+                    for obj, src in zip(objs, sources())])
+        log += _run([[nvcc, *ARCH_FLAGS, "-shared", "-o", tmp, *objs]])
         os.replace(tmp, LIB_PATH)
     finally:
-        if os.path.exists(tmp):
-            os.remove(tmp)
+        for path in objs + [tmp]:
+            if os.path.exists(path):
+                os.remove(path)
     with open(LIB_PATH + ".sha256", "w") as f:
         f.write(_fingerprint())
-    return BuildResult(LIB_PATH, time.perf_counter() - t0,
-                       proc.stdout + proc.stderr)
+    return BuildResult(LIB_PATH, time.perf_counter() - t0, log)
 
 
 def _stale() -> bool:
@@ -129,17 +146,19 @@ def loaded() -> bool:
     return _lib is not None
 
 
-def check_tensors(name: str, **tensors):
-    """Raise unless every tensor is float32, contiguous and on one CUDA
-    device: the C entries take raw pointers and trust them."""
+def check_tensors(name: str, int32=(), **tensors):
+    """Raise unless every tensor is float32 (int32 for the names in
+    ``int32``), contiguous and on one CUDA device: the C entries take raw
+    pointers and trust them."""
     import torch
 
     dev = None
     for arg, t in tensors.items():
         if not isinstance(t, torch.Tensor) or not t.is_cuda:
             raise ValueError(f"{name}: {arg} must be a CUDA tensor")
-        if t.dtype != torch.float32:
-            raise TypeError(f"{name}: {arg} must be float32, got {t.dtype}")
+        want = torch.int32 if arg in int32 else torch.float32
+        if t.dtype != want:
+            raise TypeError(f"{name}: {arg} must be {want}, got {t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: {arg} must be contiguous")
         if dev is not None and t.device != dev:

@@ -4,10 +4,14 @@
 ``transhuman_tpu/experiments/dparf.py::dparf_fused`` and
 ``transhuman_tpu/experiments/dparf2.py::dparf_fused2``.  ``dparf_plain`` is
 its plain PyTorch twin: the composition of
-``transhuman_tpu/models/heads.py::dparf_representation``.  ``dparf`` routes a
-CUDA tensor to the kernel and a CPU tensor to the plain version.
+``transhuman_tpu/models/heads.py::dparf_representation``.  ``dparf`` is the
+differentiable binding: an autograd Function whose forward launches the
+kernel on a CUDA tensor and runs the plain twin (without a graph) on a CPU
+tensor, and whose backward gives the gradient of the token sum.
 
-All three return (tok (V, N, D), pe (N, 3 + 6 n_freqs), dist (N, k)).
+All return (tok (V, N, D), pe (N, 3 + 6 n_freqs), dist (N, k), idx (N, k)
+int, w (N, k)): idx and w are the neighbours and normalised weights that
+the token sum used, tok[v, n] = sum_j w[n, j] tokens[v, idx[n, j]].
 """
 
 from __future__ import annotations
@@ -28,18 +32,20 @@ def dparf_plain(pts, centers, rot, tokens, k: int = 7, alpha: float = 0.5,
     n, c = pts.shape[0], centers.shape[0]
     aux = torch.cat([centers, rot.reshape(c, 9)], dim=1)  # (C, 12)
     d2 = knn.pairwise_dist2(pts, centers)
-    w_dense, dist, aux_k, w = knn.dparf_dense_weights(d2, k, alpha, aux=aux)
+    w_dense, dist, aux_k, w, idx = knn.dparf_dense_weights(d2, k, alpha,
+                                                           aux=aux)
     centers_k = aux_k[..., :3]
     rot_k = aux_k[..., 3:].reshape(n, k, 3, 3)
     local = torch.einsum("nki,nkij->nkj", pts[:, None, :] - centers_k, rot_k)
     pe = torch.einsum("nk,nkd->nd", w, embed_dparf(local, n_freqs))
     tok = torch.einsum("nc,vcd->vnd", w_dense, tokens)
-    return tok, pe, dist
+    return tok, pe, dist, idx, w
 
 
 def dparf_cuda(pts, centers, rot, tokens, k: int = 7, alpha: float = 0.5,
                n_freqs: int = 10):
-    """K2 on float32 CUDA tensors; same contract as dparf_plain."""
+    """K2 on float32 CUDA tensors; same contract as dparf_plain (idx is
+    int32)."""
     c = centers.shape[0]
     rot9 = rot.reshape(c, 9)
     build.check_tensors("dparf_cuda", pts=pts, centers=centers, rot=rot9,
@@ -63,32 +69,75 @@ def dparf_cuda(pts, centers, rot, tokens, k: int = 7, alpha: float = 0.5,
     if n >= 2**31 // 64 or c >= 2**31 // 12:
         raise ValueError("dparf_cuda: extent too large for int32")
     pe_dim = 3 + 6 * n_freqs
-    tok = torch.empty((v, n, d), dtype=torch.float32, device=pts.device)
-    pe = torch.empty((n, pe_dim), dtype=torch.float32, device=pts.device)
-    dist = torch.empty((n, k), dtype=torch.float32, device=pts.device)
+    dev = pts.device
+    tok = torch.empty((v, n, d), dtype=torch.float32, device=dev)
+    pe = torch.empty((n, pe_dim), dtype=torch.float32, device=dev)
+    dist = torch.empty((n, k), dtype=torch.float32, device=dev)
+    idx = torch.empty((n, k), dtype=torch.int32, device=dev)
+    w = torch.empty((n, k), dtype=torch.float32, device=dev)
     if n == 0:
-        return tok, pe, dist
+        return tok, pe, dist, idx, w
     lib = build.library()
-    with torch.cuda.device(pts.device):
+    with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         code = lib.thp_dparf(
             pts.data_ptr(), centers.data_ptr(), rot9.data_ptr(),
             tokens.data_ptr(), tok.data_ptr(), pe.data_ptr(), dist.data_ptr(),
-            n, c, v, d, k, n_freqs, float(alpha), stream,
+            idx.data_ptr(), w.data_ptr(), n, c, v, d, k, n_freqs,
+            float(alpha), stream,
         )
     build.check(code, "dparf_cuda")
     dparf_cuda.launches += 1
-    return tok, pe, dist
+    return tok, pe, dist, idx, w
 
 
 dparf_cuda.launches = 0
 
 
+def token_grad(idx, w, g_tok, n_centers: int):
+    """d tokens (V, C, D) of tok[v, n] = sum_j w[n, j] tokens[v, idx[n, j]]
+    for the cotangent g_tok (V, N, D): the dense (N, C) weight matrix's
+    transpose times g_tok, as XLA transposes the JAX package's
+    einsum("nc,vcd->vnd")."""
+    dense = torch.zeros((idx.shape[0], n_centers), dtype=g_tok.dtype,
+                        device=g_tok.device)
+    dense.scatter_add_(1, idx.long(), w.to(g_tok.dtype))
+    return torch.matmul(dense.t(), g_tok)
+
+
+class _DPaRF(torch.autograd.Function):
+    """Gradients flow to the tokens only: the points come from the rays and
+    the centres and rotations from the SMPL fit, none of them trainable."""
+
+    @staticmethod
+    def forward(ctx, pts, centers, rot, tokens, k, alpha, n_freqs):
+        if any(ctx.needs_input_grad[:3]):
+            raise NotImplementedError(
+                "dparf: gradients flow to the tokens only, not to the "
+                "points, centres or rotations")
+        if pts.is_cuda:
+            out = dparf_cuda(pts, centers, rot, tokens, k, alpha, n_freqs)
+        elif pts.device.type == "cpu":
+            out = dparf_plain(pts, centers, rot, tokens, k, alpha, n_freqs)
+        else:
+            raise ValueError(f"dparf: no kernel for device {pts.device}")
+        tok, pe, dist, idx, w = out
+        ctx.mark_non_differentiable(pe, dist, idx, w)
+        ctx.save_for_backward(idx, w)
+        ctx.n_centers = centers.shape[0]
+        return out
+
+    @staticmethod
+    def backward(ctx, g_tok, *_):
+        d_tokens = None
+        if ctx.needs_input_grad[3]:
+            idx, w = ctx.saved_tensors
+            d_tokens = token_grad(idx, w, g_tok, ctx.n_centers)
+        return None, None, None, d_tokens, None, None, None
+
+
 def dparf(pts, centers, rot, tokens, k: int = 7, alpha: float = 0.5,
           n_freqs: int = 10):
-    """K2 for a CUDA tensor, the plain composition for a CPU tensor."""
-    if pts.is_cuda:
-        return dparf_cuda(pts, centers, rot, tokens, k, alpha, n_freqs)
-    if pts.device.type != "cpu":
-        raise ValueError(f"dparf: no kernel for device {pts.device}")
-    return dparf_plain(pts, centers, rot, tokens, k, alpha, n_freqs)
+    """The differentiable binding: K2 for a CUDA tensor, the plain
+    composition for a CPU tensor; the backward gives d tokens."""
+    return _DPaRF.apply(pts, centers, rot, tokens, k, alpha, n_freqs)

@@ -30,8 +30,8 @@ def dparf_representation(pts_smpl, cluster_centers, cluster_rot, tokens,
     Returns (human_rep (V, N, D + 3 + 6 n_freqs), keep (N,) bool or None);
     keep is the truncation dist_0 < knn_sigma when knn_sigma is given.  On a
     CUDA tensor the whole binding is kernel K2; on the CPU the plain
-    composition."""
-    tok, pe, dist = dparf(pts_smpl, cluster_centers, cluster_rot, tokens,
+    composition.  Differentiable in the tokens (kernels/dparf.py)."""
+    tok, pe, dist, _, _ = dparf(pts_smpl, cluster_centers, cluster_rot, tokens,
                           k, dist_alpha, n_freqs)
     keep = None if knn_sigma is None else dist[:, 0] < knn_sigma
     v, n, _ = tok.shape

@@ -2,7 +2,8 @@
 
     encode_views(images)                     -> (holder_map, pixel_map)
     refine_tokens(tokens, pe)                -> tokens'
-    query(pts, centers, rot, tokens, pixel_feat, viewdir, mask) -> raw (N, 4)
+    query(pts, centers, rot, tokens, pixel_feat, viewdir, pts_mask)
+                                             -> raw (N, 4)
     decode(human_rep, pixel_feat, viewdir, mask)                -> raw (N, 4)
 
 Its state dict is the reference layout (``encoder.model.*``, ``ViT.*``,
@@ -63,13 +64,15 @@ class TransHumanNet(NeRFHeads):
         return self.ViT(tokens, pe)
 
     def query(self, pts_smpl, cluster_centers, cluster_rot, tokens,
-              pixel_feat, viewdir_embed):
-        """raw (N, 4) for points in SMPL coordinates (see heads.py); with
-        use_truncation, points whose nearest cluster is knn_sigma or farther
-        decode to 0."""
+              pixel_feat, viewdir_embed, pts_mask=None):
+        """raw (N, 4) for points in SMPL coordinates (see heads.py); points
+        with pts_mask False, and with use_truncation those whose nearest
+        cluster is knn_sigma or farther, decode to 0."""
         rep, keep = dparf_representation(
             pts_smpl, cluster_centers, cluster_rot, tokens, k=self.knn_k,
             dist_alpha=self.knn_dist_alpha, n_freqs=self.knn_freqs,
             knn_sigma=self.knn_sigma if self.use_truncation else None,
         )
-        return self.decode(rep, pixel_feat, viewdir_embed, keep)
+        if keep is not None:
+            pts_mask = keep if pts_mask is None else pts_mask & keep
+        return self.decode(rep, pixel_feat, viewdir_embed, pts_mask)

@@ -39,8 +39,9 @@ def dparf_dense_weights(d2, k: int, alpha: float, aux=None):
 
     d2 (N, C) squared distances.  Returns (w_dense (N, C) rows summing to 1
     with k nonzeros, dist (N, k) euclidean ascending, aux_k (N, k, A) =
-    aux[idx] or None, w_knn (N, k)).  w_knn is the same normalised weight
-    that w_dense scatters, so the token and PE aggregations cannot diverge.
+    aux[idx] or None, w_knn (N, k), idx (N, k) the neighbours).  w_knn is
+    the same normalised weight that w_dense scatters, so the token and PE
+    aggregations cannot diverge.
     The softmax runs unnormalised against the nearest distance,
     exp(-(d_i - d_0)/alpha) <= 1, and normalises at the end.
     """
@@ -50,9 +51,10 @@ def dparf_dense_weights(d2, k: int, alpha: float, aux=None):
     w_dense = torch.zeros_like(d2)
     u_sum = torch.zeros(n, dtype=d2.dtype, device=d2.device)
     d0 = None
-    dists, us, auxs = [], [], []
+    dists, us, auxs, idxs = [], [], [], []
     for _ in range(k):
         a = torch.argmin(cur, dim=-1)
+        idxs.append(a)
         v = cur[rows, a]
         d_i = torch.sqrt(torch.clamp_min(v, 1e-12))
         if d0 is None:
@@ -68,7 +70,8 @@ def dparf_dense_weights(d2, k: int, alpha: float, aux=None):
     w_dense = w_dense / u_sum[:, None]
     w_knn = torch.stack(us, -1) / u_sum[:, None]
     aux_k = torch.stack(auxs, dim=1) if aux is not None else None
-    return w_dense, torch.stack(dists, -1), aux_k, w_knn
+    return w_dense, torch.stack(dists, -1), aux_k, w_knn, torch.stack(idxs,
+                                                                      -1)
 
 
 def min_dist(pts, refs, ref_block: int = 1024):

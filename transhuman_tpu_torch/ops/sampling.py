@@ -1,12 +1,14 @@
-"""Camera projection and bilinear feature-map sampling (forward only).
+"""Camera projection and bilinear feature-map sampling with its backward.
 
 Counterpart of ``transhuman_tpu/ops/sampling.py``: the reference's
 ``F.grid_sample(align_corners=True, padding_mode="border")`` written directly
 in feature-pixel space.  uv is scaled to feature pixels on each axis (x by W,
 y by H), clamped to [0, size-1], the base texel is clamped to size-2, and the
-2x2 patch is interpolated.  The gather is plain tensor indexing: the JAX
-package leaves it to XLA as well.  Its backward (the K3 scatter) comes with
-training.
+2x2 patch is interpolated.  The forward gather is plain tensor indexing, as
+the JAX package leaves it to XLA.  ``sample_feature_map`` is an autograd
+Function like the JAX package's ``custom_vjp``: its d_feat is the K3 scatter
+(kernels/scatter.py) on the card and its plain twin on the CPU; its d_uv is
+plain PyTorch.
 """
 
 from __future__ import annotations
@@ -36,31 +38,87 @@ def project_points(xyz, K, R, T):
     return pix[..., :2] / z_safe, cam[..., 2]
 
 
-def sample_feature_map(feat, uv, image_shape):
-    """feat (V,Hf,Wf,C) NHWC; uv (V,N,2) image pixels (x, y); image_shape
-    (H_img, W_img) -> (V,N,C), border-clamped, align_corners semantics."""
+def _sample_taps(feat, uv, image_shape):
+    """(fx, fy) unclamped feature-pixel coordinates, base (V,N) texel ids,
+    weights wx, wy (V,N) relative to the (possibly clamped) base texel, and
+    the tap offsets dx, dy."""
     v, hf, wf, c = feat.shape
     h_img, w_img = image_shape
-    fx = torch.clamp(uv[..., 0] * (wf / w_img), 0.0, wf - 1)
-    fy = torch.clamp(uv[..., 1] * (hf / h_img), 0.0, hf - 1)
-    x0 = torch.floor(fx).long()
-    y0 = torch.floor(fy).long()
+    fx = uv[..., 0] * (wf / w_img)
+    fy = uv[..., 1] * (hf / h_img)
+    cx = torch.clamp(fx, 0.0, wf - 1)
+    cy = torch.clamp(fy, 0.0, hf - 1)
+    x0 = torch.floor(cx).long()
+    y0 = torch.floor(cy).long()
     if wf > 1:
         x0 = torch.clamp_max(x0, wf - 2)
     if hf > 1:
         y0 = torch.clamp_max(y0, hf - 2)
-    # weights relative to the (possibly clamped) base texel
-    wx = (fx - x0.to(fx.dtype))[..., None]
-    wy = (fy - y0.to(fy.dtype))[..., None]
+    wx = cx - x0.to(cx.dtype)
+    wy = cy - y0.to(cy.dtype)
     dx = 1 if wf > 1 else 0
     dy = wf if hf > 1 else 0
+    return fx, fy, y0 * wf + x0, wx, wy, dx, dy
+
+
+def _gather4(feat, base, dx, dy):
+    """The four tap rows (V,N,C) each at base + {0, dx, dy, dy + dx}."""
+    v, hf, wf, c = feat.shape
     flat = feat.reshape(v, hf * wf, c)
     views = torch.arange(v, device=feat.device)[:, None]
-    base = y0 * wf + x0  # (V, N)
-    p00 = flat[views, base]
-    p01 = flat[views, base + dx]
-    p10 = flat[views, base + dy]
-    p11 = flat[views, base + dy + dx]
-    top = p00 * (1 - wx) + p01 * wx
-    bot = p10 * (1 - wx) + p11 * wx
-    return top * (1 - wy) + bot * wy
+    return [flat[views, base + off] for off in (0, dx, dy, dy + dx)]
+
+
+class _SampleFeatureMap(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, feat, uv, image_shape):
+        fx, fy, base, wx, wy, dx, dy = _sample_taps(feat, uv, image_shape)
+        p00, p01, p10, p11 = _gather4(feat, base, dx, dy)
+        wx_, wy_ = wx[..., None], wy[..., None]
+        top = p00 * (1 - wx_) + p01 * wx_
+        bot = p10 * (1 - wx_) + p11 * wx_
+        out = top * (1 - wy_) + bot * wy_
+        need_uv = ctx.needs_input_grad[1]
+        v, hf, wf, _ = feat.shape
+        h_img, w_img = image_shape
+        ctx.meta = (feat.shape, feat.dtype, dx, dy, wf / w_img, hf / h_img)
+        # border-clamped coordinates get zero positional gradient
+        in_x = (fx > 0.0) & (fx < wf - 1) if need_uv else None
+        in_y = (fy > 0.0) & (fy < hf - 1) if need_uv else None
+        ctx.save_for_backward(base.to(torch.int32), wx, wy,
+                              feat if need_uv else None, in_x, in_y)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        from ..kernels.scatter import dfeat_scatter
+
+        base, wx, wy, feat, in_x, in_y = ctx.saved_tensors
+        (v, hf, wf, c), fdtype, dx, dy, sx, sy = ctx.meta
+        gf = g.float()
+        d_feat = d_uv = None
+        if ctx.needs_input_grad[0]:
+            w4 = torch.stack([(1 - wx) * (1 - wy), wx * (1 - wy),
+                              (1 - wx) * wy, wx * wy], dim=-1).float()
+            d_feat = dfeat_scatter(base, gf, w4, hf * wf, dx, dy)
+            d_feat = d_feat.reshape(v, hf, wf, c).to(fdtype)
+        if ctx.needs_input_grad[1]:
+            # through the lerp weights, as _sfm_bwd (clip boundaries count
+            # as interior; the clamped set has measure zero)
+            p00, p01, p10, p11 = (p.float() for p in
+                                  _gather4(feat, base.long(), dx, dy))
+            wxf, wyf = wx[..., None].float(), wy[..., None].float()
+            d_fx = torch.sum(((p01 - p00) * (1 - wyf)
+                              + (p11 - p10) * wyf) * gf, dim=-1)
+            d_fy = torch.sum(((p10 - p00) * (1 - wxf)
+                              + (p11 - p01) * wxf) * gf, dim=-1)
+            d_uv = torch.stack([d_fx * in_x * sx, d_fy * in_y * sy], dim=-1)
+            d_uv = d_uv.to(wx.dtype)
+        return d_feat, d_uv, None
+
+
+def sample_feature_map(feat, uv, image_shape):
+    """feat (V,Hf,Wf,C) NHWC; uv (V,N,2) image pixels (x, y); image_shape
+    (H_img, W_img) -> (V,N,C), border-clamped, align_corners semantics.
+    Differentiable in feat (K3 on the card) and uv."""
+    return _SampleFeatureMap.apply(feat, uv, tuple(image_shape))

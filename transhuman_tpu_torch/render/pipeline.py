@@ -13,11 +13,19 @@ compositing (counterpart of transhuman_tpu/render/pipeline.py).
   package's dense render (``render_frame_dense`` with ``compact_ratio=None``),
   which is the parity target.  The JAX package's static-shape machinery
   (compaction capacity, ray padding) has no job here.
+* ``render_train``: every ray of a train sample in one differentiable
+  evaluation, with the invalid rays masked (the JAX package's
+  ``render_train``); its backward runs kernel K3 for both feature-map
+  fetches and K2's token gradient on the card.
+
+The serving entry points run under ``torch.no_grad``; they and the train
+path share the undecorated bodies ``_prologue`` and ``_query_points``.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass, fields
+from typing import Optional
 
 import numpy as np
 import torch
@@ -28,6 +36,13 @@ from ..models.embedder import embed_viewdir
 from ..ops.sampling import project_points, sample_feature_map
 from ..weights import reference_pe_table
 from .volume import composite, sample_along_rays
+
+
+def fold_in(seed: int, data: int) -> int:
+    """A seed derived from (seed, data), decorrelated from both (the role of
+    ``jax.random.fold_in``; numpy's SeedSequence hash, not JAX's bits)."""
+    return int(np.random.SeedSequence([seed, data]).generate_state(
+        1, np.uint64)[0] >> 1)
 
 
 class _TensorFields:
@@ -84,13 +99,14 @@ class RenderPipeline:
     def __init__(self, model, cluster: ClusterSpec, canonical_verts,
                  n_samples: int = 64, chunk_rays: int = 512,
                  cull_distance: float = 0.1, white_bkgd: bool = False,
-                 device="cpu"):
+                 raw_noise_std: float = 0.0, device="cpu"):
         self.model = model
         self.device = torch.device(device)
         self.n_samples = n_samples
         self.chunk_rays = chunk_rays
         self.cull_distance = cull_distance
         self.white_bkgd = white_bkgd
+        self.raw_noise_std = raw_noise_std
         self.pool = torch.as_tensor(cluster.pool_matrix, dtype=torch.float32,
                                     device=self.device)  # (C, Nv)
         # TransHE's positional code: the canonical cluster centroids in the
@@ -103,8 +119,11 @@ class RenderPipeline:
 
     @torch.no_grad()
     def prologue(self, frame: FrameInputs) -> Prologue:
+        return self._prologue(frame)
+
+    def _prologue(self, frame: FrameInputs) -> Prologue:
         holder_map, pixel_map = self.model.encode_views(frame.images)
-        uv, _ = project_points(frame.verts_world, frame.K, frame.R, frame.T)
+        uv = self.fetch_uv(frame, frame.verts_world)
         latent = sample_feature_map(holder_map, uv, frame.images.shape[1:3])
         holder = latent * frame.vizmaps[..., None]
         tokens = self.model.refine_tokens(self.pool @ holder, self.pe_can)
@@ -112,6 +131,19 @@ class RenderPipeline:
         rot = torch.einsum("cv,vij->cij", self.pool, frame.blend_rot)
         return Prologue(tokens=tokens.contiguous(), pixel_map=pixel_map,
                         centers=centers.contiguous(), rot=rot.contiguous())
+
+    @staticmethod
+    def fetch_uv(frame: FrameInputs, pts_world, pts_mask=None):
+        """(V, N, 2) image coordinates at which the feature maps are sampled
+        for the points pts_world (N, 3): the painting fetch at the vertices,
+        the pixel fetch at the ray samples.  Points with pts_mask False
+        decode to 0 whatever they fetch, so their fetches collapse onto one
+        texel, as the JAX package does."""
+        uv, _ = project_points(pts_world, frame.K, frame.R, frame.T)
+        if pts_mask is not None:
+            uv = torch.where(pts_mask[None, :, None], uv,
+                             torch.zeros_like(uv))
+        return uv
 
     def _cull(self, pts_smpl, verts_smpl):
         """(N,) bool: closer than cull_distance to the body (K1 on the card)."""
@@ -122,12 +154,60 @@ class RenderPipeline:
     def query_points(self, frame: FrameInputs, pro: Prologue, pts_world,
                      viewdir_embed):
         """pts_world (N,3), viewdir_embed (N,27) -> raw (N,4)."""
+        return self._query_points(frame, pro, pts_world, viewdir_embed)
+
+    def _query_points(self, frame, pro, pts_world, viewdir_embed,
+                      pts_mask=None):
+        """As query_points; points with pts_mask False decode to 0."""
         pts_smpl = to_smpl(frame, pts_world)
-        uv, _ = project_points(pts_world, frame.K, frame.R, frame.T)
+        uv = self.fetch_uv(frame, pts_world, pts_mask)
         pixel_feat = sample_feature_map(pro.pixel_map, uv,
                                         frame.images.shape[1:3])
         return self.model.query(pts_smpl.contiguous(), pro.centers, pro.rot,
-                                pro.tokens, pixel_feat, viewdir_embed)
+                                pro.tokens, pixel_feat, viewdir_embed,
+                                pts_mask)
+
+    def render_train(self, frame: FrameInputs, rays: RayBundle,
+                     seed: Optional[int] = None, sample_jitter: bool = True):
+        """Every ray in one differentiable evaluation (the JAX package's
+        ``render_train``, the reference's <= 2400-ray branch); no cull.
+
+        With a seed, the depths are jittered (when sample_jitter) from a
+        generator seeded with it, and raw_noise_std density noise is drawn
+        from a second generator seeded with ``fold_in(seed, 1)``, so the two
+        draws are independent (JAX: ``fold_in(rng, 1)``).  Returns the
+        composite's dict (rgb_map (R,3), acc_map, depth_map, weights)."""
+        pts, z_vals, pts_mask, vde = self.train_points(rays, seed,
+                                                       sample_jitter)
+        pro = self._prologue(frame)
+        raw = self._query_points(frame, pro, pts, vde, pts_mask)
+        noise = None
+        if seed is not None:
+            noise = torch.Generator(device=pts.device).manual_seed(
+                fold_in(seed, 1))
+        return composite(raw.reshape(z_vals.shape + (4,)), z_vals,
+                         rays.ray_d, self.white_bkgd, self.raw_noise_std,
+                         noise)
+
+    def train_points(self, rays: RayBundle, seed: Optional[int] = None,
+                     sample_jitter: bool = True):
+        """The points render_train decodes for R rays of S samples, the
+        depths jittered as it jitters them: (pts_world (R*S, 3), z_vals
+        (R, S), the ray mask per point (R*S,), the view-direction code per
+        point (R*S, 27))."""
+        jitter = None
+        if seed is not None and sample_jitter:
+            jitter = torch.Generator(device=rays.ray_o.device).manual_seed(
+                seed)
+        pts, z_vals = sample_along_rays(rays.ray_o, rays.ray_d, rays.near,
+                                        rays.far, self.n_samples, jitter)
+        r, s = z_vals.shape
+        viewdir = rays.ray_d / torch.linalg.norm(rays.ray_d, dim=-1,
+                                                 keepdim=True)
+        vde = embed_viewdir(viewdir, self.model.view_freqs)
+        vde = vde[:, None, :].expand(r, s, vde.shape[-1]).reshape(r * s, -1)
+        pts_mask = rays.mask[:, None].expand(r, s).reshape(-1)
+        return pts.reshape(r * s, 3), z_vals, pts_mask, vde
 
     @torch.no_grad()
     def render_frame(self, frame: FrameInputs, rays: RayBundle):

@@ -29,17 +29,27 @@ def sample_along_rays(ray_o, ray_d, near, far, n_samples: int,
     return pts, z_vals
 
 
-def composite(raw, z_vals, ray_d, white_bkgd: bool = False):
+def composite(raw, z_vals, ray_d, white_bkgd: bool = False,
+              raw_noise_std: float = 0.0,
+              generator: Optional[torch.Generator] = None):
     """NeRF alpha compositing of raw (R,S,4) = [rgb logits, sigma].
 
     The last interval is 1e10 long and each transmittance factor is
-    1 - alpha + 1e-10, as in the reference.  Returns rgb_map (R,3),
+    1 - alpha + 1e-10, as in the reference.  With raw_noise_std > 0 and a
+    generator, N(0, raw_noise_std^2) noise is added to sigma (training
+    regularisation; the caller gives a generator of its own, so the draw
+    is independent of the sampling jitter).  Returns rgb_map (R,3),
     acc_map (R,), depth_map (R,), weights (R,S)."""
     dists = z_vals[:, 1:] - z_vals[:, :-1]
     dists = torch.cat([dists, torch.full_like(dists[:, :1], 1e10)], dim=-1)
     dists = dists * torch.linalg.norm(ray_d, dim=-1, keepdim=True)
     rgb = torch.sigmoid(raw[..., :3])
-    alpha = 1.0 - torch.exp(-torch.relu(raw[..., 3]) * dists)
+    sigma = raw[..., 3]
+    if raw_noise_std > 0.0 and generator is not None:
+        sigma = sigma + torch.randn(sigma.shape, generator=generator,
+                                    dtype=sigma.dtype,
+                                    device=sigma.device) * raw_noise_std
+    alpha = 1.0 - torch.exp(-torch.relu(sigma) * dists)
     trans = torch.cumprod(
         torch.cat([torch.ones_like(alpha[:, :1]), 1.0 - alpha + 1e-10],
                   dim=-1),

@@ -36,27 +36,17 @@ def init_weights(model: torch.nn.Module, generator: torch.Generator):
     return model
 
 
-def synthetic_setup(n_views: int = 3, image_hw: tuple = (512, 512),
+def synthetic_scene(n_views: int = 3, image_hw: tuple = (512, 512),
                     n_verts: int = 6890, n_clusters: int = 300,
-                    n_samples: int = 64, chunk_rays: int = 512,
-                    embed_dim: int = 192, vit_depth: int = 12,
-                    vit_heads: int = 3, knn_k: int = 7, seed: int = 0,
-                    device="cpu"):
-    """(model, pipe, frame, smpl, cluster): model on ``device`` with random
-    weights from ``torch.Generator().manual_seed(seed)``, frame on the CPU
-    (numpy inputs from ``np.random.default_rng(seed)``)."""
+                    seed: int = 0):
+    """(frame, smpl, cluster): the seeded body, its k-means clusters and V
+    cameras on a circle, with images from ``np.random.default_rng(seed)``;
+    frame tensors on the CPU."""
     rng = np.random.default_rng(seed)
     h, w = image_hw
     smpl = SMPLModel.synthetic(n_verts=n_verts)
     cluster = ClusterSpec.from_kmeans(smpl.v_template, n_clusters,
                                       iters=3 if n_verts < 1000 else 8)
-    model = TransHumanNet(embed_dim=embed_dim, vit_depth=vit_depth,
-                          vit_heads=vit_heads, knn_k=knn_k)
-    init_weights(model, torch.Generator().manual_seed(seed))
-    model = model.to(device).eval()
-    pipe = RenderPipeline(model, cluster, smpl.v_template,
-                          n_samples=n_samples, chunk_rays=chunk_rays,
-                          device=device)
     verts, _, T = smpl(np.zeros(72), np.zeros(10))
     # cameras 2.5 m from the origin on a circle, facing it
     focal = 0.9 * max(h, w)
@@ -79,4 +69,25 @@ def synthetic_setup(n_views: int = 3, image_hw: tuple = (512, 512),
         blend_rot=f32(np.ascontiguousarray(T[:, :3, :3])),
         Rh=torch.eye(3), Th=torch.zeros(3),
     )
+    return frame, smpl, cluster
+
+
+def synthetic_setup(n_views: int = 3, image_hw: tuple = (512, 512),
+                    n_verts: int = 6890, n_clusters: int = 300,
+                    n_samples: int = 64, chunk_rays: int = 512,
+                    embed_dim: int = 192, vit_depth: int = 12,
+                    vit_heads: int = 3, knn_k: int = 7, seed: int = 0,
+                    device="cpu"):
+    """(model, pipe, frame, smpl, cluster): model on ``device`` with random
+    weights from ``torch.Generator().manual_seed(seed)``, frame on the CPU
+    (numpy inputs from ``np.random.default_rng(seed)``)."""
+    frame, smpl, cluster = synthetic_scene(n_views, image_hw, n_verts,
+                                           n_clusters, seed)
+    model = TransHumanNet(embed_dim=embed_dim, vit_depth=vit_depth,
+                          vit_heads=vit_heads, knn_k=knn_k)
+    init_weights(model, torch.Generator().manual_seed(seed))
+    model = model.to(device).eval()
+    pipe = RenderPipeline(model, cluster, smpl.v_template,
+                          n_samples=n_samples, chunk_rays=chunk_rays,
+                          device=device)
     return model, pipe, frame, smpl, cluster

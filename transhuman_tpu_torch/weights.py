@@ -72,6 +72,20 @@ def state_dict_from_jax(params_np: dict, vit_depth: int) -> dict:
     return {k: torch.from_numpy(np.array(v)) for k, v in sd.items()}
 
 
+def jax_params_from_state_dict(sd: dict) -> dict:
+    """The inverse of :func:`state_dict_from_jax`: a reference-layout state
+    dict (parameters, or anything keyed and shaped like them, such as their
+    gradients) as the JAX package's ``{'params': ...}`` tree of numpy
+    arrays, through its numpy-only converter
+    (``transhuman_tpu/tools/convert_checkpoint.py::convert_state_dict``).
+    For tests that compare the two packages; nothing else in this port
+    imports the JAX package."""
+    from transhuman_tpu.tools.convert_checkpoint import convert_state_dict
+
+    return convert_state_dict(
+        {k: v.detach().cpu().numpy() for k, v in sd.items()}, strict=True)
+
+
 def reference_pe_table(pe_xyz_norm, embed_dim: int) -> np.ndarray:
     """TransHE positional-encoding table (C, embed_dim) with the reference's
     exact f32 op sequence (``vision_transformer.PositionalEncoding``:
