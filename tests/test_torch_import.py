@@ -6,6 +6,7 @@ Runs in a subprocess: this test process has imported jax already (conftest).
 
 import json
 import os
+import re
 import subprocess
 import sys
 
@@ -19,18 +20,32 @@ import importlib, json, pkgutil, subprocess, sys
 def _no_process(*a, **k):
     raise RuntimeError("a process was started at import: %r" % (a[:1],))
 
+class _Blocked:
+    # the JAX package and JAX are not importable, as on the GPU machine
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in ("jax", "flax", "optax", "transhuman_tpu"):
+            raise ImportError("blocked: " + name)
+
+sys.meta_path.insert(0, _Blocked())
 subprocess.Popen = _no_process  # a kernel build would run nvcc here
 import transhuman_tpu_torch as pkg
 mods = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
 for m in mods:
     importlib.import_module(m)
+from transhuman_tpu_torch import weights
 from transhuman_tpu_torch.kernels import build
+from transhuman_tpu_torch.models.network import TransHumanNet
+net = TransHumanNet(embed_dim=24, vit_depth=1, vit_heads=2, knn_k=4)
+tree = weights.jax_params_from_state_dict(net.state_dict())["params"]
+back = weights.live_state_dict(weights.state_dict_from_jax(tree, 1))
 print(json.dumps({
     "modules": mods,
     "loaded": sorted(k for k in sys.modules
                      if k.split(".")[0] in ("jax", "flax", "optax", "triton",
                                             "transhuman_tpu", "cv2", "yaml")),
     "lib_loaded": build.loaded(),
+    "bridge_roundtrip": back.keys() == net.state_dict().keys() and all(
+        bool((back[k] == v).all()) for k, v in net.state_dict().items()),
 }))
 """
 
@@ -57,18 +72,33 @@ def test_import_builds_no_kernel(probe):
     assert probe["lib_loaded"] is False
 
 
+def test_weights_bridge_runs_without_the_jax_package(probe):
+    """state_dict_from_jax and jax_params_from_state_dict round-trip a
+    model's weights with JAX and the JAX package unimportable."""
+    assert probe["bridge_roundtrip"] is True
+
+
+_FOREIGN_IMPORT = re.compile(
+    r"^\s*(import|from)\s+(jax|flax|optax|transhuman_tpu)(\.|\s|$)")
+
+
 def test_package_source_has_no_jax_import():
+    """No line of the port or of chip_smoke.py imports JAX, Flax, Optax or
+    the JAX package (transhuman_tpu_torch itself is fine), at top level or
+    indented inside a function."""
     pkg = os.path.join(ROOT, "transhuman_tpu_torch")
-    offenders = []
+    paths = [os.path.join(ROOT, "chip_smoke.py")]
     for dirpath, _, files in os.walk(pkg):
-        for f in files:
-            if not f.endswith(".py"):
-                continue
-            path = os.path.join(dirpath, f)
-            with open(path) as fh:
-                for line in fh:
-                    s = line.strip()
-                    if s.startswith(("import jax", "from jax", "import flax",
-                                     "from flax", "import optax")):
-                        offenders.append(f"{path}: {s}")
+        paths += [os.path.join(dirpath, f) for f in files if f.endswith(".py")]
+    offenders = []
+    for path in paths:
+        with open(path) as fh:
+            for line in fh:
+                if _FOREIGN_IMPORT.match(line):
+                    offenders.append(f"{path}: {line.strip()}")
+    assert len(paths) > 30
     assert offenders == []
+    for bad in ("    from transhuman_tpu.tools import x", "import jax.numpy",
+                "from transhuman_tpu import config", "import transhuman_tpu"):
+        assert _FOREIGN_IMPORT.match(bad), bad
+    assert not _FOREIGN_IMPORT.match("from transhuman_tpu_torch import x")

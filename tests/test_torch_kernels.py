@@ -14,7 +14,7 @@ import pytest
 import torch
 
 from transhuman_tpu_torch import kernels
-from transhuman_tpu_torch.kernels import cull, dparf, scatter
+from transhuman_tpu_torch.kernels import cull, dparf, gather, scatter
 
 
 @pytest.fixture
@@ -50,8 +50,13 @@ def test_wrappers_refuse_cpu_tensors():
         scatter.dfeat_scatter_cuda(torch.zeros(1, 4, dtype=torch.int32),
                                    torch.zeros(1, 4, 8), torch.zeros(1, 4, 4),
                                    64, 1, 8)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        gather.feature_gather_cuda(torch.zeros(1, 64, 8),
+                                   torch.zeros(1, 4, dtype=torch.int32),
+                                   torch.zeros(1, 4, 1), (0,))
     assert kernels.launch_counts() == {"min_excess2": 0, "dparf": 0,
-                                       "dfeat_scatter": 0}
+                                       "dfeat_scatter": 0,
+                                       "feature_gather": 0}
 
 
 @pytest.mark.cuda
@@ -211,3 +216,61 @@ def test_dfeat_scatter_refuses_ids_outside_the_map(cuda, bad):
     with pytest.raises(IndexError, match="must lie in"):
         scatter.dfeat_scatter_cuda(ids, g, w4, HF * WF, 1, WF)
     assert scatter.dfeat_scatter_cuda.launches == n0
+
+
+def _gather_inputs(taps, v, n, c, device, seed=5):
+    """A (v, HF*WF, c) map, base ids with every fifth one -1 (a zero row),
+    and weights: bilinear for 4 taps, random or ones for 1."""
+    rng = np.random.default_rng(seed)
+    src = rng.standard_normal((v, HF * WF, c)).astype(np.float32)
+    ids = rng.integers(0, _HI, (v, n)).astype(np.int32)
+    ids[:, ::5] = -1
+    if taps == "bilinear":
+        wx, wy = rng.random((2, v, n)).astype(np.float32)
+        w = np.stack([(1 - wx) * (1 - wy), wx * (1 - wy), (1 - wx) * wy,
+                      wx * wy], axis=-1)
+        offsets = (0, 1, WF, WF + 1)
+    else:
+        w = (rng.random((v, n, 1)).astype(np.float32) if taps == "weighted"
+             else np.ones((v, n, 1), np.float32))
+        offsets = (0,)
+    t = torch.from_numpy
+    return (t(src).to(device), t(ids).to(device), t(w).to(device), offsets)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c", [384, 192, 6])
+@pytest.mark.parametrize("taps", ["bilinear", "weighted", "rows"])
+def test_feature_gather_kernel_matches_plain(cuda, taps, c):
+    """K4's three forms (the bilinear fetch; T3's weighted and T5's plain
+    row gather), masked ids, the float4 (c % 4 == 0) and scalar paths."""
+    src, ids, w, offsets = _gather_inputs(taps, 3, N_SCATTER, c, cuda)
+    n0 = gather.feature_gather_cuda.launches
+    got = gather.feature_gather(src, ids, w, offsets)
+    assert gather.feature_gather_cuda.launches == n0 + 1
+    want = gather.feature_gather_plain(src, ids, w, offsets)
+    # fused multiply-adds against rounded products: at most four roundings
+    # of sums below ~5 (ulp 4.8e-7)
+    torch.testing.assert_close(got, want, atol=2e-6, rtol=0)
+    assert not got[:, ::5].any()  # masked ids: zero rows
+    if taps == "rows":
+        v = torch.arange(3, device=cuda)[:, None]
+        keep = ids >= 0
+        assert torch.equal(got[keep], src[v.expand_as(ids)[keep],
+                                          ids[keep].long()])
+
+
+@pytest.mark.cuda
+def test_feature_gather_arguments_are_checked(cuda):
+    src, ids, w, offsets = _gather_inputs("bilinear", 2, 100, 8, cuda)
+    with pytest.raises(TypeError, match="int32"):
+        gather.feature_gather_cuda(src, ids.long(), w, offsets)
+    with pytest.raises(ValueError, match="1 or 4 taps"):
+        gather.feature_gather_cuda(src, ids, w, offsets[:2])
+    ids[1, 37] = HF * WF - WF - 1  # its last tap reaches HF * WF
+    n0 = gather.feature_gather_cuda.launches
+    with pytest.raises(IndexError, match="must lie in"):
+        gather.feature_gather_cuda(src, ids, w, offsets)
+    assert gather.feature_gather_cuda.launches == n0
+    out = gather.feature_gather_cuda(src, ids[:, :0], w[:, :0], offsets)
+    assert out.shape == (2, 0, 8)

@@ -87,6 +87,39 @@ def test_checkpoint_file_roundtrip(nets, tmp_path):
         torch.testing.assert_close(v, tnet.state_dict()[k], rtol=0, atol=0)
 
 
+def test_vendored_checkpoint_mappings_equal_the_jax_package(nets):
+    """The port's copies of the numpy-only mappings give the JAX package's
+    results bit for bit, both ways, on a tiny model's init parameters."""
+    from transhuman_tpu.tools import convert_checkpoint as jconv
+    from transhuman_tpu.tools import export_checkpoint as jexp
+    from transhuman_tpu_torch.tools import convert_checkpoint as tconv
+    from transhuman_tpu_torch.tools import export_checkpoint as texp
+
+    _, params, _, _ = nets
+    tree = jax.tree_util.tree_map(np.asarray, params["params"])
+    want, got = jexp.export_state_dict(tree, DEPTH), texp.export_state_dict(
+        tree, DEPTH)
+    assert list(got) == list(want)
+    for k in want:
+        assert got[k].dtype == want[k].dtype, k
+        np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+    back_j = jconv.convert_state_dict(want, strict=True)
+    back_t = tconv.convert_state_dict(got, strict=True)
+    flat_j = jax.tree_util.tree_leaves_with_path(back_j)
+    flat_t = jax.tree_util.tree_leaves_with_path(back_t)
+    assert [p for p, _ in flat_t] == [p for p, _ in flat_j]
+    for (path, a), (_, b) in zip(flat_t, flat_j):
+        np.testing.assert_array_equal(a, b, err_msg=str(path))
+    # and the round trip gives the init parameters back
+    for (path, a), (_, b) in zip(
+            jax.tree_util.tree_leaves_with_path(back_t["params"]),
+            jax.tree_util.tree_leaves_with_path(tree)):
+        np.testing.assert_array_equal(a, b, err_msg=str(path))
+    assert (tconv.official_key_inventory(DEPTH)
+            == jconv.official_key_inventory(DEPTH))
+    assert tconv.DROP_PATTERNS == jconv.DROP_PATTERNS
+
+
 def test_encoder_matches_flax(nets, rng):
     """Tolerance 2e-4, as tests/test_convert_parity.py: batch-statistic
     normalisation of random activations divides by small variances."""

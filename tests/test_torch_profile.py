@@ -78,7 +78,7 @@ def test_train_cli_writes_the_profile_window(tmp_path):
     run that long), and the trace holds the three phase ranges of each."""
     out = str(tmp_path / "prof")
     _, records = train_cli.main([
-        "--steps", "6", "--out", str(tmp_path / "t.pth"), "H", "32", "W",
+        "--device", "cpu", "--steps", "6", "--out", str(tmp_path / "t.pth"), "H", "32", "W",
         "32", "num_class", "20", "vit_depth", "1", "N_samples", "4",
         "patch.size", "4", "patch.N_patches", "1", "profile_dir", out])
     assert len(records) == 6

@@ -347,7 +347,7 @@ def test_train_step_refuses_batches_and_accumulation(slice_setup):
 def test_train_entry_point_trains_and_saves(tmp_path, capsys):
     out = str(tmp_path / "ckpt" / "latest.pth")
     state, records = tcli.main([
-        "--steps", "3", "--out", out, "H", "64", "W", "64", "num_class", "20",
+        "--device", "cpu", "--steps", "3", "--out", out, "H", "64", "W", "64", "num_class", "20",
         "vit_depth", "1", "N_samples", "8", "patch.size", "6",
         "patch.N_patches", "2", "ep_iter", "2", "raw_noise_std", "1.0"])
     assert [r["step"] for r in records] == [0, 1, 2]
@@ -364,8 +364,13 @@ def test_train_entry_point_trains_and_saves(tmp_path, capsys):
     assert weights.load_checkpoint_file(net, out) == 1
 
 
-def test_train_entry_point_without_a_card_fails():
+@pytest.mark.parametrize("argv", [["--device", "cuda", "--steps", "1"],
+                                  ["--steps", "1"]])
+def test_train_entry_point_without_a_card_fails(argv):
+    """--device cuda, and no --device at all (the card is the default),
+    fail without a card."""
+    assert tcli.parse_args(["--steps", "1"])[0].device == "cuda"
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
     with pytest.raises(SystemExit, match="no CUDA device"):
-        tcli.main(["--device", "cuda", "--steps", "1"])
+        tcli.main(argv)

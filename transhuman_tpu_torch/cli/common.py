@@ -1,5 +1,6 @@
-"""Shared entry-point plumbing: body model, cluster table, model + pipeline
-(counterpart of transhuman_tpu/cli/common.py)."""
+"""Shared entry-point plumbing: body model, cluster table, model + pipeline,
+dataset, output and checkpoint paths (counterpart of
+transhuman_tpu/cli/common.py)."""
 
 from __future__ import annotations
 
@@ -50,3 +51,37 @@ def build_runtime(cfg: Config, device, smpl: Optional[SMPLModel] = None):
         raw_noise_std=cfg.raw_noise_std, device=device,
     )
     return model, pipe, smpl, cluster
+
+
+def make_dataset(cfg: Config, split: str):
+    """The seeded synthetic scene at the render size (H_render x W_render):
+    the only data the repository holds (the ZJU-MoCap loader is not
+    ported)."""
+    from ..data.synthetic import SyntheticDataset
+
+    return SyntheticDataset(cfg, split, image_hw=(cfg.H_render, cfg.W_render))
+
+
+def model_dir(cfg: Config) -> str:
+    return os.path.join(cfg.trained_model_dir, cfg.task, cfg.exp_name)
+
+
+def result_dir(cfg: Config) -> str:
+    return os.path.join(cfg.result_dir, f"epoch_{cfg.test.epoch}",
+                        cfg.test.exp_folder_name)
+
+
+def checkpoint_path(cfg: Config, weights: Optional[str] = None) -> str:
+    """``weights`` when given, else ``model_dir/latest.pth`` for
+    test.epoch -1 and ``model_dir/<epoch>.pth`` otherwise.  A missing file
+    is an error: nothing renders from silent random weights."""
+    if not weights:
+        name = ("latest.pth" if cfg.test.epoch < 0
+                else f"{cfg.test.epoch}.pth")
+        weights = os.path.join(model_dir(cfg), name)
+    if not os.path.isfile(weights):
+        raise FileNotFoundError(
+            f"no checkpoint at {weights!r}: train one (python -m "
+            "transhuman_tpu_torch.cli.train) or pass --weights PATH")
+    return weights
+

@@ -1,6 +1,6 @@
 """Training entry point (counterpart of transhuman_tpu/cli/train.py):
 
-    python -m transhuman_tpu_torch.cli.train [--device cuda] [--steps N]
+    python -m transhuman_tpu_torch.cli.train [--device cuda|cpu] [--steps N]
         [--out PATH] [key value ...]
 
 Trains on the seeded synthetic scene (the only data the repository holds)
@@ -10,8 +10,9 @@ per step, the epoch's samples in a seeded permutation, one loss line per
 step, and a reference-layout ``.pth`` at the end that
 ``python -m transhuman_tpu_torch.serve --weights`` serves.  Config
 overrides are ``key value`` pairs as the serve entry point takes them.
-``--device cuda`` without a card is an error; on the card the float32 math
-runs with TF32 off.  With ``profile_dir DIR`` the steady-state window of
+It runs on the card (``--device cuda``, the default; without a card that is
+an error) with the float32 math in full precision (TF32 off), or on the CPU
+with ``--device cpu``.  With ``profile_dir DIR`` the steady-state window of
 steps 5-8 (fewer in a short run) runs under torch.profiler; its chrome trace
 and a device-time summary (``train/profile.py``) go to DIR.
 """
@@ -40,7 +41,7 @@ from .common import build_runtime
 def parse_args(argv=None):
     p = argparse.ArgumentParser(
         prog="python -m transhuman_tpu_torch.cli.train")
-    p.add_argument("--device", default="cpu")
+    p.add_argument("--device", default="cuda")
     p.add_argument("--steps", type=int, default=0,
                    help="updates to run (0: train.epoch x ep_iter)")
     p.add_argument("--out", default=None,

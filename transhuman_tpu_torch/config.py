@@ -1,6 +1,6 @@
-"""The serving and training configuration of the port.
+"""The serving, training and evaluation configuration of the port.
 
-The keys that the render and train paths read, with the names and defaults of
+The keys that the render, train and eval paths read, with the names and defaults of
 transhuman_tpu/config.py::Config (which mirror the reference's
 ``configs/train_or_eval.yaml``); tests hold the defaults equal.  ``merge_opts``
 takes the reference's ``key value key value ...`` override list.  Keys that
@@ -24,7 +24,14 @@ TPU_ONLY_KEYS = frozenset({
 
 @dataclass
 class TestConfig:
+    """Evaluation (reference configs/train_or_eval.yaml ``test``)."""
+
+    sampler: str = "FrameSampler"
+    epoch: int = -1  # -1: latest.pth; N: N.pth
+    full_eval: bool = False
+    exp_folder_name: str = "debug"
     input_view: List[int] = field(default_factory=lambda: [0, 7, 15])
+    frame_interval: int = 30  # FrameSampler decimation
 
 
 @dataclass
@@ -105,6 +112,11 @@ class Config:
     # run) with torch.profiler and writes the trace and its summary here
     profile_dir: str = ""
     test: TestConfig = field(default_factory=TestConfig)
+    # evaluation and free-viewpoint rendering
+    evaluator: str = "if_nerf"
+    visualizer: str = "perform"
+    render_views: int = 100
+    result_dir: str = "data/result"
 
     @property
     def H_render(self) -> int:

@@ -1,6 +1,7 @@
 """Full-frame evaluation rays (counterpart of
 transhuman_tpu/data/ray_sampling.py::sample_eval_rays): every pixel whose ray
-meets the inflated body AABB is a ray."""
+meets the inflated body AABB is a ray; and the eval item that carries them
+(counterpart of transhuman_tpu/data/zju.py::EvalItem)."""
 
 from __future__ import annotations
 
@@ -10,7 +11,7 @@ import numpy as np
 import torch
 
 from ..geometry.rays import get_near_far, get_rays
-from ..render.pipeline import RayBundle
+from ..render.pipeline import FrameInputs, RayBundle
 
 
 @dataclass
@@ -19,6 +20,18 @@ class EvalRays:
     pix_idx: np.ndarray  # (R,) int32 index into H*W for the scatter-back
     rgb: np.ndarray  # (R, 3) ground-truth colours (zeros without an image)
     mask_at_box: np.ndarray  # (H*W,) bool
+
+
+@dataclass
+class EvalItem:
+    frame: FrameInputs  # the V input views, CPU tensors
+    eval_rays: EvalRays
+    target_img: np.ndarray  # (H, W, 3)
+    target_msk: np.ndarray  # (H, W) uint8 (0 bg / 1 body / 100 border)
+    human: str
+    human_idx: int
+    frame_index: int
+    cam_ind: int
 
 
 def sample_eval_rays(img, K, R, T, can_bounds, hw=None) -> EvalRays:

@@ -1,8 +1,12 @@
-"""Synthetic in-memory training data: the seeded body of ``testing`` seen
-by ``train_num_views + 1`` circular cameras, the last of them the target
-(counterpart of transhuman_tpu/data/synthetic.py; patch mode only).
+"""Synthetic in-memory data: the seeded body of ``testing`` seen by
+``train_num_views + 1`` circular cameras, the last of them the target
+(counterpart of transhuman_tpu/data/synthetic.py; train samples in patch
+mode only).
 
-Each sample draws ``patch.N_patches`` patches of ``patch.size`` pixels
+An eval item renders every pixel of the target view whose ray meets the
+body's box (inflated 0.05 m), with the target image as ground truth; the
+frames are identical, and ``frame_sampler_indices`` decimates them as the
+reference's FrameSampler does.  Each train sample draws ``patch.N_patches`` patches of ``patch.size`` pixels
 around the body's projected centroid in the target view, from a numpy RNG
 seeded by the index and the epoch, and casts a ray through every patch
 pixel.  Rays that miss the body's bounding box are invalid: mask False,
@@ -19,16 +23,18 @@ from ..geometry.rays import get_near_far, get_rays
 from ..render.pipeline import FrameInputs, RayBundle
 from ..testing import synthetic_scene
 from ..train.loss import TrainSample
+from .ray_sampling import EvalItem, sample_eval_rays
 
 
 class SyntheticDataset:
-    def __init__(self, cfg: Config, n_frames: int = 8,
+    def __init__(self, cfg: Config, split: str = "train", n_frames: int = 8,
                  image_hw: tuple = (128, 128), n_verts: int = 6890):
-        if not cfg.patch.use_patch_sampling:
+        if split == "train" and not cfg.patch.use_patch_sampling:
             raise NotImplementedError(
                 "the port's synthetic data samples patches only; the "
                 "non-patch sampler needs get_bound_2d_mask (OpenCV)")
         self.cfg = cfg
+        self.split = split
         self.n_frames = n_frames
         self.hw = image_hw
         self.frame_all, self.smpl, self.cluster = synthetic_scene(
@@ -41,6 +47,16 @@ class SyntheticDataset:
 
     def set_epoch(self, epoch: int):
         self.epoch = epoch
+
+    def frame_sampler_indices(self, full_eval=None):
+        """The reference FrameSampler's decimation: every
+        cfg.test.frame_interval-th frame, or all of them with full_eval (or
+        another cfg.test.sampler)."""
+        fe = self.cfg.test.full_eval if full_eval is None else full_eval
+        if self.cfg.test.sampler != "FrameSampler":
+            fe = True
+        step = 1 if fe else max(1, self.cfg.test.frame_interval)
+        return np.arange(0, self.n_frames, step)
 
     def _frame_and_target(self):
         f, v = self.frame_all, self.cfg.train_num_views
@@ -93,3 +109,17 @@ class SyntheticDataset:
             target_patches=t(target),
             ray_pixel_idx=t(pix_idx),
         )
+
+    def get_eval_item(self, index) -> EvalItem:
+        frame, (timg, tK, tR, tT), bounds = self._frame_and_target()
+        h, w = self.hw
+        return EvalItem(
+            frame=frame,
+            eval_rays=sample_eval_rays(timg, tK, tR, tT.reshape(3, 1),
+                                       bounds),
+            target_img=timg, target_msk=np.ones((h, w), np.uint8),
+            human="synthetic", human_idx=0, frame_index=int(index),
+            cam_ind=0)
+
+    def get_perform_item(self, index, render_views=None) -> EvalItem:
+        return self.get_eval_item(index)

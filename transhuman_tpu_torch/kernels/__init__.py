@@ -9,10 +9,12 @@ from __future__ import annotations
 
 from .cull import min_excess2_cuda
 from .dparf import dparf_cuda
+from .gather import feature_gather_cuda
 from .scatter import dfeat_scatter_cuda
 
 _WRAPPERS = {"min_excess2": min_excess2_cuda, "dparf": dparf_cuda,
-             "dfeat_scatter": dfeat_scatter_cuda}
+             "dfeat_scatter": dfeat_scatter_cuda,
+             "feature_gather": feature_gather_cuda}
 
 
 def launch_counts() -> dict:

@@ -40,6 +40,8 @@ _SIGNATURES = {
     "thp_dparf": ((_P,) * 9 + (_I,) * 6 + (_F, _P), _I),
     # ids_sorted, order, g, w4, out, v, n, c, hw, dx, dy, stream
     "thp_dfeat_scatter": ((_P,) * 5 + (_I,) * 6 + (_P,), _I),
+    # src, ids, w, out, v, n, c, hw, t, off0, off1, off2, off3, stream
+    "thp_feature_gather": ((_P,) * 4 + (_I,) * 9 + (_P,), _I),
     "thp_error_string": ((_I,), ctypes.c_char_p),
 }
 

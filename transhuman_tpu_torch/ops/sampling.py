@@ -4,11 +4,11 @@ Counterpart of ``transhuman_tpu/ops/sampling.py``: the reference's
 ``F.grid_sample(align_corners=True, padding_mode="border")`` written directly
 in feature-pixel space.  uv is scaled to feature pixels on each axis (x by W,
 y by H), clamped to [0, size-1], the base texel is clamped to size-2, and the
-2x2 patch is interpolated.  The forward gather is plain tensor indexing, as
-the JAX package leaves it to XLA.  ``sample_feature_map`` is an autograd
-Function like the JAX package's ``custom_vjp``: its d_feat is the K3 scatter
-(kernels/scatter.py) on the card and its plain twin on the CPU; its d_uv is
-plain PyTorch.
+2x2 patch is interpolated.  ``sample_feature_map`` is an autograd Function
+like the JAX package's ``custom_vjp``.  Its forward is the 4-tap weighted
+row gather K4 (kernels/gather.py) with the bilinear weights; its d_feat is
+the K3 scatter (kernels/scatter.py), K4's adjoint; each runs its kernel on
+the card and its plain twin on the CPU.  Its d_uv is plain PyTorch.
 """
 
 from __future__ import annotations
@@ -61,6 +61,12 @@ def _sample_taps(feat, uv, image_shape):
     return fx, fy, y0 * wf + x0, wx, wy, dx, dy
 
 
+def _bilinear_w4(wx, wy):
+    """(V,N,4) weights of the taps base + (0, dx, dy, dy + dx)."""
+    return torch.stack([(1 - wx) * (1 - wy), wx * (1 - wy), (1 - wx) * wy,
+                        wx * wy], dim=-1)
+
+
 def _gather4(feat, base, dx, dy):
     """The four tap rows (V,N,C) each at base + {0, dx, dy, dy + dx}."""
     v, hf, wf, c = feat.shape
@@ -72,14 +78,13 @@ def _gather4(feat, base, dx, dy):
 class _SampleFeatureMap(torch.autograd.Function):
     @staticmethod
     def forward(ctx, feat, uv, image_shape):
+        from ..kernels.gather import feature_gather
+
         fx, fy, base, wx, wy, dx, dy = _sample_taps(feat, uv, image_shape)
-        p00, p01, p10, p11 = _gather4(feat, base, dx, dy)
-        wx_, wy_ = wx[..., None], wy[..., None]
-        top = p00 * (1 - wx_) + p01 * wx_
-        bot = p10 * (1 - wx_) + p11 * wx_
-        out = top * (1 - wy_) + bot * wy_
+        v, hf, wf, c = feat.shape
+        out = feature_gather(feat.reshape(v, hf * wf, c), base,
+                             _bilinear_w4(wx, wy), (0, dx, dy, dy + dx))
         need_uv = ctx.needs_input_grad[1]
-        v, hf, wf, _ = feat.shape
         h_img, w_img = image_shape
         ctx.meta = (feat.shape, feat.dtype, dx, dy, wf / w_img, hf / h_img)
         # border-clamped coordinates get zero positional gradient
@@ -98,9 +103,8 @@ class _SampleFeatureMap(torch.autograd.Function):
         gf = g.float()
         d_feat = d_uv = None
         if ctx.needs_input_grad[0]:
-            w4 = torch.stack([(1 - wx) * (1 - wy), wx * (1 - wy),
-                              (1 - wx) * wy, wx * wy], dim=-1).float()
-            d_feat = dfeat_scatter(base, gf, w4, hf * wf, dx, dy)
+            d_feat = dfeat_scatter(base, gf, _bilinear_w4(wx, wy).float(),
+                                   hf * wf, dx, dy)
             d_feat = d_feat.reshape(v, hf, wf, c).to(fdtype)
         if ctx.needs_input_grad[1]:
             # through the lerp weights, as _sfm_bwd (clip boundaries count
@@ -119,6 +123,7 @@ class _SampleFeatureMap(torch.autograd.Function):
 
 def sample_feature_map(feat, uv, image_shape):
     """feat (V,Hf,Wf,C) NHWC; uv (V,N,2) image pixels (x, y); image_shape
-    (H_img, W_img) -> (V,N,C), border-clamped, align_corners semantics.
-    Differentiable in feat (K3 on the card) and uv."""
+    (H_img, W_img) -> (V,N,C) float32, border-clamped, align_corners
+    semantics (K4 on the card).  Differentiable in feat (K3 on the card) and
+    uv."""
     return _SampleFeatureMap.apply(feat, uv, tuple(image_shape))

@@ -30,11 +30,9 @@ from __future__ import annotations
 import io
 import json
 import queue
-import struct
 import sys
 import threading
 import time
-import zlib
 from collections import deque
 from concurrent.futures import Future
 from concurrent.futures import TimeoutError as FuturesTimeout
@@ -48,6 +46,7 @@ from .config import Config
 from .data.ray_sampling import sample_eval_rays
 from .geometry.rays import world_bounds
 from .render.pipeline import FrameInputs
+from .utils.png import encode_png
 
 
 class RequestError(ValueError):
@@ -311,21 +310,6 @@ class RenderServer:
                         OverloadedError("server shutting down"))
         if self._worker.is_alive():
             self._worker.join(timeout=60)
-
-
-def encode_png(rgb: np.ndarray) -> bytes:
-    """(H,W,3) float in [0,1] -> 8-bit RGB PNG bytes (stdlib zlib only)."""
-    img = np.clip(rgb * 255, 0, 255).astype(np.uint8)
-    h, w, _ = img.shape
-    raw = b"".join(b"\x00" + img[y].tobytes() for y in range(h))
-
-    def chunk(tag, data):
-        return (struct.pack(">I", len(data)) + tag + data
-                + struct.pack(">I", zlib.crc32(tag + data) & 0xFFFFFFFF))
-
-    return (b"\x89PNG\r\n\x1a\n"
-            + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
-            + chunk(b"IDAT", zlib.compress(raw, 6)) + chunk(b"IEND", b""))
 
 
 def _make_handler(server: RenderServer):

@@ -17,20 +17,13 @@ import re
 import numpy as np
 import torch
 
+from .tools.convert_checkpoint import DROP_PATTERNS, convert_state_dict
+from .tools.export_checkpoint import export_state_dict
+
 # dead in the reference forward: its unused SparseConvNet, ResNet stages 3-4
 # and fc, ViT.cls_token, BatchNorm running statistics (BN always runs on batch
 # statistics) and the PE modules' constant buffers
-DEAD_KEY_PATTERNS = (
-    r"^xyzc_net\.",
-    r"^encoder\.model\.(layer3|layer4|fc)\.",
-    r"running_mean$",
-    r"running_var$",
-    r"num_batches_tracked$",
-    r"^ViT\.cls_token$",
-    r"_freqs$",
-    r"_phases$",
-    r"^encoder\.PE_color\.",
-)
+DEAD_KEY_PATTERNS = tuple(DROP_PATTERNS)
 
 
 def live_state_dict(sd: dict) -> dict:
@@ -63,11 +56,8 @@ def load_checkpoint_file(model: torch.nn.Module, path: str) -> int:
 def state_dict_from_jax(params_np: dict, vit_depth: int) -> dict:
     """The JAX package's parameters (a nested dict of numpy arrays, i.e. the
     Flax ``params`` tree) as a reference-layout state dict of tensors, through
-    the JAX package's own numpy-only mapping
-    (``transhuman_tpu/tools/export_checkpoint.py::export_state_dict``).
-    Needs the JAX package importable; nothing else in this port does."""
-    from transhuman_tpu.tools.export_checkpoint import export_state_dict
-
+    the port's copy of the numpy-only mapping
+    (``tools/export_checkpoint.py::export_state_dict``)."""
     sd = export_state_dict(params_np, vit_depth)
     return {k: torch.from_numpy(np.array(v)) for k, v in sd.items()}
 
@@ -76,12 +66,8 @@ def jax_params_from_state_dict(sd: dict) -> dict:
     """The inverse of :func:`state_dict_from_jax`: a reference-layout state
     dict (parameters, or anything keyed and shaped like them, such as their
     gradients) as the JAX package's ``{'params': ...}`` tree of numpy
-    arrays, through its numpy-only converter
-    (``transhuman_tpu/tools/convert_checkpoint.py::convert_state_dict``).
-    For tests that compare the two packages; nothing else in this port
-    imports the JAX package."""
-    from transhuman_tpu.tools.convert_checkpoint import convert_state_dict
-
+    arrays, through the port's copy of the numpy-only converter
+    (``tools/convert_checkpoint.py::convert_state_dict``)."""
     return convert_state_dict(
         {k: v.detach().cpu().numpy() for k, v in sd.items()}, strict=True)
 
