@@ -9,11 +9,13 @@ any failure ends the run with a non-zero exit:
 2. build: the CUDA kernels from transhuman_tpu_torch/csrc with nvcc, one
    process per source, all started together;
 3. kernels: K1 (cull) and K2 (DPaRF) against their plain PyTorch versions
-   on the card at the render path's shapes, K2's token gradient against
+   on the card at the render path's shapes, K2 timed also at the train
+   shape (every point of a train batch), K2's token gradient against
    autograd through the plain version, K3 (the feature-fetch backward)
-   against its plain version at both train shapes with the ids of a real
-   train batch and, with taps +0..+3, against the index_add_ oracle of the
-   TPU scatter probe (tools/probe_stream_scatter.py); K4 (the forward
+   against its plain version and one index_add_ at both train shapes with
+   the ids of a real train batch and, with taps +0..+3, against the
+   index_add_ oracle of the TPU scatter probe
+   (tools/probe_stream_scatter.py); K4 (the forward
    feature gather) against its plain version and against grid_sample at the
    serve pixel and painting shapes of a real request, in its 1-tap forms at
    the TPU gather probes' shape, and with masked ids; all timed, each beside
@@ -159,19 +161,13 @@ def phase_build():
 
 
 def phase_kernels(card: str):
-    from transhuman_tpu_torch.geometry.clusters import ClusterSpec
-    from transhuman_tpu_torch.geometry.smpl import SMPLModel
     from transhuman_tpu_torch.kernels import cull, dparf
+    from transhuman_tpu_torch.tools.kernel_ab import phase3_inputs
 
     dev = torch.device("cuda")
-    rng = np.random.default_rng(0)
-    smpl = SMPLModel.synthetic()
-    verts_np, _, blend = smpl(rng.normal(0, 0.2, 72), np.zeros(10))
-    verts = torch.from_numpy(verts_np).to(dev)
-    # body-scale sample points: vertices jittered across the 0.1 m shell
-    base = verts_np[rng.integers(0, verts_np.shape[0], N_CHUNK)]
-    pts_np = base + rng.normal(0, 0.08, base.shape).astype(np.float32)
-    pts = torch.from_numpy(pts_np.astype(np.float32)).to(dev)
+    # body-scale sample points (vertices jittered across the 0.1 m shell),
+    # the clusters pooled from that pose, random tokens
+    pts, verts, centers, rot, tokens = phase3_inputs(dev, N_CHUNK)
     results = []
 
     # K1 -----------------------------------------------------------------
@@ -195,8 +191,9 @@ def phase_kernels(card: str):
         f"max|dd2| {err:.3g}, survivors {float(mask_k.float().mean()):.3f}, "
         f"{int(diff.sum())} threshold flips within 1e-5; kernel {ms:.4f} ms, "
         f"plain {plain_ms:.4f} ms  [{card}]")
-    # d^2 - b: 3 differences, 3 squares, 2 sums, a subtraction and a min
-    # per (point, vertex) pair; no single PyTorch call takes a min over a
+    # the least work of d^2 - b per (point, vertex) pair is the expanded
+    # form's 3 multiply-adds and a min, 7 operations (|p|^2 and |r|^2 - b
+    # once per point and vertex); no single PyTorch call takes a min over a
     # distance matrix
     results.append({
         "name": "min_excess2", "route": "cuda",
@@ -204,19 +201,11 @@ def phase_kernels(card: str):
         "replaces": "transhuman_tpu/experiments/cull.py:50",
         "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
         **bound(nbytes(pts, verts, zeros, d2_k),
-                10 * pts.shape[0] * verts.shape[0]),
+                7 * pts.shape[0] * verts.shape[0]),
         "library_ms": None,
     })
 
     # K2 -----------------------------------------------------------------
-    cluster = ClusterSpec.from_kmeans(smpl.v_template, 300, iters=8)
-    pool = torch.from_numpy(cluster.pool_matrix).to(dev)
-    centers = (pool @ verts).contiguous()
-    rot = torch.einsum("cv,vij->cij", pool,
-                       torch.from_numpy(blend[:, :3, :3].copy()).to(dev))
-    rot = rot.contiguous()
-    tokens = torch.from_numpy(
-        rng.standard_normal((3, 300, 192)).astype(np.float32)).to(dev)
     k = 7
     tok_k, pe_k, dist_k, idx_k, w_k = dparf.dparf_cuda(pts, centers, rot,
                                                        tokens, k)
@@ -261,8 +250,10 @@ def phase_kernels(card: str):
         "library_ms": None,
     })
 
-    # K2's token gradient and K3, on one full-width train batch -----------
+    # K2 at the train shape, its token gradient, and K3, on one full-width
+    # train batch -------------------------------------------------------
     uv_pix, uv_verts, image, binding = train_batch_projections(dev)
+    results[-1].update(time_dparf_train(card, *binding, tokens, k))
     check_dparf_grad(card, *binding, k)
     k3 = check_dfeat_scatter(card, uv_pix, uv_verts, image)
     k3["t7"] = check_t7_scatter(card)
@@ -294,6 +285,26 @@ def train_batch_projections(dev):
     return (pipe.fetch_uv(f, pts, pts_mask), pipe.fetch_uv(f, f.verts_world),
             tuple(f.images.shape[1:3]),
             (to_smpl(f, pts).contiguous(), pro.centers, pro.rot))
+
+
+def time_dparf_train(card: str, pts, centers, rot, tokens, k: int) -> dict:
+    """K2 at the train step's shape: every sample point of one full-width
+    train batch (6 patches of 20x20 rays x 64 samples, unculled)."""
+    from transhuman_tpu_torch.kernels import dparf
+
+    outs = dparf.dparf_cuda(pts, centers, rot, tokens, k)
+    ms = time_ms(lambda: dparf.dparf_cuda(pts, centers, rot, tokens, k))
+    plain_ms = time_ms(lambda: dparf.dparf_plain(pts, centers, rot, tokens,
+                                                 k), iters=5)
+    b = bound(nbytes(pts, centers, rot, tokens, *outs),
+              8 * pts.shape[0] * centers.shape[0]
+              + 2 * k * tokens.numel() // centers.shape[0] * pts.shape[0])
+    log(f"[3 kernels] K2 dparf at the train shape, {pts.shape[0]} pts, "
+        f"C={centers.shape[0]}, V=3, D=192, k={k}: kernel {ms:.4f} ms, "
+        f"plain {plain_ms:.4f} ms, bound {b['bound_ms']:.4f} ms "
+        f"({b['bound_by']})  [{card}]")
+    return {"train_ms": ms, "train_plain_ms": plain_ms,
+            "train_bound_ms": b["bound_ms"]}
 
 
 def check_dparf_grad(card: str, pts, centers, rot, k: int):
@@ -365,28 +376,28 @@ def check_dfeat_scatter(card: str, uv_pix, uv_verts, image):
             f"max err {err:.3g} of max {scale:.3g}; wrapper {ms:.4f} ms "
             f"(sort {sort_ms:.4f}, zero-fill {zero_ms:.4f}), plain "
             f"{plain_ms:.4f} ms  [{card}]")
+        # one index_add_ of the 4N weighted tap rows, formed outside the
+        # timed region, into a zeroed map: the same sum with the weighting
+        # and the zero-fill left out
+        flat4 = torch.cat([(ids.long() + hw * torch.arange(
+            3, device=dev)[:, None] + off).reshape(-1)
+            for off in (0, dx, dy, dy + dx)])
+        rows4 = torch.cat([(g * w4[..., t:t + 1]).reshape(-1, c)
+                           for t in range(4)])
+        acc = torch.zeros((3 * hw, c), device=dev)
+        lib_ms = time_ms(lambda: acc.index_add_(0, flat4, rows4))
+        del flat4, rows4, acc
+        b = bound(nbytes(ids, g, w4, got), 8 * g.numel())
+        log(f"[3 kernels] K3 library yardstick {tag}: one index_add_ of the "
+            f"pre-weighted tap rows {lib_ms:.4f} ms; bound "
+            f"{b['bound_ms']:.4f} ms ({b['bound_by']})  [{card}]")
         if tag == "pixel":
-            # one index_add_ of the 4N weighted tap rows, formed outside the
-            # timed region, into a zeroed map: the same sum with the
-            # weighting and the zero-fill left out
-            flat4 = torch.cat([(ids.long() + hw * torch.arange(
-                3, device=dev)[:, None] + off).reshape(-1)
-                for off in (0, dx, dy, dy + dx)])
-            rows4 = torch.cat([(g * w4[..., t:t + 1]).reshape(-1, c)
-                               for t in range(4)])
-            acc = torch.zeros((3 * hw, c), device=dev)
-            lib_ms = time_ms(lambda: acc.index_add_(0, flat4, rows4))
-            del flat4, rows4, acc
             entry.update(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                         library_ms=lib_ms,
-                         **bound(nbytes(ids, g, w4, got), 8 * g.numel()))
-            log(f"[3 kernels] K3 library yardstick: one index_add_ of the "
-                f"pre-weighted tap rows {lib_ms:.4f} ms; bound "
-                f"{entry['bound_ms']:.4f} ms ({entry['bound_by']})  [{card}]")
+                         library_ms=lib_ms, **b)
         else:
             entry.update(paint_ms=ms, paint_plain_ms=plain_ms,
-                         paint_bound_ms=bound(nbytes(ids, g, w4, got),
-                                              8 * g.numel())["bound_ms"],
+                         paint_library_ms=lib_ms,
+                         paint_bound_ms=b["bound_ms"],
                          max_abs_err=max(entry["max_abs_err"], err))
     return entry
 

@@ -59,11 +59,26 @@ def test_wrappers_refuse_cpu_tensors():
                                        "feature_gather": 0}
 
 
+def test_kernel_ab_inputs_are_seeded_and_it_needs_a_card(monkeypatch):
+    """The A/B tool's inputs (chip_smoke.py phase 3's) are the same on
+    every call; without a card the tool stops before building anything."""
+    from transhuman_tpu_torch.tools import kernel_ab
+
+    a = kernel_ab.phase3_inputs("cpu", 64)
+    b = kernel_ab.phase3_inputs("cpu", 64)
+    assert [tuple(t.shape) for t in a] == [(64, 3), (6890, 3), (300, 3),
+                                           (300, 3, 3), (3, 300, 192)]
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(SystemExit, match="needs a CUDA card"):
+        kernel_ab.main(["--parent", "."])
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("n, m", [(1, 7), (1000, 1500), (5000, 6890)])
 def test_cull_kernel_matches_plain(cuda, n, m):
-    """Ragged point and vertex counts (neither a multiple of the block or the
-    1,024-reference tile), with a per-reference bias."""
+    """Ragged point and vertex counts (neither a multiple of the block's 128
+    points or the 2,048-reference tile), with a per-reference bias."""
     p, r = _rand((n, 3), 0, 0.5, cuda), _rand((m, 3), 1, 0.4, cuda)
     b = torch.from_numpy(np.random.default_rng(2).random(m).astype(
         np.float32) * 0.01).to(cuda)
@@ -72,6 +87,24 @@ def test_cull_kernel_matches_plain(cuda, n, m):
     assert cull.min_excess2_cuda.launches == n0 + 1
     want = cull.min_excess2_plain(p, r, b)
     # the plain version's expanded form rounds ~1e-6 at |p|^2 ~ 1
+    torch.testing.assert_close(got, want, atol=1e-5, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [1, 31, 6890, 10000])
+@pytest.mark.parametrize("n", [1, 5000])
+def test_cull_kernel_edges(cuda, n, m):
+    """M below the 16 reference splits of a block (1), not a multiple of
+    them (31), a chunk's vertices (6,890) and several 2,048-reference tiles
+    (10,000); N not a multiple of the 4 points per thread; biases of 0.2 to
+    0.6, larger than many d^2, so that minima go negative."""
+    p, r = _rand((n, 3), 3, 0.5, cuda), _rand((m, 3), 4, 0.4, cuda)
+    b = torch.from_numpy(0.2 + np.random.default_rng(5).random(m).astype(
+        np.float32) * 0.4).to(cuda)
+    got = cull.min_excess2_cuda(p, r, b)
+    want = cull.min_excess2_plain(p, r, b)
+    assert n == 1 or bool((want < 0).any())
+    # both expanded forms, summed in other orders: a few ulps of |p|^2 <~ 4
     torch.testing.assert_close(got, want, atol=1e-5, rtol=0)
 
 
@@ -107,6 +140,74 @@ def test_dparf_kernel_ties_go_to_the_lowest_index(cuda):
         torch.testing.assert_close(g, w, atol=1e-5, rtol=0)
     assert got[3].tolist() == [[1, 2, 3, 4, 5]] == want[3].tolist()
     torch.testing.assert_close(got[0][:, 0], tokens[:, 1:6].mean(dim=1))
+
+
+def _assert_dparf_matches_plain(got, want, pts, centers, k):
+    """K2's outputs against the plain twin's: dist everywhere, the rest off
+    kNN near-ties (d^2 formed two ways may rank those differently)."""
+    ok = ~_knn_near_ties(pts, centers, k)
+    torch.testing.assert_close(got[2], want[2], atol=1e-5, rtol=0)
+    assert torch.equal(got[3].long()[ok], want[3][ok])
+    torch.testing.assert_close(got[4][ok], want[4][ok], atol=1e-5, rtol=0)
+    torch.testing.assert_close(got[0][:, ok], want[0][:, ok], atol=1e-4,
+                               rtol=0)
+    torch.testing.assert_close(got[1][ok], want[1][ok], atol=5e-4, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c, k, n, d", [
+    (8, 8, 37, 192),      # C == k
+    (33, 5, 1001, 192),   # C not a multiple of 32; N ragged to 8 per block
+    (300, 7, 2051, 20),   # D % 4 != 0: the scalar token path
+    (1000, 8, 517, 192),  # C above 32 K
+    *[(300, kk, 259, 192) for kk in range(1, 9)],  # every k, one kernel
+])
+def test_dparf_kernel_shapes(cuda, c, k, n, d):
+    args = _dparf_inputs(n, c, 3, d, cuda, seed=c + k)
+    got = dparf.dparf_cuda(*args, k=k)
+    want = dparf.dparf_plain(*args, k=k)
+    _assert_dparf_matches_plain(got, want, args[0], args[1], k)
+
+
+@pytest.mark.cuda
+def test_dparf_kernel_misaligned_tokens_take_the_scalar_path(cuda):
+    pts, centers, rot, tokens = _dparf_inputs(300, 300, 3, 192, cuda)
+    buf = torch.empty(tokens.numel() + 1, device=cuda)
+    shifted = buf[1:].view(tokens.shape)  # contiguous, 4 bytes off 16
+    shifted.copy_(tokens)
+    got = dparf.dparf_cuda(pts, centers, rot, shifted, k=7)
+    want = dparf.dparf_plain(pts, centers, rot, tokens, k=7)
+    _assert_dparf_matches_plain(got, want, pts, centers, 7)
+
+
+@pytest.mark.cuda
+def test_dparf_kernel_exact_ties_match_the_plain_argmin(cuda):
+    """Dyadic points and centres (multiples of 1/8), so that every d^2 is
+    exact in both forms and many tie exactly.  At the origin centres 5, 6,
+    37 and 38 tie nearest: 5 and 37 belong to one lane (met in two
+    rounds), 5 and 6 to neighbouring lanes (met in one shuffle).  The
+    indices equal the plain twin's iterative argmin everywhere."""
+    rng = np.random.default_rng(11)
+    c, k = 70, 7
+    # every coordinate in +-{2..8}/8: no random centre within 0.25 of 0
+    centers = (rng.integers(2, 9, (c, 3)) * rng.choice([-1, 1], (c, 3))
+               ).astype(np.float32) / 8
+    for j, (x, y) in ((5, (1, 1)), (6, (1, -1)), (37, (-1, 1)),
+                      (38, (-1, -1))):
+        centers[j] = (x / 8, y / 8, 0)
+    pts = rng.integers(-8, 9, (500, 3)).astype(np.float32) / 8
+    pts[0] = 0
+    rot = np.stack([np.linalg.qr(m)[0] for m in
+                    rng.standard_normal((c, 3, 3))]).astype(np.float32)
+    tokens = rng.standard_normal((3, c, 192)).astype(np.float32)
+    args = [torch.from_numpy(a).to(cuda) for a in (pts, centers, rot, tokens)]
+    got = dparf.dparf_cuda(*args, k=k)
+    want = dparf.dparf_plain(*args, k=k)
+    assert got[3][0, :4].tolist() == [5, 6, 37, 38]
+    assert torch.equal(got[3].long(), want[3])
+    for g, w, atol in zip(got[:3] + got[4:], want[:3] + want[4:],
+                          (1e-4, 5e-4, 1e-5, 1e-5)):
+        torch.testing.assert_close(g, w, atol=atol, rtol=0)
 
 
 @pytest.mark.cuda

@@ -12,7 +12,7 @@
 #define THP_EXPORT extern "C" __attribute__((visibility("default")))
 
 // Argument errors, kept clear of cudaError_t's range.
-#define THP_ERR_BAD_K 10001        // k outside the compiled instantiations
+#define THP_ERR_BAD_K 10001        // k outside 1..8
 #define THP_ERR_BAD_FREQS 10002    // n_freqs other than the compiled one
 #define THP_ERR_BAD_SIZE 10003     // an extent is negative or too large
 #define THP_ERR_SMEM 10004         // the tile does not fit in shared memory

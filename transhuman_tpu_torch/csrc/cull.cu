@@ -6,55 +6,87 @@
 // cluster prefilter, all with this one kernel.
 //
 // What bounds it: FP32 arithmetic.  A full 512x512 frame has 4.19 M sample
-// points against 6,890 vertices, 2.9e10 pairs at ~8 FP32 operations each
-// (3 sub, 1 mul, 2 fma, 1 sub, 1 min) = 2.3e11 operations; memory traffic is
-// 12 B in and 4 B out per point.  The design keeps every operand on chip:
-// one thread owns one point in registers and a running minimum; the block
-// streams the references through shared memory in tiles of TILE_R (x, y, z,
-// bias) float4s, which every thread of the block then reads as a broadcast.
-// The difference form (p - r).(p - r) is used instead of the TPU kernel's
-// expanded |p|^2 + |r|^2 - 2 p.r: it is as cheap without a matrix unit and
-// does not cancel catastrophically near the threshold.
+// points against 6,890 vertices, 2.9e10 pairs; memory traffic is 12 B in and
+// 4 B out per point.  The least work per pair is the expanded form of the JAX
+// reference (transhuman_tpu/ops/knn.py, and the Pallas kernel):
+// |p|^2 + (|r|^2 - b) - 2 p.r, i.e. 3 FMAs and a min (7 FP32 operations)
+// once |p|^2 is added after the min and each reference is stored as
+// (-2x, -2y, -2z, |r|^2 - b), which the block computes while it loads the
+// reference tile into shared memory.
+// Precision: at |p|^2 ~ 1 the expanded form rounds ~3e-7 on d^2, ~1.5e-6 m
+// at the 0.1 m threshold; the plain twin (ops/knn.py) rounds the same way.
+// The reference clamps each pair's d^2 at 0 before subtracting the bias;
+// folding |p|^2 out of the loop moves that clamp past the min, where it is
+// dropped (with a bias the result may be negative).  The two differ by at
+// most the same ~3e-7, and only within ~5e-4 m of a reference.
+// Occupancy and ILP: a thread owns PTS = 4 points, so each broadcast float4
+// feeds 4 independent min chains; the 16 warps of a block share the block's
+// 128 points and split the reference axis among them (warp w takes tile
+// entries w, w + 16, ...), so a 32,768-point chunk runs 4,096 warps, 31 per
+// SM.  The 16 partial minima per point meet in shared memory: fminf is exact
+// and order-free, so the split changes no bit.  No tensor cores: a 0.1 m
+// threshold on d^2 ~ 0.01 at |p|^2 ~ 1 needs float32 accuracy, which TF32
+// lacks.
 #include "common.cuh"
 
 namespace {
 
-constexpr int TILE_R = 1024;  // references per shared-memory tile (16 KB)
-constexpr int THREADS = 128;  // points per block
+constexpr int WARPS = 16;              // reference splits per block
+constexpr int THREADS = 32 * WARPS;
+constexpr int PTS = 4;                 // points per thread
+constexpr int BLOCK_PTS = 32 * PTS;    // points per block
+constexpr int TILE_R = 2048;           // references per shared tile (32 KB)
 
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(THREADS, 2)
 min_excess2_kernel(const float* __restrict__ pts, const float* __restrict__ refs,
                    const float* __restrict__ bias2, float* __restrict__ out,
                    int n, int m) {
   __shared__ float4 tile[TILE_R];
-  const int i = blockIdx.x * THREADS + threadIdx.x;
-  float px = 0.f, py = 0.f, pz = 0.f;
-  if (i < n) {
-    px = pts[3 * i];
-    py = pts[3 * i + 1];
-    pz = pts[3 * i + 2];
+  __shared__ float part[WARPS][BLOCK_PTS];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int n0 = blockIdx.x * BLOCK_PTS;
+  float px[PTS], py[PTS], pz[PTS], best[PTS];
+#pragma unroll
+  for (int p = 0; p < PTS; ++p) {
+    const int i = n0 + lane + 32 * p;
+    const bool in = i < n;
+    px[p] = in ? pts[3 * i] : 0.f;
+    py[p] = in ? pts[3 * i + 1] : 0.f;
+    pz[p] = in ? pts[3 * i + 2] : 0.f;
+    best[p] = __int_as_float(0x7f800000);  // +inf
   }
-  float best = __int_as_float(0x7f800000);  // +inf
   for (int base = 0; base < m; base += TILE_R) {
     const int cnt = min(TILE_R, m - base);
     for (int j = threadIdx.x; j < cnt; j += THREADS) {
       const int r = base + j;
-      tile[j] = make_float4(refs[3 * r], refs[3 * r + 1], refs[3 * r + 2],
-                            bias2[r]);
+      const float x = refs[3 * r], y = refs[3 * r + 1], z = refs[3 * r + 2];
+      tile[j] = make_float4(-2.f * x, -2.f * y, -2.f * z,
+                            fmaf(x, x, fmaf(y, y, z * z)) - bias2[r]);
     }
     __syncthreads();
-#pragma unroll 8
-    for (int j = 0; j < cnt; ++j) {
-      const float4 r = tile[j];
-      const float dx = px - r.x;
-      const float dy = py - r.y;
-      const float dz = pz - r.z;
-      const float d2 = fmaf(dx, dx, fmaf(dy, dy, dz * dz));
-      best = fminf(best, d2 - r.w);
+#pragma unroll 4
+    for (int j = warp; j < cnt; j += WARPS) {
+      const float4 r = tile[j];  // one address per warp: a broadcast
+#pragma unroll
+      for (int p = 0; p < PTS; ++p)
+        best[p] = fminf(best[p],
+                        fmaf(px[p], r.x, fmaf(py[p], r.y, fmaf(pz[p], r.z,
+                                                               r.w))));
     }
     __syncthreads();
   }
-  if (i < n) out[i] = best;
+#pragma unroll
+  for (int p = 0; p < PTS; ++p) part[warp][lane + 32 * p] = best[p];
+  __syncthreads();
+  const int t = threadIdx.x;
+  const int i = n0 + t;
+  if (t < BLOCK_PTS && i < n) {
+    float b = part[0][t];
+#pragma unroll
+    for (int w = 1; w < WARPS; ++w) b = fminf(b, part[w][t]);
+    const float x = pts[3 * i], y = pts[3 * i + 1], z = pts[3 * i + 2];
+    out[i] = fmaf(x, x, fmaf(y, y, z * z)) + b;
+  }
 }
 
 }  // namespace
@@ -66,7 +98,7 @@ THP_EXPORT int thp_min_excess2(const float* pts, const float* refs,
                                void* stream) {
   if (n < 0 || m < 0) return THP_ERR_BAD_SIZE;
   if (n == 0) return 0;
-  const int blocks = (n + THREADS - 1) / THREADS;
+  const int blocks = (n + BLOCK_PTS - 1) / BLOCK_PTS;
   min_excess2_kernel<<<blocks, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
       pts, refs, bias2, out, n, m);
   return thp_launch_status();
@@ -75,7 +107,7 @@ THP_EXPORT int thp_min_excess2(const float* pts, const float* refs,
 THP_EXPORT const char* thp_error_string(int code) {
   switch (code) {
     case THP_ERR_BAD_K:
-      return "k is outside the kernel's compiled range 1..8";
+      return "k is outside the kernel's range 1..8";
     case THP_ERR_BAD_FREQS:
       return "the kernel is compiled for n_freqs = 10 only";
     case THP_ERR_BAD_SIZE:
