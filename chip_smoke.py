@@ -12,14 +12,16 @@ any failure ends the run with a non-zero exit:
    on the card at the render path's shapes, K2 timed also at the train
    shape (every point of a train batch), K2's token gradient against
    autograd through the plain version, K3 (the feature-fetch backward)
-   against its plain version and one index_add_ at both train shapes with
-   the ids of a real train batch and, with taps +0..+3, against the
-   index_add_ oracle of the TPU scatter probe
-   (tools/probe_stream_scatter.py); K4 (the forward
-   feature gather) against its plain version and against grid_sample at the
-   serve pixel and painting shapes of a real request, in its 1-tap forms at
-   the TPU gather probes' shape, and with masked ids; all timed, each beside
-   its bound (bytes over 3.35 TB/s or FP32 operations over 67 TFLOP/s);
+   against its plain version and a zero-fill + index_add_ at both train
+   shapes with the ids of a real train batch, and two calls for the same
+   bits, and, with taps +0..+3, against the index_add_ oracle of the TPU
+   scatter probe (tools/probe_stream_scatter.py); K4 (the forward feature
+   fetch) in its sampling form (uv in) against its plain twin, against its
+   id form (bits) and against grid_sample at the serve pixel and painting
+   shapes of a real request, the whole sample_feature_map forward, the id
+   form with masked ids, and its 1-tap forms at the TPU gather probes'
+   shape; all timed, each beside its bound (bytes over 3.35 TB/s or FP32
+   operations over 67 TFLOP/s);
 4. slice parity: one 64x64 request through RenderService on the card and on
    the CPU (plain versions) with the same full-width weights;
 5. serve: the full-width RenderService behind RenderServer on loopback,
@@ -38,8 +40,9 @@ any failure ends the run with a non-zero exit:
    just before and read just after, then 2 frames visualized; the files
    they write are checked.
 
-The second-to-last line is {"kernels": [...]}; the last line is
-{"ok": true, "device": {...}}.  Imports only torch, numpy and the port.
+The last three lines are {"kernels": [...]}, the card's name and power
+limit as nvidia-smi prints them, and {"ok": true, "device": {...}}.
+Imports only torch, numpy and the port.
 """
 
 from __future__ import annotations
@@ -337,63 +340,66 @@ def check_dparf_grad(card: str, pts, centers, rot, k: int):
 def check_dfeat_scatter(card: str, uv_pix, uv_verts, image):
     """K3 against its plain twin at both train shapes: the pixel fetch
     (3, 512, 512, 384) at 153,600 points and the painting fetch
-    (3, 512, 512, 192) at 6,890 vertices; the wrapper (sort + zero-fill +
-    kernel) and its parts timed."""
+    (3, 512, 512, 192) at 6,890 vertices; two calls give the same bits; the
+    wrapper (sort, segment bookkeeping, one host sync, three kernels) timed
+    beside the sort alone and one library call."""
     from transhuman_tpu_torch.kernels import scatter
-    from transhuman_tpu_torch.ops.sampling import _sample_taps
+    from transhuman_tpu_torch.kernels.gather import _bilinear_w4, _sample_taps
 
     entry = {"name": "dfeat_scatter", "route": "cuda",
              "source": "transhuman_tpu_torch/csrc/scatter.cu",
              "replaces": "transhuman_tpu/experiments/streamscatter.py:172"}
     for tag, uv, c in (("pixel", uv_pix, 384), ("paint", uv_verts, 192)):
         dev = uv.device
-        meta = torch.empty((3, image[0], image[1], c), device="meta")
-        _, _, base, wx, wy, dx, dy = _sample_taps(meta, uv, image)
+        _, _, base, wx, wy, dx, dy = _sample_taps((3, image[0], image[1], c),
+                                                  uv, image)
         ids = base.to(torch.int32).contiguous()
-        w4 = torch.stack([(1 - wx) * (1 - wy), wx * (1 - wy), (1 - wx) * wy,
-                          wx * wy], dim=-1).contiguous()
+        w4 = _bilinear_w4(wx, wy).contiguous()
         g = torch.randn((3, ids.shape[1], c), device=dev,
                         generator=torch.Generator(dev).manual_seed(6))
         hw = image[0] * image[1]
         got = scatter.dfeat_scatter_cuda(ids, g, w4, hw, dx, dy)
         want = scatter.dfeat_scatter_plain(ids, g, w4, hw, dx, dy)
+        again = scatter.dfeat_scatter_cuda(ids, g, w4, hw, dx, dy)
         torch.cuda.synchronize()
         err = float((got - want).abs().max())
         scale = float(want.abs().max())
-        # float32 sums in another order (atomics: run to run)
+        # float32 sums in another order (segments of sorted rows, then taps)
         check(err <= 1e-4 + 1e-5 * scale,
               f"K3 {tag}: max err {err} (max |d_feat| {scale})")
+        check(torch.equal(got, again), f"K3 {tag}: two calls differ")
+        del want, again
         per_texel = ids.numel() / sum(int(torch.unique(i).numel())
                                       for i in ids)
+        longest = max(int(torch.unique(i, return_counts=True)[1].max())
+                      for i in ids)
         ms = time_ms(lambda: scatter.dfeat_scatter_cuda(ids, g, w4, hw, dx,
                                                         dy))
         plain_ms = time_ms(lambda: scatter.dfeat_scatter_plain(ids, g, w4, hw,
                                                                dx, dy))
         sort_ms = time_ms(lambda: torch.sort(ids, dim=1, stable=True))
-        zero_ms = time_ms(lambda: torch.zeros((3, hw, c), device=dev))
-        log(f"[3 kernels] K3 dfeat_scatter {tag}: V=3, N={ids.shape[1]}, "
-            f"C={c}, {hw} texels, {per_texel:.2f} rows per touched texel: "
-            f"max err {err:.3g} of max {scale:.3g}; wrapper {ms:.4f} ms "
-            f"(sort {sort_ms:.4f}, zero-fill {zero_ms:.4f}), plain "
-            f"{plain_ms:.4f} ms  [{card}]")
-        # one index_add_ of the 4N weighted tap rows, formed outside the
-        # timed region, into a zeroed map: the same sum with the weighting
-        # and the zero-fill left out
+        # the library call: the whole function as one index_add_ of the 4N
+        # tap rows (weighted outside the timed region) into a fresh zeroed
+        # map, the zero-fill and the index_add_ timed together
         flat4 = torch.cat([(ids.long() + hw * torch.arange(
             3, device=dev)[:, None] + off).reshape(-1)
             for off in (0, dx, dy, dy + dx)])
         rows4 = torch.cat([(g * w4[..., t:t + 1]).reshape(-1, c)
                            for t in range(4)])
-        acc = torch.zeros((3 * hw, c), device=dev)
-        lib_ms = time_ms(lambda: acc.index_add_(0, flat4, rows4))
-        del flat4, rows4, acc
+        lib_ms = time_ms(lambda: torch.zeros((3 * hw, c), device=dev)
+                         .index_add_(0, flat4, rows4))
+        del flat4, rows4
         b = bound(nbytes(ids, g, w4, got), 8 * g.numel())
-        log(f"[3 kernels] K3 library yardstick {tag}: one index_add_ of the "
-            f"pre-weighted tap rows {lib_ms:.4f} ms; bound "
-            f"{b['bound_ms']:.4f} ms ({b['bound_by']})  [{card}]")
+        log(f"[3 kernels] K3 dfeat_scatter {tag}: V=3, N={ids.shape[1]}, "
+            f"C={c}, {hw} texels, {per_texel:.2f} rows per touched texel, "
+            f"longest run {longest}: max err {err:.3g} of max {scale:.3g}, "
+            f"two calls bit-identical; wrapper {ms:.4f} ms (sort "
+            f"{sort_ms:.4f}), plain {plain_ms:.4f} ms, zeros + index_add_ "
+            f"{lib_ms:.4f} ms, bound {b['bound_ms']:.4f} ms "
+            f"({b['bound_by']})  [{card}]")
         if tag == "pixel":
             entry.update(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                         library_ms=lib_ms, **b)
+                         library_ms=lib_ms, sort_ms=sort_ms, **b)
         else:
             entry.update(paint_ms=ms, paint_plain_ms=plain_ms,
                          paint_library_ms=lib_ms,
@@ -429,30 +435,34 @@ def check_t7_scatter(card: str) -> dict:
 
         got = scatter.dfeat_scatter_cuda(ids, rows, w4, window, 1, 2)
         want = oracle()
+        again = scatter.dfeat_scatter_cuda(ids, rows, w4, window, 1, 2)
         torch.cuda.synchronize()
         err = float((got[0] - want).abs().max())
         scale = float(want.abs().max())
         # ~32 rows per window texel per tap, summed in two orders
         check(err <= 1e-4 + 1e-5 * scale,
               f"T7 via K3, {taps} taps: max err {err} (max {scale})")
+        check(torch.equal(got, again), f"T7 via K3, {taps} taps: two calls "
+              "differ")
         ms = time_ms(lambda: scatter.dfeat_scatter_cuda(ids, rows, w4, window,
                                                         1, 2))
         plain_ms = time_ms(oracle)
         # the library call: one index_add_ per tap of rows scaled outside
-        # the timed region, into a zeroed window: one call for one tap
+        # the timed region, into a fresh zeroed window: one call for one tap
         flat = torch.cat([ids[0].long() + t for t in range(taps)])
         scaled = torch.cat([(0.25 + 0.1 * t) * rows[0] for t in range(taps)])
-        acc = torch.zeros((window, c), device=dev)
-        lib_ms = time_ms(lambda: acc.index_add_(0, flat, scaled))
+        lib_ms = time_ms(lambda: torch.zeros((window, c), device=dev)
+                         .index_add_(0, flat, scaled))
         out[f"taps{taps}"] = {"max_abs_err": err, "ms": ms,
                               "plain_ms": plain_ms, "library_ms": lib_ms,
                               **bound(nbytes(ids, rows, w4, got),
                                       2 * taps * rows.numel())}
         log(f"[3 kernels] T7 by K3 (dx=1, dy=2), {taps} tap(s), N={n}, "
-            f"C={c}, window {window}: max err {err:.3g} of max {scale:.3g}; "
-            f"wrapper {ms:.4f} ms, oracle {plain_ms:.4f} ms, one index_add_ "
-            f"of the scaled rows {lib_ms:.4f} ms, bound "
-            f"{out[f'taps{taps}']['bound_ms']:.4f} ms  [{card}]")
+            f"C={c}, window {window}: max err {err:.3g} of max {scale:.3g}, "
+            f"two calls bit-identical; wrapper {ms:.4f} ms, oracle "
+            f"{plain_ms:.4f} ms, zeros + index_add_ of the scaled rows "
+            f"{lib_ms:.4f} ms, bound {out[f'taps{taps}']['bound_ms']:.4f} ms"
+            f"  [{card}]")
     return out
 
 
@@ -496,17 +506,23 @@ def _unique_rows(ids, offsets) -> int:
 
 
 def check_feature_gather(card: str) -> dict:
-    """K4 against its plain version at the serve pixel shape (with and
-    without masked ids) and the painting shape of one real request, against
-    grid_sample (align_corners, border) on an NCHW copy of the same map,
-    and in its 1-tap forms at the TPU gather probes' shape
-    (tools/probe_block_gather.py: 262,144 rows of 384, 1,048,576 ids)."""
+    """K4 at the serve pixel and painting shapes of one real request: the
+    sampling form (uv in, one launch) against its plain twin, against the
+    id form on _sample_taps' ids and weights (bits) and against grid_sample
+    (align_corners, border) on an NCHW copy of the same map; the id form
+    against its plain version (with masked ids too); the whole
+    sample_feature_map forward, the wrappers and the bare launches timed,
+    each beside its bound; then the 1-tap forms at the TPU gather probes'
+    shape (tools/probe_block_gather.py: 262,144 rows of 384, 1,048,576
+    ids)."""
     import torch.nn.functional as F
 
     from transhuman_tpu_torch.kernels import build, gather
-    from transhuman_tpu_torch.ops.sampling import _bilinear_w4, _sample_taps
+    from transhuman_tpu_torch.kernels.gather import _bilinear_w4, _sample_taps
+    from transhuman_tpu_torch.ops.sampling import sample_feature_map
 
     dev = torch.device("cuda")
+    lib, stream = build.library(), torch.cuda.current_stream().cuda_stream
     pixel, holder, uv_pix, uv_verts, image = serve_request_maps(dev)
     entry = {"name": "feature_gather", "route": "cuda",
              "source": "transhuman_tpu_torch/csrc/gather.cu",
@@ -514,14 +530,19 @@ def check_feature_gather(card: str) -> dict:
     for tag, fmap, uv in (("pixel", pixel, uv_pix),
                           ("paint", holder, uv_verts)):
         v, hf, wf, c = fmap.shape
-        fx, fy, base, wx, wy, dx, dy = _sample_taps(fmap, uv, image)
+        n = uv.shape[1]
+        fx, fy, base, wx, wy, dx, dy = _sample_taps(fmap.shape, uv, image)
         src = fmap.reshape(v, hf * wf, c)
         ids = base.to(torch.int32).contiguous()
         w4 = _bilinear_w4(wx, wy).contiguous()
         offs = (0, dx, dy, dy + dx)
-        got = gather.feature_gather_cuda(src, ids, w4, offs)
-        want = gather.feature_gather_plain(src, ids, w4, offs)
+        got = gather.feature_sample_cuda(fmap, uv, image)
+        by_ids = gather.feature_gather_cuda(src, ids, w4, offs)
+        want = gather.feature_sample_plain(fmap, uv, image)
         torch.cuda.synchronize()
+        check(torch.equal(got, by_ids),
+              f"K4 {tag}: the sampling form differs from the id form on "
+              "_sample_taps' taps")
         err = float((got - want).abs().max())
         scale = float(src.abs().max())
         # fused multiply-adds against rounded products: a few ulps of |src|
@@ -539,34 +560,44 @@ def check_feature_gather(card: str) -> dict:
         # ~ 3e-5 texel, times a feature step of at most 2 max|src|
         check(gs_err <= 2e-4 * scale,
               f"K4 {tag} vs grid_sample: max err {gs_err} (max {scale})")
-        ms = time_ms(lambda: gather.feature_gather_cuda(src, ids, w4, offs))
-        # the launch alone, without the wrapper's checks (a reduction and a
-        # host sync for the id range)
         raw = torch.empty_like(got)
-        lib, stream = build.library(), torch.cuda.current_stream().cuda_stream
-        launch_ms = time_ms(lambda: lib.thp_feature_gather(
-            src.data_ptr(), ids.data_ptr(), w4.data_ptr(), raw.data_ptr(), v,
-            ids.shape[1], c, hf * wf, 4, *offs, stream))
-        check(torch.equal(raw, got), f"K4 {tag}: the bare launch differs")
-        plain_ms = time_ms(lambda: gather.feature_gather_plain(src, ids, w4,
-                                                               offs))
-        lib_ms = time_ms(lambda: F.grid_sample(
-            nchw, grid, mode="bilinear", padding_mode="border",
-            align_corners=True))
+        with torch.no_grad():
+            path_ms = time_ms(lambda: sample_feature_map(fmap, uv, image))
+        t = {
+            "ms": time_ms(lambda: gather.feature_sample_cuda(fmap, uv,
+                                                             image)),
+            "launch_ms": time_ms(lambda: lib.thp_feature_sample(
+                fmap.data_ptr(), uv.data_ptr(), raw.data_ptr(), v, n, c, hf,
+                wf, wf / image[1], hf / image[0], stream)),
+            "ids_ms": time_ms(lambda: gather.feature_gather_cuda(src, ids, w4,
+                                                                 offs)),
+            "ids_launch_ms": time_ms(lambda: lib.thp_feature_gather(
+                src.data_ptr(), ids.data_ptr(), w4.data_ptr(),
+                raw.data_ptr(), v, n, c, hf * wf, 4, *offs, stream)),
+            "plain_ms": time_ms(lambda: gather.feature_sample_plain(
+                fmap, uv, image)),
+            "library_ms": time_ms(lambda: F.grid_sample(
+                nchw, grid, mode="bilinear", padding_mode="border",
+                align_corners=True)),
+        }
+        check(torch.equal(raw, got), f"K4 {tag}: the bare launches differ")
         rows = _unique_rows(ids, offs)
-        b = bound(rows * c * 4 + nbytes(ids, w4, got), 8 * got.numel())
-        log(f"[3 kernels] K4 feature_gather {tag}: V={v}, N={ids.shape[1]}, "
-            f"C={c}, {hf}x{wf} map, {rows} distinct tap rows: max err "
-            f"{err:.3g}, vs grid_sample {gs_err:.3g} (max |src| "
-            f"{scale:.3g}); wrapper {ms:.4f} ms (launch alone "
-            f"{launch_ms:.4f}), plain {plain_ms:.4f} ms, "
-            f"grid_sample {lib_ms:.4f} ms, bound {b['bound_ms']:.4f} ms "
-            f"({b['bound_by']})  [{card}]")
+        b = bound(rows * c * 4 + nbytes(uv, got), 8 * got.numel())
+        b_ids = bound(rows * c * 4 + nbytes(ids, w4, got), 8 * got.numel())
+        log(f"[3 kernels] K4 sampling form {tag}: V={v}, N={n}, C={c}, "
+            f"{hf}x{wf} map, {rows} distinct tap rows: bit-identical to the "
+            f"id form; max err {err:.3g}, vs grid_sample {gs_err:.3g} (max "
+            f"|src| {scale:.3g}); sample_feature_map forward "
+            f"{path_ms:.4f} ms, wrapper {t['ms']:.4f} ms, launch "
+            f"{t['launch_ms']:.4f}; id form wrapper "
+            f"{t['ids_ms']:.4f}, launch {t['ids_launch_ms']:.4f} (bound "
+            f"{b_ids['bound_ms']:.4f}); plain {t['plain_ms']:.4f} ms, "
+            f"grid_sample {t['library_ms']:.4f} ms, bound "
+            f"{b['bound_ms']:.4f} ms ({b['bound_by']})  [{card}]")
         del nchw, grid, gs
         if tag == "pixel":
-            entry.update(max_abs_err=max(err, gs_err), ms=ms,
-                         launch_ms=launch_ms, plain_ms=plain_ms,
-                         library_ms=lib_ms, **b)
+            entry.update(max_abs_err=max(err, gs_err), path_ms=path_ms, **t,
+                         ids_bound_ms=b_ids["bound_ms"], **b)
             masked = ids.clone()
             masked[:, ::7] = -1
             got = gather.feature_gather_cuda(src, masked, w4, offs)
@@ -575,12 +606,11 @@ def check_feature_gather(card: str) -> dict:
             m_err = float((got - want).abs().max())
             check(m_err <= 1e-6 * scale + 1e-7 and not got[:, ::7].any(),
                   f"K4 masked ids: max err {m_err}, or a masked row not 0")
-            log(f"[3 kernels] K4 with every 7th id -1: max err {m_err:.3g},"
-                f" masked rows zero  [{card}]")
+            log(f"[3 kernels] K4 id form with every 7th id -1: max err "
+                f"{m_err:.3g}, masked rows zero  [{card}]")
         else:
-            entry.update(paint_ms=ms, paint_launch_ms=launch_ms,
-                         paint_plain_ms=plain_ms,
-                         paint_library_ms=lib_ms,
+            entry.update({f"paint_{k}": x for k, x in t.items()},
+                         paint_path_ms=path_ms,
                          paint_bound_ms=b["bound_ms"],
                          max_abs_err=max(entry["max_abs_err"], err, gs_err))
     del pixel, holder
@@ -591,6 +621,7 @@ def check_feature_gather(card: str) -> dict:
     src = torch.randn((1, 262144, 384), device=dev, generator=gen)
     ids = torch.randint(0, 262144, (1, 1048576), device=dev, generator=gen,
                         dtype=torch.int32)
+    raw = torch.empty((1, ids.shape[1], 384), device=dev)
     for form, w in (("weighted", torch.rand((1, ids.shape[1], 1), device=dev,
                                             generator=gen)),
                     ("rows", torch.ones((1, ids.shape[1], 1), device=dev))):
@@ -599,22 +630,32 @@ def check_feature_gather(card: str) -> dict:
         torch.cuda.synchronize()
         err = float((got - want).abs().max())
         check(err == 0.0, f"K4 1-tap {form}: max err {err}")
+        del want
         ms = time_ms(lambda: gather.feature_gather_cuda(src, ids, w, (0,)),
                      iters=10)
+        launch_ms = time_ms(lambda: lib.thp_feature_gather(
+            src.data_ptr(), ids.data_ptr(), w.data_ptr(), raw.data_ptr(), 1,
+            ids.shape[1], 384, src.shape[1], 1, 0, 0, 0, 0, stream),
+            iters=10)
+        check(torch.equal(raw, got), f"K4 1-tap {form}: the bare launch "
+              "differs")
         plain_ms = time_ms(lambda: gather.feature_gather_plain(src, ids, w,
                                                                (0,)), iters=10)
-        lib = ""
+        lib_txt = ""
         if form == "rows":
             lib_ms = time_ms(lambda: src[0].index_select(0, ids[0]), iters=10)
-            lib = f", index_select {lib_ms:.4f} ms"
+            lib_txt = f", index_select {lib_ms:.4f} ms"
             entry["rows_library_ms"] = lib_ms
         b = bound(_unique_rows(ids, (0,)) * 384 * 4 + nbytes(ids, w, got),
                   2 * got.numel())
         entry[f"{form}_ms"] = ms
+        entry[f"{form}_launch_ms"] = launch_ms
+        entry[f"{form}_plain_ms"] = plain_ms
         entry[f"{form}_bound_ms"] = b["bound_ms"]
         log(f"[3 kernels] K4 1-tap {form}: 1,048,576 ids into 262,144 rows "
-            f"of 384: max err {err:.3g}; kernel {ms:.4f} ms, plain "
-            f"{plain_ms:.4f} ms{lib}, bound {b['bound_ms']:.4f} ms  [{card}]")
+            f"of 384: max err {err:.3g}; wrapper {ms:.4f} ms, launch "
+            f"{launch_ms:.4f} ms, plain {plain_ms:.4f} ms{lib_txt}, bound "
+            f"{b['bound_ms']:.4f} ms  [{card}]")
     return entry
 
 
@@ -1066,7 +1107,9 @@ def phase_eval(card: str, ckpt: str, tmp: str):
 def gather_ab(card: str, cfg, data, ckpt: str):
     """One 512x512 eval frame rendered with the sampling forward through K4
     and through its plain twin on the card, in turns (plain, K4, K4, plain),
-    synchronised: what K4 moves end to end.  Outside the counted run."""
+    synchronised: what K4 moves end to end.  Every fetch of a K4 render
+    must be a launch of the sampling form, and a plain render must launch
+    none.  Outside the counted run."""
     from transhuman_tpu_torch.cli.common import build_runtime
     from transhuman_tpu_torch.kernels import gather
     from transhuman_tpu_torch.weights import load_checkpoint_file
@@ -1076,38 +1119,53 @@ def gather_ab(card: str, cfg, data, ckpt: str):
     load_checkpoint_file(model, ckpt)
     item = data.get_eval_item(0)
     frame, rays = item.frame.to("cuda"), item.eval_rays.rays.to("cuda")
-    kernel = gather.feature_gather
+    kernel, sample_cuda = gather.feature_sample, gather.feature_sample_cuda
+    calls = []
 
-    def plain(src, ids, w, offsets):
-        return gather.feature_gather_plain(src, ids, w, offsets)
+    def counted(*args, **kwargs):
+        calls.append(1)
+        return sample_cuda(*args, **kwargs)
 
     def render(fn):
-        gather.feature_gather = fn
+        gather.feature_sample, gather.feature_sample_cuda = fn, counted
+        calls.clear()
+        n0 = gather.feature_gather_cuda.launches
         try:
             torch.cuda.synchronize()
             t = time.perf_counter()
             out = pipe.render_frame(frame, rays)
             torch.cuda.synchronize()
-            return (time.perf_counter() - t) * 1e3, out["rgb_map"]
+            ms = (time.perf_counter() - t) * 1e3
         finally:
-            gather.feature_gather = kernel
+            gather.feature_sample, gather.feature_sample_cuda = (kernel,
+                                                                 sample_cuda)
+        launched = gather.feature_gather_cuda.launches - n0
+        if fn is kernel:
+            check(len(calls) > 0 and launched == len(calls),
+                  f"gather A/B: a K4 render made {launched} K4 launches, "
+                  f"{len(calls)} of the sampling form")
+        else:
+            check(launched == 0 and not calls,
+                  f"gather A/B: a plain render launched K4 {launched} times")
+        return ms, out["rgb_map"], launched
 
     render(kernel)  # warm-up
     times = {"plain": [], "K4": []}
-    for tag, fn in (("plain", plain), ("K4", kernel), ("K4", kernel),
-                    ("plain", plain)):
-        ms, rgb = render(fn)
+    for tag, fn in (("plain", gather.feature_sample_plain), ("K4", kernel),
+                    ("K4", kernel), ("plain", gather.feature_sample_plain)):
+        ms, rgb, launched = render(fn)
         times[tag].append(ms)
         if tag == "plain":
             rgb_plain = rgb
         else:
-            rgb_k4 = rgb
+            rgb_k4, k4_launches = rgb, launched
     err = float((rgb_plain - rgb_k4).abs().max())
     check(err <= 2e-3, f"gather A/B: the two renders differ by {err}")
-    log(f"[9 evaluate] one 512x512 frame, render ms with the forward gather "
+    log(f"[9 evaluate] one 512x512 frame, render ms with the forward fetch "
         f"plain {times['plain'][0]:.1f}, K4 {times['K4'][0]:.1f}, K4 "
         f"{times['K4'][1]:.1f}, plain {times['plain'][1]:.1f} (in that "
-        f"order); max |d rgb| {err:.3g}  [{card}]")
+        f"order); {k4_launches} sampling-form launches per K4 render, none "
+        f"plain; max |d rgb| {err:.3g}  [{card}]")
     del model, pipe
 
 

@@ -16,11 +16,8 @@ from transhuman_tpu.ops.sampling import project_points as jax_project
 from transhuman_tpu.ops.sampling import sample_feature_map as jax_sfm
 from transhuman_tpu_torch import kernels
 from transhuman_tpu_torch.kernels import gather, scatter
-from transhuman_tpu_torch.ops.sampling import (
-    _bilinear_w4,
-    _sample_taps,
-    sample_feature_map,
-)
+from transhuman_tpu_torch.kernels.gather import _bilinear_w4, _sample_taps
+from transhuman_tpu_torch.ops.sampling import sample_feature_map
 
 V, HF, WF, C, N = 3, 16, 20, 8, 257
 IMAGE = (32, 40)  # the maps at half the image size on both axes
@@ -64,6 +61,26 @@ def test_plain_k4_equals_the_jax_sampler(wf):
     # the same weights, summed as four products against two lerps
     np.testing.assert_allclose(got.numpy(), want, atol=1e-6, rtol=0)
     assert np.isfinite(got.numpy()).all()
+
+
+@pytest.mark.parametrize("wf", [WF, 1])
+def test_plain_sampling_form_equals_the_jax_sampler(wf):
+    """K4's sampling form on CPU tensors (its plain twin: _sample_taps,
+    _bilinear_w4 and the 4-tap plain gather) against the JAX package's
+    sample_feature_map, on uv inside the image, on and past every border
+    and far outside; it is what sample_feature_map computes on the CPU."""
+    rng = np.random.default_rng(6)
+    feat = rng.uniform(-1, 1, (V, HF, wf, C)).astype(np.float32)
+    uv = _uv(rng, wf)
+    ref = feat if wf > 1 else np.repeat(feat, 2, axis=2)
+    want = np.asarray(jax_sfm(jnp.asarray(ref), jnp.asarray(uv), IMAGE))
+    kernels.reset_launch_counts()
+    got = gather.feature_sample(torch.from_numpy(feat), torch.from_numpy(uv),
+                                IMAGE)
+    assert kernels.launch_counts()["feature_gather"] == 0
+    np.testing.assert_allclose(got.numpy(), want, atol=1e-6, rtol=0)
+    assert torch.equal(got, sample_feature_map(torch.from_numpy(feat),
+                                               torch.from_numpy(uv), IMAGE))
 
 
 def _k4_inputs(rng, hw=64 * 48, c=C, n=N, taps=4):
@@ -135,7 +152,7 @@ def test_plain_k4_is_the_sampling_forward_and_keeps_the_backward():
 
     f2 = torch.from_numpy(feat).requires_grad_(True)
     u2 = torch.from_numpy(uv).requires_grad_(True)
-    _, _, base, wx, wy, dx, dy = _sample_taps(f2, u2, IMAGE)
+    _, _, base, wx, wy, dx, dy = _sample_taps(f2.shape, u2, IMAGE)
     direct = gather.feature_gather_plain(
         f2.detach().reshape(V, -1, C), base, _bilinear_w4(wx, wy).detach(),
         (0, dx, dy, dy + dx))

@@ -54,6 +54,9 @@ def test_wrappers_refuse_cpu_tensors():
         gather.feature_gather_cuda(torch.zeros(1, 64, 8),
                                    torch.zeros(1, 4, dtype=torch.int32),
                                    torch.zeros(1, 4, 1), (0,))
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        gather.feature_sample_cuda(torch.zeros(1, 8, 8, 4),
+                                   torch.zeros(1, 4, 2), (16, 16))
     assert kernels.launch_counts() == {"min_excess2": 0, "dparf": 0,
                                        "dfeat_scatter": 0,
                                        "feature_gather": 0}
@@ -260,9 +263,49 @@ def test_dfeat_scatter_kernel_matches_plain(cuda, pattern, c):
     got = scatter.dfeat_scatter(ids, g, w4, HF * WF, 1, WF)
     assert scatter.dfeat_scatter_cuda.launches == n0 + 1
     want = scatter.dfeat_scatter_plain(ids, g, w4, HF * WF, 1, WF)
-    # float32 sums whose order the atomics change from run to run; the
-    # all_equal texel sums ~1000 rows of magnitude ~1
+    # float32 sums in another order (segments of sorted rows, then taps);
+    # the all_equal texel sums ~1000 rows of magnitude ~1
     torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-5)
+    # no atomics: every sum in a fixed order, the same bits on every call
+    assert torch.equal(got, scatter.dfeat_scatter(ids, g, w4, HF * WF, 1, WF))
+
+
+# (hw, dx, dy, largest base id): the bilinear taps on maps one texel wide
+# (dx = 0) and one tall (dy = 0), and the TPU scatter probe's taps +0..+3
+TAP_LAYOUTS = {
+    "one_column": (64, 0, 1, 62),
+    "one_row": (64, 1, 0, 62),
+    "probe_t7": (4104, 1, 2, 4100),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c", [384, 192, 6])
+@pytest.mark.parametrize("layout", sorted(TAP_LAYOUTS) + ["map_edges"])
+def test_dfeat_scatter_kernel_tap_layouts(cuda, layout, c):
+    """Base ids anywhere their taps allow: on maps one texel wide or tall
+    (two offsets coincide and both taps land on one texel), in the T7 form,
+    and on the last base column and row of a 64x64 map; C = 6 takes the
+    scalar path.  Two calls give the same bits."""
+    rng = np.random.default_rng(8)
+    if layout == "map_edges":
+        hw, dx, dy = HF * WF, 1, WF
+        col = rng.integers(0, HF - 1, N_SCATTER) * WF + WF - 2
+        row = (HF - 2) * WF + rng.integers(0, WF - 1, N_SCATTER)
+        ids = np.where(rng.random(N_SCATTER) < 0.5, col, row)
+        ids[:50] = _HI
+    else:
+        hw, dx, dy, hi = TAP_LAYOUTS[layout]
+        ids = rng.integers(0, hi + 1, N_SCATTER)
+        ids[:50] = hi
+    _, g, w4 = _scatter_inputs("uniform", 2, N_SCATTER, c, cuda)
+    ids = torch.from_numpy(np.stack([ids, ids[::-1]]).astype(np.int32)).to(
+        cuda)
+    got = scatter.dfeat_scatter(ids, g, w4, hw, dx, dy)
+    want = scatter.dfeat_scatter_plain(ids, g, w4, hw, dx, dy)
+    # the one_column / one_row texels sum up to ~60 rows of magnitude ~1
+    torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-5)
+    assert torch.equal(got, scatter.dfeat_scatter(ids, g, w4, hw, dx, dy))
 
 
 def _knn_near_ties(pts, centers, k: int):
@@ -375,3 +418,74 @@ def test_feature_gather_arguments_are_checked(cuda):
     assert gather.feature_gather_cuda.launches == n0
     out = gather.feature_gather_cuda(src, ids[:, :0], w[:, :0], offsets)
     assert out.shape == (2, 0, 8)
+
+
+SF_IMAGE = (128, 160)  # maps at half the image size on both axes
+
+
+def _sampling_uv(rng, n, hf, wf):
+    """uv (3, n, 2) image pixels: inside the image, on every border (x and
+    y at 0 and at the last texel exactly), past the borders, far outside
+    (the clamped projections of points on a camera's principal plane)."""
+    h_img, w_img = SF_IMAGE
+    uv = np.stack([rng.uniform(-8, w_img + 8, (3, n)),
+                   rng.uniform(-8, h_img + 8, (3, n))], axis=-1)
+    uv[:, 0:16, 0] = 0.0
+    uv[:, 16:32, 0] = w_img * (wf - 1) / max(wf, 1)
+    uv[:, 32:48, 1] = 0.0
+    uv[:, 48:64, 1] = h_img * (hf - 1) / max(hf, 1)
+    uv[:, 64:80] = rng.choice([-1e12, 1e12], (3, 16, 2))
+    return uv.astype(np.float32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c", [384, 192, 6])
+@pytest.mark.parametrize("hf, wf", [(64, 80), (64, 1), (1, 80)])
+def test_feature_sample_is_the_id_form_bit_for_bit(cuda, hf, wf, c):
+    """K4's sampling form forms _sample_taps' ids and _bilinear_w4's weights
+    itself: it equals the id form launched on them (computed by torch on the
+    card) bit for bit, and the plain twin within the id form's tolerance;
+    maps one texel wide or tall; C = 6 takes the scalar path."""
+    from transhuman_tpu_torch.kernels.gather import _bilinear_w4, _sample_taps
+
+    rng = np.random.default_rng(hf + wf + c)
+    feat = _rand((3, hf, wf, c), 9, 1.0, cuda)
+    uv = torch.from_numpy(_sampling_uv(rng, N_SCATTER, hf, wf)).to(cuda)
+    n0 = gather.feature_gather_cuda.launches
+    got = gather.feature_sample(feat, uv, SF_IMAGE)
+    assert gather.feature_gather_cuda.launches == n0 + 1
+    _, _, base, wx, wy, dx, dy = _sample_taps(feat.shape, uv, SF_IMAGE)
+    ids = gather.feature_gather(feat.reshape(3, hf * wf, c), base,
+                                _bilinear_w4(wx, wy), (0, dx, dy, dy + dx))
+    assert torch.equal(got, ids)
+    want = gather.feature_sample_plain(feat, uv, SF_IMAGE)
+    # fused multiply-adds against rounded products (as the id form)
+    scale = float(feat.abs().max())
+    torch.testing.assert_close(got, want, atol=1e-6 * scale + 1e-7, rtol=0)
+
+
+@pytest.mark.cuda
+def test_sample_feature_map_forward_is_one_launch_without_a_sync(cuda):
+    """The forward on the card is one K4 launch and never waits for the
+    card: it runs under set_sync_debug_mode("error"), with and without a
+    gradient asked for."""
+    from transhuman_tpu_torch.kernels import build
+    from transhuman_tpu_torch.ops.sampling import sample_feature_map
+
+    build.library()  # built and loaded before the guarded region
+    rng = np.random.default_rng(10)
+    feat = _rand((3, 64, 80, 384), 11, 1.0, cuda)
+    uv = torch.from_numpy(_sampling_uv(rng, 4096, 64, 80)).to(cuda)
+    want = gather.feature_sample_plain(feat, uv, SF_IMAGE)
+    for grad in (False, True):
+        f = feat.clone().requires_grad_(grad)
+        torch.cuda.synchronize()
+        n0 = gather.feature_gather_cuda.launches
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            out = sample_feature_map(f, uv, SF_IMAGE)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        assert gather.feature_gather_cuda.launches == n0 + 1
+        assert out.requires_grad == grad
+        torch.testing.assert_close(out.detach(), want, atol=1e-5, rtol=0)

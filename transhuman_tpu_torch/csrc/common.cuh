@@ -20,3 +20,24 @@
 static inline int thp_launch_status() {
   return static_cast<int>(cudaGetLastError());
 }
+
+// float4 words (VEC) or single floats, for kernels that move rows of
+// float32 channels either way
+template <bool VEC> struct ThpWord;
+template <> struct ThpWord<true> {
+  using T = float4;
+  static __device__ T zero() { return make_float4(0.f, 0.f, 0.f, 0.f); }
+  static __device__ T fma(float w, const T& x, const T& a) {
+    return make_float4(fmaf(w, x.x, a.x), fmaf(w, x.y, a.y),
+                       fmaf(w, x.z, a.z), fmaf(w, x.w, a.w));
+  }
+  static __device__ T add(const T& a, const T& b) {
+    return make_float4(a.x + b.x, a.y + b.y, a.z + b.z, a.w + b.w);
+  }
+};
+template <> struct ThpWord<false> {
+  using T = float;
+  static __device__ T zero() { return 0.f; }
+  static __device__ T fma(float w, T x, T a) { return fmaf(w, x, a); }
+  static __device__ T add(T a, T b) { return a + b; }
+};

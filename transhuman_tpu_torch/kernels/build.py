@@ -38,10 +38,13 @@ _SIGNATURES = {
     # pts, centers, rot, tokens, tok, pe, dist, idx, w, n, c, v, d, k,
     # n_freqs, alpha, stream
     "thp_dparf": ((_P,) * 9 + (_I,) * 6 + (_F, _P), _I),
-    # ids_sorted, order, g, w4, out, v, n, c, hw, dx, dy, stream
-    "thp_dfeat_scatter": ((_P,) * 5 + (_I,) * 6 + (_P,), _I),
+    # ids_sorted, seg_end, order, g, w4, seg_start, ranges, sums, out, v, n,
+    # c, hw, dx, dy, nseg, seg, stream
+    "thp_dfeat_scatter": ((_P,) * 9 + (_I,) * 8 + (_P,), _I),
     # src, ids, w, out, v, n, c, hw, t, off0, off1, off2, off3, stream
     "thp_feature_gather": ((_P,) * 4 + (_I,) * 9 + (_P,), _I),
+    # src, uv, out, v, n, c, hf, wf, sx, sy, stream
+    "thp_feature_sample": ((_P,) * 3 + (_I,) * 5 + (_F,) * 2 + (_P,), _I),
     "thp_error_string": ((_I,), ctypes.c_char_p),
 }
 

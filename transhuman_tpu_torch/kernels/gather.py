@@ -1,23 +1,30 @@
-"""K4 wrapper: the forward feature gather, a weighted gather of rows.
+"""K4 wrappers: the forward feature gather, a weighted gather of rows.
 
-``feature_gather_cuda`` launches ``csrc/gather.cu``, which replaces the
-Pallas gathers of ``tools/profile_gather_ab.py`` (``pallas_gather``,
-``_sp_call``), ``tools/probe_block_gather.py::block_gather``,
+``feature_gather_cuda`` and ``feature_sample_cuda`` launch the two forms of
+``csrc/gather.cu``, which replaces the Pallas gathers of
+``tools/profile_gather_ab.py`` (``pallas_gather``, ``_sp_call``),
+``tools/probe_block_gather.py::block_gather``,
 ``tools/probe_block_gather2.py::make_block_gather``,
 ``tools/probe_dma_gather.py::gather_a/b/c`` and
-``tools/probe_dma_gather2.py::attempt``.  ``feature_gather_plain`` is its
-plain PyTorch twin: T indexing gathers and a weighted sum.
-``feature_gather`` routes a CUDA tensor to the kernel and a CPU tensor to the
-plain twin.
+``tools/probe_dma_gather2.py::attempt``.  ``feature_gather_plain`` and
+``feature_sample_plain`` are their plain PyTorch twins; ``feature_gather``
+and ``feature_sample`` route a CUDA tensor to the kernel and a CPU tensor to
+the twin.  Both forms count their launches under ``feature_gather_cuda``.
 
-All take src (V, HW, C) float32 rows; ids (V, N) base row ids; w (V, N, T)
-tap weights with T = 1 or 4; offsets, T non-negative ints; and return the
-(V, N, C) float32 rows out[v, n] = sum_t w[v, n, t] * src[v, ids[v, n] +
-offsets[t]].  A negative id gives a zero row and reads nothing; a
-non-negative id with a tap outside [0, HW) is refused with IndexError.  The
-bilinear feature fetch is the 4-tap form with offsets (0, dx, dy, dy + dx)
-(``ops/sampling.py``); the unweighted 1-tap form is ``src[ids]``.  The
-adjoint is K3 (``kernels/scatter.py``).
+The id form takes src (V, HW, C) float32 rows; ids (V, N) base row ids;
+w (V, N, T) tap weights with T = 1 or 4; offsets, T non-negative ints; and
+returns the (V, N, C) float32 rows out[v, n] = sum_t w[v, n, t] * src[v,
+ids[v, n] + offsets[t]].  A negative id gives a zero row and reads nothing;
+a non-negative id with a tap outside [0, HW) is refused with IndexError.
+The unweighted 1-tap form is ``src[ids]``.
+
+The sampling form is the bilinear fetch of ``ops/sampling.py``: the 4-tap
+form on the taps and weights that ``_sample_taps`` and ``_bilinear_w4``
+derive from image coordinates uv (V, N, 2), which the kernel derives itself
+with the same float32 operations (both live here, beside the kernel that
+must match them bit for bit); its base texels lie in the map by
+construction, so it checks nothing and never waits for the card.  The
+adjoint of both is K3 (``kernels/scatter.py``).
 """
 
 from __future__ import annotations
@@ -25,6 +32,37 @@ from __future__ import annotations
 import torch
 
 from . import build
+
+
+def _sample_taps(shape, uv, image_shape):
+    """For feature maps of shape (V, Hf, Wf, C): (fx, fy) unclamped
+    feature-pixel coordinates, base (V,N) texel ids, weights wx, wy (V,N)
+    relative to the (possibly clamped) base texel, and the tap offsets dx,
+    dy.  K4's sampling form (csrc/gather.cu) repeats these float32
+    operations in this order."""
+    v, hf, wf, c = shape
+    h_img, w_img = image_shape
+    fx = uv[..., 0] * (wf / w_img)
+    fy = uv[..., 1] * (hf / h_img)
+    cx = torch.clamp(fx, 0.0, wf - 1)
+    cy = torch.clamp(fy, 0.0, hf - 1)
+    x0 = torch.floor(cx).long()
+    y0 = torch.floor(cy).long()
+    if wf > 1:
+        x0 = torch.clamp_max(x0, wf - 2)
+    if hf > 1:
+        y0 = torch.clamp_max(y0, hf - 2)
+    wx = cx - x0.to(cx.dtype)
+    wy = cy - y0.to(cy.dtype)
+    dx = 1 if wf > 1 else 0
+    dy = wf if hf > 1 else 0
+    return fx, fy, y0 * wf + x0, wx, wy, dx, dy
+
+
+def _bilinear_w4(wx, wy):
+    """(V,N,4) weights of the taps base + (0, dx, dy, dy + dx)."""
+    return torch.stack([(1 - wx) * (1 - wy), wx * (1 - wy), (1 - wx) * wy,
+                        wx * wy], dim=-1)
 
 
 def _check_taps(name, ids, w, hw: int, offsets):
@@ -62,7 +100,8 @@ def feature_gather_plain(src, ids, w, offsets):
 
 
 def feature_gather_cuda(src, ids, w, offsets):
-    """K4 on CUDA tensors: src and w float32, ids int32, all contiguous."""
+    """K4's id form on CUDA tensors: src and w float32, ids int32, all
+    contiguous."""
     build.check_tensors("feature_gather_cuda", int32=("ids",), src=src,
                         ids=ids, w=w)
     if src.dim() != 3 or ids.dim() != 2 or w.dim() != 3:
@@ -99,7 +138,7 @@ feature_gather_cuda.launches = 0
 
 
 def feature_gather(src, ids, w, offsets):
-    """K4 for a CUDA tensor, the plain twin for a CPU tensor."""
+    """K4's id form for a CUDA tensor, the plain twin for a CPU tensor."""
     if src.is_cuda:
         return feature_gather_cuda(src.contiguous(),
                                    ids.to(torch.int32).contiguous(),
@@ -107,3 +146,54 @@ def feature_gather(src, ids, w, offsets):
     if src.device.type != "cpu":
         raise ValueError(f"feature_gather: no kernel for device {src.device}")
     return feature_gather_plain(src, ids, w, offsets)
+
+
+def feature_sample_plain(feat, uv, image_shape):
+    """The bilinear fetch as the port's CPU route computes it: the taps and
+    weights of _sample_taps and _bilinear_w4, then the 4-tap plain gather."""
+    v, hf, wf, c = feat.shape
+    _, _, base, wx, wy, dx, dy = _sample_taps(feat.shape, uv, image_shape)
+    return feature_gather_plain(feat.reshape(v, hf * wf, c), base,
+                                _bilinear_w4(wx, wy), (0, dx, dy, dy + dx))
+
+
+def feature_sample_cuda(feat, uv, image_shape):
+    """K4's sampling form on CUDA tensors: feat (V, Hf, Wf, C) and uv
+    (V, N, 2), float32, contiguous.  One launch; no host sync."""
+    build.check_tensors("feature_sample_cuda", feat=feat, uv=uv)
+    if feat.dim() != 4 or uv.dim() != 3 or uv.shape[::2] != (feat.shape[0],
+                                                             2):
+        raise ValueError(
+            f"feature_sample_cuda: feat {tuple(feat.shape)}, uv "
+            f"{tuple(uv.shape)}; want (V, Hf, Wf, C), (V, N, 2)")
+    v, hf, wf, c = feat.shape
+    n = uv.shape[1]
+    h_img, w_img = image_shape
+    if max(v * hf * wf, v * n) * c >= 2**31:
+        raise ValueError("feature_sample_cuda: extent too large for int32")
+    out = torch.empty((v, n, c), dtype=torch.float32, device=feat.device)
+    if n == 0:
+        return out
+    # ctypes rounds the scales to float32, as torch rounds a Python scalar
+    # multiplying a float32 tensor
+    lib = build.library()
+    with torch.cuda.device(feat.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        code = lib.thp_feature_sample(
+            feat.data_ptr(), uv.data_ptr(), out.data_ptr(), v, n, c, hf, wf,
+            wf / w_img, hf / h_img, stream)
+    build.check(code, "feature_sample_cuda")
+    feature_gather_cuda.launches += 1
+    return out
+
+
+def feature_sample(feat, uv, image_shape):
+    """K4's sampling form for a CUDA tensor, the plain twin for a CPU
+    tensor: feat (V, Hf, Wf, C), uv (V, N, 2) image pixels, image_shape
+    (H_img, W_img) -> (V, N, C) float32."""
+    if feat.is_cuda:
+        return feature_sample_cuda(feat.contiguous(), uv.contiguous(),
+                                   image_shape)
+    if feat.device.type != "cpu":
+        raise ValueError(f"feature_sample: no kernel for device {feat.device}")
+    return feature_sample_plain(feat, uv, image_shape)

@@ -1,7 +1,8 @@
 """K3 wrapper: the d_feat backward of the bilinear feature fetch.
 
-``dfeat_scatter_cuda`` sorts the base texel ids of each view and launches
-``csrc/scatter.cu``, which replaces
+``dfeat_scatter_cuda`` sorts the base texel ids of each view, cuts the runs
+of equal ids into segments (one host sync reads their count and the ids'
+range) and launches ``csrc/scatter.cu``, which replaces
 ``transhuman_tpu/experiments/streamscatter.py::dfeat_scatter_sorted``.
 ``dfeat_scatter_plain`` is its plain PyTorch twin: four ``index_add_``
 calls, the same sum as the XLA path of the JAX package's sampling backward
@@ -47,8 +48,12 @@ def dfeat_scatter_plain(ids, g, w4, hw: int, dx: int, dy: int):
     return out.reshape(v, hw, c)
 
 
+SEG = 64  # sorted positions per segment at most: csrc/scatter.cu's SEG
+
+
 def dfeat_scatter_cuda(ids, g, w4, hw: int, dx: int, dy: int):
-    """K3 on CUDA tensors: ids int32, g and w4 float32, all contiguous."""
+    """K3 on CUDA tensors: ids int32, g and w4 float32, all contiguous.
+    No atomics: the same bits on every call."""
     build.check_tensors("dfeat_scatter_cuda", int32=("ids",), ids=ids, g=g,
                         w4=w4)
     if g.dim() != 3:
@@ -63,24 +68,43 @@ def dfeat_scatter_cuda(ids, g, w4, hw: int, dx: int, dy: int):
         raise ValueError(
             f"dfeat_scatter_cuda: V={v}, hw={hw}, dx={dx}, dy={dy} out of "
             "range")
-    if max(v * n, hw) * c >= 2**31:
+    if max(v * n, v * hw) * c >= 2**31:
         raise ValueError("dfeat_scatter_cuda: extent too large for int32")
-    out = torch.zeros((v, hw, c), dtype=torch.float32, device=g.device)
+    dev = g.device
     if n == 0:
-        return out
-    # glue, like the JAX package's argsort: equal ids become runs
+        return torch.zeros((v, hw, c), dtype=torch.float32, device=dev)
+    # glue, like the JAX package's argsort: equal ids become runs, cut into
+    # segments of at most SEG positions; seg_end counts segment starts
     ids_sorted, order = torch.sort(ids, dim=1, stable=True)
-    # one host sync: the ends of the sorted rows
-    lo, hi = torch.stack([ids_sorted[:, 0].min(),
-                          ids_sorted[:, -1].max()]).tolist()
-    _check_tap_range("dfeat_scatter_cuda", lo, hi, hw, dx, dy)
+    starts = torch.ones_like(ids_sorted, dtype=torch.bool)
+    starts[:, 1:] = ids_sorted[:, 1:] != ids_sorted[:, :-1]
+    starts[:, ::SEG] = True
+    seg_end = starts.reshape(-1).cumsum(0, dtype=torch.int32)
     order = order.to(torch.int32)
+    ranges = torch.zeros((v * hw, 2), dtype=torch.int32, device=dev)
     lib = build.library()
-    with torch.cuda.device(g.device):
-        stream = torch.cuda.current_stream().cuda_stream
+    with torch.cuda.device(dev):
+        # one host sync: the ends of the sorted rows and the segment count,
+        # copied to the host behind an event; the map's zero-fill (the rows
+        # no tap touches; the kernel writes the others) is queued after it,
+        # so the card fills while the host waits and sizes the scratch
+        ends = torch.empty(3, dtype=torch.int32, pin_memory=True)
+        ends.copy_(torch.stack([ids_sorted[:, 0].min(),
+                                ids_sorted[:, -1].max(), seg_end[-1]]),
+                   non_blocking=True)
+        ready = torch.cuda.Event()
+        ready.record()
+        out = torch.zeros((v, hw, c), dtype=torch.float32, device=dev)
+        ready.synchronize()
+        lo, hi, nseg = ends.tolist()
+        _check_tap_range("dfeat_scatter_cuda", lo, hi, hw, dx, dy)
+        seg_start = torch.empty(nseg, dtype=torch.int32, device=dev)
+        sums = torch.empty((nseg, 4, c), dtype=torch.float32, device=dev)
         code = lib.thp_dfeat_scatter(
-            ids_sorted.data_ptr(), order.data_ptr(), g.data_ptr(),
-            w4.data_ptr(), out.data_ptr(), v, n, c, hw, dx, dy, stream)
+            ids_sorted.data_ptr(), seg_end.data_ptr(), order.data_ptr(),
+            g.data_ptr(), w4.data_ptr(), seg_start.data_ptr(),
+            ranges.data_ptr(), sums.data_ptr(), out.data_ptr(), v, n, c, hw,
+            dx, dy, nseg, SEG, torch.cuda.current_stream().cuda_stream)
     build.check(code, "dfeat_scatter_cuda")
     dfeat_scatter_cuda.launches += 1
     return out
