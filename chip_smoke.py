@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""On-card smoke run of the PyTorch port's serving, training and evaluation
-paths (one NVIDIA GPU).
+"""On-card smoke run of the PyTorch port's serving, training, evaluation and
+mesh reconstruction paths (one NVIDIA GPU).
 
 Run from the repository root: ``python3 chip_smoke.py``.  Phases, in order;
 any failure ends the run with a non-zero exit:
@@ -38,7 +38,19 @@ any failure ends the run with a non-zero exit:
 9. evaluate and visualize: the run entry point at full width (512x512) on
    phase 7's checkpoint, 4 frames evaluated with the launch counters reset
    just before and read just after, then 2 frames visualized; the files
-   they write are checked.
+   they write are checked;
+10. reconstruction parity: extract_mesh at 0.04 m voxels on the card and on
+   the CPU with the same full-width weights: sigma off cull/kNN near-ties
+   within 1e-4, beside what that bound reads with a fetch half a pixel off
+   and with one neighbour fewer bound (both must exceed it), and both
+   meshes at an iso-level no sigma lies near;
+11. reconstruction and light_stage: the sigma pass's host syncs counted (at
+   most the compaction's one), K1 over the whole 0.005 m grid (121 x 361 x
+   121 points) in one launch against its plain version and timed beside
+   its bound; then the run entry point at full width on phase 7's
+   checkpoint, one mesh at that grid with the launch counters reset just
+   before and read just after, the sigma pass, the marching and the PLY
+   write timed apart; then the mesh voxelized.
 
 The last three lines are {"kernels": [...]}, the card's name and power
 limit as nvidia-smi prints them, and {"ok": true, "device": {...}}.
@@ -47,6 +59,7 @@ Imports only torch, numpy and the port.
 
 from __future__ import annotations
 
+import dataclasses
 import io
 import json
 import os
@@ -64,6 +77,13 @@ CULL_DISTANCE = 0.1
 N_CHUNK = 32768  # points per decode chunk (Config.chunk_size)
 TRAIN_STEPS = 5
 EVAL_FRAMES = 4  # of the synthetic scene's 8, at test.frame_interval 2
+RECON_VOXEL = 0.005  # Config.voxel_size: 121 x 361 x 121 grid points
+RECON_PARITY_VOXEL = 0.04  # ~12k grid points, decoded on the CPU too
+# max |d sigma| of the card against the CPU at that grid: the CPU test's
+# bound against the JAX package.  Not relative to sigma: the init's sigma is
+# its constant density bias of 10 give or take 0.8, and a bound on that
+# scale would pass a fetch or binding that moves sigma by 3% of its spread
+RECON_SIGMA_TOL = 1e-4
 # the card's published peaks (H100 SXM data sheet): the least time a kernel
 # could take is the larger of its bytes over the memory rate and its FP32
 # operations over the FP32 rate
@@ -672,23 +692,32 @@ def _request(frame, target: int, hw: int, verts=None, blend_rot=None):
     }
 
 
-def _unstable_rays(pipe, frame, rays):
-    """(R,) bool numpy: the ray has a sample within 1e-5 of the cull
-    threshold or a kept sample at a kNN near-tie; there the card's kernels
-    and the CPU's plain versions may legitimately decide differently.
-    frame and rays on the pipeline's device."""
+def _unstable_points(pipe, frame, pts_world):
+    """(N,) bool tensor: the point lies within 1e-5 of the cull threshold,
+    or is kept at a kNN near-tie; there the card's kernels and the CPU's
+    plain versions may legitimately decide differently.  frame and points
+    on the pipeline's device."""
     from transhuman_tpu_torch.render.pipeline import to_smpl
-    from transhuman_tpu_torch.render.volume import sample_along_rays
 
     with torch.no_grad():
         centers = pipe.prologue(frame).centers
-        pts, _ = sample_along_rays(rays.ray_o, rays.ray_d, rays.near,
-                                   rays.far, pipe.n_samples)
-        p = to_smpl(frame, pts.reshape(-1, 3))
+        p = to_smpl(frame, pts_world)
         d = min_dist64(p, frame.tar_verts_smpl)
         bad = (d - pipe.cull_distance).abs() < 1e-5
         kept = d < pipe.cull_distance
         bad[kept] |= knn_near_ties(p[kept], centers, pipe.model.knn_k)
+    return bad
+
+
+def _unstable_rays(pipe, frame, rays):
+    """(R,) bool numpy: the ray has a sample of _unstable_points.  frame and
+    rays on the pipeline's device."""
+    from transhuman_tpu_torch.render.volume import sample_along_rays
+
+    with torch.no_grad():
+        pts, _ = sample_along_rays(rays.ray_o, rays.ray_d, rays.near,
+                                   rays.far, pipe.n_samples)
+    bad = _unstable_points(pipe, frame, pts.reshape(-1, 3))
     return bad.reshape(-1, pipe.n_samples).any(dim=1).cpu().numpy()
 
 
@@ -1169,6 +1198,297 @@ def gather_ab(card: str, cfg, data, ckpt: str):
     del model, pipe
 
 
+def _clear_threshold(sig_a, sig_b, target: float, margin: float = 1e-3):
+    """An iso-level near target that lies farther than margin from every
+    sigma of both grids and between no point's two sigmas: the two meshes'
+    inside/outside decisions then agree everywhere."""
+    lo = np.minimum(sig_a, sig_b).ravel() - margin
+    hi = np.maximum(sig_a, sig_b).ravel() + margin
+    order = np.argsort(lo)
+    lo, hi = lo[order], np.maximum.accumulate(hi[order])
+    # the free gaps between the merged forbidden intervals
+    free = np.nonzero(lo[1:] > hi[:-1])[0]
+    check(free.size > 0, "reconstruction parity: no free iso-level")
+    mids = (lo[free + 1] + hi[free]) / 2
+    return float(mids[np.argmin(np.abs(mids - target))])
+
+
+def phase_recon_parity(card: str):
+    """extract_mesh on the card and on the CPU (plain versions) with the
+    same full-width weights, at RECON_PARITY_VOXEL: the sigma grids off
+    cull/kNN near-ties, then both meshes at an iso-level no sigma is near."""
+    from transhuman_tpu_torch.cli.common import build_runtime
+    from transhuman_tpu_torch.config import Config
+    from transhuman_tpu_torch.data.synthetic import SyntheticDataset
+    from transhuman_tpu_torch.mesh_ops.reconstruct import (
+        extract_mesh,
+        make_grid,
+    )
+    from transhuman_tpu_torch.testing import init_weights
+
+    cfg = Config().merge_opts(["H", "128", "W", "128"])
+    data = SyntheticDataset(cfg, "test", image_hw=(64, 64))
+    frame, bounds, _ = data.get_mesh_item(0)
+    vs = (RECON_PARITY_VOXEL,) * 3
+    pipes, cubes = {}, {}
+    for dev in ("cuda", "cpu"):
+        model, pipe, _, _ = build_runtime(cfg, torch.device(dev),
+                                          smpl=data.smpl)
+        init_weights(model, torch.Generator().manual_seed(cfg.seed))
+        pipes[dev] = pipe
+        cubes[dev] = extract_mesh(pipe, frame, bounds, vs)[2]
+    pad = 10
+    sg, sc = (cubes[d][pad:-pad, pad:-pad, pad:-pad].ravel()
+              for d in ("cuda", "cpu"))
+    frame_d = frame.to("cuda")
+    pts = torch.from_numpy(make_grid(bounds, vs).reshape(-1, 3)).cuda()
+    bad = _unstable_points(pipes["cuda"], frame_d, pts).cpu().numpy()
+    err = float(np.abs(sg - sc)[~bad].max())
+    n_surv = int((sc != 0).sum())
+    check(bad.mean() < 0.05, f"reconstruction parity: {int(bad.sum())} of "
+          f"{bad.size} grid points at a near-tie, 5% or more")
+    check(err <= RECON_SIGMA_TOL, f"reconstruction parity: max |d sigma| "
+          f"{err} > {RECON_SIGMA_TOL}")
+    check(n_surv > 0, "reconstruction parity: no grid point survives")
+    # what the bound reads on a faulty fetch or binding: the card's sigma
+    # with every projection half a pixel off (a texel-centre slip in the
+    # fetch), and with one neighbour fewer bound
+    K = frame_d.K.clone()
+    K[:, 0, 2] += 0.5
+    knn_k, fault_err = pipes["cuda"].model.knn_k, {}
+    faults = {
+        "fetch half a pixel off": (dataclasses.replace(frame_d, K=K), knn_k),
+        f"binding of {knn_k - 1} of {knn_k} neighbours": (frame_d, knn_k - 1),
+    }
+    for name, (fr, k) in faults.items():
+        pipes["cuda"].model.knn_k = k
+        try:
+            s = pipes["cuda"].render_sigma(fr, pts).cpu().numpy()
+        finally:
+            pipes["cuda"].model.knn_k = knn_k
+        fault_err[name] = float(np.abs(s - sc)[~bad].max())
+        check(fault_err[name] > RECON_SIGMA_TOL,
+              f"reconstruction parity: a {name} reads max |d sigma| "
+              f"{fault_err[name]}, within the bound {RECON_SIGMA_TOL}")
+    th = _clear_threshold(sg, sc, float(np.median(sc[sc != 0])))
+    meshes = {d: extract_mesh(pipes[d], frame, bounds, vs, mesh_th=th)
+              for d in ("cuda", "cpu")}
+    (vg, tg, _), (vc, tc, _) = meshes["cuda"], meshes["cpu"]
+    check(len(tg) > 0, "reconstruction parity: the mesh is empty")
+    check(vg.shape == vc.shape and tg.shape == tc.shape,
+          f"reconstruction parity: meshes of {len(vg)} / {len(vc)} vertices "
+          f"and {len(tg)} / {len(tc)} triangles")
+    check(np.array_equal(tg, tc),
+          "reconstruction parity: the triangles differ")
+    v_err = float(np.abs(vg - vc).max())
+    log(f"[10 reconstruction parity] full width, grid {sg.size} points at "
+        f"{vs[0]} m: max |d sigma| {err:.3g} (bound {RECON_SIGMA_TOL}; "
+        f"survivors' sigma {float(sc[sc != 0].min()):.4f} to "
+        f"{float(sc.max()):.4f}) over {int((~bad).sum())} points "
+        f"({int(bad.sum())}, {100 * bad.mean():.2f}%, at a cull/kNN "
+        f"near-tie excluded), {n_surv} survivors; the bound reads "
+        + ", ".join(f"{v:.3g} with a {k}" for k, v in fault_err.items())
+        + f"; at iso-level {th:.6g}: {len(vg)} vertices, "
+        f"{len(tg)} triangles on both, the same triangles, max |d vertex| "
+        f"{v_err:.3g} m  [{card}]")
+
+
+def phase_reconstruction(card: str, ckpt: str, tmp: str):
+    """The run entry point at full width on phase 7's checkpoint: --type
+    reconstruction at voxel_size RECON_VOXEL over the synthetic body's box,
+    with mesh_th a low quantile of a first sigma pass's survivors (a 5-step
+    checkpoint's sigma does not reach the default 20), counters reset just
+    before and read just after, the sigma pass, the marching and the PLY
+    write timed apart; then --type light_stage on the written mesh."""
+    import warnings
+
+    from transhuman_tpu_torch import kernels
+    from transhuman_tpu_torch.cli import run as run_cli
+    from transhuman_tpu_torch.cli.common import build_runtime
+    from transhuman_tpu_torch.config import Config
+    from transhuman_tpu_torch.data.synthetic import SyntheticDataset
+    from transhuman_tpu_torch.mesh_ops import ply, reconstruct
+    from transhuman_tpu_torch.render.pipeline import RenderPipeline
+    from transhuman_tpu_torch.tools import voxelize_mesh
+    from transhuman_tpu_torch.weights import load_checkpoint_file
+
+    res = os.path.join(tmp, "result")
+    vs = f"{RECON_VOXEL},{RECON_VOXEL},{RECON_VOXEL}"
+    cfg = Config().merge_opts(["voxel_size", vs])
+    data = SyntheticDataset(cfg, "test", image_hw=(512, 512))
+    frame, bounds, _ = data.get_mesh_item(0)
+    grid = reconstruct.make_grid(bounds, cfg.voxel_size)
+    model, pipe, _, _ = build_runtime(cfg, torch.device("cuda"),
+                                      smpl=data.smpl)
+    load_checkpoint_file(model, ckpt)
+    pts = torch.from_numpy(grid.reshape(-1, 3)).cuda()
+    frame_d = frame.to("cuda")
+    pipe.render_sigma(frame_d, pts)  # warm-up
+    # the host syncs of one sigma pass: the compaction's, not one a chunk
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            t = time.perf_counter()
+            sigma = pipe.render_sigma(frame_d, pts)
+            torch.cuda.synchronize()
+            first_ms = (time.perf_counter() - t) * 1e3
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    # torch's one-time notice that the debug mode is a prototype is not one
+    syncs = sum("called a synchronizing" in str(w.message) for w in caught)
+    st = dict(pipe.last_frame_stats)
+    n_chunks = -(-st["survivors"] // (pipe.chunk_rays * pipe.n_samples))
+    check(syncs <= 1, f"reconstruction: {syncs} host syncs in a sigma pass "
+          f"of {n_chunks} chunks, more than the compaction's one")
+    sig = sigma.cpu().numpy()
+    qs = (0.0, 0.001, 0.01, 0.5, 0.99, 1.0)
+    qv = np.quantile(sig[sig != 0], qs)
+    mesh_th = float(qv[1])
+    log(f"[11 reconstruction] grid {'x'.join(map(str, grid.shape[:3]))} = "
+        f"{st['points']} points at {RECON_VOXEL} m, survivor fraction "
+        f"{st['survivors'] / st['points']:.4f} ({n_chunks} chunks); sigma "
+        f"pass {first_ms:.1f} ms with {syncs} host sync(s); survivors' sigma "
+        f"quantiles {dict(zip(qs, (round(float(x), 4) for x in qv)))}; "
+        f"mesh_th {mesh_th:.6g} (the 0.001 quantile)  [{card}]")
+    k1_grid = check_cull_grid(card, frame_d, pts, pipe.cull_distance,
+                              st["survivors"])
+    del model, pipe, sigma, pts, frame_d
+
+    stages = {"sigma": [], "march": [], "ply": []}
+    sig_fn = RenderPipeline.render_sigma
+    march_fn, ply_fn = reconstruct.marching_tetrahedra, ply.save_ply
+
+    def timed(key, fn, sync=False):
+        def wrapper(*args, **kwargs):
+            if sync:
+                torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = fn(*args, **kwargs)
+            if sync:
+                torch.cuda.synchronize()
+            stages[key].append((time.perf_counter() - t) * 1e3)
+            return out
+        return wrapper
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    RenderPipeline.render_sigma = timed("sigma", sig_fn, sync=True)
+    reconstruct.marching_tetrahedra = timed("march", march_fn)
+    ply.save_ply = timed("ply", ply_fn)
+    t0 = time.perf_counter()
+    try:
+        paths = run_cli.main(["--type", "reconstruction", "--device", "cuda",
+                              "--weights", ckpt, "result_dir", res,
+                              "voxel_size", vs, "mesh_th", repr(mesh_th)],
+                             dataset=data)
+    finally:
+        RenderPipeline.render_sigma = sig_fn
+        reconstruct.marching_tetrahedra, ply.save_ply = march_fn, ply_fn
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    check(len(paths) == 1 and all(len(v) == 1 for v in stages.values()),
+          f"reconstruction: {len(paths)} meshes, stages {stages}")
+    verts, tris = ply.load_ply(paths[0])
+    lo = bounds[0] - 10 * RECON_VOXEL - 1e-4
+    hi = bounds[1] + 10 * RECON_VOXEL + 1e-4
+    check(len(tris) > 0 and np.isfinite(verts).all()
+          and int(tris.min()) >= 0 and int(tris.max()) < len(verts)
+          and (verts >= lo).all() and (verts <= hi).all(),
+          f"reconstruction: a bad mesh of {len(verts)} vertices, "
+          f"{len(tris)} triangles")
+    # one K1 launch over the grid; per chunk of survivors one K4 and one K2
+    # launch; one more K4 launch for the painting fetch
+    want = {"min_excess2": 1, "dparf": n_chunks,
+            "feature_gather": n_chunks + 1, "dfeat_scatter": 0}
+    check(counts == want, f"reconstruction: launches {counts}, want {want}")
+    size = os.path.getsize(paths[0]) / 2**20
+    log(f"[11 reconstruction] cli.run --type reconstruction: sigma pass "
+        f"{stages['sigma'][0]:.1f} ms, marching {stages['march'][0]:.1f} ms, "
+        f"PLY write {stages['ply'][0]:.1f} ms ({size:.1f} MiB), whole "
+        f"command {wall:.2f} s (model build included); {len(verts)} "
+        f"vertices, {len(tris)} triangles; launches {counts}; peak device "
+        f"memory {peak:.3f} GiB  [{card}]")
+
+    vox_fn, vox_ms = voxelize_mesh.voxelize, []
+
+    def timed_vox(*args, **kwargs):
+        t = time.perf_counter()
+        out = vox_fn(*args, **kwargs)
+        vox_ms.append((time.perf_counter() - t) * 1e3)
+        return out
+
+    voxelize_mesh.voxelize = timed_vox
+    t0 = time.perf_counter()
+    try:
+        occ_path = run_cli.main(["--type", "light_stage", "--ply", paths[0],
+                                 "voxel_size", vs])
+    finally:
+        voxelize_mesh.voxelize = vox_fn
+    wall = time.perf_counter() - t0
+    d = np.load(occ_path, allow_pickle=True).item()
+    occ = d["occupancy"]
+    check(d["voxel"] == RECON_VOXEL and occ.any(),
+          f"light_stage: voxel {d['voxel']}, {int(occ.sum())} cells filled")
+    check(not any(occ.take(i, axis=a).any() for a in range(3)
+                  for i in (0, -1)), "light_stage: a boundary cell is filled")
+    log(f"[11 light_stage] cli.run --type light_stage at {RECON_VOXEL} m: "
+        f"grid {'x'.join(map(str, occ.shape))}, {int(occ.sum())} cells "
+        f"filled ({100 * occ.mean():.2f}%), no boundary cell; voxelize "
+        f"(surface sampling and flood fill) {vox_ms[0]:.1f} ms, whole "
+        f"command {wall:.2f} s  [{card}]")
+    return counts, k1_grid
+
+
+def check_cull_grid(card: str, frame, pts_world, cull_distance: float,
+                    survivors: int) -> dict:
+    """K1 at the shape the reconstruction path gives it, the whole grid in
+    one launch, against its plain version run on the card in slabs, at
+    phase 3's tolerance, and timed beside its bound.  frame and points on
+    the card; survivors is what the sigma pass kept."""
+    from transhuman_tpu_torch.kernels import cull
+    from transhuman_tpu_torch.render.pipeline import to_smpl
+
+    # the cull's inputs as render_sigma forms them
+    pts = to_smpl(frame, pts_world).contiguous()
+    verts = frame.tar_verts_smpl.contiguous()
+    zeros = torch.zeros(verts.shape[0], device=pts.device)
+    slab = 8 * N_CHUNK
+
+    def plain():
+        return torch.cat([cull.min_excess2_plain(pts[a:a + slab], verts, zeros)
+                          for a in range(0, pts.shape[0], slab)])
+
+    d2_k = cull.min_excess2_cuda(pts, verts, zeros)
+    d2_p = plain()
+    torch.cuda.synchronize()
+    err = float((d2_k - d2_p).abs().max())
+    check(err <= 1e-4, f"K1 at the grid: max |d2 kernel - plain| = {err} "
+          "> 1e-4")
+    mask_k = d2_k < cull_distance**2
+    check(int(mask_k.sum()) == survivors, f"K1 at the grid: "
+          f"{int(mask_k.sum())} survivors, the sigma pass kept {survivors}")
+    diff = mask_k != (torch.sqrt(d2_p) < cull_distance)
+    far = (min_dist64(pts[diff], verts) - cull_distance).abs() >= 1e-5
+    check(not bool(far.any()), f"K1 at the grid: {int(far.sum())} cull "
+          "decisions differ farther than 1e-5 from the threshold")
+    ms = time_ms(lambda: cull.min_excess2_cuda(pts, verts, zeros), iters=5,
+                 warmup=1)
+    plain_ms = time_ms(plain, iters=1, warmup=0)
+    b = bound(nbytes(pts, verts, zeros, d2_k),
+              7 * pts.shape[0] * verts.shape[0])
+    log(f"[11 reconstruction] K1 min_excess2 at the grid, {pts.shape[0]} pts "
+        f"x {verts.shape[0]} verts in one launch: max|dd2| {err:.3g}, "
+        f"{int(diff.sum())} threshold flips within 1e-5; kernel {ms:.4f} ms, "
+        f"plain (slabs of {slab}) {plain_ms:.4f} ms, bound "
+        f"{b['bound_ms']:.4f} ms ({b['bound_by']})  [{card}]")
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **b}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing ran", file=sys.stderr)
@@ -1188,17 +1508,25 @@ def main() -> int:
         train_counts = phase_train(card, ckpt)
         phase_eval_parity(card)
         eval_counts = phase_eval(card, ckpt, tmp)
+        phase_recon_parity(card)
+        recon_counts, k1_grid = phase_reconstruction(card, ckpt, tmp)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     by_path = {"serve": serve_counts, "train": train_counts,
-               "eval": eval_counts}
+               "eval": eval_counts, "reconstruction": recon_counts}
     for k in kernels:
-        # launches: the count of this slice's path, evaluate, for the render
-        # kernels; K3 runs on the train path only
+        # launches: the count of this slice's path, reconstruction, for the
+        # render kernels; K3 runs on the train path only
         name = k["name"]
         k["launches"] = (train_counts if name == "dfeat_scatter"
-                         else eval_counts)[name]
+                         else recon_counts)[name]
         k["launches_by_path"] = {p: c[name] for p, c in by_path.items()}
+        if name == "min_excess2":
+            # K1's one launch on this path covers the whole grid: its numbers
+            # are that shape's, and phase 3's, at one render chunk, stay
+            # beside them as chunk_*
+            for key, v in k1_grid.items():
+                k[f"chunk_{key}"], k[key] = k[key], v
     log(f"chip_smoke: all phases passed in {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -275,8 +275,8 @@ def test_run_entry_point_fails_loudly(trained, tmp_path):
     if not torch.cuda.is_available():
         with pytest.raises(SystemExit, match="no CUDA device"):
             run_cli.main(["--type", "evaluate", *opts])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        run_cli.main(["--type", "reconstruction", "--device", "cpu", *opts])
+    with pytest.raises(SystemExit, match="needs --ply"):
+        run_cli.main(["--type", "light_stage", "--device", "cpu", *opts])
     with pytest.raises(FileNotFoundError, match="no checkpoint"):
         run_cli.main(["--type", "evaluate", "--device", "cpu", "--weights",
                       str(tmp_path / "missing.pth"), *opts])

@@ -325,6 +325,7 @@ def test_config_defaults_equal_the_jax_package():
     j, t = jcfg.Config(), tcfg.Config()
     _assert_fields_equal(t, j)
     assert t.test.input_view == j.test.input_view
+    assert (t.mesh_th, t.voxel_size) == (j.mesh_th, j.voxel_size)
     assert (t.H_render, t.W_render) == (j.H_render, j.W_render)
     o = t.merge_opts(["H", "64", "ratio", "0.25", "white_bkgd", "True",
                       "test.input_view", "0,7", "pad_bucket", "64"])

@@ -208,7 +208,7 @@ def test_serve_main_loads_weights_and_answers(tmp_path):
         assert out["rgb"].shape == (32, 32, 3) and np.isfinite(out["rgb"]).all()
         health = json.loads(urllib.request.urlopen(url + "/healthz",
                                                    timeout=30).read())
-        assert health["device"] == "cpu"
+        assert health["devices"] == ["cpu"]
         assert health["n_params"] == sum(p.numel() for p in net.parameters())
     finally:
         watchdog.cancel()
@@ -233,3 +233,34 @@ def test_full_queue_is_503_and_shutdown_is_bounded(scene, monkeypatch):
     assert fut1.cancel()
     server.shutdown()
     assert fut1.cancelled()
+
+
+class _StubService:
+    """Records the executor's calls; renders nothing."""
+
+    def __init__(self):
+        self.calls = []
+        self.latencies_ms = []
+
+    def dispatch(self, arrays):
+        self.calls.append(f"dispatch{arrays['i']}")
+        return arrays["i"]
+
+    def fetch(self, i):
+        self.calls.append(f"fetch{i}")
+        return {"i": i}
+
+
+def test_executor_fetches_each_request_before_taking_the_next():
+    """Two requests queued before the executor starts: request 0 is fetched
+    (its reply delivered) before request 1 is dispatched."""
+    stub = _StubService()
+    server = RenderServer(stub, port=0)
+    futs = [server.submit({"i": i}) for i in range(2)]
+    server.start()
+    try:
+        assert [f.result(timeout=30) for f in futs] == [{"i": 0}, {"i": 1}]
+    finally:
+        server.shutdown()
+    assert stub.calls == ["dispatch0", "fetch0", "dispatch1", "fetch1"]
+    assert len(stub.latencies_ms) == 2

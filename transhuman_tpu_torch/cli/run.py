@@ -1,20 +1,28 @@
 """Inference entry point (counterpart of transhuman_tpu/cli/run.py):
 
-    python -m transhuman_tpu_torch.cli.run --type evaluate|visualize
-        [--device cuda|cpu] [--weights PATH] [key value ...]
+    python -m transhuman_tpu_torch.cli.run
+        --type evaluate|visualize|reconstruction|light_stage
+        [--device cuda|cpu] [--weights PATH] [--ply PATH]
+        [--occupancy_out PATH] [key value ...]
 
-Both render every frame the dataset's FrameSampler picks through
-``RenderPipeline.render_frame`` from a reference-layout ``.pth``
-(``--weights``, or ``trained_model_dir/task/exp_name/latest.pth``, or
-``<test.epoch>.pth``; a missing file is an error).  The data is the seeded
-synthetic scene at ``H_render x W_render``.  ``evaluate`` writes the
-evaluator's per-frame PNGs, ``.npy`` metrics and ``summary.txt`` under
-``result_dir/epoch_<test.epoch>/<test.exp_folder_name>``; ``visualize``
-writes one PNG per frame under its ``perform/`` (video assembly needs
-imageio or ffmpeg and is not ported).  It runs on the card (``--device
+``evaluate``, ``visualize`` and ``reconstruction`` run from a
+reference-layout ``.pth`` (``--weights``, or
+``trained_model_dir/task/exp_name/latest.pth``, or ``<test.epoch>.pth``; a
+missing file is an error) over every frame the dataset's FrameSampler
+picks.  The data is the seeded synthetic scene at ``H_render x W_render``.
+``evaluate`` renders each frame through ``RenderPipeline.render_frame`` and
+writes the evaluator's per-frame PNGs, ``.npy`` metrics and ``summary.txt``
+under ``result_dir/epoch_<test.epoch>/<test.exp_folder_name>``;
+``visualize`` writes one PNG per frame under its ``perform/`` (video
+assembly needs imageio or ffmpeg and is not ported); ``reconstruction``
+extracts each frame's mesh (``mesh_ops.reconstruct.extract_mesh`` at
+``voxel_size``, iso-level ``mesh_th``) and writes it as
+``mesh/<human>_frame<index>.ply``.  They run on the card (``--device
 cuda``, the default; without a card that is an error) with TF32 off, or on
-the CPU with ``--device cpu``.  ``--type reconstruction`` and
-``light_stage`` are not ported (ROADMAP queue 1 item 2).
+the CPU with ``--device cpu``.  ``light_stage`` voxelizes the mesh
+``--ply`` into an occupancy volume (``tools/voxelize_mesh.py`` at
+``voxel_size[0]``; default output ``<ply>.occupancy.npy``) on the host: it
+needs no card and no checkpoint.
 
 ``FrameRenderer`` also serves ``serve.py``: ``dispatch`` moves a frame and
 its rays to the pipeline's device and renders it; ``fetch`` brings the maps
@@ -118,6 +126,40 @@ def run_visualize(cfg, pipe, dataset):
     return paths
 
 
+def run_reconstruction(cfg, pipe, dataset):
+    """One PLY per frame; returns their paths."""
+    from ..mesh_ops.ply import save_ply
+    from ..mesh_ops.reconstruct import extract_mesh
+    from .common import result_dir
+
+    out_dir = os.path.join(result_dir(cfg), "mesh")
+    os.makedirs(out_dir, exist_ok=True)
+    paths = []
+    for i in dataset.frame_sampler_indices():
+        frame, can_bounds, meta = dataset.get_mesh_item(int(i))
+        verts, tris, _ = extract_mesh(pipe, frame, can_bounds,
+                                      voxel_size=cfg.voxel_size,
+                                      mesh_th=cfg.mesh_th)
+        paths.append(os.path.join(
+            out_dir, f"{meta['human']}_frame{meta['frame_index']:04d}.ply"))
+        save_ply(paths[-1], verts, tris)
+        print(f"wrote {paths[-1]} ({len(verts)} verts, {len(tris)} tris)",
+              flush=True)
+    return paths
+
+
+def run_light_stage(cfg, ply, occupancy_out=None):
+    """The reference's ply -> occupancy conversion (run.py:160-162);
+    returns the output path."""
+    from ..tools.voxelize_mesh import main as vox_main
+
+    if not ply:
+        raise SystemExit("--type light_stage needs --ply PATH (a mesh that "
+                         "--type reconstruction wrote)")
+    return vox_main([ply, occupancy_out or ply + ".occupancy.npy",
+                     "--voxel", str(cfg.voxel_size[0])])
+
+
 def parse_args(argv=None):
     p = argparse.ArgumentParser(prog="python -m transhuman_tpu_torch.cli.run")
     p.add_argument("--type", default="evaluate",
@@ -127,6 +169,10 @@ def parse_args(argv=None):
     p.add_argument("--weights", default=None,
                    help="reference-layout .pth (default: <trained_model_dir>"
                         "/<task>/<exp_name>/latest.pth, or <test.epoch>.pth)")
+    p.add_argument("--ply", default=None, help="light_stage: input .ply")
+    p.add_argument("--occupancy_out", default=None,
+                   help="light_stage: output .npy (default <ply>"
+                        ".occupancy.npy)")
     p.add_argument("opts", nargs=argparse.REMAINDER, default=[],
                    help="config overrides: key value ...")
     args = p.parse_args(argv)
@@ -134,16 +180,15 @@ def parse_args(argv=None):
 
 
 def main(argv=None, dataset=None, per_frame=None):
-    """evaluate: the summary dict; visualize: the PNG paths.  dataset
-    replaces make_dataset's; per_frame goes to evaluate_frames."""
+    """evaluate: the summary dict; visualize: the PNG paths;
+    reconstruction: the PLY paths; light_stage: the occupancy path.
+    dataset replaces make_dataset's; per_frame goes to evaluate_frames."""
     from ..weights import load_checkpoint_file
     from .common import build_runtime, checkpoint_path, make_dataset
 
     args, cfg = parse_args(argv)
-    if args.type in ("reconstruction", "light_stage"):
-        raise NotImplementedError(
-            f"--type {args.type} is not ported yet (ROADMAP queue 1 item 2: "
-            "render_sigma mesh extraction and marching tetrahedra)")
+    if args.type == "light_stage":
+        return run_light_stage(cfg, args.ply, args.occupancy_out)
     device = torch.device(args.device)
     if device.type == "cuda":
         if not torch.cuda.is_available():
@@ -159,7 +204,9 @@ def main(argv=None, dataset=None, per_frame=None):
           file=sys.stderr, flush=True)
     if args.type == "evaluate":
         return run_evaluate(cfg, pipe, dataset, epoch, per_frame)
-    return run_visualize(cfg, pipe, dataset)
+    if args.type == "visualize":
+        return run_visualize(cfg, pipe, dataset)
+    return run_reconstruction(cfg, pipe, dataset)
 
 
 if __name__ == "__main__":

@@ -112,6 +112,10 @@ class Config:
     # run) with torch.profiler and writes the trace and its summary here
     profile_dir: str = ""
     test: TestConfig = field(default_factory=TestConfig)
+    # mesh reconstruction: iso-level of sigma, grid voxel (m) per axis
+    mesh_th: float = 20.0
+    voxel_size: List[float] = field(
+        default_factory=lambda: [0.005, 0.005, 0.005])
     # evaluation and free-viewpoint rendering
     evaluator: str = "if_nerf"
     visualizer: str = "perform"
@@ -162,7 +166,11 @@ def _coerce(cur, raw, key):
                 raise ValueError(raw)
             return raw.lower() == "true"
         if isinstance(cur, list):
-            return [int(x) for x in raw.strip("[]() ").split(",") if x.strip()]
+            # the items keep the type of the default's: voxel_size floats,
+            # test.input_view ints
+            item = type(cur[0]) if cur else int
+            return [item(x) for x in raw.strip("[]() ").split(",")
+                    if x.strip()]
         return type(cur)(raw)
     except ValueError as e:
         raise ValueError(f"bad value {raw!r} for config key {key!r}") from e

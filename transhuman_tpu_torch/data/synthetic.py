@@ -6,7 +6,8 @@ mode only).
 An eval item renders every pixel of the target view whose ray meets the
 body's box (inflated 0.05 m), with the target image as ground truth; the
 frames are identical, and ``frame_sampler_indices`` decimates them as the
-reference's FrameSampler does.  Each train sample draws ``patch.N_patches`` patches of ``patch.size`` pixels
+reference's FrameSampler does.  A mesh item is the frame and that box.
+Each train sample draws ``patch.N_patches`` patches of ``patch.size`` pixels
 around the body's projected centroid in the target view, from a numpy RNG
 seeded by the index and the epoch, and casts a ray through every patch
 pixel.  Rays that miss the body's bounding box are invalid: mask False,
@@ -123,3 +124,10 @@ class SyntheticDataset:
 
     def get_perform_item(self, index, render_views=None) -> EvalItem:
         return self.get_eval_item(index)
+
+    def get_mesh_item(self, index):
+        """(frame, the body's box inflated 0.05 m (2, 3), meta) for mesh
+        reconstruction."""
+        frame, _, bounds = self._frame_and_target()
+        return frame, bounds, dict(human="synthetic", human_idx=0,
+                                   frame_index=int(index), cam_ind=0)

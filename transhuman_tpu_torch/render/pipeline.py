@@ -13,6 +13,10 @@ compositing (counterpart of transhuman_tpu/render/pipeline.py).
   package's dense render (``render_frame_dense`` with ``compact_ratio=None``),
   which is the parity target.  The JAX package's static-shape machinery
   (compaction capacity, ray padding) has no job here.
+* ``render_sigma``: the density over a flat grid of points for mesh
+  reconstruction: one cull of every point (K1), one compaction, the
+  survivors decoded in fixed chunks with a zero view code, no host sync
+  between the chunks.
 * ``render_train``: every ray of a train sample in one differentiable
   evaluation, with the invalid rays masked (the JAX package's
   ``render_train``); its backward runs kernel K3 for both feature-map
@@ -242,3 +246,34 @@ class RenderPipeline:
             "acc_map": out["acc_map"] * m,
             "depth_map": out["depth_map"] * m,
         }
+
+    @torch.no_grad()
+    def render_sigma(self, frame: FrameInputs, pts_world):
+        """sigma (N,), the raw density pre-activation at pts_world (N, 3)
+        (mesh reconstruction; the JAX package's ``render_sigma_dense``).
+
+        One cull of every point (one K1 launch on the card; slabs of a chunk
+        on the CPU, where the plain distance matrix would not fit), one
+        ``nonzero``, then the survivors decoded in chunks of ``chunk_rays *
+        n_samples`` points with no host sync between them, and scattered
+        into zeros: a culled point's sigma is exactly 0.  The view code is a
+        zero vector, as the JAX package's (sigma does not read it)."""
+        n, cp = pts_world.shape[0], self.chunk_rays * self.n_samples
+        pro = self._prologue(frame)
+        slab = max(n, 1) if pts_world.is_cuda else cp
+        keep = torch.cat([self._cull(to_smpl(frame, pts_world[a:a + slab]),
+                                     frame.tar_verts_smpl)
+                          for a in range(0, max(n, 1), slab)])
+        idx = torch.nonzero(keep)[:, 0]
+        m = idx.numel()
+        vde = torch.zeros((min(cp, m), 6 * self.model.view_freqs + 3),
+                          dtype=pts_world.dtype, device=pts_world.device)
+        sig = torch.empty(m, dtype=pts_world.dtype, device=pts_world.device)
+        for a in range(0, m, cp):
+            b = min(a + cp, m)
+            raw = self._query_points(frame, pro, pts_world[idx[a:b]],
+                                     vde[:b - a])
+            sig[a:b] = raw[:, 3]
+        self.last_frame_stats = {"points": n, "survivors": m}
+        return torch.zeros(n, dtype=sig.dtype,
+                           device=sig.device).index_copy_(0, idx, sig)

@@ -9,7 +9,9 @@ override config.py's defaults.
 
 Endpoints
 ---------
-``GET /healthz``  JSON: device, parameter count.
+``GET /healthz``  JSON: status, devices (a list of one), parameter count;
+    the JAX service's TPU-only ``ray_bucket`` and ``compact_ratio`` are
+    not carried.
 ``GET /stats``    JSON: render count, latency mean/p50/p95 (ms).
 ``POST /render``  Body: an ``.npz`` archive with ``images (V,H,W,3)`` (float
     in [0,1] or any integer type), per-view ``K/R/T``, the target camera
@@ -21,8 +23,8 @@ Endpoints
     A malformed request is a 400; a full queue a 503 with Retry-After.
 
 HTTP threads put requests on a bounded queue that one executor thread drains
-(the card runs one frame at a time); the executor dispatches request i+1
-before fetching request i.
+(the card runs one frame at a time); the executor renders and replies to
+each request before it takes the next off the queue.
 """
 
 from __future__ import annotations
@@ -228,7 +230,7 @@ ENQUEUE_WAIT_S = 30.0  # how long a request waits for a queue slot before 503
 
 
 class RenderServer:
-    """HTTP front + one pipelined executor thread."""
+    """HTTP front + one executor thread."""
 
     def __init__(self, service: RenderService, host="127.0.0.1", port=0,
                  max_queue: int = 8):
@@ -239,40 +241,25 @@ class RenderServer:
         self.port = self.httpd.server_address[1]
 
     def _run(self):
-        """Dispatch request i+1 before fetching request i."""
+        """Take each request off the queue, render it and deliver its reply
+        before taking the next: dispatch waits on the card at every chunk's
+        compaction, so a request dispatched ahead would overlap nothing and
+        delay this one's reply."""
         svc = self.service
-        prev = None  # (future, dispatched, t_enqueue)
-        stopping = False
         while True:
-            if stopping and prev is None:
-                return
-            try:
-                item = (self._q.get(timeout=0.05) if (prev or stopping)
-                        else self._q.get())
-            except queue.Empty:
-                item = None
+            item = self._q.get()
             if item is _STOP:
-                stopping = True
-                item = None
-            cur = None
-            if item is not None:
-                fut, arrays, t0 = item
-                # a client that gave up cancelled its future: skip the work
-                if not fut.set_running_or_notify_cancel():
-                    continue
-                try:
-                    cur = (fut, svc.dispatch(arrays), t0)
-                except Exception as e:  # noqa: BLE001 — goes to the client
-                    fut.set_exception(e)
-            if prev is not None:
-                fut, dispatched, t0 = prev
-                try:
-                    out = svc.fetch(dispatched)
-                    svc.latencies_ms.append((time.perf_counter() - t0) * 1e3)
-                    fut.set_result(out)
-                except Exception as e:  # noqa: BLE001 — goes to the client
-                    fut.set_exception(e)
-            prev = cur
+                return
+            fut, arrays, t0 = item
+            # a client that gave up cancelled its future: skip the work
+            if not fut.set_running_or_notify_cancel():
+                continue
+            try:
+                out = svc.fetch(svc.dispatch(arrays))
+                svc.latencies_ms.append((time.perf_counter() - t0) * 1e3)
+                fut.set_result(out)
+            except Exception as e:  # noqa: BLE001 — goes to the client
+                fut.set_exception(e)
 
     def submit(self, arrays: dict) -> Future:
         fut: Future = Future()
@@ -335,7 +322,7 @@ def _make_handler(server: RenderServer):
             if self.path == "/healthz":
                 self._json(200, {
                     "status": "ok",
-                    "device": str(svc.pipe.device),
+                    "devices": [str(svc.pipe.device)],
                     "n_params": sum(p.numel()
                                     for p in svc.pipe.model.parameters()),
                 })
