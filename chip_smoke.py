@@ -5,7 +5,8 @@ mesh reconstruction paths (one NVIDIA GPU).
 Run from the repository root: ``python3 chip_smoke.py``.  Phases, in order;
 any failure ends the run with a non-zero exit:
 
-1. device: a CUDA card, its name and power limit (nvidia-smi), TF32 off;
+1. device: a CUDA card, its name and power limit (nvidia-smi), TF32 off,
+   bf16 products accumulated in float32;
 2. build: the CUDA kernels from transhuman_tpu_torch/csrc with nvcc, one
    process per source, all started together;
 3. kernels: K1 (cull) and K2 (DPaRF) against their plain PyTorch versions
@@ -50,7 +51,19 @@ any failure ends the run with a non-zero exit:
    its bound; then the run entry point at full width on phase 7's
    checkpoint, one mesh at that grid with the launch counters reset just
    before and read just after, the sigma pass, the marching and the PLY
-   write timed apart; then the mesh voxelized.
+   write timed apart; then the mesh voxelized;
+12. bf16 parity (compute_dtype bfloat16): phases 4, 6 and 8 in bf16, card
+   against CPU at the stated bf16 bounds, each also nearer the CPU's bf16,
+   on average, than the CPU's float32 result of phases 4, 6 and 8 is;
+13. bf16 at full width: the serve (3 requests), train (5 steps), evaluate
+   (4 frames) and reconstruction entry points in bf16, each with the launch
+   counters reset just before and read just after (the bf16 forms of K2,
+   K4 and K3 launched, their float32 forms not), each timed, with its peak
+   memory.
+
+Phase 3 also holds the bf16 forms of K2, K4 and K3 against their float32
+forms on the widened inputs, cast once (bit for bit), and against their
+plain twins, timed beside their bf16 bounds.
 
 The last three lines are {"kernels": [...]}, the card's name and power
 limit as nvidia-smi prints them, and {"ok": true, "device": {...}}.
@@ -92,6 +105,51 @@ FP32_OPS_PER_S = 67e12
 # the train forward never reads TransHE's token-masking weight (nor does the
 # JAX package's): it gets no gradient and does not move
 UNREAD_PARAMS = {"ViT.mask_token"}
+# bf16 parity, card against CPU (both bf16, the same weights), set before
+# the first card run: two bf16 implementations round differently where
+# their float32 sums (cuBLAS/cuDNN and the CPU's) straddle a rounding
+# boundary.  On the CPU the port's bf16 64x64 full-width render differs from
+# the JAX package's bf16 by up to 2.8e-3 rgb, 8.3e-4 acc, 2.0e-3 depth,
+# where bf16 differs from float32 by 6.0e-3 / 1.4e-3 / 3.5e-3; the bounds
+# are ~3.5x the first.  What tells bf16 from float32 is the mean check: the
+# card's bf16 must lie nearer the CPU's bf16, on average, than the CPU's
+# float32 does (_closer).
+BF16_RGB_TOL, BF16_DEPTH_TOL = 1e-2, 2e-2
+BF16_PSNR_TOL = 0.1  # dB: what 1e-2 per colour allows an MSE of ~0.1
+BF16_LOSS_RTOL = 1e-3
+BF16_GRAD_TOL = 0.25  # of the largest leaf's norm, per leaf
+COMPUTE = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def forms(dtype: str) -> dict:
+    """The launch counters of the K2, K4 and K3 forms a path in the compute
+    dtype runs (K1 is float32 in both)."""
+    if dtype == "bfloat16":
+        return {"dparf": "dparf_bf16", "fetch": "feature_sample_bf16",
+                "scatter": "dfeat_scatter_bf16"}
+    return {"dparf": "dparf", "fetch": "feature_gather",
+            "scatter": "dfeat_scatter"}
+
+
+def check_launches(what: str, counts: dict, want: dict):
+    """Each kernel in want launched at least want[name] times; every other
+    kernel (the other dtype's forms included) not at all."""
+    for name, n in counts.items():
+        if name in want:
+            check(n >= want[name], f"{what}: kernel {name} launched {n} "
+                  f"times, want >= {want[name]} ({counts})")
+        else:
+            check(n == 0, f"{what}: kernel {name} ran ({counts})")
+
+
+def _closer(what: str, got, want, other):
+    """mean |got - want| < mean |want - other|: the card's bf16 lies nearer
+    the CPU's bf16 than the CPU's float32 does."""
+    err = float(np.abs(got - want).mean())
+    gap = float(np.abs(want - other).mean())
+    check(err < gap, f"{what}: mean |card - CPU| {err:.3g} is not below "
+          f"mean |CPU bf16 - CPU float32| {gap:.3g}")
+    return err, gap
 
 
 class SmokeFailure(RuntimeError):
@@ -159,8 +217,11 @@ def knn_near_ties(pts, centers, k: int):
 # ---------------------------------------------------------------- phases
 def phase_device():
     check(torch.cuda.device_count() >= 1, "no CUDA device")
+    # full float32 products and convolutions; bf16 products accumulated in
+    # float32, as XLA does (the entry points' configure_device)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
@@ -283,6 +344,9 @@ def phase_kernels(card: str):
     results.append(k3)
     # K4 on one full-width request -----------------------------------------
     results.append(check_feature_gather(card))
+    # the bf16 forms of K2, K4 and K3, at the same shapes ------------------
+    results.extend(check_bf16_forms(card, pts, centers, rot, tokens, k,
+                                    binding, uv_pix, uv_verts, image))
     return results
 
 
@@ -679,6 +743,194 @@ def check_feature_gather(card: str) -> dict:
     return entry
 
 
+def check_bf16_forms(card: str, pts, centers, rot, tokens, k: int,
+                     binding, uv_pix, uv_verts, image) -> list:
+    """The bf16 forms of K2 (bf16 tokens), K4's sampling form (a bf16 map)
+    and K3 (bf16 cotangent rows, a bf16 map), each equal bit for bit to its
+    float32 form on the widened inputs cast once, and against its plain
+    twin within one unit of bf16's last place of the largest value; timed
+    beside its bound (the bf16 bytes), its plain twin and the library call.
+    K2 at the render chunk and the train shape, K4 at the serve pixel and
+    painting shapes of a real request, K3 at both train shapes."""
+    import torch.nn.functional as F
+
+    from transhuman_tpu_torch.kernels import build, dparf, gather, scatter
+    from transhuman_tpu_torch.kernels.gather import _bilinear_w4, _sample_taps
+    from transhuman_tpu_torch.ops.sampling import sample_feature_map
+
+    bf16, eps = torch.bfloat16, 2.0**-7
+    dev = pts.device
+    out = []
+
+    # K2: bf16 tokens, float32 points, centres and rotations
+    tok16 = tokens.to(bf16)
+    got = dparf.dparf_bf16_cuda(pts, centers, rot, tok16, k)
+    want = dparf.dparf_cuda(pts, centers, rot, tok16.float(), k)
+    plain = dparf.dparf_plain(pts, centers, rot, tok16, k)
+    torch.cuda.synchronize()
+    check(got[0].dtype == bf16 and torch.equal(got[0], want[0].to(bf16)),
+          "K2 bf16: tok is not the float32 form's, cast")
+    check(all(torch.equal(a, b) for a, b in zip(got[1:], want[1:])),
+          "K2 bf16: pe, dist, idx or w differ from the float32 form's")
+    ok = ~knn_near_ties(pts, centers, k)
+    scale = float(plain[0].float().abs().max())
+    err = float((got[0].float() - plain[0].float())[:, ok].abs().max())
+    # two float32 sums in other orders, each rounded to bf16 once
+    check(err <= eps * scale, f"K2 bf16: tok max err {err} vs its plain "
+          f"twin (max |tok| {scale}) off ties")
+    ms = time_ms(lambda: dparf.dparf_bf16_cuda(pts, centers, rot, tok16, k))
+    plain_ms = time_ms(lambda: dparf.dparf_plain(pts, centers, rot, tok16,
+                                                 k))
+    ops = (8 * pts.shape[0] * centers.shape[0]
+           + 2 * k * tokens.numel() // centers.shape[0] * pts.shape[0])
+    b = bound(nbytes(pts, centers, rot, tok16, *got), ops)
+    tp = binding[0]
+    got_t = dparf.dparf_bf16_cuda(*binding, tok16, k)
+    train_ms = time_ms(lambda: dparf.dparf_bf16_cuda(*binding, tok16, k))
+    b_t = bound(nbytes(*binding, tok16, *got_t),
+                8 * tp.shape[0] * centers.shape[0]
+                + 2 * k * tokens.numel() // centers.shape[0] * tp.shape[0])
+    log(f"[3 kernels] K2 dparf bf16 tokens, {pts.shape[0]} pts, C=300, V=3, "
+        f"D=192, k={k}: the float32 form's bits (tok cast once, pe/dist/idx/w "
+        f"equal); tok err vs plain {err:.3g} of max {scale:.3g}; kernel "
+        f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {b['bound_ms']:.4f} ms "
+        f"({b['bound_by']}); train shape {tp.shape[0]} pts {train_ms:.4f} ms,"
+        f" bound {b_t['bound_ms']:.4f} ms  [{card}]")
+    out.append({"name": "dparf_bf16", "route": "cuda",
+                "source": "transhuman_tpu_torch/csrc/dparf.cu",
+                "replaces": "transhuman_tpu/experiments/dparf.py:115",
+                "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **b,
+                "library_ms": None, "train_ms": train_ms,
+                "train_bound_ms": b_t["bound_ms"]})
+    del got, want, plain, got_t
+
+    # K4's sampling form on the request's maps in bf16
+    lib, stream = build.library(), torch.cuda.current_stream().cuda_stream
+    pixel, holder, uv_p, uv_v, img = serve_request_maps(dev)
+    entry = {"name": "feature_sample_bf16", "route": "cuda",
+             "source": "transhuman_tpu_torch/csrc/gather.cu",
+             "replaces": "tools/profile_gather_ab.py:156"}
+    for tag, fmap, uv in (("pixel", pixel.to(bf16), uv_p),
+                          ("paint", holder.to(bf16), uv_v)):
+        v, hf, wf, c = fmap.shape
+        n = uv.shape[1]
+        fx, fy, base, _, _, dx, dy = _sample_taps(fmap.shape, uv, img)
+        got = gather.feature_sample_bf16_cuda(fmap, uv, img)
+        want = gather.feature_sample_cuda(fmap.float(), uv, img).to(bf16)
+        plain = gather.feature_sample_plain(fmap, uv, img)
+        torch.cuda.synchronize()
+        check(got.dtype == bf16 and torch.equal(got, want),
+              f"K4 bf16 {tag}: not the float32 form's rows, cast")
+        scale = float(fmap.float().abs().max())
+        err = float((got.float() - plain.float()).abs().max())
+        # a fused and an unfused float32 lerp, each rounded to bf16 once
+        check(err <= eps * scale, f"K4 bf16 {tag}: max err {err} vs its "
+              f"plain twin (max |src| {scale})")
+        # the library call: grid_sample over a bf16 NCHW copy, its grid in
+        # bf16 too (grid_sample takes one dtype); prepared outside the timing
+        nchw = fmap.permute(0, 3, 1, 2).contiguous()
+        grid = torch.stack([fx / (wf - 1) * 2 - 1, fy / (hf - 1) * 2 - 1],
+                           dim=-1)[:, None].to(bf16).contiguous()
+        raw = torch.empty_like(got)
+        with torch.no_grad():
+            path_ms = time_ms(lambda: sample_feature_map(fmap, uv, img))
+        t = {
+            "ms": time_ms(lambda: gather.feature_sample_bf16_cuda(fmap, uv,
+                                                                  img)),
+            "launch_ms": time_ms(lambda: lib.thp_feature_sample_bf16(
+                fmap.data_ptr(), uv.data_ptr(), raw.data_ptr(), v, n, c, hf,
+                wf, wf / img[1], hf / img[0], stream)),
+            "plain_ms": time_ms(lambda: gather.feature_sample_plain(
+                fmap, uv, img)),
+            "library_ms": time_ms(lambda: F.grid_sample(
+                nchw, grid, mode="bilinear", padding_mode="border",
+                align_corners=True)),
+        }
+        check(torch.equal(raw, got), f"K4 bf16 {tag}: the bare launches "
+              "differ")
+        rows = _unique_rows(base, (0, dx, dy, dy + dx))
+        b = bound(rows * c * 2 + nbytes(uv, got), 8 * got.numel())
+        log(f"[3 kernels] K4 sampling form bf16 {tag}: V={v}, N={n}, C={c}, "
+            f"{hf}x{wf} map, {rows} distinct tap rows: the float32 form's "
+            f"bits cast; max err vs plain {err:.3g} (max |src| {scale:.3g}); "
+            f"sample_feature_map forward {path_ms:.4f} ms, wrapper "
+            f"{t['ms']:.4f} ms, launch {t['launch_ms']:.4f}; plain "
+            f"{t['plain_ms']:.4f} ms, grid_sample (bf16) "
+            f"{t['library_ms']:.4f} ms, bound {b['bound_ms']:.4f} ms "
+            f"({b['bound_by']})  [{card}]")
+        del nchw, grid
+        if tag == "pixel":
+            entry.update(max_abs_err=err, path_ms=path_ms, **t, **b)
+        else:
+            entry.update({f"paint_{key}": x for key, x in t.items()},
+                         paint_path_ms=path_ms, paint_bound_ms=b["bound_ms"],
+                         max_abs_err=max(entry["max_abs_err"], err))
+    out.append(entry)
+    del pixel, holder
+
+    # K3: bf16 cotangent rows at both train shapes
+    entry = {"name": "dfeat_scatter_bf16", "route": "cuda",
+             "source": "transhuman_tpu_torch/csrc/scatter.cu",
+             "replaces": "transhuman_tpu/experiments/streamscatter.py:172"}
+    for tag, uv, c in (("pixel", uv_pix, 384), ("paint", uv_verts, 192)):
+        _, _, base, wx, wy, dx, dy = _sample_taps((3, image[0], image[1], c),
+                                                  uv, image)
+        ids = base.to(torch.int32).contiguous()
+        w4 = _bilinear_w4(wx, wy).contiguous()
+        g = torch.randn((3, ids.shape[1], c), device=dev,
+                        generator=torch.Generator(dev).manual_seed(6)
+                        ).to(bf16)
+        hw = image[0] * image[1]
+        got = scatter.dfeat_scatter_bf16_cuda(ids, g, w4, hw, dx, dy)
+        again = scatter.dfeat_scatter_bf16_cuda(ids, g, w4, hw, dx, dy)
+        want = scatter.dfeat_scatter_cuda(ids, g.float(), w4, hw, dx,
+                                          dy).to(bf16)
+        torch.cuda.synchronize()
+        check(got.dtype == bf16 and torch.equal(got, want),
+              f"K3 bf16 {tag}: not the float32 form's map, cast")
+        check(torch.equal(got, again), f"K3 bf16 {tag}: two calls differ")
+        del want, again
+        plain = scatter.dfeat_scatter_plain(ids, g, w4, hw, dx, dy)
+        scale = float(plain.float().abs().max())
+        err = float((got.float() - plain.float()).abs().max())
+        del plain
+        # float32 sums in two orders, each rounded to bf16 once
+        check(err <= eps * scale + 1e-4, f"K3 bf16 {tag}: max err {err} vs "
+              f"its plain twin (max |d_feat| {scale})")
+        ms = time_ms(lambda: scatter.dfeat_scatter_bf16_cuda(ids, g, w4, hw,
+                                                             dx, dy))
+        plain_ms = time_ms(lambda: scatter.dfeat_scatter_plain(
+            ids, g, w4, hw, dx, dy))
+        # the library call: a fresh float32 zeros map, one index_add_ of the
+        # 4N pre-weighted rows and one cast to bf16, timed together
+        flat4 = torch.cat([(ids.long() + hw * torch.arange(
+            3, device=dev)[:, None] + off).reshape(-1)
+            for off in (0, dx, dy, dy + dx)])
+        rows4 = torch.cat([(g.float() * w4[..., t:t + 1]).reshape(-1, c)
+                           for t in range(4)])
+        lib_ms = time_ms(lambda: torch.zeros((3 * hw, c), device=dev)
+                         .index_add_(0, flat4, rows4).to(bf16))
+        del flat4, rows4
+        b = bound(nbytes(ids, g, w4, got), 8 * g.numel())
+        log(f"[3 kernels] K3 dfeat_scatter bf16 {tag}: V=3, N={ids.shape[1]},"
+            f" C={c}, {hw} texels: the float32 form's bits cast, two calls "
+            f"bit-identical; max err vs plain {err:.3g} of max {scale:.3g}; "
+            f"wrapper {ms:.4f} ms, plain {plain_ms:.4f} ms, zeros + "
+            f"index_add_ + cast {lib_ms:.4f} ms, bound {b['bound_ms']:.4f} ms"
+            f" ({b['bound_by']})  [{card}]")
+        if tag == "pixel":
+            entry.update(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                         library_ms=lib_ms, **b)
+        else:
+            entry.update(paint_ms=ms, paint_plain_ms=plain_ms,
+                         paint_library_ms=lib_ms,
+                         paint_bound_ms=b["bound_ms"],
+                         max_abs_err=max(entry["max_abs_err"], err))
+        del got
+    out.append(entry)
+    return out
+
+
 def _request(frame, target: int, hw: int, verts=None, blend_rot=None):
     return {
         "images": frame.images.numpy(), "K": frame.K.numpy(),
@@ -740,7 +992,11 @@ def _unstable_pixels(svc, req):
     return out.reshape(H, W)
 
 
-def phase_parity(card: str):
+def phase_parity(card: str, dtype: str = "float32", ref=None):
+    """One 64x64 request through RenderService on the card and on the CPU
+    (plain versions), the same full-width weights, in the compute dtype;
+    in bf16 also held nearer the CPU's bf16 than ref (the CPU's float32
+    render, this phase's float32 result) is.  Returns the CPU render."""
     import copy
 
     from transhuman_tpu_torch.config import Config
@@ -749,9 +1005,10 @@ def phase_parity(card: str):
     from transhuman_tpu_torch.testing import synthetic_setup
 
     hw = 64
-    cfg = Config().merge_opts(["H", str(2 * hw), "W", str(2 * hw)])
+    cfg = Config().merge_opts(["H", str(2 * hw), "W", str(2 * hw),
+                               "compute_dtype", dtype])
     model, pipe, frame, smpl, cluster = synthetic_setup(
-        image_hw=(hw, hw), device="cuda")
+        image_hw=(hw, hw), device="cuda", compute_dtype=COMPUTE[dtype])
     svc_gpu = RenderService(cfg, pipe, smpl)
     model_cpu = copy.deepcopy(model).cpu()
     pipe_cpu = RenderPipeline(model_cpu, cluster, smpl.v_template,
@@ -766,27 +1023,46 @@ def phase_parity(card: str):
     errs = {k: float(np.abs(out_g[k] - out_c[k])[ok].max())
             for k in ("rgb", "acc", "depth")}
     check(skip.mean() < 0.05, f"parity: {int(skip.sum())} unstable pixels")
-    check(errs["rgb"] <= 2e-3 and errs["acc"] <= 2e-3,
-          f"parity: rgb/acc CUDA vs CPU {errs} > 2e-3")
-    check(errs["depth"] <= 1e-2, f"parity: depth CUDA vs CPU {errs} > 1e-2")
     check(float(out_c["acc"].max()) > 0.5, "parity: the frame is empty")
-    log(f"[4 parity] {hw}x{hw} full-width render, CUDA vs CPU: "
+    if dtype == "float32":
+        check(errs["rgb"] <= 2e-3 and errs["acc"] <= 2e-3,
+              f"parity: rgb/acc CUDA vs CPU {errs} > 2e-3")
+        check(errs["depth"] <= 1e-2,
+              f"parity: depth CUDA vs CPU {errs} > 1e-2")
+        label, extra = "4 parity", ""
+    else:
+        check(errs["rgb"] <= BF16_RGB_TOL and errs["acc"] <= BF16_RGB_TOL
+              and errs["depth"] <= BF16_DEPTH_TOL,
+              f"bf16 parity: CUDA vs CPU {errs} beyond {BF16_RGB_TOL} "
+              f"(rgb, acc) / {BF16_DEPTH_TOL} (depth)")
+        means = {k: _closer(f"bf16 parity {k}", out_g[k][ok], out_c[k][ok],
+                            ref[k][ok]) for k in ("rgb", "acc", "depth")}
+        label = "12 bf16 parity"
+        extra = "; mean |card - CPU| vs mean |CPU bf16 - CPU f32|: " + (
+            ", ".join(f"{k} {a:.3g} vs {b:.3g}" for k, (a, b) in
+                      means.items()))
+    log(f"[{label}] {hw}x{hw} full-width render in {dtype}, CUDA vs CPU: "
         f"max |d rgb| {errs['rgb']:.3g}, |d acc| {errs['acc']:.3g}, "
         f"|d depth| {errs['depth']:.3g} over {int(ok.sum())} pixels "
-        f"({int(skip.sum())} at a cull/kNN near-tie excluded)  [{card}]")
-    return model, pipe, frame, smpl
+        f"({int(skip.sum())} at a cull/kNN near-tie excluded){extra}  "
+        f"[{card}]")
+    return out_c
 
 
-def phase_serve(card: str):
+def phase_serve(card: str, dtype: str = "float32"):
+    """Three 512x512 requests through HTTP to the full-width service in the
+    compute dtype, the launch counters reset just before and read just
+    after."""
     from transhuman_tpu_torch import kernels
     from transhuman_tpu_torch.config import Config
     from transhuman_tpu_torch.serve import RenderServer, RenderService
     from transhuman_tpu_torch.testing import synthetic_setup
 
     hw = 512
-    cfg = Config()  # H_render = W_render = 512
-    model, pipe, frame, smpl, _ = synthetic_setup(image_hw=(hw, hw),
-                                                  device="cuda")
+    label = "5 serve" if dtype == "float32" else "13 bf16 serve"
+    cfg = Config().merge_opts(["compute_dtype", dtype])  # 512x512 renders
+    model, pipe, frame, smpl, _ = synthetic_setup(
+        image_hw=(hw, hw), device="cuda", compute_dtype=COMPUTE[dtype])
     svc = RenderService(cfg, pipe, smpl)
     svc.warmup(hw, hw)
     server = RenderServer(svc, host="127.0.0.1", port=0)
@@ -824,7 +1100,7 @@ def phase_serve(card: str):
             check(out["acc"].max() > 0.5, "serve: no pixel with acc > 0.5")
             st = pipe.last_frame_stats
             lines.append(
-                f"[5 serve] request {i}: {hw}x{hw}, latency {lat:.1f} ms, "
+                f"[{label}] request {i}: {hw}x{hw}, latency {lat:.1f} ms, "
                 f"{st['points']} points, survivor fraction "
                 f"{st['survivors'] / max(st['points'], 1):.4f}  [{card}]")
     finally:
@@ -833,11 +1109,11 @@ def phase_serve(card: str):
     peak = torch.cuda.max_memory_allocated() / 2**30
     for line in lines:
         log(line)
-    log(f"[5 serve] launches {counts}; peak device memory {peak:.3f} GiB  "
+    log(f"[{label}] launches {counts}; peak device memory {peak:.3f} GiB  "
         f"[{card}]")
-    for name in ("min_excess2", "dparf", "feature_gather"):
-        check(counts[name] > 0, f"serve: kernel {name} was not launched")
-    check(counts["dfeat_scatter"] == 0, "serve: a backward kernel ran")
+    f = forms(dtype)
+    check_launches(f"serve ({dtype})", counts,
+                   {"min_excess2": 1, f["dparf"]: 1, f["fetch"]: 1})
     return counts
 
 
@@ -848,15 +1124,18 @@ def _grads_and_update(state, p0):
              state.model.named_parameters()})
 
 
-def phase_train_parity(card: str):
+def phase_train_parity(card: str, dtype: str = "float32", ref=None):
     """One train step at 64x64 (full-width model, 2 patches of 10x10 rays x
     64 samples, jitter off) on the card and on the CPU from the same
-    seeded weights and sample."""
+    seeded weights and sample, in the compute dtype; in bf16 also against
+    ref (the CPU's float32 step, this phase's float32 result).  Returns the
+    CPU step's (stats, gradients, update)."""
     from transhuman_tpu_torch.cli.train import build_trainer
     from transhuman_tpu_torch.config import Config
 
     cfg = Config().merge_opts(["H", "128", "W", "128", "perturb", "0",
-                               "patch.N_patches", "2", "patch.size", "10"])
+                               "patch.N_patches", "2", "patch.size", "10",
+                               "compute_dtype", dtype])
     runs = {}
     for dev in ("cuda", "cpu"):
         state, step_fn, data, _ = build_trainer(cfg, torch.device(dev))
@@ -867,16 +1146,49 @@ def phase_train_parity(card: str):
     (sg, p0g, gg, dg), (sc, p0c, gc, dc) = runs["cuda"], runs["cpu"]
     check(all(torch.equal(p0g[n], p0c[n]) for n in p0c),
           "train parity: the two runs start from different weights")
+    check(all(g.dtype == torch.float32 for g in list(gg.values())
+              + list(gc.values())), "train parity: a gradient is not float32")
     lerr = abs(sg["loss"] - sc["loss"]) / sc["loss"]
-    # float32 on both; sums in other orders, K2/K3 vs the plain versions
-    check(lerr <= 1e-4, f"train parity: loss {sg['loss']} vs {sc['loss']}")
     check(set(gg) == set(gc) == set(p0c) - UNREAD_PARAMS,
           "train parity: the parameters with a gradient differ")
+    gmax = max(float(gc[n].norm()) for n in gc)
+    lr = sc["lr"]
+    if dtype == "bfloat16":
+        check(lerr <= BF16_LOSS_RTOL, f"bf16 train parity: loss {sg['loss']}"
+              f" vs {sc['loss']} (CPU float32 {ref[0]['loss']})")
+        worst = max((float((gg[n] - gc[n]).norm()) / gmax, n) for n in gc)
+        check(worst[0] <= BF16_GRAD_TOL, f"bf16 train parity: a gradient "
+              f"leaf differs by {worst} of the largest leaf's norm")
+        names = sorted(gc)
+        g_card, g_cpu, g_ref = (torch.cat([d[n].ravel() for n in names])
+                                .numpy() for d in (gg, gc, ref[1]))
+        gm = _closer("bf16 train parity: gradients", g_card, g_cpu, g_ref)
+        # Adam's first update is -lr g / (|g| + 1e-8): the card must agree
+        # with the CPU's bf16 step on its sign at least as often as the
+        # CPU's float32 step does
+        flips = flips_ref = total = 0
+        for n in gc:
+            sure = gc[n].abs() > 1e-6
+            flips += int((dg[n].sign() != dc[n].sign())[sure].sum())
+            flips_ref += int((ref[2][n].sign() != dc[n].sign())[sure].sum())
+            total += int(sure.sum())
+        check(flips <= flips_ref, f"bf16 train parity: {flips} update signs "
+              f"differ from the CPU's bf16 step, the CPU's float32 step "
+              f"{flips_ref} (of {total})")
+        log(f"[12 bf16 train parity] 64x64 full-width step in bf16, CUDA vs "
+            f"CPU: loss {sg['loss']:.7g} vs {sc['loss']:.7g} (rel "
+            f"{lerr:.3g}; CPU float32 {ref[0]['loss']:.7g}); worst gradient "
+            f"leaf {worst[0]:.3g} of the largest leaf's norm ({worst[1]}); "
+            f"mean |d grad| {gm[0]:.3g} vs CPU bf16 - float32 {gm[1]:.3g}; "
+            f"update signs differing {flips} vs {flips_ref} of {total}  "
+            f"[{card}]")
+        return sc, gc, dc
+    # float32 on both; sums in other orders, K2/K3 vs the plain versions
+    check(lerr <= 1e-4, f"train parity: loss {sg['loss']} vs {sc['loss']}")
     # per leaf, relative to its norm, with a floor of 1e-5 of the largest
     # leaf's norm: some leaves' gradients vanish in exact arithmetic (the
     # pixel keys' bias: a constant shift of every key under the softmax over
     # the keys) and hold float32 noise that differs between the two devices
-    gmax = max(float(gc[n].norm()) for n in gc)
     rel = sorted(((float((gg[n] - gc[n]).norm())
                    / (1e-3 * float(gc[n].norm()) + 1e-5 * gmax), n)
                   for n in gc), reverse=True)
@@ -884,7 +1196,6 @@ def phase_train_parity(card: str):
                if float(gc[n].norm()) > 1e-5 * gmax)
     check(rel[0][0] <= 1.0, f"train parity: gradients differ beyond "
           f"tolerance: {rel[:3]} (error / tolerance, leaf)")
-    lr = sc["lr"]
     worst_tight = worst = 0.0
     for n in gc:
         d = (dg[n] - dc[n]).abs()
@@ -907,12 +1218,14 @@ def phase_train_parity(card: str):
         f"update err beyond rounding "
         f"{worst_tight:.3g} where the sign is sure, {worst:.3g} anywhere, "
         f"lr {lr:.4g}  [{card}]")
+    return sc, gc, dc
 
 
-def phase_train(card: str, path: str):
-    """The train entry point at full width for TRAIN_STEPS steps, counters
-    reset just before; then its checkpoint (written to path, which phase 9
-    evaluates) served at 64x64."""
+def phase_train(card: str, path: str, dtype: str = "float32"):
+    """The train entry point at full width for TRAIN_STEPS steps in the
+    compute dtype, counters reset just before; then its checkpoint (written
+    to path, which the evaluate and reconstruction phases read) served at
+    64x64."""
     from transhuman_tpu_torch import kernels
     from transhuman_tpu_torch.cli import train as train_cli
     from transhuman_tpu_torch.cli.common import build_runtime
@@ -926,7 +1239,8 @@ def phase_train(card: str, path: str):
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launch_counts()
     state, records = train_cli.main(["--device", "cuda", "--steps",
-                                     str(TRAIN_STEPS), "--out", path])
+                                     str(TRAIN_STEPS), "--out", path,
+                                     "compute_dtype", dtype])
     torch.cuda.synchronize()
     counts = kernels.launch_counts()
     peak = torch.cuda.max_memory_allocated() / 2**30
@@ -944,12 +1258,15 @@ def phase_train(card: str, path: str):
               f"train: {n} has a non-finite gradient")
         check(not torch.equal(p.detach().cpu(), init[n].detach()),
               f"train: {n} did not move")
-    check(counts["dparf"] >= TRAIN_STEPS and
-          counts["dfeat_scatter"] >= 2 * TRAIN_STEPS and
-          counts["feature_gather"] >= 2 * TRAIN_STEPS,
-          f"train: K2 / K3 / K4 not launched on every step: {counts}")
+    f = forms(dtype)
+    check_launches(f"train ({dtype}): K2 / K3 / K4 on every step", counts,
+                   {f["dparf"]: TRAIN_STEPS, f["scatter"]: 2 * TRAIN_STEPS,
+                    f["fetch"]: 2 * TRAIN_STEPS})
+    check(state.model.compute_dtype == COMPUTE[dtype],
+          f"train: the model computes in {state.model.compute_dtype}")
     # the checkpoint serves
-    scfg = Config().merge_opts(["H", "128", "W", "128"])
+    scfg = Config().merge_opts(["H", "128", "W", "128",
+                                "compute_dtype", dtype])
     model, pipe, smpl, _ = build_runtime(scfg, "cuda")
     load_checkpoint_file(model, path)
     frame, _, _ = synthetic_scene(image_hw=(64, 64))
@@ -957,21 +1274,25 @@ def phase_train(card: str, path: str):
     check(all(np.isfinite(v).all() for v in out.values()),
           "train: the trained checkpoint renders non-finite values")
     times = [r["step_s"] * 1e3 for r in records]
+    label = "7 train" if dtype == "float32" else "13 bf16 train"
     for r in records:
-        log(f"[7 train] step {r['step']}: loss {r['loss']:.6f}, lr "
+        log(f"[{label}] step {r['step']}: loss {r['loss']:.6f}, lr "
             f"{r['lr']:.4g}, {r['step_s'] * 1e3:.1f} ms (data "
             f"{r['data_s'] * 1e3:.1f} ms)  [{card}]")
-    log(f"[7 train] full width, 3 views 512x512, 2400 rays x 64 samples: "
+    log(f"[{label}] full width in {dtype}, 3 views 512x512, 2400 rays x 64 "
+        f"samples: "
         f"median step {float(np.median(times[1:])):.1f} ms over steps "
         f"1-{len(times) - 1}; launches {counts}; peak device memory "
         f"{peak:.3f} GiB; checkpoint served at 64x64  [{card}]")
     return counts
 
 
-def phase_eval_parity(card: str):
+def phase_eval_parity(card: str, dtype: str = "float32", ref=None):
     """evaluate_frames over 2 frames of the synthetic scene at 64x64 with
-    the full-width model, on the card and on the CPU (plain versions), the
-    same seeded weights: per-frame rgb and metrics."""
+    the full-width model in the compute dtype, on the card and on the CPU
+    (plain versions), the same seeded weights: per-frame rgb and metrics;
+    in bf16 also against ref (the CPU's float32 frames, this phase's
+    float32 result).  Returns the CPU frames."""
     from transhuman_tpu_torch.cli.common import build_runtime
     from transhuman_tpu_torch.cli.run import evaluate_frames
     from transhuman_tpu_torch.config import Config
@@ -980,7 +1301,8 @@ def phase_eval_parity(card: str):
     from transhuman_tpu_torch.testing import init_weights
 
     cfg = Config().merge_opts(["H", "128", "W", "128",
-                               "test.frame_interval", "4"])
+                               "test.frame_interval", "4",
+                               "compute_dtype", dtype])
     data = SyntheticDataset(cfg, "test", image_hw=(64, 64))
     runs = {}
     for dev in ("cuda", "cpu"):
@@ -1004,7 +1326,12 @@ def phase_eval_parity(card: str):
     (fg, pipe_g), (fc, _) = runs["cuda"], runs["cpu"]
     check(len(fg) == len(fc) == 2, f"eval parity: {len(fg)} / {len(fc)} "
           "frames, want 2")
-    for (i, rgb_g, psnr_g, ssim_g), (_, rgb_c, psnr_c, ssim_c) in zip(fg, fc):
+    bf16 = dtype == "bfloat16"
+    rgb_tol, psnr_tol, ssim_tol = ((BF16_RGB_TOL, BF16_PSNR_TOL, 5e-3)
+                                   if bf16 else (2e-3, 0.05, 2e-3))
+    label = "12 bf16 eval parity" if bf16 else "8 eval parity"
+    for j, ((i, rgb_g, psnr_g, ssim_g), (_, rgb_c, psnr_c, ssim_c)) in \
+            enumerate(zip(fg, fc)):
         item = data.get_eval_item(i)
         bad = _unstable_rays(pipe_g, item.frame.to("cuda"),
                              item.eval_rays.rays.to("cuda"))
@@ -1015,33 +1342,43 @@ def phase_eval_parity(card: str):
         # the synthetic body puts 86 of 799 (10.8%); fewer than 15% may be
         # excluded.  PSNR and SSIM take every ray: 2e-3 on each colour moves
         # an MSE of ~0.1 by <= 2e-3 * 2 * 0.3 (the mean |error|) + 4e-6,
-        # ~0.05 dB; SSIM's windows move by the same order, so 2e-3
+        # ~0.05 dB; SSIM's windows move by the same order, so 2e-3 (in bf16
+        # the limits of phase 12's render, and SSIM 5e-3)
         check(bad.mean() < 0.15,
               f"eval parity f{i}: {int(bad.sum())} of {bad.size} rays at a "
               "near-tie, 15% or more")
-        check(err <= 2e-3, f"eval parity f{i}: max |d rgb| {err} > 2e-3")
-        check(d_psnr <= 0.05 and d_ssim <= 2e-3,
+        check(err <= rgb_tol, f"eval parity f{i}: max |d rgb| {err} > "
+              f"{rgb_tol}")
+        check(d_psnr <= psnr_tol and d_ssim <= ssim_tol,
               f"eval parity f{i}: |d psnr| {d_psnr}, |d ssim| {d_ssim}")
-        log(f"[8 eval parity] 64x64 full-width frame {i}, CUDA vs CPU: max "
-            f"|d rgb| {err:.3g} over {int((~bad).sum())} rays "
+        extra = ""
+        if bf16:
+            a, b = _closer(f"bf16 eval parity f{i}", rgb_g[~bad], rgb_c[~bad],
+                           ref[j][1][~bad])
+            extra = f"; mean |d rgb| {a:.3g} vs CPU bf16 - float32 {b:.3g}"
+        log(f"[{label}] 64x64 full-width frame {i} in {dtype}, CUDA vs CPU: "
+            f"max |d rgb| {err:.3g} over {int((~bad).sum())} rays "
             f"({int(bad.sum())} of {bad.size}, {100 * bad.mean():.1f}%, at a "
             f"near-tie excluded); psnr {psnr_g:.6f} "
-            f"vs {psnr_c:.6f}, ssim {ssim_g:.6f} vs {ssim_c:.6f}  [{card}]")
+            f"vs {psnr_c:.6f}, ssim {ssim_g:.6f} vs {ssim_c:.6f}{extra}  "
+            f"[{card}]")
+    return fc
 
 
-def phase_eval(card: str, ckpt: str, tmp: str):
-    """The run entry point at full width on the train phase's checkpoint:
-    --type evaluate over EVAL_FRAMES frames at 512x512 (counters reset just
-    before, read just after), then --type visualize over 2 frames; the
-    files they write are checked."""
+def phase_eval(card: str, ckpt: str, tmp: str, dtype: str = "float32"):
+    """The run entry point at full width on the train phase's checkpoint,
+    in the compute dtype: --type evaluate over EVAL_FRAMES frames at
+    512x512 (counters reset just before, read just after); in float32 then
+    the gather A/B and --type visualize over 2 frames; the files they write
+    are checked."""
     from transhuman_tpu_torch import kernels
     from transhuman_tpu_torch.cli import run as run_cli
     from transhuman_tpu_torch.config import Config
     from transhuman_tpu_torch.data.synthetic import SyntheticDataset
 
-    res = os.path.join(tmp, "result")
+    res = os.path.join(tmp, f"result_{dtype}")
     opts = ["result_dir", res, "test.frame_interval",
-            str(8 // EVAL_FRAMES)]
+            str(8 // EVAL_FRAMES), "compute_dtype", dtype]
     cfg = Config().merge_opts(opts)
     data = SyntheticDataset(cfg, "test", image_hw=(512, 512))
     ray_ms = []
@@ -1085,9 +1422,9 @@ def phase_eval(card: str, ckpt: str, tmp: str):
     check(len(stamps) == EVAL_FRAMES, f"evaluate: {len(stamps)} frames")
     check(np.isfinite(summary["psnr"]) and np.isfinite(summary["ssim"]),
           f"evaluate: summary {summary}")
-    for name in ("min_excess2", "dparf", "feature_gather"):
-        check(counts[name] > 0, f"evaluate: kernel {name} was not launched")
-    check(counts["dfeat_scatter"] == 0, "evaluate: a backward kernel ran")
+    f = forms(dtype)
+    check_launches(f"evaluate ({dtype})", counts,
+                   {"min_excess2": 1, f["dparf"]: 1, f["fetch"]: 1})
     out_dir = os.path.join(res, "epoch_-1", "debug")
     files = {os.path.relpath(os.path.join(d, f), out_dir)
              for d, _, fs in os.walk(out_dir) for f in fs}
@@ -1104,7 +1441,8 @@ def phase_eval(card: str, ckpt: str, tmp: str):
     # between two frames' metrics lie one render and one frame's host
     # work; after the last render only the host work is left
     cadence = np.diff(stamps)[:-1] * 1e3
-    log(f"[9 evaluate] full width, {EVAL_FRAMES} frames of 512x512 "
+    label = "9 evaluate" if dtype == "float32" else "13 bf16 evaluate"
+    log(f"[{label}] full width in {dtype}, {EVAL_FRAMES} frames of 512x512 "
         f"({n_rays} rays x 64 samples each): psnr "
         f"{summary['psnr']:.4f}, ssim {summary['ssim']:.4f}; render "
         f"{', '.join(f'{x:.1f}' for x in render_ms)} ms per frame; "
@@ -1114,6 +1452,8 @@ def phase_eval(card: str, ckpt: str, tmp: str):
         f"eval rays {', '.join(f'{x:.1f}' for x in ray_ms)} ms per frame; "
         f"launches {counts}; peak device memory {peak:.3f} GiB; "
         f"{len(files)} files written  [{card}]")
+    if dtype != "float32":
+        return counts
 
     gather_ab(card, cfg, data, ckpt)
 
@@ -1293,13 +1633,15 @@ def phase_recon_parity(card: str):
         f"{v_err:.3g} m  [{card}]")
 
 
-def phase_reconstruction(card: str, ckpt: str, tmp: str):
-    """The run entry point at full width on phase 7's checkpoint: --type
-    reconstruction at voxel_size RECON_VOXEL over the synthetic body's box,
-    with mesh_th a low quantile of a first sigma pass's survivors (a 5-step
-    checkpoint's sigma does not reach the default 20), counters reset just
-    before and read just after, the sigma pass, the marching and the PLY
-    write timed apart; then --type light_stage on the written mesh."""
+def phase_reconstruction(card: str, ckpt: str, tmp: str,
+                         dtype: str = "float32"):
+    """The run entry point at full width on the train phase's checkpoint,
+    in the compute dtype: --type reconstruction at voxel_size RECON_VOXEL
+    over the synthetic body's box, with mesh_th a low quantile of a first
+    sigma pass's survivors (a 5-step checkpoint's sigma does not reach the
+    default 20), counters reset just before and read just after, the sigma
+    pass, the marching and the PLY write timed apart; in float32 also K1
+    over the whole grid and then --type light_stage on the written mesh."""
     import warnings
 
     from transhuman_tpu_torch import kernels
@@ -1312,9 +1654,11 @@ def phase_reconstruction(card: str, ckpt: str, tmp: str):
     from transhuman_tpu_torch.tools import voxelize_mesh
     from transhuman_tpu_torch.weights import load_checkpoint_file
 
-    res = os.path.join(tmp, "result")
+    res = os.path.join(tmp, f"result_{dtype}")
     vs = f"{RECON_VOXEL},{RECON_VOXEL},{RECON_VOXEL}"
-    cfg = Config().merge_opts(["voxel_size", vs])
+    label = ("11 reconstruction" if dtype == "float32"
+             else "13 bf16 reconstruction")
+    cfg = Config().merge_opts(["voxel_size", vs, "compute_dtype", dtype])
     data = SyntheticDataset(cfg, "test", image_hw=(512, 512))
     frame, bounds, _ = data.get_mesh_item(0)
     grid = reconstruct.make_grid(bounds, cfg.voxel_size)
@@ -1346,14 +1690,17 @@ def phase_reconstruction(card: str, ckpt: str, tmp: str):
     qs = (0.0, 0.001, 0.01, 0.5, 0.99, 1.0)
     qv = np.quantile(sig[sig != 0], qs)
     mesh_th = float(qv[1])
-    log(f"[11 reconstruction] grid {'x'.join(map(str, grid.shape[:3]))} = "
+    check(sigma.dtype == torch.float32, f"reconstruction: sigma {sigma.dtype}")
+    log(f"[{label}] grid {'x'.join(map(str, grid.shape[:3]))} = "
         f"{st['points']} points at {RECON_VOXEL} m, survivor fraction "
         f"{st['survivors'] / st['points']:.4f} ({n_chunks} chunks); sigma "
         f"pass {first_ms:.1f} ms with {syncs} host sync(s); survivors' sigma "
         f"quantiles {dict(zip(qs, (round(float(x), 4) for x in qv)))}; "
         f"mesh_th {mesh_th:.6g} (the 0.001 quantile)  [{card}]")
-    k1_grid = check_cull_grid(card, frame_d, pts, pipe.cull_distance,
-                              st["survivors"])
+    k1_grid = None
+    if dtype == "float32":
+        k1_grid = check_cull_grid(card, frame_d, pts, pipe.cull_distance,
+                                  st["survivors"])
     del model, pipe, sigma, pts, frame_d
 
     stages = {"sigma": [], "march": [], "ply": []}
@@ -1382,8 +1729,8 @@ def phase_reconstruction(card: str, ckpt: str, tmp: str):
     try:
         paths = run_cli.main(["--type", "reconstruction", "--device", "cuda",
                               "--weights", ckpt, "result_dir", res,
-                              "voxel_size", vs, "mesh_th", repr(mesh_th)],
-                             dataset=data)
+                              "voxel_size", vs, "mesh_th", repr(mesh_th),
+                              "compute_dtype", dtype], dataset=data)
     finally:
         RenderPipeline.render_sigma = sig_fn
         reconstruct.marching_tetrahedra, ply.save_ply = march_fn, ply_fn
@@ -1403,16 +1750,20 @@ def phase_reconstruction(card: str, ckpt: str, tmp: str):
           f"{len(tris)} triangles")
     # one K1 launch over the grid; per chunk of survivors one K4 and one K2
     # launch; one more K4 launch for the painting fetch
-    want = {"min_excess2": 1, "dparf": n_chunks,
-            "feature_gather": n_chunks + 1, "dfeat_scatter": 0}
+    f = forms(dtype)
+    want = dict.fromkeys(counts, 0)
+    want.update({"min_excess2": 1, f["dparf"]: n_chunks,
+                 f["fetch"]: n_chunks + 1})
     check(counts == want, f"reconstruction: launches {counts}, want {want}")
     size = os.path.getsize(paths[0]) / 2**20
-    log(f"[11 reconstruction] cli.run --type reconstruction: sigma pass "
+    log(f"[{label}] cli.run --type reconstruction in {dtype}: sigma pass "
         f"{stages['sigma'][0]:.1f} ms, marching {stages['march'][0]:.1f} ms, "
         f"PLY write {stages['ply'][0]:.1f} ms ({size:.1f} MiB), whole "
         f"command {wall:.2f} s (model build included); {len(verts)} "
         f"vertices, {len(tris)} triangles; launches {counts}; peak device "
         f"memory {peak:.3f} GiB  [{card}]")
+    if dtype != "float32":
+        return counts, k1_grid
 
     vox_fn, vox_ms = voxelize_mesh.voxelize, []
 
@@ -1499,27 +1850,41 @@ def main() -> int:
     card = phase_device()
     phase_build()
     kernels = phase_kernels(card)
-    phase_parity(card)
+    render32 = phase_parity(card)
     serve_counts = phase_serve(card)
-    phase_train_parity(card)
+    step32 = phase_train_parity(card)
     tmp = tempfile.mkdtemp(prefix="thp_smoke_")
     try:
         ckpt = os.path.join(tmp, "latest.pth")
         train_counts = phase_train(card, ckpt)
-        phase_eval_parity(card)
+        eval32 = phase_eval_parity(card)
         eval_counts = phase_eval(card, ckpt, tmp)
         phase_recon_parity(card)
         recon_counts, k1_grid = phase_reconstruction(card, ckpt, tmp)
+        # bf16: parity against the CPU, then every path at full width
+        phase_parity(card, "bfloat16", render32)
+        phase_train_parity(card, "bfloat16", step32)
+        phase_eval_parity(card, "bfloat16", eval32)
+        by_path = {"serve": serve_counts, "train": train_counts,
+                   "eval": eval_counts, "reconstruction": recon_counts}
+        ckpt16 = os.path.join(tmp, "latest_bf16.pth")
+        by_path["serve_bf16"] = phase_serve(card, "bfloat16")
+        by_path["train_bf16"] = phase_train(card, ckpt16, "bfloat16")
+        by_path["eval_bf16"] = phase_eval(card, ckpt16, tmp, "bfloat16")
+        by_path["reconstruction_bf16"] = phase_reconstruction(
+            card, ckpt16, tmp, "bfloat16")[0]
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
-    by_path = {"serve": serve_counts, "train": train_counts,
-               "eval": eval_counts, "reconstruction": recon_counts}
     for k in kernels:
-        # launches: the count of this slice's path, reconstruction, for the
-        # render kernels; K3 runs on the train path only
+        # launches: the count of this slice's path, reconstruction in the
+        # kernel's dtype (bf16 for the bf16 forms), for the render kernels;
+        # K3 runs on the train path only
         name = k["name"]
-        k["launches"] = (train_counts if name == "dfeat_scatter"
-                         else recon_counts)[name]
+        path = ("train" if name.startswith("dfeat_scatter")
+                else "reconstruction")
+        if name.endswith("_bf16"):
+            path += "_bf16"
+        k["launches"] = by_path[path][name]
         k["launches_by_path"] = {p: c[name] for p, c in by_path.items()}
         if name == "min_excess2":
             # K1's one launch on this path covers the whole grid: its numbers

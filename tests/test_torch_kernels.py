@@ -59,7 +59,9 @@ def test_wrappers_refuse_cpu_tensors():
                                    torch.zeros(1, 4, 2), (16, 16))
     assert kernels.launch_counts() == {"min_excess2": 0, "dparf": 0,
                                        "dfeat_scatter": 0,
-                                       "feature_gather": 0}
+                                       "feature_gather": 0, "dparf_bf16": 0,
+                                       "dfeat_scatter_bf16": 0,
+                                       "feature_sample_bf16": 0}
 
 
 def test_kernel_ab_inputs_are_seeded_and_it_needs_a_card(monkeypatch):
@@ -489,3 +491,181 @@ def test_sample_feature_map_forward_is_one_launch_without_a_sync(cuda):
         assert gather.feature_gather_cuda.launches == n0 + 1
         assert out.requires_grad == grad
         torch.testing.assert_close(out.detach(), want, atol=1e-5, rtol=0)
+
+
+# --------------------------------------------------------------- bf16 forms
+BF16 = torch.bfloat16
+
+
+def test_bf16_forms_refuse_cpu_tensors():
+    before = kernels.launch_counts()
+    x = torch.zeros(4, 3)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        dparf.dparf_bf16_cuda(x, x, torch.zeros(4, 3, 3),
+                              torch.zeros(1, 4, 8, dtype=BF16))
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        scatter.dfeat_scatter_bf16_cuda(
+            torch.zeros(1, 4, dtype=torch.int32),
+            torch.zeros(1, 4, 8, dtype=BF16), torch.zeros(1, 4, 4), 64, 1, 8)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        gather.feature_sample_bf16_cuda(torch.zeros(1, 8, 8, 8, dtype=BF16),
+                                        torch.zeros(1, 4, 2), (16, 16))
+    assert kernels.launch_counts() == before
+
+
+@pytest.mark.cuda
+def test_each_entry_refuses_the_other_dtype(cuda):
+    """A bf16 tensor handed to a float32-only entry, and a float32 one to a
+    bf16 form, is a TypeError, not a launch."""
+    before = kernels.launch_counts()
+    pts, centers, rot, tokens = _dparf_inputs(64, 20, 2, 16, cuda)
+    ids, g, w4 = _scatter_inputs("uniform", 2, 64, 8, cuda)
+    feat = _rand((2, 64, 64, 8), 12, 1.0, cuda)
+    uv = torch.zeros((2, 16, 2), device=cuda)
+    with pytest.raises(TypeError, match="float32"):
+        cull.min_excess2_cuda(pts.to(BF16), centers,
+                              torch.zeros(20, device=cuda))
+    with pytest.raises(TypeError, match="float32"):
+        dparf.dparf_cuda(pts, centers, rot, tokens.to(BF16))
+    with pytest.raises(TypeError, match="bfloat16"):
+        dparf.dparf_bf16_cuda(pts, centers, rot, tokens)
+    with pytest.raises(TypeError, match="float32"):
+        dparf.dparf_bf16_cuda(pts.to(BF16), centers, rot, tokens.to(BF16))
+    with pytest.raises(TypeError, match="float32"):
+        scatter.dfeat_scatter_cuda(ids, g.to(BF16), w4, HF * WF, 1, WF)
+    with pytest.raises(TypeError, match="bfloat16"):
+        scatter.dfeat_scatter_bf16_cuda(ids, g, w4, HF * WF, 1, WF)
+    with pytest.raises(TypeError, match="float32"):
+        gather.feature_gather_cuda(feat.reshape(2, -1, 8).to(BF16),
+                                   ids[:, :16].contiguous(),
+                                   w4[:, :16].contiguous(), (0, 1, 64, 65))
+    with pytest.raises(TypeError, match="float32"):
+        gather.feature_sample_cuda(feat.to(BF16), uv, SF_IMAGE)
+    with pytest.raises(TypeError, match="bfloat16"):
+        gather.feature_sample_bf16_cuda(feat, uv, SF_IMAGE)
+    assert kernels.launch_counts() == before
+
+
+def _rounded(x):
+    """x rounded to bf16: the bf16 forms' inputs, widened exactly by the
+    float32 oracle."""
+    return x.to(BF16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c, n", [(384, 32768), (192, 6890)])
+def test_feature_sample_bf16_is_the_f32_form_cast(cuda, c, n):
+    """K4's bf16 form at the serve pixel shape (C = 384, a 32,768-point
+    chunk) and the painting shape (C = 192, 6,890 vertices) of 3 512x512
+    maps: feature_sample_cuda on the widened map, then one RNE cast, bit
+    for bit; C = 6 odd widths take the scalar path (below)."""
+    rng = np.random.default_rng(c)
+    feat = _rounded(_rand((3, 512, 512, c), 13, 1.0, cuda))
+    h_img = w_img = 512
+    uv = np.stack([rng.uniform(-8, w_img + 8, (3, n)),
+                   rng.uniform(-8, h_img + 8, (3, n))], axis=-1)
+    uv = torch.from_numpy(uv.astype(np.float32)).to(cuda)
+    n0 = gather.feature_sample_bf16_cuda.launches
+    got = gather.feature_sample(feat, uv, (h_img, w_img))
+    assert gather.feature_sample_bf16_cuda.launches == n0 + 1
+    assert got.dtype == BF16
+    want = gather.feature_sample_cuda(feat.float(), uv,
+                                      (h_img, w_img)).to(BF16)
+    assert torch.equal(got, want)
+    torch.testing.assert_close(
+        got.float(), gather.feature_sample_plain(feat, uv, (h_img,
+                                                            w_img)).float(),
+        atol=2**-7 * float(feat.float().abs().max()), rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c", [6, 8, 20])
+def test_feature_sample_bf16_scalar_and_odd_widths(cuda, c):
+    """Widths that are not a multiple of the 8-channel word (6, 20) take
+    the scalar path; 8 is one word; maps one texel wide or tall too."""
+    for hf, wf in ((64, 80), (64, 1), (1, 80)):
+        rng = np.random.default_rng(hf + wf + c)
+        feat = _rounded(_rand((3, hf, wf, c), 14, 1.0, cuda))
+        uv = torch.from_numpy(_sampling_uv(rng, N_SCATTER, hf, wf)).to(cuda)
+        got = gather.feature_sample_bf16_cuda(feat, uv, SF_IMAGE)
+        want = gather.feature_sample_cuda(feat.float(), uv, SF_IMAGE)
+        assert torch.equal(got, want.to(BF16)), (hf, wf)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tag, n, c", [("pixel", 153600, 384),
+                                       ("paint", 6890, 192)])
+def test_dfeat_scatter_bf16_is_the_f32_form_cast(cuda, tag, n, c):
+    """K3's bf16 form at both train shapes (3 512x512 maps; the pixel
+    fetch's 153,600 points of 384 channels, the painting fetch's 6,890 of
+    192): the float32 form on the widened rows, then one RNE cast, bit for
+    bit; two calls give the same bits."""
+    rng = np.random.default_rng(n)
+    hw, wf = 512 * 512, 512
+    # clustered base ids, as a train batch's (~30 points per touched texel)
+    ids = np.stack([np.repeat(rng.integers(0, hw - wf - 2, -(-n // 30)),
+                              30)[:n] for _ in range(3)])
+    wx, wy = rng.random((2, 3, n)).astype(np.float32)
+    w4 = np.stack([(1 - wx) * (1 - wy), wx * (1 - wy), (1 - wx) * wy,
+                   wx * wy], axis=-1)
+    ids = torch.from_numpy(ids.astype(np.int32)).to(cuda)
+    w4 = torch.from_numpy(w4).to(cuda)
+    g = _rounded(_rand((3, n, c), 15, 1.0, cuda))
+    n0 = scatter.dfeat_scatter_bf16_cuda.launches
+    got = scatter.dfeat_scatter(ids, g, w4, hw, 1, wf)
+    assert scatter.dfeat_scatter_bf16_cuda.launches == n0 + 1
+    assert got.dtype == BF16
+    again = scatter.dfeat_scatter_bf16_cuda(ids, g, w4, hw, 1, wf)
+    want = scatter.dfeat_scatter_cuda(ids, g.float(), w4, hw, 1, wf)
+    assert torch.equal(got, want.to(BF16))
+    assert torch.equal(got, again)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c", [6, 8])
+def test_dfeat_scatter_bf16_tap_layouts(cuda, c):
+    """The bf16 form on T7's taps and the 4-tap layouts of the float32
+    tests, scalar (C = 6) and one word (C = 8) wide."""
+    ids, g, w4 = _scatter_inputs("clustered", 2, N_SCATTER, c, cuda)
+    g = _rounded(g)
+    for dx, dy in ((1, WF), (1, 2), (0, WF), (1, 0)):
+        got = scatter.dfeat_scatter_bf16_cuda(ids, g, w4, HF * WF, dx, dy)
+        want = scatter.dfeat_scatter_cuda(ids, g.float(), w4, HF * WF, dx,
+                                          dy)
+        assert torch.equal(got, want.to(BF16)), (dx, dy)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [7, 4, 1])
+@pytest.mark.parametrize("d", [192, 20])
+def test_dparf_bf16_is_the_f32_form_cast(cuda, k, d):
+    """K2 with bf16 tokens at the render chunk (32,768 points, C = 300,
+    V = 3, D = 192) and D = 20 (the scalar path): tok is the float32 form's
+    on the widened tokens cast once, and pe, dist, idx and w are its
+    outputs, bit for bit."""
+    n = 32768 if d == 192 else 1000
+    pts, centers, rot, tokens = _dparf_inputs(n, 300, 3, d, cuda)
+    tokens = _rounded(tokens)
+    n0 = dparf.dparf_bf16_cuda.launches
+    got = dparf.dparf(pts, centers, rot, tokens, k=k)
+    assert dparf.dparf_bf16_cuda.launches == n0 + 1
+    want = dparf.dparf_cuda(pts, centers, rot, tokens.float(), k=k)
+    assert got[0].dtype == BF16
+    assert torch.equal(got[0], want[0].to(BF16))
+    for a, b in zip(got[1:], want[1:]):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_dparf_bf16_token_gradient_is_float32_summed(cuda):
+    """The token gradient of bf16 tokens: the float32 gradient of the
+    widened tokens cast once."""
+    pts, centers, rot, tokens = _dparf_inputs(4096, 300, 3, 192, cuda)
+    g = _rounded(_rand((3, 4096, 192), 16, 1.0, cuda))
+    t16 = _rounded(tokens).requires_grad_(True)
+    (dparf.dparf(pts, centers, rot, t16, k=7)[0].float() * g.float()
+     ).sum().backward()
+    t32 = _rounded(tokens).float().requires_grad_(True)
+    (dparf.dparf(pts, centers, rot, t32, k=7)[0] * g.float()).sum().backward()
+    assert t16.grad.dtype == BF16
+    assert torch.equal(t16.grad, t32.grad.to(BF16))

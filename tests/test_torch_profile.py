@@ -5,6 +5,7 @@ import json
 import os
 
 import pytest
+import torch
 
 from transhuman_tpu_torch.cli import train as train_cli
 from transhuman_tpu_torch.train.profile import (
@@ -93,3 +94,16 @@ def test_train_cli_writes_the_profile_window(tmp_path):
         if e.get("cat") == "user_annotation"]
     for phase in ("forward", "backward", "optimizer"):
         assert names.count(f"train_step.{phase}") == 4
+
+
+def test_profile_render_needs_a_card(monkeypatch):
+    """The render profiler times and traces the card only: without one it
+    stops before building anything; its summary takes its own host range."""
+    from transhuman_tpu_torch.tools import profile_render
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(SystemExit, match="needs a CUDA card"):
+        profile_render.main(["--compute_dtype", "bfloat16"])
+    s = summarize_trace(_trace(), wall_ms=0.1, steps=1,
+                        phases=("train_step.forward",))
+    assert set(s["phases"]) == {"forward"}

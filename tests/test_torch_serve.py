@@ -106,7 +106,9 @@ def test_render_matches_the_jax_service(renders):
 def test_cpu_render_never_launches_a_cuda_kernel(scene, renders):
     assert kernels.launch_counts() == {"min_excess2": 0, "dparf": 0,
                                        "dfeat_scatter": 0,
-                                       "feature_gather": 0}
+                                       "feature_gather": 0, "dparf_bf16": 0,
+                                       "dfeat_scatter_bf16": 0,
+                                       "feature_sample_bf16": 0}
     assert not kbuild.loaded()
     pipe = scene[1].pipe
     x = torch.zeros(4, 3)

@@ -8,11 +8,30 @@ import os
 import sys
 from typing import Optional
 
+import torch
+
 from ..config import Config
 from ..geometry.clusters import ClusterSpec
 from ..geometry.smpl import SMPLModel
 from ..models.network import TransHumanNet
 from ..render.pipeline import RenderPipeline
+
+
+def configure_device(name: str) -> torch.device:
+    """The device an entry point runs on.  For a card: fail without one,
+    and take float32 products and convolutions in full float32 (TF32 off;
+    cuDNN convolutions default to TF32) and bf16 products with float32
+    accumulation (cuBLAS may otherwise reduce them in bf16, which XLA does
+    not)."""
+    device = torch.device(name)
+    if device.type == "cuda":
+        if not torch.cuda.is_available():
+            raise SystemExit("--device cuda, but no CUDA device is available")
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = (
+            False)
+    return device
 
 
 def load_smpl(cfg: Config) -> SMPLModel:

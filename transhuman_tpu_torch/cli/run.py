@@ -19,7 +19,8 @@ extracts each frame's mesh (``mesh_ops.reconstruct.extract_mesh`` at
 ``voxel_size``, iso-level ``mesh_th``) and writes it as
 ``mesh/<human>_frame<index>.ply``.  They run on the card (``--device
 cuda``, the default; without a card that is an error) with TF32 off, or on
-the CPU with ``--device cpu``.  ``light_stage`` voxelizes the mesh
+the CPU with ``--device cpu``, in the network's ``compute_dtype`` (float32
+or bfloat16).  ``light_stage`` voxelizes the mesh
 ``--ply`` into an occupancy volume (``tools/voxelize_mesh.py`` at
 ``voxel_size[0]``; default output ``<ply>.occupancy.npy``) on the host: it
 needs no card and no checkpoint.
@@ -40,7 +41,6 @@ import os
 import sys
 
 import numpy as np
-import torch
 
 from ..config import Config
 from ..data.loader import Loader
@@ -184,17 +184,17 @@ def main(argv=None, dataset=None, per_frame=None):
     reconstruction: the PLY paths; light_stage: the occupancy path.
     dataset replaces make_dataset's; per_frame goes to evaluate_frames."""
     from ..weights import load_checkpoint_file
-    from .common import build_runtime, checkpoint_path, make_dataset
+    from .common import (
+        build_runtime,
+        checkpoint_path,
+        configure_device,
+        make_dataset,
+    )
 
     args, cfg = parse_args(argv)
     if args.type == "light_stage":
         return run_light_stage(cfg, args.ply, args.occupancy_out)
-    device = torch.device(args.device)
-    if device.type == "cuda":
-        if not torch.cuda.is_available():
-            raise SystemExit("--device cuda, but no CUDA device is available")
-        torch.backends.cuda.matmul.allow_tf32 = False
-        torch.backends.cudnn.allow_tf32 = False
+    device = configure_device(args.device)
     path = checkpoint_path(cfg, args.weights)
     if dataset is None:
         dataset = make_dataset(cfg, "test")

@@ -12,9 +12,11 @@ step, and a reference-layout ``.pth`` at the end that
 overrides are ``key value`` pairs as the serve entry point takes them.
 It runs on the card (``--device cuda``, the default; without a card that is
 an error) with the float32 math in full precision (TF32 off), or on the CPU
-with ``--device cpu``.  With ``profile_dir DIR`` the steady-state window of
-steps 5-8 (fewer in a short run) runs under torch.profiler; its chrome trace
-and a device-time summary (``train/profile.py``) go to DIR.
+with ``--device cpu``; ``compute_dtype bfloat16`` trains the bf16 network
+(float32 parameters, gradients and optimizer).  With ``profile_dir DIR``
+the steady-state window of steps 5-8 (fewer in a short run) runs under
+torch.profiler; its chrome trace and a device-time summary
+(``train/profile.py``) go to DIR.
 """
 
 from __future__ import annotations
@@ -35,7 +37,7 @@ from ..testing import init_weights
 from ..train.checkpoint import save_checkpoint
 from ..train.profile import format_summary, load_trace, summarize_trace
 from ..train.step import TrainState, make_optimizer, make_train_step
-from .common import build_runtime
+from .common import build_runtime, configure_device
 
 
 def parse_args(argv=None):
@@ -107,12 +109,7 @@ def main(argv=None):
     """Returns (state, records): records holds one dict per step (losses,
     lr, step seconds)."""
     args, cfg = parse_args(argv)
-    device = torch.device(args.device)
-    if device.type == "cuda":
-        if not torch.cuda.is_available():
-            raise SystemExit("--device cuda, but no CUDA device is available")
-        torch.backends.cuda.matmul.allow_tf32 = False
-        torch.backends.cudnn.allow_tf32 = False
+    device = configure_device(args.device)
     state, step_fn, dataset, _ = build_trainer(cfg, device)
     steps = args.steps or cfg.train.epoch * cfg.ep_iter
     # the JAX CLI's steady-state window: steps 5-8 of the first epoch,

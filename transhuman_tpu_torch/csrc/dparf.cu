@@ -83,11 +83,135 @@ size_t smem_bytes(int c) {
          WARPS * MAX_K * (8 + 4 + 4);
 }
 
+// Step 5 for one point: lane l writes words l, l + 32, ... of the point's
+// (V, D) rows, each word the K token rows' words at its column (all K loads
+// in flight before the first fmaf), summed in neighbour order.
 template <bool VEC>
+__device__ void token_sum(const float* __restrict__ tokens,
+                          float* __restrict__ tok, const int* s_nb,
+                          const float* s_w, int i, int n, int c, int v,
+                          int d, int k, int lane) {
+  if (VEC) {
+    const int d4 = d >> 2;
+    const float4* t4 = reinterpret_cast<const float4*>(tokens);
+    float4* o4 = reinterpret_cast<float4*>(tok);
+    int vv = 0, col = lane;
+    while (vv < v && col >= d4) {
+      col -= d4;
+      ++vv;
+    }
+    while (vv < v) {
+      const float4* tv = t4 + static_cast<size_t>(vv) * c * d4 + col;
+      // all k loads in flight before the first multiply-add
+      float4 x[MAX_K];
+#pragma unroll
+      for (int q = 0; q < MAX_K; ++q)
+        if (q < k) x[q] = __ldg(tv + static_cast<size_t>(s_nb[q]) * d4);
+      float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+      for (int q = 0; q < MAX_K; ++q) {
+        if (q < k) {
+          const float wq = s_w[q];
+          acc.x = fmaf(wq, x[q].x, acc.x);
+          acc.y = fmaf(wq, x[q].y, acc.y);
+          acc.z = fmaf(wq, x[q].z, acc.z);
+          acc.w = fmaf(wq, x[q].w, acc.w);
+        }
+      }
+      o4[(static_cast<size_t>(vv) * n + i) * d4 + col] = acc;
+      col += 32;
+      while (vv < v && col >= d4) {
+        col -= d4;
+        ++vv;
+      }
+    }
+  } else {
+    int vv = 0, col = lane;
+    while (vv < v && col >= d) {
+      col -= d;
+      ++vv;
+    }
+    while (vv < v) {
+      const float* tv = tokens + static_cast<size_t>(vv) * c * d + col;
+      float x[MAX_K];
+#pragma unroll
+      for (int q = 0; q < MAX_K; ++q)
+        if (q < k) x[q] = __ldg(tv + static_cast<size_t>(s_nb[q]) * d);
+      float acc = 0.f;
+#pragma unroll
+      for (int q = 0; q < MAX_K; ++q)
+        if (q < k) acc = fmaf(s_w[q], x[q], acc);
+      tok[(static_cast<size_t>(vv) * n + i) * d + col] = acc;
+      col += 32;
+      while (vv < v && col >= d) {
+        col -= d;
+        ++vv;
+      }
+    }
+  }
+}
+
+// The bfloat16 token sum: words of 8 channels (VEC) or single channels,
+// widened, summed in float32 in the float32 form's order, narrowed once.
+template <bool VEC>
+__device__ void token_sum(const unsigned short* __restrict__ tokens,
+                          unsigned short* __restrict__ tok, const int* s_nb,
+                          const float* s_w, int i, int n, int c, int v,
+                          int d, int k, int lane) {
+  const int per = VEC ? 8 : 1;  // channels per word
+  const int dw = d / per;
+  int vv = 0, col = lane;
+  while (vv < v && col >= dw) {
+    col -= dw;
+    ++vv;
+  }
+  while (vv < v) {
+    const size_t base = static_cast<size_t>(vv) * c * dw + col;
+    const size_t o = (static_cast<size_t>(vv) * n + i) * dw + col;
+    if (VEC) {
+      const uint4* tv = reinterpret_cast<const uint4*>(tokens) + base;
+      uint4 x[MAX_K];
+#pragma unroll
+      for (int q = 0; q < MAX_K; ++q)
+        if (q < k) x[q] = __ldg(tv + static_cast<size_t>(s_nb[q]) * dw);
+      float acc[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+      for (int q = 0; q < MAX_K; ++q) {
+        if (q < k) {
+          const float wq = s_w[q];
+          float f[8];
+          thp_unpack8(x[q], f);
+#pragma unroll
+          for (int e = 0; e < 8; ++e) acc[e] = fmaf(wq, f[e], acc[e]);
+        }
+      }
+      reinterpret_cast<uint4*>(tok)[o] = thp_pack8(acc);
+    } else {
+      const unsigned short* tv = tokens + base;
+      float x[MAX_K];
+#pragma unroll
+      for (int q = 0; q < MAX_K; ++q)
+        if (q < k)
+          x[q] = thp_bf16_to_f32(__ldg(tv + static_cast<size_t>(s_nb[q]) * d));
+      float acc = 0.f;
+#pragma unroll
+      for (int q = 0; q < MAX_K; ++q)
+        if (q < k) acc = fmaf(s_w[q], x[q], acc);
+      tok[o] = thp_f32_to_bf16(acc);
+    }
+    col += 32;
+    while (vv < v && col >= dw) {
+      col -= dw;
+      ++vv;
+    }
+  }
+}
+
+template <bool VEC, class E>
 __global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
 dparf_kernel(const float* __restrict__ pts, const float* __restrict__ centers,
-             const float* __restrict__ rot, const float* __restrict__ tokens,
-             float* __restrict__ tok, float* __restrict__ pe,
+             const float* __restrict__ rot, const E* __restrict__ tokens,
+             E* __restrict__ tok, float* __restrict__ pe,
              float* __restrict__ dist, int* __restrict__ idx,
              float* __restrict__ wk, int n, int c, int v, int d, int k,
              float alpha) {
@@ -224,78 +348,21 @@ dparf_kernel(const float* __restrict__ pts, const float* __restrict__ centers,
     __syncwarp();  // s_nb and s_w are complete
 
     // 5: the token sum, word w = l, l + 32, ... of the point's (V, D) rows
-    if (VEC) {
-      const int d4 = d >> 2;
-      const float4* t4 = reinterpret_cast<const float4*>(tokens);
-      float4* o4 = reinterpret_cast<float4*>(tok);
-      int vv = 0, col = lane;
-      while (vv < v && col >= d4) {
-        col -= d4;
-        ++vv;
-      }
-      while (vv < v) {
-        const float4* tv = t4 + static_cast<size_t>(vv) * c * d4 + col;
-        // all k loads in flight before the first multiply-add
-        float4 x[MAX_K];
-#pragma unroll
-        for (int q = 0; q < MAX_K; ++q)
-          if (q < k) x[q] = __ldg(tv + static_cast<size_t>(s_nb[q]) * d4);
-        float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
-#pragma unroll
-        for (int q = 0; q < MAX_K; ++q) {
-          if (q < k) {
-            const float wq = s_w[q];
-            acc.x = fmaf(wq, x[q].x, acc.x);
-            acc.y = fmaf(wq, x[q].y, acc.y);
-            acc.z = fmaf(wq, x[q].z, acc.z);
-            acc.w = fmaf(wq, x[q].w, acc.w);
-          }
-        }
-        o4[(static_cast<size_t>(vv) * n + i) * d4 + col] = acc;
-        col += 32;
-        while (vv < v && col >= d4) {
-          col -= d4;
-          ++vv;
-        }
-      }
-    } else {
-      int vv = 0, col = lane;
-      while (vv < v && col >= d) {
-        col -= d;
-        ++vv;
-      }
-      while (vv < v) {
-        const float* tv = tokens + static_cast<size_t>(vv) * c * d + col;
-        float x[MAX_K];
-#pragma unroll
-        for (int q = 0; q < MAX_K; ++q)
-          if (q < k) x[q] = __ldg(tv + static_cast<size_t>(s_nb[q]) * d);
-        float acc = 0.f;
-#pragma unroll
-        for (int q = 0; q < MAX_K; ++q)
-          if (q < k) acc = fmaf(s_w[q], x[q], acc);
-        tok[(static_cast<size_t>(vv) * n + i) * d + col] = acc;
-        col += 32;
-        while (vv < v && col >= d) {
-          col -= d;
-          ++vv;
-        }
-      }
-    }
+    token_sum<VEC>(tokens, tok, s_nb, s_w, i, n, c, v, d, k, lane);
     __syncwarp();  // every lane has read s_nb and s_w before the next point
   }
 }
 
-template <bool VEC>
+template <bool VEC, class E>
 int launch(const float* pts, const float* centers, const float* rot,
-           const float* tokens, float* tok, float* pe, float* dist, int* idx,
+           const E* tokens, E* tok, float* pe, float* dist, int* idx,
            float* wk, int n, int c, int v, int d, int k, float alpha,
            cudaStream_t stream) {
   const size_t smem = smem_bytes(c);
   if (smem > MAX_SMEM) return THP_ERR_SMEM;
   cudaError_t e = cudaSuccess;
   if (smem > 48 * 1024) {
-    e = cudaFuncSetAttribute(dparf_kernel<VEC>,
+    e = cudaFuncSetAttribute(dparf_kernel<VEC, E>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              static_cast<int>(smem));
     if (e != cudaSuccess) return static_cast<int>(e);
@@ -311,7 +378,7 @@ int launch(const float* pts, const float* centers, const float* rot,
     if ((e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
                                     dev)) != cudaSuccess ||
         (e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-             &per_sm, dparf_kernel<VEC>, THREADS, smem)) != cudaSuccess)
+             &per_sm, dparf_kernel<VEC, E>, THREADS, smem)) != cudaSuccess)
       return static_cast<int>(e);
     last_dev = dev;
     last_smem = smem;
@@ -320,10 +387,30 @@ int launch(const float* pts, const float* centers, const float* rot,
   const long long want = (static_cast<long long>(n) + WARPS - 1) / WARPS;
   const int blocks = static_cast<int>(want < last_resident ? want
                                                            : last_resident);
-  dparf_kernel<VEC><<<blocks, THREADS, smem, stream>>>(
+  dparf_kernel<VEC, E><<<blocks, THREADS, smem, stream>>>(
       pts, centers, rot, tokens, tok, pe, dist, idx, wk, n, c, v, d, k,
       alpha);
   return thp_launch_status();
+}
+
+template <class E>
+int dparf_entry(const float* pts, const float* centers, const float* rot,
+                const E* tokens, E* tok, float* pe, float* dist, int* idx,
+                float* w, int n, int c, int v, int d, int k, int n_freqs,
+                float alpha, void* stream) {
+  if (n_freqs != NF) return THP_ERR_BAD_FREQS;
+  if (k < 1 || k > MAX_K) return THP_ERR_BAD_K;
+  if (n < 0 || v < 1 || d < 1 || c < k) return THP_ERR_BAD_SIZE;
+  if (n == 0) return 0;
+  const auto s = static_cast<cudaStream_t>(stream);
+  // 16-byte words: 4 float32 or 8 bf16 channels
+  const bool vec = d % (16 / static_cast<int>(sizeof(E))) == 0 &&
+                   ((reinterpret_cast<uintptr_t>(tokens) |
+                     reinterpret_cast<uintptr_t>(tok)) & 15) == 0;
+  return vec ? launch<true>(pts, centers, rot, tokens, tok, pe, dist, idx, w,
+                            n, c, v, d, k, alpha, s)
+             : launch<false>(pts, centers, rot, tokens, tok, pe, dist, idx,
+                             w, n, c, v, d, k, alpha, s);
 }
 
 }  // namespace
@@ -336,15 +423,21 @@ THP_EXPORT int thp_dparf(const float* pts, const float* centers,
                          float* pe, float* dist, int* idx, float* w, int n,
                          int c, int v, int d, int k, int n_freqs, float alpha,
                          void* stream) {
-  if (n_freqs != NF) return THP_ERR_BAD_FREQS;
-  if (k < 1 || k > MAX_K) return THP_ERR_BAD_K;
-  if (n < 0 || v < 1 || d < 1 || c < k) return THP_ERR_BAD_SIZE;
-  if (n == 0) return 0;
-  const auto s = static_cast<cudaStream_t>(stream);
-  const bool vec = d % 4 == 0 && ((reinterpret_cast<uintptr_t>(tokens) |
-                                   reinterpret_cast<uintptr_t>(tok)) & 15) == 0;
-  return vec ? launch<true>(pts, centers, rot, tokens, tok, pe, dist, idx, w,
-                            n, c, v, d, k, alpha, s)
-             : launch<false>(pts, centers, rot, tokens, tok, pe, dist, idx,
-                             w, n, c, v, d, k, alpha, s);
+  return dparf_entry(pts, centers, rot, tokens, tok, pe, dist, idx, w, n, c,
+                     v, d, k, n_freqs, alpha, stream);
+}
+
+// As thp_dparf with tokens and tok bfloat16 (raw 16-bit words): the token
+// sum is taken in float32 in thp_dparf's order and narrowed once, so tok is
+// thp_dparf's tok on the widened tokens, cast; pe, dist, idx and w are its
+// outputs bit for bit.
+THP_EXPORT int thp_dparf_bf16(const float* pts, const float* centers,
+                              const float* rot, const void* tokens, void* tok,
+                              float* pe, float* dist, int* idx, float* w,
+                              int n, int c, int v, int d, int k, int n_freqs,
+                              float alpha, void* stream) {
+  return dparf_entry(pts, centers, rot,
+                     static_cast<const unsigned short*>(tokens),
+                     static_cast<unsigned short*>(tok), pe, dist, idx, w, n,
+                     c, v, d, k, n_freqs, alpha, stream);
 }

@@ -42,6 +42,16 @@
 // - the output leaves through streaming stores (st.global.cs), which do not
 //   evict the hot tap rows from L2.
 // No shared memory: nothing is reused within a block beyond what L1 holds.
+//
+// The bfloat16 form of the sampling form (thp_feature_sample_bf16) reads a
+// bf16 map and writes bf16 rows: half the bytes each way, so its bound is
+// half the float32 form's.  It forms the same taps and float32 weights,
+// widens each tap word (8 channels in 16 bytes) to float32, sums in the
+// float32 form's order and narrows once (round to nearest even): its rows
+// are the float32 form's on the widened map, cast, bit for bit.  It keeps
+// float32 weights where the JAX package's bf16 sampler rounds them to bf16
+// and lerps in bf16: more exact, and the reason the bit-equal oracle
+// exists.
 #include <cstdint>
 
 #include "common.cuh"
@@ -51,6 +61,7 @@ namespace {
 constexpr int THREADS = 256;  // 8 warps
 constexpr int WARPS = THREADS / 32;
 constexpr int QW = 3;         // words per lane per chunk: C = 384 in one
+constexpr int QWB = 2;        // bf16 words (8 channels) per lane: C = 384
 constexpr int SPAN = 6 * WARPS;  // rows per block: 6 per warp
 constexpr int MIN_BLOCKS = 3;    // per SM: at most 85 registers a thread
 
@@ -148,10 +159,70 @@ __device__ void gather_row(const float* sv, int id, const float* wt,
   }
 }
 
-template <int T, bool VEC, class Taps>
+// The bfloat16 row: words of 8 channels (VEC) or single channels, widened
+// to float32 and summed as gather_row sums, narrowed once at the store.
+template <int T, bool VEC>
+__device__ void gather_row(const unsigned short* sv, int id, const float* wt,
+                           const int* offs, unsigned short* o, int c,
+                           int lane) {
+  if (!VEC) {
+    for (int q = lane; q < c; q += 32) {
+      float acc = 0.f;
+      if (id >= 0) {
+        float x[T];
+#pragma unroll
+        for (int t = 0; t < T; ++t)
+          x[t] = thp_bf16_to_f32(
+              __ldg(sv + static_cast<size_t>(id + offs[t]) * c + q));
+#pragma unroll
+        for (int t = 0; t < T; ++t) acc = fmaf(wt[t], x[t], acc);
+      }
+      o[q] = thp_f32_to_bf16(acc);
+    }
+    return;
+  }
+  const int nw = c / 8;
+  uint4* ov = reinterpret_cast<uint4*>(o);
+  if (id < 0) {  // a masked point: a zero row, nothing read
+    for (int q = lane; q < nw; q += 32) __stcs(ov + q, make_uint4(0, 0, 0, 0));
+    return;
+  }
+  const uint4* tap[T];
+#pragma unroll
+  for (int t = 0; t < T; ++t)
+    tap[t] = reinterpret_cast<const uint4*>(
+        sv + static_cast<size_t>(id + offs[t]) * c);
+  for (int q0 = lane; q0 < nw; q0 += 32 * QWB) {
+    uint4 x[T][QWB];
+#pragma unroll
+    for (int k = 0; k < QWB; ++k) {
+      const int q = q0 + 32 * k;
+#pragma unroll
+      for (int t = 0; t < T; ++t)
+        if (q < nw) x[t][k] = __ldg(tap[t] + q);
+    }
+#pragma unroll
+    for (int k = 0; k < QWB; ++k) {
+      const int q = q0 + 32 * k;
+      if (q < nw) {
+        float acc[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+        for (int t = 0; t < T; ++t) {
+          float f[8];
+          thp_unpack8(x[t][k], f);
+#pragma unroll
+          for (int e = 0; e < 8; ++e) acc[e] = fmaf(wt[t], f[e], acc[e]);
+        }
+        __stcs(ov + q, thp_pack8(acc));
+      }
+    }
+  }
+}
+
+template <int T, bool VEC, class Taps, class E>
 __global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
-feature_gather_kernel(const float* __restrict__ src, Taps taps,
-                      float* __restrict__ out, long long rows, int n, int c,
+feature_gather_kernel(const E* __restrict__ src, Taps taps,
+                      E* __restrict__ out, long long rows, int n, int c,
                       int hw, int4 off) {
   const int lane = threadIdx.x & 31;
   const long long first = static_cast<long long>(blockIdx.x) * SPAN;
@@ -176,27 +247,29 @@ feature_gather_kernel(const float* __restrict__ src, Taps taps,
 }
 
 // One block per span of SPAN contiguous rows.
-template <int T, bool VEC, class Taps>
-int launch(const float* src, Taps taps, float* out, long long rows, int n,
+template <int T, bool VEC, class Taps, class E>
+int launch(const E* src, Taps taps, E* out, long long rows, int n,
            int c, int hw, int4 off, cudaStream_t stream) {
   const long long blocks = (rows + SPAN - 1) / SPAN;
   if (blocks > 0x7fffffffLL) return THP_ERR_BAD_SIZE;
-  feature_gather_kernel<T, VEC, Taps>
+  feature_gather_kernel<T, VEC, Taps, E>
       <<<static_cast<unsigned>(blocks), THREADS, 0, stream>>>(
           src, taps, out, rows, n, c, hw, off);
   return thp_launch_status();
 }
 
-template <int T, class Taps>
-int dispatch(const float* src, Taps taps, float* out, int v, int n, int c,
+template <int T, class Taps, class E>
+int dispatch(const E* src, Taps taps, E* out, int v, int n, int c,
              int hw, int4 off, cudaStream_t stream) {
   const long long rows = static_cast<long long>(v) * n;
   if (rows == 0) return 0;
-  // float4 words need c % 4 == 0 and 16-byte aligned src and out (then
-  // every row is aligned); else the scalar path
+  // 16-byte words (4 float32 or 8 bf16 channels) need c a multiple of the
+  // word and 16-byte aligned src and out (then every row is aligned); else
+  // the scalar path
   const bool vec =
-      c % 4 == 0 && ((reinterpret_cast<uintptr_t>(src) |
-                      reinterpret_cast<uintptr_t>(out)) & 15) == 0;
+      c % (16 / static_cast<int>(sizeof(E))) == 0 &&
+      ((reinterpret_cast<uintptr_t>(src) |
+        reinterpret_cast<uintptr_t>(out)) & 15) == 0;
   return vec ? launch<T, true>(src, taps, out, rows, n, c, hw, off, stream)
              : launch<T, false>(src, taps, out, rows, n, c, hw, off, stream);
 }
@@ -233,6 +306,22 @@ THP_EXPORT int thp_feature_sample(const float* src, const float* uv,
   const int dx = wf > 1 ? 1 : 0, dy = hf > 1 ? wf : 0;
   const UvTaps taps{uv, sx, sy, hf, wf};
   return dispatch<4>(src, taps, out, v, n, c, hf * wf,
+                     make_int4(0, dx, dy, dy + dx),
+                     static_cast<cudaStream_t>(stream));
+}
+
+// The bfloat16 sampling form: src (v, hf, wf, c) and out (v, n, c) bf16
+// (raw 16-bit words), uv (v, n, 2) float32; otherwise thp_feature_sample.
+THP_EXPORT int thp_feature_sample_bf16(const void* src, const float* uv,
+                                       void* out, int v, int n, int c, int hf,
+                                       int wf, float sx, float sy,
+                                       void* stream) {
+  if (v < 1 || n < 0 || c < 1 || hf < 1 || wf < 1)
+    return THP_ERR_BAD_SIZE;
+  const int dx = wf > 1 ? 1 : 0, dy = hf > 1 ? wf : 0;
+  const UvTaps taps{uv, sx, sy, hf, wf};
+  return dispatch<4>(static_cast<const unsigned short*>(src), taps,
+                     static_cast<unsigned short*>(out), v, n, c, hf * wf,
                      make_int4(0, dx, dy, dy + dx),
                      static_cast<cudaStream_t>(stream));
 }

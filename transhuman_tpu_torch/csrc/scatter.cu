@@ -41,6 +41,14 @@
 // the zero-fill plus this second write of ~3% of the rows.  Segments bound
 // the work of one thread block or warp: the texel of a run of 60,000
 // masked points sums ~940 segment rows, not 60,000 cotangent rows.
+//
+// The bfloat16 form (thp_dfeat_scatter_bf16) reads bf16 cotangent rows and
+// writes a bf16 map: half the bytes of the float32 form's g and map (the
+// pixel map is 604 MB, not 1.21 GB).  Stage 2 widens each channel to
+// float32 and keeps the float32 segment sums; stage 3 sums them in the
+// float32 form's order and narrows each texel once (round to nearest
+// even): the map is the float32 form's on the widened rows, cast, bit for
+// bit, and the same bits on every call.
 #include <cstdint>
 
 #include "common.cuh"
@@ -55,6 +63,31 @@ constexpr int CPT = 3;        // channels per thread per chunk: C = 384 in one
 constexpr int R = 4;          // cotangent rows in flight per step
 constexpr int QW = 3;         // float4 words per lane at once in stage 3
 constexpr int ITEMS = 16;     // (segment, tap) items per warp in stage 3
+
+// one channel of a cotangent row, widened to float32
+__device__ __forceinline__ float load_g(const float* p) { return __ldg(p); }
+__device__ __forceinline__ float load_g(const unsigned short* p) {
+  return thp_bf16_to_f32(__ldg(p));
+}
+
+// word q of the map: a float4 (4 channels) or one channel, narrowed once
+// for a bf16 map
+__device__ __forceinline__ void store_word(float* out, size_t q,
+                                           const float4& a) {
+  reinterpret_cast<float4*>(out)[q] = a;
+}
+__device__ __forceinline__ void store_word(float* out, size_t q, float a) {
+  out[q] = a;
+}
+__device__ __forceinline__ void store_word(unsigned short* out, size_t q,
+                                           const float4& a) {
+  reinterpret_cast<uint2*>(out)[q] =
+      make_uint2(thp_pack2(a.x, a.y), thp_pack2(a.z, a.w));
+}
+__device__ __forceinline__ void store_word(unsigned short* out, size_t q,
+                                           float a) {
+  out[q] = thp_f32_to_bf16(a);
+}
 
 __global__ void segments_kernel(const int* __restrict__ ids,
                                 const int* __restrict__ seg_end,
@@ -86,10 +119,11 @@ __global__ void segments_kernel(const int* __restrict__ ids,
 // four tap-weighted sums S[s, a, :] = sum_n w4[n, a] g[n, :] where the
 // segment ends.  The walk is the same for every thread, so the flushes
 // never diverge.
+template <class G>
 __global__ void __launch_bounds__(SUM_THREADS)
 segment_sums_kernel(const int* __restrict__ seg_end,
                     const int* __restrict__ order,
-                    const float* __restrict__ g,
+                    const G* __restrict__ g,
                     const float* __restrict__ w4, float* __restrict__ sums,
                     int n, int c) {
   __shared__ int s_row[SEG];
@@ -108,7 +142,7 @@ segment_sums_kernel(const int* __restrict__ seg_end,
   }
   if (t == 0) s_seg[rows] = -1;  // the tile's last segment ends with it
   __syncthreads();
-  const float* gv = g + vn * c;
+  const G* gv = g + vn * c;
   for (int c0 = 0; c0 < c; c0 += SUM_THREADS * CPT) {
     float acc[4][CPT];
 #pragma unroll
@@ -119,12 +153,12 @@ segment_sums_kernel(const int* __restrict__ seg_end,
       float x[R][CPT];
 #pragma unroll
       for (int u = 0; u < R; ++u) {
-        const float* row = gv + static_cast<size_t>(s_row[min(j + u, rows -
-                                                              1)]) * c;
+        const G* row = gv + static_cast<size_t>(s_row[min(j + u, rows -
+                                                          1)]) * c;
 #pragma unroll
         for (int k = 0; k < CPT; ++k) {
           const int ch = c0 + t + k * SUM_THREADS;
-          x[u][k] = j + u < rows && ch < c ? __ldg(row + ch) : 0.f;
+          x[u][k] = j + u < rows && ch < c ? load_g(row + ch) : 0.f;
         }
       }
 #pragma unroll
@@ -163,12 +197,12 @@ segment_sums_kernel(const int* __restrict__ seg_end,
 // t - off[b] in order, the first segment row of every tap and all the
 // lane's words loaded together (most touched texels have one segment per
 // tap).
-template <bool VEC>
+template <bool VEC, class O>
 __global__ void __launch_bounds__(THREADS)
 touched_rows_kernel(const int* __restrict__ ids_sorted,
                     const int* __restrict__ seg_start,
                     const int2* __restrict__ ranges,
-                    const float* __restrict__ sums, float* __restrict__ out,
+                    const float* __restrict__ sums, O* __restrict__ out,
                     int n, int c, int hw, int nseg, int4 off) {
   using W = ThpWord<VEC>;
   using V = typename W::T;
@@ -207,7 +241,7 @@ touched_rows_kernel(const int* __restrict__ ids_sorted,
       lo[b] = __shfl_sync(0xffffffffu, rg[b].x, src);
       hi[b] = __shfl_sync(0xffffffffu, rg[b].y, src);
     }
-    V* o = reinterpret_cast<V*>(out) + static_cast<size_t>(k2) * nw;
+    const size_t o = static_cast<size_t>(k2) * nw;
     for (int q0 = lane; q0 < nw; q0 += 32 * QW) {
       V x[4][QW];
 #pragma unroll
@@ -230,16 +264,16 @@ touched_rows_kernel(const int* __restrict__ ids_sorted,
           for (int s = lo[b] + 1; s < hi[b]; ++s)
             acc = W::add(acc, sv[(static_cast<size_t>(s) * 4 + b) * nw + q]);
         }
-        o[q] = acc;
+        store_word(out, o + q, acc);
       }
     }
   }
 }
 
-template <bool VEC>
+template <bool VEC, class G, class O>
 int launch(const int* ids_sorted, const int* seg_end, const int* order,
-           const float* g, const float* w4, int* seg_start, int2* ranges,
-           float* sums, float* out, int v, int n, int c, int hw, int dx,
+           const G* g, const float* w4, int* seg_start, int2* ranges,
+           float* sums, O* out, int v, int n, int c, int hw, int dx,
            int dy, int nseg, cudaStream_t stream) {
   const long long total = static_cast<long long>(v) * n;
   const int4 off = make_int4(0, dx, dy, dy + dx);
@@ -248,15 +282,34 @@ int launch(const int* ids_sorted, const int* seg_end, const int* order,
                                           ranges, v, n, hw);
   int e = thp_launch_status();
   if (e != 0) return e;
-  segment_sums_kernel<<<dim3((n + SEG - 1) / SEG, v), SUM_THREADS, 0,
+  segment_sums_kernel<G><<<dim3((n + SEG - 1) / SEG, v), SUM_THREADS, 0,
                         stream>>>(seg_end, order, g, w4, sums, n, c);
   if ((e = thp_launch_status()) != 0) return e;
   const long long warps = (4LL * nseg + ITEMS - 1) / ITEMS;
-  touched_rows_kernel<VEC><<<static_cast<unsigned>(
+  touched_rows_kernel<VEC, O><<<static_cast<unsigned>(
                                  (warps + WARPS - 1) / WARPS),
                              THREADS, 0, stream>>>(
       ids_sorted, seg_start, ranges, sums, out, n, c, hw, nseg, off);
   return thp_launch_status();
+}
+
+template <class G, class O>
+int dfeat_entry(const int* ids_sorted, const int* seg_end, const int* order,
+                const G* g, const float* w4, int* seg_start, int* ranges,
+                float* sums, O* out, int v, int n, int c, int hw, int dx,
+                int dy, int nseg, int seg, void* stream) {
+  if (seg != SEG || v < 1 || n < 1 || c < 1 || hw < 1 || dx < 0 || dy < 0 ||
+      nseg < 1 || (reinterpret_cast<uintptr_t>(ranges) & 7) != 0)
+    return THP_ERR_BAD_SIZE;
+  const auto s = static_cast<cudaStream_t>(stream);
+  auto* r2 = reinterpret_cast<int2*>(ranges);
+  // stage 3 moves float4 words of sums (4 channels of the map) where it can
+  const bool vec = c % 4 == 0 && ((reinterpret_cast<uintptr_t>(sums) |
+                                   reinterpret_cast<uintptr_t>(out)) & 15) == 0;
+  return vec ? launch<true>(ids_sorted, seg_end, order, g, w4, seg_start, r2,
+                            sums, out, v, n, c, hw, dx, dy, nseg, s)
+             : launch<false>(ids_sorted, seg_end, order, g, w4, seg_start, r2,
+                             sums, out, v, n, c, hw, dx, dy, nseg, s);
 }
 
 }  // namespace
@@ -277,16 +330,21 @@ THP_EXPORT int thp_dfeat_scatter(const int* ids_sorted, const int* seg_end,
                                  float* sums, float* out, int v, int n, int c,
                                  int hw, int dx, int dy, int nseg, int seg,
                                  void* stream) {
-  if (seg != SEG || v < 1 || n < 1 || c < 1 || hw < 1 || dx < 0 || dy < 0 ||
-      nseg < 1 || (reinterpret_cast<uintptr_t>(ranges) & 7) != 0)
-    return THP_ERR_BAD_SIZE;
-  const auto s = static_cast<cudaStream_t>(stream);
-  auto* r2 = reinterpret_cast<int2*>(ranges);
-  // stage 3 moves float4 words where it can
-  const bool vec = c % 4 == 0 && ((reinterpret_cast<uintptr_t>(sums) |
-                                   reinterpret_cast<uintptr_t>(out)) & 15) == 0;
-  return vec ? launch<true>(ids_sorted, seg_end, order, g, w4, seg_start, r2,
-                            sums, out, v, n, c, hw, dx, dy, nseg, s)
-             : launch<false>(ids_sorted, seg_end, order, g, w4, seg_start, r2,
-                             sums, out, v, n, c, hw, dx, dy, nseg, s);
+  return dfeat_entry(ids_sorted, seg_end, order, g, w4, seg_start, ranges,
+                     sums, out, v, n, c, hw, dx, dy, nseg, seg, stream);
+}
+
+// As thp_dfeat_scatter with g and out bfloat16 (raw 16-bit words; sums
+// stays float32): out is thp_dfeat_scatter's map on the widened g, cast.
+THP_EXPORT int thp_dfeat_scatter_bf16(const int* ids_sorted,
+                                      const int* seg_end, const int* order,
+                                      const void* g, const float* w4,
+                                      int* seg_start, int* ranges,
+                                      float* sums, void* out, int v, int n,
+                                      int c, int hw, int dx, int dy, int nseg,
+                                      int seg, void* stream) {
+  return dfeat_entry(ids_sorted, seg_end, order,
+                     static_cast<const unsigned short*>(g), w4, seg_start,
+                     ranges, sums, static_cast<unsigned short*>(out), v, n, c,
+                     hw, dx, dy, nseg, seg, stream);
 }

@@ -38,13 +38,20 @@ _SIGNATURES = {
     # pts, centers, rot, tokens, tok, pe, dist, idx, w, n, c, v, d, k,
     # n_freqs, alpha, stream
     "thp_dparf": ((_P,) * 9 + (_I,) * 6 + (_F, _P), _I),
+    # as thp_dparf, tokens and tok bfloat16
+    "thp_dparf_bf16": ((_P,) * 9 + (_I,) * 6 + (_F, _P), _I),
     # ids_sorted, seg_end, order, g, w4, seg_start, ranges, sums, out, v, n,
     # c, hw, dx, dy, nseg, seg, stream
     "thp_dfeat_scatter": ((_P,) * 9 + (_I,) * 8 + (_P,), _I),
+    # as thp_dfeat_scatter, g and out bfloat16
+    "thp_dfeat_scatter_bf16": ((_P,) * 9 + (_I,) * 8 + (_P,), _I),
     # src, ids, w, out, v, n, c, hw, t, off0, off1, off2, off3, stream
     "thp_feature_gather": ((_P,) * 4 + (_I,) * 9 + (_P,), _I),
     # src, uv, out, v, n, c, hf, wf, sx, sy, stream
     "thp_feature_sample": ((_P,) * 3 + (_I,) * 5 + (_F,) * 2 + (_P,), _I),
+    # as thp_feature_sample, src and out bfloat16
+    "thp_feature_sample_bf16": ((_P,) * 3 + (_I,) * 5 + (_F,) * 2 + (_P,),
+                                _I),
     "thp_error_string": ((_I,), ctypes.c_char_p),
 }
 
@@ -151,17 +158,19 @@ def loaded() -> bool:
     return _lib is not None
 
 
-def check_tensors(name: str, int32=(), **tensors):
-    """Raise unless every tensor is float32 (int32 for the names in
-    ``int32``), contiguous and on one CUDA device: the C entries take raw
-    pointers and trust them."""
+def check_tensors(name: str, dtypes=None, **tensors):
+    """Raise unless every tensor is contiguous, on one CUDA device, and of
+    its allowed dtype: ``dtypes`` maps an argument name to its dtype, and
+    every other argument must be float32 (a wrong dtype is a TypeError).
+    The C entries take raw pointers and trust them."""
     import torch
 
+    dtypes = dtypes or {}
     dev = None
     for arg, t in tensors.items():
         if not isinstance(t, torch.Tensor) or not t.is_cuda:
             raise ValueError(f"{name}: {arg} must be a CUDA tensor")
-        want = torch.int32 if arg in int32 else torch.float32
+        want = dtypes.get(arg, torch.float32)
         if t.dtype != want:
             raise TypeError(f"{name}: {arg} must be {want}, got {t.dtype}")
         if not t.is_contiguous():

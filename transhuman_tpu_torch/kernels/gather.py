@@ -25,6 +25,12 @@ with the same float32 operations (both live here, beside the kernel that
 must match them bit for bit); its base texels lie in the map by
 construction, so it checks nothing and never waits for the card.  The
 adjoint of both is K3 (``kernels/scatter.py``).
+
+The sampling form has a bfloat16 form, ``feature_sample_bf16_cuda`` (its
+own launch count): a bf16 map in, bf16 rows out, the float32 form's sums on
+the widened map narrowed once, so its plain twin is the float32 twin on the
+widened map, then one ``.to(torch.bfloat16)``.  ``feature_sample`` routes a
+bf16 map to it.
 """
 
 from __future__ import annotations
@@ -102,8 +108,8 @@ def feature_gather_plain(src, ids, w, offsets):
 def feature_gather_cuda(src, ids, w, offsets):
     """K4's id form on CUDA tensors: src and w float32, ids int32, all
     contiguous."""
-    build.check_tensors("feature_gather_cuda", int32=("ids",), src=src,
-                        ids=ids, w=w)
+    build.check_tensors("feature_gather_cuda", {"ids": torch.int32},
+                        src=src, ids=ids, w=w)
     if src.dim() != 3 or ids.dim() != 2 or w.dim() != 3:
         raise ValueError(
             f"feature_gather_cuda: src {tuple(src.shape)}, ids "
@@ -150,50 +156,78 @@ def feature_gather(src, ids, w, offsets):
 
 def feature_sample_plain(feat, uv, image_shape):
     """The bilinear fetch as the port's CPU route computes it: the taps and
-    weights of _sample_taps and _bilinear_w4, then the 4-tap plain gather."""
+    weights of _sample_taps and _bilinear_w4, then the 4-tap plain gather,
+    in float32 on the widened map; a bf16 map gives those rows narrowed
+    once (the bf16 form's twin)."""
     v, hf, wf, c = feat.shape
     _, _, base, wx, wy, dx, dy = _sample_taps(feat.shape, uv, image_shape)
-    return feature_gather_plain(feat.reshape(v, hf * wf, c), base,
-                                _bilinear_w4(wx, wy), (0, dx, dy, dy + dx))
+    out = feature_gather_plain(feat.reshape(v, hf * wf, c), base,
+                               _bilinear_w4(wx, wy), (0, dx, dy, dy + dx))
+    return out.to(feat.dtype)
 
 
-def feature_sample_cuda(feat, uv, image_shape):
-    """K4's sampling form on CUDA tensors: feat (V, Hf, Wf, C) and uv
-    (V, N, 2), float32, contiguous.  One launch; no host sync."""
-    build.check_tensors("feature_sample_cuda", feat=feat, uv=uv)
+def _sample_launch(name, entry, dtype, feat, uv, image_shape):
+    """Check the tensors (feat of ``dtype``), allocate the (V, N, C) rows in
+    it and launch the sampling-form entry; True if it launched."""
+    build.check_tensors(name, {"feat": dtype}, feat=feat, uv=uv)
     if feat.dim() != 4 or uv.dim() != 3 or uv.shape[::2] != (feat.shape[0],
                                                              2):
         raise ValueError(
-            f"feature_sample_cuda: feat {tuple(feat.shape)}, uv "
+            f"{name}: feat {tuple(feat.shape)}, uv "
             f"{tuple(uv.shape)}; want (V, Hf, Wf, C), (V, N, 2)")
     v, hf, wf, c = feat.shape
     n = uv.shape[1]
     h_img, w_img = image_shape
     if max(v * hf * wf, v * n) * c >= 2**31:
-        raise ValueError("feature_sample_cuda: extent too large for int32")
-    out = torch.empty((v, n, c), dtype=torch.float32, device=feat.device)
+        raise ValueError(f"{name}: extent too large for int32")
+    out = torch.empty((v, n, c), dtype=feat.dtype, device=feat.device)
     if n == 0:
-        return out
+        return out, False
     # ctypes rounds the scales to float32, as torch rounds a Python scalar
     # multiplying a float32 tensor
     lib = build.library()
     with torch.cuda.device(feat.device):
         stream = torch.cuda.current_stream().cuda_stream
-        code = lib.thp_feature_sample(
+        code = getattr(lib, entry)(
             feat.data_ptr(), uv.data_ptr(), out.data_ptr(), v, n, c, hf, wf,
             wf / w_img, hf / h_img, stream)
-    build.check(code, "feature_sample_cuda")
-    feature_gather_cuda.launches += 1
+    build.check(code, name)
+    return out, True
+
+
+def feature_sample_cuda(feat, uv, image_shape):
+    """K4's sampling form on CUDA tensors: feat (V, Hf, Wf, C) and uv
+    (V, N, 2), float32, contiguous.  One launch; no host sync."""
+    out, launched = _sample_launch("feature_sample_cuda",
+                                   "thp_feature_sample", torch.float32, feat,
+                                   uv, image_shape)
+    feature_gather_cuda.launches += launched
     return out
 
 
+def feature_sample_bf16_cuda(feat, uv, image_shape):
+    """K4's sampling form for a bfloat16 map: feat (V, Hf, Wf, C) bf16, uv
+    (V, N, 2) float32, contiguous CUDA tensors -> (V, N, C) bf16, equal bit
+    for bit to ``feature_sample_cuda(feat.float(), uv,
+    image_shape).to(torch.bfloat16)``.  One launch; no host sync."""
+    out, launched = _sample_launch("feature_sample_bf16_cuda",
+                                   "thp_feature_sample_bf16", torch.bfloat16,
+                                   feat, uv, image_shape)
+    feature_sample_bf16_cuda.launches += launched
+    return out
+
+
+feature_sample_bf16_cuda.launches = 0
+
+
 def feature_sample(feat, uv, image_shape):
-    """K4's sampling form for a CUDA tensor, the plain twin for a CPU
-    tensor: feat (V, Hf, Wf, C), uv (V, N, 2) image pixels, image_shape
-    (H_img, W_img) -> (V, N, C) float32."""
+    """K4's sampling form for a CUDA tensor (the bf16 form for a bf16 map),
+    the plain twin for a CPU tensor: feat (V, Hf, Wf, C), uv (V, N, 2) image
+    pixels, image_shape (H_img, W_img) -> (V, N, C) in feat's dtype."""
     if feat.is_cuda:
-        return feature_sample_cuda(feat.contiguous(), uv.contiguous(),
-                                   image_shape)
+        fn = (feature_sample_bf16_cuda if feat.dtype == torch.bfloat16
+              else feature_sample_cuda)
+        return fn(feat.contiguous(), uv.contiguous(), image_shape)
     if feat.device.type != "cpu":
         raise ValueError(f"feature_sample: no kernel for device {feat.device}")
     return feature_sample_plain(feat, uv, image_shape)

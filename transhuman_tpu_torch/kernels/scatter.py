@@ -14,6 +14,12 @@ ids + {0, dx, dy, dy + dx} lies in [0, hw) (both routes raise IndexError
 otherwise); g (V, N, C) cotangent rows;
 w4 (V, N, 4) tap weights ((1-wx)(1-wy), wx(1-wy), (1-wx)wy, wx wy); and
 return the (V, hw, C) float32 map out[v, ids + tap] += w4[..., tap] * g.
+
+``dfeat_scatter_bf16_cuda`` (its own launch count) is K3's bfloat16 form:
+g bf16 rows in, a bf16 map out, equal bit for bit to the float32 form's map
+on the widened rows cast once; its plain twin is the float32 twin then one
+``.to(torch.bfloat16)``.  ``dfeat_scatter`` routes a bf16 g to it and
+returns the map in g's dtype on either route.
 """
 
 from __future__ import annotations
@@ -34,6 +40,7 @@ def _check_tap_range(name, lo: int, hi: int, hw: int, dx: int, dy: int):
 
 
 def dfeat_scatter_plain(ids, g, w4, hw: int, dx: int, dy: int):
+    """The float32 sums of the widened rows, returned in g's dtype."""
     v, n, c = g.shape
     if ids.numel():
         _check_tap_range("dfeat_scatter_plain", int(ids.min()),
@@ -45,34 +52,33 @@ def dfeat_scatter_plain(ids, g, w4, hw: int, dx: int, dy: int):
     w = w4.reshape(v * n, 4).float()
     for col, off in enumerate((0, dx, dy, dy + dx)):
         out.index_add_(0, flat + off, rows * w[:, col:col + 1])
-    return out.reshape(v, hw, c)
+    return out.reshape(v, hw, c).to(g.dtype)
 
 
 SEG = 64  # sorted positions per segment at most: csrc/scatter.cu's SEG
 
 
-def dfeat_scatter_cuda(ids, g, w4, hw: int, dx: int, dy: int):
-    """K3 on CUDA tensors: ids int32, g and w4 float32, all contiguous.
-    No atomics: the same bits on every call."""
-    build.check_tensors("dfeat_scatter_cuda", int32=("ids",), ids=ids, g=g,
+def _dfeat_launch(name, entry, dtype, ids, g, w4, hw, dx, dy):
+    """Check the tensors (g of ``dtype``), sort and cut the segments, zero
+    the map in g's dtype and launch the K3 entry; the map and whether it
+    launched."""
+    build.check_tensors(name, {"ids": torch.int32, "g": dtype}, ids=ids, g=g,
                         w4=w4)
     if g.dim() != 3:
-        raise ValueError(
-            f"dfeat_scatter_cuda: g {tuple(g.shape)} must be (V, N, C)")
+        raise ValueError(f"{name}: g {tuple(g.shape)} must be (V, N, C)")
     v, n, c = g.shape
     if ids.shape != (v, n) or w4.shape != (v, n, 4):
         raise ValueError(
-            f"dfeat_scatter_cuda: ids {tuple(ids.shape)}, w4 "
+            f"{name}: ids {tuple(ids.shape)}, w4 "
             f"{tuple(w4.shape)}; want ({v}, {n}), ({v}, {n}, 4)")
     if not 1 <= v <= 65535 or hw < 1 or min(dx, dy) < 0:
         raise ValueError(
-            f"dfeat_scatter_cuda: V={v}, hw={hw}, dx={dx}, dy={dy} out of "
-            "range")
+            f"{name}: V={v}, hw={hw}, dx={dx}, dy={dy} out of range")
     if max(v * n, v * hw) * c >= 2**31:
-        raise ValueError("dfeat_scatter_cuda: extent too large for int32")
+        raise ValueError(f"{name}: extent too large for int32")
     dev = g.device
     if n == 0:
-        return torch.zeros((v, hw, c), dtype=torch.float32, device=dev)
+        return torch.zeros((v, hw, c), dtype=dtype, device=dev), False
     # glue, like the JAX package's argsort: equal ids become runs, cut into
     # segments of at most SEG positions; seg_end counts segment starts
     ids_sorted, order = torch.sort(ids, dim=1, stable=True)
@@ -94,31 +100,56 @@ def dfeat_scatter_cuda(ids, g, w4, hw: int, dx: int, dy: int):
                    non_blocking=True)
         ready = torch.cuda.Event()
         ready.record()
-        out = torch.zeros((v, hw, c), dtype=torch.float32, device=dev)
+        out = torch.zeros((v, hw, c), dtype=dtype, device=dev)
         ready.synchronize()
         lo, hi, nseg = ends.tolist()
-        _check_tap_range("dfeat_scatter_cuda", lo, hi, hw, dx, dy)
+        _check_tap_range(name, lo, hi, hw, dx, dy)
         seg_start = torch.empty(nseg, dtype=torch.int32, device=dev)
         sums = torch.empty((nseg, 4, c), dtype=torch.float32, device=dev)
-        code = lib.thp_dfeat_scatter(
+        code = getattr(lib, entry)(
             ids_sorted.data_ptr(), seg_end.data_ptr(), order.data_ptr(),
             g.data_ptr(), w4.data_ptr(), seg_start.data_ptr(),
             ranges.data_ptr(), sums.data_ptr(), out.data_ptr(), v, n, c, hw,
             dx, dy, nseg, SEG, torch.cuda.current_stream().cuda_stream)
-    build.check(code, "dfeat_scatter_cuda")
-    dfeat_scatter_cuda.launches += 1
+    build.check(code, name)
+    return out, True
+
+
+def dfeat_scatter_cuda(ids, g, w4, hw: int, dx: int, dy: int):
+    """K3 on CUDA tensors: ids int32, g and w4 float32, all contiguous.
+    No atomics: the same bits on every call."""
+    out, launched = _dfeat_launch("dfeat_scatter_cuda", "thp_dfeat_scatter",
+                                  torch.float32, ids, g, w4, hw, dx, dy)
+    dfeat_scatter_cuda.launches += launched
     return out
 
 
 dfeat_scatter_cuda.launches = 0
 
 
+def dfeat_scatter_bf16_cuda(ids, g, w4, hw: int, dx: int, dy: int):
+    """K3's bfloat16 form: g bf16 (V, N, C), ids int32, w4 float32 ->
+    the (V, hw, C) bf16 map, equal bit for bit to
+    ``dfeat_scatter_cuda(ids, g.float(), w4, ...).to(torch.bfloat16)``; no
+    atomics, the same bits on every call."""
+    out, launched = _dfeat_launch("dfeat_scatter_bf16_cuda",
+                                  "thp_dfeat_scatter_bf16", torch.bfloat16,
+                                  ids, g, w4, hw, dx, dy)
+    dfeat_scatter_bf16_cuda.launches += launched
+    return out
+
+
+dfeat_scatter_bf16_cuda.launches = 0
+
+
 def dfeat_scatter(ids, g, w4, hw: int, dx: int, dy: int):
-    """K3 for a CUDA tensor, the four index_add_ calls for a CPU tensor."""
+    """K3 for a CUDA tensor (its bf16 form for a bf16 g), the four
+    index_add_ calls for a CPU tensor; the map in g's dtype."""
     if g.is_cuda:
-        return dfeat_scatter_cuda(ids.to(torch.int32).contiguous(),
-                                  g.contiguous(), w4.contiguous(), hw, dx,
-                                  dy)
+        fn = (dfeat_scatter_bf16_cuda if g.dtype == torch.bfloat16
+              else dfeat_scatter_cuda)
+        return fn(ids.to(torch.int32).contiguous(), g.contiguous(),
+                  w4.contiguous(), hw, dx, dy)
     if g.device.type != "cpu":
         raise ValueError(f"dfeat_scatter: no kernel for device {g.device}")
     return dfeat_scatter_plain(ids, g, w4, hw, dx, dy)

@@ -6,7 +6,10 @@ names and (out, in, 1) weights, so the state dict is the reference layout,
 and are applied as matrix products over C.  The reference registers these
 layers on the network itself, not under a submodule, so ``ViewFusion`` and
 ``NeRFHeads`` are bases of ``TransHumanNet`` rather than children of it:
-each base adds its layers under their reference names.
+each base adds its layers under their reference names.  Every layer runs in
+the compute dtype (``layers.linear``), and so does the raw output; the
+binding's token sum comes out of K2 in it, its code in float32, cast at the
+concatenation as the JAX package casts it.
 """
 
 from __future__ import annotations
@@ -18,6 +21,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..kernels.dparf import dparf
+from .layers import linear
 
 
 def dparf_representation(pts_smpl, cluster_centers, cluster_rot, tokens,
@@ -35,13 +39,15 @@ def dparf_representation(pts_smpl, cluster_centers, cluster_rot, tokens,
                           k, dist_alpha, n_freqs)
     keep = None if knn_sigma is None else dist[:, 0] < knn_sigma
     v, n, _ = tok.shape
+    pe = pe.to(tok.dtype)
     rep = torch.cat([tok, pe[None].expand(v, n, pe.shape[-1])], dim=-1)
     return rep, keep
 
 
-def _dense(conv: nn.Conv1d, x):
-    """A reference Conv1d(kernel 1) applied over the last axis of x."""
-    return F.linear(x, conv.weight[..., 0], conv.bias)
+def _dense(conv: nn.Conv1d, x, dtype):
+    """A reference Conv1d(kernel 1) applied over the last axis of x, in
+    dtype."""
+    return linear(x, conv.weight[..., 0], conv.bias, dtype)
 
 
 class KeyValueEmbed(nn.Module):
@@ -58,19 +64,22 @@ class ViewFusion(nn.Module):
     values from the pixel features, query keys and values from the human
     representation; softmax over the source view; residual add."""
 
-    def __init__(self, dim: int = 256, att_dim: int = 128):
+    def __init__(self, dim: int = 256, att_dim: int = 128,
+                 compute_dtype: torch.dtype = torch.float32):
         super().__init__()
         self.att_dim = att_dim
+        self.compute_dtype = compute_dtype
         self.spatial_key_value_0 = KeyValueEmbed(dim, att_dim, dim)  # pixel
         self.spatial_key_value_1 = KeyValueEmbed(dim, att_dim, dim)  # holder
 
     def fuse(self, holder, pixel):
         """holder, pixel (V, N, dim) -> (V, N, dim)."""
         pix, hold = self.spatial_key_value_0, self.spatial_key_value_1
-        key = _dense(pix.key_embed, pixel)
-        val = _dense(pix.value_embed, pixel)
-        qkey = _dense(hold.key_embed, holder)
-        qval = _dense(hold.value_embed, holder)
+        dt = self.compute_dtype
+        key = _dense(pix.key_embed, pixel, dt)
+        val = _dense(pix.value_embed, pixel, dt)
+        qkey = _dense(hold.key_embed, holder, dt)
+        qval = _dense(hold.value_embed, holder, dt)
         # scores[n, i, j] = key_i . qkey_j, softmax over the source view i
         scores = torch.einsum("inc,jnc->nij", key, qkey) * self.att_dim**-0.5
         attn = torch.softmax(scores, dim=1)
@@ -85,8 +94,9 @@ class NeRFHeads(ViewFusion):
     (N, 4) = [rgb logits, sigma]."""
 
     def __init__(self, rep_dim: int = 255, pixel_dim: int = 384,
-                 view_dim: int = 27, hidden: int = 256, rgb_hidden: int = 128):
-        super().__init__(hidden, 128)
+                 view_dim: int = 27, hidden: int = 256, rgb_hidden: int = 128,
+                 compute_dtype: torch.dtype = torch.float32):
+        super().__init__(hidden, 128, compute_dtype)
         self.fc_0 = nn.Conv1d(rep_dim, hidden, 1)
         self.alpha_res_0 = nn.Conv1d(pixel_dim, hidden, 1)
         self.fc_1 = nn.Conv1d(hidden, hidden, 1)
@@ -104,24 +114,26 @@ class NeRFHeads(ViewFusion):
         """human_rep (V,N,R), pixel_feat (V,N,384), viewdir_embed (N,27),
         pts_mask optional (N,) bool (False -> raw 0)."""
         v, n, _ = human_rep.shape
-        net_hold = F.relu(_dense(self.fc_0, human_rep))
-        net_pix = F.relu(_dense(self.alpha_res_0, pixel_feat))
+        dt = self.compute_dtype
+        net_hold = F.relu(_dense(self.fc_0, human_rep, dt))
+        net_pix = F.relu(_dense(self.alpha_res_0, pixel_feat, dt))
         net = self.fuse(net_hold, net_pix)
-        net = F.relu(_dense(self.fc_1, net))
-        inter = F.relu(_dense(self.fc_2, net))
+        net = F.relu(_dense(self.fc_1, net, dt))
+        inter = F.relu(_dense(self.fc_2, net, dt))
 
         # density: average the views, then the MLP
-        opa = F.relu(_dense(self.fc_3, inter.mean(dim=0)))
-        sigma = _dense(self.alpha_fc, opa)  # (N, 1)
+        opa = F.relu(_dense(self.fc_3, inter.mean(dim=0), dt))
+        sigma = _dense(self.alpha_fc, opa, dt)  # (N, 1)
 
         # colour: pixel-feature residuals and the view direction
-        feat = _dense(self.feature_fc, inter) + _dense(self.rgb_res_0,
-                                                       pixel_feat)
-        vdir = viewdir_embed[None].expand(v, n, viewdir_embed.shape[-1])
-        feat = F.relu(_dense(self.view_fc, torch.cat([feat, vdir], dim=-1)))
-        feat = feat + _dense(self.rgb_res_1, pixel_feat)
-        feat = F.relu(_dense(self.fc_4, feat.mean(dim=0)))
-        rgb = _dense(self.rgb_fc, feat)  # (N, 3)
+        feat = (_dense(self.feature_fc, inter, dt)
+                + _dense(self.rgb_res_0, pixel_feat, dt))
+        vdir = viewdir_embed.to(dt)[None].expand(v, n, viewdir_embed.shape[-1])
+        feat = F.relu(_dense(self.view_fc, torch.cat([feat, vdir], dim=-1),
+                             dt))
+        feat = feat + _dense(self.rgb_res_1, pixel_feat, dt)
+        feat = F.relu(_dense(self.fc_4, feat.mean(dim=0), dt))
+        rgb = _dense(self.rgb_fc, feat, dt)  # (N, 3)
 
         raw = torch.cat([rgb, sigma], dim=-1)
         if pts_mask is not None:

@@ -71,16 +71,18 @@ class _SampleFeatureMap(torch.autograd.Function):
         shape, fdtype, (h_img, w_img) = ctx.meta
         v, hf, wf, c = shape
         fx, fy, base, wx, wy, dx, dy = _sample_taps(shape, uv, (h_img, w_img))
-        gf = g.float()
         d_feat = d_uv = None
         if ctx.needs_input_grad[0]:
-            d_feat = dfeat_scatter(base, gf, _bilinear_w4(wx, wy).float(),
+            # g in the map's dtype: K3's bf16 form sums a bf16 g in float32
+            # and writes the bf16 map; the plain twin sums in float32
+            d_feat = dfeat_scatter(base, g, _bilinear_w4(wx, wy).float(),
                                    hf * wf, dx, dy)
             d_feat = d_feat.reshape(shape).to(fdtype)
         if ctx.needs_input_grad[1]:
             # through the lerp weights, as _sfm_bwd (clip boundaries count
             # as interior; the clamped set has measure zero); border-clamped
             # coordinates get zero positional gradient
+            gf = g.float()
             in_x = (fx > 0.0) & (fx < wf - 1)
             in_y = (fy > 0.0) & (fy < hf - 1)
             p00, p01, p10, p11 = (p.float() for p in
@@ -97,8 +99,9 @@ class _SampleFeatureMap(torch.autograd.Function):
 
 
 def sample_feature_map(feat, uv, image_shape):
-    """feat (V,Hf,Wf,C) NHWC; uv (V,N,2) image pixels (x, y); image_shape
-    (H_img, W_img) -> (V,N,C) float32, border-clamped, align_corners
-    semantics (K4 on the card).  Differentiable in feat (K3 on the card) and
-    uv; where no gradient is asked for, nothing is saved."""
+    """feat (V,Hf,Wf,C) NHWC float32 or bfloat16; uv (V,N,2) float32 image
+    pixels (x, y); image_shape (H_img, W_img) -> (V,N,C) in feat's dtype,
+    border-clamped, align_corners semantics (K4 on the card, its bf16 form
+    for a bf16 map).  Differentiable in feat (K3 on the card) and uv (d_uv
+    float32); where no gradient is asked for, nothing is saved."""
     return _SampleFeatureMap.apply(feat, uv, tuple(image_shape))

@@ -24,6 +24,12 @@ compositing (counterpart of transhuman_tpu/render/pipeline.py).
 
 The serving entry points run under ``torch.no_grad``; they and the train
 path share the undecorated bodies ``_prologue`` and ``_query_points``.
+
+In the model's compute dtype bfloat16, the maps, the painted vertices, the
+cluster tokens and the raw outputs are bf16 (the pool matrix is cast for the
+token pooling, as the JAX package casts it); the cluster centres and
+rotations, the sample points and the cull stay float32.  The JAX package's
+bf16 cull computes in bf16 on the TPU; here K1 is float32 in both modes.
 """
 
 from __future__ import annotations
@@ -91,7 +97,7 @@ class Prologue:
     """Per-frame quantities shared by every chunk of rays."""
 
     tokens: torch.Tensor  # (V, C, D) TransHE-refined cluster tokens
-    pixel_map: torch.Tensor  # (V, H, W, 384)
+    pixel_map: torch.Tensor  # (V, H, W, 384), in the compute dtype
     centers: torch.Tensor  # (C, 3) cluster centres, SMPL coords
     rot: torch.Tensor  # (C, 3, 3) pooled blend rotations
 
@@ -129,8 +135,9 @@ class RenderPipeline:
         holder_map, pixel_map = self.model.encode_views(frame.images)
         uv = self.fetch_uv(frame, frame.verts_world)
         latent = sample_feature_map(holder_map, uv, frame.images.shape[1:3])
-        holder = latent * frame.vizmaps[..., None]
-        tokens = self.model.refine_tokens(self.pool @ holder, self.pe_can)
+        holder = latent * frame.vizmaps[..., None].to(latent.dtype)
+        tokens = self.model.refine_tokens(self.pool.to(latent.dtype) @ holder,
+                                          self.pe_can)
         centers = self.pool @ frame.tar_verts_smpl
         rot = torch.einsum("cv,vij->cij", self.pool, frame.blend_rot)
         return Prologue(tokens=tokens.contiguous(), pixel_map=pixel_map,
@@ -224,7 +231,9 @@ class RenderPipeline:
         vde = embed_viewdir(viewdir, self.model.view_freqs)  # (R, 27)
         pts, z_vals = sample_along_rays(rays.ray_o, rays.ray_d, rays.near,
                                         rays.far, s)
-        raw = torch.zeros((r * s, 4), dtype=pts.dtype, device=pts.device)
+        # the decode's rows as it returns them (the composite upcasts)
+        raw = torch.zeros((r * s, 4), dtype=self.model.compute_dtype,
+                          device=pts.device)
         n_survivors = 0
         for a in range(0, r, cr):
             b = min(a + cr, r)
@@ -256,7 +265,8 @@ class RenderPipeline:
         on the CPU, where the plain distance matrix would not fit), one
         ``nonzero``, then the survivors decoded in chunks of ``chunk_rays *
         n_samples`` points with no host sync between them, and scattered
-        into zeros: a culled point's sigma is exactly 0.  The view code is a
+        into zeros: a culled point's sigma is exactly 0.  sigma is float32
+        in every compute dtype.  The view code is a
         zero vector, as the JAX package's (sigma does not read it)."""
         n, cp = pts_world.shape[0], self.chunk_rays * self.n_samples
         pro = self._prologue(frame)
@@ -273,7 +283,7 @@ class RenderPipeline:
             b = min(a + cp, m)
             raw = self._query_points(frame, pro, pts_world[idx[a:b]],
                                      vde[:b - a])
-            sig[a:b] = raw[:, 3]
+            sig[a:b] = raw[:, 3]  # upcast to float32 on assignment
         self.last_frame_stats = {"points": n, "survivors": m}
         return torch.zeros(n, dtype=sig.dtype,
                            device=sig.device).index_copy_(0, idx, sig)

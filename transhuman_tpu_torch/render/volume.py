@@ -39,7 +39,10 @@ def composite(raw, z_vals, ray_d, white_bkgd: bool = False,
     generator, N(0, raw_noise_std^2) noise is added to sigma (training
     regularisation; the caller gives a generator of its own, so the draw
     is independent of the sampling jitter).  Returns rgb_map (R,3),
-    acc_map (R,), depth_map (R,), weights (R,S)."""
+    acc_map (R,), depth_map (R,), weights (R,S).  raw may come in the
+    model's compute dtype (bf16); it is upcast here and the compositing is
+    float32."""
+    raw = raw.float()
     dists = z_vals[:, 1:] - z_vals[:, :-1]
     dists = torch.cat([dists, torch.full_like(dists[:, :1], 1e10)], dim=-1)
     dists = dists * torch.linalg.norm(ray_d, dim=-1, keepdim=True)

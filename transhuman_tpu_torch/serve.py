@@ -9,9 +9,10 @@ override config.py's defaults.
 
 Endpoints
 ---------
-``GET /healthz``  JSON: status, devices (a list of one), parameter count;
-    the JAX service's TPU-only ``ray_bucket`` and ``compact_ratio`` are
-    not carried.
+``GET /healthz``  JSON: status, devices (a list of one), the network's
+    compute dtype (``float32`` or ``bfloat16``), parameter count; the JAX
+    service's TPU-only ``ray_bucket`` and ``compact_ratio`` are not
+    carried.
 ``GET /stats``    JSON: render count, latency mean/p50/p95 (ms).
 ``POST /render``  Body: an ``.npz`` archive with ``images (V,H,W,3)`` (float
     in [0,1] or any integer type), per-view ``K/R/T``, the target camera
@@ -323,6 +324,8 @@ def _make_handler(server: RenderServer):
                 self._json(200, {
                     "status": "ok",
                     "devices": [str(svc.pipe.device)],
+                    "compute_dtype": str(
+                        svc.pipe.model.compute_dtype).removeprefix("torch."),
                     "n_params": sum(p.numel()
                                     for p in svc.pipe.model.parameters()),
                 })
@@ -373,7 +376,7 @@ def _make_handler(server: RenderServer):
 def main(argv=None) -> int:
     import argparse
 
-    from .cli.common import build_runtime
+    from .cli.common import build_runtime, configure_device
     from .weights import load_checkpoint_file
 
     p = argparse.ArgumentParser(prog="python -m transhuman_tpu_torch.serve")
@@ -387,9 +390,7 @@ def main(argv=None) -> int:
                    help="config overrides: key value ...")
     args = p.parse_args(argv)
     cfg = Config().merge_opts(args.opts)
-    device = torch.device(args.device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise SystemExit("--device cuda, but no CUDA device is available")
+    device = configure_device(args.device)
     model, pipe, smpl, _ = build_runtime(cfg, device)
     epoch = load_checkpoint_file(model, args.weights)
     print(f"serve: {args.weights} (epoch {epoch}) on {device}, "

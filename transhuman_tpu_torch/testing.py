@@ -77,14 +77,16 @@ def synthetic_setup(n_views: int = 3, image_hw: tuple = (512, 512),
                     n_samples: int = 64, chunk_rays: int = 512,
                     embed_dim: int = 192, vit_depth: int = 12,
                     vit_heads: int = 3, knn_k: int = 7, seed: int = 0,
-                    device="cpu"):
-    """(model, pipe, frame, smpl, cluster): model on ``device`` with random
-    weights from ``torch.Generator().manual_seed(seed)``, frame on the CPU
-    (numpy inputs from ``np.random.default_rng(seed)``)."""
+                    device="cpu", compute_dtype=torch.float32):
+    """(model, pipe, frame, smpl, cluster): model on ``device`` in
+    ``compute_dtype`` with random weights from
+    ``torch.Generator().manual_seed(seed)``, frame on the CPU (numpy inputs
+    from ``np.random.default_rng(seed)``)."""
     frame, smpl, cluster = synthetic_scene(n_views, image_hw, n_verts,
                                            n_clusters, seed)
     model = TransHumanNet(embed_dim=embed_dim, vit_depth=vit_depth,
-                          vit_heads=vit_heads, knn_k=knn_k)
+                          vit_heads=vit_heads, knn_k=knn_k,
+                          compute_dtype=compute_dtype)
     init_weights(model, torch.Generator().manual_seed(seed))
     model = model.to(device).eval()
     pipe = RenderPipeline(model, cluster, smpl.v_template,

@@ -66,18 +66,21 @@ def _group(name: str, cat: str) -> str:
     return "elementwise, reductions, other"
 
 
-def summarize_trace(trace: dict, wall_ms: float, steps: int) -> dict:
+def summarize_trace(trace: dict, wall_ms: float, steps: int,
+                    phases=PHASES) -> dict:
     """The summary of a trace of ``steps`` steps whose step functions took
     ``wall_ms`` of host time in all; every time is in ms per step.  Device
     events launched outside the step (the sample's copy to the card) are
-    left out of the busy time and reported as ``outside_ms``."""
+    left out of the busy time and reported as ``outside_ms``.  ``phases``
+    names the host ranges that make up a step (``tools/profile_render.py``
+    passes its own)."""
     events = [e for e in trace.get("traceEvents", []) if e.get("ph") == "X"]
     launch_ts = {e["args"]["correlation"]: e["ts"] for e in events
                  if e.get("cat") in LAUNCH_CATS
                  and "correlation" in e.get("args", {})}
     ranges = [(e["ts"], e["ts"] + e["dur"], e["name"]) for e in events
-              if e.get("cat") == "user_annotation" and e["name"] in PHASES]
-    per_phase = {p: [] for p in PHASES}
+              if e.get("cat") == "user_annotation" and e["name"] in phases]
+    per_phase = {p: [] for p in phases}
     groups: dict = {}
     inside, outside = [], 0.0
     for e in events:
