@@ -65,6 +65,27 @@ Phase 3 also holds the bf16 forms of K2, K4 and K3 against their float32
 forms on the widened inputs, cast once (bit for bit), and against their
 plain twins, timed beside their bf16 bounds.
 
+Then the config files, LPIPS and the train loop's lifecycle, with seeded
+random stand-ins for the user's LPIPS and ResNet-18 npz files:
+
+a. LPIPS at full VGG16 widths on the card against the CPU (the distance
+   within 1e-4 relative; the input gradient within 1e-4 of its norm at
+   the 6 x 20 x 20 train patches, and at phase 9's eval crop as near the
+   float64 gradient as the CPU's float32 is), timed;
+b. the train entry point from --cfg_file configs/train_or_eval.yaml at full
+   width with LPIPS and the pretrained encoder, in bf16 (as the file says)
+   and in float32: 2 epochs of 3 steps, counters reset just before and read
+   just after, latest.pth / 0.pth / 1.pth written, lpips_loss in every
+   step, the encoder's first convolution the npz's before the first step,
+   1.pth the trained state bit for bit, a second call resuming at epoch 2
+   with the step and lr carried, then --test;
+c. the run entry point from the files on b's checkpoint directory:
+   --type evaluate (train_or_eval.yaml) with and without the LPIPS column,
+   --type visualize (performance.yaml, 2 frames), --type reconstruction
+   (reconstruction.yaml), each with the counters reset and read;
+d. phase 6 and 12's train parity with LPIPS in the loss (2 patches of
+   16 x 16), within their bounds.
+
 The last three lines are {"kernels": [...]}, the card's name and power
 limit as nvidia-smi prints them, and {"ok": true, "device": {...}}.
 Imports only torch, numpy and the port.
@@ -362,7 +383,7 @@ def train_batch_projections(dev):
     from transhuman_tpu_torch.config import Config
     from transhuman_tpu_torch.render.pipeline import fold_in, to_smpl
 
-    cfg = Config()
+    cfg = Config().merge_opts(["dataset", "synthetic"])
     _, _, data, pipe = build_trainer(cfg, dev)
     smp = data.get_train_sample(0).to(dev)
     f = smp.frame
@@ -1124,18 +1145,24 @@ def _grads_and_update(state, p0):
              state.model.named_parameters()})
 
 
-def phase_train_parity(card: str, dtype: str = "float32", ref=None):
+def phase_train_parity(card: str, dtype: str = "float32", ref=None,
+                       lpips: str = ""):
     """One train step at 64x64 (full-width model, 2 patches of 10x10 rays x
     64 samples, jitter off) on the card and on the CPU from the same
     seeded weights and sample, in the compute dtype; in bf16 also against
-    ref (the CPU's float32 step, this phase's float32 result).  Returns the
-    CPU step's (stats, gradients, update)."""
+    ref (the CPU's float32 step, this phase's float32 result).  With lpips
+    (an LPIPS npz) the loss adds 0.1 x LPIPS over 2 patches of 16x16 (a
+    side VGG16's pools need).  Returns the CPU step's (stats, gradients,
+    update)."""
     from transhuman_tpu_torch.cli.train import build_trainer
     from transhuman_tpu_torch.config import Config
 
     cfg = Config().merge_opts(["H", "128", "W", "128", "perturb", "0",
-                               "patch.N_patches", "2", "patch.size", "10",
-                               "compute_dtype", dtype])
+                               "patch.N_patches", "2", "patch.size",
+                               "16" if lpips else "10",
+                               "compute_dtype", dtype, "dataset",
+                               "synthetic", "lpips_weights", lpips])
+    tag = " with LPIPS" if lpips else ""
     runs = {}
     for dev in ("cuda", "cpu"):
         state, step_fn, data, _ = build_trainer(cfg, torch.device(dev))
@@ -1153,6 +1180,14 @@ def phase_train_parity(card: str, dtype: str = "float32", ref=None):
           "train parity: the parameters with a gradient differ")
     gmax = max(float(gc[n].norm()) for n in gc)
     lr = sc["lr"]
+    if lpips:
+        lp_err = abs(sg["lpips_loss"] - sc["lpips_loss"]) / sc["lpips_loss"]
+        check(sc["lpips_loss"] > 0 and lp_err <= (
+            BF16_LOSS_RTOL if dtype == "bfloat16" else 1e-4),
+            f"train parity{tag}: lpips_loss {sg['lpips_loss']} vs "
+            f"{sc['lpips_loss']}")
+        tag += f" (lpips_loss {sg['lpips_loss']:.7g} vs " \
+               f"{sc['lpips_loss']:.7g}, rel {lp_err:.3g})"
     if dtype == "bfloat16":
         check(lerr <= BF16_LOSS_RTOL, f"bf16 train parity: loss {sg['loss']}"
               f" vs {sc['loss']} (CPU float32 {ref[0]['loss']})")
@@ -1175,8 +1210,8 @@ def phase_train_parity(card: str, dtype: str = "float32", ref=None):
         check(flips <= flips_ref, f"bf16 train parity: {flips} update signs "
               f"differ from the CPU's bf16 step, the CPU's float32 step "
               f"{flips_ref} (of {total})")
-        log(f"[12 bf16 train parity] 64x64 full-width step in bf16, CUDA vs "
-            f"CPU: loss {sg['loss']:.7g} vs {sc['loss']:.7g} (rel "
+        log(f"[{'d' if lpips else '12'} bf16 train parity] 64x64 full-width "
+            f"step in bf16{tag}, CUDA vs CPU: loss {sg['loss']:.7g} vs {sc['loss']:.7g} (rel "
             f"{lerr:.3g}; CPU float32 {ref[0]['loss']:.7g}); worst gradient "
             f"leaf {worst[0]:.3g} of the largest leaf's norm ({worst[1]}); "
             f"mean |d grad| {gm[0]:.3g} vs CPU bf16 - float32 {gm[1]:.3g}; "
@@ -1211,8 +1246,8 @@ def phase_train_parity(card: str, dtype: str = "float32", ref=None):
     check(worst_tight <= 0.01 * lr and worst <= 2 * lr,
           f"train parity: updates differ by {worst_tight} (sure sign) / "
           f"{worst} (all) at lr {lr}")
-    log(f"[6 train parity] 64x64 full-width step, CUDA vs CPU: loss "
-        f"{sg['loss']:.7g} vs {sc['loss']:.7g} (rel {lerr:.3g}); max "
+    log(f"[{'d' if lpips else '6'} train parity] 64x64 full-width step"
+        f"{tag}, CUDA vs CPU: loss {sg['loss']:.7g} vs {sc['loss']:.7g} (rel {lerr:.3g}); max "
         f"gradient err {gerr:.3g} of its leaf's norm (leaves above the "
         f"floor); worst error/tolerance {rel[0][0]:.3g} ({rel[0][1]}); "
         f"update err beyond rounding "
@@ -1238,9 +1273,12 @@ def phase_train(card: str, path: str, dtype: str = "float32"):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launch_counts()
-    state, records = train_cli.main(["--device", "cuda", "--steps",
-                                     str(TRAIN_STEPS), "--out", path,
-                                     "compute_dtype", dtype])
+    tmp = os.path.dirname(path)
+    state, records = train_cli.main([
+        "--device", "cuda", "--steps", str(TRAIN_STEPS), "--out", path,
+        "compute_dtype", dtype, "dataset", "synthetic",
+        "trained_model_dir", os.path.join(tmp, f"tm_{dtype}"),
+        "record_dir", os.path.join(tmp, f"rec_{dtype}")])
     torch.cuda.synchronize()
     counts = kernels.launch_counts()
     peak = torch.cuda.max_memory_allocated() / 2**30
@@ -1840,6 +1878,309 @@ def check_cull_grid(card: str, frame, pts_world, cull_distance: float,
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **b}
 
 
+# ------------------------------------------ config files, LPIPS, lifecycle
+CONFIGS = os.path.join(os.path.dirname(os.path.abspath(__file__)), "configs")
+CFG_EPOCHS, CFG_EP_ITER = 2, 3  # phase b: 2 epochs of 3 steps, then 1 more
+LPIPS_RTOL = 1e-4  # card against CPU, the distance and its input gradient
+
+
+def write_weight_files(tmp: str) -> dict:
+    """Seeded random stand-ins for the user's converted files, in the JAX
+    package's npz layouts: LPIPS (13 VGG16 convs HWIO at He scale, 5
+    non-negative lin heads) and the ResNet-18 encoder (through
+    tools/convert_resnet.convert from torchvision-layout arrays)."""
+    from transhuman_tpu_torch.models.lpips import VGG16_STAGES
+    from transhuman_tpu_torch.models.network import TransHumanNet
+    from transhuman_tpu_torch.tools.convert_resnet import convert
+
+    rng = np.random.default_rng(2024)
+    lp, c_in = {}, 3
+    for si, (n_convs, ch) in enumerate(VGG16_STAGES):
+        for ci in range(n_convs):
+            lp[f"conv{si}_{ci}_w"] = (rng.standard_normal(
+                (3, 3, c_in, ch)) * np.sqrt(2.0 / (9 * c_in))).astype(
+                np.float32)
+            lp[f"conv{si}_{ci}_b"] = (rng.standard_normal(ch) * 0.01).astype(
+                np.float32)
+            c_in = ch
+        lp[f"lin{si}"] = np.abs(rng.standard_normal(ch) * 0.1).astype(
+            np.float32)
+    net = TransHumanNet(embed_dim=192, vit_depth=1, vit_heads=3)
+    sd = {n[len("encoder.model."):]: (rng.standard_normal(tuple(p.shape))
+                                     * (0.05 if p.dim() == 4 else 1.0)
+                                     + (1.0 if n.endswith("bn1.weight")
+                                        else 0.0)).astype(np.float32)
+          for n, p in net.named_parameters()
+          if n.startswith("encoder.model.")}
+    files = {"lpips": os.path.join(tmp, "lpips_vgg16.npz"),
+             "resnet": os.path.join(tmp, "resnet18.npz")}
+    np.savez(files["lpips"], **lp)
+    np.savez(files["resnet"], **convert(sd))
+    return files
+
+
+def eval_crop_hw() -> tuple:
+    """The bbox crop of phase 9's first 512x512 eval frame."""
+    from transhuman_tpu_torch.config import Config
+    from transhuman_tpu_torch.data.synthetic import SyntheticDataset
+    from transhuman_tpu_torch.evals.evaluator import bounding_rect
+
+    item = SyntheticDataset(Config(), "test",
+                            image_hw=(512, 512)).get_eval_item(0)
+    _, _, w, h = bounding_rect(item.eval_rays.mask_at_box.reshape(512, 512))
+    return h, w
+
+
+def phase_lpips(card: str, path: str) -> dict:
+    """a. LPIPS at full VGG16 widths on the card against the CPU, the
+    distance and its input gradient, at the train patches (6 x 20 x 20)
+    and at phase 9's eval crop; each timed on the card.  The input
+    gradient is also held against the CPU's in float64: at the eval crop
+    every float32 implementation (the CPU's, cuDNN's, PyTorch's own CUDA
+    convolution) lies ~5e-3 of its norm from float64 (measured on one H100),
+    so there the card must lie as near float64 as the CPU's float32 does,
+    within a factor 2."""
+    from transhuman_tpu_torch.models.lpips import LPIPS
+
+    cpu, gpu = LPIPS.from_npz(path), LPIPS.from_npz(path).cuda()
+    ref = LPIPS.from_npz(path).double()
+    rng = np.random.default_rng(7)
+    out = {}
+    for name, shape in (("train", (6, 20, 20, 3)),
+                        ("eval", (1, *eval_crop_hw(), 3))):
+        x = torch.from_numpy(rng.uniform(-1, 1, shape).astype(np.float32))
+        y = torch.from_numpy(rng.uniform(-1, 1, shape).astype(np.float32))
+        xc = x.clone().requires_grad_(True)
+        dc = cpu(xc, y)
+        dc.sum().backward()
+        x64 = x.double().requires_grad_(True)
+        ref(x64, y.double()).sum().backward()
+        g64 = x64.grad
+        xg = x.cuda().requires_grad_(True)
+        yg = y.cuda()
+        dg = gpu(xg, yg)
+        dg.sum().backward()
+        rel = float(((dg.detach().cpu() - dc.detach()).abs()
+                     / dc.detach().abs()).max())
+        grel = float((xg.grad.cpu() - xc.grad).norm() / xc.grad.norm())
+        g_card = float((xg.grad.cpu().double() - g64).norm() / g64.norm())
+        g_cpu = float((xc.grad.double() - g64).norm() / g64.norm())
+        check(rel <= LPIPS_RTOL, f"LPIPS {name} {shape}: card vs CPU "
+              f"distance rel {rel:.3g} (limit {LPIPS_RTOL})")
+        check(g_card <= max(2 * g_cpu, LPIPS_RTOL)
+              and (name != "train" or grel <= LPIPS_RTOL),
+              f"LPIPS {name} {shape}: input gradient card vs CPU {grel:.3g} "
+              f"of its norm; against float64 card {g_card:.3g}, CPU float32 "
+              f"{g_cpu:.3g}")
+        with torch.no_grad():
+            fwd = time_ms(lambda: gpu(xg, yg))
+
+        def fwd_bwd():
+            xg.grad = None
+            gpu(xg, yg).sum().backward()
+
+        both = time_ms(fwd_bwd)
+        out[name] = {"shape": shape, "fwd_ms": fwd, "fwd_bwd_ms": both,
+                     "rel": rel, "grad_rel": grel}
+        log(f"[a LPIPS] {name} {tuple(shape)} f32: card vs CPU distance rel "
+            f"{rel:.3g}, input gradient {grel:.3g} of its norm (against "
+            f"float64: card {g_card:.3g}, CPU {g_cpu:.3g}); forward "
+            f"{fwd:.4f} ms, forward + input backward {both:.4f} ms  [{card}]")
+    return out
+
+
+def phase_train_cfg(card: str, tmp: str, files: dict, dtype: str):
+    """b. The train entry point from --cfg_file configs/train_or_eval.yaml
+    at full width with LPIPS and the pretrained encoder, in dtype: epochs
+    saved (latest.pth, 0.pth, 1.pth), lpips_loss in every step, the
+    encoder's first convolution the npz's before the first step, the saved
+    parameters the trained ones bit for bit; a second call with one more
+    epoch resumes with the step and lr carried; then --test.  Returns
+    (the first call's launch counts, its model directory)."""
+    from transhuman_tpu_torch import kernels
+    from transhuman_tpu_torch.cli import train as train_cli
+    from transhuman_tpu_torch.train.schedule import (
+        warmup_cosine_epoch_schedule,
+    )
+
+    root = os.path.join(tmp, f"cfg_{dtype}")
+    mdir = os.path.join(root, "tm", "transhuman", "transhuman_tpu")
+    opts = ["--device", "cuda", "--cfg_file",
+            os.path.join(CONFIGS, "train_or_eval.yaml"), "dataset",
+            "synthetic", "lpips_weights", files["lpips"], "encoder_weights",
+            files["resnet"], "ep_iter", str(CFG_EP_ITER), "save_freq", "1",
+            "compute_dtype", dtype, "trained_model_dir",
+            os.path.join(root, "tm"), "record_dir", os.path.join(root, "rec"),
+            "result_dir", os.path.join(root, "res")]
+    with np.load(files["resnet"]) as z:
+        want_conv1 = torch.from_numpy(np.ascontiguousarray(
+            np.transpose(z["conv1/kernel"], (3, 2, 0, 1))))
+    build, seen = train_cli.build_trainer, {}
+
+    def checked(cfg, device, dataset=None, ckpt=None):
+        out = build(cfg, device, dataset, ckpt)
+        if ckpt is None:  # before the first step of the fresh run
+            seen["conv1"] = torch.equal(
+                out[0].model.encoder.model.conv1.weight.detach().cpu(),
+                want_conv1)
+        return out
+
+    train_cli.build_trainer = checked
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        state, recs = train_cli.main(opts + ["train.epoch", str(CFG_EPOCHS)])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = kernels.launch_counts()
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        state2, recs2 = train_cli.main(
+            opts + ["train.epoch", str(CFG_EPOCHS + 1)])
+    finally:
+        train_cli.build_trainer = build
+    n = CFG_EPOCHS * CFG_EP_ITER
+    check(seen.get("conv1") is True, "train cfg: the encoder's first "
+          "convolution is not the npz's before the first step")
+    check([r["step"] for r in recs] == list(range(n)),
+          f"train cfg: steps {[r['step'] for r in recs]}")
+    check(all(np.isfinite(r["lpips_loss"]) and r["lpips_loss"] > 0
+              for r in recs + recs2), "train cfg: an lpips_loss is not "
+          "finite and above 0")
+    check(state.model.compute_dtype == COMPUTE[dtype],
+          f"train cfg: the model computes in {state.model.compute_dtype}")
+    files_written = sorted(os.listdir(mdir))
+    check({"latest.pth", "0.pth", "1.pth"} <= set(files_written),
+          f"train cfg: {files_written}")
+    f = forms(dtype)
+    check_launches(f"train cfg ({dtype})", counts,
+                   {f["dparf"]: n, f["scatter"]: 2 * n, f["fetch"]: 2 * n})
+    blob = torch.load(os.path.join(mdir, "1.pth"), map_location="cpu",
+                      weights_only=True)
+    check(all(torch.equal(blob["net"][k], v.cpu()) for k, v in
+              state.model.state_dict().items())
+          and (blob["epoch"], blob["step"]) == (CFG_EPOCHS - 1, n),
+          "train cfg: 1.pth is not the trained state")
+    sch = warmup_cosine_epoch_schedule(7e-4, 1e-6, 300, 3000, CFG_EP_ITER)
+    check([r["step"] for r in recs2] == list(range(n, n + CFG_EP_ITER))
+          and state2.step == n + CFG_EP_ITER
+          and abs(recs2[0]["lr"] - sch(n)) <= 1e-6 * sch(n),
+          f"train cfg: the resumed run's steps "
+          f"{[r['step'] for r in recs2]}, step {state2.step}, lr "
+          f"{recs2[0]['lr']} (lr({n}) = {sch(n)})")
+    t0 = time.perf_counter()
+    val, summary = train_cli.main(["--test"] + opts)
+    val_s = time.perf_counter() - t0
+    check(np.isfinite(val["img_loss"]) and summary["lpips"] is not None
+          and np.isfinite(summary["lpips"]),
+          f"train cfg --test: {val} {summary}")
+    step_ms = [r["step_s"] * 1e3 for r in recs]
+    lp_losses = [r["lpips_loss"] for r in recs]
+    saves = [r["save_s"] for r in recs + recs2 if "save_s" in r]
+    log(f"[b train cfg] --cfg_file train_or_eval.yaml in {dtype}, full width "
+        f"(3 views 512x512, 2400 rays x 64 samples) with LPIPS and the "
+        f"pretrained encoder: {len(recs)} steps in {wall:.1f} s (build "
+        f"included), median step {float(np.median(step_ms[1:])):.1f} ms over "
+        f"steps 1-{len(recs) - 1} (steps "
+        f"{', '.join(f'{x:.1f}' for x in step_ms)} ms), lpips_loss "
+        f"{', '.join(f'{x:.5f}' for x in lp_losses)}; "
+        f"peak device memory {peak:.3f} GiB; epoch saves "
+        f"{', '.join(f'{s:.3f}' for s in saves)} s; files {files_written}; "
+        f"resumed at epoch {CFG_EPOCHS} (step {recs2[0]['step']}, lr "
+        f"{recs2[0]['lr']:.4g}); --test in {val_s:.1f} s: img_loss "
+        f"{val['img_loss']:.5f}, psnr {summary['psnr']:.4f}, lpips "
+        f"{summary['lpips']:.5f}; launches {counts}  [{card}]")
+    return counts, os.path.join(root, "tm")
+
+
+def phase_eval_cfg(card: str, tmp: str, model_root: str, files: dict):
+    """c. The run entry point from the config files on phase b's bf16
+    checkpoint directory (no --weights): --type evaluate from
+    train_or_eval.yaml over EVAL_FRAMES frames with the LPIPS column and
+    without it, --type visualize from performance.yaml (2 frames) and
+    --type reconstruction from reconstruction.yaml (mesh_th 5, below the
+    random model's sigma); counters reset just before each and read just
+    after.  Returns {path: launch counts}."""
+    from transhuman_tpu_torch import kernels
+    from transhuman_tpu_torch.cli import run as run_cli
+    from transhuman_tpu_torch.config import Config
+    from transhuman_tpu_torch.data.synthetic import SyntheticDataset
+
+    res = os.path.join(tmp, "cfg_result")
+    common = ["--device", "cuda", "dataset", "synthetic",
+              "trained_model_dir", model_root, "result_dir", res]
+    f = forms("bfloat16")
+    by_path, cadence = {}, {}
+    for tag, lp in (("eval_cfg_bf16", files["lpips"]), ("eval_cfg_nolpips",
+                                                         "")):
+        stamps = []
+
+        def stamp(item, out):
+            stamps.append(time.perf_counter())
+            return {}
+
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        summary = run_cli.main(
+            ["--type", "evaluate", "--cfg_file",
+             os.path.join(CONFIGS, "train_or_eval.yaml"), *common,
+             "lpips_weights", lp, "test.frame_interval",
+             str(8 // EVAL_FRAMES)], per_frame=stamp)
+        torch.cuda.synchronize()
+        by_path[tag] = kernels.launch_counts()
+        check(len(stamps) == EVAL_FRAMES, f"{tag}: {len(stamps)} frames")
+        check_launches(tag, by_path[tag], {"min_excess2": 1, f["dparf"]: 1,
+                                           f["fetch"]: 1})
+        check((summary["lpips"] is not None and np.isfinite(summary["lpips"]))
+              == bool(lp), f"{tag}: summary {summary}")
+        cadence[tag] = np.diff(stamps)[:-1] * 1e3
+        log(f"[c evaluate cfg] --cfg_file train_or_eval.yaml (bf16), "
+            f"{EVAL_FRAMES} frames of 512x512 "
+            f"{'with' if lp else 'without'} the LPIPS column: psnr "
+            f"{summary['psnr']:.4f}, ssim {summary['ssim']:.4f}, lpips "
+            f"{summary['lpips']}; frame to frame "
+            f"{', '.join(f'{x:.1f}' for x in cadence[tag])} ms; launches "
+            f"{by_path[tag]}  [{card}]")
+    text = open(os.path.join(res, "epoch_-1", "debug", "summary.txt")).read()
+    check("lpips: n/a" in text, "evaluate cfg: the run without weights "
+          f"wrote {text!r}")
+    pcfg = Config.from_yaml(os.path.join(CONFIGS, "performance.yaml"),
+                            ["dataset", "synthetic"])
+    vis_data = SyntheticDataset(pcfg, "test", n_frames=2, image_hw=(512, 512))
+    kernels.reset_launch_counts()
+    paths = run_cli.main(["--type", "visualize", "--cfg_file",
+                          os.path.join(CONFIGS, "performance.yaml"),
+                          *common], dataset=vis_data)
+    torch.cuda.synchronize()
+    by_path["visualize_cfg_bf16"] = kernels.launch_counts()
+    check(len(paths) == 2 and all("perform" in p for p in paths),
+          f"visualize cfg: {paths}")
+    check_launches("visualize cfg", by_path["visualize_cfg_bf16"],
+                   {"min_excess2": 1, f["dparf"]: 1, f["fetch"]: 1})
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    meshes = run_cli.main(["--type", "reconstruction", "--device", "cuda",
+                           "--cfg_file",
+                           os.path.join(CONFIGS, "reconstruction.yaml"),
+                           *common[2:], "mesh_th", "5"])
+    torch.cuda.synchronize()
+    recon_s = time.perf_counter() - t0
+    by_path["reconstruction_cfg_bf16"] = kernels.launch_counts()
+    from transhuman_tpu_torch.mesh_ops.ply import load_ply
+
+    v, t = load_ply(meshes[0])
+    check(len(meshes) == 1 and len(t) > 100 and "/mesh/" in meshes[0],
+          f"reconstruction cfg: {meshes} ({len(t)} triangles)")
+    check_launches("reconstruction cfg", by_path["reconstruction_cfg_bf16"],
+                   {"min_excess2": 1, f["dparf"]: 1, f["fetch"]: 1})
+    log(f"[c visualize / reconstruction cfg] performance.yaml: "
+        f"{len(paths)} frames ({', '.join(os.path.relpath(p, res) for p in paths)}); "
+        f"reconstruction.yaml at 0.005 m, mesh_th 5: {len(v)} verts, "
+        f"{len(t)} tris in {recon_s:.1f} s (build included)  [{card}]")
+    return by_path
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing ran", file=sys.stderr)
@@ -1873,6 +2214,16 @@ def main() -> int:
         by_path["eval_bf16"] = phase_eval(card, ckpt16, tmp, "bfloat16")
         by_path["reconstruction_bf16"] = phase_reconstruction(
             card, ckpt16, tmp, "bfloat16")[0]
+        # the config files, LPIPS and the train loop's lifecycle
+        files = write_weight_files(tmp)
+        phase_lpips(card, files["lpips"])
+        by_path["train_cfg_bf16"], model_root = phase_train_cfg(
+            card, tmp, files, "bfloat16")
+        by_path["train_cfg"] = phase_train_cfg(card, tmp, files,
+                                               "float32")[0]
+        by_path.update(phase_eval_cfg(card, tmp, model_root, files))
+        lp32 = phase_train_parity(card, lpips=files["lpips"])
+        phase_train_parity(card, "bfloat16", lp32, lpips=files["lpips"])
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     for k in kernels:

@@ -621,7 +621,9 @@ def test_entry_points_run_in_bf16_on_the_cpu(tmp_path):
     """train, then evaluate and reconstruction from its checkpoint, all with
     compute_dtype bfloat16 and --device cpu."""
     opts = ["H", "48", "W", "48", "num_class", "20", "vit_depth", "1",
-            "N_samples", "4", "compute_dtype", "bfloat16"]
+            "N_samples", "4", "compute_dtype", "bfloat16",
+            "dataset", "synthetic", "trained_model_dir", str(tmp_path / "tm"),
+            "record_dir", str(tmp_path / "rec")]
     ckpt = str(tmp_path / "latest.pth")
     state, records = train_cli.main(
         ["--device", "cpu", "--steps", "1", "--out", ckpt, *opts,

@@ -242,7 +242,9 @@ def trained(tmp_path_factory):
     opts = list(OPTS) + ["patch.size", "6", "patch.N_patches", "2",
                          "trained_model_dir", str(root / "tm"),
                          "result_dir", str(root / "res"),
-                         "kmeans_dir", str(root / "none")]
+                         "kmeans_dir", str(root / "none"),
+                         "dataset", "synthetic", "ep_iter", "1",
+                         "record_dir", str(root / "rec")]
     train_cli.main(["--device", "cpu", "--steps", "1", *opts])
     return root, opts
 

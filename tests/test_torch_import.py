@@ -21,9 +21,11 @@ def _no_process(*a, **k):
     raise RuntimeError("a process was started at import: %r" % (a[:1],))
 
 class _Blocked:
-    # the JAX package and JAX are not importable, as on the GPU machine
+    # the JAX package, JAX, PyYAML, OpenCV and imageio are not importable,
+    # as on the GPU machine
     def find_spec(self, name, path=None, target=None):
-        if name.split(".")[0] in ("jax", "flax", "optax", "transhuman_tpu"):
+        if name.split(".")[0] in ("jax", "flax", "optax", "transhuman_tpu",
+                                  "yaml", "cv2", "imageio"):
             raise ImportError("blocked: " + name)
 
 sys.meta_path.insert(0, _Blocked())
@@ -42,7 +44,8 @@ print(json.dumps({
     "modules": mods,
     "loaded": sorted(k for k in sys.modules
                      if k.split(".")[0] in ("jax", "flax", "optax", "triton",
-                                            "transhuman_tpu", "cv2", "yaml")),
+                                            "transhuman_tpu", "cv2", "yaml",
+                                            "imageio")),
     "lib_loaded": build.loaded(),
     "bridge_roundtrip": back.keys() == net.state_dict().keys() and all(
         bool((back[k] == v).all()) for k, v in net.state_dict().items()),
@@ -102,3 +105,40 @@ def test_package_source_has_no_jax_import():
                 "from transhuman_tpu import config", "import transhuman_tpu"):
         assert _FOREIGN_IMPORT.match(bad), bad
     assert not _FOREIGN_IMPORT.match("from transhuman_tpu_torch import x")
+
+
+NEW_MODULES = {
+    "transhuman_tpu_torch.config", "transhuman_tpu_torch.models.lpips",
+    "transhuman_tpu_torch.utils.yaml_subset",
+    "transhuman_tpu_torch.utils.recorder",
+    "transhuman_tpu_torch.utils.tb_writer",
+    "transhuman_tpu_torch.tools.convert_lpips",
+    "transhuman_tpu_torch.tools.convert_resnet",
+    "transhuman_tpu_torch.train.checkpoint",
+    "transhuman_tpu_torch.data.loader", "transhuman_tpu_torch.cli.common",
+    "transhuman_tpu_torch.cli.train",
+}
+
+
+def test_config_lpips_and_lifecycle_modules_import_alone(probe):
+    """The config reader, LPIPS, the converters, the checkpoints, the
+    Recorder and its event writer import with JAX, the JAX package, PyYAML,
+    OpenCV and imageio all unimportable."""
+    assert NEW_MODULES <= set(probe["modules"]) | {"transhuman_tpu_torch"}
+
+
+_HOST_ONLY = re.compile(r"^\s*(import|from)\s+(yaml|cv2|imageio)(\.|\s|$)")
+
+
+def test_package_source_imports_no_yaml_cv2_or_imageio():
+    pkg = os.path.join(ROOT, "transhuman_tpu_torch")
+    offenders = []
+    for dirpath, _, files in os.walk(pkg):
+        for f in files:
+            if f.endswith(".py"):
+                with open(os.path.join(dirpath, f)) as fh:
+                    offenders += [f"{f}: {line.strip()}" for line in fh
+                                  if _HOST_ONLY.match(line)]
+    with open(os.path.join(ROOT, "chip_smoke.py")) as fh:
+        offenders += [line.strip() for line in fh if _HOST_ONLY.match(line)]
+    assert offenders == []

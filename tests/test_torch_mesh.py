@@ -327,7 +327,9 @@ def trained(tmp_path_factory):
                          "trained_model_dir", str(root / "tm"),
                          "result_dir", str(root / "res"),
                          "kmeans_dir", str(root / "none"),
-                         "voxel_size", "[0.04, 0.04, 0.04]"]
+                         "voxel_size", "[0.04, 0.04, 0.04]",
+                         "dataset", "synthetic", "ep_iter", "1",
+                         "record_dir", str(root / "rec")]
     train_cli.main(["--device", "cpu", "--steps", "1", *opts])
     return root, opts
 

@@ -81,7 +81,9 @@ def test_train_cli_writes_the_profile_window(tmp_path):
     _, records = train_cli.main([
         "--device", "cpu", "--steps", "6", "--out", str(tmp_path / "t.pth"), "H", "32", "W",
         "32", "num_class", "20", "vit_depth", "1", "N_samples", "4",
-        "patch.size", "4", "patch.N_patches", "1", "profile_dir", out])
+        "patch.size", "4", "patch.N_patches", "1", "profile_dir", out,
+        "dataset", "synthetic", "trained_model_dir", str(tmp_path / "tm"),
+        "record_dir", str(tmp_path / "rec")])
     assert len(records) == 6
     with open(os.path.join(out, "summary.json")) as f:
         s = json.load(f)

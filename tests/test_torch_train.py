@@ -95,7 +95,7 @@ def test_patch_and_ray_losses_match_jax():
     js.rays.mask, ts.rays.mask = jnp.asarray(mask), t(mask)
     # float32 means over at most 96 values: rounding only
     for (lt, st), (lj, sj) in [
-        (tloss.patch_losses(t(pred), ts, 0.7),
+        (tloss.patch_losses(t(pred), ts, None, 0.7),
          jloss.patch_losses(jnp.asarray(pred), js, None, 0.7)),
         (tloss.random_ray_losses(t(pred), ts, 0.7),
          jloss.random_ray_losses(jnp.asarray(pred), js, 0.7)),
@@ -349,7 +349,9 @@ def test_train_entry_point_trains_and_saves(tmp_path, capsys):
     state, records = tcli.main([
         "--device", "cpu", "--steps", "3", "--out", out, "H", "64", "W", "64", "num_class", "20",
         "vit_depth", "1", "N_samples", "8", "patch.size", "6",
-        "patch.N_patches", "2", "ep_iter", "2", "raw_noise_std", "1.0"])
+        "patch.N_patches", "2", "ep_iter", "2", "raw_noise_std", "1.0",
+        "dataset", "synthetic", "trained_model_dir", str(tmp_path / "tm"),
+        "record_dir", str(tmp_path / "rec")])
     assert [r["step"] for r in records] == [0, 1, 2]
     assert all(np.isfinite(r["loss"]) and r["loss"] > 0 for r in records)
     assert records[2]["lr"] > records[0]["lr"]  # epoch 1 of the warmup

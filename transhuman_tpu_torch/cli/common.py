@@ -1,20 +1,76 @@
-"""Shared entry-point plumbing: body model, cluster table, model + pipeline,
-dataset, output and checkpoint paths (counterpart of
-transhuman_tpu/cli/common.py)."""
+"""Shared entry-point plumbing: arguments and config, body model, cluster
+table, model + pipeline, dataset, output and checkpoint paths (counterpart
+of transhuman_tpu/cli/common.py)."""
 
 from __future__ import annotations
 
+import argparse
 import os
+import random
 import sys
 from typing import Optional
 
+import numpy as np
 import torch
 
-from ..config import Config
+from ..config import DATASETS, Config, check_supported
 from ..geometry.clusters import ClusterSpec
 from ..geometry.smpl import SMPLModel
 from ..models.network import TransHumanNet
 from ..render.pipeline import RenderPipeline
+
+
+def add_config_args(p: argparse.ArgumentParser):
+    """--cfg_file and the trailing ``key value`` overrides."""
+    p.add_argument("--cfg_file", default=None,
+                   help="a reference-format YAML config (configs/*.yaml)")
+    p.add_argument("opts", nargs=argparse.REMAINDER, default=[],
+                   help="config overrides: key value ...")
+
+
+def load_config(args) -> Config:
+    """The config of ``--cfg_file`` with the overrides applied, as the JAX
+    package's ``Config.from_yaml``; a value the port cannot run is an
+    error by name."""
+    return check_supported(Config.from_yaml(args.cfg_file, args.opts))
+
+
+def parse_args(argv=None, need_type: bool = False, allow_test: bool = False,
+               prog: Optional[str] = None, extra=None):
+    """(args, cfg) of an entry point: --cfg_file, --device, --weights, the
+    overrides; --test (allow_test), --type/--ply/--occupancy_out
+    (need_type); extra(parser) adds an entry point's own flags."""
+    p = argparse.ArgumentParser(prog=prog)
+    p.add_argument("--device", default="cuda",
+                   help="cuda (the default; fails without a card) or cpu")
+    p.add_argument("--weights", default=None,
+                   help="a checkpoint: the port's .pth or the JAX package's "
+                        ".ckpt (default: the latest in <trained_model_dir>/"
+                        "<task>/<exp_name>, or test.epoch's)")
+    if allow_test:
+        p.add_argument("--test", action="store_true",
+                       help="validation pass instead of training: weights-"
+                            "only load, val loss stats + the evaluator over "
+                            "the test split")
+    if need_type:
+        p.add_argument("--type", default="evaluate",
+                       choices=["evaluate", "visualize", "reconstruction",
+                                "light_stage"])
+        p.add_argument("--ply", default=None, help="light_stage: input .ply")
+        p.add_argument("--occupancy_out", default=None,
+                       help="light_stage: output .npy (default <ply>"
+                            ".occupancy.npy)")
+    if extra is not None:
+        extra(p)
+    add_config_args(p)
+    args = p.parse_args(argv)
+    return args, load_config(args)
+
+
+def seed_everything(seed: int):
+    np.random.seed(seed)
+    random.seed(seed)
+    torch.manual_seed(seed)
 
 
 def configure_device(name: str) -> torch.device:
@@ -56,9 +112,11 @@ def load_cluster_spec(cfg: Config, smpl: SMPLModel) -> ClusterSpec:
     return ClusterSpec.from_kmeans(smpl.v_template, cfg.num_class)
 
 
-def build_runtime(cfg: Config, device, smpl: Optional[SMPLModel] = None):
+def build_runtime(cfg: Config, device, smpl: Optional[SMPLModel] = None,
+                  pe_table=None):
     """(model, pipe, smpl, cluster) with the model's weights on ``device``
-    (freshly initialised: load a checkpoint into ``model`` afterwards)."""
+    (freshly initialised: load a checkpoint into ``model`` afterwards);
+    pe_table is a checkpoint's stored TransHE table, or None."""
     if smpl is None:
         smpl = load_smpl(cfg)
     cluster = load_cluster_spec(cfg, smpl)
@@ -67,17 +125,23 @@ def build_runtime(cfg: Config, device, smpl: Optional[SMPLModel] = None):
         model, cluster, smpl.v_template, n_samples=cfg.N_samples,
         chunk_rays=max(cfg.chunk_size // cfg.N_samples, 1),
         cull_distance=cfg.cull_distance, white_bkgd=cfg.white_bkgd,
-        raw_noise_std=cfg.raw_noise_std, device=device,
+        raw_noise_std=cfg.raw_noise_std, device=device, pe_table=pe_table,
     )
     return model, pipe, smpl, cluster
 
 
 def make_dataset(cfg: Config, split: str):
-    """The seeded synthetic scene at the render size (H_render x W_render):
-    the only data the repository holds (the ZJU-MoCap loader is not
-    ported)."""
+    """The dataset cfg.dataset names: ``synthetic``, the seeded synthetic
+    scene at the render size (H_render x W_render), the only data the
+    repository holds; ``zju`` is refused by name (not ported)."""
     from ..data.synthetic import SyntheticDataset
 
+    if cfg.dataset not in DATASETS:
+        raise ValueError(f"unknown dataset {cfg.dataset!r}; known: "
+                         f"{sorted(DATASETS)}")
+    if DATASETS[cfg.dataset]:
+        raise NotImplementedError(
+            f"dataset {cfg.dataset!r}: {DATASETS[cfg.dataset]}")
     return SyntheticDataset(cfg, split, image_hw=(cfg.H_render, cfg.W_render))
 
 
@@ -91,13 +155,17 @@ def result_dir(cfg: Config) -> str:
 
 
 def checkpoint_path(cfg: Config, weights: Optional[str] = None) -> str:
-    """``weights`` when given, else ``model_dir/latest.pth`` for
-    test.epoch -1 and ``model_dir/<epoch>.pth`` otherwise.  A missing file
-    is an error: nothing renders from silent random weights."""
+    """``weights`` when given (a port .pth or a JAX .ckpt), else
+    test.epoch's checkpoint in model_dir (train/checkpoint.py::
+    find_checkpoint: the port's latest.pth / <epoch>.pth, failing those the
+    JAX package's latest.ckpt / ep<epoch>.ckpt).  A missing file is an
+    error: nothing renders from silent random weights."""
+    from ..train.checkpoint import find_checkpoint
+
     if not weights:
-        name = ("latest.pth" if cfg.test.epoch < 0
-                else f"{cfg.test.epoch}.pth")
-        weights = os.path.join(model_dir(cfg), name)
+        weights = find_checkpoint(model_dir(cfg), cfg.test.epoch) or \
+            os.path.join(model_dir(cfg), "latest.pth" if cfg.test.epoch < 0
+                         else f"{cfg.test.epoch}.pth")
     if not os.path.isfile(weights):
         raise FileNotFoundError(
             f"no checkpoint at {weights!r}: train one (python -m "

@@ -2,17 +2,20 @@
 
     python -m transhuman_tpu_torch.cli.run
         --type evaluate|visualize|reconstruction|light_stage
-        [--device cuda|cpu] [--weights PATH] [--ply PATH]
-        [--occupancy_out PATH] [key value ...]
+        [--cfg_file configs/*.yaml] [--device cuda|cpu] [--weights PATH]
+        [--ply PATH] [--occupancy_out PATH] [key value ...]
 
-``evaluate``, ``visualize`` and ``reconstruction`` run from a
-reference-layout ``.pth`` (``--weights``, or
-``trained_model_dir/task/exp_name/latest.pth``, or ``<test.epoch>.pth``; a
-missing file is an error) over every frame the dataset's FrameSampler
-picks.  The data is the seeded synthetic scene at ``H_render x W_render``.
+``evaluate``, ``visualize`` and ``reconstruction`` run from a checkpoint
+(``--weights``: the port's ``.pth`` or the JAX package's ``.ckpt``; else
+test.epoch's in ``trained_model_dir/task/exp_name``, the port's
+``latest.pth`` / ``<epoch>.pth`` or failing those the JAX package's
+``latest.ckpt`` / ``ep<epoch>.ckpt``; a missing file is an error) over
+every frame the dataset's FrameSampler picks.  The data is the seeded
+synthetic scene (``dataset synthetic``) at ``H_render x W_render``.
 ``evaluate`` renders each frame through ``RenderPipeline.render_frame`` and
 writes the evaluator's per-frame PNGs, ``.npy`` metrics and ``summary.txt``
-under ``result_dir/epoch_<test.epoch>/<test.exp_folder_name>``;
+(with the LPIPS column when ``lpips_weights`` is set) under
+``result_dir/epoch_<test.epoch>/<test.exp_folder_name>``;
 ``visualize`` writes one PNG per frame under its ``perform/`` (video
 assembly needs imageio or ffmpeg and is not ported); ``reconstruction``
 extracts each frame's mesh (``mesh_ops.reconstruct.extract_mesh`` at
@@ -36,13 +39,12 @@ turn; only the loader's eval rays run beside the render.
 
 from __future__ import annotations
 
-import argparse
 import os
 import sys
 
 import numpy as np
+import torch
 
-from ..config import Config
 from ..data.loader import Loader
 
 
@@ -87,14 +89,32 @@ def evaluate_frames(cfg, pipe, dataset, ev, per_frame=None, tag=""):
     return summary, {k: float(np.mean(v)) for k, v in extra_vals.items()}
 
 
-def run_evaluate(cfg, pipe, dataset, epoch: int = -1, per_frame=None):
+def make_eval_lpips_fn(cfg, device):
+    """The evaluator's LPIPS (a, b) -> (B,) distances on numpy (B, h, w, 3)
+    crops in [-1, 1], run on device in float32 without gradients; None when
+    cfg.lpips_weights is empty."""
+    from ..models.lpips import lpips_module
+
+    lpips = lpips_module(cfg, device)
+    if lpips is None:
+        return None
+
+    @torch.no_grad()
+    def fn(a, b):
+        t = [torch.from_numpy(np.ascontiguousarray(x, np.float32)).to(device)
+             for x in (a, b)]
+        return lpips(*t).cpu().numpy()
+
+    return fn
+
+
+def run_evaluate(cfg, pipe, dataset, epoch: int = -1, per_frame=None,
+                 device="cpu"):
     from ..evals.evaluator import Evaluator
     from .common import result_dir
 
-    if cfg.evaluator != "if_nerf":
-        raise ValueError(f"unknown evaluator {cfg.evaluator!r}; the port has "
-                         "'if_nerf'")
-    ev = Evaluator(result_dir(cfg), exp_name=cfg.exp_name, epoch=epoch)
+    ev = Evaluator(result_dir(cfg), lpips_fn=make_eval_lpips_fn(cfg, device),
+                   exp_name=cfg.exp_name, epoch=epoch)
     summary, _ = evaluate_frames(cfg, pipe, dataset, ev, per_frame)
     print(summary, flush=True)
     return summary
@@ -105,9 +125,6 @@ def run_visualize(cfg, pipe, dataset):
     from ..viz.perform import PerformVisualizer
     from .common import result_dir
 
-    if cfg.visualizer != "perform":
-        raise ValueError(f"unknown visualizer {cfg.visualizer!r}; the port "
-                         "has 'perform'")
     vis = PerformVisualizer(os.path.join(result_dir(cfg), "perform"),
                             white_bkgd=cfg.white_bkgd)
     renderer = FrameRenderer(cfg, pipe)
@@ -161,29 +178,18 @@ def run_light_stage(cfg, ply, occupancy_out=None):
 
 
 def parse_args(argv=None):
-    p = argparse.ArgumentParser(prog="python -m transhuman_tpu_torch.cli.run")
-    p.add_argument("--type", default="evaluate",
-                   choices=["evaluate", "visualize", "reconstruction",
-                            "light_stage"])
-    p.add_argument("--device", default="cuda")
-    p.add_argument("--weights", default=None,
-                   help="reference-layout .pth (default: <trained_model_dir>"
-                        "/<task>/<exp_name>/latest.pth, or <test.epoch>.pth)")
-    p.add_argument("--ply", default=None, help="light_stage: input .ply")
-    p.add_argument("--occupancy_out", default=None,
-                   help="light_stage: output .npy (default <ply>"
-                        ".occupancy.npy)")
-    p.add_argument("opts", nargs=argparse.REMAINDER, default=[],
-                   help="config overrides: key value ...")
-    args = p.parse_args(argv)
-    return args, Config().merge_opts(args.opts)
+    from .common import parse_args as _parse_args
+
+    return _parse_args(argv, need_type=True,
+                       prog="python -m transhuman_tpu_torch.cli.run")
 
 
 def main(argv=None, dataset=None, per_frame=None):
     """evaluate: the summary dict; visualize: the PNG paths;
     reconstruction: the PLY paths; light_stage: the occupancy path.
     dataset replaces make_dataset's; per_frame goes to evaluate_frames."""
-    from ..weights import load_checkpoint_file
+    from ..train.checkpoint import read_checkpoint
+    from ..weights import load_reference_state_dict
     from .common import (
         build_runtime,
         checkpoint_path,
@@ -198,12 +204,17 @@ def main(argv=None, dataset=None, per_frame=None):
     path = checkpoint_path(cfg, args.weights)
     if dataset is None:
         dataset = make_dataset(cfg, "test")
-    model, pipe, _, _ = build_runtime(cfg, device, smpl=dataset.smpl)
-    epoch = load_checkpoint_file(model, path)
+    # read before the runtime is built: a converted checkpoint's stored PE
+    # table goes into the pipeline
+    ckpt = read_checkpoint(path, cfg.vit_depth)
+    model, pipe, _, _ = build_runtime(cfg, device, smpl=dataset.smpl,
+                                      pe_table=ckpt["pe_table"])
+    load_reference_state_dict(model, ckpt["net"])
+    epoch = ckpt["epoch"]
     print(f"run: --type {args.type}, {path} (epoch {epoch}) on {device}",
           file=sys.stderr, flush=True)
     if args.type == "evaluate":
-        return run_evaluate(cfg, pipe, dataset, epoch, per_frame)
+        return run_evaluate(cfg, pipe, dataset, epoch, per_frame, device)
     if args.type == "visualize":
         return run_visualize(cfg, pipe, dataset)
     return run_reconstruction(cfg, pipe, dataset)

@@ -1,27 +1,38 @@
 """Training entry point (counterpart of transhuman_tpu/cli/train.py):
 
-    python -m transhuman_tpu_torch.cli.train [--device cuda|cpu] [--steps N]
+    python -m transhuman_tpu_torch.cli.train [--cfg_file configs/train_or_eval.yaml]
+        [--device cuda|cpu] [--test] [--weights PATH] [--steps N]
         [--out PATH] [key value ...]
 
-Trains on the seeded synthetic scene (the only data the repository holds)
-at the config's render size (H_render x W_render, 512 x 512 by default),
-from ``testing.init_weights`` weights seeded with ``cfg.seed``: one sample
-per step, the epoch's samples in a seeded permutation, one loss line per
-step, and a reference-layout ``.pth`` at the end that
-``python -m transhuman_tpu_torch.serve --weights`` serves.  Config
-overrides are ``key value`` pairs as the serve entry point takes them.
-It runs on the card (``--device cuda``, the default; without a card that is
-an error) with the float32 math in full precision (TF32 off), or on the CPU
-with ``--device cpu``; ``compute_dtype bfloat16`` trains the bf16 network
-(float32 parameters, gradients and optimizer).  With ``profile_dir DIR``
-the steady-state window of steps 5-8 (fewer in a short run) runs under
-torch.profiler; its chrome trace and a device-time summary
-(``train/profile.py``) go to DIR.
+The JAX CLI's lifecycle, in its order: a resume checkpoint is read first
+(``resume``: the latest in ``trained_model_dir/task/exp_name``, the port's
+``.pth`` or else the JAX package's ``.ckpt``; or ``specified_resume``, whose
+absence is an error), so that a stored TransHE table rides along; LPIPS
+(``lpips_weights``, ``lpips_backbone``) joins the loss, or the JAX warning
+prints; a fresh run starts from ``testing.init_weights`` seeded with
+``cfg.seed``, the encoder from ``encoder_weights`` when ``pretrained``;
+then epochs of ``ep_iter`` steps over a seeded permutation, the samples
+prefetched on ``train.num_workers + 1`` threads, a console line every
+``log_interval`` steps and metrics every ``record_interval`` (the
+Recorder, ``use_record``), and at each epoch's end ``latest.pth``, plus
+``{epoch}.pth`` every ``save_freq`` epochs.  ``--test`` runs the
+validation pass instead (weights-only load of ``test.epoch``'s checkpoint,
+per-frame loss and the evaluator with LPIPS, one ``val`` record).
+
+The data is the seeded synthetic scene (``dataset synthetic``; the
+ZJU-MoCap loader is not ported) at the render size (H_render x W_render).
+``--steps N`` caps the run at N updates; ``--out PATH`` also receives the
+final state.  It runs on the card (``--device cuda``, the default; without
+a card that is an error) with the float32 math in full precision (TF32
+off), or on the CPU with ``--device cpu``; ``compute_dtype bfloat16``
+trains the bf16 network (float32 parameters, gradients, optimizer and
+LPIPS).  With ``profile_dir DIR`` steps 5-8 of the first epoch (fewer in a
+short epoch) run under torch.profiler; its chrome trace and a device-time
+summary (``train/profile.py``) go to DIR.
 """
 
 from __future__ import annotations
 
-import argparse
 import json
 import os
 import sys
@@ -31,54 +42,98 @@ import numpy as np
 import torch
 
 from ..config import Config
-from ..data.synthetic import SyntheticDataset
+from ..data.loader import Loader
+from ..models.lpips import lpips_module
 from ..render.pipeline import fold_in
 from ..testing import init_weights
-from ..train.checkpoint import save_checkpoint
+from ..train import checkpoint as ckpt_io
 from ..train.profile import format_summary, load_trace, summarize_trace
 from ..train.step import TrainState, make_optimizer, make_train_step
-from .common import build_runtime, configure_device
+from ..utils.recorder import Recorder
+from .common import (
+    build_runtime,
+    configure_device,
+    make_dataset,
+    model_dir,
+    seed_everything,
+)
+from .common import parse_args as _parse_args
+
+
+def _train_flags(p):
+    p.add_argument("--steps", type=int, default=0,
+                   help="cap on the updates (0: train.epoch x ep_iter)")
+    p.add_argument("--out", default=None,
+                   help="also write the final state to this path")
 
 
 def parse_args(argv=None):
-    p = argparse.ArgumentParser(
-        prog="python -m transhuman_tpu_torch.cli.train")
-    p.add_argument("--device", default="cuda")
-    p.add_argument("--steps", type=int, default=0,
-                   help="updates to run (0: train.epoch x ep_iter)")
-    p.add_argument("--out", default=None,
-                   help="checkpoint path (default: <trained_model_dir>/"
-                        "<task>/<exp_name>/latest.pth)")
-    p.add_argument("opts", nargs=argparse.REMAINDER, default=[],
-                   help="config overrides: key value ...")
-    args = p.parse_args(argv)
-    return args, Config().merge_opts(args.opts)
+    return _parse_args(argv, allow_test=True, extra=_train_flags,
+                       prog="python -m transhuman_tpu_torch.cli.train")
 
 
-def build_trainer(cfg: Config, device):
-    """(state, step_fn, dataset, pipe) for cfg on device."""
-    if cfg.train.cull:
-        raise NotImplementedError(
-            "train.cull (the SMPL cull on the train decode) is not ported")
-    if cfg.lpips_weights:
-        raise NotImplementedError("LPIPS is not ported yet; leave "
-                                  "lpips_weights empty")
-    print("WARNING: cfg.lpips_weights empty -> perceptual loss DISABLED; "
-          "the trained model will NOT match the reference loss landscape "
-          "(if_nerf_clight.py:65-72 adds 0.1*LPIPS).", file=sys.stderr)
-    dataset = SyntheticDataset(cfg, image_hw=(cfg.H_render, cfg.W_render))
-    model, pipe, _, _ = build_runtime(cfg, device, smpl=dataset.smpl)
-    init_weights(model, torch.Generator().manual_seed(cfg.seed))
+def read_resume(cfg: Config):
+    """The checkpoint a run resumes from (read_checkpoint's dict), or
+    None: ``specified_resume`` (missing: FileNotFoundError), else with
+    ``resume`` the latest in model_dir."""
+    if cfg.specified_resume:
+        if not os.path.isfile(cfg.specified_resume):
+            # a silent fall-through would train from scratch and then
+            # overwrite the existing checkpoints with random-init weights
+            raise FileNotFoundError(
+                f"specified_resume={cfg.specified_resume!r} does not exist")
+        path = cfg.specified_resume
+    elif cfg.resume:
+        path = ckpt_io.find_checkpoint(model_dir(cfg))
+    else:
+        path = None
+    if path is None:
+        return None
+    ckpt = ckpt_io.read_checkpoint(path, cfg.vit_depth)
+    ckpt["path"] = path
+    return ckpt
+
+
+def build_trainer(cfg: Config, device, dataset=None, ckpt=None):
+    """(state, step_fn, dataset, pipe) for cfg on device: the model fresh
+    (seeded init, the pretrained encoder when asked) or restored from ckpt
+    (a read_checkpoint dict), with LPIPS in the loss when lpips_weights is
+    set."""
+    if dataset is None:
+        dataset = make_dataset(cfg, "train")
+    pe_table = ckpt["pe_table"] if ckpt else None
+    model, pipe, _, _ = build_runtime(cfg, device, smpl=dataset.smpl,
+                                      pe_table=pe_table)
+    lpips = lpips_module(cfg, device)
+    if lpips is None:
+        print("WARNING: cfg.lpips_weights empty -> perceptual loss DISABLED; "
+              "the trained model will NOT match the reference loss landscape "
+              "(if_nerf_clight.py:65-72 adds 0.1*LPIPS).", file=sys.stderr)
     sch = cfg.train.scheduler
     opt, scheduler = make_optimizer(
         model.parameters(), lr=cfg.train.lr, end_lr=sch.end_lr,
         warmup_epochs=sch.warmup_epochs, decay_epochs=sch.decay_epochs,
         iters_per_epoch=cfg.ep_iter, weight_decay=cfg.train.weight_decay,
         optim=cfg.train.optim)
+    state = TrainState(model, opt, scheduler)
+    if ckpt is not None:
+        ckpt_io.restore(state, ckpt)
+    else:
+        init_weights(model, torch.Generator().manual_seed(cfg.seed))
+        if cfg.pretrained and cfg.encoder_weights:
+            # ImageNet ResNet-18 (reference encoder.py:77-79), converted by
+            # tools/convert_resnet.py
+            from ..tools.convert_resnet import apply_pretrained
+
+            with np.load(cfg.encoder_weights) as z:
+                apply_pretrained(model, dict(z))
+            print(f"loaded pretrained encoder weights: {cfg.encoder_weights}",
+                  flush=True)
     step_fn = make_train_step(
         pipe, l2_weight=cfg.l2rec_weight, perturb=cfg.perturb > 0,
-        batch_size=cfg.train.batch_size, accum_steps=cfg.train.accum_steps)
-    return TrainState(model, opt, scheduler), step_fn, dataset, pipe
+        batch_size=cfg.train.batch_size, accum_steps=cfg.train.accum_steps,
+        lpips_fn=lpips, lpips_weight=cfg.lpips_weight)
+    return state, step_fn, dataset, pipe
 
 
 def _activities(device):
@@ -105,52 +160,150 @@ def _write_profile(out_dir: str, prof, records):
           f"{format_summary(summary)}", flush=True)
 
 
-def main(argv=None):
-    """Returns (state, records): records holds one dict per step (losses,
-    lr, step seconds)."""
+def _sync(device):
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def validate(cfg: Config, device, dataset=None, weights=None):
+    """The ``--test`` pass (JAX cli/train.py::validate): weights-only load
+    of test.epoch's checkpoint (or ``weights``), run_mode test and perturb
+    0, every val frame rendered with its img_loss (the in-box MSE), the
+    evaluator with LPIPS, and one unconditional 'val' record.  Returns
+    (mean val stats, the evaluator's summary)."""
+    from ..evals.evaluator import Evaluator
+    from ..weights import load_reference_state_dict
+    from .common import checkpoint_path, result_dir
+    from .run import evaluate_frames, make_eval_lpips_fn
+
+    cfg = cfg.merge_dict({"run_mode": "test", "perturb": 0.0})
+    path = checkpoint_path(cfg, weights)
+    ckpt = ckpt_io.read_checkpoint(path, cfg.vit_depth)
+    if dataset is None:
+        dataset = make_dataset(cfg, "test")
+    model, pipe, _, _ = build_runtime(cfg, device, smpl=dataset.smpl,
+                                      pe_table=ckpt["pe_table"])
+    load_reference_state_dict(model, ckpt["net"])
+    epoch = ckpt["epoch"]
+    ev = Evaluator(result_dir(cfg), lpips_fn=make_eval_lpips_fn(cfg, device),
+                   exp_name=cfg.exp_name, epoch=epoch)
+    recorder = Recorder(cfg.record_dir, cfg.record_interval, cfg.log_interval,
+                        enabled=cfg.use_record)
+    recorder.epoch = epoch
+
+    def val_loss(item, out):
+        # img2mse over the in-box rays (if_nerf_clight.py:77-81)
+        err = out["rgb_map"] - item.eval_rays.rgb
+        img_loss = float(np.mean(err * err))
+        return {"img_loss": img_loss, "loss": img_loss}
+
+    summary, val_stats = evaluate_frames(cfg, pipe, dataset, ev,
+                                         per_frame=val_loss, tag="val ")
+    print("  ".join(f"{k}: {v:.4f}" for k, v in val_stats.items()))
+    print(summary, flush=True)
+    recorder.record("val", extra={**val_stats, **{
+        k: v for k, v in summary.items()
+        if k not in ("experiment", "epoch") and isinstance(v, (int, float))
+    }}, force=True)
+    recorder.close()
+    return val_stats, summary
+
+
+def main(argv=None, dataset=None):
+    """Training: returns (state, records), records one dict per step
+    (losses, lr, data and step seconds; save_s on an epoch's last step).
+    --test: returns validate's (val stats, summary).  dataset replaces
+    make_dataset's."""
     args, cfg = parse_args(argv)
     device = configure_device(args.device)
-    state, step_fn, dataset, _ = build_trainer(cfg, device)
-    steps = args.steps or cfg.train.epoch * cfg.ep_iter
-    # the JAX CLI's steady-state window: steps 5-8 of the first epoch,
-    # shorter in a short run
-    prof_stop = min(8, cfg.ep_iter - 1, steps - 1)
-    prof_start = max(0, prof_stop - 3)
-    prof = None
-    records = []
-    for it in range(steps):
-        epoch, i = divmod(it, cfg.ep_iter)
-        if i == 0:
-            dataset.set_epoch(epoch)
-            # exactly ep_iter samples per epoch, cycling a seeded permutation
-            ep_rng = np.random.default_rng(cfg.seed + epoch)
-            perm = np.concatenate([
-                ep_rng.permutation(len(dataset))
-                for _ in range(-(-cfg.ep_iter // len(dataset)))])
-        if cfg.profile_dir and it == prof_start:
-            prof = torch.profiler.profile(activities=_activities(device))
-            prof.start()
-        t0 = time.perf_counter()
-        sample = dataset.get_train_sample(int(perm[i])).to(device)
-        t1 = time.perf_counter()
-        stats = step_fn(state, sample, fold_in(cfg.seed, it))
-        if device.type == "cuda":
-            torch.cuda.synchronize(device)
-        t2 = time.perf_counter()
-        rec = dict(stats, step=it, data_s=t1 - t0, step_s=t2 - t1)
-        records.append(rec)
-        if prof is not None and it == prof_stop:
-            prof.stop()
-            _write_profile(cfg.profile_dir, prof, records[prof_start:])
-            prof = None
-        print(f"epoch {epoch} iter {i}/{cfg.ep_iter}  loss {stats['loss']:.6f}"
-              f"  mse_loss {stats['mse_loss']:.6f}  lr {stats['lr']:.3e}  "
-              f"data {rec['data_s']:.3f}s  step {rec['step_s']:.3f}s",
+    if args.test:
+        return validate(cfg, device, dataset, args.weights)
+    seed_everything(cfg.seed)
+    mdir = model_dir(cfg)
+    # read before the runtime is built: a converted checkpoint's stored PE
+    # table rides into the pipeline and into every checkpoint this run writes
+    ckpt = read_resume(cfg)
+    state, step_fn, dataset, pipe = build_trainer(cfg, device, dataset, ckpt)
+    pe_table = ckpt["pe_table"] if ckpt else None
+    recorder = Recorder(cfg.record_dir, cfg.record_interval, cfg.log_interval,
+                        enabled=cfg.use_record)
+    start_epoch = 0
+    if ckpt is not None:
+        start_epoch = ckpt["epoch"] + 1
+        recorder.load_state_dict(ckpt["recorder"])
+        print(f"resumed from {ckpt['path']} at epoch {start_epoch}",
               flush=True)
-    out = args.out or os.path.join(cfg.trained_model_dir, cfg.task,
-                                   cfg.exp_name, "latest.pth")
-    save_checkpoint(out, state, (steps - 1) // cfg.ep_iter)
-    print(f"checkpoint: {out}", flush=True)
+    cap = args.steps or None
+    max_iter = cfg.train.epoch * cfg.ep_iter
+    records, prof = [], None
+    done = False
+    for epoch in range(start_epoch, cfg.train.epoch):
+        dataset.set_epoch(epoch)
+        recorder.epoch = epoch
+        # exactly ep_iter samples per epoch, cycling a seeded permutation
+        ep_rng = np.random.default_rng(cfg.seed + epoch)
+        perm = np.concatenate([
+            ep_rng.permutation(len(dataset))
+            for _ in range(-(-cfg.ep_iter // len(dataset)))])[:cfg.ep_iter]
+        # workers build host samples (seeded by epoch and index, so their
+        # order cannot change the data); the copy to the card stays here
+        samples = Loader(lambda i: dataset.get_train_sample(int(i)), perm,
+                         num_workers=(0 if cfg.train.num_workers <= 0
+                                      else cfg.train.num_workers + 1))
+        # the JAX CLI's steady-state window: steps 5-8 of the first epoch,
+        # shorter in a short epoch or run
+        prof_stop = min(8, cfg.ep_iter - 1, (cap or cfg.ep_iter) - 1)
+        prof_start = max(0, prof_stop - 3)
+        profiling = cfg.profile_dir and epoch == start_epoch
+        t_end = time.perf_counter()
+        for i, host_sample in enumerate(samples):
+            it = epoch * cfg.ep_iter + i
+            if profiling and i == prof_start:
+                prof = torch.profiler.profile(activities=_activities(device))
+                prof.start()
+            sample = host_sample.to(device)
+            t1 = time.perf_counter()
+            stats = step_fn(state, sample, fold_in(cfg.seed, it))
+            _sync(device)
+            t2 = time.perf_counter()
+            rec = dict(stats, step=it, data_s=t1 - t_end, step_s=t2 - t1)
+            records.append(rec)
+            if prof is not None and i == prof_stop:
+                prof.stop()
+                _write_profile(cfg.profile_dir, prof,
+                               records[-(prof_stop - prof_start + 1):])
+                prof = None
+            recorder.data_time.update(rec["data_s"])
+            recorder.step = it
+            recorder.batch_time.update(t2 - t_end)
+            if i % cfg.log_interval == 0:
+                recorder.update({k: v for k, v in stats.items()
+                                 if k != "lr"})
+                print(f"epoch {epoch} iter {i}/{cfg.ep_iter}  "
+                      + recorder.console_line(max_iter, stats["lr"]),
+                      flush=True)
+            recorder.record("train")
+            t_end = time.perf_counter()
+            if cap and len(records) == cap:
+                done = i + 1 < cfg.ep_iter  # a cut epoch is not saved
+                break
+        if done:
+            break
+        t0 = time.perf_counter()
+        paths = ckpt_io.save_epoch(
+            mdir, state, epoch, (epoch + 1) % cfg.save_freq == 0,
+            recorder.state_dict(), pe_table)
+        records[-1]["save_s"] = time.perf_counter() - t0
+        print(f"checkpoint: {', '.join(paths)} "
+              f"({records[-1]['save_s']:.3f} s)", flush=True)
+        if cap and len(records) == cap:
+            break
+    if args.out and records:
+        ckpt_io.save_checkpoint(args.out, state, records[-1]["step"]
+                                // cfg.ep_iter, recorder.state_dict(),
+                                pe_table)
+        print(f"checkpoint: {args.out}", flush=True)
+    recorder.close()
     return state, records
 
 

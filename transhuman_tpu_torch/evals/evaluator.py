@@ -6,8 +6,11 @@ MSE and PSNR over the masked ray colours; SSIM on the images cropped to the
 bounding box of the rendered region, at data range 2.0 (the headline, the
 reference's) and 1.0 (``ssim_dr1``); pred/gt/input PNGs per human;
 ``summarize`` writes the per-frame ``.npy`` arrays and ``summary.txt`` and
-resets the lists.  LPIPS is not ported (its VGG16 weights are a download):
-the summary says ``n/a``, as the JAX evaluator does without weights.
+resets the lists.  LPIPS, when an ``lpips_fn`` is given
+(``cli/run.py::make_eval_lpips_fn``), is taken on the bounding-box crop
+itself: the port's shapes are dynamic, so the JAX package's zero-padded
+size buckets (whose masked distance equals the unpadded one) have no job
+here.  Without one the summary says ``n/a``, as the JAX evaluator's does.
 """
 
 from __future__ import annotations
@@ -33,9 +36,13 @@ def bounding_rect(mask: np.ndarray):
 
 
 class Evaluator:
-    def __init__(self, result_dir: str, save_images: bool = True,
-                 exp_name: str = "transhuman_tpu", epoch: int = -1):
+    def __init__(self, result_dir: str, lpips_fn=None,
+                 save_images: bool = True, exp_name: str = "transhuman_tpu",
+                 epoch: int = -1):
+        """lpips_fn(a, b): (1, h, w, 3) numpy crops in [-1, 1] -> (1,)
+        distances, or None (no LPIPS column)."""
         self.result_dir = result_dir
+        self.lpips_fn = lpips_fn
         self.save_images = save_images
         self.exp_name = exp_name
         self.epoch = epoch
@@ -66,6 +73,13 @@ class Evaluator:
                 f"cam={cam_ind} — mask_at_box has {int(np.sum(mask_at_box))} "
                 f"pixels, bbox {w}x{h} (needs >= 7x7 for SSIM). The mask is "
                 "empty or nearly so; check the dataset masks/bounds.")
+        if self.lpips_fn is not None and min(h, w) < 16:
+            # VGG16's four 2x2 pools leave nothing of a side under 16 px at
+            # stage 5; checked before any metric is appended, so the lists
+            # stay in step for a caller that catches and continues
+            raise ValueError(
+                f"LPIPS needs a crop >= 16px per side; got {w}x{h} for "
+                f"human={human} frame={frame_index} cam={cam_ind}")
 
         frame_mse = metrics.mse(rgb_pred, rgb_gt)
         self.mse.append(frame_mse)
@@ -77,6 +91,10 @@ class Evaluator:
         s_head, s_dr1 = metrics.ssim_multi(crop_pred, crop_gt, (2.0, 1.0))
         self.ssim.append(s_head)
         self.ssim_dr1.append(s_dr1)
+        if self.lpips_fn is not None:
+            lp = self.lpips_fn(crop_pred[None] * 2.0 - 1.0,
+                               crop_gt[None] * 2.0 - 1.0)
+            self.lpips.append(float(np.asarray(lp).reshape(())))
 
         if self.save_images:
             hdir = os.path.join(self.result_dir, human)
@@ -92,7 +110,8 @@ class Evaluator:
                         f"{hdir}/input/frame{frame_index}_t_0_view_{v}.png",
                         im)
         return {"mse": self.mse[-1], "psnr": self.psnr[-1],
-                "ssim": self.ssim[-1], "lpips": None}
+                "ssim": self.ssim[-1],
+                "lpips": self.lpips[-1] if self.lpips else None}
 
     def summarize(self, write: bool = True) -> dict:
         if write:
@@ -106,10 +125,12 @@ class Evaluator:
             "mse": float(np.mean(self.mse)) if self.mse else None,
             "psnr": float(np.mean(self.psnr)) if self.psnr else None,
             "ssim": float(np.mean(self.ssim)) if self.ssim else None,
-            "lpips": None,
+            "lpips": float(np.mean(self.lpips)) if self.lpips else None,
         }
         # loud in the summary, not a None that reads like "LPIPS = 0"
-        text = dict(out, lpips="n/a (no VGG weights — set cfg.lpips_weights)")
+        text = dict(out)
+        if self.lpips_fn is None and out["lpips"] is None:
+            text["lpips"] = "n/a (no VGG weights — set cfg.lpips_weights)"
         if self.ssim_dr1:
             text["ssim(data_range=1.0)"] = float(np.mean(self.ssim_dr1))
         if write:

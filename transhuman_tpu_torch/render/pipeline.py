@@ -109,7 +109,7 @@ class RenderPipeline:
     def __init__(self, model, cluster: ClusterSpec, canonical_verts,
                  n_samples: int = 64, chunk_rays: int = 512,
                  cull_distance: float = 0.1, white_bkgd: bool = False,
-                 raw_noise_std: float = 0.0, device="cpu"):
+                 raw_noise_std: float = 0.0, device="cpu", pe_table=None):
         self.model = model
         self.device = torch.device(device)
         self.n_samples = n_samples
@@ -120,11 +120,15 @@ class RenderPipeline:
         self.pool = torch.as_tensor(cluster.pool_matrix, dtype=torch.float32,
                                     device=self.device)  # (C, Nv)
         # TransHE's positional code: the canonical cluster centroids in the
-        # reference's fixed [-1.5, 1.5]^3 box, through the stored table
-        canon = cluster.pool_matrix @ np.asarray(canonical_verts, np.float32)
-        self.pe_can = torch.as_tensor(
-            reference_pe_table(normalize_positions(canon, 1.5),
-                               model.embed_dim), device=self.device)  # (C, D)
+        # reference's fixed [-1.5, 1.5]^3 box, through the stored table, or
+        # the table a checkpoint carries (a converted official one's)
+        if pe_table is None:
+            canon = cluster.pool_matrix @ np.asarray(canonical_verts,
+                                                     np.float32)
+            pe_table = reference_pe_table(normalize_positions(canon, 1.5),
+                                          model.embed_dim)
+        self.pe_can = torch.as_tensor(np.asarray(pe_table, np.float32),
+                                      device=self.device)  # (C, D)
         self.last_frame_stats = {"points": 0, "survivors": 0}
 
     @torch.no_grad()

@@ -1,11 +1,13 @@
 """Persistent render serving on the PyTorch port (counterpart of
 transhuman_tpu/serve.py, with the same HTTP contract).
 
-Run: ``python -m transhuman_tpu_torch.serve --weights w.pth [--device cuda]
-[--host 127.0.0.1] [--port 8008] [--no_warmup] [key value ...]`` where
-``w.pth`` is a reference-layout checkpoint (``transhuman_tpu/tools/
-export_checkpoint.py`` output or an official one) and ``key value`` pairs
-override config.py's defaults.
+Run: ``python -m transhuman_tpu_torch.serve [--cfg_file configs/*.yaml]
+[--weights w.pth] [--device cuda] [--host 127.0.0.1] [--port 8008]
+[--no_warmup] [key value ...]`` where ``w.pth`` is a reference-layout
+checkpoint (the port's, ``transhuman_tpu/tools/export_checkpoint.py``
+output or an official one) or a JAX package ``.ckpt`` (default: test.epoch's
+in ``trained_model_dir/task/exp_name``), and ``key value`` pairs override
+the config file's values (or config.py's defaults).
 
 Endpoints
 ---------
@@ -376,24 +378,36 @@ def _make_handler(server: RenderServer):
 def main(argv=None) -> int:
     import argparse
 
-    from .cli.common import build_runtime, configure_device
-    from .weights import load_checkpoint_file
+    from .cli.common import (
+        add_config_args,
+        build_runtime,
+        checkpoint_path,
+        configure_device,
+        load_config,
+    )
+    from .train.checkpoint import read_checkpoint
+    from .weights import load_reference_state_dict
 
     p = argparse.ArgumentParser(prog="python -m transhuman_tpu_torch.serve")
-    p.add_argument("--weights", required=True,
-                   help="reference-layout .pth checkpoint")
+    p.add_argument("--weights", default=None,
+                   help="a checkpoint: the port's .pth or the JAX package's "
+                        ".ckpt (default: test.epoch's in <trained_model_dir>"
+                        "/<task>/<exp_name>)")
     p.add_argument("--device", default="cuda")
     p.add_argument("--host", default="127.0.0.1")
     p.add_argument("--port", type=int, default=8008)
     p.add_argument("--no_warmup", action="store_true")
-    p.add_argument("opts", nargs=argparse.REMAINDER, default=[],
-                   help="config overrides: key value ...")
+    add_config_args(p)
     args = p.parse_args(argv)
-    cfg = Config().merge_opts(args.opts)
+    cfg = load_config(args)
     device = configure_device(args.device)
-    model, pipe, smpl, _ = build_runtime(cfg, device)
-    epoch = load_checkpoint_file(model, args.weights)
-    print(f"serve: {args.weights} (epoch {epoch}) on {device}, "
+    path = checkpoint_path(cfg, args.weights)
+    ckpt = read_checkpoint(path, cfg.vit_depth)
+    model, pipe, smpl, _ = build_runtime(cfg, device,
+                                         pe_table=ckpt["pe_table"])
+    load_reference_state_dict(model, ckpt["net"])
+    epoch = ckpt["epoch"]
+    print(f"serve: {path} (epoch {epoch}) on {device}, "
           f"{args.host}:{args.port}", file=sys.stderr)
     svc = RenderService(cfg, pipe, smpl)
     if not args.no_warmup:

@@ -3,10 +3,10 @@
 
 Patch mode scatters the predicted ray colours into N_patches square patches
 (pixels no ray covers stay black) and takes the MSE against the target
-patches.  Each ray carries its index into the flattened patch raster;
-invalid rays carry -1 and are dropped.  The reference adds 0.1 x LPIPS on
-the patches; the port has no LPIPS yet, so ``patch_losses`` is the MSE term
-alone (the JAX package's loss with LPIPS disabled).
+patches, plus ``lpips_weight`` x the mean LPIPS of the patches when an LPIPS
+module is given (the reference's 1.0 x MSE + 0.1 x LPIPS).  Each ray carries
+its index into the flattened patch raster; invalid rays carry -1 and are
+dropped.
 """
 
 from __future__ import annotations
@@ -50,12 +50,22 @@ def unpack_patches(pred_rgb, ray_pixel_idx, patch_shape):
     return flat.reshape(p, ps, ps, 3)
 
 
-def patch_losses(pred_rgb, sample: TrainSample, l2_weight: float = 1.0):
-    """(loss, stats) of the patch MSE.  pred_rgb (R, 3) ray colours."""
+def patch_losses(pred_rgb, sample: TrainSample, lpips_fn=None,
+                 l2_weight: float = 1.0, lpips_weight: float = 0.1):
+    """(loss, stats) of the patch MSE, plus lpips_weight x mean LPIPS over
+    the (P, ps, ps, 3) patches mapped to [-1, 1] when lpips_fn (a
+    models.lpips.LPIPS) is given.  pred_rgb (R, 3) ray colours."""
     targets = sample.target_patches
     pred = unpack_patches(pred_rgb, sample.ray_pixel_idx, targets.shape)
     mse = l2_weight * torch.mean(torch.square(pred - targets))
-    return mse, {"mse_loss": mse, "loss": mse}
+    loss, stats = mse, {"mse_loss": mse}
+    if lpips_fn is not None:
+        lp = lpips_weight * torch.mean(lpips_fn(pred * 2.0 - 1.0,
+                                                targets * 2.0 - 1.0))
+        loss = loss + lp
+        stats["lpips_loss"] = lp
+    stats["loss"] = loss
+    return loss, stats
 
 
 def masked_mse(pred_rgb, target_rgb, mask):

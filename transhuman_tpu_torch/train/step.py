@@ -55,23 +55,28 @@ def make_optimizer(params, lr: float = 7e-4, end_lr: float = 1e-6,
     return opt, scheduler
 
 
-def make_sample_loss(pipe, l2_weight: float = 1.0, perturb: bool = True):
+def make_sample_loss(pipe, l2_weight: float = 1.0, perturb: bool = True,
+                     lpips_fn=None, lpips_weight: float = 0.1):
     """(sample, seed) -> (loss, stats) for one patch-mode sample: the loss
     composition of the reference's NetworkWrapper (if_nerf_clight.py:43-91),
-    without LPIPS.  The only sampler the port has is the patch sampler, so
-    the non-patch loss (``loss.random_ray_losses``) has no caller here."""
+    with LPIPS when lpips_fn is given (its backward runs through the VGG16
+    convolutions into the rendered patches).  The only sampler the port has
+    is the patch sampler, so the non-patch loss (``loss.random_ray_losses``)
+    has no caller here."""
 
     def sample_loss(sample: TrainSample, seed=None):
         out = pipe.render_train(sample.frame, sample.rays, seed,
                                 sample_jitter=perturb)
-        return patch_losses(out["rgb_map"], sample, l2_weight)
+        return patch_losses(out["rgb_map"], sample, lpips_fn, l2_weight,
+                            lpips_weight)
 
     return sample_loss
 
 
 def make_train_step(pipe, clip_value: float = 40.0, l2_weight: float = 1.0,
                     perturb: bool = True, batch_size: int = 1,
-                    accum_steps: int = 1):
+                    accum_steps: int = 1, lpips_fn=None,
+                    lpips_weight: float = 0.1):
     """(state, sample, seed) -> stats: forward, loss, backward, per-element
     gradient clip at clip_value (reference trainer.py:85), optimizer update,
     schedule step.  Updates state.model, its optimizer and scheduler in
@@ -83,7 +88,8 @@ def make_train_step(pipe, clip_value: float = 40.0, l2_weight: float = 1.0,
             "trains one sample per step; the JAX package pools BatchNorm "
             "statistics over its batch, which a loop over samples would not "
             "reproduce")
-    sample_loss = make_sample_loss(pipe, l2_weight, perturb)
+    sample_loss = make_sample_loss(pipe, l2_weight, perturb, lpips_fn,
+                                   lpips_weight)
 
     def step(state: TrainState, sample: TrainSample, seed=None) -> dict:
         opt = state.optimizer

@@ -45,12 +45,13 @@ def load_reference_state_dict(model: torch.nn.Module, sd: dict):
 
 def load_checkpoint_file(model: torch.nn.Module, path: str) -> int:
     """Load a reference-layout ``.pth`` ({'net': state_dict, 'epoch': N} or
-    a bare state dict) into ``model``; returns the epoch (-1 if absent)."""
-    blob = torch.load(path, map_location="cpu", weights_only=True)
-    sd = blob.get("net", blob) if isinstance(blob, dict) else blob
-    load_reference_state_dict(model, sd)
-    epoch = blob.get("epoch", -1) if isinstance(blob, dict) else -1
-    return int(epoch)
+    a bare state dict) or a JAX package ``.ckpt`` into ``model`` (weights
+    only); returns the epoch (-1 if absent)."""
+    from .train.checkpoint import read_checkpoint
+
+    ckpt = read_checkpoint(path, len(model.ViT.blocks))
+    load_reference_state_dict(model, ckpt["net"])
+    return ckpt["epoch"]
 
 
 def state_dict_from_jax(params_np: dict, vit_depth: int) -> dict:
