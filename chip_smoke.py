@@ -86,6 +86,27 @@ c. the run entry point from the files on b's checkpoint directory:
 d. phase 6 and 12's train parity with LPIPS in the loss (2 patches of
    16 x 16), within their bounds.
 
+Then the ZJU-MoCap loader, on humans this script lays out in a temporary
+directory in the reference's layout (23 cameras, D non-zero on most,
+frames hard-linked to the committed 1024x1024 fixture JPEGs, masks from the
+synthetic body's projection, visibility files for half the cameras):
+
+e. the port's JPEG/PNG codec, built with g++, on each committed fixture:
+   its bytes against the sha256 of cv2's or imageio's decode in
+   tests/fixtures/torch_zju/digests.json; each decode timed;
+f. the train entry point from configs/train_or_eval.yaml with dataset zju
+   (CoreView_377, the catalog's 10 frames) in bf16 and float32, and with
+   dataset synthetic in bf16, counters reset and read around each: every
+   step's data_s (the wait on the prefetch queue) and sample_s (the host
+   sample), the step medians; one sample's host ms by stage; one step with
+   patch.use_patch_sampling False and one with rot_ratio 1.0;
+g. the run entry point with dataset zju (CoreView_387, 2 frames) on f's
+   bf16 checkpoint: --type evaluate (train_or_eval.yaml; get_eval_item's
+   host ms, the loop's wait for it, frame to frame, the metrics files),
+   visualize (performance.yaml), reconstruction (reconstruction.yaml), each
+   with its counters; then a ZJU eval item at 64x64 on the card against
+   the CPU within phase 8's bounds.
+
 The last three lines are {"kernels": [...]}, the card's name and power
 limit as nvidia-smi prints them, and {"ok": true, "device": {...}}.
 Imports only torch, numpy and the port.
@@ -1325,12 +1346,14 @@ def phase_train(card: str, path: str, dtype: str = "float32"):
     return counts
 
 
-def phase_eval_parity(card: str, dtype: str = "float32", ref=None):
+def phase_eval_parity(card: str, dtype: str = "float32", ref=None,
+                      cfg=None, data=None, label=None):
     """evaluate_frames over 2 frames of the synthetic scene at 64x64 with
     the full-width model in the compute dtype, on the card and on the CPU
     (plain versions), the same seeded weights: per-frame rgb and metrics;
     in bf16 also against ref (the CPU's float32 frames, this phase's
-    float32 result).  Returns the CPU frames."""
+    float32 result).  cfg and data (2 frames) replace the synthetic scene's
+    (phase g: a ZJU eval item).  Returns the CPU frames."""
     from transhuman_tpu_torch.cli.common import build_runtime
     from transhuman_tpu_torch.cli.run import evaluate_frames
     from transhuman_tpu_torch.config import Config
@@ -1338,10 +1361,11 @@ def phase_eval_parity(card: str, dtype: str = "float32", ref=None):
     from transhuman_tpu_torch.evals.evaluator import Evaluator
     from transhuman_tpu_torch.testing import init_weights
 
-    cfg = Config().merge_opts(["H", "128", "W", "128",
-                               "test.frame_interval", "4",
-                               "compute_dtype", dtype])
-    data = SyntheticDataset(cfg, "test", image_hw=(64, 64))
+    if data is None:
+        cfg = Config().merge_opts(["H", "128", "W", "128",
+                                   "test.frame_interval", "4",
+                                   "compute_dtype", dtype])
+        data = SyntheticDataset(cfg, "test", image_hw=(64, 64))
     runs = {}
     for dev in ("cuda", "cpu"):
         model, pipe, _, _ = build_runtime(cfg, torch.device(dev),
@@ -1367,10 +1391,11 @@ def phase_eval_parity(card: str, dtype: str = "float32", ref=None):
     bf16 = dtype == "bfloat16"
     rgb_tol, psnr_tol, ssim_tol = ((BF16_RGB_TOL, BF16_PSNR_TOL, 5e-3)
                                    if bf16 else (2e-3, 0.05, 2e-3))
-    label = "12 bf16 eval parity" if bf16 else "8 eval parity"
+    label = label or ("12 bf16 eval parity" if bf16 else "8 eval parity")
+    order = [int(x) for x in data.frame_sampler_indices()]
     for j, ((i, rgb_g, psnr_g, ssim_g), (_, rgb_c, psnr_c, ssim_c)) in \
             enumerate(zip(fg, fc)):
-        item = data.get_eval_item(i)
+        item = data.get_eval_item(order[j])
         bad = _unstable_rays(pipe_g, item.frame.to("cuda"),
                              item.eval_rays.rays.to("cuda"))
         err = float(np.abs(rgb_g - rgb_c)[~bad].max())
@@ -2181,6 +2206,424 @@ def phase_eval_cfg(card: str, tmp: str, model_root: str, files: dict):
     return by_path
 
 
+# ----------------------------------------------- ZJU-MoCap loader, codec
+FIXTURES = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
+                        "fixtures", "torch_zju")
+ZJU_CAMS = 23  # cameras on set (the regular layout)
+ZJU_TRAIN_STEPS = 12  # per dtype and dataset in phase f: past the loader's prefill
+ZJU_EVAL_FRAMES = 2  # frames of CoreView_387 laid out for phase g
+
+
+def phase_codec(card: str) -> dict:
+    """e. Each committed fixture decoded by the port's codec (built here
+    with g++ from transhuman_tpu_torch/native), its bytes held against the
+    sha256 of cv2's or imageio's decode recorded in digests.json; each
+    decode timed on the host, median of 20."""
+    import hashlib
+
+    from transhuman_tpu_torch.data import image_io
+    from transhuman_tpu_torch.native import build as codec
+
+    t0 = time.perf_counter()
+    codec.library()
+    build_s = time.perf_counter() - t0
+    with open(os.path.join(FIXTURES, "digests.json")) as f:
+        digests = json.load(f)
+    out = {}
+    for name, want in sorted(digests.items()):
+        path = os.path.join(FIXTURES, name)
+        read = image_io.imread_rgb if name.endswith(".jpg") else \
+            image_io.read_png
+        img = read(path)
+        got = hashlib.sha256(np.ascontiguousarray(img).tobytes()).hexdigest()
+        check(got == want["sha256"] and list(img.shape) == want["shape"],
+              f"codec: {name} decodes to {got[:12]}.. {img.shape}, want "
+              f"{want['sha256'][:12]}.. {want['shape']} ({want['by']})")
+        ms = []
+        for _ in range(20):
+            t = time.perf_counter()
+            read(path)
+            ms.append((time.perf_counter() - t) * 1e3)
+        out[name] = float(np.median(ms))
+    log(f"[e codec] g++ build {build_s:.2f} s; every fixture equals "
+        f"{', '.join(sorted({d['by'] for d in digests.values()}))} bit for "
+        f"bit; host ms per decode (median of 20): "
+        + ", ".join(f"{k} {v:.2f}" for k, v in out.items()) + f"  [{card}]")
+    return out
+
+
+def _zju_cameras(n: int, hw=(1024, 1024)):
+    """n cameras on a 3 m ring around the origin, facing it, ZJU-like
+    intrinsics; D non-zero on three in four."""
+    h, w = hw
+    cams = {"K": [], "D": [], "R": [], "T": []}
+    for c in range(n):
+        th = 2 * np.pi * c / n
+        R = np.array([[np.cos(th), 0, -np.sin(th)], [0, 1, 0],
+                      [np.sin(th), 0, np.cos(th)]])
+        pos = np.array([-3.0 * np.sin(th), 0.05, -3.0 * np.cos(th)])
+        f = 1100.0 + 10 * (c % 5)
+        cams["K"].append(np.array([[f, 0, w / 2 + c % 3], [0, f, h / 2 - 2],
+                                   [0, 0, 1]]))
+        cams["R"].append(R)
+        cams["T"].append((-R @ pos).reshape(3, 1) * 1000.0)
+        cams["D"].append(np.zeros((5, 1)) if c % 4 == 0 else np.array(
+            [[-0.2 + 0.01 * (c % 7)], [0.1], [1e-3], [-1e-3], [0.02]]))
+    return cams
+
+
+def _mask_png(verts, K, R, T, hw) -> bytes:
+    """8-bit grey PNG (0/255) of the body: the vertices' projection on a
+    16-pixel grid, grown by one cell."""
+    from transhuman_tpu_torch.data.imgproc import dilate
+    from transhuman_tpu_torch.utils.png import encode_png
+
+    h, w = hw
+    cam = verts @ R.T + T.reshape(1, 3) / 1000.0
+    uv = cam @ K.T
+    uv = uv[:, :2] / uv[:, 2:]
+    cells = np.zeros((h // 16, w // 16), np.uint8)
+    ij = np.floor(uv / 16).astype(int)
+    ok = (ij[:, 0] >= 0) & (ij[:, 0] < w // 16) & (ij[:, 1] >= 0) & (
+        ij[:, 1] < h // 16)
+    cells[ij[ok, 1], ij[ok, 0]] = 255
+    cells = dilate(cells, 3)
+    return encode_png(np.repeat(np.repeat(cells, 16, 0), 16, 1))
+
+
+def write_zju_layout(root: str, human: str, frames, n_annots: int,
+                     seed: int = 0):
+    """A ZJU-MoCap human under root in the reference's layout: annots.npy
+    (ZJU_CAMS cameras, n_annots frames listed), for each of ``frames`` the
+    23 views hard-linked to the committed 1024x1024 fixture JPEGs, masks
+    from the posed synthetic body's projection, new_vertices/new_params of
+    SMPLModel.synthetic() posed, and visibility files for the first half of
+    the cameras (the rest fall back to all ones)."""
+    from transhuman_tpu_torch.geometry.smpl import SMPLModel, rodrigues
+
+    rng = np.random.default_rng(seed)
+    smpl = SMPLModel.synthetic()
+    hdir = os.path.join(root, human)
+    cams = _zju_cameras(ZJU_CAMS)
+    jpegs = sorted(os.path.join(FIXTURES, f) for f in os.listdir(FIXTURES)
+                   if f.endswith(".jpg"))
+    ims = [{"ims": [f"Camera_B{c + 1}/{f:06d}.jpg" for c in range(ZJU_CAMS)]}
+           for f in range(n_annots)]
+    for d in ("new_vertices", "new_params"):
+        os.makedirs(os.path.join(hdir, d), exist_ok=True)
+    for k, f in enumerate(frames):
+        params = {"poses": (rng.standard_normal((1, 72)) * 0.05).astype(
+                      np.float32),
+                  "shapes": np.zeros((1, 10), np.float32),
+                  "Rh": (rng.standard_normal((1, 3)) * 0.1).astype(
+                      np.float32),
+                  "Th": (rng.standard_normal((1, 3)) * 0.05).astype(
+                      np.float32)}
+        verts, _, _ = smpl(params["poses"].reshape(-1), np.zeros(10))
+        Rh = rodrigues(params["Rh"].reshape(1, 3))[0]
+        verts = verts @ Rh.T + params["Th"].reshape(1, 3)
+        np.save(os.path.join(hdir, "new_vertices", f"{f}.npy"), verts)
+        np.save(os.path.join(hdir, "new_params", f"{f}.npy"), params)
+        for c in range(ZJU_CAMS):
+            cdir = f"Camera_B{c + 1}"
+            for sub in ("", "mask"):
+                os.makedirs(os.path.join(hdir, sub, cdir), exist_ok=True)
+            dst = os.path.join(hdir, cdir, f"{f:06d}.jpg")
+            src = jpegs[(k + c) % len(jpegs)]
+            try:
+                os.link(src, dst)
+            except OSError:
+                shutil.copyfile(src, dst)
+            with open(os.path.join(hdir, "mask", cdir, f"{f:06d}.png"),
+                      "wb") as fh:
+                fh.write(_mask_png(verts, *(np.asarray(cams[x][c]) for x in
+                                           ("K", "R", "T")), (1024, 1024)))
+            if c < ZJU_CAMS // 2:
+                vdir = os.path.join(root, "raster", human, "visibility", cdir)
+                os.makedirs(vdir, exist_ok=True)
+                np.save(os.path.join(vdir, f"{f:06d}.npy"),
+                        (rng.random(smpl.v_template.shape[0]) > 0.4))
+    np.save(os.path.join(hdir, "annots.npy"), {"cams": cams, "ims": ims})
+
+
+def host_split(data, index: int) -> dict:
+    """One train sample's host ms by stage, the stages of
+    ZJUDataset.get_train_sample run one by one on its inputs (remap plans
+    cached, as in steady state): decode (4 JPEGs and their masks),
+    undistort+remap, resize, jitter, bound mask+hull, patch sampling."""
+    from transhuman_tpu_torch.data import image_io, imgproc, ray_sampling
+    from transhuman_tpu_torch.data.jitter import color_jitter
+    from transhuman_tpu_torch.geometry import rays
+
+    data.get_train_sample(index)  # the remap plans and ray grids cached
+    _, human, frame_file, _ = data._frame_meta(index)
+    cam = data.cam_inds[index]
+    views = [cam] + data._pick_input_views(human, np.random.default_rng(
+        index + data.epoch * data.cfg.seed))
+    ms = dict.fromkeys(("decode", "undistort+remap", "resize", "jitter",
+                        "bound mask+hull", "patch sampling"), 0.0)
+
+    def timed(key, fn, *a, **kw):
+        t = time.perf_counter()
+        out = fn(*a, **kw)
+        ms[key] += (time.perf_counter() - t) * 1e3
+        return out
+
+    for v in views:
+        cdir = data._cam_dir(human, v + 1)
+        img = timed("decode", image_io.imread_rgb, os.path.join(
+            data.data_root, human, cdir, frame_file))
+        msk = timed("decode", data._load_mask, human, cdir, frame_file)
+        img = np.multiply(img, np.float32(1 / 255), dtype=np.float32)
+        plan = data._remap_plan(human, v, img.shape[:2])
+        if plan is not None:
+            img = timed("undistort+remap", imgproc.remap_linear, img, plan)
+            msk = timed("undistort+remap", imgproc.remap_linear, msk, plan)
+        hw = (img.shape[1] // 2, img.shape[0] // 2)
+        img = timed("resize", imgproc.resize_area, img, hw)
+        msk = timed("resize", imgproc.resize_nearest, msk, hw)
+        img = timed("jitter", color_jitter, img, index)
+    frame, target, _ = data._build_frame(index, np.random.default_rng(0),
+                                         jitter=False, train=True)
+    tgt_img, tgt_msk, K, R, T, bounds = target
+    H, W = tgt_img.shape[:2]
+    ro, rd = rays.get_rays_cached(H, W, K, R, T.reshape(3, 1))
+    pose = np.concatenate([R, T.reshape(3, 1)], 1)
+    timed("bound mask+hull", rays.get_bound_2d_mask, bounds, K, pose, H, W)
+    timed("bound mask+hull", rays.get_near_far_hull, bounds,
+          ro.reshape(-1, 3), rd.reshape(-1, 3), K, R, T.reshape(3, 1), H, W)
+    timed("patch sampling", ray_sampling.sample_train_rays, tgt_img, tgt_msk,
+          K, R, T.reshape(3, 1), bounds, np.random.default_rng(0),
+          n_patches=data.cfg.patch.N_patches, patch_size=data.cfg.patch.size)
+    # sample_train_rays forms the bound mask and hull itself: its own share
+    ms["patch sampling"] = max(ms["patch sampling"] - ms["bound mask+hull"],
+                               0.0)
+    return ms
+
+
+def phase_train_zju(card: str, tmp: str, files: dict) -> tuple:
+    """f. The train entry point from --cfg_file configs/train_or_eval.yaml
+    with dataset zju (as the file says; data_root and rasterize_root the
+    laid-out CoreView_377: 23 cameras, the catalog's 10 frames, 1024x1024
+    JPEGs, D non-zero on most cameras, visibility for half of them), LPIPS
+    and the pretrained encoder, in bf16 and in float32, ZJU_TRAIN_STEPS
+    steps each, counters reset just before and read just after; the same
+    in bf16 with dataset synthetic, for the step medians in one call; the
+    host split of one sample; then one step with use_patch_sampling False
+    and one with rot_ratio 1.0.  Returns ({path: counts}, the zju root,
+    the bf16 zju run's model root)."""
+    from transhuman_tpu_torch import kernels
+    from transhuman_tpu_torch.cli import train as train_cli
+    from transhuman_tpu_torch.config import Config
+    from transhuman_tpu_torch.data.zju import ZJUDataset
+    from transhuman_tpu_torch.geometry.smpl import SMPLModel
+
+    root = os.path.join(tmp, "zju")
+    t0 = time.perf_counter()
+    write_zju_layout(root, "CoreView_377", range(0, 300, 30), 300)
+    layout_s = time.perf_counter() - t0
+    cfg_file = os.path.join(CONFIGS, "train_or_eval.yaml")
+
+    def opts(tag, dataset="zju", dtype="bfloat16"):
+        run = os.path.join(tmp, f"zju_train_{tag}")
+        return ["--device", "cuda", "--cfg_file", cfg_file, "dataset",
+                dataset, "data_root", root, "rasterize_root",
+                os.path.join(root, "raster"), "lpips_weights",
+                files["lpips"], "encoder_weights", files["resnet"],
+                "ep_iter", str(ZJU_TRAIN_STEPS), "train.epoch", "1",
+                "compute_dtype", dtype, "trained_model_dir",
+                os.path.join(run, "tm"), "record_dir",
+                os.path.join(run, "rec"), "result_dir",
+                os.path.join(run, "res")]
+
+    by_path, medians = {}, {}
+    for tag, dataset, dtype in (("bf16", "zju", "bfloat16"),
+                                ("synthetic_bf16", "synthetic", "bfloat16"),
+                                ("f32", "zju", "float32")):
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        _, recs = train_cli.main(opts(tag, dataset, dtype))
+        torch.cuda.synchronize()
+        counts = kernels.launch_counts()
+        n = len(recs)
+        check(n == ZJU_TRAIN_STEPS and all(
+            np.isfinite(r["loss"]) and r["lpips_loss"] > 0 for r in recs),
+            f"train {dataset} ({dtype}): {recs}")
+        f = forms(dtype)
+        check_launches(f"train {dataset} ({dtype})", counts,
+                       {f["dparf"]: n, f["scatter"]: 2 * n, f["fetch"]: 2 * n})
+        step = [r["step_s"] * 1e3 for r in recs]
+        medians[tag] = float(np.median(step[1:]))
+        if dataset == "zju":
+            by_path["train_zju" + ("_bf16" if tag == "bf16" else "")] = counts
+        log(f"[f train {dataset}] --cfg_file train_or_eval.yaml in {dtype}, "
+            f"{n} steps: step ms {', '.join(f'{x:.1f}' for x in step)} "
+            f"(median of steps 1-{n - 1} {medians[tag]:.1f}); data_s (the "
+            f"step's wait on the prefetch queue) "
+            f"{', '.join(f'{r['data_s'] * 1e3:.1f}' for r in recs)} ms; "
+            f"sample_s (host ms per sample, in a loader thread) "
+            f"{', '.join(f'{r['sample_s'] * 1e3:.1f}' for r in recs)}; "
+            f"losses {', '.join(f'{r['loss']:.4f}' for r in recs)}; "
+            f"launches {counts}  [{card}]")
+    log(f"[f train medians] bf16 step median zju {medians['bf16']:.1f} ms "
+        f"against synthetic {medians['synthetic_bf16']:.1f} ms (one call); "
+        f"f32 zju {medians['f32']:.1f} ms; layout written in {layout_s:.1f} "
+        f"s  [{card}]")
+
+    cfg = Config.from_yaml(cfg_file, ["data_root", root, "rasterize_root",
+                                      os.path.join(root, "raster")])
+    data = ZJUDataset(cfg, "train", smpl=SMPLModel.synthetic())
+    split = [host_split(data, i) for i in (0, 57, 131)]
+    med = {k: float(np.median([s[k] for s in split])) for k in split[0]}
+    log(f"[f host split] one ZJU train sample (4 views of 1024x1024 to "
+        f"512x512, jitter on), host ms by stage (median of 3 samples): "
+        + ", ".join(f"{k} {v:.1f}" for k, v in med.items())
+        + f"; sum {sum(med.values()):.1f}  [{card}]")
+
+    for tag, extra in (("nonpatch", ["patch.use_patch_sampling", "False"]),
+                       ("rot", ["rot_ratio", "1.0"])):
+        argv = opts(tag)
+        argv[2:2] = ["--steps", "1"]
+        kernels.reset_launch_counts()
+        _, recs = train_cli.main(argv + extra)
+        torch.cuda.synchronize()
+        counts = kernels.launch_counts()
+        key = "img_loss" if tag == "nonpatch" else "mse_loss"
+        check(len(recs) == 1 and np.isfinite(recs[0][key]),
+              f"train zju {tag}: {recs}")
+        f = forms("bfloat16")
+        check_launches(f"train zju {tag}", counts,
+                       {f["dparf"]: 1, f["scatter"]: 2, f["fetch"]: 2})
+        log(f"[f train zju {' '.join(extra)}] one step: {key} "
+            f"{recs[0][key]:.5f}, step {recs[0]['step_s'] * 1e3:.1f} ms, "
+            f"sample {recs[0]['sample_s'] * 1e3:.1f} ms; launches {counts}  "
+            f"[{card}]")
+    return by_path, root, os.path.join(tmp, "zju_train_bf16", "tm")
+
+
+def phase_eval_zju(card: str, tmp: str, model_root: str) -> dict:
+    """g. The run entry point from the config files with dataset zju on a
+    laid-out CoreView_387 (model_x_motion_x, ZJU_EVAL_FRAMES frames) and
+    phase f's bf16 checkpoint: --type evaluate (train_or_eval.yaml: input
+    views 0, 7, 15, targets 3, 5, 10, 12, 18, 20), --type visualize
+    (performance.yaml) and --type reconstruction (reconstruction.yaml,
+    mesh_th 5), counters reset just before each and read just after; the
+    host ms of get_eval_item and the loop's wait for it; then one ZJU eval
+    item at 64x64 on the card and the CPU within phase 8's bounds."""
+    from transhuman_tpu_torch import kernels
+    from transhuman_tpu_torch.cli import run as run_cli
+    from transhuman_tpu_torch.config import Config
+    from transhuman_tpu_torch.data.zju import ZJUDataset
+    from transhuman_tpu_torch.geometry.smpl import SMPLModel
+
+    root = os.path.join(tmp, "zju_eval")
+    write_zju_layout(root, "CoreView_387", range(ZJU_EVAL_FRAMES),
+                     ZJU_EVAL_FRAMES, seed=1)
+    res = os.path.join(tmp, "zju_result")
+    common = ["--device", "cuda", "data_root", root, "rasterize_root",
+              os.path.join(root, "raster"), "trained_model_dir", model_root,
+              "result_dir", res]
+    f = forms("bfloat16")
+    by_path = {}
+
+    cfg = Config.from_yaml(os.path.join(CONFIGS, "train_or_eval.yaml"),
+                           common[2:])
+    data = ZJUDataset(cfg, "test", smpl=SMPLModel.synthetic())
+    idx = [int(i) for i in data.frame_sampler_indices()]
+    item_ms = []
+    for i in idx:
+        t = time.perf_counter()
+        data.get_eval_item(i)
+        item_ms.append((time.perf_counter() - t) * 1e3)
+    stamps, starts, render_ms = [], [], []
+
+    def stamp(item, out):
+        stamps.append(time.perf_counter())
+        return {}
+
+    dispatch = run_cli.FrameRenderer.dispatch
+
+    def timed_dispatch(self, frame, eval_rays):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        starts.append(t)
+        out = dispatch(self, frame, eval_rays)
+        torch.cuda.synchronize()
+        render_ms.append((time.perf_counter() - t) * 1e3)
+        return out
+
+    kernels.reset_launch_counts()
+    run_cli.FrameRenderer.dispatch = timed_dispatch
+    try:
+        summary = run_cli.main(["--type", "evaluate", "--cfg_file",
+                                os.path.join(CONFIGS, "train_or_eval.yaml"),
+                                *common], per_frame=stamp)
+    finally:
+        run_cli.FrameRenderer.dispatch = dispatch
+    torch.cuda.synchronize()
+    by_path["eval_zju_bf16"] = kernels.launch_counts()
+    check(len(stamps) == len(idx) == 6, f"evaluate zju: {len(stamps)} "
+          f"frames, {len(idx)} items")
+    check(np.isfinite(summary["psnr"]), f"evaluate zju: {summary}")
+    check_launches("evaluate zju", by_path["eval_zju_bf16"],
+                   {"min_excess2": 1, f["dparf"]: 1, f["fetch"]: 1})
+    out_dir = os.path.join(res, "epoch_-1", "debug")
+    written = sorted(os.path.relpath(os.path.join(d, x), out_dir)
+                     for d, _, fs in os.walk(out_dir) for x in fs)
+    check({"summary.txt", "psnr.npy", "ssim.npy", "mse.npy"}
+          <= set(written), f"evaluate zju: files {written}")
+    with open(os.path.join(out_dir, "summary.txt")) as fh:
+        text = fh.read().strip().replace("\n", "; ")
+    cadence = np.diff(stamps) * 1e3
+    wait = [(s - p) * 1e3 for s, p in zip(starts[1:], stamps[:-1])]
+    log(f"[g evaluate zju] train_or_eval.yaml (bf16), CoreView_387 frame 0, "
+        f"6 targets of 512x512: get_eval_item host ms (serial, first cold) "
+        f"{', '.join(f'{x:.1f}' for x in item_ms)}; render "
+        f"{', '.join(f'{x:.1f}' for x in render_ms)} ms; frame to frame "
+        f"{', '.join(f'{x:.1f}' for x in cadence)} ms; the loop's wait for "
+        f"the next item {', '.join(f'{x:.1f}' for x in wait)} ms (the "
+        f"loader hides the host work where this is ~0); summary.txt: {text}; "
+        f"files {len(written)} ({', '.join(written[:6])}, ...); launches "
+        f"{by_path['eval_zju_bf16']}  [{card}]")
+
+    kernels.reset_launch_counts()
+    paths = run_cli.main(["--type", "visualize", "--cfg_file",
+                          os.path.join(CONFIGS, "performance.yaml"),
+                          *common])
+    torch.cuda.synchronize()
+    by_path["visualize_zju_bf16"] = kernels.launch_counts()
+    check(len(paths) == ZJU_EVAL_FRAMES, f"visualize zju: {paths}")
+    check_launches("visualize zju", by_path["visualize_zju_bf16"],
+                   {"min_excess2": 1, f["dparf"]: 1, f["fetch"]: 1})
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    meshes = run_cli.main(["--type", "reconstruction", "--cfg_file",
+                           os.path.join(CONFIGS, "reconstruction.yaml"),
+                           *common, "mesh_th", "5"])
+    torch.cuda.synchronize()
+    recon_s = time.perf_counter() - t0
+    by_path["reconstruction_zju_bf16"] = kernels.launch_counts()
+    from transhuman_tpu_torch.mesh_ops.ply import load_ply
+
+    v, t = load_ply(meshes[0])
+    check(len(meshes) == 1 and len(t) > 100, f"reconstruction zju: {meshes}")
+    check_launches("reconstruction zju", by_path["reconstruction_zju_bf16"],
+                   {"min_excess2": 1, f["dparf"]: 1, f["fetch"]: 1})
+    log(f"[g visualize / reconstruction zju] performance.yaml: "
+        f"{len(paths)} frames; reconstruction.yaml at 0.005 m: {len(v)} "
+        f"verts, {len(t)} tris in {recon_s:.1f} s; launches visualize "
+        f"{by_path['visualize_zju_bf16']}, reconstruction "
+        f"{by_path['reconstruction_zju_bf16']}  [{card}]")
+
+    # one ZJU eval item (two targets) at 64x64, card against CPU
+    pcfg = Config().merge_opts(common[2:6] + [
+        "ratio", "0.0625", "test.target_view", "3,10"])
+    pdata = ZJUDataset(pcfg, "test", smpl=SMPLModel.synthetic())
+    phase_eval_parity(card, "float32", cfg=pcfg, data=pdata,
+                      label="g zju eval parity")
+    return by_path
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing ran", file=sys.stderr)
@@ -2224,6 +2667,12 @@ def main() -> int:
         by_path.update(phase_eval_cfg(card, tmp, model_root, files))
         lp32 = phase_train_parity(card, lpips=files["lpips"])
         phase_train_parity(card, "bfloat16", lp32, lpips=files["lpips"])
+        # the ZJU-MoCap loader: its codec, then train, evaluate, visualize
+        # and reconstruction on laid-out humans
+        phase_codec(card)
+        zju_paths, _, zju_models = phase_train_zju(card, tmp, files)
+        by_path.update(zju_paths)
+        by_path.update(phase_eval_zju(card, tmp, zju_models))
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     for k in kernels:

@@ -174,7 +174,6 @@ def test_every_jax_key_is_classed():
 REFUSE = [("cull_radii", "r.npz", "item 6"), ("train.cull", "True", "item 6"),
           ("train.batch_size", "2", "item 5"),
           ("train.accum_steps", "2", "item 5"),
-          ("patch.use_patch_sampling", "False", "item 7"),
           ("compute_dtype", "float16", "float32 or bfloat16"),
           ("network", "other", "transhuman"), ("renderer", "other", "clight"),
           ("trainer", "other", "clight"), ("evaluator", "other", "if_nerf"),
@@ -192,14 +191,37 @@ def test_values_the_port_cannot_run_are_refused_by_name(key, value, why):
 
 
 def test_dataset_zju_is_refused_where_a_dataset_is_built():
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 7"):
-        common.make_dataset(Config(), "train")
+    """zju is no longer refused: without its data on disk the loader fails
+    by name; an unknown dataset is refused; synthetic builds."""
+    cfg = Config().merge_opts(["data_root", "/nonexistent/zju"])
+    assert "zju" in tconfig.DATASETS and cfg.dataset == "zju"
+    assert tconfig.check_supported(cfg) is cfg
+    with pytest.raises(FileNotFoundError, match="no annots.npy"):
+        common.make_dataset(cfg, "train")
     with pytest.raises(ValueError, match="unknown dataset"):
         common.make_dataset(Config().merge_opts(["dataset", "nope"]), "test")
     data = common.make_dataset(Config().merge_opts(
         ["dataset", "synthetic", "H", "32", "W", "32", "num_class", "8"]),
         "test")
     assert data.hw == (16, 16)
+
+
+def test_non_patch_sampling_is_accepted_and_depth_vizmap_refused():
+    cfg = Config().merge_opts(["patch.use_patch_sampling", "False"])
+    assert tconfig.check_supported(cfg) is cfg
+    for opts in (["depth_map", "True"], ["depth_vizmap", "True"]):
+        cfg = Config().merge_opts(opts)
+        assert tconfig.check_supported(cfg) is cfg
+    cfg = Config().merge_opts(["depth_map", "True", "depth_vizmap", "True"])
+    with pytest.raises(ValueError, match="depth_map True with depth_vizmap "
+                                         "True.*item 12"):
+        tconfig.check_supported(cfg)
+    for key in ("data_root", "rasterize_root", "rot_ratio", "vertices",
+                "params", "rasterize", "jitter", "N_rand",
+                "body_sample_ratio", "face_sample_ratio",
+                "patch.sample_subject_ratio", "test.target_view",
+                "test.mode", "time_steps", "depth_map", "depth_vizmap"):
+        assert tconfig.KEY_CLASSES[key] == "honoured", key
 
 
 def test_tpu_only_keys_warn_and_are_kept(capsys):

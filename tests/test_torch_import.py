@@ -21,14 +21,16 @@ def _no_process(*a, **k):
     raise RuntimeError("a process was started at import: %r" % (a[:1],))
 
 class _Blocked:
-    # the JAX package, JAX, PyYAML, OpenCV and imageio are not importable,
-    # as on the GPU machine
+    # the JAX package, JAX, PyYAML, OpenCV, imageio, PIL and torchvision are
+    # not importable, as on the GPU machine
     def find_spec(self, name, path=None, target=None):
         if name.split(".")[0] in ("jax", "flax", "optax", "transhuman_tpu",
-                                  "yaml", "cv2", "imageio"):
+                                  "yaml", "cv2", "imageio", "PIL",
+                                  "torchvision"):
             raise ImportError("blocked: " + name)
 
 sys.meta_path.insert(0, _Blocked())
+_popen = subprocess.Popen
 subprocess.Popen = _no_process  # a kernel build would run nvcc here
 import transhuman_tpu_torch as pkg
 mods = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
@@ -40,12 +42,29 @@ from transhuman_tpu_torch.models.network import TransHumanNet
 net = TransHumanNet(embed_dim=24, vit_depth=1, vit_heads=2, knn_k=4)
 tree = weights.jax_params_from_state_dict(net.state_dict())["params"]
 back = weights.live_state_dict(weights.state_dict_from_jax(tree, 1))
+from transhuman_tpu_torch.native import build as codec
+codec_loaded = codec.loaded()
+# decoding builds the host codec with g++: processes may start from here
+subprocess.Popen = _popen
+import hashlib, os
+from transhuman_tpu_torch.data import image_io, zju
+fix = os.path.join("tests", "fixtures", "torch_zju")
+digests = json.load(open(os.path.join(fix, "digests.json")))
+decoded = {}
+for name in ("cv2_q95_420.jpg", "mask_palette.png"):
+    path = os.path.join(fix, name)
+    img = (image_io.imread_rgb(path) if name.endswith(".jpg")
+           else image_io.read_png(path))
+    decoded[name] = hashlib.sha256(img.tobytes()).hexdigest() == digests[
+        name]["sha256"]
 print(json.dumps({
+    "codec_loaded_at_import": codec_loaded,
+    "decoded": decoded,
     "modules": mods,
     "loaded": sorted(k for k in sys.modules
                      if k.split(".")[0] in ("jax", "flax", "optax", "triton",
                                             "transhuman_tpu", "cv2", "yaml",
-                                            "imageio")),
+                                            "imageio", "PIL", "torchvision")),
     "lib_loaded": build.loaded(),
     "bridge_roundtrip": back.keys() == net.state_dict().keys() and all(
         bool((back[k] == v).all()) for k, v in net.state_dict().items()),
@@ -73,6 +92,14 @@ def test_import_loads_no_jax_and_no_jax_package(probe):
 
 def test_import_builds_no_kernel(probe):
     assert probe["lib_loaded"] is False
+    assert probe["codec_loaded_at_import"] is False
+
+
+def test_zju_loader_decodes_without_cv2_pil_or_imageio(probe):
+    """Under the block, data.zju imports and the codec (built on first use)
+    decodes a fixture JPEG and a palette PNG to cv2's and imageio's bytes."""
+    assert probe["decoded"] == {"cv2_q95_420.jpg": True,
+                                "mask_palette.png": True}
 
 
 def test_weights_bridge_runs_without_the_jax_package(probe):
@@ -116,7 +143,9 @@ NEW_MODULES = {
     "transhuman_tpu_torch.tools.convert_resnet",
     "transhuman_tpu_torch.train.checkpoint",
     "transhuman_tpu_torch.data.loader", "transhuman_tpu_torch.cli.common",
-    "transhuman_tpu_torch.cli.train",
+    "transhuman_tpu_torch.cli.train", "transhuman_tpu_torch.data.zju",
+    "transhuman_tpu_torch.data.image_io", "transhuman_tpu_torch.data.imgproc",
+    "transhuman_tpu_torch.native.build",
 }
 
 
@@ -127,7 +156,8 @@ def test_config_lpips_and_lifecycle_modules_import_alone(probe):
     assert NEW_MODULES <= set(probe["modules"]) | {"transhuman_tpu_torch"}
 
 
-_HOST_ONLY = re.compile(r"^\s*(import|from)\s+(yaml|cv2|imageio)(\.|\s|$)")
+_HOST_ONLY = re.compile(
+    r"^\s*(import|from)\s+(yaml|cv2|imageio|PIL|torchvision)(\.|\s|$)")
 
 
 def test_package_source_imports_no_yaml_cv2_or_imageio():

@@ -130,18 +130,20 @@ def build_runtime(cfg: Config, device, smpl: Optional[SMPLModel] = None,
     return model, pipe, smpl, cluster
 
 
-def make_dataset(cfg: Config, split: str):
-    """The dataset cfg.dataset names: ``synthetic``, the seeded synthetic
-    scene at the render size (H_render x W_render), the only data the
-    repository holds; ``zju`` is refused by name (not ported)."""
-    from ..data.synthetic import SyntheticDataset
-
+def make_dataset(cfg: Config, split: str, smpl: Optional[SMPLModel] = None):
+    """The dataset cfg.dataset names: ``zju``, the ZJU-MoCap layout under
+    cfg.data_root (data/zju.py), posed by ``smpl`` (default: load_smpl's);
+    ``synthetic``, the seeded synthetic scene at the render size
+    (H_render x W_render)."""
     if cfg.dataset not in DATASETS:
         raise ValueError(f"unknown dataset {cfg.dataset!r}; known: "
                          f"{sorted(DATASETS)}")
-    if DATASETS[cfg.dataset]:
-        raise NotImplementedError(
-            f"dataset {cfg.dataset!r}: {DATASETS[cfg.dataset]}")
+    if cfg.dataset == "zju":
+        from ..data.zju import ZJUDataset
+
+        return ZJUDataset(cfg, split, smpl=smpl or load_smpl(cfg))
+    from ..data.synthetic import SyntheticDataset
+
     return SyntheticDataset(cfg, split, image_hw=(cfg.H_render, cfg.W_render))
 
 

@@ -19,8 +19,11 @@ Recorder, ``use_record``), and at each epoch's end ``latest.pth``, plus
 validation pass instead (weights-only load of ``test.epoch``'s checkpoint,
 per-frame loss and the evaluator with LPIPS, one ``val`` record).
 
-The data is the seeded synthetic scene (``dataset synthetic``; the
-ZJU-MoCap loader is not ported) at the render size (H_render x W_render).
+The data is the ZJU-MoCap layout under ``data_root`` (``dataset zju``,
+data/zju.py) or the seeded synthetic scene at the render size
+(``dataset synthetic``).  Each step's record holds ``sample_s``, the host
+seconds its sample took in a loader thread, and ``data_s``, how long the
+step waited for it (the queue and the copy to the device).
 ``--steps N`` caps the run at N updates; ``--out PATH`` also receives the
 final state.  It runs on the card (``--device cuda``, the default; without
 a card that is an error) with the float32 math in full precision (TF32
@@ -132,7 +135,8 @@ def build_trainer(cfg: Config, device, dataset=None, ckpt=None):
     step_fn = make_train_step(
         pipe, l2_weight=cfg.l2rec_weight, perturb=cfg.perturb > 0,
         batch_size=cfg.train.batch_size, accum_steps=cfg.train.accum_steps,
-        lpips_fn=lpips, lpips_weight=cfg.lpips_weight)
+        lpips_fn=lpips, lpips_weight=cfg.lpips_weight,
+        patch_mode=cfg.patch.use_patch_sampling)
     return state, step_fn, dataset, pipe
 
 
@@ -158,6 +162,13 @@ def _write_profile(out_dir: str, prof, records):
     print(f"profiler trace (steps {records[0]['step']}-"
           f"{records[-1]['step']}) written to {path}\n"
           f"{format_summary(summary)}", flush=True)
+
+
+def _timed_sample(dataset, index: int):
+    """(the train sample, the host seconds it took)."""
+    t0 = time.perf_counter()
+    sample = dataset.get_train_sample(index)
+    return sample, time.perf_counter() - t0
 
 
 def _sync(device):
@@ -247,7 +258,7 @@ def main(argv=None, dataset=None):
             for _ in range(-(-cfg.ep_iter // len(dataset)))])[:cfg.ep_iter]
         # workers build host samples (seeded by epoch and index, so their
         # order cannot change the data); the copy to the card stays here
-        samples = Loader(lambda i: dataset.get_train_sample(int(i)), perm,
+        samples = Loader(lambda i: _timed_sample(dataset, int(i)), perm,
                          num_workers=(0 if cfg.train.num_workers <= 0
                                       else cfg.train.num_workers + 1))
         # the JAX CLI's steady-state window: steps 5-8 of the first epoch,
@@ -256,7 +267,7 @@ def main(argv=None, dataset=None):
         prof_start = max(0, prof_stop - 3)
         profiling = cfg.profile_dir and epoch == start_epoch
         t_end = time.perf_counter()
-        for i, host_sample in enumerate(samples):
+        for i, (host_sample, sample_s) in enumerate(samples):
             it = epoch * cfg.ep_iter + i
             if profiling and i == prof_start:
                 prof = torch.profiler.profile(activities=_activities(device))
@@ -266,7 +277,8 @@ def main(argv=None, dataset=None):
             stats = step_fn(state, sample, fold_in(cfg.seed, it))
             _sync(device)
             t2 = time.perf_counter()
-            rec = dict(stats, step=it, data_s=t1 - t_end, step_s=t2 - t1)
+            rec = dict(stats, step=it, data_s=t1 - t_end, sample_s=sample_s,
+                       step_s=t2 - t1)
             records.append(rec)
             if prof is not None and i == prof_stop:
                 prof.stop()

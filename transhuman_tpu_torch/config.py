@@ -364,16 +364,14 @@ TPU_ONLY_KEYS = frozenset({
     "pad_bucket", "compact_ratio", "use_pallas_knn", "mesh_axis_data",
     "mesh_axis_rays", "mesh_axis_model", "remat",
 })
-# read only by the ZJU-MoCap loader or its samplers (ROADMAP queue 1 item
-# 7), or by neither package (xyz_res, save_latest_ep, gpus, test.collator,
-# test.time_det, test.batch_size, train.scheduler.type: the JAX package
-# reads none of them either)
+# read by neither package (xyz_res, save_latest_ep, gpus, test.collator,
+# test.time_det, test.batch_size, train.scheduler.type: the JAX package reads
+# none of them either), or by JAX code the port does not carry (time_mult:
+# time_steps is 1; use_viz_test; sample_fg_ratio; train.shuffle,
+# train.cull_ratio; depth_root: only with depth_map and depth_vizmap, which
+# check_supported refuses)
 UNUSED_KEYS = frozenset({
-    "time_steps", "time_mult", "data_root", "rasterize_root", "rot_ratio",
-    "vertices", "params", "use_viz_test", "rasterize", "jitter", "depth_map",
-    "depth_vizmap", "depth_root", "face_sample_ratio", "body_sample_ratio",
-    "sample_fg_ratio", "N_rand",
-    "patch.sample_subject_ratio", "test.target_view", "test.mode",
+    "time_mult", "use_viz_test", "depth_root", "sample_fg_ratio",
     "test.collator", "test.time_det", "test.batch_size", "train.shuffle",
     "train.cull_ratio", "train.scheduler.type", "gpus", "xyz_res",
     "save_latest_ep",
@@ -399,15 +397,10 @@ REFUSED = {
                          "ROADMAP queue 1 item 5"),
     "train.accum_steps": ({1}, "gradient accumulation is ROADMAP queue 1 "
                           "item 5"),
-    "patch.use_patch_sampling": ({True}, "the non-patch sampler is ROADMAP "
-                                 "queue 1 item 7"),
     "run_mode": ({"train", "test"}, "run_mode is train or test"),
 }
-# refused where a dataset is built (the serve entry point builds none)
-DATASETS = {"synthetic": None,
-            "zju": "the ZJU-MoCap loader is ROADMAP queue 1 item 7 (and "
-                   "needs an image decoder the card's machine lacks); pass "
-                   "`dataset synthetic`"}
+# the datasets the port builds (the serve entry point builds none)
+DATASETS = ("synthetic", "zju")
 
 
 def flat_keys(cfg=None, prefix: str = "") -> dict:
@@ -442,4 +435,8 @@ def check_supported(cfg: Config) -> Config:
         if values[key] not in ok:
             raise ValueError(f"config {key} {values[key]!r}: not runnable in "
                              f"the PyTorch port: {why}")
+    if cfg.depth_map and cfg.depth_vizmap:
+        raise ValueError("config depth_map True with depth_vizmap True: not "
+                         "runnable in the PyTorch port: visibility from depth "
+                         "maps is ROADMAP queue 1 item 12")
     return cfg

@@ -32,8 +32,8 @@ class SyntheticDataset:
                  image_hw: tuple = (128, 128), n_verts: int = 6890):
         if split == "train" and not cfg.patch.use_patch_sampling:
             raise NotImplementedError(
-                "the port's synthetic data samples patches only; the "
-                "non-patch sampler needs get_bound_2d_mask (OpenCV)")
+                "the synthetic scene has no masks and samples patches only; "
+                "the non-patch sampler runs on dataset zju")
         self.cfg = cfg
         self.split = split
         self.n_frames = n_frames

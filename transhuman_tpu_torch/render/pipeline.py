@@ -57,9 +57,12 @@ def fold_in(seed: int, data: int) -> int:
 
 class _TensorFields:
     def to(self, device):
-        """A copy with every tensor field moved to ``device``."""
-        return type(self)(**{f.name: getattr(self, f.name).to(device)
-                             for f in fields(self)})
+        """A copy with every tensor field moved to ``device`` (None fields
+        stay None)."""
+        return type(self)(**{
+            f.name: (None if getattr(self, f.name) is None
+                     else getattr(self, f.name).to(device))
+            for f in fields(self)})
 
 
 @dataclass
@@ -76,11 +79,21 @@ class FrameInputs(_TensorFields):
     blend_rot: torch.Tensor  # (Nv, 3, 3) rotation blocks of blend matrices
     Rh: torch.Tensor  # (3, 3) target world -> SMPL rotation
     Th: torch.Tensor  # (3,) target world -> SMPL translation
+    # the transform_can_smpl augmentation (data/aug.py): set on training
+    # frames when rot_ratio > 0, all three or none; eval frames carry none
+    aug_center: Optional[torch.Tensor] = None  # (3,)
+    aug_rot: Optional[torch.Tensor] = None  # (3, 3) xz rotation
+    aug_trans: Optional[torch.Tensor] = None  # (3,)
 
 
 def to_smpl(frame: FrameInputs, pts_world):
-    """World -> SMPL coordinates of the target pose."""
-    return (pts_world - frame.Th) @ frame.Rh
+    """World -> SMPL coordinates of the target pose, then the frame's
+    augmentation when it carries one (the JAX package's to_smpl)."""
+    pts = (pts_world - frame.Th) @ frame.Rh
+    if frame.aug_rot is not None:
+        pts = ((pts - frame.aug_center) @ frame.aug_rot.T + frame.aug_center
+               + frame.aug_trans)
+    return pts
 
 
 @dataclass

@@ -15,7 +15,7 @@ from dataclasses import dataclass
 import torch
 from torch.profiler import record_function
 
-from .loss import TrainSample, patch_losses
+from .loss import TrainSample, patch_losses, random_ray_losses
 from .schedule import warmup_cosine_epoch_schedule
 
 
@@ -56,17 +56,21 @@ def make_optimizer(params, lr: float = 7e-4, end_lr: float = 1e-6,
 
 
 def make_sample_loss(pipe, l2_weight: float = 1.0, perturb: bool = True,
-                     lpips_fn=None, lpips_weight: float = 0.1):
-    """(sample, seed) -> (loss, stats) for one patch-mode sample: the loss
-    composition of the reference's NetworkWrapper (if_nerf_clight.py:43-91),
-    with LPIPS when lpips_fn is given (its backward runs through the VGG16
-    convolutions into the rendered patches).  The only sampler the port has
-    is the patch sampler, so the non-patch loss (``loss.random_ray_losses``)
-    has no caller here."""
+                     lpips_fn=None, lpips_weight: float = 0.1,
+                     patch_mode: bool = True):
+    """(sample, seed) -> (loss, stats) for one sample: the loss composition
+    of the reference's NetworkWrapper (if_nerf_clight.py:43-91).  Patch mode
+    (``patch.use_patch_sampling``): the patch MSE, with LPIPS when lpips_fn
+    is given (its backward runs through the VGG16 convolutions into the
+    rendered patches); otherwise the masked MSE of the single rays, added
+    unweighted as in the reference (l2rec_weight scales the patch MSE
+    only)."""
 
     def sample_loss(sample: TrainSample, seed=None):
         out = pipe.render_train(sample.frame, sample.rays, seed,
                                 sample_jitter=perturb)
+        if not patch_mode:
+            return random_ray_losses(out["rgb_map"], sample)
         return patch_losses(out["rgb_map"], sample, lpips_fn, l2_weight,
                             lpips_weight)
 
@@ -76,7 +80,7 @@ def make_sample_loss(pipe, l2_weight: float = 1.0, perturb: bool = True,
 def make_train_step(pipe, clip_value: float = 40.0, l2_weight: float = 1.0,
                     perturb: bool = True, batch_size: int = 1,
                     accum_steps: int = 1, lpips_fn=None,
-                    lpips_weight: float = 0.1):
+                    lpips_weight: float = 0.1, patch_mode: bool = True):
     """(state, sample, seed) -> stats: forward, loss, backward, per-element
     gradient clip at clip_value (reference trainer.py:85), optimizer update,
     schedule step.  Updates state.model, its optimizer and scheduler in
@@ -89,7 +93,7 @@ def make_train_step(pipe, clip_value: float = 40.0, l2_weight: float = 1.0,
             "statistics over its batch, which a loop over samples would not "
             "reproduce")
     sample_loss = make_sample_loss(pipe, l2_weight, perturb, lpips_fn,
-                                   lpips_weight)
+                                   lpips_weight, patch_mode)
 
     def step(state: TrainState, sample: TrainSample, seed=None) -> dict:
         opt = state.optimizer
