@@ -986,19 +986,34 @@ def _request(frame, target: int, hw: int, verts=None, blend_rot=None):
     }
 
 
+def min_reach64(pts, refs, radii, block: int = 4096):
+    """min over refs of (|p - r| - radius_r) per point, in float64: < 0
+    where the per-vertex radii cull keeps the point."""
+    p, r, rad = pts.double(), refs.double(), radii.double()
+    out = torch.empty(p.shape[0], dtype=torch.float64, device=p.device)
+    for s in range(0, p.shape[0], block):
+        out[s:s + block] = (torch.cdist(p[s:s + block], r)
+                            - rad[None]).min(dim=1).values
+    return out
+
+
 def _unstable_points(pipe, frame, pts_world):
-    """(N,) bool tensor: the point lies within 1e-5 of the cull threshold,
-    or is kept at a kNN near-tie; there the card's kernels and the CPU's
-    plain versions may legitimately decide differently.  frame and points
-    on the pipeline's device."""
+    """(N,) bool tensor: the point lies within 1e-5 m of the cull threshold
+    (cull_distance, or its vertex radius under the radii cull), or is kept
+    at a kNN near-tie; there the card's kernels and the CPU's plain
+    versions may legitimately decide differently.  frame and points on the
+    pipeline's device."""
     from transhuman_tpu_torch.render.pipeline import to_smpl
 
     with torch.no_grad():
         centers = pipe.prologue(frame).centers
         p = to_smpl(frame, pts_world)
-        d = min_dist64(p, frame.tar_verts_smpl)
-        bad = (d - pipe.cull_distance).abs() < 1e-5
-        kept = d < pipe.cull_distance
+        if pipe.vertex_radii is None:
+            d = min_dist64(p, frame.tar_verts_smpl) - pipe.cull_distance
+        else:
+            d = min_reach64(p, frame.tar_verts_smpl, pipe.vertex_radii)
+        bad = d.abs() < 1e-5
+        kept = d < 0
         bad[kept] |= knn_near_ties(p[kept], centers, pipe.model.knn_k)
     return bad
 
@@ -1034,13 +1049,16 @@ def _unstable_pixels(svc, req):
     return out.reshape(H, W)
 
 
-def phase_parity(card: str, dtype: str = "float32", ref=None):
+def phase_parity(card: str, dtype: str = "float32", ref=None, radii=None):
     """One 64x64 request through RenderService on the card and on the CPU
     (plain versions), the same full-width weights, in the compute dtype;
     in bf16 also held nearer the CPU's bf16 than ref (the CPU's float32
-    render, this phase's float32 result) is.  Returns the CPU render."""
+    render, this phase's float32 result) is.  With radii ((6890,) numpy)
+    both cull with those per-vertex radii (phase h2).  Returns the CPU
+    render."""
     import copy
 
+    from transhuman_tpu_torch import kernels
     from transhuman_tpu_torch.config import Config
     from transhuman_tpu_torch.render.pipeline import RenderPipeline
     from transhuman_tpu_torch.serve import RenderService
@@ -1051,14 +1069,19 @@ def phase_parity(card: str, dtype: str = "float32", ref=None):
                                "compute_dtype", dtype])
     model, pipe, frame, smpl, cluster = synthetic_setup(
         image_hw=(hw, hw), device="cuda", compute_dtype=COMPUTE[dtype])
+    pipe.vertex_radii = radii
     svc_gpu = RenderService(cfg, pipe, smpl)
     model_cpu = copy.deepcopy(model).cpu()
     pipe_cpu = RenderPipeline(model_cpu, cluster, smpl.v_template,
                               n_samples=pipe.n_samples,
-                              chunk_rays=pipe.chunk_rays, device="cpu")
+                              chunk_rays=pipe.chunk_rays, device="cpu",
+                              vertex_radii=radii)
     svc_cpu = RenderService(cfg, pipe_cpu, smpl)
     req = _request(frame, 1, hw)
+    kernels.reset_launch_counts()
     out_g = svc_gpu.render(req)
+    k1 = kernels.launch_counts()["min_excess2"]
+    check(k1 >= 1, f"parity: K1 launched {k1} times")
     out_c = svc_cpu.render(req)
     skip = _unstable_pixels(svc_gpu, req)
     ok = ~skip
@@ -1072,6 +1095,11 @@ def phase_parity(card: str, dtype: str = "float32", ref=None):
         check(errs["depth"] <= 1e-2,
               f"parity: depth CUDA vs CPU {errs} > 1e-2")
         label, extra = "4 parity", ""
+        if radii is not None:
+            label = "h2 parity, cull_radii"
+            extra = (f"; survivors card {pipe.last_frame_stats['survivors']}"
+                     f", CPU {pipe_cpu.last_frame_stats['survivors']} of "
+                     f"{pipe.last_frame_stats['points']}")
     else:
         check(errs["rgb"] <= BF16_RGB_TOL and errs["acc"] <= BF16_RGB_TOL
               and errs["depth"] <= BF16_DEPTH_TOL,
@@ -1166,31 +1194,50 @@ def _grads_and_update(state, p0):
              state.model.named_parameters()})
 
 
+def _parity_cfg(dtype: str = "float32", lpips: str = "", extra=()):
+    """The config of phase 6's 64x64 full-width step (see
+    phase_train_parity)."""
+    from transhuman_tpu_torch.config import Config
+
+    return Config().merge_opts(["H", "128", "W", "128", "perturb", "0",
+                                "patch.N_patches", "2", "patch.size",
+                                "16" if lpips else "10",
+                                "compute_dtype", dtype, "dataset",
+                                "synthetic", "lpips_weights", lpips, *extra])
+
+
+def _parity_step(cfg, dev: str):
+    """One step of cfg's seeded model on train.batch_size samples on dev:
+    (stats, initial parameters, gradients, update), on the CPU."""
+    from transhuman_tpu_torch.cli.train import build_trainer
+
+    state, step_fn, data, _ = build_trainer(cfg, torch.device(dev))
+    p0 = {n: p.detach().cpu().clone()
+          for n, p in state.model.named_parameters()}
+    batch = [data.get_train_sample(i).to(dev)
+             for i in range(cfg.train.batch_size)]
+    stats = step_fn(state, batch, 0)
+    return (stats, p0, *_grads_and_update(state, p0))
+
+
 def phase_train_parity(card: str, dtype: str = "float32", ref=None,
-                       lpips: str = ""):
+                       lpips: str = "", extra=(), card_out=None):
     """One train step at 64x64 (full-width model, 2 patches of 10x10 rays x
     64 samples, jitter off) on the card and on the CPU from the same
     seeded weights and sample, in the compute dtype; in bf16 also against
     ref (the CPU's float32 step, this phase's float32 result).  With lpips
     (an LPIPS npz) the loss adds 0.1 x LPIPS over 2 patches of 16x16 (a
-    side VGG16's pools need).  Returns the CPU step's (stats, gradients,
-    update)."""
-    from transhuman_tpu_torch.cli.train import build_trainer
-    from transhuman_tpu_torch.config import Config
-
-    cfg = Config().merge_opts(["H", "128", "W", "128", "perturb", "0",
-                               "patch.N_patches", "2", "patch.size",
-                               "16" if lpips else "10",
-                               "compute_dtype", dtype, "dataset",
-                               "synthetic", "lpips_weights", lpips])
+    side VGG16's pools need).  extra: more config overrides (phase h2:
+    train.batch_size, train.accum_steps, train.cull, remat); the step takes
+    train.batch_size samples.  Returns the CPU step's (stats, gradients,
+    update); card_out, a dict, receives the card's."""
+    cfg = _parity_cfg(dtype, lpips, extra)
     tag = " with LPIPS" if lpips else ""
-    runs = {}
-    for dev in ("cuda", "cpu"):
-        state, step_fn, data, _ = build_trainer(cfg, torch.device(dev))
-        p0 = {n: p.detach().cpu().clone()
-              for n, p in state.model.named_parameters()}
-        stats = step_fn(state, data.get_train_sample(0).to(dev), 0)
-        runs[dev] = (stats, p0, *_grads_and_update(state, p0))
+    if extra:
+        tag += " with " + " ".join(extra)
+    runs = {dev: _parity_step(cfg, dev) for dev in ("cuda", "cpu")}
+    if card_out is not None:
+        card_out.update(zip(("stats", "p0", "grads", "update"), runs["cuda"]))
     (sg, p0g, gg, dg), (sc, p0c, gc, dc) = runs["cuda"], runs["cpu"]
     check(all(torch.equal(p0g[n], p0c[n]) for n in p0c),
           "train parity: the two runs start from different weights")
@@ -1231,7 +1278,8 @@ def phase_train_parity(card: str, dtype: str = "float32", ref=None,
         check(flips <= flips_ref, f"bf16 train parity: {flips} update signs "
               f"differ from the CPU's bf16 step, the CPU's float32 step "
               f"{flips_ref} (of {total})")
-        log(f"[{'d' if lpips else '12'} bf16 train parity] 64x64 full-width "
+        log(f"[{'h2' if extra else 'd' if lpips else '12'} bf16 train "
+            f"parity] 64x64 full-width "
             f"step in bf16{tag}, CUDA vs CPU: loss {sg['loss']:.7g} vs {sc['loss']:.7g} (rel "
             f"{lerr:.3g}; CPU float32 {ref[0]['loss']:.7g}); worst gradient "
             f"leaf {worst[0]:.3g} of the largest leaf's norm ({worst[1]}); "
@@ -1267,7 +1315,8 @@ def phase_train_parity(card: str, dtype: str = "float32", ref=None,
     check(worst_tight <= 0.01 * lr and worst <= 2 * lr,
           f"train parity: updates differ by {worst_tight} (sure sign) / "
           f"{worst} (all) at lr {lr}")
-    log(f"[{'d' if lpips else '6'} train parity] 64x64 full-width step"
+    log(f"[{'h2' if extra else 'd' if lpips else '6'} train parity] 64x64 "
+        f"full-width step"
         f"{tag}, CUDA vs CPU: loss {sg['loss']:.7g} vs {sc['loss']:.7g} (rel {lerr:.3g}); max "
         f"gradient err {gerr:.3g} of its leaf's norm (leaves above the "
         f"floor); worst error/tolerance {rel[0][0]:.3g} ({rel[0][1]}); "
@@ -2624,6 +2673,319 @@ def phase_eval_zju(card: str, tmp: str, model_root: str) -> dict:
     return by_path
 
 
+# ------------------------------- batches, the train cull, remat, the radii
+H_BATCH = 4  # train.batch_size of phase h3
+H_STEPS = 3  # updates of each phase h3 run
+H_TRAIN_POINTS = 153600  # one train sample's points: 2,400 rays x 64
+H_RADII = (0.02, 0.1)  # m: the range of phase h's seeded per-vertex radii
+
+
+def seeded_radii(seed: int = 10, n: int = 6890) -> np.ndarray:
+    return np.random.default_rng(seed).uniform(*H_RADII, n).astype(
+        np.float32)
+
+
+def min_excess64(pts, refs, bias2, block: int = 4096):
+    """min over refs of (|p - r|^2 - bias2_r) per point, in float64."""
+    p, r, b = pts.double(), refs.double(), bias2.double()
+    out = torch.empty(p.shape[0], dtype=torch.float64, device=p.device)
+    for s in range(0, p.shape[0], block):
+        out[s:s + block] = (torch.cdist(p[s:s + block], r) ** 2
+                            - b[None]).min(dim=1).values
+    return out
+
+
+def phase_cull_bias(card: str) -> dict:
+    """h1. K1's bias form, the per-vertex radii cull (bias2 = r^2, kept
+    where < 0), against its plain twin on the card at a render chunk
+    (32,768 points) and at one train sample's points (153,600), against
+    6,890 vertices with radii drawn in [0.02, 0.1] m: the values within
+    1e-6, the predicate equal on every point whose float64 excess is
+    farther than 1e-6 from 0; timed beside its bound and beside the
+    zero-bias form at the same shape."""
+    from transhuman_tpu_torch.kernels import cull
+    from transhuman_tpu_torch.tools.kernel_ab import phase3_inputs
+
+    dev = torch.device("cuda")
+    out = {}
+    for name, n in (("render", N_CHUNK), ("train", H_TRAIN_POINTS)):
+        pts, verts = phase3_inputs(dev, n)[:2]
+        bias2 = torch.from_numpy(seeded_radii()).to(dev) ** 2
+        zeros = torch.zeros_like(bias2)
+        e_k = cull.min_excess2_cuda(pts, verts, bias2)
+        e_p = cull.min_excess2_plain(pts, verts, bias2)
+        e64 = min_excess64(pts, verts, bias2)
+        torch.cuda.synchronize()
+        err = float((e_k - e_p).abs().max())
+        check(err <= 1e-6, f"K1 bias form ({name}): max |excess kernel - "
+              f"plain| = {err} > 1e-6")
+        sure = e64.abs() > 1e-6
+        for what, e in (("plain", e_p < 0), ("float64", e64 < 0)):
+            diff = int(((e_k < 0) != e)[sure].sum())
+            check(diff == 0, f"K1 bias form ({name}): {diff} cull decisions "
+                  f"differ from the {what} ones off |excess| <= 1e-6")
+        ms = time_ms(lambda: cull.min_excess2_cuda(pts, verts, bias2))
+        zero_ms = time_ms(lambda: cull.min_excess2_cuda(pts, verts, zeros))
+        plain_ms = time_ms(lambda: cull.min_excess2_plain(pts, verts, bias2),
+                           iters=5, warmup=1)
+        b = bound(nbytes(pts, verts, bias2, e_k), 7 * n * verts.shape[0])
+        keep = float((e_k < 0).float().mean())
+        out[name] = {"points": n, "max_abs_err": err, "ms": ms,
+                     "zero_bias_ms": zero_ms, "plain_ms": plain_ms, **b,
+                     "survivors": keep, "near_ties": int((~sure).sum())}
+        log(f"[h1 K1 bias form] {name}: {n} pts x {verts.shape[0]} verts, "
+            f"radii in [{H_RADII[0]}, {H_RADII[1]}] m: max|d excess| "
+            f"{err:.3g}, survivors {keep:.4f}, {int((~sure).sum())} points "
+            f"within 1e-6 of 0 left out; kernel {ms:.4f} ms (zero bias "
+            f"{zero_ms:.4f} ms), plain {plain_ms:.4f} ms, bound "
+            f"{b['bound_ms']:.4f} ms ({b['bound_by']})  [{card}]")
+    return out
+
+
+def phase_batch_parity(card: str, plain_step: dict):
+    """h2. Card against CPU at 64x64 and full width: a train step at
+    train.batch_size 2 with train.cull, the same with accum_steps 2 (no
+    cull), each in float32 and bf16 at phases 6 and 12's bounds; a remat
+    step at phase 6's bounds and its card gradients against plain_step's
+    (phase 6's card step without remat) within 1e-6 of each leaf's norm;
+    a serve render with per-vertex radii at phase 4's bounds.  A step's
+    gradients on the card are not bit-reproducible (the library's
+    backward kernels are not all deterministic), so the remat
+    check's bound is 4x what a second step without remat differs by, or
+    1e-6, whichever is larger."""
+    for extra in (("train.batch_size", "2", "train.cull", "True"),
+                  ("train.batch_size", "2", "train.accum_steps", "2")):
+        ref = phase_train_parity(card, extra=extra)
+        phase_train_parity(card, "bfloat16", ref, extra=extra)
+    remat = {}
+    phase_train_parity(card, extra=("remat", "True"), card_out=remat)
+    g0, g1 = plain_step["grads"], remat["grads"]
+    again = _parity_step(_parity_cfg(), "cuda")[2]
+    check(g0.keys() == g1.keys() == again.keys(), "h2 remat: the leaves "
+          "with a gradient differ")
+    gmax = max(float(g.norm()) for g in g0.values())
+
+    def worst(g):
+        return max(float((g[n] - g0[n]).norm())
+                   / (float(g0[n].norm()) + 1e-3 * gmax) for n in g0)
+
+    noise, diff = worst(again), worst(g1)
+    check(diff <= max(1e-6, 4 * noise), f"h2 remat: card gradients differ "
+          f"from the card step without remat by {diff:.3g} of a leaf's norm,"
+          f" a second step without remat by {noise:.3g}")
+    log(f"[h2 remat] card step with remat against the card step without: "
+        f"worst gradient leaf {diff:.3g} of its norm; a second step without "
+        f"remat {noise:.3g}  [{card}]")
+    phase_parity(card, radii=seeded_radii())
+
+
+def _train_run(card: str, tmp: str, tag: str, dtype: str, extra=(),
+               out=None):
+    """One phase h3 run of the train entry point from train_or_eval.yaml
+    with dataset synthetic at full width: (records, launch counts, peak
+    GiB), counters and the peak reset just before."""
+    from transhuman_tpu_torch import kernels
+    from transhuman_tpu_torch.cli import train as train_cli
+
+    run = os.path.join(tmp, f"h3_{tag}")
+    argv = ["--device", "cuda", "--steps", str(H_STEPS), "--cfg_file",
+            os.path.join(CONFIGS, "train_or_eval.yaml"), "dataset",
+            "synthetic", "ep_iter", str(H_STEPS), "train.epoch", "1",
+            "compute_dtype", dtype, "trained_model_dir",
+            os.path.join(run, "tm"), "record_dir", os.path.join(run, "rec"),
+            *extra]
+    if out:
+        argv[2:2] = ["--out", out]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    _, recs = train_cli.main(argv)
+    torch.cuda.synchronize()
+    return recs, kernels.launch_counts(), \
+        torch.cuda.max_memory_allocated() / 2**30
+
+
+def phase_train_batches(card: str, tmp: str):
+    """h3. The train entry point (--cfg_file configs/train_or_eval.yaml,
+    dataset synthetic, full width) at train.batch_size 1, 2 and 4 in bf16,
+    at 4 in float32, and at 4 in bf16 with accum_steps 2, with train.cull,
+    with remat, and with all three: per run the step median, ms per
+    sample, peak memory, survivor fraction and launches per step, held to
+    K1 B per step under train.cull and 0 without, K2 and K4 B per step
+    forward (twice with remat), K3 2B.  Returns ({path: counts}, the
+    float32 batch-4 run's checkpoint)."""
+    ckpt = os.path.join(tmp, "h3_b4.pth")
+    runs = [("b1_bf16", "bfloat16", 1, ()), ("b2_bf16", "bfloat16", 2, ()),
+            ("b4_bf16", "bfloat16", 4, ()), ("b4", "float32", 4, ()),
+            ("b4_accum2_bf16", "bfloat16", 4, ("train.accum_steps", "2")),
+            ("b4_cull_bf16", "bfloat16", 4, ("train.cull", "True")),
+            ("b4_remat_bf16", "bfloat16", 4, ("remat", "True")),
+            ("b4_all_bf16", "bfloat16", 4, ("train.accum_steps", "2",
+                                            "train.cull", "True", "remat",
+                                            "True"))]
+    by_path = {}
+    for tag, dtype, b, extra in runs:
+        recs, counts, peak = _train_run(
+            card, tmp, tag, dtype, ("train.batch_size", str(b), *extra),
+            out=ckpt if tag == "b4" else None)
+        n = len(recs)
+        check(n == H_STEPS and all(np.isfinite(r["loss"]) for r in recs),
+              f"h3 {tag}: {recs}")
+        cull, remat = "train.cull" in extra, "remat" in extra
+        f = forms(dtype)
+        want = {f["dparf"]: (2 if remat else 1) * b * n,
+                f["fetch"]: (3 if remat else 2) * b * n,
+                f["scatter"]: 2 * b * n}
+        if cull:
+            want["min_excess2"] = b * n
+            check(counts["min_excess2"] == b * n, f"h3 {tag}: K1 launched "
+                  f"{counts['min_excess2']} times, want {b * n}")
+        check_launches(f"h3 train {tag}", counts, want)
+        step = [r["step_s"] * 1e3 for r in recs]
+        med = float(np.median(step[1:]))
+        surv = (f"; survivor fraction "
+                f"{', '.join(f'{r['cull_survivors']:.4f}' for r in recs)}"
+                if cull else "")
+        by_path[f"train_{tag}"] = counts
+        log(f"[h3 train] {tag}: train_or_eval.yaml, dataset synthetic, "
+            f"{dtype}, train.batch_size {b} {' '.join(extra)}: step ms "
+            f"{', '.join(f'{x:.1f}' for x in step)}, median of steps "
+            f"1-{n - 1} {med:.1f} ({med / b:.1f} ms per sample); peak "
+            f"device memory {peak:.3f} GiB{surv}; launches per step "
+            f"{ {k: v / n for k, v in counts.items() if v} }  [{card}]")
+    return by_path, ckpt
+
+
+def phase_radii(card: str, tmp: str, ckpt: str) -> dict:
+    """h4. tools/measure_vertex_radii on the card from phase h3's float32
+    checkpoint (synthetic posed bodies, --frames 2): the npz and report;
+    then one 512x512 serve request, beside the shell's survivors, and one
+    frame through the evaluate entry point, with cull_radii set to that
+    npz."""
+    from transhuman_tpu_torch import kernels
+    from transhuman_tpu_torch.cli import run as run_cli
+    from transhuman_tpu_torch.cli.common import build_runtime
+    from transhuman_tpu_torch.config import Config
+    from transhuman_tpu_torch.serve import RenderService
+    from transhuman_tpu_torch.testing import synthetic_scene
+    from transhuman_tpu_torch.tools import measure_vertex_radii as tool
+    from transhuman_tpu_torch.weights import load_checkpoint_file
+
+    npz = os.path.join(tmp, "radii.npz")
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    radii, report = tool.main(["--out", npz, "--weights", ckpt, "--frames",
+                               "2"])
+    torch.cuda.synchronize()
+    tool_s = time.perf_counter() - t0
+    by_path = {"radii_tool": kernels.launch_counts()}
+    check(radii.shape == (6890,) and radii.dtype == np.float32
+          and np.isfinite(radii).all() and radii.min() >= 0.01
+          and radii.max() <= 0.1, f"h4 radii: {report['radii']}")
+    check(isinstance(report["certified"], bool)
+          and len(report["image_deltas_vs_shell"]) == 2,
+          f"h4 radii report: {report}")
+    check_launches("h4 radii tool", by_path["radii_tool"],
+                   {"min_excess2": 2 * 2 * report["rounds"], "dparf": 1,
+                    "feature_gather": 1})
+    log(f"[h4 radii tool] measure_vertex_radii --frames 2 on the h3 "
+        f"checkpoint in {tool_s:.1f} s: certified {report['certified']}, "
+        f"rounds {report['rounds']} (uncovered {report['uncovered_per_round']}"
+        f"), radii {report['radii']}, mean reach / shell "
+        f"{report['mean_reach_vs_shell']}, deltas vs shell "
+        f"{report['image_deltas_vs_shell']}; launches "
+        f"{by_path['radii_tool']}  [{card}]")
+
+    cfg = Config().merge_opts(["cull_radii", npz])
+    model, pipe, smpl, _ = build_runtime(cfg, "cuda")
+    load_checkpoint_file(model, ckpt)
+    frame, _, _ = synthetic_scene(image_hw=(512, 512))
+    req = _request(frame, 1, 512)
+    svc = RenderService(cfg, pipe, smpl)
+    svc.warmup(512, 512)
+    shell = RenderService(cfg, pipe.clone(vertex_radii=None), smpl)
+    shell.warmup(512, 512)
+    res = {}
+    for name, s in (("radii", svc), ("shell", shell)):
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        out = s.render(req)
+        ms = (time.perf_counter() - t0) * 1e3
+        st = s.pipe.last_frame_stats
+        res[name] = (ms, st["survivors"] / st["points"],
+                     kernels.launch_counts(), out)
+        check(all(np.isfinite(v).all() for v in out.values()),
+              f"h4 serve ({name}): non-finite output")
+    by_path["serve_radii"] = res["radii"][2]
+    check_launches("h4 serve with cull_radii", res["radii"][2],
+                   {"min_excess2": 1, "dparf": 1, "feature_gather": 1})
+    check(res["radii"][1] <= res["shell"][1] + 1e-9, "h4 serve: the radii "
+          "keep more points than the shell")
+    rgb_d = float(np.abs(res["radii"][3]["rgb"] - res["shell"][3]["rgb"])
+                  .max())
+    log(f"[h4 serve cull_radii] one 512x512 request: {res['radii'][0]:.1f} ms"
+        f", survivor fraction {res['radii'][1]:.4f} against the shell's "
+        f"{res['shell'][1]:.4f} ({res['shell'][0]:.1f} ms); max |d rgb| vs "
+        f"the shell {rgb_d:.3g}; launches {res['radii'][2]}  [{card}]")
+
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    summary = run_cli.main(["--type", "evaluate", "--device", "cuda",
+                            "--weights", ckpt, "dataset", "synthetic",
+                            "cull_radii", npz, "result_dir",
+                            os.path.join(tmp, "h4_res")])
+    torch.cuda.synchronize()
+    eval_s = time.perf_counter() - t0
+    by_path["eval_radii"] = kernels.launch_counts()
+    check(np.isfinite(summary["psnr"]), f"h4 evaluate: {summary}")
+    check_launches("h4 evaluate with cull_radii", by_path["eval_radii"],
+                   {"min_excess2": 1, "dparf": 1, "feature_gather": 1})
+    log(f"[h4 evaluate cull_radii] the default FrameSampler's frame (1 of "
+        f"the synthetic 8 at test.frame_interval 30), 512x512, in "
+        f"{eval_s:.1f} s (the command): psnr {summary['psnr']:.4f}, ssim "
+        f"{summary['ssim']:.4f}; launches {by_path['eval_radii']}  [{card}]")
+    return by_path
+
+
+def phase_train_zju_batch(card: str, tmp: str, root: str,
+                          files: dict) -> dict:
+    """h5. dataset zju (phase f's laid-out CoreView_377) at
+    train.batch_size 2 for 3 bf16 steps from train_or_eval.yaml with LPIPS
+    and the pretrained encoder: the loader delivers batches, and K2, K4 and
+    K3 launch per sample."""
+    from transhuman_tpu_torch import kernels
+    from transhuman_tpu_torch.cli import train as train_cli
+
+    run = os.path.join(tmp, "h5")
+    kernels.reset_launch_counts()
+    _, recs = train_cli.main([
+        "--device", "cuda", "--steps", "3", "--cfg_file",
+        os.path.join(CONFIGS, "train_or_eval.yaml"), "data_root", root,
+        "rasterize_root", os.path.join(root, "raster"), "lpips_weights",
+        files["lpips"], "encoder_weights", files["resnet"], "ep_iter", "3",
+        "train.epoch", "1", "train.batch_size", "2", "trained_model_dir",
+        os.path.join(run, "tm"), "record_dir", os.path.join(run, "rec"),
+        "result_dir", os.path.join(run, "res")])
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    n = len(recs)
+    check(n == 3 and all(np.isfinite(r["loss"]) and r["lpips_loss"] > 0
+                         for r in recs), f"h5 train zju batch 2: {recs}")
+    f = forms("bfloat16")
+    check_launches("h5 train zju batch 2", counts,
+                   {f["dparf"]: 2 * n, f["fetch"]: 4 * n,
+                    f["scatter"]: 4 * n})
+    log(f"[h5 train zju] dataset zju, train.batch_size 2, bf16, {n} steps: "
+        f"step ms {', '.join(f'{r['step_s'] * 1e3:.1f}' for r in recs)}; "
+        f"data_s {', '.join(f'{r['data_s'] * 1e3:.1f}' for r in recs)} ms; "
+        f"sample_s (host ms per batch of 2) "
+        f"{', '.join(f'{r['sample_s'] * 1e3:.1f}' for r in recs)}; losses "
+        f"{', '.join(f'{r['loss']:.4f}' for r in recs)}; launches {counts}"
+        f"  [{card}]")
+    return {"train_zju_b2_bf16": counts}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing ran", file=sys.stderr)
@@ -2636,7 +2998,8 @@ def main() -> int:
     kernels = phase_kernels(card)
     render32 = phase_parity(card)
     serve_counts = phase_serve(card)
-    step32 = phase_train_parity(card)
+    card6 = {}
+    step32 = phase_train_parity(card, card_out=card6)
     tmp = tempfile.mkdtemp(prefix="thp_smoke_")
     try:
         ckpt = os.path.join(tmp, "latest.pth")
@@ -2670,9 +3033,16 @@ def main() -> int:
         # the ZJU-MoCap loader: its codec, then train, evaluate, visualize
         # and reconstruction on laid-out humans
         phase_codec(card)
-        zju_paths, _, zju_models = phase_train_zju(card, tmp, files)
+        zju_paths, zju_root, zju_models = phase_train_zju(card, tmp, files)
         by_path.update(zju_paths)
         by_path.update(phase_eval_zju(card, tmp, zju_models))
+        # batches, the train cull, remat and the per-vertex radii cull
+        k1_bias = phase_cull_bias(card)
+        phase_batch_parity(card, card6)
+        h3_paths, ckpt_b4 = phase_train_batches(card, tmp)
+        by_path.update(h3_paths)
+        by_path.update(phase_radii(card, tmp, ckpt_b4))
+        by_path.update(phase_train_zju_batch(card, tmp, zju_root, files))
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     for k in kernels:
@@ -2689,9 +3059,10 @@ def main() -> int:
         if name == "min_excess2":
             # K1's one launch on this path covers the whole grid: its numbers
             # are that shape's, and phase 3's, at one render chunk, stay
-            # beside them as chunk_*
+            # beside them as chunk_*; the bias form's (phase h1) beside them
             for key, v in k1_grid.items():
                 k[f"chunk_{key}"], k[key] = k[key], v
+            k["bias_form"] = k1_bias
     log(f"chip_smoke: all phases passed in {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -9,6 +9,7 @@ import os
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 import yaml
 
@@ -171,10 +172,7 @@ def test_every_jax_key_is_classed():
         assert jkeys[k] in ok, k  # the defaults run
 
 
-REFUSE = [("cull_radii", "r.npz", "item 6"), ("train.cull", "True", "item 6"),
-          ("train.batch_size", "2", "item 5"),
-          ("train.accum_steps", "2", "item 5"),
-          ("compute_dtype", "float16", "float32 or bfloat16"),
+REFUSE = [("compute_dtype", "float16", "float32 or bfloat16"),
           ("network", "other", "transhuman"), ("renderer", "other", "clight"),
           ("trainer", "other", "clight"), ("evaluator", "other", "if_nerf"),
           ("visualizer", "other", "perform"), ("vit_variant", "huge", "tiny"),
@@ -225,13 +223,60 @@ def test_non_patch_sampling_is_accepted_and_depth_vizmap_refused():
 
 
 def test_tpu_only_keys_warn_and_are_kept(capsys):
+    """pad_bucket warns; remat, which the port honours, does not."""
     cfg = Config().merge_opts(["pad_bucket", "64", "remat", "True"])
     assert (cfg.pad_bucket, cfg.remat) == (64, True)
     err = capsys.readouterr().err
     assert "'pad_bucket' steers the TPU package only" in err
-    assert "'remat'" in err
+    assert "'remat'" not in err
+    assert tconfig.KEY_CLASSES["remat"] == "honoured"
     Config().merge_opts(["H", "64"])
     assert "steers" not in capsys.readouterr().err
+
+
+SMALL = ["dataset", "synthetic", "H", "64", "W", "64", "num_class", "20",
+         "vit_depth", "1", "N_samples", "8", "patch.size", "6",
+         "patch.N_patches", "2"]
+
+
+@pytest.mark.parametrize("key,value", [
+    ("cull_radii", "radii.npz"), ("train.cull", "True"),
+    ("train.batch_size", "2"), ("train.accum_steps", "2"), ("remat", "True"),
+])
+def test_train_and_cull_keys_reach_the_pipeline_and_the_step(key, value,
+                                                            tmp_path):
+    """Each key merges, passes check_supported, is honoured, and reaches
+    the pipeline or the step of the train entry point on the CPU."""
+    import torch
+
+    from transhuman_tpu_torch.cli.train import build_trainer
+
+    radii = np.linspace(0.03, 0.1, 6890, dtype=np.float32)
+    if key == "cull_radii":
+        value = str(tmp_path / value)
+        np.savez(value, radii=radii)
+    opts = SMALL + [key, value]
+    if key == "train.accum_steps":
+        opts += ["train.batch_size", "2"]
+    cfg = tconfig.check_supported(Config().merge_opts(opts))
+    assert tconfig.KEY_CLASSES[key] == "honoured"
+    state, step_fn, data, pipe = build_trainer(cfg, torch.device("cpu"))
+    assert (pipe.vertex_radii is not None) == (key == "cull_radii")
+    if key == "cull_radii":
+        np.testing.assert_array_equal(pipe.vertex_radii.numpy(), radii)
+    assert pipe.train_cull == (key == "train.cull")
+    assert pipe.remat == (key == "remat")
+    batch = [data.get_train_sample(i) for i in range(cfg.train.batch_size)]
+    seen = []
+    render = pipe.render_train_batch
+    pipe.render_train_batch = lambda f, *a, **kw: (seen.append(len(f)),
+                                                   render(f, *a, **kw))[1]
+    stats = step_fn(state, batch, 0)
+    assert np.isfinite(stats["loss"])
+    # one forward of the whole batch, or one per microbatch
+    assert seen == ([1, 1] if key == "train.accum_steps"
+                    else [cfg.train.batch_size])
+    assert ("cull_survivors" in stats) == (key == "train.cull")
 
 
 @pytest.mark.parametrize("entry", ["train", "run", "serve"])

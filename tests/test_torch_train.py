@@ -336,14 +336,6 @@ def test_render_train_seed_drives_jitter_and_noise(
         assert not torch.equal(both["acc_map"], jit["acc_map"])
 
 
-def test_train_step_refuses_batches_and_accumulation(slice_setup):
-    pipe = slice_setup[4]()
-    with pytest.raises(ValueError, match="BatchNorm"):
-        tstep.make_train_step(pipe, batch_size=2)
-    with pytest.raises(ValueError, match="BatchNorm"):
-        tstep.make_train_step(pipe, accum_steps=2)
-
-
 def test_train_entry_point_trains_and_saves(tmp_path, capsys):
     out = str(tmp_path / "ckpt" / "latest.pth")
     state, records = tcli.main([

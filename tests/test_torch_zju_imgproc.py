@@ -67,21 +67,26 @@ def test_fill_poly_equals_cv2_inside_the_image():
                                       _cv2_fill(h, w, pts), err_msg=str(pts))
 
 
-def test_fill_poly_across_the_border_differs_from_cv2_in_few_polygons():
-    """Polygons that cross the image border: OpenCV 5's clipping of the
-    edges is not reproduced exactly.  Of these 1,000 seeded polygons, 21
-    differ, each in pixels of a border column only."""
-    rng = np.random.default_rng(5)
+@pytest.mark.parametrize("reach", [1, 10])
+def test_fill_poly_across_the_border_equals_cv2(reach):
+    """Polygons that cross the image border, bit for bit: with vertices up
+    to 40 px outside (reach 1), and up to 10x the image size outside (reach
+    10).  OpenCV 5 clips each edge to the image and keeps the clipped ends'
+    x, and their y where the clipped edge is not flat, so an edge clipped to
+    one border pixel fills that border column over its whole y span."""
+    rng = np.random.default_rng(5 if reach == 1 else 6)
     differ = 0
     for _ in range(1000):
         h, w = rng.integers(10, 70, 2)
-        pts = rng.integers(-40, 100, (rng.integers(3, 6), 2))
+        n = rng.integers(3, 6)
+        if reach == 1:
+            pts = rng.integers(-40, 100, (n, 2))
+        else:
+            pts = np.stack([rng.integers(-reach * w, (reach + 1) * w, n),
+                            rng.integers(-reach * h, (reach + 1) * h, n)], 1)
         got, want = _port_fill(h, w, pts), _cv2_fill(h, w, pts)
-        if not np.array_equal(got, want):
-            differ += 1
-            cols = np.nonzero((got != want).any(0))[0]
-            assert set(cols) <= {0, w - 1}, pts
-    assert differ <= 21
+        differ += not np.array_equal(got, want)
+    assert differ == 0
 
 
 def _box_cases(rng, n):

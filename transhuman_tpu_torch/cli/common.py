@@ -116,16 +116,25 @@ def build_runtime(cfg: Config, device, smpl: Optional[SMPLModel] = None,
                   pe_table=None):
     """(model, pipe, smpl, cluster) with the model's weights on ``device``
     (freshly initialised: load a checkpoint into ``model`` afterwards);
-    pe_table is a checkpoint's stored TransHE table, or None."""
+    pe_table is a checkpoint's stored TransHE table, or None.  The pipe
+    culls with ``cull_radii``'s per-vertex radii when it names an npz
+    (key ``radii``, as ``tools/measure_vertex_radii`` writes it), and takes
+    ``remat`` and ``train.cull``."""
     if smpl is None:
         smpl = load_smpl(cfg)
     cluster = load_cluster_spec(cfg, smpl)
     model = TransHumanNet.from_config(cfg).to(device).eval()
+    vertex_radii = None
+    if cfg.cull_radii:
+        with np.load(cfg.cull_radii) as z:
+            vertex_radii = np.asarray(z["radii"], np.float32)
     pipe = RenderPipeline(
         model, cluster, smpl.v_template, n_samples=cfg.N_samples,
         chunk_rays=max(cfg.chunk_size // cfg.N_samples, 1),
         cull_distance=cfg.cull_distance, white_bkgd=cfg.white_bkgd,
         raw_noise_std=cfg.raw_noise_std, device=device, pe_table=pe_table,
+        vertex_radii=vertex_radii, remat=cfg.remat,
+        train_cull=cfg.train.cull,
     )
     return model, pipe, smpl, cluster
 

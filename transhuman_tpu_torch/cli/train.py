@@ -11,8 +11,10 @@ absence is an error), so that a stored TransHE table rides along; LPIPS
 (``lpips_weights``, ``lpips_backbone``) joins the loss, or the JAX warning
 prints; a fresh run starts from ``testing.init_weights`` seeded with
 ``cfg.seed``, the encoder from ``encoder_weights`` when ``pretrained``;
-then epochs of ``ep_iter`` steps over a seeded permutation, the samples
-prefetched on ``train.num_workers + 1`` threads, a console line every
+then epochs of ``ep_iter`` steps, each of ``train.batch_size`` samples
+taken in turn from a seeded permutation that cycles (the JAX CLI's order),
+the batches prefetched on ``train.num_workers + 1`` threads, the batch's
+``train.accum_steps`` microbatches in one step, a console line every
 ``log_interval`` steps and metrics every ``record_interval`` (the
 Recorder, ``use_record``), and at each epoch's end ``latest.pth``, plus
 ``{epoch}.pth`` every ``save_freq`` epochs.  ``--test`` runs the
@@ -22,8 +24,10 @@ per-frame loss and the evaluator with LPIPS, one ``val`` record).
 The data is the ZJU-MoCap layout under ``data_root`` (``dataset zju``,
 data/zju.py) or the seeded synthetic scene at the render size
 (``dataset synthetic``).  Each step's record holds ``sample_s``, the host
-seconds its sample took in a loader thread, and ``data_s``, how long the
-step waited for it (the queue and the copy to the device).
+seconds its samples took in a loader thread, and ``data_s``, how long the
+step waited for them (the queue and the copy to the device); with
+``train.cull`` the console line and the record also show
+``cull_survivors``, the fraction of the batch's points the step decoded.
 ``--steps N`` caps the run at N updates; ``--out PATH`` also receives the
 final state.  It runs on the card (``--device cuda``, the default; without
 a card that is an error) with the float32 math in full precision (TF32
@@ -134,7 +138,7 @@ def build_trainer(cfg: Config, device, dataset=None, ckpt=None):
                   flush=True)
     step_fn = make_train_step(
         pipe, l2_weight=cfg.l2rec_weight, perturb=cfg.perturb > 0,
-        batch_size=cfg.train.batch_size, accum_steps=cfg.train.accum_steps,
+        accum_steps=cfg.train.accum_steps,
         lpips_fn=lpips, lpips_weight=cfg.lpips_weight,
         patch_mode=cfg.patch.use_patch_sampling)
     return state, step_fn, dataset, pipe
@@ -164,11 +168,11 @@ def _write_profile(out_dir: str, prof, records):
           f"{format_summary(summary)}", flush=True)
 
 
-def _timed_sample(dataset, index: int):
-    """(the train sample, the host seconds it took)."""
+def _timed_batch(dataset, indices):
+    """(the train samples of indices, the host seconds they took)."""
     t0 = time.perf_counter()
-    sample = dataset.get_train_sample(index)
-    return sample, time.perf_counter() - t0
+    batch = [dataset.get_train_sample(int(i)) for i in indices]
+    return batch, time.perf_counter() - t0
 
 
 def _sync(device):
@@ -251,30 +255,35 @@ def main(argv=None, dataset=None):
     for epoch in range(start_epoch, cfg.train.epoch):
         dataset.set_epoch(epoch)
         recorder.epoch = epoch
-        # exactly ep_iter samples per epoch, cycling a seeded permutation
+        # exactly ep_iter batches per epoch, cycling a seeded permutation:
+        # step it takes perm[it * B:(it + 1) * B]
+        bsz = cfg.train.batch_size
+        need = cfg.ep_iter * bsz
         ep_rng = np.random.default_rng(cfg.seed + epoch)
         perm = np.concatenate([
             ep_rng.permutation(len(dataset))
-            for _ in range(-(-cfg.ep_iter // len(dataset)))])[:cfg.ep_iter]
+            for _ in range(-(-need // len(dataset)))])[:need]
         # workers build host samples (seeded by epoch and index, so their
         # order cannot change the data); the copy to the card stays here
-        samples = Loader(lambda i: _timed_sample(dataset, int(i)), perm,
-                         num_workers=(0 if cfg.train.num_workers <= 0
-                                      else cfg.train.num_workers + 1))
+        batches = Loader(
+            lambda it: _timed_batch(dataset, perm[it * bsz:(it + 1) * bsz]),
+            range(cfg.ep_iter),
+            num_workers=(0 if cfg.train.num_workers <= 0
+                         else cfg.train.num_workers + 1))
         # the JAX CLI's steady-state window: steps 5-8 of the first epoch,
         # shorter in a short epoch or run
         prof_stop = min(8, cfg.ep_iter - 1, (cap or cfg.ep_iter) - 1)
         prof_start = max(0, prof_stop - 3)
         profiling = cfg.profile_dir and epoch == start_epoch
         t_end = time.perf_counter()
-        for i, (host_sample, sample_s) in enumerate(samples):
+        for i, (host_batch, sample_s) in enumerate(batches):
             it = epoch * cfg.ep_iter + i
             if profiling and i == prof_start:
                 prof = torch.profiler.profile(activities=_activities(device))
                 prof.start()
-            sample = host_sample.to(device)
+            batch = [s.to(device) for s in host_batch]
             t1 = time.perf_counter()
-            stats = step_fn(state, sample, fold_in(cfg.seed, it))
+            stats = step_fn(state, batch, fold_in(cfg.seed, it))
             _sync(device)
             t2 = time.perf_counter()
             rec = dict(stats, step=it, data_s=t1 - t_end, sample_s=sample_s,
@@ -290,9 +299,11 @@ def main(argv=None, dataset=None):
             recorder.batch_time.update(t2 - t_end)
             if i % cfg.log_interval == 0:
                 recorder.update({k: v for k, v in stats.items()
-                                 if k != "lr"})
+                                 if k not in ("lr", "cull_survivors")})
+                cull = (f"  cull_survivors: {stats['cull_survivors']:.4f}"
+                        if pipe.train_cull else "")
                 print(f"epoch {epoch} iter {i}/{cfg.ep_iter}  "
-                      + recorder.console_line(max_iter, stats["lr"]),
+                      + recorder.console_line(max_iter, stats["lr"]) + cull,
                       flush=True)
             recorder.record("train")
             t_end = time.perf_counter()

@@ -17,10 +17,11 @@ Each key is in one of the classes of ``KEY_CLASSES``:
 * ``unused``: it feeds only the ZJU-MoCap loader and its samplers, or
   neither package; accepted and unused while ``dataset`` is ``synthetic``.
 
-``check_supported`` refuses, by name, a value the port cannot run yet
-(``REFUSED``: ``train.cull True``, a non-empty ``cull_radii`` ...), naming
-the ROADMAP item that ports it; ``dataset zju`` is refused where a dataset
-is built (``cli/common.py::make_dataset``).
+``check_supported`` refuses, by name, a value the port cannot run
+(``REFUSED``: another network or renderer, ``compute_dtype float16`` ...,
+and ``depth_map`` with ``depth_vizmap``, naming the ROADMAP item that ports
+it); an unknown ``dataset`` is refused where a dataset is built
+(``cli/common.py::make_dataset``).
 """
 
 from __future__ import annotations
@@ -82,15 +83,15 @@ class SchedulerConfig:
 
 @dataclass
 class TrainConfig:
-    batch_size: int = 1  # the port trains 1 sample per step (train/step.py)
+    batch_size: int = 1  # samples per step, BatchNorm pooled over them
     lr: float = 7e-4
     epoch: int = 3000
     num_workers: int = 1  # train sample prefetch: num_workers + 1 threads
     optim: str = "adam"  # adam | adamw | radam | sgd
     weight_decay: float = 0.0
     shuffle: bool = True
-    accum_steps: int = 1  # the port takes 1 only
-    cull: bool = False  # the SMPL cull on the train decode: not ported yet
+    accum_steps: int = 1  # microbatches per step (train/step.py)
+    cull: bool = False  # the SMPL cull on the train decode
     cull_ratio: float = 0.35
     scheduler: SchedulerConfig = field(default_factory=SchedulerConfig)
 
@@ -187,14 +188,14 @@ class Config:
     compute_dtype: str = "float32"  # float32 | bfloat16
     chunk_size: int = 32768  # points per decode chunk
     cull_distance: float = 0.1
-    cull_radii: str = ""  # per-vertex cull radii: not ported yet
+    cull_radii: str = ""  # npz of per-vertex cull radii (key 'radii')
     pad_bucket: int = 8192
     use_pallas_knn: bool = False
     compact_ratio: Optional[float] = 0.3
     mesh_axis_data: int = 0
     mesh_axis_rays: int = 1
     mesh_axis_model: int = 1
-    remat: bool = False
+    remat: bool = False  # recompute the train decode in the backward
 
     # ray sampling
     patch: PatchConfig = field(default_factory=PatchConfig)
@@ -362,14 +363,16 @@ def _check_type(key, cur, new):
 # TPU/static-shape execution knobs of the JAX package with no job here
 TPU_ONLY_KEYS = frozenset({
     "pad_bucket", "compact_ratio", "use_pallas_knn", "mesh_axis_data",
-    "mesh_axis_rays", "mesh_axis_model", "remat",
+    "mesh_axis_rays", "mesh_axis_model",
 })
 # read by neither package (xyz_res, save_latest_ep, gpus, test.collator,
 # test.time_det, test.batch_size, train.scheduler.type: the JAX package reads
 # none of them either), or by JAX code the port does not carry (time_mult:
-# time_steps is 1; use_viz_test; sample_fg_ratio; train.shuffle,
-# train.cull_ratio; depth_root: only with depth_map and depth_vizmap, which
-# check_supported refuses)
+# time_steps is 1; use_viz_test; sample_fg_ratio; train.shuffle; depth_root:
+# only with depth_map and depth_vizmap, which check_supported refuses).
+# train.cull_ratio sizes the JAX package's static capacity for the train
+# cull's survivors; the port compacts them dynamically (one nonzero per
+# sample), has no capacity to size, and so cannot overflow.
 UNUSED_KEYS = frozenset({
     "time_mult", "use_viz_test", "depth_root", "sample_fg_ratio",
     "test.collator", "test.time_det", "test.batch_size", "train.shuffle",
@@ -389,14 +392,6 @@ REFUSED = {
                       "float32 or bfloat16"),
     "vit_variant": ({"tiny", "small", "base"}, "TransHE comes in tiny, small "
                     "and base"),
-    "cull_radii": ({""}, "the per-vertex radii cull is ROADMAP queue 1 "
-                   "item 6"),
-    "train.cull": ({False}, "the SMPL cull on the train decode is ROADMAP "
-                   "queue 1 item 6"),
-    "train.batch_size": ({1}, "batch-pooled BatchNorm over a batch is "
-                         "ROADMAP queue 1 item 5"),
-    "train.accum_steps": ({1}, "gradient accumulation is ROADMAP queue 1 "
-                          "item 5"),
     "run_mode": ({"train", "test"}, "run_mode is train or test"),
 }
 # the datasets the port builds (the serve entry point builds none)

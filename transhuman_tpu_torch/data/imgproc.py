@@ -230,7 +230,10 @@ def resize_nearest(img: np.ndarray, size) -> np.ndarray:
 
 # -------------------------------------------------------------- fillPoly
 def _clip_line(w: int, h: int, p1, p2):
-    """OpenCV's clipLine: (p1, p2) clipped to [0, w) x [0, h), or None."""
+    """OpenCV's clipLine: (whether the segment meets [0, w) x [0, h), p1,
+    p2 moved onto the border).  A segment that misses the image still comes
+    back with the moves made before that showed, as OpenCV leaves its
+    arguments."""
     x1, y1 = p1
     x2, y2 = p2
     right, bottom = w - 1, h - 1
@@ -261,9 +264,7 @@ def _clip_line(w: int, h: int, p1, p2):
                 y2 += int((a - x2) * (y2 - y1) / (x2 - x1))
                 x2 = a
                 c2 = 0
-    if c1 | c2:
-        return None
-    return (x1, y1), (x2, y2)
+    return (c1 | c2) == 0, (x1, y1), (x2, y2)
 
 
 def _line8(mask: np.ndarray, p1, p2, value):
@@ -272,10 +273,9 @@ def _line8(mask: np.ndarray, p1, p2, value):
     h, w = mask.shape
     if not (0 <= p1[0] < w and 0 <= p2[0] < w and 0 <= p1[1] < h
             and 0 <= p2[1] < h):
-        clipped = _clip_line(w, h, p1, p2)
-        if clipped is None:
+        inside, p1, p2 = _clip_line(w, h, p1, p2)
+        if not inside:
             return
-        p1, p2 = clipped
     (x1, y1), (x2, y2) = p1, p2
     if x2 < x1:
         x1, y1, x2, y2 = x2, y2, x1, y1
@@ -307,11 +307,14 @@ def fill_poly(mask: np.ndarray, pts, value=1) -> np.ndarray:
         x1c, y1c = p1[0] << XY_SHIFT, p1[1]
         if not (0 <= p0[0] < w and 0 <= p1[0] < w and 0 <= p0[1] < h
                 and 0 <= p1[1] < h):
-            clipped = _clip_line(w, h, p0, p1)
-            t0, t1 = clipped if clipped is not None else (p0, p1)
+            # OpenCV 5 takes the clipped ends' x always, and their y only
+            # where the clipped segment is not flat (its clipLine result is
+            # not read): a segment clipped to one border pixel becomes a
+            # vertical edge at that column over the whole original y span
+            _, t0, t1 = _clip_line(w, h, p0, p1)
+            x0c, x1c = t0[0] << XY_SHIFT, t1[0] << XY_SHIFT
             if t0[1] != t1[1]:
                 y0c, y1c = t0[1], t1[1]
-                x0c, x1c = t0[0] << XY_SHIFT, t1[0] << XY_SHIFT
         if p0[1] != p1[1]:
             num, den = x1c - x0c, y1c - y0c
             q = abs(num) // abs(den)

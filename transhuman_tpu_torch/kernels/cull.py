@@ -2,9 +2,11 @@
 
 ``min_excess2_cuda`` launches ``csrc/cull.cu`` (which replaces
 ``transhuman_tpu/experiments/cull.py::min_dist2_fused``); ``min_excess2_plain``
-is its plain PyTorch twin.  ``shell_cull``, the render path's cull, routes a
-CUDA tensor to the kernel and a CPU tensor to the plain form, and nothing
-else: a kernel that fails to build or launch raises.
+is its plain PyTorch twin.  ``min_excess2`` routes a CUDA tensor to the
+kernel and a CPU tensor to the plain form, and nothing else: a kernel that
+fails to build or launch raises.  The render path culls with
+``shell_cull`` (zero bias, the uniform cull_distance shell) or
+``radii_cull`` (bias r_v^2, the per-vertex radii of ``cull_radii``).
 """
 
 from __future__ import annotations
@@ -46,6 +48,23 @@ def min_excess2_cuda(pts, refs, bias2):
 
 
 min_excess2_cuda.launches = 0
+
+
+def min_excess2(pts, refs, bias2):
+    """(N,) min over refs of |p - r|^2 - bias2_r: K1 on the card, its plain
+    twin on the CPU."""
+    if pts.is_cuda:
+        return min_excess2_cuda(pts, refs, bias2)
+    if pts.device.type != "cpu":
+        raise ValueError(f"min_excess2: no kernel for device {pts.device}")
+    return min_excess2_plain(pts, refs, bias2)
+
+
+def radii_cull(pts, verts, radii):
+    """(N,) bool: some vertex v lies closer to the point than its radius
+    r_v, as min_j(|p - v_j|^2 - r_j^2) < 0 (the JAX package's
+    ``min_excess2`` branch of ``_cull``); radii (Nv,) float32."""
+    return min_excess2(pts, verts, radii * radii) < 0.0
 
 
 def shell_cull(pts, verts, cull_distance: float):

@@ -20,7 +20,15 @@ compositing (counterpart of transhuman_tpu/render/pipeline.py).
 * ``render_train``: every ray of a train sample in one differentiable
   evaluation, with the invalid rays masked (the JAX package's
   ``render_train``); its backward runs kernel K3 for both feature-map
-  fetches and K2's token gradient on the card.
+  fetches and K2's token gradient on the card.  ``render_train_batch``
+  renders a batch of samples with one encoder pass over all their views,
+  so that BatchNorm pools its statistics over the batch.  With
+  ``train_cull`` the points the cull drops are not decoded (their raw is 0
+  and gets no gradient); with ``remat`` the decode is recomputed in the
+  backward instead of kept.
+
+The cull keeps a point closer than ``cull_distance`` to the body, or, with
+``vertex_radii`` (``cull_radii``'s npz), closer to some vertex v than r_v.
 
 The serving entry points run under ``torch.no_grad``; they and the train
 path share the undecorated bodies ``_prologue`` and ``_query_points``.
@@ -34,14 +42,17 @@ bf16 cull computes in bf16 on the TPU; here K1 is float32 in both modes.
 
 from __future__ import annotations
 
+import copy
 from dataclasses import dataclass, fields
+from functools import partial
 from typing import Optional
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..geometry.clusters import ClusterSpec, normalize_positions
-from ..kernels.cull import shell_cull
+from ..kernels.cull import radii_cull, shell_cull
 from ..models.embedder import embed_viewdir
 from ..ops.sampling import project_points, sample_feature_map
 from ..weights import reference_pe_table
@@ -115,6 +126,20 @@ class Prologue:
     rot: torch.Tensor  # (C, 3, 3) pooled blend rotations
 
 
+def validate_radii(vertex_radii, n_verts: int):
+    """(Nv,) float32 per-vertex cull radii, or None for None: the JAX
+    package's ``_validate_radii``, with its errors."""
+    if vertex_radii is None:
+        return None
+    vr = np.asarray(vertex_radii, np.float32).reshape(-1)
+    if vr.shape[0] != n_verts:
+        raise ValueError(
+            f"vertex_radii has {vr.shape[0]} entries for {n_verts} vertices")
+    if (vr <= 0).any() or not np.isfinite(vr).all():
+        raise ValueError("vertex_radii must be positive and finite")
+    return vr
+
+
 class RenderPipeline:
     """The render of one frame, closing over the model and the static
     cluster/PE tables, which live on ``device``."""
@@ -122,12 +147,18 @@ class RenderPipeline:
     def __init__(self, model, cluster: ClusterSpec, canonical_verts,
                  n_samples: int = 64, chunk_rays: int = 512,
                  cull_distance: float = 0.1, white_bkgd: bool = False,
-                 raw_noise_std: float = 0.0, device="cpu", pe_table=None):
+                 raw_noise_std: float = 0.0, device="cpu", pe_table=None,
+                 vertex_radii=None, remat: bool = False,
+                 train_cull: bool = False):
         self.model = model
         self.device = torch.device(device)
         self.n_samples = n_samples
         self.chunk_rays = chunk_rays
         self.cull_distance = cull_distance
+        self.n_verts = np.asarray(canonical_verts).shape[0]
+        self.vertex_radii = vertex_radii
+        self.remat = remat
+        self.train_cull = train_cull
         self.white_bkgd = white_bkgd
         self.raw_noise_std = raw_noise_std
         self.pool = torch.as_tensor(cluster.pool_matrix, dtype=torch.float32,
@@ -144,12 +175,55 @@ class RenderPipeline:
                                       device=self.device)  # (C, D)
         self.last_frame_stats = {"points": 0, "survivors": 0}
 
+    @property
+    def vertex_radii(self):
+        """(Nv,) float32 per-vertex cull radii on the device, or None (the
+        cull_distance shell)."""
+        return self._vertex_radii
+
+    @vertex_radii.setter
+    def vertex_radii(self, radii):
+        vr = validate_radii(radii, self.n_verts)
+        self._vertex_radii = (None if vr is None
+                              else torch.as_tensor(vr, device=self.device))
+
+    def clone(self, **overrides):
+        """A shallow copy with attributes replaced (``vertex_radii``
+        validated); an unknown attribute raises, as the JAX package's
+        ``clone`` does."""
+        out = copy.copy(self)
+        for k, v in overrides.items():
+            if not hasattr(self, k):
+                raise AttributeError(
+                    f"RenderPipeline.clone: unknown attribute {k!r}")
+            setattr(out, k, v)
+        return out
+
     @torch.no_grad()
     def prologue(self, frame: FrameInputs) -> Prologue:
         return self._prologue(frame)
 
-    def _prologue(self, frame: FrameInputs) -> Prologue:
-        holder_map, pixel_map = self.model.encode_views(frame.images)
+    def encode_batch(self, frames):
+        """[(holder_map, pixel_map)] of each frame, from one encoder pass
+        over the views of them all: BatchNorm, which lives only in the
+        encoder, then reduces over every view of the batch.  Each sample
+        has the same V x H x W, so that pooled mean and mean square are the
+        mean of the per-sample ones, which is what the JAX step's
+        ``pmean`` over its vmapped 'batch' axis takes."""
+        shapes = sorted({tuple(f.images.shape) for f in frames})
+        if len(shapes) != 1:
+            raise ValueError("the samples of a batch must have images of one "
+                             f"shape (V, H, W, 3); got {shapes}")
+        holder, pixel = self.model.encode_views(
+            torch.cat([f.images for f in frames]))
+        v = shapes[0][0]
+        return list(zip(holder.split(v), pixel.split(v)))
+
+    def _prologue(self, frame: FrameInputs, maps=None) -> Prologue:
+        """maps: the frame's (holder_map, pixel_map) when encode_batch made
+        them; None encodes the frame's views alone."""
+        holder_map, pixel_map = (self.model.encode_views(frame.images)
+                                 if maps is None else maps)
         uv = self.fetch_uv(frame, frame.verts_world)
         latent = sample_feature_map(holder_map, uv, frame.images.shape[1:3])
         holder = latent * frame.vizmaps[..., None].to(latent.dtype)
@@ -174,7 +248,11 @@ class RenderPipeline:
         return uv
 
     def _cull(self, pts_smpl, verts_smpl):
-        """(N,) bool: closer than cull_distance to the body (K1 on the card)."""
+        """(N,) bool: within the vertex radii of the body when the pipe has
+        them, else closer than cull_distance to it (K1 on the card)."""
+        if self.vertex_radii is not None:
+            return radii_cull(pts_smpl.contiguous(), verts_smpl.contiguous(),
+                              self.vertex_radii)
         return shell_cull(pts_smpl.contiguous(), verts_smpl.contiguous(),
                           self.cull_distance)
 
@@ -198,24 +276,85 @@ class RenderPipeline:
     def render_train(self, frame: FrameInputs, rays: RayBundle,
                      seed: Optional[int] = None, sample_jitter: bool = True):
         """Every ray in one differentiable evaluation (the JAX package's
-        ``render_train``, the reference's <= 2400-ray branch); no cull.
+        ``render_train``, the reference's <= 2400-ray branch).
 
         With a seed, the depths are jittered (when sample_jitter) from a
         generator seeded with it, and raw_noise_std density noise is drawn
         from a second generator seeded with ``fold_in(seed, 1)``, so the two
         draws are independent (JAX: ``fold_in(rng, 1)``).  Returns the
-        composite's dict (rgb_map (R,3), acc_map, depth_map, weights)."""
+        composite's dict (rgb_map (R,3), acc_map, depth_map, weights), and
+        with train_cull JAX's ``overflow`` (1,), always 0 here."""
+        return self.render_train_batch([frame], [rays], [seed],
+                                       sample_jitter)[0]
+
+    def render_train_batch(self, frames, rays, seeds,
+                           sample_jitter: bool = True):
+        """render_train of each sample of a batch (lists of equal length),
+        the encoder run once over the views of them all (encode_batch).
+        last_frame_stats then counts the batch's points and the points it
+        decoded."""
+        outs, points, survivors = [], 0, 0
+        for frame, r, seed, maps in zip(frames, rays, seeds,
+                                        self.encode_batch(frames)):
+            out, n, kept = self._render_train(frame, r, seed, sample_jitter,
+                                              maps)
+            outs.append(out)
+            points += n
+            survivors += kept
+        self.last_frame_stats = {"points": points, "survivors": survivors}
+        return outs
+
+    def _render_train(self, frame, rays, seed, sample_jitter, maps):
+        """(render_train's dict, points, points decoded) of one sample."""
         pts, z_vals, pts_mask, vde = self.train_points(rays, seed,
                                                        sample_jitter)
-        pro = self._prologue(frame)
-        raw = self._query_points(frame, pro, pts, vde, pts_mask)
+        pro = self._prologue(frame, maps)
+        decode = self._query_points
+        if self.remat:
+            # keep only the decode's inputs and output; its activations are
+            # recomputed in the backward (K4 and K2 run again there)
+            decode = partial(checkpoint, self._query_points,
+                             use_reentrant=False)
+        n = pts.shape[0]
+        if self.train_cull:
+            # the JAX package's train cull: only the points the cull keeps
+            # are decoded, one nonzero (a host sync) per sample; their raw
+            # goes back into zeros out of place, so a culled point's raw is
+            # exactly 0 and its gradient exactly 0
+            keep = self._cull(to_smpl(frame, pts),
+                              frame.tar_verts_smpl) & pts_mask
+            idx = torch.nonzero(keep)[:, 0]
+            kept, mask = idx.numel(), None
+            if kept == 0:
+                # one masked point decodes to 0 and keeps the loss's graph
+                idx, mask = idx.new_zeros(1), keep[:1]
+            raw_c = decode(frame, pro, pts[idx], vde[idx], mask)
+            raw = torch.zeros((n, 4), dtype=raw_c.dtype,
+                              device=pts.device).index_copy(0, idx, raw_c)
+        else:
+            raw, kept = decode(frame, pro, pts, vde, pts_mask), n
         noise = None
         if seed is not None:
             noise = torch.Generator(device=pts.device).manual_seed(
                 fold_in(seed, 1))
-        return composite(raw.reshape(z_vals.shape + (4,)), z_vals,
-                         rays.ray_d, self.white_bkgd, self.raw_noise_std,
-                         noise)
+        out = composite(raw.reshape(z_vals.shape + (4,)), z_vals,
+                        rays.ray_d, self.white_bkgd, self.raw_noise_std,
+                        noise)
+        if self.train_cull:
+            out["overflow"] = torch.zeros(1, device=pts.device)
+        return out, n, kept
+
+    @torch.no_grad()
+    def train_cull_fraction(self, frame: FrameInputs, rays: RayBundle):
+        """The train cull's survivor fraction of one sample's points (a 0-d
+        tensor), at the unjittered depths: the JAX package's
+        ``train_cull_fraction``."""
+        pts, _ = sample_along_rays(rays.ray_o, rays.ray_d, rays.near,
+                                   rays.far, self.n_samples)
+        n = pts.shape[0] * self.n_samples
+        keep = self._cull(to_smpl(frame, pts.reshape(n, 3)),
+                          frame.tar_verts_smpl)
+        return (keep & rays.mask.repeat_interleave(self.n_samples)).sum() / n
 
     def train_points(self, rays: RayBundle, seed: Optional[int] = None,
                      sample_jitter: bool = True):

@@ -93,3 +93,21 @@ def synthetic_setup(n_views: int = 3, image_hw: tuple = (512, 512),
                           n_samples=n_samples, chunk_rays=chunk_rays,
                           device=device)
     return model, pipe, frame, smpl, cluster
+
+
+def synthetic_rays(n_rays: int, seed: int = 0, spread: float = 0.12):
+    """Rays from a frontal camera toward the synthetic body at the origin
+    (the JAX package's testing.synthetic_rays, the same numpy draws); CPU
+    tensors."""
+    from .render.pipeline import RayBundle
+
+    rng = np.random.default_rng(seed)
+    dirs = rng.standard_normal((n_rays, 3)).astype(np.float32) * spread
+    dirs[:, 2] += 1.0
+    return RayBundle(
+        ray_o=torch.tensor([0.0, 0.0, -2.5]).repeat(n_rays, 1),
+        ray_d=torch.from_numpy(dirs),
+        near=torch.full((n_rays,), 1.2),
+        far=torch.full((n_rays,), 3.8),
+        mask=torch.ones(n_rays, dtype=torch.bool),
+    )
