@@ -8,7 +8,8 @@ any failure ends the run with a non-zero exit:
 1. device: a CUDA card, its name and power limit (nvidia-smi), TF32 off,
    bf16 products accumulated in float32;
 2. build: the CUDA kernels from transhuman_tpu_torch/csrc with nvcc, one
-   process per source, all started together;
+   process per source, all started together, and the host C++ libraries
+   of transhuman_tpu_torch/native with g++ beside them;
 3. kernels: K1 (cull) and K2 (DPaRF) against their plain PyTorch versions
    on the card at the render path's shapes, K2 timed also at the train
    shape (every point of a train batch), K2's token gradient against
@@ -105,7 +106,22 @@ g. the run entry point with dataset zju (CoreView_387, 2 frames) on f's
    host ms, the loop's wait for it, frame to frame, the metrics files),
    visualize (performance.yaml), reconstruction (reconstruction.yaml), each
    with its counters; then a ZJU eval item at 64x64 on the card against
-   the CPU within phase 8's bounds.
+   the CPU within phase 8's bounds;
+i. visibility from depth maps (depth_map True, depth_vizmap True): depth
+   maps z-buffered from the synthetic body for g's CoreView_387 and f's
+   CoreView_377; each 64x64 eval item's visibility masks on the card
+   against the CPU (equal off a 1e-5 m near-tie band; the visible fraction
+   and the band's count printed), the item's frames within phase 8's
+   bounds; then at full width --type evaluate, --type visualize and one
+   train step (train.cull True), counters reset and read around each: K1,
+   K2 and K4 launched on each, K3 in the step.
+
+Every visualize run (phases 9, c, g, i) also writes one MJPG/AVI per
+human, parsed here: one JPEG frame per PNG.  Phase 11 also times the C++
+marching the command took against the numpy route on the same cube (the
+same sorted vertex set within 1e-6 grid units, the same triangle count),
+runs the command once more on the numpy route, and renders a 4-frame mesh
+video of its PLY (tools/render_mesh_video), timed.
 
 The last three lines are {"kernels": [...]}, the card's name and power
 limit as nvidia-smi prints them, and {"ok": true, "device": {...}}.
@@ -222,6 +238,100 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+def avi_frames(path: str) -> list:
+    """The JPEG payloads of an MJPG/AVI file, in order, after checking its
+    RIFF size, the avih and strh frame counts and that idx1 lists every
+    frame at its offset from the movi fourcc."""
+    import struct
+
+    with open(path, "rb") as f:
+        buf = f.read()
+    check(buf[:4] == b"RIFF" and buf[8:12] == b"AVI "
+          and struct.unpack("<I", buf[4:8])[0] == len(buf) - 8,
+          f"{path}: not a RIFF AVI of its own length")
+    chunks, off = {}, 12
+    while off + 8 <= len(buf):
+        fcc, size = buf[off:off + 4], struct.unpack("<I", buf[off + 4:
+                                                            off + 8])[0]
+        key = buf[off + 8:off + 12] if fcc == b"LIST" else fcc
+        chunks[key] = (off + 8, size)
+        off += 8 + size + (size & 1)
+    check(off == len(buf) and {b"hdrl", b"movi", b"idx1"} <= set(chunks),
+          f"{path}: chunks {sorted(chunks)} end at {off} of {len(buf)}")
+    movi, msize = chunks[b"movi"]
+    frames, pos = [], movi + 4
+    while pos < movi + msize:
+        n = struct.unpack("<I", buf[pos + 4:pos + 8])[0]
+        check(buf[pos:pos + 4] == b"00dc", f"{path}: a chunk in movi is "
+              f"{buf[pos:pos + 4]!r}")
+        frames.append((pos - movi, buf[pos + 8:pos + 8 + n]))
+        pos += 8 + n + (n & 1)
+    istart, isize = chunks[b"idx1"]
+    idx = [struct.unpack("<4sIII", buf[istart + 16 * i:istart + 16 * i + 16])
+           for i in range(isize // 16)]
+    hdrl = chunks[b"hdrl"][0] + 4
+    total = struct.unpack("<I", buf[hdrl + 8 + 16:hdrl + 8 + 20])[0]
+    check(total == len(idx) == len(frames)
+          and all(e[2] == o and e[3] == len(j)
+                  for e, (o, j) in zip(idx, frames))
+          and all(j[:2] == b"\xff\xd8" and j[-2:] == b"\xff\xd9"
+                  for _, j in frames),
+          f"{path}: avih {total}, idx1 {len(idx)}, movi {len(frames)} "
+          "frames, or an entry that is not its frame's JPEG")
+    return [j for _, j in frames]
+
+
+def check_videos(what: str, png_paths) -> dict:
+    """Each human's <perform>/<human>.avi beside its PNG frames: one JPEG
+    frame per PNG, each decoding (the port's decoder) to the PNG's size.
+    Returns {avi path: (frames, bytes)}."""
+    from transhuman_tpu_torch.data.image_io import decode_jpeg
+
+    out = {}
+    for d in sorted({os.path.dirname(p) for p in png_paths}):
+        path = d + ".avi"
+        check(os.path.isfile(path), f"{what}: no {path}")
+        pngs = [f for f in os.listdir(d) if f.endswith(".png")]
+        jpgs = avi_frames(path)
+        with open(os.path.join(d, pngs[0]), "rb") as f:
+            head = f.read(24)
+        w, h = (int.from_bytes(head[16:20], "big"),
+                int.from_bytes(head[20:24], "big"))
+        check(len(jpgs) == len(pngs) > 0
+              and decode_jpeg(jpgs[-1]).shape == (h, w, 3),
+              f"{what}: {path} holds {len(jpgs)} frames for {len(pngs)} "
+              f"PNGs of {w}x{h}")
+        out[path] = (len(jpgs), os.path.getsize(path))
+    return out
+
+
+def timed_videos(stages: list):
+    """A context that times viz.video.frames_to_video (the visualize entry
+    point's video assembly), appending (seconds, frames) to stages."""
+    import contextlib
+
+    from transhuman_tpu_torch.viz import video
+
+    fn = video.frames_to_video
+
+    def wrapper(frame_dir, out_path, fps=30):
+        t = time.perf_counter()
+        path = fn(frame_dir, out_path, fps)
+        n = sum(f.endswith(".png") for f in os.listdir(frame_dir))
+        stages.append((time.perf_counter() - t, n))
+        return path
+
+    @contextlib.contextmanager
+    def ctx():
+        video.frames_to_video = wrapper
+        try:
+            yield
+        finally:
+            video.frames_to_video = fn
+
+    return ctx()
+
+
 def bound(n_bytes: float, n_ops: float) -> dict:
     """bound_ms and what sets it: bytes (each input read once, each output
     written once) at HBM_BYTES_PER_S, or FP32 operations at
@@ -276,14 +386,30 @@ def phase_device():
 
 
 def phase_build():
-    from transhuman_tpu_torch.kernels import build
+    """The CUDA kernels (nvcc, one process per source) and, beside them on
+    threads, the host C++ libraries (g++, one process per library), so
+    that no later phase's timing holds a build."""
+    from concurrent.futures import ThreadPoolExecutor
 
-    res = build.build()
+    from transhuman_tpu_torch.kernels import build
+    from transhuman_tpu_torch.native import build as native
+
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(native.LIBRARIES)) as pool:
+        hosts = [pool.submit(native.build, name)
+                 for name in native.LIBRARIES]
+        res = build.build()
+        for h in hosts:
+            h.result()
+    for name in native.LIBRARIES:
+        native.library(name)
     for line in res.log.splitlines():
         if "registers" in line or "spill" in line:
             log(f"  ptxas: {line.strip()}")
     build.library()
-    log(f"[2 build] nvcc built {res.path} in {res.seconds:.2f} s")
+    log(f"[2 build] nvcc built {res.path} in {res.seconds:.2f} s; g++ built "
+        f"{', '.join(sorted(native.LIBRARIES))} beside it; "
+        f"{time.perf_counter() - t0:.2f} s in all")
 
 
 def phase_kernels(card: str):
@@ -1571,8 +1697,10 @@ def phase_eval(card: str, ckpt: str, tmp: str, dtype: str = "float32"):
 
     vis_data = SyntheticDataset(cfg, "test", n_frames=2,
                                 image_hw=(512, 512))
-    paths = run_cli.main(["--type", "visualize", "--device", "cuda",
-                          "--weights", ckpt, *opts], dataset=vis_data)
+    assembly = []
+    with timed_videos(assembly):
+        paths = run_cli.main(["--type", "visualize", "--device", "cuda",
+                              "--weights", ckpt, *opts], dataset=vis_data)
     check(len(paths) == 2, f"visualize: {len(paths)} frames")
     for path in paths:
         with open(path, "rb") as f:
@@ -1580,8 +1708,13 @@ def phase_eval(card: str, ckpt: str, tmp: str, dtype: str = "float32"):
         check(head[:8] == b"\x89PNG\r\n\x1a\n"
               and head[16:24] == (512).to_bytes(4, "big") * 2,
               f"visualize: {path} is not a 512x512 PNG")
+    videos = check_videos("visualize", paths)
+    (sec, n), = assembly
     log(f"[9 visualize] {len(paths)} frames written: "
-        f"{', '.join(os.path.relpath(p, res) for p in paths)}  [{card}]")
+        f"{', '.join(os.path.relpath(p, res) for p in paths)}; videos "
+        f"{ {os.path.relpath(k, res): v for k, v in videos.items()} } "
+        f"(frames, bytes); AVI assembly {sec:.3f} s for {n} frames, "
+        f"{sec / n:.4f} s a frame  [{card}]")
     return counts
 
 
@@ -1818,6 +1951,7 @@ def phase_reconstruction(card: str, ckpt: str, tmp: str,
     stages = {"sigma": [], "march": [], "ply": []}
     sig_fn = RenderPipeline.render_sigma
     march_fn, ply_fn = reconstruct.marching_tetrahedra, ply.save_ply
+    marched = []  # the marching's (cube, iso-level) and its mesh
 
     def timed(key, fn, sync=False):
         def wrapper(*args, **kwargs):
@@ -1828,6 +1962,8 @@ def phase_reconstruction(card: str, ckpt: str, tmp: str,
             if sync:
                 torch.cuda.synchronize()
             stages[key].append((time.perf_counter() - t) * 1e3)
+            if key == "march":
+                marched.append((args, out))
             return out
         return wrapper
 
@@ -1876,6 +2012,9 @@ def phase_reconstruction(card: str, ckpt: str, tmp: str,
         f"memory {peak:.3f} GiB  [{card}]")
     if dtype != "float32":
         return counts, k1_grid
+    check_marching_routes(card, marched[0], stages["march"][0], wall, ckpt,
+                          res, vs, mesh_th, data)
+    mesh_video(card, paths[0], tmp)
 
     vox_fn, vox_ms = voxelize_mesh.voxelize, []
 
@@ -1905,6 +2044,91 @@ def phase_reconstruction(card: str, ckpt: str, tmp: str,
         f"(surface sampling and flood fill) {vox_ms[0]:.1f} ms, whole "
         f"command {wall:.2f} s  [{card}]")
     return counts, k1_grid
+
+
+def check_marching_routes(card: str, marched, native_ms: float,
+                          native_s: float, ckpt: str, res: str, vs: str,
+                          mesh_th: float, data):
+    """Phase 11's command once more with the numpy marching route, timed
+    alone and as the whole command; its mesh against the C++ route's on the
+    same cube: the same sorted vertex set within 1e-6 grid units, the same
+    triangle count."""
+    from transhuman_tpu_torch.cli import run as run_cli
+    from transhuman_tpu_torch.mesh_ops import reconstruct
+
+    (cube, th), (v_cc, t_cc) = marched
+    march, rerun = reconstruct.marching_tetrahedra, []
+
+    def numpy_route(cube2, th2):
+        t = time.perf_counter()
+        out = march(cube2, th2, use_native=False)
+        rerun.append((cube2, (time.perf_counter() - t) * 1e3, out))
+        return out
+
+    reconstruct.marching_tetrahedra = numpy_route
+    t0 = time.perf_counter()
+    try:
+        run_cli.main(["--type", "reconstruction", "--device", "cuda",
+                      "--weights", ckpt, "result_dir", res, "voxel_size", vs,
+                      "mesh_th", repr(mesh_th)], dataset=data)
+    finally:
+        reconstruct.marching_tetrahedra = march
+    torch.cuda.synchronize()
+    numpy_s = time.perf_counter() - t0
+    (cube2, numpy_ms, (v_np, t_np)), = rerun
+    same_cube = np.array_equal(cube2, cube)
+    if not same_cube:  # the C++ route on the rerun's own cube
+        v_cc, t_cc = march(cube2, th)
+
+    def rows(v):
+        return v[np.lexsort(v.T[::-1])]
+
+    err = (float(np.abs(rows(v_cc) - rows(v_np)).max()) if len(v_cc)
+           and len(v_cc) == len(v_np) else float("inf"))
+    check(len(t_cc) == len(t_np) > 0 and err <= 1e-6,
+          f"marching: C++ {len(v_cc)} vertices, {len(t_cc)} triangles; "
+          f"numpy {len(v_np)}, {len(t_np)}; max |d vertex| {err}")
+    log(f"[11 marching] cube {'x'.join(map(str, cube.shape))}: C++ route "
+        f"{native_ms:.1f} ms, numpy route {numpy_ms:.1f} ms "
+        f"({numpy_ms / native_ms:.1f}x); {len(v_cc)} vertices, {len(t_cc)} "
+        f"triangles on both, sorted vertices within {err:.3g} grid units "
+        f"(the rerun's sigma cube {'equal to' if same_cube else 'unlike'} "
+        f"the first's); the reconstruction command {native_s:.2f} s on the "
+        f"C++ route, {numpy_s:.2f} s on the numpy route  [{card}]")
+
+
+def mesh_video(card: str, ply_path: str, tmp: str):
+    """tools/render_mesh_video on phase 11's PLY, four frames along the
+    spherical path of the laid-out ZJU cameras at 512x512: each frame
+    rasterized (C++), written as PNG, and assembled into the AVI; timed."""
+    from transhuman_tpu_torch.tools import render_mesh_video
+
+    d = os.path.join(tmp, "mesh_video")
+    os.makedirs(os.path.join(d, "ply"), exist_ok=True)
+    for i in range(4):
+        os.link(ply_path, os.path.join(d, "ply", f"frame{i}.ply"))
+    np.save(os.path.join(d, "annots.npy"), {"cams": _zju_cameras(ZJU_CAMS),
+                                            "ims": []})
+    t0 = time.perf_counter()
+    out = render_mesh_video.main([
+        "--mesh_dir", os.path.join(d, "ply"), "--annots",
+        os.path.join(d, "annots.npy"), "--render_views", "4",
+        os.path.join(d, "out")])
+    sec = time.perf_counter() - t0
+    jpgs = avi_frames(out)
+    lit = []
+    for i in range(4):
+        from transhuman_tpu_torch.data.image_io import read_png
+
+        img = read_png(os.path.join(d, "out", f"mesh{i:04d}.png"))
+        lit.append(float(img.any(-1).mean()))
+    check(len(jpgs) == 4 and all(x > 0.01 for x in lit),
+          f"mesh video: {len(jpgs)} AVI frames, lit fractions {lit}")
+    log(f"[11 mesh video] tools/render_mesh_video, 4 frames of 512x512 "
+        f"from the phase's PLY: {sec:.2f} s, {sec / 4:.3f} s a frame "
+        f"(rasterize, PNG, AVI); lit fraction per frame "
+        f"{', '.join(f'{x:.3f}' for x in lit)}; "
+        f"{os.path.getsize(out)} bytes  [{card}]")
 
 
 def check_cull_grid(card: str, frame, pts_world, cull_distance: float,
@@ -2232,6 +2456,7 @@ def phase_eval_cfg(card: str, tmp: str, model_root: str, files: dict):
           f"visualize cfg: {paths}")
     check_launches("visualize cfg", by_path["visualize_cfg_bf16"],
                    {"min_excess2": 1, f["dparf"]: 1, f["fetch"]: 1})
+    videos = check_videos("visualize cfg", paths)
     kernels.reset_launch_counts()
     t0 = time.perf_counter()
     meshes = run_cli.main(["--type", "reconstruction", "--device", "cuda",
@@ -2249,7 +2474,8 @@ def phase_eval_cfg(card: str, tmp: str, model_root: str, files: dict):
     check_launches("reconstruction cfg", by_path["reconstruction_cfg_bf16"],
                    {"min_excess2": 1, f["dparf"]: 1, f["fetch"]: 1})
     log(f"[c visualize / reconstruction cfg] performance.yaml: "
-        f"{len(paths)} frames ({', '.join(os.path.relpath(p, res) for p in paths)}); "
+        f"{len(paths)} frames ({', '.join(os.path.relpath(p, res) for p in paths)}), "
+        f"videos {list(videos.values())} (frames, bytes); "
         f"reconstruction.yaml at 0.005 m, mesh_th 5: {len(v)} verts, "
         f"{len(t)} tris in {recon_s:.1f} s (build included)  [{card}]")
     return by_path
@@ -2264,18 +2490,15 @@ ZJU_EVAL_FRAMES = 2  # frames of CoreView_387 laid out for phase g
 
 
 def phase_codec(card: str) -> dict:
-    """e. Each committed fixture decoded by the port's codec (built here
-    with g++ from transhuman_tpu_torch/native), its bytes held against the
-    sha256 of cv2's or imageio's decode recorded in digests.json; each
-    decode timed on the host, median of 20."""
+    """e. Each committed fixture decoded by the port's codec (built in
+    phase 2 with g++ from transhuman_tpu_torch/native), its bytes held
+    against the sha256 of cv2's or imageio's decode recorded in
+    digests.json; each decode timed on the host, median of 20; the event
+    files' CRC32C, native against the Python table."""
     import hashlib
 
     from transhuman_tpu_torch.data import image_io
-    from transhuman_tpu_torch.native import build as codec
 
-    t0 = time.perf_counter()
-    codec.library()
-    build_s = time.perf_counter() - t0
     with open(os.path.join(FIXTURES, "digests.json")) as f:
         digests = json.load(f)
     out = {}
@@ -2294,7 +2517,22 @@ def phase_codec(card: str) -> dict:
             read(path)
             ms.append((time.perf_counter() - t) * 1e3)
         out[name] = float(np.median(ms))
-    log(f"[e codec] g++ build {build_s:.2f} s; every fixture equals "
+    # the event files' CRC32C: the native library against the Python table
+    from transhuman_tpu_torch.utils import tb_writer
+
+    buf = np.random.default_rng(0).integers(0, 256, 16 << 20,
+                                            np.uint8).tobytes()
+    check(tb_writer.crc32c(buf[:1 << 20]) == tb_writer.crc32c_table(
+        buf[:1 << 20]), "crc32c: the native library and the table differ")
+    t = time.perf_counter()
+    tb_writer.crc32c(buf)
+    crc_native = len(buf) / 2**20 / (time.perf_counter() - t)
+    t = time.perf_counter()
+    tb_writer.crc32c_table(buf[:1 << 20])
+    crc_table = 1.0 / (time.perf_counter() - t)
+    log(f"[e crc32c] native {crc_native:.0f} MB/s over 16 MiB, the Python "
+        f"table {crc_table:.2f} MB/s over 1 MiB (host)  [{card}]")
+    log(f"[e codec] every fixture equals "
         f"{', '.join(sorted({d['by'] for d in digests.values()}))} bit for "
         f"bit; host ms per decode (median of 20): "
         + ", ".join(f"{k} {v:.2f}" for k, v in out.items()) + f"  [{card}]")
@@ -2644,6 +2882,7 @@ def phase_eval_zju(card: str, tmp: str, model_root: str) -> dict:
     check(len(paths) == ZJU_EVAL_FRAMES, f"visualize zju: {paths}")
     check_launches("visualize zju", by_path["visualize_zju_bf16"],
                    {"min_excess2": 1, f["dparf"]: 1, f["fetch"]: 1})
+    videos = check_videos("visualize zju", paths)
     kernels.reset_launch_counts()
     t0 = time.perf_counter()
     meshes = run_cli.main(["--type", "reconstruction", "--cfg_file",
@@ -2659,7 +2898,8 @@ def phase_eval_zju(card: str, tmp: str, model_root: str) -> dict:
     check_launches("reconstruction zju", by_path["reconstruction_zju_bf16"],
                    {"min_excess2": 1, f["dparf"]: 1, f["fetch"]: 1})
     log(f"[g visualize / reconstruction zju] performance.yaml: "
-        f"{len(paths)} frames; reconstruction.yaml at 0.005 m: {len(v)} "
+        f"{len(paths)} frames, videos {list(videos.values())} (frames, "
+        f"bytes); reconstruction.yaml at 0.005 m: {len(v)} "
         f"verts, {len(t)} tris in {recon_s:.1f} s; launches visualize "
         f"{by_path['visualize_zju_bf16']}, reconstruction "
         f"{by_path['reconstruction_zju_bf16']}  [{card}]")
@@ -2670,6 +2910,228 @@ def phase_eval_zju(card: str, tmp: str, model_root: str) -> dict:
     pdata = ZJUDataset(pcfg, "test", smpl=SMPLModel.synthetic())
     phase_eval_parity(card, "float32", cfg=pcfg, data=pdata,
                       label="g zju eval parity")
+    return by_path
+
+
+# ----------------------------------------------- visibility from depth maps
+DEPTH_DET = 0.07  # m: depth_visibility's margin behind the surface
+DEPTH_TIE = 1e-5  # m: |z - surface - margin| within it may flip either way
+
+
+def zbuffer_depth(verts, K, R, T, hw, splat: int) -> np.ndarray:
+    """(H, W) float32 camera depth of the nearest vertex, each splatted
+    over a (2 splat + 1)^2 square at its projection; 0 where none lands."""
+    cam = verts @ R.T + T.reshape(1, 3)
+    pix = cam @ K.T
+    uv = np.round(pix[:, :2] / pix[:, 2:]).astype(int)
+    depth = np.zeros(hw, np.float32)
+    order = np.argsort(-cam[:, 2])  # far first: the nearest is written last
+    for dy in range(-splat, splat + 1):
+        for dx in range(-splat, splat + 1):
+            x, y = uv[order, 0] + dx, uv[order, 1] + dy
+            ok = (x >= 0) & (x < hw[1]) & (y >= 0) & (y < hw[0])
+            depth[y[ok], x[ok]] = cam[order[ok], 2]
+    return depth
+
+
+def write_depth_maps(root: str, human: str, droot: str, ratio: float,
+                     splat: int) -> int:
+    """The reference's depth maps of a laid-out human: for every frame in
+    new_vertices and every camera, the posed body z-buffered at the render
+    size (1024 x ratio) with the loader's K, saved as a torch tensor under
+    droot/human/Camera_B<c>/<frame>.pt.  Returns the number written."""
+    cams = np.load(os.path.join(root, human, "annots.npy"),
+                   allow_pickle=True).item()["cams"]
+    hw = (int(1024 * ratio),) * 2
+    vdir = os.path.join(root, human, "new_vertices")
+    n = 0
+    for name in sorted(os.listdir(vdir)):
+        verts = np.load(os.path.join(vdir, name)).astype(np.float64)
+        for c in range(len(cams["K"])):
+            K = np.array(cams["K"][c], np.float32).astype(np.float64)
+            K[:2] *= ratio
+            d = zbuffer_depth(verts, K, np.asarray(cams["R"][c], np.float64),
+                              np.asarray(cams["T"][c], np.float64) / 1000.0,
+                              hw, splat)
+            path = os.path.join(droot, human, f"Camera_B{c + 1}",
+                                f"{int(name[:-4]):06d}.pt")
+            os.makedirs(os.path.dirname(path), exist_ok=True)
+            torch.save(torch.from_numpy(d), path)
+            n += 1
+    return n
+
+
+def phase_depth(card: str, tmp: str, zju_root: str, model_root: str) -> dict:
+    """i. Visibility from depth maps (depth_map True, depth_vizmap True):
+    depth maps z-buffered from the synthetic body for phase g's laid-out
+    CoreView_387 (at 64x64 and 512x512) and phase f's CoreView_377 (512);
+    the visibility masks of each 64x64 eval item on the card against the
+    CPU (equal off the near-tie band), then that item's frames within phase
+    8's bounds; then at full width, counters reset just before each and
+    read just after, --type evaluate (train_or_eval.yaml, 2 targets),
+    --type visualize (performance.yaml; its AVI checked) on phase f's bf16
+    checkpoint, and one train step (train.cull True): K1, K2 and K4
+    launched on each, K3 in the step."""
+    from transhuman_tpu_torch import kernels
+    from transhuman_tpu_torch.cli import run as run_cli
+    from transhuman_tpu_torch.cli import train as train_cli
+    from transhuman_tpu_torch.config import Config
+    from transhuman_tpu_torch.data.zju import ZJUDataset
+    from transhuman_tpu_torch.geometry.smpl import SMPLModel
+    from transhuman_tpu_torch.ops.sampling import (
+        depth_visibility,
+        project_points,
+        sample_half_pixel,
+    )
+
+    eval_root = os.path.join(tmp, "zju_eval")  # phase g's CoreView_387
+    d64, d512 = os.path.join(tmp, "depth64"), os.path.join(tmp, "depth512")
+    t0 = time.perf_counter()
+    n = (write_depth_maps(eval_root, "CoreView_387", d64, 0.0625, 1)
+         + write_depth_maps(eval_root, "CoreView_387", d512, 0.5, 3)
+         + write_depth_maps(zju_root, "CoreView_377", d512, 0.5, 3))
+    write_s = time.perf_counter() - t0
+    depth = ["depth_map", "True", "depth_vizmap", "True"]
+
+    # the masks, card against CPU, on the 64x64 items; then their frames
+    pcfg = Config().merge_opts([
+        "data_root", eval_root, "rasterize_root",
+        os.path.join(eval_root, "raster"), "ratio", "0.0625",
+        "test.target_view", "3,10", *depth, "depth_root", d64])
+    pdata = ZJUDataset(pcfg, "test", smpl=SMPLModel.synthetic())
+    fracs, band, changed = [], 0, 0
+    for i in pdata.frame_sampler_indices():
+        fr = pdata.get_eval_item(int(i)).frame
+        args = (fr.depth_maps, fr.verts_world, fr.K, fr.R, fr.T)
+        cpu = depth_visibility(*args)
+        gpu = depth_visibility(*(a.cuda() for a in args)).cpu()
+        uv, z = project_points(*(a.double() for a in args[1:]))
+        surf = sample_half_pixel(fr.depth_maps[..., None].double(), uv,
+                                 fr.depth_maps.shape[1:])[..., 0]
+        tie = (z - surf - DEPTH_DET).abs() <= DEPTH_TIE
+        check(torch.equal(cpu[~tie], gpu[~tie]),
+              f"depth visibility: {int((cpu != gpu)[~tie].sum())} masks "
+              "differ off the near-tie band, card against CPU")
+        fracs.append(float(cpu.mean()))
+        band += int(tie.sum())
+        changed += int((cpu != fr.vizmaps).sum())
+    check(0.05 < min(fracs) and max(fracs) < 0.95 and changed > 0,
+          f"depth visibility: visible fractions {fracs}, {changed} vertex "
+          "decisions unlike the rasterised vizmaps")
+    log(f"[i depth visibility] {n} depth maps z-buffered in {write_s:.1f} s; "
+        f"64x64 items ({len(fracs)}), 3 views x 6890 vertices each: visible "
+        f"fraction {', '.join(f'{x:.4f}' for x in fracs)}; masks card = CPU "
+        f"off the band; {band} vertex-views within {DEPTH_TIE} m of the "
+        f"{DEPTH_DET} m margin; {changed} decisions differ from the "
+        f"vizmaps  [{card}]")
+    phase_eval_parity(card, "float32", cfg=pcfg, data=pdata,
+                      label="i depth eval parity")
+
+    # the prologue at full width (bf16, 3 views of 512x512): visibility
+    # from the depth maps against the rasterised vizmaps, one frame
+    from transhuman_tpu_torch.cli.common import build_runtime
+    from transhuman_tpu_torch.testing import init_weights
+
+    cfg = Config.from_yaml(os.path.join(CONFIGS, "train_or_eval.yaml"), [
+        "data_root", eval_root, "rasterize_root",
+        os.path.join(eval_root, "raster"), *depth, "depth_root", d512])
+    data = ZJUDataset(cfg, "test", smpl=SMPLModel.synthetic())
+    model, pipe, _, _ = build_runtime(cfg, torch.device("cuda"),
+                                      smpl=data.smpl)
+    init_weights(model, torch.Generator().manual_seed(cfg.seed))
+    frame = data.get_eval_item(0).frame.to("cuda")
+    plain = dataclasses.replace(frame, depth_maps=None)
+    pro_ms = {}
+    for tag, fr in (("vizmaps", plain), ("depth", frame)) * 2:
+        pipe.prologue(fr)
+        torch.cuda.synchronize()
+        ms = []
+        for _ in range(10):
+            t = time.perf_counter()
+            pipe.prologue(fr)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t) * 1e3)
+        pro_ms.setdefault(tag, []).append(float(np.median(ms)))
+    del model, pipe, frame, plain
+    log(f"[i depth prologue] bf16 full width, 3 views of 512x512, median "
+        f"of 10 synchronised calls, in turns: vizmaps "
+        f"{', '.join(f'{x:.3f}' for x in pro_ms['vizmaps'])} ms, depth "
+        f"visibility {', '.join(f'{x:.3f}' for x in pro_ms['depth'])} ms  "
+        f"[{card}]")
+
+    # full width: evaluate, visualize, one train step
+    f = forms("bfloat16")
+    by_path = {}
+    res = os.path.join(tmp, "depth_result")
+    common = ["--device", "cuda", "data_root", eval_root, "rasterize_root",
+              os.path.join(eval_root, "raster"), "trained_model_dir",
+              model_root, "result_dir", res, *depth, "depth_root", d512]
+    render_ms = []
+    dispatch = run_cli.FrameRenderer.dispatch
+
+    def timed_dispatch(self, frame, eval_rays):
+        check(frame.depth_maps is not None
+              and tuple(frame.depth_maps.shape) == (3, 512, 512),
+              "evaluate depth: a frame without its 512x512 depth maps")
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = dispatch(self, frame, eval_rays)
+        torch.cuda.synchronize()
+        render_ms.append((time.perf_counter() - t) * 1e3)
+        return out
+
+    kernels.reset_launch_counts()
+    run_cli.FrameRenderer.dispatch = timed_dispatch
+    try:
+        summary = run_cli.main(["--type", "evaluate", "--cfg_file",
+                                os.path.join(CONFIGS, "train_or_eval.yaml"),
+                                *common, "test.target_view", "3,10"])
+    finally:
+        run_cli.FrameRenderer.dispatch = dispatch
+    torch.cuda.synchronize()
+    by_path["eval_depth_bf16"] = kernels.launch_counts()
+    check(len(render_ms) == 2 and np.isfinite(summary["psnr"]),
+          f"evaluate depth: {len(render_ms)} frames, {summary}")
+    check_launches("evaluate depth", by_path["eval_depth_bf16"],
+                   {"min_excess2": 1, f["dparf"]: 1, f["fetch"]: 1})
+    kernels.reset_launch_counts()
+    paths = run_cli.main(["--type", "visualize", "--cfg_file",
+                          os.path.join(CONFIGS, "performance.yaml"),
+                          *common])
+    torch.cuda.synchronize()
+    by_path["visualize_depth_bf16"] = kernels.launch_counts()
+    check(len(paths) == ZJU_EVAL_FRAMES, f"visualize depth: {paths}")
+    check_launches("visualize depth", by_path["visualize_depth_bf16"],
+                   {"min_excess2": 1, f["dparf"]: 1, f["fetch"]: 1})
+    videos = check_videos("visualize depth", paths)
+    run = os.path.join(tmp, "i_train")
+    kernels.reset_launch_counts()
+    _, recs = train_cli.main([
+        "--device", "cuda", "--steps", "1", "--cfg_file",
+        os.path.join(CONFIGS, "train_or_eval.yaml"), "data_root", zju_root,
+        "rasterize_root", os.path.join(zju_root, "raster"), "ep_iter", "1",
+        "train.epoch", "1", "train.cull", "True", *depth, "depth_root", d512,
+        "trained_model_dir", os.path.join(run, "tm"), "record_dir",
+        os.path.join(run, "rec"), "result_dir", os.path.join(run, "res")])
+    torch.cuda.synchronize()
+    by_path["train_depth_bf16"] = kernels.launch_counts()
+    check(len(recs) == 1 and np.isfinite(recs[0]["loss"]),
+          f"train depth: {recs}")
+    check_launches("train depth", by_path["train_depth_bf16"],
+                   {"min_excess2": 1, f["dparf"]: 1, f["fetch"]: 1,
+                    f["scatter"]: 1})
+    log(f"[i depth full width] bf16, depth_map + depth_vizmap: evaluate "
+        f"(train_or_eval.yaml, 2 targets of 512x512) psnr "
+        f"{summary['psnr']:.4f}, render "
+        f"{', '.join(f'{x:.1f}' for x in render_ms)} ms; visualize "
+        f"(performance.yaml) {len(paths)} frames, videos "
+        f"{list(videos.values())} (frames, bytes); one train step with "
+        f"train.cull: loss {recs[0]['loss']:.4f}, step "
+        f"{recs[0]['step_s'] * 1e3:.1f} ms, sample "
+        f"{recs[0]['sample_s'] * 1e3:.1f} ms; launches evaluate "
+        f"{by_path['eval_depth_bf16']}, visualize "
+        f"{by_path['visualize_depth_bf16']}, train "
+        f"{by_path['train_depth_bf16']}  [{card}]")
     return by_path
 
 
@@ -3036,6 +3498,8 @@ def main() -> int:
         zju_paths, zju_root, zju_models = phase_train_zju(card, tmp, files)
         by_path.update(zju_paths)
         by_path.update(phase_eval_zju(card, tmp, zju_models))
+        # visibility from depth maps on phase g's and f's laid-out humans
+        by_path.update(phase_depth(card, tmp, zju_root, zju_models))
         # batches, the train cull, remat and the per-vertex radii cull
         k1_bias = phase_cull_bias(card)
         phase_batch_parity(card, card6)

@@ -205,20 +205,24 @@ def test_dataset_zju_is_refused_where_a_dataset_is_built():
 
 
 def test_non_patch_sampling_is_accepted_and_depth_vizmap_refused():
+    """Non-patch sampling, depth_map and depth_vizmap alone, and (since
+    visibility from depth maps is ported) the two together are accepted;
+    depth_root, which that mode reads, is honoured."""
     cfg = Config().merge_opts(["patch.use_patch_sampling", "False"])
     assert tconfig.check_supported(cfg) is cfg
     for opts in (["depth_map", "True"], ["depth_vizmap", "True"]):
         cfg = Config().merge_opts(opts)
         assert tconfig.check_supported(cfg) is cfg
-    cfg = Config().merge_opts(["depth_map", "True", "depth_vizmap", "True"])
-    with pytest.raises(ValueError, match="depth_map True with depth_vizmap "
-                                         "True.*item 12"):
-        tconfig.check_supported(cfg)
+    cfg = Config().merge_opts(["depth_map", "True", "depth_vizmap", "True",
+                               "depth_root", "/data/depth"])
+    assert tconfig.check_supported(cfg) is cfg
+    assert cfg.depth_root == "/data/depth"
     for key in ("data_root", "rasterize_root", "rot_ratio", "vertices",
                 "params", "rasterize", "jitter", "N_rand",
                 "body_sample_ratio", "face_sample_ratio",
                 "patch.sample_subject_ratio", "test.target_view",
-                "test.mode", "time_steps", "depth_map", "depth_vizmap"):
+                "test.mode", "time_steps", "depth_map", "depth_vizmap",
+                "depth_root"):
         assert tconfig.KEY_CLASSES[key] == "honoured", key
 
 

@@ -17,6 +17,7 @@ from transhuman_tpu.evals import metrics as jmetrics
 from transhuman_tpu.evals.evaluator import Evaluator as JEvaluator
 from transhuman_tpu.render.pipeline import RenderPipeline as JPipeline
 from transhuman_tpu.testing import init_params, synthetic_setup
+from tests.test_avi_writer import parse_avi
 from transhuman_tpu_torch import kernels, weights
 from transhuman_tpu_torch.cli import run as run_cli
 from transhuman_tpu_torch.cli import train as train_cli
@@ -268,7 +269,16 @@ def test_run_entry_point_evaluates_and_visualizes(trained, capsys):
     assert len(paths) == 8  # visualize renders every frame
     img = cv2.imread(paths[-1])
     assert img.shape == (HW, HW, 3) and img.any()
-    assert "video assembly" in capsys.readouterr().out
+    # then the human's frames as one MJPG/AVI beside them, one per PNG
+    avi = root / "res" / "epoch_-1" / "debug" / "perform" / "synthetic.avi"
+    assert f"video: {avi}" in capsys.readouterr().out
+    movie = parse_avi(str(avi))
+    assert len(movie["frames"]) == len(movie["idx"]) == 8
+    s, n = movie["frames"][-1]
+    last = cv2.imdecode(np.frombuffer(movie["buf"][s:s + n], np.uint8),
+                        cv2.IMREAD_COLOR)
+    assert last.shape == img.shape
+    assert np.abs(last.astype(int) - img.astype(int)).mean() < 4
 
 
 def test_run_entry_point_fails_loudly(trained, tmp_path):

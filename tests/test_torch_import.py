@@ -57,7 +57,34 @@ for name in ("cv2_q95_420.jpg", "mask_palette.png"):
            else image_io.read_png(path))
     decoded[name] = hashlib.sha256(img.tobytes()).hexdigest() == digests[
         name]["sha256"]
+# the video writer and the mesh video, through the port's PNG, JPEG,
+# rasterizer and AVI code alone
+import tempfile
+import numpy as np
+from transhuman_tpu_torch.mesh_ops import marching
+from transhuman_tpu_torch.mesh_ops.ply import save_ply
+from transhuman_tpu_torch.utils.png import write_png
+from transhuman_tpu_torch.viz import mesh_render, video
+tmp = tempfile.mkdtemp()
+for i in range(3):
+    write_png(os.path.join(tmp, "frame%04d.png" % i),
+              np.full((16, 24, 3), 0.3 * i, np.float32))
+avi = video.frames_to_video(tmp, os.path.join(tmp, "h.mp4"))
+g = np.arange(12, dtype=np.float32)
+x, y, z = np.meshgrid(g, g, g, indexing="ij")
+verts, tris = marching.marching_tetrahedra(
+    4 - np.sqrt((x - 5.5) ** 2 + (y - 5.5) ** 2 + (z - 5.5) ** 2), 0.0)
+save_ply(os.path.join(tmp, "m.ply"), (verts - 5.5) / 4, tris)
+K = np.array([[40.0, 0, 16], [0, 40.0, 16], [0, 0, 1]], np.float32)
+w2c = np.eye(4, dtype=np.float32)
+w2c[2, 3] = 3.0
+pngs = mesh_render.render_mesh_sequence([os.path.join(tmp, "m.ply")], K,
+                                        [w2c], (32, 32),
+                                        os.path.join(tmp, "mesh"))
+video_run = {"avi": os.path.basename(avi), "avi_bytes": os.path.getsize(avi),
+             "mesh_frame_lit": int(image_io.read_png(pngs[0]).any(-1).sum())}
 print(json.dumps({
+    "video_run": video_run,
     "codec_loaded_at_import": codec_loaded,
     "decoded": decoded,
     "modules": mods,
@@ -100,6 +127,14 @@ def test_zju_loader_decodes_without_cv2_pil_or_imageio(probe):
     decodes a fixture JPEG and a palette PNG to cv2's and imageio's bytes."""
     assert probe["decoded"] == {"cv2_q95_420.jpg": True,
                                 "mask_palette.png": True}
+
+
+def test_video_and_mesh_video_run_without_cv2_pil_or_imageio(probe):
+    """Under the block, frames_to_video writes an AVI of PNG frames and the
+    mesh video's rasterizer renders a marched sphere into a PNG."""
+    run = probe["video_run"]
+    assert run["avi"] == "h.avi" and run["avi_bytes"] > 3 * 600
+    assert run["mesh_frame_lit"] > 50
 
 
 def test_weights_bridge_runs_without_the_jax_package(probe):
@@ -145,7 +180,9 @@ NEW_MODULES = {
     "transhuman_tpu_torch.data.loader", "transhuman_tpu_torch.cli.common",
     "transhuman_tpu_torch.cli.train", "transhuman_tpu_torch.data.zju",
     "transhuman_tpu_torch.data.image_io", "transhuman_tpu_torch.data.imgproc",
-    "transhuman_tpu_torch.native.build",
+    "transhuman_tpu_torch.native.build", "transhuman_tpu_torch.viz.avi",
+    "transhuman_tpu_torch.viz.video", "transhuman_tpu_torch.viz.mesh_render",
+    "transhuman_tpu_torch.tools.render_mesh_video",
 }
 
 

@@ -1,9 +1,12 @@
 """The mesh reconstruction and light_stage slice: the port's marching
 tetrahedra, PLY reader and writer, voxelizer, grid and synthetic mesh items
 against the JAX package's, bit for bit; render_sigma and extract_mesh
-against the JAX package's extract_mesh (compact_ratio None, its numpy
-marching) with the same bridged weights on a tiny model; the run entry
-point's reconstruction and light_stage on the CPU."""
+against the JAX package's extract_mesh (compact_ratio None) with the same
+bridged weights on a tiny model, each marching route (numpy, C++) against
+the same route of the JAX package; the run entry point's reconstruction and
+light_stage on the CPU, and the mesh video of its PLY."""
+
+import os
 
 import jax
 import numpy as np
@@ -58,9 +61,12 @@ def _fields():
 
 @pytest.mark.parametrize("name", sorted(_fields()))
 def test_marching_equals_the_jax_numpy_path(name):
+    """The port's numpy route (use_native False) against the JAX
+    package's, bit for bit; the C++ routes are held against each other in
+    tests/test_torch_native.py."""
     field, th = _fields()[name]
     want_v, want_t = jmarching._marching_tetrahedra_np(field, th)
-    got_v, got_t = marching.marching_tetrahedra(field, th)
+    got_v, got_t = marching.marching_tetrahedra(field, th, use_native=False)
     assert got_v.dtype == want_v.dtype and got_t.dtype == want_t.dtype
     np.testing.assert_array_equal(got_v, want_v)
     np.testing.assert_array_equal(got_t, want_t)
@@ -198,8 +204,9 @@ def pipes(datasets):
 
 @pytest.fixture(scope="module")
 def meshes(datasets, pipes):
-    """Both packages' extract_mesh on frame 0 at 0.06 m voxels, the JAX one
-    through its numpy marching, at a threshold no sigma lies near."""
+    """Both packages' extract_mesh on frame 0 at 0.06 m voxels, at a
+    threshold no sigma lies near: the JAX one through its numpy marching,
+    the port's through its default, the C++ marching."""
     jdata, tdata = datasets
     jpipe, params, tpipe = pipes
     jframe, bounds, _ = jdata.get_mesh_item(0)
@@ -220,8 +227,27 @@ def meshes(datasets, pipes):
     return jmesh, tmesh, th, jframe, tframe, bounds
 
 
-def test_extract_mesh_matches_the_jax_package(meshes, pipes):
-    (jv, jt, jcube), (tv, tt, tcube), th, _, _, _ = meshes
+def _world(verts_idx, bounds, pad=10):
+    """extract_mesh's index -> world transform."""
+    lb = bounds[0] - pad * np.asarray(VOXEL)
+    return (verts_idx * np.asarray(VOXEL, np.float32)
+            + lb.astype(np.float32))
+
+
+@pytest.mark.parametrize("route", ["numpy", "native"])
+def test_extract_mesh_matches_the_jax_package(meshes, pipes, route):
+    """Each marching route against the same route of the JAX package on
+    each package's own sigma grid: the port's numpy marching against the
+    JAX extract_mesh's (numpy), the port's extract_mesh (its C++ marching)
+    against the JAX package's C++ marching."""
+    (jv, jt, jcube), (tv, tt, tcube), th, _, _, bounds = meshes
+    if route == "numpy":
+        tv, tt = marching.marching_tetrahedra(tcube, th, use_native=False)
+        tv = _world(tv, bounds)
+    else:
+        jv, jt = jmarching._march_native(jmarching._load_native(), jcube,
+                                         th)
+        jv = _world(jv, bounds)
     tpipe = pipes[2]
     assert tcube.shape == jcube.shape and tcube.dtype == np.float32
     assert np.isfinite(tcube).all()
@@ -371,3 +397,44 @@ def test_run_entry_point_reconstructs_and_voxelizes(trained, capsys):
     custom = str(root / "occ.npy")
     assert run_cli.main(["--type", "light_stage", "--ply", paths[0],
                          "--occupancy_out", custom, *opts]) == custom
+
+
+def test_mesh_video_of_a_reconstructed_ply(trained, tmp_path):
+    """A PLY the run entry point reconstructs: the port's rasterizer equals
+    the JAX package's bit for bit on it (and its numpy route within the JAX
+    test's bounds); tools/render_mesh_video renders it along the spherical
+    path and writes one PNG per mesh and their AVI."""
+    from tests.test_avi_writer import parse_avi
+    from tests.test_torch_native import cameras, check_rasterizer
+    from tests.test_torch_zju import _camera
+    from transhuman_tpu_torch.data.image_io import read_png
+    from transhuman_tpu_torch.tools import render_mesh_video
+
+    root, opts = trained
+    ply_path = run_cli.main(["--type", "reconstruction", "--device", "cpu",
+                             *opts, "mesh_th", "5"])[0]
+    v, t = ply.load_ply(ply_path)
+    assert len(t) > 100
+    centred = (v - v.mean(0)).astype(np.float32)
+    check_rasterizer(centred, t, cameras(0))  # one view: _render_np is slow
+
+    mesh_dir = tmp_path / "mesh"
+    mesh_dir.mkdir()
+    for i in range(2):
+        ply.save_ply(str(mesh_dir / f"f{i}.ply"), centred, t)
+    cams = {"K": [], "R": [], "T": [], "D": []}
+    for c in range(4):
+        K, R, T = _camera(c, 4)
+        for k, x in zip("KRTD", (K, R, T, np.zeros((5, 1)))):
+            cams[k].append(x)
+    np.save(tmp_path / "annots.npy", {"cams": cams, "ims": []})
+    out = render_mesh_video.main([
+        "--mesh_dir", str(mesh_dir), "--annots", str(tmp_path / "annots.npy"),
+        "--ratio", "1.0", "--hw", "64", "64", "--render_views", "8",
+        str(tmp_path / "video")])
+    assert out == str(tmp_path / "video" / "mesh.avi")
+    frames = sorted(p for p in os.listdir(tmp_path / "video")
+                    if p.endswith(".png"))
+    assert frames == ["mesh0000.png", "mesh0001.png"]
+    assert read_png(str(tmp_path / "video" / frames[0])).shape == (64, 64, 3)
+    assert len(parse_avi(out)["frames"]) == 2

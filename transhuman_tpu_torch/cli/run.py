@@ -16,8 +16,9 @@ synthetic scene (``dataset synthetic``) at ``H_render x W_render``.
 writes the evaluator's per-frame PNGs, ``.npy`` metrics and ``summary.txt``
 (with the LPIPS column when ``lpips_weights`` is set) under
 ``result_dir/epoch_<test.epoch>/<test.exp_folder_name>``;
-``visualize`` writes one PNG per frame under its ``perform/`` (video
-assembly needs imageio or ffmpeg and is not ported); ``reconstruction``
+``visualize`` writes one PNG per frame under its ``perform/<human>/`` and
+then each human's frames as ``perform/<human>.avi`` (MJPG, the port's own
+JPEG encoder: ``viz/video.py``); ``reconstruction``
 extracts each frame's mesh (``mesh_ops.reconstruct.extract_mesh`` at
 ``voxel_size``, iso-level ``mesh_th``) and writes it as
 ``mesh/<human>_frame<index>.ply``.  They run on the card (``--device
@@ -121,8 +122,10 @@ def run_evaluate(cfg, pipe, dataset, epoch: int = -1, per_frame=None,
 
 
 def run_visualize(cfg, pipe, dataset):
-    """One PNG per frame; returns their paths."""
+    """One PNG per frame, then one video per human; returns the PNGs'
+    paths."""
     from ..viz.perform import PerformVisualizer
+    from ..viz.video import frames_to_video
     from .common import result_dir
 
     vis = PerformVisualizer(os.path.join(result_dir(cfg), "perform"),
@@ -131,15 +134,19 @@ def run_visualize(cfg, pipe, dataset):
     items = Loader(lambda i: dataset.get_perform_item(
         int(i), render_views=cfg.render_views),
         dataset.frame_sampler_indices(full_eval=True))
-    paths = []
+    paths, humans = [], []
     for item in items:
         out = renderer.fetch(renderer.dispatch(item.frame, item.eval_rays))
         paths.append(vis.visualize(out["rgb_map"], item.eval_rays.mask_at_box,
                                    item.target_img.shape[:2],
                                    item.frame_index, human=item.human))
+        if item.human not in humans:
+            humans.append(item.human)
         print("wrote", paths[-1], flush=True)
-    print("video assembly (viz/video.py: imageio or ffmpeg) is not ported; "
-          f"the frames are in {vis.out_dir}", flush=True)
+    for h in humans:
+        video = frames_to_video(os.path.join(vis.out_dir, h),
+                                os.path.join(vis.out_dir, f"{h}.mp4"))
+        print("video:", video, flush=True)
     return paths
 
 

@@ -18,9 +18,8 @@ Each key is in one of the classes of ``KEY_CLASSES``:
   neither package; accepted and unused while ``dataset`` is ``synthetic``.
 
 ``check_supported`` refuses, by name, a value the port cannot run
-(``REFUSED``: another network or renderer, ``compute_dtype float16`` ...,
-and ``depth_map`` with ``depth_vizmap``, naming the ROADMAP item that ports
-it); an unknown ``dataset`` is refused where a dataset is built
+(``REFUSED``: another network or renderer, ``compute_dtype float16`` ...);
+an unknown ``dataset`` is refused where a dataset is built
 (``cli/common.py::make_dataset``).
 """
 
@@ -368,13 +367,12 @@ TPU_ONLY_KEYS = frozenset({
 # read by neither package (xyz_res, save_latest_ep, gpus, test.collator,
 # test.time_det, test.batch_size, train.scheduler.type: the JAX package reads
 # none of them either), or by JAX code the port does not carry (time_mult:
-# time_steps is 1; use_viz_test; sample_fg_ratio; train.shuffle; depth_root:
-# only with depth_map and depth_vizmap, which check_supported refuses).
+# time_steps is 1; use_viz_test; sample_fg_ratio; train.shuffle).
 # train.cull_ratio sizes the JAX package's static capacity for the train
 # cull's survivors; the port compacts them dynamically (one nonzero per
 # sample), has no capacity to size, and so cannot overflow.
 UNUSED_KEYS = frozenset({
-    "time_mult", "use_viz_test", "depth_root", "sample_fg_ratio",
+    "time_mult", "use_viz_test", "sample_fg_ratio",
     "test.collator", "test.time_det", "test.batch_size", "train.shuffle",
     "train.cull_ratio", "train.scheduler.type", "gpus", "xyz_res",
     "save_latest_ep",
@@ -424,14 +422,10 @@ KEY_CLASSES = {k: _key_class(k) for k in flat_keys()}
 
 def check_supported(cfg: Config) -> Config:
     """cfg, or ValueError naming the first key set to a value the port
-    cannot run and the ROADMAP item that ports it."""
+    cannot run and why."""
     values = flat_keys(cfg)
     for key, (ok, why) in REFUSED.items():
         if values[key] not in ok:
             raise ValueError(f"config {key} {values[key]!r}: not runnable in "
                              f"the PyTorch port: {why}")
-    if cfg.depth_map and cfg.depth_vizmap:
-        raise ValueError("config depth_map True with depth_vizmap True: not "
-                         "runnable in the PyTorch port: visibility from depth "
-                         "maps is ROADMAP queue 1 item 12")
     return cfg

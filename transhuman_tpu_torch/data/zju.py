@@ -13,7 +13,9 @@ codec in place of OpenCV and imageio:
 * input views: a random ``train_num_views`` at train, ``test.input_view``
   at test; the processed views LRU-cached for jitter-off items;
 * rasterised vertex visibility per view, all ones where the file is missing
-  (or with ``rasterize False``);
+  (or with ``rasterize False``); with ``depth_map`` and ``depth_vizmap``
+  also each view's depth map (``{depth_root}/{human}/{cam dir}/{frame}.pt``,
+  a torch tensor file), from which the prologue takes the visibility;
 * the target frame's SMPL vertices, world -> SMPL transform and LBS blend
   rotations; at train with ``rot_ratio`` > 0 the canonical augmentation;
 * rays: patches or single rays at train, the frame's box at eval.
@@ -93,9 +95,6 @@ class ZJUDataset:
             raise ValueError(
                 f"time_steps={cfg.time_steps} is unsupported: the reference "
                 "itself asserts time_steps == 1 (if_clight_renderer.py:412)")
-        if cfg.depth_map and cfg.depth_vizmap:
-            raise ValueError("depth_map with depth_vizmap is not runnable in "
-                             "the PyTorch port (ROADMAP queue 1 item 12)")
         self.cfg = cfg
         self.split = split
         self.data_root = cfg.data_root
@@ -263,9 +262,26 @@ class ZJUDataset:
         except (FileNotFoundError, OSError):
             return np.ones(n, np.float32)
 
+    @property
+    def _depth_vis(self) -> bool:
+        # depth maps feed visibility only with both keys set
+        return self.cfg.depth_map and self.cfg.depth_vizmap
+
+    def _depthmap(self, human, cam_id_1based, frame_str):
+        """(H, W) float32 depth map of a view: the reference's torch tensor
+        file ``{depth_root}/{human}/{cam dir}/{frame}.pt`` (can_smpl.py:
+        463-475), stored (H, W), (1, H, W) or (H, W, 1)."""
+        p = os.path.join(self.cfg.depth_root, human,
+                         self._cam_dir(human, cam_id_1based),
+                         f"{frame_str}.pt")
+        d = np.asarray(torch.load(p, map_location="cpu", weights_only=True))
+        if d.ndim == 3:  # (1, H, W) or (H, W, 1)
+            d = d[0] if d.shape[0] == 1 else d[..., 0]
+        return d.astype(np.float32)
+
     def _input_view(self, human, v, frame_file, frame_str, jseed):
-        """One processed input view (img, K, R, T, vizmap); LRU-cached by
-        (human, view, frame) when jitter is off."""
+        """One processed input view (img, K, R, T, vizmap, depth or None);
+        LRU-cached by (human, view, frame) when jitter is off."""
         key = (human, v, frame_file)
         if jseed is None:
             hit = self._iv_cache.get(key)
@@ -277,7 +293,9 @@ class ZJUDataset:
                                        frame_file))
         imsk = self._load_mask(human, cam_dir, frame_file)
         iimg, _, iK, iR, iT = self._process(iimg, imsk, human, v, jseed)
-        out = (iimg, iK, iR, iT, self._vizmap(human, cam_id, frame_str))
+        out = (iimg, iK, iR, iT, self._vizmap(human, cam_id, frame_str),
+               self._depthmap(human, cam_id, frame_str)
+               if self._depth_vis else None)
         if jseed is None:
             self._iv_cache.put(key, out)
         return out
@@ -342,7 +360,10 @@ class ZJUDataset:
             verts_world=_t(verts_world),
             tar_verts_smpl=_t(np.asarray(verts_smpl, np.float32)),
             blend_rot=_t(blend[:, :3, :3]),
-            Rh=_t(Rh), Th=_t(Th), **aug)
+            Rh=_t(Rh), Th=_t(Th),
+            depth_maps=(_t(np.stack([iv[5] for iv in ivs]))
+                        if self._depth_vis else None),
+            **aug)
         can_bounds = world_bounds(verts_world, self.cfg.big_box)
         meta = dict(human=human, human_idx=self.human2idx.get(human, 0),
                     frame_index=frame_index, cam_ind=cam_ind, path=path)

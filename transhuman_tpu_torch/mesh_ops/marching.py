@@ -1,5 +1,5 @@
-"""Iso-surface extraction: vectorized marching tetrahedra in numpy (a copy of
-the numpy path of transhuman_tpu/mesh_ops/marching.py).
+"""Iso-surface extraction: marching tetrahedra (counterpart of
+transhuman_tpu/mesh_ops/marching.py).
 
 Replaces PyMCubes' C++ marching cubes (reference call:
 `if_mesh_renderer.py:103`).  Marching *tetrahedra* splits each grid cube
@@ -7,13 +7,24 @@ into 6 tetrahedra and triangulates each independently: the case logic is
 fully derivable (no 256-entry lookup tables), has no ambiguous saddle
 cases, and vectorizes over the whole grid with bulk boolean indexing.
 Output meshes are watertight over the same iso-level; triangle counts are
-~2x MC.  The JAX package's optional C++ backend (native/marching_tet.cc) is
-not carried: this numpy path is the port's only one.
+~2x MC.
+
+Two routes, as in the JAX package: the C++ one (``native/marching_tet.cc``,
+built by ``native/build.py`` on first use), the default, and the numpy one
+(``use_native=False``), whose output equals the JAX package's numpy path
+bit for bit.  The C++ route orders vertices otherwise (in the order it
+meets their edges); its vertex set and triangle count are the numpy
+route's.  A failed build raises: the numpy route is reached only by asking
+for it.
 """
 
 from __future__ import annotations
 
+import ctypes
+
 import numpy as np
+
+from ..native import build as native
 
 # 6-tetrahedra decomposition of the unit cube; corners indexed 0..7 as
 # (x, y, z) bits: corner i = (i & 1, (i >> 1) & 1, (i >> 2) & 1)
@@ -59,12 +70,44 @@ for case in range(16):
     _TET_CASES[case] = tris
 
 
-def marching_tetrahedra(grid: np.ndarray, threshold: float):
+def _march_native(grid: np.ndarray, threshold: float):
+    """The C++ route: (vertices (N,3) float32, triangles (M,3) int64)."""
+    lib = native.library("marching")
+    g = np.ascontiguousarray(grid, np.float32)
+    vp, tp = ctypes.c_void_p(), ctypes.c_void_p()
+    nv, nt = ctypes.c_int64(), ctypes.c_int64()
+    rc = lib.mt_march(g.ctypes.data, *g.shape, ctypes.c_float(threshold),
+                      ctypes.byref(vp), ctypes.byref(nv), ctypes.byref(tp),
+                      ctypes.byref(nt))
+    if rc != 0:
+        raise MemoryError("mt_march failed")
+    # an empty iso-surface: the C side returns NULL pointers and zero counts
+    try:
+        verts = (np.ctypeslib.as_array(
+            ctypes.cast(vp, ctypes.POINTER(ctypes.c_float)),
+            (nv.value, 3)).copy() if nv.value
+            else np.zeros((0, 3), np.float32))
+        tris = (np.ctypeslib.as_array(
+            ctypes.cast(tp, ctypes.POINTER(ctypes.c_int64)),
+            (nt.value, 3)).copy() if nt.value
+            else np.zeros((0, 3), np.int64))
+    finally:
+        lib.mt_free(vp, tp)
+    return verts, tris
+
+
+def marching_tetrahedra(grid: np.ndarray, threshold: float,
+                        use_native: bool = True):
     """grid: (X, Y, Z) scalar field.  Returns (vertices (N,3) float32 in
     index coordinates, triangles (M,3) int64).  Vertices lie on grid edges,
     linearly interpolated to the iso-level; shared edges are merged.  The
-    numpy path, always: its output equals the JAX package's numpy path bit
-    for bit (the JAX package's native backend orders vertices otherwise)."""
+    C++ route by default, the numpy route with use_native False."""
+    if use_native:
+        return _march_native(grid, threshold)
+    return _marching_tetrahedra_np(grid, threshold)
+
+
+def _marching_tetrahedra_np(grid: np.ndarray, threshold: float):
     grid = np.asarray(grid, np.float32)
     nx, ny, nz = grid.shape
     cx, cy, cz = nx - 1, ny - 1, nz - 1

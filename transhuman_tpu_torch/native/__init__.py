@@ -1,2 +1,4 @@
-"""The port's host C++ code: the image codec (``imgcodec.cc``), built on
-first use by ``build.py``."""
+"""The port's host C++ code, each library built with g++ on first use by
+``build.py``: the image codec (``imgcodec.cc``), marching tetrahedra
+(``marching_tet.cc``), CRC32C (``crc32c.cc``) and the mesh rasterizer
+(``rasterize.cc``)."""

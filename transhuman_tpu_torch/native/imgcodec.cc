@@ -1,5 +1,6 @@
-// Host image codec of the PyTorch port: a sequential Huffman JPEG decoder
-// and the PNG row unfilter, behind a plain C ABI (ctypes).
+// Host image codec of the PyTorch port: a sequential Huffman JPEG decoder,
+// a baseline JPEG encoder and the PNG row unfilter, behind a plain C ABI
+// (ctypes).
 //
 // The JPEG decoder covers baseline and extended sequential Huffman coding
 // (SOF0/SOF1): 8-bit samples, 1 or 3 components, any sampling factors,
@@ -18,8 +19,10 @@
 // Every entry returns 0 on success or a non-zero code, with a message in
 // the caller's buffer.
 
+#include <algorithm>
 #include <cstdint>
 #include <cstdio>
+#include <cstdlib>
 #include <cstring>
 #include <string>
 #include <vector>
@@ -765,6 +768,357 @@ struct Jpeg {
   }
 };
 
+// ---------------------------------------------------------------- encoder
+// A baseline JPEG encoder written as libjpeg(-turbo)'s default compression
+// is, what OpenCV's imencode writes: JFIF APP0 (1.01, no density unit), the
+// Annex K tables scaled by IJG quality (jcparam.c), 4:2:0 (Y 2x2, Cb and Cr
+// 1x1), the fixed-point RGB -> YCbCr of jccolor.c, h2v2 box downsampling
+// with the alternating 1/2 bias of jcsample.c, edges replicated as
+// jcprepct.c and jcsample.c replicate them, the ISLOW forward DCT
+// (jfdctint.c), rounding quantisation (jcdctmgr.c), the dummy blocks of
+// jccoefct.c past the image edge, and the standard Huffman tables
+// (jstdhuff.c), markers in jcmarker.c's order.
+
+const uint8_t kStdLumQuant[64] = {
+    16, 11, 10, 16, 24,  40,  51,  61,  12, 12, 14, 19, 26,  58,  60,  55,
+    14, 13, 16, 24, 40,  57,  69,  56,  14, 17, 22, 29, 51,  87,  80,  62,
+    18, 22, 37, 56, 68,  109, 103, 77,  24, 35, 55, 64, 81,  104, 113, 92,
+    49, 64, 78, 87, 103, 121, 120, 101, 72, 92, 95, 98, 112, 100, 103, 99};
+const uint8_t kStdChromQuant[64] = {
+    17, 18, 24, 47, 99, 99, 99, 99, 18, 21, 26, 66, 99, 99, 99, 99,
+    24, 26, 56, 99, 99, 99, 99, 99, 47, 66, 99, 99, 99, 99, 99, 99,
+    99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99,
+    99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99};
+
+// code counts of lengths 1..16, then the values (jstdhuff.c)
+const uint8_t kDcLumBits[16] = {0, 1, 5, 1, 1, 1, 1, 1, 1, 0, 0, 0, 0, 0, 0, 0};
+const uint8_t kDcChromBits[16] = {0, 3, 1, 1, 1, 1, 1, 1, 1, 1, 1, 0, 0, 0, 0, 0};
+const uint8_t kDcVals[12] = {0, 1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11};
+const uint8_t kAcLumBits[16] = {0, 2, 1, 3, 3, 2, 4, 3, 5, 5, 4, 4, 0, 0, 1, 0x7d};
+const uint8_t kAcChromBits[16] = {0, 2, 1, 2, 4, 4, 3, 4, 7, 5, 4, 4, 0, 1, 2, 0x77};
+const uint8_t kAcLumVals[162] = {
+    0x01, 0x02, 0x03, 0x00, 0x04, 0x11, 0x05, 0x12, 0x21, 0x31, 0x41, 0x06,
+    0x13, 0x51, 0x61, 0x07, 0x22, 0x71, 0x14, 0x32, 0x81, 0x91, 0xa1, 0x08,
+    0x23, 0x42, 0xb1, 0xc1, 0x15, 0x52, 0xd1, 0xf0, 0x24, 0x33, 0x62, 0x72,
+    0x82, 0x09, 0x0a, 0x16, 0x17, 0x18, 0x19, 0x1a, 0x25, 0x26, 0x27, 0x28,
+    0x29, 0x2a, 0x34, 0x35, 0x36, 0x37, 0x38, 0x39, 0x3a, 0x43, 0x44, 0x45,
+    0x46, 0x47, 0x48, 0x49, 0x4a, 0x53, 0x54, 0x55, 0x56, 0x57, 0x58, 0x59,
+    0x5a, 0x63, 0x64, 0x65, 0x66, 0x67, 0x68, 0x69, 0x6a, 0x73, 0x74, 0x75,
+    0x76, 0x77, 0x78, 0x79, 0x7a, 0x83, 0x84, 0x85, 0x86, 0x87, 0x88, 0x89,
+    0x8a, 0x92, 0x93, 0x94, 0x95, 0x96, 0x97, 0x98, 0x99, 0x9a, 0xa2, 0xa3,
+    0xa4, 0xa5, 0xa6, 0xa7, 0xa8, 0xa9, 0xaa, 0xb2, 0xb3, 0xb4, 0xb5, 0xb6,
+    0xb7, 0xb8, 0xb9, 0xba, 0xc2, 0xc3, 0xc4, 0xc5, 0xc6, 0xc7, 0xc8, 0xc9,
+    0xca, 0xd2, 0xd3, 0xd4, 0xd5, 0xd6, 0xd7, 0xd8, 0xd9, 0xda, 0xe1, 0xe2,
+    0xe3, 0xe4, 0xe5, 0xe6, 0xe7, 0xe8, 0xe9, 0xea, 0xf1, 0xf2, 0xf3, 0xf4,
+    0xf5, 0xf6, 0xf7, 0xf8, 0xf9, 0xfa};
+const uint8_t kAcChromVals[162] = {
+    0x00, 0x01, 0x02, 0x03, 0x11, 0x04, 0x05, 0x21, 0x31, 0x06, 0x12, 0x41,
+    0x51, 0x07, 0x61, 0x71, 0x13, 0x22, 0x32, 0x81, 0x08, 0x14, 0x42, 0x91,
+    0xa1, 0xb1, 0xc1, 0x09, 0x23, 0x33, 0x52, 0xf0, 0x15, 0x62, 0x72, 0xd1,
+    0x0a, 0x16, 0x24, 0x34, 0xe1, 0x25, 0xf1, 0x17, 0x18, 0x19, 0x1a, 0x26,
+    0x27, 0x28, 0x29, 0x2a, 0x35, 0x36, 0x37, 0x38, 0x39, 0x3a, 0x43, 0x44,
+    0x45, 0x46, 0x47, 0x48, 0x49, 0x4a, 0x53, 0x54, 0x55, 0x56, 0x57, 0x58,
+    0x59, 0x5a, 0x63, 0x64, 0x65, 0x66, 0x67, 0x68, 0x69, 0x6a, 0x73, 0x74,
+    0x75, 0x76, 0x77, 0x78, 0x79, 0x7a, 0x82, 0x83, 0x84, 0x85, 0x86, 0x87,
+    0x88, 0x89, 0x8a, 0x92, 0x93, 0x94, 0x95, 0x96, 0x97, 0x98, 0x99, 0x9a,
+    0xa2, 0xa3, 0xa4, 0xa5, 0xa6, 0xa7, 0xa8, 0xa9, 0xaa, 0xb2, 0xb3, 0xb4,
+    0xb5, 0xb6, 0xb7, 0xb8, 0xb9, 0xba, 0xc2, 0xc3, 0xc4, 0xc5, 0xc6, 0xc7,
+    0xc8, 0xc9, 0xca, 0xd2, 0xd3, 0xd4, 0xd5, 0xd6, 0xd7, 0xd8, 0xd9, 0xda,
+    0xe2, 0xe3, 0xe4, 0xe5, 0xe6, 0xe7, 0xe8, 0xe9, 0xea, 0xf2, 0xf3, 0xf4,
+    0xf5, 0xf6, 0xf7, 0xf8, 0xf9, 0xfa};
+
+struct HuffEnc {
+  const uint8_t* bits;
+  const uint8_t* vals;
+  int nvals;
+  uint16_t code[256];
+  uint8_t size[256];
+
+  HuffEnc(const uint8_t* b, const uint8_t* v, int n) : bits(b), vals(v), nvals(n) {
+    // canonical codes (jpeg_make_c_derived_tbl)
+    std::memset(size, 0, sizeof(size));
+    uint32_t c = 0;
+    int k = 0;
+    for (int len = 1; len <= 16; ++len) {
+      for (int i = 0; i < bits[len - 1]; ++i, ++k) {
+        code[vals[k]] = (uint16_t)c++;
+        size[vals[k]] = (uint8_t)len;
+      }
+      c <<= 1;
+    }
+  }
+};
+
+struct BitWriter {
+  std::vector<uint8_t>& out;
+  uint32_t acc = 0;
+  int nacc = 0;
+
+  explicit BitWriter(std::vector<uint8_t>& o) : out(o) {}
+
+  void byte(uint8_t b) {
+    out.push_back(b);
+    if (b == 0xFF) out.push_back(0);  // byte stuffing
+  }
+  void put(uint32_t v, int n) {
+    if (n == 0) return;
+    acc = (acc << n) | (v & ((1u << n) - 1));
+    nacc += n;
+    while (nacc >= 8) {
+      byte((uint8_t)(acc >> (nacc - 8)));
+      nacc -= 8;
+    }
+    acc &= (1u << nacc) - 1;
+  }
+  void flush() { put(0x7F, 7); acc = 0; nacc = 0; }  // pad with 1-bits
+};
+
+// jfdctint.c's jpeg_fdct_islow: in place, output scaled up by 8
+void fdct_islow(int32_t* d) {
+  for (int r = 0; r < 8; ++r) {
+    int32_t* p = d + 8 * r;
+    int64_t tmp0 = p[0] + p[7], tmp7 = p[0] - p[7];
+    int64_t tmp1 = p[1] + p[6], tmp6 = p[1] - p[6];
+    int64_t tmp2 = p[2] + p[5], tmp5 = p[2] - p[5];
+    int64_t tmp3 = p[3] + p[4], tmp4 = p[3] - p[4];
+    int64_t tmp10 = tmp0 + tmp3, tmp13 = tmp0 - tmp3;
+    int64_t tmp11 = tmp1 + tmp2, tmp12 = tmp1 - tmp2;
+    p[0] = (int32_t)((tmp10 + tmp11) * (1 << PASS1_BITS));
+    p[4] = (int32_t)((tmp10 - tmp11) * (1 << PASS1_BITS));
+    int64_t z1 = (tmp12 + tmp13) * FIX_0_541196100;
+    p[2] = (int32_t)descale(z1 + tmp13 * FIX_0_765366865, CONST_BITS - PASS1_BITS);
+    p[6] = (int32_t)descale(z1 + tmp12 * -FIX_1_847759065, CONST_BITS - PASS1_BITS);
+    z1 = tmp4 + tmp7;
+    int64_t z2 = tmp5 + tmp6, z3 = tmp4 + tmp6, z4 = tmp5 + tmp7;
+    int64_t z5 = (z3 + z4) * FIX_1_175875602;
+    tmp4 *= FIX_0_298631336;
+    tmp5 *= FIX_2_053119869;
+    tmp6 *= FIX_3_072711026;
+    tmp7 *= FIX_1_501321110;
+    z1 *= -FIX_0_899976223;
+    z2 *= -FIX_2_562915447;
+    z3 *= -FIX_1_961570560;
+    z4 *= -FIX_0_390180644;
+    z3 += z5;
+    z4 += z5;
+    p[7] = (int32_t)descale(tmp4 + z1 + z3, CONST_BITS - PASS1_BITS);
+    p[5] = (int32_t)descale(tmp5 + z2 + z4, CONST_BITS - PASS1_BITS);
+    p[3] = (int32_t)descale(tmp6 + z2 + z3, CONST_BITS - PASS1_BITS);
+    p[1] = (int32_t)descale(tmp7 + z1 + z4, CONST_BITS - PASS1_BITS);
+  }
+  for (int c = 0; c < 8; ++c) {
+    int32_t* p = d + c;
+    int64_t tmp0 = p[0] + p[56], tmp7 = p[0] - p[56];
+    int64_t tmp1 = p[8] + p[48], tmp6 = p[8] - p[48];
+    int64_t tmp2 = p[16] + p[40], tmp5 = p[16] - p[40];
+    int64_t tmp3 = p[24] + p[32], tmp4 = p[24] - p[32];
+    int64_t tmp10 = tmp0 + tmp3, tmp13 = tmp0 - tmp3;
+    int64_t tmp11 = tmp1 + tmp2, tmp12 = tmp1 - tmp2;
+    p[0] = (int32_t)descale(tmp10 + tmp11, PASS1_BITS);
+    p[32] = (int32_t)descale(tmp10 - tmp11, PASS1_BITS);
+    int64_t z1 = (tmp12 + tmp13) * FIX_0_541196100;
+    p[16] = (int32_t)descale(z1 + tmp13 * FIX_0_765366865, CONST_BITS + PASS1_BITS);
+    p[48] = (int32_t)descale(z1 + tmp12 * -FIX_1_847759065, CONST_BITS + PASS1_BITS);
+    z1 = tmp4 + tmp7;
+    int64_t z2 = tmp5 + tmp6, z3 = tmp4 + tmp6, z4 = tmp5 + tmp7;
+    int64_t z5 = (z3 + z4) * FIX_1_175875602;
+    tmp4 *= FIX_0_298631336;
+    tmp5 *= FIX_2_053119869;
+    tmp6 *= FIX_3_072711026;
+    tmp7 *= FIX_1_501321110;
+    z1 *= -FIX_0_899976223;
+    z2 *= -FIX_2_562915447;
+    z3 *= -FIX_1_961570560;
+    z4 *= -FIX_0_390180644;
+    z3 += z5;
+    z4 += z5;
+    p[56] = (int32_t)descale(tmp4 + z1 + z3, CONST_BITS + PASS1_BITS);
+    p[40] = (int32_t)descale(tmp5 + z2 + z4, CONST_BITS + PASS1_BITS);
+    p[24] = (int32_t)descale(tmp6 + z2 + z3, CONST_BITS + PASS1_BITS);
+    p[8] = (int32_t)descale(tmp7 + z1 + z4, CONST_BITS + PASS1_BITS);
+  }
+}
+
+// jcparam.c: jpeg_quality_scaling then jpeg_add_quant_table (baseline)
+void scale_quant(const uint8_t* base, int quality, uint16_t* out) {
+  if (quality <= 0) quality = 1;
+  if (quality > 100) quality = 100;
+  int scale = quality < 50 ? 5000 / quality : 200 - quality * 2;
+  for (int i = 0; i < 64; ++i) {
+    long t = ((long)base[i] * scale + 50L) / 100L;
+    if (t <= 0L) t = 1L;
+    if (t > 255L) t = 255L;
+    out[i] = (uint16_t)t;
+  }
+}
+
+// One component plane, edge-replicated to whole blocks, with the
+// coefficients of each of its blocks (natural order, quantised).
+struct Plane {
+  int w = 0, h = 0;  // padded size, multiples of 8
+  std::vector<uint8_t> px;
+  uint8_t at(int y, int x) const { return px[(size_t)y * w + x]; }
+};
+
+void quantize_block(const Plane& p, int by, int bx, const uint16_t* q,
+                    int32_t* coef) {
+  int32_t d[64];
+  for (int y = 0; y < 8; ++y)
+    for (int x = 0; x < 8; ++x) d[8 * y + x] = (int32_t)p.at(8 * by + y, 8 * bx + x) - 128;
+  fdct_islow(d);
+  for (int i = 0; i < 64; ++i) {
+    int32_t qv = (int32_t)q[i] << 3;  // the ISLOW divisors are scaled by 8
+    int32_t t = d[i];
+    coef[i] = t < 0 ? -((-t + (qv >> 1)) / qv) : (t + (qv >> 1)) / qv;
+  }
+}
+
+void encode_block(BitWriter& bw, const int32_t* coef, int32_t& last_dc,
+                  const HuffEnc& dc, const HuffEnc& ac) {
+  int32_t t = coef[0] - last_dc, t2 = t;
+  last_dc = coef[0];
+  if (t < 0) { t = -t; --t2; }
+  int nbits = 0;
+  while (t) { ++nbits; t >>= 1; }
+  bw.put(dc.code[nbits], dc.size[nbits]);
+  bw.put((uint32_t)t2, nbits);
+  int run = 0;
+  for (int k = 1; k < 64; ++k) {
+    int32_t v = coef[kZigzag[k]];
+    if (v == 0) { ++run; continue; }
+    while (run > 15) { bw.put(ac.code[0xF0], ac.size[0xF0]); run -= 16; }
+    int32_t v2 = v;
+    if (v < 0) { v = -v; --v2; }
+    nbits = 1;
+    while ((v >>= 1)) ++nbits;
+    int sym = (run << 4) + nbits;
+    bw.put(ac.code[sym], ac.size[sym]);
+    bw.put((uint32_t)v2, nbits);
+    run = 0;
+  }
+  if (run > 0) bw.put(ac.code[0], ac.size[0]);
+}
+
+void marker(std::vector<uint8_t>& o, uint8_t m, const std::vector<uint8_t>& body) {
+  size_t len = body.size() + 2;
+  o.insert(o.end(), {0xFF, m, (uint8_t)(len >> 8), (uint8_t)(len & 0xFF)});
+  o.insert(o.end(), body.begin(), body.end());
+}
+
+void dht(std::vector<uint8_t>& o, int cls_id, const uint8_t* bits,
+         const uint8_t* vals, int nvals) {
+  std::vector<uint8_t> b{(uint8_t)cls_id};
+  b.insert(b.end(), bits, bits + 16);
+  b.insert(b.end(), vals, vals + nvals);
+  marker(o, 0xC4, b);
+}
+
+std::vector<uint8_t> encode_jpeg(const uint8_t* rgb, int H, int W, int quality) {
+  if (H <= 0 || W <= 0 || H > 65535 || W > 65535)
+    fail(kErrArgs, "JPEG frame size must be 1..65535 on each side");
+  // jccolor.c's rgb_ycc tables: 16 fractional bits, Cb/Cr with 0.5 - eps
+  constexpr int SB = 16;
+  auto fix = [](double x) { return (int32_t)(x * (1L << SB) + 0.5); };
+  const int32_t one_half = 1 << (SB - 1), cbcr_off = 128 << SB;
+  const int32_t ry = fix(0.29900), gy = fix(0.58700), by_ = fix(0.11400);
+  const int32_t rcb = -fix(0.16874), gcb = -fix(0.33126), bcb = fix(0.5);
+  const int32_t gcr = -fix(0.41869), bcr = -fix(0.08131);
+  const int mcu_rows = (H + 15) / 16, mcu_cols = (W + 15) / 16;
+  const int ybw = (W + 7) / 8, ybh = (H + 7) / 8;  // Y blocks in the image
+  // full-resolution Y, Cb, Cr of the image, edge-replicated to whole MCUs
+  const int fw = mcu_cols * 16, fh = mcu_rows * 16;
+  std::vector<uint8_t> Y((size_t)fw * fh), Cb((size_t)fw * fh), Cr((size_t)fw * fh);
+  for (int y = 0; y < fh; ++y) {
+    const uint8_t* row = rgb + (size_t)std::min(y, H - 1) * W * 3;
+    for (int x = 0; x < fw; ++x) {
+      const uint8_t* p = row + (size_t)std::min(x, W - 1) * 3;
+      int32_t r = p[0], g = p[1], b = p[2];
+      size_t i = (size_t)y * fw + x;
+      Y[i] = (uint8_t)((ry * r + gy * g + by_ * b + one_half) >> SB);
+      Cb[i] = (uint8_t)((rcb * r + gcb * g + bcb * b + cbcr_off + one_half - 1) >> SB);
+      Cr[i] = (uint8_t)((bcb * r + gcr * g + bcr * b + cbcr_off + one_half - 1) >> SB);
+    }
+  }
+  Plane py;
+  py.w = fw;
+  py.h = fh;
+  py.px = std::move(Y);
+  // h2v2 downsampling over ceil(H/2) rows, then the last one replicated
+  // down to whole MCU rows (jcprepct.c pads the downsampled rows)
+  Plane pc[2];
+  const int cw = mcu_cols * 8, ch = mcu_rows * 8, crows = (H + 1) / 2;
+  const std::vector<uint8_t>* full[2] = {&Cb, &Cr};
+  for (int c = 0; c < 2; ++c) {
+    pc[c].w = cw;
+    pc[c].h = ch;
+    pc[c].px.resize((size_t)cw * ch);
+    const std::vector<uint8_t>& f = *full[c];
+    for (int y = 0; y < ch; ++y) {
+      int sy = 2 * std::min(y, crows - 1);
+      // the row below the last odd row is the last row replicated
+      int sy1 = std::min(sy + 1, H - 1);
+      for (int x = 0; x < cw; ++x) {
+        int bias = (x & 1) ? 2 : 1;
+        int s = f[(size_t)sy * fw + 2 * x] + f[(size_t)sy * fw + 2 * x + 1] +
+                f[(size_t)sy1 * fw + 2 * x] + f[(size_t)sy1 * fw + 2 * x + 1];
+        pc[c].px[(size_t)y * cw + x] = (uint8_t)((s + bias) >> 2);
+      }
+    }
+  }
+  uint16_t ql[64], qc[64];
+  scale_quant(kStdLumQuant, quality, ql);
+  scale_quant(kStdChromQuant, quality, qc);
+  const HuffEnc dcl(kDcLumBits, kDcVals, 12), dcc(kDcChromBits, kDcVals, 12);
+  const HuffEnc acl(kAcLumBits, kAcLumVals, 162), acc(kAcChromBits, kAcChromVals, 162);
+
+  std::vector<uint8_t> o{0xFF, 0xD8};
+  marker(o, 0xE0, {'J', 'F', 'I', 'F', 0, 1, 1, 0, 0, 1, 0, 1, 0, 0});
+  const uint16_t* qs[2] = {ql, qc};
+  for (int t = 0; t < 2; ++t) {
+    std::vector<uint8_t> b{(uint8_t)t};
+    for (int i = 0; i < 64; ++i) b.push_back((uint8_t)qs[t][kZigzag[i]]);
+    marker(o, 0xDB, b);
+  }
+  marker(o, 0xC0, {8, (uint8_t)(H >> 8), (uint8_t)H, (uint8_t)(W >> 8), (uint8_t)W, 3,
+                   1, 0x22, 0, 2, 0x11, 1, 3, 0x11, 1});
+  dht(o, 0x00, kDcLumBits, kDcVals, 12);
+  dht(o, 0x10, kAcLumBits, kAcLumVals, 162);
+  dht(o, 0x01, kDcChromBits, kDcVals, 12);
+  dht(o, 0x11, kAcChromBits, kAcChromVals, 162);
+  marker(o, 0xDA, {3, 1, 0x00, 2, 0x11, 3, 0x11, 0, 63, 0});
+
+  BitWriter bw(o);
+  int32_t last[3] = {0, 0, 0};
+  int32_t blocks[4][64], coef[64];
+  for (int my = 0; my < mcu_rows; ++my) {
+    for (int mx = 0; mx < mcu_cols; ++mx) {
+      // Y: 2x2 blocks; one past the image's last block column or row is a
+      // dummy (zero AC, the DC of the block before it in the MCU)
+      for (int k = 0; k < 4; ++k) {
+        int bx = 2 * mx + (k & 1), byy = 2 * my + (k >> 1);
+        if (byy >= ybh) {
+          std::memset(blocks[k], 0, sizeof(blocks[k]));
+          blocks[k][0] = blocks[(k >> 1) * 2 - 1][0];
+        } else if (bx >= ybw) {
+          std::memset(blocks[k], 0, sizeof(blocks[k]));
+          blocks[k][0] = blocks[k - 1][0];
+        } else {
+          quantize_block(py, byy, bx, ql, blocks[k]);
+        }
+        encode_block(bw, blocks[k], last[0], dcl, acl);
+      }
+      for (int c = 0; c < 2; ++c) {
+        quantize_block(pc[c], my, mx, qc, coef);
+        encode_block(bw, coef, last[1 + c], dcc, acc);
+      }
+    }
+  }
+  bw.flush();
+  o.push_back(0xFF);
+  o.push_back(0xD9);
+  return o;
+}
+
 int report(const Error& e, char* err, int errlen) {
   if (err && errlen > 0) snprintf(err, (size_t)errlen, "%s", e.msg.c_str());
   return e.code;
@@ -870,5 +1224,28 @@ int thc_png_unfilter(const uint8_t* in, int64_t n, int height,
     return report(e, err, errlen);
   }
 }
+
+
+// Encode (height, width, 3) RGB uint8 as a baseline 4:2:0 JPEG at the IJG
+// quality (1..100); *out is malloc'd, freed by thc_free.
+int thc_jpeg_encode(const uint8_t* rgb, int height, int width, int quality,
+                    uint8_t** out, int64_t* n, char* err, int errlen) {
+  try {
+    *out = nullptr;
+    *n = 0;
+    std::vector<uint8_t> o = encode_jpeg(rgb, height, width, quality);
+    *out = static_cast<uint8_t*>(std::malloc(o.size()));
+    if (!*out) fail(kErrArgs, "out of memory for the JPEG stream");
+    std::memcpy(*out, o.data(), o.size());
+    *n = (int64_t)o.size();
+    return 0;
+  } catch (const Error& e) {
+    return report(e, err, errlen);
+  } catch (const std::exception& e) {
+    return report(Error{kErrFormat, e.what()}, err, errlen);
+  }
+}
+
+void thc_free(void* p) { std::free(p); }
 
 }  // extern "C"

@@ -11,6 +11,11 @@ prelude and no host sync.  Its d_feat is the K3 scatter (kernels/scatter.py),
 K4's adjoint, on the taps the backward recomputes from the saved uv; each
 runs its kernel on the card and its plain twin on the CPU.  Its d_uv is
 plain PyTorch.
+
+``sample_half_pixel`` and ``depth_visibility`` are the depth-map mode's
+vertex visibility (half-pixel, zero-padded sampling of each view's depth
+map at the vertices' projections), plain PyTorch as the JAX package's are
+plain JAX.
 """
 
 from __future__ import annotations
@@ -105,3 +110,49 @@ def sample_feature_map(feat, uv, image_shape):
     for a bf16 map).  Differentiable in feat (K3 on the card) and uv (d_uv
     float32); where no gradient is asked for, nothing is saved."""
     return _SampleFeatureMap.apply(feat, uv, tuple(image_shape))
+
+
+def sample_half_pixel(feat, uv, image_shape):
+    """Bilinear sampling with half-pixel (align_corners=False) and
+    zero-padding semantics: the convention of the reference's depth-map
+    lookup (``get_relative_depth``, if_clight_renderer.py:75-93, which
+    normalises uv / S * 2 - 1 into a default grid_sample).  The JAX
+    package's ``sample_half_pixel``; plain PyTorch on any device.
+
+    feat (V, Hf, Wf, C); uv (V, N, 2) original-image pixels (x, y);
+    image_shape (H_img, W_img) -> (V, N, C).
+    """
+    v, hf, wf, c = feat.shape
+    h_img, w_img = image_shape
+    fx = uv[..., 0] * (wf / w_img) - 0.5
+    fy = uv[..., 1] * (hf / h_img) - 0.5
+    x0, y0 = torch.floor(fx), torch.floor(fy)
+    wx = (fx - x0).to(feat.dtype)[..., None]
+    wy = (fy - y0).to(feat.dtype)[..., None]
+    x0i, y0i = x0.long(), y0.long()
+    flat = feat.reshape(v, hf * wf, c)
+
+    def tap(yi, xi):
+        valid = (yi >= 0) & (yi < hf) & (xi >= 0) & (xi < wf)
+        idx = yi.clamp(0, hf - 1) * wf + xi.clamp(0, wf - 1)
+        vals = torch.gather(flat, 1, idx[..., None].expand(-1, -1, c))
+        return vals * valid[..., None].to(feat.dtype)
+
+    top = tap(y0i, x0i) * (1 - wx) + tap(y0i, x0i + 1) * wx
+    bot = tap(y0i + 1, x0i) * (1 - wx) + tap(y0i + 1, x0i + 1) * wx
+    return top * (1 - wy) + bot * wy
+
+
+def depth_visibility(depth_maps, verts_world, K, R, T, det: float = 0.07):
+    """Vertex visibility from per-view depth maps (the reference's
+    depth_map + depth_vizmap mode, if_clight_renderer.py:75-93,128-133; the
+    JAX package's ``depth_visibility``): a vertex is visible in a view when
+    its camera depth is at most ``det`` behind the surface depth sampled at
+    its projection.
+
+    depth_maps (V, Hd, Wd); verts_world (Nv, 3) -> (V, Nv) float32 {0, 1}.
+    """
+    uv, z = project_points(verts_world, K, R, T)
+    hd, wd = depth_maps.shape[1:3]
+    surf = sample_half_pixel(depth_maps[..., None], uv, (hd, wd))[..., 0]
+    return (z <= surf + det).float()

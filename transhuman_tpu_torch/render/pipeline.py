@@ -2,8 +2,10 @@
 compositing (counterpart of transhuman_tpu/render/pipeline.py).
 
 * ``prologue``, once per frame: encode the V input views, project the SMPL
-  vertices into each, sample the holder map there, mask by visibility,
-  mean-pool into cluster tokens and refine them with TransHE.
+  vertices into each, sample the holder map there, mask by visibility (the
+  frame's vizmaps, or with its depth_maps ``depth_visibility``: a vertex
+  within 0.07 m behind each view's surface), mean-pool into cluster tokens
+  and refine them with TransHE.
 * ``render_frame``: sample every ray, then per chunk of ``chunk_rays`` rays
   cull the points farther than ``cull_distance`` from the target-pose body
   (kernel K1 on the card), decode only the survivors (pixel-feature fetch,
@@ -54,7 +56,8 @@ from torch.utils.checkpoint import checkpoint
 from ..geometry.clusters import ClusterSpec, normalize_positions
 from ..kernels.cull import radii_cull, shell_cull
 from ..models.embedder import embed_viewdir
-from ..ops.sampling import project_points, sample_feature_map
+from ..ops.sampling import (depth_visibility, project_points,
+                             sample_feature_map)
 from ..weights import reference_pe_table
 from .volume import composite, sample_along_rays
 
@@ -90,6 +93,9 @@ class FrameInputs(_TensorFields):
     blend_rot: torch.Tensor  # (Nv, 3, 3) rotation blocks of blend matrices
     Rh: torch.Tensor  # (3, 3) target world -> SMPL rotation
     Th: torch.Tensor  # (3,) target world -> SMPL translation
+    # per-view depth maps (depth_map with depth_vizmap): the prologue takes
+    # the vertex visibility from them in place of vizmaps
+    depth_maps: Optional[torch.Tensor] = None  # (V, Hd, Wd) float32
     # the transform_can_smpl augmentation (data/aug.py): set on training
     # frames when rot_ratio > 0, all three or none; eval frames carry none
     aug_center: Optional[torch.Tensor] = None  # (3,)
@@ -226,7 +232,11 @@ class RenderPipeline:
                                  if maps is None else maps)
         uv = self.fetch_uv(frame, frame.verts_world)
         latent = sample_feature_map(holder_map, uv, frame.images.shape[1:3])
-        holder = latent * frame.vizmaps[..., None].to(latent.dtype)
+        vizmaps = frame.vizmaps
+        if frame.depth_maps is not None:
+            vizmaps = depth_visibility(frame.depth_maps, frame.verts_world,
+                                       frame.K, frame.R, frame.T)
+        holder = latent * vizmaps[..., None].to(latent.dtype)
         tokens = self.model.refine_tokens(self.pool.to(latent.dtype) @ holder,
                                           self.pe_can)
         centers = self.pool @ frame.tar_verts_smpl

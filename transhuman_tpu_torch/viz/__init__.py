@@ -1,1 +1,2 @@
-"""Free-viewpoint frame writing."""
+"""Free-viewpoint frame writing, MJPG/AVI video assembly and the mesh
+rasterizer."""
