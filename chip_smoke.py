@@ -116,7 +116,22 @@ i. visibility from depth maps (depth_map True, depth_vizmap True): depth
    train step (train.cull True), counters reset and read around each: K1,
    K2 and K4 launched on each, K3 in the step.
 
-Every visualize run (phases 9, c, g, i) also writes one MJPG/AVI per
+Then data parallelism across processes, each command ``python -m
+torch.distributed.run --standalone --nproc_per_node N -m
+transhuman_tpu_torch.cli.{train,run}`` with a timeout, every rank printing
+its own step times, gradient all-reduce and kernel launches (two ranks
+sharing the one card over gloo measure the wiring, not scaling):
+
+j1. the train entry point over 2 ranks (gloo) at full width, one sample a
+   rank: one float32 step against this process's step on both samples
+   (phase 6's bounds), then 4 bf16 steps with train.cull, K1, K2, K4 and
+   K3 launched on each rank; j2. one rank over NCCL, 2 bf16 steps and its
+   saves; j3. the run entry point over 2 ranks on j1's checkpoint:
+   evaluate 3 frames (2 + 1) against one process (phase 8's per-frame
+   bounds), visualize into one AVI assembled once, reconstruct 2 frames at
+   0.005 m, one per rank, each PLY the one-process one.
+
+Every visualize run (phases 9, c, g, i, j3) also writes one MJPG/AVI per
 human, parsed here: one JPEG frame per PNG.  Phase 11 also times the C++
 marching the command took against the numpy route on the same cube (the
 same sorted vertex set within 1e-6 grid units, the same triangle count),
@@ -134,7 +149,9 @@ import dataclasses
 import io
 import json
 import os
+import re
 import shutil
+import signal
 import subprocess
 import sys
 import tempfile
@@ -1346,6 +1363,44 @@ def _parity_step(cfg, dev: str):
     return (stats, p0, *_grads_and_update(state, p0))
 
 
+def f32_step_gaps(what: str, gg, gc, dg, dc, p0, lr):
+    """Phase 6's float32 bounds on a step g against a reference step c
+    from the same weights p0 (gradients gg/gc and updates dg/dc by name):
+    each gradient leaf within 1e-3 of its norm plus 1e-5 of the largest
+    leaf's, Adam's first update within 0.01 lr where the gradient's sign is
+    sure and 2 lr anywhere.  Returns ((error / tolerance, leaf) worst
+    first, the largest relative leaf error above the floor, the update
+    errors beyond rounding where sure and anywhere)."""
+    gmax = max(float(gc[n].norm()) for n in gc)
+    # per leaf, relative to its norm, with a floor of 1e-5 of the largest
+    # leaf's norm: some leaves' gradients vanish in exact arithmetic (the
+    # pixel keys' bias: a constant shift of every key under the softmax over
+    # the keys) and hold float32 noise that differs between the two devices
+    rel = sorted(((float((gg[n] - gc[n]).norm())
+                   / (1e-3 * float(gc[n].norm()) + 1e-5 * gmax), n)
+                  for n in gc), reverse=True)
+    gerr = max(float((gg[n] - gc[n]).norm() / gc[n].norm()) for n in gc
+               if float(gc[n].norm()) > 1e-5 * gmax)
+    check(rel[0][0] <= 1.0, f"{what}: gradients differ beyond "
+          f"tolerance: {rel[:3]} (error / tolerance, leaf)")
+    worst_tight = worst = 0.0
+    for n in gc:
+        d = (dg[n] - dc[n]).abs()
+        slack = 2 * lr * 1e-3 + 2 * torch.finfo(torch.float32).eps * (
+            p0[n].abs() + 1)
+        # Adam's first update is -lr g / (|g| + 1e-8): +-lr wherever the
+        # sign of g is sure; elsewhere anywhere in [-lr, lr]
+        sure = (gc[n].abs() > 1e-6) & ((gg[n] - gc[n]).abs()
+                                       < 0.5 * gc[n].abs())
+        worst_tight = max(worst_tight, float((d - slack)[sure].max()
+                                             if sure.any() else 0.0))
+        worst = max(worst, float((d - slack).max()))
+    check(worst_tight <= 0.01 * lr and worst <= 2 * lr,
+          f"{what}: updates differ by {worst_tight} (sure sign) / "
+          f"{worst} (all) at lr {lr}")
+    return rel, gerr, worst_tight, worst
+
+
 def phase_train_parity(card: str, dtype: str = "float32", ref=None,
                        lpips: str = "", extra=(), card_out=None):
     """One train step at 64x64 (full-width model, 2 patches of 10x10 rays x
@@ -1415,32 +1470,8 @@ def phase_train_parity(card: str, dtype: str = "float32", ref=None,
         return sc, gc, dc
     # float32 on both; sums in other orders, K2/K3 vs the plain versions
     check(lerr <= 1e-4, f"train parity: loss {sg['loss']} vs {sc['loss']}")
-    # per leaf, relative to its norm, with a floor of 1e-5 of the largest
-    # leaf's norm: some leaves' gradients vanish in exact arithmetic (the
-    # pixel keys' bias: a constant shift of every key under the softmax over
-    # the keys) and hold float32 noise that differs between the two devices
-    rel = sorted(((float((gg[n] - gc[n]).norm())
-                   / (1e-3 * float(gc[n].norm()) + 1e-5 * gmax), n)
-                  for n in gc), reverse=True)
-    gerr = max(float((gg[n] - gc[n]).norm() / gc[n].norm()) for n in gc
-               if float(gc[n].norm()) > 1e-5 * gmax)
-    check(rel[0][0] <= 1.0, f"train parity: gradients differ beyond "
-          f"tolerance: {rel[:3]} (error / tolerance, leaf)")
-    worst_tight = worst = 0.0
-    for n in gc:
-        d = (dg[n] - dc[n]).abs()
-        slack = 2 * lr * 1e-3 + 2 * torch.finfo(torch.float32).eps * (
-            p0c[n].abs() + 1)
-        # Adam's first update is -lr g / (|g| + 1e-8): +-lr wherever the
-        # sign of g is sure; elsewhere anywhere in [-lr, lr]
-        sure = (gc[n].abs() > 1e-6) & ((gg[n] - gc[n]).abs()
-                                       < 0.5 * gc[n].abs())
-        worst_tight = max(worst_tight, float((d - slack)[sure].max()
-                                             if sure.any() else 0.0))
-        worst = max(worst, float((d - slack).max()))
-    check(worst_tight <= 0.01 * lr and worst <= 2 * lr,
-          f"train parity: updates differ by {worst_tight} (sure sign) / "
-          f"{worst} (all) at lr {lr}")
+    rel, gerr, worst_tight, worst = f32_step_gaps("train parity", gg, gc, dg,
+                                                  dc, p0c, lr)
     log(f"[{'h2' if extra else 'd' if lpips else '6'} train parity] 64x64 "
         f"full-width step"
         f"{tag}, CUDA vs CPU: loss {sg['loss']:.7g} vs {sc['loss']:.7g} (rel {lerr:.3g}); max "
@@ -2315,8 +2346,8 @@ def phase_train_cfg(card: str, tmp: str, files: dict, dtype: str):
             np.transpose(z["conv1/kernel"], (3, 2, 0, 1))))
     build, seen = train_cli.build_trainer, {}
 
-    def checked(cfg, device, dataset=None, ckpt=None):
-        out = build(cfg, device, dataset, ckpt)
+    def checked(cfg, device, dataset=None, ckpt=None, mesh=None):
+        out = build(cfg, device, dataset, ckpt, mesh)
         if ckpt is None:  # before the first step of the fresh run
             seen["conv1"] = torch.equal(
                 out[0].model.encoder.model.conv1.weight.detach().cpu(),
@@ -3448,6 +3479,298 @@ def phase_train_zju_batch(card: str, tmp: str, root: str,
     return {"train_zju_b2_bf16": counts}
 
 
+# ------------------------------------- data parallelism across processes
+ROOT = os.path.dirname(os.path.abspath(__file__))
+J_TIMEOUT = 300  # s for one torchrun command, its ranks' start included
+J_STEPS = 4  # bf16 steps of phase j1's culled run
+J_EVAL_FRAMES = ("test.frame_interval", "3")  # frames 0, 3, 6: ranks 2 + 1
+J_RECON_FRAMES = ("test.frame_interval", "4")  # frames 0, 4: one per rank
+J_MESH_TH = "5"  # below a 1-step model's sigma of ~10: the cull's shell
+
+
+def torchrun(what: str, nproc: int, module: str, argv, backend="gloo"):
+    """``python -m torch.distributed.run --standalone --nproc_per_node
+    nproc -m module --dist_backend backend argv`` from the checkout's root,
+    in a session of its own that is killed whole at J_TIMEOUT or once it
+    ends; fails unless it exits 0 and every rank printed its rank report.
+    Returns (its output, the reports in rank order, its seconds)."""
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc_per_node", str(nproc), "-m", module, "--dist_backend",
+           backend, *argv]
+    env = dict(os.environ, PYTHONPATH=ROOT, OMP_NUM_THREADS="2")
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd, cwd=ROOT, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True,
+                            start_new_session=True)
+    timed_out = False
+    try:
+        out = proc.communicate(timeout=J_TIMEOUT)[0]
+    except subprocess.TimeoutExpired:
+        timed_out = True
+        os.killpg(proc.pid, signal.SIGKILL)
+        out = proc.communicate()[0]
+    finally:
+        try:  # nothing the command started outlives it
+            os.killpg(proc.pid, signal.SIGKILL)
+        except ProcessLookupError:
+            pass
+    secs = time.perf_counter() - t0
+    check(not timed_out and proc.returncode == 0,
+          f"{what}: {' '.join(cmd[1:])} "
+          f"{'timed out' if timed_out else f'exited {proc.returncode}'} "
+          f"after {secs:.1f} s:\n{out[-6000:]}")
+    reports = sorted((json.loads(m) for m in re.findall(
+        r"^rank report: (\{.*\})$", out, re.M)), key=lambda r: r["rank"])
+    check([(r["rank"], r["world"]) for r in reports]
+          == [(r, nproc) for r in range(nproc)],
+          f"{what}: rank reports {reports}\n{out[-3000:]}")
+    return out, reports, secs
+
+
+def _summed(reports) -> dict:
+    return {k: sum(r["launches"][k] for r in reports)
+            for k in reports[0]["launches"]}
+
+
+def _adam_step(path: str):
+    """(weights by name, gradients by parameter index) of a one-step
+    checkpoint, on the CPU: a first Adam step's gradient is its first
+    moment / (1 - beta1)."""
+    blob = torch.load(path, map_location="cpu", weights_only=False)
+    state = blob["optim"]["state"]
+    params = blob["optim"]["param_groups"][0]["params"]
+    return blob["net"], {i: state[i]["exp_avg"] / 0.1
+                         for i in params if i in state}
+
+
+def phase_dp_train(card: str, tmp: str):
+    """j1. The train entry point over 2 ranks on the one card (torchrun,
+    --dist_backend gloo, which lets ranks share a card), full width
+    (phase 7's Config() defaults), train.batch_size 1 per rank from the
+    seeded weights: one float32 step against this process's one-process
+    step at train.batch_size 2 on the same samples and seeds (loss ≤ 1e-4
+    relative, phase 6's gradient and update bounds; the gradients from
+    each checkpoint's Adam moment), then J_STEPS bf16 steps with
+    train.cull, K1, K2, K4 and K3 launched on each rank.  j2. One rank over
+    NCCL (the default backend), 2 bf16 steps: the NCCL group, the card's
+    gradient all-reduce and rank 0's saves.  Two ranks on one card measure
+    the wiring, not the scaling.  Returns ({path: launches}, the float32
+    2-rank checkpoint)."""
+    from transhuman_tpu_torch.cli import train as train_cli
+    from transhuman_tpu_torch.config import Config
+    from transhuman_tpu_torch.models.network import TransHumanNet
+    from transhuman_tpu_torch.testing import init_weights
+
+    module = "transhuman_tpu_torch.cli.train"
+    run = os.path.join(tmp, "j")
+
+    def opts(tag, steps, *extra):
+        """The flags, then the config overrides, of one run."""
+        return ["--device", "cuda", "--steps", str(steps), "dataset",
+                "synthetic", "ep_iter", str(steps), "train.epoch", "1",
+                "trained_model_dir", os.path.join(run, tag, "tm"),
+                "record_dir", os.path.join(run, tag, "rec"), "result_dir",
+                os.path.join(run, tag, "res"), *extra]
+
+    dp_ckpt, one_ckpt = (os.path.join(run, f"{t}.pth") for t in ("dp", "one"))
+    torch.cuda.empty_cache()
+    out, reps, secs = torchrun("j1 float32", 2, module, [
+        "--out", dp_ckpt, *opts("dp", 1, "train.batch_size", "1")])
+    check("shared round-robin over gloo" in out,
+          f"j1: the ranks did not say they share the card:\n{out[-2000:]}")
+    _, recs = train_cli.main(["--out", one_ckpt, *opts(
+        "one", 1, "train.batch_size", "2")])
+    torch.cuda.empty_cache()
+    cfg = Config().merge_opts(["dataset", "synthetic"])
+    net = init_weights(TransHumanNet.from_config(cfg),
+                       torch.Generator().manual_seed(cfg.seed))
+    p0 = {n: p.detach().clone() for n, p in net.named_parameters()}
+    (w_dp, m_dp), (w_one, m_one) = map(_adam_step, (dp_ckpt, one_ckpt))
+    names = list(p0)
+    g_dp = {names[i]: g for i, g in m_dp.items()}
+    g_one = {names[i]: g for i, g in m_one.items()}
+    check(set(g_one) == set(names) - UNREAD_PARAMS and set(g_one) <= set(g_dp),
+          "j1: the parameters with a gradient differ")
+    d_dp = {n: w_dp[n] - p0[n] for n in g_one}
+    d_one = {n: w_one[n] - p0[n] for n in g_one}
+    loss_dp, loss_one = reps[0]["loss"][0], recs[0]["loss"]
+    check(reps[1]["loss"] == reps[0]["loss"], f"j1: the ranks' losses differ "
+          f"{[r['loss'] for r in reps]}")
+    lerr = abs(loss_dp - loss_one) / loss_one
+    check(lerr <= 1e-4, f"j1: loss {loss_dp} over 2 ranks vs {loss_one}")
+    rel, gerr, wt, w = f32_step_gaps("j1 2-rank step vs 1 process", g_dp,
+                                     g_one, d_dp, d_one, p0, recs[0]["lr"])
+    log(f"[j1 dp train] full width, float32, 2 ranks x train.batch_size 1 "
+        f"(gloo, sharing the card) vs 1 process x 2: loss {loss_dp:.7g} vs "
+        f"{loss_one:.7g} (rel {lerr:.3g}); max gradient err {gerr:.3g} of "
+        f"its leaf's norm; worst error/tolerance {rel[0][0]:.3g} "
+        f"({rel[0][1]}); update err beyond rounding {wt:.3g} where the "
+        f"sign is sure, {w:.3g} anywhere; torchrun {secs:.1f} s; per-rank "
+        f"step ms {[round(r['step_ms'][0], 1) for r in reps]}; gradient "
+        f"all-reduce {[round(r['grad_allreduce_ms'][0], 2) for r in reps]} "
+        f"ms of {reps[0]['grad_allreduce_mb']:.2f} MB (the first step)  "
+        f"[{card}]")
+
+    f = forms("bfloat16")
+    bf16 = ("compute_dtype", "bfloat16", "train.batch_size", "1")
+    out, reps16, secs16 = torchrun("j1 bf16", 2, module, opts(
+        "bf16", J_STEPS, "train.cull", "True", *bf16))
+    for r in reps16:
+        check(len(r["loss"]) == J_STEPS and np.isfinite(r["loss"]).all(),
+              f"j1 bf16 rank {r['rank']}: losses {r['loss']}")
+        check(r["launches"]["min_excess2"] == J_STEPS, f"j1 bf16 rank "
+              f"{r['rank']}: K1 launched {r['launches']['min_excess2']} "
+              f"times, want {J_STEPS}")
+        check_launches(f"j1 bf16 rank {r['rank']}", r["launches"], {
+            "min_excess2": J_STEPS, f["dparf"]: J_STEPS,
+            f["fetch"]: 2 * J_STEPS, f["scatter"]: 2 * J_STEPS})
+    check(reps16[0]["loss"] == reps16[1]["loss"], "j1 bf16: the ranks' "
+          "losses differ")
+
+    def steps(r):
+        return ", ".join(f"{x:.1f}" for x in r["step_ms"])
+
+    def reduce_ms(r):
+        return ", ".join(f"{x:.2f}" for x in r["grad_allreduce_ms"])
+
+    log(f"[j1 dp train bf16] full width, bf16, train.cull, 2 ranks x "
+        f"train.batch_size 1 sharing the card (gloo), {J_STEPS} steps in "
+        f"{secs16:.1f} s of torchrun: " + "; ".join(
+            f"rank {r['rank']} step ms {steps(r)}, gradient all-reduce ms "
+            f"{reduce_ms(r)}" for r in reps16)
+        + f"; {reps16[0]['grad_allreduce_mb']:.2f} MB a step; launches per "
+        f"rank {[r['launches'] for r in reps16]}; losses "
+        f"{', '.join(f'{x:.4f}' for x in reps16[0]['loss'])}; two ranks on "
+        f"one card measure the wiring, not scaling  [{card}]")
+
+    nccl_ckpt = os.path.join(run, "nccl.pth")
+    out, reps2, secs2 = torchrun("j2 nccl", 1, module, [
+        "--out", nccl_ckpt, *opts("nccl", 2, *bf16)],
+        backend="nccl")
+    (r2,) = reps2
+    latest = os.path.join(run, "nccl", "tm", "transhuman", "transhuman_tpu",
+                          "latest.pth")
+    blob = torch.load(nccl_ckpt, map_location="cpu", weights_only=False)
+    check(os.path.isfile(latest) and blob["step"] == 2, f"j2: checkpoints "
+          f"{latest} (exists {os.path.isfile(latest)}), step {blob['step']}")
+    check(len(r2["loss"]) == 2 and np.isfinite(r2["loss"]).all(),
+          f"j2: losses {r2['loss']}")
+    check_launches("j2 nccl", r2["launches"], {
+        f["dparf"]: 2, f["fetch"]: 4, f["scatter"]: 4})
+    log(f"[j2 nccl] full width, bf16, 1 rank over NCCL (the default "
+        f"backend), 2 steps in {secs2:.1f} s of torchrun: step ms "
+        f"{steps(r2)}; gradient all-reduce ms {reduce_ms(r2)} of "
+        f"{r2['grad_allreduce_mb']:.2f} MB on the card; rank 0 wrote "
+        f"latest.pth and --out  [{card}]")
+    return ({"dp_train": _summed(reps16), "dp_train_nccl": r2["launches"]},
+            dp_ckpt)
+
+
+def phase_sharded_eval(card: str, tmp: str, ckpt: str) -> dict:
+    """j3. The run entry point over 2 ranks on the one card (gloo) on
+    phase j1's 2-rank checkpoint, full width: --type evaluate of 3 frames
+    (rank 0 two, rank 1 one) against a one-process evaluate of the same
+    frames in this process (the .npy files in the same order, per-frame
+    PSNR within 0.05 dB and SSIM 2e-3, every rank printing that summary);
+    --type visualize, one AVI of every frame assembled once; --type
+    reconstruction of 2 frames at RECON_VOXEL, one per rank, each PLY the
+    one-process PLY of its frame.  Returns {path: launches}."""
+    from transhuman_tpu_torch.cli import run as run_cli
+    from transhuman_tpu_torch.mesh_ops.ply import load_ply
+
+    module = "transhuman_tpu_torch.cli.run"
+    run = os.path.join(tmp, "j3")
+    base = ["--device", "cuda", "--weights", ckpt, "dataset", "synthetic",
+            "trained_model_dir", os.path.join(run, "tm"), "record_dir",
+            os.path.join(run, "rec")]
+    res = {n: os.path.join(run, f"res{n}") for n in (1, 2)}
+    out_dir = {n: os.path.join(r, "epoch_-1", "debug")
+               for n, r in res.items()}
+    torch.cuda.empty_cache()
+    out, reps, secs = torchrun("j3 evaluate", 2, module, [
+        "--type", "evaluate", *base, "result_dir", res[2], *J_EVAL_FRAMES])
+    check([r["frames"] for r in reps] == [2, 1], f"j3 evaluate: frames per "
+          f"rank {[r['frames'] for r in reps]}")
+    f = forms("float32")
+    for r in reps:
+        check_launches(f"j3 evaluate rank {r['rank']}", r["launches"], {
+            "min_excess2": 1, f["dparf"]: 1, f["fetch"]: 1})
+    # each rank prints the summary dict (the ranks' lines may interleave)
+    summaries = re.findall(r"\{'experiment'[^}]*\}", out)
+    check(len(summaries) == 2 and summaries[0] == summaries[1],
+          f"j3 evaluate: the ranks' summaries {summaries}")
+    timing = {}
+    run_eval = run_cli.run_evaluate
+
+    def timed(*args, **kwargs):
+        t = time.perf_counter()
+        try:
+            return run_eval(*args, **kwargs)
+        finally:
+            timing["s"] = time.perf_counter() - t
+
+    run_cli.run_evaluate = timed
+    try:
+        one = run_cli.main(["--type", "evaluate", *base, "result_dir",
+                            res[1], *J_EVAL_FRAMES])
+    finally:
+        run_cli.run_evaluate = run_eval
+    gaps = {}
+    for name in ("mse", "psnr", "ssim"):
+        a, b = (np.load(os.path.join(out_dir[n], f"{name}.npy"))
+                for n in (1, 2))
+        check(a.shape == b.shape == (3,), f"j3 evaluate: {name} {a} vs {b}")
+        gaps[name] = float(np.abs(a - b).max())
+    check(gaps["psnr"] <= 0.05 and gaps["ssim"] <= 2e-3, f"j3 evaluate: "
+          f"2 ranks vs 1 process, largest per-frame gaps {gaps}")
+    check(os.path.isfile(os.path.join(out_dir[2], "summary.txt")),
+          "j3 evaluate: no summary.txt")
+    s2 = max(r["seconds"] for r in reps) / 3
+    log(f"[j3 sharded eval] full width, 512x512, 3 frames over 2 ranks "
+        f"sharing the card (2 + 1) vs 1 process: per-frame gaps (the .npy "
+        f"files in frame order; the synthetic frames are alike) mse "
+        f"{gaps['mse']:.3g}, psnr {gaps['psnr']:.3g} dB, ssim "
+        f"{gaps['ssim']:.3g}; psnr {one['psnr']:.4f}; eval s per frame "
+        f"{s2:.3f} on 2 ranks (the slower rank's loop / 3) vs "
+        f"{timing['s'] / 3:.3f} in 1 process; torchrun {secs:.1f} s; "
+        f"launches per rank {[r['launches'] for r in reps]}  [{card}]")
+
+    out, reps_v, secs_v = torchrun("j3 visualize", 2, module, [
+        "--type", "visualize", *base, "result_dir", res[2]])
+    n_frames = sum(r["frames"] for r in reps_v)
+    avi = os.path.join(out_dir[2], "perform", "synthetic.avi")
+    check(out.count("video: ") == 1 and len(avi_frames(avi)) == n_frames,
+          f"j3 visualize: {out.count('video: ')} videos assembled, "
+          f"{avi}: {len(avi_frames(avi))} frames of {n_frames}")
+    log(f"[j3 sharded visualize] {n_frames} frames over 2 ranks "
+        f"({[r['frames'] for r in reps_v]}), one AVI of {n_frames} frames "
+        f"assembled by rank 0; torchrun {secs_v:.1f} s  [{card}]")
+
+    vs = f"{RECON_VOXEL},{RECON_VOXEL},{RECON_VOXEL}"
+    recon = ["--type", "reconstruction", *base, *J_RECON_FRAMES,
+             "voxel_size", vs, "mesh_th", J_MESH_TH]
+    out, reps_r, secs_r = torchrun("j3 reconstruction", 2, module, [
+        *recon, "result_dir", res[2]])
+    check([r["frames"] for r in reps_r] == [1, 1],
+          f"j3 reconstruction: frames per rank {reps_r}")
+    paths = run_cli.main([*recon, "result_dir", res[1]])
+    same = []
+    for p1 in paths:
+        p2 = os.path.join(out_dir[2], "mesh", os.path.basename(p1))
+        (v1, t1), (v2, t2) = load_ply(p1), load_ply(p2)
+        check(len(v1) > 0 and v1.shape == v2.shape and np.array_equal(t1, t2)
+              and float(np.abs(v1 - v2).max()) <= 1e-6, f"j3 reconstruction: "
+              f"{p2} ({len(v2)} verts) is not the 1-process {p1} "
+              f"({len(v1)} verts)")
+        with open(p1, "rb") as a, open(p2, "rb") as b:
+            same.append(a.read() == b.read())
+    log(f"[j3 sharded reconstruction] 2 frames at {RECON_VOXEL} m, one per "
+        f"rank, mesh_th {J_MESH_TH}: each PLY the 1-process one (byte for "
+        f"byte: {same}); torchrun {secs_r:.1f} s; launches per rank "
+        f"{[r['launches'] for r in reps_r]}  [{card}]")
+    return {"sharded_eval": _summed(reps)}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing ran", file=sys.stderr)
@@ -3507,6 +3830,13 @@ def main() -> int:
         by_path.update(h3_paths)
         by_path.update(phase_radii(card, tmp, ckpt_b4))
         by_path.update(phase_train_zju_batch(card, tmp, zju_root, files))
+        # data parallelism: train over ranks, then evaluate, visualize and
+        # reconstruct with the frames split between them
+        t_j = time.perf_counter()
+        j_paths, dp_ckpt = phase_dp_train(card, tmp)
+        by_path.update(j_paths)
+        by_path.update(phase_sharded_eval(card, tmp, dp_ckpt))
+        log(f"[j] phase j in {time.perf_counter() - t_j:.1f} s")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     for k in kernels:

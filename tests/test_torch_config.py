@@ -238,6 +238,22 @@ def test_tpu_only_keys_warn_and_are_kept(capsys):
     assert "steers" not in capsys.readouterr().err
 
 
+def test_mesh_axis_data_is_honoured_and_the_other_mesh_axes_warn(capsys):
+    """mesh_axis_data sizes the port's data-parallel mesh (checked against
+    the world size by parallel.make_mesh) and merges without a warning;
+    mesh_axis_rays and mesh_axis_model still steer the TPU package only."""
+    assert tconfig.KEY_CLASSES["mesh_axis_data"] == "honoured"
+    assert "mesh_axis_data" not in tconfig.TPU_ONLY_KEYS
+    cfg = Config().merge_opts(["mesh_axis_data", "2"])
+    assert cfg.mesh_axis_data == 2
+    assert "steers" not in capsys.readouterr().err
+    for key in ("mesh_axis_rays", "mesh_axis_model"):
+        assert tconfig.KEY_CLASSES[key] == "tpu_only"
+        Config().merge_opts([key, "2"])
+        assert f"'{key}' steers the TPU package only" in \
+            capsys.readouterr().err
+
+
 SMALL = ["dataset", "synthetic", "H", "64", "W", "64", "num_class", "20",
          "vit_depth", "1", "N_samples", "8", "patch.size", "6",
          "patch.N_patches", "2"]

@@ -183,6 +183,8 @@ NEW_MODULES = {
     "transhuman_tpu_torch.native.build", "transhuman_tpu_torch.viz.avi",
     "transhuman_tpu_torch.viz.video", "transhuman_tpu_torch.viz.mesh_render",
     "transhuman_tpu_torch.tools.render_mesh_video",
+    "transhuman_tpu_torch.parallel", "transhuman_tpu_torch.parallel.mesh",
+    "transhuman_tpu_torch.utils.filelock",
 }
 
 

@@ -43,6 +43,11 @@ def parse_args(argv=None, need_type: bool = False, allow_test: bool = False,
     p = argparse.ArgumentParser(prog=prog)
     p.add_argument("--device", default="cuda",
                    help="cuda (the default; fails without a card) or cpu")
+    p.add_argument("--dist_backend", default="nccl",
+                   choices=["nccl", "gloo"],
+                   help="under torchrun: the process group's backend (gloo "
+                        "lets several ranks share a card; --device cpu "
+                        "always uses gloo)")
     p.add_argument("--weights", default=None,
                    help="a checkpoint: the port's .pth or the JAX package's "
                         ".ckpt (default: the latest in <trained_model_dir>/"
@@ -73,21 +78,67 @@ def seed_everything(seed: int):
     torch.manual_seed(seed)
 
 
-def configure_device(name: str) -> torch.device:
+def configure_device(name: str, dist_backend: str = "nccl") -> torch.device:
     """The device an entry point runs on.  For a card: fail without one,
     and take float32 products and convolutions in full float32 (TF32 off;
     cuDNN convolutions default to TF32) and bf16 products with float32
     accumulation (cuBLAS may otherwise reduce them in bf16, which XLA does
-    not)."""
+    not).  Under torchrun (LOCAL_RANK set) a rank takes card LOCAL_RANK
+    and makes it current; more local ranks than cards is an error with the
+    counts, unless dist_backend is gloo, where the ranks share the cards
+    round-robin and say so (NCCL refuses two ranks on one card)."""
     device = torch.device(name)
     if device.type == "cuda":
         if not torch.cuda.is_available():
             raise SystemExit("--device cuda, but no CUDA device is available")
+        if "LOCAL_RANK" in os.environ and device.index is None:
+            local = int(os.environ["LOCAL_RANK"])
+            n_local = int(os.environ.get("LOCAL_WORLD_SIZE", local + 1))
+            cards = torch.cuda.device_count()
+            if n_local > cards:
+                if dist_backend != "gloo":
+                    raise SystemExit(
+                        f"{n_local} local ranks but {cards} CUDA card(s): "
+                        f"{dist_backend} runs one rank per card; launch at "
+                        f"most {cards} ranks per node, or pass "
+                        "--dist_backend gloo to share the cards")
+                print(f"local rank {local} of {n_local}: {cards} card(s) "
+                      f"shared round-robin over gloo; this rank on cuda:"
+                      f"{local % cards}", flush=True)
+            device = torch.device("cuda", local % cards)
+            torch.cuda.set_device(device)
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
         torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = (
             False)
     return device
+
+
+def maybe_init_distributed(args, device) -> bool:
+    """Join the process group torchrun describes (nothing outside
+    torchrun): over args.dist_backend on a card, over gloo on the CPU.
+    True when this call made the group (the caller then leaves it with
+    parallel.shutdown)."""
+    from ..parallel.mesh import init_distributed
+
+    backend = "gloo" if device.type == "cpu" else args.dist_backend
+    return init_distributed(backend)
+
+
+def rank_report(mesh, **fields) -> None:
+    """One JSON line of a rank's own numbers (its rank, the world size,
+    the kernel launches it made, and ``fields``), after a distributed
+    run."""
+    import json
+
+    from .. import kernels
+
+    line = "rank report: " + json.dumps({
+        "rank": mesh.rank, "world": mesh.size, **fields,
+        "launches": kernels.launch_counts()})
+    # one write, so that ranks sharing a terminal do not interleave it
+    sys.stdout.write(line + "\n")
+    sys.stdout.flush()
 
 
 def load_smpl(cfg: Config) -> SMPLModel:

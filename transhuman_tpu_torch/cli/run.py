@@ -36,17 +36,38 @@ compaction (``torch.nonzero``), so ``dispatch`` returns only when the last
 chunk's work is queued: host work placed after it overlaps that tail and
 no more.  The loops here therefore render, fetch and evaluate each frame in
 turn; only the loader's eval rays run beside the render.
+
+Under torchrun (``python -m torch.distributed.run --nproc_per_node N -m
+transhuman_tpu_torch.cli.run --type ... [--dist_backend nccl|gloo]``) the
+frames are split between the ranks, as the JAX CLI splits them between its
+processes: rank r takes frames r, r + N, ... of the FrameSampler sequence.
+``evaluate`` gathers the per-frame metrics back in the single-process order,
+so every rank prints the single-process summary, and rank 0 alone writes
+the ``.npy`` files and ``summary.txt``; ``visualize`` waits for every
+rank's PNGs, then rank 0 assembles each human's AVI; ``reconstruction``
+writes each rank's own PLYs.  No collective runs inside the model here.
+Each rank prints one ``rank report`` line at the end (its frames, the
+seconds they took, its kernel launches).
 """
 
 from __future__ import annotations
 
 import os
 import sys
+import time
 
 import numpy as np
 import torch
 
 from ..data.loader import Loader
+from ..parallel.mesh import (
+    DataMesh,
+    all_gather_host,
+    frame_shard,
+    gather_positioned,
+    make_mesh,
+    shutdown,
+)
 
 
 class FrameRenderer:
@@ -62,14 +83,19 @@ class FrameRenderer:
                 for k, v in dispatched.items()}
 
 
-def evaluate_frames(cfg, pipe, dataset, ev, per_frame=None, tag=""):
-    """Render every FrameSampler frame, feed the evaluator, print one line
-    per frame; the loader makes the next frames' eval rays while the card
-    renders.  per_frame(item, out) -> extra stats dict, averaged.  Returns
-    (the evaluator's summary, the mean extra stats)."""
+def evaluate_frames(cfg, pipe, dataset, ev, per_frame=None, tag="",
+                    mesh=None):
+    """Render this rank's FrameSampler frames (every frame in one process),
+    feed the evaluator, print one line per frame; the loader makes the
+    next frames' eval rays while the card renders.  per_frame(item, out)
+    -> extra stats dict, averaged.  Over a distributed mesh the per-frame
+    metrics and extra stats are gathered in frame order and rank 0 writes
+    the files.  Returns (the evaluator's summary, the mean extra stats),
+    the same on every rank."""
+    mesh = mesh or DataMesh()
     renderer = FrameRenderer(cfg, pipe)
-    items = Loader(lambda i: dataset.get_eval_item(int(i)),
-                   dataset.frame_sampler_indices())
+    local, positions = frame_shard(dataset.frame_sampler_indices(), mesh)
+    items = Loader(lambda i: dataset.get_eval_item(int(i)), local)
     extra_vals = {}
     for item in items:
         out = renderer.fetch(renderer.dispatch(item.frame, item.eval_rays))
@@ -86,7 +112,18 @@ def evaluate_frames(cfg, pipe, dataset, ev, per_frame=None, tag=""):
               + ("  " if extra else "")
               + "  ".join(f"{k}: {v:.4f}" for k, v in r.items()
                           if v is not None), flush=True)
-    summary = ev.summarize()
+    if mesh.size > 1:
+        from ..evals.evaluator import merge_across_processes
+
+        merge_across_processes(ev, positions, mesh)
+        # a rank with no frames has no extra keys, yet every gather below
+        # is a collective each rank must join: agree on the union first
+        union = sorted({k for keys in all_gather_host(sorted(extra_vals),
+                                                      mesh) for k in keys})
+        extra_vals = {k: gather_positioned(
+            extra_vals.get(k, []), positions[:len(extra_vals.get(k, []))],
+            mesh) for k in union}
+    summary = ev.summarize(write=mesh.rank == 0)
     return summary, {k: float(np.mean(v)) for k, v in extra_vals.items()}
 
 
@@ -110,30 +147,34 @@ def make_eval_lpips_fn(cfg, device):
 
 
 def run_evaluate(cfg, pipe, dataset, epoch: int = -1, per_frame=None,
-                 device="cpu"):
+                 device="cpu", mesh=None):
     from ..evals.evaluator import Evaluator
     from .common import result_dir
 
     ev = Evaluator(result_dir(cfg), lpips_fn=make_eval_lpips_fn(cfg, device),
                    exp_name=cfg.exp_name, epoch=epoch)
-    summary, _ = evaluate_frames(cfg, pipe, dataset, ev, per_frame)
+    summary, _ = evaluate_frames(cfg, pipe, dataset, ev, per_frame,
+                                 mesh=mesh)
     print(summary, flush=True)
     return summary
 
 
-def run_visualize(cfg, pipe, dataset):
-    """One PNG per frame, then one video per human; returns the PNGs'
-    paths."""
+def run_visualize(cfg, pipe, dataset, mesh=None):
+    """One PNG per frame (this rank's frames), then one video per human,
+    assembled by rank 0 from every rank's PNGs once all are written;
+    returns this rank's PNG paths."""
     from ..viz.perform import PerformVisualizer
     from ..viz.video import frames_to_video
     from .common import result_dir
 
+    mesh = mesh or DataMesh()
     vis = PerformVisualizer(os.path.join(result_dir(cfg), "perform"),
                             white_bkgd=cfg.white_bkgd)
     renderer = FrameRenderer(cfg, pipe)
+    local, _ = frame_shard(dataset.frame_sampler_indices(full_eval=True),
+                           mesh)
     items = Loader(lambda i: dataset.get_perform_item(
-        int(i), render_views=cfg.render_views),
-        dataset.frame_sampler_indices(full_eval=True))
+        int(i), render_views=cfg.render_views), local)
     paths, humans = [], []
     for item in items:
         out = renderer.fetch(renderer.dispatch(item.frame, item.eval_rays))
@@ -143,6 +184,13 @@ def run_visualize(cfg, pipe, dataset):
         if item.human not in humans:
             humans.append(item.human)
         print("wrote", paths[-1], flush=True)
+    if mesh.size > 1:
+        # a rank joins the gather once its PNGs are written: then rank 0
+        # knows every rank's humans and finds every frame on disk
+        humans = list(dict.fromkeys(
+            h for hs in all_gather_host(humans, mesh) for h in hs))
+        if mesh.rank != 0:
+            return paths
     for h in humans:
         video = frames_to_video(os.path.join(vis.out_dir, h),
                                 os.path.join(vis.out_dir, f"{h}.mp4"))
@@ -150,8 +198,8 @@ def run_visualize(cfg, pipe, dataset):
     return paths
 
 
-def run_reconstruction(cfg, pipe, dataset):
-    """One PLY per frame; returns their paths."""
+def run_reconstruction(cfg, pipe, dataset, mesh=None):
+    """One PLY per frame (this rank's frames); returns their paths."""
     from ..mesh_ops.ply import save_ply
     from ..mesh_ops.reconstruct import extract_mesh
     from .common import result_dir
@@ -159,7 +207,8 @@ def run_reconstruction(cfg, pipe, dataset):
     out_dir = os.path.join(result_dir(cfg), "mesh")
     os.makedirs(out_dir, exist_ok=True)
     paths = []
-    for i in dataset.frame_sampler_indices():
+    local, _ = frame_shard(dataset.frame_sampler_indices(), mesh)
+    for i in local:  # strided over the ranks: each writes its own PLYs
         frame, can_bounds, meta = dataset.get_mesh_item(int(i))
         verts, tris, _ = extract_mesh(pipe, frame, can_bounds,
                                       voxel_size=cfg.voxel_size,
@@ -202,29 +251,49 @@ def main(argv=None, dataset=None, per_frame=None):
         checkpoint_path,
         configure_device,
         make_dataset,
+        maybe_init_distributed,
+        rank_report,
     )
 
     args, cfg = parse_args(argv)
     if args.type == "light_stage":
         return run_light_stage(cfg, args.ply, args.occupancy_out)
-    device = configure_device(args.device)
-    path = checkpoint_path(cfg, args.weights)
-    if dataset is None:
-        dataset = make_dataset(cfg, "test")
-    # read before the runtime is built: a converted checkpoint's stored PE
-    # table goes into the pipeline
-    ckpt = read_checkpoint(path, cfg.vit_depth)
-    model, pipe, _, _ = build_runtime(cfg, device, smpl=dataset.smpl,
-                                      pe_table=ckpt["pe_table"])
-    load_reference_state_dict(model, ckpt["net"])
-    epoch = ckpt["epoch"]
-    print(f"run: --type {args.type}, {path} (epoch {epoch}) on {device}",
-          file=sys.stderr, flush=True)
-    if args.type == "evaluate":
-        return run_evaluate(cfg, pipe, dataset, epoch, per_frame, device)
-    if args.type == "visualize":
-        return run_visualize(cfg, pipe, dataset)
-    return run_reconstruction(cfg, pipe, dataset)
+    device = configure_device(args.device, args.dist_backend)
+    owns_group = maybe_init_distributed(args, device)
+    try:
+        # the frames split over every rank (mesh_axis_data sizes training)
+        mesh = make_mesh()
+        path = checkpoint_path(cfg, args.weights)
+        if dataset is None:
+            dataset = make_dataset(cfg, "test")
+        # read before the runtime is built: a converted checkpoint's stored
+        # PE table goes into the pipeline
+        ckpt = read_checkpoint(path, cfg.vit_depth)
+        model, pipe, _, _ = build_runtime(cfg, device, smpl=dataset.smpl,
+                                          pe_table=ckpt["pe_table"])
+        load_reference_state_dict(model, ckpt["net"])
+        epoch = ckpt["epoch"]
+        print(f"run: --type {args.type}, {path} (epoch {epoch}) on {device}"
+              + (f", rank {mesh.rank} of {mesh.size}" if mesh.distributed
+                 else ""), file=sys.stderr, flush=True)
+        t0 = time.perf_counter()
+        if args.type == "evaluate":
+            out = run_evaluate(cfg, pipe, dataset, epoch, per_frame, device,
+                               mesh)
+        elif args.type == "visualize":
+            out = run_visualize(cfg, pipe, dataset, mesh)
+        else:
+            out = run_reconstruction(cfg, pipe, dataset, mesh)
+        if mesh.distributed:
+            rank_report(mesh, type=args.type, seconds=time.perf_counter()
+                        - t0, frames=len(frame_shard(
+                            dataset.frame_sampler_indices(
+                                full_eval=True if args.type == "visualize"
+                                else None), mesh)[0]))
+        return out
+    finally:
+        if owns_group:
+            shutdown()
 
 
 if __name__ == "__main__":

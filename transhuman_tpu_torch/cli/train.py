@@ -36,6 +36,18 @@ trains the bf16 network (float32 parameters, gradients, optimizer and
 LPIPS).  With ``profile_dir DIR`` steps 5-8 of the first epoch (fewer in a
 short epoch) run under torch.profiler; its chrome trace and a device-time
 summary (``train/profile.py``) go to DIR.
+
+Under torchrun (``python -m torch.distributed.run --nproc_per_node N -m
+transhuman_tpu_torch.cli.train [--dist_backend nccl|gloo] ...``) the run
+is data-parallel, as the JAX CLI over its 'data' mesh: each step takes
+``N x train.batch_size`` samples of the permutation, rank r the r-th
+``train.batch_size`` of them; BatchNorm pools over the ranks and the
+gradients are averaged once a step (train/step.py).  ``mesh_axis_data``
+must be 0 or N.  Rank 0 alone records, saves (the others wait at a
+barrier) and profiles; every rank resumes from the same file and prints
+one ``rank report`` line at the end (its step ms, losses, the gradient
+all-reduce's ms and MB a step, its kernel launches).  ``--test`` then
+validates with the frames split over the ranks.
 """
 
 from __future__ import annotations
@@ -51,6 +63,7 @@ import torch
 from ..config import Config
 from ..data.loader import Loader
 from ..models.lpips import lpips_module
+from ..parallel.mesh import DataMesh, barrier, make_mesh, shutdown
 from ..render.pipeline import fold_in
 from ..testing import init_weights
 from ..train import checkpoint as ckpt_io
@@ -61,7 +74,9 @@ from .common import (
     build_runtime,
     configure_device,
     make_dataset,
+    maybe_init_distributed,
     model_dir,
+    rank_report,
     seed_everything,
 )
 from .common import parse_args as _parse_args
@@ -101,11 +116,12 @@ def read_resume(cfg: Config):
     return ckpt
 
 
-def build_trainer(cfg: Config, device, dataset=None, ckpt=None):
+def build_trainer(cfg: Config, device, dataset=None, ckpt=None,
+                  mesh=None):
     """(state, step_fn, dataset, pipe) for cfg on device: the model fresh
     (seeded init, the pretrained encoder when asked) or restored from ckpt
     (a read_checkpoint dict), with LPIPS in the loss when lpips_weights is
-    set."""
+    set; the step data-parallel over mesh when it is distributed."""
     if dataset is None:
         dataset = make_dataset(cfg, "train")
     pe_table = ckpt["pe_table"] if ckpt else None
@@ -140,7 +156,7 @@ def build_trainer(cfg: Config, device, dataset=None, ckpt=None):
         pipe, l2_weight=cfg.l2rec_weight, perturb=cfg.perturb > 0,
         accum_steps=cfg.train.accum_steps,
         lpips_fn=lpips, lpips_weight=cfg.lpips_weight,
-        patch_mode=cfg.patch.use_patch_sampling)
+        patch_mode=cfg.patch.use_patch_sampling, mesh=mesh)
     return state, step_fn, dataset, pipe
 
 
@@ -180,12 +196,15 @@ def _sync(device):
         torch.cuda.synchronize(device)
 
 
-def validate(cfg: Config, device, dataset=None, weights=None):
+def validate(cfg: Config, device, dataset=None, weights=None, mesh=None):
     """The ``--test`` pass (JAX cli/train.py::validate): weights-only load
     of test.epoch's checkpoint (or ``weights``), run_mode test and perturb
     0, every val frame rendered with its img_loss (the in-box MSE), the
-    evaluator with LPIPS, and one unconditional 'val' record.  Returns
-    (mean val stats, the evaluator's summary)."""
+    evaluator with LPIPS, and one unconditional 'val' record (rank 0's).
+    Over a distributed mesh the frames are split between the ranks and
+    every rank gets the whole summary.  Returns (mean val stats, the
+    evaluator's summary)."""
+    mesh = mesh or DataMesh()
     from ..evals.evaluator import Evaluator
     from ..weights import load_reference_state_dict
     from .common import checkpoint_path, result_dir
@@ -203,7 +222,7 @@ def validate(cfg: Config, device, dataset=None, weights=None):
     ev = Evaluator(result_dir(cfg), lpips_fn=make_eval_lpips_fn(cfg, device),
                    exp_name=cfg.exp_name, epoch=epoch)
     recorder = Recorder(cfg.record_dir, cfg.record_interval, cfg.log_interval,
-                        enabled=cfg.use_record)
+                        enabled=cfg.use_record and mesh.rank == 0)
     recorder.epoch = epoch
 
     def val_loss(item, out):
@@ -213,7 +232,8 @@ def validate(cfg: Config, device, dataset=None, weights=None):
         return {"img_loss": img_loss, "loss": img_loss}
 
     summary, val_stats = evaluate_frames(cfg, pipe, dataset, ev,
-                                         per_frame=val_loss, tag="val ")
+                                         per_frame=val_loss, tag="val ",
+                                         mesh=mesh)
     print("  ".join(f"{k}: {v:.4f}" for k, v in val_stats.items()))
     print(summary, flush=True)
     recorder.record("val", extra={**val_stats, **{
@@ -226,22 +246,36 @@ def validate(cfg: Config, device, dataset=None, weights=None):
 
 def main(argv=None, dataset=None):
     """Training: returns (state, records), records one dict per step
-    (losses, lr, data and step seconds; save_s on an epoch's last step).
-    --test: returns validate's (val stats, summary).  dataset replaces
+    (losses, lr, data and step seconds; save_s on an epoch's last step;
+    the gradient all-reduce's ms and MB when distributed).  --test:
+    returns validate's (val stats, summary).  dataset replaces
     make_dataset's."""
     args, cfg = parse_args(argv)
-    device = configure_device(args.device)
-    if args.test:
-        return validate(cfg, device, dataset, args.weights)
+    device = configure_device(args.device, args.dist_backend)
+    owns_group = maybe_init_distributed(args, device)
+    try:
+        mesh = make_mesh(cfg.mesh_axis_data)
+        if args.test:
+            return validate(cfg, device, dataset, args.weights, mesh)
+        return train(args, cfg, device, mesh, dataset)
+    finally:
+        if owns_group:
+            shutdown()
+
+
+def train(args, cfg: Config, device, mesh: DataMesh, dataset=None):
+    """The train loop of main over mesh: (state, records)."""
     seed_everything(cfg.seed)
+    lead = mesh.rank == 0
     mdir = model_dir(cfg)
     # read before the runtime is built: a converted checkpoint's stored PE
     # table rides into the pipeline and into every checkpoint this run writes
     ckpt = read_resume(cfg)
-    state, step_fn, dataset, pipe = build_trainer(cfg, device, dataset, ckpt)
+    state, step_fn, dataset, pipe = build_trainer(cfg, device, dataset, ckpt,
+                                                  mesh=mesh)
     pe_table = ckpt["pe_table"] if ckpt else None
     recorder = Recorder(cfg.record_dir, cfg.record_interval, cfg.log_interval,
-                        enabled=cfg.use_record)
+                        enabled=cfg.use_record and lead)
     start_epoch = 0
     if ckpt is not None:
         start_epoch = ckpt["epoch"] + 1
@@ -255,18 +289,23 @@ def main(argv=None, dataset=None):
     for epoch in range(start_epoch, cfg.train.epoch):
         dataset.set_epoch(epoch)
         recorder.epoch = epoch
-        # exactly ep_iter batches per epoch, cycling a seeded permutation:
-        # step it takes perm[it * B:(it + 1) * B]
+        # exactly ep_iter global batches per epoch, cycling a seeded
+        # permutation: step it takes perm[it * G:(it + 1) * G] of G =
+        # ranks x B samples, rank r the r-th B of them (the JAX CLI's
+        # process slice)
         bsz = cfg.train.batch_size
-        need = cfg.ep_iter * bsz
+        gsz = mesh.size * bsz
+        need = cfg.ep_iter * gsz
         ep_rng = np.random.default_rng(cfg.seed + epoch)
         perm = np.concatenate([
             ep_rng.permutation(len(dataset))
             for _ in range(-(-need // len(dataset)))])[:need]
+        lo = mesh.rank * bsz
         # workers build host samples (seeded by epoch and index, so their
         # order cannot change the data); the copy to the card stays here
         batches = Loader(
-            lambda it: _timed_batch(dataset, perm[it * bsz:(it + 1) * bsz]),
+            lambda it: _timed_batch(
+                dataset, perm[it * gsz:(it + 1) * gsz][lo:lo + bsz]),
             range(cfg.ep_iter),
             num_workers=(0 if cfg.train.num_workers <= 0
                          else cfg.train.num_workers + 1))
@@ -274,7 +313,7 @@ def main(argv=None, dataset=None):
         # shorter in a short epoch or run
         prof_stop = min(8, cfg.ep_iter - 1, (cap or cfg.ep_iter) - 1)
         prof_start = max(0, prof_stop - 3)
-        profiling = cfg.profile_dir and epoch == start_epoch
+        profiling = cfg.profile_dir and epoch == start_epoch and lead
         t_end = time.perf_counter()
         for i, (host_batch, sample_s) in enumerate(batches):
             it = epoch * cfg.ep_iter + i
@@ -287,7 +326,7 @@ def main(argv=None, dataset=None):
             _sync(device)
             t2 = time.perf_counter()
             rec = dict(stats, step=it, data_s=t1 - t_end, sample_s=sample_s,
-                       step_s=t2 - t1)
+                       step_s=t2 - t1, **(step_fn.comm or {}))
             records.append(rec)
             if prof is not None and i == prof_stop:
                 prof.stop()
@@ -313,20 +352,31 @@ def main(argv=None, dataset=None):
         if done:
             break
         t0 = time.perf_counter()
-        paths = ckpt_io.save_epoch(
-            mdir, state, epoch, (epoch + 1) % cfg.save_freq == 0,
-            recorder.state_dict(), pe_table)
+        if lead:
+            paths = ckpt_io.save_epoch(
+                mdir, state, epoch, (epoch + 1) % cfg.save_freq == 0,
+                recorder.state_dict(), pe_table)
+            print(f"checkpoint: {', '.join(paths)} "
+                  f"({time.perf_counter() - t0:.3f} s)", flush=True)
+        barrier(mesh)
         records[-1]["save_s"] = time.perf_counter() - t0
-        print(f"checkpoint: {', '.join(paths)} "
-              f"({records[-1]['save_s']:.3f} s)", flush=True)
         if cap and len(records) == cap:
             break
     if args.out and records:
-        ckpt_io.save_checkpoint(args.out, state, records[-1]["step"]
-                                // cfg.ep_iter, recorder.state_dict(),
-                                pe_table)
-        print(f"checkpoint: {args.out}", flush=True)
+        if lead:
+            ckpt_io.save_checkpoint(args.out, state, records[-1]["step"]
+                                    // cfg.ep_iter, recorder.state_dict(),
+                                    pe_table)
+            print(f"checkpoint: {args.out}", flush=True)
+        barrier(mesh)
     recorder.close()
+    if mesh.distributed:
+        rank_report(mesh, step_ms=[r["step_s"] * 1e3 for r in records],
+                    loss=[r["loss"] for r in records],
+                    grad_allreduce_ms=[r["grad_allreduce_ms"]
+                                       for r in records],
+                    grad_allreduce_mb=records[0]["grad_allreduce_mb"]
+                    if records else 0.0)
     return state, records
 
 

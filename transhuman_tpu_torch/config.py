@@ -361,8 +361,8 @@ def _check_type(key, cur, new):
 # ------------------------------------------------------------ key classes
 # TPU/static-shape execution knobs of the JAX package with no job here
 TPU_ONLY_KEYS = frozenset({
-    "pad_bucket", "compact_ratio", "use_pallas_knn", "mesh_axis_data",
-    "mesh_axis_rays", "mesh_axis_model",
+    "pad_bucket", "compact_ratio", "use_pallas_knn", "mesh_axis_rays",
+    "mesh_axis_model",
 })
 # read by neither package (xyz_res, save_latest_ep, gpus, test.collator,
 # test.time_det, test.batch_size, train.scheduler.type: the JAX package reads

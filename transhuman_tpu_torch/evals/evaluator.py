@@ -139,3 +139,22 @@ class Evaluator:
         self.mse, self.psnr, self.ssim, self.lpips = [], [], [], []
         self.ssim_dr1 = []
         return out
+
+
+def merge_across_processes(ev: Evaluator, positions, mesh) -> Evaluator:
+    """Frame-sharded evaluation (cli/run.py): every rank's per-frame metric
+    lists, gathered into each rank's evaluator in the frames' global order,
+    so that ``summarize`` gives the single-process summary and ``.npy``
+    files (JAX evaluator.merge_across_processes).  ``positions[i]`` is the
+    FrameSampler position of the i-th frame this rank evaluated.  Every
+    rank must call it; in one process it changes nothing."""
+    from ..parallel.mesh import gather_positioned
+
+    if mesh is None or mesh.size == 1:
+        return ev
+    for name in ("mse", "psnr", "ssim", "ssim_dr1", "lpips"):
+        vals = getattr(ev, name)
+        # lpips is either per-frame or absent (no weights) on every rank
+        setattr(ev, name, gather_positioned(vals, positions[:len(vals)],
+                                            mesh))
+    return ev

@@ -5,7 +5,10 @@ process, all started together, and the objects are linked into
 ``transhuman_tpu_torch/_build/libkernels.so``; the sources have a plain C
 interface and no PyTorch headers, so the build takes seconds.  The
 library is built on first use, never at import, and rebuilt whenever the
-sources or flags change (a sha256 stamp sits beside it).  Each C entry takes
+sources or flags change (a sha256 stamp sits beside it, written
+atomically).  The stale check, the build and the stamp run under a file
+lock in ``_build/``, so processes started together (the ranks of one
+torchrun) build the library once and load the same file.  Each C entry takes
 raw device pointers and the CUDA stream as ``void*`` and returns an error
 code, which :func:`check` turns into an exception.
 """
@@ -22,10 +25,13 @@ import threading
 import time
 from dataclasses import dataclass
 
+from ..utils.filelock import file_lock, write_atomic
+
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
 LIB_PATH = os.path.join(BUILD_DIR, "libkernels.so")
+LOCK_PATH = LIB_PATH + ".lock"
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = ARCH_FLAGS + (
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -109,7 +115,12 @@ def _run(cmds):
 
 def build() -> BuildResult:
     """Compile every csrc/*.cu (one nvcc each, in parallel) and link them
-    into LIB_PATH (atomic replace)."""
+    into LIB_PATH (atomic replace), under the build lock."""
+    with file_lock(LOCK_PATH):
+        return _build()
+
+
+def _build() -> BuildResult:
     os.makedirs(BUILD_DIR, exist_ok=True)
     nvcc, tag = find_nvcc(), f"{os.getpid()}.tmp"
     objs = [os.path.join(BUILD_DIR, os.path.basename(src) + f".{tag}.o")
@@ -125,8 +136,7 @@ def build() -> BuildResult:
         for path in objs + [tmp]:
             if os.path.exists(path):
                 os.remove(path)
-    with open(LIB_PATH + ".sha256", "w") as f:
-        f.write(_fingerprint())
+    write_atomic(LIB_PATH + ".sha256", _fingerprint())
     return BuildResult(LIB_PATH, time.perf_counter() - t0, log)
 
 
@@ -143,9 +153,10 @@ def library() -> ctypes.CDLL:
     global _lib
     with _lock:
         if _lib is None:
-            if _stale() or not os.path.exists(LIB_PATH):
-                build()
-            lib = ctypes.CDLL(LIB_PATH)
+            with file_lock(LOCK_PATH):
+                if _stale() or not os.path.exists(LIB_PATH):
+                    _build()
+                lib = ctypes.CDLL(LIB_PATH)
             for name, (argtypes, restype) in _SIGNATURES.items():
                 fn = getattr(lib, name)
                 fn.argtypes = argtypes

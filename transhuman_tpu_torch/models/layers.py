@@ -9,7 +9,10 @@ are no-ops.
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
@@ -36,17 +39,46 @@ def layer_norm(module: nn.LayerNorm, x, dtype):
                         module.bias, module.eps).to(dtype)
 
 
+class _RankSum(torch.autograd.Function):
+    """The sum of a tensor over the ranks of a process group, whose
+    gradient is the sum of the ranks' gradients (the transpose of a psum):
+    each rank's loss reaches every rank's statistics."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        x = x.clone(memory_format=torch.contiguous_format)
+        dist.all_reduce(x, group=group)
+        return x
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.clone(memory_format=torch.contiguous_format)
+        dist.all_reduce(g, group=ctx.group)
+        return g, None
+
+
 class BatchStatNorm(nn.Module):
     """BatchNorm that always normalises by the statistics of the batch it is
     given, at evaluation too: the reference runs its BatchNorms in train mode
     everywhere.  ``nn.BatchNorm2d`` in ``eval()`` would use running averages
-    instead, so it is not used.  Parameters keep BatchNorm's names."""
+    instead, so it is not used.  Parameters keep BatchNorm's names.
+
+    While ``group`` is set (``pooled_norms``: a data-parallel train step's
+    encoder pass), the mean and mean square are averaged over the ranks of
+    that process group, as the JAX package's ``pmean`` over its 'data'
+    axis: one all-reduce of the packed pair, summed, then divided by the
+    world size (gloo has no average), through autograd (``_RankSum``), so
+    the gradient flows back across the ranks.  Every other pass
+    (evaluate, visualize, reconstruction, validation, serve) runs no
+    collective: there the ranks hold different frames."""
 
     def __init__(self, num_features: int, eps: float = 1e-5):
         super().__init__()
         self.eps = eps
         self.weight = nn.Parameter(torch.ones(num_features))
         self.bias = nn.Parameter(torch.zeros(num_features))
+        self.group = None
 
     def forward(self, x):  # (N, C, H, W)
         """Statistics and the affine map in float32; the result in x's
@@ -55,11 +87,30 @@ class BatchStatNorm(nn.Module):
         red = (0, 2, 3)
         mean = xf.mean(dim=red)
         mean2 = (xf * xf).mean(dim=red)
+        if self.group is not None:
+            pooled = _RankSum.apply(torch.stack([mean, mean2]), self.group)
+            mean, mean2 = (pooled / dist.get_world_size(self.group)).unbind(0)
         var = torch.clamp_min(mean2 - mean * mean, 0.0)
         inv = torch.rsqrt(var + self.eps) * self.weight
         shift = self.bias - mean * inv
         y = xf * inv[None, :, None, None] + shift[None, :, None, None]
         return y.to(x.dtype)
+
+
+@contextlib.contextmanager
+def pooled_norms(module: nn.Module, group):
+    """Every BatchStatNorm of ``module`` pools over ``group`` inside the
+    block (nothing changes for group None); the norms are local again
+    after it, however it ends."""
+    norms = ([] if group is None else
+             [m for m in module.modules() if isinstance(m, BatchStatNorm)])
+    for m in norms:
+        m.group = group
+    try:
+        yield
+    finally:
+        for m in norms:
+            m.group = None
 
 
 def interp_matrix(n_out: int, n_in: int, device=None,

@@ -18,10 +18,12 @@ x86-64 host) plus the flags ``LIBRARIES`` names beside its source, into
   them.
 
 A library is rebuilt whenever its source, its flags or the compiler change
-(a sha256 stamp sits beside it); one lock guards every build and load in a
-process, and a build writes a process-unique file that replaces the library
-atomically.  A failed build raises with the compiler's output: no caller
-falls back to anything else.  Each codec entry returns an error code and
+(a sha256 stamp sits beside it, written atomically); one lock guards every
+build and load in a process, a file lock beside each library
+(``lib<name>.so.lock``) guards its stale check, build and stamp across
+processes, so ranks started together build it once, and a build writes a
+process-unique file that replaces the library atomically.  A failed build
+raises with the compiler's output: no caller falls back to anything else.  Each codec entry returns an error code and
 writes its message into the caller's buffer; :func:`call` turns a failure
 into an exception.  ctypes releases the GIL for the length of each call, so
 loader threads decode in parallel.
@@ -36,6 +38,8 @@ import platform
 import re
 import subprocess
 import threading
+
+from ..utils.filelock import file_lock, write_atomic
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 BUILD_DIR = os.path.join(os.path.dirname(_HERE), "_build")
@@ -119,8 +123,14 @@ def _fingerprint(name: str) -> str:
 
 
 def build(name: str = "imgcodec") -> str:
-    """Compile library ``name`` into lib_path(name) (atomic replace); raise
-    RuntimeError with the compiler's output on failure."""
+    """Compile library ``name`` into lib_path(name) (atomic replace) under
+    its file lock; raise RuntimeError with the compiler's output on
+    failure."""
+    with file_lock(lib_path(name) + ".lock"):
+        return _build(name)
+
+
+def _build(name: str) -> str:
     os.makedirs(BUILD_DIR, exist_ok=True)
     path = lib_path(name)
     tmp = f"{path}.{os.getpid()}.tmp"
@@ -137,8 +147,7 @@ def build(name: str = "imgcodec") -> str:
     finally:
         if os.path.exists(tmp):
             os.remove(tmp)
-    with open(path + ".sha256", "w") as f:
-        f.write(_fingerprint(name))
+    write_atomic(path + ".sha256", _fingerprint(name))
     return path
 
 
@@ -154,9 +163,10 @@ def library(name: str = "imgcodec") -> ctypes.CDLL:
     """Library ``name``, built first if missing or stale."""
     with _lock:
         if name not in _libs:
-            if _stale(name) or not os.path.exists(lib_path(name)):
-                build(name)
-            lib = ctypes.CDLL(lib_path(name))
+            with file_lock(lib_path(name) + ".lock"):
+                if _stale(name) or not os.path.exists(lib_path(name)):
+                    _build(name)
+                lib = ctypes.CDLL(lib_path(name))
             for fn, (argtypes, restype) in _SIGNATURES[name].items():
                 f = getattr(lib, fn)
                 f.argtypes = argtypes

@@ -56,6 +56,7 @@ from torch.utils.checkpoint import checkpoint
 from ..geometry.clusters import ClusterSpec, normalize_positions
 from ..kernels.cull import radii_cull, shell_cull
 from ..models.embedder import embed_viewdir
+from ..models.layers import pooled_norms
 from ..ops.sampling import (depth_visibility, project_points,
                              sample_feature_map)
 from ..weights import reference_pe_table
@@ -209,19 +210,32 @@ class RenderPipeline:
     def prologue(self, frame: FrameInputs) -> Prologue:
         return self._prologue(frame)
 
-    def encode_batch(self, frames):
+    def encode_batch(self, frames, mesh=None):
         """[(holder_map, pixel_map)] of each frame, from one encoder pass
         over the views of them all: BatchNorm, which lives only in the
         encoder, then reduces over every view of the batch.  Each sample
         has the same V x H x W, so that pooled mean and mean square are the
         mean of the per-sample ones, which is what the JAX step's
-        ``pmean`` over its vmapped 'batch' axis takes."""
+        ``pmean`` over its vmapped 'batch' axis takes.  With a distributed
+        ``mesh`` (a DataMesh) the norms pool over its ranks too, as the
+        JAX step's pmean over ('batch', 'data'); every rank must then hold
+        batches of that one shape, which is checked over the mesh."""
         shapes = sorted({tuple(f.images.shape) for f in frames})
+        group = mesh.group if mesh is not None else None
+        if group is not None:
+            from ..parallel.mesh import all_gather_host
+
+            per_rank = all_gather_host((shapes, len(frames)), mesh)
+            shapes = sorted({s for sh, _ in per_rank for s in sh})
+            if len({n for _, n in per_rank}) != 1:
+                raise ValueError("every rank must hold a batch of one size; "
+                                 f"got {[n for _, n in per_rank]}")
         if len(shapes) != 1:
             raise ValueError("the samples of a batch must have images of one "
-                             f"shape (V, H, W, 3); got {shapes}")
-        holder, pixel = self.model.encode_views(
-            torch.cat([f.images for f in frames]))
+                             f"shape (V, H, W, 3) on every rank; got {shapes}")
+        with pooled_norms(self.model, group):
+            holder, pixel = self.model.encode_views(
+                torch.cat([f.images for f in frames]))
         v = shapes[0][0]
         return list(zip(holder.split(v), pixel.split(v)))
 
@@ -298,14 +312,15 @@ class RenderPipeline:
                                        sample_jitter)[0]
 
     def render_train_batch(self, frames, rays, seeds,
-                           sample_jitter: bool = True):
+                           sample_jitter: bool = True, mesh=None):
         """render_train of each sample of a batch (lists of equal length),
-        the encoder run once over the views of them all (encode_batch).
+        the encoder run once over the views of them all (encode_batch,
+        pooled over ``mesh``'s ranks when it is distributed).
         last_frame_stats then counts the batch's points and the points it
         decoded."""
         outs, points, survivors = [], 0, 0
         for frame, r, seed, maps in zip(frames, rays, seeds,
-                                        self.encode_batch(frames)):
+                                        self.encode_batch(frames, mesh)):
             out, n, kept = self._render_train(frame, r, seed, sample_jitter,
                                               maps)
             outs.append(out)

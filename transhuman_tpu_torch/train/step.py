@@ -9,13 +9,25 @@ its 'batch' axis does.  The loss and every stat are the means of the
 per-sample ones.  ``accum_steps`` splits the batch, strided as the JAX
 package splits it, into microbatches that each render and backpropagate in
 turn (BatchNorm pooled within each), before one clip and one update.
+
+Across processes (``mesh``, a distributed ``parallel.DataMesh``), as the
+JAX step under ``shard_map`` over 'data': each rank renders its own B
+samples, its encoder's BatchNorm pools over the ranks too (the JAX model's
+norms over ('batch', 'data')), and after the last microbatch's backward the
+gradients are averaged over the ranks once, in flat buckets (the JAX
+``pmean(grads, 'data')`` ahead of the clip and the update), as are the
+stats.  Plain ``DistributedDataParallel`` does not fit: the render calls
+the model's submodules, never its ``forward``, and DDP would reduce once
+per microbatch where JAX reduces once per step.
 """
 
 from __future__ import annotations
 
+import time
 from dataclasses import dataclass
 
 import torch
+import torch.distributed as dist
 from torch.profiler import record_function
 
 from ..render.pipeline import fold_in
@@ -61,7 +73,7 @@ def make_optimizer(params, lr: float = 7e-4, end_lr: float = 1e-6,
 
 def make_batch_loss(pipe, l2_weight: float = 1.0, perturb: bool = True,
                     lpips_fn=None, lpips_weight: float = 0.1,
-                    patch_mode: bool = True):
+                    patch_mode: bool = True, mesh=None):
     """(samples, seeds) -> (loss, stats) of a batch: each sample's loss, the
     composition of the reference's NetworkWrapper (if_nerf_clight.py:43-91),
     then the mean over the samples of the loss and of each stat, as the JAX
@@ -71,7 +83,10 @@ def make_batch_loss(pipe, l2_weight: float = 1.0, perturb: bool = True,
     into the rendered patches); otherwise the masked MSE of the single
     rays, added unweighted as in the reference (l2rec_weight scales the
     patch MSE only).  Under train.cull the stats carry JAX's ``overflow``,
-    which is 0 here."""
+    which is 0 here.  With a distributed ``mesh`` the encoder's BatchNorm
+    pools over its ranks."""
+    pooled = ({"mesh": mesh} if mesh is not None and mesh.distributed
+              else {})
 
     def sample_loss(out, sample: TrainSample):
         if not patch_mode:
@@ -86,7 +101,7 @@ def make_batch_loss(pipe, l2_weight: float = 1.0, perturb: bool = True,
     def batch_loss(samples, seeds):
         outs = pipe.render_train_batch([s.frame for s in samples],
                                        [s.rays for s in samples], seeds,
-                                       sample_jitter=perturb)
+                                       sample_jitter=perturb, **pooled)
         per = [sample_loss(o, s) for o, s in zip(outs, samples)]
         loss = torch.stack([lo for lo, _ in per]).mean()
         stats = {k: torch.stack([st[k] for _, st in per]).mean()
@@ -110,10 +125,93 @@ def make_sample_loss(pipe, l2_weight: float = 1.0, perturb: bool = True,
     return sample_loss
 
 
+# gradient all-reduce bucket: large enough that a full-width model's
+# gradients go in a few collectives, small enough to bound the flat copy
+BUCKET_BYTES = 32 << 20
+
+
+def _buckets(tensors, limit: int = BUCKET_BYTES):
+    """tensors in order, grouped into runs of one dtype and at most
+    ``limit`` bytes (a larger tensor alone)."""
+    out, cur, size = [], [], 0
+    for t in tensors:
+        n = t.numel() * t.element_size()
+        if cur and (t.dtype != cur[0].dtype or size + n > limit):
+            out.append(cur)
+            cur, size = [], 0
+        cur.append(t)
+        size += n
+    if cur:
+        out.append(cur)
+    return out
+
+
+def allreduce_mean_(tensors, mesh):
+    """Average tensors in place over the ranks of mesh: flat buckets, one
+    all-reduce (SUM) each, then a division by the world size."""
+    for bucket in _buckets(tensors):
+        flat = torch.cat([t.reshape(-1) for t in bucket])
+        dist.all_reduce(flat, group=mesh.group)
+        flat /= mesh.size
+        off = 0
+        for t in bucket:
+            t.copy_(flat[off:off + t.numel()].view_as(t))
+            off += t.numel()
+
+
+class _Timer:
+    """Elapsed ms between two marks: CUDA events on the card (read once the
+    stream has passed them, so no wait is added where they are set), the
+    host clock on the CPU."""
+
+    def __init__(self, device):
+        self.cuda = device.type == "cuda"
+        self.marks = ([torch.cuda.Event(enable_timing=True)
+                       for _ in range(2)] if self.cuda else [0.0, 0.0])
+
+    def mark(self, i: int):
+        if self.cuda:
+            self.marks[i].record()
+        else:
+            self.marks[i] = time.perf_counter()
+
+    def ms(self) -> float:
+        if self.cuda:
+            self.marks[1].synchronize()
+            return self.marks[0].elapsed_time(self.marks[1])
+        return (self.marks[1] - self.marks[0]) * 1e3
+
+
+def _average_over_ranks(params, totals, decoded, mesh, device):
+    """The data-parallel step's reductions, on every rank in one order: each
+    gradient (zeros where no path reached it, so that the ranks'
+    collectives line up) averaged over the ranks in flat buckets, timed;
+    then the stats averaged and the cull's counts summed in one more
+    all-reduce.  Returns (totals, decoded counts, the gradient all-reduce's
+    timer, its MB)."""
+    for p in params:
+        if p.grad is None:
+            p.grad = torch.zeros_like(p)
+    grads = [p.grad for p in params]
+    timer = _Timer(grads[0].device)
+    timer.mark(0)
+    allreduce_mean_(grads, mesh)
+    timer.mark(1)
+    keys = sorted(totals)
+    packed = torch.stack(
+        [totals[k].to(device, torch.float64) for k in keys]
+        + [torch.tensor(float(c), dtype=torch.float64, device=device)
+           for c in decoded])
+    dist.all_reduce(packed, group=mesh.group)
+    mb = sum(g.numel() * g.element_size() for g in grads) / 2**20
+    return (dict(zip(keys, packed[:len(keys)] / mesh.size)),
+            packed[len(keys):], timer, mb)
+
+
 def make_train_step(pipe, clip_value: float = 40.0, l2_weight: float = 1.0,
                     perturb: bool = True, accum_steps: int = 1,
                     lpips_fn=None, lpips_weight: float = 0.1,
-                    patch_mode: bool = True):
+                    patch_mode: bool = True, mesh=None):
     """(state, batch, seed) -> stats, batch a TrainSample or a list of B of
     them: forward, loss, backward (in accum_steps microbatches), per-element
     gradient clip at clip_value (reference trainer.py:85), optimizer
@@ -129,9 +227,20 @@ def make_train_step(pipe, clip_value: float = 40.0, l2_weight: float = 1.0,
     microbatches, as are the stats.  A batch that accum_steps does not
     divide is a ValueError, as in JAX.  Under train.cull stats also holds
     ``cull_survivors``, the fraction of the batch's points decoded (the
-    JAX package reports it through ``train_cull_fraction``)."""
+    JAX package reports it through ``train_cull_fraction``).
+
+    With a distributed ``mesh`` the batch is this rank's B of the global
+    ``mesh.size * B``: sample i folds the global index ``mesh.rank * B +
+    i`` into the seed (JAX: ``axis_index('data') * b + i``); BatchNorm
+    pools over the ranks; a gradient no parameter path reached is zeros
+    (so every rank's collectives line up), and the gradients, the stats
+    and the cull's counts are averaged (summed) over the ranks before the
+    clip.  ``step.comm`` then holds the gradient all-reduce's ms and MB of
+    the last step."""
     batch_loss = make_batch_loss(pipe, l2_weight, perturb, lpips_fn,
-                                 lpips_weight, patch_mode)
+                                 lpips_weight, patch_mode, mesh)
+    distributed = mesh is not None and mesh.distributed
+    rank = mesh.rank if distributed else 0
 
     def step(state: TrainState, batch, seed=None) -> dict:
         samples = [batch] if isinstance(batch, TrainSample) else list(batch)
@@ -139,7 +248,7 @@ def make_train_step(pipe, clip_value: float = 40.0, l2_weight: float = 1.0,
         if b % accum_steps:
             raise ValueError(
                 f"batch {b} not divisible by accum_steps {accum_steps}")
-        seeds = [None if seed is None else fold_in(seed, i)
+        seeds = [None if seed is None else fold_in(seed, rank * b + i)
                  for i in range(b)]
         opt = state.optimizer
         opt.zero_grad(set_to_none=True)
@@ -156,8 +265,12 @@ def make_train_step(pipe, clip_value: float = 40.0, l2_weight: float = 1.0,
                 totals[k] = totals.get(k, 0.0) + v.detach()
             decoded[0] += pipe.last_frame_stats["survivors"]
             decoded[1] += pipe.last_frame_stats["points"]
+        params = [p for g in opt.param_groups for p in g["params"]]
+        if distributed:
+            with record_function("train_step.allreduce"):
+                totals, decoded, timer, mb = _average_over_ranks(
+                    params, totals, decoded, mesh, pipe.device)
         with record_function("train_step.optimizer"):
-            params = [p for g in opt.param_groups for p in g["params"]]
             torch.nn.utils.clip_grad_value_(params, clip_value)
             lr = opt.param_groups[0]["lr"]
             opt.step()
@@ -166,7 +279,11 @@ def make_train_step(pipe, clip_value: float = 40.0, l2_weight: float = 1.0,
         out = {k: float(v) / accum_steps for k, v in totals.items()}
         out["lr"] = lr
         if pipe.train_cull:
-            out["cull_survivors"] = decoded[0] / decoded[1]
+            out["cull_survivors"] = float(decoded[0]) / float(decoded[1])
+        if distributed:
+            step.comm = {"grad_allreduce_ms": timer.ms(),
+                         "grad_allreduce_mb": mb}
         return out
 
+    step.comm = None
     return step
