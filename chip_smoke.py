@@ -131,6 +131,28 @@ j1. the train entry point over 2 ranks (gloo) at full width, one sample a
    bounds), visualize into one AVI assembled once, reconstruct 2 frames at
    0.005 m, one per rank, each PLY the one-process one.
 
+Then ray-sharded inference (``mesh_axis_rays``) and the remaining tools:
+
+k1. make_sharded_render on a full-width 512x512 request over [cuda:0,
+   cuda:1], or [cuda:0, cuda:0] on one card (which measures the wiring,
+   not the scaling), against one device's render_frame with the same
+   weights: the maps within 1e-6 (rgb, acc) and 1e-5 (depth), the
+   survivors equal, and the launches exactly as the code predicts (K1 one
+   a 512-ray chunk, K2 one a chunk with survivors, K4 that plus one
+   painting fetch a share); the render ms at R = 1 and 2 in turns;
+k2. with two cards or more the run entry point's --type evaluate with
+   mesh_axis_rays 2, its metric files those of mesh_axis_rays 1; on one
+   card its refusal with the counts, then evaluate_frames over two shares
+   of the card against one device, per-frame PSNR and SSIM within 1e-9;
+k3. tools/doctor over phase g's laid-out human with phase 7's checkpoint:
+   exit 0, the card, nvcc, g++ and both build rows PASS;
+k4. tools/validate_official over a laid-out CoreView_377 and CoreView_387
+   with a random official-layout .pth at full width: all four protocols
+   on the card, the report written, each protocol's PSNR and SSIM those of
+   a direct --type evaluate with the same argv;
+k5. tools/make_kmeans on a stand-in SMPL pickle: its file loads back
+   through ClusterSpec.load_reference_dict with the same assignment.
+
 Every visualize run (phases 9, c, g, i, j3) also writes one MJPG/AVI per
 human, parsed here: one JPEG frame per PNG.  Phase 11 also times the C++
 marching the command took against the numpy route on the same cube (the
@@ -3771,6 +3793,348 @@ def phase_sharded_eval(card: str, tmp: str, ckpt: str) -> dict:
     return {"sharded_eval": _summed(reps)}
 
 
+# ---------------------------------------------------------------- phase k
+K_EVAL_FRAMES = ("test.frame_interval", "4")  # frames 0 and 4 of the 8
+# one frame and one target view of each protocol: its depth, cut
+K_PROTOCOL_CUT = ["test.target_view", "3,", "test.frame_interval", "1000"]
+K_MAP_TOL = {"rgb_map": 1e-6, "acc_map": 1e-6, "depth_map": 1e-5}
+
+
+def phase_ray_render(card: str) -> dict:
+    """k1. make_sharded_render over [cuda:0, cuda:1], or [cuda:0, cuda:0]
+    on one card, on a full-width 512x512 request against one device's
+    render_frame with the same weights: the maps within K_MAP_TOL
+    (bit-equal expected), the survivor counts equal, and the launches the
+    code predicts, exactly: K1 one a chunk of 512 rays, K2 one a chunk
+    with survivors, K4 that plus one painting fetch in each non-empty
+    share's prologue (so one more than one device's for each further
+    share).  Then the render ms at R = 1 and R = 2, in turns.  Returns the
+    sharded render's launches."""
+    from transhuman_tpu_torch import kernels
+    from transhuman_tpu_torch.config import Config
+    from transhuman_tpu_torch.data.ray_sampling import sample_eval_rays
+    from transhuman_tpu_torch.geometry.rays import world_bounds
+    from transhuman_tpu_torch.parallel.infer import (make_sharded_render,
+                                                     share_bounds)
+    from transhuman_tpu_torch.serve import parse_render_request
+    from transhuman_tpu_torch.testing import synthetic_setup
+
+    hw = 512
+    # two shares on one card measure the wiring (the threads, the replicas,
+    # the split and the gather), not the scaling
+    devices = [torch.device("cuda", 0),
+               torch.device("cuda", min(1, torch.cuda.device_count() - 1))]
+    cfg = Config()
+    _, pipe, frame, smpl, _ = synthetic_setup(image_hw=(hw, hw),
+                                              device=devices[0])
+    req, (tK, tR, tT), (h, w) = parse_render_request(
+        _request(frame, 0, hw), cfg, smpl)
+    rays = sample_eval_rays(None, tK, tR, tT.reshape(3, 1), world_bounds(
+        req.verts_world.numpy(), cfg.big_box), hw=(h, w)).rays
+    n, cr, r = rays.ray_o.shape[0], pipe.chunk_rays, len(devices)
+    dev = devices[0]
+    sharded = make_sharded_render(pipe, devices)
+
+    def one():
+        return pipe.render_frame(req.to(dev), rays.to(dev))
+
+    runs = {}
+    for tag, fn in (("one", one), ("sharded", lambda: sharded(req, rays))):
+        fn()  # warm: kernel build, allocator
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        out = fn()
+        torch.cuda.synchronize()
+        runs[tag] = (out, kernels.launch_counts(),
+                     dict(pipe.last_frame_stats))
+    (want, c1, s1), (got, c2, s2) = runs["one"], runs["sharded"]
+    errs = {k: float((got[k].to(dev) - want[k]).abs().max()) for k in want}
+    same = all(torch.equal(got[k].to(dev), want[k]) for k in want)
+    check(all(errs[k] <= K_MAP_TOL[k] for k in want), f"k1: sharded maps "
+          f"against one device's {errs}, bounds {K_MAP_TOL}")
+    check(float(want["acc_map"].max()) > 0.5, "k1: no ray with acc > 0.5")
+    check(s1 == s2, f"k1: frame stats {s2} sharded vs {s1}")
+    chunks = -(-n // cr)
+    shares = sum(b > a for a, b in share_bounds(n, cr, r))
+    with_survivors = c1["dparf"]
+    predicted = {
+        "one": {"min_excess2": chunks, "dparf": with_survivors,
+                "feature_gather": with_survivors + 1},
+        "sharded": {"min_excess2": chunks, "dparf": with_survivors,
+                    "feature_gather": with_survivors + shares}}
+    for tag, counts in (("one", c1), ("sharded", c2)):
+        want_counts = dict.fromkeys(counts, 0)
+        want_counts.update(predicted[tag])
+        check(counts == want_counts, f"k1 {tag}: launches {counts}, the "
+              f"code predicts {want_counts}")
+    ms = {1: [], r: []}
+    for tag in (1, r, r, 1, 1, r):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        one() if tag == 1 else sharded(req, rays)
+        torch.cuda.synchronize()
+        ms[tag].append((time.perf_counter() - t) * 1e3)
+    layout = ("two shares on one card: this measures the wiring, not the "
+              "scaling" if devices[0] == devices[1] else "one share a card")
+    log(f"[k1 ray-sharded render] full width, {hw}x{hw}, {n} rays in "
+        f"{chunks} chunks of {cr}, over {[str(d) for d in devices]} "
+        f"({layout}): maps "
+        f"{'bit-equal' if same else 'not bit-equal'} to one device's "
+        f"(max |d| {errs}); survivors {s2['survivors']} of {s2['points']} "
+        f"both ways; launches one device {c1}, sharded {c2} = K1 "
+        f"{chunks} chunks, K2 {with_survivors} chunks with survivors, K4 "
+        f"K2 + {shares} prologue fetches (one per share); render ms R=1 "
+        f"{[round(x, 1) for x in ms[1]]} (median "
+        f"{float(np.median(ms[1])):.1f}), R={r} "
+        f"{[round(x, 1) for x in ms[r]]} (median "
+        f"{float(np.median(ms[r])):.1f})  [{card}]")
+    return c2
+
+
+def phase_ray_eval(card: str, tmp: str, ckpt: str) -> dict:
+    """k2. On two cards or more, the run entry point --type evaluate with
+    mesh_axis_rays 2 against mesh_axis_rays 1: the metric files equal.  On
+    one card, the entry point's refusal with its counts, then
+    evaluate_frames through FrameRenderer(devices=[cuda:0, cuda:0])
+    against the unsharded frames: per-frame PSNR and SSIM within 1e-9.
+    Full width, 512x512, phase 7's checkpoint, 2 frames.  Returns the
+    sharded evaluation's launches."""
+    from transhuman_tpu_torch import kernels
+    from transhuman_tpu_torch.cli import run as run_cli
+    from transhuman_tpu_torch.cli.common import build_runtime
+    from transhuman_tpu_torch.config import Config
+    from transhuman_tpu_torch.data.synthetic import SyntheticDataset
+    from transhuman_tpu_torch.evals.evaluator import Evaluator
+    from transhuman_tpu_torch.train.checkpoint import read_checkpoint
+    from transhuman_tpu_torch.weights import load_reference_state_dict
+
+    run = os.path.join(tmp, "k2")
+    base = ["--type", "evaluate", "--device", "cuda", "--weights", ckpt,
+            "dataset", "synthetic", *K_EVAL_FRAMES]
+    cards = torch.cuda.device_count()
+    metrics, counts = {}, {}
+    if cards >= 2:
+        for r in (1, 2):
+            res = os.path.join(run, f"res{r}")
+            kernels.reset_launch_counts()
+            run_cli.main([*base, "result_dir", res, "mesh_axis_rays",
+                          str(r)])
+            counts[r] = kernels.launch_counts()
+            out_dir = os.path.join(res, "epoch_-1", "debug")
+            metrics[r] = {m: np.load(os.path.join(out_dir, f"{m}.npy"))
+                          for m in ("mse", "psnr", "ssim")}
+        for m in metrics[1]:
+            check(np.array_equal(metrics[1][m], metrics[2][m]), f"k2: "
+                  f"{m}.npy with mesh_axis_rays 2 {metrics[2][m]} vs 1 "
+                  f"{metrics[1][m]}")
+        log(f"[k2 ray-sharded evaluate] the run entry point over cuda:0 "
+            f"and cuda:1: metric files equal to mesh_axis_rays 1 "
+            f"(psnr {metrics[2]['psnr']}); launches {counts[2]}  [{card}]")
+        return counts[2]
+    try:
+        run_cli.main([*base, "result_dir", os.path.join(run, "refused"),
+                      "mesh_axis_rays", "2"])
+        refused = None
+    except SystemExit as e:
+        refused = str(e)
+    check(refused is not None and "needs cards 0..1, but 1 CUDA card"
+          in refused, f"k2: mesh_axis_rays 2 on one card: {refused!r}")
+    cfg = Config().merge_opts(list(K_EVAL_FRAMES))
+    data = SyntheticDataset(cfg, "test", image_hw=(512, 512))
+    ck = read_checkpoint(ckpt, cfg.vit_depth)
+    model, pipe, _, _ = build_runtime(cfg, torch.device("cuda"),
+                                      smpl=data.smpl,
+                                      pe_table=ck["pe_table"])
+    load_reference_state_dict(model, ck["net"])
+    frames = {}
+    for r, devices in ((1, None), (2, ["cuda:0", "cuda:0"])):
+        ev = Evaluator(os.path.join(run, f"frames{r}"))
+        rcfg = cfg.merge_opts(["mesh_axis_rays", str(r)])
+        renderer = run_cli.FrameRenderer(rcfg, pipe, devices)
+        got = frames[r] = ([], [])
+
+        def per_frame(item, out, ev=ev, got=got):
+            got[0].append(ev.psnr[-1])
+            got[1].append(ev.ssim[-1])
+            return {}
+
+        kernels.reset_launch_counts()
+        run_cli.evaluate_frames(rcfg, pipe, data, ev, per_frame=per_frame,
+                                renderer=renderer)
+        counts[r] = kernels.launch_counts()
+    check(len(frames[1][0]) == len(frames[2][0]) == 2, f"k2: frames "
+          f"{frames}")
+    gaps = [max(abs(a - b) for a, b in zip(frames[1][i], frames[2][i]))
+            for i in (0, 1)]
+    check(max(gaps) <= 1e-9, f"k2: per-frame psnr/ssim sharded {frames[2]} "
+          f"vs one device {frames[1]}")
+    log(f"[k2 ray-sharded evaluate] one card: the entry point refuses "
+        f"mesh_axis_rays 2 ({refused}); evaluate_frames over [cuda:0, "
+        f"cuda:0] vs one device, 2 frames at 512x512: psnr {frames[2][0]}, "
+        f"largest gaps psnr {gaps[0]:.3g}, ssim {gaps[1]:.3g}; launches "
+        f"{counts[2]} (one device {counts[1]})  [{card}]")
+    return counts[2]
+
+
+def write_smpl_pickle(model_dir: str):
+    """SMPLModel.synthetic() in the official SMPL pickle's layout, as
+    SMPL_NEUTRAL.pkl under model_dir: the stand-in for the licensed file."""
+    import pickle
+
+    from transhuman_tpu_torch.geometry.smpl import SMPLModel
+
+    smpl = SMPLModel.synthetic()
+    kintree = np.zeros((2, smpl.weights.shape[1]), np.int64)
+    kintree[1] = np.arange(kintree.shape[1])
+    kintree[0, 1:] = smpl.parent
+    os.makedirs(model_dir, exist_ok=True)
+    with open(os.path.join(model_dir, "SMPL_NEUTRAL.pkl"), "wb") as f:
+        pickle.dump({"v_template": smpl.v_template,
+                     "shapedirs": smpl.shapedirs, "posedirs": smpl.posedirs,
+                     "J_regressor": smpl.J_regressor,
+                     "weights": smpl.weights, "kintree_table": kintree,
+                     "f": smpl.faces}, f)
+
+
+def phase_make_kmeans(card: str, tmp: str) -> tuple:
+    """k5. tools/make_kmeans on the stand-in SMPL pickle (300 clusters,
+    seed 0): its file loads back through ClusterSpec.load_reference_dict
+    with the assignment k-means gives here.  Returns (the SMPL directory,
+    the kmeans file) for k4."""
+    from transhuman_tpu_torch.geometry.clusters import ClusterSpec
+    from transhuman_tpu_torch.geometry.smpl import SMPLModel
+    from transhuman_tpu_torch.tools import make_kmeans
+
+    smpl_dir = os.path.join(tmp, "k5", "smpl")
+    write_smpl_pickle(smpl_dir)
+    t = time.perf_counter()
+    path = make_kmeans.main(["--smpl_dir", smpl_dir, "--num_clusters", "300",
+                             os.path.join(tmp, "k5", "kmeans")])
+    secs = time.perf_counter() - t
+    spec = ClusterSpec.load_reference_dict(path)
+    want = ClusterSpec.from_kmeans(SMPLModel.load(smpl_dir).v_template, 300)
+    check(spec.num_clusters == 300 and np.array_equal(
+        spec.vert2cluster, want.vert2cluster), f"k5: {path} loads back "
+          f"with another assignment")
+    log(f"[k5 make_kmeans] {path}: 6890 vertices into 300 clusters in "
+        f"{secs:.2f} s (host), loads back with the same assignment  [{card}]")
+    return smpl_dir, path
+
+
+def phase_doctor(card: str, tmp: str, zju_root: str, ckpt: str):
+    """k3. tools/doctor on the card over phase g's laid-out CoreView_387
+    (run_mode test) with phase 7's checkpoint in its model directory: exit
+    code 0, and the card, nvcc, g++ and both build rows PASS."""
+    import contextlib
+
+    from transhuman_tpu_torch.tools import doctor
+
+    mdir = os.path.join(tmp, "k3", "model", "transhuman", "transhuman_tpu")
+    os.makedirs(mdir)
+    try:
+        os.link(ckpt, os.path.join(mdir, "latest.pth"))
+    except OSError:
+        shutil.copyfile(ckpt, os.path.join(mdir, "latest.pth"))
+    buf = io.StringIO()
+    t = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = doctor.main(["data_root", zju_root, "rasterize_root",
+                          os.path.join(zju_root, "raster"), "run_mode", "test",
+                          "trained_model_dir", os.path.join(tmp, "k3",
+                                                            "model")])
+    secs = time.perf_counter() - t
+    out = buf.getvalue()
+    for line in out.splitlines():
+        if line.strip():
+            log(f"[k3 doctor] {line}")
+    check(rc == 0, f"k3: doctor exit code {rc}")
+    for row in ("CUDA card", "nvcc", "g++", "kernel build",
+                "host-library build", "checkpoint", "sample frame"):
+        check(f"[PASS] {row}" in out, f"k3: doctor's {row} row is not PASS")
+    log(f"[k3 doctor] exit 0 in {secs:.2f} s  [{card}]")
+
+
+def write_official_pth(path: str, vit_depth: int = 12):
+    """Random weights under every key of the official checkpoint
+    (tools/convert_checkpoint.py::official_key_inventory), as the JAX
+    package's runbook test builds its stand-in."""
+    from transhuman_tpu_torch.tools.convert_checkpoint import (
+        official_key_inventory)
+
+    g = torch.Generator().manual_seed(0)
+    sd = {}
+    for k, shape in official_key_inventory(vit_depth).items():
+        if k.endswith("num_batches_tracked"):
+            sd[k] = torch.tensor(2100, dtype=torch.int64)
+        elif k.endswith("running_var"):
+            sd[k] = torch.rand(shape, generator=g) + 0.5
+        else:
+            sd[k] = torch.randn(shape, generator=g) * 0.02
+    torch.save({"net": sd, "epoch": 2100}, path)
+
+
+def phase_validate_official(card: str, tmp: str, smpl_dir: str,
+                            kmeans: str):
+    """k4. tools/validate_official on the card over a laid-out
+    CoreView_377 (frames 0 and 300 of 301: the fitting and pose
+    protocols') and CoreView_387 (frame 0: identity and one-shot), with a
+    stand-in official .pth at full width, k5's SMPL and k-means files, all
+    four protocols from configs/train_or_eval.yaml, K_PROTOCOL_CUT's depth:
+    exit 0, the report written, and each protocol's PSNR and SSIM those of
+    a direct cli.run --type evaluate with the same argv."""
+    import argparse
+
+    from transhuman_tpu_torch.cli import run as run_cli
+    from transhuman_tpu_torch.tools import validate_official as vo
+
+    run = os.path.join(tmp, "k4")
+    root = os.path.join(run, "zju")
+    write_zju_layout(root, "CoreView_377", [0, 300], 301)
+    write_zju_layout(root, "CoreView_387", [0], 1, seed=1)
+    pth = os.path.join(run, "official.pth")
+    write_official_pth(pth)
+    work = os.path.join(run, "work")
+    labels = [p[0] for p in vo.PROTOCOLS]
+    t = time.perf_counter()
+    rc = vo.main(["--zju_root", root, "--rasterize_root",
+                  os.path.join(root, "raster"), "--official_ckpt", pth,
+                  "--smpl_dir", smpl_dir, "--kmeans", kmeans, "--workdir",
+                  work, "--cfg_file", os.path.join(CONFIGS,
+                                                   "train_or_eval.yaml"),
+                  "--protocols", *labels, "--opts", *K_PROTOCOL_CUT])
+    secs = time.perf_counter() - t
+    check(rc == 0, f"k4: validate_official exit code {rc}")
+    with open(os.path.join(work, "parity_report.json")) as f:
+        rows = {r["protocol"]: r for r in json.load(f)["results"]}
+    check(sorted(rows) == sorted(labels), f"k4: report rows {sorted(rows)}")
+    direct = argparse.Namespace(
+        device="cuda", official_ckpt=pth, zju_root=root, smpl_dir=smpl_dir,
+        rasterize_root=os.path.join(root, "raster"), kmeans=kmeans,
+        cfg_file=os.path.join(CONFIGS, "train_or_eval.yaml"),
+        task="transhuman", workdir=os.path.join(run, "direct"),
+        opts=K_PROTOCOL_CUT)
+    lines = []
+    for label, mode, views in vo.PROTOCOLS:
+        s = run_cli.main(vo.build_argv(direct, label, mode, views, ""))
+        row = rows[label]
+        check(np.isfinite(row["psnr"]) and np.isfinite(row["ssim"]) and
+              abs(s["psnr"] - row["psnr"]) <= 1e-9 and
+              abs(s["ssim"] - row["ssim"]) <= 1e-9, f"k4 {label}: report "
+              f"{row} vs the direct evaluate {s}")
+        lines.append(f"{label} psnr {row['psnr']:.4f} ssim "
+                     f"{row['ssim']:.4f}")
+    with open(os.path.join(work, "parity_report.txt")) as f:
+        check(f.read().startswith("fitting:"), "k4: parity_report.txt")
+    log(f"[k4 validate_official] 4 protocols (one frame, one target view "
+        f"each) on the card from train_or_eval.yaml (bf16) in {secs:.1f} s, "
+        f"each equal to a direct evaluate: {'; '.join(lines)}  [{card}]")
+
+
+
+def lap(t0: float, done: str):
+    """The script's seconds so far, after the phases named ``done``."""
+    log(f"[time] {time.perf_counter() - t0:.1f} s after {done}")
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing ran", file=sys.stderr)
@@ -3781,6 +4145,7 @@ def main() -> int:
     card = phase_device()
     phase_build()
     kernels = phase_kernels(card)
+    lap(t0, "1-3 device, build, kernels")
     render32 = phase_parity(card)
     serve_counts = phase_serve(card)
     card6 = {}
@@ -3793,6 +4158,7 @@ def main() -> int:
         eval_counts = phase_eval(card, ckpt, tmp)
         phase_recon_parity(card)
         recon_counts, k1_grid = phase_reconstruction(card, ckpt, tmp)
+        lap(t0, "4-11 float32 paths")
         # bf16: parity against the CPU, then every path at full width
         phase_parity(card, "bfloat16", render32)
         phase_train_parity(card, "bfloat16", step32)
@@ -3805,6 +4171,7 @@ def main() -> int:
         by_path["eval_bf16"] = phase_eval(card, ckpt16, tmp, "bfloat16")
         by_path["reconstruction_bf16"] = phase_reconstruction(
             card, ckpt16, tmp, "bfloat16")[0]
+        lap(t0, "12-13 bf16")
         # the config files, LPIPS and the train loop's lifecycle
         files = write_weight_files(tmp)
         phase_lpips(card, files["lpips"])
@@ -3815,6 +4182,7 @@ def main() -> int:
         by_path.update(phase_eval_cfg(card, tmp, model_root, files))
         lp32 = phase_train_parity(card, lpips=files["lpips"])
         phase_train_parity(card, "bfloat16", lp32, lpips=files["lpips"])
+        lap(t0, "a-d config files, LPIPS, lifecycle")
         # the ZJU-MoCap loader: its codec, then train, evaluate, visualize
         # and reconstruction on laid-out humans
         phase_codec(card)
@@ -3823,6 +4191,7 @@ def main() -> int:
         by_path.update(phase_eval_zju(card, tmp, zju_models))
         # visibility from depth maps on phase g's and f's laid-out humans
         by_path.update(phase_depth(card, tmp, zju_root, zju_models))
+        lap(t0, "e-g, i ZJU and depth maps")
         # batches, the train cull, remat and the per-vertex radii cull
         k1_bias = phase_cull_bias(card)
         phase_batch_parity(card, card6)
@@ -3830,6 +4199,7 @@ def main() -> int:
         by_path.update(h3_paths)
         by_path.update(phase_radii(card, tmp, ckpt_b4))
         by_path.update(phase_train_zju_batch(card, tmp, zju_root, files))
+        lap(t0, "h batches and culls")
         # data parallelism: train over ranks, then evaluate, visualize and
         # reconstruct with the frames split between them
         t_j = time.perf_counter()
@@ -3837,6 +4207,14 @@ def main() -> int:
         by_path.update(j_paths)
         by_path.update(phase_sharded_eval(card, tmp, dp_ckpt))
         log(f"[j] phase j in {time.perf_counter() - t_j:.1f} s")
+        # ray-sharded inference and the remaining tools
+        t_k = time.perf_counter()
+        by_path["ray_sharded"] = phase_ray_render(card)
+        by_path["ray_sharded_eval"] = phase_ray_eval(card, tmp, ckpt)
+        smpl_dir, kmeans = phase_make_kmeans(card, tmp)
+        phase_doctor(card, tmp, os.path.join(tmp, "zju_eval"), ckpt)
+        phase_validate_official(card, tmp, smpl_dir, kmeans)
+        log(f"[k] phase k in {time.perf_counter() - t_k:.1f} s")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     for k in kernels:

@@ -15,6 +15,7 @@ import yaml
 
 from transhuman_tpu.config import Config as JConfig
 from transhuman_tpu_torch import config as tconfig
+from transhuman_tpu_torch import registry
 from transhuman_tpu_torch.cli import common
 from transhuman_tpu_torch.config import Config
 from transhuman_tpu_torch.utils.yaml_subset import YAMLSubsetError, load
@@ -181,22 +182,38 @@ REFUSE = [("compute_dtype", "float16", "float32 or bfloat16"),
 
 @pytest.mark.parametrize("key,value,why", REFUSE)
 def test_values_the_port_cannot_run_are_refused_by_name(key, value, why):
+    """A value outside REFUSED's is a ValueError; a plugin name that no
+    implementation registered is the registry's KeyError, which lists the
+    known names (``why`` holds the one the port registers); the entry
+    points refuse both when they parse their arguments."""
     cfg = Config().merge_opts([key, value])
-    with pytest.raises(ValueError, match=rf"{key} .*{why}"):
-        tconfig.check_supported(cfg)
-    with pytest.raises(ValueError, match=key):
+    if key in registry.PLUGIN_FIELDS:
+        assert key not in tconfig.REFUSED
+        assert tconfig.check_supported(cfg) is cfg
+        err = KeyError
+        with pytest.raises(err, match=rf"Unknown {key} '{value}'; known: "
+                                      rf"\['{why}'\]"):
+            registry.check_plugins(cfg)
+    else:
+        err = ValueError
+        with pytest.raises(err, match=rf"{key} .*{why}"):
+            tconfig.check_supported(cfg)
+    with pytest.raises(err, match=key):
         common.parse_args([key, value])
 
 
 def test_dataset_zju_is_refused_where_a_dataset_is_built():
     """zju is no longer refused: without its data on disk the loader fails
-    by name; an unknown dataset is refused; synthetic builds."""
+    by name; an unknown dataset is the registry's KeyError, with the known
+    names; synthetic builds."""
     cfg = Config().merge_opts(["data_root", "/nonexistent/zju"])
-    assert "zju" in tconfig.DATASETS and cfg.dataset == "zju"
+    assert cfg.dataset == "zju"
     assert tconfig.check_supported(cfg) is cfg
     with pytest.raises(FileNotFoundError, match="no annots.npy"):
         common.make_dataset(cfg, "train")
-    with pytest.raises(ValueError, match="unknown dataset"):
+    assert "zju" in registry.DATASETS
+    with pytest.raises(KeyError, match=r"Unknown dataset 'nope'; known: "
+                                       r"\['synthetic', 'zju'\]"):
         common.make_dataset(Config().merge_opts(["dataset", "nope"]), "test")
     data = common.make_dataset(Config().merge_opts(
         ["dataset", "synthetic", "H", "32", "W", "32", "num_class", "8"]),
@@ -238,20 +255,22 @@ def test_tpu_only_keys_warn_and_are_kept(capsys):
     assert "steers" not in capsys.readouterr().err
 
 
-def test_mesh_axis_data_is_honoured_and_the_other_mesh_axes_warn(capsys):
+def test_mesh_axes_data_and_rays_are_honoured_and_mesh_axis_model_warns(
+        capsys):
     """mesh_axis_data sizes the port's data-parallel mesh (checked against
-    the world size by parallel.make_mesh) and merges without a warning;
-    mesh_axis_rays and mesh_axis_model still steer the TPU package only."""
-    assert tconfig.KEY_CLASSES["mesh_axis_data"] == "honoured"
-    assert "mesh_axis_data" not in tconfig.TPU_ONLY_KEYS
-    cfg = Config().merge_opts(["mesh_axis_data", "2"])
-    assert cfg.mesh_axis_data == 2
-    assert "steers" not in capsys.readouterr().err
-    for key in ("mesh_axis_rays", "mesh_axis_model"):
-        assert tconfig.KEY_CLASSES[key] == "tpu_only"
-        Config().merge_opts([key, "2"])
-        assert f"'{key}' steers the TPU package only" in \
-            capsys.readouterr().err
+    the world size by parallel.make_mesh) and mesh_axis_rays splits a
+    frame's rays over devices (parallel/infer.py); both merge without a
+    warning.  mesh_axis_model still steers the TPU package only."""
+    for key in ("mesh_axis_data", "mesh_axis_rays"):
+        assert tconfig.KEY_CLASSES[key] == "honoured"
+        assert key not in tconfig.TPU_ONLY_KEYS
+        cfg = Config().merge_opts([key, "2"])
+        assert getattr(cfg, key) == 2
+        assert "steers" not in capsys.readouterr().err
+    assert tconfig.KEY_CLASSES["mesh_axis_model"] == "tpu_only"
+    Config().merge_opts(["mesh_axis_model", "2"])
+    assert "'mesh_axis_model' steers the TPU package only" in \
+        capsys.readouterr().err
 
 
 SMALL = ["dataset", "synthetic", "H", "64", "W", "64", "num_class", "20",

@@ -185,13 +185,20 @@ NEW_MODULES = {
     "transhuman_tpu_torch.tools.render_mesh_video",
     "transhuman_tpu_torch.parallel", "transhuman_tpu_torch.parallel.mesh",
     "transhuman_tpu_torch.utils.filelock",
+    "transhuman_tpu_torch.parallel.infer", "transhuman_tpu_torch.registry",
+    "transhuman_tpu_torch.utils.debug",
+    "transhuman_tpu_torch.tools.make_kmeans",
+    "transhuman_tpu_torch.tools.data_fixes",
+    "transhuman_tpu_torch.tools.doctor",
+    "transhuman_tpu_torch.tools.validate_official",
 }
 
 
 def test_config_lpips_and_lifecycle_modules_import_alone(probe):
     """The config reader, LPIPS, the converters, the checkpoints, the
-    Recorder and its event writer import with JAX, the JAX package, PyYAML,
-    OpenCV and imageio all unimportable."""
+    Recorder and its event writer, the ray-sharded render, the registries
+    and the tools import with JAX, the JAX package, PyYAML, OpenCV and
+    imageio all unimportable."""
     assert NEW_MODULES <= set(probe["modules"]) | {"transhuman_tpu_torch"}
 
 

@@ -79,6 +79,71 @@ def test_kernel_ab_inputs_are_seeded_and_it_needs_a_card(monkeypatch):
         kernel_ab.main(["--parent", "."])
 
 
+def _in_threads(n_threads: int, fn):
+    """Run fn in n_threads threads at once with a short switch interval;
+    join each within 60 s."""
+    import sys
+    import threading
+
+    start = threading.Barrier(n_threads)
+
+    def run():
+        start.wait()
+        fn()
+
+    old = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        threads = [threading.Thread(target=run) for _ in range(n_threads)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=60)
+    finally:
+        sys.setswitchinterval(old)
+    assert not any(t.is_alive() for t in threads)
+
+
+def test_launch_counts_add_up_across_threads():
+    """count_launches loses no update when 16 threads count at once."""
+    from transhuman_tpu_torch.kernels import build
+
+    def wrapper():
+        pass
+
+    wrapper.launches = 0
+
+    def count():
+        for _ in range(2000):
+            build.count_launches(wrapper)
+        build.count_launches(wrapper, 3)
+
+    _in_threads(16, count)
+    assert wrapper.launches == 16 * 2003
+    build.reset_launches([wrapper])
+    assert wrapper.launches == 0
+
+
+@pytest.mark.cuda
+def test_kernel_launch_counts_add_up_across_threads(cuda):
+    """R threads each launch K1 N times on the card (as the shares of a
+    ray-sharded render do): the count comes out R·N."""
+    r, n = 4, 50
+    p, ref = _rand((1000, 3), 0, 0.5, cuda), _rand((700, 3), 1, 0.4, cuda)
+    b = torch.zeros(700, device=cuda)
+    cull.min_excess2_cuda(p, ref, b)  # build and load before the threads
+    kernels.reset_launch_counts()
+
+    def launch():
+        with torch.cuda.device(cuda):
+            for _ in range(n):
+                cull.min_excess2_cuda(p, ref, b)
+
+    _in_threads(r, launch)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["min_excess2"] == r * n
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("n, m", [(1, 7), (1000, 1500), (5000, 6890)])
 def test_cull_kernel_matches_plain(cuda, n, m):

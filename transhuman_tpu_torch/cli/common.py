@@ -13,11 +13,11 @@ from typing import Optional
 import numpy as np
 import torch
 
-from ..config import DATASETS, Config, check_supported
+from ..config import Config, check_supported
 from ..geometry.clusters import ClusterSpec
 from ..geometry.smpl import SMPLModel
-from ..models.network import TransHumanNet
-from ..render.pipeline import RenderPipeline
+from ..registry import (DATASETS, NETWORKS, RENDERERS, check_plugins,
+                        load_builtins)
 
 
 def add_config_args(p: argparse.ArgumentParser):
@@ -31,8 +31,10 @@ def add_config_args(p: argparse.ArgumentParser):
 def load_config(args) -> Config:
     """The config of ``--cfg_file`` with the overrides applied, as the JAX
     package's ``Config.from_yaml``; a value the port cannot run is an
-    error by name."""
-    return check_supported(Config.from_yaml(args.cfg_file, args.opts))
+    error by name, and a plugin name no implementation registered the
+    registry's KeyError."""
+    return check_plugins(check_supported(Config.from_yaml(args.cfg_file,
+                                                          args.opts)))
 
 
 def parse_args(argv=None, need_type: bool = False, allow_test: bool = False,
@@ -78,7 +80,8 @@ def seed_everything(seed: int):
     torch.manual_seed(seed)
 
 
-def configure_device(name: str, dist_backend: str = "nccl") -> torch.device:
+def configure_device(name: str, dist_backend: str = "nccl",
+                     rays: int = 1) -> torch.device:
     """The device an entry point runs on.  For a card: fail without one,
     and take float32 products and convolutions in full float32 (TF32 off;
     cuDNN convolutions default to TF32) and bf16 products with float32
@@ -86,7 +89,10 @@ def configure_device(name: str, dist_backend: str = "nccl") -> torch.device:
     not).  Under torchrun (LOCAL_RANK set) a rank takes card LOCAL_RANK
     and makes it current; more local ranks than cards is an error with the
     counts, unless dist_backend is gloo, where the ranks share the cards
-    round-robin and say so (NCCL refuses two ranks on one card)."""
+    round-robin and say so (NCCL refuses two ranks on one card).  With
+    ``rays`` = mesh_axis_rays R > 1 each rank owns R cards and takes card
+    LOCAL_RANK·R, the first of them; LOCAL_WORLD_SIZE·R cards more than
+    there are is an error with the counts, on any backend."""
     device = torch.device(name)
     if device.type == "cuda":
         if not torch.cuda.is_available():
@@ -95,7 +101,15 @@ def configure_device(name: str, dist_backend: str = "nccl") -> torch.device:
             local = int(os.environ["LOCAL_RANK"])
             n_local = int(os.environ.get("LOCAL_WORLD_SIZE", local + 1))
             cards = torch.cuda.device_count()
-            if n_local > cards:
+            if rays > 1:
+                if n_local * rays > cards:
+                    raise SystemExit(
+                        f"{n_local} local ranks x mesh_axis_rays {rays} need "
+                        f"{n_local * rays} CUDA cards but {cards} are "
+                        f"visible; launch at most {cards // rays} ranks per "
+                        "node")
+                local *= rays
+            elif n_local > cards:
                 if dist_backend != "gloo":
                     raise SystemExit(
                         f"{n_local} local ranks but {cards} CUDA card(s): "
@@ -170,41 +184,32 @@ def build_runtime(cfg: Config, device, smpl: Optional[SMPLModel] = None,
     pe_table is a checkpoint's stored TransHE table, or None.  The pipe
     culls with ``cull_radii``'s per-vertex radii when it names an npz
     (key ``radii``, as ``tools/measure_vertex_radii`` writes it), and takes
-    ``remat`` and ``train.cull``."""
+    ``remat`` and ``train.cull``.  cfg.network and cfg.renderer pick the
+    implementations by registry name (the reference's make_network and
+    make_renderer)."""
+    load_builtins()
     if smpl is None:
         smpl = load_smpl(cfg)
     cluster = load_cluster_spec(cfg, smpl)
-    model = TransHumanNet.from_config(cfg).to(device).eval()
+    model = NETWORKS.get(cfg.network)(cfg).to(device).eval()
     vertex_radii = None
     if cfg.cull_radii:
         with np.load(cfg.cull_radii) as z:
             vertex_radii = np.asarray(z["radii"], np.float32)
-    pipe = RenderPipeline(
-        model, cluster, smpl.v_template, n_samples=cfg.N_samples,
-        chunk_rays=max(cfg.chunk_size // cfg.N_samples, 1),
-        cull_distance=cfg.cull_distance, white_bkgd=cfg.white_bkgd,
-        raw_noise_std=cfg.raw_noise_std, device=device, pe_table=pe_table,
-        vertex_radii=vertex_radii, remat=cfg.remat,
-        train_cull=cfg.train.cull,
-    )
+    pipe = RENDERERS.get(cfg.renderer)(model, cluster, smpl.v_template, cfg,
+                                       device, pe_table=pe_table,
+                                       vertex_radii=vertex_radii)
     return model, pipe, smpl, cluster
 
 
 def make_dataset(cfg: Config, split: str, smpl: Optional[SMPLModel] = None):
-    """The dataset cfg.dataset names: ``zju``, the ZJU-MoCap layout under
-    cfg.data_root (data/zju.py), posed by ``smpl`` (default: load_smpl's);
+    """The dataset cfg.dataset names in the registry (the reference's
+    make_dataset): ``zju``, the ZJU-MoCap layout under cfg.data_root
+    (data/zju.py), posed by ``smpl`` (default: load_smpl's);
     ``synthetic``, the seeded synthetic scene at the render size
     (H_render x W_render)."""
-    if cfg.dataset not in DATASETS:
-        raise ValueError(f"unknown dataset {cfg.dataset!r}; known: "
-                         f"{sorted(DATASETS)}")
-    if cfg.dataset == "zju":
-        from ..data.zju import ZJUDataset
-
-        return ZJUDataset(cfg, split, smpl=smpl or load_smpl(cfg))
-    from ..data.synthetic import SyntheticDataset
-
-    return SyntheticDataset(cfg, split, image_hw=(cfg.H_render, cfg.W_render))
+    load_builtins()
+    return DATASETS.get(cfg.dataset)(cfg, split, smpl=smpl)
 
 
 def model_dir(cfg: Config) -> str:

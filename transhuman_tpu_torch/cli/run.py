@@ -31,10 +31,14 @@ needs no card and no checkpoint.
 
 ``FrameRenderer`` also serves ``serve.py``: ``dispatch`` moves a frame and
 its rays to the pipeline's device and renders it; ``fetch`` brings the maps
-back to the host.  ``render_frame`` waits on the card at every chunk's
-compaction (``torch.nonzero``), so ``dispatch`` returns only when the last
-chunk's work is queued: host work placed after it overlaps that tail and
-no more.  The loops here therefore render, fetch and evaluate each frame in
+back to the host.  With ``mesh_axis_rays`` R > 1 it splits each frame's
+rays over R devices of this process (parallel/infer.py): on the card
+cuda:0..R-1, or under torchrun cuda:(LOCAL_RANK·R).., which composes with
+the frame split below; fewer cards is an error with the counts.
+``render_frame`` waits on the card at every chunk's compaction
+(``torch.nonzero``), so ``dispatch`` returns only when the last chunk's
+work is queued: host work placed after it overlaps that tail and no
+more.  The loops here therefore render, fetch and evaluate each frame in
 turn; only the loader's eval rays run beside the render.
 
 Under torchrun (``python -m torch.distributed.run --nproc_per_node N -m
@@ -71,10 +75,31 @@ from ..parallel.mesh import (
 
 
 class FrameRenderer:
-    def __init__(self, cfg, pipe):
+    """The frame render of evaluate, visualize, validation and serve.  With
+    ``mesh_axis_rays`` R > 1 the rays of a frame are split over R devices
+    (parallel/infer.py): ``devices``, or by default R cards from cuda:(base)
+    on (``ray_devices``: base = LOCAL_RANK·R under torchrun), or R entries
+    of ``cpu`` for a pipe on the CPU.  ``devices`` lists the devices a
+    frame renders on."""
+
+    def __init__(self, cfg, pipe, devices=None):
         self._cfg, self._pipe = cfg, pipe
+        self.devices = [pipe.device]
+        self._sharded = None
+        r = cfg.mesh_axis_rays
+        if r > 1 or devices is not None:
+            from ..parallel.infer import make_sharded_render, ray_devices
+
+            self.devices = (ray_devices(pipe.device, r) if devices is None
+                            else [torch.device(d) for d in devices])
+            if len(self.devices) != r:
+                raise ValueError(f"mesh_axis_rays={r} but {len(self.devices)}"
+                                 " devices were given")
+            self._sharded = make_sharded_render(pipe, self.devices)
 
     def dispatch(self, frame, eval_rays):
+        if self._sharded is not None:
+            return self._sharded(frame, eval_rays.rays)
         dev = self._pipe.device
         return self._pipe.render_frame(frame.to(dev), eval_rays.rays.to(dev))
 
@@ -84,16 +109,17 @@ class FrameRenderer:
 
 
 def evaluate_frames(cfg, pipe, dataset, ev, per_frame=None, tag="",
-                    mesh=None):
+                    mesh=None, renderer=None):
     """Render this rank's FrameSampler frames (every frame in one process),
     feed the evaluator, print one line per frame; the loader makes the
     next frames' eval rays while the card renders.  per_frame(item, out)
     -> extra stats dict, averaged.  Over a distributed mesh the per-frame
     metrics and extra stats are gathered in frame order and rank 0 writes
-    the files.  Returns (the evaluator's summary, the mean extra stats),
-    the same on every rank."""
+    the files.  renderer: a FrameRenderer of pipe (default: one built from
+    cfg).  Returns (the evaluator's summary, the mean extra stats), the
+    same on every rank."""
     mesh = mesh or DataMesh()
-    renderer = FrameRenderer(cfg, pipe)
+    renderer = renderer or FrameRenderer(cfg, pipe)
     local, positions = frame_shard(dataset.frame_sampler_indices(), mesh)
     items = Loader(lambda i: dataset.get_eval_item(int(i)), local)
     extra_vals = {}
@@ -148,11 +174,12 @@ def make_eval_lpips_fn(cfg, device):
 
 def run_evaluate(cfg, pipe, dataset, epoch: int = -1, per_frame=None,
                  device="cpu", mesh=None):
-    from ..evals.evaluator import Evaluator
+    from ..registry import EVALUATORS
     from .common import result_dir
 
-    ev = Evaluator(result_dir(cfg), lpips_fn=make_eval_lpips_fn(cfg, device),
-                   exp_name=cfg.exp_name, epoch=epoch)
+    ev = EVALUATORS.get(cfg.evaluator)(
+        result_dir(cfg), lpips_fn=make_eval_lpips_fn(cfg, device),
+        exp_name=cfg.exp_name, epoch=epoch)
     summary, _ = evaluate_frames(cfg, pipe, dataset, ev, per_frame,
                                  mesh=mesh)
     print(summary, flush=True)
@@ -163,13 +190,13 @@ def run_visualize(cfg, pipe, dataset, mesh=None):
     """One PNG per frame (this rank's frames), then one video per human,
     assembled by rank 0 from every rank's PNGs once all are written;
     returns this rank's PNG paths."""
-    from ..viz.perform import PerformVisualizer
+    from ..registry import VISUALIZERS
     from ..viz.video import frames_to_video
     from .common import result_dir
 
     mesh = mesh or DataMesh()
-    vis = PerformVisualizer(os.path.join(result_dir(cfg), "perform"),
-                            white_bkgd=cfg.white_bkgd)
+    vis = VISUALIZERS.get(cfg.visualizer)(
+        os.path.join(result_dir(cfg), "perform"), white_bkgd=cfg.white_bkgd)
     renderer = FrameRenderer(cfg, pipe)
     local, _ = frame_shard(dataset.frame_sampler_indices(full_eval=True),
                            mesh)
@@ -258,7 +285,8 @@ def main(argv=None, dataset=None, per_frame=None):
     args, cfg = parse_args(argv)
     if args.type == "light_stage":
         return run_light_stage(cfg, args.ply, args.occupancy_out)
-    device = configure_device(args.device, args.dist_backend)
+    device = configure_device(args.device, args.dist_backend,
+                              cfg.mesh_axis_rays)
     owns_group = maybe_init_distributed(args, device)
     try:
         # the frames split over every rank (mesh_axis_data sizes training)

@@ -47,7 +47,10 @@ must be 0 or N.  Rank 0 alone records, saves (the others wait at a
 barrier) and profiles; every rank resumes from the same file and prints
 one ``rank report`` line at the end (its step ms, losses, the gradient
 all-reduce's ms and MB a step, its kernel launches).  ``--test`` then
-validates with the frames split over the ranks.
+validates with the frames split over the ranks.  In one process
+``--test`` splits each frame's rays over ``mesh_axis_rays`` devices
+(cli/run.py::FrameRenderer); under torchrun a rank owns one card, and
+``mesh_axis_rays`` > 1 is an error.
 """
 
 from __future__ import annotations
@@ -64,11 +67,12 @@ from ..config import Config
 from ..data.loader import Loader
 from ..models.lpips import lpips_module
 from ..parallel.mesh import DataMesh, barrier, make_mesh, shutdown
+from ..registry import EVALUATORS, TRAINERS
 from ..render.pipeline import fold_in
 from ..testing import init_weights
 from ..train import checkpoint as ckpt_io
 from ..train.profile import format_summary, load_trace, summarize_trace
-from ..train.step import TrainState, make_optimizer, make_train_step
+from ..train.step import TrainState, make_optimizer
 from ..utils.recorder import Recorder
 from .common import (
     build_runtime,
@@ -152,7 +156,7 @@ def build_trainer(cfg: Config, device, dataset=None, ckpt=None,
                 apply_pretrained(model, dict(z))
             print(f"loaded pretrained encoder weights: {cfg.encoder_weights}",
                   flush=True)
-    step_fn = make_train_step(
+    step_fn = TRAINERS.get(cfg.trainer)(
         pipe, l2_weight=cfg.l2rec_weight, perturb=cfg.perturb > 0,
         accum_steps=cfg.train.accum_steps,
         lpips_fn=lpips, lpips_weight=cfg.lpips_weight,
@@ -205,7 +209,6 @@ def validate(cfg: Config, device, dataset=None, weights=None, mesh=None):
     every rank gets the whole summary.  Returns (mean val stats, the
     evaluator's summary)."""
     mesh = mesh or DataMesh()
-    from ..evals.evaluator import Evaluator
     from ..weights import load_reference_state_dict
     from .common import checkpoint_path, result_dir
     from .run import evaluate_frames, make_eval_lpips_fn
@@ -219,8 +222,9 @@ def validate(cfg: Config, device, dataset=None, weights=None, mesh=None):
                                       pe_table=ckpt["pe_table"])
     load_reference_state_dict(model, ckpt["net"])
     epoch = ckpt["epoch"]
-    ev = Evaluator(result_dir(cfg), lpips_fn=make_eval_lpips_fn(cfg, device),
-                   exp_name=cfg.exp_name, epoch=epoch)
+    ev = EVALUATORS.get(cfg.evaluator)(
+        result_dir(cfg), lpips_fn=make_eval_lpips_fn(cfg, device),
+        exp_name=cfg.exp_name, epoch=epoch)
     recorder = Recorder(cfg.record_dir, cfg.record_interval, cfg.log_interval,
                         enabled=cfg.use_record and mesh.rank == 0)
     recorder.epoch = epoch
@@ -255,6 +259,12 @@ def main(argv=None, dataset=None):
     owns_group = maybe_init_distributed(args, device)
     try:
         mesh = make_mesh(cfg.mesh_axis_data)
+        if mesh.distributed and cfg.mesh_axis_rays > 1:
+            raise SystemExit(
+                f"mesh_axis_rays={cfg.mesh_axis_rays} under torchrun: each "
+                "train rank owns one card for its step, so its validation "
+                "cannot split a frame's rays over more; run --test in one "
+                "process to shard the rays")
         if args.test:
             return validate(cfg, device, dataset, args.weights, mesh)
         return train(args, cfg, device, mesh, dataset)

@@ -18,9 +18,11 @@ Each key is in one of the classes of ``KEY_CLASSES``:
   neither package; accepted and unused while ``dataset`` is ``synthetic``.
 
 ``check_supported`` refuses, by name, a value the port cannot run
-(``REFUSED``: another network or renderer, ``compute_dtype float16`` ...);
-an unknown ``dataset`` is refused where a dataset is built
-(``cli/common.py::make_dataset``).
+(``REFUSED``: ``compute_dtype float16``, an unknown ``vit_variant`` or
+``run_mode``); the plugin fields (``dataset``, ``network``, ``renderer``,
+``trainer``, ``evaluator``, ``visualizer``) name entries of the registries
+(``registry.py``), where an unknown name is a KeyError listing the known
+ones.
 """
 
 from __future__ import annotations
@@ -361,8 +363,7 @@ def _check_type(key, cur, new):
 # ------------------------------------------------------------ key classes
 # TPU/static-shape execution knobs of the JAX package with no job here
 TPU_ONLY_KEYS = frozenset({
-    "pad_bucket", "compact_ratio", "use_pallas_knn", "mesh_axis_rays",
-    "mesh_axis_model",
+    "pad_bucket", "compact_ratio", "use_pallas_knn", "mesh_axis_model",
 })
 # read by neither package (xyz_res, save_latest_ep, gpus, test.collator,
 # test.time_det, test.batch_size, train.scheduler.type: the JAX package reads
@@ -379,21 +380,12 @@ UNUSED_KEYS = frozenset({
 })
 # key -> (the values the port runs, why another value is refused)
 REFUSED = {
-    "network": ({"transhuman"}, "the port has the 'transhuman' network "
-                "only"),
-    "renderer": ({"clight"}, "the port has the 'clight' renderer only"),
-    "trainer": ({"clight"}, "the port has the 'clight' trainer only"),
-    "evaluator": ({"if_nerf"}, "the port has the 'if_nerf' evaluator only"),
-    "visualizer": ({"perform"}, "the port has the 'perform' visualizer "
-                   "only"),
     "compute_dtype": ({"float32", "bfloat16"}, "the port computes in "
                       "float32 or bfloat16"),
     "vit_variant": ({"tiny", "small", "base"}, "TransHE comes in tiny, small "
                     "and base"),
     "run_mode": ({"train", "test"}, "run_mode is train or test"),
 }
-# the datasets the port builds (the serve entry point builds none)
-DATASETS = ("synthetic", "zju")
 
 
 def flat_keys(cfg=None, prefix: str = "") -> dict:

@@ -21,6 +21,7 @@ import torch
 
 from ..config import Config
 from ..geometry.rays import get_near_far, get_rays
+from ..registry import DATASETS
 from ..render.pipeline import FrameInputs, RayBundle
 from ..testing import synthetic_scene
 from ..train.loss import TrainSample
@@ -131,3 +132,10 @@ class SyntheticDataset:
         frame, _, bounds = self._frame_and_target()
         return frame, bounds, dict(human="synthetic", human_idx=0,
                                    frame_index=int(index), cam_ind=0)
+
+
+@DATASETS.register("synthetic")
+def synthetic_dataset(cfg: Config, split: str, smpl=None):
+    """The seeded synthetic scene at the render size (H_render x W_render);
+    it poses its own body, so ``smpl`` is not read."""
+    return SyntheticDataset(cfg, split, image_hw=(cfg.H_render, cfg.W_render))

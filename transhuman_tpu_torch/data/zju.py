@@ -40,6 +40,7 @@ from ..config import Config
 from ..geometry.cameras import gen_path_virt, load_cam
 from ..geometry.rays import world_bounds
 from ..geometry.smpl import SMPLModel, rodrigues
+from ..registry import DATASETS
 from ..render.pipeline import FrameInputs
 from ..train.loss import TrainSample
 from ..utils.cache import ByteLRU
@@ -432,3 +433,15 @@ class ZJUDataset:
         rng = np.random.default_rng(index)
         frame, target, meta = self._build_frame(index, rng, jitter=False)
         return frame, target[5], meta
+
+
+@DATASETS.register("zju")
+def zju_dataset(cfg: Config, split: str, smpl: Optional[SMPLModel] = None):
+    """The ZJU-MoCap layout under cfg.data_root, posed by ``smpl`` (default:
+    the SMPL model of cfg.smpl_dir, or the stand-in body when it is
+    absent, cli/common.py::load_smpl)."""
+    if smpl is None:
+        from ..cli.common import load_smpl
+
+        smpl = load_smpl(cfg)
+    return ZJUDataset(cfg, split, smpl=smpl)

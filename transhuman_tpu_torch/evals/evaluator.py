@@ -20,6 +20,7 @@ from typing import Optional
 
 import numpy as np
 
+from ..registry import EVALUATORS
 from ..utils.png import write_png
 from . import metrics
 
@@ -35,6 +36,7 @@ def bounding_rect(mask: np.ndarray):
             int(rows[-1] - rows[0] + 1))
 
 
+@EVALUATORS.register("if_nerf")
 class Evaluator:
     def __init__(self, result_dir: str, lpips_fn=None,
                  save_images: bool = True, exp_name: str = "transhuman_tpu",

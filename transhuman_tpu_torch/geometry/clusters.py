@@ -73,6 +73,16 @@ class ClusterSpec:
                         break
         return cls(assign.astype(np.int32), num_clusters)
 
+    def save_reference_dict(self, path: str):
+        """Write the table in the reference's kmeans_dict npy format (what
+        load_reference_dict reads)."""
+        v2pc = {
+            int(c): np.where(self.vert2cluster == c)[0].tolist()
+            for c in range(self.num_clusters)
+        }
+        np.save(path, {"pc2voxel_ind": self.vert2cluster.astype(np.int64),
+                       "dict_voxel2pc_ind": v2pc})
+
 
 def normalize_positions(x: np.ndarray, box: float = 1.5) -> np.ndarray:
     """Coordinates in the fixed [-box, box]^3 box mapped to [-1, 1]."""

@@ -7,6 +7,7 @@ Importing this package builds nothing: ``build.library()`` compiles
 
 from __future__ import annotations
 
+from . import build
 from .cull import min_excess2_cuda
 from .dparf import dparf_bf16_cuda, dparf_cuda
 from .gather import feature_gather_cuda, feature_sample_bf16_cuda
@@ -27,5 +28,4 @@ def launch_counts() -> dict:
 
 
 def reset_launch_counts():
-    for fn in _WRAPPERS.values():
-        fn.launches = 0
+    build.reset_launches(_WRAPPERS.values())

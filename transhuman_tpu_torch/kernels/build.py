@@ -63,6 +63,10 @@ _SIGNATURES = {
 
 _lock = threading.Lock()
 _lib = None  # the loaded CDLL; dlopen is process-wide, so is this
+# guards every wrapper's ``launches``: threads of one process (the shares
+# of a ray-sharded render) launch kernels at once, and ``+=`` on an
+# attribute is a read and a write that two threads can interleave
+_count_lock = threading.Lock()
 
 
 @dataclass
@@ -189,6 +193,18 @@ def check_tensors(name: str, dtypes=None, **tensors):
         if dev is not None and t.device != dev:
             raise ValueError(f"{name}: all tensors must share one device")
         dev = t.device
+
+
+def count_launches(wrapper, n: int = 1):
+    """Add n to ``wrapper.launches``, atomically across threads."""
+    with _count_lock:
+        wrapper.launches += n
+
+
+def reset_launches(wrappers):
+    with _count_lock:
+        for fn in wrappers:
+            fn.launches = 0
 
 
 def check(code: int, what: str):

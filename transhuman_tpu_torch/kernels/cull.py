@@ -43,7 +43,7 @@ def min_excess2_cuda(pts, refs, bias2):
                                    bias2.data_ptr(), out.data_ptr(), n, m,
                                    stream)
     build.check(code, "min_excess2_cuda")
-    min_excess2_cuda.launches += 1
+    build.count_launches(min_excess2_cuda)
     return out
 
 

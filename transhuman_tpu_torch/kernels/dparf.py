@@ -106,7 +106,7 @@ def dparf_cuda(pts, centers, rot, tokens, k: int = 7, alpha: float = 0.5,
     out, launched = _dparf_launch("dparf_cuda", "thp_dparf", torch.float32,
                                   pts, centers, rot, tokens, k, alpha,
                                   n_freqs)
-    dparf_cuda.launches += launched
+    build.count_launches(dparf_cuda, launched)
     return out
 
 
@@ -121,7 +121,7 @@ def dparf_bf16_cuda(pts, centers, rot, tokens, k: int = 7,
     out, launched = _dparf_launch("dparf_bf16_cuda", "thp_dparf_bf16",
                                   torch.bfloat16, pts, centers, rot, tokens,
                                   k, alpha, n_freqs)
-    dparf_bf16_cuda.launches += launched
+    build.count_launches(dparf_bf16_cuda, launched)
     return out
 
 

@@ -136,7 +136,7 @@ def feature_gather_cuda(src, ids, w, offsets):
             src.data_ptr(), ids.data_ptr(), w.data_ptr(), out.data_ptr(), v,
             n, c, hw, len(offsets), *off4, stream)
     build.check(code, "feature_gather_cuda")
-    feature_gather_cuda.launches += 1
+    build.count_launches(feature_gather_cuda)
     return out
 
 
@@ -201,7 +201,7 @@ def feature_sample_cuda(feat, uv, image_shape):
     out, launched = _sample_launch("feature_sample_cuda",
                                    "thp_feature_sample", torch.float32, feat,
                                    uv, image_shape)
-    feature_gather_cuda.launches += launched
+    build.count_launches(feature_gather_cuda, launched)
     return out
 
 
@@ -213,7 +213,7 @@ def feature_sample_bf16_cuda(feat, uv, image_shape):
     out, launched = _sample_launch("feature_sample_bf16_cuda",
                                    "thp_feature_sample_bf16", torch.bfloat16,
                                    feat, uv, image_shape)
-    feature_sample_bf16_cuda.launches += launched
+    build.count_launches(feature_sample_bf16_cuda, launched)
     return out
 
 

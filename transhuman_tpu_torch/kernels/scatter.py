@@ -120,7 +120,7 @@ def dfeat_scatter_cuda(ids, g, w4, hw: int, dx: int, dy: int):
     No atomics: the same bits on every call."""
     out, launched = _dfeat_launch("dfeat_scatter_cuda", "thp_dfeat_scatter",
                                   torch.float32, ids, g, w4, hw, dx, dy)
-    dfeat_scatter_cuda.launches += launched
+    build.count_launches(dfeat_scatter_cuda, launched)
     return out
 
 
@@ -135,7 +135,7 @@ def dfeat_scatter_bf16_cuda(ids, g, w4, hw: int, dx: int, dy: int):
     out, launched = _dfeat_launch("dfeat_scatter_bf16_cuda",
                                   "thp_dfeat_scatter_bf16", torch.bfloat16,
                                   ids, g, w4, hw, dx, dy)
-    dfeat_scatter_bf16_cuda.launches += launched
+    build.count_launches(dfeat_scatter_bf16_cuda, launched)
     return out
 
 

@@ -22,6 +22,7 @@ from __future__ import annotations
 
 import torch
 
+from ..registry import NETWORKS
 from .encoder import SpatialEncoder
 from .heads import NeRFHeads, dparf_representation
 from .vit import VARIANTS, TransHE
@@ -90,3 +91,6 @@ class TransHumanNet(NeRFHeads):
         if keep is not None:
             pts_mask = keep if pts_mask is None else pts_mask & keep
         return self.decode(rep, pixel_feat, viewdir_embed, pts_mask)
+
+
+NETWORKS.register("transhuman")(TransHumanNet.from_config)

@@ -1,6 +1,7 @@
 """Data parallelism across processes (counterpart of
 transhuman_tpu/parallel/): the process group torchrun describes, the data
-mesh over its ranks, and the sharding of batches and frames."""
+mesh over its ranks, and the sharding of batches and frames; infer.py
+splits one frame's rays over the devices of one process."""
 
 from .mesh import (
     DataMesh,

@@ -59,6 +59,7 @@ from ..models.embedder import embed_viewdir
 from ..models.layers import pooled_norms
 from ..ops.sampling import (depth_visibility, project_points,
                              sample_feature_map)
+from ..registry import RENDERERS
 from ..weights import reference_pe_table
 from .volume import composite, sample_along_rays
 
@@ -468,3 +469,19 @@ class RenderPipeline:
         self.last_frame_stats = {"points": n, "survivors": m}
         return torch.zeros(n, dtype=sig.dtype,
                            device=sig.device).index_copy_(0, idx, sig)
+
+
+@RENDERERS.register("clight")
+def clight_pipeline(model, cluster: ClusterSpec, canonical_verts, cfg,
+                    device, pe_table=None, vertex_radii=None):
+    """The RenderPipeline the config asks for: ``N_samples`` samples a ray,
+    chunks of ``chunk_size`` points, the ``cull_distance`` shell (or
+    ``vertex_radii``), ``white_bkgd``, ``raw_noise_std``, ``remat`` and
+    ``train.cull``."""
+    return RenderPipeline(
+        model, cluster, canonical_verts, n_samples=cfg.N_samples,
+        chunk_rays=max(cfg.chunk_size // cfg.N_samples, 1),
+        cull_distance=cfg.cull_distance, white_bkgd=cfg.white_bkgd,
+        raw_noise_std=cfg.raw_noise_std, device=device, pe_table=pe_table,
+        vertex_radii=vertex_radii, remat=cfg.remat,
+        train_cull=cfg.train.cull)

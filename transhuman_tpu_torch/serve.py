@@ -11,7 +11,9 @@ the config file's values (or config.py's defaults).
 
 Endpoints
 ---------
-``GET /healthz``  JSON: status, devices (a list of one), the network's
+``GET /healthz``  JSON: status, devices (the devices a frame renders on:
+    one, or ``mesh_axis_rays`` R of them, each rendering a share of the
+    rays on a thread of its own, cli/run.py::FrameRenderer), the network's
     compute dtype (``float32`` or ``bfloat16``), parameter count; the JAX
     service's TPU-only ``ray_bucket`` and ``compact_ratio`` are not
     carried.
@@ -155,7 +157,8 @@ def parse_render_request(arrays: dict, cfg: Config, smpl) -> tuple:
 
 
 class RenderService:
-    """One model on one device; single-threaded (RenderServer serialises)."""
+    """One model, on one device or with each frame's rays split over
+    mesh_axis_rays devices; single-threaded (RenderServer serialises)."""
 
     def __init__(self, cfg: Config, pipe, smpl):
         self.cfg = cfg
@@ -325,7 +328,7 @@ def _make_handler(server: RenderServer):
             if self.path == "/healthz":
                 self._json(200, {
                     "status": "ok",
-                    "devices": [str(svc.pipe.device)],
+                    "devices": [str(d) for d in svc.renderer.devices],
                     "compute_dtype": str(
                         svc.pipe.model.compute_dtype).removeprefix("torch."),
                     "n_params": sum(p.numel()

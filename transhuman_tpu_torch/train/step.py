@@ -30,6 +30,7 @@ import torch
 import torch.distributed as dist
 from torch.profiler import record_function
 
+from ..registry import TRAINERS
 from ..render.pipeline import fold_in
 from .loss import TrainSample, patch_losses, random_ray_losses
 from .schedule import warmup_cosine_epoch_schedule
@@ -208,6 +209,7 @@ def _average_over_ranks(params, totals, decoded, mesh, device):
             packed[len(keys):], timer, mb)
 
 
+@TRAINERS.register("clight")
 def make_train_step(pipe, clip_value: float = 40.0, l2_weight: float = 1.0,
                     perturb: bool = True, accum_steps: int = 1,
                     lpips_fn=None, lpips_weight: float = 0.1,

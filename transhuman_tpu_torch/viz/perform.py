@@ -8,9 +8,11 @@ import os
 
 import numpy as np
 
+from ..registry import VISUALIZERS
 from ..utils.png import write_png
 
 
+@VISUALIZERS.register("perform")
 class PerformVisualizer:
     def __init__(self, out_dir: str, white_bkgd: bool = False):
         self.out_dir = out_dir
