@@ -153,6 +153,24 @@ k4. tools/validate_official over a laid-out CoreView_377 and CoreView_387
 k5. tools/make_kmeans on a stand-in SMPL pickle: its file loads back
    through ClusterSpec.load_reference_dict with the same assignment.
 
+Then the model axis (``mesh_axis_model``, parallel/tp.py and pp.py):
+
+l0. K2 and its bf16 form at the token widths of TransHE small and base
+   (D = 384 and 768) against their plain twins at phase 3's tolerances,
+   timed beside their bounds;
+l1. the train entry point over 2 ranks sharing the card (gloo) at
+   mesh_axis_model 2 with TransHE small (384, 6 heads, depth 12; base's
+   positional code is NaN in both packages, see L_VARIANT): one float32
+   step against this process's one-process step (phase 6's bounds), each
+   rank's TransHE shards the saved file's cut; then 2 bf16 steps with
+   train.cull, each rank's TransHE and moment bytes (the sharded leaves
+   at half), step ms, the model axis's all-reduce count (4 x depth) and
+   ms, and K1, K2, K4 and K3 launches;
+l2. the pipelined TransHE base (3 x 300 x 768, depth 12, a stored table)
+   over 2 gloo ranks on the card (this script as ``--pp-worker DIR`` under
+   torchrun), 2 stages in 3 microbatches, against the unpipelined module
+   (output within 1e-5, gradients within 2e-6), both timed.
+
 Every visualize run (phases 9, c, g, i, j3) also writes one MJPG/AVI per
 human, parsed here: one JPEG frame per PNG.  Phase 11 also times the C++
 marching the command took against the numpy route on the same cube (the
@@ -3512,12 +3530,14 @@ J_MESH_TH = "5"  # below a 1-step model's sigma of ~10: the cull's shell
 
 def torchrun(what: str, nproc: int, module: str, argv, backend="gloo"):
     """``python -m torch.distributed.run --standalone --nproc_per_node
-    nproc -m module --dist_backend backend argv`` from the checkout's root,
+    nproc -m module --dist_backend backend argv`` (a module ending in .py
+    is a script path, run as it is) from the checkout's root,
     in a session of its own that is killed whole at J_TIMEOUT or once it
     ends; fails unless it exits 0 and every rank printed its rank report.
     Returns (its output, the reports in rank order, its seconds)."""
+    target = [module] if module.endswith(".py") else ["-m", module]
     cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
-           "--nproc_per_node", str(nproc), "-m", module, "--dist_backend",
+           "--nproc_per_node", str(nproc), *target, "--dist_backend",
            backend, *argv]
     env = dict(os.environ, PYTHONPATH=ROOT, OMP_NUM_THREADS="2")
     t0 = time.perf_counter()
@@ -4129,6 +4149,399 @@ def phase_validate_official(card: str, tmp: str, smpl_dir: str,
         f"each) on the card from train_or_eval.yaml (bf16) in {secs:.1f} s, "
         f"each equal to a direct evaluate: {'; '.join(lines)}  [{card}]")
 
+# ---------------------- the model axis: tensor and pipeline parallelism
+L_STEPS = 2  # bf16 steps of phase l1's culled tensor-parallel run
+# TransHE of phase l1: small (384, 6 heads).  At base (768) the positional
+# code of the centroids has embed_dim / 6 = 128 bands, the top one pi *
+# 2^127, which overflows float32: the JAX package's embed_vit_pos and the
+# reference's table are NaN there alike, and so is every loss of a run
+# from them
+L_VARIANT = "small"
+L_PP = {"views": 3, "tokens": 300, "dim": 768, "heads": 12, "depth": 12,
+        "stages": 2, "micro": 3}  # phase l2: TransHE base over 2 stages
+L_PP_ITERS = 5  # timed passes of l2, each way
+L_PP_ATOL, L_PP_GRAD_ATOL = 1e-5, 2e-6  # tests/test_torch_pp.py's bounds
+
+
+def check_dparf_width(card: str, dim: int) -> dict:
+    """K2 and its bf16 form at token width ``dim`` (TransHE base's 768)
+    on phase 3's points, centres and rotations: the float32 form against
+    its plain twin at phase 3's tolerances off near-ties, the bf16 form the
+    float32 form's bits on the widened tokens and within one unit of bf16's
+    last place of its plain twin; each timed beside its bound."""
+    from transhuman_tpu_torch.kernels import dparf
+    from transhuman_tpu_torch.tools.kernel_ab import phase3_inputs
+
+    dev = torch.device("cuda")
+    pts, _, centers, rot, _ = phase3_inputs(dev, N_CHUNK)
+    g = torch.Generator(device=dev).manual_seed(768)
+    tokens = torch.randn((3, centers.shape[0], dim), generator=g, device=dev)
+    k = 7
+    got = dparf.dparf_cuda(pts, centers, rot, tokens, k)
+    plain = dparf.dparf_plain(pts, centers, rot, tokens, k)
+    torch.cuda.synchronize()
+    ok = ~knn_near_ties(pts, centers, k)
+    tok_err = float((got[0] - plain[0])[:, ok].abs().max())
+    pe_err = float((got[1] - plain[1])[ok].abs().max())
+    w_err = float((got[4] - plain[4])[ok].abs().max())
+    check(tok_err <= 1e-4 and pe_err <= 5e-4 and w_err <= 1e-5,
+          f"K2 at D={dim}: tok err {tok_err}, pe err {pe_err}, w err {w_err}")
+    check(bool((got[3].long() == plain[3])[ok].all()),
+          f"K2 at D={dim}: the neighbour indices differ off ties")
+    tok16 = tokens.to(torch.bfloat16)
+    got16 = dparf.dparf_bf16_cuda(pts, centers, rot, tok16, k)
+    want16 = dparf.dparf_cuda(pts, centers, rot, tok16.float(), k)
+    plain16 = dparf.dparf_plain(pts, centers, rot, tok16, k)
+    torch.cuda.synchronize()
+    check(torch.equal(got16[0], want16[0].to(torch.bfloat16))
+          and all(torch.equal(a, b) for a, b in zip(got16[1:], want16[1:])),
+          f"K2 bf16 at D={dim}: not the float32 form's bits")
+    scale = float(plain16[0].float().abs().max())
+    err16 = float((got16[0].float() - plain16[0].float())[:, ok].abs().max())
+    check(err16 <= 2.0**-7 * scale, f"K2 bf16 at D={dim}: tok err {err16} "
+          f"vs its plain twin (max |tok| {scale})")
+    ops = (8 * pts.shape[0] * centers.shape[0]
+           + 2 * k * tokens.numel() // centers.shape[0] * pts.shape[0])
+    out = {}
+    for name, fn, pl, ins, res in (
+            ("f32", dparf.dparf_cuda, dparf.dparf_plain, tokens, got),
+            ("bf16", dparf.dparf_bf16_cuda, dparf.dparf_plain, tok16,
+             got16)):
+        out[name] = {
+            "dim": dim, "ms": time_ms(lambda: fn(pts, centers, rot, ins, k)),
+            "plain_ms": time_ms(lambda: pl(pts, centers, rot, ins, k),
+                                iters=5),
+            "max_abs_err": tok_err if name == "f32" else err16,
+            **bound(nbytes(pts, centers, rot, ins, *res), ops)}
+    log(f"[l0 K2 at D={dim}] {pts.shape[0]} pts, C=300, V=3, k={k}: f32 tok "
+        f"err {tok_err:.3g}, pe err {pe_err:.3g}, w err {w_err:.3g}, kernel "
+        f"{out['f32']['ms']:.4f} ms, plain {out['f32']['plain_ms']:.4f} ms, "
+        f"bound {out['f32']['bound_ms']:.4f} ms ({out['f32']['bound_by']}); "
+        f"bf16 the float32 form's bits, err vs plain {err16:.3g} of "
+        f"{scale:.3g}, kernel {out['bf16']['ms']:.4f} ms, plain "
+        f"{out['bf16']['plain_ms']:.4f} ms, bound "
+        f"{out['bf16']['bound_ms']:.4f} ms  [{card}]")
+    return out
+
+
+def _vit_shard_bytes(net, n_model: int) -> dict:
+    """What each of n_model ranks should hold of TransHE: its parameter
+    bytes, with the sharded leaves cut n_model ways, and their names."""
+    from transhuman_tpu_torch.parallel import tp
+
+    specs = tp.tp_param_specs(dict(net.ViT.named_parameters()), n_model,
+                              net.ViT.num_heads)
+    total = sum(p.numel() * 4 // (n_model if specs[n] else 1)
+                for n, p in net.ViT.named_parameters())
+    return {"bytes": total, "sharded": sorted(n for n in specs if specs[n])}
+
+
+def _shard_digests(path: str, cfg, n_model: int) -> list:
+    """Each model rank's TransHE digest of the whole file at path, cut as
+    that rank holds it (tp.vit_digest of a one-process net sharded in this
+    process)."""
+    from transhuman_tpu_torch import weights
+    from transhuman_tpu_torch.models.network import TransHumanNet
+    from transhuman_tpu_torch.parallel import tp
+    from transhuman_tpu_torch.parallel.mesh import Axis
+
+    out = []
+    for m in range(n_model):
+        net = TransHumanNet.from_config(cfg)
+        weights.load_checkpoint_file(net, path)
+        tp.shard_model_(net, Axis("model", m, n_model))
+        out.append(tp.vit_digest(net))
+    return out
+
+
+def phase_tp_train(card: str, tmp: str) -> dict:
+    """l1. The train entry point over 2 ranks sharing the card (torchrun,
+    gloo) at mesh_axis_model 2, TransHE small (embed 384, 6 heads, depth
+    12; base's positional code is NaN at embed 768 in both packages, see
+    L_VARIANT), one sample (6 x 20 x 20 patches, 64 samples a ray): one
+    float32 step against this process's one-process step on the same seeded
+    weights and sample (phase 6's bounds, the gradients from each
+    checkpoint's Adam moment), each rank's TransHE shards the saved file's
+    cut (digests); then L_STEPS bf16 steps with train.cull, each rank
+    reporting its TransHE parameter and moment bytes (the sharded leaves
+    at half), step ms, the model axis's all-reduce count and ms a step and
+    its K1, K2, K4 and K3 launches; the final --out file loaded into one
+    process holds the ranks' shards.  Returns {path: summed launches}."""
+    from transhuman_tpu_torch.cli import train as train_cli
+    from transhuman_tpu_torch.config import Config
+    from transhuman_tpu_torch.models.network import TransHumanNet
+    from transhuman_tpu_torch.testing import init_weights
+
+    module = "transhuman_tpu_torch.cli.train"
+    run = os.path.join(tmp, "l1")
+    base = ("vit_variant", L_VARIANT, "train.batch_size", "1")
+
+    def opts(tag, steps, *extra):
+        return ["--device", "cuda", "--steps", str(steps), "dataset",
+                "synthetic", "ep_iter", str(steps), "train.epoch", "1",
+                "trained_model_dir", os.path.join(run, tag, "tm"),
+                "record_dir", os.path.join(run, tag, "rec"), "result_dir",
+                os.path.join(run, tag, "res"), *base, *extra]
+
+    tp_ckpt, one_ckpt = (os.path.join(run, f"{t}.pth") for t in ("tp",
+                                                                 "one"))
+    torch.cuda.empty_cache()
+    _, reps, secs = torchrun("l1 float32", 2, module, [
+        "--out", tp_ckpt, *opts("tp", 1, "mesh_axis_model", "2")])
+    _, recs = train_cli.main(["--out", one_ckpt, *opts("one", 1)])
+    torch.cuda.empty_cache()
+    cfg = Config().merge_opts(["dataset", "synthetic", *base])
+    net = init_weights(TransHumanNet.from_config(cfg),
+                       torch.Generator().manual_seed(cfg.seed))
+    p0 = {n: p.detach().clone() for n, p in net.named_parameters()}
+    (w_tp, m_tp), (w_one, m_one) = map(_adam_step, (tp_ckpt, one_ckpt))
+    names = list(p0)
+    g_tp = {names[i]: g for i, g in m_tp.items()}
+    g_one = {names[i]: g for i, g in m_one.items()}
+    # the TP run's reduction gives the unread mask_token a zero gradient
+    check(set(g_one) == set(names) - UNREAD_PARAMS and set(g_one) <= set(
+        g_tp), "l1: the parameters with a gradient differ")
+    check(reps[0]["loss"] == reps[1]["loss"], f"l1: the model ranks' losses "
+          f"differ {[r['loss'] for r in reps]}")
+    check(reps[0]["replicated_digest"] == reps[1]["replicated_digest"],
+          "l1: the model ranks' replicated parameters differ after a step")
+    loss_tp, loss_one = reps[0]["loss"][0], recs[0]["loss"]
+    lerr = abs(loss_tp - loss_one) / loss_one
+    check(lerr <= 1e-4, f"l1: loss {loss_tp} over 2 model ranks vs "
+          f"{loss_one}")
+    rel, gerr, wt, w = f32_step_gaps(
+        "l1 TP step vs 1 process", g_tp, g_one,
+        {n: w_tp[n] - p0[n] for n in g_one},
+        {n: w_one[n] - p0[n] for n in g_one}, p0, recs[0]["lr"])
+    want = _vit_shard_bytes(net, 2)
+    digests = _shard_digests(tp_ckpt, cfg, 2)
+    for r in reps:
+        check(r["vit_param_bytes"] == want["bytes"], f"l1 rank {r['rank']}: "
+              f"TransHE holds {r['vit_param_bytes']} B, want {want['bytes']}")
+        check(r["vit_digest"] == digests[r["model_rank"]], f"l1 rank "
+              f"{r['rank']}: its TransHE shards are not the saved file's cut")
+        check(r["model_allreduce_count"] == [4 * cfg.vit_depth],
+              f"l1 rank {r['rank']}: {r['model_allreduce_count']} model "
+              f"all-reduces, want 4 x depth {cfg.vit_depth}")
+    whole = sum(p.numel() * 4 for p in net.ViT.parameters())
+    log(f"[l1 tp train] TransHE {L_VARIANT} (embed {net.embed_dim}, "
+        f"{net.ViT.num_heads} heads, depth {cfg.vit_depth}), float32, "
+        f"2 model ranks sharing the card (gloo) vs 1 process, one sample: "
+        f"loss {loss_tp:.7g} vs {loss_one:.7g} (rel {lerr:.3g}); max "
+        f"gradient err {gerr:.3g} of its leaf's norm; worst error/tolerance "
+        f"{rel[0][0]:.3g} ({rel[0][1]}); update err beyond rounding "
+        f"{wt:.3g} where the sign is sure, {w:.3g} anywhere; TransHE bytes "
+        f"a rank {reps[0]['vit_param_bytes']} of {whole} "
+        f"({len(want['sharded'])} leaves at half), moments {reps[0]['vit_moment_bytes']}; step ms "
+        f"{[round(r['step_ms'][0], 1) for r in reps]}; model all-reduces "
+        f"{reps[0]['model_allreduce_count'][0]} in "
+        f"{[round(r['model_allreduce_ms'][0], 2) for r in reps]} ms; the "
+        f"replicated parameters bit-equal on both ranks; torchrun "
+        f"{secs:.1f} s  [{card}]")
+
+    f = forms("bfloat16")
+    tp16 = os.path.join(run, "tp16.pth")
+    _, reps16, secs16 = torchrun("l1 bf16", 2, module, [
+        "--out", tp16, *opts("bf16", L_STEPS, "mesh_axis_model", "2",
+                             "compute_dtype", "bfloat16", "train.cull",
+                             "True")])
+    cfg16 = cfg.merge_opts(["compute_dtype", "bfloat16"])
+    digests = _shard_digests(tp16, cfg16, 2)
+    for r in reps16:
+        what = f"l1 bf16 rank {r['rank']}"
+        check(len(r["loss"]) == L_STEPS and np.isfinite(r["loss"]).all(),
+              f"{what}: losses {r['loss']}")
+        check_launches(what, r["launches"], {
+            "min_excess2": L_STEPS, f["dparf"]: L_STEPS,
+            f["fetch"]: 2 * L_STEPS, f["scatter"]: 2 * L_STEPS})
+        check(r["launches"]["min_excess2"] == L_STEPS and r["launches"][
+            f["dparf"]] == L_STEPS, f"{what}: launches {r['launches']}")
+        check(r["model_allreduce_count"] == [4 * cfg.vit_depth] * L_STEPS,
+              f"{what}: model all-reduces {r['model_allreduce_count']}")
+        check(r["vit_param_bytes"] == want["bytes"]
+              and r["vit_moment_bytes"] == 2 * want["bytes"],
+              f"{what}: TransHE {r['vit_param_bytes']} B, moments "
+              f"{r['vit_moment_bytes']} B")
+        check(r["vit_digest"] == digests[r["model_rank"]],
+              f"{what}: its shards are not the saved file's cut")
+    check(reps16[0]["loss"] == reps16[1]["loss"], "l1 bf16: the ranks' "
+          "losses differ")
+    check(reps16[0]["replicated_digest"] == reps16[1]["replicated_digest"],
+          f"l1 bf16: the model ranks' replicated parameters differ after "
+          f"{L_STEPS} steps")
+
+    def per_rank(key, nd):
+        return "; ".join(f"rank {r['rank']} "
+                         + ", ".join(f"{x:.{nd}f}" for x in r[key])
+                         for r in reps16)
+
+    log(f"[l1 tp train bf16] TransHE {L_VARIANT}, bf16, train.cull, 2 "
+        f"model ranks sharing the card (gloo), {L_STEPS} steps in "
+        f"{secs16:.1f} s of "
+        f"torchrun: step ms {per_rank('step_ms', 1)}; the gradient "
+        f"all-reduces (replicated leaves over both ranks) ms "
+        f"{per_rank('grad_allreduce_ms', 2)} of "
+        f"{reps16[0]['grad_allreduce_mb']:.2f} MB; model all-reduces "
+        f"{reps16[0]['model_allreduce_count']} a step in ms "
+        f"{per_rank('model_allreduce_ms', 2)}; TransHE {want['bytes']} B a "
+        f"rank of {whole}, moments {reps16[0]['vit_moment_bytes']} B; "
+        f"launches per rank {[r['launches'] for r in reps16]}; the saved "
+        f"file's cut equals each rank's shards, the replicated parameters "
+        f"bit-equal on both ranks  [{card}]")
+    return {"tp_train_bf16": _summed(reps16)}
+
+
+def pp_model(dev):
+    """Phase l2's seeded TransHE base, its tokens, a stored (V, C, 768)
+    positional table in [-1, 1] (centroids would embed to NaN at 768, see
+    L_VARIANT) and its target, on dev: every matrix N(0, 1/fan_in), norms
+    1, biases N(0, 0.02^2)."""
+    from transhuman_tpu_torch.models.vit import TransHE
+
+    c = L_PP
+    g = torch.Generator().manual_seed(14)
+    net = TransHE(c["dim"], c["depth"], c["heads"])
+    with torch.no_grad():
+        for name, p in net.named_parameters():
+            if p.dim() > 1:
+                p.copy_(torch.randn(p.shape, generator=g) / p.shape[-1]**0.5)
+            elif "norm" in name and name.endswith("weight"):
+                p.fill_(1.0)
+            else:
+                p.copy_(0.02 * torch.randn(p.shape, generator=g))
+    shape = (c["views"], c["tokens"], c["dim"])
+    tok = torch.randn(shape, generator=g)
+    pe = torch.rand(shape, generator=g) * 2 - 1
+    tgt = torch.randn(shape, generator=g)
+    return net.to(dev), tok.to(dev), pe.to(dev), tgt.to(dev)
+
+
+def _timed_passes(fn, iters: int = L_PP_ITERS) -> list:
+    """ms of each of iters calls of fn, each between two synchronises."""
+    out = []
+    for _ in range(iters):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        out.append((time.perf_counter() - t) * 1e3)
+    return out
+
+
+def pp_worker(out_dir: str):
+    """One rank of phase l2 (``chip_smoke.py --pp-worker DIR`` under
+    torchrun): the pipelined TransHE on cuda:0 over a gloo ('pipe',)
+    mesh, its output and this stage's gradients saved to DIR, its forward
+    and forward + backward ms."""
+    from transhuman_tpu_torch.cli.common import rank_report
+    from transhuman_tpu_torch.parallel import (init_distributed, make_mesh,
+                                               make_pp_mesh, pp, shutdown)
+
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    phase_device()
+    init_distributed("gloo")
+    try:
+        mesh = make_pp_mesh(L_PP["stages"])
+        net, tok, pe, tgt = pp_model(dev)
+        apply = pp.make_pp_vit_apply(net, mesh, L_PP["micro"])
+        params = pp.shard_pp_params(mesh, pp.stack_block_params(
+            net.state_dict(), L_PP["stages"]))
+        leaves = [*params["stages"].values(), params["mask_token"],
+                  *params["norm"].values()]
+        for t in leaves:
+            t.requires_grad_()
+
+        def step():
+            for t in leaves:
+                t.grad = None
+            y = apply(params, tok, pe)
+            ((y - tgt) ** 2).mean().backward()
+            return y
+
+        y = step().detach()
+        grads = pp.unstack_block_params(
+            {"stages": {k: v.grad for k, v in params["stages"].items()},
+             "mask_token": params["mask_token"].grad,
+             "norm": {k: v.grad for k, v in params["norm"].items()}},
+            mesh["pipe"].rank)
+        with torch.no_grad():
+            fwd = _timed_passes(lambda: apply(params, tok, pe))
+        both = _timed_passes(step)
+        rank = mesh["pipe"].rank
+        torch.save({"y": y.cpu(), "grads": {k: (v.cpu() if v is not None
+                                                else None)
+                                            for k, v in grads.items()}},
+                   os.path.join(out_dir, f"pp_{rank}.pt"))
+        rank_report(make_mesh(), forward_ms=fwd, step_ms=both)
+    finally:
+        shutdown()
+
+
+def phase_pp(card: str, tmp: str) -> dict:
+    """l2. The pipelined TransHE on the card: 2 gloo ranks on cuda:0
+    (``chip_smoke.py --pp-worker`` under torchrun), TransHE base (3 views x
+    300 tokens x 768, 12 heads, depth 12) over 2 stages in 3 microbatches,
+    against the unpipelined module in this process on the same seeded
+    weights: every rank's output within 1e-5, each block's gradient from
+    its stage and mask_token's and norm's from each rank within 2e-6 (the
+    CPU tests' bounds); the forward and forward + backward ms of both."""
+    out_dir = os.path.join(tmp, "l2")
+    os.makedirs(out_dir, exist_ok=True)
+    torch.cuda.empty_cache()
+    _, reps, secs = torchrun("l2 pp", 2, os.path.join(ROOT, "chip_smoke.py"),
+                             ["--pp-worker", out_dir])
+    net, tok, pe, tgt = pp_model(torch.device("cuda"))
+
+    def step():
+        net.zero_grad(set_to_none=True)
+        y = net(tok, pe)
+        ((y - tgt) ** 2).mean().backward()
+        return y
+
+    y_ref = step().detach()
+    g_ref = {n: p.grad for n, p in net.named_parameters()}
+    with torch.no_grad():
+        fwd = _timed_passes(lambda: net(tok, pe))
+    both = _timed_passes(step)
+    per = L_PP["depth"] // L_PP["stages"]
+    y_err = g_err = 0.0
+    seen = set()
+    for r in range(L_PP["stages"]):
+        got = torch.load(os.path.join(out_dir, f"pp_{r}.pt"),
+                         weights_only=False)
+        y_err = max(y_err, float((got["y"] - y_ref.cpu()).abs().max()))
+        for k, v in got["grads"].items():
+            if k.startswith("blocks."):
+                check(int(k.split(".")[1]) // per == r, f"l2: rank {r} holds "
+                      f"the gradient of {k}")
+                seen.add(k)
+            want = g_ref[k].cpu() if g_ref[k] is not None else None
+            if want is None:
+                check(v is None or not v.any(), f"l2: {k} has a gradient")
+                continue
+            g_err = max(g_err, float((v - want).abs().max()))
+    check(seen == {k for k in g_ref if k.startswith("blocks.")},
+          "l2: the stages' gradients do not cover every block")
+    check(y_err <= L_PP_ATOL and g_err <= L_PP_GRAD_ATOL,
+          f"l2: pipelined vs unpipelined output err {y_err} (bound "
+          f"{L_PP_ATOL}), gradient err {g_err} (bound {L_PP_GRAD_ATOL})")
+
+    def ms(xs):
+        return ", ".join(f"{x:.2f}" for x in xs)
+
+    log(f"[l2 pp] TransHE base (3 x 300 x 768, 12 heads, depth 12), "
+        f"float32, 2 stages x 3 microbatches on 2 gloo ranks sharing the "
+        f"card vs the unpipelined module: output err {y_err:.3g}, gradient "
+        f"err {g_err:.3g}; pipelined forward ms "
+        + "; ".join(f"rank {r['rank']} {ms(r['forward_ms'])}" for r in reps)
+        + ", forward + backward ms "
+        + "; ".join(f"rank {r['rank']} {ms(r['step_ms'])}" for r in reps)
+        + f"; unpipelined forward ms {ms(fwd)}, forward + backward ms "
+        f"{ms(both)}; torchrun {secs:.1f} s  [{card}]")
+    return {"pp": {"forward_ms": [r["forward_ms"] for r in reps],
+                   "step_ms": [r["step_ms"] for r in reps],
+                   "plain_forward_ms": fwd, "plain_step_ms": both}}
 
 
 def lap(t0: float, done: str):
@@ -4140,6 +4553,10 @@ def main() -> int:
         print("chip_smoke: no CUDA device; nothing ran", file=sys.stderr)
         return 2
     import transhuman_tpu_torch  # noqa: F401 — fails outside the repo
+
+    if "--pp-worker" in sys.argv:  # one rank of phase l2, under torchrun
+        pp_worker(sys.argv[sys.argv.index("--pp-worker") + 1])
+        return 0
 
     t0 = time.perf_counter()
     card = phase_device()
@@ -4215,6 +4632,13 @@ def main() -> int:
         phase_doctor(card, tmp, os.path.join(tmp, "zju_eval"), ckpt)
         phase_validate_official(card, tmp, smpl_dir, kmeans)
         log(f"[k] phase k in {time.perf_counter() - t_k:.1f} s")
+        # the model axis: K2 at TransHE small's and base's widths,
+        # tensor-parallel training, the pipelined TransHE
+        t_l = time.perf_counter()
+        k2_wide = {d: check_dparf_width(card, d) for d in (384, 768)}
+        by_path.update(phase_tp_train(card, tmp))
+        phase_pp(card, tmp)
+        log(f"[l] phase l in {time.perf_counter() - t_l:.1f} s")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     for k in kernels:
@@ -4235,6 +4659,9 @@ def main() -> int:
             for key, v in k1_grid.items():
                 k[f"chunk_{key}"], k[key] = k[key], v
             k["bias_form"] = k1_bias
+        if name in ("dparf", "dparf_bf16"):
+            for d, res in k2_wide.items():
+                k[f"d{d}"] = res["bf16" if name.endswith("_bf16") else "f32"]
     log(f"chip_smoke: all phases passed in {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)

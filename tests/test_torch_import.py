@@ -191,6 +191,8 @@ NEW_MODULES = {
     "transhuman_tpu_torch.tools.data_fixes",
     "transhuman_tpu_torch.tools.doctor",
     "transhuman_tpu_torch.tools.validate_official",
+    "transhuman_tpu_torch.parallel.tp", "transhuman_tpu_torch.parallel.pp",
+    "transhuman_tpu_torch.utils.profiling",
 }
 
 

@@ -283,6 +283,32 @@ def test_geometry_equals_the_jax_package(rng):
                                       jrays.world_bounds(js.v_template, big))
 
 
+def test_kmeans_runs_once_per_process_and_hands_out_copies():
+    """A second from_kmeans on the same inputs reuses the first's
+    assignment (no k-means runs) as a copy of its own; other inputs run
+    their own k-means."""
+    verts = tsmpl.SMPLModel.synthetic(n_verts=300).v_template
+    a = tclusters.ClusterSpec.from_kmeans(verts, 10, seed=4, iters=3)
+    calls = []
+    kmeans = tclusters.ClusterSpec._kmeans
+    tclusters.ClusterSpec._kmeans = staticmethod(
+        lambda *args: calls.append(args) or kmeans(*args))
+    try:
+        b = tclusters.ClusterSpec.from_kmeans(verts.copy(), 10, seed=4,
+                                              iters=3)
+        assert calls == []
+        c = tclusters.ClusterSpec.from_kmeans(verts, 10, seed=5, iters=3)
+        assert len(calls) == 1
+    finally:
+        tclusters.ClusterSpec._kmeans = staticmethod(kmeans)
+    np.testing.assert_array_equal(a.vert2cluster, b.vert2cluster)
+    np.testing.assert_array_equal(a.pool_matrix, b.pool_matrix)
+    assert a.vert2cluster is not b.vert2cluster
+    a.vert2cluster[:] = 0  # a caller's edit reaches no later spec
+    assert b.vert2cluster.any()
+    assert c.num_clusters == 10
+
+
 def test_eval_rays_match_jax():
     """The port's dense six-plane test gives the JAX package's projected-hull
     rays exactly."""

@@ -289,7 +289,8 @@ def main(argv=None, dataset=None, per_frame=None):
                               cfg.mesh_axis_rays)
     owns_group = maybe_init_distributed(args, device)
     try:
-        # the frames split over every rank (mesh_axis_data sizes training)
+        # the frames split over every rank (mesh_axis_data and
+        # mesh_axis_model size training only, as in the JAX package)
         mesh = make_mesh()
         path = checkpoint_path(cfg, args.weights)
         if dataset is None:

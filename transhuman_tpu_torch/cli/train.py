@@ -51,6 +51,24 @@ validates with the frames split over the ranks.  In one process
 ``--test`` splits each frame's rays over ``mesh_axis_rays`` devices
 (cli/run.py::FrameRenderer); under torchrun a rank owns one card, and
 ``mesh_axis_rays`` > 1 is an error.
+
+With ``mesh_axis_model`` M > 1 under torchrun the run is tensor-parallel
+too, as the JAX CLI over its ('data', 'model') mesh: world rank r is data
+index r // M and model index r % M (parallel/mesh.py::make_tp_mesh), the
+world size must be a multiple of M and ``mesh_axis_data`` 0 or world / M.
+After init or resume each rank keeps only its shard of TransHE's
+Megatron-split weights and their Adam moments (parallel/tp.py); a step
+takes ``world / M x train.batch_size`` samples, data index d the d-th
+``train.batch_size`` of them (every model rank of it the same ones).
+World rank 0 records; the model ranks of data index 0 gather the whole
+state at each save and world rank 0 writes it, so the files are a single
+process's, and a run resumes from either kind.  The rank report adds the
+rank's TransHE parameter and moment bytes, the digests of its shards and
+of its replicated parameters, and the model axis's all-reduce count and
+ms a step.  ``--test`` runs on the
+saved (whole) weights with the frames split over every rank.
+``mesh_axis_model`` > 1 with ``mesh_axis_rays`` > 1 under torchrun is an
+error naming both.
 """
 
 from __future__ import annotations
@@ -66,7 +84,15 @@ import torch
 from ..config import Config
 from ..data.loader import Loader
 from ..models.lpips import lpips_module
-from ..parallel.mesh import DataMesh, barrier, make_mesh, shutdown
+from ..parallel import tp
+from ..parallel.mesh import (
+    DataMesh,
+    TPMesh,
+    barrier,
+    make_mesh,
+    make_tp_train_mesh,
+    shutdown,
+)
 from ..registry import EVALUATORS, TRAINERS
 from ..render.pipeline import fold_in
 from ..testing import init_weights
@@ -125,7 +151,9 @@ def build_trainer(cfg: Config, device, dataset=None, ckpt=None,
     """(state, step_fn, dataset, pipe) for cfg on device: the model fresh
     (seeded init, the pretrained encoder when asked) or restored from ckpt
     (a read_checkpoint dict), with LPIPS in the loss when lpips_weights is
-    set; the step data-parallel over mesh when it is distributed."""
+    set; the step data-parallel over mesh when it is distributed, and
+    tensor-parallel when it is a TPMesh (the whole state sharded after
+    the init or the restore)."""
     if dataset is None:
         dataset = make_dataset(cfg, "train")
     pe_table = ckpt["pe_table"] if ckpt else None
@@ -156,11 +184,15 @@ def build_trainer(cfg: Config, device, dataset=None, ckpt=None,
                 apply_pretrained(model, dict(z))
             print(f"loaded pretrained encoder weights: {cfg.encoder_weights}",
                   flush=True)
-    step_fn = TRAINERS.get(cfg.trainer)(
-        pipe, l2_weight=cfg.l2rec_weight, perturb=cfg.perturb > 0,
-        accum_steps=cfg.train.accum_steps,
-        lpips_fn=lpips, lpips_weight=cfg.lpips_weight,
-        patch_mode=cfg.patch.use_patch_sampling, mesh=mesh)
+    step_kw = dict(l2_weight=cfg.l2rec_weight, perturb=cfg.perturb > 0,
+                   accum_steps=cfg.train.accum_steps, lpips_fn=lpips,
+                   lpips_weight=cfg.lpips_weight,
+                   patch_mode=cfg.patch.use_patch_sampling)
+    if isinstance(mesh, TPMesh):
+        tp.shard_train_state_(state, mesh.model)
+        step_fn = tp.make_tp_train_step(pipe, mesh, **step_kw)
+    else:
+        step_fn = TRAINERS.get(cfg.trainer)(pipe, mesh=mesh, **step_kw)
     return state, step_fn, dataset, pipe
 
 
@@ -258,25 +290,50 @@ def main(argv=None, dataset=None):
     device = configure_device(args.device, args.dist_backend)
     owns_group = maybe_init_distributed(args, device)
     try:
-        mesh = make_mesh(cfg.mesh_axis_data)
-        if mesh.distributed and cfg.mesh_axis_rays > 1:
-            raise SystemExit(
-                f"mesh_axis_rays={cfg.mesh_axis_rays} under torchrun: each "
-                "train rank owns one card for its step, so its validation "
-                "cannot split a frame's rays over more; run --test in one "
-                "process to shard the rays")
+        if cfg.mesh_axis_model > 1:
+            mesh = make_tp_train_mesh(cfg.mesh_axis_data,
+                                      cfg.mesh_axis_model)
+            world = mesh.world
+        else:
+            mesh = world = make_mesh(cfg.mesh_axis_data)
+        refuse_sharded_rays(cfg, world)
         if args.test:
-            return validate(cfg, device, dataset, args.weights, mesh)
+            return validate(cfg, device, dataset, args.weights, world)
         return train(args, cfg, device, mesh, dataset)
     finally:
         if owns_group:
             shutdown()
 
 
-def train(args, cfg: Config, device, mesh: DataMesh, dataset=None):
-    """The train loop of main over mesh: (state, records)."""
+def refuse_sharded_rays(cfg: Config, world: DataMesh):
+    """Under torchrun mesh_axis_rays > 1 is an error naming the values,
+    with mesh_axis_model > 1 or alone: each train rank owns one card."""
+    if not world.distributed or cfg.mesh_axis_rays <= 1:
+        return
+    if cfg.mesh_axis_model > 1:
+        raise SystemExit(
+            f"mesh_axis_model={cfg.mesh_axis_model} with mesh_axis_rays="
+            f"{cfg.mesh_axis_rays} under torchrun: a tensor-parallel rank "
+            "owns one card, so neither training nor --test can split a "
+            "frame's rays over more; run --test in one process to shard "
+            "the rays")
+    raise SystemExit(
+        f"mesh_axis_rays={cfg.mesh_axis_rays} under torchrun: each "
+        "train rank owns one card for its step, so its validation "
+        "cannot split a frame's rays over more; run --test in one "
+        "process to shard the rays")
+
+
+def train(args, cfg: Config, device, mesh, dataset=None):
+    """The train loop of main over mesh (a DataMesh or a TPMesh):
+    (state, records)."""
     seed_everything(cfg.seed)
-    lead = mesh.rank == 0
+    sharded = isinstance(mesh, TPMesh)
+    data, world = (mesh.data, mesh.world) if sharded else (mesh, mesh)
+    lead = world.rank == 0
+    # the ranks that take part in a save: rank 0, and under TP the other
+    # model ranks of its data index, which gather the whole state with it
+    saves = lead or (sharded and data.rank == 0)
     mdir = model_dir(cfg)
     # read before the runtime is built: a converted checkpoint's stored PE
     # table rides into the pipeline and into every checkpoint this run writes
@@ -304,13 +361,13 @@ def train(args, cfg: Config, device, mesh: DataMesh, dataset=None):
         # ranks x B samples, rank r the r-th B of them (the JAX CLI's
         # process slice)
         bsz = cfg.train.batch_size
-        gsz = mesh.size * bsz
+        gsz = data.size * bsz
         need = cfg.ep_iter * gsz
         ep_rng = np.random.default_rng(cfg.seed + epoch)
         perm = np.concatenate([
             ep_rng.permutation(len(dataset))
             for _ in range(-(-need // len(dataset)))])[:need]
-        lo = mesh.rank * bsz
+        lo = data.rank * bsz
         # workers build host samples (seeded by epoch and index, so their
         # order cannot change the data); the copy to the card stays here
         batches = Loader(
@@ -362,31 +419,44 @@ def train(args, cfg: Config, device, mesh: DataMesh, dataset=None):
         if done:
             break
         t0 = time.perf_counter()
-        if lead:
+        if saves:
             paths = ckpt_io.save_epoch(
                 mdir, state, epoch, (epoch + 1) % cfg.save_freq == 0,
-                recorder.state_dict(), pe_table)
-            print(f"checkpoint: {', '.join(paths)} "
-                  f"({time.perf_counter() - t0:.3f} s)", flush=True)
-        barrier(mesh)
+                recorder.state_dict(), pe_table, write=lead)
+            if lead:
+                print(f"checkpoint: {', '.join(paths)} "
+                      f"({time.perf_counter() - t0:.3f} s)", flush=True)
+        barrier(world)
         records[-1]["save_s"] = time.perf_counter() - t0
         if cap and len(records) == cap:
             break
     if args.out and records:
-        if lead:
+        if saves:
             ckpt_io.save_checkpoint(args.out, state, records[-1]["step"]
                                     // cfg.ep_iter, recorder.state_dict(),
-                                    pe_table)
-            print(f"checkpoint: {args.out}", flush=True)
-        barrier(mesh)
+                                    pe_table, write=lead)
+            if lead:
+                print(f"checkpoint: {args.out}", flush=True)
+        barrier(world)
     recorder.close()
-    if mesh.distributed:
-        rank_report(mesh, step_ms=[r["step_s"] * 1e3 for r in records],
-                    loss=[r["loss"] for r in records],
-                    grad_allreduce_ms=[r["grad_allreduce_ms"]
+    if world.distributed:
+        extra = {}
+        if sharded:
+            extra = dict(
+                tp.vit_bytes(state), vit_digest=tp.vit_digest(state.model),
+                replicated_digest=tp.replicated_digest(state.model),
+                data_rank=data.rank, model_rank=mesh.model.rank,
+                model_allreduce_count=[r["model_allreduce_count"]
                                        for r in records],
-                    grad_allreduce_mb=records[0]["grad_allreduce_mb"]
-                    if records else 0.0)
+                model_allreduce_ms=[r["model_allreduce_ms"]
+                                    for r in records])
+        rank_report(world, step_ms=[r["step_s"] * 1e3 for r in records],
+                    loss=[r["loss"] for r in records],
+                    grad_allreduce_ms=[r.get("grad_allreduce_ms", 0.0)
+                                       for r in records],
+                    grad_allreduce_mb=records[0].get("grad_allreduce_mb",
+                                                     0.0)
+                    if records else 0.0, **extra)
     return state, records
 
 

@@ -195,6 +195,8 @@ class Config:
     compact_ratio: Optional[float] = 0.3
     mesh_axis_data: int = 0
     mesh_axis_rays: int = 1
+    # tensor-parallel ranks of the train entry point under torchrun
+    # (parallel/tp.py); training only, as in JAX: cli/run.py ignores it
     mesh_axis_model: int = 1
     remat: bool = False  # recompute the train decode in the backward
 
@@ -363,7 +365,7 @@ def _check_type(key, cur, new):
 # ------------------------------------------------------------ key classes
 # TPU/static-shape execution knobs of the JAX package with no job here
 TPU_ONLY_KEYS = frozenset({
-    "pad_bucket", "compact_ratio", "use_pallas_knn", "mesh_axis_model",
+    "pad_bucket", "compact_ratio", "use_pallas_knn",
 })
 # read by neither package (xyz_res, save_latest_ep, gpus, test.collator,
 # test.time_det, test.batch_size, train.scheduler.type: the JAX package reads

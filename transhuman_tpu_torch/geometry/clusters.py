@@ -8,9 +8,16 @@ matrix product, exactly the per-cluster mean.
 
 from __future__ import annotations
 
+import hashlib
 from dataclasses import dataclass
 
 import numpy as np
+
+# from_kmeans' assignments by (template digest, shape, clusters, seed,
+# iters): an entry point without a k-means dict runs the same k-means at
+# every start, ~1.5 s on the card machine's host, and a process that
+# starts several (chip_smoke.py runs some 60) pays it once
+_KMEANS = {}
 
 
 @dataclass
@@ -43,7 +50,19 @@ class ClusterSpec:
     @classmethod
     def from_kmeans(cls, verts: np.ndarray, num_clusters: int, seed: int = 0,
                     iters: int = 50) -> "ClusterSpec":
-        """Lloyd's k-means over the canonical vertices, no cluster empty."""
+        """Lloyd's k-means over the canonical vertices, no cluster empty;
+        computed once per process for the same inputs."""
+        verts = np.asarray(verts)
+        key = (hashlib.sha256(np.ascontiguousarray(verts).tobytes())
+               .hexdigest(), verts.shape, verts.dtype.str, num_clusters,
+               seed, iters)
+        if key not in _KMEANS:
+            _KMEANS[key] = cls._kmeans(verts, num_clusters, seed, iters)
+        return cls(_KMEANS[key].copy(), num_clusters)
+
+    @staticmethod
+    def _kmeans(verts: np.ndarray, num_clusters: int, seed: int,
+                iters: int) -> np.ndarray:
         rng = np.random.default_rng(seed)
         n = verts.shape[0]
         centers = verts[rng.choice(n, num_clusters, replace=False)].copy()
@@ -71,7 +90,7 @@ class ClusterSpec:
                         assign[v] = c
                         counts[c] += 1
                         break
-        return cls(assign.astype(np.int32), num_clusters)
+        return assign.astype(np.int32)
 
     def save_reference_dict(self, path: str):
         """Write the table in the reference's kmeans_dict npy format (what

@@ -33,3 +33,15 @@ def embed_dparf(x, num_freqs: int = 10):
     """DPaRF local-coordinate code: pi-scaled frequencies, input first; 63-d."""
     return freq_encode(x, num_freqs, freq_factor=float(np.pi),
                        include_input=True)
+
+
+def embed_vit_pos(x, embed_dim: int):
+    """TransHE's positional code of the normalised canonical cluster
+    centroids: pi-scaled frequencies, no input, embed_dim // 6 frequencies
+    -> embed_dim channels."""
+    if embed_dim % 6 != 0:
+        raise ValueError(
+            f"embed_vit_pos requires embed_dim % 6 == 0, got {embed_dim} "
+            "(each frequency contributes sin+cos over 3 coords).")
+    return freq_encode(x, embed_dim // 6, freq_factor=float(np.pi),
+                       include_input=False)

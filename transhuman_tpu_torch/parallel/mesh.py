@@ -16,13 +16,22 @@ positions, per-frame metrics, shapes) travels as Python objects, so no
 host value needs a CUDA tensor under NCCL.  ``make_mesh`` gives the
 ``DataMesh`` of the calling rank: its rank, the world size, the group the
 train step's collectives run on, and the side group.
+
+``make_process_mesh`` lays the ranks out on named axes, the last axis the
+minor one (JAX ``Mesh`` over ``devices.reshape(...)``): world rank r =
+((c0 * n1) + c1) * n2 + ... for coordinates (c0, c1, ...).  Each axis of a
+rank is the group of the ranks that differ from it in that coordinate
+only.  ``make_tp_mesh(n_data, n_model)`` is the ('data', 'model') mesh of
+tensor-parallel training (transhuman_tpu/parallel/tp.py::make_tp_mesh):
+its data axis is a ``DataMesh``, so the data-parallel step runs over it
+unchanged, and its model axis carries the Megatron collectives.
 """
 
 from __future__ import annotations
 
 import os
-from dataclasses import dataclass
-from typing import Any, Optional
+from dataclasses import dataclass, field
+from typing import Any, Optional, Sequence, Tuple
 
 import numpy as np
 import torch.distributed as dist
@@ -88,6 +97,136 @@ def make_mesh(n_data: int = 0) -> DataMesh:
             "one process drives one card, so mesh_axis_data must be 0 (every "
             f"rank) or {size} (launch as many ranks as the data axis)")
     return DataMesh(rank, size, group, host)
+
+
+@dataclass
+class CollectiveLog:
+    """The collectives run over an axis since the last reset: their count
+    and each one's timer (anything with an ``ms()``)."""
+
+    count: int = 0
+    timers: list = field(default_factory=list)
+
+    def reset(self):
+        self.count, self.timers = 0, []
+
+    def ms(self) -> float:
+        return sum(t.ms() for t in self.timers)
+
+
+@dataclass(frozen=True)
+class Axis:
+    """One named axis of a process mesh as one rank sees it: its
+    coordinate, the axis size, the group of the ranks along it (None when
+    the size is 1), that group's gloo twin for host objects, the world
+    ranks along it in axis order, and the log of the collectives run over
+    it."""
+
+    name: str
+    rank: int = 0
+    size: int = 1
+    group: Optional[Any] = None
+    host_group: Optional[Any] = None
+    ranks: Tuple[int, ...] = (0,)
+    log: CollectiveLog = field(default_factory=CollectiveLog, compare=False,
+                               repr=False)
+
+    def as_data_mesh(self) -> DataMesh:
+        return DataMesh(self.rank, self.size, self.group, self.host_group)
+
+
+@dataclass(frozen=True)
+class ProcessMesh:
+    """Named axes over the ranks of the process group (JAX ``Mesh``)."""
+
+    axes: Tuple[Axis, ...]
+
+    @property
+    def shape(self) -> dict:
+        return {a.name: a.size for a in self.axes}
+
+    def __getitem__(self, name: str) -> Axis:
+        for a in self.axes:
+            if a.name == name:
+                return a
+        raise KeyError(f"axis {name!r} not in mesh {self.shape}")
+
+
+def make_process_mesh(names: Sequence[str], sizes: Sequence[int]
+                      ) -> ProcessMesh:
+    """The mesh of axes ``names`` with ``sizes`` over every rank of the
+    process group, the last axis minor.  Every rank creates every group of
+    every axis, in one order (``dist.new_group`` is collective), with a
+    gloo twin beside each when the group's backend is not gloo.  The world
+    size must be the product of the sizes (ValueError with the counts, as
+    the JAX mesh's "need ... devices")."""
+    names, sizes = tuple(names), tuple(int(n) for n in sizes)
+    need = int(np.prod(sizes)) if sizes else 1
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    if need != world:
+        raise ValueError(
+            f"need {need} processes for mesh {dict(zip(names, sizes))}, "
+            f"have {world}: launch {need} ranks")
+    me = dist.get_rank() if dist.is_initialized() else 0
+    grid = np.arange(need).reshape(sizes)
+    coords = np.unravel_index(me, sizes)
+    twin = (dist.is_initialized()
+            and dist.get_backend() != dist.Backend.GLOO)
+    axes = []
+    for i, name in enumerate(names):
+        lines = np.moveaxis(grid, i, -1).reshape(-1, sizes[i])
+        mine, group, host = None, None, None
+        for line in lines:
+            ranks = tuple(int(r) for r in line)
+            g = h = None
+            if sizes[i] > 1:
+                g = dist.new_group(list(ranks))
+                h = dist.new_group(list(ranks), backend="gloo") if twin \
+                    else g
+            if me in ranks:
+                mine, group, host = ranks, g, h
+        axes.append(Axis(name, int(coords[i]), sizes[i], group, host, mine))
+    return ProcessMesh(tuple(axes))
+
+
+@dataclass(frozen=True)
+class TPMesh:
+    """The ('data', 'model') mesh of tensor-parallel training as one rank
+    sees it: ``data`` the DataMesh of the ranks that share its model
+    index (its rank the data index), ``model`` the axis of the n_model
+    consecutive ranks that share its data index, ``world`` every rank
+    (barriers, host gathers; world rank 0 records and writes)."""
+
+    data: DataMesh
+    model: Axis
+    world: DataMesh
+
+
+def make_tp_mesh(n_data: int, n_model: int) -> TPMesh:
+    """The ('data', 'model') mesh, 'model' the minor axis as in JAX
+    (world rank r = d * n_model + m).  The world size must be n_data *
+    n_model."""
+    pm = make_process_mesh(("data", "model"), (n_data, n_model))
+    return TPMesh(pm["data"].as_data_mesh(), pm["model"], make_mesh())
+
+
+def make_tp_train_mesh(n_data: int, n_model: int) -> TPMesh:
+    """The TPMesh a train run takes from ``mesh_axis_data`` and
+    ``mesh_axis_model`` > 1: world / n_model data indices.  The world size
+    must be divisible by n_model, and n_data must be 0 or world / n_model
+    (ValueError naming the values)."""
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    if world % n_model:
+        raise ValueError(
+            f"mesh_axis_model={n_model} does not divide the world of {world} "
+            f"process(es): launch a multiple of {n_model} ranks under "
+            "torchrun (one process drives one card)")
+    if n_data and n_data != world // n_model:
+        raise ValueError(
+            f"mesh_axis_data={n_data} but the world of {world} process(es) "
+            f"at mesh_axis_model={n_model} has {world // n_model} data "
+            f"indices: mesh_axis_data must be 0 or {world // n_model}")
+    return make_tp_mesh(world // n_model, n_model)
 
 
 def barrier(mesh: DataMesh):

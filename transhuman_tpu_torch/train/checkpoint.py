@@ -7,7 +7,12 @@ plus ``pe_table`` when the run carries a stored TransHE table.  Each epoch
 writes ``latest.pth`` and, every ``save_freq`` epochs, ``{epoch}.pth``; the
 files are serialised once and written atomically (temporary file, then
 rename).  ``weights.load_checkpoint_file`` reads the 'net' part, so a trained
-model serves as it is.
+model serves as it is.  A tensor-parallel state (``parallel/tp.py``) is
+written whole: its model ranks gather the reference state dict and the
+optimizer's moments (every model rank must take part), and one rank
+writes, so the file is the one a single process writes; a run resumes
+from it, or from a single process's file, by restoring the whole state
+and sharding it after (``tp.shard_train_state_``).
 
 It also reads the JAX package's ``latest.ckpt`` / ``ep{N}.ckpt`` without
 JAX: a pickle of a numpy-ified pytree holding optax state, unpickled by
@@ -44,10 +49,13 @@ def _atomic_write(path: str, data: bytes):
 
 def checkpoint_blob(state: TrainState, epoch: int, recorder: Optional[dict]
                     = None, pe_table=None) -> dict:
+    """The file's dict; a sharded state's whole one (every model rank of
+    it must call this)."""
+    from ..parallel import tp
+
     blob = {
-        "net": {k: v.detach().cpu()
-                for k, v in state.model.state_dict().items()},
-        "optim": state.optimizer.state_dict(),
+        "net": tp.gather_state_dict(state.model),
+        "optim": tp.gather_optimizer_state(state),
         "scheduler": state.scheduler.state_dict(),
         "epoch": int(epoch),
         "step": int(state.step),
@@ -65,20 +73,28 @@ def _serialise(blob: dict) -> bytes:
 
 
 def save_checkpoint(path: str, state: TrainState, epoch: int,
-                    recorder: Optional[dict] = None, pe_table=None):
-    """One checkpoint file at path."""
-    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
-    _atomic_write(path, _serialise(checkpoint_blob(state, epoch, recorder,
-                                                   pe_table)))
+                    recorder: Optional[dict] = None, pe_table=None,
+                    write: bool = True):
+    """One checkpoint file at path; with write False only the gather of a
+    sharded state is taken part in."""
+    blob = checkpoint_blob(state, epoch, recorder, pe_table)
+    if write:
+        os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+        _atomic_write(path, _serialise(blob))
 
 
 def save_epoch(model_dir: str, state: TrainState, epoch: int,
                save_epoch_copy: bool, recorder: Optional[dict] = None,
-               pe_table=None) -> list:
+               pe_table=None, write: bool = True) -> list:
     """``latest.pth``, and ``{epoch}.pth`` when save_epoch_copy, in
-    model_dir (JAX cli/train.py:347-351); returns the paths written."""
+    model_dir (JAX cli/train.py:347-351); returns the paths written (none
+    with write False, which only takes part in a sharded state's
+    gather)."""
+    blob = checkpoint_blob(state, epoch, recorder, pe_table)
+    if not write:
+        return []
     os.makedirs(model_dir, exist_ok=True)
-    data = _serialise(checkpoint_blob(state, epoch, recorder, pe_table))
+    data = _serialise(blob)
     paths = [os.path.join(model_dir, "latest.pth")]
     if save_epoch_copy:
         paths.append(os.path.join(model_dir, f"{epoch}.pth"))

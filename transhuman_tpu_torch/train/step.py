@@ -183,37 +183,50 @@ class _Timer:
         return (self.marks[1] - self.marks[0]) * 1e3
 
 
-def _average_over_ranks(params, totals, decoded, mesh, device):
-    """The data-parallel step's reductions, on every rank in one order: each
+def data_parallel_groups(mesh):
+    """The data-parallel step's reduction groups: every gradient and the
+    stats over the ranks of mesh, each sample on one rank."""
+    return lambda params: ([(mesh, params)], mesh, 1)
+
+
+def _average_over_ranks(params, totals, decoded, device, groups):
+    """A step's reductions across ranks, on every rank in one order: each
     gradient (zeros where no path reached it, so that the ranks'
-    collectives line up) averaged over the ranks in flat buckets, timed;
-    then the stats averaged and the cull's counts summed in one more
-    all-reduce.  Returns (totals, decoded counts, the gradient all-reduce's
-    timer, its MB)."""
+    collectives line up) averaged over the ranks of its group in flat
+    buckets, timed; then the stats averaged and the cull's counts summed in
+    one more all-reduce over the stats mesh, the counts divided by the
+    ranks that hold each sample.  ``groups(params)`` gives ([(mesh, its
+    params)], the stats mesh, the copies of each sample).  Returns (totals,
+    decoded counts, the gradient all-reduces' timer, the MB they
+    reduced)."""
     for p in params:
         if p.grad is None:
             p.grad = torch.zeros_like(p)
-    grads = [p.grad for p in params]
-    timer = _Timer(grads[0].device)
+    grad_groups, stats_mesh, copies = groups(params)
+    timer = _Timer(params[0].grad.device)
     timer.mark(0)
-    allreduce_mean_(grads, mesh)
+    mb = 0.0
+    for mesh, group in grad_groups:
+        if mesh.distributed and group:
+            allreduce_mean_([p.grad for p in group], mesh)
+            mb += sum(p.grad.numel() * p.grad.element_size()
+                      for p in group) / 2**20
     timer.mark(1)
     keys = sorted(totals)
     packed = torch.stack(
         [totals[k].to(device, torch.float64) for k in keys]
         + [torch.tensor(float(c), dtype=torch.float64, device=device)
            for c in decoded])
-    dist.all_reduce(packed, group=mesh.group)
-    mb = sum(g.numel() * g.element_size() for g in grads) / 2**20
-    return (dict(zip(keys, packed[:len(keys)] / mesh.size)),
-            packed[len(keys):], timer, mb)
+    dist.all_reduce(packed, group=stats_mesh.group)
+    return (dict(zip(keys, packed[:len(keys)] / stats_mesh.size)),
+            packed[len(keys):] / copies, timer, mb)
 
 
 @TRAINERS.register("clight")
 def make_train_step(pipe, clip_value: float = 40.0, l2_weight: float = 1.0,
                     perturb: bool = True, accum_steps: int = 1,
                     lpips_fn=None, lpips_weight: float = 0.1,
-                    patch_mode: bool = True, mesh=None):
+                    patch_mode: bool = True, mesh=None, reduce_groups=None):
     """(state, batch, seed) -> stats, batch a TrainSample or a list of B of
     them: forward, loss, backward (in accum_steps microbatches), per-element
     gradient clip at clip_value (reference trainer.py:85), optimizer
@@ -238,11 +251,15 @@ def make_train_step(pipe, clip_value: float = 40.0, l2_weight: float = 1.0,
     (so every rank's collectives line up), and the gradients, the stats
     and the cull's counts are averaged (summed) over the ranks before the
     clip.  ``step.comm`` then holds the gradient all-reduce's ms and MB of
-    the last step."""
+    the last step.  ``reduce_groups`` replaces those reductions' groups
+    (``_average_over_ranks``; the tensor-parallel step's are
+    ``parallel.tp.tp_groups``)."""
     batch_loss = make_batch_loss(pipe, l2_weight, perturb, lpips_fn,
                                  lpips_weight, patch_mode, mesh)
     distributed = mesh is not None and mesh.distributed
     rank = mesh.rank if distributed else 0
+    if reduce_groups is None and distributed:
+        reduce_groups = data_parallel_groups(mesh)
 
     def step(state: TrainState, batch, seed=None) -> dict:
         samples = [batch] if isinstance(batch, TrainSample) else list(batch)
@@ -268,10 +285,10 @@ def make_train_step(pipe, clip_value: float = 40.0, l2_weight: float = 1.0,
             decoded[0] += pipe.last_frame_stats["survivors"]
             decoded[1] += pipe.last_frame_stats["points"]
         params = [p for g in opt.param_groups for p in g["params"]]
-        if distributed:
+        if reduce_groups is not None:
             with record_function("train_step.allreduce"):
                 totals, decoded, timer, mb = _average_over_ranks(
-                    params, totals, decoded, mesh, pipe.device)
+                    params, totals, decoded, pipe.device, reduce_groups)
         with record_function("train_step.optimizer"):
             torch.nn.utils.clip_grad_value_(params, clip_value)
             lr = opt.param_groups[0]["lr"]
@@ -282,7 +299,7 @@ def make_train_step(pipe, clip_value: float = 40.0, l2_weight: float = 1.0,
         out["lr"] = lr
         if pipe.train_cull:
             out["cull_survivors"] = float(decoded[0]) / float(decoded[1])
-        if distributed:
+        if reduce_groups is not None:
             step.comm = {"grad_allreduce_ms": timer.ms(),
                          "grad_allreduce_mb": mb}
         return out
