@@ -92,9 +92,12 @@ directory in the reference's layout (23 cameras, D non-zero on most,
 frames hard-linked to the committed 1024x1024 fixture JPEGs, masks from the
 synthetic body's projection, visibility files for half the cameras):
 
-e. the port's JPEG/PNG codec, built with g++, on each committed fixture:
-   its bytes against the sha256 of cv2's or imageio's decode in
-   tests/fixtures/torch_zju/digests.json; each decode timed;
+e. the port's JPEG/PNG codec, built with g++, on each committed fixture
+   of tests/fixtures/torch_zju (baseline JPEGs, masks) and
+   torch_zju_codings (progressive, truncated progressive, CMYK, YCCK and
+   EXIF-6 JPEGs, a 16-bit RGBA PNG frame, an Adam7 mask): its bytes against
+   the sha256 of cv2's or imageio's decode in the folder's digests.json;
+   each decode timed;
 f. the train entry point from configs/train_or_eval.yaml with dataset zju
    (CoreView_377, the catalog's 10 frames) in bf16 and float32, and with
    dataset synthetic in bf16, counters reset and read around each: every
@@ -114,7 +117,14 @@ i. visibility from depth maps (depth_map True, depth_vizmap True): depth
    and the band's count printed), the item's frames within phase 8's
    bounds; then at full width --type evaluate, --type visualize and one
    train step (train.cull True), counters reset and read around each: K1,
-   K2 and K4 launched on each, K3 in the step.
+   K2 and K4 launched on each, K3 in the step;
+m. image codings: humans laid out with Adam7 masks whose 1024x1024 views
+   are the committed progressive JPEG, an EXIF-3 splice of it and a PNG
+   frame of its decode: the train entry point (train_or_eval.yaml) for 2
+   bf16 steps on the JPEG views, then --type evaluate on its checkpoint
+   over one frame of PNG frames, counters reset and read around each
+   (K2, K4 and K3 in the steps, K1, K2 and K4 in the evaluation), finite
+   losses and metrics, and each coding read by the loader.
 
 Then data parallelism across processes, each command ``python -m
 torch.distributed.run --standalone --nproc_per_node N -m
@@ -2555,39 +2565,49 @@ def phase_eval_cfg(card: str, tmp: str, model_root: str, files: dict):
 # ----------------------------------------------- ZJU-MoCap loader, codec
 FIXTURES = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
                         "fixtures", "torch_zju")
+# progressive, truncated, CMYK, YCCK and EXIF-oriented JPEGs, a 16-bit RGBA
+# PNG frame and an Adam7 mask (tests/test_torch_codings.py makes them)
+CODINGS = os.path.join(os.path.dirname(FIXTURES), "torch_zju_codings")
 ZJU_CAMS = 23  # cameras on set (the regular layout)
 ZJU_TRAIN_STEPS = 12  # per dtype and dataset in phase f: past the loader's prefill
 ZJU_EVAL_FRAMES = 2  # frames of CoreView_387 laid out for phase g
 
 
 def phase_codec(card: str) -> dict:
-    """e. Each committed fixture decoded by the port's codec (built in
-    phase 2 with g++ from transhuman_tpu_torch/native), its bytes held
-    against the sha256 of cv2's or imageio's decode recorded in
-    digests.json; each decode timed on the host, median of 20; the event
-    files' CRC32C, native against the Python table."""
+    """e. Each committed fixture of tests/fixtures/torch_zju and
+    torch_zju_codings decoded by the port's codec (built in phase 2 with g++
+    from transhuman_tpu_torch/native) as the loader reads it (a frame by
+    imread_rgb, a mask by read_png), its bytes held against the sha256 of
+    cv2's or imageio's decode recorded in the folder's digests.json; each
+    decode timed on the host, median of 20; the event files' CRC32C,
+    native against the Python table."""
     import hashlib
 
     from transhuman_tpu_torch.data import image_io
 
-    with open(os.path.join(FIXTURES, "digests.json")) as f:
-        digests = json.load(f)
-    out = {}
-    for name, want in sorted(digests.items()):
-        path = os.path.join(FIXTURES, name)
-        read = image_io.imread_rgb if name.endswith(".jpg") else \
-            image_io.read_png
-        img = read(path)
-        got = hashlib.sha256(np.ascontiguousarray(img).tobytes()).hexdigest()
-        check(got == want["sha256"] and list(img.shape) == want["shape"],
-              f"codec: {name} decodes to {got[:12]}.. {img.shape}, want "
-              f"{want['sha256'][:12]}.. {want['shape']} ({want['by']})")
-        ms = []
-        for _ in range(20):
-            t = time.perf_counter()
-            read(path)
-            ms.append((time.perf_counter() - t) * 1e3)
-        out[name] = float(np.median(ms))
+    out, by = {}, set()
+    for folder in (FIXTURES, CODINGS):
+        with open(os.path.join(folder, "digests.json")) as f:
+            digests = json.load(f)
+        check(len(digests) == (5 if folder == FIXTURES else 8),
+              f"codec: {folder} lists {len(digests)} fixtures")
+        for name, want in sorted(digests.items()):
+            path = os.path.join(folder, name)
+            read = image_io.read_png if name.startswith("mask") else \
+                image_io.imread_rgb
+            img = read(path)
+            got = hashlib.sha256(np.ascontiguousarray(img).tobytes()
+                                 ).hexdigest()
+            check(got == want["sha256"] and list(img.shape) == want["shape"],
+                  f"codec: {name} decodes to {got[:12]}.. {img.shape}, want "
+                  f"{want['sha256'][:12]}.. {want['shape']} ({want['by']})")
+            ms = []
+            for _ in range(20):
+                t = time.perf_counter()
+                read(path)
+                ms.append((time.perf_counter() - t) * 1e3)
+            out[name] = float(np.median(ms))
+            by.add(want["by"])
     # the event files' CRC32C: the native library against the Python table
     from transhuman_tpu_torch.utils import tb_writer
 
@@ -2603,10 +2623,12 @@ def phase_codec(card: str) -> dict:
     crc_table = 1.0 / (time.perf_counter() - t)
     log(f"[e crc32c] native {crc_native:.0f} MB/s over 16 MiB, the Python "
         f"table {crc_table:.2f} MB/s over 1 MiB (host)  [{card}]")
-    log(f"[e codec] every fixture equals "
-        f"{', '.join(sorted({d['by'] for d in digests.values()}))} bit for "
-        f"bit; host ms per decode (median of 20): "
-        + ", ".join(f"{k} {v:.2f}" for k, v in out.items()) + f"  [{card}]")
+    log(f"[e codec] every fixture ({len(out)}) equals "
+        f"{', '.join(sorted(by))} bit for bit; host ms per decode (median "
+        f"of 20): " + ", ".join(f"{k} {v:.2f}" for k, v in out.items())
+        + f"; progressive 1024x1024 q95 4:2:0 against the sequential one "
+        f"{out['cv2_prog_q95_420.jpg'] / out['cv2_q95_420.jpg']:.2f}x  "
+        f"[{card}]")
     return out
 
 
@@ -2630,9 +2652,38 @@ def _zju_cameras(n: int, hw=(1024, 1024)):
     return cams
 
 
-def _mask_png(verts, K, R, T, hw) -> bytes:
+ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4),
+         (0, 2, 2, 4), (1, 0, 2, 2), (0, 1, 1, 2))  # x0, y0, dx, dy
+
+
+def adam7_png(grey: np.ndarray) -> bytes:
+    """An 8-bit grey PNG of grey, Adam7-interlaced: its seven passes in
+    turn, each row under the Sub filter."""
+    import struct
+    import zlib
+
+    h, w = grey.shape
+    raw = []
+    for x0, y0, dx, dy in ADAM7:
+        sub = grey[y0::dy, x0::dx].astype(np.int16)
+        if sub.size:
+            d = np.diff(sub, axis=1, prepend=0).astype(np.uint8)
+            raw.append(np.concatenate([np.ones((len(d), 1), np.uint8), d],
+                                      1).tobytes())
+
+    def chunk(tag, data):
+        return (struct.pack(">I", len(data)) + tag + data
+                + struct.pack(">I", zlib.crc32(tag + data) & 0xFFFFFFFF))
+
+    return (b"\x89PNG\r\n\x1a\n"
+            + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 0, 0, 0, 1))
+            + chunk(b"IDAT", zlib.compress(b"".join(raw), 6))
+            + chunk(b"IEND", b""))
+
+
+def _mask_png(verts, K, R, T, hw, adam7: bool = False) -> bytes:
     """8-bit grey PNG (0/255) of the body: the vertices' projection on a
-    16-pixel grid, grown by one cell."""
+    16-pixel grid, grown by one cell; Adam7-interlaced with adam7."""
     from transhuman_tpu_torch.data.imgproc import dilate
     from transhuman_tpu_torch.utils.png import encode_png
 
@@ -2646,27 +2697,39 @@ def _mask_png(verts, K, R, T, hw) -> bytes:
         ij[:, 1] < h // 16)
     cells[ij[ok, 1], ij[ok, 0]] = 255
     cells = dilate(cells, 3)
-    return encode_png(np.repeat(np.repeat(cells, 16, 0), 16, 1))
+    mask = np.repeat(np.repeat(cells, 16, 0), 16, 1)
+    return adam7_png(mask) if adam7 else encode_png(mask)
+
+
+def fixture_jpegs() -> list:
+    """The three committed 1024x1024 baseline JPEGs."""
+    return sorted(os.path.join(FIXTURES, f) for f in os.listdir(FIXTURES)
+                  if f.endswith(".jpg"))
 
 
 def write_zju_layout(root: str, human: str, frames, n_annots: int,
-                     seed: int = 0):
+                     seed: int = 0, sources=None, adam7: bool = False):
     """A ZJU-MoCap human under root in the reference's layout: annots.npy
     (ZJU_CAMS cameras, n_annots frames listed), for each of ``frames`` the
-    23 views hard-linked to the committed 1024x1024 fixture JPEGs, masks
-    from the posed synthetic body's projection, new_vertices/new_params of
-    SMPLModel.synthetic() posed, and visibility files for the first half of
-    the cameras (the rest fall back to all ones)."""
+    23 views hard-linked to 1024x1024 image files, masks from the posed
+    synthetic body's projection (Adam7-interlaced with adam7),
+    new_vertices/new_params of SMPLModel.synthetic() posed, and visibility
+    files for the first half of the cameras (the rest fall back to all
+    ones).  sources: lists of files; the k-th frame's views cycle through
+    sources[k % len(sources)] and take its first file's extension (an input
+    view reads the target's file name); by default the committed fixture
+    JPEGs."""
     from transhuman_tpu_torch.geometry.smpl import SMPLModel, rodrigues
 
     rng = np.random.default_rng(seed)
     smpl = SMPLModel.synthetic()
     hdir = os.path.join(root, human)
     cams = _zju_cameras(ZJU_CAMS)
-    jpegs = sorted(os.path.join(FIXTURES, f) for f in os.listdir(FIXTURES)
-                   if f.endswith(".jpg"))
-    ims = [{"ims": [f"Camera_B{c + 1}/{f:06d}.jpg" for c in range(ZJU_CAMS)]}
-           for f in range(n_annots)]
+    sources = sources or [fixture_jpegs()]
+    ext = {f: os.path.splitext(sources[k % len(sources)][0])[1]
+           for k, f in enumerate(frames)}
+    ims = [{"ims": [f"Camera_B{c + 1}/{f:06d}{ext.get(f, '.jpg')}"
+                    for c in range(ZJU_CAMS)]} for f in range(n_annots)]
     for d in ("new_vertices", "new_params"):
         os.makedirs(os.path.join(hdir, d), exist_ok=True)
     for k, f in enumerate(frames):
@@ -2686,8 +2749,9 @@ def write_zju_layout(root: str, human: str, frames, n_annots: int,
             cdir = f"Camera_B{c + 1}"
             for sub in ("", "mask"):
                 os.makedirs(os.path.join(hdir, sub, cdir), exist_ok=True)
-            dst = os.path.join(hdir, cdir, f"{f:06d}.jpg")
-            src = jpegs[(k + c) % len(jpegs)]
+            dst = os.path.join(hdir, cdir, f"{f:06d}{ext[f]}")
+            views = sources[k % len(sources)]
+            src = views[(k + c) % len(views)]
             try:
                 os.link(src, dst)
             except OSError:
@@ -2695,7 +2759,8 @@ def write_zju_layout(root: str, human: str, frames, n_annots: int,
             with open(os.path.join(hdir, "mask", cdir, f"{f:06d}.png"),
                       "wb") as fh:
                 fh.write(_mask_png(verts, *(np.asarray(cams[x][c]) for x in
-                                           ("K", "R", "T")), (1024, 1024)))
+                                           ("K", "R", "T")), (1024, 1024),
+                                   adam7))
             if c < ZJU_CAMS // 2:
                 vdir = os.path.join(root, "raster", human, "visibility", cdir)
                 os.makedirs(vdir, exist_ok=True)
@@ -2778,7 +2843,8 @@ def phase_train_zju(card: str, tmp: str, files: dict) -> tuple:
 
     root = os.path.join(tmp, "zju")
     t0 = time.perf_counter()
-    write_zju_layout(root, "CoreView_377", range(0, 300, 30), 300)
+    write_zju_layout(root, "CoreView_377", range(0, 300, 30), 300,
+                     sources=[fixture_jpegs()])
     layout_s = time.perf_counter() - t0
     cfg_file = os.path.join(CONFIGS, "train_or_eval.yaml")
 
@@ -2876,7 +2942,7 @@ def phase_eval_zju(card: str, tmp: str, model_root: str) -> dict:
 
     root = os.path.join(tmp, "zju_eval")
     write_zju_layout(root, "CoreView_387", range(ZJU_EVAL_FRAMES),
-                     ZJU_EVAL_FRAMES, seed=1)
+                     ZJU_EVAL_FRAMES, seed=1, sources=[fixture_jpegs()])
     res = os.path.join(tmp, "zju_result")
     common = ["--device", "cuda", "data_root", root, "rasterize_root",
               os.path.join(root, "raster"), "trained_model_dir", model_root,
@@ -2981,6 +3047,133 @@ def phase_eval_zju(card: str, tmp: str, model_root: str) -> dict:
     pdata = ZJUDataset(pcfg, "test", smpl=SMPLModel.synthetic())
     phase_eval_parity(card, "float32", cfg=pcfg, data=pdata,
                       label="g zju eval parity")
+    return by_path
+
+
+def phase_codings(card: str, tmp: str, files: dict) -> dict:
+    """m. The ZJU loader on image codings beyond baseline JPEG, through the
+    entry points, on humans laid out at 1024x1024 with Adam7 masks whose
+    views are the committed progressive JPEG (cv2, q95, 4:2:0), an EXIF-3
+    splice of it (decoded turned 180 degrees, as cv2 turns it) and a PNG
+    frame of its decode written here with utils/png.py's encode_png: the
+    train entry point (train_or_eval.yaml, CoreView_377 of progressive and
+    EXIF-3 views) for 2 bf16 steps, then --type evaluate (CoreView_387
+    frame 0 of PNG frames) on its checkpoint, counters reset just before
+    and read just after each: finite losses and metrics, K2, K3 and K4
+    launched in the steps, K1, K2 and K4 in the evaluation, and every
+    coding read by the loader (the loader's two readers wrapped to tell
+    them)."""
+    import threading
+
+    from transhuman_tpu_torch import kernels
+    from transhuman_tpu_torch.cli import run as run_cli
+    from transhuman_tpu_torch.cli import train as train_cli
+    from transhuman_tpu_torch.data import image_io, zju
+    from transhuman_tpu_torch.utils.png import encode_png
+
+    t0 = time.perf_counter()
+    src = os.path.join(tmp, "codings_src")
+    os.makedirs(src, exist_ok=True)
+    prog = os.path.join(CODINGS, "cv2_prog_q95_420.jpg")
+    with open(prog, "rb") as fh:
+        data = fh.read()
+    # APP1: Exif, a little-endian TIFF whose IFD0 holds orientation 3
+    app1 = (b"Exif\0\0II*\0\x08\0\0\0\x01\0\x12\x01\x03\0\x01\0\0\0"
+            b"\x03\0\0\0\0\0\0\0")
+    exif3 = os.path.join(src, "prog_exif3.jpg")
+    with open(exif3, "wb") as fh:
+        fh.write(data[:2] + b"\xff\xe1" + (len(app1) + 2).to_bytes(2, "big")
+                 + app1 + data[2:])
+    rgb = image_io.imread_rgb(prog)
+    png = os.path.join(src, "frame.png")
+    with open(png, "wb") as fh:
+        fh.write(encode_png(rgb))
+    check(np.array_equal(image_io.imread_rgb(exif3), rgb[::-1, ::-1])
+          and np.array_equal(image_io.imread_rgb(png), rgb),
+          "codings: the EXIF-3 splice or the PNG frame does not read back")
+    root = os.path.join(tmp, "zju_codings")
+    write_zju_layout(root, "CoreView_377", range(0, 300, 30), 300, seed=2,
+                     sources=[[prog, exif3]], adam7=True)
+    write_zju_layout(root, "CoreView_387", range(ZJU_EVAL_FRAMES),
+                     ZJU_EVAL_FRAMES, seed=3, sources=[[png]], adam7=True)
+    layout_s = time.perf_counter() - t0
+
+    seen, lock = {}, threading.Lock()
+    read_frame, read_mask = zju.imread_rgb, zju.read_mask_png
+
+    def count(kind):
+        with lock:
+            seen[kind] = seen.get(kind, 0) + 1
+
+    def frame(path):
+        out = read_frame(path)
+        count(next((k for k, f in (("progressive", prog), ("exif3", exif3),
+                                   ("png", png)) if os.path.samefile(path, f)),
+                   "other frame"))
+        return out
+
+    def mask(path):
+        out = read_mask(path)
+        with open(path, "rb") as fh:
+            count("adam7 mask" if fh.read(29)[28] == 1 else "other mask")
+        return out
+
+    cfg_file = os.path.join(CONFIGS, "train_or_eval.yaml")
+    run = os.path.join(tmp, "codings_train")
+    common = ["--device", "cuda", "--cfg_file", cfg_file, "data_root", root,
+              "rasterize_root", os.path.join(root, "raster"),
+              "trained_model_dir", os.path.join(run, "tm"), "result_dir",
+              os.path.join(run, "res")]
+    f = forms("bfloat16")
+    by_path = {}
+    zju.imread_rgb, zju.read_mask_png = frame, mask
+    try:
+        t = time.perf_counter()
+        kernels.reset_launch_counts()
+        _, recs = train_cli.main(common + [
+            "dataset", "zju", "lpips_weights", files["lpips"],
+            "encoder_weights", files["resnet"], "ep_iter", "2",
+            "train.epoch", "1", "compute_dtype", "bfloat16", "record_dir",
+            os.path.join(run, "rec")])
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t
+        by_path["train_codings_bf16"] = kernels.launch_counts()
+        train_seen = dict(seen)
+        check(len(recs) == 2 and all(np.isfinite(r["loss"])
+                                     and r["lpips_loss"] > 0 for r in recs),
+              f"train codings: {recs}")
+        check_launches("train codings", by_path["train_codings_bf16"],
+                       {f["dparf"]: 2, f["scatter"]: 4, f["fetch"]: 4})
+        seen.clear()
+        t = time.perf_counter()
+        kernels.reset_launch_counts()
+        summary = run_cli.main(["--type", "evaluate", *common])
+        torch.cuda.synchronize()
+        eval_s = time.perf_counter() - t
+        by_path["eval_codings_bf16"] = kernels.launch_counts()
+    finally:
+        zju.imread_rgb, zju.read_mask_png = read_frame, read_mask
+    check(np.isfinite(summary["psnr"]) and np.isfinite(summary["ssim"]),
+          f"evaluate codings: {summary}")
+    check_launches("evaluate codings", by_path["eval_codings_bf16"],
+                   {"min_excess2": 1, f["dparf"]: 1, f["fetch"]: 1})
+    check(train_seen.get("progressive") and train_seen.get("exif3")
+          and train_seen.get("adam7 mask") and seen.get("png")
+          and seen.get("adam7 mask") and not any(
+              k.startswith("other") for k in (*train_seen, *seen)),
+          f"codings: the loader read {train_seen} in training, {seen} in "
+          "the evaluation")
+    log(f"[m codings] train_or_eval.yaml (bf16) on 1024x1024 views of "
+        f"mixed codings: 2 steps, losses "
+        f"{', '.join(f'{r['loss']:.4f}' for r in recs)}, step ms "
+        f"{', '.join(f'{r['step_s'] * 1e3:.1f}' for r in recs)}, sample_s "
+        f"{', '.join(f'{r['sample_s'] * 1e3:.1f}' for r in recs)} ms; "
+        f"files read {train_seen}; launches {by_path['train_codings_bf16']}"
+        f"; --type evaluate, 1 frame of PNG frames: psnr "
+        f"{summary['psnr']:.3f}, ssim {summary['ssim']:.4f}; files read "
+        f"{seen}; launches {by_path['eval_codings_bf16']}; layout "
+        f"{layout_s:.1f} s, train {train_s:.1f} s, evaluate {eval_s:.1f} s"
+        f"  [{card}]")
     return by_path
 
 
@@ -4609,6 +4802,9 @@ def main() -> int:
         # visibility from depth maps on phase g's and f's laid-out humans
         by_path.update(phase_depth(card, tmp, zju_root, zju_models))
         lap(t0, "e-g, i ZJU and depth maps")
+        # the loader on progressive, EXIF-oriented and PNG frames
+        by_path.update(phase_codings(card, tmp, files))
+        lap(t0, "m image codings")
         # batches, the train cull, remat and the per-vertex radii cull
         k1_bias = phase_cull_bias(card)
         phase_batch_parity(card, card6)

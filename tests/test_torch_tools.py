@@ -16,6 +16,7 @@ import numpy as np
 import pytest
 import torch
 
+from tests._torch_codings import encode_png
 from tests.test_validate_official import (  # noqa: F401  (fixture reuse)
     _argv,
     _dataset_factory,
@@ -120,6 +121,25 @@ def test_cleanmask_gives_the_jax_tools_pixels(tmp_path):
         np.testing.assert_array_equal(got, want, err_msg=rel)
     assert cv2.imread(str(tmp_path / "port/mask/Camera_B1/000000.png"),
                       cv2.IMREAD_UNCHANGED).ndim == 2
+
+
+def test_cleanmask_reads_adam7_masks_as_the_jax_tool(tmp_path):
+    """An Adam7-interlaced RGB mask (cv2 reads it for the JAX tool, the
+    port's own PNG reader for the port) is rewritten to the same pixels."""
+    m = (np.random.default_rng(1).random((21, 26)) > 0.5).astype(np.uint8)
+    rgb = np.zeros((21, 26, 3), np.uint8)
+    rgb[..., 1] = m * 200
+    data = encode_png(rgb, 8, 2, interlace=True)
+    for tree in ("jax", "port"):
+        (tmp_path / tree / "mask/Camera_B1").mkdir(parents=True)
+        (tmp_path / tree / "mask/Camera_B1/000000.png").write_bytes(data)
+    assert jfixes.clean_channel_masks(str(tmp_path / "jax")) == 1
+    assert data_fixes.clean_channel_masks(str(tmp_path / "port")) == 1
+    rel = "mask/Camera_B1/000000.png"
+    want = cv2.imread(str(tmp_path / "jax" / rel), cv2.IMREAD_UNCHANGED)
+    got = cv2.imread(str(tmp_path / "port" / rel), cv2.IMREAD_UNCHANGED)
+    assert got.shape == want.shape == (21, 26) and want.max() == 1
+    np.testing.assert_array_equal(got, want)
 
 
 def _chumpy_pickle(path):

@@ -14,6 +14,13 @@ import pytest
 import torch
 from PIL import Image
 
+from tests._torch_codings import (
+    cut_after_scans,
+    cv2_progressive,
+    encode_png,
+    pil_jpeg,
+    with_exif,
+)
 from transhuman_tpu.cli.run import evaluate_frames as jax_evaluate_frames
 from transhuman_tpu.config import Config as JConfig
 from transhuman_tpu.data import aug as jaug
@@ -96,9 +103,54 @@ def _write_palette_png(path, msk):
     im.save(path)
 
 
-def write_fake_zju(root, human=HUMAN, layout="regular", n_cams=NC, seed=0):
+def _write_frame(path, img, c, f, codings):
+    """One view's frame: a q92 baseline JPEG, or with codings the coding of
+    camera c at frame f (_CODINGS); returns the file name's extension."""
+    if not codings:
+        cv2.imwrite(path + ".jpg", img[..., ::-1],
+                    [cv2.IMWRITE_JPEG_QUALITY, 92])
+        return ".jpg"
+    kind = _CODINGS[f % 2][c % 4]
+    if kind == "png_rgb":
+        data = encode_png(img, 8, 2)
+    elif kind == "png_rgba16":
+        data = encode_png(np.concatenate([img, img[..., :1]], -1).astype(
+            np.int64) * 256 + (np.arange(img.size * 4 // 3) % 256).reshape(
+                *img.shape[:2], 4), 16, 6)
+    elif kind == "png_adam7":
+        data = encode_png(img, 8, 2, interlace=True)
+    elif kind == "png_grey16_adam7":
+        data = encode_png(img[..., 1:2].astype(np.int64) * 256 + 77, 16, 0,
+                          interlace=True)
+    elif kind == "progressive":
+        data = cv2_progressive(img, 92, "420")
+    elif kind == "cmyk":
+        data = pil_jpeg(np.asarray(Image.fromarray(img).convert("CMYK")),
+                        92, 0, mode="CMYK")
+    elif kind == "exif3":
+        data = with_exif(pil_jpeg(img, 92, 2, progressive=True,
+                                  optimize=True), 3)
+    else:  # a progressive file cut after 4 scans: block smoothing
+        data = cut_after_scans(pil_jpeg(img, 92, 2, progressive=True), 4)
+    ext = ".png" if kind.startswith("png") else ".jpg"
+    with open(path + ext, "wb") as fh:
+        fh.write(data)
+    return ext
+
+
+# codings of the views of even and odd frames (an input view reads the
+# target's file name, so a frame's views share their extension)
+_CODINGS = (("progressive", "cmyk", "exif3", "truncated"),
+            ("png_rgb", "png_rgba16", "png_adam7", "png_grey16_adam7"))
+
+
+def write_fake_zju(root, human=HUMAN, layout="regular", n_cams=NC, seed=0,
+                   codings=False):
     """A fake human in the reference's layout under root; returns its SMPL
-    stand-in's vertex count."""
+    stand-in's vertex count.  With codings, the frames of even frame
+    indices are progressive, CMYK, EXIF-3 and truncated progressive JPEGs
+    (cameras 0-3), those of odd indices PNG frames (RGB, 16-bit RGBA, Adam7
+    RGB, Adam7 16-bit grey), and the masks of cameras 0 and 2 Adam7 PNGs."""
     rng = np.random.default_rng(seed)
     smpl = JSMPL.synthetic(n_verts=NV)
     hdir = os.path.join(root, human)
@@ -123,7 +175,9 @@ def write_fake_zju(root, human=HUMAN, layout="regular", n_cams=NC, seed=0):
                 entries.append(f"Camera ({dc})/CoreView_313_Camera_({dc})_"
                                f"{f:04d}_2019.jpg")
         else:
-            entries = [f"Camera_B{c + 1}/{f:06d}.jpg" for c in range(n_cams)]
+            ext = ".png" if codings and f % 2 else ".jpg"
+            entries = [f"Camera_B{c + 1}/{f:06d}{ext}"
+                       for c in range(n_cams)]
         ims.append({"ims": entries})
         poses = (rng.standard_normal((1, 72)) * 0.05).astype(np.float32)
         params = {"poses": poses, "shapes": np.zeros((1, 10), np.float32),
@@ -147,13 +201,17 @@ def write_fake_zju(root, human=HUMAN, layout="regular", n_cams=NC, seed=0):
                 cdir, stem = f"Camera_B{c + 1}", f"{f:06d}"
             os.makedirs(os.path.join(hdir, cdir), exist_ok=True)
             img = _smooth_image(rng, H_FULL, W_FULL)
-            cv2.imwrite(os.path.join(hdir, cdir, stem + ".jpg"),
-                        img[..., ::-1], [cv2.IMWRITE_JPEG_QUALITY, 92])
+            _write_frame(os.path.join(hdir, cdir, stem), img, c, f, codings)
             msk = _body_mask(smpl, verts_world, *[np.asarray(x) for x in (
                 cams["K"][c], cams["R"][c], cams["T"][c])])
             mdir = os.path.join(hdir, "mask", cdir)
             os.makedirs(mdir, exist_ok=True)
-            cv2.imwrite(os.path.join(mdir, stem + ".png"), msk * 255)
+            if codings and c % 2 == 0:
+                with open(os.path.join(mdir, stem + ".png"), "wb") as fh:
+                    fh.write(encode_png(msk[..., None] * 255, 8, 0,
+                                        interlace=True))
+            else:
+                cv2.imwrite(os.path.join(mdir, stem + ".png"), msk * 255)
             if c % 2 == 0:  # a palette CIHP layer on some cameras
                 cdir2 = os.path.join(hdir, "mask_cihp", cdir)
                 os.makedirs(cdir2, exist_ok=True)
@@ -189,6 +247,13 @@ def zju313_root(tmp_path_factory):
     root = tmp_path_factory.mktemp("zju313")
     write_fake_zju(str(root), "CoreView_313", "313", n_cams=len(CAM_IDX_313),
                    seed=1)
+    return str(root)
+
+
+@pytest.fixture(scope="module")
+def zju_codings_root(tmp_path_factory):
+    root = tmp_path_factory.mktemp("zju_codings")
+    write_fake_zju(str(root), codings=True, seed=2)
     return str(root)
 
 
@@ -461,10 +526,11 @@ def bridged(zju_root):
     return jpipe, params, port_pipe
 
 
-def test_zju_eval_forward_matches_the_jax_package(zju_root, bridged,
-                                                  tmp_path):
+def _eval_forward_matches(root, bridged, tmp_path, extra=()):
+    """evaluate_frames through both packages on the fake human at root;
+    returns the frames rendered."""
     jpipe, params, port_pipe = bridged
-    j, t = _pair(zju_root, "test")
+    j, t = _pair(root, "test", extra)
     frames = {}
 
     def collect(key, ev):
@@ -476,19 +542,25 @@ def test_zju_eval_forward_matches_the_jax_package(zju_root, bridged,
 
     jev = JEvaluator(str(tmp_path / "jax"))
     tev = Evaluator(str(tmp_path / "port"))
-    opts = _opts(zju_root, ["pad_bucket", "256"])
+    opts = _opts(root, ["pad_bucket", "256", *extra])
     jax_evaluate_frames(JConfig().merge_opts(opts), jpipe, params, j, jev,
                         collect("jax", jev))
     kernels.reset_launch_counts()
-    run_cli.evaluate_frames(Config().merge_opts(_opts(zju_root)), port_pipe(),
-                            t, tev, collect("port", tev))
-    # frames 0 and 2 (test.frame_interval 2), target cameras 2 and 3
-    assert len(frames["port"]) == len(frames["jax"]) == 4
+    run_cli.evaluate_frames(Config().merge_opts(_opts(root, extra)),
+                            port_pipe(), t, tev, collect("port", tev))
+    assert len(frames["port"]) == len(frames["jax"])
     for (fj, rj, pj), (ft, rt, pt) in zip(frames["jax"], frames["port"]):
         assert fj == ft and rt.shape == rj.shape and np.isfinite(rt).all()
         # tests/test_torch_eval.py's bounds
         np.testing.assert_allclose(rt, rj, atol=2e-3)
         assert pt == pytest.approx(pj, abs=0.05)
+    return [f for f, _, _ in frames["port"]]
+
+
+def test_zju_eval_forward_matches_the_jax_package(zju_root, bridged,
+                                                  tmp_path):
+    # frames 0 and 2 (test.frame_interval 2), target cameras 2 and 3
+    assert _eval_forward_matches(zju_root, bridged, tmp_path) == [0, 0, 2, 2]
 
 
 def _leaves(tree):
@@ -540,3 +612,55 @@ def test_zju_non_patch_step_takes_the_masked_mse(zju_root, bridged):
     loss.backward()
     assert any(p.grad is not None and p.grad.abs().sum() > 0
                for p in pipe.model.parameters())
+
+
+# ------------------------------------- a tree of mixed image codings
+def test_mixed_codings_are_on_disk(zju_codings_root):
+    """The tree holds each coding _CODINGS names, and the port reads each
+    frame as cv2 does (the EXIF-3 view rotated, its shape kept)."""
+    from transhuman_tpu_torch.data.image_io import imread_rgb
+
+    cam = os.path.join(zju_codings_root, HUMAN, "Camera_B{}")
+    with open(os.path.join(cam.format(3), "000000.jpg"), "rb") as fh:
+        assert fh.read(4) == b"\xff\xd8\xff\xe1"  # the EXIF APP1 first
+    with open(os.path.join(zju_codings_root, HUMAN, "mask", "Camera_B1",
+                           "000000.png"), "rb") as fh:
+        assert fh.read(29)[28] == 1  # IHDR interlace: Adam7
+    for c in range(NC):
+        for f, ext in ((0, ".jpg"), (1, ".png")):
+            p = os.path.join(cam.format(c + 1), f"{f:06d}{ext}")
+            want = cv2.cvtColor(cv2.imread(p), cv2.COLOR_BGR2RGB)
+            got = imread_rgb(p)
+            assert got.shape == want.shape == (H_FULL, W_FULL, 3), p
+            np.testing.assert_array_equal(got, want, err_msg=p)
+
+
+def test_mixed_coding_train_samples_equal_the_jax_dataset(zju_codings_root):
+    j, t = _pair(zju_codings_root, "train", ["jitter", "False"])
+    assert len(t) == len(j) == NF * NC
+    for index in range(NF * NC):  # every view of every frame a target
+        j.set_epoch(index)
+        t.set_epoch(index)
+        js, ts = j.get_train_sample(index), t.get_train_sample(index)
+        _same_frame(ts.frame, js.frame, IMG_TOL)
+        _same_rays(ts.rays, js.rays)
+        np.testing.assert_array_equal(ts.ray_pixel_idx.numpy(),
+                                      js.ray_pixel_idx)
+        np.testing.assert_allclose(ts.target_patches.numpy(),
+                                   js.target_patches, rtol=0, atol=IMG_TOL)
+
+
+def test_mixed_coding_eval_items_equal_the_jax_dataset(zju_codings_root):
+    j, t = _pair(zju_codings_root, "test")
+    assert len(t) == len(j) == NF * 2
+    for index in range(len(t)):
+        _same_eval_item(t.get_eval_item(index), j.get_eval_item(index))
+    _same_eval_item(t.get_perform_item(1), j.get_perform_item(1))
+
+
+def test_mixed_coding_eval_forward_matches_the_jax_package(
+        zju_codings_root, bridged, tmp_path):
+    # every frame: 0 and 2 of JPEG codings, 1 of PNG frames
+    assert _eval_forward_matches(zju_codings_root, bridged, tmp_path,
+                                 ["test.frame_interval", "1"]) == [
+        0, 0, 1, 1, 2, 2]

@@ -17,7 +17,6 @@ import io
 import json
 import os
 import struct
-import zlib
 
 import cv2
 import imageio.v2 as imageio
@@ -25,6 +24,7 @@ import numpy as np
 import pytest
 from PIL import Image
 
+from tests._torch_codings import encode_png, png_chunk
 from transhuman_tpu_torch.data import image_io
 
 FIXTURES = os.path.join(os.path.dirname(os.path.abspath(__file__)),
@@ -196,34 +196,45 @@ def _exif_with_orientation(v: int) -> bytes:
 
 
 def test_refusals_are_named():
+    """What the codec refuses by name: 12-bit samples (cv2 returns None
+    for them too, so the JAX package's _imread_rgb raises), lossless,
+    hierarchical and arithmetic coding.  Progressive, CMYK and EXIF-
+    oriented files, once refused, decode as cv2 decodes them
+    (tests/test_torch_codings.py holds every case)."""
     img = smooth_image(24, 24, seed=1)
     b = io.BytesIO()
     Image.fromarray(img).save(b, "JPEG", progressive=True)
-    with pytest.raises(ValueError, match=r"progressive JPEG \(SOF2"):
-        image_io.decode_jpeg(b.getvalue(), "p.jpg")
+    np.testing.assert_array_equal(image_io.decode_jpeg(b.getvalue(), "p.jpg"),
+                                  cv2_decode(b.getvalue()))
     b = io.BytesIO()
     Image.fromarray(img).convert("CMYK").save(b, "JPEG")
-    with pytest.raises(ValueError, match="CMYK"):
-        image_io.decode_jpeg(b.getvalue())
+    np.testing.assert_array_equal(image_io.decode_jpeg(b.getvalue()),
+                                  cv2_decode(b.getvalue()))
     data = _pil_jpeg(img, 90, 0)
-    for v, ok in ((1, True), (6, False), (3, False)):
+    for v in (1, 6, 3):
         exif = _exif_with_orientation(v)
         seg = b"\xff\xe1" + struct.pack(">H", len(exif) + 2) + exif
         rotated = data[:2] + seg + data[2:]
-        if ok:
-            np.testing.assert_array_equal(image_io.decode_jpeg(rotated),
-                                          cv2_decode(rotated))
-        else:
-            with pytest.raises(ValueError, match=rf"EXIF orientation {v}"):
-                image_io.decode_jpeg(rotated, "r.jpg")
-    # 12-bit and arithmetic frames, by their SOF marker
+        np.testing.assert_array_equal(image_io.decode_jpeg(rotated),
+                                      cv2_decode(rotated))
+    # 12-bit, lossless, hierarchical and arithmetic frames, by their marker
     sof = data.index(b"\xff\xc0")
     twelve = data[:sof + 4] + b"\x0c" + data[sof + 5:]
+    assert cv2.imdecode(np.frombuffer(twelve, np.uint8),
+                        cv2.IMREAD_COLOR) is None
     with pytest.raises(ValueError, match="12-bit"):
         image_io.decode_jpeg(twelve)
-    arith = data[:sof] + b"\xff\xc9" + data[sof + 2:]
-    with pytest.raises(ValueError, match=r"arithmetic-coded JPEG \(SOF9"):
-        image_io.decode_jpeg(arith)
+    for marker, name in ((0xC9, r"arithmetic-coded JPEG \(SOF9"),
+                         (0xCA, r"arithmetic-coded JPEG \(SOF10"),
+                         (0xC3, r"lossless JPEG \(SOF3"),
+                         (0xC5, r"hierarchical JPEG \(SOF5"),
+                         (0xC6, r"hierarchical JPEG \(SOF6")):
+        coded = data[:sof] + bytes([0xFF, marker]) + data[sof + 2:]
+        with pytest.raises(ValueError, match=name):
+            image_io.decode_jpeg(coded)
+    dac = data[:sof] + b"\xff\xcc\x00\x06\x00\x10\x10\x00" + data[sof:]
+    with pytest.raises(ValueError, match=r"arithmetic-coded JPEG \(DAC"):
+        image_io.decode_jpeg(dac)
 
 
 def test_a_missing_or_unreadable_file_names_its_path(tmp_path):
@@ -296,18 +307,19 @@ def test_png_reader_equals_imageio(tmp_path):
 
 
 def test_interlaced_png_is_refused_by_name(tmp_path):
-    raw = b"".join(b"\x00" + bytes(8) for _ in range(8))
-
-    def chunk(tag, data):
-        return (struct.pack(">I", len(data)) + tag + data
-                + struct.pack(">I", zlib.crc32(tag + data) & 0xFFFFFFFF))
-
-    png = (image_io.PNG_SIGNATURE
-           + chunk(b"IHDR", struct.pack(">IIBBBBB", 8, 8, 8, 0, 0, 0, 1))
-           + chunk(b"IDAT", zlib.compress(raw)) + chunk(b"IEND", b""))
+    """An Adam7-interlaced PNG (IHDR interlace 1), once refused, reads as
+    imageio reads it; an interlace method PNG does not define is refused
+    by name."""
+    disc = _mask_disc(8, 8, 2).astype(np.uint8)[..., None] * 255
+    png = encode_png(disc, 8, 0, interlace=True)
     p = tmp_path / "adam7.png"
     p.write_bytes(png)
-    with pytest.raises(ValueError, match="Adam7"):
+    np.testing.assert_array_equal(image_io.read_png(str(p)),
+                                  np.asarray(imageio.imread(str(p))))
+    bad = png.replace(png[8:33], png_chunk(b"IHDR", struct.pack(
+        ">IIBBBBB", 8, 8, 8, 0, 0, 0, 2)))
+    p.write_bytes(bad)
+    with pytest.raises(ValueError, match="interlace method 2"):
         image_io.read_png(str(p))
 
 

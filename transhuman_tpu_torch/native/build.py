@@ -5,8 +5,8 @@ Each library is one source of this directory, compiled with ``g++ -O3
 x86-64 host) plus the flags ``LIBRARIES`` names beside its source, into
 ``transhuman_tpu_torch/_build/lib<name>.so`` on first use, never at import:
 
-* ``imgcodec`` (``imgcodec.cc``): the JPEG decoder and encoder, the PNG row
-  unfilter;
+* ``imgcodec`` (``imgcodec.cc``): the JPEG decoder (sequential and
+  progressive) and encoder, the EXIF orientation, the PNG row unfilter;
 * ``marching`` (``marching_tet.cc``): marching tetrahedra
   (``mesh_ops/marching.py``);
 * ``crc32c`` (``crc32c.cc``): the event files' CRC32C
@@ -79,6 +79,10 @@ _SIGNATURES = {
         "thc_jpeg_info": ((_P, _L, _IP, _IP, *_ERR), _I),
         # data, n, out, height, width, err, errlen
         "thc_jpeg_decode": ((_P, _L, _P, _I, _I, *_ERR), _I),
+        # tiff, n -> orientation (-1: none)
+        "thc_exif_orientation": ((_P, _L), _I),
+        # src, height, width, orientation, dst
+        "thc_orient_rgb": ((_P, _I, _I, _I, _P), None),
         # in, n, height, rowbytes, bpp, out, err, errlen
         "thc_png_unfilter": ((_P, _L, _I, _L, _I, _P, *_ERR), _I),
         # rgb, height, width, quality, &out, &n, err, errlen

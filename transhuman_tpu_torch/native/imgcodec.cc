@@ -1,20 +1,25 @@
-// Host image codec of the PyTorch port: a sequential Huffman JPEG decoder,
-// a baseline JPEG encoder and the PNG row unfilter, behind a plain C ABI
-// (ctypes).
+// Host image codec of the PyTorch port: a Huffman JPEG decoder, a baseline
+// JPEG encoder and the PNG row unfilter, behind a plain C ABI (ctypes).
 //
-// The JPEG decoder covers baseline and extended sequential Huffman coding
-// (SOF0/SOF1): 8-bit samples, 1 or 3 components, any sampling factors,
-// restart intervals.  It reproduces libjpeg-turbo's default decode, what
-// OpenCV's imread returns:
+// The JPEG decoder covers sequential (SOF0/SOF1) and progressive (SOF2)
+// Huffman coding: 8-bit samples, 1, 3 or 4 components, any sampling
+// factors, restart intervals, Huffman tables redefined between scans.  It
+// reproduces libjpeg-turbo's default decode (3.x), what OpenCV's imread
+// returns:
+//   * progressive scans (jdphuff.c: DC and AC first and refinement scans,
+//     end-of-band runs) into a whole-image coefficient buffer (jdcoefct.c),
+//     and the block smoothing of decompress_smooth_data when the scans leave
+//     one of the first 9 AC coefficients imprecise (a truncated file);
 //   * the ISLOW integer IDCT (jidctint.c: CONST_BITS 13, PASS1_BITS 2) and
 //     its range-limit table;
 //   * fancy upsampling (jdsample.c: h2v1, h2v2 and h1v2 triangle filters
 //     with their biases, edge rows and columns replicated at the
 //     component's downsampled size), box replication otherwise;
-//   * the fixed-point YCbCr -> RGB tables of jdcolor.c.
-// Progressive, lossless, hierarchical and arithmetic coding, 12-bit
-// samples, 4-component (CMYK/YCCK) files and an EXIF orientation other than
-// 1 are refused with a message naming the marker.
+//   * the fixed-point YCbCr -> RGB tables of jdcolor.c, YCCK -> CMYK, and
+//     OpenCV's CMYK -> BGR (grfmt_jpeg.cpp, icvCvt_CMYK2BGR_8u_C4C3R);
+//   * the EXIF orientation (APP1), applied as imread applies it.
+// Lossless, hierarchical and arithmetic coding and 12-bit samples are
+// refused with a message naming the marker.
 //
 // Every entry returns 0 on success or a non-zero code, with a message in
 // the caller's buffer.
@@ -92,10 +97,21 @@ struct Component {
   int id, h, v, tq;
   int td = 0, ta = 0;
   int width = 0, height = 0;      // downsampled size (ceil)
+  int wib = 0, hib = 0;           // blocks across / down in the component
   int bw = 0, bh = 0;             // blocks across / down, MCU-padded
   std::vector<uint8_t> plane;     // bw*8 x bh*8 samples
   int dc_pred = 0;
   bool decoded = false;
+  uint16_t q[64] = {};            // quantization table, latched at the
+  bool q_latched = false;         // component's first scan (natural order)
+  // progressive: bw x bh blocks of 64 coefficients (natural order), the
+  // point transform of the last scan of each zigzag coefficient (-1: none
+  // yet), libjpeg's coef_bits, and their values before the component's
+  // last scan
+  std::vector<int16_t> coef;
+  int coef_bits[64];
+  int prev_bits[64] = {};
+  Component() { std::fill(coef_bits, coef_bits + 64, -1); }
 };
 
 struct BitReader {
@@ -104,7 +120,12 @@ struct BitReader {
   size_t pos;
   uint64_t buf = 0;
   int bits = 0;
+  int real = 0;  // bits of buf read from the data, not padding
   bool hit_marker = false;
+  // libjpeg's insufficient_data: a read went past the segment's data (the
+  // rest of that MCU decodes zero bits; the segment's later MCUs are
+  // skipped)
+  bool insufficient = false;
 
   void fill() {
     while (bits <= 56) {
@@ -116,15 +137,17 @@ struct BitReader {
           if (next == 0x00) {
             pos += 2;
           } else {
-            // a marker ends the entropy-coded segment: feed zeros after it,
-            // as libjpeg does for a premature end
+            // a marker ends the entropy-coded segment: zeros after it
             hit_marker = true;
             byte = 0;
           }
         } else {
           pos++;
         }
+      } else {
+        hit_marker = true;  // the data's end: libjpeg's source adds an EOI
       }
+      if (!hit_marker) real += 8;
       buf |= (uint64_t)byte << (56 - bits);
       bits += 8;
     }
@@ -134,6 +157,8 @@ struct BitReader {
     return (int)(buf >> (64 - k));
   }
   void skip(int k) {
+    if (k > real) insufficient = true;
+    real = k > real ? 0 : real - k;
     buf <<= k;
     bits -= k;
   }
@@ -143,16 +168,21 @@ struct BitReader {
     skip(k);
     return v;
   }
-  // byte-align and consume a restart marker
+  // Byte-align and consume the expected restart marker, which starts a
+  // new segment; at any other marker or the data's end the next segment
+  // reads as empty (jdmarker.c's resync leaves that marker unread).
   void restart(int expect) {
     buf = 0;
-    bits = 0;
-    hit_marker = false;
+    bits = real = 0;
     // skip to the marker (padding bits were 1s inside the last byte)
     while (pos + 1 < n && !(data[pos] == 0xFF && data[pos + 1] != 0x00 &&
                             data[pos + 1] != 0xFF))
       pos++;
-    if (pos + 1 < n && data[pos + 1] == 0xD0 + expect) pos += 2;
+    hit_marker = !(pos + 1 < n && data[pos + 1] == 0xD0 + expect);
+    if (!hit_marker) {
+      pos += 2;
+      insufficient = false;
+    }
   }
 };
 
@@ -170,7 +200,7 @@ inline int decode_huff(BitReader& br, const Huffman& h) {
     code = br.peek(len);
   }
   if (len > 16) {
-    br.skip(16);
+    br.skip(17);
     return 0;  // corrupt data: libjpeg warns and returns 0
   }
   br.skip(len);
@@ -201,13 +231,12 @@ inline int64_t descale(int64_t x, int n) {
   return (x + ((int64_t)1 << (n - 1))) >> n;
 }
 
-// jdmaster.c's post-IDCT range limit: x & 1023, then clamp with wrap
+// the post-IDCT range limit of libjpeg-turbo's SIMD IDCT (what OpenCV's
+// build runs): x + 128 saturated to 0..255.  jdmaster.c's table, which the
+// C IDCT uses, wraps past +-512 instead; only corrupt or truncated data
+// reaches there.
 inline uint8_t idct_limit(int64_t x) {
-  int y = (int)(x & 1023);
-  if (y < 128) return (uint8_t)(y + 128);
-  if (y < 512) return 255;
-  if (y < 896) return 0;
-  return (uint8_t)(y - 896);
+  return (uint8_t)(x < -128 ? 0 : (x > 127 ? 255 : x + 128));
 }
 
 // coef in natural order, dequantised by q (natural order)
@@ -321,23 +350,100 @@ void idct_islow(const int16_t* coef, const uint16_t* q, uint8_t* out,
 }
 
 // ---------------------------------------------------------- the decoder
+// natural-order index of zigzag position k; past 63 it is 63, as in
+// libjpeg's padded jpeg_natural_order (corrupt runs land there)
+inline int natural(int k) { return k < 64 ? kZigzag[k] : 63; }
+
+// The IFD0 orientation tag (0x0112) of a TIFF block (an EXIF APP1 body
+// after "Exif\0\0", or a PNG eXIf chunk): its value, read as 16 bits, or -1
+// when the block has no valid TIFF header or no such tag.
+int tiff_orientation(const uint8_t* t, size_t tl) {
+  if (tl < 8) return -1;
+  bool le;
+  if (t[0] == 'I' && t[1] == 'I' && t[2] == 42 && t[3] == 0) le = true;
+  else if (t[0] == 'M' && t[1] == 'M' && t[2] == 0 && t[3] == 42) le = false;
+  else return -1;
+  auto rd16 = [&](size_t o) -> int {
+    if (o + 2 > tl) return -1;
+    return le ? (t[o] | (t[o + 1] << 8)) : ((t[o] << 8) | t[o + 1]);
+  };
+  auto rd32 = [&](size_t o) -> int64_t {
+    if (o + 4 > tl) return -1;
+    return le ? ((int64_t)t[o] | ((int64_t)t[o + 1] << 8) |
+                 ((int64_t)t[o + 2] << 16) | ((int64_t)t[o + 3] << 24))
+              : (((int64_t)t[o] << 24) | ((int64_t)t[o + 1] << 16) |
+                 ((int64_t)t[o + 2] << 8) | (int64_t)t[o + 3]);
+  };
+  int64_t ifd = rd32(4);
+  if (ifd < 0) return -1;
+  int count = rd16((size_t)ifd);
+  for (int i = 0; i < count; i++) {
+    size_t e = (size_t)ifd + 2 + 12 * (size_t)i;
+    int tag = rd16(e);
+    if (tag < 0) return -1;
+    if (tag == 0x0112) return rd16(e + 8);
+  }
+  return -1;
+}
+
+// (height, width) of an h x w image after EXIF orientation o
+inline void oriented_size(int o, int h, int w, int* oh, int* ow) {
+  bool swap = o >= 5 && o <= 8;
+  *oh = swap ? w : h;
+  *ow = swap ? h : w;
+}
+
+// OpenCV's EXIF orientation of an (h, w, 3) image: flips for 2 and 4, 180
+// degrees for 3, transposes for 5-8; any other value leaves it as it is.
+void orient_rgb(const uint8_t* src, int h, int w, int o, uint8_t* dst) {
+  int oh, ow;
+  oriented_size(o, h, w, &oh, &ow);
+  for (int y = 0; y < oh; y++) {
+    uint8_t* d = dst + (size_t)y * ow * 3;
+    for (int x = 0; x < ow; x++) {
+      int sy, sx;
+      switch (o) {
+        case 2: sy = y; sx = w - 1 - x; break;
+        case 3: sy = h - 1 - y; sx = w - 1 - x; break;
+        case 4: sy = h - 1 - y; sx = x; break;
+        case 5: sy = x; sx = y; break;
+        case 6: sy = h - 1 - x; sx = y; break;
+        case 7: sy = h - 1 - x; sx = w - 1 - y; break;
+        case 8: sy = x; sx = w - 1 - y; break;
+        default: sy = y; sx = x;
+      }
+      const uint8_t* s = src + ((size_t)sy * w + sx) * 3;
+      d[3 * x] = s[0];
+      d[3 * x + 1] = s[1];
+      d[3 * x + 2] = s[2];
+    }
+  }
+}
+
 struct Jpeg {
   const uint8_t* data;
   size_t n;
   size_t pos = 0;
   int width = 0, height = 0, precision = 0;
   int sof = -1;
+  bool progressive = false;
+  int scans = 0;
   int hmax = 1, vmax = 1;
   int mcux = 0, mcuy = 0;
   int restart_interval = 0;
   bool jfif = false, adobe = false;
   int adobe_transform = -1;
   int orientation = 1;
+  bool exif_seen = false;
   std::vector<Component> comps;
   uint16_t qt[4][64];  // natural order
   bool qt_defined[4] = {false, false, false, false};
   Huffman dc[4], ac[4];
   bool frame_done = false;
+  // the iMCU row of the MCU in which a scan's data ran out (-1: none);
+  // libjpeg smooths the rows after it (last_good_iMCU_row) as the scans
+  // before that one left them
+  int short_imcu = -1;
 
   Jpeg(const uint8_t* d, size_t len) : data(d), n(len) {}
 
@@ -350,62 +456,48 @@ struct Jpeg {
     return (a << 8) | u8();
   }
 
+  // APP1 "Exif\0\0" + TIFF: the first segment whose IFD0 holds the
+  // orientation tag sets it, whatever its value (OpenCV's reading)
   void parse_exif(size_t start, size_t len) {
-    // APP1 "Exif\0\0" + TIFF: find IFD0's orientation tag (0x0112)
-    if (len < 14 || memcmp(data + start, "Exif\0\0", 6) != 0) return;
-    const uint8_t* t = data + start + 6;
-    size_t tl = len - 6;
-    bool le;
-    if (t[0] == 'I' && t[1] == 'I') le = true;
-    else if (t[0] == 'M' && t[1] == 'M') le = false;
-    else return;
-    auto rd16 = [&](size_t o) -> int {
-      if (o + 2 > tl) return -1;
-      return le ? (t[o] | (t[o + 1] << 8)) : ((t[o] << 8) | t[o + 1]);
-    };
-    auto rd32 = [&](size_t o) -> int64_t {
-      if (o + 4 > tl) return -1;
-      return le ? ((int64_t)t[o] | ((int64_t)t[o + 1] << 8) |
-                   ((int64_t)t[o + 2] << 16) | ((int64_t)t[o + 3] << 24))
-                : (((int64_t)t[o] << 24) | ((int64_t)t[o + 1] << 16) |
-                   ((int64_t)t[o + 2] << 8) | (int64_t)t[o + 3]);
-    };
-    int64_t ifd = rd32(4);
-    if (ifd < 0) return;
-    int count = rd16((size_t)ifd);
-    for (int i = 0; i < count; i++) {
-      size_t e = (size_t)ifd + 2 + 12 * (size_t)i;
-      if (rd16(e) == 0x0112) {
-        int v = rd16(e + 8);
-        if (v > 0) orientation = v;
-        return;
-      }
-    }
+    if (exif_seen || len < 14 || memcmp(data + start, "Exif\0\0", 6) != 0)
+      return;
+    int v = tiff_orientation(data + start + 6, len - 6);
+    if (v < 0) return;
+    orientation = v;
+    exif_seen = true;
   }
 
-  void read_headers() {
+  // Markers up to the end of the image, decoding every scan; with
+  // headers_only, up to the first scan (SOS), which is not read.  A
+  // progressive image ends at EOI or at the end of the data once it has a
+  // scan, as libjpeg's data sources end short data with a fake EOI.
+  void read_headers(bool headers_only = false) {
     if (n < 4 || data[0] != 0xFF || data[1] != 0xD8)
       fail(kErrFormat, "not a JPEG file (no SOI marker)");
     pos = 2;
     for (;;) {
+      if (pos + 1 >= n && progressive && scans > 0) {  // no marker fits
+        frame_done = true;
+        return;
+      }
       int b = u8();
       if (b != 0xFF) continue;  // garbage between markers: skip, as libjpeg
       int m = u8();
       while (m == 0xFF) m = u8();
       if (m == 0xD8 || (m >= 0xD0 && m <= 0xD7) || m == 0x01) continue;
-      if (m == 0xD9) fail(kErrFormat, "JPEG ends (EOI) before a scan");
+      if (m == 0xD9) {
+        if (progressive && scans > 0) {
+          frame_done = true;
+          return;
+        }
+        fail(kErrFormat, "JPEG ends (EOI) before a scan");
+      }
       int len = u16();
       if (len < 2 || pos + len - 2 > n)
         fail(kErrFormat, "truncated JPEG marker segment");
       size_t seg = pos, end = pos + len - 2;
-      if (m == 0xC0 || m == 0xC1) {
+      if (m == 0xC0 || m == 0xC1 || m == 0xC2) {
         read_sof(m);
-      } else if (m == 0xC2 || m == 0xC6 || m == 0xCA || m == 0xCE) {
-        char buf[96];
-        snprintf(buf, sizeof buf,
-                 "progressive JPEG (SOF%d, marker 0xFF%02X) is not supported",
-                 m - 0xC0, m);
-        fail(kErrUnsupported, buf);
       } else if ((m >= 0xC3 && m <= 0xCF) && m != 0xC4 && m != 0xC8 &&
                  m != 0xCC) {
         char buf[128];
@@ -428,20 +520,18 @@ struct Jpeg {
       } else if (m == 0xE0) {
         if (len >= 7 && memcmp(data + seg, "JFIF\0", 5) == 0) jfif = true;
       } else if (m == 0xE1) {
-        parse_exif(seg, len - 2);
-        if (orientation != 1) {
-          char buf[96];
-          snprintf(buf, sizeof buf,
-                   "EXIF orientation %d (APP1 marker 0xFFE1) is not "
-                   "supported; only 1 (no rotation)", orientation);
-          fail(kErrUnsupported, buf);
-        }
+        if (scans == 0) parse_exif(seg, len - 2);
       } else if (m == 0xEE) {
         if (len >= 14 && memcmp(data + seg, "Adobe", 5) == 0) {
           adobe = true;
           adobe_transform = data[seg + 11];
         }
       } else if (m == 0xDA) {
+        if (headers_only) {
+          if (sof < 0)
+            fail(kErrFormat, "JPEG scan (SOS) before the frame (SOF)");
+          return;
+        }
         pos = seg;
         read_sos();
         if (frame_done) return;
@@ -454,6 +544,7 @@ struct Jpeg {
   void read_sof(int m) {
     if (sof >= 0) fail(kErrFormat, "more than one frame (SOF) in a JPEG");
     sof = m - 0xC0;
+    progressive = m == 0xC2;
     precision = u8();
     height = u16();
     width = u16();
@@ -465,10 +556,7 @@ struct Jpeg {
                precision, sof);
       fail(kErrUnsupported, buf);
     }
-    if (nc == 4)
-      fail(kErrUnsupported,
-           "4-component (CMYK/YCCK) JPEG (SOF) is not supported");
-    if (nc != 1 && nc != 3) {
+    if (nc != 1 && nc != 3 && nc != 4) {
       char buf[64];
       snprintf(buf, sizeof buf, "%d-component JPEG (SOF) is not supported",
                nc);
@@ -495,6 +583,8 @@ struct Jpeg {
       c.height = (int)(((int64_t)height * c.v + vmax - 1) / vmax);
       c.bw = mcux * c.h;
       c.bh = mcuy * c.v;
+      c.wib = (c.width + 7) / 8;
+      c.hib = (c.height + 7) / 8;
     }
   }
 
@@ -532,11 +622,11 @@ struct Jpeg {
 
   void read_sos() {
     if (sof < 0) fail(kErrFormat, "JPEG scan (SOS) before the frame (SOF)");
-    alloc_planes();
     int ns = u8();
     if (ns < 1 || ns > (int)comps.size())
       fail(kErrFormat, "bad JPEG scan (SOS)");
     std::vector<Component*> sc;
+    int blocks = 0;
     for (int i = 0; i < ns; i++) {
       int id = u8(), t = u8();
       Component* found = nullptr;
@@ -548,19 +638,49 @@ struct Jpeg {
       if (found->td > 3 || found->ta > 3)
         fail(kErrFormat, "bad Huffman table index (SOS)");
       sc.push_back(found);
+      blocks += found->h * found->v;
     }
+    if (ns > 1 && blocks > 10)  // libjpeg's D_MAX_BLOCKS_IN_MCU
+      fail(kErrFormat, "sampling factors too large for an interleaved scan");
     int ss = u8(), se = u8(), ahal = u8();
-    if (ss != 0 || se != 63 || ahal != 0)
+    int ah = ahal >> 4, al = ahal & 15;
+    if (progressive) {
+      // jdphuff.c start_pass_phuff_decoder's checks
+      bool bad = ss == 0 ? se != 0 : (ss > se || se > 63 || ns != 1);
+      if ((ah != 0 && al != ah - 1) || al > 13) bad = true;
+      if (bad) fail(kErrFormat, "bad progressive JPEG scan (SOS)");
+    } else if (ss != 0 || se != 63 || ahal != 0) {
       fail(kErrFormat, "bad sequential JPEG scan (SOS spectral selection)");
+    }
     for (auto* c : sc) {
-      if (!dc[c->td].defined || !ac[c->ta].defined)
-        fail(kErrFormat, "JPEG scan uses an undefined Huffman table (DHT)");
       if (!qt_defined[c->tq])
         fail(kErrFormat,
              "JPEG component uses an undefined quantization table (DQT)");
+      bool need_dc = !progressive || (ss == 0 && ah == 0);
+      bool need_ac = !progressive || ss > 0;
+      if ((need_dc && !dc[c->td].defined) || (need_ac && !ac[c->ta].defined))
+        fail(kErrFormat, "JPEG scan uses an undefined Huffman table (DHT)");
       c->dc_pred = 0;
+      if (!c->q_latched) {  // jdinput.c latch_quant_tables
+        memcpy(c->q, qt[c->tq], sizeof c->q);
+        c->q_latched = true;
+      }
     }
+    if (progressive) {
+      for (auto* c : sc) {
+        if (c->coef.empty()) c->coef.assign((size_t)c->bw * c->bh * 64, 0);
+        // jdphuff.c start_pass_phuff_decoder
+        for (int k = std::min(ss, 1); k <= std::max(se, 9); k++)
+          c->prev_bits[k] = scans > 0 ? c->coef_bits[k] : 0;
+        for (int k = ss; k <= se; k++) c->coef_bits[k] = al;
+      }
+      decode_progressive_scan(sc, ss, se, ah, al);
+      scans++;
+      return;
+    }
+    alloc_planes();
     decode_scan(sc);
+    scans++;
     for (auto* c : sc) c->decoded = true;
     bool all = true;
     for (auto& c : comps) all = all && c.decoded;
@@ -589,17 +709,23 @@ struct Jpeg {
       }
     }
     int stride = c.bw * 8;
-    idct_islow(coef, qt[c.tq], c.plane.data() + (size_t)by * 8 * stride +
-                                   (size_t)bx * 8, stride);
+    idct_islow(coef, c.q, c.plane.data() + (size_t)by * 8 * stride +
+                              (size_t)bx * 8, stride);
   }
 
-  void decode_scan(const std::vector<Component*>& sc) {
-    BitReader br{data, n, pos};
+  // The MCUs of a scan, in order: fn(component, block column, block row)
+  // for each block, or skip(...) for each block of an MCU that starts once
+  // the segment's data ran out; restart markers consumed and fn_restart()
+  // called at each restart interval.  A scan of one component covers its
+  // ceil(width / 8) x ceil(height / 8) blocks; an interleaved scan covers
+  // the MCU-padded grid.
+  template <class Block, class Skip, class Restart>
+  void for_each_mcu(const std::vector<Component*>& sc, BitReader& br,
+                    Block fn, Skip skip, Restart fn_restart) {
     int mcus, per_row;
     if (sc.size() == 1) {
-      Component& c = *sc[0];
-      per_row = (c.width + 7) / 8;
-      mcus = per_row * ((c.height + 7) / 8);
+      per_row = sc[0]->wib;
+      mcus = per_row * sc[0]->hib;
     } else {
       per_row = mcux;
       mcus = mcux * mcuy;
@@ -610,22 +736,326 @@ struct Jpeg {
         br.restart(next_rst);
         next_rst = (next_rst + 1) & 7;
         for (auto* c : sc) c->dc_pred = 0;
+        fn_restart();
       }
       int mx = m % per_row, my = m / per_row;
+      const bool skipped = br.insufficient;
+      auto visit = [&](Component& c, int bx, int by) {
+        if (skipped) skip(c, bx, by);
+        else fn(c, bx, by);
+      };
       if (sc.size() == 1) {
-        decode_block(br, *sc[0], mx, my);
+        visit(*sc[0], mx, my);
       } else {
         for (auto* c : sc)
           for (int v = 0; v < c->v; v++)
             for (int h = 0; h < c->h; h++)
-              decode_block(br, *c, mx * c->h + h, my * c->v + v);
+              visit(*c, mx * c->h + h, my * c->v + v);
       }
+      if (br.insufficient && short_imcu < 0)
+        short_imcu = sc.size() == 1 ? my / sc[0]->v : my;
     }
     // continue after the scan: find the next marker
     pos = br.pos;
     while (pos + 1 < n && !(data[pos] == 0xFF && data[pos + 1] != 0x00 &&
                             !(data[pos + 1] >= 0xD0 && data[pos + 1] <= 0xD7)))
       pos++;
+  }
+
+  void decode_scan(const std::vector<Component*>& sc) {
+    BitReader br{data, n, pos};
+    for_each_mcu(
+        sc, br,
+        [&](Component& c, int bx, int by) { decode_block(br, c, bx, by); },
+        [&](Component& c, int bx, int by) {  // zero coefficients: mid-grey
+          const size_t stride = (size_t)c.bw * 8;
+          for (int y = 0; y < 8; y++)
+            memset(&c.plane[((size_t)by * 8 + y) * stride + (size_t)bx * 8],
+                   128, 8);
+        },
+        [] {});
+  }
+
+  // ------------------------------------- progressive Huffman (jdphuff.c)
+  // Each scan adds to the whole-image coefficient buffer (jdcoefct.c);
+  // the blocks go through the IDCT once the last scan is in.
+  void decode_progressive_scan(const std::vector<Component*>& sc, int ss,
+                               int se, int ah, int al) {
+    BitReader br{data, n, pos};
+    int eobrun = 0;  // blocks left in an end-of-band run
+    const int p1 = 1 << al, m1 = -(1 << al);
+    auto refine = [&](int16_t& coef) {  // a correction bit of a nonzero
+      if (br.get(1) && (coef & p1) == 0)
+        coef = (int16_t)(coef >= 0 ? coef + p1 : coef + m1);
+    };
+    auto block = [&](Component& c, int bx, int by) {
+      int16_t* blk = c.coef.data() + ((size_t)by * c.bw + bx) * 64;
+      if (ss == 0) {  // DC: first scan or one refinement bit
+        if (ah == 0) {
+          int t = decode_huff(br, dc[c.td]);
+          c.dc_pred += t ? extend(br.get(t), t) : 0;
+          blk[0] = (int16_t)((unsigned)c.dc_pred << al);
+        } else if (br.get(1)) {
+          blk[0] = (int16_t)(blk[0] | p1);
+        }
+        return;
+      }
+      const Huffman& h = ac[c.ta];
+      if (ah == 0) {  // decode_mcu_AC_first
+        if (eobrun > 0) {
+          eobrun--;
+          return;
+        }
+        for (int k = ss; k <= se; k++) {
+          int rs = decode_huff(br, h);
+          int r = rs >> 4, s = rs & 15;
+          if (s) {
+            k += r;
+            blk[natural(k)] = (int16_t)((unsigned)extend(br.get(s), s) << al);
+          } else if (r == 15) {
+            k += 15;
+          } else {
+            eobrun = 1 << r;
+            if (r) eobrun += br.get(r);
+            eobrun--;
+            break;
+          }
+        }
+        return;
+      }
+      // decode_mcu_AC_refine: correction bits go to coefficients already
+      // nonzero; a run counts only the zero ones
+      int k = ss;
+      if (eobrun == 0) {
+        for (; k <= se; k++) {
+          int rs = decode_huff(br, h);
+          int r = rs >> 4, s = rs & 15;
+          if (s) {
+            s = br.get(1) ? p1 : m1;
+          } else if (r != 15) {
+            eobrun = 1 << r;
+            if (r) eobrun += br.get(r);
+            break;
+          }
+          do {
+            int16_t& coef = blk[natural(k)];
+            if (coef != 0) {
+              refine(coef);
+            } else if (--r < 0) {
+              break;
+            }
+            k++;
+          } while (k <= se);
+          if (s) blk[natural(k)] = (int16_t)s;
+        }
+      }
+      if (eobrun > 0) {
+        for (; k <= se; k++) {
+          int16_t& coef = blk[natural(k)];
+          if (coef != 0) refine(coef);
+        }
+        eobrun--;
+      }
+    };
+    for_each_mcu(
+        sc, br, block, [](Component&, int, int) {}, [&] { eobrun = 0; });
+  }
+
+  // ------------------------- the coefficient buffer's output (jdcoefct.c)
+  // jdcoefct.c smoothing_ok: every component has its quantization table,
+  // nonzero at DC and the first 9 AC positions, and some DC bits; some of
+  // those 9 AC coefficients are not yet known to full precision.
+  bool smoothing_ok() const {
+    static const int pos[10] = {0, 1, 8, 16, 9, 2, 3, 10, 17, 24};
+    bool useful = false;
+    for (auto& c : comps) {
+      if (!c.q_latched) return false;
+      for (int p : pos)
+        if (c.q[p] == 0) return false;
+      if (c.coef_bits[0] < 0) return false;
+      for (int k = 1; k < 10; k++) useful = useful || c.coef_bits[k] != 0;
+    }
+    return useful;
+  }
+
+  void output_coefficients() {
+    alloc_planes();
+    bool smooth = smoothing_ok();
+    for (auto& c : comps) {
+      if (c.coef.empty()) c.coef.assign((size_t)c.bw * c.bh * 64, 0);
+      if (smooth) {
+        smooth_component(c);
+        continue;
+      }
+      const size_t stride = (size_t)c.bw * 8;
+      for (int by = 0; by < c.hib; by++)
+        for (int bx = 0; bx < c.wib; bx++)
+          idct_islow(&c.coef[((size_t)by * c.bw + bx) * 64], c.q,
+                     &c.plane[(size_t)by * 8 * stride + (size_t)bx * 8],
+                     stride);
+    }
+  }
+
+  // jdcoefct.c decompress_smooth_data (libjpeg-turbo 2.1 and later): the
+  // first 9 AC coefficients that are still zero and not fully known are
+  // estimated from the DC values of the block's 5 x 5 neighbourhood, and
+  // when no AC coefficient has any data the DC too (a Gaussian-like
+  // kernel).  Neighbour rows and columns are replicated at the edges as
+  // libjpeg replicates them.
+  void smooth_component(Component& c) {
+    // smoothing_ok's latches: rows up to the one where the data ran out
+    // take the coefficient bits of every scan, later rows those before each
+    // component's last scan (libjpeg-turbo 2.1's incomplete-scan rule)
+    int prev_latch[10];
+    for (int k = 1; k < 10; k++)
+      prev_latch[k] = scans > 1 ? c.prev_bits[k] : -1;
+    const int* cb = c.coef_bits;
+    bool change_dc = false;
+    const int64_t Q00 = c.q[0], Q01 = c.q[1], Q10 = c.q[8], Q20 = c.q[16],
+                  Q11 = c.q[9], Q02 = c.q[2], Q03 = c.q[3], Q12 = c.q[10],
+                  Q21 = c.q[17], Q30 = c.q[24];
+    auto predict = [](int64_t num, int64_t q, int al) -> int {
+      bool neg = num < 0;
+      int pred = (int)(((q << 7) + (neg ? -num : num)) / (q << 8));
+      if (al > 0 && pred >= (1 << al)) pred = (1 << al) - 1;
+      return neg ? -pred : pred;
+    };
+    const size_t stride = (size_t)c.bw * 8;
+    const int last_imcu = mcuy - 1, last_col = c.wib - 1;
+    auto row = [&](int r) {
+      r = r < 0 ? 0 : (r >= c.bh ? c.bh - 1 : r);
+      return &c.coef[(size_t)r * c.bw * 64];
+    };
+    for (int imcu = 0; imcu < mcuy; imcu++) {
+      cb = short_imcu >= 0 && imcu > short_imcu ? prev_latch : c.coef_bits;
+      change_dc = cb[1] == -1 && cb[2] == -1 && cb[3] == -1 && cb[4] == -1 &&
+                  cb[5] == -1 && cb[6] == -1 && cb[7] == -1 && cb[8] == -1 &&
+                  cb[9] == -1;
+      int block_rows = c.v;
+      if (imcu == last_imcu) {
+        block_rows = c.hib % c.v;
+        if (block_rows == 0) block_rows = c.v;
+      }
+      // libjpeg numbers the rows by this iMCU row's count of block rows,
+      // so a short last iMCU row sees its neighbours as libjpeg does (a
+      // dummy row of the MCU padding included)
+      const int image_rows = block_rows * mcuy;
+      for (int br = 0; br < block_rows; br++) {
+        const int r = imcu * c.v + br, ir = imcu * block_rows + br;
+        const int16_t* cur = row(r);
+        const int16_t* prev = ir > 0 ? row(r - 1) : cur;
+        const int16_t* prev2 = ir > 1 ? row(r - 2) : prev;
+        const int16_t* next = ir < image_rows - 1 ? row(r + 1) : cur;
+        const int16_t* next2 = ir < image_rows - 2 ? row(r + 2) : next;
+        // DC01..DC25: the 5 x 5 neighbourhood, row by row (sliding)
+        int d[26];
+        for (int i = 1; i <= 5; i++) {
+          d[i] = prev2[0];
+          d[5 + i] = prev[0];
+          d[10 + i] = cur[0];
+          d[15 + i] = next[0];
+          d[20 + i] = next2[0];
+        }
+        for (int b = 0; b < c.wib; b++) {
+          int16_t ws[64];
+          memcpy(ws, cur, sizeof ws);
+          if (b == 0 && b < last_col) {
+            d[4] = d[5] = prev2[64];
+            d[9] = d[10] = prev[64];
+            d[14] = d[15] = cur[64];
+            d[19] = d[20] = next[64];
+            d[24] = d[25] = next2[64];
+          }
+          if (b + 1 < last_col) {
+            const size_t o = 2 * 64;
+            d[5] = prev2[o];
+            d[10] = prev[o];
+            d[15] = cur[o];
+            d[20] = next[o];
+            d[25] = next2[o];
+          }
+          int al;
+          if ((al = cb[1]) != 0 && ws[1] == 0) {
+            int64_t num = Q00 * (change_dc
+                ? (-d[1] - d[2] + d[4] + d[5] - 3 * d[6] + 13 * d[7] -
+                   13 * d[9] + 3 * d[10] - 3 * d[11] + 38 * d[12] -
+                   38 * d[14] + 3 * d[15] - 3 * d[16] + 13 * d[17] -
+                   13 * d[19] + 3 * d[20] - d[21] - d[22] + d[24] + d[25])
+                : (-7 * d[11] + 50 * d[12] - 50 * d[14] + 7 * d[15]));
+            ws[1] = (int16_t)predict(num, Q01, al);
+          }
+          if ((al = cb[2]) != 0 && ws[8] == 0) {
+            int64_t num = Q00 * (change_dc
+                ? (-d[1] - 3 * d[2] - 3 * d[3] - 3 * d[4] - d[5] - d[6] +
+                   13 * d[7] + 38 * d[8] + 13 * d[9] - d[10] + d[16] -
+                   13 * d[17] - 38 * d[18] - 13 * d[19] + d[20] + d[21] +
+                   3 * d[22] + 3 * d[23] + 3 * d[24] + d[25])
+                : (-7 * d[3] + 50 * d[8] - 50 * d[18] + 7 * d[23]));
+            ws[8] = (int16_t)predict(num, Q10, al);
+          }
+          if ((al = cb[3]) != 0 && ws[16] == 0) {
+            int64_t num = Q00 * (change_dc
+                ? (d[3] + 2 * d[7] + 7 * d[8] + 2 * d[9] - 5 * d[12] -
+                   14 * d[13] - 5 * d[14] + 2 * d[17] + 7 * d[18] +
+                   2 * d[19] + d[23])
+                : (-d[3] + 13 * d[8] - 24 * d[13] + 13 * d[18] - d[23]));
+            ws[16] = (int16_t)predict(num, Q20, al);
+          }
+          if ((al = cb[4]) != 0 && ws[9] == 0) {
+            int64_t num = Q00 * (change_dc
+                ? (-d[1] + d[5] + 9 * d[7] - 9 * d[9] - 9 * d[17] +
+                   9 * d[19] + d[21] - d[25])
+                : (d[10] + d[16] - 10 * d[17] + 10 * d[19] - d[2] - d[20] +
+                   d[22] - d[24] + d[4] - d[6] + 10 * d[7] - 10 * d[9]));
+            ws[9] = (int16_t)predict(num, Q11, al);
+          }
+          if ((al = cb[5]) != 0 && ws[2] == 0) {
+            int64_t num = Q00 * (change_dc
+                ? (2 * d[7] - 5 * d[8] + 2 * d[9] + d[11] + 7 * d[12] -
+                   14 * d[13] + 7 * d[14] + d[15] + 2 * d[17] - 5 * d[18] +
+                   2 * d[19])
+                : (-d[11] + 13 * d[12] - 24 * d[13] + 13 * d[14] - d[15]));
+            ws[2] = (int16_t)predict(num, Q02, al);
+          }
+          if (change_dc) {
+            if ((al = cb[6]) != 0 && ws[3] == 0)
+              ws[3] = (int16_t)predict(
+                  Q00 * (d[7] - d[9] + 2 * d[12] - 2 * d[14] + d[17] - d[19]),
+                  Q03, al);
+            if ((al = cb[7]) != 0 && ws[10] == 0)
+              ws[10] = (int16_t)predict(
+                  Q00 * (d[7] - 3 * d[8] + d[9] - d[17] + 3 * d[18] - d[19]),
+                  Q12, al);
+            if ((al = cb[8]) != 0 && ws[17] == 0)
+              ws[17] = (int16_t)predict(
+                  Q00 * (d[7] - d[9] - 3 * d[12] + 3 * d[14] + d[17] - d[19]),
+                  Q21, al);
+            if ((al = cb[9]) != 0 && ws[24] == 0)
+              ws[24] = (int16_t)predict(
+                  Q00 * (d[7] + 2 * d[8] + d[9] - d[17] - 2 * d[18] - d[19]),
+                  Q30, al);
+            int64_t num = Q00 *
+                (-2 * d[1] - 6 * d[2] - 8 * d[3] - 6 * d[4] - 2 * d[5] -
+                 6 * d[6] + 6 * d[7] + 42 * d[8] + 6 * d[9] - 6 * d[10] -
+                 8 * d[11] + 42 * d[12] + 152 * d[13] + 42 * d[14] -
+                 8 * d[15] - 6 * d[16] + 6 * d[17] + 42 * d[18] + 6 * d[19] -
+                 6 * d[20] - 2 * d[21] - 6 * d[22] - 8 * d[23] - 6 * d[24] -
+                 2 * d[25]);
+            ws[0] = (int16_t)predict(num, Q00, 0);
+          }
+          idct_islow(ws, c.q,
+                     &c.plane[(size_t)r * 8 * stride + (size_t)b * 8],
+                     stride);
+          for (int i = 1; i <= 21; i += 5)
+            for (int j = 0; j < 4; j++) d[i + j] = d[i + j + 1];
+          prev2 += 64;
+          prev += 64;
+          cur += 64;
+          next += 64;
+          next2 += 64;
+        }
+      }
+    }
   }
 
   // ------------------------------------------------ upsampling (jdsample.c)
@@ -719,22 +1149,28 @@ struct Jpeg {
     }
   }
 
+  // RGB as OpenCV's imread returns it (before EXIF orientation): grey
+  // replicated; YCbCr, RGB or (4 components) CMYK / YCCK as libjpeg
+  // outputs them, CMYK then converted by OpenCV's icvCvt_CMYK2BGR.
   void to_rgb(uint8_t* out) const {
+    const size_t npx = (size_t)width * height;
     if (comps.size() == 1) {
       std::vector<uint8_t> g;
       upsample(comps[0], g);
-      for (size_t i = 0; i < g.size(); i++)
+      for (size_t i = 0; i < npx; i++)
         out[3 * i] = out[3 * i + 1] = out[3 * i + 2] = g[i];
       return;
     }
-    std::vector<uint8_t> p[3];
-    for (int i = 0; i < 3; i++) upsample(comps[i], p[i]);
-    bool rgb;
-    if (jfif) rgb = false;
-    else if (adobe) rgb = adobe_transform == 0;
-    else rgb = comps[0].id == 82 && comps[1].id == 71 && comps[2].id == 66;
-    size_t npx = (size_t)width * height;
-    if (rgb) {
+    const int nc = (int)comps.size();
+    std::vector<uint8_t> p[4];
+    for (int i = 0; i < nc; i++) upsample(comps[i], p[i]);
+    // jdapimin.c default_decompress_parms: the colour space of the file
+    bool ycc;
+    if (nc == 4) ycc = adobe && adobe_transform != 0;  // YCCK, else CMYK
+    else if (jfif) ycc = true;
+    else if (adobe) ycc = adobe_transform != 0;
+    else ycc = !(comps[0].id == 82 && comps[1].id == 71 && comps[2].id == 66);
+    if (nc == 3 && !ycc) {
       for (size_t i = 0; i < npx; i++) {
         out[3 * i] = p[0][i];
         out[3 * i + 1] = p[1][i];
@@ -742,7 +1178,8 @@ struct Jpeg {
       }
       return;
     }
-    // jdcolor.c build_ycc_rgb_table / ycc_rgb_convert
+    // jdcolor.c build_ycc_rgb_table / ycc_rgb_convert (ycck_cmyk_convert
+    // inverts the result)
     const int SCALEBITS = 16;
     const int64_t ONE_HALF = (int64_t)1 << (SCALEBITS - 1);
     auto FIX = [](double x) {
@@ -760,11 +1197,40 @@ struct Jpeg {
       return (uint8_t)(v < 0 ? 0 : (v > 255 ? 255 : v));
     };
     for (size_t i = 0; i < npx; i++) {
-      int y = p[0][i], cb = p[1][i], cr = p[2][i];
-      out[3 * i] = clamp(y + cr_r[cr]);
-      out[3 * i + 1] = clamp(y + (int)((cb_g[cb] + cr_g[cr]) >> SCALEBITS));
-      out[3 * i + 2] = clamp(y + cb_b[cb]);
+      int a = p[0][i], b = p[1][i], c = p[2][i];
+      if (ycc) {
+        int y = a, cb = b, cr = c;
+        a = clamp(y + cr_r[cr]);
+        b = clamp(y + (int)((cb_g[cb] + cr_g[cr]) >> SCALEBITS));
+        c = clamp(y + cb_b[cb]);
+        if (nc == 4) {
+          a = 255 - a;
+          b = 255 - b;
+          c = 255 - c;
+        }
+      }
+      if (nc == 4) {
+        int k = p[3][i];
+        a = k - ((255 - a) * k >> 8);
+        b = k - ((255 - b) * k >> 8);
+        c = k - ((255 - c) * k >> 8);
+      }
+      out[3 * i] = (uint8_t)a;
+      out[3 * i + 1] = (uint8_t)b;
+      out[3 * i + 2] = (uint8_t)c;
     }
+  }
+
+  // the decoded image, EXIF-oriented, into out (the oriented shape)
+  void decode(uint8_t* out) {
+    if (progressive) output_coefficients();
+    if (orientation < 2 || orientation > 8) {
+      to_rgb(out);
+      return;
+    }
+    std::vector<uint8_t> rgb((size_t)width * height * 3);
+    to_rgb(rgb.data());
+    orient_rgb(rgb.data(), height, width, orientation, out);
   }
 };
 
@@ -1128,15 +1594,14 @@ int report(const Error& e, char* err, int errlen) {
 
 extern "C" {
 
-// (height, width) of a JPEG, after checking that it is one this decoder
-// takes (headers up to the first scan).
+// (height, width) of a JPEG after its EXIF orientation, after checking
+// that it is one this decoder takes (headers up to the first scan).
 int thc_jpeg_info(const uint8_t* data, int64_t n, int* height, int* width,
                   char* err, int errlen) {
   try {
     Jpeg j(data, (size_t)n);
-    j.read_headers();
-    *height = j.height;
-    *width = j.width;
+    j.read_headers(true);
+    oriented_size(j.orientation, j.height, j.width, height, width);
     return 0;
   } catch (const Error& e) {
     return report(e, err, errlen);
@@ -1145,7 +1610,7 @@ int thc_jpeg_info(const uint8_t* data, int64_t n, int* height, int* width,
   }
 }
 
-// Decode into out, (height, width, 3) RGB uint8.
+// Decode into out, (height, width, 3) RGB uint8 in the oriented shape.
 int thc_jpeg_decode(const uint8_t* data, int64_t n, uint8_t* out, int height,
                     int width, char* err, int errlen) {
   try {
@@ -1153,15 +1618,29 @@ int thc_jpeg_decode(const uint8_t* data, int64_t n, uint8_t* out, int height,
     j.read_headers();
     if (!j.frame_done)
       fail(kErrFormat, "JPEG ends before every component was scanned");
-    if (j.height != height || j.width != width)
+    int oh, ow;
+    oriented_size(j.orientation, j.height, j.width, &oh, &ow);
+    if (oh != height || ow != width)
       fail(kErrArgs, "output size does not match the JPEG frame");
-    j.to_rgb(out);
+    j.decode(out);
     return 0;
   } catch (const Error& e) {
     return report(e, err, errlen);
   } catch (const std::exception& e) {
     return report(Error{kErrFormat, e.what()}, err, errlen);
   }
+}
+
+// The EXIF orientation of a TIFF block (a PNG eXIf chunk), -1 for none.
+int thc_exif_orientation(const uint8_t* tiff, int64_t n) {
+  return tiff_orientation(tiff, (size_t)n);
+}
+
+// (height, width, 3) uint8 src, EXIF-oriented into dst (the oriented
+// shape: height and width swap for 5-8).
+void thc_orient_rgb(const uint8_t* src, int height, int width,
+                    int orientation, uint8_t* dst) {
+  orient_rgb(src, height, width, orientation, dst);
 }
 
 // Undo the PNG filters of `height` rows of `rowbytes` bytes each (the
