@@ -92,12 +92,15 @@ directory in the reference's layout (23 cameras, D non-zero on most,
 frames hard-linked to the committed 1024x1024 fixture JPEGs, masks from the
 synthetic body's projection, visibility files for half the cameras):
 
-e. the port's JPEG/PNG codec, built with g++, on each committed fixture
-   of tests/fixtures/torch_zju (baseline JPEGs, masks) and
+e. the port's image readers, the codec built with g++, on each committed
+   fixture of tests/fixtures/torch_zju (baseline JPEGs, masks),
    torch_zju_codings (progressive, truncated progressive, CMYK, YCCK and
-   EXIF-6 JPEGs, a 16-bit RGBA PNG frame, an Adam7 mask): its bytes against
-   the sha256 of cv2's or imageio's decode in the folder's digests.json;
-   each decode timed;
+   EXIF-6 JPEGs, a 16-bit RGBA PNG frame, an Adam7 mask) and
+   torch_zju_formats (RLE8 and 5-6-5 BMPs, ASCII and 16-bit PPMs, a PFM, a
+   Sun raster, LZW, Deflate and big-endian tiled planar TIFFs): its bytes
+   against the sha256 of cv2's or imageio's decode in the folder's
+   digests.json; each decode timed, and that of 1024x1024 BMP, PPM, Sun
+   raster and TIFF frames formed here;
 f. the train entry point from configs/train_or_eval.yaml with dataset zju
    (CoreView_377, the catalog's 10 frames) in bf16 and float32, and with
    dataset synthetic in bf16, counters reset and read around each: every
@@ -181,6 +184,19 @@ l2. the pipelined TransHE base (3 x 300 x 768, depth 12, a stored table)
    torchrun), 2 stages in 3 microbatches, against the unpipelined module
    (output within 1e-5, gradients within 2e-6), both timed.
 
+Then the frame formats beside JPEG and PNG, mesh_axis_rays under torchrun
+and the examples:
+
+n1. CoreView_377 laid out with 1024x1024 BMP, PPM, Sun raster and TIFF
+   frames: the train entry point (train_or_eval.yaml, float32) for 2 steps
+   under torchrun (1 rank) at mesh_axis_rays 2, its losses those of the
+   same run here at mesh_axis_rays 1 (phase 6's bound), K2, K4 and K3
+   launched; then --type evaluate on its checkpoint over a frame whose
+   views cycle through the four formats: finite metrics, K1, K2 and K4
+   launched, each format read;
+n2. examples/torch_minimal_render.py and torch_minimal_train.py on the
+   card: exit 0, a 32x32 PNG, finite losses.
+
 Every visualize run (phases 9, c, g, i, j3) also writes one MJPG/AVI per
 human, parsed here: one JPEG frame per PNG.  Phase 11 also times the C++
 marching the command took against the numpy route on the same cube (the
@@ -190,7 +206,8 @@ video of its PLY (tools/render_mesh_video), timed.
 
 The last three lines are {"kernels": [...]}, the card's name and power
 limit as nvidia-smi prints them, and {"ok": true, "device": {...}}.
-Imports only torch, numpy and the port.
+Imports only torch, numpy, the port and the numpy image writers of
+tests/_torch_formats.py.
 """
 
 from __future__ import annotations
@@ -2574,22 +2591,24 @@ ZJU_EVAL_FRAMES = 2  # frames of CoreView_387 laid out for phase g
 
 
 def phase_codec(card: str) -> dict:
-    """e. Each committed fixture of tests/fixtures/torch_zju and
-    torch_zju_codings decoded by the port's codec (built in phase 2 with g++
-    from transhuman_tpu_torch/native) as the loader reads it (a frame by
-    imread_rgb, a mask by read_png), its bytes held against the sha256 of
-    cv2's or imageio's decode recorded in the folder's digests.json; each
-    decode timed on the host, median of 20; the event files' CRC32C,
-    native against the Python table."""
+    """e. Each committed fixture of tests/fixtures/torch_zju,
+    torch_zju_codings and torch_zju_formats decoded by the port's codec
+    (built in phase 2 with g++ from transhuman_tpu_torch/native) as the
+    loader reads it (a frame by imread_rgb, a mask by read_png), its bytes
+    held against the sha256 of cv2's or imageio's decode recorded in the
+    folder's digests.json; each decode timed on the host, median of 20, and
+    so the decode of 1024x1024 BMP, PPM, Sun raster and TIFF frames formed
+    here (format_frames); the event files' CRC32C, native against the
+    Python table."""
     import hashlib
 
     from transhuman_tpu_torch.data import image_io
 
     out, by = {}, set()
-    for folder in (FIXTURES, CODINGS):
+    for folder, n in ((FIXTURES, 5), (CODINGS, 8), (FORMATS, 10)):
         with open(os.path.join(folder, "digests.json")) as f:
             digests = json.load(f)
-        check(len(digests) == (5 if folder == FIXTURES else 8),
+        check(len(digests) == n,
               f"codec: {folder} lists {len(digests)} fixtures")
         for name, want in sorted(digests.items()):
             path = os.path.join(folder, name)
@@ -2608,6 +2627,18 @@ def phase_codec(card: str) -> dict:
                 ms.append((time.perf_counter() - t) * 1e3)
             out[name] = float(np.median(ms))
             by.add(want["by"])
+    # the other formats at the loader's size: 1024x1024 frames formed here
+    src_dir = tempfile.mkdtemp(prefix="thp_formats_")
+    try:
+        for kind, path in format_frames(src_dir).items():
+            ms = []
+            for _ in range(20):
+                t = time.perf_counter()
+                image_io.imread_rgb(path)
+                ms.append((time.perf_counter() - t) * 1e3)
+            out[f"1024_{kind}"] = float(np.median(ms))
+    finally:
+        shutil.rmtree(src_dir, ignore_errors=True)
     # the event files' CRC32C: the native library against the Python table
     from transhuman_tpu_torch.utils import tb_writer
 
@@ -2627,8 +2658,12 @@ def phase_codec(card: str) -> dict:
         f"{', '.join(sorted(by))} bit for bit; host ms per decode (median "
         f"of 20): " + ", ".join(f"{k} {v:.2f}" for k, v in out.items())
         + f"; progressive 1024x1024 q95 4:2:0 against the sequential one "
-        f"{out['cv2_prog_q95_420.jpg'] / out['cv2_q95_420.jpg']:.2f}x  "
-        f"[{card}]")
+        f"{out['cv2_prog_q95_420.jpg'] / out['cv2_q95_420.jpg']:.2f}x; "
+        f"1024x1024 24-bit BMP, P6, 24-bit Sun raster, Deflate TIFF "
+        f"against the sequential JPEG "
+        + ", ".join(f"{out[f'1024_{k}'] / out['cv2_q95_420.jpg']:.2f}x"
+                    for k in ("bmp", "ppm", "sun", "tiff"))
+        + f"  [{card}]")
     return out
 
 
@@ -3754,8 +3789,11 @@ def torchrun(what: str, nproc: int, module: str, argv, backend="gloo"):
           f"{what}: {' '.join(cmd[1:])} "
           f"{'timed out' if timed_out else f'exited {proc.returncode}'} "
           f"after {secs:.1f} s:\n{out[-6000:]}")
+    # a report is one write ending its line, but it may start mid-line: with
+    # PYTHONUNBUFFERED a print is two writes (text, then "\n"), and another
+    # rank's report can land between them
     reports = sorted((json.loads(m) for m in re.findall(
-        r"^rank report: (\{.*\})$", out, re.M)), key=lambda r: r["rank"])
+        r"rank report: (\{.*\})$", out, re.M)), key=lambda r: r["rank"])
     check([(r["rank"], r["world"]) for r in reports]
           == [(r, nproc) for r in range(nproc)],
           f"{what}: rank reports {reports}\n{out[-3000:]}")
@@ -4737,6 +4775,213 @@ def phase_pp(card: str, tmp: str) -> dict:
                    "plain_forward_ms": fwd, "plain_step_ms": both}}
 
 
+# ------------------------------------------ frame formats, torchrun rays
+FORMATS = os.path.join(os.path.dirname(FIXTURES), "torch_zju_formats")
+N_STEPS = 2  # float32 steps of each phase n1 train run
+
+
+def format_frames(src_dir: str) -> dict:
+    """The committed 1024x1024 q95 4:2:0 fixture JPEG's decode written here
+    as a 24-bit BMP, a binary PPM, a 24-bit Sun raster and a Deflate TIFF
+    with the horizontal predictor in 8-row strips (tests/_torch_formats.py's
+    writers): kind -> path, each checked to read back as the decode."""
+    import importlib.util
+
+    from transhuman_tpu_torch.data import image_io
+
+    # by its path: another installed package may be named tests
+    spec = importlib.util.spec_from_file_location(
+        "_torch_formats", os.path.join(ROOT, "tests", "_torch_formats.py"))
+    tf = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(tf)
+
+    rgb = image_io.imread_rgb(os.path.join(FIXTURES, "cv2_q95_420.jpg"))
+    os.makedirs(src_dir, exist_ok=True)
+    files = {"bmp": ("frame.bmp", tf.bmp(rgb, 24)),
+             "ppm": ("frame.ppm", tf.pnm_binary(rgb, "P6")),
+             "sun": ("frame.ras", tf.sun_raster(rgb, 24)),
+             "tiff": ("frame.tif", tf.tiff(rgb, compression=8, predictor=2,
+                                           rows_per_strip=8))}
+    out = {}
+    for kind, (name, data) in files.items():
+        out[kind] = os.path.join(src_dir, name)
+        with open(out[kind], "wb") as fh:
+            fh.write(data)
+        check(np.array_equal(image_io.imread_rgb(out[kind]), rgb),
+              f"formats: the {kind} frame does not read back as its source")
+    return out
+
+
+def phase_formats(card: str, tmp: str) -> dict:
+    """n. Frames of the formats cv2.imread reads beside JPEG and PNG, and
+    mesh_axis_rays under torchrun, through the entry points:
+    n1. CoreView_377 laid out at 1024x1024 with BMP, PPM, Sun raster and
+    TIFF frames (format_frames; one format a frame), the train entry point
+    (train_or_eval.yaml, float32) for 2 steps under torchrun (1 rank) with
+    mesh_axis_rays 2, against the same in this process at mesh_axis_rays 1
+    (phase 6's loss bound: card steps are not bit-reproducible), K2 / K4 /
+    K3 launched 1 / 2 / 2 a step; then --type evaluate on its checkpoint
+    over one frame of CoreView_387 whose views cycle through the four
+    formats under one name (cv2 decodes by content): finite PSNR and SSIM,
+    K1, K2 and K4 launched, every format read by the loader;
+    n2. examples/torch_minimal_render.py and torch_minimal_train.py (2
+    steps) on the card: exit 0, a PNG of the stated size, finite losses.
+    The torchrun command and the two examples run beside this process's
+    R = 1 run (none of their times is compared)."""
+    import threading
+
+    from transhuman_tpu_torch import kernels
+    from transhuman_tpu_torch.cli import run as run_cli
+    from transhuman_tpu_torch.cli import train as train_cli
+    from transhuman_tpu_torch.data import image_formats, image_io, zju
+
+    t0 = time.perf_counter()
+    src = format_frames(os.path.join(tmp, "formats_src"))
+    root = os.path.join(tmp, "zju_formats")
+    write_zju_layout(root, "CoreView_377", range(0, 300, 30), 300, seed=4,
+                     sources=[[src[k]] for k in ("bmp", "ppm", "sun",
+                                                 "tiff")])
+    write_zju_layout(root, "CoreView_387", range(ZJU_EVAL_FRAMES),
+                     ZJU_EVAL_FRAMES, seed=5,
+                     sources=[[src[k] for k in ("tiff", "bmp", "ppm",
+                                                "sun")]])
+    layout_s = time.perf_counter() - t0
+    cfg_file = os.path.join(CONFIGS, "train_or_eval.yaml")
+
+    def argv(run, rays):
+        return ["--cfg_file", cfg_file, "dataset",
+                "zju", "data_root", root, "rasterize_root",
+                os.path.join(root, "raster"), "trained_model_dir",
+                os.path.join(run, "tm"), "record_dir",
+                os.path.join(run, "rec"), "result_dir",
+                os.path.join(run, "res"), "ep_iter", str(N_STEPS),
+                "train.epoch", "1", "compute_dtype", "float32",
+                "mesh_axis_rays", str(rays)]
+
+    f = forms("float32")
+    by_path = {}
+    runs = {r: os.path.join(tmp, f"formats_rays{r}") for r in (1, 2)}
+    # the torchrun command and the examples (n2) run beside this process's
+    # R = 1 run: three processes on the card, none timed against another
+    png = os.path.join(tmp, "example.png")
+    env = dict(os.environ, OMP_NUM_THREADS="2")
+    examples = {name: subprocess.Popen(
+        [sys.executable, os.path.join(ROOT, "examples", name), *args],
+        cwd=tmp, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True) for name, args in (("torch_minimal_render.py", [png]),
+                                      ("torch_minimal_train.py", ["2"]))}
+    rays2 = {}
+
+    def run_rays2():
+        try:
+            rays2["out"] = torchrun(
+                "n1 train rays 2", 1, "transhuman_tpu_torch.cli.train",
+                ["--device", "cuda", "--steps", str(N_STEPS),
+                 *argv(runs[2], 2)])
+        except BaseException as e:  # raised again below, in this thread
+            rays2["error"] = e
+
+    rays2_thread = threading.Thread(target=run_rays2)
+    rays2_thread.start()
+
+    seen, lock = {}, threading.Lock()
+    read_frame = zju.imread_rgb
+
+    def frame(path):
+        out = read_frame(path)
+        with open(path, "rb") as fh:
+            kind = image_formats.sniff(fh.read(8)) or "other"
+        with lock:
+            seen[kind] = seen.get(kind, 0) + 1
+        return out
+
+    zju.imread_rgb = frame
+    try:
+        t = time.perf_counter()
+        _, recs = train_cli.main(["--device", "cuda", "--steps",
+                                  str(N_STEPS), *argv(runs[1], 1)])
+        torch.cuda.synchronize()
+        one_s = time.perf_counter() - t
+        train_seen = dict(seen)
+        seen.clear()
+        rays2_thread.join()
+        if "error" in rays2:
+            raise rays2["error"]
+        _, reps, tr_s = rays2["out"]
+        by_path["train_formats_rays2"] = reps[0]["launches"]
+        # one binding and two fetches (painting, pixels) a step, and their
+        # two backward scatters: exactly
+        want = {f["dparf"]: N_STEPS, f["fetch"]: 2 * N_STEPS,
+                f["scatter"]: 2 * N_STEPS}
+        check_launches("n1 train rays 2", reps[0]["launches"], want)
+        check(all(reps[0]["launches"][k] == n for k, n in want.items()),
+              f"n1 train rays 2: launches {reps[0]['launches']}, want "
+              f"{want}")
+        # evaluate the torchrun run's checkpoint
+        t = time.perf_counter()
+        kernels.reset_launch_counts()
+        summary = run_cli.main(["--type", "evaluate", "--device", "cuda",
+                                *argv(runs[2], 1)])
+        torch.cuda.synchronize()
+        eval_s = time.perf_counter() - t
+        by_path["eval_formats"] = kernels.launch_counts()
+    finally:
+        zju.imread_rgb = read_frame
+        rays2_thread.join()
+        ex = {}
+        for name, proc in examples.items():
+            try:
+                out = proc.communicate(timeout=J_TIMEOUT)[0]
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                out = proc.communicate()[0] + "\n(timed out)"
+            ex[name] = (proc.returncode, out)
+    loss2, loss1 = reps[0]["loss"], [r["loss"] for r in recs]
+    check(len(loss2) == len(loss1) == N_STEPS
+          and all(np.isfinite(loss2)) and all(
+              abs(a - b) <= 1e-4 * abs(b) for a, b in zip(loss2, loss1)),
+          f"n1: losses {loss2} at mesh_axis_rays 2 under torchrun vs "
+          f"{loss1} at 1")
+    check(np.isfinite(summary["psnr"]) and np.isfinite(summary["ssim"]),
+          f"n1 evaluate: {summary}")
+    check_launches("n1 evaluate", by_path["eval_formats"],
+                   {"min_excess2": 1, f["dparf"]: 1, f["fetch"]: 1})
+    # each train sample reads one frame's views (one format); the
+    # evaluated frame's targets and inputs cover the four
+    check(train_seen and set(train_seen) <= {"bmp", "pxm", "sun", "tiff"}
+          and set(seen) == {"bmp", "pxm", "sun", "tiff"},
+          f"n1: the loader read {train_seen} in training, {seen} in the "
+          "evaluation")
+
+    # n2: the examples on the card
+    for name, (rc, out) in ex.items():
+        check(rc == 0, f"n2 {name}: exited {rc}:\n{out[-3000:]}")
+    img = image_io.read_png(png)
+    check(img.shape == (32, 32, 3), f"n2 render: a PNG of {img.shape}")
+    losses = [float(v) for v in re.findall(r"  loss: (\S+)",
+                                           ex["torch_minimal_train.py"][1])]
+    check(len(losses) == 2 and all(np.isfinite(losses)),
+          f"n2 train: losses {losses}")
+    log(f"[n1 formats] train_or_eval.yaml (float32) on 1024x1024 BMP, PPM, "
+        f"Sun raster and TIFF frames: {N_STEPS} steps under torchrun at "
+        f"mesh_axis_rays 2, losses {', '.join(f'{v:.6f}' for v in loss2)}, "
+        f"step ms {', '.join(f'{v:.1f}' for v in reps[0]['step_ms'])}; at "
+        f"mesh_axis_rays 1 here {', '.join(f'{v:.6f}' for v in loss1)}; "
+        f"launches {by_path['train_formats_rays2']}; files read "
+        f"{train_seen}; --type evaluate, 1 frame of mixed views: psnr "
+        f"{summary['psnr']:.3f}, ssim {summary['ssim']:.4f}, files read "
+        f"{seen}, launches {by_path['eval_formats']}; layout {layout_s:.1f} "
+        f"s, torchrun {tr_s:.1f} s, train here {one_s:.1f} s, evaluate "
+        f"{eval_s:.1f} s  [{card}]")
+    wrote = re.search(r"^wrote .*$", ex["torch_minimal_render.py"][1], re.M)
+    check(wrote is not None, "n2 render: no 'wrote' line")
+    log(f"[n2 examples] torch_minimal_render.py: {wrote.group(0)}; "
+        f"torch_minimal_train.py: losses "
+        f"{', '.join(f'{v:.4f}' for v in losses)} (both beside n1)  "
+        f"[{card}]")
+    return by_path
+
+
 def lap(t0: float, done: str):
     """The script's seconds so far, after the phases named ``done``."""
     log(f"[time] {time.perf_counter() - t0:.1f} s after {done}")
@@ -4835,6 +5080,11 @@ def main() -> int:
         by_path.update(phase_tp_train(card, tmp))
         phase_pp(card, tmp)
         log(f"[l] phase l in {time.perf_counter() - t_l:.1f} s")
+        # BMP, PPM, Sun raster and TIFF frames; mesh_axis_rays under
+        # torchrun; the examples
+        t_n = time.perf_counter()
+        by_path.update(phase_formats(card, tmp))
+        log(f"[n] phase n in {time.perf_counter() - t_n:.1f} s")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     for k in kernels:

@@ -121,7 +121,7 @@ class Scene:
         return RenderPipeline(net.eval(), ClusterSpec(self.cluster.vert2cluster,
                                                       NC),
                               SMPLModel.synthetic(n_verts=NV).v_template,
-                              n_samples=NS, **kw)
+                              n_samples=NS, **kw, device="cpu")
 
     def samples(self, b):
         """(JAX batch (stacked), port samples): train samples 0..b-1, the

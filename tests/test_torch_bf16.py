@@ -326,7 +326,7 @@ def scene():
         return RenderPipeline(
             net.eval(), cluster or ClusterSpec(jcluster.vert2cluster, NC),
             SMPLModel.synthetic(n_verts=NV).v_template if verts is None
-            else verts, n_samples=NS, chunk_rays=8)
+            else verts, n_samples=NS, chunk_rays=8, device="cpu")
 
     return dict(frame=frame, params=params, jp32=jp32, jp16=jp16,
                 jp16_cull=jp16_cull, port_pipe=port_pipe, smpl=jsmpl)

@@ -290,10 +290,12 @@ def test_png_exif_chunks_are_chosen_as_libpng_chooses():
 
 
 def test_other_signatures_name_their_path(tmp_path):
-    p = tmp_path / "frame.bmp"
-    ok, bmp = cv2.imencode(".bmp", np.zeros((4, 4, 3), np.uint8))
-    p.write_bytes(bmp.tobytes())
-    with pytest.raises(FileNotFoundError, match="frame.bmp"):
+    # a GIF stays refused (BMP, PxM, Sun raster and TIFF frames read as
+    # cv2 reads them: tests/test_torch_formats.py)
+    p = tmp_path / "frame.gif"
+    ok, gif = cv2.imencode(".gif", np.zeros((4, 4, 3), np.uint8))
+    p.write_bytes(gif.tobytes())
+    with pytest.raises(FileNotFoundError, match="frame.gif"):
         image_io.imread_rgb(str(p))
     jpg = pil_jpeg(smooth_image(8, 8, seed=1), 90, 0)
     (tmp_path / "frame.png").write_bytes(jpg)  # a JPEG named .png

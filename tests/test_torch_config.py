@@ -255,18 +255,17 @@ def test_tpu_only_keys_warn_and_are_kept(capsys):
     assert "steers" not in capsys.readouterr().err
 
 
-def test_mesh_axes_are_honoured_and_their_refusals_name_the_values(
+def test_mesh_axes_are_honoured_and_the_train_mesh_refusals_name_the_values(
         capsys, monkeypatch):
     """mesh_axis_data sizes the data-parallel mesh, mesh_axis_rays splits
     a frame's rays over devices (parallel/infer.py) and mesh_axis_model
     the tensor-parallel mesh (parallel/tp.py): all three merge without a
     warning.  The train mesh refuses a world that mesh_axis_model does not
     divide and a mesh_axis_data other than 0 or world / mesh_axis_model,
-    and the train entry point mesh_axis_model > 1 with mesh_axis_rays > 1
-    under torchrun, each naming the values."""
+    each naming the values.  (mesh_axis_rays > 1 under torchrun trains and
+    validates: tests/test_torch_train_rays.py.)"""
     import torch.distributed as dist
 
-    from transhuman_tpu_torch.cli import train as train_cli
     from transhuman_tpu_torch.parallel import mesh as pm
 
     for key in ("mesh_axis_data", "mesh_axis_rays", "mesh_axis_model"):
@@ -284,15 +283,6 @@ def test_mesh_axes_are_honoured_and_their_refusals_name_the_values(
     with pytest.raises(ValueError, match=r"mesh_axis_data=2 .* 6 process.*"
                        r"mesh_axis_model=2 has 3 data"):
         pm.make_tp_train_mesh(2, 2)
-    world = pm.DataMesh(0, 4, group="world")
-    cfg = Config().merge_opts(["mesh_axis_model", "2", "mesh_axis_rays", "2"])
-    with pytest.raises(SystemExit, match="mesh_axis_model=2 with "
-                       "mesh_axis_rays=2 under torchrun"):
-        train_cli.refuse_sharded_rays(cfg, world)
-    with pytest.raises(SystemExit, match="mesh_axis_rays=2 under torchrun"):
-        train_cli.refuse_sharded_rays(
-            Config().merge_opts(["mesh_axis_rays", "2"]), world)
-    train_cli.refuse_sharded_rays(cfg, pm.DataMesh())  # one process: fine
 
 
 SMALL = ["dataset", "synthetic", "H", "64", "W", "64", "num_class", "20",

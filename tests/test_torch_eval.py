@@ -196,7 +196,7 @@ def eval_runs(datasets, tmp_path_factory):
     weights.load_reference_state_dict(net, weights.state_dict_from_jax(
         jax.tree_util.tree_map(np.asarray, params["params"]), DEPTH))
     tpipe = RenderPipeline(net.eval(), tdata.cluster, tdata.smpl.v_template,
-                           n_samples=NS, chunk_rays=32)
+                           n_samples=NS, chunk_rays=32, device="cpu")
     out = tmp_path_factory.mktemp("eval")
 
     def collect(store, ev):

@@ -71,7 +71,8 @@ def scene():
 
 
 def _pipe(net, cluster, verts):
-    return RenderPipeline(net, cluster, verts, n_samples=NS, chunk_rays=CR)
+    return RenderPipeline(net, cluster, verts, n_samples=NS, chunk_rays=CR,
+                          device="cpu")
 
 
 def masked_rays(n=N_RAYS):
@@ -226,7 +227,8 @@ def test_healthz_lists_the_ray_devices(scene):
 def test_the_card_route_refuses_too_few_cards(monkeypatch, tmp_path):
     """R cards more than are visible is a SystemExit with the counts, from
     FrameRenderer (under torchrun from cuda:LOCAL_RANK*R on) and from
-    configure_device; the train entry point refuses R > 1 under torchrun."""
+    configure_device; the train entry point's --test under torchrun with
+    R > 1 reaches validation with the key."""
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 3)
     monkeypatch.delenv("LOCAL_RANK", raising=False)
     assert infer.ray_devices("cuda", 3) == [torch.device("cuda", i)
@@ -245,10 +247,14 @@ def test_the_card_route_refuses_too_few_cards(monkeypatch, tmp_path):
     monkeypatch.delenv("LOCAL_RANK")
     monkeypatch.setattr(train_cli, "make_mesh",
                         lambda n: DataMesh(rank=0, size=2, group=object()))
-    with pytest.raises(SystemExit, match="mesh_axis_rays=2 under torchrun"):
-        train_cli.main(["--device", "cpu", "--test", "dataset", "synthetic",
-                        "mesh_axis_rays", "2",
-                        "trained_model_dir", str(tmp_path)])
+    seen = []
+    monkeypatch.setattr(train_cli, "validate",
+                        lambda cfg, device, dataset, weights, mesh:
+                        seen.append((cfg.mesh_axis_rays, mesh.size)))
+    train_cli.main(["--device", "cpu", "--test", "dataset", "synthetic",
+                    "mesh_axis_rays", "2", "trained_model_dir",
+                    str(tmp_path)])
+    assert seen == [(2, 2)]
 
 
 def test_fewer_devices_than_the_key_asks_is_an_error(scene):

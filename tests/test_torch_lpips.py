@@ -318,7 +318,7 @@ def lpips_step(request, lp):
     weights.load_reference_state_dict(net, sd)
     pipe = RenderPipeline(net, ClusterSpec(jcluster.vert2cluster, NC),
                           SMPLModel.synthetic(n_verts=NV).v_template,
-                          n_samples=NS)
+                          n_samples=NS, device="cpu")
     opt, sched = tstep.make_optimizer(net.parameters(), iters_per_epoch=4)
     state = tstep.TrainState(net, opt, sched)
     stats = tstep.make_train_step(pipe, perturb=False, lpips_fn=tnet,

@@ -198,7 +198,7 @@ def pipes(datasets):
     weights.load_reference_state_dict(net, weights.state_dict_from_jax(
         jax.tree_util.tree_map(np.asarray, params["params"]), DEPTH))
     tpipe = RenderPipeline(net.eval(), tdata.cluster, tdata.smpl.v_template,
-                           n_samples=NS, chunk_rays=32)
+                           n_samples=NS, chunk_rays=32, device="cpu")
     return jpipe, params, tpipe
 
 

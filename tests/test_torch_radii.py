@@ -177,7 +177,8 @@ MEASURE = dict(per_vertex=6, seed=0, max_rounds=4)
 def measured():
     """Both tools on 2 posed synthetic bodies with the same weights."""
     jpipe, params, jitems = jtool.synthetic_items(2, 64, seed=0, **SETUP)
-    pipe, items = tool.synthetic_items(2, 64, seed=0, **SETUP)
+    pipe, items = tool.synthetic_items(2, 64, seed=0, device="cpu",
+                                       **SETUP)
     np.testing.assert_array_equal(pipe.pool.numpy(), np.asarray(jpipe.pool))
     weights.load_reference_state_dict(pipe.model, weights.state_dict_from_jax(
         jax.tree_util.tree_map(np.asarray, params["params"]), S.DEPTH))

@@ -78,7 +78,7 @@ def scene():
     cluster = ClusterSpec(jcluster.vert2cluster, NC)
     # the port computes the same reference table from the same clusters
     pipe = RenderPipeline(tnet.eval(), cluster, smpl.v_template,
-                          n_samples=NS, chunk_rays=8)
+                          n_samples=NS, chunk_rays=8, device="cpu")
     np.testing.assert_array_equal(pipe.pe_can.numpy(), table)
     svc = RenderService(Config().merge_opts(OPTS), pipe, smpl)
     return jsvc, svc, frame

@@ -188,7 +188,7 @@ def slice_setup():
         weights.load_reference_state_dict(net, sd)
         return RenderPipeline(net, ClusterSpec(jcluster.vert2cluster, NC),
                               SMPLModel.synthetic(n_verts=NV).v_template,
-                              n_samples=NS)
+                              n_samples=NS, device="cpu")
 
     return jdata, tdata, jpipe, params, port_pipe
 

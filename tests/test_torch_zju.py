@@ -521,7 +521,7 @@ def bridged(zju_root):
         return RenderPipeline(net.eval(), ClusterSpec(jcluster.vert2cluster,
                                                       NCL),
                               SMPLModel.synthetic(n_verts=NV).v_template,
-                              n_samples=NS, chunk_rays=64)
+                              n_samples=NS, chunk_rays=64, device="cpu")
 
     return jpipe, params, port_pipe
 

@@ -172,8 +172,11 @@ def make_eval_lpips_fn(cfg, device):
     return fn
 
 
-def run_evaluate(cfg, pipe, dataset, epoch: int = -1, per_frame=None,
-                 device="cpu", mesh=None):
+def run_evaluate(cfg, pipe, dataset, epoch: int = -1, per_frame=None, *,
+                 device, mesh=None):
+    """Evaluate every frame of this rank (evaluate_frames) with the
+    evaluator's LPIPS on ``device`` (a keyword with no default); print and
+    return the summary."""
     from ..registry import EVALUATORS
     from .common import result_dir
 
@@ -307,8 +310,8 @@ def main(argv=None, dataset=None, per_frame=None):
                  else ""), file=sys.stderr, flush=True)
         t0 = time.perf_counter()
         if args.type == "evaluate":
-            out = run_evaluate(cfg, pipe, dataset, epoch, per_frame, device,
-                               mesh)
+            out = run_evaluate(cfg, pipe, dataset, epoch, per_frame,
+                               device=device, mesh=mesh)
         elif args.type == "visualize":
             out = run_visualize(cfg, pipe, dataset, mesh)
         else:

@@ -47,10 +47,12 @@ must be 0 or N.  Rank 0 alone records, saves (the others wait at a
 barrier) and profiles; every rank resumes from the same file and prints
 one ``rank report`` line at the end (its step ms, losses, the gradient
 all-reduce's ms and MB a step, its kernel launches).  ``--test`` then
-validates with the frames split over the ranks.  In one process
-``--test`` splits each frame's rays over ``mesh_axis_rays`` devices
-(cli/run.py::FrameRenderer); under torchrun a rank owns one card, and
-``mesh_axis_rays`` > 1 is an error.
+validates with the frames split over the ranks.  ``--test`` splits each
+frame's rays over ``mesh_axis_rays`` devices (cli/run.py::FrameRenderer,
+parallel/infer.py), in one process cards 0..R-1 and under torchrun local
+rank l cards l*R..l*R+R-1 (R entries of ``cpu`` on the CPU); training
+never reads the key, as in the JAX package, so a run trains alike at
+every ``mesh_axis_rays``.
 
 With ``mesh_axis_model`` M > 1 under torchrun the run is tensor-parallel
 too, as the JAX CLI over its ('data', 'model') mesh: world rank r is data
@@ -66,9 +68,8 @@ process's, and a run resumes from either kind.  The rank report adds the
 rank's TransHE parameter and moment bytes, the digests of its shards and
 of its replicated parameters, and the model axis's all-reduce count and
 ms a step.  ``--test`` runs on the
-saved (whole) weights with the frames split over every rank.
-``mesh_axis_model`` > 1 with ``mesh_axis_rays`` > 1 under torchrun is an
-error naming both.
+saved (whole) weights with the frames split over every rank, each
+frame's rays over the rank's ``mesh_axis_rays`` devices.
 """
 
 from __future__ import annotations
@@ -287,7 +288,10 @@ def main(argv=None, dataset=None):
     returns validate's (val stats, summary).  dataset replaces
     make_dataset's."""
     args, cfg = parse_args(argv)
-    device = configure_device(args.device, args.dist_backend)
+    # --test renders each frame over mesh_axis_rays cards a rank (local
+    # rank l from card l*R); a train rank owns one card
+    device = configure_device(args.device, args.dist_backend,
+                              rays=cfg.mesh_axis_rays if args.test else 1)
     owns_group = maybe_init_distributed(args, device)
     try:
         if cfg.mesh_axis_model > 1:
@@ -296,32 +300,12 @@ def main(argv=None, dataset=None):
             world = mesh.world
         else:
             mesh = world = make_mesh(cfg.mesh_axis_data)
-        refuse_sharded_rays(cfg, world)
         if args.test:
             return validate(cfg, device, dataset, args.weights, world)
         return train(args, cfg, device, mesh, dataset)
     finally:
         if owns_group:
             shutdown()
-
-
-def refuse_sharded_rays(cfg: Config, world: DataMesh):
-    """Under torchrun mesh_axis_rays > 1 is an error naming the values,
-    with mesh_axis_model > 1 or alone: each train rank owns one card."""
-    if not world.distributed or cfg.mesh_axis_rays <= 1:
-        return
-    if cfg.mesh_axis_model > 1:
-        raise SystemExit(
-            f"mesh_axis_model={cfg.mesh_axis_model} with mesh_axis_rays="
-            f"{cfg.mesh_axis_rays} under torchrun: a tensor-parallel rank "
-            "owns one card, so neither training nor --test can split a "
-            "frame's rays over more; run --test in one process to shard "
-            "the rays")
-    raise SystemExit(
-        f"mesh_axis_rays={cfg.mesh_axis_rays} under torchrun: each "
-        "train rank owns one card for its step, so its validation "
-        "cannot split a frame's rays over more; run --test in one "
-        "process to shard the rays")
 
 
 def train(args, cfg: Config, device, mesh, dataset=None):

@@ -1,13 +1,16 @@
 """Image files of the ZJU-MoCap layout without OpenCV, PIL or imageio: JPEG
-frames through the port's own decoder (``native/imgcodec.cc``) and PNG
+frames through the port's own decoder (``native/imgcodec.cc``), PNG
 frames and masks through the standard library's zlib and the codec's row
-unfilter.
+unfilter, and BMP, PxM, Sun raster and TIFF frames through
+``image_formats.py``.
 
 ``imread_rgb`` returns what the JAX package's ``_imread_rgb`` returns
-(``cv2.imread`` + ``cvtColor`` BGR -> RGB) for a JPEG or a PNG file, told
-apart by signature: for a JPEG, libjpeg-turbo's default decode (sequential
-or progressive, grey, YCbCr, RGB, CMYK or YCCK, block smoothing of a
-truncated progressive file), then the EXIF orientation; for a PNG, three
+(``cv2.imread`` + ``cvtColor`` BGR -> RGB) for a file of any of those
+formats, told apart by signature (``image_formats.py`` says what it reads
+of the other four, and what it refuses by name): for a JPEG,
+libjpeg-turbo's default decode (sequential or progressive, grey, YCbCr,
+RGB, CMYK or YCCK, block smoothing of a truncated progressive file), then
+the EXIF orientation; for a PNG, three
 8-bit channels (grey replicated, a palette applied, alpha dropped, 1-, 2-
 and 4-bit grey scaled to 8 bits, 16-bit samples cut to their high byte),
 then the orientation of an ``eXIf`` chunk.
@@ -29,6 +32,7 @@ import zlib
 import numpy as np
 
 from ..native import build as codec
+from . import image_formats
 
 PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
 JPEG_SIGNATURE = b"\xff\xd8"
@@ -64,15 +68,27 @@ def decode_jpeg(data: bytes, what: str = "JPEG") -> np.ndarray:
 
 
 def imread_rgb(path: str) -> np.ndarray:
-    """(H, W, 3) RGB uint8 of a JPEG or PNG file, as ``cv2.imread`` +
-    BGR -> RGB reads it; FileNotFoundError with the path for a missing
-    file or one of neither signature."""
+    """(H, W, 3) RGB uint8 of a JPEG, PNG, BMP, PxM, Sun raster or TIFF
+    file, as ``cv2.imread`` + BGR -> RGB reads it; FileNotFoundError with
+    the path for a missing file, one of none of those signatures, or a
+    format or coding refused by name."""
     data = _read(path)
     if data[:2] == JPEG_SIGNATURE:
         return decode_jpeg(data, path)
     if data[:8] == PNG_SIGNATURE:
         return decode_png_rgb(data, path)
-    raise FileNotFoundError(f"unreadable image: {path} (not a JPEG or PNG)")
+    kind = image_formats.sniff(data)
+    if kind is not None:
+        try:
+            return image_formats.decode(kind, data, path)
+        except image_formats.Refused as e:
+            raise FileNotFoundError(
+                f"unreadable image: {path} ({e} is not read)") from None
+    name = image_formats.refused_name(data)
+    raise FileNotFoundError(
+        f"unreadable image: {path} ("
+        + (f"{name} is not read" if name else
+           "not a JPEG, PNG, BMP, PxM, Sun raster or TIFF file") + ")")
 
 
 def _png_parse(data: bytes, what: str):

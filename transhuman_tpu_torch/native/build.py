@@ -6,7 +6,8 @@ x86-64 host) plus the flags ``LIBRARIES`` names beside its source, into
 ``transhuman_tpu_torch/_build/lib<name>.so`` on first use, never at import:
 
 * ``imgcodec`` (``imgcodec.cc``): the JPEG decoder (sequential and
-  progressive) and encoder, the EXIF orientation, the PNG row unfilter;
+  progressive) and encoder, the EXIF orientation, the PNG row unfilter,
+  BMP RLE4/RLE8 and TIFF PackBits and LZW;
 * ``marching`` (``marching_tet.cc``): marching tetrahedra
   (``mesh_ops/marching.py``);
 * ``crc32c`` (``crc32c.cc``): the event files' CRC32C
@@ -88,6 +89,11 @@ _SIGNATURES = {
         # rgb, height, width, quality, &out, &n, err, errlen
         "thc_jpeg_encode": ((_P, _I, _I, _I, ctypes.POINTER(_P),
                              ctypes.POINTER(_L), *_ERR), _I),
+        # in, n, bits, height, width, out, err, errlen
+        "thc_bmp_rle": ((_P, _L, _I, _I, _I, _P, *_ERR), _I),
+        # in, n, out, nout, err, errlen
+        "thc_packbits": ((_P, _L, _P, _L, *_ERR), _I),
+        "thc_tiff_lzw": ((_P, _L, _P, _L, *_ERR), _I),
         "thc_free": ((_P,), None),
     },
     "marching": {

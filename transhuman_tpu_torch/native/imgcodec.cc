@@ -1,5 +1,7 @@
 // Host image codec of the PyTorch port: a Huffman JPEG decoder, a baseline
-// JPEG encoder and the PNG row unfilter, behind a plain C ABI (ctypes).
+// JPEG encoder, the PNG row unfilter and the byte-serial decoders of the
+// other frame formats (BMP RLE4/RLE8, TIFF PackBits and LZW), behind a
+// plain C ABI (ctypes).
 //
 // The JPEG decoder covers sequential (SOF0/SOF1) and progressive (SOF2)
 // Huffman coding: 8-bit samples, 1, 3 or 4 components, any sampling
@@ -1585,6 +1587,191 @@ std::vector<uint8_t> encode_jpeg(const uint8_t* rgb, int H, int W, int quality) 
   return o;
 }
 
+// ------------------------------------------------------- BMP RLE4 / RLE8
+// OpenCV's BMP decoder (grfmt_bmp.cpp) on a run-length coded bitmap, as
+// palette indices: a pixel that an end-of-line, a delta or the
+// end-of-bitmap skips takes index 0 (OpenCV fills it with palette entry 0),
+// and the skip runs on in raster order across rows.  An encoded run of
+// RLE8 that ends on a row's last pixel moves to the next row, so an
+// end-of-line right after it is ignored; an absolute run (and any run of
+// RLE4) stays at the row's end until a code moves on.  Rows are in file
+// order (the caller flips a bottom-up bitmap).
+struct RleBmp {
+  const uint8_t* in;
+  size_t n, pos = 0;
+  int height, width, x = 0, y = 0;
+  uint8_t* out;
+
+  int byte() {
+    if (pos >= n) fail(kErrFormat, "BMP run-length data ends early");
+    return in[pos++];
+  }
+  // FillUniColor: count pixels of index v in raster order
+  void fill(long count, uint8_t v) {
+    do {
+      long end = std::min<long>(x + count, width);
+      count -= end - x;
+      if (end > x) memset(out + (size_t)y * width + x, v, (size_t)(end - x));
+      x = (int)end;
+      if (x >= width) {
+        x = 0;
+        if (++y >= height) break;
+      }
+    } while (count > 0);
+  }
+  void past_row_end() {
+    fail(kErrFormat, "BMP run-length run past the end of a row");
+  }
+  void skip(int code) {  // 0 end-of-line, 1 end-of-bitmap, 2 delta
+    long xs = width - x, ys = height - y;
+    if (code == 2) {
+      xs = byte();
+      ys = byte();
+    }
+    fill(xs + (code == 0 ? 0 : ys * width), 0);
+  }
+
+  void rle8() {
+    bool wrapped = false;  // the last run moved to a new row
+    while (y < height) {
+      int len = byte(), code = byte();
+      if (len) {
+        if (x + len > width) past_row_end();
+        int y0 = y;
+        fill(len, (uint8_t)code);
+        wrapped = y != y0;
+      } else if (code > 2) {
+        if (x + code > width) past_row_end();
+        size_t sz = (size_t)(code + 1) & ~(size_t)1;
+        if (pos + sz > n) fail(kErrFormat, "BMP run-length data ends early");
+        memcpy(out + (size_t)y * width + x, in + pos, (size_t)code);
+        pos += sz;
+        x += code;
+        wrapped = false;
+      } else {
+        if (code || !wrapped || x > 0) skip(code);
+        wrapped = false;
+      }
+    }
+  }
+
+  void rle4() {
+    while (y < height) {
+      int len = byte(), code = byte();
+      if (len) {
+        if (x + len > width) past_row_end();
+        uint8_t c[2] = {(uint8_t)(code >> 4), (uint8_t)(code & 15)};
+        uint8_t* row = out + (size_t)y * width;
+        for (int i = 0; i < len; i++) row[x + i] = c[i & 1];
+        x += len;
+      } else if (code > 2) {
+        if (x + code > width) past_row_end();
+        size_t sz = (size_t)((((code + 1) >> 1) + 1) & ~1);
+        if (pos + sz > n) fail(kErrFormat, "BMP run-length data ends early");
+        uint8_t* row = out + (size_t)y * width;
+        for (int i = 0; i < code; i++) {
+          int b = in[pos + i / 2];
+          row[x + i] = (uint8_t)((i & 1) ? b & 15 : b >> 4);
+        }
+        pos += sz;
+        x += code;
+      } else {
+        skip(code);
+      }
+    }
+  }
+};
+
+// ------------------------------------------------- TIFF PackBits and LZW
+// libtiff's PackBitsDecode over one strip or tile: a run longer than the
+// room left is cut, and data that ends before `nout` bytes is an error.
+void packbits(const uint8_t* in, size_t n, uint8_t* out, size_t nout) {
+  size_t pos = 0, o = 0;
+  while (pos < n && o < nout) {
+    int c = (int8_t)in[pos++];
+    if (c == -128) continue;
+    if (c < 0) {
+      size_t run = std::min<size_t>((size_t)(1 - c), nout - o);
+      if (pos >= n) break;
+      memset(out + o, in[pos++], run);
+      o += run;
+    } else {
+      size_t run = std::min<size_t>((size_t)c + 1, nout - o);
+      if (pos + run > n) break;
+      memcpy(out + o, in + pos, run);
+      pos += (size_t)c + 1;
+      o += run;
+    }
+  }
+  if (o < nout) fail(kErrFormat, "TIFF PackBits data ends before its strip");
+}
+
+// libtiff's LZWDecode (the current, MSB-first coding): codes of 9 to 12
+// bits, the width growing one code early, 256 clears the table and 257
+// ends; output past `nout` bytes is dropped, data that ends short of it is
+// an error.
+void tiff_lzw(const uint8_t* in, size_t n, uint8_t* out, size_t nout) {
+  if (n >= 2 && in[0] == 0 && (in[1] & 1))
+    fail(kErrUnsupported,
+         "old-style (LSB-first) TIFF LZW is not supported");
+  std::vector<uint16_t> prefix(4096);
+  std::vector<uint8_t> suffix(4096), first(4096);
+  std::vector<uint16_t> length(4096);
+  std::vector<uint8_t> stack(4096);
+  for (int i = 0; i < 256; i++) {
+    suffix[i] = first[i] = (uint8_t)i;
+    length[i] = 1;
+  }
+  size_t pos = 0, o = 0;
+  uint32_t bits = 0;
+  int nbits_held = 0, nbits = 9, free_ent = 258, old = -1;
+  auto next = [&]() -> int {
+    while (nbits_held < nbits) {
+      if (pos >= n) return 257;  // not terminated: libtiff ends here too
+      bits = (bits << 8) | in[pos++];
+      nbits_held += 8;
+    }
+    nbits_held -= nbits;
+    return (int)((bits >> nbits_held) & ((1u << nbits) - 1));
+  };
+  auto emit = [&](int code) {
+    int len = length[code];
+    int k = len;
+    for (int c = code; k > 0; c = prefix[c]) stack[--k] = suffix[c];
+    size_t m = std::min<size_t>((size_t)len, nout - o);
+    memcpy(out + o, stack.data(), m);
+    o += m;
+  };
+  while (o < nout) {
+    int code = next();
+    if (code == 257) break;
+    if (code == 256) {
+      nbits = 9;
+      free_ent = 258;
+      code = next();
+      if (code == 257) break;
+      if (code > 255) fail(kErrFormat, "corrupt TIFF LZW data");
+      emit(code);
+      old = code;
+      continue;
+    }
+    if (old < 0 || code > free_ent || free_ent >= 4096)
+      fail(kErrFormat, "corrupt TIFF LZW data");
+    // the new entry: old's string + the first byte of code's (or of old's
+    // own for the code being defined now)
+    int fb = code < free_ent ? first[code] : first[old];
+    prefix[free_ent] = (uint16_t)old;
+    suffix[free_ent] = (uint8_t)fb;
+    first[free_ent] = first[old];
+    length[free_ent] = (uint16_t)(length[old] + 1);
+    free_ent++;
+    emit(code);
+    old = code;
+    if (free_ent >= (1 << nbits) - 1 && nbits < 12) nbits++;
+  }
+  if (o < nout) fail(kErrFormat, "TIFF LZW data ends before its strip");
+}
+
 int report(const Error& e, char* err, int errlen) {
   if (err && errlen > 0) snprintf(err, (size_t)errlen, "%s", e.msg.c_str());
   return e.code;
@@ -1722,6 +1909,48 @@ int thc_jpeg_encode(const uint8_t* rgb, int height, int width, int quality,
     return report(e, err, errlen);
   } catch (const std::exception& e) {
     return report(Error{kErrFormat, e.what()}, err, errlen);
+  }
+}
+
+// Palette indices of a run-length coded BMP (bits 8: RLE8, 4: RLE4) into
+// out, (height, width) in file row order, as OpenCV decodes it.
+int thc_bmp_rle(const uint8_t* in, int64_t n, int bits, int height,
+                int width, uint8_t* out, char* err, int errlen) {
+  try {
+    RleBmp r{in, (size_t)n};
+    r.height = height;
+    r.width = width;
+    r.out = out;
+    memset(out, 0, (size_t)height * width);
+    if (bits == 8)
+      r.rle8();
+    else
+      r.rle4();
+    return 0;
+  } catch (const Error& e) {
+    return report(e, err, errlen);
+  }
+}
+
+// One TIFF strip or tile of nout bytes, PackBits-coded.
+int thc_packbits(const uint8_t* in, int64_t n, uint8_t* out, int64_t nout,
+                 char* err, int errlen) {
+  try {
+    packbits(in, (size_t)n, out, (size_t)nout);
+    return 0;
+  } catch (const Error& e) {
+    return report(e, err, errlen);
+  }
+}
+
+// One TIFF strip or tile of nout bytes, LZW-coded.
+int thc_tiff_lzw(const uint8_t* in, int64_t n, uint8_t* out, int64_t nout,
+                 char* err, int errlen) {
+  try {
+    tiff_lzw(in, (size_t)n, out, (size_t)nout);
+    return 0;
+  } catch (const Error& e) {
+    return report(e, err, errlen);
   }
 }
 

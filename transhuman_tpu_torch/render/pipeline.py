@@ -150,12 +150,13 @@ def validate_radii(vertex_radii, n_verts: int):
 
 class RenderPipeline:
     """The render of one frame, closing over the model and the static
-    cluster/PE tables, which live on ``device``."""
+    cluster/PE tables, which live on ``device`` (a keyword with no
+    default: the caller names the card or the CPU)."""
 
     def __init__(self, model, cluster: ClusterSpec, canonical_verts,
                  n_samples: int = 64, chunk_rays: int = 512,
                  cull_distance: float = 0.1, white_bkgd: bool = False,
-                 raw_noise_std: float = 0.0, device="cpu", pe_table=None,
+                 raw_noise_std: float = 0.0, *, device, pe_table=None,
                  vertex_radii=None, remat: bool = False,
                  train_cull: bool = False):
         self.model = model

@@ -77,8 +77,9 @@ def synthetic_setup(n_views: int = 3, image_hw: tuple = (512, 512),
                     n_samples: int = 64, chunk_rays: int = 512,
                     embed_dim: int = 192, vit_depth: int = 12,
                     vit_heads: int = 3, knn_k: int = 7, seed: int = 0,
-                    device="cpu", compute_dtype=torch.float32):
-    """(model, pipe, frame, smpl, cluster): model on ``device`` in
+                    *, device, compute_dtype=torch.float32):
+    """(model, pipe, frame, smpl, cluster): model on ``device`` (a keyword
+    with no default) in
     ``compute_dtype`` with random weights from
     ``torch.Generator().manual_seed(seed)``, frame on the CPU (numpy inputs
     from ``np.random.default_rng(seed)``)."""

@@ -172,7 +172,7 @@ def report_deltas(pipe, radii, items):
     return rows
 
 
-def synthetic_items(n_frames, n_rays, seed=0, device="cpu", weights=None,
+def synthetic_items(n_frames, n_rays, seed=0, *, device, weights=None,
                     **setup_kw):
     """(pipe, items): the synthetic scene's pipeline (testing.
     synthetic_setup with setup_kw; random weights, or the checkpoint
@@ -197,7 +197,7 @@ def synthetic_items(n_frames, n_rays, seed=0, device="cpu", weights=None,
     return pipe, items
 
 
-def dataset_items(cfg, n_frames, device="cpu", weights=None):
+def dataset_items(cfg, n_frames, *, device, weights=None):
     """(pipe, items): the config's pipeline with its checkpoint (weights,
     else test.epoch's) and the first n_frames frames of its test set, each
     with its eval rays."""
@@ -255,10 +255,11 @@ def main(argv=None):
         from ..config import Config, check_supported
 
         cfg = check_supported(Config.from_yaml(args.cfg_file, args.opts))
-        pipe, items = dataset_items(cfg, args.frames, device, args.weights)
+        pipe, items = dataset_items(cfg, args.frames, device=device,
+                                    weights=args.weights)
     else:
         pipe, items = synthetic_items(args.frames, args.n_rays, args.seed,
-                                      device, args.weights)
+                                      device=device, weights=args.weights)
     radii, report = measure(
         pipe, items, per_vertex=args.per_vertex, alpha_eps=args.alpha_eps,
         margin=args.margin, min_radius=args.min_radius, spacing=args.spacing,
