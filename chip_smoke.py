@@ -97,10 +97,13 @@ e. the port's image readers, the codec built with g++, on each committed
    torch_zju_codings (progressive, truncated progressive, CMYK, YCCK and
    EXIF-6 JPEGs, a 16-bit RGBA PNG frame, an Adam7 mask) and
    torch_zju_formats (RLE8 and 5-6-5 BMPs, ASCII and 16-bit PPMs, a PFM, a
-   Sun raster, LZW, Deflate and big-endian tiled planar TIFFs): its bytes
-   against the sha256 of cv2's or imageio's decode in the folder's
-   digests.json; each decode timed, and that of 1024x1024 BMP, PPM, Sun
-   raster and TIFF frames formed here;
+   Sun raster, LZW, Deflate and big-endian tiled planar TIFFs, interlaced
+   and transparent GIFs, run-length and flat Radiance HDRs, lossless,
+   lossy, lossy-with-alpha and animated WebPs, a 1024x1024 q90 lossy
+   WebP): its bytes against the sha256 of cv2's or imageio's decode in the
+   folder's digests.json; each decode timed, and that of 1024x1024 BMP,
+   PPM, Sun raster, TIFF, GIF, Radiance HDR and lossless WebP frames formed
+   here;
 f. the train entry point from configs/train_or_eval.yaml with dataset zju
    (CoreView_377, the catalog's 10 frames) in bf16 and float32, and with
    dataset synthetic in bf16, counters reset and read around each: every
@@ -187,13 +190,14 @@ l2. the pipelined TransHE base (3 x 300 x 768, depth 12, a stored table)
 Then the frame formats beside JPEG and PNG, mesh_axis_rays under torchrun
 and the examples:
 
-n1. CoreView_377 laid out with 1024x1024 BMP, PPM, Sun raster and TIFF
-   frames: the train entry point (train_or_eval.yaml, float32) for 2 steps
-   under torchrun (1 rank) at mesh_axis_rays 2, its losses those of the
-   same run here at mesh_axis_rays 1 (phase 6's bound), K2, K4 and K3
-   launched; then --type evaluate on its checkpoint over a frame whose
-   views cycle through the four formats: finite metrics, K1, K2 and K4
-   launched, each format read;
+n1. CoreView_377 laid out with 1024x1024 BMP, PPM, Sun raster, TIFF, GIF,
+   Radiance HDR and lossless and lossy WebP frames: the train entry point
+   (train_or_eval.yaml, float32) for 2 steps under torchrun (1 rank) at
+   mesh_axis_rays 2, its losses those of the same run here at
+   mesh_axis_rays 1 (phase 6's bound), K2, K4 and K3 launched; then --type
+   evaluate on its checkpoint over a frame whose input and target views
+   take the eight codings: finite metrics, K1, K2 and K4 launched, each
+   format read;
 n2. examples/torch_minimal_render.py and torch_minimal_train.py on the
    card: exit 0, a 32x32 PNG, finite losses.
 
@@ -2597,15 +2601,16 @@ def phase_codec(card: str) -> dict:
     loader reads it (a frame by imread_rgb, a mask by read_png), its bytes
     held against the sha256 of cv2's or imageio's decode recorded in the
     folder's digests.json; each decode timed on the host, median of 20, and
-    so the decode of 1024x1024 BMP, PPM, Sun raster and TIFF frames formed
-    here (format_frames); the event files' CRC32C, native against the
+    so the decode of 1024x1024 BMP, PPM, Sun raster, TIFF, GIF, Radiance
+    HDR and lossless WebP frames formed here and of the committed q90 lossy
+    WebP (format_frames); the event files' CRC32C, native against the
     Python table."""
     import hashlib
 
     from transhuman_tpu_torch.data import image_io
 
     out, by = {}, set()
-    for folder, n in ((FIXTURES, 5), (CODINGS, 8), (FORMATS, 10)):
+    for folder, n in ((FIXTURES, 5), (CODINGS, 8), (FORMATS, 19)):
         with open(os.path.join(folder, "digests.json")) as f:
             digests = json.load(f)
         check(len(digests) == n,
@@ -2659,10 +2664,12 @@ def phase_codec(card: str) -> dict:
         f"of 20): " + ", ".join(f"{k} {v:.2f}" for k, v in out.items())
         + f"; progressive 1024x1024 q95 4:2:0 against the sequential one "
         f"{out['cv2_prog_q95_420.jpg'] / out['cv2_q95_420.jpg']:.2f}x; "
-        f"1024x1024 24-bit BMP, P6, 24-bit Sun raster, Deflate TIFF "
-        f"against the sequential JPEG "
+        f"1024x1024 24-bit BMP, P6, 24-bit Sun raster, Deflate TIFF, GIF, "
+        f"RLE HDR, lossless WebP, q90 lossy WebP against the sequential "
+        f"JPEG "
         + ", ".join(f"{out[f'1024_{k}'] / out['cv2_q95_420.jpg']:.2f}x"
-                    for k in ("bmp", "ppm", "sun", "tiff"))
+                    for k in ("bmp", "ppm", "sun", "tiff", "gif", "hdr",
+                              "webp_lossless", "webp_lossy"))
         + f"  [{card}]")
     return out
 
@@ -4782,9 +4789,14 @@ N_STEPS = 2  # float32 steps of each phase n1 train run
 
 def format_frames(src_dir: str) -> dict:
     """The committed 1024x1024 q95 4:2:0 fixture JPEG's decode written here
-    as a 24-bit BMP, a binary PPM, a 24-bit Sun raster and a Deflate TIFF
-    with the horizontal predictor in 8-row strips (tests/_torch_formats.py's
-    writers): kind -> path, each checked to read back as the decode."""
+    as a 24-bit BMP, a binary PPM, a 24-bit Sun raster, a Deflate TIFF with
+    the horizontal predictor in 8-row strips, an interlaced GIF on the
+    6x6x6 colour cube, a run-length Radiance HDR and a lossless WebP
+    (subtract-green and predictor transforms) (tests/_torch_formats.py's
+    writers), beside the committed q90 lossy WebP of the same decode (no
+    writer here codes VP8): kind -> path, each checked to read back as the
+    decode (the GIF as its palette's colours, the HDR within 2, the lossy
+    WebP within 9, its bytes held to cv2's in phase e)."""
     import importlib.util
 
     from transhuman_tpu_torch.data import image_io
@@ -4797,32 +4809,47 @@ def format_frames(src_dir: str) -> dict:
 
     rgb = image_io.imread_rgb(os.path.join(FIXTURES, "cv2_q95_420.jpg"))
     os.makedirs(src_dir, exist_ok=True)
+    idx, pal = tf._quantize(rgb)
     files = {"bmp": ("frame.bmp", tf.bmp(rgb, 24)),
              "ppm": ("frame.ppm", tf.pnm_binary(rgb, "P6")),
              "sun": ("frame.ras", tf.sun_raster(rgb, 24)),
              "tiff": ("frame.tif", tf.tiff(rgb, compression=8, predictor=2,
-                                           rows_per_strip=8))}
+                                           rows_per_strip=8)),
+             "gif": ("frame.gif", tf.gif([{"idx": idx, "interlace": True}],
+                                         palette=pal)),
+             "hdr": ("frame.hdr", tf.hdr(rgb / 255.0)),
+             "webp_lossless": ("frame.webp", tf.vp8l(rgb))}
     out = {}
     for kind, (name, data) in files.items():
         out[kind] = os.path.join(src_dir, name)
         with open(out[kind], "wb") as fh:
             fh.write(data)
-        check(np.array_equal(image_io.imread_rgb(out[kind]), rgb),
-              f"formats: the {kind} frame does not read back as its source")
+    out["webp_lossy"] = os.path.join(FORMATS, "cv2_q90_1024.webp")
+    # what each reads back as, and within what
+    want = {"gif": (pal.astype(np.uint8)[idx], 0), "hdr": (rgb, 2),
+            "webp_lossy": (rgb, 9)}
+    for kind, path in out.items():
+        ref, tol = want.get(kind, (rgb, 0))
+        got = image_io.imread_rgb(path)
+        err = int(np.abs(got.astype(np.int32) - ref).max())
+        check(got.shape == rgb.shape and err <= tol,
+              f"formats: the {kind} frame reads back {err} from its source "
+              f"(bound {tol})")
     return out
 
 
 def phase_formats(card: str, tmp: str) -> dict:
     """n. Frames of the formats cv2.imread reads beside JPEG and PNG, and
     mesh_axis_rays under torchrun, through the entry points:
-    n1. CoreView_377 laid out at 1024x1024 with BMP, PPM, Sun raster and
-    TIFF frames (format_frames; one format a frame), the train entry point
+    n1. CoreView_377 laid out at 1024x1024 with BMP, PPM, Sun raster, TIFF,
+    GIF, Radiance HDR and lossless and lossy WebP frames (format_frames;
+    one format a frame), the train entry point
     (train_or_eval.yaml, float32) for 2 steps under torchrun (1 rank) with
     mesh_axis_rays 2, against the same in this process at mesh_axis_rays 1
     (phase 6's loss bound: card steps are not bit-reproducible), K2 / K4 /
     K3 launched 1 / 2 / 2 a step; then --type evaluate on its checkpoint
-    over one frame of CoreView_387 whose views cycle through the four
-    formats under one name (cv2 decodes by content): finite PSNR and SSIM,
+    over one frame of CoreView_387 whose input and target views take the
+    eight codings under one name (cv2 decodes by content): finite PSNR and SSIM,
     K1, K2 and K4 launched, every format read by the loader;
     n2. examples/torch_minimal_render.py and torch_minimal_train.py (2
     steps) on the card: exit 0, a PNG of the stated size, finite losses.
@@ -4833,20 +4860,26 @@ def phase_formats(card: str, tmp: str) -> dict:
     from transhuman_tpu_torch import kernels
     from transhuman_tpu_torch.cli import run as run_cli
     from transhuman_tpu_torch.cli import train as train_cli
+    from transhuman_tpu_torch.config import Config
     from transhuman_tpu_torch.data import image_formats, image_io, zju
 
     t0 = time.perf_counter()
     src = format_frames(os.path.join(tmp, "formats_src"))
     root = os.path.join(tmp, "zju_formats")
-    write_zju_layout(root, "CoreView_377", range(0, 300, 30), 300, seed=4,
-                     sources=[[src[k]] for k in ("bmp", "ppm", "sun",
-                                                 "tiff")])
-    write_zju_layout(root, "CoreView_387", range(ZJU_EVAL_FRAMES),
-                     ZJU_EVAL_FRAMES, seed=5,
-                     sources=[[src[k] for k in ("tiff", "bmp", "ppm",
-                                                "sun")]])
-    layout_s = time.perf_counter() - t0
+    kinds = ("bmp", "ppm", "sun", "tiff", "gif", "hdr", "webp_lossless",
+             "webp_lossy")
     cfg_file = os.path.join(CONFIGS, "train_or_eval.yaml")
+    # the evaluated frame (frame 0) reads its input and target cameras:
+    # each coding on one of them, the others' views cycling
+    test = Config.from_yaml(cfg_file).test
+    views = [src[kinds[c % len(kinds)]] for c in range(ZJU_CAMS)]
+    for i, c in enumerate([*test.input_view, *test.target_view]):
+        views[c] = src[kinds[i % len(kinds)]]
+    write_zju_layout(root, "CoreView_377", range(0, 300, 30), 300, seed=4,
+                     sources=[[src[k]] for k in kinds])
+    write_zju_layout(root, "CoreView_387", range(ZJU_EVAL_FRAMES),
+                     ZJU_EVAL_FRAMES, seed=5, sources=[views])
+    layout_s = time.perf_counter() - t0
 
     def argv(run, rays):
         return ["--cfg_file", cfg_file, "dataset",
@@ -4890,7 +4923,7 @@ def phase_formats(card: str, tmp: str) -> dict:
     def frame(path):
         out = read_frame(path)
         with open(path, "rb") as fh:
-            kind = image_formats.sniff(fh.read(8)) or "other"
+            kind = image_formats.sniff(fh.read(16)) or "other"
         with lock:
             seen[kind] = seen.get(kind, 0) + 1
         return out
@@ -4947,9 +4980,10 @@ def phase_formats(card: str, tmp: str) -> dict:
     check_launches("n1 evaluate", by_path["eval_formats"],
                    {"min_excess2": 1, f["dparf"]: 1, f["fetch"]: 1})
     # each train sample reads one frame's views (one format); the
-    # evaluated frame's targets and inputs cover the four
-    check(train_seen and set(train_seen) <= {"bmp", "pxm", "sun", "tiff"}
-          and set(seen) == {"bmp", "pxm", "sun", "tiff"},
+    # evaluated frame's targets and inputs cover the seven
+    formats = {"bmp", "pxm", "sun", "tiff", "gif", "hdr", "webp"}
+    check(train_seen and set(train_seen) <= formats
+          and set(seen) == formats,
           f"n1: the loader read {train_seen} in training, {seen} in the "
           "evaluation")
 
@@ -4963,7 +4997,8 @@ def phase_formats(card: str, tmp: str) -> dict:
     check(len(losses) == 2 and all(np.isfinite(losses)),
           f"n2 train: losses {losses}")
     log(f"[n1 formats] train_or_eval.yaml (float32) on 1024x1024 BMP, PPM, "
-        f"Sun raster and TIFF frames: {N_STEPS} steps under torchrun at "
+        f"Sun raster, TIFF, GIF, Radiance HDR and lossless and lossy WebP "
+        f"frames: {N_STEPS} steps under torchrun at "
         f"mesh_axis_rays 2, losses {', '.join(f'{v:.6f}' for v in loss2)}, "
         f"step ms {', '.join(f'{v:.1f}' for v in reps[0]['step_ms'])}; at "
         f"mesh_axis_rays 1 here {', '.join(f'{v:.6f}' for v in loss1)}; "
@@ -5080,11 +5115,12 @@ def main() -> int:
         by_path.update(phase_tp_train(card, tmp))
         phase_pp(card, tmp)
         log(f"[l] phase l in {time.perf_counter() - t_l:.1f} s")
-        # BMP, PPM, Sun raster and TIFF frames; mesh_axis_rays under
-        # torchrun; the examples
+        # BMP, PPM, Sun raster, TIFF, GIF, Radiance HDR and WebP frames;
+        # mesh_axis_rays under torchrun; the examples
         t_n = time.perf_counter()
         by_path.update(phase_formats(card, tmp))
         log(f"[n] phase n in {time.perf_counter() - t_n:.1f} s")
+        lap(t0, "every phase (the script's time)")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     for k in kernels:

@@ -3,9 +3,14 @@ and PNG, for tests/test_torch_formats.py and chip_smoke.py's fixtures:
 BMP (every depth, palettes, bit fields, RLE4 and RLE8 with delta and
 end-of-line codes, top-down rows, the v3, v4 and v5 headers), PxM (ASCII
 P1-P3, binary P4-P6, PAM, PFM), Sun raster (standard, RLE and RGB types,
-colour maps) and TIFF (strips and tiles, both planar configurations, both
+colour maps), TIFF (strips and tiles, both planar configurations, both
 byte orders, no compression, PackBits, LZW and Deflate, the horizontal
-predictor, grey, RGB and palette data, extra alpha samples).
+predictor, grey, RGB and palette data, extra alpha samples), GIF (87a and
+89a, global and local tables, interlace, transparency, frames on a larger
+screen, animation), Radiance HDR (run-length and flat scanlines) and WebP
+(the RIFF, VP8X, ANIM and ANMF chunks; a lossless writer with the
+subtract-green and predictor transforms; lossy key frames of a chosen
+header and random modes and tokens).
 
 Each writer follows its format's specification; what the port must equal
 is ``cv2.imread`` of the file, never the writer's input."""
@@ -450,12 +455,12 @@ def _quantize(img: np.ndarray):
 
 
 # a frame's extension and its cameras' codings (the views of a frame share
-# the target's file name; cv2.imread decodes by content)
+# the target's file name; cv2.imread decodes by content); "webp_lossy" is
+# the caller's to make (no writer here codes VP8)
 FRAME_FORMATS = (
-    (".bmp", ("bmp24", "bmp_rle8", "bmp565", "bmp32")),
-    (".tif", ("tiff_lzw", "tiff_deflate_tiles", "tiff_packbits_planar",
-              "tiff16")),
-    (".ppm", ("p6", "p3", "sun24", "sun8")),
+    (".bmp", ("bmp24", "bmp_rle8", "bmp565", "gif")),
+    (".tif", ("tiff_lzw", "tiff_deflate_tiles", "webp_lossless", "tiff16")),
+    (".ppm", ("p6", "hdr", "sun24", "webp_lossy")),
 )
 
 
@@ -492,4 +497,513 @@ def encode_frame(img: np.ndarray, kind: str) -> bytes:
     if kind == "sun8":
         idx, pal = _quantize(img)
         return sun_raster(idx, 8, cmap=pal)
+    if kind == "gif":
+        idx, pal = _quantize(img)
+        return gif([{"idx": idx, "interlace": True}], palette=pal)
+    if kind == "hdr":
+        return hdr(img / 255.0)
+    if kind == "webp_lossless":
+        return vp8l(img)
     raise ValueError(kind)
+
+
+# ------------------------------------------------------------------- GIF
+def _gif_lzw(idx: bytes, min_size: int) -> bytes:
+    """LSB-first GIF LZW of idx: the code width grows as the table reaches
+    each power of two, a clear code when the table is full."""
+    clear, end = 1 << min_size, (1 << min_size) + 1
+    out, acc, nacc = bytearray(), 0, 0
+    width = min_size + 1
+
+    def put(code):
+        nonlocal acc, nacc
+        acc |= code << nacc
+        nacc += width
+        while nacc >= 8:
+            out.append(acc & 255)
+            acc >>= 8
+            nacc -= 8
+
+    table = {bytes([i]): i for i in range(clear)}
+    nxt = end + 1
+    put(clear)
+    cur = b""
+    for b in idx:
+        s = cur + bytes([b])
+        if s in table:
+            cur = s
+            continue
+        put(table[cur])
+        if nxt < 4096:
+            table[s] = nxt
+            nxt += 1
+            if nxt > (1 << width) and width < 12:
+                width += 1
+        else:
+            put(clear)
+            table = {bytes([i]): i for i in range(clear)}
+            nxt = end + 1
+            width = min_size + 1
+        cur = bytes([b])
+    if cur:
+        put(table[cur])
+    put(end)
+    if nacc:
+        out.append(acc & 255)
+    return bytes(out)
+
+
+def _gif_table(pal: np.ndarray) -> tuple:
+    """(size field, the table's bytes padded to a power of two)."""
+    n = max(2, 1 << int(np.ceil(np.log2(max(len(pal), 2)))))
+    t = np.zeros((n, 3), np.uint8)
+    t[:len(pal)] = pal
+    return int(np.log2(n)) - 1, t.tobytes()
+
+
+def gif(frames, screen=None, palette=None, version=b"89a", bg=0,
+        min_code_size=None, loop=False) -> bytes:
+    """A GIF of frames, each a dict: ``idx`` (h, w) palette indices and
+    optionally ``pos`` (left, top), ``palette`` (a local table),
+    ``interlace``, ``transparent`` (an index, through a Graphic Control
+    Extension) and ``disposal``; ``screen`` (width, height) defaults to the
+    first frame's size, ``palette`` is the global table."""
+    h0, w0 = frames[0]["idx"].shape
+    sw, sh = screen or (w0, h0)
+    out = bytearray(b"GIF" + version + struct.pack("<HH", sw, sh))
+    if palette is not None:
+        size, table = _gif_table(np.asarray(palette, np.uint8))
+        out += bytes([0x80 | 0x70 | size, bg, 0]) + table
+    else:
+        out += bytes([0x70, bg, 0])
+    if loop:
+        out += b"\x21\xff\x0bNETSCAPE2.0\x03\x01\0\0\0"
+    for f in frames:
+        idx = np.asarray(f["idx"], np.uint8)
+        h, w = idx.shape
+        if "transparent" in f or "disposal" in f:
+            t = f.get("transparent")
+            packed = (f.get("disposal", 0) << 2) | (t is not None)
+            out += bytes([0x21, 0xF9, 4, packed, 0, 0, t or 0, 0])
+        left, top = f.get("pos", (0, 0))
+        packed, table = 0, b""
+        if f.get("palette") is not None:
+            size, table = _gif_table(np.asarray(f["palette"], np.uint8))
+            packed = 0x80 | size
+        rows = idx
+        if f.get("interlace"):
+            packed |= 0x40
+            order = [*range(0, h, 8), *range(4, h, 8), *range(2, h, 4),
+                     *range(1, h, 2)]
+            rows = idx[order]
+        out += b"\x2c" + struct.pack("<HHHHB", left, top, w, h, packed)
+        out += table
+        mcs = min_code_size or max(2, int(idx.max()).bit_length())
+        data = _gif_lzw(rows.tobytes(), mcs)
+        out.append(mcs)
+        for i in range(0, len(data), 255):
+            blk = data[i:i + 255]
+            out += bytes([len(blk)]) + blk
+        out.append(0)
+    return bytes(out + b"\x3b")
+
+
+# ------------------------------------------------------------------ WebP
+def riff_webp(chunks) -> bytes:
+    """A RIFF WEBP file of (fourcc, payload) chunks."""
+    body = b"".join(tag + struct.pack("<I", len(d)) + d + b"\0" * (len(d) & 1)
+                    for tag, d in chunks)
+    return b"RIFF" + struct.pack("<I", 4 + len(body)) + b"WEBP" + body
+
+
+def webp_chunks(data: bytes):
+    """The (fourcc, payload) chunks of a RIFF WEBP file."""
+    out, pos = [], 12
+    while pos + 8 <= len(data):
+        n = struct.unpack_from("<I", data, pos + 4)[0]
+        out.append((data[pos:pos + 4], data[pos + 8:pos + 8 + n]))
+        pos += 8 + n + (n & 1)
+    return out
+
+
+def vp8x(width, height, chunks, alpha=False, animation=False) -> bytes:
+    """A VP8X file of chunks on a width x height canvas."""
+    flags = (0x10 if alpha else 0) | (0x02 if animation else 0)
+    head = bytes([flags, 0, 0, 0]) + (width - 1).to_bytes(3, "little") + (
+        height - 1).to_bytes(3, "little")
+    return riff_webp([(b"VP8X", head), *chunks])
+
+
+def anmf(x, y, width, height, chunks, duration=100, blend=0) -> tuple:
+    """An ANMF chunk: a frame at (x, y) (even), its image chunks."""
+    head = b"".join(v.to_bytes(3, "little") for v in
+                    (x // 2, y // 2, width - 1, height - 1, duration))
+    body = b"".join(tag + struct.pack("<I", len(d)) + d + b"\0" * (len(d) & 1)
+                    for tag, d in chunks)
+    return (b"ANMF", head + bytes([blend]) + body)
+
+
+class _BoolEncoder:
+    """RFC 6386 section 7.3's boolean encoder."""
+
+    def __init__(self):
+        self.out, self.range, self.bottom, self.bit_count = bytearray(), 255, 0, 24
+
+    def _carry(self):
+        i = len(self.out) - 1
+        while self.out[i] == 255:
+            self.out[i] = 0
+            i -= 1
+        self.out[i] += 1
+
+    def put(self, bit, prob=128):
+        split = 1 + (((self.range - 1) * prob) >> 8)
+        if bit:
+            self.bottom += split
+            self.range -= split
+        else:
+            self.range = split
+        while self.range < 128:
+            self.range <<= 1
+            if self.bottom & (1 << 31):
+                self._carry()
+            self.bottom = (self.bottom << 1) & 0xFFFFFFFF
+            self.bit_count -= 1
+            if not self.bit_count:
+                self.out.append(self.bottom >> 24)
+                self.bottom &= (1 << 24) - 1
+                self.bit_count = 8
+
+    def value(self, v, bits):
+        for i in range(bits - 1, -1, -1):
+            self.put((v >> i) & 1)
+
+    def signed(self, v, bits):
+        self.value(abs(v), bits)
+        self.put(v < 0)
+
+    def optional_signed(self, v, bits):
+        self.put(v != 0)
+        if v:
+            self.signed(v, bits)
+
+    def flush(self) -> bytes:
+        c, v = self.bit_count, self.bottom
+        if v & (1 << (32 - c)):
+            self._carry()
+        v = (v << (c & 7)) & 0xFFFFFFFF
+        for _ in range(c >> 3):
+            v = (v << 8) & 0xFFFFFFFF
+        for _ in range(4):
+            self.out.append(v >> 24)
+            v = (v << 8) & 0xFFFFFFFF
+        return bytes(self.out)
+
+
+def vp8_random(width, height, seed, partitions=0, simple=False, level=20,
+               sharpness=0, segments=None, lf_deltas=None, quant=40,
+               quant_deltas=(0, 0, 0, 0, 0), data_per_mb=96) -> bytes:
+    """A lossy WebP key frame whose header is as given and whose modes and
+    tokens are random bits: the frame header up to the entropy refresh
+    flag is written field by field, the rest of the first partition
+    (coefficient probability updates, the skip probability, every
+    macroblock's segment, skip flag and modes) and every token partition
+    are random bytes, which a boolean decoder reads as samples of its own
+    probabilities.  ``segments``: (update_map, absolute, quantizers,
+    filter levels) or None; ``lf_deltas``: (ref deltas, mode deltas) or
+    None; ``partitions``: log2 of the token partitions."""
+    rng = np.random.default_rng(seed)
+    mbs = ((width + 15) >> 4) * ((height + 15) >> 4)
+    e = _BoolEncoder()
+    e.put(0)  # colour space
+    e.put(0)  # clamping type
+    e.put(segments is not None)
+    if segments is not None:
+        update_map, absolute, quants, levels = segments
+        e.put(update_map)
+        e.put(1)  # update the segment data
+        e.put(absolute)
+        for q in quants:
+            e.optional_signed(q, 7)
+        for f in levels:
+            e.optional_signed(f, 6)
+        if update_map:
+            for p in rng.integers(1, 256, 3):
+                e.put(1)
+                e.value(int(p), 8)
+    e.put(simple)
+    e.value(level, 6)
+    e.value(sharpness, 3)
+    e.put(lf_deltas is not None)
+    if lf_deltas is not None:
+        e.put(1)
+        for d in (*lf_deltas[0], *lf_deltas[1]):
+            e.optional_signed(d, 6)
+    e.value(partitions, 2)
+    e.value(quant, 7)
+    for d in quant_deltas:
+        e.optional_signed(d, 4)
+    e.put(0)  # refresh entropy probabilities
+    first = e.flush() + rng.integers(0, 256, 200 + 24 * mbs,
+                                     dtype=np.uint8).tobytes()
+    n = 1 << partitions
+    parts = [rng.integers(0, 256, data_per_mb * mbs // n + 64,
+                          dtype=np.uint8).tobytes() for _ in range(n)]
+    tag = len(first) << 5 | 1 << 4  # key frame, version 0, shown
+    frame = (struct.pack("<I", tag)[:3] + b"\x9d\x01\x2a"
+             + struct.pack("<HH", width, height) + first
+             + b"".join(struct.pack("<I", len(p))[:3] for p in parts[:-1])
+             + b"".join(parts))
+    return riff_webp([(b"VP8 ", frame)])
+
+
+# ---------------------------------------------------------- Radiance HDR
+def _rgbe(f: np.ndarray) -> np.ndarray:
+    """(h, w, 4) RGBE bytes of (h, w, 3) non-negative floats (Greg Ward's
+    float2rgbe)."""
+    m = f.max(-1)
+    mant, e = np.frexp(m)
+    scale = np.where(m > 1e-32, mant * 256.0 / np.where(m > 0, m, 1), 0)
+    out = np.zeros(f.shape[:2] + (4,), np.uint8)
+    out[..., :3] = (f * scale[..., None]).astype(np.uint8)
+    out[..., 3] = np.where(m > 1e-32, e + 128, 0)
+    return out
+
+
+def hdr(f: np.ndarray, rle: bool = True, header: bytes = None,
+        flat_from: int = None) -> bytes:
+    """A Radiance HDR file of (h, w, 3) floats (RGB): new-style run-length
+    scanlines (each channel as runs of 4 or more equal bytes and literal
+    stretches), or flat RGBE pixels; ``flat_from`` writes the scanlines
+    from that row flat (a reader switches to flat pixels there);
+    ``header`` replaces the lines before the size line."""
+    h, w = f.shape[:2]
+    px = _rgbe(np.asarray(f, np.float64))
+    out = bytearray(header if header is not None else
+                    b"#?RADIANCE\nFORMAT=32-bit_rle_rgbe\n\n")
+    out += b"-Y %d +X %d\n" % (h, w)
+    for y in range(h):
+        if not rle or (flat_from is not None and y >= flat_from):
+            out += px[y:].tobytes() if rle else px.tobytes()
+            break
+        out += bytes([2, 2, w >> 8, w & 255])
+        for c in range(4):
+            out += _hdr_runs(px[y, :, c])
+    return bytes(out)
+
+
+def _hdr_runs(v: np.ndarray) -> bytes:
+    """One channel of a scanline as HDR runs (128 + n, value) of 4 to 127
+    equal bytes and literal stretches (n, bytes) of up to 128."""
+    starts = np.flatnonzero(np.r_[True, v[1:] != v[:-1]])
+    lens = np.diff(np.r_[starts, len(v)])
+    out, lit = bytearray(), []
+
+    def flush():
+        for i in range(0, len(lit), 128):
+            out.append(len(lit[i:i + 128]))
+            out.extend(lit[i:i + 128])
+        lit.clear()
+
+    for s, n in zip(starts.tolist(), lens.tolist()):
+        if n >= 4:
+            flush()
+            while n > 0:
+                k = min(n, 127)
+                if k < 4:
+                    lit.extend([int(v[s])] * k)
+                else:
+                    out += bytes([128 + k, int(v[s])])
+                n -= k
+        else:
+            lit.extend(v[s:s + n].tolist())
+    flush()
+    return bytes(out)
+
+
+# ---------------------------------------------------------- WebP lossless
+def _huffman_lengths(counts, limit: int) -> np.ndarray:
+    """Code lengths (at most ``limit``) of a prefix code for counts; a
+    single used symbol gets length 1 (written as a simple code)."""
+    import heapq
+
+    counts = np.asarray(counts, np.int64)
+    used = np.flatnonzero(counts)
+    lengths = np.zeros(len(counts), np.int64)
+    if len(used) <= 1:
+        lengths[used] = 1
+        return lengths
+    c = counts.copy()
+    while True:
+        heap = [(int(c[s]), i, [int(s)]) for i, s in enumerate(used)]
+        heapq.heapify(heap)
+        depth = {int(s): 0 for s in used}
+        k = len(heap)
+        while len(heap) > 1:
+            a, b = heapq.heappop(heap), heapq.heappop(heap)
+            for s in a[2] + b[2]:
+                depth[s] += 1
+            heapq.heappush(heap, (a[0] + b[0], k, a[2] + b[2]))
+            k += 1
+        if max(depth.values()) <= limit:
+            break
+        c[used] = np.maximum(c[used] >> 1, 1)
+    for s, d in depth.items():
+        lengths[s] = d
+    return lengths
+
+
+def _canonical(lengths: np.ndarray) -> np.ndarray:
+    """The bit-reversed canonical codes of lengths (VP8L reads a code's
+    first bit lowest)."""
+    codes = np.zeros(len(lengths), np.int64)
+    code = 0
+    for n in range(1, 16):
+        for s in np.flatnonzero(lengths == n):
+            codes[s] = int(format(code, f"0{n}b")[::-1], 2)
+            code += 1
+        code <<= 1
+    return codes
+
+
+class _Bits:
+    """An LSB-first bit writer of (value, width) pieces, packed by numpy."""
+
+    def __init__(self):
+        self.values, self.widths = [], []
+
+    def put(self, value, width):
+        self.values.append(np.atleast_1d(np.asarray(value, np.int64)))
+        self.widths.append(np.broadcast_to(np.asarray(width, np.int64),
+                                           self.values[-1].shape))
+
+    def bytes(self) -> bytes:
+        v = np.concatenate(self.values)
+        w = np.concatenate(self.widths)
+        keep = w > 0
+        v, w = v[keep], w[keep]
+        j = np.arange(int(w.sum())) - np.repeat(np.cumsum(w) - w, w)
+        bits = (np.repeat(v, w) >> j) & 1
+        return np.packbits(bits.astype(np.uint8), bitorder="little").tobytes()
+
+
+def _vp8l_code(bits: _Bits, counts) -> tuple:
+    """Write a prefix code for counts (simple for one or two symbols below
+    256, normal otherwise); (lengths, codes) to write symbols with."""
+    counts = np.asarray(counts)
+    used = np.flatnonzero(counts)
+    if len(used) == 0:
+        used = np.array([0])
+    if len(used) <= 2 and used.max() < 256:
+        bits.put(1, 1)
+        bits.put(len(used) - 1, 1)
+        wide = used[0] > 1
+        bits.put(int(wide), 1)
+        bits.put(int(used[0]), 8 if wide else 1)
+        if len(used) == 2:
+            bits.put(int(used[1]), 8)
+        lengths = np.zeros(len(counts), np.int64)
+        lengths[used] = 1 if len(used) == 2 else 0
+        return lengths, _canonical(lengths)
+    lengths = _huffman_lengths(counts, 15)
+    order = (17, 18, 0, 1, 2, 3, 4, 5, 16, 6, 7, 8, 9, 10, 11, 12, 13, 14,
+             15)
+    cl = _huffman_lengths(np.bincount(lengths, minlength=19), 7)
+    if (cl > 0).sum() == 1:  # one length for every symbol: a 1-bit code
+        cl[(int(np.flatnonzero(cl)[0]) + 1) % 16] = 1
+    bits.put(0, 1)
+    bits.put(19 - 4, 4)
+    for s in order:
+        bits.put(int(cl[s]), 3)
+    bits.put(0, 1)  # every symbol's length is written
+    cl_codes = _canonical(cl)
+    bits.put(cl_codes[lengths], cl[lengths])
+    return lengths, _canonical(lengths)
+
+
+def _vp8l_image(bits: _Bits, argb: np.ndarray, main: bool = False):
+    """An entropy-coded image of (n,) ARGB uint32: no colour cache, no
+    meta codes (``main``: the flag the main image has), every pixel a
+    literal."""
+    a, r, g, b = ((argb >> s) & 255 for s in (24, 16, 8, 0))
+    bits.put(0, 1)  # no colour cache
+    if main:
+        bits.put(0, 1)  # no meta prefix codes
+    tables = [_vp8l_code(bits, np.bincount(g, minlength=280)),
+              _vp8l_code(bits, np.bincount(r, minlength=256)),
+              _vp8l_code(bits, np.bincount(b, minlength=256)),
+              _vp8l_code(bits, np.bincount(a, minlength=256)),
+              _vp8l_code(bits, np.zeros(40, np.int64))]
+    syms = np.stack([g, r, b, a], -1).astype(np.int64)
+    lens = np.stack([tables[i][0][syms[:, i]] for i in range(4)], -1)
+    codes = np.stack([tables[i][1][syms[:, i]] for i in range(4)], -1)
+    bits.put(codes.ravel(), lens.ravel())
+
+
+def _vp8l_predict(px: np.ndarray, modes: np.ndarray, tile_bits: int):
+    """The predictor transform's residuals of (h, w, 4) ARGB bytes, each
+    tile by its mode (0-13)."""
+    h, w = px.shape[:2]
+    p = px.astype(np.int64)
+    pad = np.zeros((h + 1, w + 2, 4), np.int64)
+    pad[1:, 1:-1] = p
+    pad[1:, -1] = np.r_[p[1:, 0], np.zeros((1, 4), np.int64)]  # TR at x=w-1
+    L, T = pad[1:, :-2], pad[:-1, 1:-1]
+    TR, TL = pad[:-1, 2:], pad[:-1, :-2]
+
+    def avg(a, b):
+        return (a + b) >> 1
+
+    def select():
+        d = (np.abs(L - TL) - np.abs(T - TL)).sum(-1, keepdims=True)
+        return np.where(d <= 0, T, L)
+
+    half = avg(L, T)
+    preds = [np.broadcast_to([255, 0, 0, 0], p.shape), L, T, TR, TL,
+             avg(avg(L, TR), T), avg(L, TL), avg(L, T), avg(TL, T),
+             avg(T, TR), avg(avg(L, TL), avg(T, TR)), select(),
+             np.clip(L + T - TL, 0, 255),
+             np.clip(half + np.trunc((half - TL) / 2).astype(np.int64), 0,
+                     255)]
+    m = np.repeat(np.repeat(modes, 1 << tile_bits, 0), 1 << tile_bits,
+                  1)[:h, :w]
+    pred = np.choose(m[..., None], preds)
+    pred[0, :] = np.r_[[[255, 0, 0, 0]], p[0, :-1]]  # black, then L
+    pred[1:, 0] = p[:-1, 0]  # T
+    return ((p - pred) & 255).astype(np.uint8)
+
+
+def vp8l(rgb: np.ndarray, tile_bits: int = 4) -> bytes:
+    """A lossless WebP of (h, w, 3) RGB: the subtract-green transform, the
+    predictor transform with its tiles cycling through the 14 modes, then
+    literal pixels under prefix codes built from their counts."""
+    h, w = rgb.shape[:2]
+    px = np.empty((h, w, 4), np.uint8)  # A, R, G, B
+    px[..., 0] = 255
+    px[..., 1:] = rgb
+    px[..., 1] -= px[..., 2]  # subtract green
+    px[..., 3] -= px[..., 2]
+    tw, th = -(-w >> tile_bits), -(-h >> tile_bits)
+    modes = (np.arange(th)[:, None] + 3 * np.arange(tw)[None, :]) % 14
+    res = _vp8l_predict(px, modes, tile_bits)
+
+    def argb(a):
+        a = a.astype(np.uint32)
+        return (a[..., 0] << 24 | a[..., 1] << 16 | a[..., 2] << 8
+                | a[..., 3]).ravel()
+
+    bits = _Bits()
+    bits.put(0x2F, 8)
+    bits.put(w - 1, 14)
+    bits.put(h - 1, 14)
+    bits.put(0, 1)  # alpha is not used
+    bits.put(0, 3)  # version
+    bits.put(1, 1)
+    bits.put(2, 2)  # subtract green
+    bits.put(1, 1)
+    bits.put(0, 2)  # predictor
+    bits.put(tile_bits - 2, 3)
+    _vp8l_image(bits, (modes.astype(np.uint32) << 8).ravel())
+    bits.put(0, 1)  # no more transforms
+    _vp8l_image(bits, argb(res), main=True)
+    return riff_webp([(b"VP8L", bits.bytes())])

@@ -290,12 +290,13 @@ def test_png_exif_chunks_are_chosen_as_libpng_chooses():
 
 
 def test_other_signatures_name_their_path(tmp_path):
-    # a GIF stays refused (BMP, PxM, Sun raster and TIFF frames read as
-    # cv2 reads them: tests/test_torch_formats.py)
-    p = tmp_path / "frame.gif"
-    ok, gif = cv2.imencode(".gif", np.zeros((4, 4, 3), np.uint8))
-    p.write_bytes(gif.tobytes())
-    with pytest.raises(FileNotFoundError, match="frame.gif"):
+    # a JPEG 2000 stays refused (BMP, PxM, Sun raster, TIFF, GIF, Radiance
+    # HDR and WebP frames read as cv2 reads them:
+    # tests/test_torch_formats.py)
+    p = tmp_path / "frame.jp2"
+    ok, jp2 = cv2.imencode(".jp2", np.zeros((64, 64, 3), np.uint8))
+    p.write_bytes(jp2.tobytes())
+    with pytest.raises(FileNotFoundError, match="frame.jp2"):
         image_io.imread_rgb(str(p))
     jpg = pil_jpeg(smooth_image(8, 8, seed=1), 90, 0)
     (tmp_path / "frame.png").write_bytes(jpg)  # a JPEG named .png

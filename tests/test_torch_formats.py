@@ -1,30 +1,37 @@
 """The port's readers of the frame formats ``cv2.imread`` reads beside JPEG
 and PNG (data/image_formats.py through data/image_io.py::imread_rgb): each
-variant of BMP, PxM (PBM, PGM, PPM, PAM, PFM), Sun raster and TIFF bit for
-bit against ``cv2.imread`` of the same file + BGR -> RGB; what either side
-refuses; and a ZJU-MoCap layout whose frames mix BMP, PPM, Sun raster and
-TIFF, read by the port's loader and the JAX package's at the loader bounds
-of PERF.md section 2.
+variant of BMP, PxM (PBM, PGM, PPM, PAM, PFM), Sun raster, TIFF, GIF,
+Radiance HDR and WebP bit for bit against ``cv2.imread`` of the same file
++ BGR -> RGB; what either side refuses; and a ZJU-MoCap layout whose
+frames mix BMP, PPM, Sun raster, TIFF, GIF, HDR and WebP, read by the
+port's loader and the JAX package's at the loader bounds of PERF.md
+section 2.
 
-The files come from cv2.imwrite where it writes the variant and otherwise
-from tests/_torch_formats.py; every expected array is cv2's reading of the
-file, never a writer's input.  The committed fixtures in
+The files come from cv2.imwrite or Pillow where they write the variant and
+otherwise from tests/_torch_formats.py; every expected array is cv2's
+reading of the file, never a writer's input.  The committed fixtures in
 tests/fixtures/torch_zju_formats/ are made by ``make_fixtures`` below
-(``python -m tests.test_torch_formats`` from the repository root remakes
-them); ``digests.json`` holds the sha256 of cv2's decode of each, which
+(``python tests/test_torch_formats.py`` or ``python -m
+tests.test_torch_formats`` from the repository root remakes them);
+``digests.json`` holds the sha256 of cv2's decode of each, which
 chip_smoke.py phase e holds the card machine's decode against.
 """
 
 import hashlib
 import json
 import os
+import sys
 
 import cv2
 import numpy as np
 import pytest
 
-from tests import _torch_formats as F
-from transhuman_tpu_torch.data import image_formats, image_io
+if __name__ == "__main__":  # run as a script: import from the repo root
+    sys.path.insert(0, os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
+
+from tests import _torch_formats as F  # noqa: E402
+from transhuman_tpu_torch.data import image_formats, image_io  # noqa: E402
 
 FIXTURES = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                         "fixtures", "torch_zju_formats")
@@ -286,7 +293,210 @@ def _tiff_cases():
     return c
 
 
-CASES = {**_bmp_cases(), **_pxm_cases(), **_sun_cases(), **_tiff_cases()}
+def _gif_cases():
+    pal = _pal(16, 100)
+    idx = _idx(11, 13, 16, 101)
+    big = _idx(61, 67, 256, 102, runs=False)
+    frame = _idx(7, 9, 16, 103)
+    return {
+        "gif_cv2": lambda: _cv2_write(".gif", _rgb(19, 23, 104)[..., ::-1]),
+        "gif87a": lambda: F.gif([{"idx": idx}], palette=pal, version=b"87a"),
+        "gif89a_interlaced": lambda: F.gif(
+            [{"idx": _idx(23, 9, 16, 105), "interlace": True}], palette=pal),
+        "gif_local_table": lambda: F.gif(
+            [{"idx": idx, "palette": _pal(16, 106)}], palette=pal),
+        "gif_local_table_only_offset": lambda: F.gif(
+            [{"idx": frame, "palette": pal, "pos": (3, 2)}], screen=(15, 13)),
+        "gif_offset_background": lambda: F.gif(
+            [{"idx": frame, "pos": (5, 4)}], screen=(17, 12), palette=pal,
+            bg=6),
+        "gif_transparent": lambda: F.gif(
+            [{"idx": frame, "pos": (2, 3), "transparent": 4}],
+            screen=(14, 12), palette=pal, bg=9),
+        "gif_transparent_background_index": lambda: F.gif(
+            [{"idx": frame, "pos": (2, 3), "transparent": 5, "disposal": 2}],
+            screen=(14, 12), palette=pal, bg=5),
+        "gif_animated_first_frame": lambda: F.gif(
+            [{"idx": idx}, {"idx": idx[::-1], "palette": _pal(16, 107)}],
+            palette=pal, loop=True),
+        "gif_odd_size_1x1": lambda: F.gif([{"idx": np.zeros((1, 1),
+                                                              np.uint8)}],
+                                          palette=pal[:2]),
+        "gif_8bit_table_full": lambda: F.gif([{"idx": big}],
+                                             palette=_pal(256, 108)),
+        "gif_code_size_8_two_colours": lambda: F.gif(
+            [{"idx": idx % 2}], palette=pal[:2], min_code_size=8),
+    }
+
+
+def _float_rgb(h, w, seed, scale=1.0):
+    return _rng(seed).random((h, w, 3)) * scale
+
+
+def _hdr_cases():
+    bgr = _rgb(13, 21, 110)[..., ::-1]
+    bright = _float_rgb(9, 19, 111, 3.0)
+    bright[0, :3] = 0
+    runs = np.repeat(_float_rgb(6, 5, 112), 7, axis=1)
+    head = (b"#?RGBE\n# a comment\nGAMMA=2.2\nEXPOSURE=1.5\n"
+            b"FORMAT=32-bit_rle_rgbe\n\n")
+    return {
+        "hdr_cv2_rle": lambda: _cv2_write(".hdr", bgr),
+        "hdr_cv2_flat": lambda: _cv2_write(
+            ".hdr", bgr, (cv2.IMWRITE_HDR_COMPRESSION,
+                          cv2.IMWRITE_HDR_COMPRESSION_NONE)),
+        "hdr_cv2_narrow_flat": lambda: _cv2_write(".hdr", bgr[:, :5]),
+        "hdr_runs_bright_saturated": lambda: F.hdr(bright),
+        "hdr_runs": lambda: F.hdr(runs),
+        "hdr_rgbe_header_lines": lambda: F.hdr(runs, header=head),
+        "hdr_flat_from_row_3": lambda: F.hdr(runs, flat_from=3),
+        "hdr_flat": lambda: F.hdr(bright, rle=False),
+        "hdr_past_int32_reads_0": lambda: F.hdr(_float_rgb(5, 11, 113,
+                                                          2e7)),
+    }
+
+
+def _pil_webp(img, **kw) -> bytes:
+    import io
+
+    from PIL import Image
+
+    frames = kw.pop("frames", None)
+    buf = io.BytesIO()
+    if frames is None:
+        Image.fromarray(img).save(buf, "WEBP", **kw)
+    else:
+        Image.fromarray(img).save(
+            buf, "WEBP", save_all=True,
+            append_images=[Image.fromarray(f) for f in frames], **kw)
+    return buf.getvalue()
+
+
+def _smooth(h, w, seed):
+    """A smooth image with noise (what a lossy coder is for)."""
+    y, x = np.mgrid[:h, :w]
+    img = np.stack([128 + 100 * np.sin(x / 7 + seed) * np.cos(y / 9),
+                    128 + 90 * np.sin((x + y) / 11),
+                    128 + 80 * np.cos(x / 5 - y / 13)], -1)
+    img = img + _rng(seed).normal(0, 6, img.shape)
+    return np.clip(img, 0, 255).astype(np.uint8)
+
+
+def _rgba(h, w, seed):
+    a = _rng(seed).integers(0, 256, (h, w, 1), dtype=np.uint8)
+    a[_rng(seed + 1).random((h, w)) < 0.3] = 0
+    return np.concatenate([_smooth(h, w, seed), a], -1)
+
+
+def _webp_image_chunk(data):
+    return [c for c in F.webp_chunks(data) if c[0] in (b"VP8 ", b"VP8L")]
+
+
+def _webp_exif(orientation):
+    """An EXIF chunk's TIFF block holding only an orientation."""
+    import struct
+
+    return (b"II*\0" + struct.pack("<IHHHIHH", 8, 1, 0x112, 3, 1,
+                                    orientation, 0) + b"\0" * 4)
+
+
+def _vp8_short_tokens():
+    """A lossy key frame whose token partition ends 50 bytes in, too soon
+    for its macroblocks, followed by another chunk: libwebp's last
+    partition runs to the end of the file, so cv2 reads the frame."""
+    frame = F.webp_chunks(F.vp8_random(64, 64, 136, data_per_mb=40))[0][1]
+    first = 10 + (int.from_bytes(frame[:3], "little") >> 5)
+    return F.riff_webp([(b"VP8 ", frame[:first + 50]),
+                        (b"JUNK", bytes(range(200)))])
+
+
+def _webp_cases():
+    img = _smooth(37, 45, 120)
+    big = _smooth(70, 90, 121)
+    pal4 = _pal(4, 122)[_rng(123).integers(0, 4, (21, 26))]
+    pal40 = _pal(40, 124)[_rng(125).integers(0, 40, (25, 31))]
+    two = np.where(_rng(126).random((13, 21, 1)) < 0.5, 10, 200).repeat(3, -1)
+    rgba = _rgba(20, 24, 127)
+    small = _smooth(8, 10, 128)
+    ll, ly = (_webp_image_chunk(_pil_webp(small, **kw)) for kw in
+              ({"lossless": True}, {"quality": 60}))
+    alpha_plane = rgba[..., 3]
+    lossy_alpha = lambda: F.webp_chunks(_pil_webp(rgba, quality=80))
+
+    def raw_alpha(f):
+        chunks = lossy_alpha()
+        vp8 = [c for c in chunks if c[0] == b"VP8 "][0]
+        return F.vp8x(24, 20, [(b"ALPH", bytes([f << 2])
+                                + alpha_plane.tobytes()), vp8], alpha=True)
+
+    c = {
+        # lossless (VP8L)
+        "webp_cv2_lossless": lambda: _cv2_write(".webp", img[..., ::-1]),
+        "webp_lossless_predictor_cross_colour": lambda: _pil_webp(
+            big, lossless=True),
+        "webp_lossless_subtract_green": lambda: _pil_webp(
+            big, lossless=True, method=0),
+        "webp_lossless_meta_codes": lambda: _pil_webp(
+            big, lossless=True, quality=100, method=6),
+        "webp_lossless_colour_cache": lambda: _pil_webp(
+            (img // 64 * 64).astype(np.uint8), lossless=True),
+        "webp_lossless_palette_2": lambda: _pil_webp(two.astype(np.uint8),
+                                                     lossless=True),
+        "webp_lossless_palette_4": lambda: _pil_webp(pal4, lossless=True),
+        "webp_lossless_palette_40": lambda: _pil_webp(pal40,
+                                                      lossless=True),
+        "webp_lossless_every_predictor": lambda: F.vp8l(_smooth(40, 77, 129),
+                                                        tile_bits=2),
+        "webp_lossless_1x1": lambda: _pil_webp(img[:1, :1], lossless=True),
+        "webp_lossless_alpha": lambda: _pil_webp(rgba, lossless=True,
+                                                 exact=True),
+        # lossy (VP8)
+        "webp_cv2_lossy_q90": lambda: _cv2_write(
+            ".webp", img[..., ::-1], (cv2.IMWRITE_WEBP_QUALITY, 90)),
+        "webp_lossy_q30": lambda: _pil_webp(big, quality=30),
+        "webp_lossy_odd_size": lambda: _pil_webp(_smooth(17, 33, 130),
+                                                 quality=75),
+        "webp_vp8_8_partitions_normal_filter": lambda: F.vp8_random(
+            45, 70, 131, partitions=3, level=30, sharpness=3),
+        "webp_vp8_simple_filter": lambda: F.vp8_random(
+            64, 48, 132, partitions=1, simple=True, level=40, sharpness=6),
+        "webp_vp8_segments_deltas": lambda: F.vp8_random(
+            50, 50, 133, segments=(True, False, (-5, 3, 10, -20),
+                                   (3, -2, 10, -30)),
+            lf_deltas=((2, -1, 3, 0), (5, -4, 1, 2)),
+            quant_deltas=(1, -2, 3, -4, 5)),
+        "webp_vp8_segments_absolute": lambda: F.vp8_random(
+            50, 50, 134, segments=(True, True, (5, 30, 80, 127),
+                                   (0, 20, 63, 10)), level=10),
+        "webp_vp8_no_filter": lambda: F.vp8_random(33, 17, 135, level=0),
+        "webp_vp8_tokens_read_past_their_chunk": _vp8_short_tokens,
+        # the VP8X container
+        "webp_lossy_alpha": lambda: _pil_webp(rgba, quality=80),
+        "webp_lossy_alpha_quality_50": lambda: _pil_webp(
+            rgba, quality=80, alpha_quality=50),
+        "webp_animated_lossless": lambda: _pil_webp(
+            img, frames=[img[::-1].copy()], lossless=True),
+        "webp_animated_lossy_alpha": lambda: _pil_webp(
+            rgba, frames=[rgba[::-1].copy()], quality=70),
+        "webp_animated_frame_offset": lambda: F.vp8x(24, 20, [
+            (b"ANIM", b"\x11\x22\x33\xff\0\0"), F.anmf(4, 6, 10, 8, ll),
+            F.anmf(0, 0, 10, 8, ly)], animation=True),
+        "webp_exif_orientation_6": lambda: F.vp8x(45, 37, [
+            *_webp_image_chunk(_cv2_write(".webp", img[..., ::-1])),
+            (b"EXIF", _webp_exif(6))]),
+        "webp_exif_without_the_flag": lambda: F.riff_webp([
+            (b"VP8X", bytes(4) + (44).to_bytes(3, "little")
+             + (36).to_bytes(3, "little")),
+            *_webp_image_chunk(_cv2_write(".webp", img[..., ::-1])),
+            (b"EXIF", _webp_exif(6))]),
+    }
+    c.update({f"webp_raw_alpha_filter_{f}": (lambda f=f: raw_alpha(f))
+              for f in range(4)})
+    return c
+
+
+CASES = {**_bmp_cases(), **_pxm_cases(), **_sun_cases(), **_tiff_cases(),
+         **_gif_cases(), **_hdr_cases(), **_webp_cases()}
 
 
 def cv2_imread(path) -> np.ndarray:
@@ -358,16 +568,38 @@ def _refusal_cases():
         "pam_grey_alpha": (lambda: F.pam(_rng(87).integers(0, 256, (4, 5, 2)),
                                          255, "GRAYSCALE_ALPHA"),
                            "PAM with 2 channels", False),
-        "gif": (lambda: _cv2_write(".gif", bgr), "GIF is not read", False),
-        "radiance_hdr": (lambda: _cv2_write(".hdr", bgr),
-                         "Radiance HDR is not read", False),
-        "webp": (lambda: _cv2_write(".webp", bgr), "WebP is not read",
-                 False),
+        "hdr_plus_y_layout": (lambda: _hdr_layout(b"+Y 20 +X 24"),
+                              "Radiance HDR layout other than -Y H \\+X W",
+                              True),
+        "hdr_minus_x_layout": (lambda: _hdr_layout(b"-Y 20 -X 24"),
+                               "Radiance HDR layout other than -Y H \\+X W",
+                               True),
+        "hdr_xyze": (lambda: F.hdr(_float_rgb(4, 9, 90), header=(
+            b"#?RADIANCE\nFORMAT=32-bit_rle_xyze\n\n")),
+            "Radiance HDR in XYZE", True),
+        "gif_frame_outside_screen": (lambda: F.gif(
+            [{"idx": idx, "pos": (5, 1)}], screen=(10, 8), palette=_pal(4, 91)),
+            "GIF frame outside its logical screen", True),
+        "webp_lossless_version_1": (lambda: _vp8l_version(1),
+                                    "WebP lossless version 1", True),
         "avif": (lambda: _cv2_write(".avif", bgr), "AVIF is not read",
                  False),
         "jpeg2000": (lambda: _cv2_write(".jp2", _rgb(64, 64, 88)),
                      "JPEG 2000 is not read", False),
     }
+
+
+def _hdr_layout(line):
+    """A Radiance HDR whose size line is ``line`` (20 rows of 24)."""
+    return _cv2_write(".hdr", _rgb(20, 24, 92)).replace(b"-Y 20 +X 24",
+                                                        line)
+
+
+def _vp8l_version(v):
+    """A lossless WebP whose header names version v."""
+    data = bytearray(_cv2_write(".webp", _rgb(6, 7, 93)))
+    data[24] = data[24] & 0x1F | v << 5  # VP8L header byte 4
+    return bytes(data)
 
 
 def _tiff_compression(k):
@@ -401,7 +633,9 @@ def test_malformed_files_are_errors_not_images(tmp_path):
     returns nothing for it."""
     cut = {name: CASES[name]()
            for name in ("bmp24_cv2", "p6_16bit", "sun8_grey", "tiff_cv2_c5",
-                        "bmp_rle8")}
+                        "bmp_rle8", "gif_cv2", "hdr_cv2_rle",
+                        "webp_cv2_lossless", "webp_cv2_lossy_q90",
+                        "webp_lossy_alpha")}
     cut = {k: v[:len(v) * 2 // 3] for k, v in cut.items()}
     # rows that end in an absolute run, then a run with no end-of-line: a
     # run past the row's end
@@ -425,10 +659,15 @@ FIXTURE_CASES = {
     "tiff_lzw_planar_tiles_big_endian.tif":
         "tiff_lzw_planar_tiles_big_endian",
     "tiff_rgba16_unassociated.tif": "tiff_rgba16_unassociated",
+    "gif89a_interlaced.gif": "gif89a_interlaced",
+    "gif_transparent.gif": "gif_transparent",
+    "hdr_cv2_rle.hdr": "hdr_cv2_rle",
+    "hdr_cv2_flat.hdr": "hdr_cv2_flat",
+    "webp_cv2_lossless.webp": "webp_cv2_lossless",
+    "webp_cv2_lossy_q90.webp": "webp_cv2_lossy_q90",
+    "webp_lossy_alpha.webp": "webp_lossy_alpha",
+    "webp_animated_frame_offset.webp": "webp_animated_frame_offset",
 }
-# the LZW and Deflate TIFFs phase e times, in cv2's layout (strips of
-# 8 KiB of raw rows)
-LARGE = {"cv2_lzw_64.tif": 5, "cv2_deflate_64.tif": 8}
 
 
 def _large_tiff(k, size=64):
@@ -439,11 +678,27 @@ def _large_tiff(k, size=64):
                       (cv2.IMWRITE_TIFF_COMPRESSION, k))
 
 
+def _lossy_1024():
+    """The 1024x1024 q95 fixture JPEG's decode as cv2's q90 lossy WebP."""
+    jpeg = os.path.join(os.path.dirname(FIXTURES), "torch_zju",
+                        "cv2_q95_420.jpg")
+    return _cv2_write(".webp", cv2.imread(jpeg),
+                      (cv2.IMWRITE_WEBP_QUALITY, 90))
+
+
+# what phase e times: the LZW and Deflate TIFFs in cv2's layout (strips of
+# 8 KiB of raw rows), and a 1024x1024 lossy WebP (which no numpy writer
+# makes on the card machine)
+LARGE = {"cv2_lzw_64.tif": lambda: _large_tiff(5),
+         "cv2_deflate_64.tif": lambda: _large_tiff(8),
+         "cv2_q90_1024.webp": _lossy_1024}
+
+
 def make_fixtures(out=FIXTURES) -> dict:
     """Write the fixtures and digests.json (cv2.imread's arrays)."""
     os.makedirs(out, exist_ok=True)
     files = {name: CASES[case]() for name, case in FIXTURE_CASES.items()}
-    files.update({name: _large_tiff(k) for name, k in LARGE.items()})
+    files.update({name: make() for name, make in LARGE.items()})
     digests = {}
     for name, data in sorted(files.items()):
         path = os.path.join(out, name)
@@ -470,18 +725,10 @@ def test_committed_fixtures_decode_to_their_digests():
         _same(got, cv2_imread(path), name)
 
 
-@pytest.mark.parametrize("k", [5, 8, 32773])
-def test_no_frame_decode_loops_over_bytes_in_python(k, tmp_path):
-    """The byte-serial codings run in the C++ codec (zlib for Deflate): a
-    1024x1024 TIFF of cv2's layout (512 strips) and a 1024x1024 RLE8 BMP
-    decode with Python line events a few per strip, far fewer than
-    bytes."""
+def _traced(fn):
+    """fn() and the count of Python trace events while it ran."""
     import sys
 
-    p = tmp_path / "big.tif"
-    p.write_bytes(_large_tiff(k, 1024))
-    idx = _idx(1024, 1024, 7, 90)
-    rle = F.bmp(idx, 8, palette=_pal(256, 90), compression=1)
     events = [0]
 
     def trace(frame, event, arg):
@@ -490,23 +737,65 @@ def test_no_frame_decode_loops_over_bytes_in_python(k, tmp_path):
 
     sys.settrace(trace)
     try:
-        tif = image_io.imread_rgb(str(p))
-        bmp = image_formats.decode_bmp(rle)
+        out = fn()
     finally:
         sys.settrace(None)
+    return out, events[0]
+
+
+# a 1024x1024 frame of each new decoder: GIF, Radiance HDR, WebP
+BIG_FRAMES = {
+    "gif": lambda img: _cv2_write(".gif", img),
+    "hdr_rle": lambda img: _cv2_write(".hdr", img),
+    "webp_lossless": lambda img: _cv2_write(".webp", img),
+    "webp_lossy_q90": lambda img: _cv2_write(
+        ".webp", img, (cv2.IMWRITE_WEBP_QUALITY, 90)),
+}
+
+
+@pytest.mark.parametrize("k", [5, 8, 32773, *sorted(BIG_FRAMES)])
+def test_no_frame_decode_loops_over_bytes_in_python(k, tmp_path):
+    """The byte-serial codings run in the C++ codec (zlib for Deflate): a
+    1024x1024 TIFF of cv2's layout (512 strips) and a 1024x1024 RLE8 BMP
+    decode with Python line events a few per strip, far fewer than bytes;
+    a 1024x1024 GIF, HDR or WebP frame (LZW, run-length scanlines, every
+    stage of both WebP decoders) with a few hundred at most."""
+    if k in BIG_FRAMES:
+        from tests.test_torch_zju_codec import smooth_image
+
+        p = tmp_path / k
+        p.write_bytes(BIG_FRAMES[k](smooth_image(1024, 1024, seed=6)))
+        img, events = _traced(lambda: image_io.imread_rgb(str(p)))
+        _same(img, cv2_imread(p), k)
+        assert events < 2000, events  # against 3 MiB of samples
+        return
+    p = tmp_path / "big.tif"
+    p.write_bytes(_large_tiff(k, 1024))
+    idx = _idx(1024, 1024, 7, 90)
+    rle = F.bmp(idx, 8, palette=_pal(256, 90), compression=1)
+    (tif, bmp), events = _traced(lambda: (image_io.imread_rgb(str(p)),
+                                          image_formats.decode_bmp(rle)))
     _same(tif, cv2_imread(p))
     _same(bmp, cv2.cvtColor(cv2.imdecode(np.frombuffer(rle, np.uint8),
                                          cv2.IMREAD_COLOR),
                             cv2.COLOR_BGR2RGB))
-    assert events[0] < 100 * 512, events[0]  # against 3 MiB of samples
+    assert events < 100 * 512, events  # against 3 MiB of samples
 
 
 # ------------------------------------------ a ZJU tree of mixed formats
+def _encode_frame(img, kind):
+    if kind == "webp_lossy":
+        return _cv2_write(".webp", img[..., ::-1],
+                          (cv2.IMWRITE_WEBP_QUALITY, 90))
+    return F.encode_frame(img, kind)
+
+
 @pytest.fixture(scope="module")
 def zju_formats_root(tmp_path_factory):
     """tests/test_torch_zju.py's fake human (jitter-free JPEG frames), each
-    frame then re-coded: frame 0 as BMPs, 1 as TIFFs, 2 as PPMs and Sun
-    rasters (F.FRAME_FORMATS), named by the frame's extension."""
+    frame then re-coded (F.FRAME_FORMATS), named by the frame's extension:
+    frame 0 as BMPs and a GIF, 1 as TIFFs and a lossless WebP, 2 as a PPM,
+    a Radiance HDR, a Sun raster and a lossy WebP."""
     from tests.test_torch_zju import HUMAN, NC, NF, write_fake_zju
 
     root = str(tmp_path_factory.mktemp("zju_formats"))
@@ -521,7 +810,7 @@ def zju_formats_root(tmp_path_factory):
             img = cv2_imread(old)
             os.remove(old)
             with open(old[:-4] + ext, "wb") as fh:
-                fh.write(F.encode_frame(img, kinds[c]))
+                fh.write(_encode_frame(img, kinds[c]))
             names.append(f"Camera_B{c + 1}/{f:06d}{ext}")
         annots["ims"][f]["ims"] = names
     np.save(annots_path, annots)
@@ -538,9 +827,9 @@ def test_mixed_format_frames_are_on_disk_and_read_as_cv2(zju_formats_root):
             p = os.path.join(zju_formats_root, HUMAN, f"Camera_B{c + 1}",
                              f"{f:06d}{ext}")
             with open(p, "rb") as fh:
-                seen.add(image_formats.sniff(fh.read(8)))
+                seen.add(image_formats.sniff(fh.read(16)))
             _same(image_io.imread_rgb(p), cv2_imread(p), p)
-    assert seen == {"bmp", "tiff", "pxm", "sun"}
+    assert seen == {"bmp", "tiff", "pxm", "sun", "gif", "hdr", "webp"}
 
 
 def test_mixed_format_items_equal_the_jax_dataset(zju_formats_root):

@@ -1,10 +1,12 @@
 """The frame formats ``cv2.imread`` reads beside JPEG and PNG, decoded as
 OpenCV 5 decodes them into (H, W, 3) RGB uint8 (its BGR result after
-``COLOR_BGR2RGB``): BMP, PxM (PBM, PGM, PPM, PAM, PFM), Sun raster and TIFF.
-Headers and plain raster layouts are read with numpy; the byte-serial
-codings (BMP RLE4/RLE8, TIFF PackBits and LZW) run in ``native/imgcodec.cc``
-and TIFF Deflate in the standard library's zlib, so no frame decode loops
-over bytes in Python.
+``COLOR_BGR2RGB``): BMP, PxM (PBM, PGM, PPM, PAM, PFM), Sun raster, TIFF,
+GIF, Radiance HDR and WebP.  Headers and plain raster layouts are read
+with numpy; the byte-serial codings (BMP RLE4/RLE8, TIFF PackBits and LZW,
+GIF's LZW, HDR's run-length scanlines, every stage of WebP's lossless and
+lossy decoders) run in ``native/imgcodec.cc`` and ``native/webp.cc``, TIFF
+Deflate in the standard library's zlib, so no frame decode loops over
+bytes in Python.
 
 What OpenCV does, where it is not what the format's specification says:
 
@@ -30,6 +32,25 @@ What OpenCV does, where it is not what the format's specification says:
   planes, a colour map cut to its high byte unless every entry is below
   256; the horizontal predictor applies to LZW and Deflate only; the
   orientation tag turns the image as an EXIF orientation does.
+* GIF (OpenCV's own decoder, grfmt_gif.cpp): the first frame only, on the
+  logical screen; the screen outside the frame and the frame's
+  transparent pixels read as the global table's background colour, or
+  black without a global table, whatever the disposal method says; a file
+  cut anywhere, even after its first frame, reads as nothing.
+* Radiance HDR (rgbe.cpp): a header line ``FORMAT=32-bit_rle_rgbe``, then
+  a blank line, then ``-Y H +X W``; a scanline that does not start 2, 2
+  turns the rest of the image into flat pixels; each pixel
+  m * 2^(e - 136) in float32, then 8 bits as imread converts them without
+  IMREAD_ANYDEPTH: ``saturate(round_half_even(v * 255))``, and 0 where
+  v * 255 reaches 2^31 (cvRound's INT_MIN), so cv2's HDR of an 8-bit
+  image reads back within 1, not as it was.
+* WebP (libwebp's simple API; WebPAnimDecoder for an animation): a VP8X
+  file's alpha (ALPH, raw or lossless-coded) is decoded and dropped, so
+  the colour is what it is under alpha 0 (no premultiplication) and a
+  malformed ALPH fails the file; an animation reads as its first frame on
+  a black canvas whatever its background colour and blending; libwebp's
+  fancy chroma upsampler and 14-bit YUV -> RGB; the first EXIF chunk's
+  orientation turns the image where the VP8X header's EXIF flag is set.
 
 Refused by name (FileNotFoundError naming the path and the format), each
 where cv2.imread returns nothing or where the port does not decode it:
@@ -37,12 +58,15 @@ a gray PFM (``Pf``), PAM with 2 or 4 channels or a maxval of 1, Sun raster
 run-length and RGB types, TIFF below 8 bits but for 1-bit grey and 4-bit
 palettes, TIFF with JPEG or CCITT compression, float samples, more than 4
 samples, orientations 5-8 on a non-square image (cv2 reads nothing), an
-orientation other than 1 on tiles, BigTIFF, and the formats GIF,
-Radiance HDR, WebP, AVIF and JPEG 2000.
+orientation other than 1 on tiles, BigTIFF, a GIF frame outside its
+logical screen, Radiance HDR in XYZE or with a layout other than
+-Y H +X W, a lossless WebP of a version other than 0, and the formats AVIF
+and JPEG 2000.
 """
 
 from __future__ import annotations
 
+import ctypes
 import re
 import struct
 import zlib
@@ -52,9 +76,7 @@ import numpy as np
 from ..native import build as codec
 
 # signature -> format name, for what is refused whole
-REFUSED = ((b"GIF87a", "GIF"), (b"GIF89a", "GIF"),
-           (b"#?RADIANCE", "Radiance HDR"), (b"#?RGBE", "Radiance HDR"),
-           (b"\0\0\0\x0cjP  \r\n\x87\n", "JPEG 2000"),
+REFUSED = ((b"\0\0\0\x0cjP  \r\n\x87\n", "JPEG 2000"),
            (b"\xff\x4f\xff\x51", "JPEG 2000 (codestream)"))
 
 
@@ -64,7 +86,8 @@ class Refused(Exception):
 
 
 def sniff(data: bytes):
-    """The name of the decoder for data's signature, or None."""
+    """The name of the decoder for data's signature (its first 12 bytes at
+    most), or None."""
     if data[:2] == b"BM":
         return "bmp"
     if len(data) >= 2 and data[0:1] == b"P" and data[1:2] in b"1234567Ff":
@@ -73,6 +96,12 @@ def sniff(data: bytes):
         return "sun"
     if data[:4] in (b"II*\0", b"MM\0*", b"II+\0", b"MM\0+"):
         return "tiff"
+    if data[:6] in (b"GIF87a", b"GIF89a"):
+        return "gif"
+    if data.startswith((b"#?RADIANCE", b"#?RGBE")):
+        return "hdr"
+    if data[:4] == b"RIFF" and data[8:12] == b"WEBP":
+        return "webp"
     return None
 
 
@@ -80,8 +109,6 @@ def refused_name(data: bytes):
     for sig, name in REFUSED:
         if data.startswith(sig):
             return name
-    if data[:4] == b"RIFF" and data[8:12] == b"WEBP":
-        return "WebP"
     if data[4:8] == b"ftyp" and data[8:12] in (b"avif", b"avis"):
         return "AVIF"
     return None
@@ -92,7 +119,8 @@ def decode(kind: str, data: bytes, what: str) -> np.ndarray:
     Refused for a coding refused by name, ValueError for a malformed
     file."""
     img = {"bmp": decode_bmp, "pxm": decode_pxm, "sun": decode_sun,
-           "tiff": decode_tiff}[kind](data, what)
+           "tiff": decode_tiff, "gif": decode_gif, "hdr": decode_hdr,
+           "webp": decode_webp}[kind](data, what)
     # a view of the file's bytes is read-only; the loader gets its own
     return img if img.flags.writeable else img.copy()
 
@@ -546,3 +574,62 @@ def _tiff_rgba(s, t, photo, bps, spp, extra, separate) -> np.ndarray:
         g = 255 - g
     return np.ascontiguousarray(np.repeat(g.astype(np.uint8)[..., None], 3,
                                           -1))
+
+
+# ------------------------------------------- GIF, Radiance HDR and WebP
+# the codec's entries for each: info, decode, leading arguments (GIF and
+# Radiance HDR share imgcodec.cc's, told apart by a kind; WebP is webp.cc's)
+_ENTRIES = {"gif": ("thc_image_info", "thc_image_decode", (0,)),
+            "hdr": ("thc_image_info", "thc_image_decode", (1,)),
+            "webp": ("thc_webp_info", "thc_webp_decode", ())}
+
+
+def _native(kind: str, data: bytes, what: str) -> np.ndarray:
+    info, dec, lead = _ENTRIES[kind]
+    h, w = ctypes.c_int(), ctypes.c_int()
+    codec.call(info, *lead, data, len(data), ctypes.byref(h),
+               ctypes.byref(w), what=what, refused=Refused)
+    if max(h.value, w.value) > 1 << 20 or h.value * w.value > 1 << 30:
+        # imread's CV_IO_MAX_IMAGE_WIDTH / HEIGHT / PIXELS
+        raise ValueError(f"{what}: {h.value}x{w.value} pixels is more than "
+                         "imread reads")
+    out = np.empty((h.value, w.value, 3), np.uint8)
+    codec.call(dec, *lead, data, len(data), out.ctypes.data, h.value,
+               w.value, what=what, refused=Refused)
+    return out
+
+
+def decode_gif(data: bytes, what: str = "GIF") -> np.ndarray:
+    return _native("gif", data, what)
+
+
+def decode_hdr(data: bytes, what: str = "Radiance HDR") -> np.ndarray:
+    return _native("hdr", data, what)
+
+
+def decode_webp(data: bytes, what: str = "WebP") -> np.ndarray:
+    rgb = _native("webp", data, what)
+    # imread turns the image by the first EXIF chunk where the VP8X
+    # header's EXIF flag is set
+    if data[12:16] != b"VP8X" or len(data) < 21 or not data[20] & 0x08:
+        return rgb
+    pos, end = 12, 8 + struct.unpack_from("<I", data, 4)[0]
+    while pos + 8 <= min(end, len(data)):
+        n = struct.unpack_from("<I", data, pos + 4)[0]
+        if data[pos:pos + 4] == b"EXIF":
+            return exif_orient(rgb, data[pos + 8:pos + 8 + n])
+        pos += 8 + n + (n & 1)
+    return rgb
+
+
+def exif_orient(rgb: np.ndarray, tiff: bytes) -> np.ndarray:
+    """rgb turned as the orientation of the EXIF (TIFF) block ``tiff``
+    says, as imread turns it (height and width swap for 5-8)."""
+    orientation = codec.library().thc_exif_orientation(tiff, len(tiff))
+    if not 2 <= orientation <= 8:
+        return rgb
+    h, w = rgb.shape[:2]
+    out = np.empty((w, h, 3) if orientation >= 5 else (h, w, 3), np.uint8)
+    codec.library().thc_orient_rgb(rgb.ctypes.data, h, w, orientation,
+                                   out.ctypes.data)
+    return out

@@ -1,13 +1,13 @@
 """Image files of the ZJU-MoCap layout without OpenCV, PIL or imageio: JPEG
 frames through the port's own decoder (``native/imgcodec.cc``), PNG
 frames and masks through the standard library's zlib and the codec's row
-unfilter, and BMP, PxM, Sun raster and TIFF frames through
-``image_formats.py``.
+unfilter, and BMP, PxM, Sun raster, TIFF, GIF, Radiance HDR and WebP
+frames through ``image_formats.py``.
 
 ``imread_rgb`` returns what the JAX package's ``_imread_rgb`` returns
 (``cv2.imread`` + ``cvtColor`` BGR -> RGB) for a file of any of those
 formats, told apart by signature (``image_formats.py`` says what it reads
-of the other four, and what it refuses by name): for a JPEG,
+of the other seven, and what it refuses by name): for a JPEG,
 libjpeg-turbo's default decode (sequential or progressive, grey, YCbCr,
 RGB, CMYK or YCCK, block smoothing of a truncated progressive file), then
 the EXIF orientation; for a PNG, three
@@ -68,10 +68,10 @@ def decode_jpeg(data: bytes, what: str = "JPEG") -> np.ndarray:
 
 
 def imread_rgb(path: str) -> np.ndarray:
-    """(H, W, 3) RGB uint8 of a JPEG, PNG, BMP, PxM, Sun raster or TIFF
-    file, as ``cv2.imread`` + BGR -> RGB reads it; FileNotFoundError with
-    the path for a missing file, one of none of those signatures, or a
-    format or coding refused by name."""
+    """(H, W, 3) RGB uint8 of a JPEG, PNG, BMP, PxM, Sun raster, TIFF,
+    GIF, Radiance HDR or WebP file, as ``cv2.imread`` + BGR -> RGB reads
+    it; FileNotFoundError with the path for a missing file, one of none of
+    those signatures, or a format or coding refused by name."""
     data = _read(path)
     if data[:2] == JPEG_SIGNATURE:
         return decode_jpeg(data, path)
@@ -88,7 +88,8 @@ def imread_rgb(path: str) -> np.ndarray:
     raise FileNotFoundError(
         f"unreadable image: {path} ("
         + (f"{name} is not read" if name else
-           "not a JPEG, PNG, BMP, PxM, Sun raster or TIFF file") + ")")
+           "not a JPEG, PNG, BMP, PxM, Sun raster, TIFF, GIF, Radiance HDR "
+           "or WebP file") + ")")
 
 
 def _png_parse(data: bytes, what: str):
@@ -207,15 +208,7 @@ def decode_png_rgb(data: bytes, what: str = "PNG") -> np.ndarray:
         rgb = img[..., :3] if ctype in (2, 6) else np.repeat(img[..., :1], 3,
                                                              -1)
     rgb = np.ascontiguousarray(rgb)
-    orientation = (codec.library().thc_exif_orientation(exif, len(exif))
-                   if exif is not None else -1)
-    if not 2 <= orientation <= 8:
-        return rgb
-    h, w = rgb.shape[:2]
-    out = np.empty((w, h, 3) if orientation >= 5 else (h, w, 3), np.uint8)
-    codec.library().thc_orient_rgb(rgb.ctypes.data, h, w, orientation,
-                                   out.ctypes.data)
-    return out
+    return rgb if exif is None else image_formats.exif_orient(rgb, exif)
 
 
 def read_png(path: str) -> np.ndarray:

@@ -1,13 +1,15 @@
 """Build and load the port's host C++ libraries (g++ -> .so, ctypes ABI).
 
-Each library is one source of this directory, compiled with ``g++ -O3
--std=c++17 -shared -fPIC`` (no ``-march``: one library is right on any
-x86-64 host) plus the flags ``LIBRARIES`` names beside its source, into
-``transhuman_tpu_torch/_build/lib<name>.so`` on first use, never at import:
+Each library is one or more sources of this directory, compiled together
+with ``g++ -O3 -std=c++17 -shared -fPIC`` (no ``-march``: one library is
+right on any x86-64 host) plus the flags ``LIBRARIES`` names beside its
+sources, into ``transhuman_tpu_torch/_build/lib<name>.so`` on first use,
+never at import:
 
-* ``imgcodec`` (``imgcodec.cc``): the JPEG decoder (sequential and
-  progressive) and encoder, the EXIF orientation, the PNG row unfilter,
-  BMP RLE4/RLE8 and TIFF PackBits and LZW;
+* ``imgcodec`` (``imgcodec.cc``, ``webp.cc``): the JPEG decoder
+  (sequential and progressive) and encoder, the EXIF orientation, the PNG
+  row unfilter, BMP RLE4/RLE8, TIFF PackBits and LZW, GIF, Radiance HDR,
+  and WebP (VP8L lossless, VP8 lossy, the VP8X container);
 * ``marching`` (``marching_tet.cc``): marching tetrahedra
   (``mesh_ops/marching.py``);
 * ``crc32c`` (``crc32c.cc``): the event files' CRC32C
@@ -18,7 +20,7 @@ x86-64 host) plus the flags ``LIBRARIES`` names beside its source, into
   fused multiply-adds, as the JAX package's ``-march=native`` build has
   them.
 
-A library is rebuilt whenever its source, its flags or the compiler change
+A library is rebuilt whenever its sources, its flags or the compiler change
 (a sha256 stamp sits beside it, written atomically); one lock guards every
 build and load in a process, a file lock beside each library
 (``lib<name>.so.lock``) guards its stale check, build and stamp across
@@ -58,15 +60,15 @@ def _cpu_has(flag: str) -> bool:
         return False
 
 
-# name -> (source in this directory, flags beyond FLAGS).  The rasterizer's
+# name -> (sources in this directory, flags beyond FLAGS).  The rasterizer's
 # frames equal the JAX package's (built with -march=native) bit for bit
 # only where both contract a * b + c into the same fused multiply-adds:
 # -mfma on a host whose CPU has them.
 LIBRARIES = {
-    "imgcodec": ("imgcodec.cc", ()),
-    "marching": ("marching_tet.cc", ()),
-    "crc32c": ("crc32c.cc", ("-msse4.2",) if _X86 else ()),
-    "rasterize": ("rasterize.cc",
+    "imgcodec": (("imgcodec.cc", "webp.cc"), ()),
+    "marching": (("marching_tet.cc",), ()),
+    "crc32c": (("crc32c.cc",), ("-msse4.2",) if _X86 else ()),
+    "rasterize": (("rasterize.cc",),
                   ("-mfma",) if _X86 and _cpu_has("fma") else ()),
 }
 
@@ -94,6 +96,15 @@ _SIGNATURES = {
         # in, n, out, nout, err, errlen
         "thc_packbits": ((_P, _L, _P, _L, *_ERR), _I),
         "thc_tiff_lzw": ((_P, _L, _P, _L, *_ERR), _I),
+        # kind (0 GIF, 1 Radiance HDR), data, n, &height, &width, err,
+        # errlen
+        "thc_image_info": ((_I, _P, _L, _IP, _IP, *_ERR), _I),
+        # kind, data, n, out, height, width, err, errlen
+        "thc_image_decode": ((_I, _P, _L, _P, _I, _I, *_ERR), _I),
+        # data, n, &height, &width, err, errlen
+        "thc_webp_info": ((_P, _L, _IP, _IP, *_ERR), _I),
+        # data, n, out, height, width, err, errlen
+        "thc_webp_decode": ((_P, _L, _P, _I, _I, *_ERR), _I),
         "thc_free": ((_P,), None),
     },
     "marching": {
@@ -121,14 +132,16 @@ def lib_path(name: str = "imgcodec") -> str:
 
 
 def _command(name: str, out: str) -> list:
-    source, extra = LIBRARIES[name]
-    return [CXX, *FLAGS, *extra, os.path.join(_HERE, source), "-o", out]
+    sources, extra = LIBRARIES[name]
+    return [CXX, *FLAGS, *extra, *(os.path.join(_HERE, s) for s in sources),
+            "-o", out]
 
 
 def _fingerprint(name: str) -> str:
     h = hashlib.sha256(" ".join(_command(name, "")).encode())
-    with open(os.path.join(_HERE, LIBRARIES[name][0]), "rb") as f:
-        h.update(f.read())
+    for source in LIBRARIES[name][0]:
+        with open(os.path.join(_HERE, source), "rb") as f:
+            h.update(f.read())
     return h.hexdigest()
 
 
@@ -189,10 +202,18 @@ def loaded(name: str = "imgcodec") -> bool:
     return name in _libs
 
 
-def call(name: str, *args, what: str = ""):
+ERR_UNSUPPORTED = 2  # the codec's kErrUnsupported: refused by name
+
+
+def call(name: str, *args, what: str = "", refused=None):
     """Call the codec's C entry ``name`` with ``args`` and its error
-    buffer; raise ValueError (what: the message) on a non-zero code."""
+    buffer; raise ValueError (what: the message) on a non-zero code, or
+    ``refused(message)`` for a coding the codec refuses by name when the
+    caller gives that exception class."""
     err = ctypes.create_string_buffer(256)
     code = getattr(library(), name)(*args, err, len(err))
     if code != 0:
-        raise ValueError(f"{what}: {err.value.decode(errors='replace')}")
+        msg = err.value.decode(errors="replace")
+        if refused is not None and code == ERR_UNSUPPORTED:
+            raise refused(msg)
+        raise ValueError(f"{what}: {msg}")

@@ -1,7 +1,7 @@
 // Host image codec of the PyTorch port: a Huffman JPEG decoder, a baseline
 // JPEG encoder, the PNG row unfilter and the byte-serial decoders of the
-// other frame formats (BMP RLE4/RLE8, TIFF PackBits and LZW), behind a
-// plain C ABI (ctypes).
+// other frame formats (BMP RLE4/RLE8, TIFF PackBits and LZW, GIF, Radiance
+// HDR; WebP is webp.cc's), behind a plain C ABI (ctypes).
 //
 // The JPEG decoder covers sequential (SOF0/SOF1) and progressive (SOF2)
 // Huffman coding: 8-bit samples, 1, 3 or 4 components, any sampling
@@ -27,6 +27,7 @@
 // the caller's buffer.
 
 #include <algorithm>
+#include <cmath>
 #include <cstdint>
 #include <cstdio>
 #include <cstdlib>
@@ -1772,6 +1773,306 @@ void tiff_lzw(const uint8_t* in, size_t n, uint8_t* out, size_t nout) {
   if (o < nout) fail(kErrFormat, "TIFF LZW data ends before its strip");
 }
 
+// --------------------------------------------------------------- GIF
+// OpenCV 5's own GIF decoder (grfmt_gif.cpp), first frame only: the whole
+// block structure is walked up to the trailer (a file cut anywhere is
+// refused, as cv2 refuses it while reading the header), the first image
+// is decoded with LSB-first LZW (codes from the minimum code size + 1 to
+// 12 bits, clear and end codes) and must give exactly its width * height
+// indices, each below its colour table's size; a frame outside the logical
+// screen, which cv2 reads as nothing, is refused by name.  The screen starts
+// as the global table's background colour, or black without a global
+// table, whatever the disposal method; the frame's transparent pixels keep
+// the screen's colour.
+struct Gif {
+  const uint8_t* d;
+  size_t n, pos = 0;
+  int width = 0, height = 0;
+
+  int byte() {
+    if (pos >= n) fail(kErrFormat, "GIF file ends early");
+    return d[pos++];
+  }
+  int word() {
+    int lo = byte();
+    return lo | byte() << 8;
+  }
+  // the data sub-blocks from pos, appended to `out` (or skipped)
+  void sub_blocks(std::vector<uint8_t>* out) {
+    for (int len = byte(); len; len = byte()) {
+      if (pos + len > n) fail(kErrFormat, "GIF file ends early");
+      if (out) out->insert(out->end(), d + pos, d + pos + len);
+      pos += len;
+    }
+  }
+
+  void header() {
+    if (n < 13 || memcmp(d, "GIF8", 4) || (d[4] != '7' && d[4] != '9') ||
+        d[5] != 'a')
+      fail(kErrFormat, "not a GIF file");
+    pos = 6;
+    width = word();
+    height = word();
+    if (width <= 0 || height <= 0) fail(kErrFormat, "GIF screen of 0 pixels");
+  }
+
+  void decode(uint8_t* out) {
+    header();
+    int flags = byte(), bg = byte();
+    byte();
+    int gsize = flags & 0x80 ? 2 << (flags & 7) : 0;
+    if (pos + 3 * gsize > n) fail(kErrFormat, "GIF file ends early");
+    const uint8_t* gtable = d + pos;
+    pos += 3 * gsize;
+    if (gsize && bg >= gsize)
+      fail(kErrFormat, "GIF background index past its colour table");
+    int transparent = -1;
+    bool done = false;
+    for (;;) {
+      int tag = byte();
+      if (tag == 0x3B) break;
+      if (tag == 0x21) {
+        int label = byte();
+        if (label == 0xF9 && !done) {
+          int len = byte();
+          if (len < 4 || pos + len > n)
+            fail(kErrFormat, "bad GIF graphic control extension");
+          transparent = d[pos] & 1 ? d[pos + 3] : -1;
+          pos += len;
+        }
+        sub_blocks(nullptr);
+      } else if (tag == 0x2C) {
+        if (done) {
+          pos += 8;
+          int f = byte();
+          if (f & 0x80) pos += 3 * (2 << (f & 7));
+          byte();
+          sub_blocks(nullptr);
+          continue;
+        }
+        image(out, gtable, gsize, bg, transparent);
+        done = true;
+      } else {
+        fail(kErrFormat, "bad GIF block");
+      }
+    }
+    if (!done) fail(kErrFormat, "GIF without an image");
+  }
+
+  void image(uint8_t* out, const uint8_t* gtable, int gsize, int bg,
+             int transparent) {
+    int left = word(), top = word(), w = word(), h = word();
+    int flags = byte();
+    if (w <= 0 || h <= 0) fail(kErrFormat, "GIF frame of 0 pixels");
+    if (left + w > width || top + h > height)
+      fail(kErrUnsupported, "GIF frame outside its logical screen");
+    const uint8_t* table = gtable;
+    int tsize = gsize;
+    if (flags & 0x80) {
+      tsize = 2 << (flags & 7);
+      if (pos + 3 * tsize > n) fail(kErrFormat, "GIF file ends early");
+      table = d + pos;
+      pos += 3 * tsize;
+    }
+    uint8_t fill[3] = {0, 0, 0};
+    if (gsize) memcpy(fill, gtable + 3 * bg, 3);
+    size_t npx = (size_t)width * height;
+    for (size_t i = 0; i < npx; i++) memcpy(out + 3 * i, fill, 3);
+    int mcs = byte();
+    if (mcs < 1 || mcs > 11) fail(kErrFormat, "bad GIF LZW code size");
+    std::vector<uint8_t> code;
+    sub_blocks(&code);
+    std::vector<uint8_t> idx((size_t)w * h);
+    lzw(code, mcs, idx);
+    // rows in stream order -> image rows (4-pass interlace)
+    std::vector<int> rows;
+    if (flags & 0x40) {
+      const int start[4] = {0, 4, 2, 1}, step[4] = {8, 8, 4, 2};
+      for (int p = 0; p < 4; p++)
+        for (int y = start[p]; y < h; y += step[p]) rows.push_back(y);
+    } else {
+      for (int y = 0; y < h; y++) rows.push_back(y);
+    }
+    for (int r = 0; r < h; r++) {
+      const uint8_t* src = idx.data() + (size_t)r * w;
+      uint8_t* dst = out + ((size_t)(top + rows[r]) * width + left) * 3;
+      for (int x = 0; x < w; x++) {
+        int v = src[x];
+        if (v >= tsize) fail(kErrFormat, "GIF colour index past its table");
+        if (v != transparent) memcpy(dst + 3 * x, table + 3 * v, 3);
+      }
+    }
+  }
+
+  static void lzw(const std::vector<uint8_t>& in, int mcs,
+                  std::vector<uint8_t>& out) {
+    const int clear = 1 << mcs, end = clear + 1;
+    std::vector<uint16_t> prefix(4096);
+    std::vector<uint8_t> suffix(4096), first(4096), stack(4097);
+    for (int i = 0; i < clear; i++) suffix[i] = first[i] = (uint8_t)i;
+    int width = mcs + 1, next = end + 1, old = -1;
+    uint32_t acc = 0;
+    int held = 0;
+    size_t pos = 0, o = 0;
+    for (;;) {
+      while (held < width && pos < in.size()) {
+        acc |= (uint32_t)in[pos++] << held;
+        held += 8;
+      }
+      if (held < width) break;
+      int c = (int)(acc & ((1u << width) - 1));
+      acc >>= width;
+      held -= width;
+      if (c == end) break;
+      if (c == clear) {
+        width = mcs + 1;
+        next = end + 1;
+        old = -1;
+        continue;
+      }
+      if (c > next || (c == next && old < 0))
+        fail(kErrFormat, "corrupt GIF LZW data");
+      int k = 0, s = c == next ? old : c;
+      for (; s >= clear; s = prefix[s]) stack[k++] = suffix[s];
+      stack[k++] = (uint8_t)s;
+      uint8_t head = (uint8_t)s;
+      if (c == next) {
+        // the code being defined now: old's string + its own first byte
+        memmove(stack.data() + 1, stack.data(), k);
+        stack[0] = head;
+        k++;
+      }
+      if (o + k > out.size()) fail(kErrFormat, "GIF LZW data past its frame");
+      for (int i = 0; i < k; i++) out[o++] = stack[k - 1 - i];
+      if (old >= 0 && next < 4096) {
+        prefix[next] = (uint16_t)old;
+        suffix[next] = head;
+        next++;
+        if (next == 1 << width && width < 12) width++;
+      }
+      old = c;
+    }
+    if (o != out.size()) fail(kErrFormat, "GIF LZW data ends before its frame");
+  }
+};
+
+// ------------------------------------------------------- Radiance HDR
+// OpenCV's rgbe.cpp and grfmt_hdr.cpp: header lines up to
+// "FORMAT=32-bit_rle_rgbe", a blank line, then "-Y H +X W"; new-style
+// run-length scanlines (a scanline that does not start 2, 2 switches the
+// rest of the image to flat pixels), flat pixels below 8 or above 32767
+// columns; each pixel m * 2^(e - 136) in float, then the 8-bit result as
+// imread converts it: saturate(round-half-even(v * 255)), 0 at 2^31 and
+// above (cvRound's INT_MIN).  The XYZE format
+// and the layouts other than -Y +X, which cv2 reads as nothing, are
+// refused by name.
+struct Hdr {
+  const uint8_t* d;
+  size_t n, pos = 0;
+  int width = 0, height = 0;
+
+  // the next line as fgets reads it into cv2's 128-byte buffer
+  bool line(std::string& s) {
+    s.clear();
+    if (pos >= n) return false;
+    while (pos < n && s.size() < 127) {
+      char c = (char)d[pos++];
+      s.push_back(c);
+      if (c == '\n') break;
+    }
+    return true;
+  }
+
+  void header() {
+    std::string s;
+    if (!line(s)) fail(kErrFormat, "Radiance HDR header ends early");
+    for (;;) {
+      if (s.empty() || s[0] == '\n' || s[0] == '\0')
+        fail(kErrFormat, "Radiance HDR header without its FORMAT line");
+      if (s == "FORMAT=32-bit_rle_rgbe\n") break;
+      if (s == "FORMAT=32-bit_rle_xyze\n")
+        fail(kErrUnsupported, "Radiance HDR in XYZE (32-bit_rle_xyze)");
+      if (!line(s)) fail(kErrFormat, "Radiance HDR header ends early");
+    }
+    if (!line(s) || s != "\n")
+      fail(kErrFormat, "Radiance HDR without a blank line after FORMAT");
+    if (!line(s) || sscanf(s.c_str(), "-Y %d +X %d", &height, &width) < 2)
+      fail(kErrUnsupported,
+           "Radiance HDR layout other than -Y H +X W: " +
+               s.substr(0, s.find('\n')));
+    if (width <= 0 || height <= 0)
+      fail(kErrFormat, "Radiance HDR of 0 pixels");
+  }
+
+  static void put(const uint8_t* rgbe, uint8_t* o) {
+    if (!rgbe[3]) {
+      o[0] = o[1] = o[2] = 0;
+      return;
+    }
+    float f = (float)ldexp(1.0, rgbe[3] - 136);
+    for (int c = 0; c < 3; c++) {
+      // cvRound past int32's range gives INT_MIN, which saturates to 0
+      float v = (float)rgbe[c] * f * 255.0f;
+      o[c] = v >= 2147483648.0f ? 0 : v >= 255.0f ? 255 : (uint8_t)nearbyintf(v);
+    }
+  }
+
+  void flat(uint8_t* o, size_t count) {
+    if (pos + 4 * count > n) fail(kErrFormat, "Radiance HDR data ends early");
+    for (size_t i = 0; i < count; i++) put(d + pos + 4 * i, o + 3 * i);
+    pos += 4 * count;
+  }
+
+  void decode(uint8_t* out) {
+    header();
+    size_t w = (size_t)width;
+    if (w < 8 || w > 0x7fff) return flat(out, w * height);
+    std::vector<uint8_t> buf(4 * w);
+    for (int y = 0; y < height; y++) {
+      uint8_t* o = out + (size_t)y * w * 3;
+      if (pos + 4 > n) fail(kErrFormat, "Radiance HDR data ends early");
+      const uint8_t* p = d + pos;
+      if (p[0] != 2 || p[1] != 2 || (p[2] & 0x80)) {
+        put(p, o);
+        pos += 4;
+        return flat(o + 3, w * (height - y) - 1);
+      }
+      if ((size_t)(p[2] << 8 | p[3]) != w)
+        fail(kErrFormat, "Radiance HDR scanline of the wrong width");
+      pos += 4;
+      for (int c = 0; c < 4; c++) {
+        uint8_t* q = buf.data() + c * w;
+        uint8_t* qend = q + w;
+        while (q < qend) {
+          if (pos + 2 > n) fail(kErrFormat, "Radiance HDR data ends early");
+          int a = d[pos], b = d[pos + 1];
+          pos += 2;
+          int count = a > 128 ? a - 128 : a;
+          if (count == 0 || count > qend - q)
+            fail(kErrFormat, "bad Radiance HDR scanline data");
+          if (a > 128) {
+            memset(q, b, count);
+            q += count;
+          } else {
+            *q++ = (uint8_t)b;
+            if (--count > 0) {
+              if (pos + count > n)
+                fail(kErrFormat, "Radiance HDR data ends early");
+              memcpy(q, d + pos, count);
+              pos += count;
+              q += count;
+            }
+          }
+        }
+      }
+      for (size_t x = 0; x < w; x++) {
+        uint8_t px[4] = {buf[x], buf[w + x], buf[2 * w + x], buf[3 * w + x]};
+        put(px, o + 3 * x);
+      }
+    }
+  }
+};
+
 int report(const Error& e, char* err, int errlen) {
   if (err && errlen > 0) snprintf(err, (size_t)errlen, "%s", e.msg.c_str());
   return e.code;
@@ -1951,6 +2252,55 @@ int thc_tiff_lzw(const uint8_t* in, int64_t n, uint8_t* out, int64_t nout,
     return 0;
   } catch (const Error& e) {
     return report(e, err, errlen);
+  }
+}
+
+// (height, width) of a GIF's logical screen (kind 0) or a Radiance HDR
+// image (kind 1), from its header.
+int thc_image_info(int kind, const uint8_t* data, int64_t n, int* height,
+                   int* width, char* err, int errlen) {
+  try {
+    if (kind == 0) {
+      Gif g{data, (size_t)n};
+      g.header();
+      *height = g.height;
+      *width = g.width;
+    } else {
+      Hdr r{data, (size_t)n};
+      r.header();
+      *height = r.height;
+      *width = r.width;
+    }
+    return 0;
+  } catch (const Error& e) {
+    return report(e, err, errlen);
+  }
+}
+
+// Decode a GIF's first frame on its screen (kind 0) or a Radiance HDR
+// image (kind 1) into out, (height, width, 3) RGB uint8.
+int thc_image_decode(int kind, const uint8_t* data, int64_t n, uint8_t* out,
+                     int height, int width, char* err, int errlen) {
+  try {
+    if (kind == 0) {
+      Gif g{data, (size_t)n};
+      g.header();
+      if (g.height != height || g.width != width)
+        fail(kErrArgs, "output size does not match the GIF screen");
+      g.decode(out);
+    } else {
+      Hdr r{data, (size_t)n};
+      r.header();
+      if (r.height != height || r.width != width)
+        fail(kErrArgs, "output size does not match the HDR image");
+      r.pos = 0;
+      r.decode(out);
+    }
+    return 0;
+  } catch (const Error& e) {
+    return report(e, err, errlen);
+  } catch (const std::exception& e) {
+    return report(Error{kErrFormat, e.what()}, err, errlen);
   }
 }
 
