@@ -100,10 +100,11 @@ e. the port's image readers, the codec built with g++, on each committed
    Sun raster, LZW, Deflate and big-endian tiled planar TIFFs, interlaced
    and transparent GIFs, run-length and flat Radiance HDRs, lossless,
    lossy, lossy-with-alpha and animated WebPs, a 1024x1024 q90 lossy
-   WebP): its bytes against the sha256 of cv2's or imageio's decode in the
-   folder's digests.json; each decode timed, and that of 1024x1024 BMP,
-   PPM, Sun raster, TIFF, GIF, Radiance HDR and lossless WebP frames formed
-   here;
+   WebP, JPEG 2000 files of Pillow and tests/_torch_formats.py's
+   j2k_random, 1024x1024 lossless (5/3) and lossy (9/7) JP2s): its bytes
+   against the sha256 of cv2's or imageio's decode in the folder's
+   digests.json; each decode timed, and that of 1024x1024 BMP, PPM, Sun
+   raster, TIFF, GIF, Radiance HDR and lossless WebP frames formed here;
 f. the train entry point from configs/train_or_eval.yaml with dataset zju
    (CoreView_377, the catalog's 10 frames) in bf16 and float32, and with
    dataset synthetic in bf16, counters reset and read around each: every
@@ -191,12 +192,13 @@ Then the frame formats beside JPEG and PNG, mesh_axis_rays under torchrun
 and the examples:
 
 n1. CoreView_377 laid out with 1024x1024 BMP, PPM, Sun raster, TIFF, GIF,
-   Radiance HDR and lossless and lossy WebP frames: the train entry point
+   Radiance HDR, lossless and lossy WebP and lossless and lossy JP2
+   frames: the train entry point
    (train_or_eval.yaml, float32) for 2 steps under torchrun (1 rank) at
    mesh_axis_rays 2, its losses those of the same run here at
    mesh_axis_rays 1 (phase 6's bound), K2, K4 and K3 launched; then --type
    evaluate on its checkpoint over a frame whose input and target views
-   take the eight codings: finite metrics, K1, K2 and K4 launched, each
+   take the ten codings: finite metrics, K1, K2 and K4 launched, each
    format read;
 n2. examples/torch_minimal_render.py and torch_minimal_train.py on the
    card: exit 0, a 32x32 PNG, finite losses.
@@ -2592,6 +2594,8 @@ CODINGS = os.path.join(os.path.dirname(FIXTURES), "torch_zju_codings")
 ZJU_CAMS = 23  # cameras on set (the regular layout)
 ZJU_TRAIN_STEPS = 12  # per dtype and dataset in phase f: past the loader's prefill
 ZJU_EVAL_FRAMES = 2  # frames of CoreView_387 laid out for phase g
+HOST_SPLIT_SAMPLES = (0, 57, 131)  # train samples of the host splits
+HOST_SPLITS = {}  # phase f's median host split of a JPEG sample
 
 
 def phase_codec(card: str) -> dict:
@@ -2600,17 +2604,17 @@ def phase_codec(card: str) -> dict:
     (built in phase 2 with g++ from transhuman_tpu_torch/native) as the
     loader reads it (a frame by imread_rgb, a mask by read_png), its bytes
     held against the sha256 of cv2's or imageio's decode recorded in the
-    folder's digests.json; each decode timed on the host, median of 20, and
+    folder's digests.json; each decode timed on the host (_decode_ms), and
     so the decode of 1024x1024 BMP, PPM, Sun raster, TIFF, GIF, Radiance
     HDR and lossless WebP frames formed here and of the committed q90 lossy
-    WebP (format_frames); the event files' CRC32C, native against the
-    Python table."""
+    WebP and lossless and lossy JP2s (format_frames); the event files'
+    CRC32C, native against the Python table."""
     import hashlib
 
     from transhuman_tpu_torch.data import image_io
 
     out, by = {}, set()
-    for folder, n in ((FIXTURES, 5), (CODINGS, 8), (FORMATS, 19)):
+    for folder, n in ((FIXTURES, 5), (CODINGS, 8), (FORMATS, 27)):
         with open(os.path.join(folder, "digests.json")) as f:
             digests = json.load(f)
         check(len(digests) == n,
@@ -2625,23 +2629,16 @@ def phase_codec(card: str) -> dict:
             check(got == want["sha256"] and list(img.shape) == want["shape"],
                   f"codec: {name} decodes to {got[:12]}.. {img.shape}, want "
                   f"{want['sha256'][:12]}.. {want['shape']} ({want['by']})")
-            ms = []
-            for _ in range(20):
-                t = time.perf_counter()
-                read(path)
-                ms.append((time.perf_counter() - t) * 1e3)
-            out[name] = float(np.median(ms))
+            out[name] = _decode_ms(read, path)
             by.add(want["by"])
     # the other formats at the loader's size: 1024x1024 frames formed here
+    # (the committed ones, timed above, not again)
     src_dir = tempfile.mkdtemp(prefix="thp_formats_")
     try:
         for kind, path in format_frames(src_dir).items():
-            ms = []
-            for _ in range(20):
-                t = time.perf_counter()
-                image_io.imread_rgb(path)
-                ms.append((time.perf_counter() - t) * 1e3)
-            out[f"1024_{kind}"] = float(np.median(ms))
+            name = os.path.basename(path)
+            out[f"1024_{kind}"] = out[name] if os.path.dirname(
+                path) == FORMATS else _decode_ms(image_io.imread_rgb, path)
     finally:
         shutil.rmtree(src_dir, ignore_errors=True)
     # the event files' CRC32C: the native library against the Python table
@@ -2665,13 +2662,28 @@ def phase_codec(card: str) -> dict:
         + f"; progressive 1024x1024 q95 4:2:0 against the sequential one "
         f"{out['cv2_prog_q95_420.jpg'] / out['cv2_q95_420.jpg']:.2f}x; "
         f"1024x1024 24-bit BMP, P6, 24-bit Sun raster, Deflate TIFF, GIF, "
-        f"RLE HDR, lossless WebP, q90 lossy WebP against the sequential "
-        f"JPEG "
+        f"RLE HDR, lossless WebP, q90 lossy WebP, lossless (5/3) JP2, "
+        f"lossy (9/7) JP2 against the sequential JPEG "
         + ", ".join(f"{out[f'1024_{k}'] / out['cv2_q95_420.jpg']:.2f}x"
                     for k in ("bmp", "ppm", "sun", "tiff", "gif", "hdr",
-                              "webp_lossless", "webp_lossy"))
+                              "webp_lossless", "webp_lossy", "jp2_lossless",
+                              "jp2_lossy"))
         + f"  [{card}]")
     return out
+
+
+def _decode_ms(read, path) -> float:
+    """Host ms of read(path), median of 20 (of 5 where one decode takes
+    50 ms or more: the 1024x1024 JPEG 2000 frames)."""
+    t = time.perf_counter()
+    read(path)
+    first = time.perf_counter() - t
+    ms = []
+    for _ in range(20 if first < 0.05 else 5):
+        t = time.perf_counter()
+        read(path)
+        ms.append((time.perf_counter() - t) * 1e3)
+    return float(np.median(ms))
 
 
 def _zju_cameras(n: int, hw=(1024, 1024)):
@@ -2758,9 +2770,9 @@ def write_zju_layout(root: str, human: str, frames, n_annots: int,
     new_vertices/new_params of SMPLModel.synthetic() posed, and visibility
     files for the first half of the cameras (the rest fall back to all
     ones).  sources: lists of files; the k-th frame's views cycle through
-    sources[k % len(sources)] and take its first file's extension (an input
-    view reads the target's file name); by default the committed fixture
-    JPEGs."""
+    sources[k % len(sources)] and take its first file's extension, cut to
+    3 letters (an input view reads the target's file name); by default the
+    committed fixture JPEGs."""
     from transhuman_tpu_torch.geometry.smpl import SMPLModel, rodrigues
 
     rng = np.random.default_rng(seed)
@@ -2768,7 +2780,10 @@ def write_zju_layout(root: str, human: str, frames, n_annots: int,
     hdir = os.path.join(root, human)
     cams = _zju_cameras(ZJU_CAMS)
     sources = sources or [fixture_jpegs()]
-    ext = {f: os.path.splitext(sources[k % len(sources)][0])[1]
+    # the loader reads a frame's index from its name less 4 characters, as
+    # the reference does: a longer extension (.webp) is cut to 3 letters
+    # (readers decode by content)
+    ext = {f: os.path.splitext(sources[k % len(sources)][0])[1][:4]
            for k, f in enumerate(frames)}
     ims = [{"ims": [f"Camera_B{c + 1}/{f:06d}{ext.get(f, '.jpg')}"
                     for c in range(ZJU_CAMS)]} for f in range(n_annots)]
@@ -2814,7 +2829,7 @@ def write_zju_layout(root: str, human: str, frames, n_annots: int,
 def host_split(data, index: int) -> dict:
     """One train sample's host ms by stage, the stages of
     ZJUDataset.get_train_sample run one by one on its inputs (remap plans
-    cached, as in steady state): decode (4 JPEGs and their masks),
+    cached, as in steady state): decode (4 frames and their masks),
     undistort+remap, resize, jitter, bound mask+hull, patch sampling."""
     from transhuman_tpu_torch.data import image_io, imgproc, ray_sampling
     from transhuman_tpu_torch.data.jitter import color_jitter
@@ -2939,8 +2954,9 @@ def phase_train_zju(card: str, tmp: str, files: dict) -> tuple:
     cfg = Config.from_yaml(cfg_file, ["data_root", root, "rasterize_root",
                                       os.path.join(root, "raster")])
     data = ZJUDataset(cfg, "train", smpl=SMPLModel.synthetic())
-    split = [host_split(data, i) for i in (0, 57, 131)]
+    split = [host_split(data, i) for i in HOST_SPLIT_SAMPLES]
     med = {k: float(np.median([s[k] for s in split])) for k in split[0]}
+    HOST_SPLITS["jpeg"] = med
     log(f"[f host split] one ZJU train sample (4 views of 1024x1024 to "
         f"512x512, jitter on), host ms by stage (median of 3 samples): "
         + ", ".join(f"{k} {v:.1f}" for k, v in med.items())
@@ -4793,10 +4809,11 @@ def format_frames(src_dir: str) -> dict:
     the horizontal predictor in 8-row strips, an interlaced GIF on the
     6x6x6 colour cube, a run-length Radiance HDR and a lossless WebP
     (subtract-green and predictor transforms) (tests/_torch_formats.py's
-    writers), beside the committed q90 lossy WebP of the same decode (no
-    writer here codes VP8): kind -> path, each checked to read back as the
-    decode (the GIF as its palette's colours, the HDR within 2, the lossy
-    WebP within 9, its bytes held to cv2's in phase e)."""
+    writers), beside the committed q90 lossy WebP and lossless (5/3) and
+    lossy (9/7) JP2 files of the same decode (no writer here codes VP8 or
+    JPEG 2000): kind -> path, each checked to read back as the decode (the
+    GIF as its palette's colours, the HDR within 2, the lossy WebP and JP2
+    within 9, their bytes held to cv2's in phase e)."""
     import importlib.util
 
     from transhuman_tpu_torch.data import image_io
@@ -4825,9 +4842,11 @@ def format_frames(src_dir: str) -> dict:
         with open(out[kind], "wb") as fh:
             fh.write(data)
     out["webp_lossy"] = os.path.join(FORMATS, "cv2_q90_1024.webp")
+    out["jp2_lossless"] = os.path.join(FORMATS, "cv2_lossless_1024.jp2")
+    out["jp2_lossy"] = os.path.join(FORMATS, "cv2_lossy_1024.jp2")
     # what each reads back as, and within what
     want = {"gif": (pal.astype(np.uint8)[idx], 0), "hdr": (rgb, 2),
-            "webp_lossy": (rgb, 9)}
+            "webp_lossy": (rgb, 9), "jp2_lossy": (rgb, 9)}
     for kind, path in out.items():
         ref, tol = want.get(kind, (rgb, 0))
         got = image_io.imread_rgb(path)
@@ -4841,33 +4860,40 @@ def format_frames(src_dir: str) -> dict:
 def phase_formats(card: str, tmp: str) -> dict:
     """n. Frames of the formats cv2.imread reads beside JPEG and PNG, and
     mesh_axis_rays under torchrun, through the entry points:
-    n1. CoreView_377 laid out at 1024x1024 with BMP, PPM, Sun raster, TIFF,
-    GIF, Radiance HDR and lossless and lossy WebP frames (format_frames;
-    one format a frame), the train entry point
-    (train_or_eval.yaml, float32) for 2 steps under torchrun (1 rank) with
-    mesh_axis_rays 2, against the same in this process at mesh_axis_rays 1
-    (phase 6's loss bound: card steps are not bit-reproducible), K2 / K4 /
-    K3 launched 1 / 2 / 2 a step; then --type evaluate on its checkpoint
-    over one frame of CoreView_387 whose input and target views take the
-    eight codings under one name (cv2 decodes by content): finite PSNR and SSIM,
-    K1, K2 and K4 launched, every format read by the loader;
+    n1. CoreView_377 laid out at 1024x1024 with every view a lossless
+    (5/3) JP2 (format_frames), the train entry point (train_or_eval.yaml,
+    float32) for 2 steps under torchrun (1 rank) with mesh_axis_rays 2,
+    against the same in this process at mesh_axis_rays 1 (phase 6's loss
+    bound: card steps are not bit-reproducible), K2 / K4 / K3 launched
+    1 / 2 / 2 a step; then --type evaluate on its checkpoint over one frame
+    of CoreView_387 whose nine input and target views take the nine other
+    codings (BMP, PPM, Sun raster, TIFF, GIF, Radiance HDR, lossless and
+    lossy WebP, lossy (9/7) JP2) under one name (cv2 decodes by content):
+    finite PSNR and SSIM, K1, K2 and K4 launched, each of the ten codings
+    read by the loader (told apart by the file's digest); then the host
+    split of one train sample of the JP2 tree (host_split, phase f's
+    samples), beside phase f's of the JPEG tree;
     n2. examples/torch_minimal_render.py and torch_minimal_train.py (2
     steps) on the card: exit 0, a PNG of the stated size, finite losses.
     The torchrun command and the two examples run beside this process's
     R = 1 run (none of their times is compared)."""
+    import hashlib
     import threading
 
     from transhuman_tpu_torch import kernels
     from transhuman_tpu_torch.cli import run as run_cli
     from transhuman_tpu_torch.cli import train as train_cli
     from transhuman_tpu_torch.config import Config
-    from transhuman_tpu_torch.data import image_formats, image_io, zju
+    from transhuman_tpu_torch.data import image_io, zju
+    from transhuman_tpu_torch.geometry.smpl import SMPLModel
 
     t0 = time.perf_counter()
     src = format_frames(os.path.join(tmp, "formats_src"))
     root = os.path.join(tmp, "zju_formats")
+    # training reads lossless JP2 views only; the evaluated frame's nine
+    # views (3 inputs, 6 targets) the nine other codings
     kinds = ("bmp", "ppm", "sun", "tiff", "gif", "hdr", "webp_lossless",
-             "webp_lossy")
+             "webp_lossy", "jp2_lossy")
     cfg_file = os.path.join(CONFIGS, "train_or_eval.yaml")
     # the evaluated frame (frame 0) reads its input and target cameras:
     # each coding on one of them, the others' views cycling
@@ -4876,7 +4902,7 @@ def phase_formats(card: str, tmp: str) -> dict:
     for i, c in enumerate([*test.input_view, *test.target_view]):
         views[c] = src[kinds[i % len(kinds)]]
     write_zju_layout(root, "CoreView_377", range(0, 300, 30), 300, seed=4,
-                     sources=[[src[k]] for k in kinds])
+                     sources=[[src["jp2_lossless"]]])
     write_zju_layout(root, "CoreView_387", range(ZJU_EVAL_FRAMES),
                      ZJU_EVAL_FRAMES, seed=5, sources=[views])
     layout_s = time.perf_counter() - t0
@@ -4919,11 +4945,15 @@ def phase_formats(card: str, tmp: str) -> dict:
 
     seen, lock = {}, threading.Lock()
     read_frame = zju.imread_rgb
+    coding = {}
+    for kind, path in src.items():
+        with open(path, "rb") as fh:
+            coding[hashlib.sha256(fh.read()).digest()] = kind
 
     def frame(path):
         out = read_frame(path)
         with open(path, "rb") as fh:
-            kind = image_formats.sniff(fh.read(16)) or "other"
+            kind = coding.get(hashlib.sha256(fh.read()).digest(), "other")
         with lock:
             seen[kind] = seen.get(kind, 0) + 1
         return out
@@ -4979,13 +5009,37 @@ def phase_formats(card: str, tmp: str) -> dict:
           f"n1 evaluate: {summary}")
     check_launches("n1 evaluate", by_path["eval_formats"],
                    {"min_excess2": 1, f["dparf"]: 1, f["fetch"]: 1})
-    # each train sample reads one frame's views (one format); the
-    # evaluated frame's targets and inputs cover the seven
-    formats = {"bmp", "pxm", "sun", "tiff", "gif", "hdr", "webp"}
-    check(train_seen and set(train_seen) <= formats
-          and set(seen) == formats,
+    # the frame's geometry (cameras, masks) sets these counts and its
+    # views' codings do not: this layout's, within 10%
+    want = {"min_excess2": 875, f["dparf"]: 836, f["fetch"]: 842}
+    check(all(abs(by_path["eval_formats"][k] - n) <= 0.1 * n
+              for k, n in want.items()),
+          f"n1 evaluate: launches {by_path['eval_formats']}, want within "
+          f"10% of {want}")
+    # training reads 4 lossless JP2 views a sample; the evaluated frame's
+    # targets and inputs the nine other codings: all ten on the path
+    check(set(train_seen) == {"jp2_lossless"}
+          and train_seen["jp2_lossless"] >= 4 * N_STEPS
+          and set(seen) == set(kinds),
           f"n1: the loader read {train_seen} in training, {seen} in the "
-          "evaluation")
+          f"evaluation, want only jp2_lossless, then each of {kinds}")
+    # one train sample's host ms by stage on the JP2 tree, with nothing
+    # else running, phase f's samples (the same cameras)
+    jp2_data = zju.ZJUDataset(Config.from_yaml(cfg_file, [
+        "data_root", root, "rasterize_root", os.path.join(root, "raster")]),
+        "train", smpl=SMPLModel.synthetic())
+    split = [host_split(jp2_data, i) for i in HOST_SPLIT_SAMPLES]
+    med = {k: float(np.median([s[k] for s in split])) for k in split[0]}
+    total = sum(med.values())
+    jpeg = HOST_SPLITS.get("jpeg")
+    vs = "" if jpeg is None else (
+        f"; phase f's JPEG sample: decode {jpeg['decode']:.1f}, sum "
+        f"{sum(jpeg.values()):.1f} (x{total / sum(jpeg.values()):.2f})")
+    log(f"[n1 host split] one ZJU train sample of lossless JP2 views (4 "
+        f"views of 1024x1024 to 512x512, jitter on), host ms by stage "
+        f"(median of {len(split)} samples): "
+        + ", ".join(f"{k} {v:.1f}" for k, v in med.items())
+        + f"; sum {total:.1f}{vs}  [{card}]")
 
     # n2: the examples on the card
     for name, (rc, out) in ex.items():
@@ -4996,14 +5050,18 @@ def phase_formats(card: str, tmp: str) -> dict:
                                            ex["torch_minimal_train.py"][1])]
     check(len(losses) == 2 and all(np.isfinite(losses)),
           f"n2 train: losses {losses}")
-    log(f"[n1 formats] train_or_eval.yaml (float32) on 1024x1024 BMP, PPM, "
-        f"Sun raster, TIFF, GIF, Radiance HDR and lossless and lossy WebP "
-        f"frames: {N_STEPS} steps under torchrun at "
+    log(f"[n1 formats] train_or_eval.yaml (float32) on 1024x1024 lossless "
+        f"JP2 frames: {N_STEPS} steps under torchrun at "
         f"mesh_axis_rays 2, losses {', '.join(f'{v:.6f}' for v in loss2)}, "
         f"step ms {', '.join(f'{v:.1f}' for v in reps[0]['step_ms'])}; at "
-        f"mesh_axis_rays 1 here {', '.join(f'{v:.6f}' for v in loss1)}; "
+        f"mesh_axis_rays 1 here {', '.join(f'{v:.6f}' for v in loss1)}, "
+        f"sample_s (host ms per sample in a loader thread, beside the "
+        f"torchrun run and the examples) "
+        f"{', '.join(f'{r['sample_s'] * 1e3:.1f}' for r in recs)}; "
         f"launches {by_path['train_formats_rays2']}; files read "
-        f"{train_seen}; --type evaluate, 1 frame of mixed views: psnr "
+        f"{train_seen}; --type evaluate, 1 frame of BMP, PPM, Sun raster, "
+        f"TIFF, GIF, Radiance HDR, lossless and lossy WebP and lossy JP2 "
+        f"views: psnr "
         f"{summary['psnr']:.3f}, ssim {summary['ssim']:.4f}, files read "
         f"{seen}, launches {by_path['eval_formats']}; layout {layout_s:.1f} "
         f"s, torchrun {tr_s:.1f} s, train here {one_s:.1f} s, evaluate "
@@ -5115,7 +5173,7 @@ def main() -> int:
         by_path.update(phase_tp_train(card, tmp))
         phase_pp(card, tmp)
         log(f"[l] phase l in {time.perf_counter() - t_l:.1f} s")
-        # BMP, PPM, Sun raster, TIFF, GIF, Radiance HDR and WebP frames;
+        # BMP, PPM, Sun raster, TIFF, GIF, Radiance HDR, WebP and JP2 frames;
         # mesh_axis_rays under torchrun; the examples
         t_n = time.perf_counter()
         by_path.update(phase_formats(card, tmp))

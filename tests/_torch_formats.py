@@ -7,10 +7,11 @@ colour maps), TIFF (strips and tiles, both planar configurations, both
 byte orders, no compression, PackBits, LZW and Deflate, the horizontal
 predictor, grey, RGB and palette data, extra alpha samples), GIF (87a and
 89a, global and local tables, interlace, transparency, frames on a larger
-screen, animation), Radiance HDR (run-length and flat scanlines) and WebP
+screen, animation), Radiance HDR (run-length and flat scanlines), WebP
 (the RIFF, VP8X, ANIM and ANMF chunks; a lossless writer with the
 subtract-green and predictor transforms; lossy key frames of a chosen
-header and random modes and tokens).
+header and random modes and tokens) and JPEG 2000 (JP2 boxes; codestreams
+of chosen or drawn headers around random code-block payloads).
 
 Each writer follows its format's specification; what the port must equal
 is ``cv2.imread`` of the file, never the writer's input."""
@@ -455,12 +456,14 @@ def _quantize(img: np.ndarray):
 
 
 # a frame's extension and its cameras' codings (the views of a frame share
-# the target's file name; cv2.imread decodes by content); "webp_lossy" is
-# the caller's to make (no writer here codes VP8)
+# the target's file name; cv2.imread decodes by content); "webp_lossy",
+# "jp2_lossless" and "jp2_lossy" are the caller's to make (no writer here
+# codes VP8 or JPEG 2000's tier 1)
 FRAME_FORMATS = (
-    (".bmp", ("bmp24", "bmp_rle8", "bmp565", "gif")),
-    (".tif", ("tiff_lzw", "tiff_deflate_tiles", "webp_lossless", "tiff16")),
-    (".ppm", ("p6", "hdr", "sun24", "webp_lossy")),
+    (".bmp", ("bmp24", "bmp_rle8", "bmp565", "jp2_lossy", "gif")),
+    (".tif", ("tiff_lzw", "tiff_deflate_tiles", "jp2_lossless",
+              "webp_lossless", "tiff16")),
+    (".ppm", ("p6", "hdr", "sun24", "webp_lossy", "sun8")),
 )
 
 
@@ -1007,3 +1010,573 @@ def vp8l(rgb: np.ndarray, tile_bits: int = 4) -> bytes:
     bits.put(0, 1)  # no more transforms
     _vp8l_image(bits, argb(res), main=True)
     return riff_webp([(b"VP8L", bits.bytes())])
+
+
+# ------------------------------------------------------------- JPEG 2000
+def _box(kind: bytes, body: bytes) -> bytes:
+    return struct.pack(">I", 8 + len(body)) + kind + body
+
+
+def jp2(codestream: bytes, height: int, width: int, ncomp: int, colr=16,
+        pclr=None, cdef=None) -> bytes:
+    """A JP2 file around a codestream: the signature, ftyp, a jp2h of ihdr,
+    colr (an enumerated colour space, "icc" for a stand-in ICC profile,
+    None for no box), pclr + cmap (``pclr``: (entries (n, channels) uint8,
+    ) applied to one index component) and cdef (``cdef``: (cn, typ, asoc)
+    triples), then jp2c."""
+    boxes = _box(b"ihdr", struct.pack(">IIHBBBB", height, width, ncomp, 7, 7,
+                                      0, 0))
+    if colr == "icc":
+        boxes += _box(b"colr", bytes([2, 0, 0]) + bytes(128))
+    elif colr is not None:
+        boxes += _box(b"colr", struct.pack(">BBBI", 1, 0, 0, colr))
+    if pclr is not None:
+        entries = np.asarray(pclr, np.uint8)
+        n, ch = entries.shape
+        boxes += _box(b"pclr", struct.pack(">HB", n, ch) + bytes([7] * ch)
+                      + entries.tobytes())
+        boxes += _box(b"cmap", b"".join(struct.pack(">HBB", 0, 1, i)
+                                        for i in range(ch)))
+    if cdef is not None:
+        boxes += _box(b"cdef", struct.pack(">H", len(cdef)) + b"".join(
+            struct.pack(">HHH", *c) for c in cdef))
+    return (_box(b"jP  ", b"\r\n\x87\n")
+            + _box(b"ftyp", b"jp2 " + bytes(4) + b"jp2 ")
+            + _box(b"jp2h", boxes) + _box(b"jp2c", codestream))
+
+
+class _J2kBits:
+    """Packet header bits, MSB first, 7 bits in the byte after an 0xFF."""
+
+    def __init__(self):
+        self.out, self.buf, self.ct = bytearray(), 0, 8
+
+    def _byteout(self):
+        self.buf = (self.buf << 8) & 0xFFFF
+        self.ct = 7 if self.buf == 0xFF00 else 8
+        self.out.append(self.buf >> 8)
+
+    def put(self, v: int, n: int = 1):
+        for i in range(n - 1, -1, -1):
+            if self.ct == 0:
+                self._byteout()
+            self.ct -= 1
+            self.buf |= ((v >> i) & 1) << self.ct
+
+    def flush(self) -> bytes:
+        self._byteout()
+        if self.ct == 7:
+            self._byteout()
+        return bytes(self.out)
+
+
+class _TagTree:
+    def __init__(self, w: int, h: int):
+        self.parent, self.value, self.low, self.known = [], [], [], []
+        lw, lh = [w], [h]
+        while lw[-1] * lh[-1] > 1:
+            lw.append((lw[-1] + 1) // 2)
+            lh.append((lh[-1] + 1) // 2)
+        base = [0]
+        for a, b in zip(lw, lh):
+            base.append(base[-1] + a * b)
+        for lv in range(len(lw)):
+            for j in range(lh[lv]):
+                for i in range(lw[lv]):
+                    self.parent.append(
+                        base[lv + 1] + (j // 2) * lw[lv + 1] + i // 2
+                        if lv + 1 < len(lw) else None)
+        n = base[-1]
+        self.value, self.low, self.known = [999] * n, [0] * n, [False] * n
+
+    def set(self, leaf: int, v: int):
+        node = leaf
+        while node is not None and self.value[node] > v:
+            self.value[node] = v
+            node = self.parent[node]
+
+    def encode(self, bits: _J2kBits, leaf: int, threshold: int):
+        stack, node = [], leaf
+        while self.parent[node] is not None:
+            stack.append(node)
+            node = self.parent[node]
+        low = 0
+        while True:
+            if low > self.low[node]:
+                self.low[node] = low
+            else:
+                low = self.low[node]
+            while low < threshold:
+                if low >= self.value[node]:
+                    if not self.known[node]:
+                        bits.put(1)
+                        self.known[node] = True
+                    break
+                bits.put(0)
+                low += 1
+            self.low[node] = low
+            if not stack:
+                break
+            node = stack.pop()
+
+
+def _cdiv(a, b):
+    return -(-a // b)
+
+
+def _cdiv2(a, n):
+    return -(-a >> n)
+
+
+def _j2k_geometry(x0, y0, x1, y1, numres, prcw, prch, cblkw, cblkh):
+    """A tile-component's resolutions: (x0, y0, x1, y1, pw, ph, bands),
+    each band (bandno, x0, y0, x1, y1, precincts), each precinct (cw, ch,
+    code-block boxes), as OpenJPEG's tcd.c lays them out."""
+    out = []
+    for r in range(numres):
+        lv = numres - 1 - r
+        rx0, ry0 = _cdiv2(x0, lv), _cdiv2(y0, lv)
+        rx1, ry1 = _cdiv2(x1, lv), _cdiv2(y1, lv)
+        pdx, pdy = prcw[r], prch[r]
+        px0, py0 = rx0 >> pdx << pdx, ry0 >> pdy << pdy
+        px1, py1 = _cdiv2(rx1, pdx) << pdx, _cdiv2(ry1, pdy) << pdy
+        pw = 0 if rx0 == rx1 else (px1 - px0) >> pdx
+        ph = 0 if ry0 == ry1 else (py1 - py0) >> pdy
+        if r == 0:
+            gx0, gy0, gw, gh = px0, py0, pdx, pdy
+        else:
+            gx0, gy0, gw, gh = _cdiv2(px0, 1), _cdiv2(py0, 1), pdx - 1, pdy - 1
+        cbw, cbh = min(cblkw, gw), min(cblkh, gh)
+        bands = []
+        for b in ([0] if r == 0 else [1, 2, 3]):
+            if b == 0:
+                bx = (rx0, ry0, rx1, ry1)
+            else:
+                xo, yo = b & 1, b >> 1
+                bx = (_cdiv2(x0 - (xo << lv), lv + 1),
+                      _cdiv2(y0 - (yo << lv), lv + 1),
+                      _cdiv2(x1 - (xo << lv), lv + 1),
+                      _cdiv2(y1 - (yo << lv), lv + 1))
+            precs = []
+            for p in range(pw * ph):
+                cx = gx0 + (p % pw) * (1 << gw)
+                cy = gy0 + (p // pw) * (1 << gh)
+                qx0, qy0 = max(cx, bx[0]), max(cy, bx[1])
+                qx1, qy1 = min(cx + (1 << gw), bx[2]), min(cy + (1 << gh),
+                                                            bx[3])
+                tx, ty = qx0 >> cbw << cbw, qy0 >> cbh << cbh
+                cw = max(0, ((_cdiv2(qx1, cbw) << cbw) - tx) >> cbw)
+                ch = max(0, ((_cdiv2(qy1, cbh) << cbh) - ty) >> cbh)
+                boxes = []
+                for k in range(cw * ch):
+                    ax = tx + (k % cw) * (1 << cbw)
+                    ay = ty + (k // cw) * (1 << cbh)
+                    boxes.append((max(ax, qx0), max(ay, qy0),
+                                  min(ax + (1 << cbw), qx1),
+                                  min(ay + (1 << cbh), qy1)))
+                precs.append((cw, ch, boxes))
+            bands.append((b, *bx, precs))
+        out.append((rx0, ry0, rx1, ry1, pw, ph, pdx, pdy, bands))
+    return out
+
+
+def _j2k_order(geo, pocs, layers, tile, sub):
+    """The packets (layer, resolution, component, precinct) of a tile in
+    the order of OpenJPEG's iterators (pi.c), each once."""
+    tx0, ty0, tx1, ty1 = tile
+    nc = len(geo)
+    seen, out = set(), []
+
+    def emit(key):
+        if key not in seen:
+            seen.add(key)
+            out.append(key)
+
+    def at(c, r, x, y):
+        if r >= len(geo[c]):
+            return None
+        rx0, ry0, rx1, ry1, pw, ph, pdx, pdy, _ = geo[c][r]
+        lv = len(geo[c]) - 1 - r
+        sx, sy = sub[c][0] << lv, sub[c][1] << lv
+        trx0, try0 = _cdiv(tx0, sx), _cdiv(ty0, sy)
+        trx1, try1 = _cdiv(tx1, sx), _cdiv(ty1, sy)
+        rpx, rpy = pdx + lv, pdy + lv
+        if not (y % (sub[c][1] << rpy) == 0 or (y == ty0 and (try0 << lv) % (1 << rpy))):
+            return None
+        if not (x % (sub[c][0] << rpx) == 0 or (x == tx0 and (trx0 << lv) % (1 << rpx))):
+            return None
+        if pw == 0 or ph == 0 or trx0 == trx1 or try0 == try1:
+            return None
+        prci = (_cdiv(x, sx) >> pdx) - (trx0 >> pdx)
+        prcj = (_cdiv(y, sy) >> pdy) - (try0 >> pdy)
+        return prci + prcj * pw
+
+    def step(cs):
+        dx = min(sub[c][0] << (g[4 + 2] + len(geo[c]) - 1 - r)
+                 for c in cs for r, g in enumerate(geo[c]))
+        dy = min(sub[c][1] << (g[4 + 3] + len(geo[c]) - 1 - r)
+                 for c in cs for r, g in enumerate(geo[c]))
+        return dx, dy
+
+    def positions(dx, dy):
+        y = ty0
+        while y < ty1:
+            x = tx0
+            while x < tx1:
+                yield x, y
+                x += dx - x % dx
+            y += dy - y % dy
+
+    for r0, c0, l1, r1, c1, prg in pocs:
+        l1 = min(l1, layers)
+        if prg in (0, 1):
+            outer = ([(l, r) for l in range(l1) for r in range(r0, r1)]
+                     if prg == 0 else
+                     [(l, r) for r in range(r0, r1) for l in range(l1)])
+            for l, r in outer:
+                for c in range(c0, c1):
+                    if r < len(geo[c]):
+                        for p in range(geo[c][r][4] * geo[c][r][5]):
+                            emit((l, r, c, p))
+        elif prg == 2:
+            dx, dy = step(range(nc))
+            for r in range(r0, r1):
+                for x, y in positions(dx, dy):
+                    for c in range(c0, c1):
+                        p = at(c, r, x, y)
+                        if p is not None:
+                            for l in range(l1):
+                                emit((l, r, c, p))
+        elif prg == 3:
+            dx, dy = step(range(nc))
+            for x, y in positions(dx, dy):
+                for c in range(c0, c1):
+                    for r in range(r0, min(r1, len(geo[c]))):
+                        p = at(c, r, x, y)
+                        if p is not None:
+                            for l in range(l1):
+                                emit((l, r, c, p))
+        else:
+            for c in range(c0, c1):
+                dx, dy = step([c])
+                for x, y in positions(dx, dy):
+                    for r in range(r0, min(r1, len(geo[c]))):
+                        p = at(c, r, x, y)
+                        if p is not None:
+                            for l in range(l1):
+                                emit((l, r, c, p))
+    return out
+
+
+def _marker(code: int, body: bytes) -> bytes:
+    return struct.pack(">HH", code, 2 + len(body)) + body
+
+
+def _numpasses(bits: _J2kBits, n: int):
+    if n == 1:
+        bits.put(0, 1)
+    elif n == 2:
+        bits.put(2, 2)
+    elif n <= 5:
+        bits.put(0xC | (n - 3), 4)
+    elif n <= 36:
+        bits.put(0x1E0 | (n - 6), 9)
+    else:
+        bits.put(0xFF80 | (n - 37), 16)
+
+
+def j2k_random(width, height, seed, ncomp=None, prec=None, reversible=None,
+               numres=None, layers=None, progression=None, cblksty=None,
+               tiles=None, precincts=None, sop=None, eph=None, mct=None,
+               roi=None, poc=None, packed=None, tile_parts=None,
+               coc=None, qcc=None, subsampling=None, psot0=None, wrap=None,
+               max_bytes=10, empty=False, bitplanes=5, passes=None) -> bytes:
+    """A JPEG 2000 codestream (or a JP2 file, ``wrap``) with valid main,
+    tile-part and packet headers around random code-block payloads: every
+    code-block's inclusion layer, zero bit-planes, coding passes and
+    segment lengths are drawn from ``seed`` and written as the standard
+    codes them (tag trees, comma codes, Lblock), and its segments are
+    random bytes, which the MQ (or raw) decoder reads as decisions of its
+    own contexts.  Each keyword left None is drawn too: ``cblksty`` (the
+    six style bits), ``precincts`` (True: sizes drawn a resolution),
+    ``roi`` (component, shift), ``poc`` (a list of
+    (RSpoc, CSpoc, LYEpoc, REpoc, CEpoc, Ppoc)), ``packed`` ("ppm", "ppt"
+    or ""), ``tile_parts`` (most a tile), ``coc`` / ``qcc`` (a component
+    given its own coding style / quantisation), ``psot0`` (the last
+    tile-part's length left 0: to the EOC).  ``subsampling`` ((XRsiz,
+    YRsiz) a component, else 1) and ``wrap`` (None, or jp2()'s keywords)
+    are not drawn; ``empty``: every packet empty (no code-block data);
+    ``bitplanes``: most magnitude bit-planes a code-block codes;
+    ``passes``: (low, high) of the new passes a packet gives a
+    code-block (else 1 to 4, or 5 to 44 one time in ten)."""
+    rng = np.random.default_rng(seed)
+
+    def pick(v, f):
+        return f() if v is None else v
+
+    nc = pick(ncomp, lambda: int(rng.choice([1, 1, 2, 3, 3, 3, 4])))
+    precs = pick(prec, lambda: int(rng.choice([8] * 6 + [9, 10, 12, 16, 20])))
+    precs = [precs] * nc if np.isscalar(precs) else list(precs)
+    rev = pick(reversible, lambda: bool(rng.integers(2)))
+    nres = pick(numres, lambda: int(rng.integers(1, 7)))
+    nlay = pick(layers, lambda: int(rng.integers(1, 5)))
+    prg = pick(progression, lambda: int(rng.integers(5)))
+    sty = pick(cblksty, lambda: int(rng.integers(64)) if rng.random() < 0.7
+               else 0)
+    tdx, tdy = pick(tiles, lambda: (
+        (int(rng.integers(8, width + 8)), int(rng.integers(8, height + 8)))
+        if rng.random() < 0.35 else (width, height)))
+    use_prc = pick(precincts, lambda: rng.random() < 0.5)
+    sop = pick(sop, lambda: bool(rng.integers(2)))
+    eph = pick(eph, lambda: bool(rng.integers(2)))
+    mct = pick(mct, lambda: int(nc >= 3 and rng.random() < 0.7))
+    packed = pick(packed, lambda: str(rng.choice(["", "", "", "ppm",
+                                                  "ppt"])))
+    nparts = pick(tile_parts, lambda: int(rng.integers(1, 4)))
+    sub = pick(subsampling, lambda: [(1, 1)] * nc)
+    psot0 = pick(psot0, lambda: rng.random() < 0.1)
+    xcb = int(rng.integers(2, 7))
+    ycb = int(rng.integers(2, min(7, 13 - xcb)))
+
+    def coding(nr):
+        """Precinct sizes (log2) of nr resolutions: drawn, or 2^15."""
+        if not use_prc:
+            return [15] * nr, [15] * nr
+        return ([int(rng.integers(0 if r == 0 else 1, 7)) for r in range(nr)]
+                for _ in range(2))
+
+    prcw, prch = coding(nres)
+    # components: (numres, prcw, prch, xcb, ycb, reversible)
+    comps = [(nres, prcw, prch, xcb, ycb, rev)] * nc
+    coc_c = pick(coc, lambda: int(rng.integers(nc)) if rng.random() < 0.3
+                 else None)
+    coc_body = b""
+    if coc_c is not None:
+        fixed = mct and coc_c < 3  # the component transform needs equal
+        nr = nres if fixed else int(rng.integers(1, 7))
+        pw, ph = coding(nr)
+        cx = int(rng.integers(2, 7))
+        cy = int(rng.integers(2, min(7, 13 - cx)))
+        crev = rev if fixed else bool(rng.integers(2))
+        comps[coc_c] = (nr, pw, ph, cx, cy, crev)
+        coc_body = (struct.pack(">BB", coc_c, 1 if use_prc else 0)
+                    + struct.pack(">BBBBB", nr - 1, cx - 2, cy - 2, sty,
+                                  1 if crev else 0)
+                    + (bytes(a | b << 4 for a, b in zip(pw, ph))
+                       if use_prc else b""))
+
+    def quant(c_prec, c_rev, nr):
+        guard = int(rng.integers(1, 4))
+        gains = [0] + [1, 1, 2] * (nr - 1)
+        if c_rev:
+            expn = [c_prec + g for g in gains]
+            return 0, guard, expn, [0] * len(expn), bytes(e << 3 for e in expn)
+        style = int(rng.integers(1, 3))
+        e0 = c_prec + int(rng.integers(-1, 3))
+        if style == 1:
+            mant = int(rng.integers(2048))
+            expn = [max(e0 - (b - 1) // 3, 0) if b else e0
+                    for b in range(3 * nr - 2)]
+            return 1, guard, expn, [mant] * len(expn), struct.pack(
+                ">H", e0 << 11 | mant)
+        expn = [e0 + int(rng.integers(-1, 2)) + g for g in gains]
+        mant = [int(rng.integers(2048)) for _ in gains]
+        return 2, guard, expn, mant, b"".join(
+            struct.pack(">H", e << 11 | m) for e, m in zip(expn, mant))
+
+    qcc_c = pick(qcc, lambda: int(rng.integers(nc)) if rng.random() < 0.3
+                 else None)
+    qdef = quant(precs[0], rev, nres)
+    # a component of its own coding style gets its own steps too
+    own = {c: quant(precs[c], comps[c][5], comps[c][0])
+           for c in {coc_c, qcc_c} - {None}}
+    qs = [own.get(c, qdef) for c in range(nc)]
+    roi_c, roi_s = pick(roi, lambda: (int(rng.integers(nc)),
+                                      int(rng.integers(1, 9)))
+                        if rng.random() < 0.2 else (None, 0))
+    pocs = pick(poc, lambda: None if rng.random() < 0.75 else [
+        (0, 0, int(rng.integers(1, nlay + 1)), int(rng.integers(1, 8)),
+         int(rng.integers(1, nc + 1)), int(rng.integers(5))),
+        (0, 0, nlay, 33, nc, int(rng.integers(5)))])
+
+    # main header
+    cs = bytearray(b"\xff\x4f")
+    cs += _marker(0xFF51, struct.pack(">HIIIIIIIIH", 0, width, height, 0, 0,
+                                      tdx, tdy, 0, 0, nc) + b"".join(
+        struct.pack(">BBB", p - 1, *d) for p, d in zip(precs, sub)))
+    scod = (1 if use_prc else 0) | (2 if sop else 0) | (4 if eph else 0)
+    cs += _marker(0xFF52, struct.pack(">BBHB", scod, prg, nlay, mct)
+                  + struct.pack(">BBBBB", nres - 1, xcb - 2, ycb - 2, sty,
+                                1 if rev else 0)
+                  + (bytes(a | b << 4 for a, b in zip(prcw, prch))
+                     if use_prc else b""))
+    if coc_body:
+        cs += _marker(0xFF53, coc_body)
+    style, guard, _, _, body = qdef
+    cs += _marker(0xFF5C, bytes([guard << 5 | style]) + body)
+    for c in sorted(own):
+        style, guard, _, _, body = own[c]
+        cs += _marker(0xFF5D, bytes([c, guard << 5 | style]) + body)
+    if roi_c is not None:
+        cs += _marker(0xFF5E, bytes([roi_c, 0, roi_s]))
+    if pocs:
+        cs += _marker(0xFF5F, b"".join(struct.pack(">BBHBBB", *p)
+                                       for p in pocs))
+    cs += _marker(0xFF64, b"\x00\x01random code-blocks")
+    # tiles
+    ntx, nty = _cdiv(width, tdx), _cdiv(height, tdy)
+    tiles_out, ppm_chunks = [], []
+    for t in range(ntx * nty):
+        p, q = t % ntx, t // ntx
+        box = (p * tdx, q * tdy, min((p + 1) * tdx, width),
+               min((q + 1) * tdy, height))
+        geo = [_j2k_geometry(*(_cdiv(v, sub[c][i % 2])
+                               for i, v in enumerate(box)), *comps[c][:5])
+               for c in range(nc)]
+        order = _j2k_order(geo, pocs or [(0, 0, nlay, max(
+            g[0] for g in comps), nc, prg)], nlay, box, sub)
+        state = {}
+        trees = {}
+        headers, bodies = [], []
+        for nsop, (l, r, c, p) in enumerate(order):
+            c_nres, _, _, _, _, c_rev = comps[c]
+            qstyle, qguard, expn, _, _ = qs[c]
+            bits = _J2kBits()
+            blocks = []
+            for band in geo[c][r][8]:
+                bno, bx0, by0, bx1, by1, precs_ = band
+                if bx1 - bx0 == 0 or by1 - by0 == 0:
+                    continue
+                cw, ch, boxes = precs_[p]
+                key = (c, r, bno, p)
+                if key not in trees and boxes:
+                    incl, imsb = _TagTree(cw, ch), _TagTree(cw, ch)
+                    mb = expn[0 if r == 0 else 3 * (r - 1) + bno] + qguard - 1
+                    plan = []
+                    for k in range(len(boxes)):
+                        first = nlay if empty else int(rng.integers(
+                            0, nlay + 1))
+                        nbps = int(rng.integers(0, min(mb + 1, bitplanes)
+                                                + 1))
+                        incl.set(k, first if first < nlay else 999)
+                        imsb.set(k, mb + 1 - nbps)
+                        plan.append(first)
+                    trees[key] = (incl, imsb, plan)
+                    for k in range(len(boxes)):
+                        state[key + (k,)] = {"segs": [], "lenbits": 3}
+                if boxes:
+                    blocks.append((key, boxes))
+            # which code-blocks this packet includes: each at its first
+            # layer, then in most later ones
+            inc = {}
+            for key, boxes in blocks:
+                plan = trees[key][2]
+                for k in range(len(boxes)):
+                    inc[key + (k,)] = (plan[k] == l or plan[k] < l
+                                       and rng.random() < 0.7)
+            payload = bytearray()
+            if not any(inc.values()) and (empty or rng.random() < 0.5):
+                bits.put(0)  # an empty packet
+            else:
+                bits.put(1)
+                for key, boxes in blocks:
+                    incl, imsb, _ = trees[key]
+                    for k in range(len(boxes)):
+                        st = state[key + (k,)]
+                        if not st["segs"]:
+                            incl.encode(bits, k, l + 1)
+                        else:
+                            bits.put(inc[key + (k,)])
+                        if not inc[key + (k,)]:
+                            continue
+                        if not st["segs"]:
+                            imsb.encode(bits, k, 999)
+                        if passes:
+                            n = int(rng.integers(*passes))
+                        elif rng.random() < 0.9:
+                            n = int(rng.integers(1, 5))
+                        else:
+                            n = int(rng.integers(5, 45))
+                        _numpasses(bits, n)
+                        # the new passes split into segments as t2.c does
+                        segs, pieces, left = st["segs"], [], n
+                        if not segs or segs[-1][0] == segs[-1][1]:
+                            segs.append([0, _maxpasses(sty, segs)])
+                        while True:
+                            take = min(segs[-1][1] - segs[-1][0], left)
+                            segs[-1][0] += take
+                            pieces.append(take)
+                            left -= take
+                            if left <= 0:
+                                break
+                            segs.append([0, _maxpasses(sty, segs)])
+                        lens = [int(rng.integers(0, max_bytes + 1))
+                                for _ in pieces]
+                        need = max([st["lenbits"]] + [
+                            ln.bit_length() - (tk.bit_length() - 1)
+                            for ln, tk in zip(lens, pieces)])
+                        bits.put((1 << (need - st["lenbits"])) - 1,
+                                 need - st["lenbits"])
+                        bits.put(0)
+                        st["lenbits"] = need
+                        for ln, tk in zip(lens, pieces):
+                            bits.put(ln, need + tk.bit_length() - 1)
+                        payload += rng.integers(0, 256, sum(lens),
+                                                np.uint8).tobytes()
+            hdr = bits.flush() + (b"\xff\x92" if eph else b"")
+            lead = (b"\xff\x91" + struct.pack(">HH", 4, nsop & 0xFFFF)
+                    if sop else b"")
+            headers.append(hdr)
+            bodies.append((lead, bytes(payload)))
+        tiles_out.append((headers, bodies))
+
+    # tile-parts
+    for t, (headers, bodies) in enumerate(tiles_out):
+        if packed:
+            packets = [lead + body for lead, body in bodies]
+        else:
+            packets = [lead + hdr + body
+                       for hdr, (lead, body) in zip(headers, bodies)]
+        k = 1 if packed == "ppm" else max(1, min(nparts, len(packets)))
+        cuts = sorted(rng.choice(np.arange(1, len(packets)), k - 1,
+                                 replace=False)) if k > 1 else []
+        bounds = [0, *cuts, len(packets)]
+        for part in range(k):
+            extra = b""
+            if packed == "ppt" and part == 0:
+                allh = b"".join(headers)
+                half = len(allh) // 2
+                extra = (_marker(0xFF61, b"\x01" + allh[half:])
+                         + _marker(0xFF61, b"\x00" + allh[:half]))
+            if packed == "ppm":
+                ppm_chunks.append(b"".join(headers))
+            data = b"".join(packets[bounds[part]:bounds[part + 1]])
+            psot = 12 + len(extra) + 2 + len(data)
+            if psot0 and t == len(tiles_out) - 1 and part == k - 1:
+                psot = 0  # the last tile-part runs to the EOC
+            cs += struct.pack(">HHHIBB", 0xFF90, 10, t, psot, part, k)
+            cs += extra + b"\xff\x93" + data
+    if packed == "ppm":
+        # Nppm and Ippm of each tile-part, over two markers, Zppm 1 first
+        allp = b"".join(struct.pack(">I", len(ch)) + ch for ch in ppm_chunks)
+        cut = 4 + len(ppm_chunks[0]) if len(ppm_chunks) > 1 else len(allp)
+        first = _marker(0xFF60, b"\x00" + allp[:cut])
+        second = _marker(0xFF60, b"\x01" + allp[cut:]) if cut < len(allp) \
+            else b""
+        sot = cs.index(b"\xff\x90\x00\x0a")
+        cs[sot:sot] = second + first
+    cs += b"\xff\xd9"
+    if wrap is None:
+        return bytes(cs)
+    return jp2(bytes(cs), height, width, nc, **wrap)
+
+
+def _maxpasses(sty: int, segs) -> int:
+    """t2.c's opj_t2_init_seg: the passes a new segment holds."""
+    if sty & 4:  # TERMALL
+        return 1
+    if sty & 1:  # BYPASS
+        if len(segs) == 0:
+            return 10
+        return 2 if segs[-1][1] in (1, 10) else 1
+    return 109

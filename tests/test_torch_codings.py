@@ -290,14 +290,18 @@ def test_png_exif_chunks_are_chosen_as_libpng_chooses():
 
 
 def test_other_signatures_name_their_path(tmp_path):
-    # a JPEG 2000 stays refused (BMP, PxM, Sun raster, TIFF, GIF, Radiance
-    # HDR and WebP frames read as cv2 reads them:
+    # an AVIF stays refused (BMP, PxM, Sun raster, TIFF, GIF, Radiance
+    # HDR, WebP and JPEG 2000 frames read as cv2 reads them:
     # tests/test_torch_formats.py)
-    p = tmp_path / "frame.jp2"
-    ok, jp2 = cv2.imencode(".jp2", np.zeros((64, 64, 3), np.uint8))
-    p.write_bytes(jp2.tobytes())
-    with pytest.raises(FileNotFoundError, match="frame.jp2"):
+    p = tmp_path / "frame.avif"
+    ok, avif = cv2.imencode(".avif", np.zeros((64, 64, 3), np.uint8))
+    p.write_bytes(avif.tobytes())
+    with pytest.raises(FileNotFoundError, match="frame.avif.*AVIF"):
         image_io.imread_rgb(str(p))
+    ok, jp2 = cv2.imencode(".jp2", np.zeros((64, 64, 3), np.uint8))
+    (tmp_path / "frame.jp2").write_bytes(jp2.tobytes())
+    _same(image_io.imread_rgb(str(tmp_path / "frame.jp2")),
+          cv2_decode(jp2.tobytes()))
     jpg = pil_jpeg(smooth_image(8, 8, seed=1), 90, 0)
     (tmp_path / "frame.png").write_bytes(jpg)  # a JPEG named .png
     _same(image_io.imread_rgb(str(tmp_path / "frame.png")), cv2_decode(jpg))

@@ -1,9 +1,10 @@
 """The port's readers of the frame formats ``cv2.imread`` reads beside JPEG
 and PNG (data/image_formats.py through data/image_io.py::imread_rgb): each
 variant of BMP, PxM (PBM, PGM, PPM, PAM, PFM), Sun raster, TIFF, GIF,
-Radiance HDR and WebP bit for bit against ``cv2.imread`` of the same file
-+ BGR -> RGB; what either side refuses; and a ZJU-MoCap layout whose
-frames mix BMP, PPM, Sun raster, TIFF, GIF, HDR and WebP, read by the
+Radiance HDR, WebP and JPEG 2000 bit for bit against ``cv2.imread`` of the
+same file + BGR -> RGB (and 120 seeds of tests/_torch_formats.py's
+j2k_random); what either side refuses; and a ZJU-MoCap layout whose
+frames mix BMP, PPM, Sun raster, TIFF, GIF, HDR, WebP and JP2, read by the
 port's loader and the JAX package's at the loader bounds of PERF.md
 section 2.
 
@@ -495,8 +496,181 @@ def _webp_cases():
     return c
 
 
+def _pil_j2k(img, **kw) -> bytes:
+    import io
+
+    from PIL import Image
+
+    buf = io.BytesIO()
+    Image.fromarray(img).save(buf, "JPEG2000", **kw)
+    return buf.getvalue()
+
+
+PROGRESSIONS = ("LRCP", "RLCP", "RPCL", "PCRL", "CPRL")
+
+
+def _jpeg2000_cases():
+    """Pillow's and cv2's JPEG 2000 writers (OpenJPEG) and j2k_random:
+    JP2 and raw codestreams, 5/3 and 9/7, grey, 16-bit grey, RGB, RGBA,
+    quality layers, tiles at a size they do not divide, the five
+    progression orders over precincts, code-blocks of 16x8, 1 and 6
+    resolutions, PLT and COM markers; then what no writer here sets: the
+    code-block style bits, ROI, SOP/EPH, PPM/PPT, POC, tile-parts,
+    COC/QCC, precisions above 8, palettes, channel definitions, sYCC."""
+    img = _smooth(80, 96, 140)
+    grey = img[..., 1].copy()
+    g16 = (_smooth(80, 96, 141)[..., 0].astype(np.uint16) * 257
+           + _rng(141).integers(0, 256, (80, 96))).astype(np.uint16)
+    rgba = _rgba(80, 96, 142)
+    lossy = {"irreversible": True, "quality_layers": [20],
+             "quality_mode": "rates"}
+    c = {
+        # the former refusal case: cv2's writer
+        "jpeg2000": lambda: _cv2_write(".jp2", _rgb(64, 64, 88)),
+        "jpeg2000_cv2_lossless": lambda: _cv2_write(
+            ".jp2", img[..., ::-1], (cv2.IMWRITE_JPEG2000_COMPRESSION_X1000,
+                                     1000)),
+        "jpeg2000_cv2_lossy": lambda: _cv2_write(
+            ".jp2", img[..., ::-1], (cv2.IMWRITE_JPEG2000_COMPRESSION_X1000,
+                                     100)),
+        "jpeg2000_cv2_16bit_lossless": lambda: _cv2_write(
+            ".jp2", _rng(148).integers(0, 1 << 16, (70, 90, 3)).astype(
+                np.uint16), (cv2.IMWRITE_JPEG2000_COMPRESSION_X1000, 1000)),
+        "jpeg2000_cv2_16bit_lossy": lambda: _cv2_write(
+            ".jp2", g16, (cv2.IMWRITE_JPEG2000_COMPRESSION_X1000, 300)),
+        "jpeg2000_cv2_grey_odd_size": lambda: _cv2_write(
+            ".jp2", _smooth(65, 97, 149)[..., 0].copy()),
+        "jpeg2000_jp2_53": lambda: _pil_j2k(img),
+        "jpeg2000_jp2_97": lambda: _pil_j2k(img, **lossy),
+        "jpeg2000_j2k_53": lambda: _pil_j2k(img, no_jp2=True),
+        "jpeg2000_j2k_97": lambda: _pil_j2k(img, no_jp2=True, **lossy),
+        "jpeg2000_grey": lambda: _pil_j2k(grey),
+        "jpeg2000_grey_97": lambda: _pil_j2k(grey, **lossy),
+        "jpeg2000_grey16": lambda: _pil_j2k(g16),
+        "jpeg2000_grey16_97": lambda: _pil_j2k(g16, irreversible=True),
+        "jpeg2000_rgba": lambda: _pil_j2k(rgba),
+        "jpeg2000_rgba_97": lambda: _pil_j2k(rgba, **lossy),
+        "jpeg2000_mct_0": lambda: _pil_j2k(img, mct=0),
+        "jpeg2000_mct_0_97": lambda: _pil_j2k(img, mct=0, **lossy),
+        "jpeg2000_3_layers": lambda: _pil_j2k(
+            img, quality_layers=[40, 20, 10], quality_mode="rates"),
+        "jpeg2000_3_layers_97": lambda: _pil_j2k(
+            img, quality_layers=[40, 20, 10], quality_mode="rates",
+            irreversible=True),
+        "jpeg2000_tiles_32": lambda: _pil_j2k(img, tile_size=(32, 32)),
+        "jpeg2000_tiles_32_97": lambda: _pil_j2k(img, tile_size=(32, 32),
+                                                 **lossy),
+        "jpeg2000_codeblocks_16x8": lambda: _pil_j2k(
+            img, codeblock_size=(16, 8)),
+        "jpeg2000_codeblocks_16x8_97": lambda: _pil_j2k(
+            img, codeblock_size=(16, 8), **lossy),
+        "jpeg2000_1_resolution": lambda: _pil_j2k(img, num_resolutions=1),
+        "jpeg2000_1_resolution_97": lambda: _pil_j2k(
+            img, num_resolutions=1, **lossy),
+        "jpeg2000_precincts_128": lambda: _pil_j2k(
+            img, precinct_size=(128, 128)),
+        "jpeg2000_plt_com": lambda: _pil_j2k(img, add_plt=True,
+                                             comment="a comment"),
+    }
+    for prog in PROGRESSIONS:
+        c[f"jpeg2000_{prog}_precincts"] = (lambda prog=prog: _pil_j2k(
+            img, progression=prog, precinct_size=(32, 32),
+            num_resolutions=3, quality_layers=[30, 10],
+            quality_mode="rates"))
+        c[f"jpeg2000_{prog}_precincts_97"] = (lambda prog=prog: _pil_j2k(
+            img, progression=prog, precinct_size=(64, 64),
+            num_resolutions=3, quality_layers=[30, 10],
+            quality_mode="rates", irreversible=True))
+    # j2k_random: one feature each (the rest of the header drawn)
+    for bit, name in ((1, "bypass"), (2, "reset"), (4, "termall"),
+                      (8, "vsc"), (16, "pterm"), (32, "segsym"),
+                      (63, "every_style_bit"), (5, "bypass_termall")):
+        for rev in (True, False):
+            c[f"jpeg2000_random_{name}_{'53' if rev else '97'}"] = (
+                lambda bit=bit, rev=rev: F.j2k_random(
+                    37, 29, 150 + bit, ncomp=3, cblksty=bit, reversible=rev,
+                    layers=3, max_bytes=14, bitplanes=9, passes=(3, 12)))
+    rand = {
+        "roi_shift": dict(ncomp=3, roi=(1, 5)),
+        "roi_shift_bypass": dict(ncomp=3, roi=(0, 3), cblksty=1,
+                                 bitplanes=9, passes=(4, 14)),
+        "sop_eph": dict(ncomp=3, sop=True, eph=True, layers=3),
+        "ppm": dict(ncomp=3, packed="ppm", tiles=(16, 16), sop=True),
+        "ppt": dict(ncomp=3, packed="ppt", tiles=(24, 16), eph=True),
+        "poc": dict(ncomp=3, poc=[(0, 0, 2, 2, 2, 2), (1, 0, 3, 33, 3, 4),
+                                  (0, 0, 3, 33, 3, 0)], layers=3),
+        "tile_parts": dict(ncomp=3, tiles=(20, 13), tile_parts=3, layers=4),
+        "psot_0": dict(ncomp=3, psot0=True, tiles=(40, 40)),
+        "coc_qcc": dict(ncomp=3, mct=0, coc=1, qcc=2),
+        "precision_12": dict(ncomp=3, prec=12),
+        "precision_20": dict(ncomp=3, prec=20, reversible=False),
+        "precisions_8_16_10": dict(ncomp=3, prec=[8, 16, 10], mct=0),
+        "small_precincts": dict(ncomp=3, precincts=True, numres=4),
+        "grey_jp2": dict(ncomp=1, wrap={"colr": 17}),
+        "grey_alpha_jp2": dict(ncomp=2, wrap={"colr": 17, "cdef": [
+            (0, 0, 1), (1, 1, 0)]}),
+        "palette": dict(ncomp=1, wrap={"colr": 16, "pclr": _pal(200, 143)}),
+        "rgba_alpha_first": dict(ncomp=4, wrap={"colr": 16, "cdef": [
+            (0, 1, 0), (1, 0, 1), (2, 0, 2), (3, 0, 3)]}),
+        "channels_reordered": dict(ncomp=3, wrap={"colr": 16, "cdef": [
+            (0, 0, 3), (1, 0, 2), (2, 0, 1)]}),
+        "sycc": dict(ncomp=3, wrap={"colr": 18}),
+        "icc_profile": dict(ncomp=3, wrap={"colr": "icc"}),
+        "no_colour_box": dict(ncomp=3, wrap={"colr": None}),
+        "one_pixel": dict(ncomp=3, width=1, height=1, numres=6),
+    }
+    for kind in ("colr_before_ihdr", "other_boxes", "codestream_to_the_end"):
+        c[f"jpeg2000_jp2_{kind}"] = lambda kind=kind: _jp2_boxes(kind)
+    for k, (name, kw) in enumerate(rand.items()):
+        kw = dict(kw)
+        w, h = kw.pop("width", 41), kw.pop("height", 27)
+        c[f"jpeg2000_random_{name}"] = (
+            lambda kw=kw, w=w, h=h, k=k: F.j2k_random(w, h, 170 + k, **kw))
+    for prog in range(5):
+        c[f"jpeg2000_random_{PROGRESSIONS[prog]}_small_precincts"] = (
+            lambda prog=prog: F.j2k_random(45, 38, 190 + prog, ncomp=3,
+                                           progression=prog, precincts=True,
+                                           tiles=(13, 11)))
+    return c
+
+
 CASES = {**_bmp_cases(), **_pxm_cases(), **_sun_cases(), **_tiff_cases(),
-         **_gif_cases(), **_hdr_cases(), **_webp_cases()}
+         **_gif_cases(), **_hdr_cases(), **_webp_cases(),
+         **_jpeg2000_cases()}
+
+
+def j2k_seed(seed: int) -> bytes:
+    """j2k_random's file of ``seed`` at a drawn size (1 to 47 a side), as a
+    file cv2 reads: a grey codestream (one or two components) in a JP2
+    with a grey colour space, channel definitions or a palette; three or
+    four components raw or in a JP2 of any colour box cv2 reads."""
+    rng = _rng(10_000 + seed)
+    w, h = int(rng.integers(1, 48)), int(rng.integers(1, 48))
+    nc = int(rng.choice([1, 2, 3, 3, 4]))
+    if nc == 1:
+        wrap = [{"colr": 17},
+                {"colr": 16, "pclr": rng.integers(0, 256, (int(
+                    rng.integers(1, 257)), 3))},
+                {"colr": 18, "pclr": rng.integers(0, 256, (200, 3))}][
+            int(rng.integers(3))]
+    elif nc == 2:
+        wrap = [{"colr": 17}, {"colr": 17, "cdef": [(0, 0, 1), (1, 1, 0)]},
+                {"colr": 17, "cdef": [(1, 0, 1), (0, 1, 0)]}][
+            int(rng.integers(3))]
+    else:
+        wrap = [None, {"colr": 16}, {"colr": 18}, {"colr": "icc"},
+                {"colr": None}, {"colr": 17}, {"colr": 14}][
+            int(rng.integers(7))]
+        if nc == 4 and wrap is not None and rng.random() < 0.7:
+            wrap = dict(wrap, cdef=[
+                [(0, 0, 1), (1, 0, 2), (2, 0, 3), (3, 1, 0)],
+                [(0, 0, 3), (1, 0, 2), (2, 0, 1), (3, 1, 0)],
+                [(0, 1, 0), (1, 0, 1), (2, 0, 2), (3, 0, 3)],
+                [(0, 0, 1), (1, 0, 2), (2, 0, 3), (3, 2, 0)],
+                [(0, 0, 2), (1, 0, 3), (2, 0, 1), (3, 65535, 65535)],
+                [(0, 1, 0), (1, 1, 0), (2, 0, 1), (3, 0, 2)]][
+                int(rng.integers(6))])
+    return F.j2k_random(w, h, seed, ncomp=nc, wrap=wrap)
 
 
 def cv2_imread(path) -> np.ndarray:
@@ -518,6 +692,19 @@ def test_each_variant_reads_as_cv2_imread(name, tmp_path):
     want = cv2_imread(p)
     assert want is not None, f"cv2.imread reads nothing of {name}"
     _same(image_io.imread_rgb(str(p)), want, name)
+
+
+@pytest.mark.parametrize("first", range(0, 120, 10))
+def test_jpeg2000_random_codestreams_read_as_cv2_imread(first, tmp_path):
+    """Ten seeds of j2k_random a case, 120 in all: every header field and
+    code-block payload drawn, every file one cv2 reads, the port's image
+    bit for bit cv2's."""
+    for seed in range(first, first + 10):
+        p = tmp_path / f"seed_{seed}.jp2"
+        p.write_bytes(j2k_seed(seed))
+        want = cv2_imread(p)
+        assert want is not None, f"cv2.imread reads nothing of seed {seed}"
+        _same(image_io.imread_rgb(str(p)), want, f"seed {seed}")
 
 
 # ---------------------------------------------------------------- refusals
@@ -584,9 +771,129 @@ def _refusal_cases():
                                     "WebP lossless version 1", True),
         "avif": (lambda: _cv2_write(".avif", bgr), "AVIF is not read",
                  False),
-        "jpeg2000": (lambda: _cv2_write(".jp2", _rgb(64, 64, 88)),
-                     "JPEG 2000 is not read", False),
+        # JPEG 2000: cv2 reads nothing of these either
+        "jpeg2000_image_offset": (lambda: _j2k_siz(XOsiz=8),
+                                  "image or tile-grid offset", True),
+        "jpeg2000_tile_offset": (lambda: _j2k_siz(XOsiz=8, XTOsiz=4),
+                                 "image or tile-grid offset", True),
+        "jpeg2000_signed": (lambda: _pil_j2k(rgb, signed=True),
+                            "signed component 0", True),
+        **{f"jpeg2000_cut_{k}": (lambda k=k: _cut(_pil_j2k(
+            _smooth(80, 96, 144), tile_size=(32, 32)), k),
+            "cut codestream", True) for k in (50, 90, 99)},
+        "jpeg2000_cut_in_main_header": (lambda: _pil_j2k(
+            rgb, no_jp2=True)[:60], "cut codestream \\(in its main header",
+            True),
+        "jpeg2000_cut_before_codestream": (lambda: _pil_j2k(rgb)[:70],
+                                           "cut JP2 file", True),
+        "jpeg2000_no_eoc": (lambda: _pil_j2k(rgb, no_jp2=True)[:-2],
+                            "no EOC after its last tile-part", True),
+        "jpeg2000_grey_codestream": (lambda: _pil_j2k(
+            rgb[..., 0].copy(), no_jp2=True),
+            "1 components without a JP2 grey colour space", True),
+        "jpeg2000_precision_4": (lambda: F.j2k_random(
+            20, 20, 200, ncomp=3, prec=4), "precision below 8 bits", True),
+        "jpeg2000_five_components": (lambda: F.j2k_random(
+            20, 20, 201, ncomp=5, mct=0), "5 components", True),
+        "jpeg2000_subsampled": (lambda: F.j2k_random(
+            21, 19, 202, ncomp=3, mct=0,
+            subsampling=[(1, 1), (2, 2), (2, 2)]),
+            "sub-sampled component 1", True),
+        "jpeg2000_e_sycc": (lambda: F.j2k_random(
+            20, 20, 203, ncomp=3, wrap={"colr": 24}), "e-sYCC", True),
+        "jpeg2000_cmyk": (lambda: F.j2k_random(
+            20, 20, 204, ncomp=4, wrap={"colr": 12}), "CMYK", True),
+        "jpeg2000_sycc_grey": (lambda: F.j2k_random(
+            20, 20, 205, ncomp=1, wrap={"colr": 18}),
+            "sYCC image of fewer than 3 components", True),
+        "jpeg2000_tile_without_data": (lambda: F.j2k_random(
+            20, 20, 206, ncomp=3, packed="ppt", sop=False, empty=True),
+            "tile 0 of no packet data", True),
+        "jpeg2000_jp2_without_ftyp": (lambda: _jp2_boxes("no_ftyp"),
+                                      "second box is not ftyp", True),
+        "jpeg2000_jp2_without_jp2h": (lambda: _jp2_boxes("no_jp2h"),
+                                      "without a header box", True),
+        "jpeg2000_jp2_without_ihdr": (lambda: _jp2_boxes("no_ihdr"),
+                                      "header box without ihdr", True),
+        "jpeg2000_jp2_ihdr_size": (lambda: _jp2_boxes("ihdr_size"),
+                                   "ihdr size is not its codestream's",
+                                   True),
+        # HTJ2K (Part 15): no writer here codes it
+        "jpeg2000_htj2k_rsiz": (lambda: _j2k_siz(Rsiz=0x4000),
+                                "HTJ2K \\(Part 15\\) codestream \\(Rsiz",
+                                False),
+        "jpeg2000_htj2k_cap": (lambda: _j2k_cap(), "HTJ2K .* \\(CAP marker",
+                               False),
+        "jpeg2000_htj2k_code_blocks": (lambda: _j2k_cblksty(0x40),
+                                       "HTJ2K \\(Part 15\\) code-blocks",
+                                       False),
     }
+
+
+def _jp2_boxes(kind):
+    """A JP2 file of j2k_random's codestream whose boxes are laid out as
+    ``kind`` says (what jp2.c checks of their order)."""
+    import struct
+
+    cs = F.j2k_random(30, 20, 207, ncomp=3)
+    ihdr = F._box(b"ihdr", struct.pack(">IIHBBBB", 20, 30, 3, 7, 7, 0, 0))
+    colr = F._box(b"colr", struct.pack(">BBBI", 1, 0, 0, 16))
+    head = F._box(b"jP  ", b"\r\n\x87\n")
+    ftyp = F._box(b"ftyp", b"jp2 " + bytes(4) + b"jp2 ")
+    return head + {
+        "colr_before_ihdr": ftyp + F._box(b"jp2h", colr + ihdr)
+        + F._box(b"jp2c", cs),
+        "other_boxes": ftyp + F._box(b"xml ", b"<a/>")
+        + F._box(b"jp2h", ihdr + colr) + F._box(b"uuid", bytes(20))
+        + F._box(b"jp2c", cs),
+        "codestream_to_the_end": ftyp + F._box(b"jp2h", ihdr + colr)
+        + b"\0\0\0\0jp2c" + cs,
+        "no_ftyp": F._box(b"jp2h", ihdr + colr) + F._box(b"jp2c", cs),
+        "no_jp2h": ftyp + F._box(b"jp2c", cs),
+        "no_ihdr": ftyp + F._box(b"jp2h", colr) + F._box(b"jp2c", cs),
+        "ihdr_size": ftyp + F._box(b"jp2h", F._box(b"ihdr", struct.pack(
+            ">IIHBBBB", 21, 30, 3, 7, 7, 0, 0)) + colr) + F._box(b"jp2c", cs),
+    }[kind]
+
+
+def _cut(data, percent):
+    return data[:len(data) * percent // 100]
+
+
+_SIZ_FIELDS = ("Rsiz", "Xsiz", "Ysiz", "XOsiz", "YOsiz", "XTsiz", "YTsiz",
+               "XTOsiz", "YTOsiz")
+
+
+def _j2k_siz(**fields):
+    """A Pillow codestream whose SIZ fields are changed: each offset added
+    to the image (or tile grid) size too, as a writer lays them out."""
+    import struct
+
+    data = bytearray(_pil_j2k(_rgb(24, 32, 145), no_jp2=True))
+    vals = list(struct.unpack_from(">HIIIIIIII", data, 6))
+    for k, v in fields.items():
+        i = _SIZ_FIELDS.index(k)
+        vals[i] = v
+        if k in ("XOsiz", "YOsiz"):
+            vals[i - 2] += v
+    struct.pack_into(">HIIIIIIII", data, 6, *vals)
+    return bytes(data)
+
+
+def _j2k_cap():
+    """A Pillow codestream with a CAP marker after SIZ."""
+    data = _pil_j2k(_rgb(24, 32, 146), no_jp2=True)
+    end = 4 + int.from_bytes(data[4:6], "big")
+    return data[:end] + b"\xff\x50\x00\x08\x00\x02\x00\x00\x00\x00" + (
+        data[end:])
+
+
+def _j2k_cblksty(sty):
+    """A Pillow codestream whose COD names code-block style sty."""
+    data = bytearray(_pil_j2k(_rgb(24, 32, 147), no_jp2=True))
+    cod = data.index(b"\xff\x52")
+    data[cod + 12] = sty  # Lcod, Scod, SGcod (4), NL, xcb, ycb, style
+    return bytes(data)
 
 
 def _hdr_layout(line):
@@ -667,6 +974,13 @@ FIXTURE_CASES = {
     "webp_cv2_lossy_q90.webp": "webp_cv2_lossy_q90",
     "webp_lossy_alpha.webp": "webp_lossy_alpha",
     "webp_animated_frame_offset.webp": "webp_animated_frame_offset",
+    "jpeg2000_jp2_97.jp2": "jpeg2000_jp2_97",
+    "jpeg2000_grey16.jp2": "jpeg2000_grey16",
+    "jpeg2000_tiles_32.jp2": "jpeg2000_tiles_32",
+    "jpeg2000_random_every_style_bit_97.j2k":
+        "jpeg2000_random_every_style_bit_97",
+    "jpeg2000_random_ppm.j2k": "jpeg2000_random_ppm",
+    "jpeg2000_random_sycc.jp2": "jpeg2000_random_sycc",
 }
 
 
@@ -686,12 +1000,23 @@ def _lossy_1024():
                       (cv2.IMWRITE_WEBP_QUALITY, 90))
 
 
+def _jp2_1024(x1000):
+    """The 1024x1024 q95 fixture JPEG's decode as cv2's JP2: lossless (5/3)
+    at a compression of 1000, lossy (9/7) below."""
+    jpeg = os.path.join(os.path.dirname(FIXTURES), "torch_zju",
+                        "cv2_q95_420.jpg")
+    return _cv2_write(".jp2", cv2.imread(jpeg),
+                      (cv2.IMWRITE_JPEG2000_COMPRESSION_X1000, x1000))
+
+
 # what phase e times: the LZW and Deflate TIFFs in cv2's layout (strips of
-# 8 KiB of raw rows), and a 1024x1024 lossy WebP (which no numpy writer
-# makes on the card machine)
+# 8 KiB of raw rows), and 1024x1024 lossy WebP, lossless and lossy JP2
+# frames (which no numpy writer makes on the card machine)
 LARGE = {"cv2_lzw_64.tif": lambda: _large_tiff(5),
          "cv2_deflate_64.tif": lambda: _large_tiff(8),
-         "cv2_q90_1024.webp": _lossy_1024}
+         "cv2_q90_1024.webp": _lossy_1024,
+         "cv2_lossless_1024.jp2": lambda: _jp2_1024(1000),
+         "cv2_lossy_1024.jp2": lambda: _jp2_1024(50)}
 
 
 def make_fixtures(out=FIXTURES) -> dict:
@@ -787,25 +1112,35 @@ def _encode_frame(img, kind):
     if kind == "webp_lossy":
         return _cv2_write(".webp", img[..., ::-1],
                           (cv2.IMWRITE_WEBP_QUALITY, 90))
+    if kind.startswith("jp2_"):
+        return _cv2_write(".jp2", img[..., ::-1], (
+            cv2.IMWRITE_JPEG2000_COMPRESSION_X1000,
+            1000 if kind == "jp2_lossless" else 100))
     return F.encode_frame(img, kind)
+
+
+# cameras of the mixed-format tree: one a coding of a frame
+FORMAT_CAMS = len(F.FRAME_FORMATS[0][1])
 
 
 @pytest.fixture(scope="module")
 def zju_formats_root(tmp_path_factory):
-    """tests/test_torch_zju.py's fake human (jitter-free JPEG frames), each
-    frame then re-coded (F.FRAME_FORMATS), named by the frame's extension:
-    frame 0 as BMPs and a GIF, 1 as TIFFs and a lossless WebP, 2 as a PPM,
-    a Radiance HDR, a Sun raster and a lossy WebP."""
-    from tests.test_torch_zju import HUMAN, NC, NF, write_fake_zju
+    """tests/test_torch_zju.py's fake human (jitter-free JPEG frames) on
+    FORMAT_CAMS cameras, each frame then re-coded (F.FRAME_FORMATS), named
+    by the frame's extension: frame 0 as BMPs (24-bit, RLE8, 5-6-5), a
+    lossy JP2 and a GIF, 1 as TIFFs (LZW, Deflate tiles, 16-bit), a
+    lossless JP2 and a lossless WebP, 2 as a PPM, a Radiance HDR, Sun
+    rasters (24-bit, 8-bit colour map) and a lossy WebP."""
+    from tests.test_torch_zju import HUMAN, NF, write_fake_zju
 
     root = str(tmp_path_factory.mktemp("zju_formats"))
-    write_fake_zju(root, seed=3)
+    write_fake_zju(root, n_cams=FORMAT_CAMS, seed=3)
     annots_path = os.path.join(root, HUMAN, "annots.npy")
     annots = np.load(annots_path, allow_pickle=True).item()
     for f in range(NF):
         ext, kinds = F.FRAME_FORMATS[f]
         names = []
-        for c in range(NC):
+        for c in range(FORMAT_CAMS):
             old = os.path.join(root, HUMAN, f"Camera_B{c + 1}", f"{f:06d}.jpg")
             img = cv2_imread(old)
             os.remove(old)
@@ -818,18 +1153,19 @@ def zju_formats_root(tmp_path_factory):
 
 
 def test_mixed_format_frames_are_on_disk_and_read_as_cv2(zju_formats_root):
-    from tests.test_torch_zju import HUMAN, NC, NF
+    from tests.test_torch_zju import HUMAN, NF
 
     seen = set()
     for f in range(NF):
         ext, _ = F.FRAME_FORMATS[f]
-        for c in range(NC):
+        for c in range(FORMAT_CAMS):
             p = os.path.join(zju_formats_root, HUMAN, f"Camera_B{c + 1}",
                              f"{f:06d}{ext}")
             with open(p, "rb") as fh:
                 seen.add(image_formats.sniff(fh.read(16)))
             _same(image_io.imread_rgb(p), cv2_imread(p), p)
-    assert seen == {"bmp", "tiff", "pxm", "sun", "gif", "hdr", "webp"}
+    assert seen == {"bmp", "tiff", "pxm", "sun", "gif", "hdr", "webp",
+                    "jpeg2000"}
 
 
 def test_mixed_format_items_equal_the_jax_dataset(zju_formats_root):
@@ -838,7 +1174,6 @@ def test_mixed_format_items_equal_the_jax_dataset(zju_formats_root):
     1e-6, everything else exact."""
     from tests.test_torch_zju import (
         IMG_TOL,
-        NC,
         NF,
         _pair,
         _same_eval_item,
@@ -847,8 +1182,8 @@ def test_mixed_format_items_equal_the_jax_dataset(zju_formats_root):
     )
 
     j, t = _pair(zju_formats_root, "train", ["jitter", "False"])
-    assert len(t) == len(j) == NF * NC
-    for index in range(NF * NC):
+    assert len(t) == len(j) == NF * FORMAT_CAMS
+    for index in range(NF * FORMAT_CAMS):
         j.set_epoch(index)
         t.set_epoch(index)
         js, ts = j.get_train_sample(index), t.get_train_sample(index)
@@ -859,6 +1194,39 @@ def test_mixed_format_items_equal_the_jax_dataset(zju_formats_root):
     j, t = _pair(zju_formats_root, "test")
     for index in range(len(t)):
         _same_eval_item(t.get_eval_item(index), j.get_eval_item(index))
+
+
+@pytest.mark.parametrize("ext", [".webp", ".jpeg", ".tiff"])
+def test_a_four_letter_extension_fails_both_loaders_alike(tmp_path, ext):
+    """Both loaders read a frame's index from its file name less 4
+    characters (transhuman_tpu/data/zju.py:193): a frame named with a
+    4-letter extension fails both, with the same error, however its
+    content decodes."""
+    from tests import test_torch_zju as tz
+
+    root = str(tmp_path)
+    tz.write_fake_zju(root, seed=4)
+    annots_path = os.path.join(root, tz.HUMAN, "annots.npy")
+    annots = np.load(annots_path, allow_pickle=True).item()
+    names = annots["ims"][0]["ims"]
+    for c, name in enumerate(names):
+        os.rename(os.path.join(root, tz.HUMAN, name),
+                  os.path.join(root, tz.HUMAN, name[:-4] + ext))
+        names[c] = name[:-4] + ext
+    np.save(annots_path, annots)
+    opts = tz._opts(root)
+    errors = []
+    for make in (lambda: tz.JZJU(tz.JConfig().merge_opts(opts), "train",
+                                 smpl=tz.JSMPL.synthetic(n_verts=tz.NV),
+                                 human_info=tz.INFO),
+                 lambda: tz.ZJUDataset(tz.Config().merge_opts(opts), "train",
+                                       smpl=tz.SMPLModel.synthetic(
+                                           n_verts=tz.NV),
+                                       human_info=tz.INFO)):
+        with pytest.raises(ValueError) as e:
+            make()
+        errors.append(str(e.value))
+    assert errors[0] == errors[1], errors
 
 
 if __name__ == "__main__":

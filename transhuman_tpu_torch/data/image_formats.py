@@ -1,12 +1,13 @@
 """The frame formats ``cv2.imread`` reads beside JPEG and PNG, decoded as
 OpenCV 5 decodes them into (H, W, 3) RGB uint8 (its BGR result after
 ``COLOR_BGR2RGB``): BMP, PxM (PBM, PGM, PPM, PAM, PFM), Sun raster, TIFF,
-GIF, Radiance HDR and WebP.  Headers and plain raster layouts are read
-with numpy; the byte-serial codings (BMP RLE4/RLE8, TIFF PackBits and LZW,
-GIF's LZW, HDR's run-length scanlines, every stage of WebP's lossless and
-lossy decoders) run in ``native/imgcodec.cc`` and ``native/webp.cc``, TIFF
-Deflate in the standard library's zlib, so no frame decode loops over
-bytes in Python.
+GIF, Radiance HDR, WebP and JPEG 2000.  Headers and plain raster layouts
+are read with numpy; the byte-serial codings (BMP RLE4/RLE8, TIFF
+PackBits and LZW, GIF's LZW, HDR's run-length scanlines, every stage of
+WebP's lossless and lossy decoders, all of JPEG 2000) run in
+``native/imgcodec.cc``, ``native/webp.cc`` and ``native/jpeg2000.cc``,
+TIFF Deflate in the standard library's zlib, so no frame decode loops
+over bytes in Python.
 
 What OpenCV does, where it is not what the format's specification says:
 
@@ -51,6 +52,23 @@ What OpenCV does, where it is not what the format's specification says:
   a black canvas whatever its background colour and blending; libwebp's
   fancy chroma upsampler and 14-bit YUV -> RGB; the first EXIF chunk's
   orientation turns the image where the VP8X header's EXIF flag is set.
+* JPEG 2000 (OpenJPEG 2.5, JP2 files and raw codestreams): a coefficient
+  is reconstructed at the middle of its last decoded bit-plane's
+  interval; the 9/7 is OpenJPEG's float32 lifting, its high-pass scaled
+  by 1.625732422 (not 1/K) and the bands' step sizes taken without their
+  log2 gain, rounded by lrintf (half to even); a 1-sample row or column
+  at an odd coordinate is halved by C division on the 5/3 and left as it
+  is on the 9/7; the ROI max-shift compares the magnitude at twice its
+  scale, and BYPASS's raw passes are counted from the code-block's
+  bit-planes without the ROI shift; a palette clamps indices past its
+  last entry; cdef reorders channels as opj_jp2_apply_cdef does (alpha
+  dropped); every sample is shifted right by the highest precision less
+  8 and cut to 8 bits, whatever its own precision or its palette's; grey
+  (replicated) only under a JP2 grey colour space, 3 or 4 components
+  under sRGB, an ICC profile, another enumerated space or none; sYCC
+  through cvtColor's 8-bit YUV -> BGR (14-bit fixed point: 2.032 U,
+  -0.395 U - 0.581 V, 1.140 V); a tile the codestream lacks reads as 0;
+  bytes after the EOC are not read.
 
 Refused by name (FileNotFoundError naming the path and the format), each
 where cv2.imread returns nothing or where the port does not decode it:
@@ -60,8 +78,17 @@ palettes, TIFF with JPEG or CCITT compression, float samples, more than 4
 samples, orientations 5-8 on a non-square image (cv2 reads nothing), an
 orientation other than 1 on tiles, BigTIFF, a GIF frame outside its
 logical screen, Radiance HDR in XYZE or with a layout other than
--Y H +X W, a lossless WebP of a version other than 0, and the formats AVIF
-and JPEG 2000.
+-Y H +X W, a lossless WebP of a version other than 0; JPEG 2000 with an
+image or tile-grid offset, signed or sub-sampled components, a precision
+below 8 or above 31, more than 4 components, 1 or 2 components without a
+JP2 grey colour space, sYCC of fewer than 3, the e-sYCC and CMYK colour
+spaces, a codestream cut short (a tile-part past its end, no EOC after
+the last tile-part), a tile with no packet data, a JP2 file without ftyp
+second or without a jp2h holding an ihdr before its codestream, or whose
+ihdr size is not the codestream's (each where cv2 reads nothing), HTJ2K
+(Part 15), Part 2 wavelets and component transforms, and
+palettes other than every column from one index component; and the
+format AVIF.
 """
 
 from __future__ import annotations
@@ -75,9 +102,8 @@ import numpy as np
 
 from ..native import build as codec
 
-# signature -> format name, for what is refused whole
-REFUSED = ((b"\0\0\0\x0cjP  \r\n\x87\n", "JPEG 2000"),
-           (b"\xff\x4f\xff\x51", "JPEG 2000 (codestream)"))
+JP2_SIGNATURE = b"\0\0\0\x0cjP  \r\n\x87\n"
+J2K_SIGNATURE = b"\xff\x4f\xff\x51"
 
 
 class Refused(Exception):
@@ -102,13 +128,12 @@ def sniff(data: bytes):
         return "hdr"
     if data[:4] == b"RIFF" and data[8:12] == b"WEBP":
         return "webp"
+    if data.startswith((JP2_SIGNATURE, J2K_SIGNATURE)):
+        return "jpeg2000"
     return None
 
 
 def refused_name(data: bytes):
-    for sig, name in REFUSED:
-        if data.startswith(sig):
-            return name
     if data[4:8] == b"ftyp" and data[8:12] in (b"avif", b"avis"):
         return "AVIF"
     return None
@@ -120,7 +145,8 @@ def decode(kind: str, data: bytes, what: str) -> np.ndarray:
     file."""
     img = {"bmp": decode_bmp, "pxm": decode_pxm, "sun": decode_sun,
            "tiff": decode_tiff, "gif": decode_gif, "hdr": decode_hdr,
-           "webp": decode_webp}[kind](data, what)
+           "webp": decode_webp, "jpeg2000": decode_jpeg2000}[kind](data,
+                                                                   what)
     # a view of the file's bytes is read-only; the loader gets its own
     return img if img.flags.writeable else img.copy()
 
@@ -576,12 +602,14 @@ def _tiff_rgba(s, t, photo, bps, spp, extra, separate) -> np.ndarray:
                                           -1))
 
 
-# ------------------------------------------- GIF, Radiance HDR and WebP
+# ------------------------------ GIF, Radiance HDR, WebP and JPEG 2000
 # the codec's entries for each: info, decode, leading arguments (GIF and
-# Radiance HDR share imgcodec.cc's, told apart by a kind; WebP is webp.cc's)
+# Radiance HDR share imgcodec.cc's, told apart by a kind; WebP is webp.cc's,
+# JPEG 2000 jpeg2000.cc's)
 _ENTRIES = {"gif": ("thc_image_info", "thc_image_decode", (0,)),
             "hdr": ("thc_image_info", "thc_image_decode", (1,)),
-            "webp": ("thc_webp_info", "thc_webp_decode", ())}
+            "webp": ("thc_webp_info", "thc_webp_decode", ()),
+            "jpeg2000": ("thc_j2k_info", "thc_j2k_decode", ())}
 
 
 def _native(kind: str, data: bytes, what: str) -> np.ndarray:
@@ -620,6 +648,10 @@ def decode_webp(data: bytes, what: str = "WebP") -> np.ndarray:
             return exif_orient(rgb, data[pos + 8:pos + 8 + n])
         pos += 8 + n + (n & 1)
     return rgb
+
+
+def decode_jpeg2000(data: bytes, what: str = "JPEG 2000") -> np.ndarray:
+    return _native("jpeg2000", data, what)
 
 
 def exif_orient(rgb: np.ndarray, tiff: bytes) -> np.ndarray:

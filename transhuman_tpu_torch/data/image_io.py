@@ -1,13 +1,13 @@
 """Image files of the ZJU-MoCap layout without OpenCV, PIL or imageio: JPEG
 frames through the port's own decoder (``native/imgcodec.cc``), PNG
 frames and masks through the standard library's zlib and the codec's row
-unfilter, and BMP, PxM, Sun raster, TIFF, GIF, Radiance HDR and WebP
-frames through ``image_formats.py``.
+unfilter, and BMP, PxM, Sun raster, TIFF, GIF, Radiance HDR, WebP and
+JPEG 2000 frames through ``image_formats.py``.
 
 ``imread_rgb`` returns what the JAX package's ``_imread_rgb`` returns
 (``cv2.imread`` + ``cvtColor`` BGR -> RGB) for a file of any of those
 formats, told apart by signature (``image_formats.py`` says what it reads
-of the other seven, and what it refuses by name): for a JPEG,
+of the other eight, and what it refuses by name): for a JPEG,
 libjpeg-turbo's default decode (sequential or progressive, grey, YCbCr,
 RGB, CMYK or YCCK, block smoothing of a truncated progressive file), then
 the EXIF orientation; for a PNG, three
@@ -69,8 +69,8 @@ def decode_jpeg(data: bytes, what: str = "JPEG") -> np.ndarray:
 
 def imread_rgb(path: str) -> np.ndarray:
     """(H, W, 3) RGB uint8 of a JPEG, PNG, BMP, PxM, Sun raster, TIFF,
-    GIF, Radiance HDR or WebP file, as ``cv2.imread`` + BGR -> RGB reads
-    it; FileNotFoundError with the path for a missing file, one of none of
+    GIF, Radiance HDR, WebP or JPEG 2000 file, as ``cv2.imread`` + BGR ->
+    RGB reads it; FileNotFoundError with the path for a missing file, one of none of
     those signatures, or a format or coding refused by name."""
     data = _read(path)
     if data[:2] == JPEG_SIGNATURE:
@@ -88,8 +88,8 @@ def imread_rgb(path: str) -> np.ndarray:
     raise FileNotFoundError(
         f"unreadable image: {path} ("
         + (f"{name} is not read" if name else
-           "not a JPEG, PNG, BMP, PxM, Sun raster, TIFF, GIF, Radiance HDR "
-           "or WebP file") + ")")
+           "not a JPEG, PNG, BMP, PxM, Sun raster, TIFF, GIF, Radiance HDR, "
+           "WebP or JPEG 2000 file") + ")")
 
 
 def _png_parse(data: bytes, what: str):

@@ -6,10 +6,15 @@ right on any x86-64 host) plus the flags ``LIBRARIES`` names beside its
 sources, into ``transhuman_tpu_torch/_build/lib<name>.so`` on first use,
 never at import:
 
-* ``imgcodec`` (``imgcodec.cc``, ``webp.cc``): the JPEG decoder
+* ``imgcodec`` (``imgcodec.cc``, ``webp.cc``, ``jpeg2000.cc``): the JPEG
+  decoder
   (sequential and progressive) and encoder, the EXIF orientation, the PNG
   row unfilter, BMP RLE4/RLE8, TIFF PackBits and LZW, GIF, Radiance HDR,
-  and WebP (VP8L lossless, VP8 lossy, the VP8X container);
+  WebP (VP8L lossless, VP8 lossy, the VP8X container) and JPEG 2000 (JP2
+  and raw codestreams), with ``-ffp-contract=off`` so that no multiply and
+  add of the 9/7 wavelet or the ICT is fused (OpenJPEG's SSE build fuses
+  none; without ``-march`` an x86-64 build has no fused multiply-adds to
+  make, so the flag changes nothing in the other two sources);
 * ``marching`` (``marching_tet.cc``): marching tetrahedra
   (``mesh_ops/marching.py``);
 * ``crc32c`` (``crc32c.cc``): the event files' CRC32C
@@ -65,7 +70,8 @@ def _cpu_has(flag: str) -> bool:
 # only where both contract a * b + c into the same fused multiply-adds:
 # -mfma on a host whose CPU has them.
 LIBRARIES = {
-    "imgcodec": (("imgcodec.cc", "webp.cc"), ()),
+    "imgcodec": (("imgcodec.cc", "webp.cc", "jpeg2000.cc"),
+                 ("-ffp-contract=off",)),
     "marching": (("marching_tet.cc",), ()),
     "crc32c": (("crc32c.cc",), ("-msse4.2",) if _X86 else ()),
     "rasterize": (("rasterize.cc",),
@@ -105,6 +111,10 @@ _SIGNATURES = {
         "thc_webp_info": ((_P, _L, _IP, _IP, *_ERR), _I),
         # data, n, out, height, width, err, errlen
         "thc_webp_decode": ((_P, _L, _P, _I, _I, *_ERR), _I),
+        # data, n, &height, &width, err, errlen
+        "thc_j2k_info": ((_P, _L, _IP, _IP, *_ERR), _I),
+        # data, n, out, height, width, err, errlen
+        "thc_j2k_decode": ((_P, _L, _P, _I, _I, *_ERR), _I),
         "thc_free": ((_P,), None),
     },
     "marching": {
