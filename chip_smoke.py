@@ -2605,16 +2605,17 @@ def phase_codec(card: str) -> dict:
     loader reads it (a frame by imread_rgb, a mask by read_png), its bytes
     held against the sha256 of cv2's or imageio's decode recorded in the
     folder's digests.json; each decode timed on the host (_decode_ms), and
-    so the decode of 1024x1024 BMP, PPM, Sun raster, TIFF, GIF, Radiance
-    HDR and lossless WebP frames formed here and of the committed q90 lossy
-    WebP and lossless and lossy JP2s (format_frames); the event files'
+    so the decode of 1024x1024 BMP, PPM, Sun raster, TIFF (Deflate: RGB,
+    CMYK, CIELab, BigTIFF), GIF, Radiance HDR and lossless WebP
+    frames formed here and of the committed q90 lossy WebP, lossless and
+    lossy JP2s and YCbCr 4:2:0 JPEG-TIFF (format_frames); the event files'
     CRC32C, native against the Python table."""
     import hashlib
 
     from transhuman_tpu_torch.data import image_io
 
     out, by = {}, set()
-    for folder, n in ((FIXTURES, 5), (CODINGS, 8), (FORMATS, 27)):
+    for folder, n in ((FIXTURES, 5), (CODINGS, 8), (FORMATS, 40)):
         with open(os.path.join(folder, "digests.json")) as f:
             digests = json.load(f)
         check(len(digests) == n,
@@ -2663,11 +2664,13 @@ def phase_codec(card: str) -> dict:
         f"{out['cv2_prog_q95_420.jpg'] / out['cv2_q95_420.jpg']:.2f}x; "
         f"1024x1024 24-bit BMP, P6, 24-bit Sun raster, Deflate TIFF, GIF, "
         f"RLE HDR, lossless WebP, q90 lossy WebP, lossless (5/3) JP2, "
-        f"lossy (9/7) JP2 against the sequential JPEG "
+        f"lossy (9/7) JP2, YCbCr 4:2:0 JPEG-TIFF, Deflate CMYK TIFF, Deflate "
+        f"CIELab TIFF, Deflate BigTIFF against the sequential JPEG "
         + ", ".join(f"{out[f'1024_{k}'] / out['cv2_q95_420.jpg']:.2f}x"
                     for k in ("bmp", "ppm", "sun", "tiff", "gif", "hdr",
                               "webp_lossless", "webp_lossy", "jp2_lossless",
-                              "jp2_lossy"))
+                              "jp2_lossy", "tiff_jpeg", "tiff_cmyk",
+                              "tiff_cielab", "bigtiff"))
         + f"  [{card}]")
     return out
 
@@ -4807,13 +4810,16 @@ def format_frames(src_dir: str) -> dict:
     """The committed 1024x1024 q95 4:2:0 fixture JPEG's decode written here
     as a 24-bit BMP, a binary PPM, a 24-bit Sun raster, a Deflate TIFF with
     the horizontal predictor in 8-row strips, an interlaced GIF on the
-    6x6x6 colour cube, a run-length Radiance HDR and a lossless WebP
-    (subtract-green and predictor transforms) (tests/_torch_formats.py's
-    writers), beside the committed q90 lossy WebP and lossless (5/3) and
-    lossy (9/7) JP2 files of the same decode (no writer here codes VP8 or
-    JPEG 2000): kind -> path, each checked to read back as the decode (the
-    GIF as its palette's colours, the HDR within 2, the lossy WebP and JP2
-    within 9, their bytes held to cv2's in phase e)."""
+    6x6x6 colour cube, a run-length Radiance HDR, a lossless WebP
+    (subtract-green and predictor transforms), a CMYK TIFF, a CIELab TIFF
+    and a BigTIFF (Deflate, 8-row strips) (tests/_torch_formats.py's
+    writers),
+    beside the committed q90 lossy WebP, lossless (5/3) and lossy (9/7) JP2
+    and YCbCr 4:2:0 JPEG-TIFF files of the same decode (no writer here
+    codes VP8, JPEG 2000 or JPEG): kind -> path, each checked to read back
+    as the decode (the GIF as its palette's colours, the HDR within 2, the
+    lossy WebP and JP2 within 9, the JPEG-TIFF within 12, the CIELab TIFF
+    within 40, their bytes held to cv2's in phase e)."""
     import importlib.util
 
     from transhuman_tpu_torch.data import image_io
@@ -4835,7 +4841,12 @@ def format_frames(src_dir: str) -> dict:
              "gif": ("frame.gif", tf.gif([{"idx": idx, "interlace": True}],
                                          palette=pal)),
              "hdr": ("frame.hdr", tf.hdr(rgb / 255.0)),
-             "webp_lossless": ("frame.webp", tf.vp8l(rgb))}
+             "webp_lossless": ("frame.webp", tf.vp8l(rgb)),
+             "tiff_cmyk": ("cmyk.tif", tf.encode_frame(rgb, "tiff_cmyk")),
+             "tiff_cielab": ("cielab.tif", tf.encode_frame(rgb,
+                                                          "tiff_cielab")),
+             "bigtiff": ("big.tif", tf.encode_frame(rgb,
+                                                    "bigtiff_deflate"))}
     out = {}
     for kind, (name, data) in files.items():
         out[kind] = os.path.join(src_dir, name)
@@ -4844,9 +4855,12 @@ def format_frames(src_dir: str) -> dict:
     out["webp_lossy"] = os.path.join(FORMATS, "cv2_q90_1024.webp")
     out["jp2_lossless"] = os.path.join(FORMATS, "cv2_lossless_1024.jp2")
     out["jp2_lossy"] = os.path.join(FORMATS, "cv2_lossy_1024.jp2")
-    # what each reads back as, and within what
+    out["tiff_jpeg"] = os.path.join(FORMATS, "cv2_jpeg_420_1024.tif")
+    # what each reads back as, and within what (CIELab through libtiff's
+    # display conversion, which quantises the darkest levels coarsely)
     want = {"gif": (pal.astype(np.uint8)[idx], 0), "hdr": (rgb, 2),
-            "webp_lossy": (rgb, 9), "jp2_lossy": (rgb, 9)}
+            "webp_lossy": (rgb, 9), "jp2_lossy": (rgb, 9),
+            "tiff_jpeg": (rgb, 12), "tiff_cielab": (rgb, 40)}
     for kind, path in out.items():
         ref, tol = want.get(kind, (rgb, 0))
         got = image_io.imread_rgb(path)
@@ -4865,12 +4879,14 @@ def phase_formats(card: str, tmp: str) -> dict:
     float32) for 2 steps under torchrun (1 rank) with mesh_axis_rays 2,
     against the same in this process at mesh_axis_rays 1 (phase 6's loss
     bound: card steps are not bit-reproducible), K2 / K4 / K3 launched
-    1 / 2 / 2 a step; then --type evaluate on its checkpoint over one frame
-    of CoreView_387 whose nine input and target views take the nine other
-    codings (BMP, PPM, Sun raster, TIFF, GIF, Radiance HDR, lossless and
-    lossy WebP, lossy (9/7) JP2) under one name (cv2 decodes by content):
-    finite PSNR and SSIM, K1, K2 and K4 launched, each of the ten codings
-    read by the loader (told apart by the file's digest); then the host
+    1 / 2 / 2 a step; then --type evaluate on its checkpoint over the two
+    frames of CoreView_387, whose input and target views take the thirteen
+    other codings, each frame's under one name (cv2 decodes by content):
+    frame 0 BMP, PPM, Sun raster, TIFF, GIF, Radiance HDR, lossless and
+    lossy WebP, lossy (9/7) JP2; frame 1 YCbCr 4:2:0 JPEG-TIFF, CMYK and
+    CIELab TIFFs and BigTIFF: finite PSNR and SSIM, K1, K2 and K4
+    launched, each of the fourteen codings read by the loader (told apart
+    by the file's digest); then the host
     split of one train sample of the JP2 tree (host_split, phase f's
     samples), beside phase f's of the JPEG tree;
     n2. examples/torch_minimal_render.py and torch_minimal_train.py (2
@@ -4890,21 +4906,29 @@ def phase_formats(card: str, tmp: str) -> dict:
     t0 = time.perf_counter()
     src = format_frames(os.path.join(tmp, "formats_src"))
     root = os.path.join(tmp, "zju_formats")
-    # training reads lossless JP2 views only; the evaluated frame's nine
-    # views (3 inputs, 6 targets) the nine other codings
-    kinds = ("bmp", "ppm", "sun", "tiff", "gif", "hdr", "webp_lossless",
-             "webp_lossy", "jp2_lossy")
+    # training reads lossless JP2 views only; the two evaluated frames'
+    # nine views each (3 inputs, 6 targets) the thirteen other codings:
+    # frame 0 nine of them, frame 1 the TIFF codings of libtiff's other
+    # colour spaces and BigTIFF, cycling
+    kinds = (("bmp", "ppm", "sun", "tiff", "gif", "hdr", "webp_lossless",
+              "webp_lossy", "jp2_lossy"),
+             ("tiff_jpeg", "tiff_cmyk", "tiff_cielab", "bigtiff"))
     cfg_file = os.path.join(CONFIGS, "train_or_eval.yaml")
-    # the evaluated frame (frame 0) reads its input and target cameras:
-    # each coding on one of them, the others' views cycling
+    # each evaluated frame reads its input and target cameras: each of its
+    # codings on one of them, the others' views cycling; write_zju_layout
+    # gives frame k camera c the view (k + c) of its list
     test = Config.from_yaml(cfg_file).test
-    views = [src[kinds[c % len(kinds)]] for c in range(ZJU_CAMS)]
-    for i, c in enumerate([*test.input_view, *test.target_view]):
-        views[c] = src[kinds[i % len(kinds)]]
+    sources = []
+    for k, ks in enumerate(kinds):
+        views = [src[ks[c % len(ks)]] for c in range(ZJU_CAMS)]
+        for i, c in enumerate([*test.input_view, *test.target_view]):
+            views[c] = src[ks[i % len(ks)]]
+        sources.append([views[(j - k) % ZJU_CAMS] for j in range(ZJU_CAMS)])
     write_zju_layout(root, "CoreView_377", range(0, 300, 30), 300, seed=4,
                      sources=[[src["jp2_lossless"]]])
     write_zju_layout(root, "CoreView_387", range(ZJU_EVAL_FRAMES),
-                     ZJU_EVAL_FRAMES, seed=5, sources=[views])
+                     ZJU_EVAL_FRAMES, seed=5, sources=sources)
+    kinds = kinds[0] + kinds[1]
     layout_s = time.perf_counter() - t0
 
     def argv(run, rays):
@@ -4984,7 +5008,8 @@ def phase_formats(card: str, tmp: str) -> dict:
         t = time.perf_counter()
         kernels.reset_launch_counts()
         summary = run_cli.main(["--type", "evaluate", "--device", "cuda",
-                                *argv(runs[2], 1)])
+                                *argv(runs[2], 1), "test.frame_interval",
+                                "1"])
         torch.cuda.synchronize()
         eval_s = time.perf_counter() - t
         by_path["eval_formats"] = kernels.launch_counts()
@@ -5009,15 +5034,16 @@ def phase_formats(card: str, tmp: str) -> dict:
           f"n1 evaluate: {summary}")
     check_launches("n1 evaluate", by_path["eval_formats"],
                    {"min_excess2": 1, f["dparf"]: 1, f["fetch"]: 1})
-    # the frame's geometry (cameras, masks) sets these counts and its
-    # views' codings do not: this layout's, within 10%
-    want = {"min_excess2": 875, f["dparf"]: 836, f["fetch"]: 842}
+    # the frames' geometry (cameras, masks) sets these counts and their
+    # views' codings do not: this layout's two frames', within 10%
+    want = {"min_excess2": 1750, f["dparf"]: 1672, f["fetch"]: 1684}
     check(all(abs(by_path["eval_formats"][k] - n) <= 0.1 * n
               for k, n in want.items()),
           f"n1 evaluate: launches {by_path['eval_formats']}, want within "
           f"10% of {want}")
-    # training reads 4 lossless JP2 views a sample; the evaluated frame's
-    # targets and inputs the nine other codings: all ten on the path
+    # training reads 4 lossless JP2 views a sample; the evaluated frames'
+    # targets and inputs the thirteen other codings: all fourteen on the
+    # path
     check(set(train_seen) == {"jp2_lossless"}
           and train_seen["jp2_lossless"] >= 4 * N_STEPS
           and set(seen) == set(kinds),
@@ -5059,9 +5085,9 @@ def phase_formats(card: str, tmp: str) -> dict:
         f"torchrun run and the examples) "
         f"{', '.join(f'{r['sample_s'] * 1e3:.1f}' for r in recs)}; "
         f"launches {by_path['train_formats_rays2']}; files read "
-        f"{train_seen}; --type evaluate, 1 frame of BMP, PPM, Sun raster, "
+        f"{train_seen}; --type evaluate, a frame of BMP, PPM, Sun raster, "
         f"TIFF, GIF, Radiance HDR, lossless and lossy WebP and lossy JP2 "
-        f"views: psnr "
+        f"views and one of JPEG-TIFF, CMYK, CIELab and BigTIFF views: psnr "
         f"{summary['psnr']:.3f}, ssim {summary['ssim']:.4f}, files read "
         f"{seen}, launches {by_path['eval_formats']}; layout {layout_s:.1f} "
         f"s, torchrun {tr_s:.1f} s, train here {one_s:.1f} s, evaluate "

@@ -346,13 +346,20 @@ def tiff(img: np.ndarray, bps: int = 8, photometric: int = 2,
          compression: int = 1, predictor: int = 1, planar: int = 1,
          big_endian: bool = False, rows_per_strip=None, tile=None,
          colormap=None, extra=None, sample_format=None,
-         orientation=None, bigtiff: bool = False) -> bytes:
-    """A classic TIFF of ``img`` (h, w) or (h, w, spp) samples (uint8, or
-    uint16 at 16 bits; 0/1 or indices below 8 bits, rows packed
-    MSB-first): one IFD, strips (``rows_per_strip``) or tiles (``tile``
-    (th, tw), multiples of 16), planar 1 or 2, ``colormap`` (3, 2**bps)
-    uint16, ``extra`` the ExtraSamples values, ``orientation`` the
-    Orientation tag."""
+         orientation=None, bigtiff: bool = False, tags=None,
+         code=None) -> bytes:
+    """A TIFF of ``img`` (h, w) or (h, w, spp) samples (uint8, or uint16 at
+    16 bits; 0/1 or indices below 8 bits, rows packed MSB-first): one IFD,
+    strips (``rows_per_strip``) or tiles (``tile`` (th, tw), multiples of
+    16), planar 1 or 2, ``colormap`` (3, 2**bps) uint16, ``extra`` the
+    ExtraSamples values, ``orientation`` the Orientation tag, BigTIFF
+    (version 43: 8-byte offsets and counts, 20-byte entries) with
+    ``bigtiff``; ``tags`` more entries, tag -> (type, values) (RATIONAL
+    values as (numerator, denominator) pairs, ASCII and UNDEFINED as
+    bytes); ``code`` a function of a strip or tile's (rows, cols, s)
+    samples to its stored bytes in place of the compression's coder (a
+    JPEG or CCITT stream, packed YCbCr units), the compression tag still
+    ``compression``."""
     e = ">" if big_endian else "<"
     a = img if img.ndim == 3 else img[..., None]
     h, w, spp = a.shape
@@ -360,6 +367,8 @@ def tiff(img: np.ndarray, bps: int = 8, photometric: int = 2,
 
     def encode(block):
         """(rows, cols, s) samples -> the chunk's bytes."""
+        if code is not None:
+            return code(block)
         if predictor == 2:
             block = _predict(block.astype(np.uint16 if bps == 16
                                           else np.uint8), block.shape[2])
@@ -385,62 +394,117 @@ def tiff(img: np.ndarray, bps: int = 8, photometric: int = 2,
                     part = p[y:y + th, x:x + tw]
                     blk[:part.shape[0], :part.shape[1]] = part
                     chunks.append(encode(blk))
-    tags = {256: (4, [w]), 257: (4, [h]), 258: (3, [bps] * spp),
-            259: (3, [compression]), 262: (3, [photometric]),
-            277: (3, [spp]), 284: (3, [planar])}
+    entries = {256: (4, [w]), 257: (4, [h]), 258: (3, [bps] * spp),
+               259: (3, [compression]), 262: (3, [photometric]),
+               277: (3, [spp]), 284: (3, [planar])}
     if predictor != 1:
-        tags[317] = (3, [predictor])
+        entries[317] = (3, [predictor])
     if colormap is not None:
-        tags[320] = (3, [int(v) for v in np.asarray(colormap).ravel()])
+        entries[320] = (3, [int(v) for v in np.asarray(colormap).ravel()])
     if extra is not None:
-        tags[338] = (3, list(extra))
+        entries[338] = (3, list(extra))
     if sample_format is not None:
-        tags[339] = (3, [sample_format] * spp)
+        entries[339] = (3, [sample_format] * spp)
     if orientation is not None:
-        tags[274] = (3, [orientation])
+        entries[274] = (3, [orientation])
     if tile is None:
-        tags[278] = (4, [rows_per_strip or h])
+        entries[278] = (4, [rows_per_strip or h])
         off_tag, cnt_tag = 273, 279
     else:
-        tags[322] = (4, [tile[1]])
-        tags[323] = (4, [tile[0]])
+        entries[322] = (4, [tile[1]])
+        entries[323] = (4, [tile[0]])
         off_tag, cnt_tag = 324, 325
-    # layout: header, chunk data, out-of-line values, the IFD
+    entries.update(tags or {})
+    return tiff_file(chunks, entries, off_tag, cnt_tag, big_endian, bigtiff)
+
+
+def jpeg_tables_split(jpeg: bytes):
+    """(tables, abbreviated) of a JPEG stream, as a TIFF JPEG writer lays
+    them out: a tables-only stream of its DQT and DHT segments (the
+    JPEGTables tag), and the stream without them and without its APP0."""
+    pos, head = 2, []
+    while jpeg[pos + 1] != 0xDA:
+        n = int.from_bytes(jpeg[pos + 2:pos + 4], "big")
+        head.append((jpeg[pos + 1], jpeg[pos:pos + 2 + n]))
+        pos += 2 + n
+    tables = b"\xff\xd8" + b"".join(seg for m, seg in head
+                                    if m in (0xDB, 0xC4)) + b"\xff\xd9"
+    rest = b"".join(seg for m, seg in head if m not in (0xDB, 0xC4, 0xE0))
+    return tables, b"\xff\xd8" + rest + jpeg[pos:]
+
+
+def ycbcr_units(block: np.ndarray, hs: int, vs: int) -> bytes:
+    """(rows, cols, 3) Y, Cb, Cr samples as TIFF's contiguous YCbCr data
+    units of subsampling hs x vs: hs * vs luma samples, then the block's
+    top-left Cb and Cr; a partial block at the edge repeats the edge."""
+    r, c, _ = block.shape
+    rr, cc = -(-r // vs) * vs, -(-c // hs) * hs
+    b = np.pad(block, ((0, rr - r), (0, cc - c), (0, 0)), mode="edge")
+    y = b[..., 0].reshape(rr // vs, vs, cc // hs, hs).transpose(
+        0, 2, 1, 3).reshape(rr // vs, cc // hs, vs * hs)
+    chroma = b[::vs, ::hs, 1:]
+    return np.concatenate([y, chroma], -1).astype(np.uint8).tobytes()
+
+
+_TAG_FORMATS = {1: "B", 2: "s", 3: "H", 4: "I", 5: "I", 7: "s", 8: "h",
+                9: "i", 10: "i", 11: "f", 12: "d", 16: "Q"}
+
+
+def tiff_file(chunks, entries, off_tag, cnt_tag, big_endian=False,
+              bigtiff=False) -> bytes:
+    """A one-IFD TIFF (BigTIFF with ``bigtiff``) of the strips or tiles
+    ``chunks`` (their offsets and byte counts under off_tag and cnt_tag,
+    LONG, or LONG8 in a BigTIFF) and ``entries``, tag -> (type, values):
+    layout header, chunk data, out-of-line values, the IFD."""
+    e = ">" if big_endian else "<"
+    inline = 8 if bigtiff else 4
+    head_size = 16 if bigtiff else 8
     body = bytearray()
     offsets = []
     for c in chunks:
-        offsets.append(8 + len(body))
+        offsets.append(head_size + len(body))
         body += c
         if len(body) % 2:
             body += b"\0"
-    tags[off_tag] = (4, offsets)
-    tags[cnt_tag] = (4, [len(c) for c in chunks])
-    fmt = {3: "H", 4: "I"}
-    size = {3: 2, 4: 4}
-    entries = []
-    for tag in sorted(tags):
-        typ, vals = tags[tag]
-        payload = struct.pack(e + fmt[typ] * len(vals), *vals)
-        if len(payload) <= 4:
-            entries.append((tag, typ, len(vals), payload.ljust(4, b"\0")))
+    long_type = 16 if bigtiff else 4
+    entries = dict(entries)
+    entries[off_tag] = (long_type, offsets)
+    entries[cnt_tag] = (long_type, [len(c) for c in chunks])
+    packed = []
+    for tag in sorted(entries):
+        typ, vals = entries[tag]
+        if typ in (2, 7):
+            payload, count = bytes(vals), len(vals)
+        elif typ in (5, 10):
+            flat = [int(v) for pair in vals for v in pair]
+            payload = struct.pack(e + _TAG_FORMATS[typ] * len(flat), *flat)
+            count = len(vals)
         else:
-            off = 8 + len(body)
+            payload = struct.pack(e + _TAG_FORMATS[typ] * len(vals), *vals)
+            count = len(vals)
+        if len(payload) <= inline:
+            packed.append((tag, typ, count, payload.ljust(inline, b"\0")))
+        else:
+            off = head_size + len(body)
             body += payload
             if len(body) % 2:
                 body += b"\0"
-            entries.append((tag, typ, len(vals), struct.pack(e + "I", off)))
-        assert size[typ]
-    ifd_off = 8 + len(body)
-    ifd = struct.pack(e + "H", len(entries))
-    for tag, typ, n, val in entries:
-        ifd += struct.pack(e + "HHI", tag, typ, n) + val
-    ifd += struct.pack(e + "I", 0)
+            packed.append((tag, typ, count, struct.pack(
+                e + ("Q" if bigtiff else "I"), off)))
+    ifd_off = head_size + len(body)
+    order = b"MM" if big_endian else b"II"
     if bigtiff:
-        head = (b"MM" if big_endian else b"II") + struct.pack(
-            e + "HHHQ", 43, 8, 0, 16)
-        return head + bytes(body) + ifd
-    head = (b"MM" if big_endian else b"II") + struct.pack(e + "HI", 42,
-                                                           ifd_off)
+        ifd = struct.pack(e + "Q", len(packed))
+        for tag, typ, n, val in packed:
+            ifd += struct.pack(e + "HHQ", tag, typ, n) + val
+        ifd += struct.pack(e + "Q", 0)
+        head = order + struct.pack(e + "HHHQ", 43, 8, 0, ifd_off)
+    else:
+        ifd = struct.pack(e + "H", len(packed))
+        for tag, typ, n, val in packed:
+            ifd += struct.pack(e + "HHI", tag, typ, n) + val
+        ifd += struct.pack(e + "I", 0)
+        head = order + struct.pack(e + "HI", 42, ifd_off)
     return head + bytes(body) + ifd
 
 
@@ -457,14 +521,45 @@ def _quantize(img: np.ndarray):
 
 # a frame's extension and its cameras' codings (the views of a frame share
 # the target's file name; cv2.imread decodes by content); "webp_lossy",
-# "jp2_lossless" and "jp2_lossy" are the caller's to make (no writer here
-# codes VP8 or JPEG 2000's tier 1)
+# "jp2_lossless", "jp2_lossy" and "tiff_jpeg_420" are the caller's to make
+# (no writer here codes VP8, JPEG 2000's tier 1 or JPEG)
 FRAME_FORMATS = (
     (".bmp", ("bmp24", "bmp_rle8", "bmp565", "jp2_lossy", "gif")),
-    (".tif", ("tiff_lzw", "tiff_deflate_tiles", "jp2_lossless",
-              "webp_lossless", "tiff16")),
+    (".tif", ("tiff_jpeg_420", "tiff_cmyk_deflate_tiles", "jp2_lossless",
+              "webp_lossless", "bigtiff16")),
     (".ppm", ("p6", "hdr", "sun24", "webp_lossy", "sun8")),
 )
+
+
+def cmyk_of(img: np.ndarray) -> np.ndarray:
+    """(h, w, 4) CMYK samples that libtiff reads back as img: C, M, Y the
+    complement of R, G, B and K 0."""
+    return np.concatenate([255 - img, np.zeros(img.shape[:2] + (1,),
+                                               np.uint8)], -1)
+
+
+def cielab_of(img: np.ndarray) -> np.ndarray:
+    """(h, w, 3) 8-bit CIELab samples (L, then signed a and b) that
+    libtiff's display conversion (sRGB primaries, a pure 2.4 gamma over
+    luminances 1 to 100, the D50 white point) reads back as img within a
+    few levels: that conversion inverted, then quantised."""
+    v = img.astype(np.float64) / 255
+    lum = 1 + 99 * v ** 2.4
+    m = np.array([[3.2410, -1.5374, -0.4986], [-0.9692, 1.8760, 0.0416],
+                  [0.0556, -0.2040, 1.0570]])
+    xyz = lum @ np.linalg.inv(m).T
+    d50 = np.array([96.4250, 100.0, 82.4680])
+    white = d50 / d50[1] * 100
+    t = xyz / white
+    f = np.where(t > 0.008856, np.cbrt(np.maximum(t, 0)),
+                 7.787 * t + 16 / 116)
+    lab = np.stack([116 * f[..., 1] - 16, 500 * (f[..., 0] - f[..., 1]),
+                    200 * (f[..., 1] - f[..., 2])], -1)
+    out = np.empty(img.shape, np.uint8)
+    out[..., 0] = np.clip(np.rint(lab[..., 0] * 255 / 100), 0, 255)
+    out[..., 1:] = np.clip(np.rint(lab[..., 1:]), -128, 127).astype(
+        np.int8).view(np.uint8)
+    return out
 
 
 def encode_frame(img: np.ndarray, kind: str) -> bytes:
@@ -481,16 +576,24 @@ def encode_frame(img: np.ndarray, kind: str) -> bytes:
     if kind == "bmp_rle8":
         idx, pal = _quantize(img)
         return bmp(idx, 8, palette=pal, compression=1)
-    if kind == "tiff_lzw":
-        return tiff(img, compression=5, rows_per_strip=8)
-    if kind == "tiff_deflate_tiles":
-        return tiff(img, compression=8, predictor=2, tile=(32, 32))
     if kind == "tiff_packbits_planar":
         return tiff(img, compression=32773, planar=2, big_endian=True,
                     rows_per_strip=16)
-    if kind == "tiff16":
+    if kind == "bigtiff16":
         return tiff(img.astype(np.uint16) * 257 + 77, 16, compression=5,
-                    predictor=2)
+                    predictor=2, bigtiff=True)
+    if kind == "tiff_cmyk_deflate_tiles":
+        return tiff(cmyk_of(img), photometric=5, compression=8,
+                    predictor=2, tile=(32, 32))
+    if kind == "tiff_cmyk":
+        return tiff(cmyk_of(img), photometric=5, compression=8,
+                    predictor=2, rows_per_strip=8)
+    if kind == "tiff_cielab":
+        return tiff(cielab_of(img), photometric=8, compression=8,
+                    predictor=2, rows_per_strip=8)
+    if kind == "bigtiff_deflate":
+        return tiff(img, compression=8, predictor=2, rows_per_strip=8,
+                    bigtiff=True)
     if kind == "p6":
         return pnm_binary(img, "P6")
     if kind == "p3":

@@ -3,11 +3,12 @@ OpenCV 5 decodes them into (H, W, 3) RGB uint8 (its BGR result after
 ``COLOR_BGR2RGB``): BMP, PxM (PBM, PGM, PPM, PAM, PFM), Sun raster, TIFF,
 GIF, Radiance HDR, WebP and JPEG 2000.  Headers and plain raster layouts
 are read with numpy; the byte-serial codings (BMP RLE4/RLE8, TIFF
-PackBits and LZW, GIF's LZW, HDR's run-length scanlines, every stage of
-WebP's lossless and lossy decoders, all of JPEG 2000) run in
-``native/imgcodec.cc``, ``native/webp.cc`` and ``native/jpeg2000.cc``,
-TIFF Deflate in the standard library's zlib, so no frame decode loops
-over bytes in Python.
+PackBits, LZW, JPEG and CCITT, TIFF's YCbCr and CIELab conversions, GIF's
+LZW, HDR's run-length scanlines, every stage of WebP's lossless and lossy
+decoders, all of JPEG 2000) run in ``native/imgcodec.cc``,
+``native/tiff.cc``, ``native/webp.cc`` and ``native/jpeg2000.cc``, TIFF
+Deflate in the standard library's zlib, so no frame decode loops over
+bytes in Python.
 
 What OpenCV does, where it is not what the format's specification says:
 
@@ -25,19 +26,42 @@ What OpenCV does, where it is not what the format's specification says:
   the caller in B, G, R order; a PFM's floats are multiplied by 1 / |scale|
   in float32 and rounded half to even, with NaN, infinities and values out
   of int32's range reading 0, as ``cvRound`` gives them.
-* TIFF: libtiff's RGBA image (``TIFFReadRGBAStrip``/``Tile``), which cv2
-  uses for every 8-bit result: 16-bit colour and separate-plane samples
-  scaled by ``(v + 128) // 257``, contiguous 16-bit grey cut to its high
-  byte, an unassociated alpha multiplied in (``(v * a + 127) // 255``; for
-  grey only in separate planes), MinIsWhite inverted except in separate
+* TIFF (classic and BigTIFF): libtiff's RGBA image
+  (``TIFFReadRGBAStrip``/``Tile``), which cv2 uses for every 8-bit
+  result: 16-bit colour and separate-plane samples scaled by
+  ``(v + 128) // 257``, contiguous 16-bit grey cut to its high byte, an
+  unassociated alpha multiplied in (``(v * a + 127) // 255``; for grey
+  only in separate planes), MinIsWhite inverted except in separate
   planes, a colour map cut to its high byte unless every entry is below
-  256; the horizontal predictor applies to LZW and Deflate only; the
-  orientation tag turns the image as an EXIF orientation does.
+  256; the horizontal predictor applies to LZW and Deflate only;
+  FillOrder 2 reverses the stored bits of every coding but JPEG.  JPEG
+  (compression 7): each strip or tile an abbreviated stream read after
+  the JPEGTables stream, contiguous YCbCr converted to RGB by libjpeg
+  (``JPEGCOLORMODE_RGB``: fancy upsampling, its fixed-point tables), every
+  other photometric taken as the components stand, a last strip coded at
+  a full strip's height cut.  YCbCr without JPEG: ``TIFFYCbCrToRGB``'s
+  tables (YCbCrCoefficients, ReferenceBlackWhite) and the put routines'
+  blocks, chroma replicated; a 4x4-subsampled tile skips 10 bytes a block
+  of the columns past the image, not 18.  CMYK: ``(255 - k) * (255 - c) //
+  255`` from the first four samples.  CIELab: ``TIFFCIELabToXYZ`` and
+  ``TIFFXYZToRGB`` in float32 against the WhitePoint (CIE D50 without
+  one), RATIONAL tags read as float32 numerator / denominator.  CCITT RLE,
+  Group 3 and Group 4: ``tif_fax3``'s runs, then the 1-bit path.  The
+  orientation tag turns each strip or tile of libtiff's reading as
+  ``TIFFRGBAImage`` flips it, placed from the bottom for orientations 3,
+  4, 7 and 8, then the image as EXIF turns 5-8: for strips the EXIF
+  orientation of the whole image, for tiles each tile turned on its own.
 * GIF (OpenCV's own decoder, grfmt_gif.cpp): the first frame only, on the
   logical screen; the screen outside the frame and the frame's
   transparent pixels read as the global table's background colour, or
   black without a global table, whatever the disposal method says; a file
-  cut anywhere, even after its first frame, reads as nothing.
+  cut anywhere, even after its first frame, a graphic control extension
+  before the first frame of other than 4 bytes or of a disposal method
+  above 3, and an application extension with a 3-byte data sub-block but
+  NETSCAPE2.0's read as nothing; an LZW end code before the frame is full
+  resets the table and drops the rest of its byte, a code that overruns
+  the frame fails the file, and once the frame is full the next code ends
+  the stream, the data having to end with it.
 * Radiance HDR (rgbe.cpp): a header line ``FORMAT=32-bit_rle_rgbe``, then
   a blank line, then ``-Y H +X W``; a scanline that does not start 2, 2
   turns the rest of the image into flat pixels; each pixel
@@ -68,22 +92,34 @@ What OpenCV does, where it is not what the format's specification says:
   under sRGB, an ICC profile, another enumerated space or none; sYCC
   through cvtColor's 8-bit YUV -> BGR (14-bit fixed point: 2.032 U,
   -0.395 U - 0.581 V, 1.140 V); a tile the codestream lacks reads as 0;
-  bytes after the EOC are not read.
+  once every tile has all its tile-parts, what follows is not read if it
+  is an EOC, a SOT or the stream's last two bytes, but a SOT that the
+  tile-part count check takes for another part of the first tile.
 
 Refused by name (FileNotFoundError naming the path and the format), each
 where cv2.imread returns nothing or where the port does not decode it:
 a gray PFM (``Pf``), PAM with 2 or 4 channels or a maxval of 1, Sun raster
-run-length and RGB types, TIFF below 8 bits but for 1-bit grey and 4-bit
-palettes, TIFF with JPEG or CCITT compression, float samples, more than 4
-samples, orientations 5-8 on a non-square image (cv2 reads nothing), an
-orientation other than 1 on tiles, BigTIFF, a GIF frame outside its
+run-length and RGB types; TIFF where cv2 reads nothing: below 8 bits but
+for 1-bit grey and 4-bit palettes, float samples, more than 4 samples,
+orientations 5-8 on a non-square image, LZMA, ZSTD, LERC, WebP and JPEG
+2000 compression (libtiff's build lacks the codec), photometric
+interpretations other than grey, RGB, palette, CMYK, YCbCr and CIELab
+(ICCLab, ITULab, LogLuv ...), 16-bit CMYK, YCbCr or 8-bit-only layouts
+at other depths, CMYK of another InkSet or fewer than 4 samples, YCbCr of
+other than 3 samples or subsampled 1x4, 2x4 (or subsampled in separate
+planes), CIELab in separate planes or of other than 3 samples, CCITT
+of other than 1-bit samples; and TIFF no writer here (Pillow, cv2) makes:
+old-style JPEG (6) and CCITT RLEW (32771) compression, JPEG of a palette,
+of samples other than 8 bits or in separate planes, subsampled YCbCr
+with the horizontal predictor; a GIF frame outside its
 logical screen, Radiance HDR in XYZE or with a layout other than
 -Y H +X W, a lossless WebP of a version other than 0; JPEG 2000 with an
 image or tile-grid offset, signed or sub-sampled components, a precision
 below 8 or above 31, more than 4 components, 1 or 2 components without a
 JP2 grey colour space, sYCC of fewer than 3, the e-sYCC and CMYK colour
 spaces, a codestream cut short (a tile-part past its end, no EOC after
-the last tile-part), a tile with no packet data, a JP2 file without ftyp
+the last tile-part), other bytes after the last tile-part but an EOC, a
+SOT or two last bytes, a tile with no packet data, a JP2 file without ftyp
 second or without a jp2h holding an ihdr before its codestream, or whose
 ihdr size is not the codestream's (each where cv2 reads nothing), HTJ2K
 (Part 15), Part 2 wavelets and component transforms, and
@@ -391,48 +427,128 @@ def decode_sun(data: bytes, what: str = "Sun raster") -> np.ndarray:
 
 
 # ------------------------------------------------------------------ TIFF
-_TYPES = {1: "B", 2: "B", 3: "H", 4: "I", 6: "b", 7: "B", 8: "h", 9: "i",
-          16: "Q"}
-_COMPRESSIONS = {2: "CCITT RLE", 3: "CCITT G3", 4: "CCITT G4",
-                 32771: "CCITT RLEW", 6: "old-style JPEG", 7: "JPEG",
+# type -> struct format of one value (RATIONAL and SRATIONAL: a pair)
+_TYPES = {1: "B", 2: "B", 3: "H", 4: "I", 5: "II", 6: "b", 7: "B", 8: "h",
+          9: "i", 10: "ii", 11: "f", 12: "d", 16: "Q", 17: "q", 18: "Q"}
+_COMPRESSIONS = {32771: "CCITT RLEW", 6: "old-style JPEG",
                  34712: "JPEG 2000", 34887: "LERC", 34925: "LZMA",
                  50000: "ZSTD", 50001: "WebP", 32946: None, 8: None,
-                 1: None, 5: None, 32773: None}
+                 1: None, 5: None, 32773: None, 7: None, 2: None, 3: None,
+                 4: None}
+# the compressions whose stored bits libtiff reverses under FillOrder 2
+# (the CCITT decoders read them in that order, JPEG ignores the tag)
+_BIT_REVERSED = (1, 5, 8, 32946, 32773)
+_REVERSE = np.array([int(f"{i:08b}"[::-1], 2) for i in range(256)], np.uint8)
+# libtiff's YCbCr subsamplings (tif_getimage.c's put routines)
+_SUBSAMPLINGS = ((1, 1), (1, 2), (2, 1), (2, 2), (4, 1), (4, 2), (4, 4))
+# CIE D50 (tif_aux.c's default WhitePoint), as float32 chromaticities
+_D50 = np.float32([96.4250, 100.0, 82.4680])
+_D50_WHITE = (_D50[0] / (_D50[0] + _D50[1] + _D50[2]),
+              _D50[1] / (_D50[0] + _D50[1] + _D50[2]))
 
 
 def _ifd(data: bytes, what: str) -> dict:
-    """The first IFD's tags: tag -> tuple of values (integer types)."""
+    """The first IFD's tags: tag -> tuple of values (RATIONAL and
+    SRATIONAL as float32 numerator / denominator, as libtiff reads them
+    into floats); classic TIFF or BigTIFF (version 43: 8-byte offsets,
+    counts and inline values, 20-byte entries)."""
     bo = "<" if data[:2] == b"II" else ">"
-    version = struct.unpack_from(bo + "H", data, 2)[0]
-    if version == 43:
-        raise Refused("BigTIFF")
     _need(data, 8, what, "TIFF")
-    pos = struct.unpack_from(bo + "I", data, 4)[0]
-    _need(data, pos + 2, what, "TIFF")
-    n = struct.unpack_from(bo + "H", data, pos)[0]
-    _need(data, pos + 2 + 12 * n, what, "TIFF")
+    big = struct.unpack_from(bo + "H", data, 2)[0] == 43
+    if big:
+        _need(data, 16, what, "BigTIFF")
+        if struct.unpack_from(bo + "HH", data, 4) != (8, 0):
+            raise ValueError(f"{what}: BigTIFF header of another offset size")
+        pos = struct.unpack_from(bo + "Q", data, 8)[0]
+    else:
+        pos = struct.unpack_from(bo + "I", data, 4)[0]
+    count_fmt, entry_fmt, inline = ("Q", "HHQ8s", 8) if big else ("H",
+                                                                  "HHI4s", 4)
+    head = struct.calcsize(bo + count_fmt)
+    step = struct.calcsize(bo + entry_fmt)
+    _need(data, pos + head, what, "TIFF")
+    n = struct.unpack_from(bo + count_fmt, data, pos)[0]
+    _need(data, pos + head + step * n, what, "TIFF")
     tags = {}
     for i in range(n):
-        tag, typ, count, val = struct.unpack_from(bo + "HHI4s", data,
-                                                  pos + 2 + 12 * i)
+        tag, typ, count, val = struct.unpack_from(bo + entry_fmt, data,
+                                                  pos + head + step * i)
         if typ not in _TYPES:
             continue
         fmt = _TYPES[typ]
-        size = struct.calcsize(fmt) * count
-        if size > 4:
-            off = struct.unpack(bo + "I", val)[0]
+        size = struct.calcsize(bo + fmt) * count
+        if size > inline:
+            off = struct.unpack(bo + ("Q" if big else "I"), val)[0]
             _need(data, off + size, what, "TIFF")
             raw = data[off:off + size]
         else:
             raw = val[:size]
-        tags[tag] = struct.unpack(bo + fmt * count, raw)
+        v = struct.unpack(bo + fmt * count, raw)
+        if typ in (5, 10):
+            v = tuple(np.float32(a) / np.float32(b) if b else np.float32(0)
+                      for a, b in zip(v[::2], v[1::2]))
+        tags[tag] = v
     tags["bo"] = bo
     return tags
 
 
+def _tiff_check(t, spp, bps, comp, photo, planar, predictor):
+    """Refuse (by name) what cv2 reads as nothing or no writer here makes;
+    the colour channels' layout otherwise."""
+    if comp not in _COMPRESSIONS or _COMPRESSIONS[comp]:
+        name = _COMPRESSIONS.get(comp) or f"{comp}"
+        why = ("no writer here makes it" if comp in (6, 32771) else
+               "cv2 reads nothing: libtiff's build lacks the codec")
+        raise Refused(f"TIFF with {name} compression ({why})")
+    if spp > 4:
+        raise Refused(f"TIFF with {spp} samples a pixel (cv2 reads nothing)")
+    allowed = {0: (1, 8, 16), 1: (1, 8, 16), 2: (8, 16), 3: (1, 4, 8),
+               5: (8,), 6: (8,), 8: (8, 16)}
+    if photo not in allowed:
+        raise Refused(f"TIFF with photometric interpretation {photo} (cv2 "
+                      "reads nothing)")
+    if bps not in allowed[photo]:
+        raise Refused(f"TIFF of photometric interpretation {photo} at "
+                      f"{bps} bits (cv2 reads nothing)")
+    extra = t.get(338, ())
+    if photo == 2 and spp - len(extra) < 3 \
+            or photo in (0, 1, 3) and bps < 8 and spp > 1 \
+            or photo == 5 and spp != 4 or photo in (6, 8) and spp != 3:
+        raise Refused(f"TIFF with {spp} samples of {bps} bits at "
+                      f"photometric interpretation {photo} (cv2 reads "
+                      "nothing)")
+    if photo == 5 and t.get(332, (1,))[0] != 1:
+        raise Refused(f"CMYK TIFF with InkSet {t[332][0]} (cv2 reads "
+                      "nothing)")
+    if photo == 8 and planar == 2:
+        raise Refused("CIELab TIFF in separate planes (cv2 reads nothing)")
+    if predictor not in (1, 2) or predictor == 2 and bps < 8:
+        raise Refused(f"TIFF predictor {predictor} at {bps} bits")
+    sub = (1, 1)
+    if photo == 6:
+        sub = tuple(t.get(530, (2, 2))[:2])
+        if sub not in _SUBSAMPLINGS or planar == 2 and sub != (1, 1):
+            raise Refused(f"YCbCr TIFF subsampled {sub[0]}x{sub[1]}"
+                          + (" in separate planes" if planar == 2 else "")
+                          + " (cv2 reads nothing)")
+        if sub != (1, 1) and predictor == 2 and comp != 7:
+            raise Refused("subsampled YCbCr TIFF with the horizontal "
+                          "predictor (no writer here makes it)")
+    if comp == 7:
+        if bps != 8 or photo == 3 or planar == 2 and spp > 1:
+            raise Refused("JPEG-compressed TIFF of "
+                          + ("a palette" if photo == 3 else
+                             f"{bps}-bit samples" if bps != 8 else
+                             "separate planes")
+                          + " (no writer here makes it)")
+    if comp in (2, 3, 4) and (bps != 1 or spp != 1):
+        raise Refused(f"CCITT-compressed TIFF of {spp} samples of {bps} "
+                      "bits (cv2 reads nothing)")
+    return sub
+
+
 def decode_tiff(data: bytes, what: str = "TIFF") -> np.ndarray:
     t = _ifd(data, what)
-    bo = t["bo"]
 
     def one(tag, default=None):
         v = t.get(tag)
@@ -449,94 +565,154 @@ def decode_tiff(data: bytes, what: str = "TIFF") -> np.ndarray:
     photo = one(262)
     planar = one(284, 1)
     predictor = one(317, 1)
-    extra = t.get(338, ())
     if one(339, 1) not in (1, 2):
         raise Refused(f"TIFF with sample format {one(339)} (float or "
                       "complex samples)")
-    if comp not in _COMPRESSIONS or _COMPRESSIONS[comp]:
-        name = _COMPRESSIONS.get(comp) or f"{comp}"
-        raise Refused(f"TIFF with {name} compression")
     orientation = one(274, 1)
     if not 1 <= orientation <= 8:
         raise Refused(f"TIFF with orientation {orientation}")
-    if orientation != 1 and 322 in t:
-        # cv2 turns each tile of libtiff's RGBA reading on its own
-        raise Refused(f"tiled TIFF with orientation {orientation}")
     if orientation >= 5 and w != h:
         # cv2 turns the image as EXIF says, and reads nothing where the
         # turn swaps a non-square image's height and width
         raise Refused(f"TIFF with orientation {orientation} on a "
                       f"{w}x{h} image")
-    if spp > 4:
-        raise Refused(f"TIFF with {spp} samples a pixel")
-    allowed = {0: (1, 8, 16), 1: (1, 8, 16), 2: (8, 16), 3: (1, 4, 8)}
-    if photo not in allowed:
-        raise Refused(f"TIFF with photometric interpretation {photo}")
-    if bps not in allowed[photo]:
-        raise Refused(f"TIFF of photometric interpretation {photo} at "
-                      f"{bps} bits")
-    colour = spp - len(extra) if photo == 2 else 1
-    if photo == 2 and colour < 3 or photo != 2 and bps < 8 and spp > 1:
-        raise Refused(f"TIFF with {spp} samples of {bps} bits at "
-                      f"photometric interpretation {photo}")
-    if predictor not in (1, 2) or predictor == 2 and bps < 8:
-        raise Refused(f"TIFF predictor {predictor} at {bps} bits")
+    sub = _tiff_check(t, spp, bps, comp, photo, planar, predictor)
     separate = planar == 2 and spp > 1
-    samples = _tiff_samples(data, t, w, h, spp, bps, comp,
-                            predictor == 2 and comp in (5, 8, 32946),
-                            separate, bo, what)
-    rgb = _tiff_rgba(samples, t, photo, bps, spp, extra, separate)
-    if orientation == 1:
-        return rgb
-    out = np.empty_like(rgb)
-    codec.library().thc_orient_rgb(rgb.ctypes.data, h, w, orientation,
-                                   out.ctypes.data)
-    return out
+    layout = _Layout(t, w, h, spp, separate, what)
+    predict = predictor == 2 and comp in (5, 8, 32946)
+    if comp == 7:
+        s = _tiff_jpeg(data, t, layout, spp, photo, sub, what)
+        if photo == 6:  # libjpeg's RGB
+            photo, spp, t = 2, 3, {**t, 338: ()}
+    elif photo == 6 and not separate:
+        s = _tiff_ycbcr(data, t, layout, comp, predict, sub, what)
+        photo, spp, t = 2, 3, {**t, 338: ()}
+    else:
+        s = _tiff_samples(data, t, layout, spp, bps, comp, predict, what)
+    rgb = _tiff_rgba(s, t, photo, bps, spp, t.get(338, ()), separate)
+    return _tiff_orient(rgb, layout, orientation)
 
 
-def _tiff_samples(data, t, w, h, spp, bps, comp, predict, separate, bo,
-                  what) -> np.ndarray:
+class _Layout:
+    """The strips or tiles of a TIFF: chunk size (ch, cw), offsets and
+    byte counts, planes, chunks across and down."""
+
+    def __init__(self, t, w, h, spp, separate, what):
+        self.w, self.h = w, h
+        self.tiled = 322 in t
+        if self.tiled:
+            self.cw, self.ch = t[322][0], t[323][0]
+            self.offsets, self.counts = t.get(324), t.get(325)
+        else:
+            self.cw, self.ch = w, min(t.get(278, (h,))[0], h)
+            self.offsets, self.counts = t.get(273), t.get(279)
+        if not self.offsets or not self.counts \
+                or len(self.offsets) != len(self.counts):
+            raise ValueError(f"{what}: TIFF without its strip or tile "
+                             "offsets")
+        self.planes = spp if separate else 1
+        self.per = 1 if separate else spp
+        self.across = -(-w // self.cw)
+        self.down = -(-h // self.ch)
+        n = self.planes * self.across * self.down
+        if len(self.offsets) < n:
+            raise ValueError(f"{what}: TIFF lists {len(self.offsets)} "
+                             f"strips or tiles of {n}")
+        self.reverse = t.get(266, (1,))[0] == 2
+
+    def chunks(self, data):
+        """(plane, row, column, rows, stored bytes) of each strip or tile,
+        rows the ones it holds (a strip's at the image's end)."""
+        k = 0
+        for p in range(self.planes):
+            for ty in range(self.down):
+                for tx in range(self.across):
+                    rows = self.ch if self.tiled else min(
+                        self.ch, self.h - ty * self.ch)
+                    raw = data[self.offsets[k]:self.offsets[k]
+                               + self.counts[k]]
+                    k += 1
+                    yield p, ty * self.ch, tx * self.cw, rows, raw
+
+
+def _tiff_samples(data, t, lay, spp, bps, comp, predict, what):
     """(h, w, spp) samples, uint8 or uint16 (or (h, w, 1) below 8 bits,
     unpacked)."""
-    tiled = 322 in t
-    if tiled:
-        cw, ch = t[322][0], t[323][0]
-        offsets, counts = t.get(324), t.get(325)
-    else:
-        cw, ch = w, min(t.get(278, (h,))[0], h)
-        offsets, counts = t.get(273), t.get(279)
-    if not offsets or not counts or len(offsets) != len(counts):
-        raise ValueError(f"{what}: TIFF without its strip or tile offsets")
-    per = 1 if separate else spp
-    planes = spp if separate else 1
-    across, down = -(-w // cw), -(-h // ch)
-    if len(offsets) < planes * across * down:
-        raise ValueError(f"{what}: TIFF lists {len(offsets)} strips or "
-                         f"tiles of {planes * across * down}")
-    dt = np.dtype(bo + "u2") if bps == 16 else np.dtype(np.uint8)
-    rowbytes = (cw * per * bps + 7) // 8
-    out = np.zeros((planes, down * ch, across * cw, per),
-                   np.uint16 if bps == 16 else np.uint8)
-    k = 0
-    for p in range(planes):
-        for ty in range(down):
-            for tx in range(across):
-                rows = ch if tiled else min(ch, h - ty * ch)
-                size = rowbytes * rows
-                raw = data[offsets[k]:offsets[k] + counts[k]]
-                k += 1
-                chunk = _inflate(raw, comp, size, what)
-                if bps < 8:
-                    v = _unpack_bits(np.frombuffer(chunk, np.uint8).reshape(
-                        rows, rowbytes), bps, cw)[..., None]
-                else:
-                    v = np.frombuffer(chunk, dt).reshape(rows, cw, per)
-                    if predict:
-                        v = np.cumsum(v, axis=1, dtype=v.dtype.newbyteorder(
-                            "="))
-                out[p, ty * ch:ty * ch + rows, tx * cw:(tx + 1) * cw] = v
-    out = out[:, :h, :w]
-    return (np.moveaxis(out[..., 0], 0, -1) if separate else out[0])
+    dt = np.dtype(t["bo"] + "u2") if bps == 16 else np.dtype(np.uint8)
+    rowbytes = (lay.cw * lay.per * bps + 7) // 8
+    out = np.zeros((lay.planes, lay.down * lay.ch, lay.across * lay.cw,
+                    lay.per), np.uint16 if bps == 16 else np.uint8)
+    for p, y, x, rows, raw in lay.chunks(data):
+        if comp in (2, 3, 4):
+            buf = np.empty((rows, rowbytes), np.uint8)
+            codec.call("thc_tiff_fax", raw, len(raw), comp,
+                       t.get(292, (0,))[0] & 1 if comp == 3 else 0,
+                       int(lay.reverse), lay.cw, rows, buf.ctypes.data,
+                       rowbytes, what=what)
+            chunk = buf.tobytes()
+        else:
+            if lay.reverse and comp in _BIT_REVERSED:
+                raw = _REVERSE[np.frombuffer(raw, np.uint8)].tobytes()
+            chunk = _inflate(raw, comp, rowbytes * rows, what)
+        if bps < 8:
+            v = _unpack_bits(np.frombuffer(chunk, np.uint8).reshape(
+                rows, rowbytes), bps, lay.cw)[..., None]
+        else:
+            v = np.frombuffer(chunk, dt).reshape(rows, lay.cw, lay.per)
+            if predict:
+                v = np.cumsum(v, axis=1, dtype=v.dtype.newbyteorder("="))
+        out[p, y:y + rows, x:x + lay.cw] = v
+    out = out[:, :lay.h, :lay.w]
+    return np.moveaxis(out[..., 0], 0, -1) if lay.planes > 1 else out[0]
+
+
+def _tiff_jpeg(data, t, lay, spp, photo, sub, what) -> np.ndarray:
+    """(h, w, c) samples of a JPEG-compressed TIFF: each strip or tile an
+    abbreviated stream after the JPEGTables stream; contiguous YCbCr as
+    libjpeg's RGB (c = 3), else the components as they are (c = spp)."""
+    tables = bytes(t.get(347, b""))
+    ycbcr = photo == 6
+    hs, vs = sub
+    out = np.zeros((lay.down * lay.ch, lay.across * lay.cw, spp), np.uint8)
+    for _, y, x, rows, raw in lay.chunks(data):
+        buf = np.empty((rows, lay.cw, spp), np.uint8)
+        # a last strip's stream may hold every row of a full strip
+        taller = not lay.tiled and y + rows == lay.h
+        codec.call("thc_tiff_jpeg", tables, len(tables), raw, len(raw),
+                   int(ycbcr), hs, vs, spp, rows, lay.cw, int(taller),
+                   buf.ctypes.data, what=what)
+        out[y:y + rows, x:x + lay.cw] = buf
+    return out[:lay.h, :lay.w]
+
+
+def _floats(t, tag, default) -> np.ndarray:
+    v = t.get(tag)
+    return np.asarray(default if v is None else v, np.float32)
+
+
+def _tiff_ycbcr(data, t, lay, comp, predict, sub, what) -> np.ndarray:
+    """(h, w, 3) RGB of contiguous YCbCr, each strip or tile as libtiff's
+    put routine for its subsampling converts it."""
+    hs, vs = sub
+    luma = _floats(t, 529, (0.299, 0.587, 0.114))
+    rbw = _floats(t, 532, (0, 255, 128, 255, 128, 255))
+    out = np.zeros((lay.down * lay.ch, lay.across * lay.cw, 3), np.uint8)
+    for _, y, x, rows, raw in lay.chunks(data):
+        if lay.reverse and comp in _BIT_REVERSED:
+            raw = _REVERSE[np.frombuffer(raw, np.uint8)].tobytes()
+        size = -(-rows // vs) * -(-lay.cw // hs) * (hs * vs + 2)
+        chunk = _inflate(raw, comp, size, what)
+        if predict:  # 1x1 only: three samples a pixel
+            chunk = np.cumsum(np.frombuffer(chunk, np.uint8).reshape(
+                rows, lay.cw, 3), axis=1, dtype=np.uint8).tobytes()
+        # the part of the strip or tile inside the image
+        rh, rw = min(rows, lay.h - y), min(lay.cw, lay.w - x)
+        rgb = np.empty((rh, rw, 3), np.uint8)
+        codec.call("thc_tiff_ycbcr", chunk, len(chunk), rh, rw, lay.cw, hs,
+                   vs, luma.ctypes.data, rbw.ctypes.data, rgb.ctypes.data,
+                   what=what)
+        out[y:y + rh, x:x + rw] = rgb
+    return out[:lay.h, :lay.w]
 
 
 def _inflate(raw: bytes, comp: int, size: int, what: str) -> bytes:
@@ -581,6 +757,27 @@ def _tiff_rgba(s, t, photo, bps, spp, extra, separate) -> np.ndarray:
         if cmap.max() >= 256:
             cmap = cmap >> 8
         return np.ascontiguousarray(cmap.astype(np.uint8)[s[..., 0]])
+    if photo in (5, 6, 8):
+        s = np.ascontiguousarray(s)
+        out = np.empty(s.shape[:2] + (3,), np.uint8)
+        if photo == 5:  # putRGBcontig8bitCMYKtile, putCMYKseparate8bittile
+            codec.call("thc_tiff_cmyk", s.ctypes.data,
+                       s.shape[0] * s.shape[1], s.shape[2], out.ctypes.data,
+                       what="CMYK TIFF")
+        elif photo == 6:  # separate planes, 1x1
+            codec.call("thc_tiff_ycbcr", s.ctypes.data, s.nbytes, s.shape[0],
+                       s.shape[1], s.shape[1], 1, 1,
+                       _floats(t, 529, (0.299, 0.587, 0.114)).ctypes.data,
+                       _floats(t, 532, (0, 255, 128, 255, 128,
+                                        255)).ctypes.data, out.ctypes.data,
+                       what="YCbCr TIFF")
+        else:
+            s = np.ascontiguousarray(s, s.dtype.newbyteorder("="))
+            white = _floats(t, 318, _D50_WHITE)
+            codec.call("thc_tiff_lab", s.ctypes.data, s.shape[0] * s.shape[1],
+                       int(bps == 16), white.ctypes.data, out.ctypes.data,
+                       what="CIELab TIFF")
+        return out
     if photo == 2 or separate:
         # libtiff's RGB path, also for grey in separate planes (no
         # MinIsWhite inversion there)
@@ -600,6 +797,37 @@ def _tiff_rgba(s, t, photo, bps, spp, extra, separate) -> np.ndarray:
         g = 255 - g
     return np.ascontiguousarray(np.repeat(g.astype(np.uint8)[..., None], 3,
                                           -1))
+
+
+def _tiff_orient(rgb, lay, orientation) -> np.ndarray:
+    """rgb (the image in the file's order) as cv2 reads it under the
+    orientation tag: each strip or tile of libtiff's RGBA reading
+    (TIFFReadRGBAStrip / Tile, which flip what they read to the bottom-left
+    origin the tag asks for) placed where cv2 puts it (from the bottom for
+    orientations 3, 4, 7 and 8), then turned as imread turns an EXIF
+    orientation of 5-8 (a transpose, and 180 degrees for 6 and 8).  For
+    strips this is the EXIF orientation of the whole image; a tile is
+    flipped on its own."""
+    if orientation == 1:
+        return rgb
+    flip_v = orientation in (1, 2, 5, 6)
+    flip_h = orientation in (2, 3, 6, 7)
+    from_bottom = orientation in (3, 4, 7, 8)
+    out = np.empty_like(rgb)
+    for y in range(0, lay.h, lay.ch):
+        for x in range(0, lay.w, lay.cw):
+            r = rgb[y:y + lay.ch, x:x + lay.cw]
+            if not flip_v:  # the tile reaches cv2 bottom row first
+                r = r[::-1]
+            if flip_h:
+                r = r[:, ::-1]
+            iy = lay.h - y - r.shape[0] if from_bottom else y
+            out[iy:iy + r.shape[0], x:x + r.shape[1]] = r
+    if orientation >= 5:
+        out = out.transpose(1, 0, 2)
+        if orientation in (6, 8):
+            out = out[::-1, ::-1]
+    return np.ascontiguousarray(out)
 
 
 # ------------------------------ GIF, Radiance HDR, WebP and JPEG 2000

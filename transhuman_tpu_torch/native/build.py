@@ -6,15 +6,17 @@ right on any x86-64 host) plus the flags ``LIBRARIES`` names beside its
 sources, into ``transhuman_tpu_torch/_build/lib<name>.so`` on first use,
 never at import:
 
-* ``imgcodec`` (``imgcodec.cc``, ``webp.cc``, ``jpeg2000.cc``): the JPEG
-  decoder
-  (sequential and progressive) and encoder, the EXIF orientation, the PNG
-  row unfilter, BMP RLE4/RLE8, TIFF PackBits and LZW, GIF, Radiance HDR,
-  WebP (VP8L lossless, VP8 lossy, the VP8X container) and JPEG 2000 (JP2
-  and raw codestreams), with ``-ffp-contract=off`` so that no multiply and
-  add of the 9/7 wavelet or the ICT is fused (OpenJPEG's SSE build fuses
-  none; without ``-march`` an x86-64 build has no fused multiply-adds to
-  make, so the flag changes nothing in the other two sources);
+* ``imgcodec`` (``imgcodec.cc``, ``webp.cc``, ``jpeg2000.cc``,
+  ``tiff.cc``): the JPEG decoder (sequential and progressive, and a TIFF
+  strip's stream after its tables) and encoder, the EXIF orientation, the
+  PNG row unfilter, BMP RLE4/RLE8, TIFF PackBits, LZW and CCITT, TIFF's
+  YCbCr, CMYK and CIELab conversions, GIF, Radiance HDR, WebP (VP8L lossless,
+  VP8 lossy, the VP8X container) and JPEG 2000 (JP2 and raw codestreams),
+  with ``-ffp-contract=off`` so that no multiply and add of the 9/7
+  wavelet, the ICT or CIELab's conversion is fused (OpenJPEG's SSE build
+  and libtiff's fuse none; without ``-march`` an x86-64 build has no fused
+  multiply-adds to make, so the flag changes nothing in the other two
+  sources);
 * ``marching`` (``marching_tet.cc``): marching tetrahedra
   (``mesh_ops/marching.py``);
 * ``crc32c`` (``crc32c.cc``): the event files' CRC32C
@@ -70,7 +72,7 @@ def _cpu_has(flag: str) -> bool:
 # only where both contract a * b + c into the same fused multiply-adds:
 # -mfma on a host whose CPU has them.
 LIBRARIES = {
-    "imgcodec": (("imgcodec.cc", "webp.cc", "jpeg2000.cc"),
+    "imgcodec": (("imgcodec.cc", "webp.cc", "jpeg2000.cc", "tiff.cc"),
                  ("-ffp-contract=off",)),
     "marching": (("marching_tet.cc",), ()),
     "crc32c": (("crc32c.cc",), ("-msse4.2",) if _X86 else ()),
@@ -115,6 +117,21 @@ _SIGNATURES = {
         "thc_j2k_info": ((_P, _L, _IP, _IP, *_ERR), _I),
         # data, n, out, height, width, err, errlen
         "thc_j2k_decode": ((_P, _L, _P, _I, _I, *_ERR), _I),
+        # tables, n_tables, data, n, ycbcr, hs, vs, ncomp, height, width,
+        # taller, out, err, errlen
+        "thc_tiff_jpeg": ((_P, _L, _P, _L, _I, _I, _I, _I, _I, _I, _I, _P,
+                           *_ERR), _I),
+        # in, n, mode, two_d, reversed, width, rows, out, rowbytes, err,
+        # errlen
+        "thc_tiff_fax": ((_P, _L, _I, _I, _I, _I, _I, _P, _L, *_ERR), _I),
+        # in, n, rows, width, tile_width, hs, vs, luma, rbw, out, err,
+        # errlen
+        "thc_tiff_ycbcr": ((_P, _L, _I, _I, _I, _I, _I, _P, _P, _P, *_ERR),
+                           _I),
+        # in, count, sixteen, white, out, err, errlen
+        "thc_tiff_lab": ((_P, _L, _I, _P, _P, *_ERR), _I),
+        # in, count, spp, out, err, errlen
+        "thc_tiff_cmyk": ((_P, _L, _I, _P, *_ERR), _I),
         "thc_free": ((_P,), None),
     },
     "marching": {

@@ -438,6 +438,9 @@ struct Jpeg {
   int adobe_transform = -1;
   int orientation = 1;
   bool exif_seen = false;
+  // the colour space libtiff sets (TIFF JPEG): 1 YCbCr -> RGB, 0 none;
+  // -1 the file's own markers decide
+  int force_ycc = -1;
   std::vector<Component> comps;
   uint16_t qt[4][64];  // natural order
   bool qt_defined[4] = {false, false, false, false};
@@ -468,6 +471,46 @@ struct Jpeg {
     if (v < 0) return;
     orientation = v;
     exif_seen = true;
+  }
+
+  // A tables-only stream (TIFF's JPEGTables: SOI, DQT and DHT segments,
+  // EOI), read as libjpeg's jpeg_read_header reads one: its tables stay for
+  // the next stream; the reset at that stream's SOI drops the rest.
+  void read_tables() {
+    if (n < 4 || data[0] != 0xFF || data[1] != 0xD8)
+      fail(kErrFormat, "JPEG tables without an SOI marker");
+    pos = 2;
+    for (;;) {
+      int b = u8();
+      if (b != 0xFF) continue;
+      int m = u8();
+      while (m == 0xFF) m = u8();
+      if (m == 0xD9) return;
+      if (m == 0xD8 || (m >= 0xD0 && m <= 0xD7) || m == 0x01) continue;
+      int len = u16();
+      if (len < 2 || pos + len - 2 > n)
+        fail(kErrFormat, "truncated JPEG marker segment");
+      size_t end = pos + len - 2;
+      if (m == 0xC4) {
+        read_dht(end);
+      } else if (m == 0xDB) {
+        read_dqt(end);
+      } else if (m == 0xDA || (m >= 0xC0 && m <= 0xCF && m != 0xC4 &&
+                               m != 0xC8 && m != 0xCC)) {
+        fail(kErrFormat, "JPEG tables holding a frame or a scan");
+      }
+      pos = end;
+    }
+  }
+
+  // The next stream (the image after a tables stream): SOI's reset.
+  void next_stream(const uint8_t* d, size_t len) {
+    data = d;
+    n = len;
+    pos = 0;
+    restart_interval = 0;
+    jfif = adobe = false;
+    adobe_transform = -1;
   }
 
   // Markers up to the end of the image, decoding every scan; with
@@ -1173,6 +1216,7 @@ struct Jpeg {
     else if (jfif) ycc = true;
     else if (adobe) ycc = adobe_transform != 0;
     else ycc = !(comps[0].id == 82 && comps[1].id == 71 && comps[2].id == 66);
+    if (force_ycc >= 0) ycc = force_ycc == 1;
     if (nc == 3 && !ycc) {
       for (size_t i = 0; i < npx; i++) {
         out[3 * i] = p[0][i];
@@ -1221,6 +1265,18 @@ struct Jpeg {
       out[3 * i] = (uint8_t)a;
       out[3 * i + 1] = (uint8_t)b;
       out[3 * i + 2] = (uint8_t)c;
+    }
+  }
+
+  // the components as they are (libjpeg's JCS_UNKNOWN output), each
+  // upsampled to the frame's size, interleaved
+  void components(uint8_t* out) const {
+    const size_t npx = (size_t)width * height;
+    const size_t nc = comps.size();
+    std::vector<uint8_t> p;
+    for (size_t c = 0; c < nc; c++) {
+      upsample(comps[c], p);
+      for (size_t i = 0; i < npx; i++) out[i * nc + c] = p[i];
     }
   }
 
@@ -1779,8 +1835,16 @@ void tiff_lzw(const uint8_t* in, size_t n, uint8_t* out, size_t nout) {
 // refused, as cv2 refuses it while reading the header), the first image
 // is decoded with LSB-first LZW (codes from the minimum code size + 1 to
 // 12 bits, clear and end codes) and must give exactly its width * height
-// indices, each below its colour table's size; a frame outside the logical
-// screen, which cv2 reads as nothing, is refused by name.  The screen starts
+// indices, each below its colour table's size, read as cv2 reads them
+// (random mutations against cv2 show it): an end code before the frame is
+// full resets the table and drops the rest of its byte, a code that
+// overruns the frame fails the file, and once the frame is full the next
+// code ends the stream and fails the file unless the data ends with it
+// (cv2 would read what follows as further blocks); a graphic control
+// extension before it must be 4 bytes with a disposal method of 0-3, and an
+// application extension with a 3-byte data sub-block must be NETSCAPE2.0's
+// (cv2 reads nothing otherwise); a frame outside the logical screen, which
+// cv2 reads as nothing, is refused by name.  The screen starts
 // as the global table's background colour, or black without a global
 // table, whatever the disposal method; the frame's transparent pixels keep
 // the screen's colour.
@@ -1804,6 +1868,21 @@ struct Gif {
       if (out) out->insert(out->end(), d + pos, d + pos + len);
       pos += len;
     }
+  }
+
+  // An application extension: cv2 reads nothing of one that holds a data
+  // sub-block of 3 bytes unless its first sub-block is NETSCAPE2.0's
+  // identifier
+  void application() {
+    bool netscape = false, three = false;
+    for (int len = byte(), k = 0; len; len = byte(), k++) {
+      if (pos + len > n) fail(kErrFormat, "GIF file ends early");
+      if (k == 0) netscape = len == 11 && !memcmp(d + pos, "NETSCAPE2.0", 11);
+      three = three || len == 3;
+      pos += len;
+    }
+    if (three && !netscape)
+      fail(kErrFormat, "GIF application extension of a 3-byte sub-block");
   }
 
   void header() {
@@ -1834,13 +1913,18 @@ struct Gif {
       if (tag == 0x21) {
         int label = byte();
         if (label == 0xF9 && !done) {
+          // before the first frame: 4 bytes and a disposal method of 0-3
           int len = byte();
-          if (len < 4 || pos + len > n)
+          if (len != 4 || pos + len > n || (d[pos] >> 2 & 7) > 3)
             fail(kErrFormat, "bad GIF graphic control extension");
           transparent = d[pos] & 1 ? d[pos + 3] : -1;
           pos += len;
+          sub_blocks(nullptr);
+        } else if (label == 0xFF) {
+          application();
+        } else {
+          sub_blocks(nullptr);
         }
-        sub_blocks(nullptr);
       } else if (tag == 0x2C) {
         if (done) {
           pos += 8;
@@ -1923,7 +2007,21 @@ struct Gif {
       int c = (int)(acc & ((1u << width) - 1));
       acc >>= width;
       held -= width;
-      if (c == end) break;
+      if (o == out.size()) {
+        // the frame is full: the next code ends it, and the data must end
+        // with that code
+        if (pos < in.size())
+          fail(kErrFormat, "GIF LZW data goes on past its frame");
+        break;
+      }
+      if (c == end) {  // before the frame is full: a reset, the byte's
+        width = mcs + 1;  // other bits dropped
+        next = end + 1;
+        old = -1;
+        acc = 0;
+        held = 0;
+        continue;
+      }
       if (c == clear) {
         width = mcs + 1;
         next = end + 1;
@@ -2111,6 +2209,55 @@ int thc_jpeg_decode(const uint8_t* data, int64_t n, uint8_t* out, int height,
     if (oh != height || ow != width)
       fail(kErrArgs, "output size does not match the JPEG frame");
     j.decode(out);
+    return 0;
+  } catch (const Error& e) {
+    return report(e, err, errlen);
+  } catch (const std::exception& e) {
+    return report(Error{kErrFormat, e.what()}, err, errlen);
+  }
+}
+
+// One JPEG-compressed TIFF strip or tile (compression 7) as libtiff's
+// JPEGPreDecode / JPEGDecode read it: the tables stream (tag 347; n_tables
+// 0 for none) first, then the strip's own stream, whose frame must hold
+// `ncomp` components, component 0 sampled hs x vs and the rest 1 x 1, and
+// be `width` wide and `height` high (with taller, a last strip's frame may
+// be higher: the rows past `height` are not read).  out: height x width x
+// ncomp samples as libjpeg outputs them with no colour conversion, or
+// with ycbcr (contiguous YCbCr: TIFFRGBAImage sets JPEGCOLORMODE_RGB)
+// height x width x 3 RGB, libjpeg's YCbCr -> RGB.
+int thc_tiff_jpeg(const uint8_t* tables, int64_t n_tables, const uint8_t* data,
+                  int64_t n, int ycbcr, int hs, int vs, int ncomp,
+                  int height, int width, int taller, uint8_t* out, char* err,
+                  int errlen) {
+  try {
+    Jpeg j(tables, (size_t)n_tables);
+    if (n_tables > 0) j.read_tables();
+    j.next_stream(data, (size_t)n);
+    j.read_headers();
+    if (!j.frame_done)
+      fail(kErrFormat, "JPEG ends before every component was scanned");
+    if ((int)j.comps.size() != ncomp)
+      fail(kErrFormat, "TIFF JPEG stream of another component count");
+    for (size_t c = 0; c < j.comps.size(); c++)
+      if (j.comps[c].h != (c ? 1 : hs) || j.comps[c].v != (c ? 1 : vs))
+        fail(kErrFormat, "TIFF JPEG stream of other sampling factors");
+    if (j.width != width || j.height < height ||
+        (j.height > height && !taller))
+      fail(kErrFormat, "TIFF JPEG stream of another size than its strip "
+                       "or tile");
+    if (ycbcr && ncomp != 3)
+      fail(kErrFormat, "YCbCr TIFF JPEG stream of other than 3 components");
+    if (j.progressive) j.output_coefficients();
+    const int nc = ycbcr ? 3 : ncomp;
+    std::vector<uint8_t> img((size_t)j.width * j.height * nc);
+    if (ycbcr) {
+      j.force_ycc = 1;
+      j.to_rgb(img.data());
+    } else {
+      j.components(img.data());
+    }
+    memcpy(out, img.data(), (size_t)width * height * nc);
     return 0;
   } catch (const Error& e) {
     return report(e, err, errlen);

@@ -98,6 +98,7 @@ struct Tcp {  // one tile's (or the main header's) parameters
   std::vector<std::pair<int, std::vector<uint8_t>>> ppt;  // (Zppt, Ippt)
   std::vector<uint8_t> data;  // the tile-parts' bodies, in order
   int parts = 0;
+  int tnsot = 0;  // the tile's count of tile-parts, 0 until a SOT gives it
   bool seen = false;
 };
 
@@ -1492,6 +1493,59 @@ void merge_ppm(Codestream& cs) {
   }
 }
 
+// Every tile has come with its count of tile-parts (TNsot), all of them.
+bool all_tile_parts(const Codestream& cs) {
+  for (const Tcp& t : cs.tiles)
+    if (!t.seen || t.tnsot == 0 || t.parts < t.tnsot) return false;
+  return true;
+}
+
+// The bytes t[0..n) after the last tile-part, once every tile has all its
+// tile-parts, as OpenJPEG 2.5 reads them (its decoder stops once the last
+// tile is decoded): an EOC; a SOT; or, as the stream's last two bytes,
+// anything ("does not end with EOC").  Before that, when the first tile to
+// complete has more than one tile-part, its tile-part count check
+// (opj_j2k_need_nb_tile_parts_correction) walks the SOTs that follow by
+// their Psot: a SOT of that tile whose TPsot equals its TNsot makes it
+// expect one more tile-part, read then as an empty one if its TPsot says
+// so; a SOT cut short or of another length fails the file.  cv2 reads
+// nothing of every other trailer.
+void trailer(const Codestream& cs, const uint8_t* t, size_t n,
+             int first_done) {
+  const char* none =
+      "bytes other than an EOC or a SOT after the last tile-part (cv2 "
+      "reads nothing)";
+  uint32_t m = be16(t);
+  if (m != M_EOC && m != M_SOT) {
+    if (n == 2) return;
+    refuse(none);
+  }
+  if (m != M_SOT || first_done < 0 || cs.tiles[first_done].tnsot < 2) return;
+  for (size_t p = 0;;) {
+    if (p + 2 > n || be16(t + p) != M_SOT) return;
+    if (p + 12 > n || be16(t + p + 2) != 10)
+      refuse("a SOT cut short or of another length after the last "
+             "tile-part (cv2 reads nothing)");
+    uint32_t isot = be16(t + p + 4), psot = be32(t + p + 6);
+    uint32_t tpsot = t[p + 10], tnsot = t[p + 11];
+    if ((int)isot == first_done) {
+      if (tpsot != tnsot) return;
+      // one more tile-part of that tile: empty, to the EOC
+      size_t rest = n - (p + 12);
+      const uint8_t* r = t + p + 12;
+      bool empty = (rest == 2 && be16(r) == M_EOC) ||
+                   (rest == 4 && be16(r) == M_SOD && be16(r + 2) == M_EOC);
+      if ((int)tpsot == cs.tiles[first_done].parts && empty &&
+          (psot == 0 || psot == 12 + (rest == 4 ? 2u : 0u)))
+        return;
+      refuse("a SOT after the last tile-part that OpenJPEG takes for "
+             "another tile-part of the first tile (cv2 reads nothing)");
+    }
+    if (psot < 14 || p + psot > n) return;
+    p += psot;
+  }
+}
+
 void parse_codestream(Codestream& cs, const uint8_t* d, size_t n,
                       bool header_only) {
   if (n < 4 || be16(d) != M_SOC || be16(d + 2) != M_SIZ)
@@ -1522,6 +1576,7 @@ void parse_codestream(Codestream& cs, const uint8_t* d, size_t n,
   if (header_only) return;
   if (cs.have_ppm) merge_ppm(cs);
   cs.tiles.assign((size_t)cs.tw * cs.th, Tcp());
+  int first_done = -1;  // the first tile whose last tile-part came
   // tile-parts, to the EOC
   for (;;) {
     if (pos + 2 > n)
@@ -1529,13 +1584,17 @@ void parse_codestream(Codestream& cs, const uint8_t* d, size_t n,
              "strict mode reads it)");
     uint32_t m = be16(d + pos);
     if (m == M_EOC) break;
+    if (all_tile_parts(cs)) {
+      // OpenJPEG has decoded every tile: it reads what follows as trailer
+      trailer(cs, d + pos, n - pos, first_done);
+      break;
+    }
     if (m != M_SOT) bad("codestream (no SOT or EOC where a tile-part begins)");
     if (pos + 12 > n) break;  // a SOT cut short: OpenJPEG stops before it
     size_t sot = pos;
     if (be16(d + pos + 2) != 10) bad("SOT (length)");
     uint32_t isot = be16(d + pos + 4), psot = be32(d + pos + 6);
     uint32_t tpsot = d[pos + 10], tnsot = d[pos + 11];
-    (void)tnsot;
     if (isot >= cs.tiles.size()) bad("SOT (tile index)");
     size_t end;
     if (psot == 0) {  // to the EOC
@@ -1557,6 +1616,9 @@ void parse_codestream(Codestream& cs, const uint8_t* d, size_t n,
     }
     if ((int)tpsot != tcp.parts) bad("SOT (tile-part index out of order)");
     tcp.parts++;
+    if (tcp.tnsot == 0) tcp.tnsot = (int)tnsot;
+    if (first_done < 0 && tcp.tnsot && tcp.parts == tcp.tnsot)
+      first_done = (int)isot;
     pos += 12;
     for (;;) {
       if (pos + 2 > end) bad("tile-part (no SOD)");
