@@ -64,7 +64,10 @@ any failure ends the run with a non-zero exit:
 
 Phase 3 also holds the bf16 forms of K2, K4 and K3 against their float32
 forms on the widened inputs, cast once (bit for bit), and against their
-plain twins, timed beside their bf16 bounds.
+plain twins, timed beside their bf16 bounds; and K4's int8 form (the int8
+pixel map's fetch) against its plain twin bit for bit on the quantised
+full-width pixel map of a request, one launch without a sync, timed beside
+the float32 and bf16 forms on the same uv and its bound.
 
 Then the config files, LPIPS and the train loop's lifecycle, with seeded
 random stand-ins for the user's LPIPS and ResNet-18 npz files:
@@ -79,7 +82,10 @@ b. the train entry point from --cfg_file configs/train_or_eval.yaml at full
    just after, latest.pth / 0.pth / 1.pth written, lpips_loss in every
    step, the encoder's first convolution the npz's before the first step,
    1.pth the trained state bit for bit, a second call resuming at epoch 2
-   with the step and lr carried, then --test;
+   with the step and lr carried, then --test; each epoch save's hold on the
+   loop and its write on the checkpointer's worker, latest.pth the resumed
+   state, and one state saved inline (save_epoch) against the
+   checkpointer, the files byte for byte alike;
 c. the run entry point from the files on b's checkpoint directory:
    --type evaluate (train_or_eval.yaml) with and without the LPIPS column,
    --type visualize (performance.yaml, 2 frames), --type reconstruction
@@ -203,6 +209,15 @@ n1. CoreView_377 laid out with 1024x1024 lossless JP2 frames: the train
    K2 and K4 launched, each coding read;
 n2. examples/torch_minimal_render.py and torch_minimal_train.py on the
    card: exit 0, a 32x32 PNG, finite losses.
+
+Then the int8 pixel map and non-patch synthetic training:
+
+o. a full-width 512x512 request through render_frame with
+   quantize_pixel_feat=True (K4's int8 form for the pixel fetch), counters
+   reset and read, within 0.05 max / 0.01 mean rgb of the float32 render,
+   both timed in turns; a band of its rays on the CPU at the serve bounds;
+   then the train entry point on dataset synthetic with
+   patch.use_patch_sampling False for 2 full-width steps.
 
 Every visualize run (phases 9, c, g, i, j3) also writes one MJPG/AVI per
 human, parsed here: one JPEG frame per PNG.  Phase 11 also times the C++
@@ -606,6 +621,8 @@ def phase_kernels(card: str):
     # the bf16 forms of K2, K4 and K3, at the same shapes ------------------
     results.extend(check_bf16_forms(card, pts, centers, rot, tokens, k,
                                     binding, uv_pix, uv_verts, image))
+    # K4's int8 form, the int8 pixel map's fetch ---------------------------
+    results.append(check_int8_form(card))
     return results
 
 
@@ -1188,6 +1205,112 @@ def check_bf16_forms(card: str, pts, centers, rot, tokens, k: int,
         del got
     out.append(entry)
     return out
+
+
+def check_int8_form(card: str) -> dict:
+    """K4's int8 sampling form at the serve pixel shape of one real request
+    (the full-width pixel map of 3 512x512 views quantised per channel,
+    ops/sampling.py's quantize_feature_map; a 32,768-point chunk): equal
+    bit for bit to its plain twin, scaled and unscaled, and near the
+    float32 form on the dequantised map; the whole sample_feature_map
+    forward one launch under set_sync_debug_mode("error"); its wrapper and
+    bare launch timed beside the float32 and bf16 forms' on the same uv, its
+    twin, the quantiser and its bound (the bf16 rows it writes, uv, the
+    scale and the distinct int8 tap rows it reads)."""
+    from transhuman_tpu_torch.kernels import build, gather
+    from transhuman_tpu_torch.kernels.gather import _sample_taps
+    from transhuman_tpu_torch.ops.sampling import (quantize_feature_map,
+                                                   sample_feature_map)
+
+    dev = torch.device("cuda")
+    lib, stream = build.library(), torch.cuda.current_stream().cuda_stream
+    pixel, holder, uv, _, image = serve_request_maps(dev)
+    del holder
+    quantize_ms = time_ms(lambda: quantize_feature_map(pixel), iters=5,
+                          warmup=1)
+    q, scale = quantize_feature_map(pixel)
+    v, hf, wf, c = q.shape
+    n = uv.shape[1]
+    got = gather.feature_sample_int8_cuda(q, uv, image, scale)
+    want = gather.feature_sample_int8_plain(q, uv, image, scale)
+    unscaled = gather.feature_sample_int8_cuda(q, uv, image)
+    torch.cuda.synchronize()
+    check(got.dtype == torch.bfloat16 and got.shape == (v, n, c),
+          f"K4 int8: rows {got.dtype} {tuple(got.shape)}")
+    check(torch.equal(got, want), "K4 int8: the kernel differs from its "
+          "plain twin")
+    check(torch.equal(unscaled, gather.feature_sample_int8_plain(
+        q, uv, image)), "K4 int8: the unscaled kernel differs from its twin")
+    err = float((got.float() - want.float()).abs().max())
+    # the bf16 lerp against the float32 one on the dequantised map: the
+    # fractions and each of 10 operations rounded to bf16 (2^-8 relative)
+    deq = q.float() * scale
+    ref32 = gather.feature_sample_cuda(deq, uv, image)
+    big = float(deq.abs().max())
+    q_err = float((got.float() - ref32).abs().max())
+    check(q_err <= 4 * 2.0**-7 * big, f"K4 int8 vs the float32 form on the "
+          f"dequantised map: max err {q_err} (max {big})")
+    del deq, ref32
+    torch.cuda.synchronize()
+    n0 = gather.feature_sample_int8_cuda.launches
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        path_out = sample_feature_map(q, uv, image, scale)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    check(gather.feature_sample_int8_cuda.launches == n0 + 1
+          and torch.equal(path_out, got), "K4 int8: sample_feature_map is "
+          "not one launch of the int8 form giving its rows")
+    pix16 = pixel.to(torch.bfloat16)
+    raw = torch.empty_like(got)
+    raw32 = torch.empty((v, n, c), device=dev)
+    raw16 = torch.empty_like(got)
+    sx, sy = wf / image[1], hf / image[0]
+    with torch.no_grad():
+        path_ms = time_ms(lambda: sample_feature_map(q, uv, image, scale))
+    t = {
+        "ms": time_ms(lambda: gather.feature_sample_int8_cuda(q, uv, image,
+                                                              scale)),
+        "launch_ms": time_ms(lambda: lib.thp_feature_sample_int8(
+            q.data_ptr(), uv.data_ptr(), raw.data_ptr(), v, n, c, hf, wf, sx,
+            sy, scale.data_ptr(), stream)),
+        "f32_ms": time_ms(lambda: gather.feature_sample_cuda(pixel, uv,
+                                                             image)),
+        "f32_launch_ms": time_ms(lambda: lib.thp_feature_sample(
+            pixel.data_ptr(), uv.data_ptr(), raw32.data_ptr(), v, n, c, hf,
+            wf, sx, sy, stream)),
+        "bf16_ms": time_ms(lambda: gather.feature_sample_bf16_cuda(
+            pix16, uv, image)),
+        "bf16_launch_ms": time_ms(lambda: lib.thp_feature_sample_bf16(
+            pix16.data_ptr(), uv.data_ptr(), raw16.data_ptr(), v, n, c, hf,
+            wf, sx, sy, stream)),
+        "plain_ms": time_ms(lambda: gather.feature_sample_int8_plain(
+            q, uv, image, scale)),
+        "quantize_ms": quantize_ms,
+    }
+    check(torch.equal(raw, got), "K4 int8: the bare launches differ")
+    _, _, base, _, _, dx, dy = _sample_taps(q.shape, uv, image)
+    rows = _unique_rows(base, (0, dx, dy, dy + dx))
+    # bytes: the distinct int8 tap rows, uv and the scale in, the bf16 rows
+    # out; operations: the lerp's 6 products and 3 sums and the scale's
+    # product a channel
+    b = bound(rows * c + nbytes(uv, scale, got), 10 * got.numel())
+    log(f"[3 kernels] K4 int8 form pixel: V={v}, N={n}, C={c}, {hf}x{wf} "
+        f"int8 map, {rows} distinct tap rows: its twin's bf16 rows bit for "
+        f"bit (scaled and unscaled), max err vs the float32 form on the "
+        f"dequantised map {q_err:.3g} (max {big:.3g}); one launch, no sync; "
+        f"sample_feature_map forward {path_ms:.4f} ms, wrapper "
+        f"{t['ms']:.4f} ms, launch {t['launch_ms']:.4f} ms; on the same uv "
+        f"the float32 form {t['f32_ms']:.4f} / {t['f32_launch_ms']:.4f} ms "
+        f"and the bf16 form {t['bf16_ms']:.4f} / {t['bf16_launch_ms']:.4f} "
+        f"ms (wrapper / launch); plain {t['plain_ms']:.4f} ms; quantising "
+        f"the map {quantize_ms:.4f} ms; bound {b['bound_ms']:.4f} ms "
+        f"({b['bound_by']}); no PyTorch call samples an int8 map  [{card}]")
+    return {"name": "feature_sample_int8", "route": "cuda",
+            "source": "transhuman_tpu_torch/csrc/gather.cu",
+            "replaces": "tools/profile_gather_ab.py:156",
+            "max_abs_err": err, "path_ms": path_ms, **t, **b,
+            "library_ms": None}
 
 
 def _request(frame, target: int, hw: int, verts=None, blend_rot=None):
@@ -2402,6 +2525,7 @@ def phase_train_cfg(card: str, tmp: str, files: dict, dtype: str):
     (the first call's launch counts, its model directory)."""
     from transhuman_tpu_torch import kernels
     from transhuman_tpu_torch.cli import train as train_cli
+    from transhuman_tpu_torch.train import checkpoint as ckpt_io
     from transhuman_tpu_torch.train.schedule import (
         warmup_cosine_epoch_schedule,
     )
@@ -2480,7 +2604,38 @@ def phase_train_cfg(card: str, tmp: str, files: dict, dtype: str):
           f"train cfg --test: {val} {summary}")
     step_ms = [r["step_s"] * 1e3 for r in recs]
     lp_losses = [r["lpips_loss"] for r in recs]
+    # the epoch saves: the part that held the loop (save_s: the copy of the
+    # state) and the checkpointer worker's serialising and writing
+    # (save_write_s); latest.pth loads back as the resumed run's state
     saves = [r["save_s"] for r in recs + recs2 if "save_s" in r]
+    writes = [r["save_write_s"] for r in recs + recs2 if "save_write_s" in r]
+    check(len(saves) == len(writes) == CFG_EPOCHS + 1,
+          f"train cfg: saves {saves}, writes {writes}")
+    latest = torch.load(os.path.join(mdir, "latest.pth"), map_location="cpu",
+                        weights_only=True)
+    check(latest["epoch"] == CFG_EPOCHS
+          and all(torch.equal(latest["net"][k], v.cpu())
+                  for k, v in state2.model.state_dict().items()),
+          "train cfg: latest.pth is not the resumed run's state")
+    # the same state saved inline (save_epoch: copy, serialise and write in
+    # the loop, as every epoch was saved before the checkpointer) and
+    # through the checkpointer, in turns; the files byte for byte alike
+    inline, queued, written = [], [], []
+    for i in range(3):
+        t1 = time.perf_counter()
+        ckpt_io.save_epoch(os.path.join(root, "inline"), state2, CFG_EPOCHS,
+                           True)
+        inline.append(time.perf_counter() - t1)
+        ck = ckpt_io.AsyncCheckpointer()
+        t1 = time.perf_counter()
+        ck.save_epoch(os.path.join(root, "queued"), state2, CFG_EPOCHS, True)
+        queued.append(time.perf_counter() - t1)
+        ck.wait()
+        written.append(ck.write_s[CFG_EPOCHS])
+    with open(os.path.join(root, "inline", "latest.pth"), "rb") as f1, \
+            open(os.path.join(root, "queued", "latest.pth"), "rb") as f2:
+        check(f1.read() == f2.read(), "train cfg: the checkpointer's file "
+              "differs from save_epoch's")
     log(f"[b train cfg] --cfg_file train_or_eval.yaml in {dtype}, full width "
         f"(3 views 512x512, 2400 rays x 64 samples) with LPIPS and the "
         f"pretrained encoder: {len(recs)} steps in {wall:.1f} s (build "
@@ -2488,8 +2643,14 @@ def phase_train_cfg(card: str, tmp: str, files: dict, dtype: str):
         f"steps 1-{len(recs) - 1} (steps "
         f"{', '.join(f'{x:.1f}' for x in step_ms)} ms), lpips_loss "
         f"{', '.join(f'{x:.5f}' for x in lp_losses)}; "
-        f"peak device memory {peak:.3f} GiB; epoch saves "
-        f"{', '.join(f'{s:.3f}' for s in saves)} s; files {files_written}; "
+        f"peak device memory {peak:.3f} GiB; epoch saves holding the loop "
+        f"{', '.join(f'{s:.4f}' for s in saves)} s, their writes off it "
+        f"{', '.join(f'{s:.4f}' for s in writes)} s; one state saved "
+        f"inline (save_epoch) {', '.join(f'{s:.4f}' for s in inline)} s "
+        f"against the checkpointer's hold "
+        f"{', '.join(f'{s:.4f}' for s in queued)} s and write "
+        f"{', '.join(f'{s:.4f}' for s in written)} s, the files equal; "
+        f"files {files_written}; "
         f"resumed at epoch {CFG_EPOCHS} (step {recs2[0]['step']}, lr "
         f"{recs2[0]['lr']:.4g}); --test in {val_s:.1f} s: img_loss "
         f"{val['img_loss']:.5f}, psnr {summary['psnr']:.4f}, lpips "
@@ -5112,6 +5273,135 @@ def phase_formats(card: str, tmp: str) -> dict:
     return by_path
 
 
+O_CPU_RAYS = 2048  # rays of phase o's request rendered on the CPU too
+O_STEPS = 2  # full-width non-patch synthetic train steps of phase o
+
+
+def phase_int8(card: str, tmp: str) -> dict:
+    """o. The int8 pixel map (RenderPipeline(quantize_pixel_feat=True)) and
+    non-patch training on the synthetic scene: one full-width 512x512
+    request through render_frame with the int8 map, its counters reset just
+    before and read just after (K4's int8 form for the pixel fetch, its
+    float32 form for the painting fetch); its rgb within the JAX package's
+    0.05 max / 0.01 mean of the float32 render (tests/test_pipeline.py), in
+    turns f32, int8, int8, f32 timed; a band of O_CPU_RAYS of its rays
+    rendered with the int8 map on the CPU (plain versions, the same
+    weights) within the serve bounds off cull/kNN near-ties; then
+    O_STEPS steps of the train entry point on dataset synthetic with
+    patch.use_patch_sampling False at full width (N_rand single rays),
+    counters reset and read.  Returns {path: launch counts}."""
+    import copy
+
+    from transhuman_tpu_torch import kernels
+    from transhuman_tpu_torch.cli import train as train_cli
+    from transhuman_tpu_torch.data.ray_sampling import sample_eval_rays
+    from transhuman_tpu_torch.geometry.rays import world_bounds
+    from transhuman_tpu_torch.render.pipeline import RayBundle, RenderPipeline
+    from transhuman_tpu_torch.testing import synthetic_setup
+
+    hw = 512
+    model, pipe, frame, smpl, cluster = synthetic_setup(image_hw=(hw, hw),
+                                                        device="cuda")
+    q8 = pipe.clone(quantize_pixel_feat=True)
+    er = sample_eval_rays(None, frame.K[1].numpy(), frame.R[1].numpy(),
+                          frame.T[1].numpy().reshape(3, 1),
+                          world_bounds(frame.verts_world.numpy(), False),
+                          hw=(hw, hw))
+    fr, rays = frame.to("cuda"), er.rays.to("cuda")
+    q8.render_frame(fr, rays)  # warm-up
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    out8 = q8.render_frame(fr, rays)
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    chunks = -(-rays.ray_o.shape[0] // pipe.chunk_rays)
+    check_launches("int8 request", counts,
+                   {"min_excess2": chunks, "dparf": 1, "feature_gather": 1,
+                    "feature_sample_int8": 1})
+    check(counts["feature_gather"] == 1 and counts["feature_sample_int8"]
+          == counts["dparf"], f"int8 request: the painting fetch not the "
+          f"float32 form's one launch, or a pixel fetch not the int8 form's "
+          f"({counts})")
+    times = {"f32": [], "int8": []}
+    for tag in ("f32", "int8", "int8", "f32"):
+        p = q8 if tag == "int8" else pipe
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = p.render_frame(fr, rays)
+        torch.cuda.synchronize()
+        times[tag].append((time.perf_counter() - t0) * 1e3)
+        if tag == "f32":
+            out32 = out
+    for k in ("rgb_map", "acc_map", "depth_map"):
+        check(bool(torch.isfinite(out8[k]).all()),
+              f"int8 request: {k} not finite")
+    d = (out8["rgb_map"] - out32["rgb_map"]).abs()
+    d_max, d_mean = float(d.max()), float(d.mean())
+    check(float(out8["acc_map"].max()) > 0.5, "int8 request: empty frame")
+    check(d_max < 0.05 and d_mean < 0.01, f"int8 request: rgb against the "
+          f"float32 render max {d_max}, mean {d_mean} (want < 0.05, 0.01)")
+    # the band of rays through the middle of the body, on the CPU
+    acc = out8["acc_map"].cpu().numpy()
+    mid = int(np.flatnonzero(acc > 0.5)[len(np.flatnonzero(acc > 0.5)) // 2])
+    a = max(0, mid - O_CPU_RAYS // 2)
+    band = RayBundle(**{f.name: getattr(er.rays, f.name)[a:a + O_CPU_RAYS]
+                        for f in dataclasses.fields(RayBundle)})
+    pipe_cpu = RenderPipeline(copy.deepcopy(model).cpu(), cluster,
+                              smpl.v_template, n_samples=pipe.n_samples,
+                              chunk_rays=pipe.chunk_rays, device="cpu",
+                              quantize_pixel_feat=True)
+    t0 = time.perf_counter()
+    out_c = pipe_cpu.render_frame(frame, band)
+    cpu_s = time.perf_counter() - t0
+    bad = _unstable_rays(q8, fr, band.to("cuda"))
+    ok = ~bad
+    errs = {k: float(np.abs(out8[k][a:a + O_CPU_RAYS].cpu().numpy()
+                            - out_c[k].numpy())[ok].max())
+            for k in ("rgb_map", "acc_map", "depth_map")}
+    # every ray of the band crosses the body, as phase 8's compared rays
+    # do: fewer than 15% may hold a near-tie (phase 8's rule)
+    check(bad.mean() < 0.15, f"int8 request: {int(bad.sum())} of "
+          f"{len(bad)} CPU rays at a cull/kNN near-tie")
+    check(errs["rgb_map"] <= 2e-3 and errs["acc_map"] <= 2e-3
+          and errs["depth_map"] <= 1e-2, f"int8 request: CUDA vs CPU {errs}"
+          " beyond 2e-3 (rgb, acc) / 1e-2 (depth)")
+    log(f"[o int8] {hw}x{hw} request, full width, int8 pixel map: "
+        f"{rays.ray_o.shape[0]} rays, survivors "
+        f"{q8.last_frame_stats['survivors']}, launches {counts}; rgb vs "
+        f"float32 max {d_max:.4g}, mean {d_mean:.4g}; render ms f32 "
+        f"{', '.join(f'{x:.1f}' for x in times['f32'])}, int8 "
+        f"{', '.join(f'{x:.1f}' for x in times['int8'])} (in turns f32, "
+        f"int8, int8, f32); {O_CPU_RAYS} rays on the CPU ({cpu_s:.1f} s): "
+        f"max |d rgb| {errs['rgb_map']:.3g}, |d acc| {errs['acc_map']:.3g},"
+        f" |d depth| {errs['depth_map']:.3g} over {int(ok.sum())} rays "
+        f"({int(bad.sum())} at a near-tie excluded)  [{card}]")
+    del q8, pipe, model, pipe_cpu
+    # non-patch training on the synthetic scene
+    root = os.path.join(tmp, "nonpatch")
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    state, recs = train_cli.main([
+        "--device", "cuda", "--steps", str(O_STEPS), "dataset", "synthetic",
+        "patch.use_patch_sampling", "False", "trained_model_dir",
+        os.path.join(root, "tm"), "record_dir", os.path.join(root, "rec")])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    train_counts = kernels.launch_counts()
+    check(len(recs) == O_STEPS and all(np.isfinite(r["loss"])
+                                       and r["loss"] > 0 for r in recs),
+          f"non-patch train: losses {[r['loss'] for r in recs]}")
+    check_launches("non-patch train", train_counts,
+                   {"dparf": O_STEPS, "dfeat_scatter": 2 * O_STEPS,
+                    "feature_gather": 2 * O_STEPS})
+    log(f"[o non-patch] train entry point, dataset synthetic, "
+        f"patch.use_patch_sampling False, full width, N_rand single rays: "
+        f"losses {', '.join(f'{r['loss']:.6f}' for r in recs)}, step ms "
+        f"{', '.join(f'{r['step_s'] * 1e3:.1f}' for r in recs)}, "
+        f"{wall:.1f} s in all; launches {train_counts}  [{card}]")
+    return {"render_int8": counts, "train_nonpatch": train_counts}
+
+
 def lap(t0: float, done: str):
     """The script's seconds so far, after the phases named ``done``."""
     log(f"[time] {time.perf_counter() - t0:.1f} s after {done}")
@@ -5215,6 +5505,11 @@ def main() -> int:
         t_n = time.perf_counter()
         by_path.update(phase_formats(card, tmp))
         log(f"[n] phase n in {time.perf_counter() - t_n:.1f} s")
+        # the int8 pixel map through render_frame; non-patch synthetic
+        # training
+        t_o = time.perf_counter()
+        by_path.update(phase_int8(card, tmp))
+        log(f"[o] phase o in {time.perf_counter() - t_o:.1f} s")
         lap(t0, "every phase (the script's time)")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
@@ -5227,6 +5522,8 @@ def main() -> int:
                 else "reconstruction")
         if name.endswith("_bf16"):
             path += "_bf16"
+        if name.endswith("_int8"):  # the int8 map's request (phase o)
+            path = "render_int8"
         k["launches"] = by_path[path][name]
         k["launches_by_path"] = {p: c[name] for p, c in by_path.items()}
         if name == "min_excess2":

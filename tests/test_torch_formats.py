@@ -1226,8 +1226,67 @@ LARGE = {"cv2_jpeg_420_1024.tif": lambda: _jpeg_tiff_1024(),
          "cv2_lossy_1024.jp2": lambda: _jp2_1024(50)}
 
 
+# GIF files of tests/_torch_gif_mutations.py, (seed, index) of its stream,
+# that the port read otherwise than cv2.imread before its LZW decoder
+# followed cv2 past end codes and after the frame's last pixel (fault F2);
+# each is kept with cv2's reading in gif_lzw_mutations.json
+GIF_LZW_MUTATIONS = os.path.join(FIXTURES, "gif_lzw_mutations.json")
+GIF_LZW_RESIDUALS = ((17, 662), (17, 824), (17, 1587), (17, 2696), (99, 0),
+                     (99, 248), (99, 608), (99, 2752), (2024, 2678))
+
+
+def make_gif_lzw_fixtures(out=FIXTURES) -> dict:
+    """Write the GIF_LZW_RESIDUALS files and gif_lzw_mutations.json (cv2's
+    reading of each: the digest of its array, or None)."""
+    from tests._torch_gif_mutations import mutations
+
+    readings = {}
+    for seed, index in GIF_LZW_RESIDUALS:
+        case, data = list(mutations(index + 1, seed))[index]
+        name = f"gif_lzw_mutation_{seed}_{index}.gif"  # the test's names
+        path = os.path.join(out, name)
+        with open(path, "wb") as f:
+            f.write(data)
+        img = cv2_imread(path)
+        readings[name] = {"case": case, "seed": seed, "index": index,
+                          "cv2": None if img is None else {
+                              "sha256": hashlib.sha256(
+                                  img.tobytes()).hexdigest(),
+                              "shape": list(img.shape)}}
+    with open(os.path.join(out, "gif_lzw_mutations.json"), "w") as f:
+        json.dump(readings, f, indent=1, sort_keys=True)
+    return readings
+
+
+def _gif_lzw_mutations() -> dict:
+    with open(GIF_LZW_MUTATIONS) as f:
+        return json.load(f)
+
+
+@pytest.mark.parametrize("name", [f"gif_lzw_mutation_{seed}_{index}.gif"
+                                  for seed, index in GIF_LZW_RESIDUALS])
+def test_gif_lzw_mutations_read_as_cv2_imread(name):
+    """The committed GIF mutations of fault F2 (an end code with codes
+    after it, in its byte or the next; codes after the frame's last pixel)
+    read as cv2.imread reads them: the same array, or nothing (the port
+    raising, naming the path)."""
+    want = _gif_lzw_mutations()[name]["cv2"]
+    path = os.path.join(FIXTURES, name)
+    if want is None:
+        assert cv2_imread(path) is None, name
+        with pytest.raises((ValueError, FileNotFoundError), match=name):
+            image_io.imread_rgb(path)
+        return
+    got = image_io.imread_rgb(path)
+    assert list(got.shape) == want["shape"], name
+    assert hashlib.sha256(got.tobytes()).hexdigest() == want["sha256"], name
+    _same(got, cv2_imread(path), name)
+
+
 def make_fixtures(out=FIXTURES) -> dict:
-    """Write the fixtures and digests.json (cv2.imread's arrays)."""
+    """Write the fixtures and digests.json (cv2.imread's arrays), and the
+    GIF LZW mutations with gif_lzw_mutations.json."""
+    make_gif_lzw_fixtures(out)
     os.makedirs(out, exist_ok=True)
     files = {name: _case(case) for name, case in FIXTURE_CASES.items()}
     files.update({name: make() for name, make in LARGE.items()})

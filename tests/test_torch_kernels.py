@@ -61,7 +61,8 @@ def test_wrappers_refuse_cpu_tensors():
                                        "dfeat_scatter": 0,
                                        "feature_gather": 0, "dparf_bf16": 0,
                                        "dfeat_scatter_bf16": 0,
-                                       "feature_sample_bf16": 0}
+                                       "feature_sample_bf16": 0,
+                                       "feature_sample_int8": 0}
 
 
 def test_kernel_ab_inputs_are_seeded_and_it_needs_a_card(monkeypatch):
@@ -734,3 +735,108 @@ def test_dparf_bf16_token_gradient_is_float32_summed(cuda):
     (dparf.dparf(pts, centers, rot, t32, k=7)[0] * g.float()).sum().backward()
     assert t16.grad.dtype == BF16
     assert torch.equal(t16.grad, t32.grad.to(BF16))
+
+
+# ---------------------------------------------------------------- int8 form
+def _int8_map(shape, seed, device):
+    """A per-channel quantised map (ops/sampling.py's quantizer) of a
+    seeded float32 map whose channels differ in range, and its scale."""
+    from transhuman_tpu_torch.ops.sampling import quantize_feature_map
+
+    rng = np.random.default_rng(seed)
+    f = rng.standard_normal(shape) * rng.uniform(0.01, 4.0, shape[-1])
+    return quantize_feature_map(torch.from_numpy(f.astype(np.float32)).to(
+        device))
+
+
+def test_int8_form_refuses_cpu_tensors():
+    before = kernels.launch_counts()
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        gather.feature_sample_int8_cuda(
+            torch.zeros(1, 8, 8, 8, dtype=torch.int8), torch.zeros(1, 4, 2),
+            (16, 16), torch.ones(8))
+    assert kernels.launch_counts() == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c, n", [(384, 32768), (192, 6890)])
+def test_feature_sample_int8_is_its_twin_bit_for_bit(cuda, c, n):
+    """K4's int8 form at the serve pixel shape (C = 384, a 32,768-point
+    chunk of 3 512x512 maps) and a 192-channel map: the plain twin's bf16
+    rows, scaled and unscaled (a null scale), bit for bit, in one launch
+    each counted under its own name."""
+    q, scale = _int8_map((3, 512, 512, c), c, cuda)
+    rng = np.random.default_rng(c + 1)
+    uv = np.stack([rng.uniform(-8, 520, (3, n)),
+                   rng.uniform(-8, 520, (3, n))], axis=-1)
+    uv = torch.from_numpy(uv.astype(np.float32)).to(cuda)
+    n0 = gather.feature_sample_int8_cuda.launches
+    got = gather.feature_sample(q, uv, (512, 512), scale)
+    assert gather.feature_sample_int8_cuda.launches == n0 + 1
+    assert got.dtype == BF16 and got.shape == (3, n, c)
+    assert torch.equal(got, gather.feature_sample_int8_plain(
+        q, uv, (512, 512), scale))
+    unscaled = gather.feature_sample_int8_cuda(q, uv, (512, 512))
+    assert torch.equal(unscaled, gather.feature_sample_int8_plain(
+        q, uv, (512, 512)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c", [6, 8, 20, 384])
+def test_feature_sample_int8_scalar_and_odd_widths(cuda, c):
+    """Widths that are not a multiple of the 8-channel word (6, 20) take
+    the scalar path; maps one texel wide or tall, uv on and past every
+    border and far outside."""
+    for hf, wf in ((64, 80), (64, 1), (1, 80)):
+        q, scale = _int8_map((3, hf, wf, c), hf + wf + c, cuda)
+        rng = np.random.default_rng(hf + wf + c)
+        uv = torch.from_numpy(_sampling_uv(rng, N_SCATTER, hf, wf)).to(cuda)
+        got = gather.feature_sample_int8_cuda(q, uv, SF_IMAGE, scale)
+        want = gather.feature_sample_int8_plain(q, uv, SF_IMAGE, scale)
+        assert torch.equal(got, want), (hf, wf)
+
+
+@pytest.mark.cuda
+def test_int8_sampling_is_one_launch_without_a_sync(cuda):
+    """sample_feature_map of an int8 map with its scale is one launch of
+    the int8 form and never waits for the card; with the scale's gradient
+    asked for, the kernel gives the unscaled rows and autograd the
+    product, the same values."""
+    from transhuman_tpu_torch.kernels import build
+    from transhuman_tpu_torch.ops.sampling import sample_feature_map
+
+    build.library()
+    q, scale = _int8_map((3, 64, 80, 384), 17, cuda)
+    rng = np.random.default_rng(18)
+    uv = torch.from_numpy(_sampling_uv(rng, 4096, 64, 80)).to(cuda)
+    want = gather.feature_sample_int8_plain(q, uv, SF_IMAGE, scale)
+    for grad in (False, True):
+        s = scale.clone().requires_grad_(grad)
+        torch.cuda.synchronize()
+        n0 = gather.feature_sample_int8_cuda.launches
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            out = sample_feature_map(q, uv, SF_IMAGE, s)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        assert gather.feature_sample_int8_cuda.launches == n0 + 1
+        assert out.requires_grad == grad
+        assert torch.equal(out.detach(), want)
+
+
+@pytest.mark.cuda
+def test_int8_form_refuses_other_dtypes(cuda):
+    """A float32 map, or a scale of another width or dtype, is an error,
+    not a launch."""
+    before = kernels.launch_counts()
+    q, scale = _int8_map((2, 16, 16, 8), 19, cuda)
+    uv = torch.zeros((2, 4, 2), device=cuda)
+    with pytest.raises(TypeError, match="int8"):
+        gather.feature_sample_int8_cuda(q.float(), uv, (16, 16), scale)
+    with pytest.raises(TypeError, match="float32"):
+        gather.feature_sample_int8_cuda(q, uv, (16, 16), scale.to(BF16))
+    with pytest.raises(ValueError, match="scale"):
+        gather.feature_sample_int8_cuda(q, uv, (16, 16), scale[:4])
+    with pytest.raises(ValueError, match="int8 map"):
+        gather.feature_sample(q.float(), uv, (16, 16), scale)
+    assert kernels.launch_counts() == before

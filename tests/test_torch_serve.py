@@ -108,7 +108,8 @@ def test_cpu_render_never_launches_a_cuda_kernel(scene, renders):
                                        "dfeat_scatter": 0,
                                        "feature_gather": 0, "dparf_bf16": 0,
                                        "dfeat_scatter_bf16": 0,
-                                       "feature_sample_bf16": 0}
+                                       "feature_sample_bf16": 0,
+                                       "feature_sample_int8": 0}
     assert not kbuild.loaded()
     pipe = scene[1].pipe
     x = torch.zeros(4, 3)

@@ -283,7 +283,9 @@ def validate(cfg: Config, device, dataset=None, weights=None, mesh=None):
 
 def main(argv=None, dataset=None):
     """Training: returns (state, records), records one dict per step
-    (losses, lr, data and step seconds; save_s on an epoch's last step;
+    (losses, lr, data and step seconds; on an epoch's last step save_s,
+    the seconds the save held the loop, and on the writing rank
+    save_write_s, the seconds the checkpointer's worker took;
     the gradient all-reduce's ms and MB when distributed).  --test:
     returns validate's (val stats, summary).  dataset replaces
     make_dataset's."""
@@ -310,7 +312,16 @@ def main(argv=None, dataset=None):
 
 def train(args, cfg: Config, device, mesh, dataset=None):
     """The train loop of main over mesh (a DataMesh or a TPMesh):
-    (state, records)."""
+    (state, records).  Epochs are saved through an AsyncCheckpointer,
+    whose writes are all on disk when this returns or raises."""
+    checkpointer = ckpt_io.AsyncCheckpointer()
+    try:
+        return _train(args, cfg, device, mesh, dataset, checkpointer)
+    finally:
+        checkpointer.wait()
+
+
+def _train(args, cfg: Config, device, mesh, dataset, checkpointer):
     seed_everything(cfg.seed)
     sharded = isinstance(mesh, TPMesh)
     data, world = (mesh.data, mesh.world) if sharded else (mesh, mesh)
@@ -335,7 +346,7 @@ def train(args, cfg: Config, device, mesh, dataset=None):
               flush=True)
     cap = args.steps or None
     max_iter = cfg.train.epoch * cfg.ep_iter
-    records, prof = [], None
+    records, prof, saved = [], None, []
     done = False
     for epoch in range(start_epoch, cfg.train.epoch):
         dataset.set_epoch(epoch)
@@ -402,18 +413,28 @@ def train(args, cfg: Config, device, mesh, dataset=None):
                 break
         if done:
             break
+        # the state is copied here; the serialising and the writes run on
+        # the checkpointer's worker while the next epoch trains
         t0 = time.perf_counter()
         if saves:
-            paths = ckpt_io.save_epoch(
+            paths = checkpointer.save_epoch(
                 mdir, state, epoch, (epoch + 1) % cfg.save_freq == 0,
                 recorder.state_dict(), pe_table, write=lead)
             if lead:
-                print(f"checkpoint: {', '.join(paths)} "
-                      f"({time.perf_counter() - t0:.3f} s)", flush=True)
+                print(f"checkpoint: {', '.join(paths)} (queued in "
+                      f"{time.perf_counter() - t0:.3f} s)", flush=True)
         barrier(world)
         records[-1]["save_s"] = time.perf_counter() - t0
+        saved.append((records[-1], epoch))
         if cap and len(records) == cap:
             break
+    # every epoch's files are on disk before the --out save and before any
+    # rank leaves (another rank's --test reads latest.pth next)
+    checkpointer.wait()
+    barrier(world)
+    for rec, epoch in saved:
+        if epoch in checkpointer.write_s:
+            rec["save_write_s"] = checkpointer.write_s[epoch]
     if args.out and records:
         if saves:
             ckpt_io.save_checkpoint(args.out, state, records[-1]["step"]

@@ -52,6 +52,23 @@
 // float32 weights where the JAX package's bf16 sampler rounds them to bf16
 // and lerps in bf16: more exact, and the reason the bit-equal oracle
 // exists.
+//
+// The int8 form of the sampling form (thp_feature_sample_int8) reads the
+// int8 map of the int8 pixel-map mode (a per-channel quantised map) and
+// writes bf16 rows, scaled back by the per-channel float32 scale: the JAX
+// package's int8 arithmetic, which the port's plain twin
+// (kernels/gather.py::feature_sample_int8_plain) repeats.  The taps come
+// from the same float32 operations; then the fractions wx, wy are rounded
+// to bf16, the int8 taps widened to bf16 (exact), and the lerp
+//   top = p00 (1 - wx) + p01 wx,  bot = p10 (1 - wx) + p11 wx,
+//   out = (top (1 - wy) + bot wy) * bf16(scale)
+// is evaluated one bf16 operation at a time: each computed in float32 and
+// rounded to nearest even (__float2bfloat16_rn), no contraction, as the
+// CPUs of PyTorch and XLA evaluate a bf16 operation.  Its rows are the
+// twin's bit for bit.  At C = 384 a tap row is 384 bytes; a lane reads 8
+// channels (8 bytes) of each tap and writes 8 bf16 channels (16 bytes), so
+// it reads a quarter and writes half of the float32 form's bytes.  A null
+// scale is a scale of 1: the unscaled lerp.
 #include <cstdint>
 
 #include "common.cuh"
@@ -97,9 +114,9 @@ struct UvTaps {  // the sampling form: uv (rows, 2) image pixels
   __device__ Raw load(long long row) const {
     return make_float2(uv[2 * row], uv[2 * row + 1]);
   }
-  // _sample_taps + _bilinear_w4: scale, clamp to [0, size - 1], floor, the
-  // base texel clamped to size - 2, the fractions against it, the weights
-  __device__ int resolve(const Raw& r, float* wt) const {
+  // _sample_taps: scale, clamp to [0, size - 1], floor, the base texel
+  // clamped to size - 2, the fractions against it
+  __device__ int base(const Raw& r, float& wx, float& wy) const {
     const float cx = fminf(fmaxf(__fmul_rn(r.x, sx), 0.f),
                            static_cast<float>(wf - 1));
     const float cy = fminf(fmaxf(__fmul_rn(r.y, sy), 0.f),
@@ -108,14 +125,41 @@ struct UvTaps {  // the sampling form: uv (rows, 2) image pixels
     int y0 = static_cast<int>(floorf(cy));
     if (wf > 1) x0 = min(x0, wf - 2);
     if (hf > 1) y0 = min(y0, hf - 2);
-    const float wx = __fsub_rn(cx, static_cast<float>(x0));
-    const float wy = __fsub_rn(cy, static_cast<float>(y0));
+    wx = __fsub_rn(cx, static_cast<float>(x0));
+    wy = __fsub_rn(cy, static_cast<float>(y0));
+    return y0 * wf + x0;
+  }
+  // + _bilinear_w4: the four tap weights
+  __device__ int resolve(const Raw& r, float* wt) const {
+    float wx, wy;
+    const int id = base(r, wx, wy);
     const float ux = __fsub_rn(1.f, wx), uy = __fsub_rn(1.f, wy);
     wt[0] = __fmul_rn(ux, uy);
     wt[1] = __fmul_rn(wx, uy);
     wt[2] = __fmul_rn(ux, wy);
     wt[3] = __fmul_rn(wx, wy);
-    return y0 * wf + x0;
+    return id;
+  }
+};
+
+// a float32 rounded to bf16 (nearest even), as a float32
+__device__ __forceinline__ float thp_round_bf16(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
+
+// The int8 form's taps: UvTaps' base texel, and for weights the bf16 lerp
+// factors (1 - wx, wx, 1 - wy, wy), each rounded to bf16
+struct UvLerpTaps : UvTaps {
+  __device__ int resolve(const Raw& r, float* wt) const {
+    float wx, wy;
+    const int id = base(r, wx, wy);
+    wx = thp_round_bf16(wx);
+    wy = thp_round_bf16(wy);
+    wt[0] = thp_round_bf16(__fsub_rn(1.f, wx));
+    wt[1] = wx;
+    wt[2] = thp_round_bf16(__fsub_rn(1.f, wy));
+    wt[3] = wy;
+    return id;
   }
 };
 
@@ -123,7 +167,8 @@ struct UvTaps {  // the sampling form: uv (rows, 2) image pixels
 // order (acc = w0 x0, then fma(w_t, x_t, acc)), then streaming stores.
 template <int T, bool VEC>
 __device__ void gather_row(const float* sv, int id, const float* wt,
-                           const int* offs, float* o, int c, int lane) {
+                           const int* offs, float* o, int c, int lane,
+                           const float*) {
   using W = ThpWord<VEC>;
   using V = typename W::T;
   const int nw = VEC ? c / 4 : c;
@@ -164,7 +209,7 @@ __device__ void gather_row(const float* sv, int id, const float* wt,
 template <int T, bool VEC>
 __device__ void gather_row(const unsigned short* sv, int id, const float* wt,
                            const int* offs, unsigned short* o, int c,
-                           int lane) {
+                           int lane, const float*) {
   if (!VEC) {
     for (int q = lane; q < c; q += 32) {
       float acc = 0.f;
@@ -219,11 +264,134 @@ __device__ void gather_row(const unsigned short* sv, int id, const float* wt,
   }
 }
 
-template <int T, bool VEC, class Taps, class E>
+// One channel of the int8 row: the four widened taps lerped in bf16, then
+// scaled (wt = the bf16 factors 1 - wx, wx, 1 - wy, wy; s = bf16(scale))
+__device__ __forceinline__ float lerp_int8(float p00, float p01, float p10,
+                                           float p11, const float* wt,
+                                           float s) {
+  const float top = thp_round_bf16(__fadd_rn(
+      thp_round_bf16(__fmul_rn(p00, wt[0])),
+      thp_round_bf16(__fmul_rn(p01, wt[1]))));
+  const float bot = thp_round_bf16(__fadd_rn(
+      thp_round_bf16(__fmul_rn(p10, wt[0])),
+      thp_round_bf16(__fmul_rn(p11, wt[1]))));
+  const float v = thp_round_bf16(__fadd_rn(
+      thp_round_bf16(__fmul_rn(top, wt[2])),
+      thp_round_bf16(__fmul_rn(bot, wt[3]))));
+  return __fmul_rn(v, s);  // rounded to bf16 at the store
+}
+
+__device__ __forceinline__ float channel_scale(const float* scale, int ch) {
+  return scale ? thp_round_bf16(__ldg(scale + ch)) : 1.f;
+}
+
+// The same for two channels at once, in float2 lanes: each rounding is one
+// packed conversion (cvt.rn.bf16x2.f32) for the pair.  Conversions run at a
+// quarter of the float32 rate on Hopper and the lerp rounds ten times a
+// channel, so pairing them halves the kernel's slowest instructions.
+__device__ __forceinline__ float2 thp_round_bf16x2(float a, float b) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
+  return make_float2(__low2float(h), __high2float(h));
+}
+
+__device__ __forceinline__ float2 lerp_int8x2(const float2* p,
+                                              const float* wt) {
+  const float2 a = thp_round_bf16x2(__fmul_rn(p[0].x, wt[0]),
+                                    __fmul_rn(p[0].y, wt[0]));
+  const float2 b = thp_round_bf16x2(__fmul_rn(p[1].x, wt[1]),
+                                    __fmul_rn(p[1].y, wt[1]));
+  const float2 top = thp_round_bf16x2(__fadd_rn(a.x, b.x),
+                                      __fadd_rn(a.y, b.y));
+  const float2 c = thp_round_bf16x2(__fmul_rn(p[2].x, wt[0]),
+                                    __fmul_rn(p[2].y, wt[0]));
+  const float2 d = thp_round_bf16x2(__fmul_rn(p[3].x, wt[1]),
+                                    __fmul_rn(p[3].y, wt[1]));
+  const float2 bot = thp_round_bf16x2(__fadd_rn(c.x, d.x),
+                                      __fadd_rn(c.y, d.y));
+  const float2 e = thp_round_bf16x2(__fmul_rn(top.x, wt[2]),
+                                    __fmul_rn(top.y, wt[2]));
+  const float2 f = thp_round_bf16x2(__fmul_rn(bot.x, wt[3]),
+                                    __fmul_rn(bot.y, wt[3]));
+  return thp_round_bf16x2(__fadd_rn(e.x, f.x), __fadd_rn(e.y, f.y));
+}
+
+// Byte i of an int8 word as a float, the word's sign bits flipped first
+// (each byte then holds s + 128): 2^23 + s + 128 assembled in the mantissa
+// by one byte permute, less 2^23 + 128, both exact; full-rate instructions
+// where a conversion (I2F) runs at a quarter rate.
+__device__ __forceinline__ float int8_at(unsigned flipped, int i) {
+  return __int_as_float(static_cast<int>(
+             __byte_perm(flipped, 0x4B000000u, 0x7540 | i))) -
+         8388736.f;
+}
+
+// The int8 row (T = 4, wt from UvLerpTaps): words of 8 channels, 8 bytes of
+// each tap in and 16 bytes of bf16 out (VEC), or single channels.
+template <int T, bool VEC>
+__device__ void gather_row(const signed char* sv, int id, const float* wt,
+                           const int* offs, unsigned short* o, int c,
+                           int lane, const float* scale) {
+  static_assert(T == 4, "the int8 form has four taps");
+  const signed char* tap[4];
+#pragma unroll
+  for (int t = 0; t < 4; ++t)
+    tap[t] = sv + static_cast<size_t>(id + offs[t]) * c;
+  if (!VEC) {
+    for (int q = lane; q < c; q += 32)
+      o[q] = thp_f32_to_bf16(lerp_int8(
+          __ldg(tap[0] + q), __ldg(tap[1] + q), __ldg(tap[2] + q),
+          __ldg(tap[3] + q), wt, channel_scale(scale, q)));
+    return;
+  }
+  const int nw = c / 8;
+  uint4* ov = reinterpret_cast<uint4*>(o);
+  for (int q0 = lane; q0 < nw; q0 += 32 * QWB) {
+    uint2 x[4][QWB];
+#pragma unroll
+    for (int k = 0; k < QWB; ++k) {
+      const int q = q0 + 32 * k;
+#pragma unroll
+      for (int t = 0; t < 4; ++t)
+        if (q < nw)
+          x[t][k] = __ldg(reinterpret_cast<const uint2*>(tap[t]) + q);
+    }
+#pragma unroll
+    for (int k = 0; k < QWB; ++k) {
+      const int q = q0 + 32 * k;
+      if (q < nw) {
+        unsigned w[4];  // channels 2j (low half) and 2j + 1 (high half)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          float2 p[4];
+#pragma unroll
+          for (int t = 0; t < 4; ++t) {
+            const unsigned b4 = (j < 2 ? x[t][k].x : x[t][k].y) ^ 0x80808080u;
+            p[t] = make_float2(int8_at(b4, 2 * (j & 1)),
+                               int8_at(b4, 2 * (j & 1) + 1));
+          }
+          const float2 v = lerp_int8x2(p, wt);
+          float2 sc = make_float2(1.f, 1.f);
+          if (scale) {
+            const float2 s2 =
+                __ldg(reinterpret_cast<const float2*>(scale + 8 * q) + j);
+            sc = thp_round_bf16x2(s2.x, s2.y);
+          }
+          const __nv_bfloat162 h =
+              __floats2bfloat162_rn(__fmul_rn(v.x, sc.x), __fmul_rn(v.y, sc.y));
+          w[j] = static_cast<unsigned>(__bfloat16_as_ushort(h.x)) |
+                 static_cast<unsigned>(__bfloat16_as_ushort(h.y)) << 16;
+        }
+        __stcs(ov + q, make_uint4(w[0], w[1], w[2], w[3]));
+      }
+    }
+  }
+}
+
+template <int T, bool VEC, class Taps, class E, class O>
 __global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
 feature_gather_kernel(const E* __restrict__ src, Taps taps,
-                      E* __restrict__ out, long long rows, int n, int c,
-                      int hw, int4 off) {
+                      O* __restrict__ out, long long rows, int n, int c,
+                      int hw, int4 off, const float* __restrict__ scale) {
   const int lane = threadIdx.x & 31;
   const long long first = static_cast<long long>(blockIdx.x) * SPAN;
   const long long end = min(rows, first + SPAN);
@@ -240,38 +408,42 @@ feature_gather_kernel(const E* __restrict__ src, Taps taps,
     const int id = taps.resolve(cur, wt);
     const int v = static_cast<int>(row / n);
     gather_row<T, VEC>(src + static_cast<size_t>(v) * hw * c, id, wt, offs,
-                       out + row * c, c, lane);
+                       out + row * c, c, lane, scale);
     cur = nxt;
     row = next;
   }
 }
 
 // One block per span of SPAN contiguous rows.
-template <int T, bool VEC, class Taps, class E>
-int launch(const E* src, Taps taps, E* out, long long rows, int n,
-           int c, int hw, int4 off, cudaStream_t stream) {
+template <int T, bool VEC, class Taps, class E, class O>
+int launch(const E* src, Taps taps, O* out, long long rows, int n, int c,
+           int hw, int4 off, const float* scale, cudaStream_t stream) {
   const long long blocks = (rows + SPAN - 1) / SPAN;
   if (blocks > 0x7fffffffLL) return THP_ERR_BAD_SIZE;
-  feature_gather_kernel<T, VEC, Taps, E>
+  feature_gather_kernel<T, VEC, Taps, E, O>
       <<<static_cast<unsigned>(blocks), THREADS, 0, stream>>>(
-          src, taps, out, rows, n, c, hw, off);
+          src, taps, out, rows, n, c, hw, off, scale);
   return thp_launch_status();
 }
 
-template <int T, class Taps, class E>
-int dispatch(const E* src, Taps taps, E* out, int v, int n, int c,
-             int hw, int4 off, cudaStream_t stream) {
+template <int T, class Taps, class E, class O>
+int dispatch(const E* src, Taps taps, O* out, int v, int n, int c, int hw,
+             int4 off, cudaStream_t stream, const float* scale = nullptr) {
   const long long rows = static_cast<long long>(v) * n;
   if (rows == 0) return 0;
-  // 16-byte words (4 float32 or 8 bf16 channels) need c a multiple of the
-  // word and 16-byte aligned src and out (then every row is aligned); else
-  // the scalar path
+  // words of 4 float32 or 8 narrower channels need c a multiple of the
+  // word and src and out aligned to a word of each (then every row is
+  // aligned); else the scalar path
+  constexpr int CH = sizeof(E) == 4 ? 4 : 8;
   const bool vec =
-      c % (16 / static_cast<int>(sizeof(E))) == 0 &&
-      ((reinterpret_cast<uintptr_t>(src) |
-        reinterpret_cast<uintptr_t>(out)) & 15) == 0;
-  return vec ? launch<T, true>(src, taps, out, rows, n, c, hw, off, stream)
-             : launch<T, false>(src, taps, out, rows, n, c, hw, off, stream);
+      c % CH == 0 &&
+      reinterpret_cast<uintptr_t>(src) % (CH * sizeof(E)) == 0 &&
+      reinterpret_cast<uintptr_t>(out) % (CH * sizeof(O)) == 0 &&
+      reinterpret_cast<uintptr_t>(scale) % 8 == 0;  // int8: float2 scales
+  return vec ? launch<T, true>(src, taps, out, rows, n, c, hw, off, scale,
+                               stream)
+             : launch<T, false>(src, taps, out, rows, n, c, hw, off, scale,
+                                stream);
 }
 
 }  // namespace
@@ -324,4 +496,26 @@ THP_EXPORT int thp_feature_sample_bf16(const void* src, const float* uv,
                      static_cast<unsigned short*>(out), v, n, c, hf * wf,
                      make_int4(0, dx, dy, dy + dx),
                      static_cast<cudaStream_t>(stream));
+}
+
+// The int8 sampling form: src (v, hf, wf, c) int8, uv (v, n, 2) float32,
+// scale (c,) float32 or null (a scale of 1), out (v, n, c) bf16 (raw
+// 16-bit words); otherwise thp_feature_sample.
+THP_EXPORT int thp_feature_sample_int8(const void* src, const float* uv,
+                                       void* out, int v, int n, int c, int hf,
+                                       int wf, float sx, float sy,
+                                       const float* scale, void* stream) {
+  if (v < 1 || n < 0 || c < 1 || hf < 1 || wf < 1)
+    return THP_ERR_BAD_SIZE;
+  const int dx = wf > 1 ? 1 : 0, dy = hf > 1 ? wf : 0;
+  UvLerpTaps taps;
+  taps.uv = uv;
+  taps.sx = sx;
+  taps.sy = sy;
+  taps.hf = hf;
+  taps.wf = wf;
+  return dispatch<4>(static_cast<const signed char*>(src), taps,
+                     static_cast<unsigned short*>(out), v, n, c, hf * wf,
+                     make_int4(0, dx, dy, dy + dx),
+                     static_cast<cudaStream_t>(stream), scale);
 }

@@ -1,7 +1,6 @@
 """Synthetic in-memory data: the seeded body of ``testing`` seen by
 ``train_num_views + 1`` circular cameras, the last of them the target
-(counterpart of transhuman_tpu/data/synthetic.py; train samples in patch
-mode only).
+(counterpart of transhuman_tpu/data/synthetic.py).
 
 An eval item renders every pixel of the target view whose ray meets the
 body's box (inflated 0.05 m), with the target image as ground truth; the
@@ -11,7 +10,11 @@ Each train sample draws ``patch.N_patches`` patches of ``patch.size`` pixels
 around the body's projected centroid in the target view, from a numpy RNG
 seeded by the index and the epoch, and casts a ray through every patch
 pixel.  Rays that miss the body's bounding box are invalid: mask False,
-pixel index -1.
+pixel index -1.  With ``patch.use_patch_sampling`` False a train sample is
+``N_rand`` single rays instead (the masked-MSE loss), drawn by
+``sample_train_rays_random`` from the same RNG, as the ZJU loader's
+non-patch branch draws them; the synthetic target has no segmentation, so
+its subject mask is the whole image.
 """
 
 from __future__ import annotations
@@ -25,16 +28,13 @@ from ..registry import DATASETS
 from ..render.pipeline import FrameInputs, RayBundle
 from ..testing import synthetic_scene
 from ..train.loss import TrainSample
-from .ray_sampling import EvalItem, sample_eval_rays
+from .ray_sampling import (EvalItem, sample_eval_rays,
+                           sample_train_rays_random)
 
 
 class SyntheticDataset:
     def __init__(self, cfg: Config, split: str = "train", n_frames: int = 8,
                  image_hw: tuple = (128, 128), n_verts: int = 6890):
-        if split == "train" and not cfg.patch.use_patch_sampling:
-            raise NotImplementedError(
-                "the synthetic scene has no masks and samples patches only; "
-                "the non-patch sampler runs on dataset zju")
         self.cfg = cfg
         self.split = split
         self.n_frames = n_frames
@@ -75,6 +75,15 @@ class SyntheticDataset:
     def get_train_sample(self, index) -> TrainSample:
         rng = np.random.default_rng(index + self.epoch * self.cfg.seed)
         frame, (timg, tK, tR, tT), bounds = self._frame_and_target()
+        if not self.cfg.patch.use_patch_sampling:
+            h, w = self.hw
+            rr = sample_train_rays_random(
+                timg, np.ones((h, w), np.uint8), tK, tR, tT.reshape(3, 1),
+                bounds, rng, n_rays=self.cfg.N_rand,
+                body_ratio=self.cfg.body_sample_ratio,
+                face_ratio=self.cfg.face_sample_ratio)
+            return TrainSample(frame=frame, rays=rr.rays,
+                               target_rgb=torch.from_numpy(rr.rgb))
         ps, npatch = self.cfg.patch.size, self.cfg.patch.N_patches
         h, w = self.hw
         ray_o, ray_d = get_rays(h, w, tK, tR, tT.reshape(3, 1))

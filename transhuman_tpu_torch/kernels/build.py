@@ -58,6 +58,9 @@ _SIGNATURES = {
     # as thp_feature_sample, src and out bfloat16
     "thp_feature_sample_bf16": ((_P,) * 3 + (_I,) * 5 + (_F,) * 2 + (_P,),
                                 _I),
+    # as thp_feature_sample, src int8 and out bfloat16, then scale (or null)
+    "thp_feature_sample_int8": ((_P,) * 3 + (_I,) * 5 + (_F,) * 2
+                                + (_P,) * 2, _I),
     "thp_error_string": ((_I,), ctypes.c_char_p),
 }
 

@@ -31,6 +31,18 @@ own launch count): a bf16 map in, bf16 rows out, the float32 form's sums on
 the widened map narrowed once, so its plain twin is the float32 twin on the
 widened map, then one ``.to(torch.bfloat16)``.  ``feature_sample`` routes a
 bf16 map to it.
+
+The int8 form, ``feature_sample_int8_cuda`` (its own launch count), samples
+the int8 map of the int8 pixel-map mode (``ops/sampling.py``'s
+``quantize_feature_map``) and scales the rows back by the per-channel
+float32 scale: an int8 map and a (C,) scale in, bf16 rows out.  Its
+arithmetic is the JAX package's, not the float32 form's: the fractions
+rounded to bf16, the taps widened to bf16, the lerp one bf16 operation at a
+time, then the product with bf16(scale).  Its plain twin
+``feature_sample_int8_plain`` writes those operations out in PyTorch's bf16,
+and the kernel equals it bit for bit.  Without a scale both give the
+unscaled lerp (JAX's ``sample_feature_map`` of an int8 map).
+``feature_sample`` routes an int8 map to it.
 """
 
 from __future__ import annotations
@@ -166,10 +178,34 @@ def feature_sample_plain(feat, uv, image_shape):
     return out.to(feat.dtype)
 
 
-def _sample_launch(name, entry, dtype, feat, uv, image_shape):
-    """Check the tensors (feat of ``dtype``), allocate the (V, N, C) rows in
-    it and launch the sampling-form entry; True if it launched."""
-    build.check_tensors(name, {"feat": dtype}, feat=feat, uv=uv)
+def feature_sample_int8_plain(feat, uv, image_shape, scale=None):
+    """The int8 form's twin, the JAX package's int8 fetch: the taps of
+    _sample_taps, the fractions rounded to bf16, the four int8 tap rows
+    widened to bf16 and lerped in bf16 (``_lerp``'s order, each operation
+    rounded), then times bf16(scale) when a scale is given: feat (V, Hf, Wf,
+    C) int8, uv (V, N, 2), scale (C,) float32 or None -> (V, N, C) bf16."""
+    v, hf, wf, c = feat.shape
+    _, _, base, wx, wy, dx, dy = _sample_taps(feat.shape, uv, image_shape)
+    bf = torch.bfloat16
+    wx, wy = wx.to(bf)[..., None], wy.to(bf)[..., None]
+    flat = feat.reshape(v, hf * wf, c)
+    views = torch.arange(v, device=feat.device)[:, None]
+    p00, p01, p10, p11 = (flat[views, base + off].to(bf)
+                          for off in (0, dx, dy, dy + dx))
+    top = p00 * (1 - wx) + p01 * wx
+    bot = p10 * (1 - wx) + p11 * wx
+    out = top * (1 - wy) + bot * wy
+    return out if scale is None else out * scale.to(bf)
+
+
+def _sample_launch(name, entry, dtype, feat, uv, image_shape,
+                   out_dtype=None, scale=None, tail=()):
+    """Check the tensors (feat of ``dtype``, a float32 (C,) scale), allocate
+    the (V, N, C) rows (in ``out_dtype``, else feat's) and launch the
+    sampling-form entry, ``tail`` its arguments before the stream; True if
+    it launched."""
+    extra = {} if scale is None else {"scale": scale}
+    build.check_tensors(name, {"feat": dtype}, feat=feat, uv=uv, **extra)
     if feat.dim() != 4 or uv.dim() != 3 or uv.shape[::2] != (feat.shape[0],
                                                              2):
         raise ValueError(
@@ -180,7 +216,10 @@ def _sample_launch(name, entry, dtype, feat, uv, image_shape):
     h_img, w_img = image_shape
     if max(v * hf * wf, v * n) * c >= 2**31:
         raise ValueError(f"{name}: extent too large for int32")
-    out = torch.empty((v, n, c), dtype=feat.dtype, device=feat.device)
+    if scale is not None and tuple(scale.shape) != (c,):
+        raise ValueError(f"{name}: scale {tuple(scale.shape)}; want ({c},)")
+    out = torch.empty((v, n, c), dtype=out_dtype or feat.dtype,
+                      device=feat.device)
     if n == 0:
         return out, False
     # ctypes rounds the scales to float32, as torch rounds a Python scalar
@@ -190,7 +229,7 @@ def _sample_launch(name, entry, dtype, feat, uv, image_shape):
         stream = torch.cuda.current_stream().cuda_stream
         code = getattr(lib, entry)(
             feat.data_ptr(), uv.data_ptr(), out.data_ptr(), v, n, c, hf, wf,
-            wf / w_img, hf / h_img, stream)
+            wf / w_img, hf / h_img, *tail, stream)
     build.check(code, name)
     return out, True
 
@@ -220,14 +259,42 @@ def feature_sample_bf16_cuda(feat, uv, image_shape):
 feature_sample_bf16_cuda.launches = 0
 
 
-def feature_sample(feat, uv, image_shape):
-    """K4's sampling form for a CUDA tensor (the bf16 form for a bf16 map),
-    the plain twin for a CPU tensor: feat (V, Hf, Wf, C), uv (V, N, 2) image
-    pixels, image_shape (H_img, W_img) -> (V, N, C) in feat's dtype."""
+def feature_sample_int8_cuda(feat, uv, image_shape, scale=None):
+    """K4's int8 sampling form: feat (V, Hf, Wf, C) int8, uv (V, N, 2) and
+    scale (C,) float32 (None: a scale of 1), contiguous CUDA tensors ->
+    (V, N, C) bf16, equal bit for bit to ``feature_sample_int8_plain``.
+    One launch; no host sync."""
+    out, launched = _sample_launch("feature_sample_int8_cuda",
+                                   "thp_feature_sample_int8", torch.int8,
+                                   feat, uv, image_shape, torch.bfloat16,
+                                   scale, (None if scale is None
+                                           else scale.data_ptr(),))
+    build.count_launches(feature_sample_int8_cuda, launched)
+    return out
+
+
+feature_sample_int8_cuda.launches = 0
+
+
+def feature_sample(feat, uv, image_shape, scale=None):
+    """K4's sampling form for a CUDA tensor (the bf16 form for a bf16 map,
+    the int8 form for an int8 map), the plain twin for a CPU tensor: feat
+    (V, Hf, Wf, C), uv (V, N, 2) image pixels, image_shape (H_img, W_img)
+    -> (V, N, C) in feat's dtype, bf16 for an int8 map.  ``scale`` (C,),
+    an int8 map's only, multiplies its rows (None: unscaled)."""
+    if scale is not None and feat.dtype != torch.int8:
+        raise ValueError(f"feature_sample: a scale is for an int8 map, not "
+                         f"a {feat.dtype} one")
     if feat.is_cuda:
+        if feat.dtype == torch.int8:
+            return feature_sample_int8_cuda(
+                feat.contiguous(), uv.contiguous(), image_shape,
+                None if scale is None else scale.float().contiguous())
         fn = (feature_sample_bf16_cuda if feat.dtype == torch.bfloat16
               else feature_sample_cuda)
         return fn(feat.contiguous(), uv.contiguous(), image_shape)
     if feat.device.type != "cpu":
         raise ValueError(f"feature_sample: no kernel for device {feat.device}")
+    if feat.dtype == torch.int8:
+        return feature_sample_int8_plain(feat, uv, image_shape, scale)
     return feature_sample_plain(feat, uv, image_shape)

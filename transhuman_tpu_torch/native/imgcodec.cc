@@ -1836,18 +1836,20 @@ void tiff_lzw(const uint8_t* in, size_t n, uint8_t* out, size_t nout) {
 // is decoded with LSB-first LZW (codes from the minimum code size + 1 to
 // 12 bits, clear and end codes) and must give exactly its width * height
 // indices, each below its colour table's size, read as cv2 reads them
-// (random mutations against cv2 show it): an end code before the frame is
-// full resets the table and drops the rest of its byte, a code that
-// overruns the frame fails the file, and once the frame is full the next
-// code ends the stream and fails the file unless the data ends with it
-// (cv2 would read what follows as further blocks); a graphic control
-// extension before it must be 4 bytes with a disposal method of 0-3, and an
-// application extension with a 3-byte data sub-block must be NETSCAPE2.0's
-// (cv2 reads nothing otherwise); a frame outside the logical screen, which
-// cv2 reads as nothing, is refused by name.  The screen starts
-// as the global table's background colour, or black without a global
-// table, whatever the disposal method; the frame's transparent pixels keep
-// the screen's colour.
+// (every 1- and 2-byte stream of 3-bit codes against cv2 shows it): an end
+// code resets the table as a clear code does, and decoding goes on from
+// the bits after it while bytes of the data are left (at the last byte it
+// ends the stream); a code that overruns the frame fails the file; once
+// the frame is full, clear and end codes still reset, and the next code
+// that gives pixels ends the stream and fails the file unless no byte of
+// the data is left (cv2 would read it as the file's next block); a graphic
+// control extension before it must be 4 bytes with a disposal method of
+// 0-3, and an application extension with a 3-byte data sub-block must be
+// NETSCAPE2.0's (cv2 reads nothing otherwise); a frame outside the logical
+// screen, which cv2 reads as nothing, is refused by name.  The screen
+// starts as the global table's background colour, or black without a
+// global table, whatever the disposal method; the frame's transparent
+// pixels keep the screen's colour.
 struct Gif {
   const uint8_t* d;
   size_t n, pos = 0;
@@ -2007,26 +2009,23 @@ struct Gif {
       int c = (int)(acc & ((1u << width) - 1));
       acc >>= width;
       held -= width;
-      if (o == out.size()) {
-        // the frame is full: the next code ends it, and the data must end
-        // with that code
-        if (pos < in.size())
-          fail(kErrFormat, "GIF LZW data goes on past its frame");
-        break;
-      }
-      if (c == end) {  // before the frame is full: a reset, the byte's
-        width = mcs + 1;  // other bits dropped
-        next = end + 1;
-        old = -1;
-        acc = 0;
-        held = 0;
-        continue;
-      }
-      if (c == clear) {
+      if (c == clear || c == end) {
         width = mcs + 1;
         next = end + 1;
         old = -1;
+        // an end code is a reset: the codes after it are read on while
+        // bytes of the data are left, the bits it shares a byte with too;
+        // at the last byte it ends the stream
+        if (c == end && pos == in.size()) break;
         continue;
+      }
+      if (o == out.size()) {
+        // the frame is full: the next code that gives pixels ends the
+        // stream, which must then have no byte left unread (cv2 would read
+        // it as the file's next block)
+        if (pos < in.size())
+          fail(kErrFormat, "GIF LZW data goes on past its frame");
+        break;
       }
       if (c > next || (c == next && old < 0))
         fail(kErrFormat, "corrupt GIF LZW data");

@@ -12,6 +12,12 @@ K4's adjoint, on the taps the backward recomputes from the saved uv; each
 runs its kernel on the card and its plain twin on the CPU.  Its d_uv is
 plain PyTorch.
 
+``quantize_feature_map`` is the int8 pixel-map mode's per-channel int8
+quantisation (plain PyTorch, as the JAX package's is plain jnp); an int8
+map is sampled with its scale, ``sample_feature_map(q, uv, shape,
+scale)``: K4's int8 form on the card, with the scale fused into it, the
+rows bf16 as in the JAX package.
+
 ``sample_half_pixel`` and ``depth_visibility`` are the depth-map mode's
 vertex visibility (half-pixel, zero-padded sampling of each view's depth
 map at the vertices' projections), plain PyTorch as the JAX package's are
@@ -20,6 +26,7 @@ plain JAX.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from ..kernels import gather
@@ -76,6 +83,10 @@ class _SampleFeatureMap(torch.autograd.Function):
         shape, fdtype, (h_img, w_img) = ctx.meta
         v, hf, wf, c = shape
         fx, fy, base, wx, wy, dx, dy = _sample_taps(shape, uv, (h_img, w_img))
+        if fdtype == torch.int8:
+            # the int8 fetch's fractions are bf16 (an int8 map takes no
+            # gradient: only d_uv is asked for)
+            wx, wy = (w.to(torch.bfloat16).float() for w in (wx, wy))
         d_feat = d_uv = None
         if ctx.needs_input_grad[0]:
             # g in the map's dtype: K3's bf16 form sums a bf16 g in float32
@@ -103,13 +114,57 @@ class _SampleFeatureMap(torch.autograd.Function):
         return d_feat, d_uv, None
 
 
-def sample_feature_map(feat, uv, image_shape):
-    """feat (V,Hf,Wf,C) NHWC float32 or bfloat16; uv (V,N,2) float32 image
-    pixels (x, y); image_shape (H_img, W_img) -> (V,N,C) in feat's dtype,
-    border-clamped, align_corners semantics (K4 on the card, its bf16 form
-    for a bf16 map).  Differentiable in feat (K3 on the card) and uv (d_uv
-    float32); where no gradient is asked for, nothing is saved."""
-    return _SampleFeatureMap.apply(feat, uv, tuple(image_shape))
+def sample_feature_map(feat, uv, image_shape, scale=None):
+    """feat (V,Hf,Wf,C) NHWC float32, bfloat16 or int8; uv (V,N,2) float32
+    image pixels (x, y); image_shape (H_img, W_img) -> (V,N,C) in feat's
+    dtype (bf16 for int8), border-clamped, align_corners semantics (K4 on
+    the card, its bf16 or int8 form for such a map).  Differentiable in feat
+    (K3 on the card) and uv (d_uv float32); where no gradient is asked for,
+    nothing is saved.
+
+    An int8 map's rows are multiplied by bf16(scale), its (C,) float32
+    quantisation scale, as the JAX package's decode multiplies them: inside
+    the kernel, or, where a gradient of the scale or of uv is asked for,
+    as a product autograd differentiates (the kernel then gives the
+    unscaled rows)."""
+    image_shape = tuple(image_shape)
+    if scale is None:
+        return _SampleFeatureMap.apply(feat, uv, image_shape)
+    if feat.dtype != torch.int8:
+        raise ValueError(f"sample_feature_map: a scale is for an int8 map, "
+                         f"not a {feat.dtype} one")
+    if torch.is_grad_enabled() and (scale.requires_grad or uv.requires_grad):
+        return (_SampleFeatureMap.apply(feat, uv, image_shape)
+                * scale.to(torch.bfloat16))
+    return gather.feature_sample(feat, uv, image_shape, scale)
+
+
+_INV127 = float(np.float32(1.0) / np.float32(127.0))
+
+
+def quantize_feature_map(feat):
+    """Symmetric per-channel int8 quantisation of a (V, H, W, C) map, the
+    JAX package's ``quantize_feature_map`` as its jitted paths compute it:
+    (q int8 of feat's shape, scale (C,) float32) with scale = max(absmax,
+    1e-12) · float32(1 / 127), absmax over (V, H, W) in float32, and q =
+    clamp(round(feat / scale), -127, 127), rounded half to even; both equal
+    the JAX package's bit for bit.  The scale carries feat's gradient
+    through the absmax, as JAX's does; q carries none.  The map is divided
+    one view at a time into one float32 buffer, so a full-size map costs
+    one view of float32 beside q."""
+    c = feat.shape[-1]
+    flat = feat.reshape(-1, c)
+    # max |f| without a full-size |feat|: the larger of max f and -min f
+    absmax = torch.maximum(flat.amax(0), -flat.amin(0)).float()
+    # XLA compiles JAX's `/ 127.0` as a product with float32(1 / 127)
+    scale = torch.clamp_min(absmax, 1e-12) * _INV127
+    q = torch.empty(feat.shape, dtype=torch.int8, device=feat.device)
+    with torch.no_grad():
+        buf = None
+        for v in range(feat.shape[0]):
+            buf = torch.div(feat[v], scale, out=buf)
+            q[v] = buf.round_().clamp_(-127, 127)
+    return q, scale
 
 
 def sample_half_pixel(feat, uv, image_shape):

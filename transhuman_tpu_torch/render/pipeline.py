@@ -35,6 +35,11 @@ The cull keeps a point closer than ``cull_distance`` to the body, or, with
 The serving entry points run under ``torch.no_grad``; they and the train
 path share the undecorated bodies ``_prologue`` and ``_query_points``.
 
+With ``quantize_pixel_feat`` the prologue quantises the pixel map to int8
+per channel (the JAX package's int8 mode) and the decode samples it with
+K4's int8 form, which scales the rows back and gives them in bf16, as the
+JAX package's int8 fetch does, in either compute dtype.
+
 In the model's compute dtype bfloat16, the maps, the painted vertices, the
 cluster tokens and the raw outputs are bf16 (the pool matrix is cast for the
 token pooling, as the JAX package casts it); the cluster centres and
@@ -58,7 +63,7 @@ from ..kernels.cull import radii_cull, shell_cull
 from ..models.embedder import embed_viewdir
 from ..models.layers import pooled_norms
 from ..ops.sampling import (depth_visibility, project_points,
-                             sample_feature_map)
+                             quantize_feature_map, sample_feature_map)
 from ..registry import RENDERERS
 from ..weights import reference_pe_table
 from .volume import composite, sample_along_rays
@@ -129,9 +134,10 @@ class Prologue:
     """Per-frame quantities shared by every chunk of rays."""
 
     tokens: torch.Tensor  # (V, C, D) TransHE-refined cluster tokens
-    pixel_map: torch.Tensor  # (V, H, W, 384), in the compute dtype
+    pixel_map: torch.Tensor  # (V, H, W, 384), compute dtype; int8 quantised
     centers: torch.Tensor  # (C, 3) cluster centres, SMPL coords
     rot: torch.Tensor  # (C, 3, 3) pooled blend rotations
+    pixel_scale: Optional[torch.Tensor] = None  # (384,) float32, int8 mode
 
 
 def validate_radii(vertex_radii, n_verts: int):
@@ -158,7 +164,7 @@ class RenderPipeline:
                  cull_distance: float = 0.1, white_bkgd: bool = False,
                  raw_noise_std: float = 0.0, *, device, pe_table=None,
                  vertex_radii=None, remat: bool = False,
-                 train_cull: bool = False):
+                 train_cull: bool = False, quantize_pixel_feat: bool = False):
         self.model = model
         self.device = torch.device(device)
         self.n_samples = n_samples
@@ -168,6 +174,10 @@ class RenderPipeline:
         self.vertex_radii = vertex_radii
         self.remat = remat
         self.train_cull = train_cull
+        # the int8 pixel map (the JAX package's constructor argument, no
+        # config key): the prologue quantises it per channel, the decode
+        # samples it with K4's int8 form and scales it back
+        self.quantize_pixel_feat = quantize_pixel_feat
         self.white_bkgd = white_bkgd
         self.raw_noise_std = raw_noise_std
         self.pool = torch.as_tensor(cluster.pool_matrix, dtype=torch.float32,
@@ -257,8 +267,12 @@ class RenderPipeline:
                                           self.pe_can)
         centers = self.pool @ frame.tar_verts_smpl
         rot = torch.einsum("cv,vij->cij", self.pool, frame.blend_rot)
+        pixel_scale = None
+        if self.quantize_pixel_feat:
+            pixel_map, pixel_scale = quantize_feature_map(pixel_map)
         return Prologue(tokens=tokens.contiguous(), pixel_map=pixel_map,
-                        centers=centers.contiguous(), rot=rot.contiguous())
+                        centers=centers.contiguous(), rot=rot.contiguous(),
+                        pixel_scale=pixel_scale)
 
     @staticmethod
     def fetch_uv(frame: FrameInputs, pts_world, pts_mask=None):
@@ -294,7 +308,8 @@ class RenderPipeline:
         pts_smpl = to_smpl(frame, pts_world)
         uv = self.fetch_uv(frame, pts_world, pts_mask)
         pixel_feat = sample_feature_map(pro.pixel_map, uv,
-                                        frame.images.shape[1:3])
+                                        frame.images.shape[1:3],
+                                        pro.pixel_scale)
         return self.model.query(pts_smpl.contiguous(), pro.centers, pro.rot,
                                 pro.tokens, pixel_feat, viewdir_embed,
                                 pts_mask)

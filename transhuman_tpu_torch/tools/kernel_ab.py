@@ -20,11 +20,14 @@ change, parent with CUDA events:
   form on the same taps, at the serve shapes (a 32,768-point chunk into
   (3, 512, 512, 384) maps, the 6,890 vertices into (3, 512, 512, 192)
   maps); K3 at the train shapes (153,600 points at C = 384, the 6,890
-  vertices at C = 192).  The points are the phase 3 body points projected
-  into the seeded synthetic scene's three 512x512 views, the maps and
-  cotangents seeded normals made on the card; the id form's ids and
-  weights, and K3's, are this checkout's _sample_taps of those points,
-  read by both checkouts from one file.
+  vertices at C = 192); K4's int8 form (the int8 pixel map's fetch) as the
+  whole forward at the serve pixel shape, the seeded map quantised by the
+  checkout's own quantiser, where the checkout has the form (a row only
+  one side has is timed and listed, not compared).  The points are the
+  phase 3 body points projected into the seeded synthetic scene's three
+  512x512 views, the maps and cotangents seeded normals made on the card;
+  the id form's ids and weights, and K3's, are this checkout's
+  _sample_taps of those points, read by both checkouts from one file.
 
 Needs one CUDA card and nvcc.  Prints one JSON object as its last line (and
 writes it to OUT).
@@ -147,6 +150,16 @@ for tag, c, uv in (("pixel", 384, "chunk"), ("paint", 192, "verts")):
     calls[f"k4_forward_{tag}"] = forward
     calls[f"k4_ids_{tag}"] = (lambda src=src, ids=ids, w4=w4:
                               gather.feature_gather_cuda(src, ids, w4, offs))
+if hasattr(gather, "feature_sample_int8_cuda"):  # K4's int8 form
+    from transhuman_tpu_torch.ops.sampling import quantize_feature_map
+
+    q8, scale8 = quantize_feature_map(seeded((3, 512, 512, 384), 384))
+
+    def forward_int8(uv=inp["uv_chunk"]):
+        with torch.no_grad():
+            return sample_feature_map(q8, uv, image, scale8)
+
+    calls["k4_int8_pixel"] = forward_int8
 for tag, c, pts in (("pixel", 384, "train"), ("paint", 192, "verts")):
     ids, w4 = inp[f"ids_{pts}"], inp[f"w4_{pts}"]
     g = seeded((3, ids.shape[1], c), 10 + c)
@@ -280,8 +293,9 @@ def ab_k3_k4(parent: str, dev) -> dict:
                                                           path)})
             if i < 2:
                 outs[tag] = torch.load(path)
-    res = {"wrapper_turns": turns, "bit_identical": {}, "max_abs_diff": {}}
-    for name in outs["change"]:
+    res = {"wrapper_turns": turns, "bit_identical": {}, "max_abs_diff": {},
+           "only_in_change": sorted(set(outs["change"]) - set(outs["parent"]))}
+    for name in set(outs["change"]) & set(outs["parent"]):
         a, b = outs["parent"][name], outs["change"][name]
         res["bit_identical"][name] = torch.equal(a, b)
         res["max_abs_diff"][name] = _diff(a, b)

@@ -7,7 +7,10 @@ plus ``pe_table`` when the run carries a stored TransHE table.  Each epoch
 writes ``latest.pth`` and, every ``save_freq`` epochs, ``{epoch}.pth``; the
 files are serialised once and written atomically (temporary file, then
 rename).  ``weights.load_checkpoint_file`` reads the 'net' part, so a trained
-model serves as it is.  A tensor-parallel state (``parallel/tp.py``) is
+model serves as it is.  The train entry point saves through
+``AsyncCheckpointer`` (the JAX package's class of that name): the state is
+copied at once, and the serialising and the writes run on one worker
+thread, off the train loop, in the order of the saves.  A tensor-parallel state (``parallel/tp.py``) is
 written whole: its model ranks gather the reference state dict and the
 optimizer's moments (every model rank must take part), and one rank
 writes, so the file is the one a single process writes; a run resumes
@@ -26,11 +29,14 @@ so that update k uses lr(k), as optax's schedule does.
 
 from __future__ import annotations
 
+import copy
 import io
 import os
 import pickle
 import re
-from collections import namedtuple
+import time
+from collections import deque, namedtuple
+from concurrent.futures import ThreadPoolExecutor
 from typing import Optional
 
 import numpy as np
@@ -83,6 +89,21 @@ def save_checkpoint(path: str, state: TrainState, epoch: int,
         _atomic_write(path, _serialise(blob))
 
 
+def _epoch_paths(model_dir: str, epoch: int, save_epoch_copy: bool) -> list:
+    paths = [os.path.join(model_dir, "latest.pth")]
+    if save_epoch_copy:
+        paths.append(os.path.join(model_dir, f"{epoch}.pth"))
+    return paths
+
+
+def _write_blob(blob: dict, paths: list):
+    """Serialise once, write each path atomically."""
+    os.makedirs(os.path.dirname(os.path.abspath(paths[0])), exist_ok=True)
+    data = _serialise(blob)
+    for p in paths:
+        _atomic_write(p, data)
+
+
 def save_epoch(model_dir: str, state: TrainState, epoch: int,
                save_epoch_copy: bool, recorder: Optional[dict] = None,
                pe_table=None, write: bool = True) -> list:
@@ -93,14 +114,67 @@ def save_epoch(model_dir: str, state: TrainState, epoch: int,
     blob = checkpoint_blob(state, epoch, recorder, pe_table)
     if not write:
         return []
-    os.makedirs(model_dir, exist_ok=True)
-    data = _serialise(blob)
-    paths = [os.path.join(model_dir, "latest.pth")]
-    if save_epoch_copy:
-        paths.append(os.path.join(model_dir, f"{epoch}.pth"))
-    for p in paths:
-        _atomic_write(p, data)
+    paths = _epoch_paths(model_dir, epoch, save_epoch_copy)
+    _write_blob(blob, paths)
     return paths
+
+
+class AsyncCheckpointer:
+    """``save_epoch`` off the train loop (the JAX package's
+    ``AsyncCheckpointer``).  ``save_epoch`` takes a copy of the whole state
+    at once (``copy.deepcopy`` of the file's dict: the optimizer and the
+    model update their tensors in place, and ``.cpu()`` of a CPU tensor is
+    no copy), then hands it to one worker thread, which serialises it and
+    writes the files as ``save_epoch`` does, byte for byte.  One worker
+    keeps the saves in order, so ``latest.pth`` never goes back to an
+    older epoch.  A worker's error is raised at the next ``save_epoch`` or
+    ``wait``.  At most ``MAX_PENDING`` copies wait to be written: a save
+    past that blocks on the oldest write, as the JAX class does, so a slow
+    disk stalls the loop instead of filling the host's memory.  Call
+    ``wait`` before anything reads the files and before the process ends.
+    ``write_s`` maps each epoch written to the seconds its worker took."""
+
+    MAX_PENDING = 2
+
+    def __init__(self):
+        self._ex = ThreadPoolExecutor(max_workers=1,
+                                      thread_name_prefix="checkpoint")
+        self._pending = deque()
+        self.write_s = {}
+
+    def _write(self, blob: dict, paths: list, epoch: int):
+        t0 = time.perf_counter()
+        _write_blob(blob, paths)
+        self.write_s[epoch] = time.perf_counter() - t0
+
+    def _drain(self, block: bool):
+        """Collect the finished writes (all of them when block), raising
+        the first error among them."""
+        while self._pending and (block or self._pending[0].done()):
+            self._pending.popleft().result()
+
+    def save_epoch(self, model_dir: str, state: TrainState, epoch: int,
+                   save_epoch_copy: bool, recorder: Optional[dict] = None,
+                   pe_table=None, write: bool = True) -> list:
+        """As the module's ``save_epoch``, the writes queued: returns the
+        paths to be written.  With write False it only takes part in a
+        sharded state's gather (every model rank must call it)."""
+        self._drain(block=False)
+        while len(self._pending) >= self.MAX_PENDING:
+            self._pending.popleft().result()
+        blob = copy.deepcopy(checkpoint_blob(state, epoch, recorder,
+                                             pe_table))
+        if not write:
+            return []
+        paths = _epoch_paths(model_dir, epoch, save_epoch_copy)
+        self._pending.append(self._ex.submit(self._write, blob, paths,
+                                             epoch))
+        return paths
+
+    def wait(self):
+        """Block until every queued write is on disk; raise a worker's
+        error."""
+        self._drain(block=True)
 
 
 # ------------------------------------------------------------------- find
