@@ -1027,16 +1027,26 @@ def check_bf16_forms(card: str, pts, centers, rot, tokens, k: int,
     twin within one unit of bf16's last place of the largest value; timed
     beside its bound (the bf16 bytes), its plain twin and the library call.
     K2 at the render chunk and the train shape, K4 at the serve pixel and
-    painting shapes of a real request, K3 at both train shapes."""
+    painting shapes of a real request, K3 at both train shapes; K2 and K4
+    also at the main path's size, the cull survivors of the serve request's
+    median 512-ray chunk (every chunk's count logged)."""
     import torch.nn.functional as F
 
     from transhuman_tpu_torch.kernels import build, dparf, gather, scatter
     from transhuman_tpu_torch.kernels.gather import _bilinear_w4, _sample_taps
     from transhuman_tpu_torch.ops.sampling import sample_feature_map
+    from transhuman_tpu_torch.tools.kernel_ab import survivor_inputs
 
     bf16, eps = torch.bfloat16, 2.0**-7
     dev = pts.device
     out = []
+    surv = survivor_inputs(dev)
+    counts = sorted(surv["counts"])
+    log(f"[3 kernels] serve request survivors per 512-ray chunk (the cull, "
+        f"chunk by chunk as render_frame culls): {len(counts)} chunks with "
+        f"survivors, min {counts[0]}, median {counts[len(counts) // 2]}, max "
+        f"{counts[-1]} of {N_CHUNK} points; the median chunk's "
+        f"{surv['pts'].shape[0]} are K2's and K4's survivor size  [{card}]")
 
     # K2: bf16 tokens, float32 points, centres and rotations
     tok16 = tokens.to(bf16)
@@ -1072,13 +1082,52 @@ def check_bf16_forms(card: str, pts, centers, rot, tokens, k: int,
         f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {b['bound_ms']:.4f} ms "
         f"({b['bound_by']}); train shape {tp.shape[0]} pts {train_ms:.4f} ms,"
         f" bound {b_t['bound_ms']:.4f} ms  [{card}]")
-    out.append({"name": "dparf_bf16", "route": "cuda",
-                "source": "transhuman_tpu_torch/csrc/dparf.cu",
-                "replaces": "transhuman_tpu/experiments/dparf.py:115",
-                "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **b,
-                "library_ms": None, "train_ms": train_ms,
-                "train_bound_ms": b_t["bound_ms"]})
+    entry = {"name": "dparf_bf16", "route": "cuda",
+             "source": "transhuman_tpu_torch/csrc/dparf.cu",
+             "replaces": "transhuman_tpu/experiments/dparf.py:115",
+             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **b,
+             "library_ms": None, "train_ms": train_ms,
+             "train_bound_ms": b_t["bound_ms"]}
     del got, want, plain, got_t
+    # at the survivor size, with the request frame's clusters
+    sp, sc, sr = surv["pts"], surv["centers"], surv["rot"]
+    got = dparf.dparf_bf16_cuda(sp, sc, sr, tok16, k)
+    want = dparf.dparf_cuda(sp, sc, sr, tok16.float(), k)
+    plain = dparf.dparf_plain(sp, sc, sr, tok16, k)
+    torch.cuda.synchronize()
+    check(torch.equal(got[0], want[0].to(bf16)) and
+          all(torch.equal(a, b) for a, b in zip(got[1:], want[1:])),
+          "K2 bf16 at the survivor size: not the float32 form's bits")
+    ok = ~knn_near_ties(sp, sc, k)
+    scale = float(plain[0].float().abs().max())
+    err = float((got[0].float() - plain[0].float())[:, ok].abs().max())
+    check(err <= eps * scale, f"K2 bf16 at the survivor size: tok max err "
+          f"{err} vs its plain twin (max |tok| {scale}) off ties")
+    raw = tuple(torch.empty_like(t) for t in got)
+    stream = torch.cuda.current_stream().cuda_stream
+    lib = build.library()
+    v, c, d = tok16.shape
+    launch_ms = time_ms(lambda: lib.thp_dparf_bf16(
+        sp.data_ptr(), sc.data_ptr(), sr.data_ptr(), tok16.data_ptr(),
+        *(t.data_ptr() for t in raw), sp.shape[0], c, v, d, k, 10, 0.5,
+        stream))
+    check(all(torch.equal(a, b) for a, b in zip(raw, got)),
+          "K2 bf16 at the survivor size: the bare launches differ")
+    s_ms = time_ms(lambda: dparf.dparf_bf16_cuda(sp, sc, sr, tok16, k))
+    s_plain_ms = time_ms(lambda: dparf.dparf_plain(sp, sc, sr, tok16, k))
+    b_s = bound(nbytes(sp, sc, sr, tok16, *got),
+                8 * sp.shape[0] * c + 2 * k * tok16.numel() // c * sp.shape[0])
+    log(f"[3 kernels] K2 dparf bf16 at the survivor size, {sp.shape[0]} pts: "
+        f"the float32 form's bits; tok err vs plain {err:.3g} of max "
+        f"{scale:.3g}; wrapper {s_ms:.4f} ms, launch {launch_ms:.4f} ms, "
+        f"plain {s_plain_ms:.4f} ms, bound {b_s['bound_ms']:.4f} ms "
+        f"({b_s['bound_by']})  [{card}]")
+    entry.update(surv_points=sp.shape[0], surv_ms=s_ms,
+                 surv_launch_ms=launch_ms, surv_plain_ms=s_plain_ms,
+                 surv_bound_ms=b_s["bound_ms"],
+                 max_abs_err=max(entry["max_abs_err"], err))
+    out.append(entry)
+    del got, want, plain, raw
 
     # K4's sampling form on the request's maps in bf16
     lib, stream = build.library(), torch.cuda.current_stream().cuda_stream
@@ -1086,8 +1135,10 @@ def check_bf16_forms(card: str, pts, centers, rot, tokens, k: int,
     entry = {"name": "feature_sample_bf16", "route": "cuda",
              "source": "transhuman_tpu_torch/csrc/gather.cu",
              "replaces": "tools/profile_gather_ab.py:156"}
-    for tag, fmap, uv in (("pixel", pixel.to(bf16), uv_p),
-                          ("paint", holder.to(bf16), uv_v)):
+    pixel16 = pixel.to(bf16)
+    for tag, fmap, uv in (("pixel", pixel16, uv_p),
+                          ("paint", holder.to(bf16), uv_v),
+                          ("surv", pixel16, surv["uv"])):
         v, hf, wf, c = fmap.shape
         n = uv.shape[1]
         fx, fy, base, _, _, dx, dy = _sample_taps(fmap.shape, uv, img)
@@ -1138,11 +1189,13 @@ def check_bf16_forms(card: str, pts, centers, rot, tokens, k: int,
         if tag == "pixel":
             entry.update(max_abs_err=err, path_ms=path_ms, **t, **b)
         else:
-            entry.update({f"paint_{key}": x for key, x in t.items()},
-                         paint_path_ms=path_ms, paint_bound_ms=b["bound_ms"],
+            entry.update({f"{tag}_{key}": x for key, x in t.items()},
                          max_abs_err=max(entry["max_abs_err"], err))
+            entry[f"{tag}_path_ms"] = path_ms
+            entry[f"{tag}_bound_ms"] = b["bound_ms"]
+    entry["surv_points"] = surv["uv"].shape[1]
     out.append(entry)
-    del pixel, holder
+    del pixel, holder, pixel16
 
     # K3: bf16 cotangent rows at both train shapes
     entry = {"name": "dfeat_scatter_bf16", "route": "cuda",

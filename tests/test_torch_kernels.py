@@ -75,6 +75,17 @@ def test_kernel_ab_inputs_are_seeded_and_it_needs_a_card(monkeypatch):
     assert [tuple(t.shape) for t in a] == [(64, 3), (6890, 3), (300, 3),
                                            (300, 3, 3), (3, 300, 192)]
     assert all(torch.equal(x, y) for x, y in zip(a, b))
+    # the survivor-size inputs (the median chunk's cull survivors of the
+    # serve request), here at a 16x16 request: one chunk
+    s1 = kernel_ab.survivor_inputs("cpu", (16, 16))
+    s2 = kernel_ab.survivor_inputs("cpu", (16, 16))
+    n = s1["pts"].shape[0]
+    assert s1["counts"] == s2["counts"] and n in s1["counts"]
+    assert 0 < n <= kernel_ab.N_CHUNK
+    assert [tuple(s1[k].shape) for k in ("pts", "centers", "rot", "uv")] == [
+        (n, 3), (300, 3), (300, 3, 3), (3, n, 2)]
+    assert all(torch.equal(s1[k], s2[k])
+               for k in ("pts", "centers", "rot", "uv"))
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(SystemExit, match="needs a CUDA card"):
         kernel_ab.main(["--parent", "."])
@@ -251,6 +262,27 @@ def test_dparf_kernel_misaligned_tokens_take_the_scalar_path(cuda):
     _assert_dparf_matches_plain(got, want, pts, centers, 7)
 
 
+def _exact_tie_inputs(device, n=500, d=192):
+    """Dyadic points and 70 centres (multiples of 1/8): every d^2 is exact
+    in both forms and many tie exactly; centres 5, 6, 37 and 38 tie nearest
+    to point 0, the origin."""
+    rng = np.random.default_rng(11)
+    c = 70
+    # every coordinate in +-{2..8}/8: no random centre within 0.25 of 0
+    centers = (rng.integers(2, 9, (c, 3)) * rng.choice([-1, 1], (c, 3))
+               ).astype(np.float32) / 8
+    for j, (x, y) in ((5, (1, 1)), (6, (1, -1)), (37, (-1, 1)),
+                      (38, (-1, -1))):
+        centers[j] = (x / 8, y / 8, 0)
+    pts = rng.integers(-8, 9, (n, 3)).astype(np.float32) / 8
+    pts[0] = 0
+    rot = np.stack([np.linalg.qr(m)[0] for m in
+                    rng.standard_normal((c, 3, 3))]).astype(np.float32)
+    tokens = rng.standard_normal((3, c, d)).astype(np.float32)
+    return [torch.from_numpy(a).to(device) for a in (pts, centers, rot,
+                                                      tokens)]
+
+
 @pytest.mark.cuda
 def test_dparf_kernel_exact_ties_match_the_plain_argmin(cuda):
     """Dyadic points and centres (multiples of 1/8), so that every d^2 is
@@ -258,20 +290,8 @@ def test_dparf_kernel_exact_ties_match_the_plain_argmin(cuda):
     37 and 38 tie nearest: 5 and 37 belong to one lane (met in two
     rounds), 5 and 6 to neighbouring lanes (met in one shuffle).  The
     indices equal the plain twin's iterative argmin everywhere."""
-    rng = np.random.default_rng(11)
-    c, k = 70, 7
-    # every coordinate in +-{2..8}/8: no random centre within 0.25 of 0
-    centers = (rng.integers(2, 9, (c, 3)) * rng.choice([-1, 1], (c, 3))
-               ).astype(np.float32) / 8
-    for j, (x, y) in ((5, (1, 1)), (6, (1, -1)), (37, (-1, 1)),
-                      (38, (-1, -1))):
-        centers[j] = (x / 8, y / 8, 0)
-    pts = rng.integers(-8, 9, (500, 3)).astype(np.float32) / 8
-    pts[0] = 0
-    rot = np.stack([np.linalg.qr(m)[0] for m in
-                    rng.standard_normal((c, 3, 3))]).astype(np.float32)
-    tokens = rng.standard_normal((3, c, 192)).astype(np.float32)
-    args = [torch.from_numpy(a).to(cuda) for a in (pts, centers, rot, tokens)]
+    k = 7
+    args = _exact_tie_inputs(cuda)
     got = dparf.dparf_cuda(*args, k=k)
     want = dparf.dparf_plain(*args, k=k)
     assert got[3][0, :4].tolist() == [5, 6, 37, 38]
@@ -619,12 +639,17 @@ def _rounded(x):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("c, n", [(384, 32768), (192, 6890)])
+@pytest.mark.parametrize("c, n", [(384, 32768), (192, 6890), (384, 26321),
+                                  (768, 4901), (384, 1), (24, 1001),
+                                  (16, 333), (8, 97)])
 def test_feature_sample_bf16_is_the_f32_form_cast(cuda, c, n):
     """K4's bf16 form at the serve pixel shape (C = 384, a 32,768-point
-    chunk) and the painting shape (C = 192, 6,890 vertices) of 3 512x512
-    maps: feature_sample_cuda on the widened map, then one RNE cast, bit
-    for bit; C = 6 odd widths take the scalar path (below)."""
+    chunk, and about a chunk's cull survivors), the painting shape (C =
+    192, 6,890 vertices), C = 768 (a row wider than a warp's 96 words) and
+    rows of 3, 2 and 1 word (C = 24, 16, 8: groups of 32, 48 and 96 rows),
+    at ragged point counts, of 3 512x512 maps: feature_sample_cuda on the
+    widened map, then one RNE cast, bit for bit; odd widths take the scalar
+    path (below)."""
     rng = np.random.default_rng(c)
     feat = _rounded(_rand((3, 512, 512, c), 13, 1.0, cuda))
     h_img = w_img = 512
@@ -645,17 +670,26 @@ def test_feature_sample_bf16_is_the_f32_form_cast(cuda, c, n):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("c", [6, 8, 20])
-def test_feature_sample_bf16_scalar_and_odd_widths(cuda, c):
-    """Widths that are not a multiple of the 8-channel word (6, 20) take
-    the scalar path; 8 is one word; maps one texel wide or tall too."""
+@pytest.mark.parametrize("c", [6, 8, 16, 20, 24, 40, 100, 200])
+@pytest.mark.parametrize("n", [N_SCATTER, 97])
+def test_feature_sample_bf16_scalar_and_odd_widths(cuda, c, n):
+    """Widths that are not a multiple of the 8-channel word (6, 20, 100)
+    take the scalar path (groups of 16, 4 and 1 rows, 200 of two chunks); 8,
+    16, 24, 40 and 200 are words of rows that fill a warp's 96 words or
+    not; ragged row counts; maps one texel wide or tall too; a map and rows
+    2 bytes off 16 take the scalar path whatever the width."""
     for hf, wf in ((64, 80), (64, 1), (1, 80)):
         rng = np.random.default_rng(hf + wf + c)
         feat = _rounded(_rand((3, hf, wf, c), 14, 1.0, cuda))
-        uv = torch.from_numpy(_sampling_uv(rng, N_SCATTER, hf, wf)).to(cuda)
+        uv = torch.from_numpy(_sampling_uv(rng, n, hf, wf)).to(cuda)
         got = gather.feature_sample_bf16_cuda(feat, uv, SF_IMAGE)
         want = gather.feature_sample_cuda(feat.float(), uv, SF_IMAGE)
         assert torch.equal(got, want.to(BF16)), (hf, wf)
+    buf = torch.empty(feat.numel() + 1, dtype=BF16, device=cuda)
+    shifted = buf[1:].view(feat.shape)
+    shifted.copy_(feat)
+    got = gather.feature_sample_bf16_cuda(shifted, uv, SF_IMAGE)
+    assert torch.equal(got, want.to(BF16))
 
 
 @pytest.mark.cuda
@@ -701,17 +735,59 @@ def test_dfeat_scatter_bf16_tap_layouts(cuda, c):
         assert torch.equal(got, want.to(BF16)), (dx, dy)
 
 
+def _clumped_inputs(device, n, c, d):
+    """Points at the origin and C centres of which every 16th lies within
+    1 cm of it and the rest 1-2 m away: one selection lane's share holds
+    more near centres than the bf16 kernel lists a point's candidates."""
+    rng = np.random.default_rng(c)
+    centers = rng.uniform(1, 2, (c, 3)) * rng.choice([-1, 1], (c, 3))
+    centers[::16] = rng.uniform(-0.01, 0.01, (len(centers[::16]), 3))
+    pts = rng.uniform(-1e-3, 1e-3, (n, 3))
+    rot = np.stack([np.linalg.qr(m)[0] for m in
+                    rng.standard_normal((c, 3, 3))])
+    tokens = rng.standard_normal((3, c, d))
+    return [torch.from_numpy(a.astype(np.float32)).to(device)
+            for a in (pts, centers, rot, tokens)]
+
+
+# (n, c, k, d, inputs): one point, a tile of 16 points and one either side,
+# about a serve chunk's cull survivors and a whole chunk; C == k, C not a
+# multiple of 32 and C above 32 K; every k; D of one 8-channel word, not a
+# multiple of 8 (the scalar path), the render width and the model axis's
+# 384 and 768; tokens 4 bytes off 16 (the scalar path); exact ties; more
+# candidates than a point's list holds
+DPARF_BF16_CASES = [
+    *[(32768, 300, kk, 192, "random") for kk in (7, 4, 1)],
+    (26321, 300, 7, 192, "random"), (4900, 300, 7, 192, "random"),
+    (1, 300, 7, 192, "random"), (15, 300, 8, 192, "random"),
+    (16, 300, 7, 192, "random"), (17, 300, 3, 192, "random"),
+    (1000, 8, 8, 192, "random"), (1001, 33, 5, 8, "random"),
+    (517, 1000, 8, 384, "random"), (300, 300, 7, 768, "random"),
+    (1000, 300, 7, 20, "random"), (2051, 300, 7, 20, "random"),
+    *[(259, 300, kk, 192, "random") for kk in (2, 3, 5, 6, 8)],
+    (300, 300, 7, 192, "misaligned"), (500, 70, 7, 192, "ties"),
+    (33, 1000, 8, 192, "clumped"), (40, 1000, 7, 20, "clumped"),
+]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("k", [7, 4, 1])
-@pytest.mark.parametrize("d", [192, 20])
-def test_dparf_bf16_is_the_f32_form_cast(cuda, k, d):
-    """K2 with bf16 tokens at the render chunk (32,768 points, C = 300,
-    V = 3, D = 192) and D = 20 (the scalar path): tok is the float32 form's
-    on the widened tokens cast once, and pe, dist, idx and w are its
-    outputs, bit for bit."""
-    n = 32768 if d == 192 else 1000
-    pts, centers, rot, tokens = _dparf_inputs(n, 300, 3, d, cuda)
+@pytest.mark.parametrize("n, c, k, d, inputs", DPARF_BF16_CASES)
+def test_dparf_bf16_is_the_f32_form_cast(cuda, n, c, k, d, inputs):
+    """K2 with bf16 tokens: tok is the float32 form's on the widened tokens
+    cast once, and pe, dist, idx and w are its outputs, bit for bit."""
+    if inputs == "ties":
+        pts, centers, rot, tokens = _exact_tie_inputs(cuda, n, d)
+    elif inputs == "clumped":
+        pts, centers, rot, tokens = _clumped_inputs(cuda, n, c, d)
+    else:
+        pts, centers, rot, tokens = _dparf_inputs(n, c, 3, d, cuda,
+                                                  seed=n + c + k + d)
     tokens = _rounded(tokens)
+    if inputs == "misaligned":  # contiguous, 4 bytes off 16
+        buf = torch.empty(tokens.numel() + 2, dtype=BF16, device=cuda)
+        shifted = buf[2:].view(tokens.shape)
+        shifted.copy_(tokens)
+        tokens = shifted
     n0 = dparf.dparf_bf16_cuda.launches
     got = dparf.dparf(pts, centers, rot, tokens, k=k)
     assert dparf.dparf_bf16_cuda.launches == n0 + 1
@@ -720,6 +796,10 @@ def test_dparf_bf16_is_the_f32_form_cast(cuda, k, d):
     assert torch.equal(got[0], want[0].to(BF16))
     for a, b in zip(got[1:], want[1:]):
         assert torch.equal(a, b)
+    if inputs == "ties":
+        assert got[3][0, :4].tolist() == [5, 6, 37, 38]
+    if inputs == "clumped":  # the k nearest: centres 0, 16, 32, ...
+        assert bool((got[3] % 16 == 0).all())
 
 
 @pytest.mark.cuda

@@ -22,6 +22,42 @@ static inline int thp_launch_status() {
   return static_cast<int>(cudaGetLastError());
 }
 
+// Blocks of `kernel` (at `threads` a block and `smem` bytes of dynamic
+// shared memory) that the current device holds at once: its SMs times the
+// blocks an SM holds.  Asked of the runtime once per kernel, device, block
+// and size in each host thread (a small cache); 0 on success, else the CUDA
+// error.
+static inline int thp_resident_blocks(const void* kernel, int threads,
+                                      size_t smem, int* blocks) {
+  struct Entry {
+    const void* fn;
+    int dev, threads, n;
+    size_t smem;
+  };
+  static thread_local Entry cache[16];
+  static thread_local int used = 0;
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  for (int i = 0; i < used && i < 16; ++i) {
+    const Entry& c = cache[i];
+    if (c.fn == kernel && c.dev == dev && c.threads == threads &&
+        c.smem == smem) {
+      *blocks = c.n;
+      return 0;
+    }
+  }
+  int sms = 0, per_sm = 0;
+  if ((e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                  dev)) != cudaSuccess ||
+      (e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+           &per_sm, kernel, threads, smem)) != cudaSuccess)
+    return static_cast<int>(e);
+  *blocks = sms * per_sm > 0 ? sms * per_sm : 1;
+  cache[used++ % 16] = Entry{kernel, dev, threads, *blocks, smem};
+  return 0;
+}
+
 // float4 words (VEC) or single floats, for kernels that move rows of
 // float32 channels either way
 template <bool VEC> struct ThpWord;

@@ -51,7 +51,20 @@
 // are the float32 form's on the widened map, cast, bit for bit.  It keeps
 // float32 weights where the JAX package's bf16 sampler rounds them to bf16
 // and lerps in bf16: more exact, and the reason the bit-equal oracle
-// exists.
+// exists.  It has a kernel of its own (feature_sample_bf16_kernel, below).
+// What bounds it at the main path's size (a 512-ray chunk's cull survivors,
+// about 26,000 points, so ~79,000 rows of 384 channels a launch): the rows
+// it writes and the tap rows it reads from L1/L2 (consecutive survivors
+// lie along a ray, and the next ray's samples reuse most of its taps).  A
+// bf16 row at C = 384 is 48 words, so the float32 form's row-a-warp walk
+// left lanes 16-31 one word and a warp half the float32 form's bytes in
+// flight, and at C = 192 (24 words) 8 lanes idle.  The design: a warp
+// carries two rows at C = 384, four at C = 192 (one row in chunks above
+// C = 768), each lane three words of one row, so that every lane holds 12
+// tap words in flight, as the float32 form's lanes do, and resolves one
+// row's taps; 2 blocks an SM (at 3 the 12 words spill); spans of at most 3
+// groups a warp, shorter when the launch would not fill the card.  Longer
+// spans and 4 words a lane measured slower on the H100.
 //
 // The int8 form of the sampling form (thp_feature_sample_int8) reads the
 // int8 map of the int8 pixel-map mode (a per-channel quantised map) and
@@ -78,7 +91,7 @@ namespace {
 constexpr int THREADS = 256;  // 8 warps
 constexpr int WARPS = THREADS / 32;
 constexpr int QW = 3;         // words per lane per chunk: C = 384 in one
-constexpr int QWB = 2;        // bf16 words (8 channels) per lane: C = 384
+constexpr int QWI = 2;        // int8 words (8 channels) per lane: C = 384
 constexpr int SPAN = 6 * WARPS;  // rows per block: 6 per warp
 constexpr int MIN_BLOCKS = 3;    // per SM: at most 85 registers a thread
 
@@ -142,6 +155,11 @@ struct UvTaps {  // the sampling form: uv (rows, 2) image pixels
   }
 };
 
+// the t-th of four tap offsets
+__device__ __forceinline__ int offs_at(const int4& off, int t) {
+  return t == 0 ? off.x : t == 1 ? off.y : t == 2 ? off.z : off.w;
+}
+
 // a float32 rounded to bf16 (nearest even), as a float32
 __device__ __forceinline__ float thp_round_bf16(float x) {
   return __bfloat162float(__float2bfloat16_rn(x));
@@ -199,66 +217,6 @@ __device__ void gather_row(const float* sv, int id, const float* wt,
 #pragma unroll
         for (int t = 0; t < T; ++t) acc = W::fma(wt[t], x[t][k], acc);
         __stcs(ov + q, acc);
-      }
-    }
-  }
-}
-
-// The bfloat16 row: words of 8 channels (VEC) or single channels, widened
-// to float32 and summed as gather_row sums, narrowed once at the store.
-template <int T, bool VEC>
-__device__ void gather_row(const unsigned short* sv, int id, const float* wt,
-                           const int* offs, unsigned short* o, int c,
-                           int lane, const float*) {
-  if (!VEC) {
-    for (int q = lane; q < c; q += 32) {
-      float acc = 0.f;
-      if (id >= 0) {
-        float x[T];
-#pragma unroll
-        for (int t = 0; t < T; ++t)
-          x[t] = thp_bf16_to_f32(
-              __ldg(sv + static_cast<size_t>(id + offs[t]) * c + q));
-#pragma unroll
-        for (int t = 0; t < T; ++t) acc = fmaf(wt[t], x[t], acc);
-      }
-      o[q] = thp_f32_to_bf16(acc);
-    }
-    return;
-  }
-  const int nw = c / 8;
-  uint4* ov = reinterpret_cast<uint4*>(o);
-  if (id < 0) {  // a masked point: a zero row, nothing read
-    for (int q = lane; q < nw; q += 32) __stcs(ov + q, make_uint4(0, 0, 0, 0));
-    return;
-  }
-  const uint4* tap[T];
-#pragma unroll
-  for (int t = 0; t < T; ++t)
-    tap[t] = reinterpret_cast<const uint4*>(
-        sv + static_cast<size_t>(id + offs[t]) * c);
-  for (int q0 = lane; q0 < nw; q0 += 32 * QWB) {
-    uint4 x[T][QWB];
-#pragma unroll
-    for (int k = 0; k < QWB; ++k) {
-      const int q = q0 + 32 * k;
-#pragma unroll
-      for (int t = 0; t < T; ++t)
-        if (q < nw) x[t][k] = __ldg(tap[t] + q);
-    }
-#pragma unroll
-    for (int k = 0; k < QWB; ++k) {
-      const int q = q0 + 32 * k;
-      if (q < nw) {
-        float acc[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-#pragma unroll
-        for (int t = 0; t < T; ++t) {
-          float f[8];
-          thp_unpack8(x[t][k], f);
-#pragma unroll
-          for (int e = 0; e < 8; ++e) acc[e] = fmaf(wt[t], f[e], acc[e]);
-        }
-        __stcs(ov + q, thp_pack8(acc));
       }
     }
   }
@@ -345,10 +303,10 @@ __device__ void gather_row(const signed char* sv, int id, const float* wt,
   }
   const int nw = c / 8;
   uint4* ov = reinterpret_cast<uint4*>(o);
-  for (int q0 = lane; q0 < nw; q0 += 32 * QWB) {
-    uint2 x[4][QWB];
+  for (int q0 = lane; q0 < nw; q0 += 32 * QWI) {
+    uint2 x[4][QWI];
 #pragma unroll
-    for (int k = 0; k < QWB; ++k) {
+    for (int k = 0; k < QWI; ++k) {
       const int q = q0 + 32 * k;
 #pragma unroll
       for (int t = 0; t < 4; ++t)
@@ -356,7 +314,7 @@ __device__ void gather_row(const signed char* sv, int id, const float* wt,
           x[t][k] = __ldg(reinterpret_cast<const uint2*>(tap[t]) + q);
     }
 #pragma unroll
-    for (int k = 0; k < QWB; ++k) {
+    for (int k = 0; k < QWI; ++k) {
       const int q = q0 + 32 * k;
       if (q < nw) {
         unsigned w[4];  // channels 2j (low half) and 2j + 1 (high half)
@@ -446,6 +404,140 @@ int dispatch(const E* src, Taps taps, O* out, int v, int n, int c, int hw,
                                 stream);
 }
 
+// The bfloat16 sampling form.  Words of 8 channels (VEC: 16 bytes of bf16)
+// or single channels.  A warp carries a group of rpg consecutive rows (the
+// most, a power of two up to 32, whose words fit in 32 * QWB), L = 32 / rpg
+// lanes to a row: two rows at C = 384, four at C = 192, one row in chunks
+// of 32 * QWB words above C = 768.  Lane l takes row l / L of the group and
+// its words l % L + L q (q < QWB), so it resolves one row's taps and holds
+// one row's weights, and the warp's stores cover whole stretches of
+// consecutive rows.
+constexpr int QWB = 3;        // bf16 words per lane at once, as QW
+constexpr int GROUPS = 3;     // most groups a warp walks in one block
+// <= 128 registers: the 12 tap words a lane holds and one row's taps fit
+// unspilled (at 3 blocks an SM, 80 registers spill)
+constexpr int MIN_BLOCKS_BF16 = 2;
+
+template <bool VEC> struct Bf16Word;
+template <> struct Bf16Word<true> {  // 8 channels in 16 bytes
+  using T = uint4;
+  static constexpr int CH = 8;
+  // the float32 form's sum in its order on the widened taps, narrowed once
+  static __device__ T lerp(const T* x, const float* wt) {
+    float acc[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+    for (int t = 0; t < 4; ++t) {
+      float f[8];
+      thp_unpack8(x[t], f);
+#pragma unroll
+      for (int e = 0; e < 8; ++e) acc[e] = fmaf(wt[t], f[e], acc[e]);
+    }
+    return thp_pack8(acc);
+  }
+  static __device__ void store(T* p, const T& x) { __stcs(p, x); }
+};
+template <> struct Bf16Word<false> {  // one channel
+  using T = unsigned short;
+  static constexpr int CH = 1;
+  static __device__ T lerp(const T* x, const float* wt) {
+    float acc = 0.f;
+#pragma unroll
+    for (int t = 0; t < 4; ++t) acc = fmaf(wt[t], thp_bf16_to_f32(x[t]), acc);
+    return thp_f32_to_bf16(acc);
+  }
+  static __device__ void store(T* p, T x) { *p = x; }
+};
+
+// rows a group: the most, a power of two up to 32, whose nw words each fit
+// in 32 * QWB (one row of chunks when nw is more)
+__host__ __device__ inline int rows_per_group(int nw) {
+  int rpg = 1;
+  while (rpg < 32 && 2 * rpg * nw <= 32 * QWB) rpg *= 2;
+  return rpg;
+}
+
+// Each block walks a span of whole groups (at most GROUPS per warp), its
+// warps on neighbouring groups together as the float32 form's on
+// neighbouring rows; a lane loads its next group's uv while this group's
+// taps are in flight.
+template <bool VEC>
+__global__ void __launch_bounds__(THREADS, MIN_BLOCKS_BF16)
+feature_sample_bf16_kernel(const unsigned short* __restrict__ src,
+                           UvTaps taps, unsigned short* __restrict__ out,
+                           long long rows, int n, int c, int hw, int4 off,
+                           int rpg, long long span) {
+  using B = Bf16Word<VEC>;
+  using W = typename B::T;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int nw = c / B::CH;  // words a row
+  const int ln = 32 / rpg;   // lanes a row
+  const int r = lane / ln;   // this lane's row of each group
+  const int c0 = lane - r * ln;
+  const long long first = static_cast<long long>(blockIdx.x) * span;
+  const long long end = min(rows, first + span);
+  long long row = first + static_cast<long long>(warp) * rpg + r;
+  const W* sw = reinterpret_cast<const W*>(src);
+  W* ow = reinterpret_cast<W*>(out);
+  UvTaps::Raw cur;
+  if (row < end) cur = taps.load<4>(row);
+  while (row - r < end) {
+    const long long next = row + static_cast<long long>(WARPS) * rpg;
+    const bool live = row < end;
+    float wt[4];
+    const int id = taps.resolve(cur, wt);
+    const int v = live ? static_cast<int>(row / n) : 0;
+    const W* base = sw + (static_cast<size_t>(v) * hw + id) * nw;
+    const size_t o = static_cast<size_t>(row) * nw;
+    // a row of more than ln * QWB words goes in chunks (rpg is then 1)
+    for (int f0 = c0; f0 < nw; f0 += ln * QWB) {
+      W x[QWB][4];
+      // every tap load of the chunk in flight before the first sum
+#pragma unroll
+      for (int q = 0; q < QWB; ++q) {
+        const int col = f0 + ln * q;
+        if (live && col < nw) {
+#pragma unroll
+          for (int t = 0; t < 4; ++t)
+            x[q][t] = __ldg(base + static_cast<size_t>(offs_at(off, t)) * nw +
+                            col);
+        }
+      }
+      // the next group's uv, in flight with this group's taps
+      if (f0 + ln * QWB >= nw && next < end) cur = taps.load<4>(next);
+#pragma unroll
+      for (int q = 0; q < QWB; ++q) {
+        const int col = f0 + ln * q;
+        if (live && col < nw) B::store(ow + o + col, B::lerp(x[q], wt));
+      }
+    }
+    row = next;
+  }
+}
+
+// Spans of whole groups, as long as GROUPS groups a warp or as short as
+// spreads the launch over every block the card holds at once.
+template <bool VEC>
+int launch_bf16(const unsigned short* src, UvTaps taps, unsigned short* out,
+                long long rows, int n, int c, int hw, int4 off,
+                cudaStream_t stream) {
+  const int rpg = rows_per_group(VEC ? c / 8 : c);
+  int resident = 0;
+  const int e = thp_resident_blocks(
+      reinterpret_cast<const void*>(feature_sample_bf16_kernel<VEC>), THREADS,
+      0, &resident);
+  if (e != 0) return e;
+  const long long per_round = static_cast<long long>(WARPS) * rpg * resident;
+  const long long want = (rows + per_round - 1) / per_round;
+  const long long groups = want < GROUPS ? want : GROUPS;  // rows > 0
+  const long long span = static_cast<long long>(WARPS) * rpg * groups;
+  const long long blocks = (rows + span - 1) / span;
+  if (blocks > 0x7fffffffLL) return THP_ERR_BAD_SIZE;
+  feature_sample_bf16_kernel<VEC>
+      <<<static_cast<unsigned>(blocks), THREADS, 0, stream>>>(
+          src, taps, out, rows, n, c, hw, off, rpg, span);
+  return thp_launch_status();
+}
+
 }  // namespace
 
 // The id form.  src (v, hw, c), w (v, n, t), out (v, n, c) float32; ids
@@ -490,12 +582,20 @@ THP_EXPORT int thp_feature_sample_bf16(const void* src, const float* uv,
                                        void* stream) {
   if (v < 1 || n < 0 || c < 1 || hf < 1 || wf < 1)
     return THP_ERR_BAD_SIZE;
+  const long long rows = static_cast<long long>(v) * n;
+  if (rows == 0) return 0;
   const int dx = wf > 1 ? 1 : 0, dy = hf > 1 ? wf : 0;
   const UvTaps taps{uv, sx, sy, hf, wf};
-  return dispatch<4>(static_cast<const unsigned short*>(src), taps,
-                     static_cast<unsigned short*>(out), v, n, c, hf * wf,
-                     make_int4(0, dx, dy, dy + dx),
-                     static_cast<cudaStream_t>(stream));
+  const auto* s = static_cast<const unsigned short*>(src);
+  auto* o = static_cast<unsigned short*>(out);
+  const int4 off = make_int4(0, dx, dy, dy + dx);
+  const auto st = static_cast<cudaStream_t>(stream);
+  // 16-byte words need c a multiple of 8 and src and out aligned to 16
+  // bytes (then every row is); else single channels
+  const bool vec = c % 8 == 0 && ((reinterpret_cast<uintptr_t>(src) |
+                                   reinterpret_cast<uintptr_t>(out)) & 15) == 0;
+  return vec ? launch_bf16<true>(s, taps, o, rows, n, c, hf * wf, off, st)
+             : launch_bf16<false>(s, taps, o, rows, n, c, hf * wf, off, st);
 }
 
 // The int8 sampling form: src (v, hf, wf, c) int8, uv (v, n, 2) float32,

@@ -16,7 +16,7 @@ trace there and this summary beside it.  From the trace's device events
   the backward's launches come from autograd's device thread while the main
   thread sits inside its backward range;
 * ``groups``: the summed durations per kernel group (name patterns, first
-  match wins), K2 and K3 among them.
+  match wins), K1 to K4 among them.
 """
 
 from __future__ import annotations
@@ -30,7 +30,9 @@ PHASES = ("train_step.forward", "train_step.backward", "train_step.optimizer")
 # (group, substrings of the lower-cased kernel name); first match wins
 GROUPS = (
     ("K3 dfeat_scatter", ("dfeat_scatter",)),
-    ("K2 dparf", ("dparf_kernel",)),
+    ("K2 dparf", ("dparf_kernel", "dparf_bf16_kernel")),
+    ("K4 feature fetch", ("feature_gather_kernel",
+                          "feature_sample_bf16_kernel")),
     ("K1 min_excess2", ("min_excess2",)),
     ("sort", ("radixsort", "sort")),
     ("convolution (cuDNN)", ("conv", "cudnn", "fprop", "dgrad", "wgrad",
