@@ -1212,13 +1212,18 @@ def check_bf16_forms(card: str, pts, centers, rot, tokens, k: int,
         hw = image[0] * image[1]
         got = scatter.dfeat_scatter_bf16_cuda(ids, g, w4, hw, dx, dy)
         again = scatter.dfeat_scatter_bf16_cuda(ids, g, w4, hw, dx, dy)
+        # the sampling backward's route: the ids clamped by construction,
+        # no check and no host wait
+        route = scatter.dfeat_scatter_bf16_cuda(ids, g, w4, hw, dx, dy,
+                                                ids_in_map=True)
         want = scatter.dfeat_scatter_cuda(ids, g.float(), w4, hw, dx,
                                           dy).to(bf16)
         torch.cuda.synchronize()
         check(got.dtype == bf16 and torch.equal(got, want),
               f"K3 bf16 {tag}: not the float32 form's map, cast")
-        check(torch.equal(got, again), f"K3 bf16 {tag}: two calls differ")
-        del want, again
+        check(torch.equal(got, again) and torch.equal(got, route),
+              f"K3 bf16 {tag}: two calls, or the unchecked route, differ")
+        del want, again, route
         plain = scatter.dfeat_scatter_plain(ids, g, w4, hw, dx, dy)
         scale = float(plain.float().abs().max())
         err = float((got.float() - plain.float()).abs().max())
@@ -1228,6 +1233,8 @@ def check_bf16_forms(card: str, pts, centers, rot, tokens, k: int,
               f"its plain twin (max |d_feat| {scale})")
         ms = time_ms(lambda: scatter.dfeat_scatter_bf16_cuda(ids, g, w4, hw,
                                                              dx, dy))
+        route_ms = time_ms(lambda: scatter.dfeat_scatter_bf16_cuda(
+            ids, g, w4, hw, dx, dy, ids_in_map=True))
         plain_ms = time_ms(lambda: scatter.dfeat_scatter_plain(
             ids, g, w4, hw, dx, dy))
         # the library call: a fresh float32 zeros map, one index_add_ of the
@@ -1244,15 +1251,16 @@ def check_bf16_forms(card: str, pts, centers, rot, tokens, k: int,
         log(f"[3 kernels] K3 dfeat_scatter bf16 {tag}: V=3, N={ids.shape[1]},"
             f" C={c}, {hw} texels: the float32 form's bits cast, two calls "
             f"bit-identical; max err vs plain {err:.3g} of max {scale:.3g}; "
-            f"wrapper {ms:.4f} ms, plain {plain_ms:.4f} ms, zeros + "
+            f"wrapper {ms:.4f} ms (ids_in_map {route_ms:.4f}), plain "
+            f"{plain_ms:.4f} ms, zeros + "
             f"index_add_ + cast {lib_ms:.4f} ms, bound {b['bound_ms']:.4f} ms"
             f" ({b['bound_by']})  [{card}]")
         if tag == "pixel":
-            entry.update(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                         library_ms=lib_ms, **b)
+            entry.update(max_abs_err=err, ms=ms, route_ms=route_ms,
+                         plain_ms=plain_ms, library_ms=lib_ms, **b)
         else:
-            entry.update(paint_ms=ms, paint_plain_ms=plain_ms,
-                         paint_library_ms=lib_ms,
+            entry.update(paint_ms=ms, paint_route_ms=route_ms,
+                         paint_plain_ms=plain_ms, paint_library_ms=lib_ms,
                          paint_bound_ms=b["bound_ms"],
                          max_abs_err=max(entry["max_abs_err"], err))
         del got

@@ -735,6 +735,117 @@ def test_dfeat_scatter_bf16_tap_layouts(cuda, c):
         assert torch.equal(got, want.to(BF16)), (dx, dy)
 
 
+def _bf16_edge_ids(case, rng, hw, wf):
+    """(2, n) base ids of one view pair, unsorted, at an edge of the bf16
+    form's design: its segments (at most 64 sorted positions of one run,
+    cut at multiples of 64), its long segments (at least 8 positions, a
+    slot each) and short ones (summed from their rows), its runs table."""
+    hi = hw - wf - 2  # the largest base id whose taps lie in the map
+    if case == "run_longer_than_seg":  # 200 equal ids: 4 segments
+        ids = np.concatenate([np.full(200, 77), rng.integers(0, hi, 300)])
+    elif case == "run_crosses_a_tile":  # sorted, runs straddle 64, 128
+        ids = np.repeat(np.arange(100, 140), [3, 11, 5, 61, 9, 2, 7, 70] * 5)
+    elif case == "every_id_distinct":
+        ids = rng.permutation(hi)[:700]
+    elif case == "one_position":
+        ids = np.array([hi // 2])
+    elif case == "last_texels":  # the last base column and row, and hi
+        col = rng.integers(0, hw // wf - 1, 300) * wf + wf - 2
+        row = (hw // wf - 2) * wf + rng.integers(0, wf - 1, 300)
+        ids = np.concatenate([col, row, np.full(40, hi)])
+    else:  # "run_lengths": every run length from 1 to 70, shuffled
+        ids = np.repeat(rng.choice(hi, 70, replace=False), np.arange(1, 71))
+    ids = rng.permutation(ids)
+    return np.stack([ids, rng.permutation(ids)])
+
+
+BF16_EDGES = ["run_longer_than_seg", "run_crosses_a_tile", "every_id_distinct",
+              "one_position", "last_texels", "run_lengths"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c", [8, 192, 384, 768, 20])
+@pytest.mark.parametrize("case", BF16_EDGES)
+def test_dfeat_scatter_bf16_design_edges(cuda, case, c):
+    """K3's bf16 form at the edges of its design, at C = 8 (one word a
+    row), 192 and 384 (the train widths), 768 (two chunks of 32 words) and
+    20 (the scalar path): the float32 form on the widened rows, cast, bit
+    for bit, and two calls give the same bits; with ``ids_in_map`` too."""
+    rng = np.random.default_rng(len(case) * 1000 + c)
+    hw, wf = HF * WF, WF
+    ids = _bf16_edge_ids(case, rng, hw, wf)
+    v, n = ids.shape
+    wx, wy = rng.random((2, v, n)).astype(np.float32)
+    w4 = np.stack([(1 - wx) * (1 - wy), wx * (1 - wy), (1 - wx) * wy,
+                   wx * wy], axis=-1)
+    ids = torch.from_numpy(ids.astype(np.int32)).to(cuda)
+    w4 = torch.from_numpy(w4).to(cuda)
+    g = _rounded(_rand((v, n, c), c, 1.0, cuda))
+    n0 = scatter.dfeat_scatter_bf16_cuda.launches
+    got = scatter.dfeat_scatter_bf16_cuda(ids, g, w4, hw, 1, wf)
+    again = scatter.dfeat_scatter_bf16_cuda(ids, g, w4, hw, 1, wf,
+                                            ids_in_map=True)
+    assert scatter.dfeat_scatter_bf16_cuda.launches == n0 + 2
+    want = scatter.dfeat_scatter_cuda(ids, g.float(), w4, hw, 1, wf)
+    assert torch.equal(got, want.to(BF16))
+    assert torch.equal(got, again)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bad", [-1, HF * WF - WF - 1])
+def test_dfeat_scatter_bf16_refuses_ids_outside_the_map(cuda, bad):
+    """The bf16 form's check: a base id below 0, or one whose last tap
+    reaches hw, is an IndexError, and the map's kernel is not launched."""
+    ids, g, w4 = _scatter_inputs("uniform", 2, 100, 8, cuda)
+    ids[1, 37] = bad
+    n0 = scatter.dfeat_scatter_bf16_cuda.launches
+    with pytest.raises(IndexError, match="must lie in"):
+        scatter.dfeat_scatter_bf16_cuda(ids, _rounded(g), w4, HF * WF, 1, WF)
+    assert scatter.dfeat_scatter_bf16_cuda.launches == n0
+
+
+@pytest.mark.cuda
+def test_bf16_backward_never_waits_for_the_card(cuda):
+    """The bf16 route of the sampling backward (sample_feature_map's d_feat
+    on a bf16 map: _sample_taps' clamped taps, K3's bf16 form with
+    ids_in_map) under set_sync_debug_mode("error"), and behind a kernel
+    that keeps the card busy: the backward returns while that kernel still
+    runs.  Its d_feat is the float32 form's cast."""
+    from transhuman_tpu_torch.kernels import build
+    from transhuman_tpu_torch.ops.sampling import sample_feature_map
+
+    build.library()
+    rng = np.random.default_rng(21)
+    feat = _rounded(_rand((3, 64, 80, 192), 22, 1.0, cuda)).requires_grad_()
+    uv = torch.from_numpy(_sampling_uv(rng, 4096, 64, 80)).to(cuda)
+    g = _rounded(_rand((3, 4096, 192), 23, 1.0, cuda))
+    out = sample_feature_map(feat, uv, SF_IMAGE)
+    # once to warm the library and the allocator (a first cudaMalloc may
+    # wait for the card)
+    torch.autograd.grad(out, feat, g, retain_graph=True)
+    torch.cuda.synchronize()
+    n0 = scatter.dfeat_scatter_bf16_cuda.launches
+    busy = torch.cuda.Event()
+    torch.cuda._sleep(2_000_000_000)  # about a second of the card's clock
+    busy.record()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        (d_feat,) = torch.autograd.grad(out, feat, g)
+        still_busy = not busy.query()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    assert still_busy
+    assert scatter.dfeat_scatter_bf16_cuda.launches == n0 + 1
+    from transhuman_tpu_torch.kernels.gather import _bilinear_w4, _sample_taps
+
+    _, _, base, wx, wy, dx, dy = _sample_taps(feat.shape, uv, SF_IMAGE)
+    want = scatter.dfeat_scatter_cuda(base.to(torch.int32).contiguous(),
+                                      g.float(), _bilinear_w4(wx, wy), 64 * 80,
+                                      dx, dy)
+    assert torch.equal(d_feat, want.reshape(feat.shape).to(BF16))
+
+
 def _clumped_inputs(device, n, c, d):
     """Points at the origin and C centres of which every 16th lies within
     1 cm of it and the rest 1-2 m away: one selection lane's share holds
@@ -874,6 +985,34 @@ def test_feature_sample_int8_scalar_and_odd_widths(cuda, c):
         got = gather.feature_sample_int8_cuda(q, uv, SF_IMAGE, scale)
         want = gather.feature_sample_int8_plain(q, uv, SF_IMAGE, scale)
         assert torch.equal(got, want), (hf, wf)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scaled", [True, False])
+@pytest.mark.parametrize("c", [8, 16, 24, 40, 192, 384, 768, 6, 20])
+def test_feature_sample_int8_words_and_edges(cuda, c, scaled):
+    """K4's int8 form at every word its body takes: 16 channels (C = 16,
+    192, 384, 768: eight, four, two rows a warp and a row in two chunks), 8
+    channels (C = 8, 24, 40, and a map whose rows are 8- but not 16-byte
+    aligned) and one channel a thread (C = 6, 20), with and without a
+    scale, uv on the last texel row and column exactly and past them: its
+    twin's bits."""
+    hf, wf = 64, 80
+    q, scale = _int8_map((3, hf, wf, c), 31 + c, cuda)
+    rng = np.random.default_rng(c)
+    uv = _sampling_uv(rng, 1500, hf, wf)
+    uv[:, 100:116] = (SF_IMAGE[1] * (wf - 1) / wf, SF_IMAGE[0] * (hf - 1) / hf)
+    uv = torch.from_numpy(uv).to(cuda)
+    s = scale if scaled else None
+    got = gather.feature_sample_int8_cuda(q, uv, SF_IMAGE, s)
+    assert torch.equal(got, gather.feature_sample_int8_plain(q, uv, SF_IMAGE,
+                                                             s))
+    if c % 16 == 0:  # rows 8-byte aligned only: the 8-channel words
+        shifted = torch.empty(q.numel() + 8, dtype=torch.int8, device=cuda)
+        q8 = shifted[8:].view(q.shape)
+        q8.copy_(q)
+        assert torch.equal(gather.feature_sample_int8_cuda(q8, uv, SF_IMAGE,
+                                                           s), got)
 
 
 @pytest.mark.cuda

@@ -75,13 +75,15 @@
 // to bf16, the int8 taps widened to bf16 (exact), and the lerp
 //   top = p00 (1 - wx) + p01 wx,  bot = p10 (1 - wx) + p11 wx,
 //   out = (top (1 - wy) + bot wy) * bf16(scale)
-// is evaluated one bf16 operation at a time: each computed in float32 and
-// rounded to nearest even (__float2bfloat16_rn), no contraction, as the
-// CPUs of PyTorch and XLA evaluate a bf16 operation.  Its rows are the
-// twin's bit for bit.  At C = 384 a tap row is 384 bytes; a lane reads 8
-// channels (8 bytes) of each tap and writes 8 bf16 channels (16 bytes), so
-// it reads a quarter and writes half of the float32 form's bytes.  A null
-// scale is a scale of 1: the unscaled lerp.
+// is evaluated one bf16 operation at a time, each correctly rounded (round
+// to nearest even), no contraction, as the CPUs of PyTorch and XLA
+// evaluate a bf16 operation.  Its rows are the twin's bit for bit.  At
+// C = 384 a tap row is 384 bytes: a quarter of the float32 form's bytes in,
+// half of them out.  A null scale is a scale of 1: the unscaled lerp.  It
+// has a kernel of its own (feature_sample_int8_kernel, below): the shared
+// float32 body ran one row a warp with a quarter of the lanes idle at
+// C = 384 and rounded each of ten float32 operations a channel to bf16 by
+// a conversion (PERF.md).
 #include <cstdint>
 
 #include "common.cuh"
@@ -91,7 +93,6 @@ namespace {
 constexpr int THREADS = 256;  // 8 warps
 constexpr int WARPS = THREADS / 32;
 constexpr int QW = 3;         // words per lane per chunk: C = 384 in one
-constexpr int QWI = 2;        // int8 words (8 channels) per lane: C = 384
 constexpr int SPAN = 6 * WARPS;  // rows per block: 6 per warp
 constexpr int MIN_BLOCKS = 3;    // per SM: at most 85 registers a thread
 
@@ -160,33 +161,11 @@ __device__ __forceinline__ int offs_at(const int4& off, int t) {
   return t == 0 ? off.x : t == 1 ? off.y : t == 2 ? off.z : off.w;
 }
 
-// a float32 rounded to bf16 (nearest even), as a float32
-__device__ __forceinline__ float thp_round_bf16(float x) {
-  return __bfloat162float(__float2bfloat16_rn(x));
-}
-
-// The int8 form's taps: UvTaps' base texel, and for weights the bf16 lerp
-// factors (1 - wx, wx, 1 - wy, wy), each rounded to bf16
-struct UvLerpTaps : UvTaps {
-  __device__ int resolve(const Raw& r, float* wt) const {
-    float wx, wy;
-    const int id = base(r, wx, wy);
-    wx = thp_round_bf16(wx);
-    wy = thp_round_bf16(wy);
-    wt[0] = thp_round_bf16(__fsub_rn(1.f, wx));
-    wt[1] = wx;
-    wt[2] = thp_round_bf16(__fsub_rn(1.f, wy));
-    wt[3] = wy;
-    return id;
-  }
-};
-
 // One output row: all tap loads of a chunk first, then the sums in tap
 // order (acc = w0 x0, then fma(w_t, x_t, acc)), then streaming stores.
 template <int T, bool VEC>
 __device__ void gather_row(const float* sv, int id, const float* wt,
-                           const int* offs, float* o, int c, int lane,
-                           const float*) {
+                           const int* offs, float* o, int c, int lane) {
   using W = ThpWord<VEC>;
   using V = typename W::T;
   const int nw = VEC ? c / 4 : c;
@@ -222,134 +201,11 @@ __device__ void gather_row(const float* sv, int id, const float* wt,
   }
 }
 
-// One channel of the int8 row: the four widened taps lerped in bf16, then
-// scaled (wt = the bf16 factors 1 - wx, wx, 1 - wy, wy; s = bf16(scale))
-__device__ __forceinline__ float lerp_int8(float p00, float p01, float p10,
-                                           float p11, const float* wt,
-                                           float s) {
-  const float top = thp_round_bf16(__fadd_rn(
-      thp_round_bf16(__fmul_rn(p00, wt[0])),
-      thp_round_bf16(__fmul_rn(p01, wt[1]))));
-  const float bot = thp_round_bf16(__fadd_rn(
-      thp_round_bf16(__fmul_rn(p10, wt[0])),
-      thp_round_bf16(__fmul_rn(p11, wt[1]))));
-  const float v = thp_round_bf16(__fadd_rn(
-      thp_round_bf16(__fmul_rn(top, wt[2])),
-      thp_round_bf16(__fmul_rn(bot, wt[3]))));
-  return __fmul_rn(v, s);  // rounded to bf16 at the store
-}
-
-__device__ __forceinline__ float channel_scale(const float* scale, int ch) {
-  return scale ? thp_round_bf16(__ldg(scale + ch)) : 1.f;
-}
-
-// The same for two channels at once, in float2 lanes: each rounding is one
-// packed conversion (cvt.rn.bf16x2.f32) for the pair.  Conversions run at a
-// quarter of the float32 rate on Hopper and the lerp rounds ten times a
-// channel, so pairing them halves the kernel's slowest instructions.
-__device__ __forceinline__ float2 thp_round_bf16x2(float a, float b) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
-  return make_float2(__low2float(h), __high2float(h));
-}
-
-__device__ __forceinline__ float2 lerp_int8x2(const float2* p,
-                                              const float* wt) {
-  const float2 a = thp_round_bf16x2(__fmul_rn(p[0].x, wt[0]),
-                                    __fmul_rn(p[0].y, wt[0]));
-  const float2 b = thp_round_bf16x2(__fmul_rn(p[1].x, wt[1]),
-                                    __fmul_rn(p[1].y, wt[1]));
-  const float2 top = thp_round_bf16x2(__fadd_rn(a.x, b.x),
-                                      __fadd_rn(a.y, b.y));
-  const float2 c = thp_round_bf16x2(__fmul_rn(p[2].x, wt[0]),
-                                    __fmul_rn(p[2].y, wt[0]));
-  const float2 d = thp_round_bf16x2(__fmul_rn(p[3].x, wt[1]),
-                                    __fmul_rn(p[3].y, wt[1]));
-  const float2 bot = thp_round_bf16x2(__fadd_rn(c.x, d.x),
-                                      __fadd_rn(c.y, d.y));
-  const float2 e = thp_round_bf16x2(__fmul_rn(top.x, wt[2]),
-                                    __fmul_rn(top.y, wt[2]));
-  const float2 f = thp_round_bf16x2(__fmul_rn(bot.x, wt[3]),
-                                    __fmul_rn(bot.y, wt[3]));
-  return thp_round_bf16x2(__fadd_rn(e.x, f.x), __fadd_rn(e.y, f.y));
-}
-
-// Byte i of an int8 word as a float, the word's sign bits flipped first
-// (each byte then holds s + 128): 2^23 + s + 128 assembled in the mantissa
-// by one byte permute, less 2^23 + 128, both exact; full-rate instructions
-// where a conversion (I2F) runs at a quarter rate.
-__device__ __forceinline__ float int8_at(unsigned flipped, int i) {
-  return __int_as_float(static_cast<int>(
-             __byte_perm(flipped, 0x4B000000u, 0x7540 | i))) -
-         8388736.f;
-}
-
-// The int8 row (T = 4, wt from UvLerpTaps): words of 8 channels, 8 bytes of
-// each tap in and 16 bytes of bf16 out (VEC), or single channels.
-template <int T, bool VEC>
-__device__ void gather_row(const signed char* sv, int id, const float* wt,
-                           const int* offs, unsigned short* o, int c,
-                           int lane, const float* scale) {
-  static_assert(T == 4, "the int8 form has four taps");
-  const signed char* tap[4];
-#pragma unroll
-  for (int t = 0; t < 4; ++t)
-    tap[t] = sv + static_cast<size_t>(id + offs[t]) * c;
-  if (!VEC) {
-    for (int q = lane; q < c; q += 32)
-      o[q] = thp_f32_to_bf16(lerp_int8(
-          __ldg(tap[0] + q), __ldg(tap[1] + q), __ldg(tap[2] + q),
-          __ldg(tap[3] + q), wt, channel_scale(scale, q)));
-    return;
-  }
-  const int nw = c / 8;
-  uint4* ov = reinterpret_cast<uint4*>(o);
-  for (int q0 = lane; q0 < nw; q0 += 32 * QWI) {
-    uint2 x[4][QWI];
-#pragma unroll
-    for (int k = 0; k < QWI; ++k) {
-      const int q = q0 + 32 * k;
-#pragma unroll
-      for (int t = 0; t < 4; ++t)
-        if (q < nw)
-          x[t][k] = __ldg(reinterpret_cast<const uint2*>(tap[t]) + q);
-    }
-#pragma unroll
-    for (int k = 0; k < QWI; ++k) {
-      const int q = q0 + 32 * k;
-      if (q < nw) {
-        unsigned w[4];  // channels 2j (low half) and 2j + 1 (high half)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          float2 p[4];
-#pragma unroll
-          for (int t = 0; t < 4; ++t) {
-            const unsigned b4 = (j < 2 ? x[t][k].x : x[t][k].y) ^ 0x80808080u;
-            p[t] = make_float2(int8_at(b4, 2 * (j & 1)),
-                               int8_at(b4, 2 * (j & 1) + 1));
-          }
-          const float2 v = lerp_int8x2(p, wt);
-          float2 sc = make_float2(1.f, 1.f);
-          if (scale) {
-            const float2 s2 =
-                __ldg(reinterpret_cast<const float2*>(scale + 8 * q) + j);
-            sc = thp_round_bf16x2(s2.x, s2.y);
-          }
-          const __nv_bfloat162 h =
-              __floats2bfloat162_rn(__fmul_rn(v.x, sc.x), __fmul_rn(v.y, sc.y));
-          w[j] = static_cast<unsigned>(__bfloat16_as_ushort(h.x)) |
-                 static_cast<unsigned>(__bfloat16_as_ushort(h.y)) << 16;
-        }
-        __stcs(ov + q, make_uint4(w[0], w[1], w[2], w[3]));
-      }
-    }
-  }
-}
-
-template <int T, bool VEC, class Taps, class E, class O>
+template <int T, bool VEC, class Taps>
 __global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
-feature_gather_kernel(const E* __restrict__ src, Taps taps,
-                      O* __restrict__ out, long long rows, int n, int c,
-                      int hw, int4 off, const float* __restrict__ scale) {
+feature_gather_kernel(const float* __restrict__ src, Taps taps,
+                      float* __restrict__ out, long long rows, int n, int c,
+                      int hw, int4 off) {
   const int lane = threadIdx.x & 31;
   const long long first = static_cast<long long>(blockIdx.x) * SPAN;
   const long long end = min(rows, first + SPAN);
@@ -366,42 +222,35 @@ feature_gather_kernel(const E* __restrict__ src, Taps taps,
     const int id = taps.resolve(cur, wt);
     const int v = static_cast<int>(row / n);
     gather_row<T, VEC>(src + static_cast<size_t>(v) * hw * c, id, wt, offs,
-                       out + row * c, c, lane, scale);
+                       out + row * c, c, lane);
     cur = nxt;
     row = next;
   }
 }
 
 // One block per span of SPAN contiguous rows.
-template <int T, bool VEC, class Taps, class E, class O>
-int launch(const E* src, Taps taps, O* out, long long rows, int n, int c,
-           int hw, int4 off, const float* scale, cudaStream_t stream) {
+template <int T, bool VEC, class Taps>
+int launch(const float* src, Taps taps, float* out, long long rows, int n,
+           int c, int hw, int4 off, cudaStream_t stream) {
   const long long blocks = (rows + SPAN - 1) / SPAN;
   if (blocks > 0x7fffffffLL) return THP_ERR_BAD_SIZE;
-  feature_gather_kernel<T, VEC, Taps, E, O>
+  feature_gather_kernel<T, VEC, Taps>
       <<<static_cast<unsigned>(blocks), THREADS, 0, stream>>>(
-          src, taps, out, rows, n, c, hw, off, scale);
+          src, taps, out, rows, n, c, hw, off);
   return thp_launch_status();
 }
 
-template <int T, class Taps, class E, class O>
-int dispatch(const E* src, Taps taps, O* out, int v, int n, int c, int hw,
-             int4 off, cudaStream_t stream, const float* scale = nullptr) {
+template <int T, class Taps>
+int dispatch(const float* src, Taps taps, float* out, int v, int n, int c,
+             int hw, int4 off, cudaStream_t stream) {
   const long long rows = static_cast<long long>(v) * n;
   if (rows == 0) return 0;
-  // words of 4 float32 or 8 narrower channels need c a multiple of the
-  // word and src and out aligned to a word of each (then every row is
-  // aligned); else the scalar path
-  constexpr int CH = sizeof(E) == 4 ? 4 : 8;
-  const bool vec =
-      c % CH == 0 &&
-      reinterpret_cast<uintptr_t>(src) % (CH * sizeof(E)) == 0 &&
-      reinterpret_cast<uintptr_t>(out) % (CH * sizeof(O)) == 0 &&
-      reinterpret_cast<uintptr_t>(scale) % 8 == 0;  // int8: float2 scales
-  return vec ? launch<T, true>(src, taps, out, rows, n, c, hw, off, scale,
-                               stream)
-             : launch<T, false>(src, taps, out, rows, n, c, hw, off, scale,
-                                stream);
+  // float4 words need c a multiple of 4 and src and out aligned to 16
+  // bytes (then every row is aligned); else the scalar path
+  const bool vec = c % 4 == 0 && ((reinterpret_cast<uintptr_t>(src) |
+                                   reinterpret_cast<uintptr_t>(out)) & 15) == 0;
+  return vec ? launch<T, true>(src, taps, out, rows, n, c, hw, off, stream)
+             : launch<T, false>(src, taps, out, rows, n, c, hw, off, stream);
 }
 
 // The bfloat16 sampling form.  Words of 8 channels (VEC: 16 bytes of bf16)
@@ -538,6 +387,242 @@ int launch_bf16(const unsigned short* src, UvTaps taps, unsigned short* out,
   return thp_launch_status();
 }
 
+// The int8 sampling form.  Words of CH = 4 * NQ int8 channels (NQ 32-bit
+// quads: 16 channels in 16 bytes, or 8 in 8), laid out as the bf16 form's
+// words: a warp carries rpg rows (rows_per_group of the row's words), L =
+// 32 / rpg lanes a row, each lane QWI words of one row: four rows at
+// C = 384, eight at C = 192, so that a lane holds 12 tap words (192 bytes
+// at C = 384, the float32 form's) in flight and every lane is busy.  The
+// arithmetic is packed bf16: the int8 taps widened exactly to bf16 pairs
+// (widen_int8x2), then the lerp and the scale in mul.rn / add.rn .bf16x2,
+// never contracted: each the correctly rounded bf16 result, as the float32
+// operation then one rounding that the JAX package's and the twin's CPUs
+// evaluate (a float32 significand of 24 >= 2 * 8 + 2 bits makes that
+// double rounding exact).  The bf16 lerp factors of a row and a lane's
+// bf16 scales are formed once.  Measured on the H100 against two cheaper
+// widenings in packed bf16 (a masked 0x4300 exponent less 128 or 256) and
+// against 3 blocks an SM: all slower (PERF.md).
+constexpr int QWI = 3;  // int8 words a lane at once
+constexpr int MIN_BLOCKS_INT8 = 2;
+
+__device__ __forceinline__ __nv_bfloat162 thp_as_bf162(unsigned u) {
+  __nv_bfloat162 h;
+  *reinterpret_cast<unsigned*>(&h) = u;
+  return h;
+}
+__device__ __forceinline__ unsigned thp_as_u32(__nv_bfloat162 h) {
+  return *reinterpret_cast<unsigned*>(&h);
+}
+
+// Channels 2h and 2h + 1 of a quad of int8 channels, sign bits flipped,
+// as a bf16 pair (the lower channel in the lower half), exactly: each byte
+// assembled into the float 2^23 + s + 128 by a byte permute, less 2^23 +
+// 128 (exact); an integer of at most 8 significant bits, so the float's
+// upper half is its bf16, and a permute packs the two
+__device__ __forceinline__ __nv_bfloat162 widen_int8x2(unsigned flipped,
+                                                       int h) {
+  const float a = __int_as_float(static_cast<int>(
+                      __byte_perm(flipped, 0x4B000000u, 0x7540 | (2 * h)))) -
+                  8388736.f;
+  const float b = __int_as_float(static_cast<int>(__byte_perm(
+                      flipped, 0x4B000000u, 0x7540 | (2 * h + 1)))) -
+                  8388736.f;
+  return thp_as_bf162(
+      __byte_perm(__float_as_uint(a), __float_as_uint(b), 0x7632));
+}
+
+template <int NQ> struct Int8Word;
+template <> struct Int8Word<4> {  // 16 channels in 16 bytes
+  using T = uint4;
+  static __device__ unsigned quad(const T& x, int i) {
+    return i == 0 ? x.x : i == 1 ? x.y : i == 2 ? x.z : x.w;
+  }
+};
+template <> struct Int8Word<2> {  // 8 channels in 8 bytes
+  using T = uint2;
+  static __device__ unsigned quad(const T& x, int i) {
+    return i == 0 ? x.x : x.y;
+  }
+};
+
+template <int NQ>
+__global__ void __launch_bounds__(THREADS, MIN_BLOCKS_INT8)
+feature_sample_int8_kernel(const signed char* __restrict__ src, UvTaps taps,
+                           unsigned short* __restrict__ out,
+                           const float* __restrict__ scale, long long rows,
+                           int n, int c, int hw, int4 off, int rpg,
+                           long long span) {
+  using I = Int8Word<NQ>;
+  using W = typename I::T;
+  constexpr int CH = 4 * NQ, PAIRS = CH / 2;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int nw = c / CH;     // words a row
+  const int ln = 32 / rpg;   // lanes a row
+  const int r = lane / ln;   // this lane's row of each group
+  const int c0 = lane - r * ln;
+  const long long first = static_cast<long long>(blockIdx.x) * span;
+  const long long end = min(rows, first + span);
+  long long row = first + static_cast<long long>(warp) * rpg + r;
+  const W* sw = reinterpret_cast<const W*>(src);
+  uint4* ow = reinterpret_cast<uint4*>(out);
+  // the lane's bf16 scales, for the words of one chunk (of every row when
+  // the row is one chunk)
+  const bool one_chunk = nw <= ln * QWI;
+  unsigned s2[QWI][PAIRS];
+  auto load_scales = [&](int f0) {
+#pragma unroll
+    for (int q = 0; q < QWI; ++q)
+#pragma unroll
+      for (int j = 0; j < PAIRS; ++j) {
+        const int ch = (f0 + ln * q) * CH + 2 * j;  // pair j's channels
+        s2[q][j] = scale && ch < c ? thp_as_u32(__floats2bfloat162_rn(
+                                          __ldg(scale + ch),
+                                          __ldg(scale + ch + 1)))
+                                    : 0x3F803F80u;  // 1, 1
+      }
+  };
+  if (one_chunk) load_scales(c0);
+  UvTaps::Raw cur;
+  if (row < end) cur = taps.load<4>(row);
+  while (row - r < end) {
+    const long long next = row + static_cast<long long>(WARPS) * rpg;
+    const bool live = row < end;
+    // the row's bf16 factors 1 - wx, wx, 1 - wy, wy (the fractions rounded
+    // first, then 1 - each rounded), in both halves
+    float wx, wy;
+    const int id = taps.base(cur, wx, wy);
+    const __nv_bfloat16 bx = __float2bfloat16_rn(wx);
+    const __nv_bfloat16 by = __float2bfloat16_rn(wy);
+    const __nv_bfloat162 wx2 = __bfloat162bfloat162(bx);
+    const __nv_bfloat162 wy2 = __bfloat162bfloat162(by);
+    const __nv_bfloat162 ux2 = __bfloat162bfloat162(
+        __float2bfloat16_rn(__fsub_rn(1.f, __bfloat162float(bx))));
+    const __nv_bfloat162 uy2 = __bfloat162bfloat162(
+        __float2bfloat16_rn(__fsub_rn(1.f, __bfloat162float(by))));
+    const int v = live ? static_cast<int>(row / n) : 0;
+    const W* base = sw + (static_cast<size_t>(v) * hw + id) * nw;
+    // a row of more than ln * QWI words goes in chunks (rpg is then 1)
+    for (int f0 = c0; f0 < nw; f0 += ln * QWI) {
+      if (!one_chunk) load_scales(f0);
+      W x[QWI][4];
+      // every tap load of the chunk in flight before the first sum
+#pragma unroll
+      for (int q = 0; q < QWI; ++q) {
+        const int col = f0 + ln * q;
+        if (live && col < nw) {
+#pragma unroll
+          for (int t = 0; t < 4; ++t)
+            x[q][t] = __ldg(base + static_cast<size_t>(offs_at(off, t)) * nw +
+                            col);
+        }
+      }
+      // the next group's uv, in flight with this group's taps
+      if (f0 + ln * QWI >= nw && next < end) cur = taps.load<4>(next);
+#pragma unroll
+      for (int q = 0; q < QWI; ++q) {
+        const int col = f0 + ln * q;
+        if (!live || col >= nw) continue;
+        unsigned o[PAIRS];
+#pragma unroll
+        for (int i = 0; i < NQ; ++i) {
+          unsigned fl[4];
+#pragma unroll
+          for (int t = 0; t < 4; ++t)
+            fl[t] = I::quad(x[q][t], i) ^ 0x80808080u;
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const __nv_bfloat162 p00 = widen_int8x2(fl[0], h);
+            const __nv_bfloat162 p01 = widen_int8x2(fl[1], h);
+            const __nv_bfloat162 p10 = widen_int8x2(fl[2], h);
+            const __nv_bfloat162 p11 = widen_int8x2(fl[3], h);
+            const __nv_bfloat162 top = __hadd2_rn(__hmul2_rn(p00, ux2),
+                                                  __hmul2_rn(p01, wx2));
+            const __nv_bfloat162 bot = __hadd2_rn(__hmul2_rn(p10, ux2),
+                                                  __hmul2_rn(p11, wx2));
+            __nv_bfloat162 val = __hadd2_rn(__hmul2_rn(top, uy2),
+                                            __hmul2_rn(bot, wy2));
+            if (scale) val = __hmul2_rn(val, thp_as_bf162(s2[q][2 * i + h]));
+            o[2 * i + h] = thp_as_u32(val);
+          }
+        }
+        const size_t ob = (static_cast<size_t>(row) * nw + col) * (CH / 8);
+#pragma unroll
+        for (int k = 0; k < CH / 8; ++k)
+          __stcs(ow + ob + k, make_uint4(o[4 * k], o[4 * k + 1],
+                                         o[4 * k + 2], o[4 * k + 3]));
+      }
+    }
+    row = next;
+  }
+}
+
+// One (row, channel) a thread, for widths the words do not fit: the same
+// bf16 operations, each a float32 operation rounded once
+__device__ __forceinline__ float thp_round_bf16(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
+
+__global__ void __launch_bounds__(THREADS)
+feature_sample_int8_scalar_kernel(const signed char* __restrict__ src,
+                                  UvTaps taps,
+                                  unsigned short* __restrict__ out,
+                                  const float* __restrict__ scale,
+                                  long long total, int n, int c, int hw,
+                                  int4 off) {
+  const long long e = static_cast<long long>(blockIdx.x) * THREADS +
+                      threadIdx.x;
+  if (e >= total) return;
+  const long long row = e / c;
+  const int ch = static_cast<int>(e - row * c);
+  float wx, wy;
+  const int id = taps.base(taps.load<4>(row), wx, wy);
+  wx = thp_round_bf16(wx);
+  wy = thp_round_bf16(wy);
+  const float ux = thp_round_bf16(__fsub_rn(1.f, wx));
+  const float uy = thp_round_bf16(__fsub_rn(1.f, wy));
+  const signed char* p =
+      src + (static_cast<size_t>(row / n) * hw + id) * c + ch;
+  float tap[4];
+#pragma unroll
+  for (int t = 0; t < 4; ++t)
+    tap[t] = static_cast<float>(__ldg(p + static_cast<size_t>(
+                                              offs_at(off, t)) * c));
+  const float top = thp_round_bf16(
+      __fadd_rn(thp_round_bf16(__fmul_rn(tap[0], ux)),
+                thp_round_bf16(__fmul_rn(tap[1], wx))));
+  const float bot = thp_round_bf16(
+      __fadd_rn(thp_round_bf16(__fmul_rn(tap[2], ux)),
+                thp_round_bf16(__fmul_rn(tap[3], wx))));
+  float val = thp_round_bf16(
+      __fadd_rn(thp_round_bf16(__fmul_rn(top, uy)),
+                thp_round_bf16(__fmul_rn(bot, wy))));
+  if (scale) val = __fmul_rn(val, thp_round_bf16(__ldg(scale + ch)));
+  out[e] = thp_f32_to_bf16(val);
+}
+
+// Spans of whole groups, as launch_bf16 sizes them
+template <int NQ>
+int launch_int8(const signed char* src, UvTaps taps, unsigned short* out,
+                const float* scale, long long rows, int n, int c, int hw,
+                int4 off, cudaStream_t stream) {
+  const int rpg = rows_per_group(c / (4 * NQ));
+  int resident = 0;
+  const int e = thp_resident_blocks(
+      reinterpret_cast<const void*>(feature_sample_int8_kernel<NQ>), THREADS,
+      0, &resident);
+  if (e != 0) return e;
+  const long long per_round = static_cast<long long>(WARPS) * rpg * resident;
+  const long long want = (rows + per_round - 1) / per_round;
+  const long long groups = want < GROUPS ? want : GROUPS;  // rows > 0
+  const long long span = static_cast<long long>(WARPS) * rpg * groups;
+  const long long blocks = (rows + span - 1) / span;
+  if (blocks > 0x7fffffffLL) return THP_ERR_BAD_SIZE;
+  feature_sample_int8_kernel<NQ>
+      <<<static_cast<unsigned>(blocks), THREADS, 0, stream>>>(
+          src, taps, out, scale, rows, n, c, hw, off, rpg, span);
+  return thp_launch_status();
+}
+
 }  // namespace
 
 // The id form.  src (v, hw, c), w (v, n, t), out (v, n, c) float32; ids
@@ -607,15 +692,28 @@ THP_EXPORT int thp_feature_sample_int8(const void* src, const float* uv,
                                        const float* scale, void* stream) {
   if (v < 1 || n < 0 || c < 1 || hf < 1 || wf < 1)
     return THP_ERR_BAD_SIZE;
+  const long long rows = static_cast<long long>(v) * n;
+  if (rows == 0) return 0;
   const int dx = wf > 1 ? 1 : 0, dy = hf > 1 ? wf : 0;
-  UvLerpTaps taps;
-  taps.uv = uv;
-  taps.sx = sx;
-  taps.sy = sy;
-  taps.hf = hf;
-  taps.wf = wf;
-  return dispatch<4>(static_cast<const signed char*>(src), taps,
-                     static_cast<unsigned short*>(out), v, n, c, hf * wf,
-                     make_int4(0, dx, dy, dy + dx),
-                     static_cast<cudaStream_t>(stream), scale);
+  const UvTaps taps{uv, sx, sy, hf, wf};
+  const auto* s = static_cast<const signed char*>(src);
+  auto* o = static_cast<unsigned short*>(out);
+  const int4 off = make_int4(0, dx, dy, dy + dx);
+  const auto st = static_cast<cudaStream_t>(stream);
+  // words of 16 (or 8) channels need c a multiple of it, src aligned to 16
+  // (or 8) bytes and out to 16 (then every row is); else one channel a
+  // thread
+  const uintptr_t sa = reinterpret_cast<uintptr_t>(src);
+  const bool out16 = (reinterpret_cast<uintptr_t>(out) & 15) == 0;
+  if (c % 16 == 0 && (sa & 15) == 0 && out16)
+    return launch_int8<4>(s, taps, o, scale, rows, n, c, hf * wf, off, st);
+  if (c % 8 == 0 && (sa & 7) == 0 && out16)
+    return launch_int8<2>(s, taps, o, scale, rows, n, c, hf * wf, off, st);
+  const long long total = rows * c;
+  if ((total + THREADS - 1) / THREADS > 0x7fffffffLL) return THP_ERR_BAD_SIZE;
+  feature_sample_int8_scalar_kernel<<<static_cast<unsigned>(
+                                          (total + THREADS - 1) / THREADS),
+                                      THREADS, 0, st>>>(
+      s, taps, o, scale, total, n, c, hf * wf, off);
+  return thp_launch_status();
 }

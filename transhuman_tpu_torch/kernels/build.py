@@ -49,8 +49,13 @@ _SIGNATURES = {
     # ids_sorted, seg_end, order, g, w4, seg_start, ranges, sums, out, v, n,
     # c, hw, dx, dy, nseg, seg, stream
     "thp_dfeat_scatter": ((_P,) * 9 + (_I,) * 8 + (_P,), _I),
-    # as thp_dfeat_scatter, g and out bfloat16
-    "thp_dfeat_scatter_bf16": ((_P,) * 9 + (_I,) * 8 + (_P,), _I),
+    # ids, keys, scratch, host, v, n, hw, stream
+    "thp_dfeat_keys": ((_P,) * 4 + (_I,) * 3 + (_P,), _I),
+    # keys, order, g, w4, slots, ranges, srow, sw, v, n, c, hw, dx, dy, seg,
+    # slot, stream
+    "thp_dfeat_runs_bf16": ((_P,) * 8 + (_I,) * 8 + (_P,), _I),
+    # g, slots, ranges, srow, sw, out, v, n, c, hw, dx, dy, slot, stream
+    "thp_dfeat_texels_bf16": ((_P,) * 6 + (_I,) * 7 + (_P,), _I),
     # src, ids, w, out, v, n, c, hw, t, off0, off1, off2, off3, stream
     "thp_feature_gather": ((_P,) * 4 + (_I,) * 9 + (_P,), _I),
     # src, uv, out, v, n, c, hf, wf, sx, sy, stream

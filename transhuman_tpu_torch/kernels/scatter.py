@@ -18,8 +18,12 @@ return the (V, hw, C) float32 map out[v, ids + tap] += w4[..., tap] * g.
 ``dfeat_scatter_bf16_cuda`` (its own launch count) is K3's bfloat16 form:
 g bf16 rows in, a bf16 map out, equal bit for bit to the float32 form's map
 on the widened rows cast once; its plain twin is the float32 twin then one
-``.to(torch.bfloat16)``.  ``dfeat_scatter`` routes a bf16 g to it and
-returns the map in g's dtype on either route.
+``.to(torch.bfloat16)``.  It sizes its scratch on the host (the long
+segments' slots, ``v * ceil(n / SLOT) * 4 * C`` floats) and writes every
+row of the map itself, so it needs the card's answer only for its ids
+check, which ``ids_in_map=True`` (the sampling backward's clamped taps)
+skips: that route never waits for the card.  ``dfeat_scatter`` routes a
+bf16 g to it and returns the map in g's dtype on either route.
 """
 
 from __future__ import annotations
@@ -56,12 +60,12 @@ def dfeat_scatter_plain(ids, g, w4, hw: int, dx: int, dy: int):
 
 
 SEG = 64  # sorted positions per segment at most: csrc/scatter.cu's SEG
+SLOT = 8  # the bf16 form's long segments, with a slot each: its SLOT
+RANGE_WORDS = 2 * 256 + 2  # thp_dfeat_keys' scratch: 2 * RANGE_BLOCKS + 2
 
 
-def _dfeat_launch(name, entry, dtype, ids, g, w4, hw, dx, dy):
-    """Check the tensors (g of ``dtype``), sort and cut the segments, zero
-    the map in g's dtype and launch the K3 entry; the map and whether it
-    launched."""
+def _check_shapes(name, dtype, ids, g, w4, hw, dx, dy):
+    """Check the tensors (g of ``dtype``) and the extents: (V, N, C)."""
     build.check_tensors(name, {"ids": torch.int32, "g": dtype}, ids=ids, g=g,
                         w4=w4)
     if g.dim() != 3:
@@ -76,9 +80,18 @@ def _dfeat_launch(name, entry, dtype, ids, g, w4, hw, dx, dy):
             f"{name}: V={v}, hw={hw}, dx={dx}, dy={dy} out of range")
     if max(v * n, v * hw) * c >= 2**31:
         raise ValueError(f"{name}: extent too large for int32")
+    return v, n, c
+
+
+def dfeat_scatter_cuda(ids, g, w4, hw: int, dx: int, dy: int):
+    """K3 on CUDA tensors: ids int32, g and w4 float32, all contiguous.
+    Sorts and cuts the segments, zeroes the map and launches the entry.
+    No atomics: the same bits on every call."""
+    name = "dfeat_scatter_cuda"
+    v, n, c = _check_shapes(name, torch.float32, ids, g, w4, hw, dx, dy)
     dev = g.device
     if n == 0:
-        return torch.zeros((v, hw, c), dtype=dtype, device=dev), False
+        return torch.zeros((v, hw, c), dtype=torch.float32, device=dev)
     # glue, like the JAX package's argsort: equal ids become runs, cut into
     # segments of at most SEG positions; seg_end counts segment starts
     ids_sorted, order = torch.sort(ids, dim=1, stable=True)
@@ -100,56 +113,106 @@ def _dfeat_launch(name, entry, dtype, ids, g, w4, hw, dx, dy):
                    non_blocking=True)
         ready = torch.cuda.Event()
         ready.record()
-        out = torch.zeros((v, hw, c), dtype=dtype, device=dev)
+        out = torch.zeros((v, hw, c), dtype=torch.float32, device=dev)
         ready.synchronize()
         lo, hi, nseg = ends.tolist()
         _check_tap_range(name, lo, hi, hw, dx, dy)
         seg_start = torch.empty(nseg, dtype=torch.int32, device=dev)
         sums = torch.empty((nseg, 4, c), dtype=torch.float32, device=dev)
-        code = getattr(lib, entry)(
+        code = lib.thp_dfeat_scatter(
             ids_sorted.data_ptr(), seg_end.data_ptr(), order.data_ptr(),
             g.data_ptr(), w4.data_ptr(), seg_start.data_ptr(),
             ranges.data_ptr(), sums.data_ptr(), out.data_ptr(), v, n, c, hw,
             dx, dy, nseg, SEG, torch.cuda.current_stream().cuda_stream)
     build.check(code, name)
-    return out, True
-
-
-def dfeat_scatter_cuda(ids, g, w4, hw: int, dx: int, dy: int):
-    """K3 on CUDA tensors: ids int32, g and w4 float32, all contiguous.
-    No atomics: the same bits on every call."""
-    out, launched = _dfeat_launch("dfeat_scatter_cuda", "thp_dfeat_scatter",
-                                  torch.float32, ids, g, w4, hw, dx, dy)
-    build.count_launches(dfeat_scatter_cuda, launched)
+    build.count_launches(dfeat_scatter_cuda)
     return out
 
 
 dfeat_scatter_cuda.launches = 0
 
 
-def dfeat_scatter_bf16_cuda(ids, g, w4, hw: int, dx: int, dy: int):
+def _round4(x: int) -> int:
+    return -(-x // 4) * 4
+
+
+def dfeat_scatter_bf16_cuda(ids, g, w4, hw: int, dx: int, dy: int,
+                            ids_in_map: bool = False):
     """K3's bfloat16 form: g bf16 (V, N, C), ids int32, w4 float32 ->
     the (V, hw, C) bf16 map, equal bit for bit to
     ``dfeat_scatter_cuda(ids, g.float(), w4, ...).to(torch.bfloat16)``; no
-    atomics, the same bits on every call."""
-    out, launched = _dfeat_launch("dfeat_scatter_bf16_cuda",
-                                  "thp_dfeat_scatter_bf16", torch.bfloat16,
-                                  ids, g, w4, hw, dx, dy)
-    build.count_launches(dfeat_scatter_bf16_cuda, launched)
+    atomics, the same bits on every call.
+
+    The ids' range is checked (IndexError) behind one host wait, by which
+    time the card has the sort and the scratch stages queued; with
+    ``ids_in_map=True`` the caller vouches that every tap lies in the map
+    (the sampler's clamped taps) and the call never waits for the card.
+    Either way no kernel writes outside the map or its scratch: a base id
+    whose taps leave the map adds nothing."""
+    name = "dfeat_scatter_bf16_cuda"
+    v, n, c = _check_shapes(name, torch.bfloat16, ids, g, w4, hw, dx, dy)
+    dev = g.device
+    if n == 0:
+        return torch.zeros((v, hw, c), dtype=torch.bfloat16, device=dev)
+    lib = build.library()
+    vn = v * n
+    # one scratch of 4-byte words: the sort keys, the range's partials and
+    # result, each sorted position's row, the base ids' runs (v, hw, 2),
+    # each sorted position's weights, the long segments' float32 slots
+    o_row = vn + RANGE_WORDS
+    o_rng = _round4(o_row + vn)
+    o_sw = _round4(o_rng + 2 * v * hw)
+    o_slots = o_sw + 4 * vn
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        work = torch.empty(o_slots + v * -(-n // SLOT) * 4 * c,
+                           dtype=torch.int32, device=dev)
+        keys = work[:vn]
+        at = work.data_ptr()
+        # the ids' range arrives in pinned memory behind the event
+        lohi, ready = ((None, None) if ids_in_map else
+                       (torch.empty(2, dtype=torch.int32, pin_memory=True),
+                        torch.cuda.Event()))
+        build.check(lib.thp_dfeat_keys(
+            ids.data_ptr(), at, at + 4 * vn,
+            None if lohi is None else lohi.data_ptr(), v, n, hw, stream),
+            name)
+        if ready is not None:
+            ready.record()
+        # glue, like the JAX package's argsort: equal keys become runs
+        keys, order = torch.sort(keys, stable=True)
+        scratch = (at + 4 * o_slots, at + 4 * o_rng, at + 4 * o_row,
+                   at + 4 * o_sw)
+        build.check(lib.thp_dfeat_runs_bf16(
+            keys.data_ptr(), order.data_ptr(), g.data_ptr(), w4.data_ptr(),
+            *scratch, v, n, c, hw, dx, dy, SEG, SLOT, stream), name)
+        if ready is not None:
+            ready.synchronize()
+            _check_tap_range(name, *lohi.tolist(), hw, dx, dy)
+        out = torch.empty((v, hw, c), dtype=torch.bfloat16, device=dev)
+        code = lib.thp_dfeat_texels_bf16(
+            g.data_ptr(), *scratch, out.data_ptr(), v, n, c, hw, dx, dy, SLOT,
+            stream)
+    build.check(code, name)
+    build.count_launches(dfeat_scatter_bf16_cuda)
     return out
 
 
 dfeat_scatter_bf16_cuda.launches = 0
 
 
-def dfeat_scatter(ids, g, w4, hw: int, dx: int, dy: int):
+def dfeat_scatter(ids, g, w4, hw: int, dx: int, dy: int,
+                  ids_in_map: bool = False):
     """K3 for a CUDA tensor (its bf16 form for a bf16 g), the four
-    index_add_ calls for a CPU tensor; the map in g's dtype."""
+    index_add_ calls for a CPU tensor; the map in g's dtype.
+    ``ids_in_map``: the bf16 form's promise (dfeat_scatter_bf16_cuda);
+    the other routes check the ids whatever it says."""
     if g.is_cuda:
-        fn = (dfeat_scatter_bf16_cuda if g.dtype == torch.bfloat16
-              else dfeat_scatter_cuda)
-        return fn(ids.to(torch.int32).contiguous(), g.contiguous(),
-                  w4.contiguous(), hw, dx, dy)
+        args = (ids.to(torch.int32).contiguous(), g.contiguous(),
+                w4.contiguous(), hw, dx, dy)
+        if g.dtype == torch.bfloat16:
+            return dfeat_scatter_bf16_cuda(*args, ids_in_map=ids_in_map)
+        return dfeat_scatter_cuda(*args)
     if g.device.type != "cpu":
         raise ValueError(f"dfeat_scatter: no kernel for device {g.device}")
     return dfeat_scatter_plain(ids, g, w4, hw, dx, dy)

@@ -90,9 +90,11 @@ class _SampleFeatureMap(torch.autograd.Function):
         d_feat = d_uv = None
         if ctx.needs_input_grad[0]:
             # g in the map's dtype: K3's bf16 form sums a bf16 g in float32
-            # and writes the bf16 map; the plain twin sums in float32
+            # and writes the bf16 map; the plain twin sums in float32.
+            # _sample_taps clamps every base texel into the map, so the
+            # bf16 form need not check the ids (nor wait for the card)
             d_feat = dfeat_scatter(base, g, _bilinear_w4(wx, wy).float(),
-                                   hf * wf, dx, dy)
+                                   hf * wf, dx, dy, ids_in_map=True)
             d_feat = d_feat.reshape(shape).to(fdtype)
         if ctx.needs_input_grad[1]:
             # through the lerp weights, as _sfm_bwd (clip boundaries count

@@ -25,11 +25,13 @@ change, parent with CUDA events:
   maps); its bf16 forward on bf16 maps at the survivor size, the chunk and
   the painting shape (and, its C entry being shared, the bf16 form as bare
   launches of both libraries there too); K3 and its bf16 form at the train
-  shapes (153,600 points at C = 384, the 6,890 vertices at C = 192); K4's
-  int8 form (the int8 pixel map's fetch) as the whole forward at the serve
-  pixel shape, the seeded map quantised by the checkout's own quantiser,
-  where the checkout has the form (a row only one side has is timed and
-  listed, not compared).  The points are the phase 3 body points projected into the
+  shapes (153,600 points at C = 384, the 6,890 vertices at C = 192), the
+  bf16 form also on the ids of a real train step's two fetches
+  (``step_uv``); K4's int8 form (the int8 pixel map's fetch) as the whole
+  forward at the chunk and at the survivor size, the seeded map quantised
+  by the checkout's own quantiser, where the checkout has the form (a row
+  only one side has is timed and listed, not compared), and, its C entry
+  being shared, as bare launches of both libraries at both sizes.  The points are the phase 3 body points projected into the
   seeded synthetic scene's three 512x512 views, the maps and cotangents
   seeded normals made on the card; the id form's ids and weights, and
   K3's, are this checkout's _sample_taps of those points, read by both
@@ -143,11 +145,32 @@ def survivor_inputs(dev, image_hw=IMAGE) -> dict:
             "counts": [t.shape[0] for t in chunks]}
 
 
+def step_uv(dev):
+    """(uv (3, 153600, 2) of a full-width train step's pixel fetch, uv
+    (3, 6890, 2) of its painting fetch): sample 0 of the synthetic train
+    data at step 0's seed, projected by the pipeline the train entry point
+    builds (masked rays collapsed onto one texel, as the step projects
+    them)."""
+    from ..cli.train import build_trainer
+    from ..config import Config
+    from ..render.pipeline import fold_in
+
+    cfg = Config().merge_opts(["dataset", "synthetic"])
+    _, _, data, pipe = build_trainer(cfg, dev)
+    smp = data.get_train_sample(0).to(dev)
+    f = smp.frame
+    pts, _, pts_mask, _ = pipe.train_points(smp.rays, fold_in(cfg.seed, 0),
+                                            cfg.perturb > 0)
+    return pipe.fetch_uv(f, pts, pts_mask), pipe.fetch_uv(f, f.verts_world)
+
+
 def fetch_inputs(dev) -> dict:
     """The K4 / K3 inputs that both checkouts read from one file: uv of the
-    phase 3 chunk and of the vertices in the synthetic scene's three views,
-    and the base ids and tap weights (this checkout's _sample_taps) of the
-    chunk, of the vertices and of a train batch's worth of body points."""
+    phase 3 chunk, of the vertices in the synthetic scene's three views and
+    of the serve request's median chunk of survivors, and the base ids and
+    tap weights (this checkout's _sample_taps) of the chunk, of the
+    vertices, of a train batch's worth of body points, and of the two
+    fetches of a real train step (``step_uv``)."""
     from ..kernels.gather import _bilinear_w4, _sample_taps
     from ..ops.sampling import project_points
     from ..testing import synthetic_scene
@@ -159,9 +182,11 @@ def fetch_inputs(dev) -> dict:
     out = {"uv_chunk": project_points(pts[:N_CHUNK], *cams)[0].contiguous(),
            "uv_verts": project_points(verts, *cams)[0].contiguous(),
            "uv_surv": survivor_inputs(dev)["uv"]}
+    step_pix, step_paint = step_uv(dev)
     for tag, uv in (("chunk", out["uv_chunk"]),
                     ("verts", out["uv_verts"]),
-                    ("train", project_points(pts, *cams)[0])):
+                    ("train", project_points(pts, *cams)[0]),
+                    ("steppix", step_pix), ("steppaint", step_paint)):
         _, _, base, wx, wy, dx, dy = _sample_taps((3, *IMAGE, 1), uv, IMAGE)
         out[f"ids_{tag}"] = base.to(torch.int32).contiguous()
         out[f"w4_{tag}"] = _bilinear_w4(wx, wy).contiguous()
@@ -229,18 +254,21 @@ if hasattr(gather, "feature_sample_int8_cuda"):  # K4's int8 form
     from transhuman_tpu_torch.ops.sampling import quantize_feature_map
 
     q8, scale8 = quantize_feature_map(seeded((3, 512, 512, 384), 384))
+    for tag, uv in (("pixel", "chunk"), ("surv", "surv")):
+        def forward_int8(uv=inp[f"uv_{uv}"]):
+            with torch.no_grad():
+                return sample_feature_map(q8, uv, image, scale8)
 
-    def forward_int8(uv=inp["uv_chunk"]):
-        with torch.no_grad():
-            return sample_feature_map(q8, uv, image, scale8)
-
-    calls["k4_int8_pixel"] = forward_int8
-for tag, c, pts in (("pixel", 384, "train"), ("paint", 192, "verts")):
+        calls[f"k4_int8_{tag}"] = forward_int8
+for tag, c, pts in (("pixel", 384, "train"), ("paint", 192, "verts"),
+                    ("step_pixel", 384, "steppix"),
+                    ("step_paint", 192, "steppaint")):
     ids, w4 = inp[f"ids_{pts}"], inp[f"w4_{pts}"]
     g = seeded((3, ids.shape[1], c), 10 + c)
-    calls[f"k3_{tag}"] = (lambda ids=ids, g=g, w4=w4:
-                          scatter.dfeat_scatter_cuda(ids, g, w4, 512 * 512,
-                                                     dx, dy))
+    if not tag.startswith("step"):
+        calls[f"k3_{tag}"] = (lambda ids=ids, g=g, w4=w4:
+                              scatter.dfeat_scatter_cuda(ids, g, w4,
+                                                         512 * 512, dx, dy))
     calls[f"k3_bf16_{tag}"] = (lambda ids=ids, g=g.to(torch.bfloat16), w4=w4:
                                scatter.dfeat_scatter_bf16_cuda(
                                    ids, g, w4, 512 * 512, dx, dy))
@@ -390,25 +418,37 @@ def ab_k1_k2(libs: dict, dev) -> dict:
 
 
 def ab_k4_bf16(libs: dict, dev, fetch: dict) -> dict:
-    """K4's bf16 sampling form, whose C entry both checkouts share, as bare
-    launches of both libraries (the kernel alone: its forward through the
-    wrappers, in ``ab_k3_k4``, also pays the host's work around it) on
-    seeded bf16 maps at the survivor size, the chunk and the painting
-    shape: bits and times."""
+    """K4's bf16 and int8 sampling forms, whose C entries both checkouts
+    share, as bare launches of both libraries (the kernel alone: its
+    forward through the wrappers, in ``ab_k3_k4``, also pays the host's
+    work around it): the bf16 form on seeded bf16 maps at the survivor
+    size, the chunk and the painting shape, the int8 form on the seeded
+    pixel map quantised (``quantize_feature_map``) with its scale at the
+    survivor size and the chunk: bits and times."""
+    from ..ops.sampling import quantize_feature_map
+
     stream = torch.cuda.current_stream().cuda_stream
     gen = torch.Generator(dev).manual_seed(3)
     maps = {c: torch.randn((3, *IMAGE, c), device=dev,
                            generator=gen).to(torch.bfloat16)
             for c in (384, 192)}
+    q8, scale8 = quantize_feature_map(maps[384].float())
     cases = {"surv": (384, fetch["uv_surv"]), "pixel": (384,
                                                        fetch["uv_chunk"]),
-             "paint": (192, fetch["uv_verts"])}
+             "paint": (192, fetch["uv_verts"]),
+             "int8_surv": (384, fetch["uv_surv"]),
+             "int8_pixel": (384, fetch["uv_chunk"])}
     out = {tag: {case: torch.empty((3, uv.shape[1], c), dtype=torch.bfloat16,
                                    device=dev)
                  for case, (c, uv) in cases.items()} for tag in libs}
 
     def k4(lib, case, o):
         c, uv = cases[case]
+        if case.startswith("int8"):
+            return lambda: build.check(lib.thp_feature_sample_int8(
+                q8.data_ptr(), uv.data_ptr(), o.data_ptr(), 3, uv.shape[1],
+                c, IMAGE[0], IMAGE[1], 1.0, 1.0, scale8.data_ptr(), stream),
+                case)
         fmap = maps[c]
         return lambda: build.check(lib.thp_feature_sample_bf16(
             fmap.data_ptr(), uv.data_ptr(), o.data_ptr(), 3, uv.shape[1], c,
@@ -424,8 +464,9 @@ def ab_k4_bf16(libs: dict, dev, fetch: dict) -> dict:
     for tag in ("parent", "change", "change", "parent"):
         turn = {"lib": tag}
         for case in cases:
-            turn[f"k4_bf16_{case}_ms"] = _time_ms(k4(libs[tag], case,
-                                                     out[tag][case]))
+            name = case if case.startswith("int8") else f"bf16_{case}"
+            turn[f"k4_{name}_ms"] = _time_ms(k4(libs[tag], case,
+                                                out[tag][case]))
         res["k4_bf16_turns"].append(turn)
         print(f"{tag}: " + ", ".join(f"{k} {x:.4f} ms" for k, x in turn.items()
                                      if k != "lib") + " (bare launches)",
@@ -474,7 +515,8 @@ def main(argv=None) -> dict:
     torch.backends.cuda.matmul.allow_tf32 = False
     parent = os.path.abspath(args.parent)
     shared = ("thp_min_excess2", "thp_dparf", "thp_dparf_bf16",
-              "thp_feature_sample_bf16", "thp_error_string")
+              "thp_feature_sample_bf16", "thp_feature_sample_int8",
+              "thp_error_string")
     libs = {"parent": _load(build_parent(parent), shared),
             "change": _load(build.build().path, shared)}
     dev = torch.device("cuda")
@@ -482,7 +524,7 @@ def main(argv=None) -> dict:
     res = {"card": torch.cuda.get_device_name(0), **ab_k1_k2(libs, dev),
            **ab_k4_bf16(libs, dev, fetch), **ab_k3_k4(parent, dev, fetch)}
     print(f"K2 bit-identical: {res['k2_bit_identical']}; K1 bit-identical: "
-          f"{res['k1_bit_identical']}; K4 bf16 bit-identical (bare): "
+          f"{res['k1_bit_identical']}; K4 bf16 and int8 bit-identical (bare): "
           f"{res['k4_bf16_bit_identical']}; K3/K4 bit-identical: "
           f"{res['bit_identical']} (max diffs {res['max_abs_diff']})",
           flush=True)

@@ -29,10 +29,12 @@ LAUNCH_CATS = ("cuda_runtime", "cuda_driver")
 PHASES = ("train_step.forward", "train_step.backward", "train_step.optimizer")
 # (group, substrings of the lower-cased kernel name); first match wins
 GROUPS = (
-    ("K3 dfeat_scatter", ("dfeat_scatter",)),
+    ("K3 dfeat_scatter", ("dfeat_scatter", "segments_kernel",
+                          "segment_sums_kernel", "touched_rows_kernel")),
     ("K2 dparf", ("dparf_kernel", "dparf_bf16_kernel")),
     ("K4 feature fetch", ("feature_gather_kernel",
-                          "feature_sample_bf16_kernel")),
+                          "feature_sample_bf16_kernel",
+                          "feature_sample_int8")),
     ("K1 min_excess2", ("min_excess2",)),
     ("sort", ("radixsort", "sort")),
     ("convolution (cuDNN)", ("conv", "cudnn", "fprop", "dgrad", "wgrad",
