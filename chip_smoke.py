@@ -204,8 +204,9 @@ n1. CoreView_377 laid out with 1024x1024 lossless JP2 frames: the train
    rank) at mesh_axis_rays 2, its losses those of the same run here at
    mesh_axis_rays 1 (phase 6's bound), K2, K4 and K3 launched; then --type
    evaluate on its checkpoint over two frames whose input and target views
-   take fifteen other codings (BMP, PPM, Sun raster, TIFFs, GIF, Radiance
-   HDR, WebPs, a lossy JP2, AVIFs of 8 and 10 bits): finite metrics, K1,
+   take seventeen other codings (BMP, PPM, Sun raster, TIFFs, GIF,
+   Radiance HDR, WebPs, a lossy JP2, AVIFs of 8 and 10 bits, with loop
+   restoration and with film grain): finite metrics, K1,
    K2 and K4 launched, each coding read;
 n2. examples/torch_minimal_render.py and torch_minimal_train.py on the
    card: exit 0, a 32x32 PNG, finite losses.
@@ -2831,14 +2832,16 @@ def phase_codec(card: str) -> dict:
     so the decode of 1024x1024 BMP, PPM, Sun raster, TIFF (Deflate: RGB,
     CMYK, CIELab, BigTIFF), GIF, Radiance HDR and lossless WebP
     frames formed here and of the committed q90 lossy WebP, lossless and
-    lossy JP2s and YCbCr 4:2:0 JPEG-TIFF (format_frames); the event files'
-    CRC32C, native against the Python table."""
+    lossy JP2s, YCbCr 4:2:0 JPEG-TIFF and AVIFs, loop-restored and grained
+    ones among them (format_frames; each of those two holding its tool by
+    the decoder's meta); the event files' CRC32C, native against the
+    Python table."""
     import hashlib
 
-    from transhuman_tpu_torch.data import image_io
+    from transhuman_tpu_torch.data import image_formats, image_io
 
     out, by = {}, set()
-    for folder, n in ((FIXTURES, 5), (CODINGS, 8), (FORMATS, 48)):
+    for folder, n in ((FIXTURES, 5), (CODINGS, 8), (FORMATS, 52)):
         with open(os.path.join(folder, "digests.json")) as f:
             digests = json.load(f)
         check(len(digests) == n,
@@ -2855,6 +2858,19 @@ def phase_codec(card: str) -> dict:
                   f"{want['sha256'][:12]}.. {want['shape']} ({want['by']})")
             out[name] = _decode_ms(read, path)
             by.add(want["by"])
+    # the AVIFs with loop restoration or film grain carry it: the
+    # restoration type of each plane (3 switchable) and the grain by the
+    # decoder's meta
+    for name, lr, grain in (("avif_pil_lr_switchable.avif", (3, 1, 1), 0),
+                            ("pil_lr_1024.avif", (0, 3, 1), 0),
+                            ("avif_pil_film_grain.avif", (0, 0, 0), 1),
+                            ("pil_grain_1024.avif", (0, 0, 0), 1)):
+        with open(os.path.join(FORMATS, name), "rb") as fh:
+            heif = image_formats._Heif(fh.read())
+        _, meta = image_formats._av1_planes(heif.item(heif.primary))
+        got = (tuple(int(v) for v in meta[10:13]), int(meta[19]))
+        check(got == (lr, grain), f"codec: {name} carries restoration "
+              f"types and grain {got}, want {(lr, grain)}")
     # the other formats at the loader's size: 1024x1024 frames formed here
     # (the committed ones, timed above, not again)
     src_dir = tempfile.mkdtemp(prefix="thp_formats_")
@@ -2888,14 +2904,15 @@ def phase_codec(card: str) -> dict:
         f"1024x1024 24-bit BMP, P6, 24-bit Sun raster, Deflate TIFF, GIF, "
         f"RLE HDR, lossless WebP, q90 lossy WebP, lossless (5/3) JP2, "
         f"lossy (9/7) JP2, YCbCr 4:2:0 JPEG-TIFF, Deflate CMYK TIFF, Deflate "
-        f"CIELab TIFF, Deflate BigTIFF, AVIF (cv2's default, q95, 10-bit) "
-        f"against the sequential JPEG "
+        f"CIELab TIFF, Deflate BigTIFF, AVIF (cv2's default, q95, 10-bit, "
+        f"Pillow's loop-restored q90 and grained) against the sequential "
+        f"JPEG "
         + ", ".join(f"{out[f'1024_{k}'] / out['cv2_q95_420.jpg']:.2f}x"
                     for k in ("bmp", "ppm", "sun", "tiff", "gif", "hdr",
                               "webp_lossless", "webp_lossy", "jp2_lossless",
                               "jp2_lossy", "tiff_jpeg", "tiff_cmyk",
                               "tiff_cielab", "bigtiff", "avif", "avif_q95",
-                              "avif_10bit"))
+                              "avif_10bit", "avif_lr", "avif_grain"))
         + f"  [{card}]")
     return out
 
@@ -5040,12 +5057,14 @@ def format_frames(src_dir: str) -> dict:
     and a BigTIFF (Deflate, 8-row strips) (tests/_torch_formats.py's
     writers),
     beside the committed q90 lossy WebP, lossless (5/3) and lossy (9/7) JP2,
-    YCbCr 4:2:0 JPEG-TIFF and AVIF (cv2's default quality, q95, 10 bits)
-    files of the same decode (no writer here codes VP8, JPEG 2000, JPEG or
-    AV1): kind -> path, each checked to read back as the decode (the GIF as
-    its palette's colours, the HDR within 2, the lossy WebP and JP2 within
-    9, the AVIFs within 10, the JPEG-TIFF within 12, the CIELab TIFF within
-    40, their bytes held to cv2's in phase e)."""
+    YCbCr 4:2:0 JPEG-TIFF and AVIF (cv2's default quality, q95, 10 bits;
+    Pillow's q90 with loop restoration and q75 with film grain) files of
+    the same decode (no writer here codes VP8, JPEG 2000, JPEG or AV1):
+    kind -> path, each checked to read back as the decode (the GIF as its
+    palette's colours, the HDR within 2, the lossy WebP and JP2 within 9,
+    the AVIFs within 10, the grained one within 30, the JPEG-TIFF within
+    12, the CIELab TIFF within 40, their bytes held to cv2's in phase
+    e)."""
     import importlib.util
 
     from transhuman_tpu_torch.data import image_io
@@ -5085,11 +5104,14 @@ def format_frames(src_dir: str) -> dict:
     out["avif"] = os.path.join(FORMATS, "cv2_default_1024.avif")
     out["avif_q95"] = os.path.join(FORMATS, "cv2_q95_1024.avif")
     out["avif_10bit"] = os.path.join(FORMATS, "cv2_10bit_1024.avif")
+    out["avif_lr"] = os.path.join(FORMATS, "pil_lr_1024.avif")
+    out["avif_grain"] = os.path.join(FORMATS, "pil_grain_1024.avif")
     # what each reads back as, and within what (CIELab through libtiff's
     # display conversion, which quantises the darkest levels coarsely)
     want = {"gif": (pal.astype(np.uint8)[idx], 0), "hdr": (rgb, 2),
             "webp_lossy": (rgb, 9), "jp2_lossy": (rgb, 9),
             "avif": (rgb, 10), "avif_q95": (rgb, 10), "avif_10bit": (rgb, 10),
+            "avif_lr": (rgb, 10), "avif_grain": (rgb, 30),
             "tiff_jpeg": (rgb, 12), "tiff_cielab": (rgb, 40)}
     for kind, path in out.items():
         ref, tol = want.get(kind, (rgb, 0))
@@ -5110,13 +5132,14 @@ def phase_formats(card: str, tmp: str) -> dict:
     against the same in this process at mesh_axis_rays 1 (phase 6's loss
     bound: card steps are not bit-reproducible), K2 / K4 / K3 launched
     1 / 2 / 2 a step; then --type evaluate on its checkpoint over the two
-    frames of CoreView_387, whose input and target views take the fifteen
-    other codings, each frame's under one name (cv2 decodes by content):
+    frames of CoreView_387, whose input and target views take the
+    seventeen other codings, each frame's under one name (cv2 decodes by content):
     frame 0 BMP, PPM, Sun raster, TIFF, GIF, Radiance HDR, lossless and
     lossy WebP, lossy (9/7) JP2; frame 1 YCbCr 4:2:0 JPEG-TIFF, CMYK and
-    CIELab TIFFs, BigTIFF and AVIFs (cv2's default quality and 10 bits):
-    finite PSNR and SSIM, K1, K2 and K4 launched, each of the sixteen
-    codings read by the loader (told apart by the file's digest); then the
+    CIELab TIFFs, BigTIFF and AVIFs (cv2's default quality and 10 bits,
+    Pillow's with loop restoration and with film grain): finite PSNR and
+    SSIM, K1, K2 and K4 launched, each of the eighteen codings read by the
+    loader (told apart by the file's digest); then the
     host
     split of one train sample of the JP2 tree (host_split, phase f's
     samples), beside phase f's of the JPEG tree;
@@ -5138,13 +5161,13 @@ def phase_formats(card: str, tmp: str) -> dict:
     src = format_frames(os.path.join(tmp, "formats_src"))
     root = os.path.join(tmp, "zju_formats")
     # training reads lossless JP2 views only; the two evaluated frames'
-    # nine views each (3 inputs, 6 targets) the fifteen other codings:
+    # nine views each (3 inputs, 6 targets) the seventeen other codings:
     # frame 0 nine of them, frame 1 the TIFF codings of libtiff's other
-    # colour spaces, BigTIFF and two AVIFs, cycling
+    # colour spaces, BigTIFF and four AVIFs, cycling
     kinds = (("bmp", "ppm", "sun", "tiff", "gif", "hdr", "webp_lossless",
               "webp_lossy", "jp2_lossy"),
              ("tiff_jpeg", "tiff_cmyk", "tiff_cielab", "bigtiff", "avif",
-              "avif_10bit"))
+              "avif_10bit", "avif_lr", "avif_grain"))
     cfg_file = os.path.join(CONFIGS, "train_or_eval.yaml")
     # each evaluated frame reads its input and target cameras: each of its
     # codings on one of them, the others' views cycling; write_zju_layout
@@ -5274,7 +5297,7 @@ def phase_formats(card: str, tmp: str) -> dict:
           f"n1 evaluate: launches {by_path['eval_formats']}, want within "
           f"10% of {want}")
     # training reads 4 lossless JP2 views a sample; the evaluated frames'
-    # targets and inputs the fifteen other codings: all sixteen on the
+    # targets and inputs the seventeen other codings: all eighteen on the
     # path
     check(set(train_seen) == {"jp2_lossless"}
           and train_seen["jp2_lossless"] >= 4 * N_STEPS
@@ -5320,7 +5343,7 @@ def phase_formats(card: str, tmp: str) -> dict:
         f"{train_seen}; --type evaluate, a frame of BMP, PPM, Sun raster, "
         f"TIFF, GIF, Radiance HDR, lossless and lossy WebP and lossy JP2 "
         f"views and one of JPEG-TIFF, CMYK, CIELab, BigTIFF and AVIF (8- and "
-        f"10-bit) views: psnr "
+        f"10-bit, loop-restored, grained) views: psnr "
         f"{summary['psnr']:.3f}, ssim {summary['ssim']:.4f}, files read "
         f"{seen}, launches {by_path['eval_formats']}; layout {layout_s:.1f} "
         f"s, torchrun {tr_s:.1f} s, train here {one_s:.1f} s, evaluate "

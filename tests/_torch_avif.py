@@ -374,7 +374,10 @@ def write_tables(out: str):
             ("kDefDeltaQ", 7555, (5,)), ("kDefDeltaLfMulti", 7560, (4, 5)),
             ("kDefDeltaLf", 7580, (5,)),
             ("kDefIntraExtTx", 7585, (3, 4, 13, 17)),
-            ("kDefCflSign", 10509, (9,)), ("kDefCflAlpha", 10518, (6, 17))):
+            ("kDefCflSign", 10509, (9,)), ("kDefCflAlpha", 10518, (6, 17)),
+            ("kDefSwitchableRestore", 6353, (4,)),
+            ("kDefWienerRestore", 6357, (3,)),
+            ("kDefSgrprojRestore", 6360, (3,))):
         n = int(np.prod(shape))
         emit("uint16_t", name, fc[off:off + n].reshape(shape))
     assert (fc[7093:7093 + 350] == arr("default_kf_y_mode_cdf", u16)).all()
@@ -399,6 +402,29 @@ def write_tables(out: str):
          arr("av1_cospi_arr_data", np.int32).reshape(4, 64)[2])
     emit("int32_t", "kSinpi", arr("av1_sinpi_arr_data", np.int32).reshape(
         4, 5)[2])
+    i32 = np.int32
+    # loop restoration: each set's radii and scales {r0, r1, s0, s1}, the
+    # reciprocals and A's lookup; the references each tile starts from, as
+    # av1_reset_loop_restoration writes them into a MACROBLOCKD (three
+    # WienerInfo {vfilter[8], hfilter[8]}, then three SgrprojInfo {ep,
+    # xqd[2]})
+    emit("int32_t", "kSgrParams", arr("av1_sgr_params", i32).reshape(16, 4))
+    emit("int32_t", "kOneByX", arr("av1_one_by_x", i32))
+    emit("int32_t", "kXByXplus1", arr("av1_x_by_xplus1", i32))
+    xd = ctypes.create_string_buffer(1 << 20)
+    ctypes.CFUNCTYPE(None, ctypes.c_void_p, ctypes.c_int)(
+        base + syms["av1_reset_loop_restoration"][0])(
+            ctypes.addressof(xd), 3)
+    raw = np.frombuffer(xd.raw, np.uint8)
+    at = int(np.nonzero(raw)[0].min()) & ~15
+    wiener = np.frombuffer(xd.raw, np.int16, 3 * 16, at).reshape(3, 2, 8)
+    sgr = np.frombuffer(xd.raw, i32, 3 * 3, at + 96).reshape(3, 3)
+    assert (wiener == wiener[0, 0]).all() and (sgr == sgr[0]).all()
+    assert not raw[at + 96 + 36:].any()
+    emit("int32_t", "kWienerTapsMid", wiener[0, 0, :3])
+    emit("int32_t", "kSgrprojXqdMid", sgr[0, 1:])
+    # film grain: the Gaussian sequence its templates are drawn from
+    emit("int32_t", "kGaussianSequence", arr("gaussian_sequence", i32))
     head = (
         "// Tables of the AV1 intra decoder in av1.cc: the default CDFs (in "
         "the\n// inverted form 32768 - CDF, a counter slot after each), the "
@@ -406,12 +432,16 @@ def write_tables(out: str):
         "matrices (levels\n// 0-14, luma and chroma, each transform size's "
         "block column by column),\n// the scan orders (as row-major "
         "positions), Dr_Intra_Derivative, the smooth\n// weights, the "
-        "filter-intra taps and the 12-bit cosine and sine constants.\n//\n"
+        "filter-intra taps, the 12-bit cosine and sine constants,\n// the "
+        "loop restoration parameter sets, reciprocals and reference taps,\n"
+        "// and the film grain's Gaussian sequence.\n//\n"
         "// Origin: read from libaom 3.14.1's read-only data (its default "
         "CDF\n// arrays, FRAME_CONTEXT after av1_init_mode_probs, "
         "dc/ac_qlookup_*_QTX,\n// iwt_matrix_ref, *_scan_*, "
         "dr_intra_derivative, smooth_weights,\n// av1_filter_intra_taps, "
-        "av1_cospi/sinpi_arr_data), written by\n// "
+        "av1_cospi/sinpi_arr_data, av1_sgr_params,\n// av1_one_by_x, "
+        "av1_x_by_xplus1, gaussian_sequence) and from what\n// "
+        "av1_reset_loop_restoration writes, by "
         "tests/_torch_avif.py::write_tables.\n"
         "// Copyright (c) 2016, Alliance for Open Media. All rights reserved."
         "\n// This source code is subject to the terms of the BSD 2 Clause "

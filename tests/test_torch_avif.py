@@ -98,6 +98,52 @@ VARIANTS = {
     "ycgco_full": lambda: A.set_nclx(_pil(bgr(40, 56, 26)), mc=8, full=1),
 }
 
+# loop restoration as libaom's encoder picks it (at speed 0-4 and a high
+# quality): name -> (file, restoration type of each plane (1 Wiener, 2
+# self-guided), unit size, whether a plane's last unit is enlarged past the
+# unit size). libaom switches between unit types only where a plane has
+# several units (COMMITTED_TOOLS' files), leaves lr_uv_shift 0 and clears
+# enable_restoration in a 12-bit file's sequence header.
+LR_VARIANTS = {
+    "pil_lr_s0_444": (lambda: _pil(bgr(64, 64, 40), quality=97, speed=0,
+                                   subsampling="4:4:4"), (0, 2, 2), 256,
+                      False),
+    "pil_lr_s1_420": (lambda: _pil(bgr(150, 150, 102), quality=75, speed=1),
+                      (2, 2, 2), 128, True),
+    "pil_lr_s3_420": (lambda: _pil(bgr(150, 150, 100), quality=85, speed=3),
+                      (2, 2, 2), 128, True),
+    "pil_lr_s4_422": (lambda: _pil(bgr(150, 140, 7), quality=80, speed=4,
+                                   subsampling="4:2:2"), (2, 1, 0), 128,
+                      True),
+    "pil_lr_s4_400": (lambda: _pil(bgr(150, 140, 7), quality=80, speed=4,
+                                   subsampling="4:0:0"), (2,), 128, True),
+    "pil_lr_sb128": (lambda: _pil(bgr(150, 150, 8), quality=95, speed=4,
+                                  advanced={"sb-size": "128"}), (0, 1, 1),
+                     128, False),
+    "pil_lr_tiles_2x2": (lambda: _pil(bgr(150, 150, 9), quality=85, speed=1,
+                                      tile_rows=1, tile_cols=1), (2, 0, 1),
+                         128, True),
+    "cv2_lr_10bit": (lambda: A.cv2_avif(deep(bgr(150, 140, 10), 10),
+                                        depth=10, speed=2, quality=90),
+                     (1, 2, 2), 128, True),
+    "cv2_lr_10bit_grey": (lambda: A.cv2_avif(
+        deep(_grey(bgr(150, 140, 11)), 10), depth=10, speed=4, quality=80),
+        (2,), 128, True),
+}
+# film grain: each of libaom's test vectors on an odd-sized 4:2:0 frame,
+# and one vector at the other subsamplings (Pillow writes 8 bits only)
+GRAIN_VARIANTS = {
+    f"pil_grain_v{v:02d}": lambda v=v: _pil(
+        bgr(61, 63, 100 + v), quality=60, speed=6,
+        advanced={"film-grain-test": str(v)}) for v in range(1, 17)}
+GRAIN_VARIANTS.update({
+    f"pil_grain_{sub.replace(':', '')}": lambda sub=sub: _pil(
+        bgr(61, 63, 80), quality=60, speed=6, subsampling=sub,
+        advanced={"film-grain-test": "3"})
+    for sub in ("4:2:2", "4:4:4", "4:0:0")})
+VARIANTS.update({k: v[0] for k, v in LR_VARIANTS.items()})
+VARIANTS.update(GRAIN_VARIANTS)
+
 
 def _exif6():
     from PIL import Image
@@ -162,15 +208,101 @@ def test_each_variant_decodes_to_libaom_planes(name):
                 name, item, p, int((g != w).sum()))
 
 
+def _meta(obus):
+    """The decoder's meta of an AV1 payload: (restoration type of each
+    plane, unit size of each, unit types read in each (bit 1 << type),
+    film grain applied), as thc_av1_decode writes them."""
+    _, meta = image_formats._av1_planes(obus)
+    return (tuple(int(v) for v in meta[10:13]),
+            tuple(int(v) for v in meta[13:16]),
+            tuple(int(v) for v in meta[16:19]), int(meta[19]), meta)
+
+
+@pytest.mark.parametrize("name", sorted([*LR_VARIANTS, *GRAIN_VARIANTS]))
+def test_each_tool_variant_carries_its_tool(name):
+    """The decoder's meta shows the loop restoration or the film grain a
+    variant is there for."""
+    types, sizes, read, grain, meta = _meta(A.primary_obus(variant(name)))
+    if name in GRAIN_VARIANTS:
+        assert grain == 1 and types == (0, 0, 0), (name, types, grain)
+        return
+    _, want, unit, enlarged = LR_VARIANTS[name]
+    n = len(want)
+    assert types[:n] == want and not grain, (name, types, grain)
+    # each plane reads units of its own type only (every unit is one)
+    assert read[:n] == tuple(1 << t if t else 0 for t in want), (name, read)
+    w, h, mono, sx, sy = (int(v) for v in (meta[0], meta[1], meta[3],
+                                           meta[4], meta[5]))
+    assert sizes[0] == unit and sizes[1:] == ((0, 0) if mono else (unit,) * 2)
+    longest = 0
+    for p, t in enumerate(want):
+        if t:
+            for side in ((w + sx) >> sx if p else w, (h + sy) >> sy if p
+                         else h):
+                count = max((side + unit // 2) // unit, 1)
+                longest = max(longest, side - (count - 1) * unit)
+    assert (longest > unit) == enlarged, (name, longest, unit)
+
+
+# the committed fixtures of phase e with loop restoration or film grain
+# (tests/test_torch_formats.py makes them): (restoration type of each
+# plane (3 switchable), unit types read in each (bit 1 << type), grain)
+FORMAT_FIXTURES = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                               "fixtures", "torch_zju_formats")
+COMMITTED_TOOLS = {
+    # none, Wiener and self-guided units in a switchable luma plane
+    "avif_pil_lr_switchable.avif": ((3, 1, 1), (7, 2, 2), 0),
+    # Wiener and self-guided units in a switchable chroma plane
+    "pil_lr_1024.avif": ((0, 3, 1), (0, 6, 2), 0),
+    "avif_pil_film_grain.avif": ((0, 0, 0), (0, 0, 0), 1),
+    "pil_grain_1024.avif": ((0, 0, 0), (0, 0, 0), 1),
+}
+
+
+@pytest.mark.parametrize("name", sorted(COMMITTED_TOOLS))
+def test_committed_tool_fixtures_carry_their_tools(name):
+    path = os.path.join(FORMAT_FIXTURES, name)
+    with open(path, "rb") as f:
+        obus = A.primary_obus(f.read())
+    types, _, read, grain, _ = _meta(obus)
+    assert (types, read, grain) == COMMITTED_TOOLS[name], (types, read, grain)
+    for p, (g, w) in enumerate(zip(port_planes(obus), A.libaom_planes(obus))):
+        assert g.shape == w.shape and (g == w).all(), (name, p)
+    _same(image_io.imread_rgb(path), cv2_imread(path), name)
+
+
+def test_tool_cases_cover_the_slice():
+    """Between them the variants and the committed fixtures hold Wiener,
+    self-guided and switchable planes, no-filter units in a switchable
+    plane, an enlarged last unit, 64 and 128 superblocks, every
+    subsampling, 8 and 10 bits, and all 16 film grain test vectors."""
+    types = {t for _, ts, _, _ in LR_VARIANTS.values() for t in ts}
+    types |= {t for ts, _, _ in COMMITTED_TOOLS.values() for t in ts}
+    assert {1, 2, 3} <= types
+    assert any(t == 3 and m & 1 for ts, ms, _ in COMMITTED_TOOLS.values()
+               for t, m in zip(ts, ms))
+    assert any(v[3] for v in LR_VARIANTS.values())
+    names = " ".join(LR_VARIANTS)
+    for part in ("444", "420", "422", "400", "sb128", "tiles", "10bit",
+                 "s0", "s1", "s3", "s4"):
+        assert part in names, part
+    assert {f"pil_grain_v{v:02d}" for v in range(1, 17)} <= set(
+        GRAIN_VARIANTS)
+
+
 # ---------------------------------------------------- the seeded sweep
 def sweep_file(seed: int) -> bytes:
     """A file of random size, quality, speed, subsampling, depth, tiles
     and superblock size (seeded): Pillow's 8-bit files at even seeds,
-    cv2's 8-, 10- and 12-bit ones at odd seeds."""
+    cv2's 8-, 10- and 12-bit ones at odd seeds; from seed 36 at speeds
+    0-4 and qualities 70-100, where libaom picks loop restoration."""
     rng = np.random.default_rng(1000 + seed)
     h, w = int(rng.integers(9, 140)), int(rng.integers(9, 140))
     img = bgr(h, w, 2000 + seed)
-    q, speed = int(rng.integers(0, 101)), int(rng.integers(2, 11))
+    if seed < 36:
+        q, speed = int(rng.integers(0, 101)), int(rng.integers(2, 11))
+    else:
+        q, speed = int(rng.integers(70, 101)), int(rng.integers(0, 5))
     if seed % 2:
         depth = int(rng.choice([8, 10, 12]))
         return A.cv2_avif(img if depth == 8 else deep(img, depth),
@@ -197,10 +329,10 @@ def sweep_file(seed: int) -> bytes:
 
 # tools the port refuses by name (ROADMAP.md's next AVIF slice) that
 # libaom's encoder may pick on its own
-SWEEP_REFUSALS = ("loop restoration", "screen-content tools")
+SWEEP_REFUSALS = ("screen-content tools",)
 
 
-@pytest.mark.parametrize("chunk", range(4))
+@pytest.mark.parametrize("chunk", range(5))
 def test_seeded_files_read_as_cv2_and_decode_as_libaom(chunk, tmp_path):
     refused = 0
     for seed in range(chunk * 9, chunk * 9 + 9):
@@ -346,14 +478,8 @@ def _refused():
     img = bgr(64, 64, 40)
     return {
         # (file, what the error names, cv2 reads it as nothing)
-        "loop_restoration": (lambda: _pil(img, quality=97, speed=4,
-                                          subsampling="4:4:4"),
-                             "loop restoration", False),
         "superres": (lambda: A.with_superres(A.cv2_avif(img)), "superres",
                      True),
-        "film_grain": (lambda: _pil(img, quality=60, speed=6,
-                                    advanced={"film-grain-test": "1"}),
-                       "film grain", False),
         "screen_content": (lambda: _pil(img, quality=60, speed=4,
                                         advanced={"tune-content": "screen"}),
                            "screen-content tools", False),

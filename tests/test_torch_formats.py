@@ -768,7 +768,31 @@ def _avif_cases():
         "avif_pil_sb128_tiles": lambda: AV.pil_avif(
             bgr_tall[..., ::-1], speed=8, tile_rows=1, tile_cols=1,
             advanced={"sb-size": "128"}),
+        # a switchable loop-restored luma plane with none, Wiener and
+        # self-guided units (libaom switches only between several units);
+        # film grain on an odd-sized frame
+        "avif_pil_lr_switchable": lambda: AV.pil_avif(
+            _textured_rgb(256, 173), quality=70, speed=2),
+        "avif_pil_film_grain": lambda: AV.pil_avif(
+            _fixture_rgb()[200:261, 300:363], quality=60, speed=6,
+            advanced={"film-grain-test": "1"}),
     }
+
+
+def _fixture_rgb():
+    """The 1024x1024 q95 fixture JPEG's decode (RGB)."""
+    jpeg = os.path.join(os.path.dirname(FIXTURES), "torch_zju",
+                        "cv2_q95_420.jpg")
+    return np.ascontiguousarray(cv2.imread(jpeg)[..., ::-1])
+
+
+def _textured_rgb(side, seed):
+    """A side x side frame: the left half a crop of the fixture JPEG's
+    decode, the right half blurred noise (seeded)."""
+    out = _fixture_rgb()[:side, 512 - side // 2:512 + side // 2].copy()
+    noise = _rng(seed).integers(0, 256, (side, side // 2, 3), dtype=np.uint8)
+    out[:, side // 2:] = cv2.GaussianBlur(noise, (0, 0), 1.5)
+    return out
 
 
 CASES = {**_bmp_cases(), **_pxm_cases(), **_sun_cases(), **_tiff_cases(),
@@ -1155,6 +1179,8 @@ FIXTURE_CASES = {
     "avif_pil_422.avif": "avif_pil_422",
     "avif_pil_rgba.avif": "avif_pil_rgba",
     "avif_pil_sb128_tiles.avif": "avif_pil_sb128_tiles",
+    "avif_pil_lr_switchable.avif": "avif_pil_lr_switchable",
+    "avif_pil_film_grain.avif": "avif_pil_film_grain",
 }
 
 
@@ -1219,6 +1245,13 @@ LARGE = {"cv2_jpeg_420_1024.tif": lambda: _jpeg_tiff_1024(),
          "cv2_default_1024.avif": lambda: _avif_1024(),
          "cv2_q95_1024.avif": lambda: _avif_1024(quality=95),
          "cv2_10bit_1024.avif": lambda: _avif_1024(depth=10),
+         # Pillow's, with loop restoration (a switchable chroma plane) and
+         # with film grain (test vector 1)
+         "pil_lr_1024.avif": lambda: AV.pil_avif(_fixture_rgb(), quality=90,
+                                                 speed=4),
+         "pil_grain_1024.avif": lambda: AV.pil_avif(
+             _fixture_rgb(), quality=75, speed=6,
+             advanced={"film-grain-test": "1"}),
          "cv2_lzw_64.tif": lambda: _large_tiff(5),
          "cv2_deflate_64.tif": lambda: _large_tiff(8),
          "cv2_q90_1024.webp": _lossy_1024,

@@ -99,7 +99,8 @@ What OpenCV does, where it is not what the format's specification says:
 * AVIF (libavif 1.4 with libaom 3.14; still images): the primary av01
   item of the meta box (hdlr pict; pitm, iinf v2/v3, iloc v0-2 from the
   file or idat, iref, ipco/ipma); its AV1 key frame decoded to libaom's
-  planes; the colr nclx box's CICP and range where there is one, the
+  planes, loop restoration and film grain included (libaom grains the
+  picture it outputs, and libavif converts the grained planes); the colr nclx box's CICP and range where there is one, the
   sequence header's otherwise; an alpha item (auxl, auxC alpha) decoded
   (a failing one fails the file) and dropped; irot, imir and clap, which
   libavif requires to be essential, not applied, an Exif item's
@@ -144,8 +145,7 @@ cv2 reads nothing (a cut file, irot, imir, clap or a1op not marked
 essential, an unknown essential property, no ispe or av1C, two nclx
 boxes, a failing alpha item, identity of subsampled chroma, YCgCo of
 limited range, matrix coefficients 3, 10, 11, 13, 14 and 16 up) and AVIF
-the port does not decode: AV1 loop restoration, superres, film grain,
-screen-content tools (palette, intra block copy), grid images, image
+the port does not decode: AV1 superres, screen-content tools (palette, intra block copy), grid images, image
 sequences (avis, a moov track; cv2 reads the first frame), layered images
 (a1lx, lsel, a1op), matrix coefficients 15 and chroma-derived matrices of
 other primaries, an ispe other than the frame's size.
@@ -1148,10 +1148,13 @@ class _Heif:
 
 
 def _av1_planes(obus: bytes):
-    """(planes (uint16 y, u, v), meta) of the AV1 still image in obus."""
+    """(planes (uint16 y, u, v), meta) of the AV1 still image in obus; meta
+    as ``thc_av1_decode`` in native/av1.cc writes it (size, depth,
+    subsampling and colour, then each plane's loop restoration and whether
+    film grain was applied)."""
     lib = codec.library("av1")
     handle = ctypes.c_void_p()
-    meta = np.zeros(10, np.int32)
+    meta = np.zeros(20, np.int32)
     codec.call("thc_av1_decode", obus, len(obus), ctypes.byref(handle),
                meta.ctypes.data, what="AV1 item", refused=Refused, lib="av1")
     w, h, _, mono, sx, sy = (int(v) for v in meta[:6])

@@ -9,8 +9,8 @@
 //     frame;
 //   * the frame header: uniform and non-uniform tile spacing, quantizer
 //     deltas with separate U/V deltas and quantizer matrices, segmentation,
-//     delta q and delta lf, the loop filter, CDEF, tx_mode and the reduced
-//     transform set;
+//     delta q and delta lf, the loop filter, CDEF, loop restoration,
+//     tx_mode, the reduced transform set and film grain;
 //   * the symbol decoder (libaom's od_ec_dec) with the default CDFs, their
 //     adaptation, and the coefficient CDF set chosen by base_q_idx;
 //   * partitions of 64x64 and 128x128 superblocks; intra modes with angle
@@ -23,15 +23,22 @@
 //     and WHT, with libaom's stage clamps; every intra predictor with the
 //     edge filter and upsampling;
 //   * the deblocking filter (4-, 6-, 8- and 14-tap, per-segment and delta
-//     levels) and CDEF.
-// Refused by name: loop restoration, superres, film grain, screen-content
-// tools (palette, intra block copy), frames other than one shown key frame,
-// and more than one operating point's layers.
+//     levels) and CDEF;
+//   * loop restoration: the frame's types and unit sizes, each unit's
+//     coefficients read at its superblock (Wiener taps and self-guided
+//     sets and projections against the tile's references), the Wiener and
+//     self-guided filters in 64-row stripes over the CDEF'd frame with the
+//     deblocked rows around each stripe;
+//   * film grain on the output picture, as libaom's av1_add_film_grain.
+// Refused by name: superres, screen-content tools (palette, intra block
+// copy), frames other than one shown key frame, and more than one
+// operating point's layers.
 // Every entry returns 0 on success or a non-zero code, with a message in
 // the caller's buffer (2: a tool refused by name).
 
 #include <algorithm>
 #include <cmath>
+#include <cstddef>
 #include <cstdint>
 #include <cstdio>
 #include <cstdlib>
@@ -213,6 +220,9 @@ struct Cdfs {
   uint16_t intra_ext_tx[3][4][13][17];
   uint16_t cfl_sign[9];
   uint16_t cfl_alpha[6][17];
+  uint16_t switchable_restore[4];
+  uint16_t wiener_restore[3];
+  uint16_t sgrproj_restore[3];
 };
 
 void default_cdfs(Cdfs* c, int base_q_idx) {
@@ -246,6 +256,9 @@ void default_cdfs(Cdfs* c, int base_q_idx) {
   CP(c->intra_ext_tx, kDefIntraExtTx);
   CP(c->cfl_sign, kDefCflSign);
   CP(c->cfl_alpha, kDefCflAlpha);
+  CP(c->switchable_restore, kDefSwitchableRestore);
+  CP(c->wiener_restore, kDefWienerRestore);
+  CP(c->sgrproj_restore, kDefSgrprojRestore);
 #undef CP
 }
 
@@ -341,6 +354,33 @@ struct SymbolDecoder {
     int r = symbol(tmp, 2);
     update = u;
     return r;
+  }
+  // the specification's NS(n) and decode_signed_subexp_with_ref_bool
+  // (libaom's aom_read_primitive_quniform and _refsubexpfin)
+  int quniform(int n) {
+    if (n <= 1) return 0;
+    int l = floor_log2((uint32_t)n) + 1, m = (1 << l) - n;
+    int v = literal(l - 1);
+    return v < m ? v : (v << 1) - m + bit();
+  }
+  int subexp_ref(int low, int high, int k, int ref) {
+    int n = high - low, r = ref - low, mk = 0, v;
+    for (int i = 0;; i++) {
+      int b2 = i ? k + i - 1 : k, a = 1 << b2;
+      if (n <= mk + 3 * a) {
+        v = quniform(n - mk) + mk;
+        break;
+      }
+      if (!bit()) {
+        v = literal(b2) + mk;
+        break;
+      }
+      mk += a;
+    }
+    auto recenter = [](int r0, int v0) {
+      return v0 > 2 * r0 ? v0 : (v0 & 1) ? r0 - ((v0 + 1) >> 1) : r0 + (v0 >> 1);
+    };
+    return low + ((r << 1) <= n ? recenter(r, v) : n - 1 - recenter(n - 1 - r, v));
   }
   int golomb() {
     int length = 0, i = 0;
@@ -501,6 +541,21 @@ void parse_sequence_header(Bits& b, SequenceHeader& s) {
   s.seen = true;
 }
 
+// libaom's RestorationType
+enum { RESTORE_NONE, RESTORE_WIENER, RESTORE_SGRPROJ, RESTORE_SWITCHABLE };
+
+struct FilmGrain {
+  int apply = 0, seed = 0;
+  int num_y = 0, num_cb = 0, num_cr = 0;
+  int y_points[14][2], cb_points[10][2], cr_points[10][2];  // (value, scaling)
+  int scaling_from_luma = 0, scaling_shift = 8;
+  int ar_lag = 0, ar_shift = 6, grain_scale_shift = 0;
+  int ar_y[24], ar_cb[25], ar_cr[25];  // minus 128
+  int cb_mult = 0, cb_luma_mult = 0, cb_offset = 0;
+  int cr_mult = 0, cr_luma_mult = 0, cr_offset = 0;
+  int overlap = 0, restricted = 0;
+};
+
 struct FrameHeader {
   int width = 0, height = 0;
   int mi_cols = 0, mi_rows = 0;
@@ -534,8 +589,13 @@ struct FrameHeader {
   int cdef_damping = 3, cdef_bits = 0;
   int cdef_y_pri[8] = {0}, cdef_y_sec[8] = {0}, cdef_uv_pri[8] = {0},
       cdef_uv_sec[8] = {0};
+  // loop restoration: the type (RESTORE_*) of each plane, and its unit size
+  // where any plane has a type
+  int lr_type[3] = {RESTORE_NONE, RESTORE_NONE, RESTORE_NONE};
+  int lr_unit_size[3] = {0, 0, 0};
   int tx_mode_select = 0, only_4x4 = 0;
   int reduced_tx_set = 0;
+  FilmGrain grain;
   bool seen = false;
 };
 
@@ -550,6 +610,58 @@ int tile_log2(int blk, int target) {
 }
 
 int read_delta_q(Bits& b) { return b.f(1) ? b.su(7) : 0; }
+
+void read_points(Bits& b, int n, int max, int (*pts)[2], const char* what) {
+  if (n > max) bad(std::string("film grain (") + what + " points)");
+  for (int i = 0; i < n; i++) {
+    pts[i][0] = b.f(8);
+    pts[i][1] = b.f(8);
+    if (i && pts[i][0] <= pts[i - 1][0])
+      bad(std::string("film grain (") + what + " points not increasing)");
+  }
+}
+
+void parse_film_grain(Bits& b, const SequenceHeader& s, FilmGrain& g) {
+  g.apply = b.f(1);
+  if (!g.apply) return;
+  g.seed = b.f(16);
+  // update_grain is 1 in a key frame
+  g.num_y = b.f(4);
+  read_points(b, g.num_y, 14, g.y_points, "luma");
+  g.scaling_from_luma = s.mono ? 0 : (int)b.f(1);
+  if (!s.mono && !g.scaling_from_luma && !(s.ssx && s.ssy && !g.num_y)) {
+    g.num_cb = b.f(4);
+    read_points(b, g.num_cb, 10, g.cb_points, "cb");
+    g.num_cr = b.f(4);
+    read_points(b, g.num_cr, 10, g.cr_points, "cr");
+    if (s.ssx && s.ssy && !g.num_cb != !g.num_cr)
+      bad("film grain (4:2:0 grain on one chroma plane)");
+  }
+  g.scaling_shift = b.f(2) + 8;
+  g.ar_lag = b.f(2);
+  int num_pos = 2 * g.ar_lag * (g.ar_lag + 1);
+  if (g.num_y)
+    for (int i = 0; i < num_pos; i++) g.ar_y[i] = (int)b.f(8) - 128;
+  int num_chroma = num_pos + (g.num_y > 0);
+  if (g.scaling_from_luma || g.num_cb)
+    for (int i = 0; i < num_chroma; i++) g.ar_cb[i] = (int)b.f(8) - 128;
+  if (g.scaling_from_luma || g.num_cr)
+    for (int i = 0; i < num_chroma; i++) g.ar_cr[i] = (int)b.f(8) - 128;
+  g.ar_shift = b.f(2) + 6;
+  g.grain_scale_shift = b.f(2);
+  if (g.num_cb) {
+    g.cb_mult = b.f(8);
+    g.cb_luma_mult = b.f(8);
+    g.cb_offset = b.f(9);
+  }
+  if (g.num_cr) {
+    g.cr_mult = b.f(8);
+    g.cr_luma_mult = b.f(8);
+    g.cr_offset = b.f(9);
+  }
+  g.overlap = b.f(1);
+  g.restricted = b.f(1);
+}
 
 void parse_frame_header(Bits& b, const SequenceHeader& s, FrameHeader& h,
                         int temporal_id, int spatial_id) {
@@ -774,8 +886,26 @@ void parse_frame_header(Bits& b, const SequenceHeader& s, FrameHeader& h,
   }
   // lr_params
   if (!h.all_lossless && s.restoration) {
-    for (int p = 0; p < (s.mono ? 1 : 3); p++)
-      if (b.f(2)) refuse("loop restoration");
+    static const int remap[4] = {RESTORE_NONE, RESTORE_SWITCHABLE, RESTORE_WIENER,
+                                 RESTORE_SGRPROJ};
+    bool uses = false, uses_chroma = false;
+    for (int p = 0; p < (s.mono ? 1 : 3); p++) {
+      h.lr_type[p] = remap[b.f(2)];
+      if (h.lr_type[p] != RESTORE_NONE) {
+        uses = true;
+        uses_chroma = uses_chroma || p > 0;
+      }
+    }
+    if (uses) {
+      int shift = b.f(1);
+      if (s.sb128)
+        shift++;
+      else if (shift)
+        shift += b.f(1);
+      int uv_shift = s.ssx && s.ssy && uses_chroma ? (int)b.f(1) : 0;
+      for (int p = 0; p < (s.mono ? 1 : 3); p++)
+        h.lr_unit_size[p] = (256 >> (2 - shift)) >> (p ? uv_shift : 0);
+    }
   }
   // read_tx_mode
   if (h.coded_lossless)
@@ -786,7 +916,8 @@ void parse_frame_header(Bits& b, const SequenceHeader& s, FrameHeader& h,
   // off
   h.reduced_tx_set = b.f(1);
   // global motion: none in an intra frame
-  if (s.film_grain && b.f(1)) refuse("film grain");
+  // film_grain_params (a shown frame)
+  if (s.film_grain) parse_film_grain(b, s, h.grain);
   h.seen = true;
 }
 
@@ -809,6 +940,25 @@ const uint8_t kModeToTxType[14] = {DCT_DCT,   ADST_DCT,  DCT_ADST, DCT_DCT,
                                    ADST_ADST, ADST_DCT,  DCT_ADST, DCT_ADST,
                                    ADST_DCT,  ADST_ADST, ADST_DCT, DCT_ADST,
                                    ADST_ADST, DCT_DCT};
+// the specification's Wiener_Taps_Min/Max/K and Sgrproj_Xqd_Min/Max
+// (libaom's WIENER_FILT_TAP*_MINV/MAXV/SUBEXP_K and SGRPROJ_PRJ_MIN*/MAX*,
+// macros its code folds in); the references each tile starts from come
+// from libaom (kWienerTapsMid, kSgrprojXqdMid)
+const int kWienerTapsMin[3] = {-5, -23, -17};
+const int kWienerTapsMax[3] = {10, 8, 46};
+const int kWienerTapsK[3] = {1, 2, 3};
+const int kSgrprojXqdMin[2] = {-96, -32};
+const int kSgrprojXqdMax[2] = {31, 95};
+constexpr int kSgrprojSubexpK = 4;
+
+// a restoration unit's coefficients as read
+struct LrUnit {
+  uint8_t type = RESTORE_NONE;
+  uint8_t set = 0;           // self-guided parameter set
+  int8_t wiener[2][3] = {};  // vertical, horizontal taps 0-2
+  int16_t xqd[2] = {};
+};
+
 const uint8_t kFilterIntraModeToDir[5] = {DC_PRED, V_PRED, H_PRED, D157_PRED, DC_PRED};
 // libaom's av1_ext_tx_inv for the intra sets (1: DTT4_IDTX_1DDCT, 2:
 // DTT4_IDTX)
@@ -884,6 +1034,12 @@ class Decoder {
   std::vector<uint8_t> tx_types;  // per 4x4 luma unit of the frame
   int32_t quant[1024];
   int32_t dequant[64 * 64];
+  // loop restoration: each plane's units (rows x cols), the references of
+  // the tile being read, and which unit types were read (bit per RESTORE_*)
+  std::vector<LrUnit> lr_units[3];
+  int lr_rows[3] = {0, 0, 0}, lr_cols[3] = {0, 0, 0};
+  int ref_wiener[3][2][3], ref_xqd[3][2];
+  int lr_read_types[3] = {0, 0, 0};
 
   Decoder(const SequenceHeader& seq, const FrameHeader& fh) : s(seq), h(fh) {
     num_planes = s.mono ? 1 : 3;
@@ -908,7 +1064,15 @@ class Decoder {
     cdef_idx.assign((size_t)cdef_cols * ((h.mi_rows + 15) >> 4), -1);
     tx_types.assign((size_t)(aw >> 2) * (ah >> 2), DCT_DCT);
     default_cdfs(&frame_cdf, h.base_q_idx);
+    for (int p = 0; p < num_planes; p++) {
+      if (h.lr_type[p] == RESTORE_NONE) continue;
+      int sx = p ? s.ssx : 0, sy = p ? s.ssy : 0, size = h.lr_unit_size[p];
+      lr_rows[p] = lr_count_units(size, (h.height + sy) >> sy);
+      lr_cols[p] = lr_count_units(size, (h.width + sx) >> sx);
+      lr_units[p].assign((size_t)lr_rows[p] * lr_cols[p], LrUnit());
+    }
   }
+  static int lr_count_units(int size, int n) { return std::max((n + (size >> 1)) / size, 1); }
 
   MiInfo& at(int r, int c) { return mi[(size_t)r * h.mi_cols + c]; }
   bool inside(int r, int c) const {
@@ -981,6 +1145,11 @@ class Decoder {
       std::fill(above_dc[p].begin(), above_dc[p].end(), 0);
     }
     for (int i = 0; i < 4; i++) delta_lf[i] = 0;
+    for (int p = 0; p < num_planes; p++)
+      for (int pass = 0; pass < 2; pass++) {
+        ref_xqd[p][pass] = kSgrprojXqdMid[pass];
+        for (int i = 0; i < 3; i++) ref_wiener[p][pass][i] = kWienerTapsMid[i];
+      }
     int sb_size = s.sb128 ? BLOCK_128X128 : BLOCK_64X64;
     int sb4 = s.sb128 ? 32 : 16;
     for (int r = mi_row_start; r < mi_row_end; r += sb4) {
@@ -991,7 +1160,58 @@ class Decoder {
       for (int c = mi_col_start; c < mi_col_end; c += sb4) {
         read_deltas = h.delta_q_present;
         clear_block_decoded(r, c, sb4);
+        read_lr(r, c, sb4);
         decode_partition(r, c, sb_size);
+      }
+    }
+  }
+
+  // the restoration units whose top-left lies in the superblock at (r, c)
+  void read_lr(int r, int c, int sb4) {
+    for (int p = 0; p < num_planes; p++) {
+      if (h.lr_type[p] == RESTORE_NONE) continue;
+      int sx = p ? s.ssx : 0, sy = p ? s.ssy : 0, size = h.lr_unit_size[p];
+      int row0 = (r * (4 >> sy) + size - 1) / size;
+      int row1 = std::min(lr_rows[p], ((r + sb4) * (4 >> sy) + size - 1) / size);
+      int col0 = (c * (4 >> sx) + size - 1) / size;
+      int col1 = std::min(lr_cols[p], ((c + sb4) * (4 >> sx) + size - 1) / size);
+      for (int ur = row0; ur < row1; ur++)
+        for (int uc = col0; uc < col1; uc++)
+          read_lr_unit(p, lr_units[p][(size_t)ur * lr_cols[p] + uc]);
+    }
+  }
+  void read_lr_unit(int p, LrUnit& u) {
+    int type;
+    if (h.lr_type[p] == RESTORE_WIENER)
+      type = sd.symbol(cdf.wiener_restore, 2) ? RESTORE_WIENER : RESTORE_NONE;
+    else if (h.lr_type[p] == RESTORE_SGRPROJ)
+      type = sd.symbol(cdf.sgrproj_restore, 2) ? RESTORE_SGRPROJ : RESTORE_NONE;
+    else
+      type = sd.symbol(cdf.switchable_restore, 3);
+    u.type = (uint8_t)type;
+    lr_read_types[p] |= 1 << type;
+    if (type == RESTORE_WIENER) {
+      for (int pass = 0; pass < 2; pass++)
+        for (int j = 0; j < 3; j++) {
+          int v = 0;
+          if (j || !p)
+            v = sd.subexp_ref(kWienerTapsMin[j], kWienerTapsMax[j] + 1, kWienerTapsK[j],
+                              ref_wiener[p][pass][j]);
+          u.wiener[pass][j] = (int8_t)v;
+          ref_wiener[p][pass][j] = v;
+        }
+    } else if (type == RESTORE_SGRPROJ) {
+      u.set = (uint8_t)sd.literal(4);
+      const int32_t* prm = kSgrParams[u.set];
+      for (int i = 0; i < 2; i++) {
+        int v = 0;
+        if (prm[i])
+          v = sd.subexp_ref(kSgrprojXqdMin[i], kSgrprojXqdMax[i] + 1, kSgrprojSubexpK,
+                            ref_xqd[p][i]);
+        else if (i == 1)
+          v = clip3(kSgrprojXqdMin[1], kSgrprojXqdMax[1], 128 - ref_xqd[p][0]);
+        u.xqd[i] = (int16_t)v;
+        ref_xqd[p][i] = v;
       }
     }
   }
@@ -2628,6 +2848,420 @@ struct Cdef {
   }
 };
 
+// ------------------------------------------------------- loop restoration
+// libaom's av1_loop_restoration_filter_frame: each plane in stripes of 64
+// rows (of the plane's 64 >> ssy) offset 8 (8 >> ssy) up, each stripe's
+// units filtered with the Wiener filter or the self-guided filter. A
+// stripe reads the CDEF'd frame; the rows above and below it come from the
+// deblocked frame before CDEF (two rows, the farther one repeated), except
+// at the frame's top and bottom, where the CDEF'd edge row is repeated.
+struct LoopRestoration {
+  Decoder& d;
+  const std::vector<uint16_t>* deblocked;  // per plane, the planes' layout
+  int bd;
+  LoopRestoration(Decoder& dec, const std::vector<uint16_t>* db)
+      : d(dec), deblocked(db), bd(dec.s.bit_depth) {}
+
+  void run() {
+    for (int p = 0; p < d.num_planes; p++)
+      if (d.h.lr_type[p] != RESTORE_NONE) plane(p);
+  }
+
+  void plane(int p) {
+    Plane& P = d.planes[p];
+    int sx = p ? d.s.ssx : 0, sy = p ? d.s.ssy : 0;
+    int W = (d.h.width + sx) >> sx, H = (d.h.height + sy) >> sy;
+    int size = d.h.lr_unit_size[p], stripe_h = 64 >> sy, off = 8 >> sy;
+    std::vector<uint16_t> out(P.px);
+    std::vector<int32_t> src;
+    const int pw = W + 6;
+    for (int k = 0;; k++) {
+      int ys = k * stripe_h - off, ye = ys + stripe_h - 1;  // the stripe's rows
+      int y0 = std::max(0, ys), y1 = std::min(H, ye + 1);
+      if (y0 >= H) break;
+      int rows = y1 - y0;
+      // the stripe's source, 3 samples around
+      src.assign((size_t)pw * (rows + 6), 0);
+      for (int i = -3; i < rows + 3; i++) {
+        int y = clip3(0, H - 1, y0 + i);
+        const uint16_t* row;
+        if (y < ys)
+          row = deblocked[p].data() + (size_t)std::max(ys - 2, y) * P.stride;
+        else if (y > ye)
+          row = deblocked[p].data() + (size_t)std::min(ye + 2, y) * P.stride;
+        else
+          row = P.row(y);
+        int32_t* dst = &src[(size_t)(i + 3) * pw];
+        for (int x = -3; x < W + 3; x++) dst[x + 3] = row[clip3(0, W - 1, x)];
+      }
+      int unit_row = std::min(d.lr_rows[p] - 1, (y0 + off) / size);
+      for (int uc = 0; uc < d.lr_cols[p]; uc++) {
+        const LrUnit& u = d.lr_units[p][(size_t)unit_row * d.lr_cols[p] + uc];
+        int x0 = uc * size, x1 = uc == d.lr_cols[p] - 1 ? W : x0 + size;
+        const int32_t* at = &src[(size_t)3 * pw + 3 + x0];
+        uint16_t* dst = &out[(size_t)y0 * P.stride + x0];
+        if (u.type == RESTORE_WIENER)
+          wiener(u, at, pw, x1 - x0, rows, dst, P.stride);
+        else if (u.type == RESTORE_SGRPROJ)
+          self_guided(u, at, pw, x1 - x0, rows, y0 & 1, dst, P.stride);
+      }
+    }
+    P.px.swap(out);
+  }
+
+  // libaom's av1_wiener_convolve_add_src: 7 taps (the centre +128), rows
+  // then columns, the rounding between them by bit depth
+  void wiener(const LrUnit& u, const int32_t* src, int ss, int w, int h, uint16_t* dst,
+              int ds) {
+    int r0 = bd == 12 ? 5 : 3, r1 = bd == 12 ? 9 : 11;
+    int taps[2][7];
+    for (int pass = 0; pass < 2; pass++) {
+      const int8_t* c = u.wiener[pass];
+      int* t = taps[pass];
+      t[0] = t[6] = c[0];
+      t[1] = t[5] = c[1];
+      t[2] = t[4] = c[2];
+      t[3] = -2 * (c[0] + c[1] + c[2]);
+    }
+    const int limit = (1 << (bd + 8 - r0)) - 1, maxv = (1 << bd) - 1;
+    std::vector<int32_t> tmp((size_t)(h + 6) * w);
+    for (int i = 0; i < h + 6; i++) {
+      const int32_t* row = src + (std::ptrdiff_t)(i - 3) * ss;
+      for (int j = 0; j < w; j++) {
+        int sum = (row[j] << 7) + (1 << (bd + 6));
+        for (int t = 0; t < 7; t++) sum += taps[1][t] * row[j + t - 3];
+        tmp[(size_t)i * w + j] = clip3(0, limit, (sum + (1 << (r0 - 1))) >> r0);
+      }
+    }
+    for (int i = 0; i < h; i++)
+      for (int j = 0; j < w; j++) {
+        const int32_t* col = &tmp[(size_t)i * w + j];
+        int sum = (col[3 * w] << 7) - (1 << (bd + r1 - 1));
+        for (int t = 0; t < 7; t++) sum += taps[0][t] * col[t * w];
+        dst[(size_t)i * ds + j] = (uint16_t)clip3(0, maxv, (sum + (1 << (r1 - 1))) >> r1);
+      }
+  }
+
+  // libaom's av1_apply_selfguided_restoration: the box filter at radius 2
+  // (its A and B on every other row; odd: whether the first row is odd)
+  // and at radius 1, projected with xqd
+  void self_guided(const LrUnit& u, const int32_t* src, int ss, int w, int h, int odd,
+                   uint16_t* dst, int ds) {
+    const int32_t* prm = kSgrParams[u.set];
+    std::vector<int32_t> flt[2];
+    for (int pass = 0; pass < 2; pass++)
+      if (prm[pass]) box_filter(pass, prm[pass], (uint32_t)prm[2 + pass], src, ss, w, h, odd,
+                                flt[pass]);
+    int xq0, xq1;
+    if (!prm[0]) {
+      xq0 = 0;
+      xq1 = 128 - u.xqd[1];
+    } else if (!prm[1]) {
+      xq0 = u.xqd[0];
+      xq1 = 0;
+    } else {
+      xq0 = u.xqd[0];
+      xq1 = 128 - u.xqd[0] - u.xqd[1];
+    }
+    const int maxv = (1 << bd) - 1;
+    for (int i = 0; i < h; i++)
+      for (int j = 0; j < w; j++) {
+        size_t k = (size_t)i * w + j;
+        int32_t uu = src[(std::ptrdiff_t)i * ss + j] << 4;
+        int32_t v = uu << 7;
+        if (prm[0]) v += xq0 * (flt[0][k] - uu);
+        if (prm[1]) v += xq1 * (flt[1][k] - uu);
+        int16_t o = (int16_t)((v + (1 << 10)) >> 11);
+        dst[(size_t)i * ds + j] = (uint16_t)clip3<int>(0, maxv, o);
+      }
+  }
+
+  void box_filter(int pass, int r, uint32_t scale, const int32_t* src, int ss, int w, int h,
+                  int odd, std::vector<int32_t>& flt) {
+    const int aw = w + 2;
+    std::vector<int32_t> A((size_t)aw * (h + 2)), B((size_t)aw * (h + 2));
+    const uint32_t n = (2 * r + 1) * (2 * r + 1), one_by_n = (uint32_t)kOneByX[n - 1];
+    for (int i = -1; i < h + 1; i++) {
+      // radius 2 keeps the rows of the other parity than the first row's
+      if (pass == 0 && ((i + odd) & 1) == 0) continue;
+      for (int j = -1; j < w + 1; j++) {
+        uint32_t sum = 0, sq = 0;
+        for (int dy = -r; dy <= r; dy++)
+          for (int dx = -r; dx <= r; dx++) {
+            uint32_t c = (uint32_t)src[(std::ptrdiff_t)(i + dy) * ss + j + dx];
+            sum += c;
+            sq += c * c;
+          }
+        uint32_t a = (sq + ((1u << (2 * (bd - 8))) >> 1)) >> (2 * (bd - 8));
+        uint32_t b = (sum + ((1u << (bd - 8)) >> 1)) >> (bd - 8);
+        uint32_t pp = a * n < b * b ? 0 : a * n - b * b;
+        uint32_t z = (pp * scale + (1u << 19)) >> 20;
+        int32_t av = kXByXplus1[std::min<uint32_t>(z, 255)];
+        size_t k = (size_t)(i + 1) * aw + j + 1;
+        A[k] = av;
+        B[k] = (int32_t)(((uint32_t)(256 - av) * sum * one_by_n + (1u << 11)) >> 12);
+      }
+    }
+    flt.assign((size_t)w * h, 0);
+    for (int i = 0; i < h; i++)
+      for (int j = 0; j < w; j++) {
+        auto at = [&](const std::vector<int32_t>& v, int di, int dj) {
+          return v[(size_t)(i + 1 + di) * aw + j + 1 + dj];
+        };
+        int32_t a, b;
+        int nb;
+        if (pass == 1) {
+          a = (at(A, 0, 0) + at(A, 0, -1) + at(A, 0, 1) + at(A, -1, 0) + at(A, 1, 0)) * 4 +
+              (at(A, -1, -1) + at(A, -1, 1) + at(A, 1, -1) + at(A, 1, 1)) * 3;
+          b = (at(B, 0, 0) + at(B, 0, -1) + at(B, 0, 1) + at(B, -1, 0) + at(B, 1, 0)) * 4 +
+              (at(B, -1, -1) + at(B, -1, 1) + at(B, 1, -1) + at(B, 1, 1)) * 3;
+          nb = 5;
+        } else if (((i + odd) & 1) == 0) {  // between two kept rows
+          a = (at(A, -1, 0) + at(A, 1, 0)) * 6 +
+              (at(A, -1, -1) + at(A, 1, -1) + at(A, -1, 1) + at(A, 1, 1)) * 5;
+          b = (at(B, -1, 0) + at(B, 1, 0)) * 6 +
+              (at(B, -1, -1) + at(B, 1, -1) + at(B, -1, 1) + at(B, 1, 1)) * 5;
+          nb = 5;
+        } else {
+          a = at(A, 0, 0) * 6 + (at(A, 0, -1) + at(A, 0, 1)) * 5;
+          b = at(B, 0, 0) * 6 + (at(B, 0, -1) + at(B, 0, 1)) * 5;
+          nb = 4;
+        }
+        int32_t v = a * src[(std::ptrdiff_t)i * ss + j] + b;
+        int sh = 8 + nb - 4;
+        flt[(size_t)i * w + j] = (v + (1 << (sh - 1))) >> sh;
+      }
+  }
+};
+
+// ------------------------------------------------------- film grain
+// libaom's av1_add_film_grain on the output picture (the specification's
+// film grain synthesis): the grain templates from the Gaussian sequence
+// and the auto-regressive filter, 32x32 luma blocks at random offsets per
+// 32-row stripe, blended over 2 samples (1 subsampled) where overlap_flag
+// is set, scaled by the piecewise-linear lookup of each sample (chroma's
+// of the luma average and itself) and clipped to the full or restricted
+// range.
+struct FilmGrainSynthesis {
+  Decoder& d;
+  const FilmGrain& g;
+  int bd, gmin, gmax;
+  uint16_t rnd = 0;
+  explicit FilmGrainSynthesis(Decoder& dec)
+      : d(dec), g(dec.h.grain), bd(dec.s.bit_depth) {
+    gmin = -(128 << (bd - 8));
+    gmax = (128 << (bd - 8)) - 1;
+  }
+
+  int random(int bits) {
+    int bit = (rnd ^ (rnd >> 1) ^ (rnd >> 3) ^ (rnd >> 12)) & 1;
+    rnd = (uint16_t)((rnd >> 1) | (bit << 15));
+    return (rnd >> (16 - bits)) & ((1 << bits) - 1);
+  }
+  void seed_stripe(int luma_num) {
+    rnd = (uint16_t)g.seed;
+    rnd ^= (uint16_t)(((luma_num * 37 + 178) & 255) << 8);
+    rnd ^= (uint16_t)((luma_num * 173 + 105) & 255);
+  }
+  static int round2s(int x, int n) { return n ? (x + (1 << (n - 1))) >> n : x; }
+
+  // the 82x73 luma template, or the chroma ones (44 wide and 38 high where
+  // subsampled)
+  void templates(std::vector<int>* t, int cw, int ch) {
+    int sx = d.s.ssx, sy = d.s.ssy;
+    int shift = 12 - bd + g.grain_scale_shift;
+    t[0].assign(82 * 73, 0);
+    rnd = (uint16_t)g.seed;
+    if (g.num_y)
+      for (int i = 0; i < 82 * 73; i++) t[0][i] = round2s(kGaussianSequence[random(11)], shift);
+    int lag = g.ar_lag, ar = g.ar_shift;
+    if (g.num_y)
+      for (int y = 3; y < 73; y++)
+        for (int x = 3; x < 82 - 3; x++) {
+          int sum = 0, pos = 0;
+          for (int dy = -lag; dy <= 0; dy++)
+            for (int dx = -lag; dx <= lag; dx++) {
+              if (!dy && !dx) break;
+              sum += t[0][(y + dy) * 82 + x + dx] * g.ar_y[pos++];
+            }
+          int& v = t[0][y * 82 + x];
+          v = clip3(gmin, gmax, v + round2s(sum, ar));
+        }
+    if (d.num_planes == 1) return;
+    bool on[2] = {g.num_cb || g.scaling_from_luma, g.num_cr || g.scaling_from_luma};
+    for (int c = 0; c < 2; c++) {
+      t[1 + c].assign((size_t)cw * ch, 0);
+      if (!on[c]) continue;
+      seed_stripe(c ? 11 : 7);
+      for (int i = 0; i < cw * ch; i++) t[1 + c][i] = round2s(kGaussianSequence[random(11)], shift);
+    }
+    for (int y = 3; y < ch; y++)
+      for (int x = 3; x < cw - 3; x++) {
+        int sum[2] = {0, 0}, pos = 0;
+        for (int dy = -lag; dy <= 0; dy++)
+          for (int dx = -lag; dx <= lag; dx++) {
+            if (!dy && !dx) {
+              if (g.num_y) {
+                int luma = 0, lx = ((x - 3) << sx) + 3, ly = ((y - 3) << sy) + 3;
+                for (int i = 0; i <= sy; i++)
+                  for (int j = 0; j <= sx; j++) luma += t[0][(ly + i) * 82 + lx + j];
+                luma = round2s(luma, sx + sy);
+                sum[0] += luma * g.ar_cb[pos];
+                sum[1] += luma * g.ar_cr[pos];
+              }
+              break;
+            }
+            sum[0] += g.ar_cb[pos] * t[1][(y + dy) * cw + x + dx];
+            sum[1] += g.ar_cr[pos] * t[2][(y + dy) * cw + x + dx];
+            pos++;
+          }
+        for (int c = 0; c < 2; c++)
+          if (on[c]) {
+            int& v = t[1 + c][y * cw + x];
+            v = clip3(gmin, gmax, v + round2s(sum[c], ar));
+          }
+      }
+  }
+
+  static void scaling_lut(const int (*pts)[2], int n, int* lut) {
+    std::fill(lut, lut + 256, 0);
+    if (!n) return;
+    for (int i = 0; i < pts[0][0]; i++) lut[i] = pts[0][1];
+    for (int i = 0; i < n - 1; i++) {
+      int dy = pts[i + 1][1] - pts[i][1], dx = pts[i + 1][0] - pts[i][0];
+      int64_t delta = (int64_t)dy * ((65536 + (dx >> 1)) / dx);
+      for (int x = 0; x < dx; x++) lut[pts[i][0] + x] = pts[i][1] + (int)((x * delta + 32768) >> 16);
+    }
+    for (int i = pts[n - 1][0]; i < 256; i++) lut[i] = pts[n - 1][1];
+  }
+  int scale(const int* lut, int index) const {
+    int shift = bd - 8, x = index >> shift;
+    if (!shift || x == 255) return lut[x];
+    return lut[x] + (((lut[x + 1] - lut[x]) * (index & ((1 << shift) - 1)) + (1 << (shift - 1))) >>
+                     shift);
+  }
+
+  void run() {
+    const int W = d.h.width, H = d.h.height, sx = d.s.ssx, sy = d.s.ssy;
+    const int np = d.num_planes;
+    const int cw = sx ? 44 : 82, ch = sy ? 38 : 73;
+    std::vector<int> tmpl[3];
+    templates(tmpl, cw, ch);
+    // each plane's noise: the specification's noise stripes, blended
+    std::vector<int> noise[3];
+    int pw[3], ph[3];
+    for (int p = 0; p < np; p++) {
+      int psx = p ? sx : 0, psy = p ? sy : 0;
+      pw[p] = (W + psx) >> psx;
+      ph[p] = (H + psy) >> psy;
+    }
+    const int stripes = ((H + 1) / 2 + 15) / 16;
+    std::vector<int> stripe[3];
+    int sw[3], sh[3];
+    for (int p = 0; p < np; p++) {
+      int psx = p ? sx : 0, psy = p ? sy : 0;
+      sw[p] = pw[p] + 34;
+      sh[p] = 34 >> psy;
+      stripe[p].assign((size_t)stripes * sh[p] * sw[p], 0);
+    }
+    for (int n = 0; n < stripes; n++) {
+      seed_stripe(n);
+      for (int x = 0; x < (W + 1) / 2; x += 16) {
+        int r = random(8), ox = r >> 4, oy = r & 15;
+        for (int p = 0; p < np; p++) {
+          int psx = p ? sx : 0, psy = p ? sy : 0, tw = p ? cw : 82;
+          int px0 = psx ? 6 + ox : 9 + ox * 2, py0 = psy ? 6 + oy : 9 + oy * 2;
+          int* st = &stripe[p][(size_t)n * sh[p] * sw[p]];
+          int base = x * 2 >> psx;
+          for (int i = 0; i < (34 >> psy); i++)
+            for (int j = 0; j < (34 >> psx); j++) {
+              int v = tmpl[p][(py0 + i) * tw + px0 + j];
+              int& old = st[(size_t)i * sw[p] + base + j];
+              if (g.overlap && x > 0) {
+                if (!psx && j < 2)
+                  v = clip3(gmin, gmax, round2s(j ? old * 17 + v * 27 : old * 27 + v * 17, 5));
+                else if (psx && j == 0)
+                  v = clip3(gmin, gmax, round2s(old * 23 + v * 22, 5));
+              }
+              old = v;
+            }
+        }
+      }
+    }
+    for (int p = 0; p < np; p++) {
+      int psy = p ? sy : 0;
+      noise[p].assign((size_t)pw[p] * ph[p], 0);
+      for (int y = 0; y < ph[p]; y++) {
+        int n = y >> (5 - psy), i = y - (n << (5 - psy));
+        const int* st = &stripe[p][((size_t)n * sh[p] + i) * sw[p]];
+        const int* prev = n ? &stripe[p][((size_t)(n - 1) * sh[p] + i + (32 >> psy)) * sw[p]]
+                            : nullptr;
+        for (int x = 0; x < pw[p]; x++) {
+          int v = st[x];
+          if (g.overlap && n > 0) {
+            if (!psy && i < 2)
+              v = clip3(gmin, gmax, round2s(i ? prev[x] * 17 + v * 27 : prev[x] * 27 + v * 17, 5));
+            else if (psy && i == 0)
+              v = clip3(gmin, gmax, round2s(prev[x] * 23 + v * 22, 5));
+          }
+          noise[p][(size_t)y * pw[p] + x] = v;
+        }
+      }
+    }
+    // scaling
+    int lut[3][256];
+    scaling_lut(g.y_points, g.num_y, lut[0]);
+    if (g.scaling_from_luma) {
+      std::copy(lut[0], lut[0] + 256, lut[1]);
+      std::copy(lut[0], lut[0] + 256, lut[2]);
+    } else {
+      scaling_lut(g.cb_points, g.num_cb, lut[1]);
+      scaling_lut(g.cr_points, g.num_cr, lut[2]);
+    }
+    int lo = 0, max_luma = (256 << (bd - 8)) - 1, max_chroma = max_luma;
+    if (g.restricted) {
+      lo = 16 << (bd - 8);
+      max_luma = 235 << (bd - 8);
+      max_chroma = d.s.mc == 0 ? max_luma : 240 << (bd - 8);
+    }
+    const int round = 1 << (g.scaling_shift - 1), top = (256 << (bd - 8)) - 1;
+    Plane& Y = d.planes[0];
+    if (np > 1) {
+      int mult[2] = {g.cb_mult - 128, g.cr_mult - 128};
+      int luma_mult[2] = {g.cb_luma_mult - 128, g.cr_luma_mult - 128};
+      int offset[2] = {(g.cb_offset - 256) << (bd - 8), (g.cr_offset - 256) << (bd - 8)};
+      if (g.scaling_from_luma)
+        for (int c = 0; c < 2; c++) {
+          mult[c] = 0;
+          luma_mult[c] = 64;
+          offset[c] = 0;
+        }
+      for (int c = 0; c < 2; c++) {
+        if (!(c ? g.num_cr : g.num_cb) && !g.scaling_from_luma) continue;
+        Plane& C = d.planes[1 + c];
+        for (int y = 0; y < ph[1]; y++)
+          for (int x = 0; x < pw[1]; x++) {
+            const uint16_t* lrow = Y.row(y << sy);
+            int lx = x << sx;
+            int avg = sx ? (lrow[lx] + lrow[std::min(lx + 1, W - 1)] + 1) >> 1 : lrow[lx];
+            int orig = C.at(y, x);
+            int merged = clip3(0, top, ((avg * luma_mult[c] + mult[c] * orig) >> 6) + offset[c]);
+            int nz = noise[1 + c][(size_t)y * pw[1] + x];
+            C.at(y, x) = (uint16_t)clip3(
+                lo, max_chroma, orig + ((scale(lut[1 + c], merged) * nz + round) >> g.scaling_shift));
+          }
+      }
+    }
+    if (g.num_y)
+      for (int y = 0; y < H; y++)
+        for (int x = 0; x < W; x++) {
+          int orig = Y.at(y, x), nz = noise[0][(size_t)y * W + x];
+          Y.at(y, x) = (uint16_t)clip3(
+              lo, max_luma, orig + ((scale(lut[0], orig) * nz + round) >> g.scaling_shift));
+        }
+  }
+};
+
 // ------------------------------------------------------- OBUs
 struct Picture {
   SequenceHeader seq;
@@ -2688,8 +3322,16 @@ void decode_obus(const uint8_t* data, size_t n, Picture& pic) {
   }
   if (!pic.dec) bad("data (no frame)");
   if (!done) bad("data (ends before the frame's last tile)");
-  LoopFilter(*pic.dec).run();
-  Cdef(*pic.dec).run();
+  Decoder& dec = *pic.dec;
+  LoopFilter(dec).run();
+  bool lr = false;
+  for (int p = 0; p < dec.num_planes; p++) lr = lr || pic.fh.lr_type[p] != RESTORE_NONE;
+  std::vector<uint16_t> deblocked[3];
+  if (lr)
+    for (int p = 0; p < dec.num_planes; p++) deblocked[p] = dec.planes[p].px;
+  Cdef(dec).run();
+  if (lr) LoopRestoration(dec, deblocked).run();
+  if (pic.fh.grain.apply) FilmGrainSynthesis(dec).run();
 }
 
 // ------------------------------------------------------- YUV -> RGB
@@ -2962,16 +3604,27 @@ int report(const Error& e, char* err, int errlen) {
 extern "C" {
 
 // Decode the OBUs of one AV1 still image into a picture (*handle, freed by
-// thc_av1_release); meta: width, height, bit depth, monochrome, subsampling
-// x, y, colour primaries, transfer, matrix, full range.
+// thc_av1_release); meta (20): width, height, bit depth, monochrome,
+// subsampling x, y, colour primaries, transfer, matrix, full range; per
+// plane the loop restoration type (0 none, 1 Wiener, 2 self-guided, 3
+// switchable), its unit size, and the unit types read (bit 1 << type);
+// whether film grain was applied.
 int thc_av1_decode(const uint8_t* data, int64_t n, void** handle, int32_t* meta, char* err,
                    int errlen) {
   Picture* pic = new Picture();
   try {
     decode_obus(data, (size_t)n, *pic);
     const SequenceHeader& s = pic->seq;
-    int32_t m[10] = {pic->fh.width, pic->fh.height, s.bit_depth, s.mono, s.ssx, s.ssy,
-                     s.cp, s.tc, s.mc, s.full_range};
+    const FrameHeader& fh = pic->fh;
+    const Decoder& d = *pic->dec;
+    int32_t m[20] = {fh.width, fh.height, s.bit_depth, s.mono, s.ssx, s.ssy, s.cp, s.tc,
+                     s.mc, s.full_range};
+    for (int p = 0; p < 3; p++) {
+      m[10 + p] = fh.lr_type[p];
+      m[13 + p] = fh.lr_unit_size[p];
+      m[16 + p] = d.lr_read_types[p];
+    }
+    m[19] = fh.grain.apply;
     memcpy(meta, m, sizeof(m));
     *handle = pic;
     return 0;
