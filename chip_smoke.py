@@ -2832,16 +2832,16 @@ def phase_codec(card: str) -> dict:
     so the decode of 1024x1024 BMP, PPM, Sun raster, TIFF (Deflate: RGB,
     CMYK, CIELab, BigTIFF), GIF, Radiance HDR and lossless WebP
     frames formed here and of the committed q90 lossy WebP, lossless and
-    lossy JP2s, YCbCr 4:2:0 JPEG-TIFF and AVIFs, loop-restored and grained
-    ones among them (format_frames; each of those two holding its tool by
-    the decoder's meta); the event files' CRC32C, native against the
-    Python table."""
+    lossy JP2s, YCbCr 4:2:0 JPEG-TIFF and AVIFs, loop-restored, grained
+    and screen-content ones among them (format_frames; each of those and
+    the small screen-content fixtures holding its tools by the decoder's
+    meta); the event files' CRC32C, native against the Python table."""
     import hashlib
 
     from transhuman_tpu_torch.data import image_formats, image_io
 
     out, by = {}, set()
-    for folder, n in ((FIXTURES, 5), (CODINGS, 8), (FORMATS, 52)):
+    for folder, n in ((FIXTURES, 5), (CODINGS, 8), (FORMATS, 55)):
         with open(os.path.join(folder, "digests.json")) as f:
             digests = json.load(f)
         check(len(digests) == n,
@@ -2858,19 +2858,27 @@ def phase_codec(card: str) -> dict:
                   f"{want['sha256'][:12]}.. {want['shape']} ({want['by']})")
             out[name] = _decode_ms(read, path)
             by.add(want["by"])
-    # the AVIFs with loop restoration or film grain carry it: the
-    # restoration type of each plane (3 switchable) and the grain by the
-    # decoder's meta
-    for name, lr, grain in (("avif_pil_lr_switchable.avif", (3, 1, 1), 0),
-                            ("pil_lr_1024.avif", (0, 3, 1), 0),
-                            ("avif_pil_film_grain.avif", (0, 0, 0), 1),
-                            ("pil_grain_1024.avif", (0, 0, 0), 1)):
+    # the AVIFs with loop restoration, film grain or screen content carry
+    # it by the decoder's meta: the restoration type of each plane (3
+    # switchable), the grain, and the screen-content and intra block copy
+    # flags with the counts of Y palette, UV palette and IntraBC blocks
+    none = (0, 0, 0, 0, 0)
+    for name, lr, grain, screen in (
+            ("avif_pil_lr_switchable.avif", (3, 1, 1), 0, none),
+            ("pil_lr_1024.avif", (0, 3, 1), 0, none),
+            ("avif_pil_film_grain.avif", (0, 0, 0), 1, none),
+            ("pil_grain_1024.avif", (0, 0, 0), 1, none),
+            ("avif_pil_palette.avif", (0, 0, 0), 0, (1, 0, 125, 8, 0)),
+            ("avif_pil_intrabc.avif", (0, 0, 0), 0, (1, 1, 200, 34, 12)),
+            ("pil_screen_1024.avif", (0, 0, 0), 0, (1, 1, 2438, 48, 6163))):
         with open(os.path.join(FORMATS, name), "rb") as fh:
             heif = image_formats._Heif(fh.read())
         _, meta = image_formats._av1_planes(heif.item(heif.primary))
-        got = (tuple(int(v) for v in meta[10:13]), int(meta[19]))
-        check(got == (lr, grain), f"codec: {name} carries restoration "
-              f"types and grain {got}, want {(lr, grain)}")
+        got = (tuple(int(v) for v in meta[10:13]), int(meta[19]),
+               tuple(int(v) for v in meta[20:25]))
+        check(got == (lr, grain, screen), f"codec: {name} carries "
+              f"restoration types, grain and screen tools {got}, want "
+              f"{(lr, grain, screen)}")
     # the other formats at the loader's size: 1024x1024 frames formed here
     # (the committed ones, timed above, not again)
     src_dir = tempfile.mkdtemp(prefix="thp_formats_")
@@ -2905,14 +2913,15 @@ def phase_codec(card: str) -> dict:
         f"RLE HDR, lossless WebP, q90 lossy WebP, lossless (5/3) JP2, "
         f"lossy (9/7) JP2, YCbCr 4:2:0 JPEG-TIFF, Deflate CMYK TIFF, Deflate "
         f"CIELab TIFF, Deflate BigTIFF, AVIF (cv2's default, q95, 10-bit, "
-        f"Pillow's loop-restored q90 and grained) against the sequential "
-        f"JPEG "
+        f"Pillow's loop-restored q90, grained, and screen-tuned text with "
+        f"palettes and intra block copy) against the sequential JPEG "
         + ", ".join(f"{out[f'1024_{k}'] / out['cv2_q95_420.jpg']:.2f}x"
                     for k in ("bmp", "ppm", "sun", "tiff", "gif", "hdr",
                               "webp_lossless", "webp_lossy", "jp2_lossless",
                               "jp2_lossy", "tiff_jpeg", "tiff_cmyk",
                               "tiff_cielab", "bigtiff", "avif", "avif_q95",
-                              "avif_10bit", "avif_lr", "avif_grain"))
+                              "avif_10bit", "avif_lr", "avif_grain",
+                              "avif_screen"))
         + f"  [{card}]")
     return out
 
@@ -5059,12 +5068,13 @@ def format_frames(src_dir: str) -> dict:
     beside the committed q90 lossy WebP, lossless (5/3) and lossy (9/7) JP2,
     YCbCr 4:2:0 JPEG-TIFF and AVIF (cv2's default quality, q95, 10 bits;
     Pillow's q90 with loop restoration and q75 with film grain) files of
-    the same decode (no writer here codes VP8, JPEG 2000, JPEG or AV1):
-    kind -> path, each checked to read back as the decode (the GIF as its
-    palette's colours, the HDR within 2, the lossy WebP and JP2 within 9,
-    the AVIFs within 10, the grained one within 30, the JPEG-TIFF within
-    12, the CIELab TIFF within 40, their bytes held to cv2's in phase
-    e)."""
+    the same decode (no writer here codes VP8, JPEG 2000, JPEG or AV1),
+    and Pillow's screen-tuned AVIF of a 1024x1024 screen capture of text
+    (palettes and intra block copy): kind -> path, each of the decode
+    checked to read back as it (the GIF as its palette's colours, the HDR
+    within 2, the lossy WebP and JP2 within 9, the AVIFs within 10, the
+    grained one within 30, the JPEG-TIFF within 12, the CIELab TIFF within
+    40), their bytes held to cv2's in phase e."""
     import importlib.util
 
     from transhuman_tpu_torch.data import image_io
@@ -5106,6 +5116,9 @@ def format_frames(src_dir: str) -> dict:
     out["avif_10bit"] = os.path.join(FORMATS, "cv2_10bit_1024.avif")
     out["avif_lr"] = os.path.join(FORMATS, "pil_lr_1024.avif")
     out["avif_grain"] = os.path.join(FORMATS, "pil_grain_1024.avif")
+    # a screen capture of text, not the decode: held to cv2's digest in
+    # phase e only
+    out["avif_screen"] = os.path.join(FORMATS, "pil_screen_1024.avif")
     # what each reads back as, and within what (CIELab through libtiff's
     # display conversion, which quantises the darkest levels coarsely)
     want = {"gif": (pal.astype(np.uint8)[idx], 0), "hdr": (rgb, 2),
@@ -5114,6 +5127,8 @@ def format_frames(src_dir: str) -> dict:
             "avif_lr": (rgb, 10), "avif_grain": (rgb, 30),
             "tiff_jpeg": (rgb, 12), "tiff_cielab": (rgb, 40)}
     for kind, path in out.items():
+        if kind == "avif_screen":
+            continue
         ref, tol = want.get(kind, (rgb, 0))
         got = image_io.imread_rgb(path)
         err = int(np.abs(got.astype(np.int32) - ref).max())

@@ -51,6 +51,27 @@ def pil_avif(rgb, **kw) -> bytes:
     return b.getvalue()
 
 
+def screen_rgb(h, w, seed=0, rects=3):
+    """An (h, w) RGB screen capture, the content AV1's screen tools are
+    for: lines of cv2.putText text (grey 20 on 250, scale 0.5, every 21
+    rows) over seeded coloured rectangles (chroma for UV palettes)."""
+    import cv2
+
+    rng = np.random.default_rng(seed)
+    img = np.full((h, w, 3), 250, np.uint8)
+    for _ in range(rects):
+        x0, y0 = (int(v) for v in rng.integers(0, [w, h]))
+        x1 = x0 + int(rng.integers(8, max(w // 2, 9)))
+        y1 = y0 + int(rng.integers(8, max(h // 2, 9)))
+        colour = tuple(int(v) for v in rng.integers(0, 256, 3))
+        cv2.rectangle(img, (x0, y0), (x1, y1), colour, -1)
+    line = "The quick brown fox jumps over the lazy dog " * (w // 300 + 1)
+    for i in range(h // 21):
+        cv2.putText(img, line, (4, 16 + 21 * i), cv2.FONT_HERSHEY_SIMPLEX,
+                    0.5, (20, 20, 20), 1)
+    return img
+
+
 # ------------------------------------------------------------------ boxes
 def box(kind: bytes, body: bytes) -> bytes:
     return struct.pack(">I4s", 8 + len(body), kind) + body
@@ -377,10 +398,34 @@ def write_tables(out: str):
             ("kDefCflSign", 10509, (9,)), ("kDefCflAlpha", 10518, (6, 17)),
             ("kDefSwitchableRestore", 6353, (4,)),
             ("kDefWienerRestore", 6357, (3,)),
-            ("kDefSgrprojRestore", 6360, (3,))):
+            ("kDefSgrprojRestore", 6360, (3,)),
+            # screen content: palette sizes, colour indices (palette sizes
+            # 2-8) and modes; the transform split of an IntraBC block, its
+            # flag and its transform types (inter sets 1-3)
+            ("kDefPaletteYSize", 4860, (7, 8)),
+            ("kDefPaletteUvSize", 4916, (7, 8)),
+            ("kDefPaletteYColor", 4972, (7, 5, 9)),
+            ("kDefPaletteUvColor", 5287, (7, 5, 9)),
+            ("kDefPaletteYMode", 5602, (7, 3, 3)),
+            ("kDefPaletteUvMode", 5665, (2, 3)),
+            ("kDefTxfmSplit", 5827, (21, 3)), ("kDefIntrabc", 6242, (3,)),
+            ("kDefInterExtTx", 10237, (4, 4, 17))):
         n = int(np.prod(shape))
         emit("uint16_t", name, fc[off:off + n].reshape(shape))
     assert (fc[7093:7093 + 350] == arr("default_kf_y_mode_cdf", u16)).all()
+    for name, off in (("default_palette_y_color_index_cdf", 4972),
+                      ("default_palette_uv_color_index_cdf", 5287),
+                      ("default_inter_ext_tx_cdf", 10237)):
+        a = arr(name, u16)
+        assert (fc[off:off + a.size] == a).all(), name
+    # the IntraBC vector's context (ndvc: joints, then per component
+    # classes, class0_fp, fp, sign, class0_hp, hp, class0, bits), which
+    # av1_init_mv_probs copies from default_nmv_context
+    emit("uint16_t", "kDefDv", arr("default_nmv_context", u16))
+    # the transform types of each set's symbols, and each set's types
+    i32 = np.int32
+    emit("int32_t", "kExtTxInv", arr("av1_ext_tx_inv", i32).reshape(6, 16))
+    emit("int32_t", "kExtTxUsed", arr("av1_ext_tx_used", i32).reshape(6, 16))
     i16 = np.int16
     emit("int16_t", "kDcQ", np.stack([arr(f"dc_qlookup{s}_QTX", i16)
                                       for s in ("", "_10", "_12")]))
@@ -402,7 +447,6 @@ def write_tables(out: str):
          arr("av1_cospi_arr_data", np.int32).reshape(4, 64)[2])
     emit("int32_t", "kSinpi", arr("av1_sinpi_arr_data", np.int32).reshape(
         4, 5)[2])
-    i32 = np.int32
     # loop restoration: each set's radii and scales {r0, r1, s0, s1}, the
     # reciprocals and A's lookup; the references each tile starts from, as
     # av1_reset_loop_restoration writes them into a MACROBLOCKD (three
@@ -427,9 +471,10 @@ def write_tables(out: str):
     emit("int32_t", "kGaussianSequence", arr("gaussian_sequence", i32))
     head = (
         "// Tables of the AV1 intra decoder in av1.cc: the default CDFs (in "
-        "the\n// inverted form 32768 - CDF, a counter slot after each), the "
-        "quantizer\n// lookups at 8, 10 and 12 bits, the inverse quantizer "
-        "matrices (levels\n// 0-14, luma and chroma, each transform size's "
+        "the\n// inverted form 32768 - CDF, a counter slot after each; the "
+        "IntraBC\n// vector's too), the transform types of each transform "
+        "set, the quantizer\n// lookups at 8, 10 and 12 bits, the inverse "
+        "quantizer matrices (levels\n// 0-14, luma and chroma, each transform size's "
         "block column by column),\n// the scan orders (as row-major "
         "positions), Dr_Intra_Derivative, the smooth\n// weights, the "
         "filter-intra taps, the 12-bit cosine and sine constants,\n// the "
@@ -437,6 +482,7 @@ def write_tables(out: str):
         "// and the film grain's Gaussian sequence.\n//\n"
         "// Origin: read from libaom 3.14.1's read-only data (its default "
         "CDF\n// arrays, FRAME_CONTEXT after av1_init_mode_probs, "
+        "default_nmv_context,\n// av1_ext_tx_inv/used, "
         "dc/ac_qlookup_*_QTX,\n// iwt_matrix_ref, *_scan_*, "
         "dr_intra_derivative, smooth_weights,\n// av1_filter_intra_taps, "
         "av1_cospi/sinpi_arr_data, av1_sgr_params,\n// av1_one_by_x, "

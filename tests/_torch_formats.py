@@ -529,7 +529,8 @@ FRAME_FORMATS = (
               "avif_cv2")),
     (".tif", ("tiff_jpeg_420", "tiff_cmyk_deflate_tiles", "jp2_lossless",
               "webp_lossless", "bigtiff16", "avif_cv2_10bit")),
-    (".ppm", ("p6", "hdr", "sun24", "webp_lossy", "sun8", "avif_pil_444")),
+    (".ppm", ("p6", "hdr", "sun24", "webp_lossy", "sun8",
+              "avif_pil_444_screen")),
 )
 
 

@@ -776,6 +776,14 @@ def _avif_cases():
         "avif_pil_film_grain": lambda: AV.pil_avif(
             _fixture_rgb()[200:261, 300:363], quality=60, speed=6,
             advanced={"film-grain-test": "1"}),
+        # screen content: Y and UV palettes only, and blocks copied within
+        # the frame (intra block copy) beside palettes
+        "avif_pil_palette": lambda: AV.pil_avif(
+            AV.screen_rgb(96, 128, 3), quality=60, speed=8,
+            advanced={"tune-content": "screen"}),
+        "avif_pil_intrabc": lambda: AV.pil_avif(
+            AV.screen_rgb(128, 160, 3), quality=60, speed=6,
+            advanced={"tune-content": "screen"}),
     }
 
 
@@ -1181,6 +1189,8 @@ FIXTURE_CASES = {
     "avif_pil_sb128_tiles.avif": "avif_pil_sb128_tiles",
     "avif_pil_lr_switchable.avif": "avif_pil_lr_switchable",
     "avif_pil_film_grain.avif": "avif_pil_film_grain",
+    "avif_pil_palette.avif": "avif_pil_palette",
+    "avif_pil_intrabc.avif": "avif_pil_intrabc",
 }
 
 
@@ -1252,6 +1262,11 @@ LARGE = {"cv2_jpeg_420_1024.tif": lambda: _jpeg_tiff_1024(),
          "pil_grain_1024.avif": lambda: AV.pil_avif(
              _fixture_rgb(), quality=75, speed=6,
              advanced={"film-grain-test": "1"}),
+         # a screen capture of text, screen-tuned: palettes and intra
+         # block copy
+         "pil_screen_1024.avif": lambda: AV.pil_avif(
+             AV.screen_rgb(1024, 1024, 25, rects=6), quality=60, speed=6,
+             advanced={"tune-content": "screen"}),
          "cv2_lzw_64.tif": lambda: _large_tiff(5),
          "cv2_deflate_64.tif": lambda: _large_tiff(8),
          "cv2_q90_1024.webp": _lossy_1024,
@@ -1442,8 +1457,9 @@ def _encode_frame(img, kind):
         bgr = np.ascontiguousarray(img[..., ::-1])
         if kind == "avif_cv2_10bit":
             return AV.cv2_avif(bgr.astype(np.uint16) << 2, depth=10)
-        if kind == "avif_pil_444":
-            return AV.pil_avif(img, subsampling="4:4:4", speed=8)
+        if kind == "avif_pil_444_screen":
+            return AV.pil_avif(img, subsampling="4:4:4", speed=8,
+                               advanced={"tune-content": "screen"})
         return AV.cv2_avif(bgr)
     if kind.startswith("jp2_"):
         return _cv2_write(".jp2", img[..., ::-1], (
@@ -1465,7 +1481,7 @@ def zju_formats_root(tmp_path_factory):
     CMYK in Deflate tiles, a 16-bit LZW BigTIFF), a lossless JP2, a
     lossless WebP and cv2's 10-bit AVIF, 2 as a PPM, a Radiance HDR, Sun
     rasters (24-bit, 8-bit colour map), a lossy WebP and Pillow's 4:4:4
-    AVIF."""
+    screen-tuned AVIF (its blocks palettes)."""
     from tests.test_torch_zju import HUMAN, NF, write_fake_zju
 
     root = str(tmp_path_factory.mktemp("zju_formats"))

@@ -145,7 +145,7 @@ cv2 reads nothing (a cut file, irot, imir, clap or a1op not marked
 essential, an unknown essential property, no ispe or av1C, two nclx
 boxes, a failing alpha item, identity of subsampled chroma, YCgCo of
 limited range, matrix coefficients 3, 10, 11, 13, 14 and 16 up) and AVIF
-the port does not decode: AV1 superres, screen-content tools (palette, intra block copy), grid images, image
+the port does not decode: AV1 superres, grid images, image
 sequences (avis, a moov track; cv2 reads the first frame), layered images
 (a1lx, lsel, a1op), matrix coefficients 15 and chroma-derived matrices of
 other primaries, an ispe other than the frame's size.
@@ -1149,12 +1149,14 @@ class _Heif:
 
 def _av1_planes(obus: bytes):
     """(planes (uint16 y, u, v), meta) of the AV1 still image in obus; meta
-    as ``thc_av1_decode`` in native/av1.cc writes it (size, depth,
-    subsampling and colour, then each plane's loop restoration and whether
-    film grain was applied)."""
+    as ``thc_av1_decode`` in native/av1.cc writes it (25 values: size,
+    depth, subsampling and colour, then each plane's loop restoration,
+    whether film grain was applied, the screen-content and intra block
+    copy flags, and the counts of blocks with a Y palette, with a UV
+    palette and of IntraBC blocks)."""
     lib = codec.library("av1")
     handle = ctypes.c_void_p()
-    meta = np.zeros(20, np.int32)
+    meta = np.zeros(25, np.int32)
     codec.call("thc_av1_decode", obus, len(obus), ctypes.byref(handle),
                meta.ctypes.data, what="AV1 item", refused=Refused, lib="av1")
     w, h, _, mono, sx, sy = (int(v) for v in meta[:6])

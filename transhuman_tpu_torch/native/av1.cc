@@ -29,10 +29,17 @@
 //     sets and projections against the tile's references), the Wiener and
 //     self-guided filters in 64-row stripes over the CDEF'd frame with the
 //     deblocked rows around each stripe;
-//   * film grain on the output picture, as libaom's av1_add_film_grain.
-// Refused by name: superres, screen-content tools (palette, intra block
-// copy), frames other than one shown key frame, and more than one
-// operating point's layers.
+//   * film grain on the output picture, as libaom's av1_add_film_grain;
+//   * screen-content tools: palettes (colours from the neighbours' cache,
+//     literal and delta-coded; the colour index map in wavefront order)
+//     and intra block copy (the vector's candidates from the spatial
+//     neighbours, its read and validity checks, the variable transform
+//     tree and the inter transform sets, the bilinear copy from the
+//     frame's unfiltered picture).
+// Refused by name: superres, frames other than one shown key frame,
+// tile-list OBUs, more than one operating point's layers, and the colours
+// cv2 reads as nothing (the identity matrix of subsampled chroma, YCgCo of
+// limited range, matrices without a conversion).
 // Every entry returns 0 on success or a non-zero code, with a message in
 // the caller's buffer (2: a tool refused by name).
 
@@ -223,7 +230,22 @@ struct Cdfs {
   uint16_t switchable_restore[4];
   uint16_t wiener_restore[3];
   uint16_t sgrproj_restore[3];
+  uint16_t palette_y_size[7][8], palette_uv_size[7][8];
+  uint16_t palette_y_color[7][5][9], palette_uv_color[7][5][9];
+  uint16_t palette_y_mode[7][3][3], palette_uv_mode[2][3];
+  uint16_t txfm_split[21][3];
+  uint16_t intrabc[3];
+  uint16_t inter_ext_tx[4][4][17];
+  struct DvComponent {  // libaom's nmv_component, in its order
+    uint16_t classes[12], class0_fp[2][5], fp[5], sign[3], class0_hp[3], hp[3],
+        class0[3], bits[10][3];
+  };
+  struct Dv {
+    uint16_t joints[5];
+    DvComponent comps[2];  // row, column
+  } dv;
 };
+static_assert(sizeof(Cdfs::Dv) == sizeof(kDefDv), "the IntraBC vector's CDFs");
 
 void default_cdfs(Cdfs* c, int base_q_idx) {
   int q = base_q_idx <= 20 ? 0 : base_q_idx <= 60 ? 1 : base_q_idx <= 120 ? 2 : 3;
@@ -259,6 +281,16 @@ void default_cdfs(Cdfs* c, int base_q_idx) {
   CP(c->switchable_restore, kDefSwitchableRestore);
   CP(c->wiener_restore, kDefWienerRestore);
   CP(c->sgrproj_restore, kDefSgrprojRestore);
+  CP(c->palette_y_size, kDefPaletteYSize);
+  CP(c->palette_uv_size, kDefPaletteUvSize);
+  CP(c->palette_y_color, kDefPaletteYColor);
+  CP(c->palette_uv_color, kDefPaletteUvColor);
+  CP(c->palette_y_mode, kDefPaletteYMode);
+  CP(c->palette_uv_mode, kDefPaletteUvMode);
+  CP(c->txfm_split, kDefTxfmSplit);
+  CP(c->intrabc, kDefIntrabc);
+  CP(c->inter_ext_tx, kDefInterExtTx);
+  memcpy(&c->dv, kDefDv, sizeof(kDefDv));
 #undef CP
 }
 
@@ -559,7 +591,7 @@ struct FilmGrain {
 struct FrameHeader {
   int width = 0, height = 0;
   int mi_cols = 0, mi_rows = 0;
-  int disable_cdf_update = 0, screen_content = 0;
+  int disable_cdf_update = 0, screen_content = 0, allow_intrabc = 0;
   int disable_frame_end_update_cdf = 1;
   // tiles
   int tile_cols = 1, tile_rows = 1, tile_cols_log2 = 0, tile_rows_log2 = 0;
@@ -681,10 +713,8 @@ void parse_frame_header(Bits& b, const SequenceHeader& s, FrameHeader& h,
            "layered image's)");
   h.disable_cdf_update = b.f(1);
   h.screen_content = s.screen_content == 2 ? (int)b.f(1) : s.screen_content;
-  if (h.screen_content) {
-    if (s.integer_mv == 2) b.f(1);
-    refuse("screen-content tools (palette, intra block copy)");
-  }
+  // force_integer_mv: 1 in an intra frame whatever is coded
+  if (h.screen_content && s.integer_mv == 2) b.f(1);
   if (s.frame_id_numbers_present) b.f(s.frame_id_len);
   int frame_size_override = s.reduced ? 0 : b.f(1);
   b.f(s.order_hint_bits);  // order_hint
@@ -714,7 +744,8 @@ void parse_frame_header(Bits& b, const SequenceHeader& s, FrameHeader& h,
     b.f(16);
     b.f(16);
   }
-  // allow_intrabc is read only with screen-content tools
+  // superres is refused, so the upscaled width is the frame width
+  if (h.screen_content) h.allow_intrabc = b.f(1);
   if (s.reduced || h.disable_cdf_update)
     h.disable_frame_end_update_cdf = 1;
   else
@@ -829,7 +860,7 @@ void parse_frame_header(Bits& b, const SequenceHeader& s, FrameHeader& h,
   if (h.base_q_idx > 0) h.delta_q_present = b.f(1);
   if (h.delta_q_present) {
     h.delta_q_res = b.f(2);
-    h.delta_lf_present = b.f(1);
+    if (!h.allow_intrabc) h.delta_lf_present = b.f(1);
     if (h.delta_lf_present) {
       h.delta_lf_res = b.f(2);
       h.delta_lf_multi = b.f(1);
@@ -852,8 +883,9 @@ void parse_frame_header(Bits& b, const SequenceHeader& s, FrameHeader& h,
     }
   }
   h.all_lossless = h.coded_lossless;
-  // loop_filter_params
-  if (!h.coded_lossless) {
+  // loop_filter_params, cdef_params and lr_params: none with intra block
+  // copy
+  if (!h.coded_lossless && !h.allow_intrabc) {
     h.lf_level[0] = b.f(6);
     h.lf_level[1] = b.f(6);
     if (!s.mono && (h.lf_level[0] || h.lf_level[1])) {
@@ -870,7 +902,7 @@ void parse_frame_header(Bits& b, const SequenceHeader& s, FrameHeader& h,
     }
   }
   // cdef_params
-  if (!h.coded_lossless && s.cdef) {
+  if (!h.coded_lossless && !h.allow_intrabc && s.cdef) {
     h.cdef_damping = b.f(2) + 3;
     h.cdef_bits = b.f(2);
     for (int i = 0; i < (1 << h.cdef_bits); i++) {
@@ -885,7 +917,7 @@ void parse_frame_header(Bits& b, const SequenceHeader& s, FrameHeader& h,
     }
   }
   // lr_params
-  if (!h.all_lossless && s.restoration) {
+  if (!h.all_lossless && !h.allow_intrabc && s.restoration) {
     static const int remap[4] = {RESTORE_NONE, RESTORE_SWITCHABLE, RESTORE_WIENER,
                                  RESTORE_SGRPROJ};
     bool uses = false, uses_chroma = false;
@@ -932,6 +964,14 @@ struct Plane {
 struct MiInfo {
   uint8_t size = 0, skip = 0, seg = 0, ymode = 0, uvmode = 0, tx = 0;
   int8_t delta_lf[4] = {0, 0, 0, 0};
+  // an IntraBC block (the only inter block of an intra frame) and its
+  // vector (row, column, in eighths of a luma sample)
+  uint8_t is_inter = 0;
+  int16_t mv[2] = {0, 0};
+  // palette sizes (Y, UV) and the block's colours (Y, then U) in the
+  // decoder's palettes
+  uint8_t palette_size[2] = {0, 0};
+  int32_t palette = -1;
 };
 
 const uint8_t kModeToAngle[13] = {0, 90, 180, 45, 135, 113, 157, 203, 67, 0, 0, 0, 0};
@@ -960,10 +1000,12 @@ struct LrUnit {
 };
 
 const uint8_t kFilterIntraModeToDir[5] = {DC_PRED, V_PRED, H_PRED, D157_PRED, DC_PRED};
-// libaom's av1_ext_tx_inv for the intra sets (1: DTT4_IDTX_1DDCT, 2:
-// DTT4_IDTX)
-const uint8_t kTxInvSet1[7] = {IDTX, DCT_DCT, V_DCT, H_DCT, ADST_ADST, ADST_DCT, DCT_ADST};
-const uint8_t kTxInvSet2[5] = {IDTX, DCT_DCT, ADST_ADST, ADST_DCT, DCT_ADST};
+// libaom's TxSetType (the rows of kExtTxInv and kExtTxUsed), each set's
+// number of types, and its index among the intra and the inter sets
+enum { SET_DCTONLY, SET_DCT_IDTX, SET_DTT4_IDTX, SET_DTT4_IDTX_1DDCT, SET_DTT9_IDTX_1DDCT,
+       SET_ALL16 };
+const uint8_t kTxSetTypes[6] = {1, 2, 5, 7, 12, 16};
+const int8_t kTxSetIndex[2][6] = {{0, -1, 2, 1, -1, -1}, {0, 3, -1, -1, 2, 1}};
 
 enum { TX_CLASS_2D, TX_CLASS_HORIZ, TX_CLASS_VERT };
 inline int tx_class(int t) {
@@ -1032,6 +1074,23 @@ class Decoder {
   int tx_size = 0;
   int max_luma_w = 0, max_luma_h = 0;
   std::vector<uint8_t> tx_types;  // per 4x4 luma unit of the frame
+  // per 4x4 luma unit within the frame: the luma transform size (an
+  // IntraBC block's variable tree, else the block's size)
+  std::vector<uint8_t> inter_tx;
+  int block_partition = PARTITION_NONE;  // the partition the block came from
+  // screen content: the block's palette sizes (Y, UV) and colours (Y, U,
+  // V), its colour index maps (Y, UV) and their widths; every palette
+  // block's Y and U colours (the neighbours' cache); an IntraBC block's
+  // vector (row, column)
+  int use_intrabc = 0;
+  int palette_size[2] = {0, 0};
+  uint16_t palette_colors[3][8] = {};
+  uint8_t color_map[2][64 * 64];
+  int color_map_w[2] = {0, 0};
+  std::vector<uint16_t> palettes;
+  int mv[2] = {0, 0};
+  // blocks with a Y palette, with a UV palette, and IntraBC blocks
+  int palette_blocks[2] = {0, 0}, intrabc_blocks = 0;
   int32_t quant[1024];
   int32_t dequant[64 * 64];
   // loop restoration: each plane's units (rows x cols), the references of
@@ -1063,6 +1122,7 @@ class Decoder {
     cdef_cols = (h.mi_cols + 15) >> 4;
     cdef_idx.assign((size_t)cdef_cols * ((h.mi_rows + 15) >> 4), -1);
     tx_types.assign((size_t)(aw >> 2) * (ah >> 2), DCT_DCT);
+    inter_tx.assign((size_t)h.mi_rows * h.mi_cols, TX_4X4);
     default_cdfs(&frame_cdf, h.base_q_idx);
     for (int p = 0; p < num_planes; p++) {
       if (h.lr_type[p] == RESTORE_NONE) continue;
@@ -1275,6 +1335,7 @@ class Decoder {
     int wl = kBw4Log2[bsize], hl = kBh4Log2[bsize];
     int horz = block_of(wl, hl - 1), vert = block_of(wl - 1, hl);
     int split = block_of(wl - 1, hl - 1);
+    block_partition = partition;
     switch (partition) {
       case PARTITION_NONE:
         decode_block(r, c, bsize);
@@ -1359,8 +1420,17 @@ class Decoder {
     if (has_chroma && plane_block(bsize, 1) == BLOCK_INVALID)
       bad("block size for the chroma subsampling");
     mode_info();
-    read_tx_size();
+    palette_tokens();
+    read_block_tx_size();
     if (skip) reset_block_context();
+    int pal = -1;
+    if (palette_size[0] || palette_size[1]) {
+      pal = (int)(palettes.size() / 16);
+      palettes.insert(palettes.end(), palette_colors[0], palette_colors[0] + 16);
+    }
+    palette_blocks[0] += palette_size[0] > 0;
+    palette_blocks[1] += palette_size[1] > 0;
+    intrabc_blocks += use_intrabc;
     int rows = std::min(bh4, h.mi_rows - r), cols = std::min(bw4, h.mi_cols - c);
     for (int y = 0; y < rows; y++)
       for (int x = 0; x < cols; x++) {
@@ -1372,7 +1442,14 @@ class Decoder {
         m.uvmode = (uint8_t)uvmode;
         m.tx = (uint8_t)tx_size;
         for (int i = 0; i < 4; i++) m.delta_lf[i] = (int8_t)delta_lf[i];
+        m.is_inter = (uint8_t)use_intrabc;
+        m.mv[0] = (int16_t)mv[0];
+        m.mv[1] = (int16_t)mv[1];
+        m.palette_size[0] = (uint8_t)palette_size[0];
+        m.palette_size[1] = (uint8_t)palette_size[1];
+        m.palette = pal;
       }
+    if (use_intrabc) predict_intrabc();
     residual();
   }
 
@@ -1386,6 +1463,16 @@ class Decoder {
     read_delta_lf();
     read_deltas = false;
     use_filter_intra = 0;
+    palette_size[0] = palette_size[1] = 0;
+    mv[0] = mv[1] = 0;
+    use_intrabc = h.allow_intrabc ? sd.symbol(cdf.intrabc, 2) : 0;
+    if (use_intrabc) {
+      ymode = uvmode = DC_PRED;
+      angle_y = angle_uv = 0;
+      cfl_alpha_u = cfl_alpha_v = 0;
+      intrabc_info();
+      return;
+    }
     int above = kIntraModeContext[avail_u ? at(mi_row - 1, mi_col).ymode : DC_PRED];
     int left = kIntraModeContext[avail_l ? at(mi_row, mi_col - 1).ymode : DC_PRED];
     ymode = sd.symbol(cdf.kf_y[above][left], 13);
@@ -1410,7 +1497,10 @@ class Decoder {
       if (mi_size >= BLOCK_8X8 && uvmode >= V_PRED && uvmode <= D67_PRED)
         angle_uv = sd.symbol(cdf.angle_delta[uvmode - V_PRED], 7) - 3;
     }
-    if (s.filter_intra && ymode == DC_PRED && std::max(bw4, bh4) <= 8) {
+    // BLOCK_4X16 and BLOCK_16X4 come after BLOCK_8X8
+    if (h.screen_content && mi_size >= BLOCK_8X8 && bw4 <= 16 && bh4 <= 16)
+      palette_mode_info();
+    if (s.filter_intra && ymode == DC_PRED && !palette_size[0] && std::max(bw4, bh4) <= 8) {
       use_filter_intra = sd.symbol(cdf.filter_intra[mi_size], 2);
       if (use_filter_intra) filter_intra_mode = sd.symbol(cdf.filter_intra_mode, 5);
     }
@@ -1485,7 +1575,7 @@ class Decoder {
   }
 
   void read_cdef() {
-    if (skip || h.coded_lossless || !s.cdef) return;
+    if (skip || h.coded_lossless || h.allow_intrabc || !s.cdef) return;
     int r = mi_row & ~15, c = mi_col & ~15;
     int8_t& idx = cdef_idx[(size_t)(r >> 4) * cdef_cols + (c >> 4)];
     if (idx == -1) {
@@ -1547,6 +1637,486 @@ class Decoder {
     }
   }
 
+  // ---------------------------------------------------------- palettes
+  // the specification's Palette_Color_Hash_Multipliers and
+  // Palette_Color_Context (get_palette_color_context)
+  static constexpr int kPaletteHashMultipliers[3] = {1, 2, 2};
+  static constexpr int kPaletteColorContext[9] = {-1, -1, 0, -1, -1, 4, 3, 2, 1};
+
+  void palette_mode_info() {
+    int bsize_ctx = kBw4Log2[mi_size] + kBh4Log2[mi_size] - 2;
+    if (ymode == DC_PRED) {
+      int ctx = (avail_u && at(mi_row - 1, mi_col).palette_size[0]) +
+                (avail_l && at(mi_row, mi_col - 1).palette_size[0]);
+      if (sd.symbol(cdf.palette_y_mode[bsize_ctx][ctx], 2)) {
+        palette_size[0] = sd.symbol(cdf.palette_y_size[bsize_ctx], 7) + 2;
+        read_palette_colors(0);
+      }
+    }
+    if (has_chroma && uvmode == DC_PRED &&
+        sd.symbol(cdf.palette_uv_mode[palette_size[0] > 0], 2)) {
+      palette_size[1] = sd.symbol(cdf.palette_uv_size[bsize_ctx], 7) + 2;
+      read_palette_colors(1);
+      // V: delta-coded with wrap-around, or literal
+      int n = palette_size[1], bd = s.bit_depth, max_val = 1 << bd;
+      uint16_t* v = palette_colors[2];
+      if (sd.bit()) {
+        int bits = bd - 4 + sd.literal(2);
+        v[0] = (uint16_t)sd.literal(bd);
+        for (int i = 1; i < n; i++) {
+          int delta = sd.literal(bits);
+          if (delta && sd.bit()) delta = -delta;
+          int val = v[i - 1] + delta;
+          if (val < 0) val += max_val;
+          if (val >= max_val) val -= max_val;
+          v[i] = (uint16_t)clip3(0, max_val - 1, val);
+        }
+      } else {
+        for (int i = 0; i < n; i++) v[i] = (uint16_t)sd.literal(bd);
+      }
+    }
+  }
+
+  // the Y (plane 0) or U (plane 1) palette: colours taken from the
+  // neighbours' cache, then one literal and ascending deltas (at least 1
+  // for Y), all in ascending order (libaom's read_palette_colors_y/uv)
+  void read_palette_colors(int plane) {
+    int n = palette_size[plane], bd = s.bit_depth;
+    uint16_t cache[16];
+    int n_cache = palette_cache(plane, cache);
+    uint16_t* c = palette_colors[plane];
+    int idx = 0;
+    for (int i = 0; i < n_cache && idx < n; i++)
+      if (sd.bit()) c[idx++] = cache[i];
+    if (idx < n) {
+      c[idx++] = (uint16_t)sd.literal(bd);
+      if (idx < n) {
+        int bits = bd - 3 + sd.literal(2);
+        int range = (1 << bd) - c[idx - 1] - (plane == 0);
+        for (; idx < n; idx++) {
+          int delta = sd.literal(bits) + (plane == 0);
+          c[idx] = (uint16_t)std::min(c[idx - 1] + delta, (1 << bd) - 1);
+          range -= c[idx] - c[idx - 1];
+          bits = std::min(bits, tile_log2(1, range));  // CeilLog2(range)
+        }
+      }
+      std::sort(c, c + n);
+    }
+  }
+
+  // the above (in the same 64-row superblock row only) and left
+  // neighbours' colours of the plane, merged in ascending order without
+  // repeats (libaom's av1_get_palette_cache)
+  int palette_cache(int plane, uint16_t* cache) {
+    const MiInfo* above = avail_u && (mi_row & 15) ? &at(mi_row - 1, mi_col) : nullptr;
+    const MiInfo* left = avail_l ? &at(mi_row, mi_col - 1) : nullptr;
+    int an = above ? above->palette_size[plane] : 0, ln = left ? left->palette_size[plane] : 0;
+    const uint16_t* ac = an ? &palettes[(size_t)above->palette * 16 + plane * 8] : nullptr;
+    const uint16_t* lc = ln ? &palettes[(size_t)left->palette * 16 + plane * 8] : nullptr;
+    int n = 0;
+    auto add = [&](uint16_t v) {
+      if (n == 0 || v != cache[n - 1]) cache[n++] = v;
+    };
+    while (an > 0 && ln > 0) {
+      if (*lc < *ac) {
+        add(*lc++);
+        ln--;
+      } else {
+        if (*lc == *ac) {
+          lc++;
+          ln--;
+        }
+        add(*ac++);
+        an--;
+      }
+    }
+    while (an-- > 0) add(*ac++);
+    while (ln-- > 0) add(*lc++);
+    return n;
+  }
+
+  void palette_tokens() {
+    int bw = bw4 * 4, bh = bh4 * 4;
+    int on_w = std::min(bw, (h.mi_cols - mi_col) * 4);
+    int on_h = std::min(bh, (h.mi_rows - mi_row) * 4);
+    if (palette_size[0]) read_color_map(0, bw, bh, on_w, on_h);
+    if (palette_size[1]) {
+      int w = bw >> s.ssx, hh = bh >> s.ssy, ow = on_w >> s.ssx, oh = on_h >> s.ssy;
+      if (w < 4) {  // a 4-wide block's chroma spans its left neighbour's
+        w += 2;
+        ow += 2;
+      }
+      if (hh < 4) {
+        hh += 2;
+        oh += 2;
+      }
+      read_color_map(1, w, hh, ow, oh);
+    }
+  }
+
+  // the colour indices of the on-screen w x h part in wavefront order,
+  // then the last column and row copied past the frame's edge
+  void read_color_map(int k, int w, int hh, int on_w, int on_h) {
+    uint8_t* m = color_map[k];
+    int n = palette_size[k];
+    color_map_w[k] = w;
+    m[0] = (uint8_t)sd.quniform(n);
+    for (int i = 1; i < on_h + on_w - 1; i++)
+      for (int j = std::min(i, on_w - 1); j >= std::max(0, i - on_h + 1); j--) {
+        uint8_t order[8];
+        int ctx = palette_color_context(m, w, i - j, j, n, order);
+        uint16_t* c = k ? cdf.palette_uv_color[n - 2][ctx] : cdf.palette_y_color[n - 2][ctx];
+        m[(i - j) * w + j] = order[sd.symbol(c, n)];
+      }
+    for (int i = 0; i < on_h; i++)
+      for (int j = on_w; j < w; j++) m[i * w + j] = m[i * w + on_w - 1];
+    for (int i = on_h; i < hh; i++) memcpy(m + i * w, m + (on_h - 1) * w, w);
+  }
+
+  // libaom's av1_get_palette_color_index_context: the colours ranked by
+  // the left, above-left and above neighbours' scores, and the context
+  // of the scores
+  static int palette_color_context(const uint8_t* m, int stride, int r, int c, int n,
+                                   uint8_t* order) {
+    int nb[3] = {c > 0 ? m[r * stride + c - 1] : -1,
+                 c > 0 && r > 0 ? m[(r - 1) * stride + c - 1] : -1,
+                 r > 0 ? m[(r - 1) * stride + c] : -1};
+    static const int weights[3] = {2, 1, 2};
+    int scores[8] = {0};
+    for (int i = 0; i < 3; i++)
+      if (nb[i] >= 0) scores[nb[i]] += weights[i];
+    for (int i = 0; i < 8; i++) order[i] = (uint8_t)i;
+    for (int i = 0; i < 3; i++) {
+      int best = scores[i], best_idx = i;
+      for (int j = i + 1; j < n; j++)
+        if (scores[j] > best) {
+          best = scores[j];
+          best_idx = j;
+        }
+      if (best_idx != i) {
+        uint8_t best_order = order[best_idx];
+        for (int k = best_idx; k > i; k--) {
+          scores[k] = scores[k - 1];
+          order[k] = order[k - 1];
+        }
+        scores[i] = best;
+        order[i] = best_order;
+      }
+    }
+    int hash = 0;
+    for (int i = 0; i < 3; i++) hash += scores[i] * kPaletteHashMultipliers[i];
+    return kPaletteColorContext[hash];
+  }
+
+  // ---------------------------------------------------------- intra block copy
+  struct DvCandidate {
+    int row, col, weight;
+  };
+  DvCandidate dv_stack[8];
+  int dv_count = 0;
+
+  // libaom's add_ref_mv_candidate for the one reference of an intra
+  // frame: only IntraBC neighbours carry a vector
+  void add_dv_candidate(const MiInfo& m, int weight) {
+    if (!m.is_inter) return;
+    for (int i = 0; i < dv_count; i++)
+      if (dv_stack[i].row == m.mv[0] && dv_stack[i].col == m.mv[1]) {
+        dv_stack[i].weight += weight;
+        return;
+      }
+    if (dv_count < 8) dv_stack[dv_count++] = {m.mv[0], m.mv[1], weight};
+  }
+  // libaom's scan_row_mbmi (a row of neighbours above)
+  void scan_row(int row_offset, int max_row_offset, int* processed) {
+    int end_mi = std::min({bw4, h.mi_cols - mi_col, 16});
+    int col_offset = 0;
+    if (std::abs(row_offset) > 1) col_offset = (mi_col & 1) && bw4 < 2 ? 0 : 1;
+    for (int i = 0; i < end_mi;) {
+      const MiInfo& m = at(mi_row + row_offset, mi_col + col_offset + i);
+      int n4w = 1 << kBw4Log2[m.size];
+      int len = std::min(bw4, n4w);
+      if (bw4 >= 16)
+        len = std::max(4, len);
+      else if (std::abs(row_offset) > 1)
+        len = std::max(len, 2);
+      int weight = 2;
+      if (bw4 >= 2 && bw4 <= n4w) {
+        int inc = std::min(-max_row_offset + row_offset + 1, 1 << kBh4Log2[m.size]);
+        weight = std::max(weight, inc);
+        *processed = inc - row_offset - 1;
+      }
+      add_dv_candidate(m, len * weight);
+      i += len;
+    }
+  }
+  // libaom's scan_col_mbmi (a column of neighbours to the left)
+  void scan_col(int col_offset, int max_col_offset, int* processed) {
+    int end_mi = std::min({bh4, h.mi_rows - mi_row, 16});
+    int row_offset = 0;
+    if (std::abs(col_offset) > 1) row_offset = (mi_row & 1) && bh4 < 2 ? 0 : 1;
+    for (int i = 0; i < end_mi;) {
+      const MiInfo& m = at(mi_row + row_offset + i, mi_col + col_offset);
+      int n4h = 1 << kBh4Log2[m.size];
+      int len = std::min(bh4, n4h);
+      if (bh4 >= 16)
+        len = std::max(4, len);
+      else if (std::abs(col_offset) > 1)
+        len = std::max(len, 2);
+      int weight = 2;
+      if (bh4 >= 2 && bh4 <= n4h) {
+        int inc = std::min(-max_col_offset + col_offset + 1, 1 << kBw4Log2[m.size]);
+        weight = std::max(weight, inc);
+        *processed = inc - col_offset - 1;
+      }
+      add_dv_candidate(m, len * weight);
+      i += len;
+    }
+  }
+  // libaom's has_top_right
+  bool has_top_right() const {
+    int bs = std::max(bw4, bh4);
+    int sb4 = s.sb128 ? 32 : 16;
+    if (bs > 16) return false;
+    int mask_row = mi_row & (sb4 - 1), mask_col = mi_col & (sb4 - 1);
+    bool has_tr = !((mask_row & bs) && (mask_col & bs));
+    while (bs < sb4) {
+      if (!(mask_col & bs)) break;
+      if ((mask_col & (2 * bs)) && (mask_row & (2 * bs))) {
+        has_tr = false;
+        break;
+      }
+      bs <<= 1;
+    }
+    // the blocks of a vertical partition but the last have a top right,
+    // those of a horizontal one but the first have none
+    if (bw4 < bh4 && ((mi_col + bw4) & (bh4 - 1))) has_tr = true;
+    if (bw4 > bh4 && (mi_row & (bw4 - 1))) has_tr = false;
+    if (block_partition == PARTITION_VERT_A && bw4 == bh4 && (mask_row & bs)) has_tr = false;
+    return has_tr;
+  }
+  // libaom's setup_ref_mv_list for the intra frame's one reference: the
+  // spatial candidates and their weights, the nearest ranked first; no
+  // temporal candidates, and no extension (no neighbour refers to an
+  // inter frame)
+  void find_dv_stack() {
+    dv_count = 0;
+    int row_adj = bh4 < 2 && (mi_row & 1), col_adj = bw4 < 2 && (mi_col & 1);
+    int max_row_offset = 0, max_col_offset = 0, processed_rows = 0, processed_cols = 0;
+    if (avail_u) {
+      max_row_offset = (bh4 < 2 ? -4 : -6) + row_adj;
+      max_row_offset = clip3(mi_row_start - mi_row, mi_row_end - mi_row - 1, max_row_offset);
+    }
+    if (avail_l) {
+      max_col_offset = (bw4 < 2 ? -4 : -6) + col_adj;
+      max_col_offset = clip3(mi_col_start - mi_col, mi_col_end - mi_col - 1, max_col_offset);
+    }
+    if (std::abs(max_row_offset) >= 1) scan_row(-1, max_row_offset, &processed_rows);
+    if (std::abs(max_col_offset) >= 1) scan_col(-1, max_col_offset, &processed_cols);
+    if (has_top_right() && inside(mi_row - 1, mi_col + bw4))
+      add_dv_candidate(at(mi_row - 1, mi_col + bw4), 4);
+    int nearest = dv_count;
+    for (int i = 0; i < nearest; i++) dv_stack[i].weight += 640;  // REF_CAT_LEVEL
+    if (inside(mi_row - 1, mi_col - 1)) add_dv_candidate(at(mi_row - 1, mi_col - 1), 4);
+    for (int idx = 2; idx <= 3; idx++) {
+      int row_offset = -(idx << 1) + 1 + row_adj, col_offset = -(idx << 1) + 1 + col_adj;
+      int ar = std::abs(row_offset), ac = std::abs(col_offset);
+      if (ar <= std::abs(max_row_offset) && ar > processed_rows)
+        scan_row(row_offset, max_row_offset, &processed_rows);
+      if (ac <= std::abs(max_col_offset) && ac > processed_cols)
+        scan_col(col_offset, max_col_offset, &processed_cols);
+    }
+    // the nearest, then the rest, by weight (libaom's bubble sorts)
+    for (int part = 0; part < 2; part++) {
+      int lo = part ? nearest : 0;
+      for (int len = part ? dv_count : nearest; len > lo;) {
+        int last = lo;
+        for (int i = lo + 1; i < len; i++)
+          if (dv_stack[i - 1].weight < dv_stack[i].weight) {
+            std::swap(dv_stack[i - 1], dv_stack[i]);
+            last = i;
+          }
+        len = last;
+      }
+    }
+    // clamp_mv_ref: within the block's size and 16 samples of the frame
+    int bw = bw4 * 4, bh = bh4 * 4;
+    for (int i = 0; i < dv_count; i++) {
+      dv_stack[i].col = clip3(-mi_col * 32 - bw * 8 - 128,
+                              (h.mi_cols - bw4 - mi_col) * 32 + bw * 8 + 128, dv_stack[i].col);
+      dv_stack[i].row = clip3(-mi_row * 32 - bh * 8 - 128,
+                              (h.mi_rows - bh4 - mi_row) * 32 + bh * 8 + 128, dv_stack[i].row);
+    }
+  }
+
+  int read_dv_component(Cdfs::DvComponent& c) {
+    int sign = sd.symbol(c.sign, 2);
+    int cls = sd.symbol(c.classes, 11);
+    int d = 0, mag = 0;
+    if (cls == 0) {
+      d = sd.symbol(c.class0, 2);
+    } else {
+      for (int i = 0; i < cls; i++) d |= sd.symbol(c.bits[i], 2) << i;
+      mag = 2 << (cls + 2);
+    }
+    mag += ((d << 3) | 7) + 1;  // whole samples: no fraction, no high precision
+    return sign ? -mag : mag;
+  }
+
+  // libaom's read_intrabc_info: the reference vector (nearest, near, or
+  // the default one superblock up or left), the vector read against it,
+  // and its check
+  void intrabc_info() {
+    find_dv_stack();
+    int ref[2] = {0, 0};
+    for (int k = 0; k < 2 && k < dv_count; k++) {
+      // lower_mv_precision without high precision: odd values toward 0
+      int v[2] = {dv_stack[k].row, dv_stack[k].col};
+      for (int& x : v)
+        if (x & 1) x += x > 0 ? -1 : 1;
+      if (v[0] || v[1]) {
+        ref[0] = v[0];
+        ref[1] = v[1];
+        break;
+      }
+    }
+    if (!ref[0] && !ref[1]) {
+      int sb4 = s.sb128 ? 32 : 16;
+      if (mi_row - sb4 < mi_row_start) {
+        ref[1] = -(4 * sb4 + 256) * 8;  // INTRABC_DELAY_PIXELS
+      } else {
+        ref[0] = -(4 * sb4) * 8;
+      }
+    }
+    bool valid = !(ref[0] & 7) && !(ref[1] & 7);
+    for (int& x : ref) x = (x >> 3) * 8;
+    int joint = sd.symbol(cdf.dv.joints, 4);
+    mv[0] = ref[0] + (joint == 2 || joint == 3 ? read_dv_component(cdf.dv.comps[0]) : 0);
+    mv[1] = ref[1] + (joint == 1 || joint == 3 ? read_dv_component(cdf.dv.comps[1]) : 0);
+    for (int& x : mv) x = (x >> 3) * 8;
+    if (!valid || !dv_valid()) bad("intra block copy vector");
+  }
+
+  // libaom's is_mv_valid and av1_is_dv_valid: the source lies in the tile,
+  // in superblocks decoded at least 256 samples before, above a wavefront
+  bool dv_valid() const {
+    const int lim = 1 << 14;
+    if (mv[0] <= -lim || mv[0] >= lim || mv[1] <= -lim || mv[1] >= lim) return false;
+    if ((mv[0] & 7) || (mv[1] & 7)) return false;
+    int src_top = mi_row * 32 + mv[0], tile_top = mi_row_start * 32;
+    int src_left = mi_col * 32 + mv[1], tile_left = mi_col_start * 32;
+    int src_bottom = (mi_row + bh4) * 32 + mv[0], src_right = (mi_col + bw4) * 32 + mv[1];
+    if (src_top < tile_top || src_left < tile_left) return false;
+    if (src_bottom > mi_row_end * 32 || src_right > mi_col_end * 32) return false;
+    if (has_chroma) {  // a sub-8x8 block's chroma starts 4 samples before
+      if (bw4 < 2 && s.ssx && src_left < tile_left + 32) return false;
+      if (bh4 < 2 && s.ssy && src_top < tile_top + 32) return false;
+    }
+    int sb_log2 = s.sb128 ? 5 : 4, sb_size = 4 << sb_log2;
+    int active_sb_row = mi_row >> sb_log2, active_sb64_col = (mi_col * 4) >> 6;
+    int src_sb_row = ((src_bottom >> 3) - 1) / sb_size;
+    int src_sb64_col = ((src_right >> 3) - 1) >> 6;
+    int sb64_per_row = ((mi_col_end - mi_col_start - 1) >> 4) + 1;
+    int active_sb64 = active_sb_row * sb64_per_row + active_sb64_col;
+    int src_sb64 = src_sb_row * sb64_per_row + src_sb64_col;
+    const int delay = 4;  // INTRABC_DELAY_SB64
+    if (src_sb64 >= active_sb64 - delay) return false;
+    int wf_offset = (1 + delay + (sb_size > 64)) * (active_sb_row - src_sb_row);
+    if (src_sb_row > active_sb_row || src_sb64_col >= active_sb64_col - delay + wf_offset)
+      return false;
+    return true;
+  }
+
+  // the block copied from the frame before its loop filters: whole
+  // samples in luma, chroma at half samples where subsampled (libaom's
+  // bilinear intrabc convolutions); a 4-sample side's subsampled chroma
+  // covers its left or upper neighbour's too
+  void predict_intrabc() {
+    static thread_local uint16_t pred[128 * 128];
+    for (int p = 0; p < 1 + (has_chroma ? 2 : 0); p++) {
+      int sx = p ? s.ssx : 0, sy = p ? s.ssy : 0;
+      int pb = plane_block(mi_size, p);
+      int w = 4 << kBw4Log2[pb], hh = 4 << kBh4Log2[pb];
+      int x = ((mi_col - (bw4 == 1 && sx)) * 4) >> sx, y = ((mi_row - (bh4 == 1 && sy)) * 4) >> sy;
+      int pos_x = (x << 4) + mv[1] * (2 >> sx), pos_y = (y << 4) + mv[0] * (2 >> sy);
+      int x0 = pos_x >> 4, y0 = pos_y >> 4;
+      bool fx = pos_x & 15, fy = pos_y & 15;
+      Plane& P = planes[p];
+      for (int i = 0; i < hh; i++) {
+        const uint16_t* a = P.row(y0 + i) + x0;
+        const uint16_t* b = fy ? P.row(y0 + i + 1) + x0 : a;
+        uint16_t* o = pred + i * w;
+        for (int j = 0; j < w; j++) {
+          if (fx && fy)
+            o[j] = (uint16_t)((a[j] + a[j + 1] + b[j] + b[j + 1] + 2) >> 2);
+          else if (fx)
+            o[j] = (uint16_t)((a[j] + a[j + 1] + 1) >> 1);
+          else
+            o[j] = (uint16_t)((a[j] + b[j] + 1) >> 1);
+        }
+      }
+      for (int i = 0; i < hh; i++) memcpy(P.row(y + i) + x, pred + i * w, 2 * (size_t)w);
+    }
+  }
+
+  // an IntraBC block that is not skipped reads its variable transform
+  // tree, each transform block of the largest size split up to twice;
+  // every other block one size (the tree's sizes in inter_tx either way)
+  void read_block_tx_size() {
+    if (use_intrabc && h.tx_mode_select && mi_size > BLOCK_4X4 && !skip && !lossless) {
+      int max_tx = max_tx_rect(mi_size);
+      int w4 = 1 << (kTxWLog2[max_tx] - 2), h4 = 1 << (kTxHLog2[max_tx] - 2);
+      for (int r = 0; r < bh4; r += h4)
+        for (int c = 0; c < bw4; c += w4) read_var_tx_size(mi_row + r, mi_col + c, max_tx, 0);
+      return;
+    }
+    read_tx_size();
+    set_inter_tx(mi_row, mi_col, bw4, bh4, tx_size);
+  }
+  void set_inter_tx(int r, int c, int w4, int h4, int txs) {
+    for (int y = r; y < std::min(r + h4, h.mi_rows); y++)
+      for (int x = c; x < std::min(c + w4, h.mi_cols); x++)
+        inter_tx[(size_t)y * h.mi_cols + x] = (uint8_t)txs;
+  }
+  // libaom's read_tx_size_vartx (a split into 4x4 sets the whole block)
+  void read_var_tx_size(int r, int c, int txs, int depth) {
+    if (r >= h.mi_rows || c >= h.mi_cols) return;
+    int w4 = 1 << (kTxWLog2[txs] - 2), h4 = 1 << (kTxHLog2[txs] - 2);
+    int split = 0;
+    if (txs != TX_4X4 && depth < 2)
+      split = sd.symbol(cdf.txfm_split[txfm_split_ctx(r, c, txs)], 2);
+    int sub = kSplitTx[txs];
+    if (split && sub != TX_4X4) {
+      int sw = 1 << (kTxWLog2[sub] - 2), sh = 1 << (kTxHLog2[sub] - 2);
+      for (int y = 0; y < h4; y += sh)
+        for (int x = 0; x < w4; x += sw) read_var_tx_size(r + y, c + x, sub, depth + 1);
+      return;
+    }
+    tx_size = split ? TX_4X4 : txs;
+    set_inter_tx(r, c, w4, h4, tx_size);
+  }
+  // the transform widths above and heights left of (r, c) against txs'
+  // (a skipped IntraBC neighbour's block size, 64 off the tile), and the
+  // block's largest square size (libaom's txfm_partition_context)
+  int txfm_split_ctx(int r, int c, int txs) {
+    auto size_at = [&](int y, int x) { return (int)inter_tx[(size_t)y * h.mi_cols + x]; };
+    int above_w = 64, left_h = 64;
+    if (r > mi_row || avail_u) {
+      const MiInfo& a = at(r - 1, c);
+      above_w = r == mi_row && a.skip && a.is_inter ? 4 << kBw4Log2[a.size]
+                                                    : 1 << kTxWLog2[size_at(r - 1, c)];
+    }
+    if (c > mi_col || avail_l) {
+      const MiInfo& l = at(r, c - 1);
+      left_h = c == mi_col && l.skip && l.is_inter ? 4 << kBh4Log2[l.size]
+                                                   : 1 << kTxHLog2[size_at(r, c - 1)];
+    }
+    int above = above_w < (1 << kTxWLog2[txs]), left = left_h < (1 << kTxHLog2[txs]);
+    int l2 = std::min(std::max(kBw4Log2[mi_size], kBh4Log2[mi_size]) + 2, 6);
+    int max_sq = tx_of(l2, l2);
+    int cat = (tx_sqr_up(txs) != max_sq && max_sq > TX_8X8) + (TX_64X64 - max_sq) * 2;
+    return cat * 3 + above + left;
+  }
+
   void read_tx_size() {
     if (lossless) {
       tx_size = TX_4X4;
@@ -1554,7 +2124,7 @@ class Decoder {
     }
     int max_rect = max_tx_rect(mi_size);
     tx_size = max_rect;
-    if (mi_size > BLOCK_4X4 && h.tx_mode_select) {
+    if (mi_size > BLOCK_4X4 && h.tx_mode_select && !(use_intrabc && skip)) {
       int depth_max = 0, t = max_rect;
       while (depth_max < 2 && t != TX_4X4) {
         depth_max++;
@@ -1567,9 +2137,17 @@ class Decoder {
         t = kSplitTx[t];
       }
       int max_w = 1 << kTxWLog2[max_rect], max_h = 1 << kTxHLog2[max_rect];
+      // an IntraBC neighbour counts its block size (libaom's
+      // get_tx_size_context)
       int above_w = 0, left_h = 0;
-      if (avail_u) above_w = 1 << kTxWLog2[at(mi_row - 1, mi_col).tx];
-      if (avail_l) left_h = 1 << kTxHLog2[at(mi_row, mi_col - 1).tx];
+      if (avail_u) {
+        const MiInfo& m = at(mi_row - 1, mi_col);
+        above_w = m.is_inter ? 4 << kBw4Log2[m.size] : 1 << kTxWLog2[m.tx];
+      }
+      if (avail_l) {
+        const MiInfo& m = at(mi_row, mi_col - 1);
+        left_h = m.is_inter ? 4 << kBh4Log2[m.size] : 1 << kTxHLog2[m.tx];
+      }
       int ctx = (above_w >= max_w) + (left_h >= max_h);
       int depth = sd.symbol(cdf.tx_size[cat][ctx], depth_max + 1);
       for (int i = 0; i < depth; i++) tx_size = kSplitTx[tx_size];
@@ -1592,12 +2170,21 @@ class Decoder {
     return plane ? uv_tx(mi_size) : tx_size;
   }
 
-  // each 64x64 chunk of the block, its planes in turn
+  // each 64x64 chunk of the block, its planes in turn (an IntraBC block's
+  // luma by its transform tree)
   void residual() {
     int width_chunks = std::max(1, bw4 >> 4), height_chunks = std::max(1, bh4 >> 4);
     for (int cy = 0; cy < height_chunks; cy++)
       for (int cx = 0; cx < width_chunks; cx++) {
         for (int p = 0; p < 1 + (has_chroma ? 2 : 0); p++) {
+          if (use_intrabc && !lossless && p == 0) {
+            int max_tx = max_tx_rect(mi_size);
+            int w4 = 1 << (kTxWLog2[max_tx] - 2), h4 = 1 << (kTxHLog2[max_tx] - 2);
+            for (int y = 0; y < std::min(bh4, 16); y += h4)
+              for (int x = 0; x < std::min(bw4, 16); x += w4)
+                transform_tree(mi_row + (cy << 4) + y, mi_col + (cx << 4) + x, max_tx);
+            continue;
+          }
           int txs = plane_tx(p);
           int step_x = (1 << kTxWLog2[txs]) >> 2, step_y = (1 << kTxHLog2[txs]) >> 2;
           int pb = plane_block(mi_size, p);
@@ -1612,6 +2199,19 @@ class Decoder {
       }
   }
 
+  void transform_tree(int r, int c, int txs) {
+    if (r >= h.mi_rows || c >= h.mi_cols) return;
+    if (inter_tx[(size_t)r * h.mi_cols + c] == txs) {
+      transform_block(0, mi_col * 4, mi_row * 4, txs, c - mi_col, r - mi_row);
+      return;
+    }
+    int sub = kSplitTx[txs];
+    int w4 = 1 << (kTxWLog2[txs] - 2), h4 = 1 << (kTxHLog2[txs] - 2);
+    int sw = 1 << (kTxWLog2[sub] - 2), sh = 1 << (kTxHLog2[sub] - 2);
+    for (int y = 0; y < h4; y += sh)
+      for (int x = 0; x < w4; x += sw) transform_tree(r + y, c + x, sub);
+  }
+
   void transform_block(int plane, int base_x, int base_y, int txs, int x, int y) {
     int start_x = base_x + 4 * x, start_y = base_y + 4 * y;
     int sx = plane ? s.ssx : 0, sy = plane ? s.ssy : 0;
@@ -1621,20 +2221,25 @@ class Decoder {
     int step_x = (1 << kTxWLog2[txs]) >> 2, step_y = (1 << kTxHLog2[txs]) >> 2;
     int max_x = (h.mi_cols * 4) >> sx, max_y = (h.mi_rows * 4) >> sy;
     if (start_x >= max_x || start_y >= max_y) return;
-    bool is_cfl = plane > 0 && uvmode == UV_CFL_PRED;
-    int mode = plane == 0 ? ymode : is_cfl ? DC_PRED : uvmode;
-    int log2w = kTxWLog2[txs], log2h = kTxHLog2[txs];
     int dr = (sub_row >> sy), dc = (sub_col >> sx);
-    bool have_left = (plane == 0 ? avail_l : avail_l_chroma) || x > 0;
-    bool have_above = (plane == 0 ? avail_u : avail_u_chroma) || y > 0;
-    bool have_ar = decoded[plane][dr - 1 + 1][dc + step_x + 1];
-    bool have_bl = decoded[plane][dr + step_y + 1][dc - 1 + 1];
-    predict_intra(plane, start_x, start_y, have_left, have_above, have_ar, have_bl,
-                  mode, log2w, log2h);
-    if (is_cfl) predict_cfl(plane, start_x, start_y, txs);
-    if (plane == 0) {
-      max_luma_w = start_x + step_x * 4;
-      max_luma_h = start_y + step_y * 4;
+    if (!use_intrabc) {
+      if (palette_size[plane > 0]) {
+        predict_palette(plane, start_x, start_y, x, y, txs);
+      } else {
+        bool is_cfl = plane > 0 && uvmode == UV_CFL_PRED;
+        int mode = plane == 0 ? ymode : is_cfl ? DC_PRED : uvmode;
+        bool have_left = (plane == 0 ? avail_l : avail_l_chroma) || x > 0;
+        bool have_above = (plane == 0 ? avail_u : avail_u_chroma) || y > 0;
+        bool have_ar = decoded[plane][dr - 1 + 1][dc + step_x + 1];
+        bool have_bl = decoded[plane][dr + step_y + 1][dc - 1 + 1];
+        predict_intra(plane, start_x, start_y, have_left, have_above, have_ar, have_bl, mode,
+                      kTxWLog2[txs], kTxHLog2[txs]);
+        if (is_cfl) predict_cfl(plane, start_x, start_y, txs);
+      }
+      if (plane == 0) {
+        max_luma_w = start_x + step_x * 4;
+        max_luma_h = start_y + step_y * 4;
+      }
     }
     if (!skip) {
       int eob = coeffs(plane, start_x, start_y, txs);
@@ -1649,38 +2254,57 @@ class Decoder {
       }
   }
 
+  // the colours of the block's index map at the transform block (x, y:
+  // its offset in 4-sample units)
+  void predict_palette(int plane, int start_x, int start_y, int x, int y, int txs) {
+    const uint16_t* pal = palette_colors[plane];
+    const uint8_t* m = color_map[plane > 0];
+    int stride = color_map_w[plane > 0];
+    for (int i = 0; i < (1 << kTxHLog2[txs]); i++) {
+      const uint8_t* row = m + (size_t)(y * 4 + i) * stride + x * 4;
+      uint16_t* dst = planes[plane].row(start_y + i) + start_x;
+      for (int j = 0; j < (1 << kTxWLog2[txs]); j++) dst[j] = pal[row[j]];
+    }
+  }
+
   // ---------------------------------------------------------- coefficients
   int plane_tx_type;
 
   int compute_tx_type(int plane, int txs, int x4, int y4) {
     if (lossless || tx_sqr_up(txs) > TX_32X32) return DCT_DCT;
-    if (plane == 0) return tx_types[(size_t)y4 * (planes[0].w >> 2) + x4];
+    int stride = planes[0].w >> 2;
+    if (plane == 0) return tx_types[(size_t)y4 * stride + x4];
+    // chroma: the co-located luma type in an IntraBC block, else the type
+    // of the mode; DCT_DCT where that type is not in the set of txs
     int t = kModeToTxType[uvmode];
-    // the chroma type must be in the transform set of txs
-    int set = tx_set(txs);
-    if (set == 0) return DCT_DCT;
-    if (set == 2 && (t == V_DCT || t == H_DCT)) return DCT_DCT;
-    return t;
+    if (use_intrabc) {
+      int sx = s.ssx, sy = s.ssy;
+      t = tx_types[(size_t)std::max(mi_row, y4 << sy) * stride + std::max(mi_col, x4 << sx)];
+    }
+    return kExtTxUsed[tx_set(txs)][t] ? t : DCT_DCT;
   }
-  int tx_set(int txs) const {  // 0: DCT only, 1: intra set 1, 2: intra set 2
-    if (tx_sqr_up(txs) > TX_32X32) return 0;
-    if (tx_sqr_up(txs) == TX_32X32) return 0;
-    if (h.reduced_tx_set) return 2;
-    if (tx_sqr(txs) == TX_16X16) return 2;
-    return 1;
+  // libaom's av1_get_ext_tx_set_type
+  int tx_set(int txs) const {
+    bool inter = use_intrabc;
+    if (tx_sqr_up(txs) > TX_32X32) return SET_DCTONLY;
+    if (tx_sqr_up(txs) == TX_32X32) return inter ? SET_DCT_IDTX : SET_DCTONLY;
+    if (h.reduced_tx_set) return inter ? SET_DCT_IDTX : SET_DTT4_IDTX;
+    if (tx_sqr(txs) == TX_16X16) return inter ? SET_DTT9_IDTX_1DDCT : SET_DTT4_IDTX;
+    return inter ? SET_ALL16 : SET_DTT4_IDTX_1DDCT;
   }
 
   void read_tx_type(int txs, int x4, int y4) {
     int set = tx_set(txs);
     int type = DCT_DCT;
     int q = h.seg_enabled ? qindex(true, segment_id) : h.base_q_idx;
-    if (set > 0 && q > 0) {
-      int dir = use_filter_intra ? kFilterIntraModeToDir[filter_intra_mode] : ymode;
-      int sq = tx_sqr(txs);
-      if (set == 1)
-        type = kTxInvSet1[sd.symbol(cdf.intra_ext_tx[1][sq][dir], 7)];
-      else
-        type = kTxInvSet2[sd.symbol(cdf.intra_ext_tx[2][sq][dir], 5)];
+    if (set != SET_DCTONLY && q > 0) {
+      int sq = tx_sqr(txs), eset = kTxSetIndex[use_intrabc][set], n = kTxSetTypes[set];
+      if (use_intrabc) {
+        type = kExtTxInv[set][sd.symbol(cdf.inter_ext_tx[eset][sq], n)];
+      } else {
+        int dir = use_filter_intra ? kFilterIntraModeToDir[filter_intra_mode] : ymode;
+        type = kExtTxInv[set][sd.symbol(cdf.intra_ext_tx[eset][sq][dir], n)];
+      }
     }
     int w4 = 1 << (kTxWLog2[txs] - 2), h4 = 1 << (kTxHLog2[txs] - 2);
     int stride = planes[0].w >> 2;
@@ -2413,13 +3037,13 @@ void iidentity(const int32_t* in, int32_t* out, int n) {
 }
 
 enum { T_DCT, T_ADST, T_FLIPADST, T_IDTX };
-// (column type, row type) of each transform type
+// (column type, row type) of each transform type, flips included
 const uint8_t kVtx[16] = {T_DCT,      T_ADST,     T_DCT,  T_ADST,   T_FLIPADST, T_DCT,
                           T_FLIPADST, T_ADST,     T_FLIPADST, T_IDTX, T_DCT,  T_IDTX,
                           T_ADST,     T_IDTX,     T_FLIPADST, T_IDTX};
 const uint8_t kHtx[16] = {T_DCT,  T_DCT,      T_ADST, T_ADST, T_DCT,      T_FLIPADST,
                           T_FLIPADST, T_FLIPADST, T_ADST, T_IDTX, T_IDTX,     T_DCT,
-                          T_IDTX, T_ADST,     T_IDTX, T_ADST};
+                          T_IDTX, T_ADST,     T_IDTX, T_FLIPADST};
 const int8_t kRowShift[TX_SIZES_ALL] = {0, 1, 2, 2, 2, 0, 0, 1, 1, 1, 1, 1, 1, 1, 1, 2, 2, 2, 2};
 
 void tx1d(int type, const int32_t* in, int32_t* out, int n, int rng) {
@@ -2445,7 +3069,7 @@ void inverse_transform_add(const int32_t* coef, int txs, int type, int bd, uint1
   int rshift = kRowShift[txs];
   int vt = kVtx[type], ht = kHtx[type];
   bool ud_flip = vt == T_FLIPADST, lr_flip = ht == T_FLIPADST;
-  static int32_t buf[64 * 64];
+  static thread_local int32_t buf[64 * 64];  // decodes run on several threads
   int32_t tin[64], tout[64];
   for (int r = 0; r < hh; r++) {
     int32_t* brow = buf + r * w;
@@ -2737,7 +3361,7 @@ struct Cdef {
   }
 
   void run() {
-    if (!d.s.cdef || h.coded_lossless) return;
+    if (!d.s.cdef || h.coded_lossless || h.allow_intrabc) return;
     int bd = d.s.bit_depth, coeff_shift = bd - 8;
     // the deblocked frame, padded by 3 with kLarge past the frame
     std::vector<int> src[3];
@@ -3604,11 +4228,13 @@ int report(const Error& e, char* err, int errlen) {
 extern "C" {
 
 // Decode the OBUs of one AV1 still image into a picture (*handle, freed by
-// thc_av1_release); meta (20): width, height, bit depth, monochrome,
+// thc_av1_release); meta (25): width, height, bit depth, monochrome,
 // subsampling x, y, colour primaries, transfer, matrix, full range; per
 // plane the loop restoration type (0 none, 1 Wiener, 2 self-guided, 3
 // switchable), its unit size, and the unit types read (bit 1 << type);
-// whether film grain was applied.
+// whether film grain was applied; allow_screen_content_tools,
+// allow_intrabc, and the count of blocks with a Y palette, with a UV
+// palette, and of IntraBC blocks.
 int thc_av1_decode(const uint8_t* data, int64_t n, void** handle, int32_t* meta, char* err,
                    int errlen) {
   Picture* pic = new Picture();
@@ -3617,7 +4243,7 @@ int thc_av1_decode(const uint8_t* data, int64_t n, void** handle, int32_t* meta,
     const SequenceHeader& s = pic->seq;
     const FrameHeader& fh = pic->fh;
     const Decoder& d = *pic->dec;
-    int32_t m[20] = {fh.width, fh.height, s.bit_depth, s.mono, s.ssx, s.ssy, s.cp, s.tc,
+    int32_t m[25] = {fh.width, fh.height, s.bit_depth, s.mono, s.ssx, s.ssy, s.cp, s.tc,
                      s.mc, s.full_range};
     for (int p = 0; p < 3; p++) {
       m[10 + p] = fh.lr_type[p];
@@ -3625,6 +4251,11 @@ int thc_av1_decode(const uint8_t* data, int64_t n, void** handle, int32_t* meta,
       m[16 + p] = d.lr_read_types[p];
     }
     m[19] = fh.grain.apply;
+    m[20] = fh.screen_content;
+    m[21] = fh.allow_intrabc;
+    m[22] = d.palette_blocks[0];
+    m[23] = d.palette_blocks[1];
+    m[24] = d.intrabc_blocks;
     memcpy(meta, m, sizeof(m));
     *handle = pic;
     return 0;
