@@ -108,9 +108,11 @@ e. the port's image readers, the codec built with g++, on each committed
    lossy, lossy-with-alpha and animated WebPs, a 1024x1024 q90 lossy
    WebP, JPEG 2000 files of Pillow and tests/_torch_formats.py's
    j2k_random, 1024x1024 lossless (5/3) and lossy (9/7) JP2s, cv2's and
-   Pillow's AVIFs, the 1024x1024 AVIFs of cv2's default quality, q95 and
-   10 bits): its bytes against the sha256 of cv2's or imageio's decode in
-   the folder's digests.json; each decode timed (each 1024x1024 AVIF
+   Pillow's AVIFs, small grid, ispe-scaled, chroma-derived (BT.470M) and
+   matrix-15 AVIFs, the 1024x1024 AVIFs of cv2's default quality, q95 and
+   10 bits and a 1024x1024 grid of four 512x512 tiles): its bytes
+   against the sha256 of cv2's or imageio's decode in the folder's
+   digests.json; each decode timed (each 1024x1024 AVIF
    against the 1024x1024 JPEG), and that of 1024x1024 BMP, PPM, Sun
    raster, TIFF, GIF, Radiance HDR and lossless WebP frames formed here;
 f. the train entry point from configs/train_or_eval.yaml with dataset zju
@@ -204,9 +206,9 @@ n1. CoreView_377 laid out with 1024x1024 lossless JP2 frames: the train
    rank) at mesh_axis_rays 2, its losses those of the same run here at
    mesh_axis_rays 1 (phase 6's bound), K2, K4 and K3 launched; then --type
    evaluate on its checkpoint over two frames whose input and target views
-   take seventeen other codings (BMP, PPM, Sun raster, TIFFs, GIF,
+   take eighteen other codings (BMP, PPM, Sun raster, TIFFs, GIF,
    Radiance HDR, WebPs, a lossy JP2, AVIFs of 8 and 10 bits, with loop
-   restoration and with film grain): finite metrics, K1,
+   restoration, with film grain and a 2x2 grid): finite metrics, K1,
    K2 and K4 launched, each coding read;
 n2. examples/torch_minimal_render.py and torch_minimal_train.py on the
    card: exit 0, a 32x32 PNG, finite losses.
@@ -2841,7 +2843,7 @@ def phase_codec(card: str) -> dict:
     from transhuman_tpu_torch.data import image_formats, image_io
 
     out, by = {}, set()
-    for folder, n in ((FIXTURES, 5), (CODINGS, 8), (FORMATS, 55)):
+    for folder, n in ((FIXTURES, 5), (CODINGS, 8), (FORMATS, 60)):
         with open(os.path.join(folder, "digests.json")) as f:
             digests = json.load(f)
         check(len(digests) == n,
@@ -2913,15 +2915,16 @@ def phase_codec(card: str) -> dict:
         f"RLE HDR, lossless WebP, q90 lossy WebP, lossless (5/3) JP2, "
         f"lossy (9/7) JP2, YCbCr 4:2:0 JPEG-TIFF, Deflate CMYK TIFF, Deflate "
         f"CIELab TIFF, Deflate BigTIFF, AVIF (cv2's default, q95, 10-bit, "
-        f"Pillow's loop-restored q90, grained, and screen-tuned text with "
-        f"palettes and intra block copy) against the sequential JPEG "
+        f"Pillow's loop-restored q90, grained, screen-tuned text with "
+        f"palettes and intra block copy, and a 2x2 grid of cv2's 512x512 "
+        f"tiles) against the sequential JPEG "
         + ", ".join(f"{out[f'1024_{k}'] / out['cv2_q95_420.jpg']:.2f}x"
                     for k in ("bmp", "ppm", "sun", "tiff", "gif", "hdr",
                               "webp_lossless", "webp_lossy", "jp2_lossless",
                               "jp2_lossy", "tiff_jpeg", "tiff_cmyk",
                               "tiff_cielab", "bigtiff", "avif", "avif_q95",
                               "avif_10bit", "avif_lr", "avif_grain",
-                              "avif_screen"))
+                              "avif_screen", "avif_grid"))
         + f"  [{card}]")
     return out
 
@@ -5067,8 +5070,9 @@ def format_frames(src_dir: str) -> dict:
     writers),
     beside the committed q90 lossy WebP, lossless (5/3) and lossy (9/7) JP2,
     YCbCr 4:2:0 JPEG-TIFF and AVIF (cv2's default quality, q95, 10 bits;
-    Pillow's q90 with loop restoration and q75 with film grain) files of
-    the same decode (no writer here codes VP8, JPEG 2000, JPEG or AV1),
+    Pillow's q90 with loop restoration and q75 with film grain; a 2x2 grid
+    of cv2's 512x512 tiles) files of the same decode (no writer here codes
+    VP8, JPEG 2000, JPEG or AV1),
     and Pillow's screen-tuned AVIF of a 1024x1024 screen capture of text
     (palettes and intra block copy): kind -> path, each of the decode
     checked to read back as it (the GIF as its palette's colours, the HDR
@@ -5116,6 +5120,7 @@ def format_frames(src_dir: str) -> dict:
     out["avif_10bit"] = os.path.join(FORMATS, "cv2_10bit_1024.avif")
     out["avif_lr"] = os.path.join(FORMATS, "pil_lr_1024.avif")
     out["avif_grain"] = os.path.join(FORMATS, "pil_grain_1024.avif")
+    out["avif_grid"] = os.path.join(FORMATS, "cv2_grid_1024.avif")
     # a screen capture of text, not the decode: held to cv2's digest in
     # phase e only
     out["avif_screen"] = os.path.join(FORMATS, "pil_screen_1024.avif")
@@ -5125,6 +5130,7 @@ def format_frames(src_dir: str) -> dict:
             "webp_lossy": (rgb, 9), "jp2_lossy": (rgb, 9),
             "avif": (rgb, 10), "avif_q95": (rgb, 10), "avif_10bit": (rgb, 10),
             "avif_lr": (rgb, 10), "avif_grain": (rgb, 30),
+            "avif_grid": (rgb, 10),
             "tiff_jpeg": (rgb, 12), "tiff_cielab": (rgb, 40)}
     for kind, path in out.items():
         if kind == "avif_screen":
@@ -5148,12 +5154,13 @@ def phase_formats(card: str, tmp: str) -> dict:
     bound: card steps are not bit-reproducible), K2 / K4 / K3 launched
     1 / 2 / 2 a step; then --type evaluate on its checkpoint over the two
     frames of CoreView_387, whose input and target views take the
-    seventeen other codings, each frame's under one name (cv2 decodes by content):
+    eighteen other codings, each frame's under one name (cv2 decodes by content):
     frame 0 BMP, PPM, Sun raster, TIFF, GIF, Radiance HDR, lossless and
     lossy WebP, lossy (9/7) JP2; frame 1 YCbCr 4:2:0 JPEG-TIFF, CMYK and
     CIELab TIFFs, BigTIFF and AVIFs (cv2's default quality and 10 bits,
-    Pillow's with loop restoration and with film grain): finite PSNR and
-    SSIM, K1, K2 and K4 launched, each of the eighteen codings read by the
+    Pillow's with loop restoration and with film grain, a 2x2 grid):
+    finite PSNR and SSIM, K1, K2 and K4 launched, each of the nineteen
+    codings read by the
     loader (told apart by the file's digest); then the
     host
     split of one train sample of the JP2 tree (host_split, phase f's
@@ -5176,13 +5183,13 @@ def phase_formats(card: str, tmp: str) -> dict:
     src = format_frames(os.path.join(tmp, "formats_src"))
     root = os.path.join(tmp, "zju_formats")
     # training reads lossless JP2 views only; the two evaluated frames'
-    # nine views each (3 inputs, 6 targets) the seventeen other codings:
+    # nine views each (3 inputs, 6 targets) the eighteen other codings:
     # frame 0 nine of them, frame 1 the TIFF codings of libtiff's other
-    # colour spaces, BigTIFF and four AVIFs, cycling
+    # colour spaces, BigTIFF and five AVIFs (a grid among them)
     kinds = (("bmp", "ppm", "sun", "tiff", "gif", "hdr", "webp_lossless",
               "webp_lossy", "jp2_lossy"),
              ("tiff_jpeg", "tiff_cmyk", "tiff_cielab", "bigtiff", "avif",
-              "avif_10bit", "avif_lr", "avif_grain"))
+              "avif_10bit", "avif_lr", "avif_grain", "avif_grid"))
     cfg_file = os.path.join(CONFIGS, "train_or_eval.yaml")
     # each evaluated frame reads its input and target cameras: each of its
     # codings on one of them, the others' views cycling; write_zju_layout
@@ -5312,7 +5319,7 @@ def phase_formats(card: str, tmp: str) -> dict:
           f"n1 evaluate: launches {by_path['eval_formats']}, want within "
           f"10% of {want}")
     # training reads 4 lossless JP2 views a sample; the evaluated frames'
-    # targets and inputs the seventeen other codings: all eighteen on the
+    # targets and inputs the eighteen other codings: all nineteen on the
     # path
     check(set(train_seen) == {"jp2_lossless"}
           and train_seen["jp2_lossless"] >= 4 * N_STEPS
@@ -5358,7 +5365,7 @@ def phase_formats(card: str, tmp: str) -> dict:
         f"{train_seen}; --type evaluate, a frame of BMP, PPM, Sun raster, "
         f"TIFF, GIF, Radiance HDR, lossless and lossy WebP and lossy JP2 "
         f"views and one of JPEG-TIFF, CMYK, CIELab, BigTIFF and AVIF (8- and "
-        f"10-bit, loop-restored, grained) views: psnr "
+        f"10-bit, loop-restored, grained, a 2x2 grid) views: psnr "
         f"{summary['psnr']:.3f}, ssim {summary['ssim']:.4f}, files read "
         f"{seen}, launches {by_path['eval_formats']}; layout {layout_s:.1f} "
         f"s, torchrun {tr_s:.1f} s, train here {one_s:.1f} s, evaluate "

@@ -100,9 +100,12 @@ class Heif:
     """A still-image AVIF as editable parts: ftyp, items {id: [type, data,
     name]}, the primary id, references [(type, from, to)], properties
     [(type, body)] and associations {id: [(index, essential)]}; bytes()
-    lays it out again (meta before mdat, one extent an item, iloc v0)."""
+    lays it out again (meta before mdat, one extent an item, in the order
+    of their ids; the items of ``in_idat`` in the meta box's idat, iloc v1
+    construction method 1, the rest in mdat)."""
 
     def __init__(self, data: bytes):
+        self.in_idat = set()
         top = {k: (s, e) for k, s, e in boxes(data)}
         s, e = top[b"ftyp"]
         self.ftyp = data[s:e]
@@ -214,19 +217,34 @@ class Heif:
         pitm = full_box(b"pitm", 0, 0, struct.pack(">H", self.primary))
         ftyp = box(b"ftyp", self.ftyp)
 
+        inner = [i for i in ids if i in self.in_idat]
+        outer = [i for i in ids if i not in self.in_idat]
+        idat = b"".join(self.items[i][1] for i in inner)
+        idat = box(b"idat", idat) if inner else b""
+
         def meta(offsets):
-            iloc = full_box(b"iloc", 0, 0, bytes([0x44, 0x00]) + struct.pack(
-                ">H", len(ids)) + b"".join(struct.pack(
+            if inner:  # version 1: construction methods
+                entries = b"".join(struct.pack(
+                    ">HHHHII", i, int(i in self.in_idat), 0, 1, offsets[i],
+                    len(self.items[i][1])) for i in ids)
+            else:
+                entries = b"".join(struct.pack(
                     ">HHHII", i, 0, 1, offsets[i], len(self.items[i][1]))
-                    for i in ids))
+                    for i in ids)
+            iloc = full_box(b"iloc", int(bool(inner)), 0, bytes(
+                [0x44, 0x00]) + struct.pack(">H", len(ids)) + entries)
             return full_box(b"meta", 0, 0, hdlr + pitm + iloc + iinf + iref
-                            + box(b"iprp", ipco + ipma))
+                            + box(b"iprp", ipco + ipma) + idat)
         start = len(ftyp) + len(meta({i: 0 for i in ids})) + 8
         offsets, pos = {}, start
-        for i in ids:
+        for i in outer:
             offsets[i] = pos
             pos += len(self.items[i][1])
-        mdat = box(b"mdat", b"".join(self.items[i][1] for i in ids))
+        pos = 0
+        for i in inner:
+            offsets[i] = pos
+            pos += len(self.items[i][1])
+        mdat = box(b"mdat", b"".join(self.items[i][1] for i in outer))
         return ftyp + meta(offsets) + mdat
 
 
@@ -563,22 +581,70 @@ def with_superres(data: bytes) -> bytes:
     return bytes(h)
 
 
-def as_grid(data: bytes) -> bytes:
-    """data's primary item twice, side by side, as the tiles of a grid
-    derived image (the new primary item)."""
+def as_grid(data: bytes, rows: int = 1, columns: int = 2, size=None,
+            tiles=None, idat: bool = False, wide: bool = False,
+            old: bool = False) -> bytes:
+    """A grid derived image (the primary item) of rows x columns tiles:
+    the primary items of ``tiles`` (AVIF files, row-major; data's primary
+    item in every place by default), an ImageGrid of output ``size`` (w,
+    h; the tiles' whole extent by default) with 32-bit fields if ``wide``,
+    in idat if ``idat``, as libavif writes one: the grid item first (its
+    payload leading mdat, where cv2's signature check reads it), with
+    ispe, and pixi and colr from the first tile.  Where the tile files
+    have alpha items, an alpha grid of them follows, with the same
+    ImageGrid.  ``old``: the layout this helper wrote before, data's
+    primary item twice side by side, the grid item last and without pixi,
+    which libavif's strict mode and so cv2 read as nothing."""
     h = Heif(data)
-    tile = h.primary
-    ispe = h.prop(tile, b"ispe")
-    w, hh = struct.unpack_from(">II", ispe, 4)
-    second = max(h.items) + 1
-    grid = second + 1
-    h.items[second] = list(h.items[tile])
-    h.assoc[second] = list(h.assoc[tile])
-    h.items[grid] = [b"grid", struct.pack(">BBBBHH", 0, 0, 0, 1, 2 * w, hh),
-                     b"\0"]
-    h.refs += [(b"dimg", grid, tile), (b"dimg", grid, second)]
-    h.add_prop(grid, b"ispe", b"\0" * 4 + struct.pack(">II", 2 * w, hh))
-    h.primary = grid
+    if old:
+        tile = h.primary
+        ispe = h.prop(tile, b"ispe")
+        w, hh = struct.unpack_from(">II", ispe, 4)
+        second = max(h.items) + 1
+        grid = second + 1
+        h.items[second] = list(h.items[tile])
+        h.assoc[second] = list(h.assoc[tile])
+        h.items[grid] = [b"grid", struct.pack(">BBBBHH", 0, 0, 0, 1, 2 * w,
+                                              hh), b"\0"]
+        h.refs += [(b"dimg", grid, tile), (b"dimg", grid, second)]
+        h.add_prop(grid, b"ispe", b"\0" * 4 + struct.pack(">II", 2 * w, hh))
+        h.primary = grid
+        return bytes(h)
+    files = [Heif(f) for f in (tiles or [data] * (rows * columns))]
+    assert len(files) == rows * columns
+    tw, th = struct.unpack_from(">II", files[0].prop(files[0].primary,
+                                                     b"ispe"), 4)
+    w, hh = size or (columns * tw, rows * th)
+    payload = struct.pack(">BBBB", 0, int(wide), rows - 1, columns - 1) + \
+        struct.pack(">II" if wide else ">HH", w, hh)
+    alphas = [next((s for r, s, d in f.refs if r == b"auxl"
+                    and d == f.primary), None) for f in files]
+    h.items, h.refs, h.props, h.assoc = {}, [], [], {}
+    h.primary, n = 1, len(files)
+
+    def add(iid, f, src):
+        h.items[iid] = list(f.items[src])
+        for index, essential in f.assoc.get(src, ()):
+            h.add_prop(iid, *f.props[index - 1], essential)
+
+    def add_grid(iid, first, src):
+        h.items[iid] = [b"grid", payload, b"\0"]
+        h.add_prop(iid, b"ispe", b"\0" * 4 + struct.pack(">II", w, hh))
+        for kind in (b"pixi", b"colr", b"auxC"):
+            if first.prop(src, kind) is not None:
+                h.add_prop(iid, kind, first.prop(src, kind))
+        if idat:
+            h.in_idat.add(iid)
+    add_grid(1, files[0], files[0].primary)
+    for k, f in enumerate(files):
+        add(2 + k, f, f.primary)
+        h.refs.append((b"dimg", 1, 2 + k))
+    if all(a is not None for a in alphas):
+        add_grid(n + 2, files[0], alphas[0])
+        h.refs.append((b"auxl", n + 2, 1))
+        for k, f in enumerate(files):
+            add(n + 3 + k, f, alphas[k])
+            h.refs.append((b"dimg", n + 2, n + 3 + k))
     return bytes(h)
 
 

@@ -21,6 +21,7 @@ chip_smoke.py phase e holds the card machine's decode against.
 import hashlib
 import json
 import os
+import struct
 import sys
 
 import cv2
@@ -1251,6 +1252,30 @@ def _avif_1024(**kw):
     return AV.cv2_avif(img, **kw)
 
 
+def _avif_crop(h, w, y, x, depth=8):
+    """cv2's AVIF of an h x w crop of the fixture JPEG's decode at (y, x)."""
+    img = np.ascontiguousarray(_fixture_rgb()[y:y + h, x:x + w, ::-1])
+    if depth > 8:
+        return AV.cv2_avif(img.astype(np.uint16) << (depth - 8), depth=depth)
+    return AV.cv2_avif(img)
+
+
+def _avif_grid(side):
+    """A 2x2 grid AVIF of cv2's side x side tiles of the fixture JPEG's
+    decode (the top left 2 side x 2 side of it)."""
+    tiles = [_avif_crop(side, side, r, c) for r in (0, side)
+             for c in (0, side)]
+    return AV.as_grid(tiles[0], 2, 2, tiles=tiles)
+
+
+def _avif_ispe(data, w, h):
+    """data with its primary item's ispe set to w x h (libavif scales the
+    frame to it)."""
+    heif = AV.Heif(data)
+    heif.set_prop(heif.primary, b"ispe", b"\0" * 4 + struct.pack(">II", w, h))
+    return bytes(heif)
+
+
 LARGE = {"cv2_jpeg_420_1024.tif": lambda: _jpeg_tiff_1024(),
          "cv2_default_1024.avif": lambda: _avif_1024(),
          "cv2_q95_1024.avif": lambda: _avif_1024(quality=95),
@@ -1267,6 +1292,17 @@ LARGE = {"cv2_jpeg_420_1024.tif": lambda: _jpeg_tiff_1024(),
          "pil_screen_1024.avif": lambda: AV.pil_avif(
              AV.screen_rgb(1024, 1024, 25, rects=6), quality=60, speed=6,
              advanced={"tune-content": "screen"}),
+         # a grid of four 512x512 tiles; a small grid, an ispe scaling
+         # 100x80 by 3/4, chroma-derived NCL of BT.470M primaries, and
+         # matrix coefficients 15 at 10 bits
+         "cv2_grid_1024.avif": lambda: _avif_grid(512),
+         "avif_grid_2x2.avif": lambda: _avif_grid(64),
+         "avif_ispe_75x60.avif": lambda: _avif_ispe(
+             _avif_crop(80, 100, 300, 400), 75, 60),
+         "avif_mc12_cp4.avif": lambda: AV.set_nclx(
+             _avif_crop(48, 64, 500, 200), cp=4, mc=12),
+         "avif_mc15_10bit.avif": lambda: AV.set_nclx(
+             _avif_crop(48, 64, 600, 600, depth=10), cp=9, mc=15, full=0),
          "cv2_lzw_64.tif": lambda: _large_tiff(5),
          "cv2_deflate_64.tif": lambda: _large_tiff(8),
          "cv2_q90_1024.webp": _lossy_1024,

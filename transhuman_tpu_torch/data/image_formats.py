@@ -96,22 +96,38 @@ What OpenCV does, where it is not what the format's specification says:
   once every tile has all its tile-parts, what follows is not read if it
   is an EOC, a SOT or the stream's last two bytes, but a SOT that the
   tile-part count check takes for another part of the first tile.
-* AVIF (libavif 1.4 with libaom 3.14; still images): the primary av01
-  item of the meta box (hdlr pict; pitm, iinf v2/v3, iloc v0-2 from the
-  file or idat, iref, ipco/ipma); its AV1 key frame decoded to libaom's
-  planes, loop restoration and film grain included (libaom grains the
-  picture it outputs, and libavif converts the grained planes); the colr nclx box's CICP and range where there is one, the
-  sequence header's otherwise; an alpha item (auxl, auxC alpha) decoded
-  (a failing one fails the file) and dropped; irot, imir and clap, which
-  libavif requires to be essential, not applied, an Exif item's
-  orientation applied where its data starts as TIFF does; 8-bit output as
+* AVIF (libavif 1.4 with libaom 3.14; still images): the primary item of
+  the meta box (hdlr pict; pitm, iinf v2/v3, iloc v0-2 from the file or
+  idat, iref, ipco/ipma), an av01 item or a grid of them; an AV1 key
+  frame decoded to libaom's planes, loop restoration and film grain
+  included (libaom grains the picture it outputs, and libavif converts
+  the grained planes), each plane scaled to the item's ispe where that is
+  not the frame's size (libavif's avifImageScale: libyuv's ScalePlane or
+  ScalePlane_12 with kFilterBox, chroma at its subsampled size, before
+  10 and 12 bits are cut); a grid's ImageGrid (in mdat or idat, 16 or
+  32-bit fields) and its dimg tiles, decoded and scaled so, their planes
+  joined row-major and cropped to the grid's output size before one
+  conversion (tiles of other av1C fields, sizes, depths or colour, fewer
+  than 64 samples a side, odd where chroma is subsampled, or not covering
+  the output fail the file, as an ImageGrid whose size is not the grid's
+  ispe does); the colr nclx box's CICP and range where there is one, the
+  (first tile's) sequence header's otherwise; an alpha item or grid
+  (auxl, auxC alpha) decoded (a failing one fails the file) and dropped;
+  irot, imir and clap, which libavif requires to be essential, not
+  applied, an Exif item's orientation applied where its data starts as
+  TIFF does; cv2's signature check, libavif's parse of the file's first
+  500 bytes, failing where a grid's ImageGrid, an Exif or XMP item or
+  (without nclx) the AV1 data it reads starts past them; 8-bit output as
   OpenCV asks libavif for it: a grey image is the Y plane (10 and 12 bits
   cut by ``convertTo``, half to even; the range ignored), a colour one
   libyuv's fixed-point conversion (bilinear 4:2:0, linear 4:2:2 chroma)
   after 10 and 12-bit planes are cut to 8 bits (``Convert16To8Plane``)
   for BT.601, unspecified, BT.709, BT.2020 NCL and chroma-derived NCL of
-  those primaries, libavif's float conversion (9-3-3-1 bilinear chroma)
-  for identity, FCC, SMPTE 240M and YCgCo.
+  those primaries (1, 2, 5, 6, 9), libavif's float conversion (9-3-3-1
+  bilinear chroma) for identity, FCC, SMPTE 240M, YCgCo, chroma-derived
+  NCL of any other primaries (Kr and Kb computed from libavif's
+  primaries table, BT.709's for a code it lacks) and matrix coefficients
+  15 (BT.601's Kr and Kb, libavif's default).
 
 Refused by name (FileNotFoundError naming the path and the format), each
 where cv2.imread returns nothing or where the port does not decode it:
@@ -144,11 +160,10 @@ palettes other than every column from one index component; AVIF where
 cv2 reads nothing (a cut file, irot, imir, clap or a1op not marked
 essential, an unknown essential property, no ispe or av1C, two nclx
 boxes, a failing alpha item, identity of subsampled chroma, YCgCo of
-limited range, matrix coefficients 3, 10, 11, 13, 14 and 16 up) and AVIF
-the port does not decode: AV1 superres, grid images, image
-sequences (avis, a moov track; cv2 reads the first frame), layered images
-(a1lx, lsel, a1op), matrix coefficients 15 and chroma-derived matrices of
-other primaries, an ispe other than the frame's size.
+limited range, matrix coefficients 3, 10, 11, 13, 14 and 16 up, a grid
+libavif fails, what cv2's signature check does not pass) and AVIF the
+port does not decode: AV1 superres, image sequences (avis, a moov track;
+cv2 reads the first frame), layered images (a1lx, lsel, a1op).
 """
 
 from __future__ import annotations
@@ -975,6 +990,7 @@ class _Heif:
     def __init__(self, data: bytes):
         self.data = data
         self.types, self.names, self.locations = {}, {}, {}
+        self.content_types, self.meta_end = {}, len(data)
         self.refs, self.props, self.assoc = [], [], {}
         self.primary, self.idat, self.brands = None, b"", ()
         meta = None
@@ -996,6 +1012,7 @@ class _Heif:
                     data[i:i + 4] for i in range(s + 8, e - 3, 4))
             elif kind == b"meta" and meta is None:
                 meta = (s + 4, e)
+                self.meta_end = e
             elif kind == b"moov":
                 raise Refused("AVIF image sequence (a moov track, avis)")
         if not self.brands or not set(self.brands) & set(AVIF_BRANDS):
@@ -1028,6 +1045,10 @@ class _Heif:
                     iid = _uint(d, s2 + 4, w)
                     kind3 = d[s2 + 4 + w + 2:s2 + 4 + w + 6]
                     self.types[iid] = kind3
+                    if kind3 == b"mime":  # item_name, then content_type
+                        rest = d[s2 + 4 + w + 6:e2].split(b"\0")
+                        self.content_types[iid] = rest[1] if len(rest) > 1 \
+                            else b""
             elif kind == b"iloc":
                 self._iloc(s, e)
             elif kind == b"iref":
@@ -1178,45 +1199,186 @@ def decode_avif(data: bytes, what: str = "AVIF") -> np.ndarray:
         raise Refused(f"malformed AVIF ({e})") from None
 
 
-def _decode_avif(data: bytes, what: str) -> np.ndarray:
-    heif = _Heif(data)
-    kind = heif.types.get(heif.primary)
-    if kind == b"grid":
-        raise Refused("AVIF grid image (a derived image of tiles)")
-    if kind != b"av01":
-        raise ValueError(f"primary item of type {kind!r} (not av01)")
-    props = heif.properties(heif.primary)
+# cv2.imread picks its AVIF decoder by libavif's parse of the file's first
+# 500 bytes (AvifDecoder::checkSignature, the reader's size hint 1e9).
+# Where ftyp and meta lie within them, that parse reads the primary grid's
+# ImageGrid (and an alpha grid's), then the Exif and XMP items describing
+# the primary item and, where the primary item has no nclx colour, its (or
+# its first tile's) AV1 data for the sequence header's: a read starting
+# past the 500 bytes fails the parse, and cv2 reads nothing; one ending
+# past them stops it, and cv2 reads the whole file.
+_SIGNATURE_BYTES = 500
+
+
+def _signature_check(heif: _Heif, alpha, nclx: bool):
+    if heif.meta_end > _SIGNATURE_BYTES:
+        return
+    primary = heif.primary
+    reads = [i for i in (primary, alpha) if heif.types.get(i) == b"grid"]
+    described = {src for ref, src, dst in heif.refs
+                 if ref == b"cdsc" and dst == primary}
+    reads += [i for i, kind in heif.types.items() if i in described and (
+        kind == b"Exif" or heif.content_types.get(i) == b"application/"
+        b"rdf+xml")]
+    if not nclx:
+        reads.append(_tiles(heif, primary)[0] if heif.types.get(primary)
+                     == b"grid" else primary)
+    for iid in reads:
+        method, extents = heif.locations.get(iid, (1, ()))
+        for start, n in extents if method == 0 else ():
+            if start > _SIGNATURE_BYTES:
+                raise ValueError(f"item {iid}'s data past the 500 bytes cv2's "
+                                 "signature check parses")
+            if start + n > _SIGNATURE_BYTES:
+                return
+
+
+def _tiles(heif: _Heif, iid: int) -> list:
+    """The dimg references of grid item iid, in order."""
+    return [dst for ref, src, dst in heif.refs if ref == b"dimg"
+            and src == iid]
+
+
+def _ispe(heif: _Heif, props: dict):
+    s, _ = props[b"ispe"][0]
+    width, height = struct.unpack_from(">II", heif.data, s + 4)
+    if not width or not height or width > 32768 or height > 32768 or \
+            width * height > 16384 * 16384:
+        # libavif's image size and dimension limits
+        raise ValueError(f"ispe of {width}x{height} pixels")
+    return width, height
+
+
+def _scaled(planes, meta, width: int, height: int):
+    """planes scaled to width x height (chroma at its subsampled size) as
+    libavif's avifImageScale scales a decoded image to its ispe
+    (native/av1.cc's thc_avif_scale_plane)."""
+    fw, fh, depth, _, sx, sy = (int(v) for v in meta[:6])
+    if (fw, fh) == (width, height):
+        return planes
+    lib = codec.library("av1")
+    out = []
+    for p, plane in enumerate(planes):
+        ssx, ssy = (sx, sy) if p else (0, 0)
+        dst = np.empty(((height + ssy) >> ssy, (width + ssx) >> ssx),
+                       np.uint16)
+        lib.thc_avif_scale_plane(plane.ctypes.data, plane.shape[1],
+                                 plane.shape[0], dst.ctypes.data,
+                                 dst.shape[1], dst.shape[0], depth)
+        out.append(dst)
+    return tuple(out)
+
+
+def _image(heif: _Heif, iid: int, alpha: bool = False):
+    """(planes, meta) of item iid: an av01 item decoded and scaled to its
+    ispe (an alpha item without one kept at its frame's size), or a grid of
+    such tiles joined; meta as _av1_planes gives it, at the image's
+    size."""
+    props = heif.properties(iid)
     if b"a1lx" in props or b"lsel" in props or b"a1op" in props:
         raise Refused("AVIF layered image (a1lx, lsel, a1op)")
-    if b"ispe" not in props or b"av1C" not in props:
-        raise ValueError("primary item without ispe or av1C")
-    s, _ = props[b"ispe"][0]
-    width, height = struct.unpack_from(">II", data, s + 4)
-    planes, meta = _av1_planes(heif.item(heif.primary))
-    if (int(meta[0]), int(meta[1])) != (width, height):
-        raise ValueError(f"AV1 frame of {meta[0]}x{meta[1]} pixels for an "
-                         f"ispe of {width}x{height}")
-    cp, mc, full = int(meta[6]), int(meta[8]), int(meta[9])
-    for s, e in props.get(b"colr", ()):
-        if data[s:s + 4] == b"nclx":
-            cp, _, mc = struct.unpack_from(">HHH", data, s + 4)
-            full = data[s + 10] >> 7
-            break
-    # the alpha item: decoded as libavif decodes it (a failing one fails
-    # the file), then dropped, as imread's 3-channel result drops it
+    kind = heif.types.get(iid)
+    if kind == b"grid":
+        if b"ispe" not in props:
+            raise ValueError("grid item without ispe")
+        return _grid(heif, iid, _ispe(heif, props))
+    if kind != b"av01":
+        raise ValueError(f"item of type {kind!r} (not av01 or grid)")
+    if b"av1C" not in props or (b"ispe" not in props and not alpha):
+        raise ValueError("item without ispe or av1C")
+    planes, meta = _av1_planes(heif.item(iid))
+    if b"ispe" in props:
+        width, height = _ispe(heif, props)
+        planes = _scaled(planes, meta, width, height)
+        meta[0], meta[1] = width, height
+    return planes, meta
+
+
+def _grid(heif: _Heif, iid: int, size):
+    """(planes, meta) of grid item iid (its ispe ``size``): its ImageGrid
+    read, its tiles decoded and their planes joined row-major and cropped
+    to the grid's output size, as libavif's avifDecoderDataFillImageGrid
+    joins them before one conversion; ValueError wherever libavif fails
+    the grid."""
+    body = heif.item(iid)
+    if len(body) < 4 or body[0] != 0:
+        raise ValueError("ImageGrid of another version")
+    flags, rows, cols = body[1], body[2] + 1, body[3] + 1
+    n = 4 if flags & 1 else 2
+    if len(body) != 4 + 2 * n:
+        raise ValueError("ImageGrid of another length")
+    gw, gh = _uint(body, 4, n), _uint(body, 4 + n, n)
+    if not gw or not gh:
+        raise ValueError(f"ImageGrid of {gw}x{gh} pixels")
+    if (gw, gh) != size:
+        # imread's 8-bit matrix is the ispe's size
+        raise ValueError(f"ImageGrid of {gw}x{gh} for an ispe of "
+                         f"{size[0]}x{size[1]}")
+    tiles = _tiles(heif, iid)
+    if len(tiles) != rows * cols:
+        raise ValueError(f"grid of {rows}x{cols} tiles with {len(tiles)} "
+                         "dimg references")
+    configs = set()
+    for t in tiles:
+        props = heif.properties(t)
+        if heif.types.get(t) != b"av01" or b"av1C" not in props:
+            raise ValueError("grid tile not an av01 item with av1C")
+        s, _ = props[b"av1C"][0]
+        configs.add(heif.data[s:s + 4])
+    if len(configs) > 1:
+        raise ValueError("grid tiles of different av1C fields")
+    decoded = [_image(heif, t) for t in tiles]
+    planes, meta = decoded[0]
+    tw, th, _, mono, sx, sy = (int(v) for v in meta[:6])
+    for _, m in decoded[1:]:
+        if (list(m[:6]) != list(meta[:6])
+                or list(m[6:10]) != list(meta[6:10])):
+            raise ValueError("grid tiles of different sizes, depths, "
+                             "subsampling or colour")
+    if tw < 64 or th < 64 or (sx and (gw % 2 or tw % 2)) or \
+            (sy and (gh % 2 or th % 2)):
+        raise ValueError(f"grid of {tw}x{th} tiles for {gw}x{gh} pixels")
+    if tw * cols < gw or th * rows < gh or tw * (cols - 1) >= gw or \
+            th * (rows - 1) >= gh:
+        raise ValueError(f"{rows}x{cols} tiles of {tw}x{th} do not cover "
+                         f"{gw}x{gh} pixels")
+    joined = []
+    for p in range(len(planes)):
+        ssx, ssy = (sx, sy) if p else (0, 0)
+        whole = np.block([[decoded[r * cols + c][0][p] for c in range(cols)]
+                          for r in range(rows)])
+        joined.append(np.ascontiguousarray(
+            whole[:(gh + ssy) >> ssy, :(gw + ssx) >> ssx]))
+    meta = meta.copy()
+    meta[0], meta[1] = gw, gh
+    return tuple(joined), meta
+
+
+def _decode_avif(data: bytes, what: str) -> np.ndarray:
+    heif = _Heif(data)
+    props = heif.properties(heif.primary)
+    nclx = [s for s, _ in props.get(b"colr", ()) if data[s:s + 4] == b"nclx"]
+    # the alpha item (auxl, auxC alpha)
+    alpha = None
     for ref, src, dst in heif.refs:
-        if ref != b"auxl" or dst != heif.primary:
-            continue
-        aux = heif.properties(src).get(b"auxC", ())
-        if not any(data[s + 4:e].rstrip(b"\0") in _ALPHA_URNS
-                   for s, e in aux):
-            continue
-        if heif.types.get(src) != b"av01":
-            raise ValueError("alpha item not av01")
-        _, ameta = _av1_planes(heif.item(src))
+        if ref == b"auxl" and dst == heif.primary and any(
+                data[s + 4:e].rstrip(b"\0") in _ALPHA_URNS
+                for s, e in heif.properties(src).get(b"auxC", ())):
+            alpha = src
+            break
+    _signature_check(heif, alpha, bool(nclx))
+    planes, meta = _image(heif, heif.primary)
+    width, height = int(meta[0]), int(meta[1])
+    cp, mc, full = int(meta[6]), int(meta[8]), int(meta[9])
+    if nclx:
+        cp, _, mc = struct.unpack_from(">HHH", data, nclx[0] + 4)
+        full = data[nclx[0] + 10] >> 7
+    # the alpha item decoded as libavif decodes it (a failing one fails the
+    # file), then dropped, as imread's 3-channel result drops it
+    if alpha is not None:
+        _, ameta = _image(heif, alpha, alpha=True)
         if (int(ameta[0]), int(ameta[1])) != (width, height):
             raise ValueError("alpha item of another size")
-        break
     w, h, depth, mono, sx, sy = (int(v) for v in meta[:6])
     out = np.empty((h, w, 3), np.uint8)
     params = np.array([w, h, depth, mono, sx, sy, cp, mc, full], np.int32)

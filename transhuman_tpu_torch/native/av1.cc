@@ -35,7 +35,9 @@
 //     and intra block copy (the vector's candidates from the spatial
 //     neighbours, its read and validity checks, the variable transform
 //     tree and the inter transform sets, the bilinear copy from the
-//     frame's unfiltered picture).
+//     frame's unfiltered picture);
+//   * the planes scaled to an item's ispe as libavif's avifImageScale
+//     scales them (libyuv's ScalePlane routines, thc_avif_scale_plane).
 // Refused by name: superres, frames other than one shown key frame,
 // tile-list OBUs, more than one operating point's layers, and the colours
 // cv2 reads as nothing (the identity matrix of subsampled chroma, YCgCo of
@@ -51,6 +53,7 @@
 #include <cstdlib>
 #include <cstring>
 #include <string>
+#include <type_traits>
 #include <vector>
 
 #include "av1_tables.h"
@@ -2835,7 +2838,7 @@ class Decoder {
     int w = 1 << kTxWLog2[txs], hh = 1 << kTxHLog2[txs];
     int sx = s.ssx, sy = s.ssy;
     int alpha = plane == 1 ? cfl_alpha_u : cfl_alpha_v;
-    static int L[64 * 64];
+    static thread_local int L[64 * 64];  // decodes run on several threads
     int64_t avg = 0;
     Plane& Y = planes[0];
     for (int i = 0; i < hh; i++) {
@@ -3965,9 +3968,11 @@ void decode_obus(const uint8_t* data, size_t n, Picture& pic) {
 // default (automatic) chroma upsampling: libyuv's fixed-point conversion,
 // after the planes are cut to 8 bits (Convert16To8Plane), for the matrices
 // and ranges libyuv has constants for (BT.601 and unspecified, BT.709,
-// BT.2020 NCL; bilinear 4:2:0 and linear 4:2:2 upsampling), and libavif's
-// own float conversion otherwise (identity, FCC, SMPTE 240M; 9-3-3-1
-// bilinear 4:2:0 and duplicated 4:2:2 chroma).
+// BT.2020 NCL, chroma-derived NCL of their primaries; bilinear 4:2:0 and
+// linear 4:2:2 upsampling), and libavif's own float conversion otherwise
+// (identity, FCC, SMPTE 240M, YCgCo, chroma-derived NCL of other
+// primaries, matrix coefficients 15; 9-3-3-1 bilinear 4:2:0 and
+// duplicated 4:2:2 chroma).
 
 // libyuv's YuvConstants (ub, ug, vg, vr, yg, yb) for full (J) and limited
 // range, read from libyuv's kYuv*Constants
@@ -4076,8 +4081,40 @@ void libyuv_to_rgb(const YuvImage& im, const LibyuvConstants& k, uint8_t* rgb) {
   }
 }
 
+// libavif's colour primaries (rX, rY, gX, gY, bX, bY, wX, wY) by their
+// CICP code; any code the table lacks reads as BT.709's
+const float kPrimaries[][9] = {
+    {1, 0.64f, 0.33f, 0.3f, 0.6f, 0.15f, 0.06f, 0.3127f, 0.329f},
+    {4, 0.67f, 0.33f, 0.21f, 0.71f, 0.14f, 0.08f, 0.310f, 0.316f},
+    {5, 0.64f, 0.33f, 0.29f, 0.60f, 0.15f, 0.06f, 0.3127f, 0.3290f},
+    {6, 0.630f, 0.340f, 0.310f, 0.595f, 0.155f, 0.070f, 0.3127f, 0.3290f},
+    {7, 0.630f, 0.340f, 0.310f, 0.595f, 0.155f, 0.070f, 0.3127f, 0.3290f},
+    {8, 0.681f, 0.319f, 0.243f, 0.692f, 0.145f, 0.049f, 0.310f, 0.316f},
+    {9, 0.708f, 0.292f, 0.170f, 0.797f, 0.131f, 0.046f, 0.3127f, 0.3290f},
+    {10, 1.0f, 0.0f, 0.0f, 1.0f, 0.0f, 0.0f, 0.3333f, 0.3333f},
+    {11, 0.680f, 0.320f, 0.265f, 0.690f, 0.150f, 0.060f, 0.314f, 0.351f},
+    {12, 0.680f, 0.320f, 0.265f, 0.690f, 0.150f, 0.060f, 0.3127f, 0.3290f},
+    {22, 0.630f, 0.340f, 0.295f, 0.605f, 0.155f, 0.077f, 0.3127f, 0.3290f},
+};
+
+// Kr and Kb of chroma-derived NCL (H.273 E.2.2) from primaries cp, in
+// float32 as libavif's avifColorPrimariesComputeYCoeffs computes them
+void chroma_derived_coeffs(int cp, float& kr, float& kb) {
+  const float* p = kPrimaries[0] + 1;
+  for (const auto& row : kPrimaries)
+    if ((int)row[0] == cp) p = row + 1;
+  float rX = p[0], rY = p[1], gX = p[2], gY = p[3], bX = p[4], bY = p[5], wX = p[6], wY = p[7];
+  float rZ = 1.0f - (rX + rY), gZ = 1.0f - (gX + gY), bZ = 1.0f - (bX + bY);
+  float wZ = 1.0f - (wX + wY);
+  float den = wY * (rX * (gY * bZ - bY * gZ) + gX * (bY * rZ - rY * bZ) + bX * (rY * gZ - gY * rZ));
+  kr = (rY * (wX * (gY * bZ - bY * gZ) + wY * (bX * gZ - gX * bZ) + wZ * (gX * bY - bX * gY))) / den;
+  kb = (bY * (wX * (rY * gZ - gY * rZ) + wY * (gX * rZ - rX * gZ) + wZ * (rX * gY - gX * rY))) / den;
+}
+
 // libavif's avifImageYUVAnyToRGBAnySlow (and its fast paths, the same
-// arithmetic without upsampling), in float32
+// arithmetic without upsampling), in float32: Kr and Kb of the matrix
+// (BT.601's for a code its table lacks, such as 15), or of the primaries
+// for chroma-derived NCL
 void builtin_to_rgb(const YuvImage& im, uint8_t* rgb) {
   int maxc = (1 << im.depth) - 1;
   bool identity = im.mc == 0;
@@ -4094,6 +4131,8 @@ void builtin_to_rgb(const YuvImage& im, uint8_t* rgb) {
   } else if (im.mc == 9) {
     kr = 0.2627f;
     kb = 0.0593f;
+  } else if (im.mc == 12) {
+    chroma_derived_coeffs(im.cp, kr, kb);
   }
   float kg = 1.0f - kr - kb;
   float bias_y, bias_uv, range_y, range_uv;
@@ -4201,7 +4240,7 @@ void yuv_to_rgb(const YuvImage& im, bool mono, uint8_t* rgb) {
     case 8:
       if (!im.full) refuse("YCgCo of limited range");
       break;
-    case 4: case 7: break;
+    case 4: case 7: case 12: case 15: break;
     default:
       refuse("matrix coefficients " + std::to_string(im.mc) + " (not converted to RGB)");
   }
@@ -4217,6 +4256,403 @@ void yuv_to_rgb(const YuvImage& im, bool mono, uint8_t* rgb) {
     builtin_to_rgb(im, rgb);
   }
 }
+
+// ------------------------------------------------------- ispe scaling
+// libavif's avifImageScale, which libavif runs on a decoded image whose
+// ispe is not its frame's size: each plane (chroma at its subsampled size)
+// through libyuv's ScalePlane (8 bits) or ScalePlane_12 (10 and 12) with
+// kFilterBox.  libyuv reduces the filter by the two sizes
+// (ScaleFilterReduce) and picks a routine by their ratio: 1/2 (2x2 box),
+// 1/4 (4x4 box), 3/4 and 3/8 (their box rows), a general box below 1/2,
+// 2x up (9-3-3-1 bilinear, or linear across), bilinear up or down, a
+// vertical-only filter where the width is kept, or point sampling.  The
+// 8-bit rows are those libyuv runs on an x86-64 CPU with SSSE3: bilinear
+// columns in 7-bit fractions, and the 3/4 and 3/8 rows averaging their
+// source rows before the horizontal filter over each whole 24 (3/4) or 6
+// (3/8) outputs of a row, in libyuv's C arithmetic for the rest of it.
+enum Filter { kNone, kLinear, kBilinear, kBox };
+
+Filter filter_reduce(int sw, int sh, int dw, int dh, Filter f) {
+  if (f == kBox && (dw * 2 >= sw || dh * 2 >= sh)) f = kBilinear;
+  if (f == kBilinear) {
+    if (sh == 1 || dh == sh || dh * 3 == sh) f = kLinear;
+    if (sw == 1) f = kNone;
+  }
+  if (f == kLinear && (sw == 1 || dw == sw || dw * 3 == sw)) f = kNone;
+  return f;
+}
+
+int fixed_div(int num, int div) { return (int)(((int64_t)num << 16) / div); }
+int fixed_div1(int num, int div) { return (int)((((int64_t)num << 16) - 0x00010001) / (div - 1)); }
+int center_start(int dx, int s) { return dx < 0 ? -((-dx >> 1) + s) : (dx >> 1) + s; }
+
+// libyuv's ScaleSlope: the first source position and the step, 16.16
+void scale_slope(int sw, int sh, int dw, int dh, Filter f, int& x, int& y, int& dx, int& dy) {
+  x = y = dx = dy = 0;
+  if (dw == 1 && sw >= 32768) dw = sw;
+  if (dh == 1 && sh >= 32768) dh = sh;
+  if (f == kBox) {
+    dx = fixed_div(sw, dw);
+    dy = fixed_div(sh, dh);
+  } else if (f == kBilinear || f == kLinear) {
+    if (dw <= sw) {
+      dx = fixed_div(sw, dw);
+      x = center_start(dx, -32768);
+    } else if (sw > 1 && dw > 1) {
+      dx = fixed_div1(sw, dw);
+    }
+    if (f == kLinear) {
+      dy = fixed_div(sh, dh);
+      y = dy >> 1;
+    } else if (dh <= sh) {
+      dy = fixed_div(sh, dh);
+      y = center_start(dy, -32768);
+    } else if (sh > 1 && dh > 1) {
+      dy = fixed_div1(sh, dh);
+    }
+  } else {
+    dx = fixed_div(sw, dw);
+    dy = fixed_div(sh, dh);
+    x = center_start(dx, 0);
+    y = center_start(dy, 0);
+  }
+}
+
+inline int avg2(int a, int b) { return (a + b + 1) >> 1; }
+
+// One plane of T (uint8_t for 8 bits, uint16_t above) scaled from sw x sh
+// at src to dw x dh at dst, rows packed.
+template <typename T>
+struct PlaneScaler {
+  static constexpr bool k8 = sizeof(T) == 1;
+  const T* src;
+  int sw, sh;
+  T* dst;
+  int dw, dh;
+
+  // InterpolateRow: row s and the one `stride` after it, weighted f / 256
+  static void interpolate(T* d, const T* s, ptrdiff_t stride, int n, int f) {
+    const T* t = s + stride;
+    if (f == 0) {
+      memcpy(d, s, sizeof(T) * (size_t)n);
+    } else if (f == 128) {
+      for (int i = 0; i < n; i++) d[i] = (T)avg2(s[i], t[i]);
+    } else {
+      for (int i = 0; i < n; i++) d[i] = (T)((s[i] * (256 - f) + t[i] * f + 128) >> 8);
+    }
+  }
+
+  // ScaleFilterCols (ScaleFilterCols_SSSE3's 7-bit blend at 8 bits,
+  // ScaleFilterCols_16_C's 16-bit one above); ScaleCols without filtering
+  void cols(T* d, const T* s, int n, int x, int dx, bool filter) const {
+    for (int j = 0; j < n; j++, x += dx) {
+      int xi = x >> 16, a = s[xi];
+      if (!filter) {
+        d[j] = (T)a;
+        continue;
+      }
+      int b = s[std::min(xi + 1, sw - 1)];
+      if (k8) {
+        int f = (x >> 9) & 127;
+        d[j] = (T)((a * (128 - f) + b * f + 64) >> 7);
+      } else {
+        d[j] = (T)(a + (int)(((int64_t)(x & 65535) * (b - a) + 0x8000) >> 16));
+      }
+    }
+  }
+
+  const T* row(int r) const { return src + (size_t)r * sw; }
+  T* out(int r) const { return dst + (size_t)r * dw; }
+
+  // ScalePlaneVertical: the width kept
+  void vertical(Filter f) {
+    int y = 0, dy = 0;
+    if (dh <= sh) {
+      dy = fixed_div(sh, dh);
+      y = center_start(dy, -32768);
+    } else if (sh > 1 && dh > 1) {
+      dy = fixed_div1(sh, dh);
+    }
+    int max_y = sh > 1 ? ((sh - 1) << 16) - 1 : 0;
+    for (int j = 0; j < dh; j++, y += dy) {
+      if (y > max_y) y = max_y;
+      interpolate(out(j), row(y >> 16), sw, dw, f ? (y >> 8) & 255 : 0);
+    }
+  }
+
+  // The 1/2, 1/4, 3/4 and 3/8 routines below are reached with a filter
+  // (kFilterBox reduces to bilinear at 1/2 and 3/4, stays a box at 1/4
+  // and 3/8), so only their box rows are written.
+  void down2() {
+    for (int j = 0; j < dh; j++) {
+      const T* s = row(2 * j);
+      const T* t = s + sw;
+      T* d = out(j);
+      for (int i = 0; i < dw; i++)
+        d[i] = (T)((s[2 * i] + s[2 * i + 1] + t[2 * i] + t[2 * i + 1] + 2) >> 2);
+    }
+  }
+
+  void down4() {
+    for (int j = 0; j < dh; j++) {
+      const T* s = row(4 * j);
+      T* d = out(j);
+      for (int i = 0; i < dw; i++) {
+        int sum = 0;
+        for (int r = 0; r < 4; r++)
+          for (int c = 0; c < 4; c++) sum += s[(size_t)r * sw + 4 * i + c];
+        d[i] = (T)((sum + 8) >> 4);
+      }
+    }
+  }
+
+  // ScaleRowDown34_0_Box (first: rows weighted 3:1) and _1_Box (1:1) of
+  // row s and the one `stride` after it
+  static void row34(const T* s, ptrdiff_t stride, T* d, int n, bool first) {
+    const T* t = s + stride;
+    int head = k8 ? n - n % 24 : 0;
+    for (int x = 0; x < n; x += 3, s += 4, t += 4, d += 3) {
+      if (x < head) {  // SSSE3: pavgb of the rows, then across
+        int v[4];
+        for (int k = 0; k < 4; k++) v[k] = first ? avg2(s[k], avg2(s[k], t[k])) : avg2(s[k], t[k]);
+        d[0] = (T)((v[0] * 3 + v[1] + 2) >> 2);
+        d[1] = (T)avg2(v[1], v[2]);
+        d[2] = (T)((v[2] + v[3] * 3 + 2) >> 2);
+      } else {  // C: across, then the rows
+        int a[3] = {(s[0] * 3 + s[1] + 2) >> 2, avg2(s[1], s[2]), (s[2] + s[3] * 3 + 2) >> 2};
+        int b[3] = {(t[0] * 3 + t[1] + 2) >> 2, avg2(t[1], t[2]), (t[2] + t[3] * 3 + 2) >> 2};
+        for (int k = 0; k < 3; k++) d[k] = (T)(first ? (a[k] * 3 + b[k] + 2) >> 2 : avg2(a[k], b[k]));
+      }
+    }
+  }
+
+  void down34() {
+    const T* s = src;
+    int j = 0;
+    for (; j < dh - 2; j += 3) {
+      row34(s, sw, out(j), dw, true);
+      s += sw;
+      row34(s, sw, out(j + 1), dw, false);
+      s += sw;
+      row34(s + sw, -sw, out(j + 2), dw, true);
+      s += 2 * sw;
+    }
+    if (dh % 3 == 2) {
+      row34(s, sw, out(j), dw, true);
+      row34(s + sw, 0, out(j + 1), dw, false);
+    } else if (dh % 3 == 1) {
+      row34(s, 0, out(j), dw, true);
+    }
+  }
+
+  // ScaleRowDown38_3_Box (three rows) and _2_Box (two) from row s
+  static void row38(const T* s, ptrdiff_t stride, T* d, int n, int rows) {
+    int head = k8 && rows == 2 ? n - n % 6 : 0;
+    for (int x = 0; x < n; x += 3, s += 8, d += 3) {
+      for (int k = 0; k < 3; k++) {
+        int c0 = 3 * k, w = k < 2 ? 3 : 2;
+        uint32_t sum = 0;
+        if (x < head) {  // SSSE3: pavgb of the two rows, then across
+          for (int c = 0; c < w; c++) sum += avg2(s[c0 + c], s[c0 + c + stride]);
+          d[k] = (T)((sum * (uint32_t)(65536 / w)) >> 16);
+        } else {
+          for (int r = 0; r < rows; r++)
+            for (int c = 0; c < w; c++) sum += s[c0 + c + r * stride];
+          d[k] = (T)((sum * (uint32_t)(65536 / (w * rows))) >> 16);
+        }
+      }
+    }
+  }
+
+  void down38() {
+    const T* s = src;
+    int j = 0;
+    for (; j < dh - 2; j += 3) {
+      row38(s, sw, out(j), dw, 3);
+      s += 3 * sw;
+      row38(s, sw, out(j + 1), dw, 3);
+      s += 3 * sw;
+      row38(s, sw, out(j + 2), dw, 2);
+      s += 2 * sw;
+    }
+    if (dh % 3 == 2) {
+      row38(s, sw, out(j), dw, 3);
+      row38(s + 3 * sw, 0, out(j + 1), dw, 3);
+    } else if (dh % 3 == 1) {
+      row38(s, 0, out(j), dw, 3);
+    }
+  }
+
+  // ScalePlaneBox: each output the mean of its box of sources, through
+  // 16-bit (8-bit samples) or 32-bit row sums and a 16.16 reciprocal
+  void box() {
+    using Acc = typename std::conditional<k8, uint16_t, uint32_t>::type;
+    int x, y, dx, dy;
+    scale_slope(sw, sh, dw, dh, kBox, x, y, dx, dy);
+    int max_y = sh << 16;
+    std::vector<Acc> sums(sw);
+    for (int j = 0; j < dh; j++) {
+      int iy = y >> 16;
+      y = std::min(y + dy, max_y);
+      int bh = std::max((y >> 16) - iy, 1);
+      std::fill(sums.begin(), sums.end(), (Acc)0);
+      for (int k = 0; k < bh; k++) {
+        const T* s = row(iy + k);
+        for (int i = 0; i < sw; i++) sums[i] = (Acc)(sums[i] + s[i]);
+      }
+      T* d = out(j);
+      int minw = dx >> 16, xx = x;
+      if (dx & 0xffff) {  // ScaleAddCols2: boxes of minw or minw + 1
+        int scale[2] = {65536 / (std::max(minw, 1) * bh), 65536 / (std::max(minw + 1, 1) * bh)};
+        for (int i = 0; i < dw; i++) {
+          int ix = xx >> 16;
+          xx += dx;
+          int bw = std::max((xx >> 16) - ix, 1);
+          uint32_t sum = 0;
+          for (int c = 0; c < bw; c++) sum += sums[ix + c];
+          d[i] = (T)((sum * (uint32_t)scale[bw - minw]) >> 16);
+        }
+      } else {  // ScaleAddCols1 (and ScaleAddCols0 at a step of 1)
+        int bw = std::max(minw, 1), scale = 65536 / (bw * bh), ix = xx >> 16;
+        for (int i = 0; i < dw; i++, ix += bw) {
+          uint32_t sum = 0;
+          for (int c = 0; c < bw; c++) sum += sums[ix + c];
+          d[i] = (T)((sum * (uint32_t)scale) >> 16);
+        }
+      }
+    }
+  }
+
+  // ScalePlaneUp2_Linear (across only) and ScalePlaneUp2_Bilinear
+  void up2_linear() {
+    int dy = dh == 1 ? 0 : fixed_div(sh - 1, dh - 1), y = dh == 1 ? ((sh - 1) / 2) << 16 : 32767;
+    for (int j = 0; j < dh; j++, y += dy) up2_row(row(y >> 16), row(y >> 16), out(j), nullptr, dw);
+  }
+  void up2_bilinear() {
+    up2_row(row(0), row(0), out(0), nullptr, dw);
+    for (int r = 0; r < sh - 1; r++) up2_row(row(r), row(r + 1), out(2 * r + 1), out(2 * r + 2), dw);
+    if (!(dh & 1)) up2_row(row(sh - 1), row(sh - 1), out(dh - 1), nullptr, dw);
+  }
+  // ScaleRowUp2_Linear_Any (t == s, no e) and ScaleRowUp2_Bilinear_Any:
+  // row s (and t below it) to d (and e)
+  static void up2_row(const T* s, const T* t, T* d, T* e, int width) {
+    int work = (width - 1) & ~1, l = (width - 1) / 2;
+    if (!e) {
+      d[0] = s[0];
+      for (int x = 0; x < work / 2; x++) {
+        d[2 * x + 1] = (T)((s[x] * 3 + s[x + 1] + 2) >> 2);
+        d[2 * x + 2] = (T)((s[x] + s[x + 1] * 3 + 2) >> 2);
+      }
+      d[width - 1] = s[l];
+      return;
+    }
+    d[0] = (T)((3 * s[0] + t[0] + 2) >> 2);
+    e[0] = (T)((s[0] + 3 * t[0] + 2) >> 2);
+    for (int x = 0; x < work / 2; x++) {
+      d[2 * x + 1] = (T)((s[x] * 9 + s[x + 1] * 3 + t[x] * 3 + t[x + 1] + 8) >> 4);
+      d[2 * x + 2] = (T)((s[x] * 3 + s[x + 1] * 9 + t[x] + t[x + 1] * 3 + 8) >> 4);
+      e[2 * x + 1] = (T)((s[x] * 3 + s[x + 1] + t[x] * 9 + t[x + 1] * 3 + 8) >> 4);
+      e[2 * x + 2] = (T)((s[x] + s[x + 1] * 3 + t[x] * 3 + t[x + 1] * 9 + 8) >> 4);
+    }
+    d[width - 1] = (T)((3 * s[l] + t[l] + 2) >> 2);
+    e[width - 1] = (T)((s[l] + 3 * t[l] + 2) >> 2);
+  }
+
+  // ScalePlaneBilinearUp: two filtered rows of the source kept, the
+  // output rows interpolated between them
+  void bilinear_up(Filter f) {
+    int x, y, dx, dy;
+    scale_slope(sw, sh, dw, dh, f, x, y, dx, dy);
+    int max_y = (sh - 1) << 16;
+    if (y > max_y) y = max_y;
+    int yi = y >> 16, lasty = yi;
+    const T* s = row(yi);
+    std::vector<T> rows(2 * (size_t)dw);
+    T* rowptr = rows.data();
+    ptrdiff_t rowstride = dw;
+    cols(rowptr, s, dw, x, dx, true);
+    if (sh > 1) s += sw;
+    cols(rowptr + rowstride, s, dw, x, dx, true);
+    if (sh > 2) s += sw;
+    for (int j = 0; j < dh; j++, y += dy) {
+      yi = y >> 16;
+      if (yi != lasty) {
+        if (y > max_y) {
+          y = max_y;
+          yi = y >> 16;
+          s = row(yi);
+        }
+        if (yi != lasty) {
+          cols(rowptr, s, dw, x, dx, true);
+          rowptr += rowstride;
+          rowstride = -rowstride;
+          lasty = yi;
+          if (y + 65536 < max_y) s += sw;
+        }
+      }
+      if (f == kLinear)
+        interpolate(out(j), rowptr, 0, dw, 0);
+      else
+        interpolate(out(j), rowptr, rowstride, dw, (y >> 8) & 255);
+    }
+  }
+
+  // ScalePlaneBilinearDown: each output row from two source rows blended,
+  // then filtered across
+  void bilinear_down(Filter f) {
+    int x, y, dx, dy;
+    scale_slope(sw, sh, dw, dh, f, x, y, dx, dy);
+    int max_y = (sh - 1) << 16;
+    std::vector<T> tmp(sw);
+    if (y > max_y) y = max_y;
+    for (int j = 0; j < dh; j++) {
+      const T* s = row(y >> 16);
+      if (f == kLinear) {
+        cols(out(j), s, dw, x, dx, true);
+      } else {
+        interpolate(tmp.data(), s, sw, sw, (y >> 8) & 255);
+        cols(out(j), tmp.data(), dw, x, dx, true);
+      }
+      y = std::min(y + dy, max_y);
+    }
+  }
+
+  void simple() {
+    int x, y, dx, dy;
+    scale_slope(sw, sh, dw, dh, kNone, x, y, dx, dy);
+    for (int j = 0; j < dh; j++, y += dy) cols(out(j), row(y >> 16), dw, x, dx, false);
+  }
+
+  // ScalePlane's (and ScalePlane_12's) choice of routine
+  void run() {
+    Filter f = filter_reduce(sw, sh, dw, dh, kBox);
+    if (dw == sw && dh == sh) {
+      memcpy(dst, src, sizeof(T) * (size_t)sw * sh);
+    } else if (dw == sw && f != kBox) {
+      vertical(f);
+    } else if (4 * dw == 3 * sw && 4 * dh == 3 * sh) {
+      down34();
+    } else if (2 * dw == sw && 2 * dh == sh) {
+      down2();
+    } else if (8 * dw == 3 * sw && 8 * dh == 3 * sh) {
+      down38();
+    } else if (4 * dw == sw && 4 * dh == sh) {
+      down4();
+    } else if (f == kBox && dh * 2 < sh) {
+      box();
+    } else if ((dw + 1) / 2 == sw && f == kLinear) {
+      up2_linear();
+    } else if ((dw + 1) / 2 == sw && (dh + 1) / 2 == sh && (f == kBilinear || f == kBox)) {
+      up2_bilinear();
+    } else if (f != kNone && dh > sh) {
+      bilinear_up(f);
+    } else if (f != kNone) {
+      bilinear_down(f);
+    } else {
+      simple();
+    }
+  }
+};
 
 int report(const Error& e, char* err, int errlen) {
   if (err && errlen > 0) snprintf(err, (size_t)errlen, "%s", e.msg.c_str());
@@ -4298,6 +4734,22 @@ int thc_avif_to_rgb(const uint16_t* y, const uint16_t* u, const uint16_t* v, con
   } catch (const std::exception& e) {
     return report(Error{kErrFormat, e.what()}, err, errlen);
   }
+}
+
+
+// Plane src (sh x sw samples of `depth` bits) scaled to dst (dh x dw) as
+// libavif's avifImageScale scales each plane of a decoded image to its
+// ispe's size.
+void thc_avif_scale_plane(const uint16_t* src, int sw, int sh, uint16_t* dst, int dw, int dh,
+                          int depth) {
+  if (depth > 8) {
+    PlaneScaler<uint16_t>{src, sw, sh, dst, dw, dh}.run();
+    return;
+  }
+  std::vector<uint8_t> s8((size_t)sw * sh), d8((size_t)dw * dh);
+  for (size_t i = 0; i < s8.size(); i++) s8[i] = (uint8_t)src[i];
+  PlaneScaler<uint8_t>{s8.data(), sw, sh, d8.data(), dw, dh}.run();
+  for (size_t i = 0; i < d8.size(); i++) dst[i] = d8[i];
 }
 
 }  // extern "C"

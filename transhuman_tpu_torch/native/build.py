@@ -165,6 +165,8 @@ _SIGNATURES = {
         "thc_av1_release": ((_P,), None),
         # y, u, v, params, rgb, err, errlen
         "thc_avif_to_rgb": ((_P, _P, _P, _P, _P, *_ERR), _I),
+        # src, width, height, dst, width, height, depth
+        "thc_avif_scale_plane": ((_P, _I, _I, _P, _I, _I, _I), None),
     },
 }
 
