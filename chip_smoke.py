@@ -2835,15 +2835,17 @@ def phase_codec(card: str) -> dict:
     CMYK, CIELab, BigTIFF), GIF, Radiance HDR and lossless WebP
     frames formed here and of the committed q90 lossy WebP, lossless and
     lossy JP2s, YCbCr 4:2:0 JPEG-TIFF and AVIFs, loop-restored, grained
-    and screen-content ones among them (format_frames; each of those and
-    the small screen-content fixtures holding its tools by the decoder's
-    meta); the event files' CRC32C, native against the Python table."""
+    and screen-content ones and a two-frame sequence among them
+    (format_frames; each of those and the small screen-content fixtures
+    holding its tools by the decoder's meta, the sequences read from their
+    tracks and the layered still from its item); the event files' CRC32C,
+    native against the Python table."""
     import hashlib
 
     from transhuman_tpu_torch.data import image_formats, image_io
 
     out, by = {}, set()
-    for folder, n in ((FIXTURES, 5), (CODINGS, 8), (FORMATS, 60)):
+    for folder, n in ((FIXTURES, 5), (CODINGS, 8), (FORMATS, 64)):
         with open(os.path.join(folder, "digests.json")) as f:
             digests = json.load(f)
         check(len(digests) == n,
@@ -2881,6 +2883,16 @@ def phase_codec(card: str) -> dict:
         check(got == (lr, grain, screen), f"codec: {name} carries "
               f"restoration types, grain and screen tools {got}, want "
               f"{(lr, grain, screen)}")
+    # the sequences are read from their colour track's first sample, the
+    # still of a layered image's properties (a1lx, lsel, a1op) from its item
+    for name, tracks in (("avif_pil_sequence_rgba.avif", True),
+                         ("avif_cv2_sequence_10bit.avif", True),
+                         ("cv2_sequence_1024.avif", True),
+                         ("avif_layered_a1lx_lsel_a1op.avif", False)):
+        with open(os.path.join(FORMATS, name), "rb") as fh:
+            heif = image_formats._Heif(fh.read())
+        check(heif.from_tracks == tracks, f"codec: {name} read from "
+              f"{'its item' if tracks else 'a track'}")
     # the other formats at the loader's size: 1024x1024 frames formed here
     # (the committed ones, timed above, not again)
     src_dir = tempfile.mkdtemp(prefix="thp_formats_")
@@ -2916,15 +2928,18 @@ def phase_codec(card: str) -> dict:
         f"lossy (9/7) JP2, YCbCr 4:2:0 JPEG-TIFF, Deflate CMYK TIFF, Deflate "
         f"CIELab TIFF, Deflate BigTIFF, AVIF (cv2's default, q95, 10-bit, "
         f"Pillow's loop-restored q90, grained, screen-tuned text with "
-        f"palettes and intra block copy, and a 2x2 grid of cv2's 512x512 "
-        f"tiles) against the sequential JPEG "
+        f"palettes and intra block copy, a 2x2 grid of cv2's 512x512 "
+        f"tiles, and cv2's two-frame sequence) against the sequential JPEG "
         + ", ".join(f"{out[f'1024_{k}'] / out['cv2_q95_420.jpg']:.2f}x"
                     for k in ("bmp", "ppm", "sun", "tiff", "gif", "hdr",
                               "webp_lossless", "webp_lossy", "jp2_lossless",
                               "jp2_lossy", "tiff_jpeg", "tiff_cmyk",
                               "tiff_cielab", "bigtiff", "avif", "avif_q95",
                               "avif_10bit", "avif_lr", "avif_grain",
-                              "avif_screen", "avif_grid"))
+                              "avif_screen", "avif_grid", "avif_sequence"))
+        + f"; the 1024x1024 sequence's first frame against cv2's default "
+        f"still {out['1024_avif_sequence'] / out['1024_avif']:.2f}x "
+        f"({out['1024_avif_sequence']:.2f} ms, {out['1024_avif']:.2f} ms)"
         + f"  [{card}]")
     return out
 
@@ -5071,14 +5086,15 @@ def format_frames(src_dir: str) -> dict:
     beside the committed q90 lossy WebP, lossless (5/3) and lossy (9/7) JP2,
     YCbCr 4:2:0 JPEG-TIFF and AVIF (cv2's default quality, q95, 10 bits;
     Pillow's q90 with loop restoration and q75 with film grain; a 2x2 grid
-    of cv2's 512x512 tiles) files of the same decode (no writer here codes
+    of cv2's 512x512 tiles; cv2's two-frame sequence, read as its first
+    frame) files of the same decode (no writer here codes
     VP8, JPEG 2000, JPEG or AV1),
     and Pillow's screen-tuned AVIF of a 1024x1024 screen capture of text
     (palettes and intra block copy): kind -> path, each of the decode
     checked to read back as it (the GIF as its palette's colours, the HDR
     within 2, the lossy WebP and JP2 within 9, the AVIFs within 10, the
-    grained one within 30, the JPEG-TIFF within 12, the CIELab TIFF within
-    40), their bytes held to cv2's in phase e."""
+    grained one within 30, the sequence and the JPEG-TIFF within 12, the
+    CIELab TIFF within 40), their bytes held to cv2's in phase e."""
     import importlib.util
 
     from transhuman_tpu_torch.data import image_io
@@ -5121,6 +5137,7 @@ def format_frames(src_dir: str) -> dict:
     out["avif_lr"] = os.path.join(FORMATS, "pil_lr_1024.avif")
     out["avif_grain"] = os.path.join(FORMATS, "pil_grain_1024.avif")
     out["avif_grid"] = os.path.join(FORMATS, "cv2_grid_1024.avif")
+    out["avif_sequence"] = os.path.join(FORMATS, "cv2_sequence_1024.avif")
     # a screen capture of text, not the decode: held to cv2's digest in
     # phase e only
     out["avif_screen"] = os.path.join(FORMATS, "pil_screen_1024.avif")
@@ -5130,7 +5147,7 @@ def format_frames(src_dir: str) -> dict:
             "webp_lossy": (rgb, 9), "jp2_lossy": (rgb, 9),
             "avif": (rgb, 10), "avif_q95": (rgb, 10), "avif_10bit": (rgb, 10),
             "avif_lr": (rgb, 10), "avif_grain": (rgb, 30),
-            "avif_grid": (rgb, 10),
+            "avif_grid": (rgb, 10), "avif_sequence": (rgb, 12),
             "tiff_jpeg": (rgb, 12), "tiff_cielab": (rgb, 40)}
     for kind, path in out.items():
         if kind == "avif_screen":

@@ -1,7 +1,8 @@
 """AVIF files for tests/test_torch_avif.py and chip_smoke.py's fixtures:
-cv2's and Pillow's writers (libavif with libaom), a HEIF rebuilder that
-edits a file's boxes (properties, colour, items, references) and lays it
-out again, and libaom's decoder (bundled beside cv2) through ctypes as the
+cv2's and Pillow's writers (libavif with libaom; stills and sequences),
+a HEIF rebuilder that edits a file's boxes (properties, colour, items,
+references; a sequence's tracks and sample tables) and lays it out
+again, and libaom's decoder (bundled beside cv2) through ctypes as the
 oracle of the decoded planes.
 
     python -m tests._torch_avif tables OUT.h
@@ -194,6 +195,12 @@ class Heif:
         self.add_prop(iid, kind, body)
 
     def __bytes__(self):
+        return self.layout()
+
+    def layout(self, moov=None) -> bytes:
+        """ftyp, meta, then ``moov`` where given (a function of the file
+        offset its data will start at, returning the moov box and that
+        data, which follows the items' data in mdat), then mdat."""
         ids = sorted(self.items)
         infe = b"".join(full_box(b"infe", 2, 0, struct.pack(
             ">HH4s", i, 0, self.items[i][0]) + self.items[i][2]) for i in ids)
@@ -235,17 +242,20 @@ class Heif:
                 [0x44, 0x00]) + struct.pack(">H", len(ids)) + entries)
             return full_box(b"meta", 0, 0, hdlr + pitm + iloc + iinf + iref
                             + box(b"iprp", ipco + ipma) + idat)
-        start = len(ftyp) + len(meta({i: 0 for i in ids})) + 8
+        tracks = moov(0)[0] if moov else b""
+        start = len(ftyp) + len(meta({i: 0 for i in ids})) + len(tracks) + 8
         offsets, pos = {}, start
         for i in outer:
             offsets[i] = pos
             pos += len(self.items[i][1])
+        tracks, samples = moov(pos) if moov else (b"", b"")
         pos = 0
         for i in inner:
             offsets[i] = pos
             pos += len(self.items[i][1])
-        mdat = box(b"mdat", b"".join(self.items[i][1] for i in outer))
-        return ftyp + meta(offsets) + mdat
+        mdat = box(b"mdat", b"".join(self.items[i][1] for i in outer)
+                   + samples)
+        return ftyp + meta(offsets) + tracks + mdat
 
 
 def set_nclx(data: bytes, cp=None, tc=None, mc=None, full=None) -> bytes:
@@ -648,15 +658,222 @@ def as_grid(data: bytes, rows: int = 1, columns: int = 2, size=None,
     return bytes(h)
 
 
-def as_sequence(rgb) -> bytes:
-    """Pillow's two-frame AVIF (an image sequence: avis, a moov track)."""
+# -------------------------------------------------------------- sequences
+class Track:
+    """One trak of an image sequence as editable parts: its tkhd body
+    (``id``, ``width`` and ``height`` read and set through it), tref
+    entries [(type, [track ids])], its other boxes kept as they are (edts,
+    meta; mdhd, the mdia handler type, vmhd and dinf), its sample entry
+    (format, the 78-byte VisualSampleEntry head, child boxes [(type,
+    body)]), the samples' data, and how its sample table lays them out:
+    samples per chunk (one chunk a sample by default), one constant
+    sample size, co64 offsets, the sync samples (stss; None for no box)
+    and extra stbl boxes."""
+
+    def __init__(self, data: bytes, s: int, e: int):
+        self.refs, self.others, self.minf = [], [], []
+        self.stbl_extra, self.stss = [], None
+        self.constant_size = self.co64 = False
+        for k, s2, e2 in boxes(data, s, e):
+            if k == b"tkhd":
+                self.tkhd = bytearray(data[s2:e2])
+            elif k == b"tref":
+                for k3, s3, e3 in boxes(data, s2, e2):
+                    self.refs.append((k3, list(struct.unpack_from(
+                        f">{(e3 - s3) // 4}I", data, s3))))
+            elif k == b"mdia":
+                for k3, s3, e3 in boxes(data, s2, e2):
+                    if k3 == b"mdhd":
+                        self.mdhd = data[s3:e3]
+                    elif k3 == b"hdlr":
+                        self.hdlr = bytearray(data[s3:e3])
+                    elif k3 == b"minf":
+                        for k4, s4, e4 in boxes(data, s3, e3):
+                            if k4 == b"stbl":
+                                self._stbl(data, s4, e4)
+                            else:
+                                self.minf.append((k4, data[s4:e4]))
+            else:
+                self.others.append((k, data[s2:e2]))
+
+    def _stbl(self, data, s, e):
+        t = {k: (s2, e2) for k, s2, e2 in boxes(data, s, e)}
+        s2, e2 = t[b"stsd"]
+        size, self.format = struct.unpack_from(">I4s", data, s2 + 8)
+        self.visual = data[s2 + 16:s2 + 16 + 78]
+        self.entry = [(k, data[a:b]) for k, a, b in boxes(
+            data, s2 + 16 + 78, s2 + 8 + size)]
+        s2, _ = t[b"stts"]
+        self.stts = data[s2:t[b"stts"][1]]
+        if b"stss" in t:
+            s2, _ = t[b"stss"]
+            n = struct.unpack_from(">I", data, s2 + 4)[0]
+            self.stss = list(struct.unpack_from(f">{n}I", data, s2 + 8))
+        s2, _ = t[b"stsc"]
+        runs = struct.unpack_from(">I", data, s2 + 4)[0]
+        runs = [struct.unpack_from(">III", data, s2 + 8 + 12 * i)
+                for i in range(runs)]
+        kind = b"stco" if b"stco" in t else b"co64"
+        s2, _ = t[kind]
+        n = struct.unpack_from(">I", data, s2 + 4)[0]
+        offsets = struct.unpack_from(f">{n}{'I' if kind == b'stco' else 'Q'}",
+                                     data, s2 + 8)
+        s2, _ = t[b"stsz"]
+        const, count = struct.unpack_from(">II", data, s2 + 4)
+        sizes = [const] * count if const else list(struct.unpack_from(
+            f">{count}I", data, s2 + 12))
+        self.samples, self.chunks = [], []
+        for c, off in enumerate(offsets):
+            per = [r[1] for r in runs if r[0] <= c + 1][-1]
+            self.chunks.append(per)
+            for _ in range(per):
+                n = sizes[len(self.samples)]
+                self.samples.append(data[off:off + n])
+                off += n
+
+    def _field(self, at_v0, at_v1):
+        return at_v1 if self.tkhd[0] == 1 else at_v0
+
+    @property
+    def id(self):
+        return struct.unpack_from(">I", self.tkhd, self._field(12, 20))[0]
+
+    @id.setter
+    def id(self, v):
+        struct.pack_into(">I", self.tkhd, self._field(12, 20), v)
+
+    @property
+    def size(self):
+        w, h = struct.unpack_from(">II", self.tkhd, len(self.tkhd) - 8)
+        return w >> 16, h >> 16
+
+    @size.setter
+    def size(self, wh):
+        struct.pack_into(">II", self.tkhd, len(self.tkhd) - 8,
+                         wh[0] << 16, wh[1] << 16)
+
+    @property
+    def handler(self):
+        return bytes(self.hdlr[8:12])
+
+    @handler.setter
+    def handler(self, v):
+        self.hdlr[8:12] = v
+
+    def entry_box(self, kind):
+        return next((b for k, b in self.entry if k == kind), None)
+
+    def layout(self, base: int):
+        """(the trak box, its samples' data) with that data at file offset
+        base."""
+        sizes = [len(x) for x in self.samples]
+        offsets, pos, i = [], base, 0
+        for per in self.chunks:
+            offsets.append(pos)
+            pos += sum(sizes[i:i + per])
+            i += per
+        runs = [(c + 1, per, 1) for c, per in enumerate(self.chunks)
+                if not c or per != self.chunks[c - 1]]
+        stsc = struct.pack(">I", len(runs)) + b"".join(
+            struct.pack(">III", *r) for r in runs)
+        if self.constant_size:
+            stsz = struct.pack(">II", sizes[0], len(sizes))
+        else:
+            stsz = struct.pack(f">II{len(sizes)}I", 0, len(sizes), *sizes)
+        co = struct.pack(">I", len(offsets)) + b"".join(
+            struct.pack(">Q" if self.co64 else ">I", o) for o in offsets)
+        entry = box(self.format, self.visual + b"".join(
+            box(k, b) for k, b in self.entry))
+        stbl = (full_box(b"stsd", 0, 0, struct.pack(">I", 1) + entry)
+                + box(b"stts", self.stts)
+                + full_box(b"stsc", 0, 0, stsc)
+                + full_box(b"stsz", 0, 0, stsz)
+                + full_box(b"co64" if self.co64 else b"stco", 0, 0, co))
+        if self.stss is not None:
+            stbl += full_box(b"stss", 0, 0, struct.pack(
+                f">I{len(self.stss)}I", len(self.stss), *self.stss))
+        stbl += b"".join(box(k, b) for k, b in self.stbl_extra)
+        minf = b"".join(box(k, b) for k, b in self.minf) + box(b"stbl", stbl)
+        mdia = (box(b"mdhd", self.mdhd) + box(b"hdlr", bytes(self.hdlr))
+                + box(b"minf", minf))
+        tref = b"".join(box(k, struct.pack(f">{len(ids)}I", *ids))
+                        for k, ids in self.refs)
+        trak = (box(b"tkhd", bytes(self.tkhd))
+                + (box(b"tref", tref) if tref else b"")
+                + b"".join(box(k, b) for k, b in self.others)
+                + box(b"mdia", mdia))
+        return box(b"trak", trak), b"".join(self.samples)
+
+
+class Sequence:
+    """An AVIF image sequence as editable parts: the ftyp body (``major``
+    its major brand), the meta box's items (a Heif; None for a file
+    without meta), mvhd and the Tracks; bytes() lays it out as its
+    writers do: ftyp, meta, moov, then mdat with the items' data before
+    the samples'."""
+
+    def __init__(self, data: bytes):
+        top = {k: (s, e) for k, s, e in boxes(data)}
+        s, e = top[b"ftyp"]
+        self.ftyp = data[s:e]
+        self.heif = Heif(data) if b"meta" in top else None
+        self.tracks, self.mvhd = [], b""
+        for k, s, e in boxes(data, *top[b"moov"]):
+            if k == b"mvhd":
+                self.mvhd = data[s:e]
+            elif k == b"trak":
+                self.tracks.append(Track(data, s, e))
+
+    @property
+    def major(self):
+        return self.ftyp[:4]
+
+    @major.setter
+    def major(self, brand):
+        self.ftyp = brand + self.ftyp[4:]
+
+    def moov(self, base: int):
+        traks, samples = b"", b""
+        for t in self.tracks:
+            trak, d = t.layout(base + len(samples))
+            traks += trak
+            samples += d
+        return box(b"moov", box(b"mvhd", self.mvhd) + traks), samples
+
+    def __bytes__(self):
+        if self.heif is not None:
+            self.heif.ftyp = self.ftyp
+            return self.heif.layout(self.moov)
+        ftyp = box(b"ftyp", self.ftyp)
+        start = len(ftyp) + len(self.moov(0)[0]) + 8
+        moov, samples = self.moov(start)
+        return ftyp + moov + box(b"mdat", samples)
+
+
+def pil_sequence(frames, **kw) -> bytes:
+    """Pillow's AVIF image sequence of RGB or RGBA uint8 frames (an RGBA
+    one with an alpha track); kw as Image.save takes them."""
     from PIL import Image
 
     b = io.BytesIO()
-    Image.fromarray(np.ascontiguousarray(rgb)).save(
-        b, "AVIF", save_all=True,
-        append_images=[Image.fromarray(np.ascontiguousarray(rgb[::-1]))])
+    ims = [Image.fromarray(np.ascontiguousarray(f)) for f in frames]
+    ims[0].save(b, "AVIF", save_all=True, append_images=ims[1:], **kw)
     return b.getvalue()
+
+
+def cv2_sequence(frames, depth=None, quality=None) -> bytes:
+    """cv2.imencodemulti('.avif') of BGR or grey frames (uint16 samples
+    for depth 10 or 12): an image sequence."""
+    import cv2
+
+    params = []
+    for key, v in ((cv2.IMWRITE_AVIF_DEPTH, depth),
+                   (cv2.IMWRITE_AVIF_QUALITY, quality)):
+        if v is not None:
+            params += [key, v]
+    ok, buf = cv2.imencodemulti(".avif", list(frames), params)
+    assert ok
+    return buf.tobytes()
 
 
 def with_exif(data: bytes, orientation: int, offset: int = 0) -> bytes:

@@ -523,14 +523,16 @@ def _quantize(img: np.ndarray):
 # the target's file name; cv2.imread decodes by content); "webp_lossy",
 # "jp2_lossless", "jp2_lossy", "tiff_jpeg_420" and the "avif_" ones are the
 # caller's to make (no writer here codes VP8, JPEG 2000's tier 1, JPEG or
-# AV1)
+# AV1); the last camera's are AVIF image sequences (cv2.imread reads their
+# first frame)
 FRAME_FORMATS = (
     (".bmp", ("bmp24", "bmp_rle8", "bmp565", "jp2_lossy", "gif",
-              "avif_cv2")),
+              "avif_cv2", "avif_cv2_sequence")),
     (".tif", ("tiff_jpeg_420", "tiff_cmyk_deflate_tiles", "jp2_lossless",
-              "webp_lossless", "bigtiff16", "avif_cv2_10bit")),
+              "webp_lossless", "bigtiff16", "avif_cv2_10bit",
+              "avif_cv2_sequence_10bit")),
     (".ppm", ("p6", "hdr", "sun24", "webp_lossy", "sun8",
-              "avif_pil_444_screen")),
+              "avif_pil_444_screen", "avif_pil_sequence_rgba")),
 )
 
 

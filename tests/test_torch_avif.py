@@ -469,17 +469,6 @@ def _refused():
         # (file, what the error names, cv2 reads it as nothing)
         "superres": (lambda: A.with_superres(A.cv2_avif(img)), "superres",
                      True),
-        "grid_of_layered_tiles": (lambda: _edit(A.as_grid(
-            A.cv2_avif(img)), lambda h: h.add_prop(3, b"a1lx", bytes(7))),
-            "layered image", False),
-        "image_sequence": (lambda: A.as_sequence(img[..., ::-1]),
-                           "image sequence", False),
-        "layered_a1lx": (lambda: _edit(A.cv2_avif(img), lambda h: h.add_prop(
-            h.primary, b"a1lx", bytes(7))), "layered image", False),
-        "layered_lsel": (lambda: _edit(A.cv2_avif(img), lambda h: h.add_prop(
-            h.primary, b"lsel", bytes(2), 1)), "layered image", False),
-        "layered_a1op": (lambda: _edit(A.cv2_avif(img), lambda h: h.add_prop(
-            h.primary, b"a1op", b"\0", 1)), "layered image", False),
     }
 
 

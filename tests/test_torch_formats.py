@@ -785,7 +785,27 @@ def _avif_cases():
         "avif_pil_intrabc": lambda: AV.pil_avif(
             AV.screen_rgb(128, 160, 3), quality=60, speed=6,
             advanced={"tune-content": "screen"}),
+        # image sequences (a moov track): cv2 reads their first frame;
+        # Pillow's RGBA one has an alpha track
+        "avif_pil_sequence": lambda: AV.pil_sequence([bgr[..., ::-1],
+                                                      bgr[::-1, :, ::-1]]),
+        "avif_pil_sequence_rgba": lambda: AV.pil_sequence([np.concatenate(
+            [f[..., ::-1], alpha], -1) for f in (bgr, bgr[::-1])]),
+        "avif_cv2_sequence_10bit": lambda: AV.cv2_sequence(
+            [f.astype(np.uint16) << 2 for f in (bgr, bgr[::-1])], depth=10),
+        # a still item of a layered image's properties: a1lx (its layer
+        # sizes, not essential), lsel 0 and a1op 0 (essential)
+        "avif_layered_a1lx_lsel_a1op": lambda: _layered(AV.cv2_avif(bgr)),
     }
+
+
+def _layered(data):
+    heif = AV.Heif(data)
+    heif.add_prop(heif.primary, b"a1lx", bytes([0]) + struct.pack(
+        ">HHH", 0, 0, 0))
+    heif.add_prop(heif.primary, b"lsel", b"\0\0", 1)
+    heif.add_prop(heif.primary, b"a1op", b"\0", 1)
+    return bytes(heif)
 
 
 def _fixture_rgb():
@@ -931,8 +951,6 @@ def _refusal_cases():
             "GIF frame outside its logical screen", True),
         "webp_lossless_version_1": (lambda: _vp8l_version(1),
                                     "WebP lossless version 1", True),
-        # cv2 reads the first frame of an AVIF image sequence
-        "avis": (lambda: AV.as_sequence(rgb), "AVIF image sequence", False),
         # JPEG 2000: cv2 reads nothing of these either
         "jpeg2000_image_offset": (lambda: _j2k_siz(XOsiz=8),
                                   "image or tile-grid offset", True),
@@ -1192,6 +1210,9 @@ FIXTURE_CASES = {
     "avif_pil_film_grain.avif": "avif_pil_film_grain",
     "avif_pil_palette.avif": "avif_pil_palette",
     "avif_pil_intrabc.avif": "avif_pil_intrabc",
+    "avif_pil_sequence_rgba.avif": "avif_pil_sequence_rgba",
+    "avif_cv2_sequence_10bit.avif": "avif_cv2_sequence_10bit",
+    "avif_layered_a1lx_lsel_a1op.avif": "avif_layered_a1lx_lsel_a1op",
 }
 
 
@@ -1252,6 +1273,16 @@ def _avif_1024(**kw):
     return AV.cv2_avif(img, **kw)
 
 
+def _avif_sequence_1024():
+    """The 1024x1024 q95 fixture JPEG's decode (the source of
+    cv2_default_1024.avif) as cv2's two-frame AVIF sequence, the second
+    frame shifted 4 pixels to the right (an inter frame)."""
+    jpeg = os.path.join(os.path.dirname(FIXTURES), "torch_zju",
+                        "cv2_q95_420.jpg")
+    img = cv2.imread(jpeg)
+    return AV.cv2_sequence([img, np.ascontiguousarray(np.roll(img, 4, 1))])
+
+
 def _avif_crop(h, w, y, x, depth=8):
     """cv2's AVIF of an h x w crop of the fixture JPEG's decode at (y, x)."""
     img = np.ascontiguousarray(_fixture_rgb()[y:y + h, x:x + w, ::-1])
@@ -1296,6 +1327,8 @@ LARGE = {"cv2_jpeg_420_1024.tif": lambda: _jpeg_tiff_1024(),
          # 100x80 by 3/4, chroma-derived NCL of BT.470M primaries, and
          # matrix coefficients 15 at 10 bits
          "cv2_grid_1024.avif": lambda: _avif_grid(512),
+         # a two-frame sequence of cv2_default_1024.avif's source
+         "cv2_sequence_1024.avif": _avif_sequence_1024,
          "avif_grid_2x2.avif": lambda: _avif_grid(64),
          "avif_ispe_75x60.avif": lambda: _avif_ispe(
              _avif_crop(80, 100, 300, 400), 75, 60),
@@ -1496,6 +1529,17 @@ def _encode_frame(img, kind):
         if kind == "avif_pil_444_screen":
             return AV.pil_avif(img, subsampling="4:4:4", speed=8,
                                advanced={"tune-content": "screen"})
+        # sequences: the frame, then it upside down (an inter frame)
+        flip = np.ascontiguousarray(bgr[::-1])
+        if kind == "avif_cv2_sequence":
+            return AV.cv2_sequence([bgr, flip])
+        if kind == "avif_cv2_sequence_10bit":
+            return AV.cv2_sequence([bgr.astype(np.uint16) << 2,
+                                    flip.astype(np.uint16) << 2], depth=10)
+        if kind == "avif_pil_sequence_rgba":
+            a = _rng(180).integers(0, 256, img.shape[:2] + (1,), np.uint8)
+            rgba = np.concatenate([img, a], -1)
+            return AV.pil_sequence([rgba, np.ascontiguousarray(rgba[::-1])])
         return AV.cv2_avif(bgr)
     if kind.startswith("jp2_"):
         return _cv2_write(".jp2", img[..., ::-1], (
@@ -1517,7 +1561,9 @@ def zju_formats_root(tmp_path_factory):
     CMYK in Deflate tiles, a 16-bit LZW BigTIFF), a lossless JP2, a
     lossless WebP and cv2's 10-bit AVIF, 2 as a PPM, a Radiance HDR, Sun
     rasters (24-bit, 8-bit colour map), a lossy WebP and Pillow's 4:4:4
-    screen-tuned AVIF (its blocks palettes)."""
+    screen-tuned AVIF (its blocks palettes); the last camera's frames are
+    AVIF image sequences: cv2's 8-bit and 10-bit ones, and Pillow's RGBA
+    one with its alpha track."""
     from tests.test_torch_zju import HUMAN, NF, write_fake_zju
 
     root = str(tmp_path_factory.mktemp("zju_formats"))

@@ -96,7 +96,23 @@ What OpenCV does, where it is not what the format's specification says:
   once every tile has all its tile-parts, what follows is not read if it
   is an EOC, a SOT or the stream's last two bytes, but a SOT that the
   tile-part count check takes for another part of the first tile.
-* AVIF (libavif 1.4 with libaom 3.14; still images): the primary item of
+* AVIF (libavif 1.4 with libaom 3.14): the source libavif's automatic
+  choice reads (major brand avis the tracks, avif the primary item,
+  another the tracks where the brands made it read the moov box: a file
+  whose brands need only meta is read up to it); an image sequence's
+  colour track (the first trak with a tkhd id, a sample table of chunks,
+  an av01 sample entry and no tref auxl): its first sample, found as
+  libavif lists samples (stco or co64, stsc runs, stsz's constant or
+  per-sample sizes; every sample within the file), decoded as an item's
+  frame and scaled to the tkhd size, its av1C and nclx from the sample
+  entry's boxes after its 78-byte VisualSampleEntry, an Exif item of the
+  track's own meta box applied (not the file's), the alpha track (tref
+  auxl to it) decoded and dropped (a failing one, or one of another size
+  or depth, fails the file); the layered-image properties of an av01 item
+  or a grid's tile: a1lx's layer sizes held to the item's size, lsel of
+  layer L (not 0xFFFF) decoding a1lx's first L + 1 layers and failing
+  where the stream has no frame of spatial layer L, a1op's operating point
+  (libaom takes 0 past a stream's count); the primary item of
   the meta box (hdlr pict; pitm, iinf v2/v3, iloc v0-2 from the file or
   idat, iref, ipco/ipma), an av01 item or a grid of them; an AV1 key
   frame decoded to libaom's planes, loop restoration and film grain
@@ -117,7 +133,9 @@ What OpenCV does, where it is not what the format's specification says:
   applied, an Exif item's orientation applied where its data starts as
   TIFF does; cv2's signature check, libavif's parse of the file's first
   500 bytes, failing where a grid's ImageGrid, an Exif or XMP item or
-  (without nclx) the AV1 data it reads starts past them; 8-bit output as
+  (without nclx) the AV1 data or first sample it reads starts past them,
+  or where it walks past them over a box before the meta or moov box the
+  brands need; 8-bit output as
   OpenCV asks libavif for it: a grey image is the Y plane (10 and 12 bits
   cut by ``convertTo``, half to even; the range ignored), a colour one
   libyuv's fixed-point conversion (bilinear 4:2:0, linear 4:2:2 chroma)
@@ -157,13 +175,18 @@ second or without a jp2h holding an ihdr before its codestream, or whose
 ihdr size is not the codestream's (each where cv2 reads nothing), HTJ2K
 (Part 15), Part 2 wavelets and component transforms, and
 palettes other than every column from one index component; AVIF where
-cv2 reads nothing (a cut file, irot, imir, clap or a1op not marked
-essential, an unknown essential property, no ispe or av1C, two nclx
-boxes, a failing alpha item, identity of subsampled chroma, YCgCo of
-limited range, matrix coefficients 3, 10, 11, 13, 14 and 16 up, a grid
-libavif fails, what cv2's signature check does not pass) and AVIF the
-port does not decode: AV1 superres, image sequences (avis, a moov track;
-cv2 reads the first frame), layered images (a1lx, lsel, a1op).
+cv2 reads nothing (a cut file, irot, imir, clap, a1op or lsel not marked
+essential, a1lx marked essential or of layers past the item, a1op past
+31, lsel past 3 or of a layer the stream lacks, an unknown essential
+property, no ispe or av1C, two nclx boxes, a failing alpha item or
+track, identity of subsampled chroma, YCgCo of limited range, matrix
+coefficients 3, 10, 11, 13, 14 and 16 up, a grid libavif fails, a track
+box or sample table libavif fails (versions, stsc runs, a chunk of no
+samples, sizes cut short, a sample past the end of the file, an elst of
+other than one entry), a first sample other than a shown key frame, what
+cv2's signature check does not pass) and AVIF the port does not decode:
+AV1 superres, a stream of more than one operating point's layers (and so
+a spatial layer past 0 that lsel selects), premultiplied alpha (prem).
 """
 
 from __future__ import annotations
@@ -942,6 +965,8 @@ _AVIF_PROPERTIES = (b"ispe", b"av1C", b"colr", b"pixi", b"auxC", b"irot",
                     b"imir", b"clap", b"pasp", b"a1op", b"lsel", b"a1lx")
 # properties libavif requires to be marked essential
 _AVIF_ESSENTIAL = (b"irot", b"imir", b"clap", b"a1op", b"lsel")
+# libavif's default limit on a sequence's frames (imageCountLimit)
+_AVIF_FRAME_LIMIT = 12 * 3600 * 60
 
 
 class _Cut(Exception):
@@ -983,45 +1008,98 @@ def _uint(data: bytes, pos: int, n: int) -> int:
     return int.from_bytes(data[pos:pos + n], "big")
 
 
-class _Heif:
-    """The still-image items of a HEIF (AVIF) file's meta box, parsed as
-    libavif parses them."""
+def _box_need(end: int, limit: int, what: str):
+    if end > limit:
+        raise ValueError(f"the {what} box cut short")
 
-    def __init__(self, data: bytes):
+
+def _top_boxes(data: bytes, end: int):
+    """(type, body start, body end) of data[:end]'s top-level boxes as
+    libavif's avifParse walks them: ftyp, meta and moov read whole (_Cut
+    where one runs past end), any other box skipped, until ftyp and the
+    boxes its brands need (meta for avif, moov for avis) have been read;
+    ValueError where a box header runs past end or the walk would go on
+    past it, _Cut where end comes first."""
+    pos, need, seen = 0, None, set()
+    while pos < end:
+        if pos + 8 > end:
+            raise ValueError("a box header cut short")
+        size, kind = struct.unpack_from(">I4s", data, pos)
+        head = 8
+        if size == 1:
+            if pos + 16 > end:
+                raise ValueError("a box header cut short")
+            size, head = struct.unpack_from(">Q", data, pos + 8)[0], 16
+        elif size == 0:
+            size = end - pos
+        if size < head:
+            raise ValueError(f"a {kind!r} box of {size} bytes")
+        if kind in (b"ftyp", b"meta", b"moov"):
+            if kind in seen:
+                raise ValueError(f"a second {kind.decode('latin-1')} box")
+            if pos + size > end:
+                raise _Cut(f"the {kind.decode('latin-1')!r} box")
+            seen.add(kind)
+        yield kind, pos + head, pos + size
+        if kind == b"ftyp":
+            brands = _brands(data, pos + head, pos + size)
+            need = {b"ftyp"} | {k for k, brand in ((b"meta", b"avif"),
+                                                    (b"moov", b"avis"))
+                                 if brand in brands}
+        pos += size
+        if need is not None and need <= seen:
+            return
+    if pos > end:
+        raise ValueError(f"a box header past byte {end}")
+    raise _Cut("the file (no ftyp, or no meta or moov box its brands "
+               "need)")
+
+
+def _brands(data: bytes, s: int, e: int) -> tuple:
+    """ftyp's major brand, then its compatible brands."""
+    if e - s < 8 or (e - s) % 4:
+        raise ValueError("ftyp box of another length")
+    return (data[s:s + 4],) + tuple(data[i:i + 4] for i in range(s + 8, e, 4))
+
+
+class _Heif:
+    """An AVIF file's meta box (its still-image items) and moov box (its
+    tracks), parsed as libavif parses them; ``from_tracks`` where libavif's
+    automatic source is the tracks: major brand avis, or neither avif nor
+    avis with a track read (where the brands do not need the moov box,
+    libavif stops before it)."""
+
+    def __init__(self, data: bytes, meta=None):
+        """meta: (start, end) of a track's meta box body, read alone."""
         self.data = data
         self.types, self.names, self.locations = {}, {}, {}
-        self.content_types, self.meta_end = {}, len(data)
+        self.content_types = {}
         self.refs, self.props, self.assoc = [], [], {}
         self.primary, self.idat, self.brands = None, b"", ()
-        meta = None
-        try:
-            top = list(_boxes(data, 0, len(data)))
-        except _Cut:
-            # a cut file: its meta box must still be whole
-            top = []
-            pos = 0
-            while pos + 8 <= len(data):
-                size, kind = struct.unpack_from(">I4s", data, pos)
-                if size < 8 or pos + size > len(data):
-                    break
-                top.append((kind, pos + 8, pos + size))
-                pos += size
-        for kind, s, e in top:
+        self.tracks = []
+        if meta is not None:
+            self._meta(meta[0] + 4, meta[1])
+            return
+        for kind, s, e in _top_boxes(data, len(data)):
             if kind == b"ftyp":
-                self.brands = (data[s:s + 4],) + tuple(
-                    data[i:i + 4] for i in range(s + 8, e - 3, 4))
-            elif kind == b"meta" and meta is None:
-                meta = (s + 4, e)
-                self.meta_end = e
+                self.brands = _brands(data, s, e)
+                if not set(self.brands) & set(AVIF_BRANDS):
+                    raise ValueError("AVIF file without an avif or avis brand")
+            elif kind == b"meta":
+                meta = (s, e)
             elif kind == b"moov":
-                raise Refused("AVIF image sequence (a moov track, avis)")
-        if not self.brands or not set(self.brands) & set(AVIF_BRANDS):
-            raise ValueError("AVIF file without an avif or avis brand")
-        if b"avis" == self.brands[0]:
-            raise Refused("AVIF image sequence (avis)")
-        if meta is None:
-            raise _Cut("the meta box")
-        self._meta(*meta)
+                for k2, s2, e2 in _boxes(data, s, e):
+                    if k2 == b"trak":
+                        self.tracks.append(_Track(data, s2, e2))
+                if not self.tracks:
+                    raise ValueError("moov box without tracks")
+        major = self.brands[0]
+        self.from_tracks = major == b"avis" or (major != b"avif"
+                                                and bool(self.tracks))
+        if meta is not None:
+            self._meta(meta[0] + 4, meta[1])
+        if not self.from_tracks and self.primary is None:
+            raise ValueError("AVIF file without a primary item (pitm)")
 
     def _meta(self, start: int, end: int):
         d = self.data
@@ -1068,8 +1146,20 @@ class _Heif:
                         self._ipma(s2, e2)
         if handler != b"pict":
             raise ValueError(f"AVIF meta handler {handler!r} (not pict)")
-        if self.primary is None:
-            raise ValueError("AVIF file without a primary item (pitm)")
+        # what libavif's ipco and ipma parse checks of every property and
+        # association, whether or not an item it decodes has them
+        for kind, s, e in self.props:
+            _check_property(d, kind, s, e)
+        for iid, assoc in self.assoc.items():
+            for index, essential in assoc:
+                if index > len(self.props):
+                    raise ValueError("AVIF ipma index past ipco")
+                kind = self.props[index - 1][0]
+                if kind == b"a1lx" and essential:
+                    raise ValueError("a1lx property marked essential")
+                if kind in (b"a1op", b"lsel") and not essential:
+                    raise ValueError(f"{kind.decode('latin-1')} property "
+                                     "not marked essential")
 
     def _iloc(self, s: int, e: int):
         d = self.data
@@ -1168,6 +1258,198 @@ class _Heif:
         return b"".join(parts)
 
 
+def _check_property(d: bytes, kind: bytes, s: int, e: int):
+    """ValueError where libavif's parse of a property fails the file: a
+    layered image's a1op (an operating point past 31), lsel (a layer past
+    3 but 0xFFFF, every layer) and a1lx (reserved bits, fields cut
+    short)."""
+    if kind == b"a1op" and (e - s < 1 or d[s] > 31):
+        raise ValueError("a1op of an operating point past 31")
+    if kind == b"lsel" and (e - s < 2 or 3 < _uint(d, s, 2) < 0xFFFF):
+        raise ValueError("lsel of a layer past 3")
+    if kind == b"a1lx" and (e - s < 1 or d[s] >> 1 or
+                            e - s < 1 + 3 * (4 if d[s] & 1 else 2)):
+        raise ValueError("a1lx with reserved bits set or cut short")
+
+
+class _Track:
+    """A trak of the moov box as libavif's avifParseTrackBox reads it: its
+    id and size (tkhd, a size libavif scales the frame to), the track it is
+    auxiliary to and the one that premultiplies it (tref auxl, prem), its
+    sample descriptions (stsd: format, and an av01 entry's properties after
+    its 78-byte VisualSampleEntry) and sample table (stco or co64, stsc,
+    stsz), each box's version and length checked as libavif checks them
+    (ValueError where it fails the file)."""
+
+    def __init__(self, d: bytes, s: int, e: int):
+        self.id = self.aux_for = self.prem_by = 0
+        self.meta = None
+        self.descriptions, self.chunks, self.runs, self.sizes = [], [], [], []
+        self.constant, self.table = 0, False
+        duration = repeating = edts = None
+        for kind, s2, e2 in _boxes(d, s, e):
+            if kind == b"tkhd":
+                if duration is not None:
+                    raise ValueError("a second tkhd box")
+                duration = self._tkhd(d, s2, e2)
+            elif kind == b"meta":
+                self.meta = _Heif(d, (s2, e2))
+            elif kind == b"mdia":
+                for k3, s3, e3 in _boxes(d, s2, e2):
+                    if k3 == b"mdhd":
+                        _box_need(s3 + 4, e3, "mdhd")
+                        if d[s3] > 1:
+                            raise ValueError(f"mdhd version {d[s3]}")
+                        _box_need(s3 + (32 if d[s3] else 20), e3, "mdhd")
+                    elif k3 == b"minf":
+                        for k4, s4, e4 in _boxes(d, s3, e3):
+                            if k4 == b"stbl":
+                                if self.table:
+                                    raise ValueError("a second stbl box")
+                                self.table = True
+                                self._stbl(d, s4, e4)
+            elif kind == b"tref":
+                for k3, s3, e3 in _boxes(d, s2, e2):
+                    if k3 in (b"auxl", b"prem"):
+                        _box_need(s3 + 4, e3, k3.decode())
+                        if k3 == b"auxl":
+                            self.aux_for = _uint(d, s3, 4)
+                        else:
+                            self.prem_by = _uint(d, s3, 4)
+            elif kind == b"edts":
+                if edts:
+                    raise ValueError("a second edts box")
+                edts = True
+                repeating = self._elst(d, s2, e2)
+        if duration is None:
+            raise ValueError("trak without tkhd")
+        if repeating and duration == 0:
+            raise ValueError("track duration 0 under a repeated edit list")
+
+    def _tkhd(self, d, s, e):
+        """The track's duration (-1 indefinite); its id and size set."""
+        _box_need(s + 4, e, "tkhd")
+        version = d[s]
+        if version > 1:
+            raise ValueError(f"tkhd version {version}")
+        w = 8 if version else 4
+        at = s + 4 + 2 * w  # creation and modification times
+        _box_need(at + 8 + w + 52 + 8, e, "tkhd")
+        self.id = _uint(d, at, 4)
+        duration = _uint(d, at + 8, w)
+        at += 8 + w + 52  # reserved, layer, group, volume, matrix
+        self.width = _uint(d, at, 4) >> 16
+        self.height = _uint(d, at + 4, 4) >> 16
+        _check_size(self.width, self.height, "track")
+        return -1 if duration == (1 << 8 * w) - 1 else duration
+
+    @staticmethod
+    def _elst(d, s, e):
+        """Whether the edts box's one elst repeats the track."""
+        elst = [(s2, e2) for k, s2, e2 in _boxes(d, s, e) if k == b"elst"]
+        if len(elst) != 1:
+            raise ValueError(f"edts box of {len(elst)} elst boxes")
+        s, e = elst[0]
+        _box_need(s + 4, e, "elst")
+        if not d[s + 3] & 1:
+            return False
+        _box_need(s + 8, e, "elst")
+        if _uint(d, s + 4, 4) != 1:
+            raise ValueError("elst of other than one entry")
+        if d[s] > 1:
+            raise ValueError(f"elst version {d[s]}")
+        w = 8 if d[s] else 4
+        _box_need(s + 8 + w, e, "elst")
+        if not _uint(d, s + 8, w):
+            raise ValueError("elst segment duration 0")
+        return True
+
+    def _stbl(self, d, s, e):
+        for kind, s2, e2 in _boxes(d, s, e):
+            name = kind.decode("latin-1")
+            if kind not in (b"stco", b"co64", b"stsc", b"stsz", b"stss",
+                            b"stts", b"stsd"):
+                continue
+            _box_need(s2 + 8, e2, name)
+            if d[s2] > (kind == b"stsd"):
+                raise ValueError(f"{name} version {d[s2]}")
+            n = _uint(d, s2 + 4, 4)
+            if kind in (b"stco", b"co64"):
+                w = 8 if kind == b"co64" else 4
+                _box_need(s2 + 8 + w * n, e2, name)
+                self.chunks += np.frombuffer(d, f">u{w}", n, s2 + 8).tolist()
+            elif kind == b"stsc":
+                _box_need(s2 + 8 + 12 * n, e2, name)
+                runs = np.frombuffer(d, ">u4", 3 * n, s2 + 8).reshape(n, 3)
+                first = runs[:, 0].astype(np.int64)
+                if n and (first[0] != 1 or (np.diff(first) <= 0).any()):
+                    raise ValueError("stsc chunks not 1, 2, ... increasing")
+                self.runs += runs[:, :2].tolist()
+            elif kind == b"stsz":
+                _box_need(s2 + 12, e2, name)
+                count = _uint(d, s2 + 8, 4)
+                if n:
+                    self.constant = n
+                else:
+                    _box_need(s2 + 12 + 4 * count, e2, name)
+                    self.sizes += np.frombuffer(d, ">u4", count,
+                                                s2 + 12).tolist()
+            elif kind == b"stss":
+                _box_need(s2 + 8 + 4 * n, e2, name)
+            elif kind == b"stts":
+                _box_need(s2 + 8 + 8 * n, e2, name)
+            else:
+                pos = s2 + 8
+                for _ in range(n):
+                    if pos + 8 > e2:
+                        raise ValueError("the stsd box cut short")
+                    fmt, s3, e3 = next(_boxes(d, pos, e2))
+                    props = None
+                    if fmt == b"av01":
+                        if e3 - s3 < 78:
+                            raise ValueError("VisualSampleEntry cut short")
+                        props = {}
+                        for k4, s4, e4 in _boxes(d, s3 + 78, e3):
+                            _check_property(d, k4, s4, e4)
+                            props.setdefault(k4, []).append((s4, e4))
+                    self.descriptions.append((fmt, props))
+                    pos = e3
+
+    def properties(self):
+        """The first av01 sample entry's properties, or None."""
+        return next((p for fmt, p in self.descriptions if fmt == b"av01"),
+                    None)
+
+    def samples(self, size: int):
+        """(offset, size) of each sample as libavif's
+        avifCodecDecodeInputFillFromSampleTable lists them from a file of
+        ``size`` bytes (ValueError where it fails the file)."""
+        runs = np.array(self.runs, np.int64).reshape(-1, 2)
+        at = np.searchsorted(runs[:, 0], np.arange(1, len(self.chunks) + 1),
+                             "right") - 1
+        per = np.where(at >= 0, runs[np.maximum(at, 0), 1], 0)
+        if (per == 0).any():
+            raise ValueError("a chunk of no samples")
+        total = int(per.sum())
+        if total > _AVIF_FRAME_LIMIT:
+            raise ValueError(f"{total} samples (libavif's limit "
+                             f"{_AVIF_FRAME_LIMIT})")
+        if self.constant:
+            sizes = np.full(total, self.constant, np.int64)
+        elif total > len(self.sizes):
+            raise ValueError("sample table cut short (stsz)")
+        else:
+            sizes = np.array(self.sizes[:total], np.int64)
+        ends = np.cumsum(sizes)
+        first = np.concatenate([[0], np.cumsum(per)[:-1]])
+        chunks = np.minimum(np.array(self.chunks, np.uint64), size + 1)
+        starts = np.repeat(chunks.astype(np.int64) - (
+            ends[first] - sizes[first]), per) + ends - sizes
+        if (starts + sizes > size).any():
+            raise ValueError("a sample past the end of the file")
+        return list(zip(starts.tolist(), sizes.tolist()))
+
+
 def _av1_planes(obus: bytes):
     """(planes (uint16 y, u, v), meta) of the AV1 still image in obus; meta
     as ``thc_av1_decode`` in native/av1.cc writes it (25 values: size,
@@ -1201,36 +1483,64 @@ def decode_avif(data: bytes, what: str = "AVIF") -> np.ndarray:
 
 # cv2.imread picks its AVIF decoder by libavif's parse of the file's first
 # 500 bytes (AvifDecoder::checkSignature, the reader's size hint 1e9).
-# Where ftyp and meta lie within them, that parse reads the primary grid's
-# ImageGrid (and an alpha grid's), then the Exif and XMP items describing
-# the primary item and, where the primary item has no nclx colour, its (or
-# its first tile's) AV1 data for the sequence header's: a read starting
-# past the 500 bytes fails the parse, and cv2 reads nothing; one ending
-# past them stops it, and cv2 reads the whole file.
+# Where that parse reads ftyp and the meta or moov box its brands need
+# within them, libavif's decoder reset goes on to read, for the primary
+# item, its grid's ImageGrid (and an alpha grid's), the Exif and XMP items
+# describing it and, without nclx colour, its (or its first tile's) AV1
+# data for the sequence header's; for a sequence's track, without nclx,
+# its first sample: a read starting past the 500 bytes fails the parse,
+# and cv2 reads nothing; one ending past them stops it, and cv2 reads the
+# whole file. So does a box ftyp, meta or moov cut at the 500th byte; a
+# box header across it, or a walk past it over another box, fails.
 _SIGNATURE_BYTES = 500
 
 
-def _signature_check(heif: _Heif, alpha, nclx: bool):
-    if heif.meta_end > _SIGNATURE_BYTES:
+def _signature_check(data: bytes, reads):
+    """ValueError where cv2's signature check fails the file; reads: the
+    (offset, size) extents the decoder reset reads."""
+    try:
+        for _ in _top_boxes(data, min(len(data), _SIGNATURE_BYTES)):
+            pass
+    except _Cut:
         return
+    for start, n in reads:
+        if start > _SIGNATURE_BYTES:
+            raise ValueError(f"data at byte {start}, past the 500 bytes "
+                             "cv2's signature check parses")
+        if start + n > _SIGNATURE_BYTES:
+            return
+
+
+def _item_reads(heif: _Heif, alpha, nclx: bool) -> list:
+    """The file extents libavif's decoder reset reads for the primary
+    item (see _signature_check)."""
     primary = heif.primary
     reads = [i for i in (primary, alpha) if heif.types.get(i) == b"grid"]
-    described = {src for ref, src, dst in heif.refs
-                 if ref == b"cdsc" and dst == primary}
-    reads += [i for i, kind in heif.types.items() if i in described and (
-        kind == b"Exif" or heif.content_types.get(i) == b"application/"
-        b"rdf+xml")]
+    reads += _metadata(heif, primary)
     if not nclx:
         reads.append(_tiles(heif, primary)[0] if heif.types.get(primary)
                      == b"grid" else primary)
-    for iid in reads:
+    return _extents(heif, reads)
+
+
+def _metadata(heif: _Heif, primary=None) -> list:
+    """The Exif and XMP items describing item ``primary`` (cdsc), or, for
+    a track's meta box, all of them."""
+    described = {src for ref, src, dst in heif.refs
+                 if ref == b"cdsc" and dst == primary}
+    return [i for i, kind in heif.types.items()
+            if (primary is None or i in described) and (
+                kind == b"Exif" or heif.content_types.get(i)
+                == b"application/rdf+xml")]
+
+
+def _extents(heif: _Heif, items) -> list:
+    """The file extents of items (those in the file, not in idat)."""
+    out = []
+    for iid in items:
         method, extents = heif.locations.get(iid, (1, ()))
-        for start, n in extents if method == 0 else ():
-            if start > _SIGNATURE_BYTES:
-                raise ValueError(f"item {iid}'s data past the 500 bytes cv2's "
-                                 "signature check parses")
-            if start + n > _SIGNATURE_BYTES:
-                return
+        out += extents if method == 0 else []
+    return out
 
 
 def _tiles(heif: _Heif, iid: int) -> list:
@@ -1239,13 +1549,17 @@ def _tiles(heif: _Heif, iid: int) -> list:
             and src == iid]
 
 
-def _ispe(heif: _Heif, props: dict):
-    s, _ = props[b"ispe"][0]
-    width, height = struct.unpack_from(">II", heif.data, s + 4)
+def _check_size(width: int, height: int, what: str):
     if not width or not height or width > 32768 or height > 32768 or \
             width * height > 16384 * 16384:
         # libavif's image size and dimension limits
-        raise ValueError(f"ispe of {width}x{height} pixels")
+        raise ValueError(f"{what} of {width}x{height} pixels")
+
+
+def _ispe(heif: _Heif, props: dict):
+    s, _ = props[b"ispe"][0]
+    width, height = struct.unpack_from(">II", heif.data, s + 4)
+    _check_size(width, height, "ispe")
     return width, height
 
 
@@ -1275,8 +1589,6 @@ def _image(heif: _Heif, iid: int, alpha: bool = False):
     such tiles joined; meta as _av1_planes gives it, at the image's
     size."""
     props = heif.properties(iid)
-    if b"a1lx" in props or b"lsel" in props or b"a1op" in props:
-        raise Refused("AVIF layered image (a1lx, lsel, a1op)")
     kind = heif.types.get(iid)
     if kind == b"grid":
         if b"ispe" not in props:
@@ -1286,12 +1598,69 @@ def _image(heif: _Heif, iid: int, alpha: bool = False):
         raise ValueError(f"item of type {kind!r} (not av01 or grid)")
     if b"av1C" not in props or (b"ispe" not in props and not alpha):
         raise ValueError("item without ispe or av1C")
-    planes, meta = _av1_planes(heif.item(iid))
+    planes, meta = _av1_planes(_layers(heif.data, props, heif.item(iid)))
     if b"ispe" in props:
         width, height = _ispe(heif, props)
         planes = _scaled(planes, meta, width, height)
         meta[0], meta[1] = width, height
     return planes, meta
+
+
+def _layers(d: bytes, props: dict, obus: bytes) -> bytes:
+    """What of an av01 item's data libavif hands libaom (its
+    avifCodecDecodeInputFillFromDecoderItem, progressive decoding off, as
+    cv2 leaves it): where lsel selects layer L (not 0xFFFF, every layer)
+    the item's first L + 1 layers by a1lx (the whole item without a1lx),
+    libaom then outputting the frame of spatial layer L (ValueError where
+    the stream has none: libavif fails the file); otherwise the whole
+    item. a1lx's layer sizes must fit in the item either way; a1op's
+    operating point is the stream's only one (libaom takes 0 for an index
+    past the stream's count), and a stream of more than one is refused by
+    native/av1.cc."""
+    sizes = None
+    if b"a1lx" in props:
+        s, _ = props[b"a1lx"][0]
+        w = 4 if d[s] & 1 else 2
+        left, sizes = len(obus), []
+        for i in range(3):
+            n = _uint(d, s + 1 + w * i, w)
+            if not n:
+                break
+            if n >= left:
+                raise ValueError(f"a1lx layer {i} does not fit in the item")
+            sizes.append(n)
+            left -= n
+        sizes.append(left)
+    if b"lsel" not in props:
+        return obus
+    s, _ = props[b"lsel"][0]
+    layer = _uint(d, s, 2)
+    if layer == 0xFFFF:
+        return obus
+    if sizes is not None:
+        if layer >= len(sizes):
+            raise ValueError(f"lsel layer {layer} past a1lx's {len(sizes)}")
+        obus = obus[:sum(sizes[:layer + 1])]
+    if layer:
+        pos = 0
+        while pos < len(obus):  # the OBUs' extension headers
+            head = obus[pos]
+            ext = (head >> 2) & 1
+            if ext and pos + 1 < len(obus) and (obus[pos + 1] >> 3) & 3 \
+                    == layer:
+                raise Refused(f"AVIF layered image (spatial layer {layer})")
+            pos += 1 + ext
+            if not head & 2:
+                break
+            size = shift = 0
+            while pos < len(obus):
+                size |= (obus[pos] & 0x7F) << shift
+                pos, shift = pos + 1, shift + 7
+                if not obus[pos - 1] & 0x80:
+                    break
+            pos += size
+        raise ValueError(f"lsel layer {layer}, which the stream lacks")
+    return obus
 
 
 def _grid(heif: _Heif, iid: int, size):
@@ -1354,11 +1723,14 @@ def _grid(heif: _Heif, iid: int, size):
     return tuple(joined), meta
 
 
-def _decode_avif(data: bytes, what: str) -> np.ndarray:
-    heif = _Heif(data)
+def _item_image(heif: _Heif):
+    """(planes, meta, nclx offset or None, Exif data or None) of the
+    primary item, its alpha item (auxl, auxC alpha) decoded as libavif
+    decodes it (a failing one fails the file) and dropped, as imread's
+    3-channel result drops it."""
+    data = heif.data
     props = heif.properties(heif.primary)
     nclx = [s for s, _ in props.get(b"colr", ()) if data[s:s + 4] == b"nclx"]
-    # the alpha item (auxl, auxC alpha)
     alpha = None
     for ref, src, dst in heif.refs:
         if ref == b"auxl" and dst == heif.primary and any(
@@ -1366,19 +1738,86 @@ def _decode_avif(data: bytes, what: str) -> np.ndarray:
                 for s, e in heif.properties(src).get(b"auxC", ())):
             alpha = src
             break
-    _signature_check(heif, alpha, bool(nclx))
+    if alpha is not None and (b"prem", heif.primary, alpha) in heif.refs:
+        raise Refused("AVIF premultiplied alpha (prem)")
+    _signature_check(data, _item_reads(heif, alpha, bool(nclx)))
     planes, meta = _image(heif, heif.primary)
-    width, height = int(meta[0]), int(meta[1])
-    cp, mc, full = int(meta[6]), int(meta[8]), int(meta[9])
-    if nclx:
-        cp, _, mc = struct.unpack_from(">HHH", data, nclx[0] + 4)
-        full = data[nclx[0] + 10] >> 7
-    # the alpha item decoded as libavif decodes it (a failing one fails the
-    # file), then dropped, as imread's 3-channel result drops it
     if alpha is not None:
         _, ameta = _image(heif, alpha, alpha=True)
-        if (int(ameta[0]), int(ameta[1])) != (width, height):
-            raise ValueError("alpha item of another size")
+        _same_as_alpha(meta, ameta)
+    return planes, meta, nclx[0] if nclx else None, _exif(
+        heif, heif.primary)
+
+
+def _exif(heif: _Heif, primary=None):
+    """The data after its 4-byte header offset of the first Exif item of
+    _metadata(heif, primary), or None."""
+    return next((heif.item(i)[4:] for i in _metadata(heif, primary)
+                 if heif.types[i] == b"Exif"), None)
+
+
+def _same_as_alpha(meta, ameta):
+    if (int(ameta[0]), int(ameta[1]), int(ameta[2])) != (
+            int(meta[0]), int(meta[1]), int(meta[2])):
+        raise ValueError("alpha image of another size or depth")
+
+
+def _track_image(heif: _Heif):
+    """(planes, meta, nclx offset or None, Exif data or None) of an image
+    sequence's first frame as libavif reads it from tracks: the colour
+    track is the first with an id, a sample table of chunks, an av01
+    sample entry and no auxl reference, its first av01 entry's properties
+    its colour's (av1C required, nclx over the sequence header's), its
+    first sample decoded and scaled to its tkhd size, its own meta box's
+    Exif item applied (the file's meta box is not read); the alpha track
+    (the first such track auxl to it) decoded likewise and dropped (a
+    failing one fails the file)."""
+    data = heif.data
+
+    def usable(t):
+        return t.table and t.id and t.chunks and t.properties() is not None
+    color = next((t for t in heif.tracks if usable(t) and not t.aux_for),
+                 None)
+    if color is None:
+        raise ValueError("no AV1 colour track")
+    alpha = next((t for t in heif.tracks if usable(t)
+                  and t.aux_for == color.id), None)
+    props = color.properties()
+    if b"av1C" not in props:
+        raise ValueError("colour track without av1C")
+    nclx = [s for s, _ in props.get(b"colr", ()) if data[s:s + 4] == b"nclx"]
+    if len(nclx) > 1:
+        raise ValueError("two nclx colour properties")
+    first = color.samples(len(data))[0]
+    if alpha is not None:
+        alpha_first = alpha.samples(len(data))[0]
+        if color.prem_by == alpha.id:
+            raise Refused("AVIF premultiplied alpha (prem)")
+    meta_reads = _extents(color.meta, _metadata(color.meta)) \
+        if color.meta else []
+    _signature_check(data, meta_reads + ([] if nclx else [first]))
+
+    def frame(track, at):
+        start, n = at
+        planes, meta = _av1_planes(data[start:start + n])
+        planes = _scaled(planes, meta, track.width, track.height)
+        meta[0], meta[1] = track.width, track.height
+        return planes, meta
+    planes, meta = frame(color, first)
+    if alpha is not None:
+        _same_as_alpha(meta, frame(alpha, alpha_first)[1])
+    return planes, meta, nclx[0] if nclx else None, \
+        _exif(color.meta) if color.meta else None
+
+
+def _decode_avif(data: bytes, what: str) -> np.ndarray:
+    heif = _Heif(data)
+    planes, meta, nclx, exif = (_track_image if heif.from_tracks
+                                else _item_image)(heif)
+    cp, mc, full = int(meta[6]), int(meta[8]), int(meta[9])
+    if nclx is not None:
+        cp, _, mc = struct.unpack_from(">HHH", data, nclx + 4)
+        full = data[nclx + 10] >> 7
     w, h, depth, mono, sx, sy = (int(v) for v in meta[:6])
     out = np.empty((h, w, 3), np.uint8)
     params = np.array([w, h, depth, mono, sx, sy, cp, mc, full], np.int32)
@@ -1386,14 +1825,7 @@ def _decode_avif(data: bytes, what: str) -> np.ndarray:
     codec.call("thc_avif_to_rgb", planes[0].ctypes.data, u.ctypes.data,
                v.ctypes.data, params.ctypes.data, out.ctypes.data,
                what=what, refused=Refused, lib="av1")
-    # imread turns the image by the orientation of an Exif item whose data
-    # (after its 4-byte header offset) starts as TIFF does; irot, imir and
-    # clap are not applied
-    for ref, src, dst in heif.refs:
-        if ref == b"cdsc" and dst == heif.primary and \
-                heif.types.get(src) == b"Exif":
-            exif = heif.item(src)[4:]
-            if exif[:4] in (b"II*\0", b"MM\0*"):
-                out = exif_orient(out, exif)
-            break
+    # irot, imir and clap are not applied
+    if exif is not None and exif[:4] in (b"II*\0", b"MM\0*"):
+        out = exif_orient(out, exif)
     return out
