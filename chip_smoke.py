@@ -143,11 +143,16 @@ m. image codings: humans laid out with Adam7 masks whose 1024x1024 views
    (K2, K4 and K3 in the steps, K1, K2 and K4 in the evaluation), finite
    losses and metrics, and each coding read by the loader.
 
-Then data parallelism across processes, each command ``python -m
-torch.distributed.run --standalone --nproc_per_node N -m
-transhuman_tpu_torch.cli.{train,run}`` with a timeout, every rank printing
-its own step times, gradient all-reduce and kernel launches (two ranks
-sharing the one card over gloo measure the wiring, not scaling):
+Then data parallelism and the model axis across processes: K2 at TransHE
+small's and base's widths (l0), then one ``python -m
+torch.distributed.run --standalone --nproc_per_node 2 chip_smoke.py
+--dist-worker JOBS`` with a timeout, its 2 gloo ranks sharing the card,
+that runs j1, j3, l1 and l2's entry-point calls in order in one process
+group (one start-up for all; each job started on both ranks together, the
+launch counters reset, its output kept apart), every rank printing its own
+step times, gradient all-reduce and kernel launches and naming its card;
+then j2's one NCCL rank.  Each job is held against this process as below
+(two ranks sharing the one card measure the wiring, not scaling):
 
 j1. the train entry point over 2 ranks (gloo) at full width, one sample a
    rank: one float32 step against this process's step on both samples
@@ -161,8 +166,9 @@ j1. the train entry point over 2 ranks (gloo) at full width, one sample a
 Then ray-sharded inference (``mesh_axis_rays``) and the remaining tools:
 
 k1. make_sharded_render on a full-width 512x512 request over [cuda:0,
-   cuda:1], or [cuda:0, cuda:0] on one card (which measures the wiring,
-   not the scaling), against one device's render_frame with the same
+   cuda:0] (two shares on the card measure the wiring, not the scaling;
+   ``--cards`` takes one share a card), against one device's
+   render_frame with the same
    weights: the maps within 1e-6 (rgb, acc) and 1e-5 (depth), the
    survivors equal, and the launches exactly as the code predicts (K1 one
    a 512-ray chunk, K2 one a chunk with survivors, K4 that plus one
@@ -180,7 +186,8 @@ k4. tools/validate_official over a laid-out CoreView_377 and CoreView_387
 k5. tools/make_kmeans on a stand-in SMPL pickle: its file loads back
    through ClusterSpec.load_reference_dict with the same assignment.
 
-Then the model axis (``mesh_axis_model``, parallel/tp.py and pp.py):
+The model axis (``mesh_axis_model``, parallel/tp.py and pp.py), its
+torchrun jobs in j's:
 
 l0. K2 and its bf16 form at the token widths of TransHE small and base
    (D = 384 and 768) against their plain twins at phase 3's tolerances,
@@ -194,9 +201,10 @@ l1. the train entry point over 2 ranks sharing the card (gloo) at
    at half), step ms, the model axis's all-reduce count (4 x depth) and
    ms, and K1, K2, K4 and K3 launches;
 l2. the pipelined TransHE base (3 x 300 x 768, depth 12, a stored table)
-   over 2 gloo ranks on the card (this script as ``--pp-worker DIR`` under
-   torchrun), 2 stages in 3 microbatches, against the unpipelined module
-   (output within 1e-5, gradients within 2e-6), both timed.
+   over 2 gloo ranks on the card (each rank's stage on the card
+   configure_device gives it), 2 stages in 3 microbatches, against the
+   unpipelined module (output within 1e-5, gradients within 2e-6), both
+   timed.
 
 Then the frame formats beside JPEG and PNG, mesh_axis_rays under torchrun
 and the examples:
@@ -231,6 +239,42 @@ video of its PLY (tools/render_mesh_video), timed.
 
 The last three lines are {"kernels": [...]}, the card's name and power
 limit as nvidia-smi prints them, and {"ok": true, "device": {...}}.
+
+``python3 chip_smoke.py --cards N`` (N >= 2) runs the across-card paths
+instead, one rank or one ray share a card, every collective between cards
+over NCCL; with fewer than N cards visible it fails, naming the counts.
+It first prints ``nvidia-smi --query-gpu=index,name,power.limit,pci.bus_id``
+and ``nvidia-smi topo -m``, then phases 1-2 and:
+
+c1. every kernel form (K1 plain and bias, K2 f32 and bf16, K3 f32 and
+   bf16, K4 f32, bf16 and int8) at phase 3's serve-chunk, train and
+   painting shapes on every card at once, one host thread a card: each
+   card's outputs card 0's bit for bit, card 0 within phase 3's bounds of
+   the plain versions;
+c2. one torchrun of N NCCL ranks (``--dist-worker``), one a card: j1's
+   float32 step against this process's train.batch_size N step, then bf16
+   steps with train.cull, train.batch_size 2, train.accum_steps 2 and
+   remat (``dryrun_multichip``'s configuration); evaluate of the 8 frames,
+   visualize and reconstruction of 4 frames sharded by frame against one
+   process (metrics within 1e-9, one AVI, each PLY byte for byte); from
+   the ranks' reports, per-rank step ms f32 and bf16, the gradient
+   all-reduce's ms and MB, eval s per frame; every rank's card distinct
+   (index, UUID, PCI address);
+c3. make_sharded_render over cuda:0..R-1 at R = 2 and N against one
+   card's render_frame (k1's bounds and launch counts, the render ms in
+   turns); the run entry point's evaluate and one serve.py request at
+   mesh_axis_rays N against mesh_axis_rays 1; at N = 4 the train entry
+   point's --test under 2 NCCL ranks x mesh_axis_rays 2 (ranks on cards 0
+   and 2) against one process;
+c4. tensor parallelism at mesh_axis_model 2 on 2 cards (l1's float32 and
+   bf16 runs and bounds) and, at N = 4, the 2 x 2 data x model mesh
+   against one process at train.batch_size 2; the pipelined TransHE over
+   N stages, and over 2 stages on 2 cards, one stage a card, its sends
+   and broadcasts over NCCL (l2's bounds).
+
+The last three lines are {"cards": N, "launches_by_path": ...,
+"figures": ...}, phase 1's nvidia-smi line, and the same {"ok": true,
+...} line as the default run.
 Imports only torch, numpy, the port and the numpy image writers of
 tests/_torch_formats.py.
 """
@@ -4045,19 +4089,23 @@ def phase_train_zju_batch(card: str, tmp: str, root: str,
 # ------------------------------------- data parallelism across processes
 ROOT = os.path.dirname(os.path.abspath(__file__))
 J_TIMEOUT = 300  # s for one torchrun command, its ranks' start included
+JL_TIMEOUT = 900  # s for phase j and l's one torchrun, every job in it
+CHIP_SMOKE = os.path.join(ROOT, "chip_smoke.py")
 J_STEPS = 4  # bf16 steps of phase j1's culled run
 J_EVAL_FRAMES = ("test.frame_interval", "3")  # frames 0, 3, 6: ranks 2 + 1
 J_RECON_FRAMES = ("test.frame_interval", "4")  # frames 0, 4: one per rank
 J_MESH_TH = "5"  # below a 1-step model's sigma of ~10: the cull's shell
 
 
-def torchrun(what: str, nproc: int, module: str, argv, backend="gloo"):
+def torchrun(what: str, nproc: int, module: str, argv, backend="gloo",
+             timeout: float = J_TIMEOUT, reports: bool = True):
     """``python -m torch.distributed.run --standalone --nproc_per_node
     nproc -m module --dist_backend backend argv`` (a module ending in .py
     is a script path, run as it is) from the checkout's root,
-    in a session of its own that is killed whole at J_TIMEOUT or once it
-    ends; fails unless it exits 0 and every rank printed its rank report.
-    Returns (its output, the reports in rank order, its seconds)."""
+    in a session of its own that is killed whole at ``timeout`` s or once
+    it ends; fails unless it exits 0 and (``reports``) every rank printed
+    its rank report.  Returns (its output, the reports in rank order, its
+    seconds)."""
     target = [module] if module.endswith(".py") else ["-m", module]
     cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
            "--nproc_per_node", str(nproc), *target, "--dist_backend",
@@ -4069,7 +4117,7 @@ def torchrun(what: str, nproc: int, module: str, argv, backend="gloo"):
                             start_new_session=True)
     timed_out = False
     try:
-        out = proc.communicate(timeout=J_TIMEOUT)[0]
+        out = proc.communicate(timeout=timeout)[0]
     except subprocess.TimeoutExpired:
         timed_out = True
         os.killpg(proc.pid, signal.SIGKILL)
@@ -4084,6 +4132,12 @@ def torchrun(what: str, nproc: int, module: str, argv, backend="gloo"):
           f"{what}: {' '.join(cmd[1:])} "
           f"{'timed out' if timed_out else f'exited {proc.returncode}'} "
           f"after {secs:.1f} s:\n{out[-6000:]}")
+    return out, (rank_reports(what, out, nproc) if reports else []), secs
+
+
+def rank_reports(what: str, out: str, nproc: int) -> list:
+    """The ``rank report:`` lines of out in rank order; fails unless there
+    is one from each of nproc ranks."""
     # a report is one write ending its line, but it may start mid-line: with
     # PYTHONUNBUFFERED a print is two writes (text, then "\n"), and another
     # rank's report can land between them
@@ -4092,7 +4146,7 @@ def torchrun(what: str, nproc: int, module: str, argv, backend="gloo"):
     check([(r["rank"], r["world"]) for r in reports]
           == [(r, nproc) for r in range(nproc)],
           f"{what}: rank reports {reports}\n{out[-3000:]}")
-    return out, reports, secs
+    return reports
 
 
 def _summed(reports) -> dict:
@@ -4111,110 +4165,262 @@ def _adam_step(path: str):
                          for i in params if i in state}
 
 
-def phase_dp_train(card: str, tmp: str):
-    """j1. The train entry point over 2 ranks on the one card (torchrun,
-    --dist_backend gloo, which lets ranks share a card), full width
-    (phase 7's Config() defaults), train.batch_size 1 per rank from the
-    seeded weights: one float32 step against this process's one-process
-    step at train.batch_size 2 on the same samples and seeds (loss ≤ 1e-4
-    relative, phase 6's gradient and update bounds; the gradients from
-    each checkpoint's Adam moment), then J_STEPS bf16 steps with
-    train.cull, K1, K2, K4 and K3 launched on each rank.  j2. One rank over
-    NCCL (the default backend), 2 bf16 steps: the NCCL group, the card's
-    gradient all-reduce and rank 0's saves.  Two ranks on one card measure
-    the wiring, not the scaling.  Returns ({path: launches}, the float32
-    2-rank checkpoint)."""
+# ------------------------------------ several jobs in one torchrun
+class _Tee(io.TextIOBase):
+    """A text stream that writes to each of its streams."""
+
+    def __init__(self, *streams):
+        super().__init__()
+        self.streams = streams
+
+    def write(self, s):
+        for f in self.streams:
+            f.write(s)
+        return len(s)
+
+    def flush(self):
+        for f in self.streams:
+            f.flush()
+
+
+def worker_device(backend: str) -> torch.device:
+    """The card of one ``--dist-worker`` rank, as an entry point takes it
+    (configure_device): cuda:LOCAL_RANK over NCCL, one rank a card; the
+    cards shared round-robin over gloo."""
+    from transhuman_tpu_torch.cli.common import configure_device
+
+    return configure_device("cuda", backend)
+
+
+def _card() -> torch.device:
+    """The card a ``--dist-worker`` rank made current."""
+    return torch.device("cuda", torch.cuda.current_device())
+
+
+def _validate_job(job, world):
+    """The train entry point's --test with job['argv'], its val stats and
+    summary in this rank's report (validation prints none)."""
+    from transhuman_tpu_torch.cli import train as train_cli
+    from transhuman_tpu_torch.cli.common import rank_report
+
+    val, summary = train_cli.main(job["argv"])
+    rank_report(world, val=val, summary=summary)
+
+
+def _entry_job(job, world):
+    from transhuman_tpu_torch.cli import run as run_cli
+    from transhuman_tpu_torch.cli import train as train_cli
+
+    (train_cli if job["kind"] == "train" else run_cli).main(job["argv"])
+
+
+def dist_worker(spec_path: str):
+    """One rank of ``chip_smoke.py --dist-worker JOBS.json`` under torchrun:
+    joins the process group once (the file's backend) and runs the file's
+    jobs in order, each started on every rank together (a barrier) with
+    the launch counters reset, its standard output copied to
+    DIR/<tag>.<rank>.out (DIR the file's directory) and ending in its
+    seconds.  One start-up serves every job."""
+    import contextlib
+    import gc
+
+    from transhuman_tpu_torch import kernels
+    from transhuman_tpu_torch.parallel import (barrier, init_distributed,
+                                               make_mesh, shutdown)
+
+    with open(spec_path) as f:
+        spec = json.load(f)
+    kinds = {"train": _entry_job, "run": _entry_job,
+             "validate": _validate_job, "pp": _pp_job}
+    out_dir = os.path.dirname(spec_path)
+    worker_device(spec["backend"])
+    init_distributed(spec["backend"])
+    try:
+        world = make_mesh()
+        for job in spec["jobs"]:
+            gc.collect()
+            torch.cuda.empty_cache()
+            kernels.reset_launch_counts()
+            barrier(world)
+            path = os.path.join(out_dir, f"{job['tag']}.{world.rank}.out")
+            with open(path, "w") as f, contextlib.redirect_stdout(
+                    _Tee(sys.stdout, f)):
+                t = time.perf_counter()
+                kinds[job["kind"]](job, world)
+                print(f"job seconds: {time.perf_counter() - t:.3f}",
+                      flush=True)
+            barrier(world)
+    finally:
+        shutdown()
+
+
+def dist_jobs(what: str, nproc: int, backend: str, jobs: list, tmp: str,
+              timeout: float) -> dict:
+    """This script as ``--dist-worker`` under torchrun over nproc ranks on
+    backend, running jobs ({"tag", "kind", ...}) in order in one process
+    group: {tag: (the ranks' output of that job, their rank reports in rank
+    order, the job's seconds on its slowest rank)}, and under None the
+    command's seconds."""
+    d = tempfile.mkdtemp(prefix="jobs_", dir=tmp)
+    spec = os.path.join(d, "jobs.json")
+    with open(spec, "w") as f:
+        json.dump({"backend": backend, "jobs": jobs}, f)
+    _, _, secs = torchrun(what, nproc, CHIP_SMOKE, ["--dist-worker", spec],
+                          backend, timeout=timeout, reports=False)
+    res = {None: secs}
+    for job in jobs:
+        outs = []
+        for r in range(nproc):
+            with open(os.path.join(d, f"{job['tag']}.{r}.out")) as f:
+                outs.append(f.read())
+        out = "".join(outs)
+        res[job["tag"]] = (out, rank_reports(f"{what} {job['tag']}", out,
+                                             nproc),
+                           max(float(s) for s in re.findall(
+                               r"^job seconds: (\S+)$", out, re.M)))
+    return res
+
+
+def check_cards(what: str, reports, shared: bool):
+    """Each rank names its card; on one card every rank names card 0
+    (shared), else no two ranks name one card (index, UUID, PCI address)."""
+    cards = [r["card"] for r in reports]
+    check(all(c is not None for c in cards), f"{what}: a rank names no "
+          f"card: {cards}")
+    if shared:
+        check({c["index"] for c in cards} == {0}, f"{what}: cards {cards}")
+        return
+    for key in ("index", "uuid", "pci"):
+        vals = [c[key] for c in cards if c[key] is not None]
+        check(len(set(vals)) == len(vals), f"{what}: two ranks share a card "
+              f"({key}: {vals})")
+
+
+def _entry_opts(run: str, tag: str, steps: int, *extra) -> list:
+    """The flags, then the config overrides, of one train run under
+    run/tag."""
+    return ["--device", "cuda", "--steps", str(steps), "dataset",
+            "synthetic", "ep_iter", str(steps), "train.epoch", "1",
+            "trained_model_dir", os.path.join(run, tag, "tm"),
+            "record_dir", os.path.join(run, tag, "rec"), "result_dir",
+            os.path.join(run, tag, "res"), *extra]
+
+
+def dp_jobs(run: str, backend: str, bf16_extra) -> list:
+    """The train entry point's jobs of j1 and c2: one float32 step at one
+    sample a rank, saved to run/dp.pth; J_STEPS bf16 steps with train.cull
+    and bf16_extra (the batch a rank, accumulation, remat)."""
+    flag = ["--dist_backend", backend]
+    return [{"tag": "dp_f32", "kind": "train", "argv": [
+                *flag, "--out", os.path.join(run, "dp.pth"),
+                *_entry_opts(run, "dp", 1, "train.batch_size", "1")]},
+            {"tag": "dp_bf16", "kind": "train", "argv": [
+                *flag, *_entry_opts(run, "bf16", J_STEPS, "train.cull",
+                                    "True", "compute_dtype", "bfloat16",
+                                    *bf16_extra)]}]
+
+
+def check_dp_train(card: str, res: dict, run: str, n: int, layout: str,
+                   bf16_extra) -> dict:
+    """j1 / c2.  The dp_jobs over n ranks, full width (phase 7's Config()
+    defaults), from the seeded weights: the float32 step against this
+    process's one-process step at train.batch_size n on the same samples
+    and seeds (loss ≤ 1e-4 relative, phase 6's gradient and update bounds;
+    the gradients from each checkpoint's Adam moment), the ranks' losses
+    equal; then the bf16 steps with train.cull, K1, K2, K4 and K3
+    launched on each rank, K1 once a sample.  Returns {path: launches}."""
     from transhuman_tpu_torch.cli import train as train_cli
     from transhuman_tpu_torch.config import Config
     from transhuman_tpu_torch.models.network import TransHumanNet
     from transhuman_tpu_torch.testing import init_weights
 
-    module = "transhuman_tpu_torch.cli.train"
-    run = os.path.join(tmp, "j")
-
-    def opts(tag, steps, *extra):
-        """The flags, then the config overrides, of one run."""
-        return ["--device", "cuda", "--steps", str(steps), "dataset",
-                "synthetic", "ep_iter", str(steps), "train.epoch", "1",
-                "trained_model_dir", os.path.join(run, tag, "tm"),
-                "record_dir", os.path.join(run, tag, "rec"), "result_dir",
-                os.path.join(run, tag, "res"), *extra]
-
+    shared = "sharing" in layout
+    out, reps, secs = res["dp_f32"]
+    if shared:
+        check("shared round-robin over gloo" in out, f"{layout}: the ranks "
+              f"did not say they share the card:\n{out[-2000:]}")
+    check_cards("dp float32", reps, shared)
     dp_ckpt, one_ckpt = (os.path.join(run, f"{t}.pth") for t in ("dp", "one"))
     torch.cuda.empty_cache()
-    out, reps, secs = torchrun("j1 float32", 2, module, [
-        "--out", dp_ckpt, *opts("dp", 1, "train.batch_size", "1")])
-    check("shared round-robin over gloo" in out,
-          f"j1: the ranks did not say they share the card:\n{out[-2000:]}")
-    _, recs = train_cli.main(["--out", one_ckpt, *opts(
-        "one", 1, "train.batch_size", "2")])
+    t = time.perf_counter()
+    _, recs = train_cli.main(["--out", one_ckpt, *_entry_opts(
+        run, "one", 1, "train.batch_size", str(n))])
+    one_s = time.perf_counter() - t
     torch.cuda.empty_cache()
     cfg = Config().merge_opts(["dataset", "synthetic"])
     net = init_weights(TransHumanNet.from_config(cfg),
                        torch.Generator().manual_seed(cfg.seed))
-    p0 = {n: p.detach().clone() for n, p in net.named_parameters()}
+    p0 = {k: p.detach().clone() for k, p in net.named_parameters()}
     (w_dp, m_dp), (w_one, m_one) = map(_adam_step, (dp_ckpt, one_ckpt))
     names = list(p0)
     g_dp = {names[i]: g for i, g in m_dp.items()}
     g_one = {names[i]: g for i, g in m_one.items()}
     check(set(g_one) == set(names) - UNREAD_PARAMS and set(g_one) <= set(g_dp),
-          "j1: the parameters with a gradient differ")
-    d_dp = {n: w_dp[n] - p0[n] for n in g_one}
-    d_one = {n: w_one[n] - p0[n] for n in g_one}
+          "dp: the parameters with a gradient differ")
+    d_dp = {k: w_dp[k] - p0[k] for k in g_one}
+    d_one = {k: w_one[k] - p0[k] for k in g_one}
     loss_dp, loss_one = reps[0]["loss"][0], recs[0]["loss"]
-    check(reps[1]["loss"] == reps[0]["loss"], f"j1: the ranks' losses differ "
-          f"{[r['loss'] for r in reps]}")
+    check(all(r["loss"] == reps[0]["loss"] for r in reps),
+          f"dp: the ranks' losses differ {[r['loss'] for r in reps]}")
     lerr = abs(loss_dp - loss_one) / loss_one
-    check(lerr <= 1e-4, f"j1: loss {loss_dp} over 2 ranks vs {loss_one}")
-    rel, gerr, wt, w = f32_step_gaps("j1 2-rank step vs 1 process", g_dp,
+    check(lerr <= 1e-4, f"dp: loss {loss_dp} over {n} ranks vs {loss_one}")
+    rel, gerr, wt, w = f32_step_gaps(f"{n}-rank step vs 1 process", g_dp,
                                      g_one, d_dp, d_one, p0, recs[0]["lr"])
-    log(f"[j1 dp train] full width, float32, 2 ranks x train.batch_size 1 "
-        f"(gloo, sharing the card) vs 1 process x 2: loss {loss_dp:.7g} vs "
+    log(f"[dp train] full width, float32, {n} ranks x train.batch_size 1 "
+        f"({layout}) vs 1 process x {n}: loss {loss_dp:.7g} vs "
         f"{loss_one:.7g} (rel {lerr:.3g}); max gradient err {gerr:.3g} of "
         f"its leaf's norm; worst error/tolerance {rel[0][0]:.3g} "
         f"({rel[0][1]}); update err beyond rounding {wt:.3g} where the "
-        f"sign is sure, {w:.3g} anywhere; torchrun {secs:.1f} s; per-rank "
-        f"step ms {[round(r['step_ms'][0], 1) for r in reps]}; gradient "
-        f"all-reduce {[round(r['grad_allreduce_ms'][0], 2) for r in reps]} "
-        f"ms of {reps[0]['grad_allreduce_mb']:.2f} MB (the first step)  "
-        f"[{card}]")
+        f"sign is sure, {w:.3g} anywhere; job {secs:.1f} s, the one-process "
+        f"run {one_s:.1f} s; per-rank step ms "
+        f"{[round(r['step_ms'][0], 1) for r in reps]}; gradient all-reduce "
+        f"{[round(r['grad_allreduce_ms'][0], 2) for r in reps]} ms of "
+        f"{reps[0]['grad_allreduce_mb']:.2f} MB (the first step); cards "
+        f"{[r['card']['index'] for r in reps]}  [{card}]")
 
     f = forms("bfloat16")
-    bf16 = ("compute_dtype", "bfloat16", "train.batch_size", "1")
-    out, reps16, secs16 = torchrun("j1 bf16", 2, module, opts(
-        "bf16", J_STEPS, "train.cull", "True", *bf16))
+    opts = dict(zip(bf16_extra[::2], bf16_extra[1::2]))
+    b = int(opts.get("train.batch_size", 1))
+    _, reps16, secs16 = res["dp_bf16"]
+    check_cards("dp bf16", reps16, shared)
     for r in reps16:
+        what = f"dp bf16 rank {r['rank']}"
         check(len(r["loss"]) == J_STEPS and np.isfinite(r["loss"]).all(),
-              f"j1 bf16 rank {r['rank']}: losses {r['loss']}")
-        check(r["launches"]["min_excess2"] == J_STEPS, f"j1 bf16 rank "
-              f"{r['rank']}: K1 launched {r['launches']['min_excess2']} "
-              f"times, want {J_STEPS}")
-        check_launches(f"j1 bf16 rank {r['rank']}", r["launches"], {
-            "min_excess2": J_STEPS, f["dparf"]: J_STEPS,
-            f["fetch"]: 2 * J_STEPS, f["scatter"]: 2 * J_STEPS})
-    check(reps16[0]["loss"] == reps16[1]["loss"], "j1 bf16: the ranks' "
-          "losses differ")
+              f"{what}: losses {r['loss']}")
+        check(r["launches"]["min_excess2"] == b * J_STEPS, f"{what}: K1 "
+              f"launched {r['launches']['min_excess2']} times, want "
+              f"{b * J_STEPS} (one a sample)")
+        check_launches(what, r["launches"], {
+            "min_excess2": b * J_STEPS, f["dparf"]: b * J_STEPS,
+            f["fetch"]: 2 * b * J_STEPS, f["scatter"]: 2 * b * J_STEPS})
+    check(all(r["loss"] == reps16[0]["loss"] for r in reps16),
+          "dp bf16: the ranks' losses differ")
 
-    def steps(r):
-        return ", ".join(f"{x:.1f}" for x in r["step_ms"])
+    def per_rank(key, nd):
+        return "; ".join(f"rank {r['rank']} " + ", ".join(
+            f"{x:.{nd}f}" for x in r[key]) for r in reps16)
 
-    def reduce_ms(r):
-        return ", ".join(f"{x:.2f}" for x in r["grad_allreduce_ms"])
-
-    log(f"[j1 dp train bf16] full width, bf16, train.cull, 2 ranks x "
-        f"train.batch_size 1 sharing the card (gloo), {J_STEPS} steps in "
-        f"{secs16:.1f} s of torchrun: " + "; ".join(
-            f"rank {r['rank']} step ms {steps(r)}, gradient all-reduce ms "
-            f"{reduce_ms(r)}" for r in reps16)
-        + f"; {reps16[0]['grad_allreduce_mb']:.2f} MB a step; launches per "
+    log(f"[dp train bf16] full width, bf16, train.cull, "
+        f"{' '.join(bf16_extra)}, {n} ranks ({layout}), {J_STEPS} steps "
+        f"in a {secs16:.1f} s job: step ms {per_rank('step_ms', 1)}; "
+        f"gradient all-reduce ms {per_rank('grad_allreduce_ms', 2)} of "
+        f"{reps16[0]['grad_allreduce_mb']:.2f} MB a step; launches per "
         f"rank {[r['launches'] for r in reps16]}; losses "
-        f"{', '.join(f'{x:.4f}' for x in reps16[0]['loss'])}; two ranks on "
-        f"one card measure the wiring, not scaling  [{card}]")
+        f"{', '.join(f'{x:.4f}' for x in reps16[0]['loss'])}  [{card}]")
+    return {"dp_train": _summed(reps16)}
 
+
+def check_nccl_rank(card: str, tmp: str) -> dict:
+    """j2. One rank over NCCL (the default backend), 2 bf16 steps: the
+    NCCL group, the card's gradient all-reduce and rank 0's saves."""
+    run = os.path.join(tmp, "j2")
+    module = "transhuman_tpu_torch.cli.train"
+    f = forms("bfloat16")
     nccl_ckpt = os.path.join(run, "nccl.pth")
-    out, reps2, secs2 = torchrun("j2 nccl", 1, module, [
-        "--out", nccl_ckpt, *opts("nccl", 2, *bf16)],
-        backend="nccl")
+    _, reps2, secs2 = torchrun("j2 nccl", 1, module, [
+        "--out", nccl_ckpt, *_entry_opts(run, "nccl", 2, "compute_dtype",
+                                         "bfloat16", "train.batch_size",
+                                         "1")], backend="nccl")
     (r2,) = reps2
     latest = os.path.join(run, "nccl", "tm", "transhuman", "transhuman_tpu",
                           "latest.pth")
@@ -4227,46 +4433,70 @@ def phase_dp_train(card: str, tmp: str):
         f["dparf"]: 2, f["fetch"]: 4, f["scatter"]: 4})
     log(f"[j2 nccl] full width, bf16, 1 rank over NCCL (the default "
         f"backend), 2 steps in {secs2:.1f} s of torchrun: step ms "
-        f"{steps(r2)}; gradient all-reduce ms {reduce_ms(r2)} of "
+        f"{', '.join(f'{x:.1f}' for x in r2['step_ms'])}; gradient "
+        f"all-reduce ms "
+        f"{', '.join(f'{x:.2f}' for x in r2['grad_allreduce_ms'])} of "
         f"{r2['grad_allreduce_mb']:.2f} MB on the card; rank 0 wrote "
-        f"latest.pth and --out  [{card}]")
-    return ({"dp_train": _summed(reps16), "dp_train_nccl": r2["launches"]},
-            dp_ckpt)
+        f"latest.pth and --out; card {r2['card']}  [{card}]")
+    return {"dp_train_nccl": r2["launches"]}
 
 
-def phase_sharded_eval(card: str, tmp: str, ckpt: str) -> dict:
-    """j3. The run entry point over 2 ranks on the one card (gloo) on
-    phase j1's 2-rank checkpoint, full width: --type evaluate of 3 frames
-    (rank 0 two, rank 1 one) against a one-process evaluate of the same
-    frames in this process (the .npy files in the same order, per-frame
-    PSNR within 0.05 dB and SSIM 2e-3, every rank printing that summary);
-    --type visualize, one AVI of every frame assembled once; --type
-    reconstruction of 2 frames at RECON_VOXEL, one per rank, each PLY the
-    one-process PLY of its frame.  Returns {path: launches}."""
+def eval_jobs(run: str, backend: str, ckpt: str, eval_frames,
+              recon_frames) -> list:
+    """j3 / c2: the run entry point's evaluate, visualize and
+    reconstruction on ckpt, results under run/res2."""
+    base = ["--dist_backend", backend, "--device", "cuda", "--weights", ckpt,
+            "dataset", "synthetic", "trained_model_dir",
+            os.path.join(run, "tm"), "record_dir", os.path.join(run, "rec"),
+            "result_dir", os.path.join(run, "res2")]
+    vs = f"{RECON_VOXEL},{RECON_VOXEL},{RECON_VOXEL}"
+    return [
+        {"tag": "evaluate", "kind": "run",
+         "argv": ["--type", "evaluate", *base, *eval_frames]},
+        {"tag": "visualize", "kind": "run",
+         "argv": ["--type", "visualize", *base]},
+        {"tag": "reconstruction", "kind": "run",
+         "argv": ["--type", "reconstruction", *base, *recon_frames,
+                  "voxel_size", vs, "mesh_th", J_MESH_TH]}]
+
+
+def check_sharded_eval(card: str, res: dict, run: str, n: int, layout: str,
+                       ckpt: str, eval_frames, recon_frames,
+                       exact: bool = False) -> dict:
+    """j3 / c2.  The eval_jobs over n ranks on the n-rank checkpoint, full
+    width: --type evaluate (rank r the frames r, r + n, ...) against a
+    one-process evaluate of the same frames in this process (the .npy
+    files in the same order, per-frame PSNR within 0.05 dB and SSIM 2e-3,
+    every rank printing that summary); --type visualize, one AVI of every
+    frame assembled once; --type reconstruction, each rank its frames at
+    RECON_VOXEL, each PLY the one-process PLY of its frame.  Returns
+    {path: launches}."""
     from transhuman_tpu_torch.cli import run as run_cli
     from transhuman_tpu_torch.mesh_ops.ply import load_ply
 
-    module = "transhuman_tpu_torch.cli.run"
-    run = os.path.join(tmp, "j3")
+    shared = "sharing" in layout
     base = ["--device", "cuda", "--weights", ckpt, "dataset", "synthetic",
             "trained_model_dir", os.path.join(run, "tm"), "record_dir",
             os.path.join(run, "rec")]
-    res = {n: os.path.join(run, f"res{n}") for n in (1, 2)}
-    out_dir = {n: os.path.join(r, "epoch_-1", "debug")
-               for n, r in res.items()}
-    torch.cuda.empty_cache()
-    out, reps, secs = torchrun("j3 evaluate", 2, module, [
-        "--type", "evaluate", *base, "result_dir", res[2], *J_EVAL_FRAMES])
-    check([r["frames"] for r in reps] == [2, 1], f"j3 evaluate: frames per "
-          f"rank {[r['frames'] for r in reps]}")
+    res1 = os.path.join(run, "res1")
+    out_dir = {k: os.path.join(run, f"res{k}", "epoch_-1", "debug")
+               for k in (1, 2)}
+    out, reps, secs = res["evaluate"]
+    check_cards("sharded evaluate", reps, shared)
+    n_frames = len(range(0, 8, int(eval_frames[1])))
+    split = [len(range(r, n_frames, n)) for r in range(n)]
+    check([r["frames"] for r in reps] == split, f"sharded evaluate: frames "
+          f"per rank {[r['frames'] for r in reps]}, want {split}")
     f = forms("float32")
     for r in reps:
-        check_launches(f"j3 evaluate rank {r['rank']}", r["launches"], {
-            "min_excess2": 1, f["dparf"]: 1, f["fetch"]: 1})
-    # each rank prints the summary dict (the ranks' lines may interleave)
+        if r["frames"]:
+            check_launches(f"sharded evaluate rank {r['rank']}",
+                           r["launches"], {"min_excess2": 1, f["dparf"]: 1,
+                                           f["fetch"]: 1})
+    # each rank prints the summary dict
     summaries = re.findall(r"\{'experiment'[^}]*\}", out)
-    check(len(summaries) == 2 and summaries[0] == summaries[1],
-          f"j3 evaluate: the ranks' summaries {summaries}")
+    check(len(summaries) == n and len(set(summaries)) == 1,
+          f"sharded evaluate: the ranks' summaries {summaries}")
     timing = {}
     run_eval = run_cli.run_evaluate
 
@@ -4279,63 +4509,72 @@ def phase_sharded_eval(card: str, tmp: str, ckpt: str) -> dict:
 
     run_cli.run_evaluate = timed
     try:
-        one = run_cli.main(["--type", "evaluate", *base, "result_dir",
-                            res[1], *J_EVAL_FRAMES])
+        one = run_cli.main(["--type", "evaluate", *base, "result_dir", res1,
+                            *eval_frames])
     finally:
         run_cli.run_evaluate = run_eval
     gaps = {}
     for name in ("mse", "psnr", "ssim"):
-        a, b = (np.load(os.path.join(out_dir[n], f"{name}.npy"))
-                for n in (1, 2))
-        check(a.shape == b.shape == (3,), f"j3 evaluate: {name} {a} vs {b}")
+        a, b = (np.load(os.path.join(out_dir[k], f"{name}.npy"))
+                for k in (1, 2))
+        check(a.shape == b.shape == (n_frames,), f"sharded evaluate: {name} "
+              f"{a} vs {b}")
         gaps[name] = float(np.abs(a - b).max())
-    check(gaps["psnr"] <= 0.05 and gaps["ssim"] <= 2e-3, f"j3 evaluate: "
-          f"2 ranks vs 1 process, largest per-frame gaps {gaps}")
+    tol = (1e-9, 1e-9) if exact else (0.05, 2e-3)
+    check(gaps["psnr"] <= tol[0] and gaps["ssim"] <= tol[1] and (
+        not exact or gaps["mse"] <= 1e-9), f"sharded evaluate: {n} ranks "
+          f"vs 1 process, largest per-frame gaps {gaps}, bounds {tol}")
     check(os.path.isfile(os.path.join(out_dir[2], "summary.txt")),
-          "j3 evaluate: no summary.txt")
-    s2 = max(r["seconds"] for r in reps) / 3
-    log(f"[j3 sharded eval] full width, 512x512, 3 frames over 2 ranks "
-        f"sharing the card (2 + 1) vs 1 process: per-frame gaps (the .npy "
-        f"files in frame order; the synthetic frames are alike) mse "
-        f"{gaps['mse']:.3g}, psnr {gaps['psnr']:.3g} dB, ssim "
-        f"{gaps['ssim']:.3g}; psnr {one['psnr']:.4f}; eval s per frame "
-        f"{s2:.3f} on 2 ranks (the slower rank's loop / 3) vs "
-        f"{timing['s'] / 3:.3f} in 1 process; torchrun {secs:.1f} s; "
-        f"launches per rank {[r['launches'] for r in reps]}  [{card}]")
+          "sharded evaluate: no summary.txt")
+    sn = max(r["seconds"] for r in reps) / n_frames
+    log(f"[sharded eval] full width, 512x512, {n_frames} frames over {n} "
+        f"ranks ({layout}; {split}) vs 1 process: per-frame gaps (the .npy "
+        f"files in frame order) mse {gaps['mse']:.3g}, psnr "
+        f"{gaps['psnr']:.3g} dB, ssim {gaps['ssim']:.3g}; psnr "
+        f"{one['psnr']:.4f}; eval s per frame {sn:.3f} on {n} ranks (the "
+        f"slower rank's loop / {n_frames}) vs {timing['s'] / n_frames:.3f} "
+        f"in 1 process; job {secs:.1f} s; launches per rank "
+        f"{[r['launches'] for r in reps]}  [{card}]")
 
-    out, reps_v, secs_v = torchrun("j3 visualize", 2, module, [
-        "--type", "visualize", *base, "result_dir", res[2]])
-    n_frames = sum(r["frames"] for r in reps_v)
+    out, reps_v, secs_v = res["visualize"]
+    check_cards("sharded visualize", reps_v, shared)
+    shown = sum(r["frames"] for r in reps_v)
     avi = os.path.join(out_dir[2], "perform", "synthetic.avi")
-    check(out.count("video: ") == 1 and len(avi_frames(avi)) == n_frames,
-          f"j3 visualize: {out.count('video: ')} videos assembled, "
-          f"{avi}: {len(avi_frames(avi))} frames of {n_frames}")
-    log(f"[j3 sharded visualize] {n_frames} frames over 2 ranks "
-        f"({[r['frames'] for r in reps_v]}), one AVI of {n_frames} frames "
-        f"assembled by rank 0; torchrun {secs_v:.1f} s  [{card}]")
+    check(out.count("video: ") == 1 and len(avi_frames(avi)) == shown,
+          f"sharded visualize: {out.count('video: ')} videos assembled, "
+          f"{avi}: {len(avi_frames(avi))} frames of {shown}")
+    log(f"[sharded visualize] {shown} frames over {n} ranks "
+        f"({[r['frames'] for r in reps_v]}), one AVI of {shown} frames "
+        f"assembled by rank 0; job {secs_v:.1f} s  [{card}]")
 
+    _, reps_r, secs_r = res["reconstruction"]
+    check_cards("sharded reconstruction", reps_r, shared)
+    n_meshes = len(range(0, 8, int(recon_frames[1])))
+    split = [len(range(r, n_meshes, n)) for r in range(n)]
+    check([r["frames"] for r in reps_r] == split, f"sharded reconstruction: "
+          f"frames per rank {reps_r}, want {split}")
     vs = f"{RECON_VOXEL},{RECON_VOXEL},{RECON_VOXEL}"
-    recon = ["--type", "reconstruction", *base, *J_RECON_FRAMES,
-             "voxel_size", vs, "mesh_th", J_MESH_TH]
-    out, reps_r, secs_r = torchrun("j3 reconstruction", 2, module, [
-        *recon, "result_dir", res[2]])
-    check([r["frames"] for r in reps_r] == [1, 1],
-          f"j3 reconstruction: frames per rank {reps_r}")
-    paths = run_cli.main([*recon, "result_dir", res[1]])
+    paths = run_cli.main(["--type", "reconstruction", *base, *recon_frames,
+                          "voxel_size", vs, "mesh_th", J_MESH_TH,
+                          "result_dir", res1])
+    check(len(paths) == n_meshes, f"sharded reconstruction: one process "
+          f"wrote {paths}")
     same = []
     for p1 in paths:
         p2 = os.path.join(out_dir[2], "mesh", os.path.basename(p1))
         (v1, t1), (v2, t2) = load_ply(p1), load_ply(p2)
         check(len(v1) > 0 and v1.shape == v2.shape and np.array_equal(t1, t2)
-              and float(np.abs(v1 - v2).max()) <= 1e-6, f"j3 reconstruction: "
-              f"{p2} ({len(v2)} verts) is not the 1-process {p1} "
-              f"({len(v1)} verts)")
+              and float(np.abs(v1 - v2).max()) <= 1e-6, f"sharded "
+              f"reconstruction: {p2} ({len(v2)} verts) is not the 1-process "
+              f"{p1} ({len(v1)} verts)")
         with open(p1, "rb") as a, open(p2, "rb") as b:
             same.append(a.read() == b.read())
-    log(f"[j3 sharded reconstruction] 2 frames at {RECON_VOXEL} m, one per "
-        f"rank, mesh_th {J_MESH_TH}: each PLY the 1-process one (byte for "
-        f"byte: {same}); torchrun {secs_r:.1f} s; launches per rank "
-        f"{[r['launches'] for r in reps_r]}  [{card}]")
+    check(all(same) or not exact, f"sharded reconstruction: PLYs byte for "
+          f"byte {same}")
+    log(f"[sharded reconstruction] {n_meshes} frames at {RECON_VOXEL} m over "
+        f"{n} ranks ({split}), mesh_th {J_MESH_TH}: each PLY the 1-process "
+        f"one (byte for byte: {same}); job {secs_r:.1f} s; launches per "
+        f"rank {[r['launches'] for r in reps_r]}  [{card}]")
     return {"sharded_eval": _summed(reps)}
 
 
@@ -4346,16 +4585,18 @@ K_PROTOCOL_CUT = ["test.target_view", "3,", "test.frame_interval", "1000"]
 K_MAP_TOL = {"rgb_map": 1e-6, "acc_map": 1e-6, "depth_map": 1e-5}
 
 
-def phase_ray_render(card: str) -> dict:
-    """k1. make_sharded_render over [cuda:0, cuda:1], or [cuda:0, cuda:0]
-    on one card, on a full-width 512x512 request against one device's
+def phase_ray_render(card: str, devices) -> dict:
+    """k1 / c3. make_sharded_render over ``devices`` ([cuda:0, cuda:0] on
+    one card, cuda:0..R-1 with --cards), on a full-width 512x512 request
+    against one device's
     render_frame with the same weights: the maps within K_MAP_TOL
     (bit-equal expected), the survivor counts equal, and the launches the
     code predicts, exactly: K1 one a chunk of 512 rays, K2 one a chunk
     with survivors, K4 that plus one painting fetch in each non-empty
     share's prologue (so one more than one device's for each further
-    share).  Then the render ms at R = 1 and R = 2, in turns.  Returns the
-    sharded render's launches."""
+    share).  Then the render ms at R = 1 and R = len(devices), in turns.
+    Returns (the sharded render's launches, {R: the render ms of each
+    turn})."""
     from transhuman_tpu_torch import kernels
     from transhuman_tpu_torch.config import Config
     from transhuman_tpu_torch.data.ray_sampling import sample_eval_rays
@@ -4366,10 +4607,6 @@ def phase_ray_render(card: str) -> dict:
     from transhuman_tpu_torch.testing import synthetic_setup
 
     hw = 512
-    # two shares on one card measure the wiring (the threads, the replicas,
-    # the split and the gather), not the scaling
-    devices = [torch.device("cuda", 0),
-               torch.device("cuda", min(1, torch.cuda.device_count() - 1))]
     cfg = Config()
     _, pipe, frame, smpl, _ = synthetic_setup(image_hw=(hw, hw),
                                               device=devices[0])
@@ -4420,8 +4657,10 @@ def phase_ray_render(card: str) -> dict:
         one() if tag == 1 else sharded(req, rays)
         torch.cuda.synchronize()
         ms[tag].append((time.perf_counter() - t) * 1e3)
-    layout = ("two shares on one card: this measures the wiring, not the "
-              "scaling" if devices[0] == devices[1] else "one share a card")
+    # shares on one card measure the wiring (the threads, the replicas, the
+    # split and the gather), not the scaling
+    layout = ("shares on one card: this measures the wiring, not the "
+              "scaling" if len(set(devices)) == 1 else "one share a card")
     log(f"[k1 ray-sharded render] full width, {hw}x{hw}, {n} rays in "
         f"{chunks} chunks of {cr}, over {[str(d) for d in devices]} "
         f"({layout}): maps "
@@ -4434,13 +4673,14 @@ def phase_ray_render(card: str) -> dict:
         f"{float(np.median(ms[1])):.1f}), R={r} "
         f"{[round(x, 1) for x in ms[r]]} (median "
         f"{float(np.median(ms[r])):.1f})  [{card}]")
-    return c2
+    return c2, ms
 
 
-def phase_ray_eval(card: str, tmp: str, ckpt: str) -> dict:
-    """k2. On two cards or more, the run entry point --type evaluate with
-    mesh_axis_rays 2 against mesh_axis_rays 1: the metric files equal.  On
-    one card, the entry point's refusal with its counts, then
+def phase_ray_eval(card: str, tmp: str, ckpt: str, r: int = 2) -> dict:
+    """k2 / c3. On r cards or more, the run entry point --type evaluate
+    with mesh_axis_rays r against mesh_axis_rays 1: the metric files
+    equal.  On one card (r = 2), the entry point's refusal with its
+    counts, then
     evaluate_frames through FrameRenderer(devices=[cuda:0, cuda:0])
     against the unsharded frames: per-frame PSNR and SSIM within 1e-9.
     Full width, 512x512, phase 7's checkpoint, 2 frames.  Returns the
@@ -4459,24 +4699,28 @@ def phase_ray_eval(card: str, tmp: str, ckpt: str) -> dict:
             "dataset", "synthetic", *K_EVAL_FRAMES]
     cards = torch.cuda.device_count()
     metrics, counts = {}, {}
-    if cards >= 2:
-        for r in (1, 2):
-            res = os.path.join(run, f"res{r}")
+    if cards >= r:
+        secs = {}
+        for rr in (1, r):
+            res = os.path.join(run, f"res{rr}")
             kernels.reset_launch_counts()
+            t = time.perf_counter()
             run_cli.main([*base, "result_dir", res, "mesh_axis_rays",
-                          str(r)])
-            counts[r] = kernels.launch_counts()
+                          str(rr)])
+            secs[rr] = time.perf_counter() - t
+            counts[rr] = kernels.launch_counts()
             out_dir = os.path.join(res, "epoch_-1", "debug")
-            metrics[r] = {m: np.load(os.path.join(out_dir, f"{m}.npy"))
-                          for m in ("mse", "psnr", "ssim")}
+            metrics[rr] = {m: np.load(os.path.join(out_dir, f"{m}.npy"))
+                           for m in ("mse", "psnr", "ssim")}
         for m in metrics[1]:
-            check(np.array_equal(metrics[1][m], metrics[2][m]), f"k2: "
-                  f"{m}.npy with mesh_axis_rays 2 {metrics[2][m]} vs 1 "
+            check(np.array_equal(metrics[1][m], metrics[r][m]), f"k2: "
+                  f"{m}.npy with mesh_axis_rays {r} {metrics[r][m]} vs 1 "
                   f"{metrics[1][m]}")
-        log(f"[k2 ray-sharded evaluate] the run entry point over cuda:0 "
-            f"and cuda:1: metric files equal to mesh_axis_rays 1 "
-            f"(psnr {metrics[2]['psnr']}); launches {counts[2]}  [{card}]")
-        return counts[2]
+        log(f"[k2 ray-sharded evaluate] the run entry point over cuda:0.."
+            f"{r - 1}: metric files equal to mesh_axis_rays 1 (psnr "
+            f"{metrics[r]['psnr']}); the command {secs[r]:.2f} s vs "
+            f"{secs[1]:.2f} s at 1; launches {counts[r]}  [{card}]")
+        return counts[r]
     try:
         run_cli.main([*base, "result_dir", os.path.join(run, "refused"),
                       "mesh_axis_rays", "2"])
@@ -4780,101 +5024,115 @@ def _shard_digests(path: str, cfg, n_model: int) -> list:
     return out
 
 
-def phase_tp_train(card: str, tmp: str) -> dict:
-    """l1. The train entry point over 2 ranks sharing the card (torchrun,
-    gloo) at mesh_axis_model 2, TransHE small (embed 384, 6 heads, depth
-    12; base's positional code is NaN at embed 768 in both packages, see
-    L_VARIANT), one sample (6 x 20 x 20 patches, 64 samples a ray): one
-    float32 step against this process's one-process step on the same seeded
-    weights and sample (phase 6's bounds, the gradients from each
-    checkpoint's Adam moment), each rank's TransHE shards the saved file's
-    cut (digests); then L_STEPS bf16 steps with train.cull, each rank
-    reporting its TransHE parameter and moment bytes (the sharded leaves
-    at half), step ms, the model axis's all-reduce count and ms a step and
-    its K1, K2, K4 and K3 launches; the final --out file loaded into one
-    process holds the ranks' shards.  Returns {path: summed launches}."""
+def tp_jobs(run: str, backend: str, n_model: int, bf16: bool) -> list:
+    """l1 / c4: the train entry point at mesh_axis_model n_model, TransHE
+    L_VARIANT, one sample a data rank: one float32 step saved to
+    run/tp.pth, and (bf16) L_STEPS bf16 steps with train.cull saved to
+    run/tp16.pth."""
+    base = ("vit_variant", L_VARIANT, "train.batch_size", "1",
+            "mesh_axis_model", str(n_model))
+    flag = ["--dist_backend", backend]
+    jobs = [{"tag": "tp_f32", "kind": "train", "argv": [
+        *flag, "--out", os.path.join(run, "tp.pth"),
+        *_entry_opts(run, "tp", 1, *base)]}]
+    if bf16:
+        jobs.append({"tag": "tp_bf16", "kind": "train", "argv": [
+            *flag, "--out", os.path.join(run, "tp16.pth"),
+            *_entry_opts(run, "bf16", L_STEPS, *base, "compute_dtype",
+                         "bfloat16", "train.cull", "True")]})
+    return jobs
+
+
+def check_tp_train(card: str, res: dict, run: str, n: int, n_model: int,
+                   layout: str) -> dict:
+    """l1 / c4.  The tp_jobs over n ranks (n / n_model data indices x
+    n_model model ranks), TransHE small (embed 384, 6 heads, depth 12;
+    base's positional code is NaN at embed 768 in both packages, see
+    L_VARIANT), one sample a data index (6 x 20 x 20 patches, 64 samples a
+    ray): the float32 step against this process's one-process step at
+    train.batch_size n / n_model on the same seeded weights and samples
+    (phase 6's bounds, the gradients from each checkpoint's Adam moment),
+    every rank's loss and replicated parameters (digest) equal, each
+    rank's TransHE shards the saved file's cut (digests); then, where the
+    jobs ran them, L_STEPS bf16 steps with train.cull, each rank reporting
+    its TransHE parameter and moment bytes (the sharded leaves at 1 /
+    n_model), step ms, the model axis's all-reduce count (4 x depth) and
+    ms a step and its K1, K2, K4 and K3 launches, the final --out file's
+    cut equal to each rank's shards.  Returns {path: summed launches}."""
     from transhuman_tpu_torch.cli import train as train_cli
     from transhuman_tpu_torch.config import Config
     from transhuman_tpu_torch.models.network import TransHumanNet
     from transhuman_tpu_torch.testing import init_weights
 
-    module = "transhuman_tpu_torch.cli.train"
-    run = os.path.join(tmp, "l1")
+    shared = "sharing" in layout
+    n_data = n // n_model
     base = ("vit_variant", L_VARIANT, "train.batch_size", "1")
-
-    def opts(tag, steps, *extra):
-        return ["--device", "cuda", "--steps", str(steps), "dataset",
-                "synthetic", "ep_iter", str(steps), "train.epoch", "1",
-                "trained_model_dir", os.path.join(run, tag, "tm"),
-                "record_dir", os.path.join(run, tag, "rec"), "result_dir",
-                os.path.join(run, tag, "res"), *base, *extra]
-
     tp_ckpt, one_ckpt = (os.path.join(run, f"{t}.pth") for t in ("tp",
                                                                  "one"))
+    _, reps, secs = res["tp_f32"]
+    check_cards("tp float32", reps, shared)
     torch.cuda.empty_cache()
-    _, reps, secs = torchrun("l1 float32", 2, module, [
-        "--out", tp_ckpt, *opts("tp", 1, "mesh_axis_model", "2")])
-    _, recs = train_cli.main(["--out", one_ckpt, *opts("one", 1)])
+    _, recs = train_cli.main(["--out", one_ckpt, *_entry_opts(
+        run, "one", 1, *base[:2], "train.batch_size", str(n_data))])
     torch.cuda.empty_cache()
     cfg = Config().merge_opts(["dataset", "synthetic", *base])
     net = init_weights(TransHumanNet.from_config(cfg),
                        torch.Generator().manual_seed(cfg.seed))
-    p0 = {n: p.detach().clone() for n, p in net.named_parameters()}
+    p0 = {k: p.detach().clone() for k, p in net.named_parameters()}
     (w_tp, m_tp), (w_one, m_one) = map(_adam_step, (tp_ckpt, one_ckpt))
     names = list(p0)
     g_tp = {names[i]: g for i, g in m_tp.items()}
     g_one = {names[i]: g for i, g in m_one.items()}
     # the TP run's reduction gives the unread mask_token a zero gradient
     check(set(g_one) == set(names) - UNREAD_PARAMS and set(g_one) <= set(
-        g_tp), "l1: the parameters with a gradient differ")
-    check(reps[0]["loss"] == reps[1]["loss"], f"l1: the model ranks' losses "
-          f"differ {[r['loss'] for r in reps]}")
-    check(reps[0]["replicated_digest"] == reps[1]["replicated_digest"],
-          "l1: the model ranks' replicated parameters differ after a step")
+        g_tp), "tp: the parameters with a gradient differ")
+    check(all(r["loss"] == reps[0]["loss"] for r in reps), f"tp: the ranks' "
+          f"losses differ {[r['loss'] for r in reps]}")
+    check(len({r["replicated_digest"] for r in reps}) == 1,
+          "tp: the ranks' replicated parameters differ after a step")
     loss_tp, loss_one = reps[0]["loss"][0], recs[0]["loss"]
     lerr = abs(loss_tp - loss_one) / loss_one
-    check(lerr <= 1e-4, f"l1: loss {loss_tp} over 2 model ranks vs "
-          f"{loss_one}")
+    check(lerr <= 1e-4, f"tp: loss {loss_tp} over {n} ranks vs {loss_one}")
     rel, gerr, wt, w = f32_step_gaps(
-        "l1 TP step vs 1 process", g_tp, g_one,
-        {n: w_tp[n] - p0[n] for n in g_one},
-        {n: w_one[n] - p0[n] for n in g_one}, p0, recs[0]["lr"])
-    want = _vit_shard_bytes(net, 2)
-    digests = _shard_digests(tp_ckpt, cfg, 2)
+        "tp step vs 1 process", g_tp, g_one,
+        {k: w_tp[k] - p0[k] for k in g_one},
+        {k: w_one[k] - p0[k] for k in g_one}, p0, recs[0]["lr"])
+    want = _vit_shard_bytes(net, n_model)
+    digests = _shard_digests(tp_ckpt, cfg, n_model)
     for r in reps:
-        check(r["vit_param_bytes"] == want["bytes"], f"l1 rank {r['rank']}: "
+        check(r["vit_param_bytes"] == want["bytes"], f"tp rank {r['rank']}: "
               f"TransHE holds {r['vit_param_bytes']} B, want {want['bytes']}")
-        check(r["vit_digest"] == digests[r["model_rank"]], f"l1 rank "
+        check(r["vit_digest"] == digests[r["model_rank"]], f"tp rank "
               f"{r['rank']}: its TransHE shards are not the saved file's cut")
         check(r["model_allreduce_count"] == [4 * cfg.vit_depth],
-              f"l1 rank {r['rank']}: {r['model_allreduce_count']} model "
+              f"tp rank {r['rank']}: {r['model_allreduce_count']} model "
               f"all-reduces, want 4 x depth {cfg.vit_depth}")
     whole = sum(p.numel() * 4 for p in net.ViT.parameters())
-    log(f"[l1 tp train] TransHE {L_VARIANT} (embed {net.embed_dim}, "
+    log(f"[tp train] TransHE {L_VARIANT} (embed {net.embed_dim}, "
         f"{net.ViT.num_heads} heads, depth {cfg.vit_depth}), float32, "
-        f"2 model ranks sharing the card (gloo) vs 1 process, one sample: "
-        f"loss {loss_tp:.7g} vs {loss_one:.7g} (rel {lerr:.3g}); max "
-        f"gradient err {gerr:.3g} of its leaf's norm; worst error/tolerance "
-        f"{rel[0][0]:.3g} ({rel[0][1]}); update err beyond rounding "
-        f"{wt:.3g} where the sign is sure, {w:.3g} anywhere; TransHE bytes "
-        f"a rank {reps[0]['vit_param_bytes']} of {whole} "
-        f"({len(want['sharded'])} leaves at half), moments {reps[0]['vit_moment_bytes']}; step ms "
+        f"{n_data} data x {n_model} model ranks ({layout}) vs 1 process x "
+        f"{n_data}: loss {loss_tp:.7g} vs {loss_one:.7g} (rel {lerr:.3g}); "
+        f"max gradient err {gerr:.3g} of its leaf's norm; worst "
+        f"error/tolerance {rel[0][0]:.3g} ({rel[0][1]}); update err beyond "
+        f"rounding {wt:.3g} where the sign is sure, {w:.3g} anywhere; "
+        f"TransHE bytes a rank {reps[0]['vit_param_bytes']} of {whole} "
+        f"({len(want['sharded'])} leaves at 1/{n_model}), moments "
+        f"{reps[0]['vit_moment_bytes']}; step ms "
         f"{[round(r['step_ms'][0], 1) for r in reps]}; model all-reduces "
         f"{reps[0]['model_allreduce_count'][0]} in "
         f"{[round(r['model_allreduce_ms'][0], 2) for r in reps]} ms; the "
-        f"replicated parameters bit-equal on both ranks; torchrun "
-        f"{secs:.1f} s  [{card}]")
+        f"replicated parameters bit-equal on every rank; job {secs:.1f} s; "
+        f"cards {[r['card']['index'] for r in reps]}  [{card}]")
+    if "tp_bf16" not in res:
+        return {f"tp_train_{n_data}x{n_model}": _summed(reps)}
 
     f = forms("bfloat16")
-    tp16 = os.path.join(run, "tp16.pth")
-    _, reps16, secs16 = torchrun("l1 bf16", 2, module, [
-        "--out", tp16, *opts("bf16", L_STEPS, "mesh_axis_model", "2",
-                             "compute_dtype", "bfloat16", "train.cull",
-                             "True")])
+    _, reps16, secs16 = res["tp_bf16"]
+    check_cards("tp bf16", reps16, shared)
     cfg16 = cfg.merge_opts(["compute_dtype", "bfloat16"])
-    digests = _shard_digests(tp16, cfg16, 2)
+    digests = _shard_digests(os.path.join(run, "tp16.pth"), cfg16, n_model)
     for r in reps16:
-        what = f"l1 bf16 rank {r['rank']}"
+        what = f"tp bf16 rank {r['rank']}"
         check(len(r["loss"]) == L_STEPS and np.isfinite(r["loss"]).all(),
               f"{what}: losses {r['loss']}")
         check_launches(what, r["launches"], {
@@ -4890,10 +5148,10 @@ def phase_tp_train(card: str, tmp: str) -> dict:
               f"{r['vit_moment_bytes']} B")
         check(r["vit_digest"] == digests[r["model_rank"]],
               f"{what}: its shards are not the saved file's cut")
-    check(reps16[0]["loss"] == reps16[1]["loss"], "l1 bf16: the ranks' "
-          "losses differ")
-    check(reps16[0]["replicated_digest"] == reps16[1]["replicated_digest"],
-          f"l1 bf16: the model ranks' replicated parameters differ after "
+    check(all(r["loss"] == reps16[0]["loss"] for r in reps16),
+          "tp bf16: the ranks' losses differ")
+    check(len({r["replicated_digest"] for r in reps16}) == 1,
+          f"tp bf16: the ranks' replicated parameters differ after "
           f"{L_STEPS} steps")
 
     def per_rank(key, nd):
@@ -4901,11 +5159,10 @@ def phase_tp_train(card: str, tmp: str) -> dict:
                          + ", ".join(f"{x:.{nd}f}" for x in r[key])
                          for r in reps16)
 
-    log(f"[l1 tp train bf16] TransHE {L_VARIANT}, bf16, train.cull, 2 "
-        f"model ranks sharing the card (gloo), {L_STEPS} steps in "
-        f"{secs16:.1f} s of "
-        f"torchrun: step ms {per_rank('step_ms', 1)}; the gradient "
-        f"all-reduces (replicated leaves over both ranks) ms "
+    log(f"[tp train bf16] TransHE {L_VARIANT}, bf16, train.cull, {n_data} "
+        f"data x {n_model} model ranks ({layout}), {L_STEPS} steps in a "
+        f"{secs16:.1f} s job: step ms {per_rank('step_ms', 1)}; the "
+        f"gradient all-reduces (replicated leaves) ms "
         f"{per_rank('grad_allreduce_ms', 2)} of "
         f"{reps16[0]['grad_allreduce_mb']:.2f} MB; model all-reduces "
         f"{reps16[0]['model_allreduce_count']} a step in ms "
@@ -4913,7 +5170,7 @@ def phase_tp_train(card: str, tmp: str) -> dict:
         f"rank of {whole}, moments {reps16[0]['vit_moment_bytes']} B; "
         f"launches per rank {[r['launches'] for r in reps16]}; the saved "
         f"file's cut equals each rank's shards, the replicated parameters "
-        f"bit-equal on both ranks  [{card}]")
+        f"bit-equal on every rank  [{card}]")
     return {"tp_train_bf16": _summed(reps16)}
 
 
@@ -4954,69 +5211,62 @@ def _timed_passes(fn, iters: int = L_PP_ITERS) -> list:
     return out
 
 
-def pp_worker(out_dir: str):
-    """One rank of phase l2 (``chip_smoke.py --pp-worker DIR`` under
-    torchrun): the pipelined TransHE on cuda:0 over a gloo ('pipe',)
-    mesh, its output and this stage's gradients saved to DIR, its forward
-    and forward + backward ms."""
+def _pp_job(job, world):
+    """A ``--dist-worker`` job: the pipelined TransHE of phase l2 over
+    job['stages'] stages (a ('copy', 'pipe') mesh: world / stages copies of
+    the pipeline, each on ranks of its own) on this rank's card, its output
+    and its stage's gradients saved to job['out']/pp_<rank>.pt, its forward
+    and forward + backward ms reported."""
     from transhuman_tpu_torch.cli.common import rank_report
-    from transhuman_tpu_torch.parallel import (init_distributed, make_mesh,
-                                               make_pp_mesh, pp, shutdown)
+    from transhuman_tpu_torch.parallel import make_process_mesh, pp
 
-    dev = torch.device("cuda", 0)
-    torch.cuda.set_device(dev)
-    phase_device()
-    init_distributed("gloo")
-    try:
-        mesh = make_pp_mesh(L_PP["stages"])
-        net, tok, pe, tgt = pp_model(dev)
-        apply = pp.make_pp_vit_apply(net, mesh, L_PP["micro"])
-        params = pp.shard_pp_params(mesh, pp.stack_block_params(
-            net.state_dict(), L_PP["stages"]))
-        leaves = [*params["stages"].values(), params["mask_token"],
-                  *params["norm"].values()]
+    stages = job["stages"]
+    mesh = make_process_mesh(("copy", "pipe"), (world.size // stages,
+                                                stages))
+    dev = _card()
+    net, tok, pe, tgt = pp_model(dev)
+    apply = pp.make_pp_vit_apply(net, mesh, L_PP["micro"])
+    params = pp.shard_pp_params(mesh, pp.stack_block_params(
+        net.state_dict(), stages))
+    leaves = [*params["stages"].values(), params["mask_token"],
+              *params["norm"].values()]
+    for t in leaves:
+        t.requires_grad_()
+
+    def step():
         for t in leaves:
-            t.requires_grad_()
+            t.grad = None
+        y = apply(params, tok, pe)
+        ((y - tgt) ** 2).mean().backward()
+        return y
 
-        def step():
-            for t in leaves:
-                t.grad = None
-            y = apply(params, tok, pe)
-            ((y - tgt) ** 2).mean().backward()
-            return y
-
-        y = step().detach()
-        grads = pp.unstack_block_params(
-            {"stages": {k: v.grad for k, v in params["stages"].items()},
-             "mask_token": params["mask_token"].grad,
-             "norm": {k: v.grad for k, v in params["norm"].items()}},
-            mesh["pipe"].rank)
-        with torch.no_grad():
-            fwd = _timed_passes(lambda: apply(params, tok, pe))
-        both = _timed_passes(step)
-        rank = mesh["pipe"].rank
-        torch.save({"y": y.cpu(), "grads": {k: (v.cpu() if v is not None
-                                                else None)
-                                            for k, v in grads.items()}},
-                   os.path.join(out_dir, f"pp_{rank}.pt"))
-        rank_report(make_mesh(), forward_ms=fwd, step_ms=both)
-    finally:
-        shutdown()
+    y = step().detach()
+    stage = mesh["pipe"].rank
+    grads = pp.unstack_block_params(
+        {"stages": {k: v.grad for k, v in params["stages"].items()},
+         "mask_token": params["mask_token"].grad,
+         "norm": {k: v.grad for k, v in params["norm"].items()}}, stage)
+    with torch.no_grad():
+        fwd = _timed_passes(lambda: apply(params, tok, pe))
+    both = _timed_passes(step)
+    torch.save({"y": y.cpu(), "stage": stage,
+                "grads": {k: (v.cpu() if v is not None else None)
+                          for k, v in grads.items()}},
+               os.path.join(job["out"], f"pp_{world.rank}.pt"))
+    rank_report(world, stage=stage, forward_ms=fwd, step_ms=both)
 
 
-def phase_pp(card: str, tmp: str) -> dict:
-    """l2. The pipelined TransHE on the card: 2 gloo ranks on cuda:0
-    (``chip_smoke.py --pp-worker`` under torchrun), TransHE base (3 views x
-    300 tokens x 768, 12 heads, depth 12) over 2 stages in 3 microbatches,
-    against the unpipelined module in this process on the same seeded
-    weights: every rank's output within 1e-5, each block's gradient from
-    its stage and mask_token's and norm's from each rank within 2e-6 (the
-    CPU tests' bounds); the forward and forward + backward ms of both."""
-    out_dir = os.path.join(tmp, "l2")
-    os.makedirs(out_dir, exist_ok=True)
-    torch.cuda.empty_cache()
-    _, reps, secs = torchrun("l2 pp", 2, os.path.join(ROOT, "chip_smoke.py"),
-                             ["--pp-worker", out_dir])
+def pp_jobs(run: str, stages: int) -> list:
+    out = os.path.join(run, f"pp{stages}")
+    os.makedirs(out, exist_ok=True)
+    return [{"tag": f"pp{stages}", "kind": "pp", "stages": stages,
+             "out": out}]
+
+
+def pp_reference() -> tuple:
+    """The unpipelined TransHE of phase l2 on this process's card: (its
+    output and gradients on the CPU, its forward ms and forward + backward
+    ms)."""
     net, tok, pe, tgt = pp_model(torch.device("cuda"))
 
     def step():
@@ -5025,49 +5275,107 @@ def phase_pp(card: str, tmp: str) -> dict:
         ((y - tgt) ** 2).mean().backward()
         return y
 
-    y_ref = step().detach()
-    g_ref = {n: p.grad for n, p in net.named_parameters()}
+    y_ref = step().detach().cpu()
+    g_ref = {k: (p.grad.cpu() if p.grad is not None else None)
+             for k, p in net.named_parameters()}
     with torch.no_grad():
         fwd = _timed_passes(lambda: net(tok, pe))
-    both = _timed_passes(step)
-    per = L_PP["depth"] // L_PP["stages"]
+    return y_ref, g_ref, fwd, _timed_passes(step)
+
+
+def check_pp(card: str, res: dict, run: str, stages: int, n: int,
+             layout: str, ref: tuple) -> dict:
+    """l2 / c4.  The pipelined TransHE base (3 views x 300 tokens x 768,
+    12 heads, depth 12) over ``stages`` stages in 3 microbatches on n ranks
+    (n / stages copies), against the unpipelined module (``ref``, this
+    process) on the same seeded weights: every rank's output within 1e-5,
+    each block's gradient from its stage and mask_token's and norm's from
+    each rank within 2e-6 (the CPU tests' bounds); the forward and forward
+    + backward ms of both."""
+    y_ref, g_ref, fwd, both = ref
+    _, reps, secs = res[f"pp{stages}"]
+    check_cards(f"pp {stages} stages", reps, "sharing" in layout)
+    per = L_PP["depth"] // stages
     y_err = g_err = 0.0
     seen = set()
-    for r in range(L_PP["stages"]):
-        got = torch.load(os.path.join(out_dir, f"pp_{r}.pt"),
+    for r in range(n):
+        got = torch.load(os.path.join(run, f"pp{stages}", f"pp_{r}.pt"),
                          weights_only=False)
-        y_err = max(y_err, float((got["y"] - y_ref.cpu()).abs().max()))
+        s = got["stage"]
+        y_err = max(y_err, float((got["y"] - y_ref).abs().max()))
         for k, v in got["grads"].items():
             if k.startswith("blocks."):
-                check(int(k.split(".")[1]) // per == r, f"l2: rank {r} holds "
-                      f"the gradient of {k}")
+                check(int(k.split(".")[1]) // per == s, f"pp: stage {s} "
+                      f"holds the gradient of {k}")
                 seen.add(k)
-            want = g_ref[k].cpu() if g_ref[k] is not None else None
+            want = g_ref[k]
             if want is None:
-                check(v is None or not v.any(), f"l2: {k} has a gradient")
+                check(v is None or not v.any(), f"pp: {k} has a gradient")
                 continue
             g_err = max(g_err, float((v - want).abs().max()))
     check(seen == {k for k in g_ref if k.startswith("blocks.")},
-          "l2: the stages' gradients do not cover every block")
+          "pp: the stages' gradients do not cover every block")
     check(y_err <= L_PP_ATOL and g_err <= L_PP_GRAD_ATOL,
-          f"l2: pipelined vs unpipelined output err {y_err} (bound "
+          f"pp: pipelined vs unpipelined output err {y_err} (bound "
           f"{L_PP_ATOL}), gradient err {g_err} (bound {L_PP_GRAD_ATOL})")
 
     def ms(xs):
         return ", ".join(f"{x:.2f}" for x in xs)
 
-    log(f"[l2 pp] TransHE base (3 x 300 x 768, 12 heads, depth 12), "
-        f"float32, 2 stages x 3 microbatches on 2 gloo ranks sharing the "
-        f"card vs the unpipelined module: output err {y_err:.3g}, gradient "
-        f"err {g_err:.3g}; pipelined forward ms "
+    log(f"[pp] TransHE base (3 x 300 x 768, 12 heads, depth 12), float32, "
+        f"{stages} stages x {L_PP['micro']} microbatches on {n} ranks "
+        f"({layout}) vs the unpipelined module: output err {y_err:.3g}, "
+        f"gradient err {g_err:.3g}; pipelined forward ms "
         + "; ".join(f"rank {r['rank']} {ms(r['forward_ms'])}" for r in reps)
         + ", forward + backward ms "
         + "; ".join(f"rank {r['rank']} {ms(r['step_ms'])}" for r in reps)
         + f"; unpipelined forward ms {ms(fwd)}, forward + backward ms "
-        f"{ms(both)}; torchrun {secs:.1f} s  [{card}]")
-    return {"pp": {"forward_ms": [r["forward_ms"] for r in reps],
-                   "step_ms": [r["step_ms"] for r in reps],
-                   "plain_forward_ms": fwd, "plain_step_ms": both}}
+        f"{ms(both)}; job {secs:.1f} s  [{card}]")
+    return {f"pp{stages}": {
+        "forward_ms": [r["forward_ms"] for r in reps],
+        "step_ms": [r["step_ms"] for r in reps],
+        "plain_forward_ms": fwd, "plain_step_ms": both}}
+
+
+J_BF16 = ("train.batch_size", "1")  # j1's bf16 run: one sample a rank
+
+
+def jl_jobs(run: str) -> list:
+    """phase_ranks' jobs, in order, for 2 gloo ranks, under run: j1's
+    train runs, j3's evaluate, visualize and reconstruction on j1's
+    checkpoint, l1's tensor-parallel runs and l2's pipeline."""
+    return (dp_jobs(run, "gloo", J_BF16)
+            + eval_jobs(run, "gloo", os.path.join(run, "dp.pth"),
+                        J_EVAL_FRAMES, J_RECON_FRAMES)
+            + tp_jobs(os.path.join(run, "tp"), "gloo", 2, True)
+            + pp_jobs(run, L_PP["stages"]))
+
+
+def phase_ranks(card: str, tmp: str) -> dict:
+    """j and l (after l0): one torchrun of 2 gloo ranks sharing the card
+    runs j1's float32 and bf16 train runs, j3's evaluate, visualize and
+    reconstruction on j1's checkpoint, l1's tensor-parallel runs and l2's
+    pipeline, in one process group (one start-up for all, each job started
+    on both ranks together with the launch counters reset); then j2's one
+    NCCL rank; each held against this process as the phases' docstrings
+    say.  Two ranks on one card measure the wiring, not the scaling.
+    Returns {path: launches}."""
+    run = os.path.join(tmp, "jl")
+    layout = "gloo, sharing the card"
+    jobs = jl_jobs(run)
+    torch.cuda.empty_cache()
+    res = dist_jobs("j+l", 2, "gloo", jobs, tmp, JL_TIMEOUT)
+    log(f"[j+l] {len(jobs)} jobs over 2 gloo ranks sharing the card in one "
+        f"torchrun of {res[None]:.1f} s  [{card}]")
+    by_path = check_dp_train(card, res, run, 2, layout, J_BF16)
+    by_path.update(check_nccl_rank(card, tmp))
+    by_path.update(check_sharded_eval(card, res, run, 2, layout,
+                                      os.path.join(run, "dp.pth"),
+                                      J_EVAL_FRAMES, J_RECON_FRAMES))
+    by_path.update(check_tp_train(card, res, os.path.join(run, "tp"), 2, 2,
+                                  layout))
+    check_pp(card, res, run, L_PP["stages"], 2, layout, pp_reference())
+    return by_path
 
 
 # ------------------------------------------ frame formats, torchrun rays
@@ -5525,18 +5833,478 @@ def phase_int8(card: str, tmp: str) -> dict:
     return {"render_int8": counts, "train_nonpatch": train_counts}
 
 
+# ------------------------------------------------ several cards (--cards N)
+C_TIMEOUT = 1200  # s for the one torchrun of N NCCL ranks, every job in it
+C2_TIMEOUT = 600  # s for each torchrun of 2 NCCL ranks
+C_BF16 = ("train.batch_size", "2", "train.accum_steps", "2", "remat", "True")
+C_EVAL_FRAMES = ("test.frame_interval", "1")  # every frame of the 8
+C_RECON_FRAMES = ("test.frame_interval", "2")  # frames 0, 2, 4, 6
+
+
+def dp_figures(card: str, res: dict, n: int) -> dict:
+    """c2's figures from the entry points' rank reports over n ranks: each
+    rank's step ms (float32: its one step; bf16: the median of the steps
+    after the first), its gradient all-reduce ms (alike) and MB a step,
+    and the evaluate's seconds a frame."""
+    def rest(xs):
+        return float(np.median(xs[1:] if len(xs) > 1 else xs))
+
+    figs = {}
+    for tag in ("dp_f32", "dp_bf16"):
+        reps = res[tag][1]
+        figs[tag] = {"step_ms": [rest(r["step_ms"]) for r in reps],
+                     "allreduce_ms": [rest(r["grad_allreduce_ms"])
+                                      for r in reps],
+                     "allreduce_mb": reps[0]["grad_allreduce_mb"]}
+    reps = res["evaluate"][1]
+    figs["eval_s_per_frame"] = [r["seconds"] / max(r["frames"], 1)
+                                for r in reps]
+    log(f"[c2 figures] {n} NCCL ranks, one a card: {json.dumps(figs)}  "
+        f"[{card}]")
+    return figs
+
+
+def phase_cards_kernels(card: str, n: int) -> dict:
+    """c1. Every kernel form on every card at once, one host thread a card
+    (each under its own device guard): K1 (min_excess2 at the serve
+    chunk, its bias form at the train sample's points), K2 (dparf at the
+    serve chunk and the train shape, dparf_bf16 at the serve chunk), K3
+    (dfeat_scatter and its bf16 form at the train pixel and painting
+    shapes), K4 (feature_sample f32 at the serve chunk and painting
+    shapes, bf16 and int8 at the serve chunk).  The inputs are made once
+    on card 0 from seeds and copied to each card.  Each card's outputs
+    equal card 0's bit for bit, each on its own card; every wrapper
+    launched once a card a form; card 0 within phase 3's bounds of the
+    plain versions (bf16 forms: the float32 form's bits, cast)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from transhuman_tpu_torch import kernels
+    from transhuman_tpu_torch.kernels import cull, dparf, gather, scatter
+    from transhuman_tpu_torch.kernels.gather import _bilinear_w4, _sample_taps
+    from transhuman_tpu_torch.ops.sampling import project_points
+    from transhuman_tpu_torch.testing import synthetic_scene
+    from transhuman_tpu_torch.tools.kernel_ab import N_TRAIN, phase3_inputs
+
+    d0 = torch.device("cuda", 0)
+    bf16, k, image = torch.bfloat16, 7, (512, 512)
+    hw = image[0] * image[1]
+    pts, verts, centers, rot, tokens = phase3_inputs(d0, N_CHUNK)
+    pts_t = phase3_inputs(d0, N_TRAIN)[0]
+    zeros = torch.zeros(verts.shape[0], device=d0)
+    bias2 = torch.from_numpy(seeded_radii() ** 2).to(d0)
+    frame, _, _ = synthetic_scene(image_hw=image)
+    cams = [t.to(d0) for t in (frame.K, frame.R, frame.T)]
+    uv_chunk = project_points(pts, *cams)[0].contiguous()
+    uv_verts = project_points(frame.verts_world.to(d0), *cams)[0].contiguous()
+    uv_train = project_points(pts_t, *cams)[0].contiguous()
+    g = torch.Generator(d0).manual_seed(28)
+    pixel = torch.randn((3, *image, 384), generator=g, device=d0)
+    holder = torch.randn((3, *image, 192), generator=g, device=d0)
+    q = torch.randint(-127, 128, (3, *image, 384), generator=g, device=d0,
+                      dtype=torch.int8)
+    scale = torch.rand(384, generator=g, device=d0) * 0.02
+
+    def taps(uv, c):
+        _, _, base, wx, wy, dx, dy = _sample_taps((3, *image, c), uv, image)
+        return base.to(torch.int32).contiguous(), \
+            _bilinear_w4(wx, wy).contiguous(), dx, dy
+
+    ids_p, w4_p, dx, dy = taps(uv_train, 384)
+    ids_v, w4_v, _, _ = taps(uv_verts, 192)
+    g_pix = torch.randn((3, N_TRAIN, 384), generator=g, device=d0)
+    g_paint = torch.randn((3, verts.shape[0], 192), generator=g, device=d0)
+    tok16 = tokens.to(bf16)
+    forms_ = {
+        "K1 chunk": (cull.min_excess2_cuda, (pts, verts, zeros)),
+        "K1 bias, train sample": (cull.min_excess2_cuda,
+                                  (pts_t, verts, bias2)),
+        "K2 chunk": (dparf.dparf_cuda, (pts, centers, rot, tokens, k)),
+        "K2 train": (dparf.dparf_cuda, (pts_t, centers, rot, tokens, k)),
+        "K2 bf16 chunk": (dparf.dparf_bf16_cuda,
+                          (pts, centers, rot, tok16, k)),
+        "K3 pixel": (scatter.dfeat_scatter_cuda,
+                     (ids_p, g_pix, w4_p, hw, dx, dy)),
+        "K3 paint": (scatter.dfeat_scatter_cuda,
+                     (ids_v, g_paint, w4_v, hw, dx, dy)),
+        "K3 bf16 pixel": (scatter.dfeat_scatter_bf16_cuda,
+                          (ids_p, g_pix.to(bf16), w4_p, hw, dx, dy)),
+        "K3 bf16 paint": (scatter.dfeat_scatter_bf16_cuda,
+                          (ids_v, g_paint.to(bf16), w4_v, hw, dx, dy)),
+        "K4 chunk": (gather.feature_sample_cuda, (pixel, uv_chunk, image)),
+        "K4 paint": (gather.feature_sample_cuda, (holder, uv_verts, image)),
+        "K4 bf16 chunk": (gather.feature_sample_bf16_cuda,
+                          (pixel.to(bf16), uv_chunk, image)),
+        "K4 int8 chunk": (gather.feature_sample_int8_cuda,
+                          (q, uv_chunk, image, scale)),
+    }
+    devs = [torch.device("cuda", i) for i in range(n)]
+
+    def moved(args, dev):
+        return tuple(a.to(dev) if isinstance(a, torch.Tensor) else a
+                     for a in args)
+
+    args = {i: {name: moved(a, devs[i]) for name, (_, a) in forms_.items()}
+            for i in range(n)}
+    torch.cuda.synchronize(d0)
+
+    def on_card(i):
+        with torch.cuda.device(devs[i]):
+            got = {name: fn(*args[i][name]) for name, (fn, _) in
+                   forms_.items()}
+            torch.cuda.synchronize()
+            return got
+
+    kernels.reset_launch_counts()
+    t = time.perf_counter()
+    with ThreadPoolExecutor(n, thread_name_prefix="card") as pool:
+        outs = [f.result() for f in [pool.submit(on_card, i)
+                                     for i in range(n)]]
+    secs = time.perf_counter() - t
+    counts = kernels.launch_counts()
+
+    def flat(x):
+        return list(x) if isinstance(x, tuple) else [x]
+
+    for name in forms_:
+        for i in range(n):
+            for a, b in zip(flat(outs[i][name]), flat(outs[0][name])):
+                check(a.device == devs[i], f"c1 {name}: card {i}'s output "
+                      f"lies on {a.device}")
+                check(torch.equal(a.to(d0), b), f"c1 {name}: card {i}'s "
+                      f"output is not card 0's bit for bit")
+    per = {}
+    for fn, _ in forms_.values():
+        per[fn.__name__] = per.get(fn.__name__, 0) + n
+    want = dict.fromkeys(counts, 0)
+    names = {"min_excess2_cuda": "min_excess2", "dparf_cuda": "dparf",
+             "dparf_bf16_cuda": "dparf_bf16",
+             "dfeat_scatter_cuda": "dfeat_scatter",
+             "dfeat_scatter_bf16_cuda": "dfeat_scatter_bf16",
+             "feature_sample_cuda": "feature_gather",
+             "feature_sample_bf16_cuda": "feature_sample_bf16",
+             "feature_sample_int8_cuda": "feature_sample_int8"}
+    for fn, c in per.items():
+        want[names[fn]] += c
+    check(counts == want, f"c1: launches {counts}, want {want} (each form "
+          f"once a card)")
+
+    # card 0 against the plain versions, phase 3's bounds
+    o = outs[0]
+    errs = {}
+    for tag, (p, b2) in (("K1 chunk", (pts, zeros)),
+                         ("K1 bias, train sample", (pts_t, bias2))):
+        want1 = cull.min_excess2_plain(p, verts, b2)
+        errs[tag] = float((o[tag] - want1).abs().max())
+        check(errs[tag] <= 1e-4, f"c1 {tag}: max err {errs[tag]}")
+    # K2 against its plain twin where phase 3 holds it (the serve chunk),
+    # at phase 3's bounds; the train shape's gaps logged beside them
+    gaps2 = {}
+    for tag, p in (("K2 chunk", pts), ("K2 train", pts_t)):
+        tk, pe, dist_, idx, w = o[tag]
+        tp, pp_, dp, ip, wp = dparf.dparf_plain(p, centers, rot, tokens, k)
+        ok = ~knn_near_ties(p, centers, k)
+        gaps2[tag] = g2 = {
+            "tok": float((tk - tp)[:, ok].abs().max()),
+            "dist": float((dist_ - dp).abs().max()),
+            "idx_differ": int((idx.long() != ip)[ok].sum()),
+            "w": float((w - wp)[ok].abs().max()),
+            "pe": float((pe - pp_)[ok].abs().max()),
+            "ties": float((~ok).float().mean())}
+        errs[tag] = g2["tok"]
+        if tag == "K2 chunk":
+            check(g2["tok"] <= 1e-4 and g2["dist"] <= 1e-5
+                  and g2["idx_differ"] == 0 and g2["w"] <= 1e-5
+                  and g2["pe"] <= 5e-4 and g2["ties"] < 0.05,
+                  f"c1 {tag}: against its plain twin off ties {g2}")
+        del tp, pp_, dp, ip, wp
+    want2 = dparf.dparf_cuda(pts, centers, rot, tok16.float(), k)
+    got2 = o["K2 bf16 chunk"]
+    check(torch.equal(got2[0], want2[0].to(bf16)) and all(
+        torch.equal(a, b) for a, b in zip(got2[1:], want2[1:])),
+          "c1 K2 bf16: not the float32 form's bits")
+    for tag, (ids, gg, w4) in (("K3 pixel", (ids_p, g_pix, w4_p)),
+                               ("K3 paint", (ids_v, g_paint, w4_v))):
+        want3 = scatter.dfeat_scatter_plain(ids, gg, w4, hw, dx, dy)
+        errs[tag] = float((o[tag] - want3).abs().max())
+        sc = float(want3.abs().max())
+        check(errs[tag] <= 1e-4 + 1e-5 * sc, f"c1 {tag}: max err "
+              f"{errs[tag]} of {sc}")
+        del want3
+        check(torch.equal(o[f"K3 bf16 {tag[3:]}"], scatter.dfeat_scatter_cuda(
+            ids, gg.to(bf16).float(), w4, hw, dx, dy).to(bf16)),
+              f"c1 K3 bf16 {tag[3:]}: not the float32 form's map, cast")
+    for tag, (fmap, uv) in (("K4 chunk", (pixel, uv_chunk)),
+                            ("K4 paint", (holder, uv_verts))):
+        want4 = gather.feature_sample_plain(fmap, uv, image)
+        errs[tag] = float((o[tag] - want4).abs().max())
+        sc = float(fmap.abs().max())
+        check(errs[tag] <= 1e-6 * sc + 1e-7, f"c1 {tag}: max err "
+              f"{errs[tag]} of {sc}")
+    check(torch.equal(o["K4 bf16 chunk"], gather.feature_sample_cuda(
+        pixel.to(bf16).float(), uv_chunk, image).to(bf16)),
+          "c1 K4 bf16: not the float32 form's rows, cast")
+    check(torch.equal(o["K4 int8 chunk"], gather.feature_sample_int8_plain(
+        q, uv_chunk, image, scale)), "c1 K4 int8: not its plain twin's bits")
+    torch.cuda.synchronize(d0)
+    log(f"[c1 kernels on every card] {len(forms_)} forms on cards "
+        f"0..{n - 1} at once, one thread a card, in {secs:.2f} s: every "
+        f"card's outputs card 0's bit for bit, each on its own card; "
+        f"launches {counts}; card 0 against the plain versions: "
+        + ", ".join(f"{t} {e:.3g}" for t, e in errs.items())
+        + f"; K2's gaps to its plain twin {gaps2}; the bf16 forms the "
+        f"float32 forms' bits, int8 its twin's  [{card}]")
+    del args, outs
+    torch.cuda.empty_cache()
+    return counts
+
+
+def check_ray_serve(card: str, r: int) -> dict:
+    """c3. One 512x512 request through RenderServer (HTTP on loopback) of
+    a RenderService at mesh_axis_rays r (cards 0..r-1) against the same
+    request rendered by RenderService at mesh_axis_rays 1: rgb, depth and
+    acc within K_MAP_TOL (bit-equal expected); K1, K2 and K4 launched.
+    Returns the request's launches."""
+    from transhuman_tpu_torch import kernels
+    from transhuman_tpu_torch.config import Config
+    from transhuman_tpu_torch.serve import RenderServer, RenderService
+    from transhuman_tpu_torch.testing import synthetic_setup
+
+    hw = 512
+    _, pipe, frame, smpl, _ = synthetic_setup(image_hw=(hw, hw),
+                                              device=torch.device("cuda", 0))
+    req = _request(frame, 1, hw)
+    want = RenderService(Config(), pipe, smpl).render(req)
+    svc = RenderService(Config().merge_opts(["mesh_axis_rays", str(r)]),
+                        pipe, smpl)
+    check(svc.renderer.devices == [torch.device("cuda", i) for i in range(r)],
+          f"c3 serve: devices {svc.renderer.devices}")
+    server = RenderServer(svc, host="127.0.0.1", port=0)
+    server.start()
+    try:
+        buf = io.BytesIO()
+        np.savez(buf, **req)
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        resp = urllib.request.urlopen(urllib.request.Request(
+            f"http://127.0.0.1:{server.port}/render", data=buf.getvalue()),
+            timeout=300)
+        body = resp.read()
+        lat = (time.perf_counter() - t0) * 1e3
+        counts = kernels.launch_counts()
+    finally:
+        server.shutdown()
+    check(resp.status == 200, f"c3 serve: HTTP {resp.status}")
+    got = dict(np.load(io.BytesIO(body)))
+    errs = {k: float(np.abs(got[k] - want[k]).max())
+            for k in ("rgb", "acc", "depth")}
+    tol = {"rgb": K_MAP_TOL["rgb_map"], "acc": K_MAP_TOL["acc_map"],
+           "depth": K_MAP_TOL["depth_map"]}
+    check(all(errs[k] <= tol[k] for k in errs) and want["acc"].max() > 0.5,
+          f"c3 serve at mesh_axis_rays {r}: maps against R = 1 {errs}")
+    f = forms("float32")
+    check_launches(f"c3 serve at mesh_axis_rays {r}", counts,
+                   {"min_excess2": 1, f["dparf"]: 1, f["fetch"]: r})
+    log(f"[c3 ray-sharded serve] one {hw}x{hw} POST /render at "
+        f"mesh_axis_rays {r} (cards 0..{r - 1}): latency {lat:.1f} ms; maps "
+        f"against mesh_axis_rays 1 {errs} "
+        f"({'bit-equal' if max(errs.values()) == 0 else 'not bit-equal'}); "
+        f"launches {counts}  [{card}]")
+    return counts
+
+
+def check_rays_test(card: str, res: dict, run: str, ckpt: str,
+                    argv) -> dict:
+    """c3 at N = 4.  The train entry point's --test under torchrun, 2 NCCL
+    ranks x mesh_axis_rays 2 (configure_device's rays branch: rank l on
+    cards 2l, 2l + 1), against one process at mesh_axis_rays 1 on the same
+    checkpoint: the summaries equal on both ranks, their metrics within
+    1e-9 of the one process's, the val stats within 1e-6 relative (the
+    ranks' sums meet in another order); the ranks on cards 0 and 2."""
+    from transhuman_tpu_torch.cli import train as train_cli
+
+    _, reps, secs = res["rays_test"]
+    check_cards("rays --test", reps, False)
+    check([r["card"]["index"] for r in reps] == [0, 2], f"rays --test: the "
+          f"ranks' first cards {[r['card'] for r in reps]}, want 0 and 2")
+    check(reps[0]["summary"] == reps[1]["summary"], "rays --test: the "
+          "ranks' summaries differ")
+    val, summary = train_cli.main([*argv, "result_dir",
+                                   os.path.join(run, "rays1"),
+                                   "mesh_axis_rays", "1"])
+    got = reps[0]
+    for key, v in summary.items():
+        if isinstance(v, float):
+            check(abs(got["summary"][key] - v) <= 1e-9, f"rays --test: "
+                  f"{key} {got['summary'][key]} vs one process {v}")
+    check(val.keys() == got["val"].keys(), "rays --test: val keys")
+    for key, v in val.items():
+        check(abs(got["val"][key] - v) <= 1e-6 * max(abs(v), 1e-12),
+              f"rays --test: val {key} {got['val'][key]} vs {v}")
+    log(f"[c3 rays --test] the train entry point's --test over 2 NCCL ranks "
+        f"x mesh_axis_rays 2 (cards {[r['card']['index'] for r in reps]} "
+        f"and the next of each) vs one process at mesh_axis_rays 1: "
+        f"summary {got['summary']}, val {got['val']}; job {secs:.1f} s; "
+        f"launches per rank {[r['launches'] for r in reps]}  [{card}]")
+    return {"rays_test": _summed(reps)}
+
+
+def main_cards(n: int) -> int:
+    """``chip_smoke.py --cards N``: phases c1-c4 with one rank or one ray
+    share a card over NCCL (see the module docstring)."""
+    count = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    if count < n:
+        print(f"chip_smoke --cards {n}: {count} CUDA card(s) visible, {n} "
+              f"needed; nothing ran", file=sys.stderr)
+        return 2
+    import transhuman_tpu_torch  # noqa: F401 — fails outside the repo
+
+    for query in (["--query-gpu=index,name,power.limit,pci.bus_id",
+                   "--format=csv,noheader"], ["topo", "-m"]):
+        got = subprocess.run(["nvidia-smi", *query], capture_output=True,
+                             text=True, timeout=60)
+        log(got.stdout.strip() if got.returncode == 0 else
+            f"nvidia-smi {' '.join(query)}: exit {got.returncode}: "
+            f"{got.stderr.strip()}")
+    t0 = time.perf_counter()
+    card = phase_device()
+    phase_build()
+    by_path, figures, failures = {}, {}, []
+
+    def attempt(name, fn, *args):
+        """fn(*args); a failure is logged with its traceback and the later
+        phases still run (one call shows every fault), the run failing at
+        its end."""
+        import traceback
+
+        try:
+            return fn(*args)
+        except Exception:
+            log(f"[{name}] FAILED:\n{traceback.format_exc()}")
+            failures.append(name)
+            return None
+
+    def record(out, prefix="cards_"):
+        by_path.update({f"{prefix}{k}": v for k, v in (out or {}).items()})
+
+    by_path["cards_kernels"] = attempt("c1", phase_cards_kernels, card, n)
+    lap(t0, "c1 kernels on every card")
+    tmp = tempfile.mkdtemp(prefix="thp_cards_")
+    try:
+        layout = f"NCCL, one rank a card of {n}"
+        run = os.path.join(tmp, "c")
+        dp_ckpt = os.path.join(run, "dp.pth")
+        jobs = (dp_jobs(run, "nccl", C_BF16)
+                + eval_jobs(run, "nccl", dp_ckpt, C_EVAL_FRAMES,
+                            C_RECON_FRAMES)
+                + pp_jobs(run, n))
+        if n == 4:
+            jobs += tp_jobs(os.path.join(run, "tp22"), "nccl", 2, False)
+        torch.cuda.empty_cache()
+        res = attempt("c2 torchrun", dist_jobs, f"c {n} ranks", n, "nccl",
+                      jobs, tmp, C_TIMEOUT)
+        ref = attempt("pp reference", pp_reference)
+        if res is not None:
+            log(f"[c] {len(jobs)} jobs over {n} NCCL ranks, one a card, in "
+                f"one torchrun of {res[None]:.1f} s  [{card}]")
+            record(attempt("c2 dp", check_dp_train, card, res, run, n,
+                           layout, C_BF16))
+            record(attempt("c2 eval", check_sharded_eval, card, res, run, n,
+                           layout, dp_ckpt, C_EVAL_FRAMES, C_RECON_FRAMES,
+                           True))
+            figures["dp"] = attempt("c2 figures", dp_figures, card, res, n)
+            if ref is not None:
+                figures.update(attempt("c4 pp", check_pp, card, res, run, n,
+                                       n, layout, ref) or {})
+            if n == 4:
+                record(attempt("c4 tp 2x2", check_tp_train, card, res,
+                               os.path.join(run, "tp22"), 4, 2, layout))
+        lap(t0, f"c2, c4 over {n} ranks")
+        # the model axis on 2 cards, and the pipeline over 2 of them
+        run2 = os.path.join(tmp, "c2r")
+        layout2 = "NCCL, one rank a card of 2"
+        res2 = attempt("c4 torchrun", dist_jobs, "c 2 ranks", 2, "nccl",
+                       tp_jobs(os.path.join(run2, "tp"), "nccl", 2, True)
+                       + pp_jobs(run2, 2), tmp, C2_TIMEOUT)
+        if res2 is not None:
+            record(attempt("c4 tp", check_tp_train, card, res2,
+                           os.path.join(run2, "tp"), 2, 2, layout2))
+            if ref is not None:
+                figures.update(attempt("c4 pp 2", check_pp, card, res2, run2,
+                                       2, 2, layout2, ref) or {})
+        lap(t0, "c4 over 2 ranks")
+        # ray shares: one process over R cards, then 2 ranks x 2 cards,
+        # on a 1-step checkpoint of this process
+        for r in sorted({2, n}):
+            got = attempt(f"c3 render R={r}", phase_ray_render, card,
+                          [torch.device("cuda", i) for i in range(r)])
+            by_path[f"ray_sharded_{r}"], figures[f"ray_render_ms_{r}"] = (
+                got or (None, None))
+        ckpt = attempt("c3 checkpoint", train_checkpoint, tmp)
+        if ckpt is not None:
+            by_path[f"ray_sharded_eval_{n}"] = attempt(
+                "c3 evaluate", phase_ray_eval, card, tmp, ckpt, n)
+        by_path[f"ray_sharded_serve_{n}"] = attempt("c3 serve",
+                                                    check_ray_serve, card, n)
+        if n == 4 and ckpt is not None:
+            argv = ["--device", "cuda", "--test", "--weights", ckpt,
+                    "dataset", "synthetic", *J_EVAL_FRAMES,
+                    "trained_model_dir", os.path.join(run, "tm"),
+                    "record_dir", os.path.join(run, "rec")]
+            res3 = attempt("c3 --test torchrun", dist_jobs, "c rays --test",
+                           2, "nccl", [
+                               {"tag": "rays_test", "kind": "validate",
+                                "argv": ["--dist_backend", "nccl", *argv,
+                                         "result_dir",
+                                         os.path.join(run, "rays2"),
+                                         "mesh_axis_rays", "2"]}],
+                           tmp, C2_TIMEOUT)
+            if res3 is not None:
+                record(attempt("c3 --test", check_rays_test, card, res3, run,
+                               ckpt, argv), "")
+        lap(t0, "c3 ray shares (the script's time)")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(json.dumps({"cards": n, "launches_by_path": by_path,
+                      "figures": figures}))
+    if failures:
+        print(f"chip_smoke --cards {n}: {len(failures)} phase(s) failed: "
+              f"{', '.join(failures)}", file=sys.stderr)
+        return 1
+    log(f"chip_smoke --cards {n}: all phases passed in "
+        f"{time.perf_counter() - t0:.1f} s")
+    print(card)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+def train_checkpoint(tmp: str) -> str:
+    """A 1-step full-width float32 checkpoint of the train entry point in
+    this process, for c3's renders."""
+    from transhuman_tpu_torch.cli import train as train_cli
+
+    path = os.path.join(tmp, "c3", "one_step.pth")
+    train_cli.main(["--out", path, *_entry_opts(
+        os.path.join(tmp, "c3"), "one", 1, "train.batch_size", "1")])
+    return path
+
+
 def lap(t0: float, done: str):
     """The script's seconds so far, after the phases named ``done``."""
     log(f"[time] {time.perf_counter() - t0:.1f} s after {done}")
 
 def main() -> int:
+    if "--cards" in sys.argv:
+        return main_cards(int(sys.argv[sys.argv.index("--cards") + 1]))
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing ran", file=sys.stderr)
         return 2
     import transhuman_tpu_torch  # noqa: F401 — fails outside the repo
 
-    if "--pp-worker" in sys.argv:  # one rank of phase l2, under torchrun
-        pp_worker(sys.argv[sys.argv.index("--pp-worker") + 1])
+    if "--dist-worker" in sys.argv:  # one rank of dist_jobs, under torchrun
+        dist_worker(sys.argv[sys.argv.index("--dist-worker") + 1])
         return 0
 
     t0 = time.perf_counter()
@@ -5601,28 +6369,23 @@ def main() -> int:
         by_path.update(phase_radii(card, tmp, ckpt_b4))
         by_path.update(phase_train_zju_batch(card, tmp, zju_root, files))
         lap(t0, "h batches and culls")
-        # data parallelism: train over ranks, then evaluate, visualize and
-        # reconstruct with the frames split between them
-        t_j = time.perf_counter()
-        j_paths, dp_ckpt = phase_dp_train(card, tmp)
-        by_path.update(j_paths)
-        by_path.update(phase_sharded_eval(card, tmp, dp_ckpt))
-        log(f"[j] phase j in {time.perf_counter() - t_j:.1f} s")
+        # data parallelism and the model axis: K2 at TransHE small's and
+        # base's widths, then train over ranks, evaluate, visualize and
+        # reconstruct with the frames split between them, tensor-parallel
+        # training and the pipelined TransHE, in one torchrun
+        t_jl = time.perf_counter()
+        k2_wide = {d: check_dparf_width(card, d) for d in (384, 768)}
+        by_path.update(phase_ranks(card, tmp))
+        log(f"[j+l] phases j and l in {time.perf_counter() - t_jl:.1f} s")
         # ray-sharded inference and the remaining tools
         t_k = time.perf_counter()
-        by_path["ray_sharded"] = phase_ray_render(card)
+        by_path["ray_sharded"] = phase_ray_render(
+            card, [torch.device("cuda", 0)] * 2)[0]
         by_path["ray_sharded_eval"] = phase_ray_eval(card, tmp, ckpt)
         smpl_dir, kmeans = phase_make_kmeans(card, tmp)
         phase_doctor(card, tmp, os.path.join(tmp, "zju_eval"), ckpt)
         phase_validate_official(card, tmp, smpl_dir, kmeans)
         log(f"[k] phase k in {time.perf_counter() - t_k:.1f} s")
-        # the model axis: K2 at TransHE small's and base's widths,
-        # tensor-parallel training, the pipelined TransHE
-        t_l = time.perf_counter()
-        k2_wide = {d: check_dparf_width(card, d) for d in (384, 768)}
-        by_path.update(phase_tp_train(card, tmp))
-        phase_pp(card, tmp)
-        log(f"[l] phase l in {time.perf_counter() - t_l:.1f} s")
         # BMP, PPM, Sun raster, TIFF, GIF, Radiance HDR, WebP and JP2 frames;
         # mesh_axis_rays under torchrun; the examples
         t_n = time.perf_counter()

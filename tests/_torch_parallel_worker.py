@@ -39,7 +39,7 @@ def _pipe(inp):
         net.eval(), ClusterSpec(inp["vert2cluster"], c["n_clusters"]),
         SMPLModel.synthetic(n_verts=c["n_verts"]).v_template,
         n_samples=c["n_samples"], train_cull=inp["train_cull"],
-        device="cpu")
+        remat=inp.get("remat", False), device="cpu")
 
 
 def step_job(out_dir, mesh):

@@ -139,17 +139,35 @@ def maybe_init_distributed(args, device) -> bool:
     return init_distributed(backend)
 
 
+def card_identity() -> Optional[dict]:
+    """The card this process has made current: its index, its UUID and
+    its PCI address (None where this torch does not report them); None in
+    a process that has not touched a card."""
+    if not torch.cuda.is_initialized():
+        return None
+    index = torch.cuda.current_device()
+    props = torch.cuda.get_device_properties(index)
+    uuid = getattr(props, "uuid", None)
+    pci = None
+    if hasattr(props, "pci_bus_id"):
+        pci = (f"{getattr(props, 'pci_domain_id', 0):04x}:"
+               f"{props.pci_bus_id:02x}:"
+               f"{getattr(props, 'pci_device_id', 0):02x}")
+    return {"index": index, "name": props.name,
+            "uuid": None if uuid is None else str(uuid), "pci": pci}
+
+
 def rank_report(mesh, **fields) -> None:
     """One JSON line of a rank's own numbers (its rank, the world size,
-    the kernel launches it made, and ``fields``), after a distributed
-    run."""
+    the card it runs on, the kernel launches it made, and ``fields``),
+    after a distributed run."""
     import json
 
     from .. import kernels
 
     line = "rank report: " + json.dumps({
-        "rank": mesh.rank, "world": mesh.size, **fields,
-        "launches": kernels.launch_counts()})
+        "rank": mesh.rank, "world": mesh.size, "card": card_identity(),
+        **fields, "launches": kernels.launch_counts()})
     # one write, so that ranks sharing a terminal do not interleave it
     sys.stdout.write(line + "\n")
     sys.stdout.flush()
